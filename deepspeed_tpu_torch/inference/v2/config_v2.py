@@ -1,0 +1,86 @@
+"""FastGen v2 engine config (port of ``deepspeed_tpu/inference/v2/config_v2.py``).
+
+Every key of the reference is accepted and validates the same way. Values
+that this port cannot serve yet raise ``NotImplementedError`` naming the
+``ROADMAP.md`` item that brings them, instead of being silently ignored.
+"""
+
+from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigModel
+
+
+class DSStateManagerConfig(DeepSpeedConfigModel):
+    """Ragged state-manager knobs (reference ``ragged/manager_configs.py``)."""
+    max_tracked_sequences = 2048
+    max_ragged_batch_size = 768          # max total new tokens per put()
+    max_ragged_sequence_count = 512      # max sequences per put()
+    max_context = 8192                   # max tokens a single sequence may hold
+    memory_config = "reserve"            # accepted for parity
+    num_kv_blocks = None                 # explicit block count; None = derive
+    # KV storage dtype: "fp" keeps pages in kv_cache.cache_dtype; "int8"
+    # stores pages int8 with per-token fp32 scales (quantize-on-write in the
+    # forward, fused dequant-on-read in the paged kernel).
+    kv_dtype = "fp"
+    host_kv_blocks = 0                   # host-DRAM spill tier (ROADMAP A2)
+    nvme_kv_blocks = 0                   # NVMe tier under it (ROADMAP A2)
+    nvme_kv_dir = ""
+
+
+class KVCacheConfig(DeepSpeedConfigModel):
+    block_size = 64
+    num_allocation_groups = 1
+    cache_dtype = "bf16"
+
+
+class ModulesConfig(DeepSpeedConfigModel):
+    """Per-interface implementation pins (see ``modules/module_registry.py``).
+    "auto" = heuristic choice: on CUDA the hand-written kernel, which raises
+    on a shape it cannot take. "dense" runs the kernel's plain PyTorch
+    version on any device — an explicit choice, logged as such."""
+    attention = "auto"        # "cuda_paged" | "dense"
+    moe = "auto"              # no MoE serving yet (ROADMAP A7)
+    linear = "auto"           # must stay "auto"; no quantized linear here
+
+
+class SpeculativeConfig(DeepSpeedConfigModel):
+    """Draft-then-verify decode knobs (ROADMAP A3: not served yet)."""
+    enabled = False
+    max_draft_tokens = 4
+    ngram_max = 3
+    draft_page_divisor = 0
+
+
+class RaggedInferenceEngineConfig(DeepSpeedConfigModel):
+    """Top-level v2 config (reference ``config_v2.py:29``)."""
+    tensor_parallel = {"tp_size": 1}
+    state_manager = DSStateManagerConfig()
+    kv_cache = KVCacheConfig()
+    modules = ModulesConfig()
+    # block-granular prefix caching with copy-on-write sharing
+    # (ragged/prefix_cache.py). Generation is bit-exact either way.
+    prefix_caching = False
+    speculative = SpeculativeConfig()
+    slo_classes = {}                     # per-class SLO targets (ROADMAP A4)
+
+    def __init__(self, param_dict=None, **kwargs):
+        super().__init__(param_dict, **kwargs)
+        self._reject_unported()
+
+    def _reject_unported(self):
+        sm = self.state_manager
+        unported = [
+            (sm.host_kv_blocks > 0, "state_manager.host_kv_blocks > 0",
+             "A2 (host/NVMe KV tiers)"),
+            (sm.nvme_kv_blocks > 0, "state_manager.nvme_kv_blocks > 0",
+             "A2 (host/NVMe KV tiers)"),
+            (bool(self.speculative.enabled), "speculative.enabled",
+             "A3 (speculative decode)"),
+            (bool(self.slo_classes), "slo_classes",
+             "A4 (SLO classes and serving telemetry)"),
+            (int(dict(self.tensor_parallel).get("tp_size", 1)) > 1,
+             "tensor_parallel.tp_size > 1", "A5 (tensor-parallel serving)"),
+        ]
+        for bad, what, item in unported:
+            if bad:
+                raise NotImplementedError(
+                    f"{what} is not ported to deepspeed_tpu_torch yet; "
+                    f"see ROADMAP.md queue {item}")

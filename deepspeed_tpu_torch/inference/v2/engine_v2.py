@@ -1,0 +1,281 @@
+"""FastGen-style serving engine (port of
+``deepspeed_tpu/inference/v2/engine_v2.py``, mirroring reference
+``deepspeed/inference/v2/engine_v2.py:30``).
+
+``put(uids, tokens)`` schedules a mixed prefill/decode ragged batch and returns
+next-token logits per sequence; ``query``/``can_schedule`` expose admission
+control for an external scheduler (DeepSpeed-MII's SplitFuse role);
+``flush`` retires a sequence and frees its KV blocks.
+
+Left for later slices: the verify forward and rollback (ROADMAP A3), page
+export/import and the fleet hooks (ROADMAP A2, A8), telemetry spans and the
+flight-recorder collector (ROADMAP A4).
+"""
+
+import dataclasses
+from typing import Iterable, List, Tuple
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch import resolve_device
+from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
+from deepspeed_tpu_torch.inference.v2.modules import module_registry as _mr
+from deepspeed_tpu_torch.inference.v2.modules.heuristics import instantiate_attention
+from deepspeed_tpu_torch.inference.v2.ragged.ragged_manager import DSStateManager
+from deepspeed_tpu_torch.inference.v2.ragged.ragged_wrapper import RaggedBatchWrapper
+from deepspeed_tpu_torch.inference.v2.sampling import sample_rows
+from deepspeed_tpu_torch.utils.logging import logger
+
+
+@dataclasses.dataclass
+class SchedulingResult:
+    """Admission verdict (reference ``scheduling_utils.py``)."""
+    success: bool
+    reason: str = "ok"
+
+
+class InferenceEngineV2:
+    """Serve a Llama-family model over a paged KV cache.
+
+    Args:
+        model: ``deepspeed_tpu_torch.models.llama.LlamaForCausalLM`` whose
+            weights already lie on ``device``.
+        config: ``RaggedInferenceEngineConfig`` or dict.
+        forward_fn: the ragged forward (default: the factory's choice for
+            the model family).
+        device: where the engine runs; default ``"cuda"``, which raises when
+            no GPU is present.
+    """
+
+    def __init__(self, model, config=None, forward_fn=None, device=None):
+        if not isinstance(config, RaggedInferenceEngineConfig):
+            config = RaggedInferenceEngineConfig(config or {})
+        self._config = config
+        self._device = resolve_device(device)
+        self._model = model
+        cfg = self._model_config = model.config
+        weights_on = next(model.parameters()).device
+        if weights_on != self._device:
+            raise ValueError(f"model weights are on {weights_on}, the engine "
+                             f"runs on {self._device}; move the model first")
+        if forward_fn is None:
+            from deepspeed_tpu_torch.inference.v2.engine_factory import resolve_forward_fn
+            forward_fn = resolve_forward_fn(model)
+        self._ragged_forward = forward_fn
+        mods = config.modules
+        if mods.linear != "auto":
+            raise _mr.UnsupportedModuleError(
+                "modules.linear pins apply to quantized serving; the v2 "
+                "ragged engine has no quantized linear to swap")
+        if mods.moe != "auto":
+            raise _mr.UnsupportedModuleError(
+                f"modules.moe pinned to {mods.moe!r} but "
+                f"{type(cfg).__name__} has no MoE layer to swap")
+        sm, kvc = config.state_manager, config.kv_cache
+        # the attention choice is validated before the KV pool is allocated
+        self._attention_impl, self._attention = instantiate_attention(
+            (1, 1, cfg.num_attention_heads, cfg.head_dim),
+            (1, cfg.num_key_value_heads, kvc.block_size, cfg.head_dim),
+            preference=mods.attention)
+        if mods.attention == "dense":
+            logger.info(f"modules.attention pinned to 'dense' by config: "
+                        f"attention runs its plain PyTorch version on "
+                        f"{self._device}, not the kernel")
+        self._state = DSStateManager(config, cfg.num_hidden_layers,
+                                     cfg.num_key_value_heads, cfg.head_dim,
+                                     self._device)
+        self._state.kv_cache.set_host_fetch(self.host_fetch)
+        self._max_blocks_per_seq = -(-sm.max_context // kvc.block_size)
+        self._host_sync_count = 0
+        logger.info(f"InferenceEngineV2 on {self._device}: "
+                    f"S<={sm.max_ragged_sequence_count} "
+                    f"tokens<={sm.max_ragged_batch_size} "
+                    f"context<={sm.max_context} "
+                    f"attention={self._attention_impl}")
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
+    def attention_impl(self) -> str:
+        """Registry name of the attention this engine runs."""
+        return self._attention_impl
+
+    # -- accounted host fetch ----------------------------------------------
+    @property
+    def host_sync_count(self) -> int:
+        """Device->host syncs this engine has performed. One decode round
+        through the scheduler costs exactly one (the sampled-ids fetch)."""
+        return self._host_sync_count
+
+    def host_fetch(self, value, what: str):
+        """THE accounted device->host boundary for serving: every hot-path
+        transfer funnels through here so ``host_sync_count`` audits the
+        per-round sync budget. Returns a CPU tensor."""
+        self._host_sync_count += 1
+        return value.detach().to("cpu")
+
+    # -- admission control (reference engine_v2.py:158-241) ----------------
+    @property
+    def free_blocks(self):
+        return self._state.free_blocks
+
+    # -- prefix caching (ragged/prefix_cache.py) ---------------------------
+    @property
+    def prefix_caching(self) -> bool:
+        return self._state.prefix_cache is not None
+
+    def match_prefix(self, uid: int, prompt_tokens) -> int:
+        """Longest-cached-prefix match at sequence creation: creates the
+        sequence holding the shared blocks and returns the matched token
+        count (0 = miss or caching disabled). Schedulers advance their
+        prefill cursor past the return value."""
+        return self._state.match_prefix(uid, prompt_tokens)
+
+    def query(self, uid: int, max_request_tokens: int,
+              max_request_blocks: int) -> Tuple[int, int]:
+        """How many tokens/blocks this sequence could schedule right now."""
+        seq = self._state.get_sequence(uid)
+        seen = seq.seen_tokens if seq else 0
+        have_blocks = seq.cur_allocated_blocks if seq else 0
+        bs = self._state.kv_block_size
+        token_room = self._config.state_manager.max_context - seen
+        block_room = have_blocks * bs - seen + min(max_request_blocks,
+                                                   self.free_blocks) * bs
+        return min(max_request_tokens, token_room, block_room), \
+            min(max_request_blocks, self.free_blocks)
+
+    def can_schedule(self, uids: Iterable[int],
+                     lengths: Iterable[int]) -> SchedulingResult:
+        uids, lengths = list(uids), list(lengths)
+        sm = self._config.state_manager
+        if len(set(uids)) != len(uids):
+            return SchedulingResult(False, "duplicate uids in batch")
+        if len(uids) > sm.max_ragged_sequence_count:
+            return SchedulingResult(False, "too many sequences")
+        if sum(lengths) > sm.max_ragged_batch_size:
+            return SchedulingResult(False, "too many tokens")
+        need, new_seqs = 0, 0
+        for uid, n in zip(uids, lengths):
+            seq = self._state.get_sequence(uid)
+            seen = seq.seen_tokens if seq else 0
+            if seq is not None and seq.is_swapped:
+                # its KV lives in the host tier: attending would silently read
+                # zeroed blocks — the caller must resume() first
+                return SchedulingResult(False, f"uid {uid} is swapped out")
+            if seq is None:
+                new_seqs += 1
+            if seen + n > sm.max_context:
+                return SchedulingResult(False, f"uid {uid} exceeds max_context")
+            have = seq.cur_allocated_blocks if seq else 0
+            need += self._state.blocks_needed_for(seen, have, n,
+                                                  self._state.kv_block_size)
+        if self._state.n_tracked_sequences + new_seqs > sm.max_tracked_sequences:
+            return SchedulingResult(False, "too many tracked sequences")
+        if need > self.free_blocks:
+            return SchedulingResult(False, "not enough KV blocks")
+        return SchedulingResult(True)
+
+    def get_remaining_block_capacity(self, uid: int) -> int:
+        seq = self._state.get_sequence(uid)
+        if seq is None:
+            return 0
+        return seq.cur_allocated_blocks * self._state.kv_block_size - seq.seen_tokens
+
+    # -- serving (reference engine_v2.py:107) ------------------------------
+    def _forward_device(self, batch_uids: List[int],
+                        batch_tokens: List[np.ndarray]):
+        """Run one ragged forward; returns the FULL padded [S_bucket, vocab]
+        fp32 logits on the device (no host transfer)."""
+        verdict = self.can_schedule(batch_uids, [len(t) for t in batch_tokens])
+        if not verdict.success:
+            raise RuntimeError(f"cannot schedule batch: {verdict.reason}")
+        sm = self._config.state_manager
+        kv = self._state.kv_cache
+        wrapper = RaggedBatchWrapper(sm.max_ragged_sequence_count,
+                                     sm.max_ragged_batch_size,
+                                     self._max_blocks_per_seq, kv.trash_block)
+        caching = self._state.prefix_cache is not None
+        for uid, toks in zip(batch_uids, batch_tokens):
+            seq = self._state.get_or_create_sequence(uid)
+            self._state.ensure_capacity(seq, len(toks))
+            seq.in_flight_tokens = len(toks)
+            if caching:
+                seq.tokens.extend(int(t) for t in toks)
+            wrapper.insert_sequence(uid, np.asarray(toks, np.int32),
+                                    seq.seen_tokens, seq.kv_blocks)
+        arrays = {k: torch.from_numpy(a).to(self._device)
+                  for k, a in wrapper.build().items()}
+        logits = self._ragged_forward(
+            self._model, kv, arrays["tokens"], arrays["q_len"],
+            arrays["seen"], arrays["block_tables"], attention=self._attention)
+        for uid in batch_uids:
+            seq = self._state.get_sequence(uid)
+            seq.post_forward()
+            if caching:
+                # register blocks as they FILL (not at flush) so concurrent
+                # requests sharing a prefix hit as early as possible
+                self._state.commit_cached_blocks(seq)
+        return logits
+
+    def put(self, batch_uids: List[int],
+            batch_tokens: List[np.ndarray]) -> np.ndarray:
+        """Run one ragged forward; returns [len(uids), vocab] next-token logits."""
+        logits = self._forward_device(batch_uids, batch_tokens)
+        return self.host_fetch(logits[:len(batch_uids)],
+                               "serving/logits").numpy()
+
+    def put_sampled_device(self, batch_uids: List[int],
+                           batch_tokens: List[np.ndarray],
+                           temperatures, top_ks, top_ps, seeds, positions):
+        """``put_sampled`` without the final host fetch: returns the
+        [S-bucket] int32 ids as a DEVICE tensor (rows past ``len(uids)`` are
+        padding)."""
+        logits = self._forward_device(batch_uids, batch_tokens)
+        return sample_rows(logits, temperatures, top_ks, top_ps,
+                           [int(s) & 0x7FFFFFFF for s in seeds], positions)
+
+    def put_sampled(self, batch_uids: List[int],
+                    batch_tokens: List[np.ndarray],
+                    temperatures, top_ks, top_ps, seeds,
+                    positions) -> np.ndarray:
+        """One ragged forward + on-device sampling; returns [len(uids)] int32
+        token ids. The host never sees the logits — 4 bytes per sequence
+        cross to the host per decode step. Rows mid-prefill sample garbage
+        by construction; callers discard those ids."""
+        ids = self.put_sampled_device(batch_uids, batch_tokens, temperatures,
+                                      top_ks, top_ps, seeds, positions)
+        return self.host_fetch(ids, "serving/sampled_ids").numpy()[:len(batch_uids)]
+
+    def flush(self, uid: int) -> None:
+        """Retire a sequence, freeing its KV blocks (reference :242)."""
+        self._state.flush_sequence(uid)
+
+    def kv_stats(self):
+        """Pure host-side KV pool stats (occupancy, free blocks,
+        fragmentation, swap counters). Never touches the device."""
+        return self._state.kv_stats()
+
+    @property
+    def kv_block_size(self) -> int:
+        return self._state.kv_block_size
+
+    # -- KV host swap (ZeRO-Inference KV offload; scheduler preemption) ----
+    def preempt(self, uid: int) -> None:
+        """Copy ``uid``'s KV cache to host memory, freeing its device blocks
+        for other sequences; generation state is preserved."""
+        self._state.swap_out_sequence(uid)
+
+    def resume(self, uid: int) -> None:
+        """Restore a preempted sequence's KV into fresh device blocks."""
+        self._state.swap_in_sequence(uid)
+
+    def blocks_to_resume(self, uid: int) -> int:
+        return self._state.blocks_to_resume(uid)
+
+    @property
+    def swap_stats(self):
+        return {"swap_outs": self._state.swap_outs,
+                "swap_ins": self._state.swap_ins}

@@ -1,0 +1,99 @@
+"""Ragged (paged-KV) Llama forward (port of
+``deepspeed_tpu/inference/v2/model_implementations/llama.py``).
+
+Runs the weights of ``deepspeed_tpu_torch.models.llama.LlamaForCausalLM``
+over a padded ``[S, Q]`` ragged batch: embedding, per layer RMSNorm -> q/k/v
+projections -> interleaved rotary -> scatter of the new K/V into the paged
+pools -> paged attention -> o projection -> RMSNorm -> SwiGLU MLP, then the
+final norm and the logits of each sequence's last real token. Padded token
+slots write to the trash block. The JAX package donates its pools to the
+jitted forward and gets new ones back; here the pools are updated in place
+(``index_put_``), which saves a copy of the whole cache per forward.
+``ragged_forward_verify`` (speculative decode) waits for ROADMAP A3.
+"""
+
+import torch
+import torch.nn.functional as F
+
+from deepspeed_tpu_torch.models.llama import rms_norm, rotary_embed
+from deepspeed_tpu_torch.ops.paged_attention import paged_mha
+
+
+def _quantize_kv_rows(x):
+    """[..., Dh] fp -> (int8 [..., Dh], fp32 scale [...]): symmetric int8
+    per row, the JAX package's ``_quantize_rows_ref(rows, 8)`` applied per
+    (token, kv head) row."""
+    x = x.float()
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(x / scale), -127.0, 127.0).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def _scatter_kv(k_pool, v_pool, k_scale, v_scale, k, v, block_tables, seen,
+                q_len):
+    """Write [S, Q, KV, Dh] new KVs into one layer's [NB+1, KV, bs, Dh]
+    pools, in place, through the block tables. Padded token slots go to the
+    trash block (the pools' last block); a block index past the table clamps,
+    as the JAX gather's ``mode="clip"`` does. int8 pools quantize on write
+    per (token, kv head) row and scatter the fp32 scale into the side pools
+    [NB+1, KV, 1, bs] under the same block/slot indices."""
+    S, Q = k.shape[:2]
+    nb, _, bs, _ = k_pool.shape          # includes the trash block
+    tok = torch.arange(Q, device=k.device)
+    pos = seen.long()[:, None] + tok[None, :]                     # [S, Q]
+    valid = tok[None, :] < q_len.long()[:, None]
+    blk = torch.gather(block_tables.long(), 1,
+                       (pos // bs).clamp(max=block_tables.shape[1] - 1))
+    bi = torch.where(valid, blk, nb - 1).reshape(-1)              # [S*Q]
+    si = torch.where(valid, pos % bs, 0).reshape(-1)
+    if k_scale is not None:
+        k, ks = _quantize_kv_rows(k)     # int8 [S,Q,KV,Dh], f32 [S,Q,KV]
+        v, vs = _quantize_kv_rows(v)
+        # advanced indices at dims (0, 2) of the [NB+1, KV, bs] view
+        # straddle the head slice, so values land as [S*Q, KV]
+        k_scale[:, :, 0][bi, :, si] = ks.reshape(S * Q, -1)
+        v_scale[:, :, 0][bi, :, si] = vs.reshape(S * Q, -1)
+    k_pool[bi, :, si] = k.reshape(S * Q, *k.shape[2:]).to(k_pool.dtype)
+    v_pool[bi, :, si] = v.reshape(S * Q, *v.shape[2:]).to(v_pool.dtype)
+
+
+@torch.no_grad()
+def ragged_forward(model, kv_cache, tokens, q_len, seen, block_tables,
+                   attention=paged_mha):
+    """One ragged forward step over ``model`` (a ``LlamaForCausalLM``).
+
+    ``tokens`` [S, Q], ``q_len``/``seen`` [S] and ``block_tables`` [S, MB]
+    are int32 tensors on the model's device; ``kv_cache`` is the engine's
+    ``BlockedKVCache``, whose pools this call updates in place.
+    ``attention`` has ``paged_mha``'s signature: the kernel by default, or
+    its plain version. Returns last-token logits [S, V] in fp32."""
+    cfg = model.config
+    S, Q = tokens.shape
+    H, KV, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    positions = seen.long()[:, None] + torch.arange(Q, device=tokens.device)
+
+    x = model.embed_tokens.weight[tokens.long()]                 # [S, Q, D]
+    for i, layer in enumerate(model.layers):
+        attn = layer.self_attn
+        h = rms_norm(x, layer.input_layernorm.weight, cfg.rms_norm_eps)
+        q = F.linear(h, attn.q_proj.weight, attn.q_proj.bias).view(S, Q, H, Dh)
+        k = F.linear(h, attn.k_proj.weight, attn.k_proj.bias).view(S, Q, KV, Dh)
+        v = F.linear(h, attn.v_proj.weight, attn.v_proj.bias).view(S, Q, KV, Dh)
+        q = rotary_embed(q, positions, cfg.rope_theta)
+        k = rotary_embed(k, positions, cfg.rope_theta)
+        kp, vp, ks, vs = kv_cache.layer(i)
+        _scatter_kv(kp, vp, ks, vs, k, v, block_tables, seen, q_len)
+        out = attention(q, kp, vp, block_tables, seen, q_len, k_scale=ks,
+                        v_scale=vs, window=cfg.sliding_window)
+        x = x + F.linear(out.reshape(S, Q, H * Dh), attn.o_proj.weight,
+                         attn.o_proj.bias)
+        mlp = layer.mlp
+        h = rms_norm(x, layer.post_attention_layernorm.weight, cfg.rms_norm_eps)
+        gate = F.silu(F.linear(h, mlp.gate_proj.weight))
+        x = x + F.linear(gate * F.linear(h, mlp.up_proj.weight),
+                         mlp.down_proj.weight)
+    x = rms_norm(x, model.norm.weight, cfg.rms_norm_eps)
+    # logits_gather analog: only the last real token of each sequence
+    last = x[torch.arange(S, device=x.device), (q_len.long() - 1).clamp(min=0)]
+    return F.linear(last, model.lm_head.weight).float()

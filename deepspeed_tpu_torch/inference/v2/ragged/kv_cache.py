@@ -1,0 +1,133 @@
+"""Blocked (paged) KV cache (port of
+``deepspeed_tpu/inference/v2/ragged/kv_cache.py``).
+
+Device layout: one K pool and one V pool, torch tensors shaped
+``[num_layers, num_blocks + 1, num_kv_heads, block_size, head_dim]`` on the
+engine's device — (block_size, head_dim) minor, so one page of one kv head is
+a contiguous ``block_size * head_dim`` run the paged-attention kernel stages
+whole. Block ids are handed out by the host-side ``BlockedAllocator``; the
+model's forward scatters new KVs into the pools in place and attends through
+block tables. One extra *trash block* (index ``num_blocks``) absorbs writes
+from padded token slots.
+
+``kv_dtype="int8"`` stores the pools int8 with per-token fp32 scales in side
+pools shaped ``[num_layers, num_blocks + 1, num_kv_heads, 1, block_size]``
+(one scale per token row over head_dim): quantization happens on write in the
+forward, dequantization inside the paged-attention kernel.
+
+Preemption swaps a sequence's pages to CPU tensors and back with plain
+synchronous copies. The reference's host-DRAM spill tier, its asynchronous
+swapper, the NVMe tier and page export/import wait for ROADMAP A2.
+"""
+
+import torch
+
+from deepspeed_tpu_torch.inference.v2.ragged.blocked_allocator import BlockedAllocator
+
+_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16,
+           "fp32": torch.float32}
+
+
+class BlockedKVCache:
+
+    def __init__(self, num_layers, num_blocks, block_size, num_kv_heads,
+                 head_dim, dtype="bf16", kv_dtype="fp", device="cpu"):
+        if kv_dtype not in ("fp", "int8"):
+            raise ValueError(f"kv_dtype must be 'fp' or 'int8', got {kv_dtype!r}")
+        self.num_layers = num_layers
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        self.quantized = (kv_dtype == "int8")
+        self.device = torch.device(device)
+        self.dtype = torch.int8 if self.quantized else _DTYPES.get(dtype, dtype)
+        # +1 trash block for masked writes
+        shape = (num_layers, num_blocks + 1, num_kv_heads, block_size, head_dim)
+        self.k_pool = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        self.v_pool = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        if self.quantized:
+            sshape = (num_layers, num_blocks + 1, num_kv_heads, 1, block_size)
+            self.k_scale = torch.ones(sshape, dtype=torch.float32,
+                                      device=self.device)
+            self.v_scale = torch.ones(sshape, dtype=torch.float32,
+                                      device=self.device)
+        else:
+            self.k_scale = self.v_scale = None
+        self._allocator = BlockedAllocator(num_blocks)
+        self._fetch = None  # injectable accounted device->host fetch
+
+    @property
+    def allocator(self) -> BlockedAllocator:
+        """Host-side block allocator (refcounts, prefix-cache binding)."""
+        return self._allocator
+
+    @property
+    def free_blocks(self) -> int:
+        return self._allocator.free_blocks
+
+    @property
+    def occupancy(self) -> float:
+        """Fraction of pool blocks currently allocated (host-side read)."""
+        return 1.0 - self._allocator.free_blocks / self.num_blocks
+
+    def allocator_stats(self):
+        """Free-list depth + fragmentation (``BlockedAllocator.stats``)."""
+        return self._allocator.stats()
+
+    @property
+    def trash_block(self) -> int:
+        return self.num_blocks
+
+    def reserve(self, num_blocks):
+        """Allocate block ids (reference ``kv_cache.py:144``)."""
+        return self._allocator.allocate(num_blocks)
+
+    def free(self, blocks):
+        """Return block ids to the pool (reference ``kv_cache.py:155``)."""
+        self._allocator.free(blocks)
+
+    def layer(self, i):
+        """Layer ``i``'s pools as ``(k, v, k_scale, v_scale)`` views; the
+        scales are None for fp pools. Writes through the views land in the
+        pools (the forward updates them in place)."""
+        if self.quantized:
+            return (self.k_pool[i], self.v_pool[i], self.k_scale[i],
+                    self.v_scale[i])
+        return self.k_pool[i], self.v_pool[i], None, None
+
+    # -- accounted device->host transfers ----------------------------------
+    def set_host_fetch(self, fetch):
+        """Route every device->host landing (swap_out) through
+        ``fetch(value, what) -> cpu tensor`` — the engine wires its accounted
+        ``host_fetch`` in so ``host_sync_count`` sees KV swap traffic."""
+        self._fetch = fetch
+
+    def _pools(self):
+        pools = [self.k_pool, self.v_pool]
+        if self.quantized:
+            pools += [self.k_scale, self.v_scale]
+        return pools
+
+    # -- host swap tier (ZeRO-Inference KV offload analog) -----------------
+    def swap_out(self, blocks):
+        """Copy the given block rows to CPU tensors and release the caller's
+        reference on their ids. Returns an opaque host handle for
+        ``swap_in``."""
+        blocks = list(blocks)
+        idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
+        parts = [p.index_select(1, idx) for p in self._pools()]
+        if self._fetch is not None:
+            landed = [self._fetch(p, "kv_cache/swap_out") for p in parts]
+        else:
+            landed = [p.to("cpu") for p in parts]
+        self._allocator.free(blocks)
+        return {"n": len(blocks), "parts": landed}
+
+    def swap_in(self, handle):
+        """Restore swapped blocks into freshly allocated ids (order preserved:
+        the i-th restored block holds what the i-th swapped-out block held).
+        Returns the new block ids."""
+        new_blocks = self._allocator.allocate(handle["n"])
+        idx = torch.tensor(new_blocks, dtype=torch.long, device=self.device)
+        for pool, part in zip(self._pools(), handle["parts"]):
+            pool.index_copy_(1, idx, part.to(self.device))
+        return new_blocks

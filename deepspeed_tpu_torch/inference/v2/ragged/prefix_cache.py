@@ -1,0 +1,176 @@
+"""Block-granular prefix cache over the paged KV pool (port of
+``deepspeed_tpu/inference/v2/ragged/prefix_cache.py``; vLLM-style automatic
+prefix caching adapted to the blocked allocator).
+
+Every FULL block of a sequence's token stream gets a chain digest
+``H(parent_digest, block_tokens)`` — the digest of block *i* therefore
+commits to the entire token prefix ``tokens[:(i+1)*block_size]``, so a single
+dict lookup per block walks the longest cached prefix. The cache maps
+digests to physical block ids; matching sequences take an extra reference on
+the shared block (``BlockedAllocator.ref``) and simply list it in their block
+table — paged attention indirects through block ids, so kernels never notice
+the sharing.
+
+COW boundary: only FULL blocks are ever shared. The ragged engine only
+writes a sequence's *partial tail* block (new tokens append there), so a
+shared full block is immutable by construction and no device copy is needed.
+A match is additionally capped at ``len(prompt) - 1`` tokens so the final
+prompt token always runs through a forward — that forward produces the
+logits for the first generated token.
+
+Lifecycle of a cached block:
+
+  * **insert** — registered when a sequence fills it (live, refcount >= 1);
+    the cache map itself holds no reference.
+  * **park** — when the last referencing sequence flushes,
+    ``BlockedAllocator.free`` asks ``park_if_cached``: cached blocks are
+    held out of the free list with their KV contents warm.
+  * **revive** — a later prefix hit on a parked block takes it live again.
+  * **evict** — under pool pressure ``BlockedAllocator.allocate`` reclaims
+    parked blocks LRU-first (contents dropped, digest forgotten), before
+    the scheduler's ``_preempt_for_progress`` host-swaps any live victim.
+
+The reference's spill of parked blocks to a host-DRAM tier (``bind_spiller``)
+and the delta-shipping lookups of its fleet wait for ROADMAP A2 and A8.
+
+The digest is SHA-256 over the parent digest + the raw int32 token bytes —
+a collision would silently serve another prompt's KV, so a cryptographic
+hash (not Python ``hash``) is the right tool despite costing a bit more.
+"""
+
+import hashlib
+from collections import OrderedDict
+
+import numpy as np
+
+_ROOT = b""  # parent digest of the first block in every chain
+
+
+class PrefixCache:
+
+    def __init__(self, allocator, block_size: int):
+        self._alloc = allocator
+        self.block_size = block_size
+        self._map = {}        # digest -> physical block id
+        self._by_block = {}   # physical block id -> digest
+        # parked (refcount-0) digests in park order == LRU order; flush
+        # parks a chain children-first so eviction orphans no ancestors
+        self._lru = OrderedDict()
+        self.hits = 0             # requests that matched >= 1 cached block
+        self.misses = 0
+        self.tokens_saved = 0     # cumulative prefill tokens skipped
+        self.insertions = 0
+        self.evictions = 0
+        allocator.bind_cache(self)
+
+    @staticmethod
+    def chain_digest(parent: bytes, block_tokens) -> bytes:
+        h = hashlib.sha256(parent)
+        h.update(np.asarray(block_tokens, np.int32).tobytes())
+        return h.digest()
+
+    @property
+    def cached_blocks(self) -> int:
+        """Device blocks registered in the cache (live shared + parked)."""
+        return len(self._map)
+
+    @property
+    def evictable_blocks(self) -> int:
+        """Parked (refcount-0) blocks reclaimable without preempting."""
+        return len(self._lru)
+
+    @property
+    def hit_rate(self) -> float:
+        n = self.hits + self.misses
+        return self.hits / n if n else 0.0
+
+    # -- matching ----------------------------------------------------------
+    def lookup_chain(self, token_ids):
+        """Longest chain of cached FULL blocks covering a strict prefix of
+        ``token_ids``. Pure read — takes no references, counts no stats.
+        Returns (block_ids, digests)."""
+        bs = self.block_size
+        limit = (len(token_ids) - 1) // bs  # strict prefix: tail must run
+        parent = _ROOT
+        blocks, digests = [], []
+        for i in range(limit):
+            d = self.chain_digest(parent, token_ids[i * bs:(i + 1) * bs])
+            b = self._map.get(d)
+            if b is None:
+                break
+            blocks.append(b)
+            digests.append(d)
+            parent = d
+        return blocks, digests
+
+    def acquire_chain(self, blocks, digests):
+        """Take references on a matched chain (parked blocks revive) and
+        record the hit — or a miss when the chain is empty. Returns the
+        acquired device block ids."""
+        if not blocks:
+            self.misses += 1
+            return []
+        for b, d in zip(blocks, digests):
+            self._acquire(b, d)
+        self.hits += 1
+        self.tokens_saved += len(blocks) * self.block_size
+        return list(blocks)
+
+    def _acquire(self, block, digest):
+        if digest in self._lru:
+            del self._lru[digest]
+            self._alloc.revive(block)
+        else:
+            self._alloc.ref([block])
+
+    # -- registration ------------------------------------------------------
+    def insert(self, parent: bytes, block_tokens, block: int):
+        """Register a freshly written full block under its chain digest.
+        Returns ``(digest, canonical_block)``: when the digest is already
+        cached (another sequence prefilled identical content concurrently),
+        the existing block is acquired and returned so the caller can dedup
+        its block table and free the private copy; otherwise ``block``
+        becomes the cached canonical copy."""
+        d = self.chain_digest(parent, block_tokens)
+        cur = self._map.get(d)
+        if cur is not None:
+            if cur != block:
+                self._acquire(cur, d)
+            return d, cur
+        self._map[d] = block
+        self._by_block[block] = d
+        self.insertions += 1
+        return d, block
+
+    # -- allocator callbacks ----------------------------------------------
+    def park_if_cached(self, block: int) -> bool:
+        """Allocator callback at refcount 0: cached blocks park in the LRU
+        (contents stay warm) instead of returning to the free list."""
+        d = self._by_block.get(block)
+        if d is None:
+            return False
+        self._lru[d] = block
+        self._lru.move_to_end(d)
+        return True
+
+    def evict(self, n: int) -> int:
+        """Release up to ``n`` least-recently-parked refcount-0 blocks to the
+        free list. Returns the number freed."""
+        released = []
+        while self._lru and len(released) < n:
+            d, b = self._lru.popitem(last=False)
+            del self._map[d]
+            del self._by_block[b]
+            released.append(b)
+        if released:
+            self.evictions += len(released)
+            self._alloc.release(released)
+        return len(released)
+
+    def stats(self):
+        return {"cached_blocks": self.cached_blocks,
+                "evictable_blocks": self.evictable_blocks,
+                "prefix_hits": self.hits, "prefix_misses": self.misses,
+                "prefix_hit_rate": self.hit_rate,
+                "prefill_tokens_saved": self.tokens_saved,
+                "insertions": self.insertions, "evictions": self.evictions}

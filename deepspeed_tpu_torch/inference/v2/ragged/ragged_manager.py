@@ -1,0 +1,233 @@
+"""Ragged state manager (port of
+``deepspeed_tpu/inference/v2/ragged/ragged_manager.py``): tracks live
+sequences and owns the blocked KV cache.
+
+Left for later slices: the draft-page class and ``rollback_sequence``
+(speculative decode, ROADMAP A3), the host-tier spill binding and page
+export/import (ROADMAP A2, A8), and the telemetry gauges of
+``sample_kv_stats`` (ROADMAP A4).
+"""
+
+import torch
+
+from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import BlockedKVCache
+from deepspeed_tpu_torch.inference.v2.ragged.prefix_cache import PrefixCache
+from deepspeed_tpu_torch.inference.v2.ragged.sequence_descriptor import DSSequenceDescriptor
+from deepspeed_tpu_torch.utils.logging import logger
+
+
+class DSStateManager:
+
+    def __init__(self, config, num_layers, num_kv_heads, head_dim, device):
+        self._config = config
+        sm, kv = config.state_manager, config.kv_cache
+        device = torch.device(device)
+        num_blocks = sm.num_kv_blocks
+        if num_blocks is None:
+            num_blocks = self._blocks_from_memory_budget(
+                num_layers, num_kv_heads, head_dim, kv, device,
+                kv_dtype=sm.kv_dtype)
+        self.kv_cache = BlockedKVCache(num_layers, num_blocks, kv.block_size,
+                                       num_kv_heads, head_dim, kv.cache_dtype,
+                                       kv_dtype=sm.kv_dtype, device=device)
+        # block-granular prefix sharing (config_v2.py prefix_caching knob,
+        # default off). None when disabled — every cache-path branch below
+        # is a single attribute test.
+        self.prefix_cache = None
+        if getattr(config, "prefix_caching", False):
+            self.prefix_cache = PrefixCache(self.kv_cache.allocator,
+                                            kv.block_size)
+        self._seqs = {}
+        self.swap_outs = 0  # host swap tier counters (kv_cache swap_out/in)
+        self.swap_ins = 0
+        self.peak_occupancy = 0.0  # high-water KV occupancy (kv_stats)
+        logger.info(f"DSStateManager: {num_blocks} KV blocks x {kv.block_size} "
+                    f"tokens ({num_layers} layers, {num_kv_heads} kv heads, "
+                    f"prefix_caching={'on' if self.prefix_cache else 'off'})")
+
+    @staticmethod
+    def _blocks_from_memory_budget(num_layers, num_kv_heads, head_dim, kv,
+                                   device, kv_dtype="fp"):
+        """Size the pool from device memory: 60% of the memory the card has
+        free now (``torch.cuda.mem_get_info``, so the weights already loaded
+        are accounted for); 1 GiB on the CPU. int8 pages cost 1 byte/element
+        plus one fp32 scale per token row."""
+        if kv_dtype == "int8":
+            elt_bytes = 1 + 4 / head_dim
+        else:
+            elt_bytes = 4 if kv.cache_dtype == "fp32" else 2
+        bytes_per_block = int(2 * num_layers * kv.block_size * num_kv_heads
+                              * head_dim * elt_bytes)  # K + V pools
+        if device.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(device)
+            budget = int(free * 0.6)
+        else:
+            budget = 1 << 30
+        return max(16, budget // bytes_per_block)
+
+    @staticmethod
+    def blocks_needed_for(seen, have, new_tokens, block_size):
+        """Extra blocks to grow a sequence with ``seen`` cached tokens and
+        ``have`` allocated blocks by ``new_tokens`` — single source of truth
+        for admission control and allocation."""
+        return max(0, -(-(seen + new_tokens) // block_size) - have)
+
+    # -- sequence tracking (reference ragged_manager.py:100-205) -----------
+    @property
+    def tracked_sequences(self):
+        return self._seqs
+
+    @property
+    def n_tracked_sequences(self):
+        return len(self._seqs)
+
+    @property
+    def kv_block_size(self):
+        return self.kv_cache.block_size
+
+    @property
+    def free_blocks(self):
+        """Blocks available to new allocations: the raw free list plus
+        (with prefix caching on) idle cached blocks the allocator will evict
+        on demand."""
+        free = self.kv_cache.free_blocks
+        if self.prefix_cache is not None:
+            free += self.prefix_cache.evictable_blocks
+        return free
+
+    def kv_stats(self):
+        """Pure host-side KV pool read: occupancy, free-list depth,
+        fragmentation, swap counters. Never touches the device.
+        ``occupancy`` counts blocks live under sequences; idle prefix-cached
+        blocks are reclaimable and reported separately."""
+        a = self.kv_cache.allocator_stats()
+        total, free = self.kv_cache.allocator.num_blocks, a["free"]
+        parked = self.kv_cache.allocator.cached_blocks
+        occupancy = 1.0 - (free + parked) / total if total else 0.0
+        if occupancy > self.peak_occupancy:
+            self.peak_occupancy = occupancy
+        swapped = sum(1 for s in self._seqs.values() if s.is_swapped)
+        stats = {"total_blocks": total, "free_blocks": free,
+                 "occupied_blocks": total - free - parked,
+                 "occupancy": occupancy,
+                 "peak_occupancy": self.peak_occupancy,
+                 "free_runs": a["free_runs"],
+                 "largest_free_run": a["largest_free_run"],
+                 "fragmentation": a["fragmentation"],
+                 "tracked_sequences": len(self._seqs),
+                 "swapped_sequences": swapped,
+                 "swap_outs": self.swap_outs, "swap_ins": self.swap_ins}
+        if self.prefix_cache is not None:
+            stats.update(self.prefix_cache.stats())
+        return stats
+
+    def get_sequence(self, uid):
+        return self._seqs.get(uid)
+
+    def get_or_create_sequence(self, uid):
+        if uid in self._seqs:
+            return self._seqs[uid]
+        if len(self._seqs) >= self._config.state_manager.max_tracked_sequences:
+            raise RuntimeError(
+                f"already tracking {len(self._seqs)} sequences "
+                f"(max_tracked_sequences)")
+        seq = DSSequenceDescriptor(uid=uid)
+        self._seqs[uid] = seq
+        return seq
+
+    # -- prefix caching (ragged/prefix_cache.py) ---------------------------
+    def match_prefix(self, uid, prompt_tokens):
+        """Longest-cached-prefix match at sequence creation: on a hit the
+        sequence is created holding the shared blocks with ``seen_tokens``
+        advanced past the matched tokens, so the scheduler never re-runs
+        them. Returns the number of matched tokens (0 = miss or disabled).
+        The match is block-aligned and strictly shorter than the prompt."""
+        cache = self.prefix_cache
+        if cache is None or uid in self._seqs:
+            return 0
+        if len(self._seqs) >= self._config.state_manager.max_tracked_sequences:
+            cache.misses += 1
+            return 0
+        blocks, digests = cache.lookup_chain(prompt_tokens)
+        resolved = cache.acquire_chain(blocks, digests)
+        if not resolved:
+            return 0
+        seq = self.get_or_create_sequence(uid)
+        matched = len(resolved) * cache.block_size
+        seq.kv_blocks = list(resolved)
+        seq.digests = list(digests[:len(resolved)])
+        seq.seen_tokens = matched
+        seq.tokens = [int(t) for t in prompt_tokens[:matched]]
+        return matched
+
+    def commit_cached_blocks(self, seq):
+        """Register every newly FILLED full block of ``seq`` in the prefix
+        cache (called after post_forward, and at flush as the donation step).
+        When another sequence concurrently cached identical content, dedup:
+        adopt the canonical shared block and free the private copy — the
+        contents are bit-identical (same tokens, same deterministic
+        per-row forward), so the block table swap is invisible to
+        attention."""
+        cache = self.prefix_cache
+        bs = cache.block_size
+        n_full = seq.seen_tokens // bs
+        while len(seq.digests) < n_full:
+            i = len(seq.digests)
+            parent = seq.digests[i - 1] if i else b""
+            digest, canonical = cache.insert(
+                parent, seq.tokens[i * bs:(i + 1) * bs], seq.kv_blocks[i])
+            if canonical != seq.kv_blocks[i]:
+                self.kv_cache.free([seq.kv_blocks[i]])
+                seq.kv_blocks[i] = canonical
+            seq.digests.append(digest)
+
+    def flush_sequence(self, uid):
+        """Drop a sequence and release its KV blocks (reference :110). With
+        prefix caching on, full blocks are donated back to the cache instead
+        of freed, children first so LRU eviction reclaims leaves first."""
+        seq = self._seqs.pop(uid, None)
+        if seq is None:
+            logger.warning(f"flush of untracked sequence {uid}")
+            return
+        if self.prefix_cache is not None and not seq.is_swapped:
+            self.commit_cached_blocks(seq)
+            self.kv_cache.free(list(reversed(seq.kv_blocks)))
+        else:
+            self.kv_cache.free(seq.kv_blocks)
+
+    # -- host swap tier (ZeRO-Inference KV offload analog) -----------------
+    def swap_out_sequence(self, uid):
+        """Copy a tracked sequence's KV blocks to CPU tensors; the sequence
+        stays tracked (seen_tokens intact) but holds no device blocks."""
+        seq = self._seqs[uid]
+        if seq.is_swapped:
+            return
+        if seq.in_flight_tokens:
+            raise RuntimeError("cannot swap a sequence mid-forward")
+        seq.swap_handle = self.kv_cache.swap_out(seq.kv_blocks)
+        seq.kv_blocks = []
+        self.swap_outs += 1
+
+    def swap_in_sequence(self, uid):
+        """Restore a swapped sequence into fresh device blocks."""
+        seq = self._seqs[uid]
+        if not seq.is_swapped:
+            return
+        seq.kv_blocks = list(self.kv_cache.swap_in(seq.swap_handle))
+        seq.swap_handle = None
+        self.swap_ins += 1
+
+    def blocks_to_resume(self, uid):
+        seq = self._seqs[uid]
+        return seq.swap_handle["n"] if seq.is_swapped else 0
+
+    # -- block arithmetic --------------------------------------------------
+    def blocks_needed(self, seq, new_tokens):
+        """Extra blocks required to grow ``seq`` by ``new_tokens``."""
+        return self.blocks_needed_for(seq.seen_tokens, seq.cur_allocated_blocks,
+                                      new_tokens, self.kv_block_size)
+
+    def ensure_capacity(self, seq, new_tokens):
+        extra = self.blocks_needed(seq, new_tokens)
+        if extra:
+            seq.extend_blocks(self.kv_cache.reserve(extra))

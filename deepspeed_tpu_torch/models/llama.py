@@ -1,0 +1,216 @@
+"""Llama model family (port of ``deepspeed_tpu/models/llama.py``, serving side).
+
+``LlamaConfig`` with its presets, the interleaved-pair rotary embedding,
+RMSNorm, and ``LlamaForCausalLM``: an ``nn.Module`` that holds the weights the
+ragged serving forward (``inference/v2/model_implementations/llama.py``)
+runs. Parameter names follow the HuggingFace layout (``layers.0.self_attn.
+q_proj.weight``, ...) and linear weights are ``nn.Linear``'s ``[out, in]``.
+``params_from_flax`` converts the JAX package's scan-stacked flax tree into
+this module's state dict. The flax training forward waits for the training
+slice (ROADMAP A1).
+"""
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from deepspeed_tpu_torch import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    attention_bias: bool = False      # qkv bias (Qwen2-family)
+    attention_out_bias: bool = False  # o_proj bias too (InternLM-family)
+    sliding_window: Any = None        # local-window attention (Mistral-family)
+    head_dim: Any = None              # None derives hidden_size // num_attention_heads
+    dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim",
+                               self.hidden_size // self.num_attention_heads)
+
+    @staticmethod
+    def tiny(**kw):
+        return LlamaConfig(vocab_size=512, hidden_size=64, intermediate_size=128,
+                           num_hidden_layers=2, num_attention_heads=4,
+                           num_key_value_heads=2, max_position_embeddings=128, **kw)
+
+    @staticmethod
+    def llama2_7b(**kw):
+        return LlamaConfig(**kw)
+
+    @staticmethod
+    def llama2_13b(**kw):
+        return LlamaConfig(hidden_size=5120, intermediate_size=13824,
+                           num_hidden_layers=40, num_attention_heads=40,
+                           num_key_value_heads=40, **kw)
+
+    @staticmethod
+    def llama2_70b(**kw):
+        return LlamaConfig(hidden_size=8192, intermediate_size=28672,
+                           num_hidden_layers=80, num_attention_heads=64,
+                           num_key_value_heads=8, **kw)
+
+    def num_parameters(self):
+        c = self
+        qo = c.num_attention_heads * c.head_dim
+        per_layer = (c.hidden_size * qo  # q
+                     + 2 * c.hidden_size * c.num_key_value_heads * c.head_dim  # k,v
+                     + qo * c.hidden_size  # o
+                     + 3 * c.hidden_size * c.intermediate_size  # gate,up,down
+                     + 2 * c.hidden_size)  # norms
+        return (c.vocab_size * c.hidden_size * 2  # embed + lm_head
+                + c.num_hidden_layers * per_layer + c.hidden_size)
+
+
+def rms_norm(x, weight, eps):
+    """RMSNorm in fp32 with an fp32 scale, cast back to ``x``'s dtype."""
+    x32 = x.float()
+    norm = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    return (norm * weight).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+
+    def __init__(self, dim, eps=1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, dtype=torch.float32,
+                                              device=device))
+
+    def forward(self, x):
+        return rms_norm(x, self.weight, self.eps)
+
+
+def rotary_embed(x, positions, theta=10000.0):
+    """Rotary position embeddings on INTERLEAVED pairs (``x[..., ::2]``,
+    ``x[..., 1::2]``), as the JAX package rotates — not HF's rotate-half.
+    x: [B, T, H, Dh]; positions: [B, T]."""
+    dh = x.shape[-1]
+    freqs = 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32,
+                                          device=x.device) / dh))
+    angles = positions[..., None].float() * freqs  # [B, T, dh/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., ::2], x[..., 1::2]
+    rx1 = x1 * cos - x2 * sin
+    rx2 = x2 * cos + x1 * sin
+    return torch.stack([rx1, rx2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+class LlamaAttention(nn.Module):
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        H, KV, Dh, D = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                        cfg.head_dim, cfg.hidden_size)
+        kw = dict(device=device, dtype=cfg.dtype)
+        self.q_proj = nn.Linear(D, H * Dh, bias=cfg.attention_bias, **kw)
+        self.k_proj = nn.Linear(D, KV * Dh, bias=cfg.attention_bias, **kw)
+        self.v_proj = nn.Linear(D, KV * Dh, bias=cfg.attention_bias, **kw)
+        self.o_proj = nn.Linear(H * Dh, D, bias=cfg.attention_out_bias, **kw)
+
+
+class LlamaMLP(nn.Module):
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        D, F = cfg.hidden_size, cfg.intermediate_size
+        kw = dict(bias=False, device=device, dtype=cfg.dtype)
+        self.gate_proj = nn.Linear(D, F, **kw)
+        self.up_proj = nn.Linear(D, F, **kw)
+        self.down_proj = nn.Linear(F, D, **kw)
+
+
+class LlamaDecoderLayer(nn.Module):
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.self_attn = LlamaAttention(cfg, device)
+        self.mlp = LlamaMLP(cfg, device)
+        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
+                                                cfg.rms_norm_eps, device)
+
+
+class LlamaForCausalLM(nn.Module):
+    """Weights of a Llama-family causal LM. Norm scales are fp32, every
+    other weight is ``config.dtype`` (the JAX package casts to that dtype at
+    each use; storing it cast gives the same values)."""
+
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        self.config = config
+        kw = dict(device=device, dtype=config.dtype)
+        self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size,
+                                         **kw)
+        self.layers = nn.ModuleList(LlamaDecoderLayer(config, device)
+                                    for _ in range(config.num_hidden_layers))
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device)
+        self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
+                                 bias=False, **kw)
+
+    @classmethod
+    def from_seed(cls, config: LlamaConfig, seed: int, device=None,
+                  std: float = 0.02):
+        """Random weights drawn on ``device`` (default ``"cuda"``, which
+        raises without a GPU) from ``torch.Generator(seed)``: N(0, std) for
+        every matrix, zeros for biases, ones for norm scales (the flax
+        initializers' shapes; the draws differ from JAX's)."""
+        device = resolve_device(device)
+        with torch.device("meta"):
+            model = cls(config)
+        model = model.to_empty(device=device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("layernorm.weight") or name == "norm.weight":
+                    p.fill_(1.0)
+                elif name.endswith(".bias"):
+                    p.zero_()
+                else:
+                    p.normal_(0.0, std, generator=gen)
+        return model.requires_grad_(False)
+
+
+def params_from_flax(tree):
+    """The JAX package's ``LlamaForCausalLM`` (``scan_layers=True``) param
+    tree, as numpy arrays, -> a state dict for this ``LlamaForCausalLM``.
+
+    Flax kernels are ``[in, out]`` stacked ``[L, in, out]`` over layers;
+    ``nn.Linear`` weights are ``[out, in]``, so each is unstacked and
+    transposed. ``lm_head`` is ``[V, D]`` in both. Values are copied as
+    fp32; ``load_state_dict`` casts them to the module's dtype."""
+    blk = tree["layers"]["block"]
+    L = np.asarray(blk["input_layernorm"]["scale"]).shape[0]
+    sd = {"embed_tokens.weight": tree["embed_tokens"],
+          "lm_head.weight": tree["lm_head"],
+          "norm.weight": tree["norm"]["scale"]}
+    for i in range(L):
+        pre = f"layers.{i}."
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            sd[pre + norm + ".weight"] = np.asarray(blk[norm]["scale"])[i]
+        for group, names in (("self_attn", ("q_proj", "k_proj", "v_proj",
+                                            "o_proj")),
+                             ("mlp", ("gate_proj", "up_proj", "down_proj"))):
+            for n in names:
+                leaf = blk[group][n]
+                sd[f"{pre}{group}.{n}.weight"] = \
+                    np.asarray(leaf["kernel"])[i].T
+                if "bias" in leaf:
+                    sd[f"{pre}{group}.{n}.bias"] = np.asarray(leaf["bias"])[i]
+    return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}

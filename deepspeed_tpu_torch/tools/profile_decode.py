@@ -1,0 +1,112 @@
+"""Where a decode round of Llama-2-7B serving spends its time on the GPU.
+
+    python -m deepspeed_tpu_torch.tools.profile_decode [--seqs 8]
+        [--prompt 512] [--rounds 4] [--seed 0]
+
+Serves ``--seqs`` greedy requests of ``--prompt`` random tokens through
+``build_engine`` + ``SplitFuseScheduler`` on Llama-2-7B at full width and
+depth (bf16 weights drawn on the card from ``--seed``), runs until every
+request decodes, then traces ``--rounds`` decode rounds with
+``torch.profiler``. Prints one JSON line: the wall time per round without
+and with the profiler, the device busy time per round (sum of kernel and
+copy times), its idle share of the profiled rounds, and the device time
+per round of the heaviest kernels and of kernel groups (GEMM, paged
+attention, the rest). Needs a CUDA device.
+"""
+
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+
+
+def _group(name):
+    n = name.lower()
+    if "paged_mha" in n:
+        return "paged_attention"
+    if any(k in n for k in ("gemm", "gemv", "nvjet", "cutlass", "xmma", "sm90")):
+        return "gemm"
+    if "memcpy" in n or "memset" in n:
+        return "copy"
+    if "index" in n or "scatter" in n or "gather" in n:
+        return "index"
+    return "elementwise_and_other"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seqs", type=int, default=8)
+    ap.add_argument("--prompt", type=int, default=512)
+    ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch.inference.v2 import SplitFuseScheduler, build_engine
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.llama2_7b()
+    model = LlamaForCausalLM.from_seed(cfg, seed=args.seed)
+    bs = 64
+    per_seq = -(-(args.prompt + 64 + 2 * args.rounds) // bs)
+    engine = build_engine(model, {
+        "state_manager": {"max_ragged_sequence_count": args.seqs,
+                          "max_ragged_batch_size": 512,
+                          "max_context": 2048,
+                          "num_kv_blocks": args.seqs * per_seq},
+        "kv_cache": {"block_size": bs, "cache_dtype": "bf16"}})
+    sched = SplitFuseScheduler(engine)
+    rng = np.random.default_rng(args.seed)
+    for uid in range(args.seqs):
+        sched.submit(uid, rng.integers(0, cfg.vocab_size, args.prompt),
+                     max_new_tokens=64)
+    while any(len(t) == 0 for t in sched.results().values()):
+        sched.step()
+    for _ in range(2):          # warm decode rounds
+        sched.step()
+    t0 = time.perf_counter()
+    for _ in range(args.rounds):
+        sched.step()
+    plain_round_ms = (time.perf_counter() - t0) / args.rounds * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.rounds):
+            sched.step()
+        wall = time.perf_counter() - t0
+    # device-side events only (kernels, copies): host ops that launched
+    # them carry the same time and would count it twice
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    per_kernel = {}
+    for e in device:
+        per_kernel[e.key] = per_kernel.get(e.key, 0.0) + e.device_time_total / 1e3
+    busy_ms = sum(per_kernel.values()) / args.rounds
+    groups = {}
+    for name, ms in per_kernel.items():
+        g = _group(name)
+        groups[g] = groups.get(g, 0.0) + ms / args.rounds
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
+    round_ms = wall / args.rounds * 1e3
+    print(json.dumps({
+        "card": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0],
+        "seqs": args.seqs, "prompt": args.prompt, "rounds": args.rounds,
+        "round_wall_ms_unprofiled": plain_round_ms,
+        "round_wall_ms_profiled": round_ms,
+        "device_busy_ms_per_round": busy_ms if per_kernel else None,
+        "device_idle_share": (1 - busy_ms / round_ms) if per_kernel else None,
+        "groups_ms_per_round": groups,
+        "top_kernels_ms_per_round": {k[:90]: v / args.rounds for k, v in top},
+        "paged_mha_kernels_per_round": sum(
+            e.count for e in device if "paged_mha" in e.key) / args.rounds}))
+
+
+if __name__ == "__main__":
+    main()
