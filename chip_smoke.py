@@ -5,8 +5,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It needs a CUDA
 device and the repository's sources; without either it exits non-zero and
 prints no result.
 
-1. Builds every kernel of the serving path from ``deepspeed_tpu_torch/csrc``
-   with nvcc (sm_90a) and prints the build time.
+1. Builds every kernel of the serving and training paths from
+   ``deepspeed_tpu_torch/csrc`` with nvcc (sm_90a), one nvcc per source, all
+   started together, and prints the build time.
 2. Kernels against their plain PyTorch versions on the card, at the shapes
    of Llama-2-7B serving (decode with ragged seen lengths up to ~4000, a
    256-token prefill chunk, a serving round's 512-row chunk beside padded
@@ -27,6 +28,30 @@ prints no result.
    completion; every kernel's launch counter must equal
    ``num_layers x forwards`` for that run.
 
+4. Flash kernels (training): the forward, dq and dk/dv kernels of
+   ``csrc/flash_attention.cu`` against their plain PyTorch versions at the
+   training shape (B=4, T=2048, 32 heads of 128, bf16, causal) and at GQA,
+   a sliding window, packed segments, a broadcast bias, Tq < Tk, a length
+   that is not a multiple of 64, head widths 64 and 256, fp16 and fp32. The
+   backward kernels take the plain forward's lse and delta, so each kernel
+   sees the same inputs as its plain version. Per case and kernel: the error
+   against the bound stated below, the same for a planted fault (every query
+   also sees the next key) that the bound must reject, kernel / plain /
+   library times (``scaled_dot_product_attention`` forward, and its backward
+   as forward+backward minus forward; a yardstick the port never calls), and
+   the bound: the larger of bytes over 3.35 TB/s and 4 (forward), 6 (dq) or
+   8 (dk/dv) x Dh x heads x visible (query, key) pairs over the dtype's peak.
+5. Training: a Llama-2-7B-geometry model at full width with 8 of its 32
+   layers, bf16 weights drawn on the card from a seed, through
+   ``deepspeed_tpu_torch.initialize`` (bf16, fp32 master, AdamW, WarmupLR,
+   clipping 1.0, 2 micro-batches of 4 x 2048 tokens per step, every layer
+   recomputed in backward). The first micro-step's loss and gradients are
+   compared with the same micro-step run on the plain attention, and so is a
+   control whose plain attention lets each query see the next key. Then 4
+   optimizer steps (8 micro-steps) on 2 repeated batches: the loss must
+   fall, and each flash kernel's launch counter must equal its count per
+   micro-step (forward 2 x layers, dq and dk/dv 1 x layers) x 8.
+
 The line before the last is one JSON object describing each kernel; the
 last is ``{"ok": true, "device": {...}}``. Any failure raises, so the
 script exits non-zero without it.
@@ -40,6 +65,7 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12                # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 # Per-element bound |kernel - plain| <= ATOL + RTOL[dtype] * |plain|. Kernel
@@ -430,6 +456,351 @@ def phase_serving():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3: flash attention kernels (training) vs their plain versions
+# ---------------------------------------------------------------------------
+
+# Per-element bound |kernel - plain| <= FLASH_RTOL[dtype] * (|plain| +
+# rms(plain)), the bound of tests/test_torch_gpu_kernels.py: RTOL |plain| is
+# the one rounding of the output to its dtype; the rms term covers elements
+# near 0, moved when the forward's p or dq's ds, rounded to the working dtype
+# from fp32 values summed in another order than in the plain version, flips
+# a single rounding. lse is fp32 and held to 2^-16 the same way. The planted
+# fault (every query also sees the next key, the causal mask off by one)
+# must exceed it.
+FLASH_RTOL = {"bfloat16": 2 ** -7, "float16": 2 ** -10, "float32": 2 ** -16}
+FLASH_CASES = [
+    # name, B, Tq, Tk, H, KV, Dh, dtype, options
+    ("train_7b", 4, 2048, 2048, 32, 32, 128, "bfloat16", {}),
+    ("gqa_kv8", 2, 2048, 2048, 32, 8, 128, "bfloat16", {}),
+    ("window_512", 2, 2048, 2048, 32, 32, 128, "bfloat16", {"window": 512}),
+    ("segments_4", 2, 2048, 2048, 32, 32, 128, "bfloat16", {"segments": 4}),
+    ("bias_broadcast", 2, 1024, 1024, 32, 32, 128, "bfloat16", {"bias": True}),
+    ("rect_tq1024_tk2048", 2, 1024, 2048, 32, 32, 128, "bfloat16", {}),
+    ("ragged_t1000", 2, 1000, 1000, 32, 32, 128, "bfloat16", {}),
+    ("dh64", 2, 2048, 2048, 32, 32, 64, "bfloat16", {}),
+    ("dh256", 2, 1024, 1024, 16, 16, 256, "bfloat16", {}),
+    ("fp16", 2, 1024, 1024, 32, 32, 128, "float16", {}),
+    ("fp32", 1, 1024, 1024, 16, 16, 128, "float32", {}),
+]
+FLASH_KERNELS = ("flash_mha_fwd", "flash_mha_bwd_dq", "flash_mha_bwd_dkv")
+# operations per (head, visible pair) per unit of Dh
+FLASH_OPS = {"flash_mha_fwd": 4, "flash_mha_bwd_dq": 6, "flash_mha_bwd_dkv": 8}
+
+
+def flash_ratio(out, ref, dtype):
+    ref = ref.float()
+    bound = FLASH_RTOL[dtype] * (ref.abs() + ref.pow(2).mean().sqrt())
+    return ((out.float() - ref).abs() / bound).max().item()
+
+
+def one_ahead_bias(Tq, Tk, dev):
+    """Additive mask letting query i see keys up to i + off + 1: the causal
+    mask off by one key."""
+    import torch
+    from deepspeed_tpu_torch.ops.flash_attention import NEG_INF
+    qpos = torch.arange(Tq, device=dev)[:, None] + (Tk - Tq)
+    kpos = torch.arange(Tk, device=dev)[None, :]
+    return torch.where(kpos <= qpos + 1, 0.0, NEG_INF)[None, None]
+
+
+def make_flash_case(case, gen):
+    import torch
+    name, B, Tq, Tk, H, KV, Dh, dtype, opt = case
+    dev = gen.device
+    dt = getattr(torch, dtype)
+    r = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(dt)
+    q, k, v, dout = r(B, Tq, H, Dh), r(B, Tk, KV, Dh), r(B, Tk, KV, Dh), r(B, Tq, H, Dh)
+    kw = dict(causal=True, window=opt.get("window"))
+    if opt.get("bias"):
+        kw["bias"] = torch.randn(1, H, Tq, Tk, generator=gen, device=dev)
+    if opt.get("segments"):
+        ids = torch.randint(0, opt["segments"], (B, Tq), generator=gen, device=dev)
+        ids = torch.sort(ids, dim=1).values.int()
+        kw["segment_ids"] = (ids, ids)
+    return (q, k, v, dout), kw
+
+
+def flash_work(case, args, kw):
+    """(bytes, operations) per kernel for these inputs: each input read once,
+    each output written once; FLASH_OPS x Dh per head and visible pair."""
+    from deepspeed_tpu_torch.ops.flash_attention import _visibility
+    name, B, Tq, Tk, H, KV, Dh, dtype, opt = case
+    q = args[0]
+    mask = _visibility(Tq, Tk, kw["causal"], kw["window"], kw.get("segment_ids"),
+                       q.device)
+    pairs = int(mask.sum()) * (B if mask.dim() == 2 else 1)
+    item = q.element_size()
+    qb, kvb, rows = B * Tq * H * Dh * item, 2 * B * Tk * KV * Dh * item, B * H * Tq * 4
+    extra = 0
+    if "bias" in kw:
+        extra += kw["bias"].numel() * 4
+    if "segment_ids" in kw:
+        extra += B * (Tq + Tk) * 4
+    nbytes = {"flash_mha_fwd": 2 * qb + kvb + rows + extra,
+              "flash_mha_bwd_dq": 3 * qb + kvb + 2 * rows + extra,
+              "flash_mha_bwd_dkv": 2 * qb + 2 * kvb + 2 * rows + extra}
+    return {n: (nbytes[n], FLASH_OPS[n] * Dh * H * pairs) for n in FLASH_KERNELS}
+
+
+def flash_library_ms(case, args, kw, iters):
+    """scaled_dot_product_attention on the same inputs: forward ms, and
+    backward ms as forward+backward minus forward. A yardstick only."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.flash_attention import _visibility
+    name, B, Tq, Tk, H, KV, Dh, dtype, opt = case
+    q, k, v, dout = (x.transpose(1, 2) for x in args)
+    sdpa_kw = dict(enable_gqa=KV != H)
+    if Tq == Tk and not opt:
+        sdpa_kw["is_causal"] = True
+    else:
+        mask = _visibility(Tq, Tk, True, kw["window"], kw.get("segment_ids"), q.device)
+        m = torch.where(mask, 0.0, float("-inf"))
+        if "bias" in kw:
+            m = m + kw["bias"]
+        sdpa_kw["attn_mask"] = (m if m.dim() == 4 else m[None, None]).to(q.dtype)
+    fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, **sdpa_kw), iters)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
+        out.backward(dout)
+        for x in leaves:
+            x.grad = None
+
+    return fwd, time_ms(fwd_bwd, iters) - fwd
+
+
+def phase_flash_kernels():
+    import torch
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1)
+    kernels = dict(zip(FLASH_KERNELS, (fa.flash_mha_fwd, fa.flash_mha_bwd_dq,
+                                       fa.flash_mha_bwd_dkv)))
+    plains = dict(zip(FLASH_KERNELS, (fa.flash_mha_fwd_reference,
+                                      fa.flash_mha_bwd_dq_reference,
+                                      fa.flash_mha_bwd_dkv_reference)))
+    results, failures = [], []
+    for case in FLASH_CASES:
+        name, B, Tq, Tk, H, KV, Dh, dtype, opt = case
+        args, kw = make_flash_case(case, gen)
+        q, k, v, dout = args
+        out_p, lse_p = fa.flash_mha_fwd_reference(q, k, v, **kw)
+        delta = (dout.float() * out_p.float()).sum(-1).transpose(1, 2).contiguous()
+        bwd_args = (q, k, v, dout, lse_p, delta)
+        want = {"flash_mha_fwd": (out_p, lse_p),
+                "flash_mha_bwd_dq": (fa.flash_mha_bwd_dq_reference(*bwd_args, **kw),),
+                "flash_mha_bwd_dkv": fa.flash_mha_bwd_dkv_reference(*bwd_args, **kw)}
+        got = {"flash_mha_fwd": fa.flash_mha_fwd(q, k, v, **kw),
+               "flash_mha_bwd_dq": (fa.flash_mha_bwd_dq(*bwd_args, **kw),),
+               "flash_mha_bwd_dkv": fa.flash_mha_bwd_dkv(*bwd_args, **kw)}
+        fault_bias = one_ahead_bias(Tq, Tk, q.device)
+        if "bias" in kw:
+            fault_bias = fault_bias + kw["bias"]
+        fkw = dict(kw, causal=False, bias=fault_bias)
+        fault = {"flash_mha_fwd": fa.flash_mha_fwd_reference(q, k, v, **fkw)[:1],
+                 "flash_mha_bwd_dq": (fa.flash_mha_bwd_dq_reference(*bwd_args, **fkw),),
+                 "flash_mha_bwd_dkv": fa.flash_mha_bwd_dkv_reference(*bwd_args, **fkw)}
+        torch.cuda.synchronize()
+        work = flash_work(case, args, kw)
+        iters = 5 if B * Tq * H >= 2 ** 17 else 10
+        calls = {"flash_mha_fwd": lambda f: f(q, k, v, **kw),
+                 "flash_mha_bwd_dq": lambda f: f(*bwd_args, **kw),
+                 "flash_mha_bwd_dkv": lambda f: f(*bwd_args, **kw)}
+        try:
+            lib_fwd, lib_bwd = flash_library_ms(case, args, kw, iters)
+        except RuntimeError as e:   # a yardstick the card's SDPA cannot take
+            print(f"flash case {name}: no library time: {e}", flush=True)
+            lib_fwd = lib_bwd = None
+        res = dict(name=name, shape=f"B={B} Tq={Tq} Tk={Tk} H={H} KV={KV} Dh={Dh} "
+                   f"{dtype} causal" + "".join(f" {k}={v}" for k, v in opt.items()),
+                   tolerance=f"{FLASH_RTOL[dtype]} (|plain| + rms(plain))")
+        for kn in FLASH_KERNELS:
+            # lse is fp32 whatever the inputs: held to the fp32 bound
+            ratio = max(flash_ratio(a, b, str(b.dtype).split(".")[1])
+                        for a, b in zip(got[kn], want[kn]))
+            fault_ratio = max(flash_ratio(a, b, dtype) for a, b in zip(fault[kn], want[kn]))
+            finite = all(bool(torch.isfinite(a).all()) for a in got[kn])
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(got[kn], want[kn]))
+            nbytes, ops = work[kn]
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / PEAK_FLOPS[dtype] * 1e3
+            res[kn] = dict(
+                max_abs_err=err, err_ratio=ratio, planted_fault_ratio=fault_ratio,
+                ms=time_ms(lambda: calls[kn](kernels[kn]), iters),
+                plain_ms=time_ms(lambda: calls[kn](plains[kn]), 2),
+                library_ms=lib_fwd if kn == "flash_mha_fwd" else lib_bwd,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            if not finite:
+                failures.append(f"{name} {kn}: kernel output is not finite")
+            if not ratio <= 1:
+                failures.append(f"{name} {kn}: kernel disagrees with its plain "
+                                f"version: error {ratio:.3g}x the bound")
+            if not fault_ratio > 1:
+                failures.append(f"{name} {kn}: the bound does not reject the planted "
+                                f"causal fault ({fault_ratio:.3g}x the bound)")
+        results.append(res)
+        print(f"flash case {json.dumps(res)}", flush=True)
+        del args, kw, got, want, fault, bwd_args, out_p, lse_p, delta
+        torch.cuda.empty_cache()
+    if failures:
+        fail("; ".join(failures))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 4: training a Llama-2-7B-geometry model through initialize()
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 8              # of Llama-2-7B's 32: depth cut for memory only
+TRAIN_MICRO, TRAIN_T, TRAIN_GAS, TRAIN_STEPS = 4, 2048, 2, 4
+TRAIN_CONFIG = {
+    "train_batch_size": TRAIN_MICRO * TRAIN_GAS,
+    "train_micro_batch_size_per_gpu": TRAIN_MICRO,
+    "gradient_accumulation_steps": TRAIN_GAS,
+    "bf16": {"enabled": True},
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-3, "betas": [0.9, 0.95],
+                                              "weight_decay": 0.1}},
+    "scheduler": {"type": "WarmupLR", "params": {"warmup_min_lr": 1e-4,
+                                                 "warmup_max_lr": 1e-3,
+                                                 "warmup_num_steps": 2,
+                                                 "warmup_type": "linear"}},
+    "gradient_clipping": 1.0,
+    "activation_checkpointing": {"policy": "everything"},
+    "steps_per_print": 1,
+}
+# First micro-step, kernel-backed vs the same micro-step on the plain
+# attention: relative L2 error of all parameters' gradients (and of the
+# loss). The two attentions differ by single roundings of bf16 outputs, and
+# those flips are carried through 8 layers of backward in bf16. A control,
+# the plain attention with every query also seeing the next key, must land
+# above the bound. Readings (H100 80GB HBM3, 700 W): gradients 0.0225,
+# control 0.297, loss 2.3e-5; the bound sits between with margin both ways.
+TRAIN_GRAD_REL_L2_TOLERANCE = 0.05
+TRAIN_LOSS_REL_TOLERANCE = 1e-3
+# The loss must fall by this much from the first optimizer step's window to
+# the last one's (the same 2 batches), stated before the first run.
+TRAIN_LOSS_FALL = 0.1
+
+
+def phase_training():
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
+                                                  llama_flops_per_token)
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM.from_seed(cfg, seed=0, device=DEVICE)
+    engine, optimizer, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, config=TRAIN_CONFIG, device=DEVICE)
+    torch.cuda.synchronize()
+    print(f"training: Llama-2-7B geometry, {TRAIN_LAYERS} of 32 layers, "
+          f"{cfg.num_parameters() / 1e9:.3f}B params, engine built in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(2):
+        ids = rng.integers(0, cfg.vocab_size, (TRAIN_MICRO, TRAIN_T)).astype(np.int64)
+        batches.append({"input_ids": ids, "labels": ids})
+    on_card = lambda b: {k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()}
+
+    def plain_step(attention):
+        """Loss and gradients of micro-step 1 through ``attention``."""
+        loss = model(on_card(batches[0]), attention=attention)
+        loss.backward()
+        grads = [p.grad for p in model.parameters()]
+        for p in model.parameters():
+            p.grad = None
+        return float(loss.detach()), grads
+
+    def rel_l2(grads, ref):
+        num = sum(float((a.float() - b.float()).pow(2).sum()) for a, b in zip(grads, ref))
+        den = sum(float(b.float().pow(2).sum()) for b in ref)
+        return (num / den) ** 0.5
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    losses, step_s = [], []
+    t_window = time.perf_counter()
+    for micro in range(TRAIN_GAS * TRAIN_STEPS):
+        loss = engine(batches[micro % 2])
+        engine.backward(loss)
+        losses.append(float(loss.detach()))
+        if micro == 0:
+            # the plain-attention comparison: launches no kernel, and its
+            # gradients never reach the engine's accumulators
+            kernel_grads = engine._grad_acc       # untouched until step()
+            plain_loss, plain_grads = plain_step(fa.mha_plain)
+            grad_err = rel_l2(kernel_grads, plain_grads)
+            del plain_grads
+            fault = one_ahead_bias(TRAIN_T, TRAIN_T, DEVICE)
+            control_loss, control_grads = plain_step(
+                lambda q, k, v, causal, window: fa.mha_plain(
+                    q, k, v, bias=fault, causal=False, window=window))
+            control_err = rel_l2(kernel_grads, control_grads)
+            del control_grads
+            loss_err = abs(losses[0] - plain_loss) / abs(plain_loss)
+            print(f"training: micro-step 1 vs the plain attention: loss "
+                  f"{losses[0]:.6f} vs {plain_loss:.6f} (relative error {loss_err:.3g}, "
+                  f"tolerance {TRAIN_LOSS_REL_TOLERANCE}); gradients relative L2 "
+                  f"error {grad_err:.4g}, control with the causal mask one key "
+                  f"ahead {control_err:.4g} (loss {control_loss:.6f}); tolerance "
+                  f"{TRAIN_GRAD_REL_L2_TOLERANCE}", flush=True)
+            if not loss_err <= TRAIN_LOSS_REL_TOLERANCE:
+                fail(f"training loss disagrees with the plain attention: {loss_err}")
+            if not grad_err <= TRAIN_GRAD_REL_L2_TOLERANCE:
+                fail(f"training gradients disagree with the plain attention: {grad_err}")
+            if not control_err > TRAIN_GRAD_REL_L2_TOLERANCE:
+                fail(f"the gradient bound does not reject the control: {control_err}")
+        engine.step()
+        if engine.was_step_applied():
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            step_s.append(now - t_window)
+            t_window = now
+    launches = {"flash_mha_fwd": fa.flash_mha_fwd.launches,
+                "flash_mha_bwd_dq": fa.flash_mha_bwd_dq.launches,
+                "flash_mha_bwd_dkv": fa.flash_mha_bwd_dkv.launches}
+    micro_steps = TRAIN_GAS * TRAIN_STEPS
+    expected = {"flash_mha_fwd": 2 * TRAIN_LAYERS * micro_steps,
+                "flash_mha_bwd_dq": TRAIN_LAYERS * micro_steps,
+                "flash_mha_bwd_dkv": TRAIN_LAYERS * micro_steps}
+    first = float(np.mean(losses[:TRAIN_GAS]))
+    last = float(np.mean(losses[-TRAIN_GAS:]))
+    steady = step_s[1:]       # the first window holds the plain comparison
+    tokens_per_step = TRAIN_GAS * TRAIN_MICRO * TRAIN_T
+    tok_s = tokens_per_step / float(np.mean(steady))
+    flops_token = llama_flops_per_token(cfg, TRAIN_T)
+    stats = dict(layers=TRAIN_LAYERS, params=cfg.num_parameters(),
+                 micro_batch=[TRAIN_MICRO, TRAIN_T], gas=TRAIN_GAS,
+                 optimizer_steps=engine.global_steps, losses=losses,
+                 first_window_loss=first, last_window_loss=last,
+                 grad_norm_last=engine.get_global_grad_norm(), lr_last=engine.get_lr()[0],
+                 step_wall_s=step_s, steady_step_wall_s=float(np.mean(steady)),
+                 tokens_per_s=tok_s, model_flops_per_token=flops_token,
+                 mfu_vs_989_tflops=flops_token * tok_s / 989e12,
+                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 launches=launches, expected_launches=expected)
+    print(f"training {json.dumps(stats)}", flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"training losses are not finite: {losses}")
+    if not last <= first - TRAIN_LOSS_FALL:
+        fail(f"training loss did not fall by {TRAIN_LOSS_FALL}: {first} -> {last}")
+    if launches != expected:
+        fail(f"flash kernel launches {launches} != expected {expected}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -444,7 +815,7 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     t0 = time.perf_counter()
-    logs = cuda_build.build("paged_attention", verbose=True)
+    logs = cuda_build.build("paged_attention", "flash_attention", verbose=True)
     print(f"kernel build: {time.perf_counter() - t0:.1f}s", flush=True)
     for name, log in logs.items():
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
@@ -454,9 +825,16 @@ def main():
     t1 = time.perf_counter()
     cases = phase_kernels()
     print(f"phase kernels: {time.perf_counter() - t1:.1f}s", flush=True)
+    t1 = time.perf_counter()
+    flash_cases = phase_flash_kernels()
+    print(f"phase flash kernels: {time.perf_counter() - t1:.1f}s", flush=True)
     t2 = time.perf_counter()
     launches = phase_serving()
     print(f"phase serving: {time.perf_counter() - t2:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    train_launches = phase_training()
+    print(f"phase training: {time.perf_counter() - t3:.1f}s", flush=True)
 
     main_case = cases[0]   # decode_7b: the shape of the serving main path
     kernels = [dict(
@@ -472,6 +850,23 @@ def main():
                                   "plain_ms", "library_ms", "bound_ms",
                                   "bound_by")}
                for c in cases])]
+    train_case = flash_cases[0]   # train_7b: the shape of the training main path
+    replaces = {"flash_mha_fwd": "deepspeed_tpu/ops/pallas/flash_attention.py:380",
+                "flash_mha_bwd_dq": "deepspeed_tpu/ops/pallas/flash_attention.py:549",
+                "flash_mha_bwd_dkv": "deepspeed_tpu/ops/pallas/flash_attention.py:572"}
+    for kn in FLASH_KERNELS:
+        main = train_case[kn]
+        kernels.append(dict(
+            name=kn, route="cuda",
+            source="deepspeed_tpu_torch/csrc/flash_attention.cu",
+            replaces=replaces[kn], launches=train_launches[kn],
+            max_abs_err=main["max_abs_err"], ms=main["ms"],
+            plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+            bound_by=main["bound_by"], library_ms=main["library_ms"],
+            case=train_case["name"],
+            cases=[dict(name=c["name"], **{k: c[kn][k] for k in (
+                "max_abs_err", "err_ratio", "planted_fault_ratio", "ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by")}) for c in flash_cases]))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

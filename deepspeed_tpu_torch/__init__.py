@@ -33,3 +33,50 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, mpu=None, collate_fn=None,
+               config=None, config_params=None, device=None):
+    """Build the training engine (port of ``deepspeed_tpu.initialize``).
+
+    Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``.
+    ``model`` is a ``torch.nn.Module`` whose ``forward(batch)`` returns the
+    loss; ``model_parameters`` an optional state dict of initial fp32 values
+    (by parameter name) that the engine's master copy starts from instead of
+    the module's own; ``config`` a dict, a JSON path, or (with ``args``)
+    ``args.deepspeed_config``; ``device`` the device to train on (CUDA by
+    default). Then ``loss = engine(batch); engine.backward(loss);
+    engine.step()``, or ``engine.train_batch(data_iter)``.
+    """
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+
+    if config is None and config_params is not None:
+        config = config_params
+    if config is None and args is not None and hasattr(args, "deepspeed_config"):
+        config = args.deepspeed_config
+    if mpu is not None and int(mpu.get_model_parallel_world_size()) > 1:
+        raise NotImplementedError("model parallelism through mpu is not ported "
+                                  "yet: ROADMAP A12")
+    config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
+    engine = DeepSpeedEngine(config=config, model=model, optimizer=optimizer,
+                             model_parameters=model_parameters,
+                             training_data=training_data, lr_scheduler=lr_scheduler,
+                             collate_fn=collate_fn, device=device)
+    return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
+
+
+def add_config_arguments(parser):
+    """Add the DeepSpeed CLI flags to an argparse parser: ``--deepspeed`` and
+    ``--deepspeed_config <json>``, which :func:`initialize` reads through
+    ``args.deepspeed_config``."""
+    import argparse
+    group = parser.add_argument_group("DeepSpeed", "DeepSpeed configurations")
+    group.add_argument("--deepspeed", default=False, action="store_true",
+                       help="Enable DeepSpeed (helper flag for user scripts)")
+    group.add_argument("--deepspeed_config", default=None, type=str,
+                       help="DeepSpeed json configuration file.")
+    group.add_argument("--deepscale", default=False, action="store_true",
+                       help=argparse.SUPPRESS)
+    return parser

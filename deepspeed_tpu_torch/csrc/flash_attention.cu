@@ -1,0 +1,609 @@
+// Flash attention forward, dq and dk/dv for Hopper (sm_90a). Built by
+// deepspeed_tpu_torch/ops/cuda_build.py with nvcc into a shared library with
+// a plain C interface, called through ctypes by
+// deepspeed_tpu_torch/ops/flash_attention.py (flash_mha_fwd,
+// flash_mha_bwd_dq, flash_mha_bwd_dkv, and the autograd Function flash_mha).
+//
+// Replaces the three TPU kernels of deepspeed_tpu/ops/pallas/flash_attention.py:
+//   ds_flash_fwd     <- _fwd_kernel     (pl.pallas_call in _fwd, :380)
+//   ds_flash_bwd_dq  <- _bwd_dq_kernel  (pl.pallas_call in _bwd, :549)
+//   ds_flash_bwd_dkv <- _bwd_dkv_kernel (pl.pallas_call in _bwd, :572)
+// Same function: q [B, Tq, H, Dh], k/v [B, Tk, KV, Dh] with H % KV == 0
+// (query head h reads kv head h / (H / KV)), Dh <= 256; logits
+// s = q.k * scale (+ bias[b|0, h|0, q, k], fp32), masked with the finite
+// NEG_INF = -1e9 where the key is not visible: causal keeps k <= q + off with
+// the bottom-right offset off = Tk - Tq, a sliding window keeps
+// k > q + off - window, segment ids keep equal ids. The forward returns the
+// output and the fp32 logsumexp lse [B, H, Tq]; the backward takes dO, lse
+// and delta = rowsum(dO * O) [B, H, Tq] and returns dq, and dk/dv summed over
+// the query heads of each kv group in fp32 (the TPU wrapper sums the
+// per-head results afterwards). The bias gets no gradient.
+//
+// Rounding points are the TPU kernels': products of the input dtype
+// accumulate in fp32; the forward rounds p = exp(s - m) to v's dtype before
+// PV while l sums the unrounded p; a tile whose keys are all masked gives
+// p = 1 (exp(NEG_INF - NEG_INF)) until a live key wipes it with alpha = 0;
+// the output divides by l_safe (1 where l == 0) and lse = m + log(max(l,
+// 1e-30)). dq rounds ds = p (dp - delta) scale to k's dtype before ds.K;
+// dk/dv keep p and ds in fp32. Keys past Tk and queries past Tq do not exist
+// (p = 0): the kernels mask the ragged edge themselves, so no length has to
+// be padded to a multiple of a tile.
+//
+// Rows with no visible key at all (causal with Tq > Tk, or a query whose
+// segment has no key in its window): like the TPU kernel, which skips whole
+// tiles, such a row holds the mean of V over the key tiles its query tile
+// visits (every entry is NEG_INF, so p = 1 for each), and no tile at all
+// gives 0 with lse = NEG_INF + log(1e-30). Tiles here are 64 keys, not the
+// TPU's 128-512, so these rows differ from the TPU kernel's and from the
+// dense plain version's; parity tests compare live rows only.
+//
+// What bounds it on the H100: at the training shape (B=4, T=2048, 32 heads
+// of 128, causal) attention does 4 * Dh flops per visible (query, key) pair
+// in the forward, 6 * Dh in dq and 8 * Dh in dk/dv over ~2 MB of q/k/v per
+// head: hundreds of flops per byte, so all three are bound by operations
+// (989 TFLOP/s bf16 on the tensor cores). This first kernel does its
+// products with fp32 FMAs on the CUDA cores (67 TFLOP/s peak), so it runs
+// far from that bound; mma.sync / wgmma tiles with TMA loads are later work.
+//
+// Design. The TPU grid runs (batch, head, q block, k block) in order on one
+// core and carries m, l and the accumulator across the k steps in VMEM.
+// Here a thread block of 256 threads (a 16 x 16 grid) owns one q tile of
+// one head of one batch row (forward, dq) or one k tile of one kv head
+// (dk/dv) and loops over the tiles it can see itself:
+//   - the causal and window bounds give the first and last visible tile, so
+//     tiles outside the band are never loaded (the TPU kernel's block skip
+//     and DMA clamp);
+//   - tiles are staged in shared memory as fp32 rows padded by 4 floats, read
+//     through [B, T, H, Dh] strides with no transposed copy; each thread
+//     computes a 4 x 4 (or 2 x 4, 2 x 2) block of the score tile with float4
+//     shared loads, rows ty + 16 i and columns tx + 16 j, so a row's 16
+//     threads are 16 lanes of one warp and row max / sum are shuffles;
+//   - the output accumulators live in registers, columns tx * 4 + 64 c.
+
+#include <cuda_runtime.h>
+#include <cuda_fp16.h>
+#include <cuda_bf16.h>
+
+// Mirrored field by field by _FlashParams in ops/flash_attention.py.
+struct DsFlashParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* bias;                 // [B|1, H|1, Tq, Tk] fp32, last two dims contiguous
+  const int* qseg;                   // [B, Tq] int32, or null
+  const int* kseg;                   // [B, Tk] int32
+  const float* lse;                  // [B, H, Tq] (backward input)
+  const float* delta;                // [B, H, Tq] (backward input)
+  void* out;                         // [B, Tq, H, Dh] contiguous
+  float* lse_out;                    // [B, H, Tq]
+  void* dq;                          // [B, Tq, H, Dh] contiguous
+  void* dk;                          // [B, Tk, KV, Dh] contiguous
+  void* dv;                          // [B, Tk, KV, Dh] contiguous
+  long long q_sb, q_st, q_sh;        // element strides of q over (B, T, H)
+  long long k_sb, k_st, k_sh;
+  long long v_sb, v_st, v_sh;
+  long long do_sb, do_st, do_sh;
+  long long bias_sb, bias_sh;        // 0 where the bias broadcasts
+  int B, Tq, Tk, H, KV, dh, causal, window;
+  float scale;
+};
+
+namespace {
+
+using Params = DsFlashParams;
+
+constexpr int kThreads = 256;        // a 16 x 16 thread grid
+constexpr int kPad = 4;              // floats of padding after each smem row
+constexpr float kNegInf = -1e9f;     // the TPU kernels' finite mask value
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __half from_float<__half>(float x) { return __float2half_rn(x); }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to T and widened back: the TPU kernels' .astype(dtype) on fp32
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_float(from_float<T>(x)); }
+
+// max / sum over the 16 lanes that share a score row
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o, 16));
+  return x;
+}
+
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o, 16);
+  return x;
+}
+
+// Rows [r0, r0 + R) of one head of a [.., T, .., Dh] tensor (src points at
+// row 0 of that head, rows s_t elements apart) into smem [R][D + kPad] as
+// fp32; rows >= n_rows and columns >= dh are zero.
+template <typename T, int R, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, long long s_t,
+                                          int r0, int n_rows, int dh) {
+  for (int i = threadIdx.x; i < R * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    float x = 0.f;
+    if (r0 + r < n_rows && d < dh) x = to_float(src[static_cast<long long>(r0 + r) * s_t + d]);
+    dst[r * (D + kPad) + d] = x;
+  }
+}
+
+// acc[i][j] += sum_d A[ty + 16 i][d] * B[tx + 16 j][d]  (A, B: smem [..][D + kPad])
+template <int RI, int CJ, int D>
+__device__ __forceinline__ void product_nt(float (&acc)[RI][CJ], const float* A, const float* B,
+                                           int ty, int tx) {
+  constexpr int LD = D + kPad;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 a[RI], b[CJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * LD + d);
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) b[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * LD + d);
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        float s = acc[i][j];
+        s = fmaf(a[i].x, b[j].x, s);
+        s = fmaf(a[i].y, b[j].y, s);
+        s = fmaf(a[i].z, b[j].z, s);
+        s = fmaf(a[i].w, b[j].w, s);
+        acc[i][j] = s;
+      }
+    }
+  }
+}
+
+// acc[i][c] += sum_k P[ty + 16 i][k] * V[k][col(c)], col(c) = tx * 4 + 64 * (c / 4) + c % 4
+// (P: smem [..][K + kPad], V: smem [K][D + kPad])
+template <int RI, int K, int D>
+__device__ __forceinline__ void product_nn(float (&acc)[RI][D / 16], const float* P, const float* V,
+                                           int ty, int tx) {
+  constexpr int LDP = K + kPad, LDV = D + kPad, NC4 = D / 64;
+#pragma unroll 2
+  for (int k = 0; k < K; k += 4) {
+    float4 p[RI];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) p[i] = *reinterpret_cast<const float4*>(P + (ty + 16 * i) * LDP + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int c4 = 0; c4 < NC4; ++c4) {
+        const float4 v = *reinterpret_cast<const float4*>(V + (k + kk) * LDV + tx * 4 + 64 * c4);
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          const float pk = kk == 0 ? p[i].x : kk == 1 ? p[i].y : kk == 2 ? p[i].z : p[i].w;
+          acc[i][c4 * 4 + 0] = fmaf(pk, v.x, acc[i][c4 * 4 + 0]);
+          acc[i][c4 * 4 + 1] = fmaf(pk, v.y, acc[i][c4 * 4 + 1]);
+          acc[i][c4 * 4 + 2] = fmaf(pk, v.z, acc[i][c4 * 4 + 2]);
+          acc[i][c4 * 4 + 3] = fmaf(pk, v.w, acc[i][c4 * 4 + 3]);
+        }
+      }
+    }
+  }
+}
+
+// The masked, scaled, biased logit of (query qi, key kj) from the raw q.k
+// product s: -inf where either index is outside its tensor (p = 0 there),
+// NEG_INF where the key is not visible.
+__device__ __forceinline__ float logit(const Params& p, float s, int b, int h, int qi, int kj) {
+  if (qi >= p.Tq || kj >= p.Tk) return -INFINITY;
+  float x = s * p.scale;
+  if (p.bias != nullptr)
+    x += p.bias[b * p.bias_sb + h * p.bias_sh + static_cast<long long>(qi) * p.Tk + kj];
+  const int off = p.Tk - p.Tq;
+  bool visible = true;
+  if (p.causal) visible = kj <= qi + off;
+  if (p.window > 0) visible = visible && kj > qi + off - p.window;
+  if (p.qseg != nullptr)
+    visible = visible && p.qseg[static_cast<long long>(b) * p.Tq + qi] ==
+                             p.kseg[static_cast<long long>(b) * p.Tk + kj];
+  return visible ? x : kNegInf;
+}
+
+// Inclusive key range any query in [q_first, q_last] can see; empty when hi < lo.
+__device__ __forceinline__ void key_range(const Params& p, int q_first, int q_last, int& lo,
+                                          int& hi) {
+  const int off = p.Tk - p.Tq;
+  lo = 0;
+  hi = p.Tk - 1;
+  if (p.causal) hi = min(hi, q_last + off);
+  if (p.window > 0) lo = max(lo, q_first + off - p.window + 1);
+}
+
+// Inclusive query range that can see any key in [k_first, k_last].
+__device__ __forceinline__ void query_range(const Params& p, int k_first, int k_last, int& lo,
+                                            int& hi) {
+  const int off = p.Tk - p.Tq;
+  lo = 0;
+  hi = p.Tq - 1;
+  if (p.causal) lo = max(lo, k_first - off);
+  if (p.window > 0) hi = min(hi, k_last + p.window - 1 - off);
+}
+
+// ---------------------------------------------------------------------------
+// forward: grid (q tiles, H, B)
+// ---------------------------------------------------------------------------
+
+template <int D, int BQ, int BK>
+constexpr int fwd_smem_floats() { return (BQ + BK) * (D + kPad) + BQ * (BK + kPad); }
+
+template <typename T, int D, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
+  constexpr int RI = BQ / 16, CJ = BK / 16, NC = D / 16, LDP = BK + kPad;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);   // [BQ][D + kPad]
+  float* sX = sQ + BQ * (D + kPad);              // [BK][D + kPad]: K, then V
+  float* sP = sX + BK * (D + kPad);              // [BQ][BK + kPad]
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * BQ;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int kvh = h / (p.H / p.KV);
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  load_tile<T, BQ, D>(sQ, q, p.q_st, q0, p.Tq, p.dh);
+
+  int k_lo, k_hi;
+  key_range(p, q0, min(q0 + BQ, p.Tq) - 1, k_lo, k_hi);
+  const int kt_lo = k_lo / BK, kt_hi = k_hi >= k_lo ? k_hi / BK : kt_lo - 1;
+
+  float m[RI], l[RI], o[RI][NC];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) o[i][c] = 0.f;
+  }
+
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();   // the previous tile's readers of sX and sP are done
+    load_tile<T, BK, D>(sX, k, p.k_st, k0, p.Tk, p.dh);
+    __syncthreads();
+    float s[RI][CJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
+    product_nt<RI, CJ, D>(s, sQ, sX, ty, tx);
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int qi = q0 + ty + 16 * i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        s[i][j] = logit(p, s[i][j], b, h, qi, k0 + tx + 16 * j);
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const float pj = expf(s[i][j] - m_new);
+        sum += pj;
+        sP[(ty + 16 * i) * LDP + tx + 16 * j] = round_to<T>(pj);   // p.astype(v.dtype)
+      }
+      l[i] = alpha * l[i] + row_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) o[i][c] *= alpha;
+    }
+    __syncthreads();   // everyone is done with K
+    load_tile<T, BK, D>(sX, v, p.v_st, k0, p.Tk, p.dh);
+    __syncthreads();
+    product_nn<RI, BK, D>(o, sP, sX, ty, tx);
+  }
+
+  T* out = static_cast<T*>(p.out);
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    if (qi >= p.Tq) continue;
+    const float l_safe = l[i] == 0.f ? 1.f : l[i];
+    T* dst = out + ((static_cast<long long>(b) * p.Tq + qi) * p.H + h) * p.dh;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d = tx * 4 + 64 * (c / 4) + c % 4;
+      if (d < p.dh) dst[d] = from_float<T>(o[i][c] / l_safe);
+    }
+    if (tx == 0)
+      p.lse_out[(static_cast<long long>(b) * p.H + h) * p.Tq + qi] = m[i] + logf(fmaxf(l[i], 1e-30f));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dq: grid (q tiles, H, B)
+// ---------------------------------------------------------------------------
+
+template <int D, int BQ, int BK>
+constexpr int dq_smem_floats() { return (2 * BQ + BK) * (D + kPad) + BQ * (BK + kPad); }
+
+template <typename T, int D, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
+  constexpr int RI = BQ / 16, CJ = BK / 16, NC = D / 16, LDP = BK + kPad;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);   // [BQ][D + kPad]
+  float* sO = sQ + BQ * (D + kPad);              // dO [BQ][D + kPad]
+  float* sX = sO + BQ * (D + kPad);              // [BK][D + kPad]: V, then K
+  float* sS = sX + BK * (D + kPad);              // ds [BQ][BK + kPad]
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * BQ;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int kvh = h / (p.H / p.KV);
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  load_tile<T, BQ, D>(sQ, q, p.q_st, q0, p.Tq, p.dh);
+  load_tile<T, BQ, D>(sO, dout, p.do_st, q0, p.Tq, p.dh);
+
+  float lse[RI], delta[RI], dq[RI][NC];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    const long long row = (static_cast<long long>(b) * p.H + h) * p.Tq + qi;
+    lse[i] = qi < p.Tq ? p.lse[row] : 0.f;
+    delta[i] = qi < p.Tq ? p.delta[row] : 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dq[i][c] = 0.f;
+  }
+
+  int k_lo, k_hi;
+  key_range(p, q0, min(q0 + BQ, p.Tq) - 1, k_lo, k_hi);
+  const int kt_lo = k_lo / BK, kt_hi = k_hi >= k_lo ? k_hi / BK : kt_lo - 1;
+
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();
+    load_tile<T, BK, D>(sX, v, p.v_st, k0, p.Tk, p.dh);
+    __syncthreads();
+    float dp[RI][CJ], s[RI][CJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) dp[i][j] = s[i][j] = 0.f;
+    product_nt<RI, CJ, D>(dp, sO, sX, ty, tx);   // dp = dO . V^T in fp32
+    __syncthreads();
+    load_tile<T, BK, D>(sX, k, p.k_st, k0, p.Tk, p.dh);
+    __syncthreads();
+    product_nt<RI, CJ, D>(s, sQ, sX, ty, tx);
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int qi = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const float x = logit(p, s[i][j], b, h, qi, k0 + tx + 16 * j);
+        const float pj = expf(x - lse[i]);
+        // ds.astype(k.dtype) before ds . K
+        sS[(ty + 16 * i) * LDP + tx + 16 * j] = round_to<T>(pj * (dp[i][j] - delta[i]) * p.scale);
+      }
+    }
+    __syncthreads();
+    product_nn<RI, BK, D>(dq, sS, sX, ty, tx);
+  }
+
+  T* out = static_cast<T*>(p.dq);
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    if (qi >= p.Tq) continue;
+    T* dst = out + ((static_cast<long long>(b) * p.Tq + qi) * p.H + h) * p.dh;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d = tx * 4 + 64 * (c / 4) + c % 4;
+      if (d < p.dh) dst[d] = from_float<T>(dq[i][c]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dk/dv: grid (k tiles, KV, B); loops over the kv group's query heads
+// ---------------------------------------------------------------------------
+
+template <int D, int BQ, int BK>
+constexpr int dkv_smem_floats() { return 2 * (BK + BQ) * (D + kPad) + BK * (BQ + kPad); }
+
+template <typename T, int D, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Params p) {
+  constexpr int RI = BK / 16, CJ = BQ / 16, NC = D / 16, LDP = BQ + kPad;
+  extern __shared__ float4 smem4[];
+  float* sK = reinterpret_cast<float*>(smem4);   // [BK][D + kPad]
+  float* sV = sK + BK * (D + kPad);              // [BK][D + kPad]
+  float* sQ = sV + BK * (D + kPad);              // [BQ][D + kPad]
+  float* sO = sQ + BQ * (D + kPad);              // dO [BQ][D + kPad]
+  float* sP = sO + BQ * (D + kPad);              // p^T, then ds^T [BK][BQ + kPad]
+
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * BK;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int rep = p.H / p.KV;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  load_tile<T, BK, D>(sK, k, p.k_st, k0, p.Tk, p.dh);
+  load_tile<T, BK, D>(sV, v, p.v_st, k0, p.Tk, p.dh);
+
+  float dk[RI][NC], dv[RI][NC];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dk[i][c] = dv[i][c] = 0.f;
+
+  int q_lo, q_hi;
+  query_range(p, k0, min(k0 + BK, p.Tk) - 1, q_lo, q_hi);
+  const int qt_lo = q_lo / BQ, qt_hi = q_hi >= q_lo ? q_hi / BQ : qt_lo - 1;
+
+  for (int h = kvh * rep; h < (kvh + 1) * rep; ++h) {
+    const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+    for (int qt = qt_lo; qt <= qt_hi; ++qt) {
+      const int q0 = qt * BQ;
+      __syncthreads();   // the previous tile's readers of sQ, sO and sP are done
+      load_tile<T, BQ, D>(sQ, q, p.q_st, q0, p.Tq, p.dh);
+      load_tile<T, BQ, D>(sO, dout, p.do_st, q0, p.Tq, p.dh);
+      float lse[CJ], delta[CJ];
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const int qi = q0 + tx + 16 * j;
+        const long long row = (static_cast<long long>(b) * p.H + h) * p.Tq + qi;
+        lse[j] = qi < p.Tq ? p.lse[row] : 0.f;
+        delta[j] = qi < p.Tq ? p.delta[row] : 0.f;
+      }
+      __syncthreads();
+      float s[RI][CJ], dpt[RI][CJ];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) s[i][j] = dpt[i][j] = 0.f;
+      product_nt<RI, CJ, D>(s, sK, sQ, ty, tx);   // s^T = K . Q^T
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const int kj = k0 + ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) {
+          s[i][j] = expf(logit(p, s[i][j], b, h, q0 + tx + 16 * j, kj) - lse[j]);   // p^T, fp32
+          sP[(ty + 16 * i) * LDP + tx + 16 * j] = s[i][j];
+        }
+      }
+      __syncthreads();
+      product_nn<RI, BQ, D>(dv, sP, sO, ty, tx);     // dV += p^T . dO
+      product_nt<RI, CJ, D>(dpt, sV, sO, ty, tx);    // dp^T = V . dO^T
+      __syncthreads();                               // everyone is done reading p^T
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j)
+          sP[(ty + 16 * i) * LDP + tx + 16 * j] = s[i][j] * (dpt[i][j] - delta[j]) * p.scale;
+      __syncthreads();
+      product_nn<RI, BQ, D>(dk, sP, sQ, ty, tx);     // dK += ds^T . Q
+    }
+  }
+
+  T* dk_out = static_cast<T*>(p.dk);
+  T* dv_out = static_cast<T*>(p.dv);
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int kj = k0 + ty + 16 * i;
+    if (kj >= p.Tk) continue;
+    const long long row = ((static_cast<long long>(b) * p.Tk + kj) * p.KV + kvh) * p.dh;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d = tx * 4 + 64 * (c / 4) + c % 4;
+      if (d < p.dh) {
+        dk_out[row + d] = from_float<T>(dk[i][c]);
+        dv_out[row + d] = from_float<T>(dv[i][c]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, dim3 grid, int smem_floats, const Params& p,
+                   cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(smem_floats) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Tiles per head width: 64 x 64 everywhere up to Dh 128; at Dh 256 the
+// backward kernels take 32-row tiles so their staged rows fit in 227 KB.
+template <typename T, int D>
+cudaError_t fwd(const Params& p, cudaStream_t s) {
+  // BK is FWD_BLOCK_K of ops/flash_attention.py: the plain version rounds p
+  // against the running maximum of the same key tiles
+  constexpr int BQ = 64, BK = 64;
+  const dim3 grid((p.Tq + BQ - 1) / BQ, p.H, p.B);
+  return launch(flash_fwd_kernel<T, D, BQ, BK>, grid, fwd_smem_floats<D, BQ, BK>(), p, s);
+}
+
+template <typename T, int D>
+cudaError_t bwd_dq(const Params& p, cudaStream_t s) {
+  constexpr int BQ = D > 128 ? 32 : 64, BK = 64;
+  const dim3 grid((p.Tq + BQ - 1) / BQ, p.H, p.B);
+  return launch(flash_dq_kernel<T, D, BQ, BK>, grid, dq_smem_floats<D, BQ, BK>(), p, s);
+}
+
+template <typename T, int D>
+cudaError_t bwd_dkv(const Params& p, cudaStream_t s) {
+  constexpr int BQ = D > 128 ? 32 : 64, BK = D > 128 ? 32 : 64;
+  const dim3 grid((p.Tk + BK - 1) / BK, p.KV, p.B);
+  return launch(flash_dkv_kernel<T, D, BQ, BK>, grid, dkv_smem_floats<D, BQ, BK>(), p, s);
+}
+
+enum Which { kFwd, kDq, kDkv };
+
+template <typename T, int D>
+cudaError_t run(Which which, const Params& p, cudaStream_t s) {
+  switch (which) {
+    case kFwd: return fwd<T, D>(p, s);
+    case kDq: return bwd_dq<T, D>(p, s);
+    default: return bwd_dkv<T, D>(p, s);
+  }
+}
+
+// Head widths up to 256 round up to a staged width of 64, 128 or 256; the
+// extra columns are zero.
+template <typename T>
+cudaError_t dispatch_width(Which which, const Params& p, cudaStream_t s) {
+  if (p.dh <= 0 || p.dh > 256) return cudaErrorInvalidValue;
+  if (p.dh <= 64) return run<T, 64>(which, p, s);
+  if (p.dh <= 128) return run<T, 128>(which, p, s);
+  return run<T, 256>(which, p, s);
+}
+
+int dispatch(Which which, const Params* p, int dtype, void* stream) {
+  if (p->B == 0 || p->Tq == 0 || p->Tk == 0 || p->H == 0) return cudaSuccess;
+  if (p->KV <= 0 || p->H % p->KV) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return dispatch_width<float>(which, *p, s);
+    case 1: return dispatch_width<__half>(which, *p, s);
+    case 2: return dispatch_width<__nv_bfloat16>(which, *p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16 (q, k, v, dO and the
+// outputs share it). Each returns a cudaError_t code.
+extern "C" int ds_flash_fwd(const Params* p, int dtype, void* stream) {
+  return dispatch(kFwd, p, dtype, stream);
+}
+
+extern "C" int ds_flash_bwd_dq(const Params* p, int dtype, void* stream) {
+  return dispatch(kDq, p, dtype, stream);
+}
+
+extern "C" int ds_flash_bwd_dkv(const Params* p, int dtype, void* stream) {
+  return dispatch(kDkv, p, dtype, stream);
+}
+
+extern "C" const char* ds_flash_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

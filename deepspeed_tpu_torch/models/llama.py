@@ -1,13 +1,15 @@
-"""Llama model family (port of ``deepspeed_tpu/models/llama.py``, serving side).
+"""Llama model family (port of ``deepspeed_tpu/models/llama.py``).
 
 ``LlamaConfig`` with its presets, the interleaved-pair rotary embedding,
-RMSNorm, and ``LlamaForCausalLM``: an ``nn.Module`` that holds the weights the
-ragged serving forward (``inference/v2/model_implementations/llama.py``)
-runs. Parameter names follow the HuggingFace layout (``layers.0.self_attn.
-q_proj.weight``, ...) and linear weights are ``nn.Linear``'s ``[out, in]``.
-``params_from_flax`` converts the JAX package's scan-stacked flax tree into
-this module's state dict. The flax training forward waits for the training
-slice (ROADMAP A1).
+RMSNorm, and ``LlamaForCausalLM``: an ``nn.Module`` whose ``forward(batch)``
+is the JAX model's training forward (RMSNorm in fp32, interleaved rotary,
+``mha`` flash attention, SwiGLU MLP, the fused chunked CE head) and whose
+weights the ragged serving forward (``inference/v2/model_implementations/
+llama.py``) also runs. Parameter names follow the HuggingFace layout
+(``layers.0.self_attn.q_proj.weight``, ...) and linear weights are
+``nn.Linear``'s ``[out, in]``. ``params_from_flax`` converts the JAX
+package's scan-stacked flax tree (parameters or their gradients) into this
+module's state dict.
 """
 
 import dataclasses
@@ -18,6 +20,9 @@ import torch
 from torch import nn
 
 from deepspeed_tpu_torch import resolve_device
+from deepspeed_tpu_torch.models.losses import lm_head_next_token_loss
+from deepspeed_tpu_torch.ops.flash_attention import mha
+from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +40,8 @@ class LlamaConfig:
     attention_out_bias: bool = False  # o_proj bias too (InternLM-family)
     sliding_window: Any = None        # local-window attention (Mistral-family)
     head_dim: Any = None              # None derives hidden_size // num_attention_heads
+    remat: bool = True                # recompute layers in backward per the
+    #                                   activation_checkpointing policy
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
@@ -122,6 +129,18 @@ class LlamaAttention(nn.Module):
         self.k_proj = nn.Linear(D, KV * Dh, bias=cfg.attention_bias, **kw)
         self.v_proj = nn.Linear(D, KV * Dh, bias=cfg.attention_bias, **kw)
         self.o_proj = nn.Linear(H * Dh, D, bias=cfg.attention_out_bias, **kw)
+        self.config = cfg
+
+    def forward(self, x, positions, attention=mha):
+        cfg = self.config
+        B, T, _ = x.shape
+        H, KV, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        q = rotary_embed(self.q_proj(x).view(B, T, H, Dh), positions, cfg.rope_theta)
+        k = rotary_embed(self.k_proj(x).view(B, T, KV, Dh), positions, cfg.rope_theta)
+        v = self.v_proj(x).view(B, T, KV, Dh)
+        # GQA k/v pass un-repeated; a sliding window goes to the kernel
+        out = attention(q, k, v, causal=True, window=cfg.sliding_window or None)
+        return self.o_proj(out.reshape(B, T, H * Dh))
 
 
 class LlamaMLP(nn.Module):
@@ -134,6 +153,10 @@ class LlamaMLP(nn.Module):
         self.up_proj = nn.Linear(D, F, **kw)
         self.down_proj = nn.Linear(F, D, **kw)
 
+    def forward(self, x):
+        return self.down_proj(torch.nn.functional.silu(self.gate_proj(x))
+                              * self.up_proj(x))
+
 
 class LlamaDecoderLayer(nn.Module):
 
@@ -144,6 +167,10 @@ class LlamaDecoderLayer(nn.Module):
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
                                                 cfg.rms_norm_eps, device)
+
+    def forward(self, x, positions, attention=mha):
+        x = x + self.self_attn(self.input_layernorm(x), positions, attention)
+        return x + self.mlp(self.post_attention_layernorm(x))
 
 
 class LlamaForCausalLM(nn.Module):
@@ -162,6 +189,33 @@ class LlamaForCausalLM(nn.Module):
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device)
         self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
                                  bias=False, **kw)
+
+    def forward(self, batch, positions=None, attention=mha):
+        """The JAX model's ``__call__``: ``batch`` is a dict with
+        ``input_ids`` [B, T] and optional ``labels`` [B, T], or the ids
+        alone. Returns the next-token loss when there are labels, else the
+        logits [B, T, V]. In training each decoder layer runs under the
+        configured activation-checkpointing policy (``config.remat``).
+        ``attention`` replaces ``mha`` (a plain version, for comparisons)."""
+        cfg = self.config
+        if isinstance(batch, dict):
+            input_ids, labels = batch["input_ids"], batch.get("labels")
+        else:
+            input_ids, labels = batch, None
+        input_ids = input_ids.long()
+        B, T = input_ids.shape
+        x = self.embed_tokens(input_ids)
+        if positions is None:
+            positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
+        for layer in self.layers:
+            if cfg.remat:
+                x = checkpointing.checkpoint(layer, x, positions, attention)
+            else:
+                x = layer(x, positions, attention)
+        x = self.norm(x)
+        if labels is None:
+            return x @ self.lm_head.weight.to(x.dtype).T
+        return lm_head_next_token_loss(x, self.lm_head.weight, labels)
 
     @classmethod
     def from_seed(cls, config: LlamaConfig, seed: int, device=None,
@@ -187,9 +241,16 @@ class LlamaForCausalLM(nn.Module):
         return model.requires_grad_(False)
 
 
+def llama_flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
+    """Training FLOPs/token ~ 6N + 12 L D T: the attention term counts every
+    (query, key) pair, not the causal half."""
+    return 6 * cfg.num_parameters() + 12 * cfg.num_hidden_layers * cfg.hidden_size * seq_len
+
+
 def params_from_flax(tree):
     """The JAX package's ``LlamaForCausalLM`` (``scan_layers=True``) param
     tree, as numpy arrays, -> a state dict for this ``LlamaForCausalLM``.
+    The same mapping converts a gradient tree of the same structure.
 
     Flax kernels are ``[in, out]`` stacked ``[L, in, out]`` over layers;
     ``nn.Linear`` weights are ``[out, in]``, so each is unstacked and

@@ -1,0 +1,506 @@
+"""DeepSpeed-style JSON config system (port of ``deepspeed_tpu/runtime/config.py``).
+
+The same sections, keys, defaults and errors as the JAX package: a single
+JSON/dict is parsed into typed sub-configs with the train-batch triple
+auto-derivation (train_batch = micro_batch x grad_accum x data_parallel_size).
+Parsing accepts everything the JAX package accepts; ``check_supported`` then
+raises ``NotImplementedError``, naming the ROADMAP item, for the settings the
+port cannot train with yet. The engine calls it.
+"""
+
+import json
+import os
+
+from deepspeed_tpu_torch.runtime import constants as C
+from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigModel, get_scalar_param
+from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
+from deepspeed_tpu_torch.utils.logging import logger
+
+
+class FP16Config(DeepSpeedConfigModel):
+    """reference fp16 dict (``runtime/config.py`` get_fp16_enabled etc.)."""
+    enabled = False
+    auto_cast = False
+    loss_scale = 0.0  # 0 => dynamic
+    initial_scale_power = 16
+    loss_scale_window = 1000
+    hysteresis = 2
+    consecutive_hysteresis = False
+    min_loss_scale = 1.0
+
+
+class BF16Config(DeepSpeedConfigModel):
+    enabled = False
+    immediate_grad_update = False
+
+
+class DataTypesConfig(DeepSpeedConfigModel):
+    grad_accum_dtype = None  # None => fp32
+
+
+class OptimizerConfig(DeepSpeedConfigModel):
+    type = "AdamW"
+    params = {}
+    legacy_fusion = False
+
+
+class SchedulerConfig(DeepSpeedConfigModel):
+    type = None
+    params = {}
+
+
+class ActivationCheckpointingConfig(DeepSpeedConfigModel):
+    """reference ``runtime/activation_checkpointing/config.py``; ``policy``
+    selects what each decoder layer saves for backward."""
+    partition_activations = False
+    cpu_checkpointing = False
+    contiguous_memory_optimization = False
+    number_checkpoints = None
+    synchronize_checkpoint_boundary = False
+    profile = False
+    # named policy ("nothing" | "dots" | "everything")
+    policy = "everything"
+
+
+class PipelineConfig(DeepSpeedConfigModel):
+    stages = 1
+    partition_method = "parameters"
+    seed_layers = False
+    activation_checkpoint_interval = 0
+
+
+class TensorParallelConfig(DeepSpeedConfigModel):
+    tp_size = 1
+    mpu = None
+
+
+class MonitorWriterConfig(DeepSpeedConfigModel):
+    enabled = False
+    output_path = ""
+    job_name = "DeepSpeedJobName"
+
+
+class WandbConfig(DeepSpeedConfigModel):
+    enabled = False
+    group = None
+    team = None
+    project = "deepspeed_tpu"
+
+
+class CommsLoggerConfig(DeepSpeedConfigModel):
+    enabled = False
+    verbose = False
+    prof_all = True
+    prof_ops = []
+    debug = False
+
+
+class TelemetryConfig(DeepSpeedConfigModel):
+    """``telemetry`` section (the JAX package's telemetry pipeline)."""
+    enabled = False
+    jsonl_path = ""          # "" disables the JSON-lines metrics export
+    chrome_trace_path = ""   # "" disables the chrome://tracing span export
+    sample_sync = True       # block_until_ready on span tokens when sampling
+    jax_annotations = False  # mirror spans into jax.profiler annotations
+    monitor = True           # fan aggregates through MonitorMaster at
+    #                          steps_per_print cadence
+    memory = True            # HBM memory stream (record_memory samples at
+    #                          step boundaries, OOM post-mortem)
+    flops_per_step = 0       # model FLOPs per optimizer step for the MFU
+    #                          gauge (0 -> flops profiler fills it in)
+    peak_flops = 0           # aggregate peak FLOP/s denominator (0 -> per
+    #                          device-kind table)
+
+
+class PreemptionConfig(DeepSpeedConfigModel):
+    """``resilience.preemption`` — SIGTERM/SIGINT → emergency checkpoint at
+    the next step boundary, then exit with ``exit_code`` (the elastic
+    agent's "clean preemption" contract, docs/RESILIENCE.md)."""
+    enabled = False
+    save_dir = ""       # "" -> the last save_checkpoint dir this run used
+    tag = "emergency"
+    exit_code = 83      # resilience.EXIT_CLEAN_PREEMPTION
+
+
+class WatchdogConfig(DeepSpeedConfigModel):
+    """``resilience.watchdog`` — step-heartbeat stall detector
+    (resilience/watchdog.py). A stall is no step progress within
+    ``hang_factor`` × rolling-median step time (floored at
+    ``min_interval_s``); on trip it dumps all-thread stacks + the telemetry
+    summary and, with ``abort``, hard-exits with ``exit_code`` so the
+    elastic agent restarts the gang."""
+    enabled = False
+    hang_factor = 10.0
+    min_interval_s = 60.0
+    poll_interval_s = 1.0
+    window = 32         # rolling step-time samples for the median
+    abort = False
+    exit_code = 85      # resilience.EXIT_WATCHDOG_ABORT
+    dump_file = ""      # also write the hang report here ("" = log only)
+
+
+class ElasticReshardConfig(DeepSpeedConfigModel):
+    """``resilience.elastic`` — slice-loss hand-off for elastic multi-slice
+    training (resilience/elastic_reshard.py, docs/RESILIENCE.md). With
+    ``enabled``, a slice-loss fault surfacing at the step boundary
+    (``slice.lost`` / ``comm.partition``) makes the engine write an
+    emergency *universal* checkpoint (topology-independent, so the
+    relaunched gang can reshard it onto the survivors) and exit with
+    ``exit_code`` — the elastic agent's "reshardable slice loss" contract,
+    budget-free like a clean preemption but relaunched at a REDUCED world.
+    Disabled (the default), the fault propagates to the caller — the
+    in-process :class:`ElasticReshardController` path."""
+    enabled = False
+    save_dir = ""       # "" -> the last save_checkpoint dir this run used
+    exit_code = 84      # resilience.EXIT_RESHARD_SLICE_LOSS
+    n_slices = 2        # how many equal device slices the world divides into
+
+
+class ResilienceConfig(DeepSpeedConfigModel):
+    """``resilience`` section — fault injection, preemption-aware save and
+    the step watchdog (deepspeed_tpu/resilience, docs/RESILIENCE.md).
+    ``faults`` takes the DS_TPU_FAULTS grammar
+    (``"point:mode[@stepA[-B]][!action]"``); the env var layers on top.
+    ``postmortem_dir`` names the flight-recorder bundle destination
+    (telemetry/flightrec.py) — empty leaves bundles governed by the
+    ``DS_TPU_POSTMORTEM_DIR`` env var, and unset both means abnormal
+    exits leave no bundle (the ring still records)."""
+    faults = ""
+    fault_seed = 0
+    postmortem_dir = ""
+    preemption = PreemptionConfig()
+    watchdog = WatchdogConfig()
+    elastic = ElasticReshardConfig()
+
+
+class FlopsProfilerConfig(DeepSpeedConfigModel):
+    enabled = False
+    recompute_fwd_factor = 0.0
+    profile_step = 1
+    module_depth = -1
+    top_modules = 1
+    detailed = True
+    output_file = None
+
+
+class CheckpointConfig(DeepSpeedConfigModel):
+    tag_validation = "Warn"
+    load_universal = False
+    use_node_local_storage = False
+    parallel_write = {}
+
+
+class ElasticityConfig(DeepSpeedConfigModel):
+    enabled = False
+    max_train_batch_size = 2000
+    micro_batch_sizes = [2, 4, 6]
+    min_gpus = 1
+    max_gpus = 10000
+    min_time = 0
+    version = 0.2
+    ignore_non_elastic_batch_info = False
+    prefer_larger_batch = True
+
+
+class CompileConfig(DeepSpeedConfigModel):
+    """reference ``runtime/compiler.py``; parsed for config parity."""
+    enabled = True
+    backend = "xla"
+    kwargs = {}
+    donate_state = True
+
+
+class AutotuningConfig(DeepSpeedConfigModel):
+    enabled = False
+    start_profile_step = 3
+    end_profile_step = 5
+    metric = "throughput"
+    fast = True
+    max_train_batch_size = None
+    mp_size = 1
+    num_tuning_micro_batch_sizes = 3
+    tuner_type = "gridsearch"
+    tuner_early_stopping = 5
+    tuner_num_trials = 50
+
+
+class OverlapConfig(DeepSpeedConfigModel):
+    """Compute/communication overlap schedule (runtime/zero/overlap_schedule.py).
+
+    ``schedule`` turns on the scheduled qgZ step: double-buffered parameter
+    block prefetch inside the layer scan plus the bucketized grad exchange at
+    the GAS boundary. Default-off — the unscheduled path stays the reference
+    numerics until parity is pinned for a model/config combination.
+    ``prefetch_depth`` is how many layer blocks of gathered parameters stay
+    in flight ahead of compute (0 = fetch-at-use); ``grad_buckets`` is how
+    many independent exchange chains the stacked grad reduce splits into."""
+    schedule = False
+    prefetch_depth = 1
+    grad_buckets = 2
+
+
+class MoEConfig(DeepSpeedConfigModel):
+    enabled = False
+    ep_size = 1
+    moe_param_group = False
+    use_residual = False
+
+
+# Every key DeepSpeedConfig understands at the top level. A key outside this
+# set is a config bug (e.g. the classic "zero_optimisation" typo silently
+# training at stage 0) and raises — the reference's config system similarly
+# validates via pydantic models (``runtime/config_utils.py``).
+KNOWN_TOP_LEVEL_KEYS = {
+    C.TRAIN_BATCH_SIZE, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
+    C.GRADIENT_ACCUMULATION_STEPS, C.STEPS_PER_PRINT, C.WALL_CLOCK_BREAKDOWN,
+    C.DUMP_STATE, C.GRADIENT_CLIPPING, C.PRESCALE_GRADIENTS,
+    C.GRADIENT_PREDIVIDE_FACTOR, C.SPARSE_GRADIENTS, C.PREFETCH_BATCHES,
+    C.FUSED_STEP,
+    C.OPTIMIZER, C.SCHEDULER,
+    C.FP16, C.BF16, C.DATA_TYPES, C.ZERO_OPTIMIZATION,
+    C.ACTIVATION_CHECKPOINTING, C.PIPELINE, C.TENSOR_PARALLEL,
+    C.SEQUENCE_PARALLEL_SIZE, C.EXPERT_PARALLEL_SIZE, C.COMMS_LOGGER,
+    C.MONITOR_TENSORBOARD, C.MONITOR_CSV, C.MONITOR_WANDB, C.FLOPS_PROFILER,
+    C.TELEMETRY, C.RESILIENCE, C.OVERLAP,
+    C.ELASTICITY, C.AUTOTUNING, C.CHECKPOINT, C.COMPILE,
+    "moe", "seed", "hybrid_engine", "curriculum_learning", "data_efficiency",
+    "compression_training", "eigenvalue", "progressive_layer_drop",
+    "correctness_guards",
+}
+
+# Reference keys that are accepted but have no effect; they log once instead
+# of raising.
+INERT_TOP_LEVEL_KEYS = {
+    "zero_allow_untested_optimizer", "communication_data_type",
+    "seq_parallel_communication_data_type", "memory_breakdown",
+    "dataloader_drop_last", "amp", "aio", "use_node_local_storage",
+    # further reference keys common in shipped HF/DeepSpeed example configs,
+    # accepted, logged, inert
+    "zero_force_ds_cpu_optimizer", "sparse_attention", "timers",
+    "gradient_noise_scale", "sparse_gradients_enabled", "fp8",
+}
+
+# Renamed/retired keys (reference pydantic ``deprecated``/``new_param`` field
+# metadata, ``config_utils.py``): old key -> replacement hint.
+DEPRECATED_TOP_LEVEL_KEYS = {
+    "cpu_offload": "zero_optimization.offload_optimizer",
+    "cpu_offload_params": "zero_optimization.offload_param",
+    "scheduler_params": "scheduler.params",
+    "disable_allgather": None,
+}
+
+AUTO = "auto"
+
+
+class DeepSpeedConfigError(ValueError):
+    """Configuration error (reference ``runtime/config.py`` DeepSpeedConfigError).
+    Subclasses ValueError so existing except-ValueError callers keep working."""
+
+
+class DeepSpeedConfig:
+
+    def __init__(self, config, mpu=None, mesh_topology=None):
+        if isinstance(config, str):
+            if not os.path.exists(config):
+                raise FileNotFoundError(f"DeepSpeed config file not found: {config}")
+            with open(config) as f:
+                self._param_dict = json.load(f)
+        elif isinstance(config, dict):
+            self._param_dict = dict(config)
+        elif config is None:
+            self._param_dict = {}
+        else:
+            raise DeepSpeedConfigError(
+                f"Expected dict or path for config, got {type(config)}")
+        self.mesh_topology = mesh_topology
+        self._validate_top_level_keys(self._param_dict)
+        self._initialize_params(self._param_dict)
+        self._do_sanity_check()
+
+    def _validate_top_level_keys(self, pd):
+        import difflib
+        for key in pd:
+            if key in KNOWN_TOP_LEVEL_KEYS:
+                continue
+            if key in INERT_TOP_LEVEL_KEYS:
+                logger.info(f"config key '{key}' accepted but has no effect")
+                continue
+            if key in DEPRECATED_TOP_LEVEL_KEYS:
+                new = DEPRECATED_TOP_LEVEL_KEYS[key]
+                hint = f"; use '{new}'" if new else " and has no replacement"
+                logger.warning(f"config key '{key}' is deprecated{hint}")
+                continue
+            close = difflib.get_close_matches(
+                key, KNOWN_TOP_LEVEL_KEYS | INERT_TOP_LEVEL_KEYS, n=1)
+            hint = f" (did you mean '{close[0]}'?)" if close else ""
+            raise DeepSpeedConfigError(f"Unknown top-level config key '{key}'{hint}. "
+                             f"Valid keys: {sorted(KNOWN_TOP_LEVEL_KEYS)}")
+
+    @staticmethod
+    def _auto(pd, name, default):
+        """Scalar lookup with HF-style "auto" support: "auto" means "derive it"
+        and resolves to the default (for the batch triple, to None so
+        ``resolve_batch_params`` fills it from the other two)."""
+        v = get_scalar_param(pd, name, default)
+        return default if v == AUTO else v
+
+    # mirrors reference config.py:798 _initialize_params
+    def _initialize_params(self, pd):
+        self.train_batch_size = self._auto(pd, C.TRAIN_BATCH_SIZE, None)
+        self.train_micro_batch_size_per_gpu = self._auto(pd, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU, None)
+        self.gradient_accumulation_steps = self._auto(pd, C.GRADIENT_ACCUMULATION_STEPS, None)
+        self.steps_per_print = get_scalar_param(pd, C.STEPS_PER_PRINT, C.STEPS_PER_PRINT_DEFAULT)
+        self.wall_clock_breakdown = get_scalar_param(pd, C.WALL_CLOCK_BREAKDOWN, False)
+        self.dump_state = get_scalar_param(pd, C.DUMP_STATE, False)
+        self.gradient_clipping = self._auto(pd, C.GRADIENT_CLIPPING, 0.0)
+        self.prescale_gradients = get_scalar_param(pd, C.PRESCALE_GRADIENTS, False)
+        self.gradient_predivide_factor = get_scalar_param(pd, C.GRADIENT_PREDIVIDE_FACTOR, 1.0)
+        self.sparse_gradients_enabled = get_scalar_param(pd, C.SPARSE_GRADIENTS, False)
+        # background input pipeline: 0 disables, N>0 keeps N batches ahead
+        self.prefetch_batches = int(get_scalar_param(pd, C.PREFETCH_BATCHES, 0))
+        # the JAX package fuses grad computation + optimizer apply into one
+        # jitted program at GAS=1; see check_supported
+        self.fused_step = bool(get_scalar_param(pd, C.FUSED_STEP, False))
+
+        self.optimizer = OptimizerConfig(pd.get(C.OPTIMIZER, {}))
+        self.scheduler = SchedulerConfig(pd.get(C.SCHEDULER, {}))
+        self.fp16 = FP16Config(pd.get(C.FP16, {}))
+        self.bf16 = BF16Config(pd.get(C.BF16, {}))
+        self.data_types = DataTypesConfig(pd.get(C.DATA_TYPES, {}))
+        self.zero_config = DeepSpeedZeroConfig(pd.get(C.ZERO_OPTIMIZATION, {}))
+        self.activation_checkpointing = ActivationCheckpointingConfig(pd.get(C.ACTIVATION_CHECKPOINTING, {}))
+        self.pipeline = PipelineConfig(pd.get(C.PIPELINE, {}))
+        self.tensor_parallel = TensorParallelConfig(pd.get(C.TENSOR_PARALLEL, {}))
+        self.sequence_parallel_size = get_scalar_param(pd, C.SEQUENCE_PARALLEL_SIZE, 1)
+        self.moe = MoEConfig(pd.get("moe", {}))
+        self.expert_parallel_size = get_scalar_param(pd, C.EXPERT_PARALLEL_SIZE, self.moe.ep_size)
+        self.comms_config = CommsLoggerConfig(pd.get(C.COMMS_LOGGER, {}))
+        self.monitor_config_tb = MonitorWriterConfig(pd.get(C.MONITOR_TENSORBOARD, {}))
+        self.monitor_config_csv = MonitorWriterConfig(pd.get(C.MONITOR_CSV, {}))
+        self.monitor_config_wandb = WandbConfig(pd.get(C.MONITOR_WANDB, {}))
+        self.flops_profiler_config = FlopsProfilerConfig(pd.get(C.FLOPS_PROFILER, {}))
+        self.telemetry_config = TelemetryConfig(pd.get(C.TELEMETRY, {}))
+        self.overlap_config = OverlapConfig(pd.get(C.OVERLAP, {}))
+        self.resilience_config = ResilienceConfig(pd.get(C.RESILIENCE, {}))
+        self.checkpoint_config = CheckpointConfig(pd.get(C.CHECKPOINT, {}))
+        self.elasticity_config = ElasticityConfig(pd.get(C.ELASTICITY, {}))
+        self.compile_config = CompileConfig(pd.get(C.COMPILE, {}))
+        self.autotuning_config = AutotuningConfig(pd.get(C.AUTOTUNING, {}))
+        self.seed = get_scalar_param(pd, "seed", 42)
+        # trace-level correctness guards (the JAX package's runtime/guards.py)
+        cg = dict(pd.get("correctness_guards", {}))
+        self.correctness_guards = {
+            "enabled": bool(cg.get("enabled", False)),
+            "check_every": int(cg.get("check_every", 1)),
+            "checkify_on_overflow": bool(cg.get("checkify_on_overflow", True)),
+        }
+        # data efficiency (reference runtime/data_pipeline/config.py):
+        # legacy "curriculum_learning" section + "data_efficiency" umbrella
+        # RLHF hybrid engine (reference runtime/hybrid_engine.py config section)
+        self.hybrid_engine = dict(pd.get("hybrid_engine", {}))
+        self.hybrid_engine_enabled = bool(self.hybrid_engine.get("enabled", False))
+        self.curriculum_learning = dict(pd.get("curriculum_learning", {}))
+        self.curriculum_enabled_legacy = bool(
+            self.curriculum_learning.get("enabled", False))
+        self.data_efficiency = dict(pd.get("data_efficiency", {}))
+
+        # convenience views used by topology building
+        self.pipeline_stages = self.pipeline.stages
+        self.tensor_parallel_size = self.tensor_parallel.tp_size
+
+        self.zero_enabled = self.zero_config.stage > 0
+        self.zero_optimization_stage = self.zero_config.stage
+
+    def resolve_batch_params(self, dp_world_size):
+        """Auto-derive the train-batch triple (reference ``config.py:789-791``)."""
+        tb, mb, gas = (self.train_batch_size, self.train_micro_batch_size_per_gpu,
+                       self.gradient_accumulation_steps)
+        if tb is not None and mb is not None and gas is not None:
+            pass
+        elif tb is not None and mb is not None:
+            gas = tb // (mb * dp_world_size)
+        elif tb is not None and gas is not None:
+            mb = tb // (gas * dp_world_size)
+        elif mb is not None and gas is not None:
+            tb = mb * gas * dp_world_size
+        elif tb is not None:
+            gas = 1
+            mb = tb // dp_world_size
+        elif mb is not None:
+            gas = 1
+            tb = mb * dp_world_size
+        else:
+            raise ValueError(
+                "At least one of train_batch_size / train_micro_batch_size_per_gpu "
+                "must be set in the config")
+        if tb != mb * gas * dp_world_size:
+            raise ValueError(
+                f"Check batch related parameters. train_batch_size is not equal to "
+                f"micro_batch_per_gpu * gradient_acc_step * world_size "
+                f"{tb} != {mb} * {gas} * {dp_world_size}")
+        if mb < 1 or gas < 1:
+            raise ValueError(f"Derived invalid batch params: micro={mb} gas={gas}")
+        self.train_batch_size, self.train_micro_batch_size_per_gpu, \
+            self.gradient_accumulation_steps = tb, mb, gas
+        return tb, mb, gas
+
+    def _do_sanity_check(self):
+        if self.fp16.enabled and self.bf16.enabled:
+            raise ValueError("fp16 and bf16 cannot both be enabled")
+        if self.zero_config.stage not in (0, 1, 2, 3):
+            raise ValueError(f"invalid ZeRO stage {self.zero_config.stage}")
+
+    def print_config(self):
+        logger.info(f"DeepSpeedConfig: {json.dumps(self._param_dict, indent=2, default=str)}")
+
+    def check_supported(self):
+        """Raise ``NotImplementedError`` naming the ROADMAP item for a setting
+        the port's training path does not run yet. Single-rank training
+        (ZeRO stage 0) with fp32, fp16 or bf16, the adam/adamw optimizers,
+        every LR schedule, clipping, gradient accumulation and activation
+        checkpointing (``everything`` / ``nothing``) are supported."""
+        z = self.zero_config
+        ac = self.activation_checkpointing
+        rc = self.resilience_config
+        checks = [
+            (z.stage > 0, f"zero_optimization.stage={z.stage}",
+             "A1 (data parallel and ZeRO 1/2/3 over torch.distributed)"),
+            (z.offload_optimizer_device != "none" or z.offload_param_device
+             != "none" or z.cpu_offload, "ZeRO offload", "A14 (offload tiers)"),
+            (z.zero_quantized_weights or z.zero_quantized_gradients
+             or z.zero_hpz_partition_size > 1, "ZeRO++", "A10 (ZeRO++)"),
+            (self.pipeline.stages > 1, "pipeline.stages > 1",
+             "A12 (parallelism breadth)"),
+            (self.tensor_parallel.tp_size > 1, "tensor_parallel.tp_size > 1",
+             "A12 (parallelism breadth)"),
+            (self.sequence_parallel_size > 1, "sequence_parallel_size > 1",
+             "A12 (parallelism breadth)"),
+            (self.moe.enabled or self.expert_parallel_size > 1, "MoE", "A9 (MoE)"),
+            (self.fused_step, "fused_step",
+             "A1 (forward/backward/step run as separate calls)"),
+            (self.prefetch_batches > 0, "prefetch_batches",
+             "A1 (single-rank dataloader only)"),
+            (ac.policy not in ("everything", "nothing"),
+             f"activation_checkpointing.policy={ac.policy!r}",
+             "A1 (activation checkpointing policies)"),
+            (ac.cpu_checkpointing, "activation_checkpointing.cpu_checkpointing",
+             "A1 (activation checkpointing policies)"),
+            (self.hybrid_engine_enabled, "hybrid_engine", "A15 (platform)"),
+            (self.elasticity_config.enabled, "elasticity", "A15 (platform)"),
+            (self.curriculum_enabled_legacy or bool(self.data_efficiency)
+             or self.sparse_gradients_enabled,
+             "curriculum / data efficiency / sparse gradients", "A15 (platform)"),
+            (self.flops_profiler_config.enabled or self.telemetry_config.enabled
+             or self.monitor_config_tb.enabled or self.monitor_config_csv.enabled
+             or self.monitor_config_wandb.enabled or self.comms_config.enabled,
+             "profiling, telemetry and monitors", "A15 (platform)"),
+            (bool(rc.faults) or rc.preemption.enabled or rc.watchdog.enabled
+             or rc.elastic.enabled or self.correctness_guards["enabled"],
+             "resilience and correctness guards", "A15 (platform)"),
+            (self.autotuning_config.enabled or self.overlap_config.schedule,
+             "autotuning / overlap schedule", "A15 (platform)"),
+        ]
+        for unsupported, what, item in checks:
+            if unsupported:
+                raise NotImplementedError(
+                    f"{what} is not ported to deepspeed_tpu_torch yet: ROADMAP {item}")

@@ -1,0 +1,88 @@
+"""Dataloader for one rank (port of ``deepspeed_tpu/runtime/dataloader.py``).
+
+``DeepSpeedDataLoader`` wraps an indexable dataset (a dict of arrays, a list
+of samples) or an iterable of ready batches and yields numpy batches of
+``batch_size`` rows, shuffled from ``seed`` as in the JAX package; the engine
+moves each batch to its device. ``RepeatingLoader`` restarts the wrapped
+loader when it runs out. Sharding batches over data-parallel ranks waits for
+the distributed slice (ROADMAP A1).
+"""
+
+import numpy as np
+
+
+def _stack(samples):
+    """Stack a list of samples (arrays, dicts or tuples of arrays) leaf-wise."""
+    first = samples[0]
+    if isinstance(first, dict):
+        return {k: _stack([s[k] for s in samples]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_stack(list(xs)) for xs in zip(*samples))
+    return np.stack([np.asarray(s) for s in samples])
+
+
+class DeepSpeedDataLoader:
+
+    def __init__(self, dataset, batch_size, collate_fn=None, shuffle=True,
+                 seed=0, drop_last=True):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.collate_fn = collate_fn
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self._rng = np.random.default_rng(seed)
+        self._epoch = 0
+        if hasattr(dataset, "__len__") and not isinstance(dataset, dict):
+            self.num_samples = len(dataset)
+        elif isinstance(dataset, dict):
+            self.num_samples = len(next(iter(dataset.values())))
+        else:
+            self.num_samples = None  # pure iterable
+
+    def __len__(self):
+        if self.num_samples is None:
+            raise TypeError("iterable dataset has no length")
+        n = self.num_samples // self.batch_size
+        if not self.drop_last and self.num_samples % self.batch_size:
+            n += 1
+        return n
+
+    def _index_batches(self):
+        idx = np.arange(self.num_samples)
+        if self.shuffle:
+            self._rng.shuffle(idx)
+        end = (self.num_samples // self.batch_size) * self.batch_size if self.drop_last \
+            else self.num_samples
+        for start in range(0, end, self.batch_size):
+            yield idx[start:start + self.batch_size]
+
+    def __iter__(self):
+        self._epoch += 1
+        if self.num_samples is None:
+            yield from self.dataset
+            return
+        for batch_idx in self._index_batches():
+            if isinstance(self.dataset, dict):
+                yield {k: np.asarray(v)[batch_idx] for k, v in self.dataset.items()}
+            else:
+                samples = [self.dataset[int(i)] for i in batch_idx]
+                yield self.collate_fn(samples) if self.collate_fn is not None \
+                    else _stack(samples)
+
+
+class RepeatingLoader:
+    """Wraps a loader so that iteration never ends."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.data_iter = iter(self.loader)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        try:
+            return next(self.data_iter)
+        except StopIteration:
+            self.data_iter = iter(self.loader)
+            return next(self.data_iter)

@@ -1,0 +1,161 @@
+"""Where one training step of the Llama-2-7B-geometry model spends its time.
+
+    python -m deepspeed_tpu_torch.tools.profile_train [--layers 8]
+        [--micro 4] [--seq 2048] [--seed 0]
+
+Builds the model at Llama-2-7B's full width with ``--layers`` of its 32
+layers (bf16 weights drawn on the card from ``--seed``) behind
+``deepspeed_tpu_torch.initialize`` with the configuration ``chip_smoke.py``
+trains (bf16, AdamW, WarmupLR, clipping 1.0, GAS 2, every layer
+recomputed), takes one warm-up optimizer step, then times one optimizer step
+(two micro-steps) with host clocks and traces another with
+``torch.profiler``. Prints one JSON line: wall times, the device time of the
+traced step by kernel group (GEMMs, the three flash kernels, optimizer,
+the rest; the optimizer step's annotated span apart), the device's idle
+share, and the fused CE head's forward and
+backward alone (CUDA events; its products are among the GEMMs). Needs a
+CUDA device.
+"""
+
+import argparse
+import json
+import re
+import subprocess
+import time
+
+import numpy as np
+
+CONFIG = {
+    "train_batch_size": None,            # set from --micro x GAS
+    "gradient_accumulation_steps": 2,
+    "bf16": {"enabled": True},
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-3, "betas": [0.9, 0.95],
+                                              "weight_decay": 0.1}},
+    "scheduler": {"type": "WarmupLR", "params": {"warmup_min_lr": 1e-4,
+                                                 "warmup_max_lr": 1e-3,
+                                                 "warmup_num_steps": 2,
+                                                 "warmup_type": "linear"}},
+    "gradient_clipping": 1.0,
+    "activation_checkpointing": {"policy": "everything"},
+    "steps_per_print": 1000,
+}
+
+
+def _group(name):
+    n = name.lower()
+    for kernel, group in (("flash_fwd_kernel", "flash_fwd"), ("flash_dq_kernel", "flash_dq"),
+                          ("flash_dkv_kernel", "flash_dkv")):
+        if kernel in n:
+            return group
+    if any(k in n for k in ("gemm", "nvjet", "cutlass", "xmma", "sm90", "cublas")):
+        return "gemm"
+    if "foreach" in n or "multi_tensor" in n:
+        return "optimizer_foreach"
+    if "memcpy" in n or "memset" in n:
+        return "copy"
+    return "elementwise_and_other"
+
+
+def _step(engine, batches):
+    for b in batches:
+        loss = engine(b)
+        engine.backward(loss)
+        engine.step()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--layers", type=int, default=8)
+    ap.add_argument("--micro", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=2048)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.models.losses import lm_head_next_token_loss
+
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=args.layers)
+    model = LlamaForCausalLM.from_seed(cfg, seed=args.seed)
+    config = dict(CONFIG, train_batch_size=args.micro * CONFIG["gradient_accumulation_steps"])
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config)
+    rng = np.random.default_rng(args.seed)
+    batches = []
+    for _ in range(config["gradient_accumulation_steps"]):
+        ids = rng.integers(0, cfg.vocab_size, (args.micro, args.seq))
+        batches.append({"input_ids": ids, "labels": ids})
+
+    _step(engine, batches)                      # warm-up step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _step(engine, batches)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _step(engine, batches)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only: the host ops that launched them carry the
+    # same time and would count it twice. Annotations (the optimizer's
+    # "Optimizer.step#..." range) span kernels counted on their own: kept
+    # apart as spans.
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    spans = {e.key: e.device_time_total / 1e3 for e in device
+             if re.fullmatch(r"[\w.]+#[\w.]+", e.key)}
+    per_kernel, groups, counts = {}, {}, {}
+    for e in device:
+        if e.key in spans:
+            continue
+        ms = e.device_time_total / 1e3
+        per_kernel[e.key] = per_kernel.get(e.key, 0.0) + ms
+        g = _group(e.key)
+        groups[g] = groups.get(g, 0.0) + ms
+        counts[g] = counts.get(g, 0) + e.count
+    busy_ms = sum(per_kernel.values())
+
+    # the fused CE head alone on the step's shapes
+    x = torch.randn(args.micro, args.seq, cfg.hidden_size, device="cuda",
+                    dtype=torch.bfloat16, requires_grad=True)
+    labels = torch.from_numpy(batches[0]["labels"]).cuda()
+    head = model.lm_head.weight
+
+    def ce():
+        lm_head_next_token_loss(x, head, labels).backward()
+        x.grad = None
+        head.grad = None
+
+    ce()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        ce()
+    end.record()
+    end.synchronize()
+
+    print(json.dumps({
+        "card": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip().splitlines()[0],
+        "layers": args.layers, "micro_batch": [args.micro, args.seq],
+        "gas": config["gradient_accumulation_steps"],
+        "step_wall_ms_unprofiled": step_ms,
+        "step_wall_ms_profiled": wall_ms,
+        "device_busy_ms": busy_ms if per_kernel else None,
+        "device_idle_share": (1 - busy_ms / wall_ms) if per_kernel else None,
+        "groups_ms_per_step": groups,
+        "group_launches_per_step": counts,
+        "annotated_spans_ms": spans,
+        "fused_ce_fwd_bwd_ms_per_micro_step": start.elapsed_time(end) / 3,
+        "top_kernels_ms_per_step": {k[:90]: v for k, v in sorted(
+            per_kernel.items(), key=lambda kv: -kv[1])[:12]}}))
+
+
+if __name__ == "__main__":
+    main()

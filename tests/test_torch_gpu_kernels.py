@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the GPU.
 
 The tests marked ``gpu`` need a CUDA device: the hand-written kernels have
-no CPU mode, so on a host without one they skip with that reason. The one
-unmarked test checks the comparison's bound with the plain version alone.
+no CPU mode, so on a host without one they skip with that reason. The
+unmarked tests check the comparisons' bounds with the plain versions alone.
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed: ``python -m pytest tests/test_torch_gpu_kernels.py
 --noconftest``.
@@ -13,7 +13,8 @@ in summation order before the final rounding to the output dtype, which
 moves a value by at most one unit in its last place: 2^-7 of it in bf16,
 2^-10 in fp16; fp32 outputs are not rounded again. ATOL covers the fp32
 summation-order noise of elements near 0. A one-page fault exceeds the bound
-by two orders of magnitude (``test_bound_rejects_one_page_fault``).
+by two orders of magnitude (``test_bound_rejects_one_page_fault``). The flash
+attention kernels' bound is stated beside their tests below.
 """
 
 import pytest
@@ -126,6 +127,172 @@ def test_kernel_raises_instead_of_falling_back(cuda):
     with pytest.raises(TypeError, match="int32"):
         paged_mha(q, k, v, bt.long(), seen, ql)
     assert paged_mha.launches == before
+
+
+# ---------------------------------------------------------------------------
+# flash attention: forward, dq, dk/dv
+# ---------------------------------------------------------------------------
+#
+# Tolerance, per element: |kernel - plain| <= RTOL * (|plain| + rms(plain)).
+# RTOL * |plain| is the one rounding of the output to its dtype. The rms term
+# covers what moves elements near 0: the forward rounds p, and dq rounds ds,
+# to the working dtype from fp32 values whose summation order differs between
+# kernel and plain version, which can flip single roundings and moves a sum
+# by about one unit of the working dtype at the tensor's scale; fp32 sums of
+# thousands of terms in another order stay well inside 2^-16 of the scale.
+# ``test_flash_bound_rejects_causal_fault`` shows that a key seen one
+# position too early fails it.
+
+
+def flash_ratio(out, ref):
+    ref32 = ref.float()
+    rtol = RTOL[ref.dtype]
+    bound = rtol * (ref32.abs() + ref32.pow(2).mean().sqrt())
+    return ((out.float() - ref32).abs() / bound).max().item()
+
+
+def flash_case(dev, B=2, Tq=128, Tk=None, H=4, KV=4, Dh=64, dtype=torch.bfloat16,
+               bias=False, segments=False, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Tk = Tq if Tk is None else Tk
+    r = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)
+    q, k, v = r(B, Tq, H, Dh), r(B, Tk, KV, Dh), r(B, Tk, KV, Dh)
+    dout = r(B, Tq, H, Dh)
+    kw = {}
+    if bias:
+        kw["bias"] = torch.randn(1, H, Tq, Tk, generator=g, device=dev)
+    if segments:
+        ids = torch.sort(torch.randint(0, 3, (B, Tq), generator=g, device=dev),
+                         dim=1).values.int()
+        kw["segment_ids"] = (ids, ids)
+    return (q, k, v, dout), kw
+
+
+def flash_all(q, k, v, dout, fwd, dq, dkv, lse=None, delta=None, **kw):
+    """(out, lse, dq, dk, dv) through the given three functions. The
+    backward ones take ``lse`` and ``delta`` when given, so that two sets of
+    functions can be compared on the same inputs."""
+    out, lse_out = fwd(q, k, v, **kw)
+    if lse is None:
+        lse = lse_out
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return (out, lse_out, dq(q, k, v, dout, lse, delta, **kw),
+            *dkv(q, k, v, dout, lse, delta, **kw))
+
+
+def test_flash_bound_rejects_causal_fault():
+    """The bound passes outputs moved by one unit in their last place and
+    rejects a forward in which every query sees the next key too."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    for dtype in (torch.bfloat16, torch.float32):
+        (q, k, v, _), _ = flash_case(torch.device("cpu"), B=1, dtype=dtype)
+        ref, _ = fa.flash_mha_fwd_reference(q, k, v)
+        x = ref.float()
+        ulp = torch.finfo(dtype).eps * torch.exp2(torch.floor(torch.log2(x.abs())))
+        assert flash_ratio((x + ulp).to(dtype), ref) <= 1
+        i = torch.arange(q.shape[1])
+        one_ahead = torch.where(i[None, :] <= i[:, None] + 1, 0.0, fa.NEG_INF)
+        off_by_one, _ = fa.flash_mha_fwd_reference(
+            q, k, v, bias=one_ahead[None, None], causal=False)
+        assert flash_ratio(off_by_one, ref) > 10
+
+
+FLASH_CASES = {
+    "causal": dict(),
+    "gqa": dict(H=8, KV=2),
+    "window": dict(window=40),
+    "segments": dict(segments=True),
+    "bias": dict(bias=True, causal=False),
+    "rect": dict(Tq=64, Tk=192),
+    "ragged": dict(Tq=100),
+    "dh256": dict(Dh=256, H=2, KV=1),
+    "dh40": dict(Dh=40),
+}
+
+
+@gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("name", list(FLASH_CASES))
+def test_flash_kernels_match_plain(cuda, name, dtype):
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    spec = dict(FLASH_CASES[name])
+    window = spec.pop("window", None)
+    causal = spec.pop("causal", True)
+    args, kw = flash_case(cuda, dtype=dtype, **spec)
+    kw.update(window=window, causal=causal)
+    want = flash_all(*args, fa.flash_mha_fwd_reference,
+                     fa.flash_mha_bwd_dq_reference,
+                     fa.flash_mha_bwd_dkv_reference, **kw)
+    delta = (args[3].float() * want[0].float()).sum(-1).transpose(1, 2)
+    before = (fa.flash_mha_fwd.launches, fa.flash_mha_bwd_dq.launches,
+              fa.flash_mha_bwd_dkv.launches)
+    got = flash_all(*args, fa.flash_mha_fwd, fa.flash_mha_bwd_dq,
+                    fa.flash_mha_bwd_dkv, lse=want[1],
+                    delta=delta.contiguous(), **kw)
+    assert (fa.flash_mha_fwd.launches, fa.flash_mha_bwd_dq.launches,
+            fa.flash_mha_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    torch.cuda.synchronize()
+    for label, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a).all(), label
+        assert flash_ratio(a, b) <= 1, (label, flash_ratio(a, b))
+
+
+@gpu
+def test_flash_autograd_on_cuda(cuda):
+    """mha's autograd Function launches forward, dq and dk/dv once each and
+    gives the gradients of the plain versions."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    (q, k, v, dout), _ = flash_case(cuda, H=8, KV=2, dtype=torch.float32)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.reset_launch_counts()
+    out = fa.mha(*leaves, causal=True)
+    out.backward(dout)
+    assert (fa.flash_mha_fwd.launches, fa.flash_mha_bwd_dq.launches,
+            fa.flash_mha_bwd_dkv.launches) == (1, 1, 1)
+    want = flash_all(q, k, v, dout, fa.flash_mha_fwd_reference,
+                     fa.flash_mha_bwd_dq_reference,
+                     fa.flash_mha_bwd_dkv_reference)
+    for a, b in zip((out, leaves[0].grad, leaves[1].grad, leaves[2].grad),
+                    (want[0], *want[2:])):
+        assert flash_ratio(a.detach(), b) <= 1
+
+
+@gpu
+def test_flash_raises_instead_of_falling_back(cuda):
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    (q, k, v, _), _ = flash_case(cuda, Dh=64)
+    before = fa.flash_mha_fwd.launches
+    with pytest.raises(ValueError, match="head dim"):
+        fa.mha(torch.cat([q] * 5, -1), torch.cat([k] * 5, -1),
+               torch.cat([v] * 5, -1))
+    with pytest.raises(TypeError):
+        fa.flash_mha_fwd(q, k.float(), v)
+    assert fa.flash_mha_fwd.launches == before
+
+
+@gpu
+def test_training_on_cuda_runs_the_flash_kernels(cuda):
+    """A tiny Llama trained through initialize on the card: every layer's
+    attention launches the forward kernel twice per micro-step (activation
+    checkpointing recomputes it) and dq and dk/dv once; the loss falls."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=LlamaForCausalLM.from_seed(cfg, seed=0, device=cuda),
+        config={"train_batch_size": 4, "gradient_accumulation_steps": 2,
+                "bf16": {"enabled": True},
+                "optimizer": {"type": "AdamW", "params": {"lr": 1e-2}}})
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 100))
+    batch = {"input_ids": ids, "labels": ids}
+    fa.reset_launch_counts()
+    losses = [float(engine.train_batch(iter([batch] * 2))) for _ in range(3)]
+    L, micro = cfg.num_hidden_layers, 6
+    assert (fa.flash_mha_fwd.launches, fa.flash_mha_bwd_dq.launches,
+            fa.flash_mha_bwd_dkv.launches) == (2 * L * micro, L * micro, L * micro)
+    assert losses[-1] < losses[0]
 
 
 @gpu
