@@ -34,10 +34,11 @@ class KVCacheConfig(DeepSpeedConfigModel):
 class ModulesConfig(DeepSpeedConfigModel):
     """Per-interface implementation pins (see ``modules/module_registry.py``).
     "auto" = heuristic choice: on CUDA the hand-written kernel, which raises
-    on a shape it cannot take. "dense" runs the kernel's plain PyTorch
-    version on any device — an explicit choice, logged as such."""
+    on a shape it cannot take. "dense" (attention) and "einsum" (moe) run a
+    plain PyTorch version on any device — an explicit choice, logged as
+    such."""
     attention = "auto"        # "cuda_paged" | "dense"
-    moe = "auto"              # no MoE serving yet (ROADMAP A7)
+    moe = "auto"              # "cuda_gmm" | "einsum" (MoE models only)
     linear = "auto"           # must stay "auto"; no quantized linear here
 
 

@@ -21,10 +21,12 @@ import torch
 from deepspeed_tpu_torch import resolve_device
 from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
 from deepspeed_tpu_torch.inference.v2.modules import module_registry as _mr
-from deepspeed_tpu_torch.inference.v2.modules.heuristics import instantiate_attention
+from deepspeed_tpu_torch.inference.v2.modules.heuristics import (instantiate_attention,
+                                                                 instantiate_moe)
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_manager import DSStateManager
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_wrapper import RaggedBatchWrapper
 from deepspeed_tpu_torch.inference.v2.sampling import sample_rows
+from deepspeed_tpu_torch.models.mixtral import MixtralConfig
 from deepspeed_tpu_torch.utils.logging import logger
 
 
@@ -36,10 +38,11 @@ class SchedulingResult:
 
 
 class InferenceEngineV2:
-    """Serve a Llama-family model over a paged KV cache.
+    """Serve a Llama-family or Mixtral model over a paged KV cache.
 
     Args:
-        model: ``deepspeed_tpu_torch.models.llama.LlamaForCausalLM`` whose
+        model: ``deepspeed_tpu_torch.models.llama.LlamaForCausalLM`` or
+            ``deepspeed_tpu_torch.models.mixtral.MixtralForCausalLM`` whose
             weights already lie on ``device``.
         config: ``RaggedInferenceEngineConfig`` or dict.
         forward_fn: the ragged forward (default: the factory's choice for
@@ -68,12 +71,15 @@ class InferenceEngineV2:
             raise _mr.UnsupportedModuleError(
                 "modules.linear pins apply to quantized serving; the v2 "
                 "ragged engine has no quantized linear to swap")
-        if mods.moe != "auto":
+        is_moe = isinstance(cfg, MixtralConfig)
+        if mods.moe != "auto" and not is_moe:
+            # only the Mixtral forward routes through an expert FFN; a moe
+            # pin on a dense model would install but never be read
             raise _mr.UnsupportedModuleError(
                 f"modules.moe pinned to {mods.moe!r} but "
                 f"{type(cfg).__name__} has no MoE layer to swap")
         sm, kvc = config.state_manager, config.kv_cache
-        # the attention choice is validated before the KV pool is allocated
+        # module choices are validated before the KV pool is allocated
         self._attention_impl, self._attention = instantiate_attention(
             (1, 1, cfg.num_attention_heads, cfg.head_dim),
             (1, cfg.num_key_value_heads, kvc.block_size, cfg.head_dim),
@@ -82,6 +88,15 @@ class InferenceEngineV2:
             logger.info(f"modules.attention pinned to 'dense' by config: "
                         f"attention runs its plain PyTorch version on "
                         f"{self._device}, not the kernel")
+        self._moe_impl, self._forward_kw = None, {}
+        if is_moe:
+            self._moe_impl, moe = instantiate_moe(
+                cfg.hidden_size, cfg.intermediate_size, preference=mods.moe)
+            self._forward_kw["moe"] = moe
+            if mods.moe == "einsum":
+                logger.info(f"modules.moe pinned to 'einsum' by config: the "
+                            f"expert FFN runs the plain dense dispatch on "
+                            f"{self._device}, not the kernel")
         self._state = DSStateManager(config, cfg.num_hidden_layers,
                                      cfg.num_key_value_heads, cfg.head_dim,
                                      self._device)
@@ -92,7 +107,8 @@ class InferenceEngineV2:
                     f"S<={sm.max_ragged_sequence_count} "
                     f"tokens<={sm.max_ragged_batch_size} "
                     f"context<={sm.max_context} "
-                    f"attention={self._attention_impl}")
+                    f"attention={self._attention_impl}"
+                    + (f" moe={self._moe_impl}" if self._moe_impl else ""))
 
     @property
     def device(self) -> torch.device:
@@ -102,6 +118,12 @@ class InferenceEngineV2:
     def attention_impl(self) -> str:
         """Registry name of the attention this engine runs."""
         return self._attention_impl
+
+    @property
+    def moe_impl(self):
+        """Registry name of the expert-FFN dispatch this engine runs, or
+        None for a model without MoE layers."""
+        return self._moe_impl
 
     # -- accounted host fetch ----------------------------------------------
     @property
@@ -210,7 +232,8 @@ class InferenceEngineV2:
                   for k, a in wrapper.build().items()}
         logits = self._ragged_forward(
             self._model, kv, arrays["tokens"], arrays["q_len"],
-            arrays["seen"], arrays["block_tables"], attention=self._attention)
+            arrays["seen"], arrays["block_tables"], attention=self._attention,
+            **self._forward_kw)
         for uid in batch_uids:
             seq = self._state.get_sequence(uid)
             seq.post_forward()

@@ -3,8 +3,9 @@
 
 "auto" picks the hand-written kernel and never drops to the plain version:
 a shape the kernel cannot take raises, so a run that asked for the card
-cannot silently measure something else. The plain version serves only when
-the config pins ``modules.attention = "dense"``.
+cannot silently measure something else. A plain version serves only when
+the config pins it (``modules.attention = "dense"``, ``modules.moe =
+"einsum"``).
 """
 
 from deepspeed_tpu_torch.inference.v2.modules import implementations  # noqa: F401  (registers rows)
@@ -19,3 +20,12 @@ def instantiate_attention(q_shape, pool_shape, preference=None):
         preference = "cuda_paged"
     return select("attention", preference,
                   q_shape=tuple(q_shape), pool_shape=tuple(pool_shape))
+
+
+def instantiate_moe(d_model, d_ff, preference=None):
+    """-> ('cuda_gmm' | 'einsum', callable) for the expert-FFN dispatch of
+    a model of width ``d_model`` and expert width ``d_ff``. None/'auto'
+    means the kernel row, which raises on dims it cannot take."""
+    if preference in (None, "auto"):
+        preference = "cuda_gmm"
+    return select("moe", preference, d_model=d_model, d_ff=d_ff)

@@ -1,0 +1,206 @@
+"""Mixtral (sparse MoE) model family (port of ``deepspeed_tpu/models/mixtral.py``).
+
+``MixtralConfig`` with its presets, and ``MixtralForCausalLM``: an
+``nn.Module`` holding the weights that the ragged serving forward
+(``inference/v2/model_implementations/mixtral.py``) runs. Each layer is the
+Llama backbone's attention (the port's ``LlamaAttention`` and ``RMSNorm``)
+with a top-k-of-E expert MLP: ``block_sparse_moe.gate.wg`` is the router
+weight [D, E], ``block_sparse_moe.experts.{w1, w3}`` [E, D, F] and
+``block_sparse_moe.experts.w2`` [E, F, D] are the stacked expert kernels.
+Router and experts keep the JAX layout (``x @ w``), so ``params_from_flax``
+carries them across without a transpose; the attention projections are
+``nn.Linear``'s ``[out, in]`` as in the port's Llama.
+
+The training forward (MOELayer capacity, the router aux loss) waits for
+MoE training (ROADMAP A9).
+"""
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from deepspeed_tpu_torch import resolve_device
+from deepspeed_tpu_torch.models.llama import LlamaAttention, LlamaConfig, RMSNorm
+
+
+@dataclasses.dataclass(frozen=True)
+class MixtralConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 8
+    num_local_experts: int = 8
+    num_experts_per_tok: int = 2
+    router_aux_loss_coef: float = 0.02
+    capacity_factor: float = 2.0
+    # training dispatch of the JAX package ("indices" | "einsum" | "gmm");
+    # kept for config parity, read by MoE training (ROADMAP A9)
+    moe_backend: str = "indices"
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 1e6
+    remat: bool = True
+    dtype: torch.dtype = torch.bfloat16
+    sliding_window: Any = None        # local-window attention
+    head_dim: Any = None              # None derives hidden_size // num_attention_heads
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim",
+                               self.hidden_size // self.num_attention_heads)
+
+    @staticmethod
+    def tiny(**kw):
+        return MixtralConfig(vocab_size=512, hidden_size=64, intermediate_size=128,
+                             num_hidden_layers=2, num_attention_heads=4,
+                             num_key_value_heads=2, num_local_experts=4,
+                             max_position_embeddings=128, **kw)
+
+    @staticmethod
+    def mixtral_8x7b(**kw):
+        return MixtralConfig(**kw)
+
+    def as_llama(self):
+        return LlamaConfig(vocab_size=self.vocab_size, hidden_size=self.hidden_size,
+                           intermediate_size=self.intermediate_size,
+                           num_hidden_layers=self.num_hidden_layers,
+                           num_attention_heads=self.num_attention_heads,
+                           num_key_value_heads=self.num_key_value_heads,
+                           max_position_embeddings=self.max_position_embeddings,
+                           rms_norm_eps=self.rms_norm_eps, rope_theta=self.rope_theta,
+                           sliding_window=self.sliding_window,
+                           head_dim=self.head_dim, remat=self.remat,
+                           dtype=self.dtype)
+
+    def num_parameters(self):
+        c = self
+        qo = c.num_attention_heads * c.head_dim
+        per_layer = (c.hidden_size * qo  # q
+                     + 2 * c.hidden_size * c.num_key_value_heads * c.head_dim  # k,v
+                     + qo * c.hidden_size  # o
+                     + c.hidden_size * c.num_local_experts  # router
+                     + 3 * c.num_local_experts * c.hidden_size
+                     * c.intermediate_size  # w1, w3, w2
+                     + 2 * c.hidden_size)  # norms
+        return (c.vocab_size * c.hidden_size * 2  # embed + lm_head
+                + c.num_hidden_layers * per_layer + c.hidden_size)
+
+
+class MixtralRouter(nn.Module):
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.wg = nn.Parameter(torch.empty(cfg.hidden_size, cfg.num_local_experts,
+                                           device=device, dtype=cfg.dtype))
+
+
+class MixtralExperts(nn.Module):
+    """The E expert MLPs ``silu(x @ w1) * (x @ w3) @ w2``, stacked."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        E, D, F = cfg.num_local_experts, cfg.hidden_size, cfg.intermediate_size
+        kw = dict(device=device, dtype=cfg.dtype)
+        self.w1 = nn.Parameter(torch.empty(E, D, F, **kw))
+        self.w3 = nn.Parameter(torch.empty(E, D, F, **kw))
+        self.w2 = nn.Parameter(torch.empty(E, F, D, **kw))
+
+
+class MixtralSparseMoeBlock(nn.Module):
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.gate = MixtralRouter(cfg, device)
+        self.experts = MixtralExperts(cfg, device)
+
+
+class MixtralDecoderLayer(nn.Module):
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.self_attn = LlamaAttention(cfg.as_llama(), device)
+        self.block_sparse_moe = MixtralSparseMoeBlock(cfg, device)
+        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
+                                                cfg.rms_norm_eps, device)
+
+
+class MixtralForCausalLM(nn.Module):
+    """Weights of a Mixtral causal LM. Norm scales are fp32, every other
+    weight is ``config.dtype`` (the JAX package casts to that dtype at each
+    use; storing it cast gives the same values)."""
+
+    def __init__(self, config: MixtralConfig, device=None):
+        super().__init__()
+        self.config = config
+        kw = dict(device=device, dtype=config.dtype)
+        self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size,
+                                         **kw)
+        self.layers = nn.ModuleList(MixtralDecoderLayer(config, device)
+                                    for _ in range(config.num_hidden_layers))
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device)
+        self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
+                                 bias=False, **kw)
+
+    def forward(self, batch, *args, **kwargs):
+        raise NotImplementedError(
+            "the Mixtral training forward (MOELayer capacity, router aux "
+            "loss) is not ported yet; see ROADMAP.md queue A9 (MoE "
+            "training). Serve the model through build_engine")
+
+    @classmethod
+    def from_seed(cls, config: MixtralConfig, seed: int, device=None,
+                  std: float = 0.02):
+        """Random weights drawn on ``device`` (default ``"cuda"``, which
+        raises without a GPU) from ``torch.Generator(seed)``: N(0, std) for
+        every matrix, zeros for biases, ones for norm scales (the flax
+        initializers' shapes; the draws differ from JAX's)."""
+        device = resolve_device(device)
+        with torch.device("meta"):
+            model = cls(config)
+        model = model.to_empty(device=device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("layernorm.weight") or name == "norm.weight":
+                    p.fill_(1.0)
+                elif name.endswith(".bias"):
+                    p.zero_()
+                else:
+                    p.normal_(0.0, std, generator=gen)
+        return model.requires_grad_(False)
+
+
+def params_from_flax(tree):
+    """The JAX package's ``MixtralForCausalLM`` param tree (``layers_{i}``
+    subtrees), as numpy arrays, -> a state dict for this
+    ``MixtralForCausalLM``. Attention kernels ``[in, out]`` are transposed
+    into ``nn.Linear``'s ``[out, in]``; the router ``wg`` [D, E] and the
+    stacked experts ``MixtralExpertMLP_0/w{1,2,3}/kernel`` [E, in, out] keep
+    their layout. Values are copied as fp32; ``load_state_dict`` casts them
+    to the module's dtype."""
+    sd = {"embed_tokens.weight": tree["embed_tokens"],
+          "lm_head.weight": tree["lm_head"],
+          "norm.weight": tree["norm"]["scale"]}
+    L = sum(1 for k in tree if k.startswith("layers_"))
+    for i in range(L):
+        lp, pre = tree[f"layers_{i}"], f"layers.{i}."
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            sd[pre + norm + ".weight"] = lp[norm]["scale"]
+        for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            leaf = lp["self_attn"][n]
+            sd[f"{pre}self_attn.{n}.weight"] = np.asarray(leaf["kernel"]).T
+            if "bias" in leaf:
+                sd[f"{pre}self_attn.{n}.bias"] = leaf["bias"]
+        moe = lp["block_sparse_moe"]
+        sd[pre + "block_sparse_moe.gate.wg"] = moe["gate"]["wg"]
+        experts = moe["experts"]["MixtralExpertMLP_0"]
+        for n in ("w1", "w2", "w3"):
+            sd[f"{pre}block_sparse_moe.experts.{n}"] = experts[n]["kernel"]
+    return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}

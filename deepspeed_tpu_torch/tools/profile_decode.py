@@ -1,17 +1,20 @@
-"""Where a decode round of Llama-2-7B serving spends its time on the GPU.
+"""Where a decode round of Llama-2-7B or Mixtral-8x7B serving spends its
+time on the GPU.
 
-    python -m deepspeed_tpu_torch.tools.profile_decode [--seqs 8]
-        [--prompt 512] [--rounds 4] [--seed 0]
+    python -m deepspeed_tpu_torch.tools.profile_decode [--model llama]
+        [--seqs 8] [--prompt 512] [--rounds 4] [--seed 0]
 
 Serves ``--seqs`` greedy requests of ``--prompt`` random tokens through
-``build_engine`` + ``SplitFuseScheduler`` on Llama-2-7B at full width and
-depth (bf16 weights drawn on the card from ``--seed``), runs until every
-request decodes, then traces ``--rounds`` decode rounds with
-``torch.profiler``. Prints one JSON line: the wall time per round without
-and with the profiler, the device busy time per round (sum of kernel and
-copy times), its idle share of the profiled rounds, and the device time
-per round of the heaviest kernels and of kernel groups (GEMM, paged
-attention, the rest). Needs a CUDA device.
+``build_engine`` + ``SplitFuseScheduler`` on Llama-2-7B (all 32 layers) or
+Mixtral-8x7B (``--model mixtral``: full width, 16 of its 32 layers, the
+depth at which its bf16 weights fit in 80 GB), bf16 weights
+drawn on the card from ``--seed``; runs until every request decodes, then
+traces ``--rounds`` decode rounds with ``torch.profiler``. Prints one JSON
+line: the wall time per round without and with the profiler, the device
+busy time per round (sum of kernel and copy times), its idle share of the
+profiled rounds, and the device time per round of the heaviest kernels and
+of kernel groups (grouped GEMM, GEMM, paged attention, the rest). Needs a
+CUDA device.
 """
 
 import argparse
@@ -26,6 +29,8 @@ def _group(name):
     n = name.lower()
     if "paged_mha" in n:
         return "paged_attention"
+    if "grouped_gemm" in n:
+        return "grouped_gemm"
     if any(k in n for k in ("gemm", "gemv", "nvjet", "cutlass", "xmma", "sm90")):
         return "gemm"
     if "memcpy" in n or "memset" in n:
@@ -37,6 +42,7 @@ def _group(name):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("llama", "mixtral"), default="llama")
     ap.add_argument("--seqs", type=int, default=8)
     ap.add_argument("--prompt", type=int, default=512)
     ap.add_argument("--rounds", type=int, default=4)
@@ -47,10 +53,15 @@ def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
 
     from deepspeed_tpu_torch.inference.v2 import SplitFuseScheduler, build_engine
-    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-
-    cfg = LlamaConfig.llama2_7b()
-    model = LlamaForCausalLM.from_seed(cfg, seed=args.seed)
+    if args.model == "mixtral":
+        from deepspeed_tpu_torch.models.mixtral import (
+            MixtralConfig as Config, MixtralForCausalLM as Model)
+        cfg = Config.mixtral_8x7b(num_hidden_layers=16)
+    else:
+        from deepspeed_tpu_torch.models.llama import (
+            LlamaConfig as Config, LlamaForCausalLM as Model)
+        cfg = Config.llama2_7b()
+    model = Model.from_seed(cfg, seed=args.seed)
     bs = 64
     per_seq = -(-(args.prompt + 64 + 2 * args.rounds) // bs)
     engine = build_engine(model, {
@@ -97,6 +108,7 @@ def main(argv=None):
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip().splitlines()[0],
+        "model": args.model, "layers": cfg.num_hidden_layers,
         "seqs": args.seqs, "prompt": args.prompt, "rounds": args.rounds,
         "round_wall_ms_unprofiled": plain_round_ms,
         "round_wall_ms_profiled": round_ms,
@@ -105,7 +117,9 @@ def main(argv=None):
         "groups_ms_per_round": groups,
         "top_kernels_ms_per_round": {k[:90]: v / args.rounds for k, v in top},
         "paged_mha_kernels_per_round": sum(
-            e.count for e in device if "paged_mha" in e.key) / args.rounds}))
+            e.count for e in device if "paged_mha" in e.key) / args.rounds,
+        "grouped_gemm_kernels_per_round": sum(
+            e.count for e in device if "grouped_gemm" in e.key) / args.rounds}))
 
 
 if __name__ == "__main__":

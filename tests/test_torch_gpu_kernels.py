@@ -14,7 +14,8 @@ moves a value by at most one unit in its last place: 2^-7 of it in bf16,
 2^-10 in fp16; fp32 outputs are not rounded again. ATOL covers the fp32
 summation-order noise of elements near 0. A one-page fault exceeds the bound
 by two orders of magnitude (``test_bound_rejects_one_page_fault``). The flash
-attention kernels' bound is stated beside their tests below.
+attention and grouped-GEMM kernels' bound is stated beside their tests
+below.
 """
 
 import pytest
@@ -315,3 +316,122 @@ def test_engine_on_cuda_runs_the_kernel(cuda):
     b = dense.put([1], [ids])
     assert paged_mha.launches == before + model.config.num_hidden_layers
     np.testing.assert_allclose(a, b, atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# grouped GEMM (MoE expert FFN)
+# ---------------------------------------------------------------------------
+#
+# Tolerance: the flash form, |kernel - plain| <= RTOL * (|plain| + rms(plain)).
+# Kernel and plain version multiply the same bf16/fp16 (exact in fp32) or
+# fp32 values, sum in fp32 in another order and round once to the dtype:
+# RTOL * |plain| is that rounding, the rms term the fp32 summation-order
+# noise of elements near 0. ``test_gmm_bound_rejects_shifted_offset`` shows
+# that one row computed with a neighbouring expert's weights fails it.
+
+GMM_CASES = {
+    # name: R, K, N, group_offsets (E = 4)
+    "balanced": (200, 128, 256, [0, 50, 100, 150, 200]),
+    "empty_groups": (130, 64, 128, [0, 0, 70, 70, 130]),
+    "one_group_all_rows": (300, 128, 128, [0, 0, 300, 300, 300]),
+    "r1": (1, 128, 64, [0, 0, 0, 1, 1]),
+    "ragged_r_k_n": (77, 200, 72, [0, 13, 40, 41, 77]),
+    "wide_n": (129, 64, 264, [0, 129, 129, 129, 129]),
+}
+
+
+def gmm_case(dev, R, K, N, offsets, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    E = len(offsets) - 1
+    xs = torch.randn(R, K, generator=g, device=dev).to(dtype)
+    w = (torch.randn(E, K, N, generator=g, device=dev) * K ** -0.5).to(dtype)
+    return xs, w, torch.tensor(offsets, dtype=torch.int32, device=dev)
+
+
+def shifted(offsets):
+    """Group offsets with one boundary moved by a row: the last row of the
+    first non-empty group that has a right neighbour joins that
+    neighbour, or else the first row of the last group joins the one
+    before."""
+    offs = list(offsets)
+    for i in range(1, len(offs) - 1):
+        if offs[i] > offs[i - 1]:
+            offs[i] -= 1
+            return offs
+    offs[-2] += 1
+    return offs
+
+
+@pytest.mark.parametrize("name", list(GMM_CASES))
+def test_gmm_bound_rejects_shifted_offset(name):
+    from deepspeed_tpu_torch.ops.grouped_gemm import grouped_matmul_reference
+    R, K, N, offs = GMM_CASES[name]
+    xs, w, offsets = gmm_case(torch.device("cpu"), R, K, N, offs, torch.bfloat16)
+    ref = grouped_matmul_reference(xs, w, offsets)
+    x = ref.float()
+    ulp = torch.finfo(ref.dtype).eps * torch.exp2(torch.floor(torch.log2(x.abs())))
+    assert flash_ratio((x + ulp).to(ref.dtype), ref) <= 1
+    bad = torch.tensor(shifted(offs), dtype=torch.int32)
+    assert flash_ratio(grouped_matmul_reference(xs, w, bad), ref) > 10
+
+
+@gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("name", list(GMM_CASES))
+def test_gmm_kernel_matches_plain(cuda, name, dtype):
+    from deepspeed_tpu_torch.ops.grouped_gemm import (grouped_matmul,
+                                                      grouped_matmul_reference)
+    R, K, N, offs = GMM_CASES[name]
+    xs, w, offsets = gmm_case(cuda, R, K, N, offs, dtype, seed=R)
+    before = grouped_matmul.launches
+    out = grouped_matmul(xs, w, offsets)
+    assert grouped_matmul.launches == before + 1
+    ref = grouped_matmul_reference(xs, w, offsets)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert flash_ratio(out, ref) <= 1
+
+
+@gpu
+def test_gmm_raises_instead_of_falling_back(cuda):
+    from deepspeed_tpu_torch.ops.grouped_gemm import grouped_matmul
+    xs, w, offsets = gmm_case(cuda, 64, 128, 128, [0, 10, 64], torch.bfloat16)
+    before = grouped_matmul.launches
+    with pytest.raises(ValueError, match="cannot take"):
+        grouped_matmul(xs[:, :100].contiguous(), w[:, :100].contiguous(), offsets)
+    with pytest.raises(ValueError, match="int32"):
+        grouped_matmul(xs, w, offsets.long())
+    with pytest.raises(TypeError):
+        grouped_matmul(xs, w.float(), offsets)
+    assert grouped_matmul.launches == before
+
+
+@gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixtral_engine_on_cuda_runs_the_kernels(cuda, dtype):
+    """A tiny Mixtral served on the card: each forward launches the grouped
+    GEMM 3 times and paged attention once per layer; the einsum pin
+    launches no grouped GEMM and agrees with the kernel route."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models.mixtral import MixtralConfig, MixtralForCausalLM
+    from deepspeed_tpu_torch.ops.grouped_gemm import grouped_matmul
+    model = MixtralForCausalLM.from_seed(MixtralConfig.tiny(dtype=dtype), seed=0,
+                                         device=cuda)
+    cfg = {"state_manager": {"max_ragged_sequence_count": 4,
+                             "max_ragged_batch_size": 32, "max_context": 128,
+                             "num_kv_blocks": 32},
+           "kv_cache": {"block_size": 8,
+                        "cache_dtype": "fp32" if dtype == torch.float32 else "bf16"}}
+    kernel = InferenceEngineV2(model, cfg)
+    plain = InferenceEngineV2(model, dict(cfg, modules={"moe": "einsum"}))
+    assert (kernel.moe_impl, plain.moe_impl) == ("cuda_gmm", "einsum")
+    ids = np.arange(19, dtype=np.int32)
+    L = model.config.num_hidden_layers
+    g0, p0 = grouped_matmul.launches, paged_mha.launches
+    a = kernel.put([1], [ids])
+    assert (grouped_matmul.launches, paged_mha.launches) == (g0 + 3 * L, p0 + L)
+    b = plain.put([1], [ids])
+    assert grouped_matmul.launches == g0 + 3 * L
+    tol = 1e-4 if dtype == torch.float32 else 0.05 * np.abs(b).max()
+    np.testing.assert_allclose(a, b, atol=tol, rtol=0)
