@@ -1,18 +1,22 @@
 """Mixtral (sparse MoE) model family (port of ``deepspeed_tpu/models/mixtral.py``).
 
 ``MixtralConfig`` with its presets, and ``MixtralForCausalLM``: an
-``nn.Module`` holding the weights that the ragged serving forward
-(``inference/v2/model_implementations/mixtral.py``) runs. Each layer is the
-Llama backbone's attention (the port's ``LlamaAttention`` and ``RMSNorm``)
-with a top-k-of-E expert MLP: ``block_sparse_moe.gate.wg`` is the router
-weight [D, E], ``block_sparse_moe.experts.{w1, w3}`` [E, D, F] and
-``block_sparse_moe.experts.w2`` [E, F, D] are the stacked expert kernels.
+``nn.Module`` whose ``forward(batch)`` is the JAX model's training forward
+(per layer ``x + attn(norm(x))`` then ``x + MOELayer(norm(x))``, under
+activation checkpointing when ``config.remat``; the fused chunked CE head
+plus ``router_aux_loss_coef`` times the layers' mean router aux loss) and
+whose weights the ragged serving forward
+(``inference/v2/model_implementations/mixtral.py``) also runs. Each layer is
+the Llama backbone's attention (the port's ``LlamaAttention`` and
+``RMSNorm``) with a top-k-of-E ``MOELayer`` (``deepspeed_tpu_torch/moe``)
+dispatching by ``config.moe_backend``: ``block_sparse_moe.gate.wg`` is the
+router weight [D, E], ``block_sparse_moe.experts.{w1, w3}`` [E, D, F] and
+``block_sparse_moe.experts.w2`` [E, F, D] are the stacked expert kernels,
+the same parameters under the same names for training and serving.
 Router and experts keep the JAX layout (``x @ w``), so ``params_from_flax``
 carries them across without a transpose; the attention projections are
-``nn.Linear``'s ``[out, in]`` as in the port's Llama.
-
-The training forward (MOELayer capacity, the router aux loss) waits for
-MoE training (ROADMAP A9).
+``nn.Linear``'s ``[out, in]`` as in the port's Llama. The ZeRO-Infinity
+streaming protocol and ``param_specs`` wait for ROADMAP A14 and A12.
 """
 
 import dataclasses
@@ -24,6 +28,11 @@ from torch import nn
 
 from deepspeed_tpu_torch import resolve_device
 from deepspeed_tpu_torch.models.llama import LlamaAttention, LlamaConfig, RMSNorm
+from deepspeed_tpu_torch.models.losses import lm_head_next_token_loss
+from deepspeed_tpu_torch.moe.sharded_moe import MOELayer
+from deepspeed_tpu_torch.ops.flash_attention import mha
+from deepspeed_tpu_torch.ops.grouped_gemm import grouped_matmul
+from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,8 +47,8 @@ class MixtralConfig:
     num_experts_per_tok: int = 2
     router_aux_loss_coef: float = 0.02
     capacity_factor: float = 2.0
-    # training dispatch of the JAX package ("indices" | "einsum" | "gmm");
-    # kept for config parity, read by MoE training (ROADMAP A9)
+    # training dispatch: "indices" (routed gather/scatter, default) |
+    # "einsum" (GShard oracle) | "gmm" (grouped-GEMM kernels, capacity-free)
     moe_backend: str = "indices"
     max_position_embeddings: int = 4096
     rms_norm_eps: float = 1e-5
@@ -91,32 +100,32 @@ class MixtralConfig:
                 + c.num_hidden_layers * per_layer + c.hidden_size)
 
 
-class MixtralRouter(nn.Module):
+class MixtralExpertMLP(nn.Module):
+    """One expert ``silu(x @ w1) * (x @ w3) @ w2`` with JAX-layout kernels
+    w1/w3 [D, F] and w2 [F, D] in ``config.dtype``. ``GMM_COMPAT`` and
+    ``gmm_shapes`` are the grouped-GEMM contract of ``MOELayer``'s "gmm"
+    dispatch (kernels listed gate, up, down)."""
+
+    GMM_COMPAT = ("w1", "w3", "w2")
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        self.wg = nn.Parameter(torch.empty(cfg.hidden_size, cfg.num_local_experts,
-                                           device=device, dtype=cfg.dtype))
-
-
-class MixtralExperts(nn.Module):
-    """The E expert MLPs ``silu(x @ w1) * (x @ w3) @ w2``, stacked."""
-
-    def __init__(self, cfg, device=None):
-        super().__init__()
-        E, D, F = cfg.num_local_experts, cfg.hidden_size, cfg.intermediate_size
+        self.config = cfg
+        D, F = cfg.hidden_size, cfg.intermediate_size
         kw = dict(device=device, dtype=cfg.dtype)
-        self.w1 = nn.Parameter(torch.empty(E, D, F, **kw))
-        self.w3 = nn.Parameter(torch.empty(E, D, F, **kw))
-        self.w2 = nn.Parameter(torch.empty(E, F, D, **kw))
+        self.w1 = nn.Parameter(torch.empty(D, F, **kw))
+        self.w3 = nn.Parameter(torch.empty(D, F, **kw))
+        self.w2 = nn.Parameter(torch.empty(F, D, **kw))
 
+    def gmm_shapes(self, d_model):
+        f = self.config.intermediate_size
+        return {"w1": (d_model, f), "w3": (d_model, f), "w2": (f, d_model)}
 
-class MixtralSparseMoeBlock(nn.Module):
-
-    def __init__(self, cfg, device=None):
-        super().__init__()
-        self.gate = MixtralRouter(cfg, device)
-        self.experts = MixtralExperts(cfg, device)
+    def forward(self, x):
+        dt = self.config.dtype
+        x = x.to(dt)
+        return (torch.nn.functional.silu(x @ self.w1.to(dt)) * (x @ self.w3.to(dt))) \
+            @ self.w2.to(dt)
 
 
 class MixtralDecoderLayer(nn.Module):
@@ -124,10 +133,21 @@ class MixtralDecoderLayer(nn.Module):
     def __init__(self, cfg, device=None):
         super().__init__()
         self.self_attn = LlamaAttention(cfg.as_llama(), device)
-        self.block_sparse_moe = MixtralSparseMoeBlock(cfg, device)
+        self.block_sparse_moe = MOELayer(
+            lambda: MixtralExpertMLP(cfg, device), cfg.num_local_experts,
+            k=cfg.num_experts_per_tok, capacity_factor=cfg.capacity_factor,
+            eval_capacity_factor=cfg.capacity_factor, dispatch_mode=cfg.moe_backend,
+            model_dim=cfg.hidden_size, device=device, gate_dtype=cfg.dtype)
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
                                                 cfg.rms_norm_eps, device)
+
+    def forward(self, x, positions, attention=mha, matmul=grouped_matmul):
+        """The JAX ``MixtralBlock``: returns (x, the layer's router aux loss)."""
+        x = x + self.self_attn(self.input_layernorm(x), positions, attention)
+        moe_out, l_aux, _ = self.block_sparse_moe(
+            self.post_attention_layernorm(x), train=self.training, matmul=matmul)
+        return x + moe_out, l_aux
 
 
 class MixtralForCausalLM(nn.Module):
@@ -147,11 +167,39 @@ class MixtralForCausalLM(nn.Module):
         self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
                                  bias=False, **kw)
 
-    def forward(self, batch, *args, **kwargs):
-        raise NotImplementedError(
-            "the Mixtral training forward (MOELayer capacity, router aux "
-            "loss) is not ported yet; see ROADMAP.md queue A9 (MoE "
-            "training). Serve the model through build_engine")
+    def forward(self, batch, positions=None, attention=mha, matmul=grouped_matmul):
+        """The JAX model's ``__call__``: ``batch`` is a dict with
+        ``input_ids`` [B, T] and optional ``labels`` [B, T], or the ids
+        alone. Returns the next-token loss plus ``router_aux_loss_coef``
+        times the mean of the layers' router aux losses when there are
+        labels, else the logits [B, T, V]. In training each decoder layer
+        runs under the configured activation-checkpointing policy
+        (``config.remat``). ``attention`` replaces ``mha`` and ``matmul``
+        the grouped product of the "gmm" dispatch (plain versions, for
+        comparisons)."""
+        cfg = self.config
+        if isinstance(batch, dict):
+            input_ids, labels = batch["input_ids"], batch.get("labels")
+        else:
+            input_ids, labels = batch, None
+        input_ids = input_ids.long()
+        B, T = input_ids.shape
+        x = self.embed_tokens(input_ids)
+        if positions is None:
+            positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
+        total_aux = 0.0
+        for layer in self.layers:
+            if cfg.remat:
+                x, l_aux = checkpointing.checkpoint(layer, x, positions, attention,
+                                                    matmul)
+            else:
+                x, l_aux = layer(x, positions, attention, matmul)
+            total_aux = total_aux + l_aux
+        x = self.norm(x)
+        if labels is None:
+            return x @ self.lm_head.weight.to(x.dtype).T
+        lm_loss = lm_head_next_token_loss(x, self.lm_head.weight, labels)
+        return lm_loss + cfg.router_aux_loss_coef * total_aux / cfg.num_hidden_layers
 
     @classmethod
     def from_seed(cls, config: MixtralConfig, seed: int, device=None,

@@ -1,0 +1,2 @@
+"""Mixture of experts (port of ``deepspeed_tpu/moe``): gating, dispatch
+and the ``MoE`` layer on one device."""

@@ -11,8 +11,12 @@ steps from the same gradients:
     g += wd p before the moments           # adam with adam_w_mode=False (L2)
 
 The update runs over the fp32 master parameters with ``torch._foreach_*``
-ops, a handful of kernels per step whatever the parameter count. Other
-optimizer names raise ``NotImplementedError``.
+ops, a handful of kernels per chunk of parameters. The chunks hold at most
+as many elements as the largest parameter (``_chunks``), so the update's
+two fp32 temporaries (``mu_hat`` and ``denom``) never exceed that
+parameter's pair, instead of two copies of the whole model; each element's
+arithmetic is unchanged. Other optimizer names raise
+``NotImplementedError``.
 """
 
 import torch
@@ -46,8 +50,6 @@ class Adam(torch.optim.Optimizer):
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
                 continue
-            b1, b2 = group["betas"]
-            lr, eps, wd = group["lr"], group["eps"], group["weight_decay"]
             grads = [p.grad for p in params]
             for p in params:
                 st = self.state[p]
@@ -55,26 +57,45 @@ class Adam(torch.optim.Optimizer):
                     st["step"] = 0
                     st["mu"] = torch.zeros_like(p)
                     st["nu"] = torch.zeros_like(p)
-            mus = [self.state[p]["mu"] for p in params]
-            nus = [self.state[p]["nu"] for p in params]
             t = self.state[params[0]]["step"] + 1
             for p in params:
                 self.state[p]["step"] = t
-            if wd and not group["decoupled"]:
-                grads = torch._foreach_add(grads, params, alpha=wd)
-            torch._foreach_mul_(mus, b1)
-            torch._foreach_add_(mus, grads, alpha=1 - b1)
-            torch._foreach_mul_(nus, b2)
-            torch._foreach_addcmul_(nus, grads, grads, value=1 - b2)
-            mu_hat = torch._foreach_div(mus, 1 - b1 ** t)
-            denom = torch._foreach_div(nus, 1 - b2 ** t)
-            torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, eps)
-            torch._foreach_div_(mu_hat, denom)
-            if wd and group["decoupled"]:
-                torch._foreach_add_(mu_hat, params, alpha=wd)
-            torch._foreach_add_(params, mu_hat, alpha=-lr)
+            for lo, hi in _chunks(params):
+                self._update(params[lo:hi], grads[lo:hi], group, t)
         return loss
+
+    def _update(self, params, grads, group, t):
+        b1, b2 = group["betas"]
+        lr, eps, wd = group["lr"], group["eps"], group["weight_decay"]
+        mus = [self.state[p]["mu"] for p in params]
+        nus = [self.state[p]["nu"] for p in params]
+        if wd and not group["decoupled"]:
+            grads = torch._foreach_add(grads, params, alpha=wd)
+        torch._foreach_mul_(mus, b1)
+        torch._foreach_add_(mus, grads, alpha=1 - b1)
+        torch._foreach_mul_(nus, b2)
+        torch._foreach_addcmul_(nus, grads, grads, value=1 - b2)
+        mu_hat = torch._foreach_div(mus, 1 - b1 ** t)
+        denom = torch._foreach_div(nus, 1 - b2 ** t)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, eps)
+        torch._foreach_div_(mu_hat, denom)
+        if wd and group["decoupled"]:
+            torch._foreach_add_(mu_hat, params, alpha=wd)
+        torch._foreach_add_(params, mu_hat, alpha=-lr)
+
+
+def _chunks(params):
+    """``(lo, hi)`` index ranges over ``params``, in order, each holding at
+    most as many elements as the largest parameter (a larger one alone)."""
+    budget = max(p.numel() for p in params)
+    lo, size = 0, 0
+    for i, p in enumerate(params):
+        if size and size + p.numel() > budget:
+            yield lo, i
+            lo, size = i, 0
+        size += p.numel()
+    yield lo, len(params)
 
 
 def build_optimizer(name, params=None, model_params=()):

@@ -457,8 +457,10 @@ class DeepSpeedConfig:
         """Raise ``NotImplementedError`` naming the ROADMAP item for a setting
         the port's training path does not run yet. Single-rank training
         (ZeRO stage 0) with fp32, fp16 or bf16, the adam/adamw optimizers,
-        every LR schedule, clipping, gradient accumulation and activation
-        checkpointing (``everything`` / ``nothing``) are supported."""
+        every LR schedule, clipping, gradient accumulation, activation
+        checkpointing (``everything`` / ``nothing``) and MoE models on one
+        device (the ``moe`` section with ``ep_size`` 1; the router aux loss
+        is part of the model's loss) are supported."""
         z = self.zero_config
         ac = self.activation_checkpointing
         rc = self.resilience_config
@@ -475,7 +477,9 @@ class DeepSpeedConfig:
              "A12 (parallelism breadth)"),
             (self.sequence_parallel_size > 1, "sequence_parallel_size > 1",
              "A12 (parallelism breadth)"),
-            (self.moe.enabled or self.expert_parallel_size > 1, "MoE", "A9 (MoE)"),
+            (self.moe.ep_size > 1 or self.expert_parallel_size > 1,
+             "expert parallelism (moe.ep_size / expert_parallel_size > 1)",
+             "A9 (MoE expert parallelism, kernel row 9b)"),
             (self.fused_step, "fused_step",
              "A1 (forward/backward/step run as separate calls)"),
             (self.prefetch_batches > 0, "prefetch_batches",

@@ -1,18 +1,21 @@
-"""Where one training step of the Llama-2-7B-geometry model spends its time.
+"""Where one training step spends its time.
 
-    python -m deepspeed_tpu_torch.tools.profile_train [--layers 8]
-        [--micro 4] [--seq 2048] [--seed 0]
+    python -m deepspeed_tpu_torch.tools.profile_train [--model llama]
+        [--layers N] [--micro 4] [--seq 2048] [--seed 0]
 
-Builds the model at Llama-2-7B's full width with ``--layers`` of its 32
-layers (bf16 weights drawn on the card from ``--seed``) behind
-``deepspeed_tpu_torch.initialize`` with the configuration ``chip_smoke.py``
-trains (bf16, AdamW, WarmupLR, clipping 1.0, GAS 2, every layer
-recomputed), takes one warm-up optimizer step, then times one optimizer step
-(two micro-steps) with host clocks and traces another with
-``torch.profiler``. Prints one JSON line: wall times, the device time of the
-traced step by kernel group (GEMMs, the three flash kernels, optimizer,
-the rest; the optimizer step's annotated span apart), the device's idle
-share, and the fused CE head's forward and
+Builds the model at full width with ``--layers`` of its 32 layers (bf16
+weights drawn on the card from ``--seed``): the Llama-2-7B geometry
+(``--model llama``, 8 layers by default) or Mixtral-8x7B with the
+grouped-GEMM dispatch (``--model mixtral``, 2 layers by default, as
+``chip_smoke.py`` trains it). Behind ``deepspeed_tpu_torch.initialize`` with
+the configuration ``chip_smoke.py`` trains (bf16, AdamW, WarmupLR, clipping
+1.0, GAS 2, every layer recomputed), it takes one warm-up optimizer step,
+then times one optimizer step (two micro-steps) with host clocks and traces
+another with ``torch.profiler``. Prints one JSON line: wall times, the
+device time of the traced step by kernel group (the grouped-GEMM forward,
+dx and dW kernels, other GEMMs, the three flash kernels, MoE
+routing/sort/scatter, optimizer, the rest; the optimizer step's annotated
+span apart), the device's idle share, and the fused CE head's forward and
 backward alone (CUDA events; its products are among the GEMMs). Needs a
 CUDA device.
 """
@@ -44,9 +47,15 @@ CONFIG = {
 def _group(name):
     n = name.lower()
     for kernel, group in (("flash_fwd_kernel", "flash_fwd"), ("flash_dq_kernel", "flash_dq"),
-                          ("flash_dkv_kernel", "flash_dkv")):
+                          ("flash_dkv_kernel", "flash_dkv"),
+                          ("grouped_tgmm", "grouped_gemm_dw")):
         if kernel in n:
             return group
+    if "grouped_gemm" in n:       # the row-grouped kernel: forward, or dx
+        return "grouped_gemm_dx" if "true>" in n else "grouped_gemm_fwd"
+    if any(k in n for k in ("sort", "radix", "scatter", "gather", "index", "scan",
+                            "cumsum", "searchsorted", "argmax", "one_hot")):
+        return "routing_sort_scatter"
     if any(k in n for k in ("gemm", "nvjet", "cutlass", "xmma", "sm90", "cublas")):
         return "gemm"
     if "foreach" in n or "multi_tensor" in n:
@@ -65,7 +74,9 @@ def _step(engine, batches):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, default=8)
+    ap.add_argument("--model", choices=("llama", "mixtral"), default="llama")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="layers of 32 (default 8 for llama, 2 for mixtral)")
     ap.add_argument("--micro", type=int, default=4)
     ap.add_argument("--seq", type=int, default=2048)
     ap.add_argument("--seed", type=int, default=0)
@@ -78,9 +89,16 @@ def main(argv=None):
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     from deepspeed_tpu_torch.models.losses import lm_head_next_token_loss
+    from deepspeed_tpu_torch.models.mixtral import MixtralConfig, MixtralForCausalLM
 
-    cfg = LlamaConfig.llama2_7b(num_hidden_layers=args.layers)
-    model = LlamaForCausalLM.from_seed(cfg, seed=args.seed)
+    if args.model == "mixtral":
+        args.layers = args.layers or 2
+        cfg = MixtralConfig.mixtral_8x7b(num_hidden_layers=args.layers, moe_backend="gmm")
+        model = MixtralForCausalLM.from_seed(cfg, seed=args.seed)
+    else:
+        args.layers = args.layers or 8
+        cfg = LlamaConfig.llama2_7b(num_hidden_layers=args.layers)
+        model = LlamaForCausalLM.from_seed(cfg, seed=args.seed)
     config = dict(CONFIG, train_batch_size=args.micro * CONFIG["gradient_accumulation_steps"])
     engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config)
     rng = np.random.default_rng(args.seed)
@@ -143,7 +161,9 @@ def main(argv=None):
         "card": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True).stdout.strip().splitlines()[0],
-        "layers": args.layers, "micro_batch": [args.micro, args.seq],
+        "model": args.model, "layers": args.layers, "params": cfg.num_parameters(),
+        "micro_batch": [args.micro, args.seq],
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "gas": config["gradient_accumulation_steps"],
         "step_wall_ms_unprofiled": step_ms,
         "step_wall_ms_profiled": wall_ms,

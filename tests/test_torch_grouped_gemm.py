@@ -8,7 +8,10 @@ JAX ``moe_ffn_gmm`` with the megablox kernel in interpret mode and against
 the JAX einsum dispatch (``_moe_ffn(..., force_einsum=True)``), and the
 port's einsum row against the JAX einsum path. Balanced, skewed (the
 fixture of ``tests/test_grouped_gemm_moe.py``) and empty-expert routing,
-T in {16, 40}, E = 4, k in {1, 2}.
+T in {16, 40}, E = 4, k in {1, 2}. The backward's plain versions (dx,
+dW) are held to megablox ``gmm(..., transpose_rhs=True)`` and ``tgmm`` in
+interpret mode, to megablox's own custom VJP under ``jax.grad``, and to
+torch autograd of the plain forward.
 
 Tolerances. fp32: both sides compute the same products in fp32 and differ
 only in summation order, ~1e-7 here, held to 1e-5 relative and absolute.
@@ -33,6 +36,10 @@ from deepspeed_tpu.ops.pallas.grouped_gemm import topk_router as jax_topk_router
 from deepspeed_tpu_torch.inference.v2.model_implementations.mixtral import (
     _moe_ffn, moe_ffn_einsum)
 from deepspeed_tpu_torch.ops.grouped_gemm import (grouped_matmul,
+                                                  grouped_matmul_dw,
+                                                  grouped_matmul_dw_reference,
+                                                  grouped_matmul_dx,
+                                                  grouped_matmul_dx_reference,
                                                   grouped_matmul_reference,
                                                   is_supported, moe_ffn_gmm,
                                                   moe_scatter, topk_router,
@@ -253,3 +260,115 @@ def test_is_supported_states_the_kernel_limits():
     assert not is_supported(4100, 14336)
     assert not is_supported(64, 0)
     assert "multiple of 8" in unsupported_reason(4096, 14340)
+
+
+# ---------------------------------------------------------------------------
+# backward: dx (gmm with transpose_rhs) and dW (tgmm)
+# ---------------------------------------------------------------------------
+
+BWD_GROUPS = {
+    # name: group sizes (E = 4), R = their sum
+    "balanced": [40, 40, 40, 40],
+    "empty_expert": [70, 0, 50, 40],
+    "one_group": [0, 0, 130, 0],
+}
+
+
+def bwd_case(sizes, K=128, N=256, seed=0):
+    rng = np.random.default_rng(seed)
+    R, E = sum(sizes), len(sizes)
+    xs = rng.standard_normal((R, K)).astype(np.float32)
+    w = (rng.standard_normal((E, K, N)) * K ** -0.5).astype(np.float32)
+    dy = rng.standard_normal((R, N)).astype(np.float32)
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    return xs, w, dy, offsets
+
+
+def megablox_backward(xs, w, dy, sizes, dtype):
+    """megablox gmm(transpose_rhs=True) and tgmm in interpret mode, fp32
+    accumulation cast to ``dtype``, rows padded to the 128-row tile into the
+    last group as the JAX wrapper pads them."""
+    # the module, not the package's custom-VJP ``gmm`` of the same name
+    from jax.experimental.pallas.ops.tpu.megablox.gmm import gmm as mb_gmm
+    from jax.experimental.pallas.ops.tpu.megablox.gmm import tgmm
+    R = xs.shape[0]
+    pad = (-R) % 128
+    gs = np.asarray(sizes, np.int32).copy()
+    gs[-1] += pad
+    padded = lambda a: jnp.concatenate([jnp.asarray(a, dtype),
+                                        jnp.zeros((pad, a.shape[1]), dtype)])
+    dx = mb_gmm(padded(dy), jnp.asarray(w, dtype), jnp.asarray(gs), dtype,
+                (128, 128, 128), transpose_rhs=True, interpret=True)
+    dw = tgmm(padded(xs).swapaxes(0, 1), padded(dy), jnp.asarray(gs), dtype,
+              (128, 128, 128), interpret=True)
+    f32 = lambda a: np.asarray(jnp.asarray(a).astype(jnp.float32))
+    return f32(dx)[:R], f32(dw)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(BWD_GROUPS))
+def test_backward_plain_versions_match_megablox_interpret(name, dtype):
+    """fp32: summation order only (1e-5). bf16: megablox multiplies the bf16
+    inputs exactly in fp32 and rounds once, as the plain versions do, so the
+    two differ by at most one rounding: the one-rounding bound 2^-7 (|ref| +
+    rms(ref)). An expert with no rows gets a dW of exactly zero."""
+    sizes = BWD_GROUPS[name]
+    xs, w, dy, offsets = bwd_case(sizes, seed=len(name))
+    want_dx, want_dw = megablox_backward(xs, w, dy, sizes, getattr(jnp, dtype))
+    tdt = getattr(torch, dtype)
+    xt, wt, dyt = (torch.from_numpy(a).to(tdt) for a in (xs, w, dy))
+    off = torch.from_numpy(offsets)
+    dx = grouped_matmul_dx(dyt, wt, off)
+    dw = grouped_matmul_dw(xt, dyt, off)
+    torch.testing.assert_close(dx, grouped_matmul_dx_reference(dyt, wt, off),
+                               rtol=0, atol=0)
+    assert dx.dtype == dw.dtype == tdt and dw.shape == (len(sizes), 128, 256)
+    if dtype == "float32":
+        np.testing.assert_allclose(dx.numpy(), want_dx, **FP32_TOL)
+        np.testing.assert_allclose(dw.numpy(), want_dw, **FP32_TOL)
+    else:
+        assert one_rounding_ratio(dx.float().numpy(), want_dx, BF16_RTOL) <= 1
+        assert one_rounding_ratio(dw.float().numpy(), want_dw, BF16_RTOL) <= 1
+    for e, n in enumerate(sizes):
+        if n == 0:
+            assert torch.count_nonzero(dw[e]) == 0 and not want_dw[e].any()
+
+
+@pytest.mark.parametrize("name", list(BWD_GROUPS))
+def test_grouped_matmul_vjp_matches_megablox_and_autograd(name):
+    """The autograd backward of ``grouped_matmul`` (fp32, CPU: the dx and dW
+    plain versions) against megablox's custom VJP under ``jax.grad`` (interpret
+    mode) and against torch autograd of the plain forward."""
+    from jax.experimental.pallas.ops.tpu.megablox import gmm
+    sizes = BWD_GROUPS[name]
+    xs, w, dy, offsets = bwd_case(sizes, seed=10 + len(name))
+    R, pad = xs.shape[0], (-xs.shape[0]) % 128
+    gs = np.asarray(sizes, np.int32).copy()
+    gs[-1] += pad
+
+    def jloss(a, b):
+        a = jnp.concatenate([a, jnp.zeros((pad, a.shape[1]), a.dtype)])
+        out = gmm(a, b, jnp.asarray(gs), preferred_element_type=jnp.float32,
+                  tiling=(128, 128, 128), interpret=True)[:R]
+        return jnp.sum(out * dy)
+
+    want_dx, want_dw = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(xs), jnp.asarray(w))
+    off = torch.from_numpy(offsets)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (xs, w)]
+    grouped_matmul(*leaves, off).backward(torch.from_numpy(dy))
+    np.testing.assert_allclose(leaves[0].grad.numpy(), np.asarray(want_dx), **FP32_TOL)
+    np.testing.assert_allclose(leaves[1].grad.numpy(), np.asarray(want_dw), **FP32_TOL)
+    plain = [torch.from_numpy(a).requires_grad_() for a in (xs, w)]
+    grouped_matmul_reference(*plain, off).backward(torch.from_numpy(dy))
+    for a, b in zip(leaves, plain):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-6, atol=1e-6)
+
+
+def test_fp16_product_under_autograd_raises_like_megablox():
+    xs = torch.zeros(4, 8, dtype=torch.float16, requires_grad=True)
+    w = torch.zeros(2, 8, 8, dtype=torch.float16)
+    off = torch.tensor([0, 2, 4], dtype=torch.int32)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        grouped_matmul(xs, w, off)
+    with torch.no_grad():                    # serving keeps fp16
+        assert grouped_matmul(xs, w, off).dtype == torch.float16
