@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port (``deepspeed_tpu_torch``) on one GPU.
+"""Smoke test of the PyTorch/CUDA port (``deepspeed_tpu_torch``) on the GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs a CUDA
 device and the repository's sources; without either it exits non-zero and
@@ -92,6 +92,32 @@ prints no result.
    layers, dx and dW 3 x layers, flash forward 2 x layers, dq and dk/dv 1 x
    layers). Tokens/s, step time, peak memory and the model-FLOPs share of
    the active parameters are reported.
+
+10. qgZ kernels (after the Mixtral training engine is freed): the quantize
+   and dequantize-reduce kernels of ``csrc/quant_collective.cu`` against
+   their plain versions at the shapes Llama-2-7B's leaves give them under
+   ZeRO-3 + qgZ at W=4 (a gate_proj chunk, the embedding, an attention
+   projection, a norm in one padded group, a ragged length, the int8
+   second stage of a dpr=2 x dp=2 hierarchy, ``block_dequantize`` with one
+   peer, bf16 input). Ints and scales must be equal and the sums equal bit
+   for bit; a planted fault (one group reading its neighbour's scale) must
+   be rejected. Kernel / plain times and the bound (bytes over 3.35 TB/s);
+   no single PyTorch call computes this function, so there is no library
+   yardstick.
+11. ZeRO-3 + qgZ data parallelism, when 2 or more cards are visible: one
+   spawned process per card (4 at most, NCCL), Llama-2-7B at full width
+   with all 32 layers on 4 cards (8 on fewer), bf16 weights drawn from one
+   seed, phase 5's engine configuration with ``zero_optimization`` stage 3
+   and ``zero_quantized_gradients``. At the first boundary every leaf's
+   qgZ-reduced chunk is compared with the exact fp32 reduce-scatter of the
+   same local accumulators (relative L2 against a bound fixed before the
+   first run, and a control read with the int8 format's scales above it);
+   then 4 optimizer steps: the loss must fall, every rank report the same
+   losses, the quantize kernels launch once per leaf and step, and each
+   rank's peak memory stay under 80 GB. Step time, boundary time, tokens/s
+   in all and per card, the model-FLOPs share and the wire against the
+   logical bytes are printed. On one card the phase prints why it did not
+   run.
 
 The line before the last is one JSON object describing each kernel; the
 last is ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -776,7 +802,7 @@ def phase_training():
         if micro == 0:
             # the plain-attention comparison: launches no kernel, and its
             # gradients never reach the engine's accumulators
-            kernel_grads = engine._grad_acc       # untouched until step()
+            kernel_grads = [leaf.acc for leaf in engine._leaves]  # untouched until step()
             plain_loss, plain_grads = plain_step(fa.mha_plain)
             grad_err = rel_l2(kernel_grads, plain_grads)
             del plain_grads
@@ -1505,6 +1531,394 @@ def phase_mixtral_training():
     return launches, layer_stats
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the qgZ quantize / dequantize-reduce kernels vs their plain versions
+# ---------------------------------------------------------------------------
+
+# Cases at the shapes the ZeRO-3 + qgZ main path gives the kernels at W=4:
+# one exchange per leaf, its [W, m] blocks (m = the leaf's size / W)
+# quantized to int4 and the W received rows dequantized and summed. The
+# kernels and their plain versions do the same IEEE operations in the same
+# order, so ints and scales must be equal and the sums equal bit for bit.
+# Each case also plants a fault in the plain version (one group reading its
+# neighbour's scale), which the exact comparison must reject.
+QUANT_CASES = [
+    # name, P, m, bits, dtype; P = peers (rows), m = payload per peer
+    ("gate_proj_chunk", 4, 11_272_192, 4, "float32"),     # [11008, 4096] / 4
+    ("embedding_chunk", 4, 32_768_000, 4, "float32"),     # [32000, 4096] / 4
+    ("attn_proj_chunk", 4, 4_194_304, 4, "float32"),      # [4096, 4096] / 4
+    ("norm_chunk", 4, 1_024, 4, "float32"),               # [4096] / 4: one padded group
+    ("ragged_m", 4, 1_000_003, 4, "float32"),
+    ("int8_hierarchical_stage2", 2, 11_272_192, 8, "float32"),   # dpr=2 x dp=2
+    ("block_dequantize", 1, 4_194_304, 8, "float32"),
+    ("bf16_input", 4, 11_272_192, 4, "bfloat16"),
+]
+QUANT_GROUP = 2048
+# operations per element: quantize |x|, max, divide, round, 2 clamps;
+# dequantize-reduce a multiply and an add per peer (fp32, off the tensor cores)
+QUANT_OPS, DEQ_OPS_PER_PEER = 6, 2
+
+
+def same_bits(a, b):
+    """Bit-for-bit equality of two tensors of one dtype."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def faulty_scales(s):
+    """The planted fault: group 1 of peer 0 reads group 0's scale (peer 1's
+    group 0 where a peer has one group)."""
+    bad = s.clone()
+    if s.shape[1] > 1:
+        bad[0, 1] = s[0, 0]
+    else:
+        bad[0, 0] = s[1, 0]
+    return bad
+
+
+def quantize_with_scales(rows, scales, bits):
+    """The plain quantize of group-rows [N, gs] with given scales [N]."""
+    import torch
+    qmax = 127.0 if bits == 8 else 7.0
+    q = torch.clamp(torch.round(rows / scales[:, None]), -qmax, qmax).to(torch.int32)
+    if bits == 4:
+        h = rows.shape[1] // 2
+        return ((q[:, :h] & 0xF) | ((q[:, h:] & 0xF) << 4)).to(torch.uint8)
+    return q.to(torch.int8)
+
+
+def phase_quant_kernels():
+    import torch
+    from deepspeed_tpu_torch.ops import quant_collective as qc
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(10)
+    results, failures = [], []
+    for name, P, m, bits, dtype in QUANT_CASES:
+        dt = getattr(torch, dtype)
+        x = torch.randn(P, m, generator=gen, device=DEVICE)
+        x[0, :QUANT_GROUP] *= 100.0           # groups of very different scales
+        x = x.to(dt)
+        G = -(-m // QUANT_GROUP)
+        gsw = QUANT_GROUP if bits == 8 else QUANT_GROUP // 2
+        q, s = qc.block_quantize(x, num_bits=bits, group_size=QUANT_GROUP)
+        rows, _, _ = qc._prep_rows(x, QUANT_GROUP)
+        q_ref, s_ref = qc._quantize_rows_ref(rows, bits)
+        q_ref, s_ref = q_ref.reshape(P, -1), s_ref.reshape(P, G)
+        quant_ok = same_bits(q, q_ref) and same_bits(s, s_ref)
+        q_bad = quantize_with_scales(rows, faulty_scales(s_ref).reshape(-1), bits)
+        quant_fault_caught = not same_bits(q, q_bad.reshape(P, -1))
+        if P == 1:
+            out = qc.block_dequantize(q, s, num_bits=bits, group_size=QUANT_GROUP, out_len=m)
+            deq_call = lambda: qc.block_dequantize(q, s, num_bits=bits,
+                                                   group_size=QUANT_GROUP, out_len=m)
+        else:
+            out = qc.block_dequantize_reduce(q, s, num_bits=bits, group_size=QUANT_GROUP,
+                                             out_len=m)
+            deq_call = lambda: qc.block_dequantize_reduce(q, s, num_bits=bits,
+                                                          group_size=QUANT_GROUP, out_len=m)
+        plain = lambda scales: qc._dequantize_reduce_ref(
+            q.reshape(P, G, gsw), scales, bits).reshape(-1)[:m].reshape(out.shape)
+        ref = plain(s)
+        deq_ok = same_bits(out, ref)
+        deq_fault_caught = not same_bits(out, plain(faulty_scales(s)))
+        torch.cuda.synchronize()
+        iters = 3 if m >= 10_000_000 else 10
+        item = x.element_size()
+        q_bytes, s_bytes = P * G * gsw, P * G * 4
+        qbound = max((P * m * item + q_bytes + s_bytes) / HBM_BYTES_PER_S,
+                     QUANT_OPS * P * m / PEAK_FLOPS["float32"]) * 1e3
+        out_rows = P if P == 1 else 1
+        dbound = max((q_bytes + s_bytes + out_rows * m * 4) / HBM_BYTES_PER_S,
+                     DEQ_OPS_PER_PEER * P * m / PEAK_FLOPS["float32"]) * 1e3
+        res = dict(
+            name=name, shape=f"P={P} m={m} int{bits} {dtype}", groups_per_peer=G,
+            quantize=dict(
+                exact=quant_ok, max_abs_err=0.0 if quant_ok else float(
+                    (q.float() - q_ref.float()).abs().max()),
+                planted_fault_rejected=quant_fault_caught,
+                ms=time_ms(lambda: qc.block_quantize(x, num_bits=bits,
+                                                     group_size=QUANT_GROUP), iters),
+                plain_ms=time_ms(lambda: qc._quantize_rows_ref(
+                    qc._prep_rows(x, QUANT_GROUP)[0], bits), iters),
+                bound_ms=qbound, bound_by="bytes", library_ms=None),
+            dequantize_reduce=dict(
+                exact=deq_ok, max_abs_err=float((out - ref).abs().max()),
+                planted_fault_rejected=deq_fault_caught,
+                ms=time_ms(deq_call, iters),
+                plain_ms=time_ms(lambda: plain(s), iters),
+                bound_ms=dbound, bound_by="bytes", library_ms=None))
+        results.append(res)
+        print(f"quant kernels {json.dumps(res)}", flush=True)
+        for k in ("quantize", "dequantize_reduce"):
+            if not res[k]["exact"]:
+                failures.append(f"{name}: {k} differs from its plain version")
+            if not res[k]["planted_fault_rejected"]:
+                failures.append(f"{name}: {k}'s check did not reject the planted fault")
+        del x, q, s, rows, q_ref, s_ref, out, ref
+        torch.cuda.empty_cache()
+    if failures:
+        fail("quant collective kernels: " + "; ".join(failures))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 11: ZeRO-3 + qgZ data-parallel training of Llama-2-7B on W cards
+# ---------------------------------------------------------------------------
+
+ZERO_MAX_WORLD = 4
+ZERO_LAYERS = {4: 32}         # of 32 at W=4; 8 below (memory: 11 B/param at W=2)
+ZERO_CONFIG = dict(TRAIN_CONFIG, zero_optimization={
+    "stage": 3, "zero_quantized_gradients": True})
+# First boundary: every leaf's qgZ-reduced chunk against the exact fp32
+# reduce-scatter of the same local accumulators, as relative L2 over all
+# leaves. Bound fixed before the first run from the int4 step: a group's
+# error is uniform within half a step of amax/7, about amax/24 rms, which
+# for gradient groups (amax 4-10 rms) is 0.15-0.4 of the rms per peer; the
+# sum of W peers' errors against the sum of W correlated gradients lands
+# around 0.1-0.3. The control dequantizes the same wire with the int8
+# format's scales (amax/127 in place of amax/7), which puts every value
+# 18x too small: about 0.95. Readings (4 x H100 80GB HBM3, 700 W): 0.150,
+# control 0.945.
+ZERO_QGZ_REL_L2_BOUND = 0.5
+# the loss must fall by this much from the first optimizer step's window to
+# the last (the same 2 global batches), stated before the first run
+ZERO_LOSS_FALL = 0.1
+
+
+def zero_rank(rank, world, port, out_dir):
+    """One rank of phase 11 (started by torch.multiprocessing)."""
+    import dataclasses
+    import os
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(REPO))
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import comm as dist
+    from deepspeed_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
+                                                  llama_flops_per_token)
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import quant_collective as qc
+    from deepspeed_tpu_torch.runtime.comm import coalesced_collectives as cc
+
+    def progress(what):
+        if rank == 0:
+            print(f"zero data parallel: rank 0 {what} at {time.perf_counter() - t0:.1f}s",
+                  flush=True)
+
+    t0 = time.perf_counter()
+    # a bounded wait: a rank that stops fails the others' collectives
+    dist.init_distributed(dist_backend="nccl", timeout=300, verbose=False)
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    sync = torch.cuda.synchronize
+    micro_rows, T = TRAIN_MICRO, TRAIN_T
+    cfg = dataclasses.replace(LlamaConfig.llama2_7b(dtype=torch.bfloat16),
+                              num_hidden_layers=ZERO_LAYERS.get(world, 8))
+    layers = cfg.num_hidden_layers
+    model = LlamaForCausalLM.from_seed(cfg, seed=0, device=dev)
+    progress("drew the weights")
+    config = dict(ZERO_CONFIG, train_batch_size=micro_rows * TRAIN_GAS * world,
+                  train_micro_batch_size_per_gpu=micro_rows)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config, device=dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    progress("built the engine")
+    rng = np.random.default_rng(0)
+    windows = [rng.integers(0, cfg.vocab_size, (micro_rows * world, T))
+               for _ in range(TRAIN_GAS)]
+    mine = [{"input_ids": w[rank * micro_rows:(rank + 1) * micro_rows],
+             "labels": w[rank * micro_rows:(rank + 1) * micro_rows]} for w in windows]
+
+    losses = []
+    for b in mine:                      # the first window, up to its boundary
+        loss = engine(b)
+        engine.backward(loss)
+        losses.append(float(loss.detach()))
+        if len(losses) < TRAIN_GAS:
+            engine.step()
+        progress(f"ran micro-step {len(losses)}")
+
+    # first boundary: qgZ against the exact reduce-scatter, and the control
+    plan = engine._qgz
+    num = torch.zeros(3, dtype=torch.float64, device=dev)   # qgz, control, exact
+    per_leaf = []
+    for leaf in engine._leaves:
+        d, axes = plan._zero_dim(leaf.shape)
+        if d is None:
+            continue
+        blocks = leaf.acc.movedim(d, 0).reshape(world, -1)
+        exact = dist.reduce_scatter(blocks.reshape(-1))
+        got = plan._exchange(leaf.acc, d, axes)
+        q, s = qc.block_quantize(blocks, num_bits=plan.intra_bits)
+        qx, sx = dist.all_to_all_single(q), dist.all_to_all_single(s)
+        control = qc.block_dequantize_reduce(qx, sx * (7.0 / 127.0), num_bits=plan.intra_bits,
+                                             out_len=blocks.shape[1])
+        e2 = exact.double().pow(2).sum()
+        leaf_err = (got - exact).double().pow(2).sum()
+        num += torch.stack([leaf_err, (control - exact).double().pow(2).sum(), e2])
+        per_leaf.append((leaf.name, float((leaf_err / e2.clamp(min=1e-300)).sqrt())))
+        del blocks, exact, got, q, s, qx, sx, control
+    dist.all_reduce(num)
+    progress("compared the first boundary's exchange")
+    qgz_rel, control_rel = float((num[0] / num[2]).sqrt()), float((num[1] / num[2]).sqrt())
+    sync()
+    t = time.perf_counter()
+    plan.reduce([leaf.acc for leaf in engine._leaves])
+    sync()
+    exchange_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.empty_cache()
+
+    # the counted run: the first boundary's step and 3 more windows
+    qc.block_quantize.launches = qc.block_dequantize_reduce.launches = 0
+    fa.reset_launch_counts()
+    cc.reset_wire_bytes()
+    step_s, boundary_s = [], []
+    t = time.perf_counter()
+    engine.step()
+    sync()
+    step_s.append(time.perf_counter() - t)
+    boundary_s.append(step_s[-1])
+    for _ in range(TRAIN_STEPS - 1):
+        t = time.perf_counter()
+        for b in mine:
+            loss = engine(b)
+            engine.backward(loss)
+            if engine.is_gradient_accumulation_boundary():
+                sync()
+                tb = time.perf_counter()
+                engine.step()
+                sync()
+                boundary_s.append(time.perf_counter() - tb)
+            else:
+                engine.step()
+            losses.append(float(loss.detach()))
+        sync()
+        step_s.append(time.perf_counter() - t)
+        progress(f"finished optimizer step {engine.global_steps}")
+    launches = {"block_quantize": qc.block_quantize.launches,
+                "block_dequantize_reduce": qc.block_dequantize_reduce.launches,
+                "flash_mha_fwd": fa.flash_mha_fwd.launches,
+                "flash_mha_bwd_dq": fa.flash_mha_bwd_dq.launches,
+                "flash_mha_bwd_dkv": fa.flash_mha_bwd_dkv.launches}
+    shardable = sum(plan._zero_dim(leaf.shape)[0] is not None for leaf in engine._leaves)
+    micro = TRAIN_GAS * (TRAIN_STEPS - 1)
+    steady = float(np.mean(step_s[1:]))
+    tok_s = TRAIN_GAS * micro_rows * T * world / steady
+    flops_token = llama_flops_per_token(cfg, T)
+    res = dict(rank=rank, world=world, layers=layers, params=cfg.num_parameters(),
+               init_s=init_s, losses=losses, optimizer_steps=engine.global_steps,
+               skipped=engine.skipped_steps, grad_norm_last=engine.get_global_grad_norm(),
+               qgz_rel_l2=qgz_rel, control_rel_l2=control_rel,
+               worst_leaves=sorted(per_leaf, key=lambda x: -x[1])[:3],
+               first_boundary_exchange_ms=exchange_ms, step_wall_s=step_s,
+               boundary_step_s=boundary_s,
+               steady_step_wall_s=steady, tokens_per_s=tok_s, tokens_per_s_per_card=tok_s / world,
+               model_flops_per_token=flops_token,
+               mfu_vs_989_tflops_per_card=flops_token * tok_s / (989e12 * world),
+               wire_bytes_per_step=cc.WIRE_BYTES["wire"] / TRAIN_STEPS,
+               logical_bytes_per_step=cc.WIRE_BYTES["logical"] / TRAIN_STEPS,
+               peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               launches=launches,
+               expected_launches={"block_quantize": shardable * TRAIN_STEPS,
+                                  "block_dequantize_reduce": shardable * TRAIN_STEPS,
+                                  "flash_mha_fwd": 2 * layers * micro,
+                                  "flash_mha_bwd_dq": layers * micro,
+                                  "flash_mha_bwd_dkv": layers * micro})
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_zero(world):
+    import socket
+    import tempfile
+    import numpy as np
+    import torch.multiprocessing as mp
+    print(f"zero data parallel: {world} ranks, llama2_7b at full width with "
+          f"{ZERO_LAYERS.get(world, 8)} layers, ZeRO-3 + qgZ, bf16, micro-batch "
+          f"{TRAIN_MICRO} x {TRAIN_T}, GAS {TRAIN_GAS}", flush=True)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as out_dir:
+        mp.start_processes(zero_rank, args=(world, port, out_dir), nprocs=world,
+                           join=True, start_method="spawn")
+        ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                 for r in range(world)]
+    r0 = ranks[0]
+    print(f"zero data parallel {json.dumps(ranks)}", flush=True)
+    first = float(np.mean(r0["losses"][:TRAIN_GAS]))
+    last = float(np.mean(r0["losses"][-TRAIN_GAS:]))
+    for r in ranks:
+        if not all(np.isfinite(r["losses"])):
+            fail(f"zero: rank {r['rank']} losses are not finite: {r['losses']}")
+        if r["losses"] != r0["losses"]:
+            fail(f"zero: ranks report different losses: {r['losses']} vs {r0['losses']}")
+        if r["launches"] != r["expected_launches"]:
+            fail(f"zero: rank {r['rank']} launches {r['launches']} != "
+                 f"{r['expected_launches']}")
+        if not r["peak_memory_gb"] < 80:
+            fail(f"zero: rank {r['rank']} peak memory {r['peak_memory_gb']} GB")
+    if not r0["qgz_rel_l2"] <= ZERO_QGZ_REL_L2_BOUND:
+        fail(f"zero: qgZ-reduced gradients differ from the exact reduce-scatter by "
+             f"{r0['qgz_rel_l2']} > {ZERO_QGZ_REL_L2_BOUND}")
+    if not r0["control_rel_l2"] > ZERO_QGZ_REL_L2_BOUND:
+        fail(f"zero: the bound does not reject the scale control: {r0['control_rel_l2']}")
+    if not last <= first - ZERO_LOSS_FALL:
+        fail(f"zero: loss did not fall by {ZERO_LOSS_FALL}: {first} -> {last}")
+    if r0["optimizer_steps"] != TRAIN_STEPS or r0["skipped"]:
+        fail(f"zero: {r0['optimizer_steps']} steps, {r0['skipped']} skipped")
+    return ranks
+
+
+def run_zero_phase():
+    """Phase 11 on min(cards, 4) ranks; on one card, one line saying why it
+    did not run."""
+    import torch
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"phase zero data parallel: not run: it needs 2 or more cards and "
+              f"{count} is visible (ZeRO shards over ranks, and qgZ refuses a "
+              f"world of one)", flush=True)
+        return None
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = phase_zero(min(count, ZERO_MAX_WORLD))
+    print(f"phase zero data parallel: {time.perf_counter() - t:.1f}s", flush=True)
+    return ranks
+
+
+def quant_kernel_lines(cases, zero_ranks):
+    """The kernels-line entries of the two qgZ kernels: the main case's
+    numbers, every case's, and the launches of phase 11's run (0 where it
+    did not run)."""
+    keys = ("exact", "max_abs_err", "planted_fault_rejected", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by")
+    main = cases[0]            # gate_proj_chunk: the main path's largest leaf shape
+    lines = []
+    for kn, part, line in (("block_quantize", "quantize", 273),
+                           ("block_dequantize_reduce", "dequantize_reduce", 344)):
+        lines.append(dict(
+            name=kn, route="cuda", source="deepspeed_tpu_torch/csrc/quant_collective.cu",
+            replaces=f"deepspeed_tpu/ops/pallas/quant_collective.py:{line}",
+            launches=zero_ranks[0]["launches"][kn] if zero_ranks else 0,
+            **{k: main[part][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+            case=main["name"],
+            cases=[dict(name=c["name"], shape=c["shape"], **{k: c[part][k] for k in keys})
+                   for c in cases]))
+    return lines
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1556,6 +1970,12 @@ def main():
     t6 = time.perf_counter()
     moe_train_launches, _ = phase_mixtral_training()
     print(f"phase mixtral training: {time.perf_counter() - t6:.1f}s", flush=True)
+    gc.collect()                 # the Mixtral training engine holds ~65 GB
+    torch.cuda.empty_cache()
+    t7 = time.perf_counter()
+    quant_cases = phase_quant_kernels()
+    print(f"phase quant collective kernels: {time.perf_counter() - t7:.1f}s", flush=True)
+    zero_ranks = run_zero_phase()
 
     main_case = cases[0]   # decode_7b: the shape of the serving main path
     kernels = [dict(
@@ -1618,6 +2038,7 @@ def main():
             case=main_bwd["name"],
             cases=[dict(name=c["name"], **{k: c[kn][k] for k in bwd_keys})
                    for c in gmm_bwd_cases]))
+    kernels += quant_kernel_lines(quant_cases, zero_ranks)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

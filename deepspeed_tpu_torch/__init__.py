@@ -37,7 +37,7 @@ def resolve_device(device=None) -> torch.device:
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, mpu=None, collate_fn=None,
-               config=None, config_params=None, device=None):
+               config=None, config_params=None, device=None, mesh=None):
     """Build the training engine (port of ``deepspeed_tpu.initialize``).
 
     Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``.
@@ -45,12 +45,25 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     loss; ``model_parameters`` an optional state dict of initial fp32 values
     (by parameter name) that the engine's master copy starts from instead of
     the module's own; ``config`` a dict, a JSON path, or (with ``args``)
-    ``args.deepspeed_config``; ``device`` the device to train on (CUDA by
-    default). Then ``loss = engine(batch); engine.backward(loss);
-    engine.step()``, or ``engine.train_batch(data_iter)``.
+    ``args.deepspeed_config``; ``device`` the device to train on
+    (``cuda:LOCAL_RANK`` by default); ``mesh`` a ``MeshTopology`` of the
+    ranks (by default one built from the config over every rank). With
+    WORLD_SIZE > 1 in the environment and no process group yet, it joins
+    one (NCCL on CUDA, gloo on the CPU). Then ``loss = engine(batch);
+    engine.backward(loss); engine.step()``, or
+    ``engine.train_batch(data_iter)``, on every rank.
     """
+    import os
+
+    from deepspeed_tpu_torch.comm import comm as dist
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+
+    if device is None:
+        device = torch.device("cuda", dist.get_local_rank())
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
+        dist.init_distributed(
+            dist_backend="nccl" if torch.device(device).type == "cuda" else "gloo")
 
     if config is None and config_params is not None:
         config = config_params
@@ -63,7 +76,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     engine = DeepSpeedEngine(config=config, model=model, optimizer=optimizer,
                              model_parameters=model_parameters,
                              training_data=training_data, lr_scheduler=lr_scheduler,
-                             collate_fn=collate_fn, device=device)
+                             collate_fn=collate_fn, device=device, mesh=mesh)
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 
 

@@ -1,0 +1,195 @@
+"""The rank grid (port of ``deepspeed_tpu/parallel/topology.py``).
+
+The JAX package lays every parallelism form on the named axes of one device
+mesh; here the same axes order a grid of ``torch.distributed`` ranks, and
+each axis slice (the ranks that differ only in that axis's coordinate) gets
+a process group. Canonical axis order, outermost to innermost:
+
+    ("pp", "dpr", "dp", "ep", "sp", "tp")
+
+``dp`` is the ZeRO shard axis. ``dpr`` splits the data-parallel world
+hierarchically (``zero_hpz_partition_size``): ``dp`` becomes the inner group
+of that size and ``dpr`` the groups across it. The ZeRO world is
+``(dpr, dp)`` in that order, so rank ``dpr_idx * dp + dp_idx`` holds chunk
+``dpr_idx * dp + dp_idx`` of a leaf: the "axes-major" order of the JAX
+package's ``batch_spec`` and qgZ chunks. Only ``dp`` and ``dpr`` may exceed
+1 in the port so far; the other axes raise, naming their ROADMAP item.
+"""
+
+import numpy as np
+import torch.distributed
+
+from deepspeed_tpu_torch.comm import comm as dist
+
+AXIS_ORDER = ("pp", "dpr", "dp", "ep", "sp", "tp")
+_UNPORTED = {"pp": "A12 (pipeline parallelism)", "ep": "A9 (MoE expert parallelism)",
+             "sp": "A12 (sequence parallelism)", "tp": "A12 (tensor parallelism)"}
+
+
+class MeshTopology:
+
+    def __init__(self, pp=1, dp=-1, ep=1, sp=1, tp=1, devices=None,
+                 zero_shard_size=None, zero_hierarchy=None):
+        """``devices`` is the list of global ranks the grid covers (default
+        every rank of the process group, or the one process when there is
+        none). ``zero_shard_size`` splits the data-parallel world: ``dp``
+        becomes the shard group of that size and ``dpr`` the replica groups
+        across it; ``zero_hierarchy`` records why ("hpz": only the stage-3
+        working parameters use the smaller group; "mics" is not ported)."""
+        if devices is None:
+            devices = list(range(dist.get_world_size()))
+        n = len(devices)
+        fixed = pp * ep * sp * tp
+        if dp == -1:
+            assert n % fixed == 0, (
+                f"device count {n} not divisible by pp*ep*sp*tp={fixed}")
+            dp = n // fixed
+        assert pp * dp * ep * sp * tp == n, (
+            f"mesh {pp}x{dp}x{ep}x{sp}x{tp} != device count {n}")
+        dpr = 1
+        if zero_shard_size and zero_shard_size > 0:
+            assert zero_shard_size <= dp, (
+                f"zero shard size {zero_shard_size} exceeds the data-parallel "
+                f"world {dp} (reference mics_shard_size/zero_hpz_partition_size "
+                f"must divide the DP world)")
+            assert dp % zero_shard_size == 0, (
+                f"dp={dp} not divisible by zero shard size {zero_shard_size}")
+            assert zero_hierarchy in ("mics", "hpz"), \
+                "zero_shard_size requires zero_hierarchy of 'mics' or 'hpz'"
+            dpr = dp // zero_shard_size
+            dp = zero_shard_size
+        self.zero_hierarchy = zero_hierarchy if dpr > 1 else None
+        if self.zero_hierarchy == "mics":
+            raise NotImplementedError("MiCS (mics_shard_size) is not ported to "
+                                      "deepspeed_tpu_torch yet: ROADMAP A1")
+        self.pp_size, self.dp_size, self.ep_size, self.sp_size, self.tp_size = pp, dp, ep, sp, tp
+        self.dpr_size = dpr
+        self._sizes = dict(pp=pp, dpr=dpr, dp=dp, ep=ep, sp=sp, tp=tp)
+        for axis, item in _UNPORTED.items():
+            if self._sizes[axis] > 1:
+                raise NotImplementedError(
+                    f"a {axis} axis of size {self._sizes[axis]} is not ported to "
+                    f"deepspeed_tpu_torch yet: ROADMAP {item}")
+        self.ranks = np.asarray(devices).reshape([self._sizes[a] for a in AXIS_ORDER])
+        self.rank = dist.get_rank()
+        devices = [int(r) for r in devices]
+        if self.rank not in devices:
+            raise ValueError(f"rank {self.rank} is not in the grid's ranks {devices}")
+        self.grid_rank = devices.index(self.rank)   # this rank's place in the grid
+        self._groups = self._build_groups()
+
+    def _build_groups(self):
+        """One process group per slice of each axis longer than 1, created in
+        the same order on every rank (``new_group`` is collective); the slice
+        that holds this rank is kept. A slice spanning the whole world is the
+        default group (None)."""
+        world = dist.get_world_size()
+        groups = {}
+        for i, axis in enumerate(AXIS_ORDER):
+            size = self._sizes[axis]
+            if size == 1:
+                continue
+            slices = np.moveaxis(self.ranks, i, -1).reshape(-1, size)
+            for ranks in slices.tolist():
+                group = None if len(ranks) == world else \
+                    torch.distributed.new_group(ranks=ranks)
+                if self.rank in ranks:
+                    groups[axis] = group
+        return groups
+
+    @property
+    def axis_names(self):
+        return AXIS_ORDER
+
+    def get_dim(self, axis):
+        return self._sizes[axis]
+
+    def get_group(self, axis):
+        """The process group of this rank's slice along ``axis`` (None: the
+        whole world, or an axis of size 1, where collectives are no-ops)."""
+        return self._groups.get(axis)
+
+    def get_axis_rank(self, axis):
+        return self.get_coord(self.grid_rank)[axis]
+
+    @property
+    def zero_axes(self):
+        """Axes over which ZeRO partitions master/optimizer state and
+        gradients; the data-parallel world is their product."""
+        return ("dpr", "dp", "ep", "sp")
+
+    @property
+    def param_zero_axes(self):
+        """Axes of the stage-3 working (bf16) parameter shards: under hpZ
+        only the inner ``dp`` group (the reference's secondary partition)."""
+        if self.zero_hierarchy == "hpz":
+            return ("dp", "ep", "sp")
+        return self.zero_axes
+
+    def axes_group(self, axes):
+        """(process group, size, this rank's index) of the ranks that differ
+        only along ``axes`` (those of size > 1), indexed axes-major."""
+        live = tuple(a for a in axes if self._sizes[a] > 1)
+        size = int(np.prod([self._sizes[a] for a in live])) if live else 1
+        if not live:
+            return None, 1, 0
+        if len(live) == 1:
+            return self.get_group(live[0]), size, self.get_axis_rank(live[0])
+        # more than one live axis: only (dpr, dp) can be, which spans the
+        # world when the other axes are 1
+        coord = self.get_coord(self.grid_rank)
+        index = 0
+        for a in live:
+            index = index * self._sizes[a] + coord[a]
+        return None, size, index
+
+    @property
+    def data_parallel_size(self):
+        return self.dpr_size * self.dp_size * self.ep_size * self.sp_size
+
+    # --- coordinate math, mirroring ProcessTopology (topology.py:12) ---
+    def world_size(self):
+        return int(np.prod([self._sizes[a] for a in AXIS_ORDER]))
+
+    def get_rank(self, **coords):
+        """Flat rank from axis coordinates (reference ``ProcessTopology.get_rank``)."""
+        full = [coords.get(a, 0) for a in AXIS_ORDER]
+        dims = [self._sizes[a] for a in AXIS_ORDER]
+        rank = 0
+        for c, d in zip(full, dims):
+            rank = rank * d + c
+        return rank
+
+    def get_coord(self, rank):
+        dims = [self._sizes[a] for a in AXIS_ORDER]
+        coords = {}
+        for a, d in zip(reversed(AXIS_ORDER), reversed(dims)):
+            coords[a] = rank % d
+            rank //= d
+        return {a: coords[a] for a in AXIS_ORDER}
+
+    def __repr__(self):
+        shown = [a for a in AXIS_ORDER if a != "dpr" or self.dpr_size > 1]
+        return ("MeshTopology(" +
+                ", ".join(f"{a}={self._sizes[a]}" for a in shown) + ")")
+
+
+def build_topology(config=None, devices=None):
+    """Build a MeshTopology from a DeepSpeedConfig-like object (or defaults)."""
+    pp = ep = sp = tp = 1
+    zero_shard_size = zero_hierarchy = None
+    if config is not None:
+        pp = getattr(config, "pipeline_stages", 1) or 1
+        ep = getattr(config, "expert_parallel_size", 1) or 1
+        sp = getattr(config, "sequence_parallel_size", 1) or 1
+        tp = getattr(config, "tensor_parallel_size", 1) or 1
+        zc = getattr(config, "zero_config", None)
+        if zc is not None:
+            if getattr(zc, "mics_shard_size", -1) and zc.mics_shard_size > 0:
+                zero_shard_size, zero_hierarchy = zc.mics_shard_size, "mics"
+            elif getattr(zc, "zero_hpz_partition_size", 1) and \
+                    zc.zero_hpz_partition_size > 1:
+                zero_shard_size, zero_hierarchy = zc.zero_hpz_partition_size, "hpz"
+    return MeshTopology(pp=pp, dp=-1, ep=ep, sp=sp, tp=tp, devices=devices,
+                        zero_shard_size=zero_shard_size,
+                        zero_hierarchy=zero_hierarchy)

@@ -12,11 +12,18 @@ saves for backward, as in the JAX package:
 ``"dots"`` and ``cpu_checkpointing`` raise ``NotImplementedError``
 (ROADMAP A1). ``configure`` records the options globally; models read
 ``current_policy()`` when they run, as the JAX models read it at trace time.
+``saves_for_backward()`` tells code running inside a forward whether autograd
+keeps what it saves: not under ``no_grad``, nor in the first pass of a
+checkpointed function (its recomputation in backward does keep it). ZeRO
+stage 3 frees a layer's gathered parameters after a forward that keeps
+nothing.
 """
 
+import torch
 import torch.utils.checkpoint
 
 _CONFIG = {"policy": "everything", "checkpoint_in_cpu": False}
+_DISCARDING = [0]     # depth of first passes of checkpointed functions
 
 POLICIES = ("everything", "nothing")
 
@@ -46,9 +53,27 @@ def checkpoint(function, *args, **kwargs):
     ``"everything"`` and gradients enabled, keep only the inputs and recompute
     the forward in backward."""
     if current_policy() == "everything" and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(function, *args,
+        calls = [0]
+
+        def run(*a, **k):
+            calls[0] += 1
+            if calls[0] > 1:            # the recomputation, in backward
+                return function(*a, **k)
+            _DISCARDING[0] += 1
+            try:
+                return function(*a, **k)
+            finally:
+                _DISCARDING[0] -= 1
+
+        return torch.utils.checkpoint.checkpoint(run, *args,
                                                  use_reentrant=False, **kwargs)
     return function(*args, **kwargs)
+
+
+def saves_for_backward():
+    """Whether the forward running now keeps its saved tensors for a
+    backward."""
+    return torch.is_grad_enabled() and _DISCARDING[0] == 0
 
 
 def reset():

@@ -455,22 +455,25 @@ class DeepSpeedConfig:
 
     def check_supported(self):
         """Raise ``NotImplementedError`` naming the ROADMAP item for a setting
-        the port's training path does not run yet. Single-rank training
-        (ZeRO stage 0) with fp32, fp16 or bf16, the adam/adamw optimizers,
-        every LR schedule, clipping, gradient accumulation, activation
-        checkpointing (``everything`` / ``nothing``) and MoE models on one
-        device (the ``moe`` section with ``ep_size`` 1; the router aux loss
-        is part of the model's loss) are supported."""
+        the port's training path does not run yet. Data-parallel training
+        over ``torch.distributed`` at ZeRO stages 0-3, with ZeRO++ quantized
+        gradients (``zero_quantized_gradients``, its error feedback, and
+        ``zero_hpz_partition_size`` as the dpr x dp split of the exchange and
+        of the stage-3 working shards); fp32, fp16 or bf16; the adam/adamw
+        optimizers, every LR schedule, clipping, gradient accumulation,
+        activation checkpointing (``everything`` / ``nothing``) and MoE
+        models at stage 0 (the ``moe`` section with ``ep_size`` 1; the
+        router aux loss is part of the model's loss) are supported."""
         z = self.zero_config
         ac = self.activation_checkpointing
         rc = self.resilience_config
         checks = [
-            (z.stage > 0, f"zero_optimization.stage={z.stage}",
-             "A1 (data parallel and ZeRO 1/2/3 over torch.distributed)"),
             (z.offload_optimizer_device != "none" or z.offload_param_device
              != "none" or z.cpu_offload, "ZeRO offload", "A14 (offload tiers)"),
-            (z.zero_quantized_weights or z.zero_quantized_gradients
-             or z.zero_hpz_partition_size > 1, "ZeRO++", "A10 (ZeRO++)"),
+            (z.zero_quantized_weights or z.zero_quantized_nontrainable_weights,
+             "ZeRO++ quantized weights (qwZ)", "A10 (ZeRO++)"),
+            (z.mics_shard_size > 0, "mics_shard_size",
+             "A1 (MiCS hierarchical sharding)"),
             (self.pipeline.stages > 1, "pipeline.stages > 1",
              "A12 (parallelism breadth)"),
             (self.tensor_parallel.tp_size > 1, "tensor_parallel.tp_size > 1",
@@ -483,7 +486,7 @@ class DeepSpeedConfig:
             (self.fused_step, "fused_step",
              "A1 (forward/backward/step run as separate calls)"),
             (self.prefetch_batches > 0, "prefetch_batches",
-             "A1 (single-rank dataloader only)"),
+             "A1 (no background input pipeline)"),
             (ac.policy not in ("everything", "nothing"),
              f"activation_checkpointing.policy={ac.policy!r}",
              "A1 (activation checkpointing policies)"),

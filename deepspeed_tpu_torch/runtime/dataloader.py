@@ -3,9 +3,13 @@
 ``DeepSpeedDataLoader`` wraps an indexable dataset (a dict of arrays, a list
 of samples) or an iterable of ready batches and yields numpy batches of
 ``batch_size`` rows, shuffled from ``seed`` as in the JAX package; the engine
-moves each batch to its device. ``RepeatingLoader`` restarts the wrapped
-loader when it runs out. Sharding batches over data-parallel ranks waits for
-the distributed slice (ROADMAP A1).
+moves each batch to its device. With ``dp_world`` ranks, every rank draws
+the same global micro-batches of ``batch_size * dp_world`` rows (the JAX
+loader's batches) and rank ``dp_rank`` yields the ``dp_rank``-th contiguous
+block of ``batch_size`` rows of each, which is where the JAX mesh places it
+(``batch_spec``); a ready batch of an iterable dataset is a global one and
+is cut the same way. ``RepeatingLoader`` restarts the wrapped loader when it
+runs out.
 """
 
 import numpy as np
@@ -24,9 +28,12 @@ def _stack(samples):
 class DeepSpeedDataLoader:
 
     def __init__(self, dataset, batch_size, collate_fn=None, shuffle=True,
-                 seed=0, drop_last=True):
+                 seed=0, drop_last=True, dp_rank=0, dp_world=1):
         self.dataset = dataset
-        self.batch_size = batch_size
+        self.local_batch_size = batch_size
+        self.batch_size = batch_size * dp_world    # the global micro-batch
+        self.dp_rank = dp_rank
+        self.dp_world = dp_world
         self.collate_fn = collate_fn
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -56,12 +63,27 @@ class DeepSpeedDataLoader:
         for start in range(0, end, self.batch_size):
             yield idx[start:start + self.batch_size]
 
+    def _local(self, batch):
+        """This rank's block of rows of a global batch."""
+        if self.dp_world == 1:
+            return batch
+        lo = self.dp_rank * self.local_batch_size
+        if isinstance(batch, dict):
+            return {k: self._local(v) for k, v in batch.items()}
+        if isinstance(batch, (tuple, list)):
+            return type(batch)(self._local(v) for v in batch)
+        return np.asarray(batch)[lo:lo + self.local_batch_size]
+
     def __iter__(self):
         self._epoch += 1
         if self.num_samples is None:
-            yield from self.dataset
+            for batch in self.dataset:
+                yield self._local(batch)
             return
         for batch_idx in self._index_batches():
+            if self.dp_world > 1:
+                lo = self.dp_rank * self.local_batch_size
+                batch_idx = batch_idx[lo:lo + self.local_batch_size]
             if isinstance(self.dataset, dict):
                 yield {k: np.asarray(v)[batch_idx] for k, v in self.dataset.items()}
             else:

@@ -1,32 +1,64 @@
-"""DeepSpeedEngine for one device (port of ``deepspeed_tpu/runtime/engine.py``).
+"""DeepSpeedEngine (port of ``deepspeed_tpu/runtime/engine.py``).
 
-The engine holds the model's parameters in the working dtype (bf16, fp16 or
-fp32) inside the module, an fp32 master copy and fp32 gradient accumulators
+The engine trains one process's share of a data-parallel world over
+``torch.distributed`` (a world of one needs no process group). It holds the
+model's parameters in the working dtype (bf16, fp16 or fp32) inside the
+module, an fp32 master copy and fp32 gradient accumulators
 (``engine.py:434-555`` in the JAX package). As there, every floating
-parameter — norm scales and embeddings included — is cast to the working
-dtype, and gradients are taken with respect to that working copy.
+parameter is cast to the working dtype and gradients are taken with respect
+to that working copy. ZeRO cuts the state along each leaf's shard dimension
+(``zero/partition.py``):
+
+- stage 0/1: each micro-step's gradients are added into whole local
+  accumulators, all-reduced at the gradient-accumulation boundary;
+- stage 1+: each rank runs Adam on its chunks of the master and moments,
+  then the updated working chunks are all-gathered into the module;
+- stage 2+: each micro-step's gradients are reduce-scattered into chunk
+  accumulators as autograd produces them;
+- stage 3: the working parameters are sharded at rest (their storage freed)
+  and gathered one decoder layer at a time: a forward hook on each layer
+  gathers before it runs, and frees after a forward that keeps nothing for
+  backward (the first pass of a recomputed layer, or no-grad); the
+  recomputation in backward gathers again, and each parameter is freed as
+  soon as its gradient has been folded in;
+- qgZ (``zero_quantized_gradients``, stage >= 2): local gradients are
+  accumulated whole and exchanged quantized at the boundary
+  (``QgzPlan.reduce``, ``engine.py:1176-1184``), with error feedback whose
+  residual survives an overflow-skipped step (``:1193-1195``).
+
+Every gradient of ``engine.backward`` is folded into its accumulator by a
+``register_post_accumulate_grad_hook`` as soon as autograd produces it, so
+at most a layer's gradients exist at once; a backward run outside
+``engine.backward`` leaves ``.grad`` to its caller.
+
+Loss and gradients are those of the JAX engine's loss over the global
+batch. The JAX engine sees the whole global micro-batch; here each rank sees
+``train_micro_batch_size_per_gpu`` rows of it, so ``forward`` all-reduces
+the loss and the sum over ranks is divided by the world at the boundary.
+A module whose loss is a mean over a data-dependent count (masked tokens)
+returns ``(loss, {"num_valid_tokens": n})``: the ranks are then weighted by
+their counts, which gives the global mean where ranks hold different
+numbers of valid tokens. Under qgZ the loss is the mean of the ranks'
+losses, as in the JAX qgZ engine (``:921``).
 
 - ``forward(batch)`` runs the module and returns the loss with its graph;
-- ``backward(loss)`` runs autograd on the (loss-scaled) loss and adds the
-  working-dtype gradients into the accumulators, freeing them;
-- ``step()`` at the gradient-accumulation boundary averages the accumulated
-  gradients, unscales them, skips the step on fp16 overflow, clips by the
-  global norm, runs the optimizer on the master copy, recasts it into the
-  working copy and updates the loss scale (``engine.py:1106-1147``).
-
-The JAX engine fuses forward, backward and accumulation into one XLA
-program; this is PyTorch's own forward/backward split, as the reference
-DeepSpeed has it. Data parallelism and ZeRO 1/2/3 wait for the distributed
-slice (ROADMAP A1): ``DeepSpeedConfig.check_supported`` raises for them.
+- ``backward(loss)`` runs autograd on the (loss-scaled) loss;
+- ``step()`` at the boundary reduces the gradients, unscales them, skips the
+  step on fp16 overflow (any rank's), clips by the global norm, runs the
+  optimizer on this rank's masters, updates the working copy and the loss
+  scale (``engine.py:1106-1147``).
 """
 
+import weakref
 from typing import Any, NamedTuple
 
 import torch
 from torch import nn
 
 from deepspeed_tpu_torch import resolve_device
+from deepspeed_tpu_torch.comm import comm as dist
 from deepspeed_tpu_torch.ops.adam import build_optimizer, set_lr
+from deepspeed_tpu_torch.parallel import groups
 from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader, RepeatingLoader
@@ -34,8 +66,11 @@ from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (LossScaleState,
                                                           init_loss_scale_state,
                                                           update_loss_scale)
 from deepspeed_tpu_torch.runtime.lr_schedules import LRSchedulerShim, get_lr_schedule
-from deepspeed_tpu_torch.runtime.utils import (clip_grads_by_global_norm, count_parameters,
-                                               global_norm, has_overflow)
+from deepspeed_tpu_torch.runtime.utils import (clip_grads_by_global_norm, global_norm,
+                                               has_overflow)
+from deepspeed_tpu_torch.runtime.zero.partition import (ZeroPartitioner, alloc_storage,
+                                                        free_storage, gather_full,
+                                                        is_resident, shard_of)
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 _DTYPES = {None: torch.float32, "fp32": torch.float32, "fp16": torch.float16,
@@ -47,11 +82,51 @@ class StepStats(NamedTuple):
     lr: float
 
 
+class _Leaf:
+    """One parameter's state on this rank. ``master``, the optimizer's
+    moments and a sharded ``acc`` are flat chunks in the partitioner's
+    layout (``shard_of``) or whole tensors; ``shard`` is the stage-3
+    working chunk."""
+
+    def __init__(self, name, param):
+        self.name = name
+        self.param = param
+        self.shape = tuple(param.shape)
+        self.master_dim = self.grad_dim = self.param_dim = None
+        self.master = self.acc = self.shard = None
+
+
+class _ReportedLoss(torch.autograd.Function):
+    """Value: the loss over the global batch. Gradient: to this rank's
+    weighted local loss, whose sum over ranks is the world times the
+    global loss's."""
+
+    @staticmethod
+    def forward(ctx, local, reported):
+        return reported.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _call(engine_ref, method, *args):
+    """Run ``method`` of the engine behind a weak reference, if it lives."""
+    engine = engine_ref()
+    if engine is not None:
+        getattr(engine, method)(*args)
+
+
+def _uses_moe(module):
+    from deepspeed_tpu_torch.moe.sharded_moe import MOELayer
+    return any(isinstance(m, MOELayer) for m in module.modules())
+
+
 class DeepSpeedEngine:
 
     def __init__(self, config=None, model=None, optimizer=None,
                  model_parameters=None, training_data=None, lr_scheduler=None,
-                 collate_fn=None, device=None):
+                 collate_fn=None, device=None, mesh=None):
         self.config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
         self.config.check_supported()
         if not isinstance(model, nn.Module):
@@ -60,7 +135,18 @@ class DeepSpeedEngine:
         self.module = model
         self.device = resolve_device(device)
 
-        tb, mb, gas = self.config.resolve_batch_params(1)
+        # --- topology: the rank grid, its groups and the ZeRO partition ---
+        self.topology = groups.initialize(mesh_topology=mesh, config=self.config)
+        self.partitioner = ZeroPartitioner(self.topology, self.config.zero_config)
+        self.zero_group = self.partitioner.zero_group
+        self.dp_world = self.partitioner.zero_world
+        self.dp_rank = self.partitioner.zero_index
+        stage = self.zero_optimization_stage()
+        if stage > 0 and _uses_moe(model):
+            raise NotImplementedError("training a MoE model under ZeRO stage > 0 is not "
+                                      "ported yet: ROADMAP A9 (expert parallelism)")
+
+        tb, mb, gas = self.config.resolve_batch_params(self.topology.data_parallel_size)
         self.train_batch_size_value = tb
         self.micro_batch_size = mb
         self.gradient_accumulation_steps_value = gas
@@ -74,8 +160,22 @@ class DeepSpeedEngine:
         self.dynamic_loss_scale = self.fp16_enabled and not (self.config.fp16.loss_scale > 0)
         self.grad_accum_dtype = _DTYPES[self.config.data_types.grad_accum_dtype]
 
+        # --- qgZ (ZeRO++ quantized gradients) ---
+        zc = self.config.zero_config
+        self._qgz = None
+        self._qgz_feedback = False
+        if zc.zero_quantized_gradients:
+            if stage < 2:
+                raise ValueError("zero_quantized_gradients requires ZeRO stage >= 2 "
+                                 "(gradients must be partitioned)")
+            from deepspeed_tpu_torch.runtime.zero.qgz import QgzPlan
+            self._qgz = QgzPlan(self.topology)
+            self._qgz_feedback = bool(zc.zero_quantized_gradients_error_feedback)
+
         # --- parameters: fp32 master, working copy in the module ---
         self._init_parameters(model_parameters)
+        self._folding = False          # inside engine.backward: hooks fold gradients
+        self._register_hooks()
 
         # --- optimizer ---
         opt_cfg = self.config.optimizer
@@ -83,7 +183,8 @@ class DeepSpeedEngine:
             raise NotImplementedError("client optimizer objects are not ported yet; pass "
                                       "an optimizer name or a config section: ROADMAP A1")
         name = optimizer if isinstance(optimizer, str) else opt_cfg.type
-        self.optimizer, self._base_lr = build_optimizer(name, opt_cfg.params, self._opt_params)
+        self.optimizer, self._base_lr = build_optimizer(
+            name, opt_cfg.params, [leaf.master for leaf in self._leaves])
 
         # --- LR schedule: a name, a callable step -> lr, or the config's ---
         if lr_scheduler is not None and not isinstance(lr_scheduler, str):
@@ -98,8 +199,9 @@ class DeepSpeedEngine:
 
         self.training_dataloader = None
         if training_data is not None:
-            self.training_dataloader = DeepSpeedDataLoader(training_data, batch_size=mb,
-                                                           collate_fn=collate_fn)
+            self.training_dataloader = DeepSpeedDataLoader(
+                training_data, batch_size=mb, collate_fn=collate_fn,
+                dp_rank=self.dp_rank, dp_world=self.dp_world)
 
         checkpointing.configure(deepspeed_config=self.config)
 
@@ -113,38 +215,156 @@ class DeepSpeedEngine:
         self._last_stats = None
         self._staged_loss = None
         self._data_iterator = None
+        n = sum(leaf.param.numel() for leaf in self._leaves)
         log_dist(f"DeepSpeedEngine: device={self.device} dtype={self.working_dtype} "
-                 f"batch=({tb},{mb},{gas}) parameters="
-                 f"{count_parameters(self._master) / 1e6:.2f}M", ranks=[0])
+                 f"batch=({tb},{mb},{gas}) world={self.dp_world} zero_stage={stage} "
+                 f"qgz={self._qgz is not None} parameters={n / 1e6:.2f}M", ranks=[0])
 
+    # ------------------------------------------------------------------
+    # state layout
+    # ------------------------------------------------------------------
     def _init_parameters(self, model_parameters):
-        """Master copies in fp32 from ``model_parameters`` (a state dict of
-        tensors or arrays, by parameter name) or the module's own values,
-        taken before the module is cast; then the module's parameters become
-        the working-dtype copy on the engine's device."""
+        """Per parameter, one at a time (so at most one whole fp32 copy
+        exists): the fp32 value from ``model_parameters`` (a state dict of
+        tensors or arrays, by name) or the module, made equal on every rank
+        by a broadcast from rank 0 (reference ``_broadcast_model``), then
+        this rank's master (chunk or whole), the working copy in the module
+        (freed to its stage-3 chunk) and the gradient accumulator."""
         named = list(self.module.named_parameters())
         src = dict(model_parameters or {})
         unknown = set(src) - {n for n, _ in named}
         if unknown:
             raise ValueError(f"model_parameters names no parameter of the model: "
                              f"{sorted(unknown)[:5]}")
+        part = self.partitioner
+        W, idx = part.zero_world, part.zero_index
+        qgz = self._qgz is not None
+        self._leaves = []
         with torch.no_grad():
-            masters = [torch.as_tensor(src.get(n, p.detach()))
-                       .to(device=self.device, dtype=torch.float32).clone()
-                       for n, p in named]
-            self.module.to(self.device)
-            for (n, p), m in zip(named, masters):
-                if tuple(m.shape) != tuple(p.shape):
-                    raise ValueError(f"{n}: model_parameters shape {tuple(m.shape)} != "
+            for n, p in named:
+                full = torch.as_tensor(src.get(n, p.detach())).to(
+                    device=self.device, dtype=torch.float32, copy=True)
+                if tuple(full.shape) != tuple(p.shape):
+                    raise ValueError(f"{n}: model_parameters shape {tuple(full.shape)} != "
                                      f"{tuple(p.shape)}")
-                p.data = m.to(self.working_dtype)
+                dist.broadcast(full, src=0, group=None)
+                leaf = _Leaf(n, p)
+                leaf.master_dim = part.master_dim(leaf.shape)
+                leaf.grad_dim = part.grad_dim(leaf.shape)
+                leaf.param_dim = part.param_dim(leaf.shape)
+                p.data = full.to(self.working_dtype, copy=True)
                 p.requires_grad_(True)
-        self._names = [n for n, _ in named]
-        self._params = [p for _, p in named]
-        self._master = masters if self.mixed_precision else self._params
-        self._opt_params = self._master
-        self._grad_acc = [torch.zeros(p.shape, dtype=self.grad_accum_dtype, device=self.device)
-                          for p in self._params]
+                if leaf.master_dim is not None:
+                    leaf.master = shard_of(full, leaf.master_dim, W, idx).clone()
+                elif self.mixed_precision or part.stage >= 1:
+                    leaf.master = full
+                else:
+                    leaf.master = p       # stage 0 in fp32: Adam updates the module
+                if leaf.param_dim is not None:
+                    leaf.shard = self._working_shard(leaf, full)
+                    free_storage(p.data)
+                del full
+                whole = qgz or leaf.grad_dim is None
+                leaf.acc = torch.zeros(
+                    leaf.shape if whole else (p.numel() // W,),
+                    dtype=self.grad_accum_dtype, device=self.device)
+                self._leaves.append(leaf)
+        self._residual = None
+        if self._qgz_feedback:
+            # fp32 whatever grad_accum_dtype is: the carry is the small
+            # difference the wire format dropped
+            self._residual = [torch.zeros(leaf.shape, dtype=torch.float32,
+                                          device=self.device) for leaf in self._leaves]
+        part.describe([leaf.shape for leaf in self._leaves])
+
+    def _working_shard(self, leaf, full):
+        """The stage-3 working chunk of ``full`` (a whole fp32 value). It is
+        the master chunk itself where both have the same cut and dtype."""
+        part = self.partitioner
+        if (leaf.param_dim == leaf.master_dim and part.param_world == part.zero_world
+                and not self.mixed_precision):
+            return leaf.master
+        return shard_of(full, leaf.param_dim, part.param_world,
+                        part.param_index).to(self.working_dtype, copy=True)
+
+    # ------------------------------------------------------------------
+    # hooks: gradients folded in as produced; stage-3 gather and release
+    # ------------------------------------------------------------------
+    def _register_hooks(self):
+        """The hooks hold the engine weakly: a tensor's gradient hooks live
+        in autograd's C++ state, where Python's collector cannot see a cycle
+        back to the engine, so a strong reference would keep the engine and
+        its state alive for as long as the module."""
+        me = weakref.ref(self)
+        for i, leaf in enumerate(self._leaves):
+            leaf.param.register_post_accumulate_grad_hook(
+                lambda p, _i=i: _call(me, "_grad_hook", _i, p))
+        self._units = []
+        if not any(leaf.param_dim is not None for leaf in self._leaves):
+            return
+        # gather units: every child of a ModuleList (the decoder layers) and
+        # the root for the parameters outside them
+        by_param = {id(leaf.param): leaf for leaf in self._leaves
+                    if leaf.param_dim is not None}
+        in_units = set()
+        for mod in self.module.modules():
+            if isinstance(mod, nn.ModuleList):
+                for child in mod:
+                    if any(id(p) in in_units for p in child.parameters()):
+                        continue
+                    unit = [by_param[id(p)] for p in child.parameters() if id(p) in by_param]
+                    in_units.update(id(p) for p in child.parameters())
+                    if unit:
+                        self._units.append((child, unit))
+        rest = [leaf for pid, leaf in by_param.items() if pid not in in_units]
+        if rest:
+            self._units.append((self.module, rest))
+        for u, (mod, _) in enumerate(self._units):
+            mod.register_forward_pre_hook(lambda m, a, _u=u: _call(me, "_gather", _u))
+            mod.register_forward_hook(
+                lambda m, a, out, _u=u: _call(me, "_release_after_forward", _u))
+
+    def _gather(self, u):
+        part = self.partitioner
+        with torch.no_grad():
+            for leaf in self._units[u][1]:
+                if is_resident(leaf.param.data):
+                    continue
+                alloc_storage(leaf.param.data)
+                gather_full(leaf.shard, leaf.param_dim, leaf.shape, part.param_group,
+                            out=leaf.param.data)
+
+    def _release_after_forward(self, u):
+        if not checkpointing.saves_for_backward():
+            for leaf in self._units[u][1]:
+                free_storage(leaf.param.data)
+
+    def _release_all(self):
+        for leaf in self._leaves:
+            if leaf.param_dim is not None:
+                free_storage(leaf.param.data)
+
+    def _grad_hook(self, i, p):
+        if not self._folding:
+            return
+        leaf = self._leaves[i]
+        g = p.grad
+        p.grad = None
+        with torch.no_grad():
+            self._fold(leaf, g)
+        if leaf.param_dim is not None:
+            free_storage(p.data)
+
+    def _fold(self, leaf, g):
+        """Add one micro-step's gradient into the leaf's accumulator:
+        reduce-scattered into its chunk at stage >= 2 (without qgZ), else
+        whole and local."""
+        if leaf.acc.shape == g.shape:
+            leaf.acc.add_(g)
+            return
+        W = self.dp_world
+        moved = g.movedim(leaf.grad_dim, 0).reshape(W, -1).to(self.grad_accum_dtype)
+        leaf.acc.add_(dist.reduce_scatter(moved.reshape(-1), group=self.zero_group))
 
     # ------------------------------------------------------------------
     # training API
@@ -157,19 +377,42 @@ class DeepSpeedEngine:
         return torch.as_tensor(batch).to(self.device, non_blocking=True)
 
     def forward(self, batch):
-        """Run the module on ``batch`` and return its loss with the graph."""
+        """Run the module on this rank's ``batch`` and return the loss over
+        the global batch, with the graph of this rank's share of it."""
         self.module.train()
-        loss = self.module(self._to_device(batch))
-        if isinstance(loss, tuple):
-            loss = loss[0]
+        out = self.module(self._to_device(batch))
+        count = None
+        if isinstance(out, tuple):
+            loss = out[0]
+            if len(out) > 1 and isinstance(out[1], dict):
+                count = out[1].get("num_valid_tokens")
+        else:
+            loss = out
+        if self.dp_world > 1:
+            loss = self._global_loss(loss, count)
         self._staged_loss = loss
         return loss
 
     __call__ = forward
 
+    def _global_loss(self, loss, count):
+        """All-reduce the loss over the data-parallel world. Rank r's share
+        is ``loss_r * c_r * W / sum(c)`` (``c`` the valid-token counts, 1
+        without them or under qgZ), so the sum of the ranks' gradients is W
+        times the global mean's; the boundary divides by W."""
+        W = self.dp_world
+        if count is None or self._qgz is not None:
+            c = torch.ones((), device=loss.device)
+        else:
+            c = torch.as_tensor(count, device=loss.device).float()
+        stats = torch.stack([loss.detach().float() * c, c])
+        dist.all_reduce(stats, group=self.zero_group)
+        share = loss * (c * W / stats[1]).to(loss.dtype)
+        return _ReportedLoss.apply(share, (stats[0] / stats[1]).to(loss.dtype))
+
     def backward(self, loss=None, retain_graph=False):
         """Backpropagate ``loss`` (default: the last forward's), scaled for
-        fp16, and add the gradients into the fp32 accumulators."""
+        fp16; the hooks fold every gradient into its accumulator."""
         if loss is None:
             loss = self._staged_loss
         if loss is None:
@@ -180,12 +423,11 @@ class DeepSpeedEngine:
         predivide = self.config.gradient_predivide_factor
         if self.config.prescale_gradients and predivide != 1.0:
             scaled = scaled / predivide
-        scaled.backward(retain_graph=retain_graph)
-        with torch.no_grad():
-            for p, acc in zip(self._params, self._grad_acc):
-                if p.grad is not None:
-                    acc.add_(p.grad)
-                    p.grad = None
+        self._folding = True
+        try:
+            scaled.backward(retain_graph=retain_graph)
+        finally:
+            self._folding = False
         self._staged_loss = None
         return loss
 
@@ -205,44 +447,99 @@ class DeepSpeedEngine:
                          f"lr={self._last_stats.lr}, loss_scale={self.scale.loss_scale}",
                          ranks=[0])
         self.micro_steps += 1
-        self.global_samples += self.micro_batch_size
+        self.global_samples += self.micro_batch_size * self.dp_world
+
+    def _reduced_grads(self):
+        """Per leaf, this rank's summed gradient in its master's layout."""
+        leaves = self._leaves
+        if self._qgz is not None:
+            if self._residual is None:
+                return self._qgz.reduce([leaf.acc for leaf in leaves]), None
+            return self._qgz.reduce([leaf.acc for leaf in leaves], residual=self._residual,
+                                    return_residual=True)
+        grads = []
+        for leaf in leaves:
+            g = leaf.acc
+            if leaf.grad_dim is None:         # whole: all-reduced once per step
+                g = dist.all_reduce(g, group=self.zero_group)
+                if leaf.master_dim is not None:
+                    g = shard_of(g, leaf.master_dim, self.dp_world, self.dp_rank)
+            grads.append(g)
+        return grads, None
 
     @torch.no_grad()
     def _apply_step(self, lr):
-        denom = float(self.gradient_accumulation_steps_value)
+        denom = float(self.gradient_accumulation_steps_value) * self.dp_world
         if self.fp16_enabled:
             denom *= self.scale.loss_scale
         predivide = self.config.gradient_predivide_factor
         if self.config.prescale_gradients and predivide != 1.0:
             denom /= predivide
-        grads = self._grad_acc if self.grad_accum_dtype == torch.float32 \
-            else [a.float() for a in self._grad_acc]
-        torch._foreach_div_(grads, denom)
-        # fp16 only: the one host read of a step, to skip it on overflow
-        overflow = bool(has_overflow(grads)) if self.fp16_enabled else False
+        # fp16 only: the one host read of a step, to skip it on any rank's
+        # overflow. Under qgZ the local accumulators are checked before the
+        # exchange, whose quantization would turn a NaN into a finite value.
+        overflow = False
+        if self.fp16_enabled and self._qgz is not None:
+            overflow = bool(has_overflow([leaf.acc for leaf in self._leaves],
+                                         group=self.zero_group))
+        norm = torch.zeros((), device=self.device)
+        if not overflow:
+            grads, new_res = self._reduced_grads()
+            # divided in place: the accumulators are zeroed after the step
+            grads = [g if g.dtype == torch.float32 else g.float() for g in grads]
+            torch._foreach_div_(grads, denom)
+            if self.fp16_enabled and self._qgz is None:
+                overflow = bool(has_overflow(grads, group=self.zero_group))
         if overflow:
-            norm = torch.zeros((), device=self.device)
             self._skipped += 1
         else:
+            if new_res is not None:
+                # an overflow-skipped step keeps the previous carry
+                self._residual = new_res
             clip = self.config.gradient_clipping
-            norm = global_norm(grads)
+            sharded = [leaf.master_dim is not None for leaf in self._leaves]
+            norm = global_norm(grads, group=self.zero_group, sharded=sharded)
             if clip and clip > 0:
                 clip_grads_by_global_norm(grads, clip, norm=norm)
             set_lr(self.optimizer, lr)
-            for t, g in zip(self._opt_params, grads):
-                t.grad = g
+            for leaf, g in zip(self._leaves, grads):
+                leaf.master.grad = g
             self.optimizer.step()
-            for t in self._opt_params:
-                t.grad = None
-            if self.mixed_precision:
-                for p, m in zip(self._params, self._master):
-                    p.copy_(m)
+            for leaf in self._leaves:
+                leaf.master.grad = None
+            del grads
+            self._update_working()
+        self._release_all()
         stats = StepStats(grad_norm=norm, lr=lr)
         self.scale = update_loss_scale(self.scale, overflow, self.config.fp16,
                                        self.dynamic_loss_scale)
-        for a in self._grad_acc:
-            a.zero_()
+        for leaf in self._leaves:
+            leaf.acc.zero_()
         return stats
+
+    def _update_working(self):
+        """The working copy from the updated masters: cast in place where
+        this rank holds what it needs, else all-gathered over the ZeRO
+        world (stage 1/2 parameters, and stage-3 chunks cut otherwise than
+        their masters)."""
+        part = self.partitioner
+        for leaf in self._leaves:
+            p, m = leaf.param, leaf.master
+            if m is p or m is leaf.shard:
+                continue
+            if leaf.param_dim is None:
+                if leaf.master_dim is None:
+                    p.data.copy_(m)
+                else:
+                    gather_full(m.to(self.working_dtype), leaf.master_dim, leaf.shape,
+                                self.zero_group, out=p.data)
+            elif leaf.master_dim == leaf.param_dim and part.param_world == part.zero_world:
+                leaf.shard.copy_(m)
+            else:
+                full = m if leaf.master_dim is None else gather_full(
+                    m.to(self.working_dtype), leaf.master_dim, leaf.shape, self.zero_group)
+                leaf.shard.copy_(shard_of(full, leaf.param_dim, part.param_world,
+                                          part.param_index))
 
     def train_batch(self, data_iter=None):
         """One full accumulation window: ``gradient_accumulation_steps``
@@ -264,8 +561,8 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def eval_batch(self, batch):
-        """The module's output (loss with labels, else logits) without
-        gradients."""
+        """The module's output (loss with labels, else logits) on this
+        rank's ``batch``, without gradients."""
         self.module.eval()
         return self.module(self._to_device(batch))
 
@@ -316,5 +613,12 @@ class DeepSpeedEngine:
         return self.gradient_accumulation_steps_value
 
     def get_model_parameters(self):
-        """The fp32 master parameters as a state dict (copies on the CPU)."""
-        return {n: m.detach().float().cpu().clone() for n, m in zip(self._names, self._master)}
+        """The fp32 master parameters as a state dict of whole tensors on
+        the CPU; sharded ones are all-gathered, so every rank calls it."""
+        out = {}
+        for leaf in self._leaves:
+            m = leaf.master.detach().float()
+            if leaf.master_dim is not None:
+                m = gather_full(m, leaf.master_dim, leaf.shape, self.zero_group)
+            out[leaf.name] = m.cpu().clone()
+        return out

@@ -2,18 +2,38 @@
 
 ``global_norm`` / ``clip_grads_by_global_norm`` / ``has_overflow`` over a
 list of tensors. All three stay on the tensors' device: the norm and the
-overflow flag are 0-d tensors, so clipping needs no host read.
+overflow flag are 0-d tensors, so clipping needs no host read. Under ZeRO a
+rank holds shards of some gradients and whole copies of others: with a
+process ``group``, ``global_norm`` all-reduces the shards' sum of squares
+and counts each whole tensor once, and ``has_overflow`` all-reduces its
+flag (max), so every rank clips by the same norm and skips the same steps.
 """
 
 import torch
 
+from deepspeed_tpu_torch.comm import comm as dist
 
-def global_norm(tensors):
-    """L2 norm over every element of every tensor, in fp32."""
+
+def _sum_squares(tensors, device):
+    if not tensors:
+        return torch.zeros((), device=device)
+    return torch.stack([t.float().pow(2).sum() for t in tensors]).sum()
+
+
+def global_norm(tensors, group=None, sharded=None):
+    """L2 norm over every element of every tensor, in fp32. ``sharded[i]``
+    marks ``tensors[i]`` as this rank's shard of a tensor spread over
+    ``group``, whose squares are summed over the group; the others are
+    whole on every rank and counted once."""
     tensors = list(tensors)
     if not tensors:
         return torch.zeros(())
-    return torch.sqrt(torch.stack([t.float().pow(2).sum() for t in tensors]).sum())
+    if sharded is None or dist.get_world_size(group) == 1:
+        return torch.sqrt(_sum_squares(tensors, tensors[0].device))
+    device = tensors[0].device
+    parts = _sum_squares([t for t, s in zip(tensors, sharded) if s], device)
+    whole = _sum_squares([t for t, s in zip(tensors, sharded) if not s], device)
+    return torch.sqrt(dist.all_reduce(parts, group=group) + whole)
 
 
 def clip_grads_by_global_norm(grads, max_norm, norm=None, eps=1e-6):
@@ -28,12 +48,16 @@ def clip_grads_by_global_norm(grads, max_norm, norm=None, eps=1e-6):
     return grads, norm
 
 
-def has_overflow(tensors):
-    """0-d bool tensor: True if any tensor holds an inf or a nan."""
+def has_overflow(tensors, group=None):
+    """0-d bool tensor: True if any tensor holds an inf or a nan, on this
+    rank or (with ``group``) on any rank of the group."""
     tensors = list(tensors)
     if not tensors:
         return torch.zeros((), dtype=torch.bool)
-    return torch.stack([~torch.isfinite(t).all() for t in tensors]).any()
+    flag = torch.stack([~torch.isfinite(t).all() for t in tensors]).any()
+    if dist.get_world_size(group) == 1:
+        return flag
+    return dist.all_reduce(flag.to(torch.int32), op=dist.ReduceOp.MAX, group=group) > 0
 
 
 def count_parameters(tensors):

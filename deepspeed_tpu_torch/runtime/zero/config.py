@@ -1,9 +1,9 @@
 """ZeRO config (port of ``deepspeed_tpu/runtime/zero/config.py``).
 
 The same keys, defaults and deprecated-key remaps as the JAX package, so the
-same JSON parses the same way. The port trains at stage 0 only for now:
+same JSON parses the same way. The port trains at stages 0-3 with qgZ;
 ``DeepSpeedConfig.check_supported`` raises ``NotImplementedError`` for
-stages 1-3, offload and ZeRO++ (ROADMAP A1, A10, A14).
+offload, qwZ and MiCS (ROADMAP A14, A10, A1).
 """
 
 from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigModel

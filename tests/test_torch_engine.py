@@ -168,7 +168,7 @@ def test_train_batch_dataloader_and_accessors():
 
 
 @pytest.mark.parametrize("section,match", [
-    ({"zero_optimization": {"stage": 1}}, "A1"),
+    ({"zero_optimization": {"stage": 1, "mics_shard_size": 2}}, "A1"),
     ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}}, "A14"),
     ({"tensor_parallel": {"tp_size": 2}}, "A12"),
     ({"fused_step": True}, "A1"),
@@ -180,3 +180,68 @@ def test_unported_settings_raise(section, match):
     model = LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32))
     with pytest.raises(NotImplementedError, match=match):
         deepspeed_tpu_torch.initialize(model=model, config=cfg, device="cpu")
+
+
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_zero_stages_train_at_world_one(stage):
+    """ZeRO stages 1-3 train in one process without a process group, as in
+    the JAX package: with a world of one nothing is sharded, so the run is
+    the stage-0 run exactly."""
+    micro = batches(GAS * 2)
+    _, params = jax_params(jnp.float32)
+    want_losses, want_master, _ = run_port("fp32", params, micro)
+    cfg = dict(train_config("fp32"), zero_optimization={
+        "stage": stage, "stage3_param_persistence_threshold": 0})
+    model = LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32))
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, model_parameters=params_from_flax(params), config=cfg, device="cpu")
+    losses = []
+    for b in micro:
+        loss = engine(b)
+        engine.backward(loss)
+        engine.step()
+        losses.append(float(loss.detach()))
+    assert engine.zero_optimization_stage() == stage and engine.global_steps == 2
+    assert losses == want_losses
+    got = engine.get_model_parameters()
+    for name, w in want_master.items():
+        assert torch.equal(got[name], w), name
+
+
+def test_gradients_fold_in_only_through_engine_backward():
+    """``engine.backward`` folds each gradient into its accumulator as
+    autograd produces it and leaves no ``.grad``; a backward run outside the
+    engine (a comparison on the same module) keeps its ``.grad`` and leaves
+    the accumulators alone."""
+    micro = batches(1)
+    model = LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32))
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=train_config("fp32"),
+                                                device="cpu")
+    engine.backward(engine(micro[0]))
+    acc = [leaf.acc.clone() for leaf in engine._leaves]
+    assert all(p.grad is None for p in model.parameters())
+    assert all(float(a.abs().sum()) > 0 for a in acc)
+    model(engine._to_device(micro[0])).backward()
+    assert all(p.grad is not None for p in model.parameters())
+    for leaf, a, p in zip(engine._leaves, acc, model.parameters()):
+        assert torch.equal(leaf.acc, a)
+        torch.testing.assert_close(p.grad, a, rtol=1e-6, atol=1e-8)
+
+
+@pytest.mark.parametrize("stage", [0, 3])
+def test_engine_is_freed_while_its_module_lives(stage):
+    """The gradient hooks live in autograd's C++ state, out of the cycle
+    collector's sight: they must hold the engine weakly, or a dropped
+    engine's masters, moments and accumulators stay alive with the
+    module."""
+    import gc
+    import weakref
+    model = LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32))
+    cfg = dict(train_config("fp32"), zero_optimization={"stage": stage})
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg, device="cpu")
+    engine.backward(engine(batches(1)[0]))
+    ref = weakref.ref(engine)
+    del engine, _
+    gc.collect()
+    assert ref() is None
+    model(model.embed_tokens.weight.new_zeros(2, 8, dtype=torch.long)).sum().backward()

@@ -571,3 +571,137 @@ def test_mixtral_training_on_cuda_runs_the_kernels(cuda):
     assert (fa.flash_mha_fwd.launches, fa.flash_mha_bwd_dq.launches,
             fa.flash_mha_bwd_dkv.launches) == (2 * L * micro, L * micro, L * micro)
     assert losses[-1] < losses[0]
+
+
+# ---------------------------------------------------------------------------
+# qgZ quantize / dequantize-reduce (csrc/quant_collective.cu)
+# ---------------------------------------------------------------------------
+#
+# The kernels and their plain versions do the same IEEE operations in the
+# same order (one division each for the scale and the value, round half to
+# even, then per peer one product and one sum from zero), so the ints and
+# scales must be equal and the sums equal bit for bit.
+
+QUANT_CASES = {
+    # name: (P peers, m per peer, bits, dtype, group size)
+    "int4_p4": (4, 3 * 2048 + 5, 4, torch.float32, 2048),
+    "int8_p2": (2, 5000, 8, torch.float32, 2048),
+    "one_padded_group": (4, 1024, 4, torch.float32, 2048),
+    "p1_dequantize": (1, 4096, 8, torch.float32, 2048),
+    "bf16_input": (4, 8192, 4, torch.bfloat16, 2048),
+    "odd_group_scalar_path": (3, 1001, 8, torch.float32, 250),
+    "int4_group_6": (2, 100, 4, torch.float32, 6),
+}
+
+
+def same_bits(a, b):
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def quant_plain(x, bits, gs):
+    from deepspeed_tpu_torch.ops import quant_collective as qc
+    rows, R, G = qc._prep_rows(x, gs)
+    q, s = qc._quantize_rows_ref(rows, bits)
+    return q.reshape(R, -1), s.reshape(R, G)
+
+
+def test_quant_exact_check_rejects_a_neighbour_scale():
+    """A group dequantized with its neighbour's scale is not bit-equal to
+    the plain sum (the comparison below can fail)."""
+    from deepspeed_tpu_torch.ops import quant_collective as qc
+    x = torch.randn(4, 3 * 2048, generator=torch.Generator().manual_seed(0))
+    q, s = qc.block_quantize(x, num_bits=4)
+    bad = s.clone()
+    bad[0, 1] = s[0, 0]
+    assert not same_bits(qc.block_dequantize_reduce(q, s, num_bits=4),
+                         qc.block_dequantize_reduce(q, bad, num_bits=4))
+
+
+@gpu
+@pytest.mark.parametrize("name", list(QUANT_CASES))
+def test_quant_kernels_match_plain(cuda, name):
+    from deepspeed_tpu_torch.ops import quant_collective as qc
+    P, m, bits, dtype, gs = QUANT_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(P, m, generator=g, device=cuda)
+    x[0, :gs] *= 50.0
+    x = x.to(dtype)
+    before = (qc.block_quantize.launches, qc.block_dequantize_reduce.launches)
+    q, s = qc.block_quantize(x, num_bits=bits, group_size=gs)
+    q_ref, s_ref = quant_plain(x, bits, gs)
+    assert same_bits(q, q_ref) and same_bits(s, s_ref)
+    G = s.shape[1]
+    if P == 1:
+        out = qc.block_dequantize(q, s, num_bits=bits, group_size=gs, out_len=m)
+    else:
+        out = qc.block_dequantize_reduce(q, s, num_bits=bits, group_size=gs, out_len=m)
+    ref = qc._dequantize_reduce_ref(q.reshape(P, G, -1), s, bits).reshape(-1)[:m]
+    torch.cuda.synchronize()
+    assert same_bits(out.reshape(-1), ref)
+    assert (qc.block_quantize.launches, qc.block_dequantize_reduce.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@gpu
+def test_quant_raises_instead_of_falling_back(cuda):
+    from deepspeed_tpu_torch.ops import quant_collective as qc
+    x = torch.randn(2, 100, device=cuda)
+    before = qc.block_quantize.launches
+    with pytest.raises(ValueError, match="even group_size"):
+        qc.block_quantize(x, num_bits=4, group_size=7)
+    with pytest.raises(ValueError, match="8 or 4"):
+        qc.block_quantize(x, num_bits=3)
+    assert qc.block_quantize.launches == before
+
+
+def _nccl_exchange_rank(rank, world, port, out):
+    import os
+    from deepspeed_tpu_torch.comm import comm as dist
+    from deepspeed_tpu_torch.runtime.comm.coalesced_collectives import exchange_reduce
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), LOCAL_RANK=str(rank))
+    dist.init_distributed(dist_backend="nccl", rank=rank, world_size=world, timeout=120)
+    blocks = torch.randn(world, world, 5000, generator=torch.Generator().manual_seed(0))
+    got, err = exchange_reduce(blocks[rank].cuda(), None, 4, 2048, return_error=True)
+    out.put((rank, got.cpu(), err.cpu()))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+@gpu
+def test_nccl_exchange_reduce_matches_plain(cuda):
+    """``exchange_reduce`` over NCCL on 2 cards against the same exchange
+    computed with the plain versions on the CPU: bit-equal."""
+    import socket
+    import torch.multiprocessing as mp
+    from deepspeed_tpu_torch.ops import quant_collective as qc
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip(f"needs 2 or more cards for an NCCL exchange; {world} visible")
+    world = 2
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    out = ctx.SimpleQueue()
+    procs = [ctx.Process(target=_nccl_exchange_rank, args=(r, world, port, out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    for _ in range(world):
+        rank, got, err = out.get()
+        results[rank] = (got, err)
+    for p in procs:
+        p.join(timeout=120)
+        assert p.exitcode == 0
+    blocks = torch.randn(world, world, 5000, generator=torch.Generator().manual_seed(0))
+    wires = [qc.block_quantize(blocks[r], num_bits=4) for r in range(world)]
+    for r in range(world):
+        q = torch.stack([wires[p][0][r] for p in range(world)])
+        s = torch.stack([wires[p][1][r] for p in range(world)])
+        want = qc.block_dequantize_reduce(q, s, num_bits=4, out_len=5000)
+        want_err = blocks[r] - qc.block_dequantize(*wires[r], num_bits=4, out_len=5000)
+        assert same_bits(results[r][0], want)
+        assert same_bits(results[r][1], want_err)
