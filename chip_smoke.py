@@ -118,10 +118,40 @@ prints no result.
    in all and per card, the model-FLOPs share and the wire against the
    logical bytes are printed. On one card the phase prints why it did not
    run.
+12. Per-row grouped FFN (kernel row 9b, ``moe_ffn_gmm_rows``, after phase
+   10): the three grouped products with the gated activation, on the
+   grouped-GEMM kernels, against the same function on the plain grouped
+   products, at the receiving shard of phase 13's dispatch (4 senders'
+   static [16384, 4096] blocks, 16,384 real rows routed at random over 2
+   local experts, the rest zero sentinel rows; also 7/8 of the real rows in
+   one expert, and none in one expert). Per case: the error against the
+   bound stated below, a planted misrouted row that the bound must reject,
+   sentinel rows exactly 0, kernel / plain / library (``torch._grouped_mm``
+   over the real rows; a yardstick the port never calls) times, and the
+   bound: the three products' operations over the real rows / 989 TFLOP/s
+   (or the bytes, if larger).
+13. Expert-parallel training, when 4 cards are visible (after phase 11 frees
+   its ranks): one spawned process per card, NCCL, ``ep`` 4. One MOELayer
+   at full width (E 8, top-2, "gmm") split over the cards, forward and
+   backward on 4 x 4 x 2048 tokens, against the same layer on one card with
+   all 8 experts on the plain grouped products (relative L2 of the output
+   and of the gradients of x, the router, w1, w2, w3, with a control whose
+   rank 1 holds rank 2's experts); the same forward with the int8 wire
+   (``a2a_wire_bits`` 8) against the bf16 wire, with its wire bytes; then
+   Mixtral-8x7B at full width with 8 of its 32 layers (bf16 weights drawn
+   from one seed, each rank keeping its quarter of every expert stack)
+   through ``initialize`` with phase 5's engine configuration,
+   ``expert_parallel_size`` 4 and ``zero_optimization`` stage 2, a
+   micro-batch of 4 x 2048 tokens per rank, 4 optimizer steps: the loss
+   must fall, every rank report the same losses, every kernel launch the
+   count its path gives (9b once per layer in the forward and the
+   recompute) and each rank's peak memory stay under 80 GB. Tokens/s in all
+   and per card, the model-FLOPs share and the peak per rank are printed.
+   On fewer cards the phase prints why it did not run.
 
-The line before the last is one JSON object describing each kernel; the
-last is ``{"ok": true, "device": {...}}``. Any failure raises, so the
-script exits non-zero without it.
+The script prints its total wall time. The line before the last is one
+JSON object describing each kernel; the last is ``{"ok": true, "device":
+{...}}``. Any failure raises, so the script exits non-zero without it.
 """
 
 import gc
@@ -1897,10 +1927,502 @@ def run_zero_phase():
     return ranks
 
 
-def quant_kernel_lines(cases, zero_ranks):
+# ---------------------------------------------------------------------------
+# phase 12: moe_ffn_gmm_rows (kernel row 9b) vs its plain version
+# ---------------------------------------------------------------------------
+
+# The receiving shard of Mixtral-8x7B's expert-parallel dispatch at ep 4:
+# 4 senders of a micro-batch of 4 x 2048 tokens each send a static
+# [16384, 4096] block (top-2 rows, worst case every row to one peer), of
+# which about a quarter are rows routed here and the rest zero sentinel
+# rows; E_local = 2 experts. Cases: random routing of 16,384 real rows over
+# the senders and the 2 experts; the same with 7/8 of the real rows in one
+# expert; all real rows in expert 0 (expert 1 gets none).
+ROWS_CASES = [
+    # name, senders, slots per sender, real rows, E_local, routing
+    ("ep_recv_8x7b", 4, 16384, 16384, 2, "random"),
+    ("ep_recv_skewed", 4, 16384, 16384, 2, "skewed"),
+    ("ep_recv_one_empty", 4, 16384, 16384, 2, "one_expert"),
+]
+# Element bound: the flash form of phases 6 and 8 scaled by 2, one rounding
+# of the output plus the rare one-ulp flips of the two bf16 intermediates
+# (silu(x @ w1) * (x @ w3)) it sums; stated before the first run, with the
+# prediction that the kernel lands at 0.3-0.7 of it. The planted fault (the
+# plain version with one real row sent to the other expert) must exceed it.
+ROWS_BOUND_SCALE = 2.0
+# The backward under autograd (9a's forward, 9c's dx and dW kernels) on an
+# upstream gradient that is 0 on the sentinel rows: the gradients of x (its
+# real rows; the sentinel rows' must be exactly 0) and of w1, w2, w3, each
+# held by the flash form scaled by ROWS_GRAD_SCALE. They pass through the
+# gated activation's bf16 backward, several roundings deep, so the scale
+# exceeds the forward's. It lies between this phase's sound readings on an
+# H100 80GB HBM3 at 700 W (at most 2.3 flash units, dx; dW at most 1.1) and
+# the planted fault's (the plain backward with the misrouted row: dx 379 or
+# more, dW 47 or more), which must exceed it in at least one gradient.
+ROWS_GRAD_SCALE = 8.0
+ROWS_GRADS = ("dx", "dw1", "dw2", "dw3")
+
+
+def rows_grads(x, ids, w1, w2, w3, dy, E, matmul):
+    """The gradients of x, w1, w2, w3 of moe_ffn_gmm_rows under dy."""
+    import torch
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
+    leaves = [t.detach().clone().requires_grad_() for t in (x, w1, w2, w3)]
+    gg.moe_ffn_gmm_rows(leaves[0], ids, *leaves[1:], n_experts=E, dtype=torch.bfloat16,
+                        matmul=matmul).backward(dy)
+    return [t.grad for t in leaves]
+
+
+def rows_grad_errors(got, ref, is_real):
+    """Per gradient: the flash-form ratio (dx over the real rows) in units
+    of ROWS_GRAD_SCALE, and the relative L2."""
+    out = {}
+    for n, g, r in zip(ROWS_GRADS, got, ref):
+        if n == "dx":
+            g, r = g[is_real], r[is_real]
+        out[n] = dict(ratio=flash_ratio(g, r, "bfloat16") / ROWS_GRAD_SCALE,
+                      rel_l2=rel_l2(g, r))
+    return out
+
+
+def rows_buffer(senders, slots, real, E, routing, rng):
+    """Per-row local expert ids of a receive buffer: sender b's block starts
+    with its n_b real rows (the n_b drawn as a multinomial of ``real`` over
+    the senders) and ends with sentinel rows (id E)."""
+    import numpy as np
+    counts = rng.multinomial(real, [1 / senders] * senders)
+    ids = np.full(senders * slots, E, np.int32)
+    for b, n in enumerate(counts):
+        if routing == "random":
+            e = rng.integers(0, E, n)
+        elif routing == "skewed":
+            e = np.where(rng.random(n) < 7 / 8, 0, rng.integers(0, E, n))
+        else:
+            e = np.zeros(n, np.int64)
+        ids[b * slots:b * slots + n] = e
+    return ids, counts
+
+
+def rows_library(xs_real, offsets_real, w1, w2, w3):
+    """The three products over the real rows (sorted by expert) as
+    ``torch._grouped_mm`` calls, the yardstick; the port never calls it.
+    None where the installed torch lacks it or refuses these inputs."""
+    import torch
+    import torch.nn.functional as F
+    if not hasattr(torch, "_grouped_mm"):
+        return None
+    ends = offsets_real[1:].contiguous()
+
+    def call():
+        h = F.silu(torch._grouped_mm(xs_real, w1, offs=ends)) * \
+            torch._grouped_mm(xs_real, w3, offs=ends)
+        return torch._grouped_mm(h, w2, offs=ends)
+    try:
+        call()
+        torch.cuda.synchronize()
+        return call
+    except (RuntimeError, TypeError, ValueError) as e:
+        print(f"gmm rows: torch._grouped_mm refused: {e}", flush=True)
+        return None
+
+
+def phase_gmm_rows_kernels():
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
+    torch.backends.cuda.matmul.allow_tf32 = False
+    D, Fw = 4096, 14336
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(12)
+    rng = np.random.default_rng(12)
+    results, failures = [], []
+    w1, w3 = ((torch.randn(2, D, Fw, generator=gen, device=DEVICE) * D ** -0.5)
+              .to(torch.bfloat16) for _ in range(2))
+    w2 = (torch.randn(2, Fw, D, generator=gen, device=DEVICE) * Fw ** -0.5).to(torch.bfloat16)
+    for name, senders, slots, real, E, routing in ROWS_CASES:
+        ids_np, counts = rows_buffer(senders, slots, real, E, routing, rng)
+        ids = torch.from_numpy(ids_np).to(DEVICE)
+        is_real = ids < E
+        x = torch.randn(senders * slots, D, generator=gen, device=DEVICE).to(torch.bfloat16)
+        x = x * is_real[:, None].to(x.dtype)
+        run = lambda mm, i=ids: gg.moe_ffn_gmm_rows(x, i, w1, w2, w3, n_experts=E,
+                                                    dtype=torch.bfloat16, matmul=mm)
+        out = run(gg.grouped_matmul)
+        ref = run(gg.grouped_matmul_reference)
+        bad = ids.clone()
+        first = int(torch.nonzero(is_real)[0])
+        bad[first] = 1 - bad[first]
+        faulty = run(gg.grouped_matmul_reference, bad)
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(out).all())
+        sentinels_zero = int(torch.count_nonzero(out[~is_real])) == 0
+        err = (out.float() - ref.float()).abs().max().item()
+        ratio = flash_ratio(out, ref, "bfloat16") / ROWS_BOUND_SCALE
+        fault_ratio = flash_ratio(faulty, ref, "bfloat16") / ROWS_BOUND_SCALE
+        del out, ref, faulty
+        dy = (torch.randn(x.shape, generator=gen, device=DEVICE)
+              * is_real[:, None]).to(torch.bfloat16)
+        g_kernel = rows_grads(x, ids, w1, w2, w3, dy, E, gg.grouped_matmul)
+        g_plain = rows_grads(x, ids, w1, w2, w3, dy, E, gg.grouped_matmul_reference)
+        grad_err = rows_grad_errors(g_kernel, g_plain, is_real)
+        grads_finite = all(bool(torch.isfinite(g).all()) for g in g_kernel)
+        sentinel_dx_zero = int(torch.count_nonzero(g_kernel[0][~is_real])) == 0
+        del g_kernel
+        g_fault = rows_grads(x, bad, w1, w2, w3, dy, E, gg.grouped_matmul_reference)
+        grad_fault = rows_grad_errors(g_fault, g_plain, is_real)
+        del g_plain, g_fault, dy
+        torch.cuda.empty_cache()
+        order = torch.sort(ids, stable=True).indices[:real]
+        xs_real = x[order].contiguous()
+        sizes = np.bincount(ids_np[ids_np < E], minlength=E)
+        offsets_real = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]),
+                                    dtype=torch.int32, device=DEVICE)
+        lib = rows_library(xs_real, offsets_real, w1, w2, w3)
+        ms = time_ms(lambda: run(gg.grouped_matmul), 5)
+        plain_ms = time_ms(lambda: run(gg.grouped_matmul_reference), 2)
+        library_ms = time_ms(lib, 5) if lib is not None else None
+        del lib, xs_real
+        torch.cuda.empty_cache()
+        # the bound over the real rows: each input read once (the whole
+        # receive buffer and the two experts' weights), the output written
+        # once, and 3 products of 2 D F operations per real row
+        nbytes = 2 * (2 * x.numel() + w1.numel() + w2.numel() + w3.numel()) + ids.numel() * 4
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 3 * 2 * real * D * Fw / PEAK_FLOPS["bfloat16"] * 1e3
+        res = dict(name=name, shape=f"rows={senders}x{slots} real={real} D={D} F={Fw} "
+                   f"E_local={E} bfloat16 {routing}",
+                   real_rows_per_sender=counts.tolist(), expert_rows=sizes.tolist(),
+                   max_abs_err=err, err_ratio=ratio, planted_fault_ratio=fault_ratio,
+                   tolerance=f"{ROWS_BOUND_SCALE} x {FLASH_RTOL['bfloat16']} "
+                             f"(|plain| + rms(plain))",
+                   grad_err=grad_err, grad_planted_fault=grad_fault,
+                   grad_tolerance=f"{ROWS_GRAD_SCALE} x {FLASH_RTOL['bfloat16']} "
+                                  f"(|plain| + rms(plain))",
+                   sentinel_rows_zero=sentinels_zero, sentinel_dx_zero=sentinel_dx_zero,
+                   ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, library="torch._grouped_mm" if library_ms else None,
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        results.append(res)
+        print(f"gmm rows case {json.dumps(res)}", flush=True)
+        if not finite:
+            failures.append(f"{name}: kernel output is not finite")
+        if not sentinels_zero:
+            failures.append(f"{name}: a sentinel row's output is not zero")
+        if not ratio <= 1:
+            failures.append(f"{name}: kernel disagrees with its plain version: "
+                            f"error {ratio:.3g}x the bound")
+        if not fault_ratio > 1:
+            failures.append(f"{name}: the bound does not reject a misrouted row "
+                            f"({fault_ratio:.3g}x the bound)")
+        if not grads_finite:
+            failures.append(f"{name}: a kernel gradient is not finite")
+        if not sentinel_dx_zero:
+            failures.append(f"{name}: a sentinel row's input gradient is not zero")
+        for n, e in grad_err.items():
+            if not e["ratio"] <= 1:
+                failures.append(f"{name}: kernel {n} disagrees with its plain version: "
+                                f"error {e['ratio']:.3g}x the bound")
+        if not max(e["ratio"] for e in grad_fault.values()) > 1:
+            failures.append(f"{name}: the gradient bound does not reject a misrouted "
+                            f"row ({grad_fault})")
+        del x, ids, bad
+        torch.cuda.empty_cache()
+    del w1, w2, w3
+    torch.cuda.empty_cache()
+    if failures:
+        fail("; ".join(failures))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 13: expert-parallel training of Mixtral-8x7B on 4 cards
+# ---------------------------------------------------------------------------
+
+EP_WORLD = 4
+EP_LAYERS = 8                 # of 32: depth cut for memory only (PERF.md 4)
+EP_CONFIG = dict(TRAIN_CONFIG, expert_parallel_size=EP_WORLD,
+                 zero_optimization={"stage": 2})
+# One MOELayer at full width (E 8, top-2, "gmm", capacity factor 2.0) split
+# over the 4 cards against the same layer on one card with all 8 experts on
+# the plain grouped products, on a global batch of 4 x 4 x 2048 tokens: the
+# relative L2 error of the output and of the gradients of x, the router and
+# w1, w2, w3 (output gradient and aux weight shared). The two differ by the
+# kernels' single bf16 roundings, as phase 9's check, and by the order the
+# ranks' gradient contributions are summed in. Bound fixed before the first
+# run; prediction: 0.001-0.004 (phase 9 read 0.0007-0.0018). The control,
+# the split layer with rank 1 holding rank 2's experts, must exceed it in
+# every quantity; prediction: above 0.3.
+EP_LAYER_REL_L2_TOLERANCE = 0.02
+# The same split layer's forward with the int8 wire (a2a_wire_bits 8)
+# against the bf16 wire, relative L2 of the output. Prediction, before the
+# first run: 0.005-0.02 (an int8 step of amax / 127 per 2048 values, twice).
+EP_WIRE_REL_L2_BOUND = 0.05
+EP_LOSS_FALL = 0.05
+
+
+def ep_layer_check(rank, dev, cfg, progress):
+    """Phase 13's MOELayer checks (see EP_LAYER_REL_L2_TOLERANCE and
+    EP_WIRE_REL_L2_BOUND). Returns the stats on rank 0, None elsewhere."""
+    import torch
+    from deepspeed_tpu_torch.comm import comm as dist
+    from deepspeed_tpu_torch.models.mixtral import MixtralExpertMLP
+    from deepspeed_tpu_torch.moe.sharded_moe import MOELayer
+    from deepspeed_tpu_torch.moe.utils import expert_slice
+    from deepspeed_tpu_torch.ops.grouped_gemm import grouped_matmul_reference
+    from deepspeed_tpu_torch.parallel import groups
+    from deepspeed_tpu_torch.parallel.topology import MeshTopology
+    from deepspeed_tpu_torch.runtime.comm import coalesced_collectives as cc
+    groups.initialize(mesh_topology=MeshTopology(ep=EP_WORLD))
+    E, D = cfg.num_local_experts, cfg.hidden_size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    full = {"gate.wg": torch.randn(D, E, generator=gen, device=dev).to(cfg.dtype) * 0.02}
+    for n, shape in MixtralExpertMLP(cfg, "meta").gmm_shapes(D).items():
+        full[f"experts.{n}"] = (torch.randn((E,) + shape, generator=gen, device=dev)
+                                * 0.02).to(cfg.dtype)
+    tokens = (EP_WORLD * TRAIN_MICRO, TRAIN_T, D)
+    x_all = torch.randn(tokens, generator=gen, device=dev).to(cfg.dtype)
+    dout_all = (torch.randn(tokens, generator=gen, device=dev) * 1e-2).to(cfg.dtype)
+    mine = slice(rank * TRAIN_MICRO, (rank + 1) * TRAIN_MICRO)
+    aux_w = cfg.router_aux_loss_coef / cfg.num_hidden_layers
+
+    def make(ep, holder=None, bits=None):
+        layer = MOELayer(lambda: MixtralExpertMLP(cfg, dev), E, k=cfg.num_experts_per_tok,
+                         capacity_factor=cfg.capacity_factor,
+                         eval_capacity_factor=cfg.capacity_factor, dispatch_mode="gmm",
+                         model_dim=D, ep_size=ep, a2a_wire_bits=bits, device=dev,
+                         gate_dtype=cfg.dtype)
+        owner = rank if holder is None else holder
+        layer.load_state_dict({n: expert_slice(v, ep, owner) if n.startswith("experts")
+                               else v for n, v in full.items()})
+        return layer
+
+    def grads(layer, x, out, l_aux, dout, weight):
+        torch.autograd.backward((out, l_aux), (dout, torch.tensor(aux_w * weight,
+                                                                  device=dev)))
+        got = {"out": out.detach(), "dx": x.grad, "wg": layer.gate.wg.grad}
+        got.update({n: getattr(layer.experts, n).grad for n in ("w1", "w2", "w3")})
+        return got
+
+    def split_run(holder=None):
+        layer = make(EP_WORLD, holder)
+        x = x_all[mine].clone().requires_grad_()
+        out, l_aux, counts = layer(x)
+        # the ranks' gradients sum to the global loss's: this rank's share
+        # of the aux term is 1 / W of it (its gradient is W times its share)
+        got = grads(layer, x, out, l_aux, dout_all[mine], 1.0 / EP_WORLD)
+        gathered = {"out": dist.all_gather(got["out"]), "dx": dist.all_gather(got["dx"]),
+                    "wg": dist.all_reduce(got["wg"])}
+        for n in ("w1", "w2", "w3"):
+            gathered[n] = dist.all_gather(got[n])
+        del layer, got
+        return gathered, float(l_aux.detach()), counts
+
+    split, aux_split, counts = split_run()
+    control, _, _ = split_run(holder=2 if rank == 1 else None)
+    progress("ran the split MOELayer and its control")
+    stats = None
+    if rank == 0:
+        groups.reset()            # one card: all 8 experts, no exchange
+        one = make(1)
+        x = x_all.clone().requires_grad_()
+        out, l_aux, _ = one(x, matmul=grouped_matmul_reference)
+        ref = grads(one, x, out, l_aux, dout_all, 1.0)
+        errs = {n: rel_l2(split[n], ref[n]) for n in ref}
+        control_errs = {n: rel_l2(control[n], ref[n]) for n in ref}
+        stats = dict(rel_l2=errs, control_rel_l2=control_errs,
+                     tolerance=EP_LAYER_REL_L2_TOLERANCE,
+                     l_aux=[aux_split, float(l_aux.detach())], exp_counts=counts.tolist())
+        del one, x, out, ref
+    del split, control
+    torch.cuda.empty_cache()
+    groups.initialize(mesh_topology=MeshTopology(ep=EP_WORLD))
+    outs = {}
+    with torch.no_grad():
+        for bits in (None, 8):
+            cc.reset_wire_bytes()
+            outs[bits] = make(EP_WORLD, bits=bits)(x_all[mine])[0]
+            outs[f"wire_{bits}"] = {op: dict(v) for op, v in cc.WIRE_BYTES["ops"].items()}
+    num = torch.stack([(outs[8].float() - outs[None].float()).pow(2).sum(),
+                       outs[None].float().pow(2).sum()])
+    dist.all_reduce(num)
+    wire = dict(rel_l2=float((num[0] / num[1]).sqrt()), bound=EP_WIRE_REL_L2_BOUND,
+                bytes_int8=outs["wire_8"], bytes_bf16=outs["wire_None"])
+    groups.reset()
+    torch.cuda.empty_cache()
+    progress("compared the int8 wire")
+    return stats, wire
+
+
+def ep_rank(rank, world, port, out_dir):
+    """One rank of phase 13 (started by torch.multiprocessing)."""
+    import os
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(REPO))
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import comm as dist
+    from deepspeed_tpu_torch.models.mixtral import MixtralConfig, MixtralForCausalLM
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
+    from deepspeed_tpu_torch.ops import quant_collective as qc
+
+    def progress(what):
+        if rank == 0:
+            print(f"expert parallel: rank 0 {what} at {time.perf_counter() - t0:.1f}s",
+                  flush=True)
+
+    t0 = time.perf_counter()
+    dist.init_distributed(dist_backend="nccl", timeout=300, verbose=False)
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    sync = torch.cuda.synchronize
+    cfg = MixtralConfig.mixtral_8x7b(num_hidden_layers=EP_LAYERS, moe_backend="gmm")
+    qc.block_quantize.launches = qc.block_dequantize_reduce.launches = 0
+    layer_stats, wire = ep_layer_check(rank, dev, cfg, progress)
+    wire_launches = {"block_quantize": qc.block_quantize.launches,
+                     "block_dequantize_reduce": qc.block_dequantize_reduce.launches}
+    model = MixtralForCausalLM.from_seed(cfg, seed=0, device=dev, ep_size=world,
+                                         ep_rank=rank)
+    progress("drew the weights")
+    config = dict(EP_CONFIG, train_batch_size=TRAIN_MICRO * TRAIN_GAS * world,
+                  train_micro_batch_size_per_gpu=TRAIN_MICRO)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config, device=dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    progress("built the engine")
+    rng = np.random.default_rng(0)
+    windows = [rng.integers(0, cfg.vocab_size, (TRAIN_MICRO * world, TRAIN_T))
+               for _ in range(TRAIN_GAS)]
+    mine = [{"input_ids": w[rank * TRAIN_MICRO:(rank + 1) * TRAIN_MICRO],
+             "labels": w[rank * TRAIN_MICRO:(rank + 1) * TRAIN_MICRO]} for w in windows]
+
+    counted = (gg.moe_ffn_gmm_rows, gg.grouped_matmul, gg.grouped_matmul_dx,
+               gg.grouped_matmul_dw)
+    for f in counted:
+        f.launches = 0
+    fa.reset_launch_counts()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        for b in mine:
+            loss = engine(b)
+            engine.backward(loss)
+            engine.step()
+            losses.append(float(loss.detach()))
+        sync()
+        step_s.append(time.perf_counter() - t)
+        progress(f"finished optimizer step {engine.global_steps}")
+    L, micro = EP_LAYERS, TRAIN_GAS * TRAIN_STEPS
+    launches = {"moe_grouped_gemm_rows": gg.moe_ffn_gmm_rows.launches,
+                "moe_grouped_gemm": gg.grouped_matmul.launches,
+                "moe_grouped_gemm_dx": gg.grouped_matmul_dx.launches,
+                "moe_grouped_gemm_dw": gg.grouped_matmul_dw.launches,
+                "flash_mha_fwd": fa.flash_mha_fwd.launches,
+                "flash_mha_bwd_dq": fa.flash_mha_bwd_dq.launches,
+                "flash_mha_bwd_dkv": fa.flash_mha_bwd_dkv.launches}
+    # per micro-step and layer: the 9b wrapper in the forward and the
+    # recompute, 3 grouped products per call, dx and dW once per product
+    expected = {"moe_grouped_gemm_rows": 2 * L * micro, "moe_grouped_gemm": 6 * L * micro,
+                "moe_grouped_gemm_dx": 3 * L * micro, "moe_grouped_gemm_dw": 3 * L * micro,
+                "flash_mha_fwd": 2 * L * micro, "flash_mha_bwd_dq": L * micro,
+                "flash_mha_bwd_dkv": L * micro}
+    steady = float(np.mean(step_s[1:]))
+    tok_s = TRAIN_GAS * TRAIN_MICRO * TRAIN_T * world / steady
+    flops_token = mixtral_flops_per_token(cfg, TRAIN_T)
+    res = dict(rank=rank, world=world, layers=L, params=cfg.num_parameters(),
+               init_s=init_s, losses=losses, optimizer_steps=engine.global_steps,
+               skipped=engine.skipped_steps, grad_norm_last=engine.get_global_grad_norm(),
+               step_wall_s=step_s, steady_step_wall_s=steady, tokens_per_s=tok_s,
+               tokens_per_s_per_card=tok_s / world, model_flops_per_token=flops_token,
+               mfu_vs_989_tflops_per_card=flops_token * tok_s / (989e12 * world),
+               peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               launches=launches, expected_launches=expected, layer_check=layer_stats,
+               wire=wire, wire_launches=wire_launches)
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_expert_parallel():
+    import socket
+    import tempfile
+    import numpy as np
+    import torch.multiprocessing as mp
+    print(f"expert parallel: {EP_WORLD} ranks, Mixtral-8x7B at full width with "
+          f"{EP_LAYERS} layers, ep {EP_WORLD}, gmm, ZeRO-2, bf16, micro-batch "
+          f"{TRAIN_MICRO} x {TRAIN_T} per rank, GAS {TRAIN_GAS}", flush=True)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as out_dir:
+        mp.start_processes(ep_rank, args=(EP_WORLD, port, out_dir), nprocs=EP_WORLD,
+                           join=True, start_method="spawn")
+        ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                 for r in range(EP_WORLD)]
+    r0 = ranks[0]
+    print(f"expert parallel {json.dumps(ranks)}", flush=True)
+    check = r0["layer_check"]
+    if not max(check["rel_l2"].values()) <= EP_LAYER_REL_L2_TOLERANCE:
+        fail(f"expert parallel: the split MOELayer disagrees with one card: "
+             f"{check['rel_l2']}")
+    if not min(check["control_rel_l2"].values()) > EP_LAYER_REL_L2_TOLERANCE:
+        fail(f"expert parallel: the bound does not reject the swapped-slice control: "
+             f"{check['control_rel_l2']}")
+    wire = r0["wire"]
+    if not wire["rel_l2"] <= EP_WIRE_REL_L2_BOUND:
+        fail(f"expert parallel: the int8 wire moves the output by {wire['rel_l2']}")
+    for op in ("a2a_dispatch", "a2a_combine"):
+        q = wire["bytes_int8"][op]
+        if not q["wire"] < q["logical"] / 2:
+            fail(f"expert parallel: {op} int8 wire bytes {q}")
+    first = float(np.mean(r0["losses"][:TRAIN_GAS]))
+    last = float(np.mean(r0["losses"][-TRAIN_GAS:]))
+    for r in ranks:
+        if not all(np.isfinite(r["losses"])):
+            fail(f"expert parallel: rank {r['rank']} losses are not finite: {r['losses']}")
+        if r["losses"] != r0["losses"]:
+            fail(f"expert parallel: ranks report different losses: {r['losses']} vs "
+                 f"{r0['losses']}")
+        if r["launches"] != r["expected_launches"]:
+            fail(f"expert parallel: rank {r['rank']} launches {r['launches']} != "
+                 f"{r['expected_launches']}")
+        if not r["peak_memory_gb"] < 80:
+            fail(f"expert parallel: rank {r['rank']} peak memory {r['peak_memory_gb']} GB")
+    if not last <= first - EP_LOSS_FALL:
+        fail(f"expert parallel: loss did not fall by {EP_LOSS_FALL}: {first} -> {last}")
+    if r0["optimizer_steps"] != TRAIN_STEPS or r0["skipped"]:
+        fail(f"expert parallel: {r0['optimizer_steps']} steps, {r0['skipped']} skipped")
+    return ranks
+
+
+def run_expert_parallel_phase():
+    """Phase 13 on 4 ranks; with fewer cards, one line saying why it did not
+    run."""
+    import torch
+    count = torch.cuda.device_count()
+    if count < EP_WORLD:
+        print(f"phase expert parallel: not run: it needs {EP_WORLD} cards and {count} "
+              f"is visible (Mixtral-8x7B's 8 experts split over ep {EP_WORLD})",
+              flush=True)
+        return None
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = phase_expert_parallel()
+    print(f"phase expert parallel: {time.perf_counter() - t:.1f}s", flush=True)
+    return ranks
+
+
+def quant_kernel_lines(cases, zero_ranks, ep_ranks):
     """The kernels-line entries of the two qgZ kernels: the main case's
-    numbers, every case's, and the launches of phase 11's run (0 where it
-    did not run)."""
+    numbers, every case's, the launches of phase 11's run and those of
+    phase 13's int8-wire check (0 where they did not run)."""
     keys = ("exact", "max_abs_err", "planted_fault_rejected", "ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by")
     main = cases[0]            # gate_proj_chunk: the main path's largest leaf shape
@@ -1911,6 +2433,8 @@ def quant_kernel_lines(cases, zero_ranks):
             name=kn, route="cuda", source="deepspeed_tpu_torch/csrc/quant_collective.cu",
             replaces=f"deepspeed_tpu/ops/pallas/quant_collective.py:{line}",
             launches=zero_ranks[0]["launches"][kn] if zero_ranks else 0,
+            expert_parallel_wire_launches=ep_ranks[0]["wire_launches"][kn]
+            if ep_ranks else 0,
             **{k: main[part][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")},
             case=main["name"],
@@ -1928,6 +2452,7 @@ def main():
     sys.path.insert(0, str(REPO))
     from deepspeed_tpu_torch.ops import cuda_build
 
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     print(f"device: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1975,7 +2500,11 @@ def main():
     t7 = time.perf_counter()
     quant_cases = phase_quant_kernels()
     print(f"phase quant collective kernels: {time.perf_counter() - t7:.1f}s", flush=True)
+    t8 = time.perf_counter()
+    rows_cases = phase_gmm_rows_kernels()
+    print(f"phase grouped gemm rows kernels: {time.perf_counter() - t8:.1f}s", flush=True)
     zero_ranks = run_zero_phase()
+    ep_ranks = run_expert_parallel_phase()
 
     main_case = cases[0]   # decode_7b: the shape of the serving main path
     kernels = [dict(
@@ -2013,12 +2542,15 @@ def main():
     keys = ("max_abs_err", "err_ratio", "planted_fault_ratio", "ms", "plain_ms",
             "library_ms", "library", "bound_ms", "bound_by")
     mixed, decode = by_name["mixed_round_8x7b"], by_name["decode_8x7b"]
+    # phase 13's counts (rank 0), 0 where it did not run
+    ep_launches = ep_ranks[0]["launches"] if ep_ranks else {}
     kernels.append(dict(
         name="moe_grouped_gemm", route="cuda",
         source="deepspeed_tpu_torch/csrc/grouped_gemm.cu",
         replaces="deepspeed_tpu/ops/pallas/grouped_gemm.py:186",
         launches=mixtral_launches["moe_grouped_gemm"],
         training_launches=moe_train_launches["moe_grouped_gemm"],
+        expert_parallel_launches=ep_launches.get("moe_grouped_gemm", 0),
         **{k: mixed[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")},
         case=mixed["name"], decode_8x7b={k: decode[k] for k in keys},
@@ -2033,12 +2565,27 @@ def main():
             replaces=f"jax/experimental/pallas/ops/tpu/megablox/ops.py:{line} "
                      f"(under deepspeed_tpu/moe/sharded_moe.py:435)",
             launches=moe_train_launches[kn],
+            expert_parallel_launches=ep_launches.get(kn, 0),
             **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")},
             case=main_bwd["name"],
             cases=[dict(name=c["name"], **{k: c[kn][k] for k in bwd_keys})
                    for c in gmm_bwd_cases]))
-    kernels += quant_kernel_lines(quant_cases, zero_ranks)
+    kernels += quant_kernel_lines(quant_cases, zero_ranks, ep_ranks)
+    rows_keys = ("max_abs_err", "err_ratio", "planted_fault_ratio", "sentinel_rows_zero",
+                 "ms", "plain_ms", "library_ms", "library", "bound_ms", "bound_by")
+    main_rows = rows_cases[0]     # ep_recv_8x7b: the shape of phase 13's main path
+    kernels.append(dict(
+        name="moe_grouped_gemm_rows", route="cuda",
+        source="deepspeed_tpu_torch/csrc/grouped_gemm.cu",
+        replaces="deepspeed_tpu/ops/pallas/grouped_gemm.py:120",
+        launches=ep_launches.get("moe_grouped_gemm_rows", 0),
+        **{k: main_rows[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+        case=main_rows["name"],
+        cases=[dict(name=c["name"], shape=c["shape"], **{k: c[k] for k in rows_keys})
+               for c in rows_cases]))
+    print(f"total wall time: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,11 @@ when the world is one process: it returns its input, as a one-device axis
 does in the JAX package. Collectives that torch runs in place return the
 tensor they wrote.
 
+``all_to_all`` and ``with_transpose`` are differentiable: the backward of
+an exchange is the exchange that transposes it (the MoE dispatch and
+combine run through them under autograd, as the JAX collectives do under
+``jax.grad``).
+
 ``init_distributed`` discovers the rank and world size from the launcher's
 environment (``discover_process_env``) and calls
 ``torch.distributed.init_process_group``; on CUDA it first binds the process
@@ -25,8 +30,8 @@ from deepspeed_tpu_torch.utils.logging import logger
 
 __all__ = ["ReduceOp", "discover_process_env", "init_distributed", "is_initialized",
            "get_rank", "get_world_size", "get_local_rank", "barrier", "all_reduce",
-           "all_gather", "reduce_scatter", "all_to_all_single", "broadcast",
-           "destroy_process_group"]
+           "all_gather", "reduce_scatter", "all_to_all_single", "all_to_all",
+           "with_transpose", "broadcast", "destroy_process_group"]
 
 DEFAULT_TIMEOUT_S = 1800
 
@@ -185,6 +190,35 @@ def all_to_all_single(tensor, group=None):
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=group)
     return out
+
+
+class _Transposed(torch.autograd.Function):
+    """``fwd(x, group)`` forward, ``bwd(grad, group)`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd, group):
+        ctx.bwd, ctx.group = bwd, group
+        return fwd(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.bwd(grad.contiguous(), ctx.group), None, None, None
+
+
+def with_transpose(x, fwd, bwd, group=None):
+    """``fwd(x, group)``, a collective, through autograd with ``bwd`` (the
+    collective that transposes it) as its backward. A group of one rank
+    returns ``x``."""
+    if _alone(group):
+        return x
+    return _Transposed.apply(x, fwd, bwd, group)
+
+
+def all_to_all(tensor, group=None):
+    """``all_to_all_single`` through autograd: at equal splits the exchange
+    is its own transpose, so its backward is the same exchange of the
+    gradient (reference ``comm/comm.py:350``, ``sharded_moe._AllToAll``)."""
+    return with_transpose(tensor, all_to_all_single, all_to_all_single, group)
 
 
 def broadcast(tensor, src=0, group=None):

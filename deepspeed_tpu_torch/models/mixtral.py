@@ -15,8 +15,12 @@ router weight [D, E], ``block_sparse_moe.experts.{w1, w3}`` [E, D, F] and
 the same parameters under the same names for training and serving.
 Router and experts keep the JAX layout (``x @ w``), so ``params_from_flax``
 carries them across without a transpose; the attention projections are
-``nn.Linear``'s ``[out, in]`` as in the port's Llama. The ZeRO-Infinity
-streaming protocol and ``param_specs`` wait for ROADMAP A14 and A12.
+``nn.Linear``'s ``[out, in]`` as in the port's Llama. With ``ep_size`` > 1
+(expert parallelism) each layer holds rank ``ep_rank``'s contiguous slice
+of the expert stacks, ``[E / ep_size, ...]`` (the JAX ``param_specs``'
+``"ep"`` on the expert axis); ``from_seed`` and ``params_from_flax`` cut
+the same slice from the whole stacks. The ZeRO-Infinity streaming protocol
+and the tensor-parallel specs wait for ROADMAP A14 and A12.
 """
 
 import dataclasses
@@ -30,6 +34,7 @@ from deepspeed_tpu_torch import resolve_device
 from deepspeed_tpu_torch.models.llama import LlamaAttention, LlamaConfig, RMSNorm
 from deepspeed_tpu_torch.models.losses import lm_head_next_token_loss
 from deepspeed_tpu_torch.moe.sharded_moe import MOELayer
+from deepspeed_tpu_torch.moe.utils import expert_slice, moe_param_specs
 from deepspeed_tpu_torch.ops.flash_attention import mha
 from deepspeed_tpu_torch.ops.grouped_gemm import grouped_matmul
 from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
@@ -130,14 +135,15 @@ class MixtralExpertMLP(nn.Module):
 
 class MixtralDecoderLayer(nn.Module):
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, ep_size=1):
         super().__init__()
         self.self_attn = LlamaAttention(cfg.as_llama(), device)
         self.block_sparse_moe = MOELayer(
             lambda: MixtralExpertMLP(cfg, device), cfg.num_local_experts,
             k=cfg.num_experts_per_tok, capacity_factor=cfg.capacity_factor,
             eval_capacity_factor=cfg.capacity_factor, dispatch_mode=cfg.moe_backend,
-            model_dim=cfg.hidden_size, device=device, gate_dtype=cfg.dtype)
+            model_dim=cfg.hidden_size, ep_size=ep_size, device=device,
+            gate_dtype=cfg.dtype)
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
                                                 cfg.rms_norm_eps, device)
@@ -153,15 +159,17 @@ class MixtralDecoderLayer(nn.Module):
 class MixtralForCausalLM(nn.Module):
     """Weights of a Mixtral causal LM. Norm scales are fp32, every other
     weight is ``config.dtype`` (the JAX package casts to that dtype at each
-    use; storing it cast gives the same values)."""
+    use; storing it cast gives the same values). ``ep_size`` > 1 keeps one
+    expert-parallel rank's slice of each expert stack (module docstring)."""
 
-    def __init__(self, config: MixtralConfig, device=None):
+    def __init__(self, config: MixtralConfig, device=None, ep_size=1):
         super().__init__()
         self.config = config
+        self.ep_size = ep_size
         kw = dict(device=device, dtype=config.dtype)
         self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size,
                                          **kw)
-        self.layers = nn.ModuleList(MixtralDecoderLayer(config, device)
+        self.layers = nn.ModuleList(MixtralDecoderLayer(config, device, ep_size)
                                     for _ in range(config.num_hidden_layers))
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device)
         self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
@@ -203,36 +211,46 @@ class MixtralForCausalLM(nn.Module):
 
     @classmethod
     def from_seed(cls, config: MixtralConfig, seed: int, device=None,
-                  std: float = 0.02):
+                  std: float = 0.02, ep_size=1, ep_rank=0):
         """Random weights drawn on ``device`` (default ``"cuda"``, which
         raises without a GPU) from ``torch.Generator(seed)``: N(0, std) for
         every matrix, zeros for biases, ones for norm scales (the flax
-        initializers' shapes; the draws differ from JAX's)."""
+        initializers' shapes; the draws differ from JAX's). With ``ep_size``
+        > 1 each expert stack is drawn whole and rank ``ep_rank``'s slice
+        kept, so every rank's weights are those of the one-rank model."""
         device = resolve_device(device)
         with torch.device("meta"):
-            model = cls(config)
+            model = cls(config, ep_size=ep_size)
         model = model.to_empty(device=device)
         gen = torch.Generator(device=device)
         gen.manual_seed(int(seed))
+        specs = moe_param_specs(model)
         with torch.no_grad():
             for name, p in model.named_parameters():
                 if name.endswith("layernorm.weight") or name == "norm.weight":
                     p.fill_(1.0)
                 elif name.endswith(".bias"):
                     p.zero_()
+                elif ep_size > 1 and specs[name]:
+                    full = torch.empty((ep_size * p.shape[0],) + tuple(p.shape[1:]),
+                                       dtype=p.dtype, device=device)
+                    p.copy_(expert_slice(full.normal_(0.0, std, generator=gen),
+                                         ep_size, ep_rank))
+                    del full
                 else:
                     p.normal_(0.0, std, generator=gen)
         return model.requires_grad_(False)
 
 
-def params_from_flax(tree):
+def params_from_flax(tree, ep_size=1, ep_rank=0):
     """The JAX package's ``MixtralForCausalLM`` param tree (``layers_{i}``
     subtrees), as numpy arrays, -> a state dict for this
     ``MixtralForCausalLM``. Attention kernels ``[in, out]`` are transposed
     into ``nn.Linear``'s ``[out, in]``; the router ``wg`` [D, E] and the
     stacked experts ``MixtralExpertMLP_0/w{1,2,3}/kernel`` [E, in, out] keep
-    their layout. Values are copied as fp32; ``load_state_dict`` casts them
-    to the module's dtype."""
+    their layout, cut to rank ``ep_rank``'s slice ``[E / ep_size, in, out]``
+    for a model built with ``ep_size``. Values are copied as fp32;
+    ``load_state_dict`` casts them to the module's dtype."""
     sd = {"embed_tokens.weight": tree["embed_tokens"],
           "lm_head.weight": tree["lm_head"],
           "norm.weight": tree["norm"]["scale"]}
@@ -250,5 +268,6 @@ def params_from_flax(tree):
         sd[pre + "block_sparse_moe.gate.wg"] = moe["gate"]["wg"]
         experts = moe["experts"]["MixtralExpertMLP_0"]
         for n in ("w1", "w2", "w3"):
-            sd[f"{pre}block_sparse_moe.experts.{n}"] = experts[n]["kernel"]
+            sd[f"{pre}block_sparse_moe.experts.{n}"] = expert_slice(
+                np.asarray(experts[n]["kernel"]), ep_size, ep_rank)
     return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}

@@ -1,8 +1,8 @@
 """Ragged grouped-GEMM MoE expert FFN, forward and backward.
 
 Port of ``deepspeed_tpu/ops/pallas/grouped_gemm.py`` (``topk_router``,
-``moe_ffn_gmm`` / ``_moe_ffn_gmm_local``, whose three megablox ``gmm`` calls
-reach ``pl.pallas_call``) and of megablox's custom-VJP backward of each call
+``moe_ffn_gmm`` / ``_moe_ffn_gmm_local`` and ``moe_ffn_gmm_rows``, whose
+three megablox ``gmm`` calls each reach ``pl.pallas_call``) and of megablox's custom-VJP backward of each call
 (``megablox/ops.py`` ``_gmm_bwd``: ``gmm(..., transpose_rhs=True)`` for dx,
 ``tgmm`` for dW), which the JAX training path runs under ``jax.grad``.
 ``grouped_matmul`` launches the hand-written Hopper kernel
@@ -30,8 +30,10 @@ The JAX wrapper pads the rows to its 128-row tile into the last group; the
 kernels mask their ragged row, K and N edges themselves, so nothing is
 padded. Group sizes and offsets are computed on the device: the kernels
 find each tile's expert from ``group_offsets`` themselves, so neither a
-forward nor a backward costs a host sync. ``moe_ffn_gmm_rows`` (the
-expert-parallel per-row FFN) waits for expert parallelism (ROADMAP B2).
+forward nor a backward costs a host sync. Rows past ``group_offsets[E]``
+belong to no expert: the kernels skip them (their output rows are left
+unwritten), which ``moe_ffn_gmm_rows`` uses for the sentinel rows of the
+expert-parallel receive buffer.
 """
 
 import ctypes
@@ -328,6 +330,40 @@ def moe_scatter(top_idx, n_experts):
     bounds = torch.arange(n_experts + 1, dtype=sorted_e.dtype,
                           device=sorted_e.device)
     return order, torch.searchsorted(sorted_e, bounds, out_int32=True)
+
+
+def moe_ffn_gmm_rows(x_rows, row_experts, w1, w2, w3, *, n_experts, dtype,
+                     matmul=grouped_matmul):
+    """Per-row expert FFN (the JAX ``moe_ffn_gmm_rows``, kernel row 9b): row
+    ``i`` goes through expert ``row_experts[i]`` as ``silu(x@w1) * (x@w3) @
+    w2``, outputs in input row order, with no gate weighting and no k-slot
+    sum (the expert-parallel shard runs it on the rows it received and the
+    senders weight them). x_rows [R, D]; row_experts int [R]; w1/w3 [E, D,
+    F]; w2 [E, F, D] with E = ``n_experts`` -> [R, D] in ``dtype``.
+
+    Rows are sorted stably by expert and each product accumulates in fp32
+    and is cast to ``dtype``, the JAX rounding points. A row whose id is
+    ``n_experts`` or more is a sentinel (the zero padding of the expert-
+    parallel receive buffer): it sorts past the last group's offset, the
+    products skip it on the device without a host sync, and its output and
+    input gradient are 0, what the JAX shard gets from running zero rows
+    through the last expert. On CUDA tensors with the default ``matmul``
+    it launches the grouped kernels and counts one in
+    ``moe_ffn_gmm_rows.launches``."""
+    order, offsets = moe_scatter(row_experts.reshape(-1, 1), n_experts)
+    real = (row_experts < n_experts)[:, None]
+    real_sorted = real[order]
+    xs = torch.where(real_sorted, x_rows[order].to(dtype), 0)
+    h = F.silu(matmul(xs, w1, offsets)) * matmul(xs, w3, offsets)
+    y = matmul(h, w2, offsets)                                # [R, D] sorted
+    out = torch.empty_like(y)
+    out[order] = torch.where(real_sorted, y, 0)
+    if matmul is grouped_matmul and x_rows.device.type == "cuda":
+        moe_ffn_gmm_rows.launches += 1
+    return out
+
+
+moe_ffn_gmm_rows.launches = 0
 
 
 def moe_ffn_gmm(x, top_vals, top_idx, w1, w2, w3, *, n_experts, dtype,

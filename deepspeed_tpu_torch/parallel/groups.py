@@ -10,13 +10,15 @@ _TOPOLOGY = None
 
 
 def initialize(ep_size=1, mesh_topology=None, config=None, devices=None):
-    """Install the global topology (reference ``utils/groups.py:52``)."""
+    """Install the global topology (reference ``utils/groups.py:52``):
+    ``mesh_topology`` as given, else one built from ``config`` (hpZ and
+    MiCS settings included), with an ``ep`` axis of ``ep_size`` when the
+    config names none."""
     global _TOPOLOGY
-    if ep_size > 1:
-        raise NotImplementedError("expert parallelism is not ported to "
-                                  "deepspeed_tpu_torch yet: ROADMAP A9")
-    _TOPOLOGY = mesh_topology if mesh_topology is not None else \
-        build_topology(config=config, devices=devices)
+    if mesh_topology is not None:
+        _TOPOLOGY = mesh_topology
+    else:
+        _TOPOLOGY = build_topology(config=config, devices=devices, ep_size=ep_size)
     return _TOPOLOGY
 
 
@@ -48,8 +50,20 @@ def get_tensor_model_parallel_world_size():
     return get_topology().tp_size
 
 
+def get_expert_parallel_group(group_name=None):
+    """The group of the ranks that split the experts among them (None: the
+    whole world, or no expert parallelism)."""
+    return get_topology().get_group("ep")
+
+
 def get_expert_parallel_world_size(group_name=None):
     return get_topology().ep_size
+
+
+def get_expert_data_parallel_group(group_name=None):
+    """The group of the ranks that hold the same experts: the data axes
+    less ``ep``, over which expert gradients are reduced."""
+    return get_topology().axes_group(get_topology().expert_zero_axes)[0]
 
 
 def get_expert_data_parallel_world_size(group_name=None):

@@ -12,8 +12,12 @@ hierarchically (``zero_hpz_partition_size``): ``dp`` becomes the inner group
 of that size and ``dpr`` the groups across it. The ZeRO world is
 ``(dpr, dp)`` in that order, so rank ``dpr_idx * dp + dp_idx`` holds chunk
 ``dpr_idx * dp + dp_idx`` of a leaf: the "axes-major" order of the JAX
-package's ``batch_spec`` and qgZ chunks. Only ``dp`` and ``dpr`` may exceed
-1 in the port so far; the other axes raise, naming their ROADMAP item.
+package's ``batch_spec`` and qgZ chunks. ``ep`` is the expert-parallel
+axis: rank ``ep_idx`` of an ``ep`` group holds experts ``ep_idx * E/ep``
+to ``(ep_idx + 1) * E/ep - 1``, and an expert leaf's ZeRO state is cut over
+the data axes less ``ep`` (``expert_zero_axes``). Only ``dpr``, ``dp`` and
+``ep`` may exceed 1 in the port so far; the other axes raise, naming their
+ROADMAP item.
 """
 
 import numpy as np
@@ -22,8 +26,9 @@ import torch.distributed
 from deepspeed_tpu_torch.comm import comm as dist
 
 AXIS_ORDER = ("pp", "dpr", "dp", "ep", "sp", "tp")
-_UNPORTED = {"pp": "A12 (pipeline parallelism)", "ep": "A9 (MoE expert parallelism)",
-             "sp": "A12 (sequence parallelism)", "tp": "A12 (tensor parallelism)"}
+DATA_AXES = ("dpr", "dp", "ep", "sp")     # the JAX package's batch_spec order
+_UNPORTED = {"pp": "A12 (pipeline parallelism)", "sp": "A12 (sequence parallelism)",
+             "tp": "A12 (tensor parallelism)"}
 
 
 class MeshTopology:
@@ -77,25 +82,30 @@ class MeshTopology:
             raise ValueError(f"rank {self.rank} is not in the grid's ranks {devices}")
         self.grid_rank = devices.index(self.rank)   # this rank's place in the grid
         self._groups = self._build_groups()
+        self._axes_groups = {}
+
+    def _slice_group(self, axes):
+        """The group of this rank's slice along ``axes`` (live axes, in
+        AXIS_ORDER): one ``new_group`` per slice, created in the same order
+        on every rank (``new_group`` is collective). A slice spanning the
+        whole world is the default group (None). Members are listed
+        axes-major, which is also their global-rank order."""
+        world = dist.get_world_size()
+        dims = [AXIS_ORDER.index(a) for a in axes]
+        size = int(np.prod([self._sizes[a] for a in axes]))
+        moved = np.moveaxis(self.ranks, dims, list(range(-len(dims), 0)))
+        mine = None
+        for ranks in moved.reshape(-1, size).tolist():
+            group = None if len(ranks) == world else \
+                torch.distributed.new_group(ranks=ranks)
+            if self.rank in ranks:
+                mine = group
+        return mine
 
     def _build_groups(self):
-        """One process group per slice of each axis longer than 1, created in
-        the same order on every rank (``new_group`` is collective); the slice
-        that holds this rank is kept. A slice spanning the whole world is the
-        default group (None)."""
-        world = dist.get_world_size()
-        groups = {}
-        for i, axis in enumerate(AXIS_ORDER):
-            size = self._sizes[axis]
-            if size == 1:
-                continue
-            slices = np.moveaxis(self.ranks, i, -1).reshape(-1, size)
-            for ranks in slices.tolist():
-                group = None if len(ranks) == world else \
-                    torch.distributed.new_group(ranks=ranks)
-                if self.rank in ranks:
-                    groups[axis] = group
-        return groups
+        """One process group per slice of each axis longer than 1."""
+        return {axis: self._slice_group((axis,)) for axis in AXIS_ORDER
+                if self._sizes[axis] > 1}
 
     @property
     def axis_names(self):
@@ -116,7 +126,7 @@ class MeshTopology:
     def zero_axes(self):
         """Axes over which ZeRO partitions master/optimizer state and
         gradients; the data-parallel world is their product."""
-        return ("dpr", "dp", "ep", "sp")
+        return DATA_AXES
 
     @property
     def param_zero_axes(self):
@@ -126,22 +136,35 @@ class MeshTopology:
             return ("dp", "ep", "sp")
         return self.zero_axes
 
+    @property
+    def expert_zero_axes(self):
+        """ZeRO axes of an expert leaf, whose dim 0 is already cut over
+        ``ep`` (the JAX partitioner drops the axes a leaf's spec uses):
+        the reference's expert-data-parallel group."""
+        return tuple(a for a in self.zero_axes if a != "ep")
+
+    @property
+    def expert_param_zero_axes(self):
+        return tuple(a for a in self.param_zero_axes if a != "ep")
+
     def axes_group(self, axes):
         """(process group, size, this rank's index) of the ranks that differ
-        only along ``axes`` (those of size > 1), indexed axes-major."""
-        live = tuple(a for a in axes if self._sizes[a] > 1)
-        size = int(np.prod([self._sizes[a] for a in live])) if live else 1
+        only along ``axes`` (those of size > 1), indexed axes-major. The
+        group of a set of more than one live axis is made on first use, so
+        every rank asks for the same sets in the same order."""
+        live = tuple(a for a in AXIS_ORDER if a in axes and self._sizes[a] > 1)
         if not live:
             return None, 1, 0
-        if len(live) == 1:
-            return self.get_group(live[0]), size, self.get_axis_rank(live[0])
-        # more than one live axis: only (dpr, dp) can be, which spans the
-        # world when the other axes are 1
+        size = int(np.prod([self._sizes[a] for a in live]))
         coord = self.get_coord(self.grid_rank)
         index = 0
         for a in live:
             index = index * self._sizes[a] + coord[a]
-        return None, size, index
+        if len(live) == 1:
+            return self.get_group(live[0]), size, index
+        if live not in self._axes_groups:
+            self._axes_groups[live] = self._slice_group(live)
+        return self._axes_groups[live], size, index
 
     @property
     def data_parallel_size(self):
@@ -174,13 +197,17 @@ class MeshTopology:
                 ", ".join(f"{a}={self._sizes[a]}" for a in shown) + ")")
 
 
-def build_topology(config=None, devices=None):
-    """Build a MeshTopology from a DeepSpeedConfig-like object (or defaults)."""
-    pp = ep = sp = tp = 1
+def build_topology(config=None, devices=None, ep_size=1):
+    """Build a MeshTopology from a DeepSpeedConfig-like object (or
+    defaults); ``ep_size`` is the ``ep`` axis where the config names none."""
+    pp = sp = tp = 1
+    ep = ep_size
     zero_shard_size = zero_hierarchy = None
     if config is not None:
         pp = getattr(config, "pipeline_stages", 1) or 1
         ep = getattr(config, "expert_parallel_size", 1) or 1
+        if ep == 1:
+            ep = ep_size
         sp = getattr(config, "sequence_parallel_size", 1) or 1
         tp = getattr(config, "tensor_parallel_size", 1) or 1
         zc = getattr(config, "zero_config", None)

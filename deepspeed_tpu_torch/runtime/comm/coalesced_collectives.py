@@ -11,12 +11,14 @@ name; these take the group of that axis, ``None`` for the whole world):
 - ``exchange_reduce`` (qgZ): row j of ``blocks`` goes to peer j as ints +
   scales over one all-to-all and the received rows are dequantized and
   summed in one kernel pass; ``return_error`` also returns this rank's
-  quantization residual, the error-feedback carry.
+  quantization residual, the error-feedback carry;
+- ``expert_all_to_all``: the MoE dispatch / combine exchange of per-peer
+  blocks, in the payload's dtype or (``bits`` 8 / 4) as ints + scales.
 
 The quantize / dequantize halves are the ``ops/quant_collective`` kernels.
 ``WIRE_BYTES`` counts what each exchange put on the wire beside the fp32
-bytes it stands for, as plain counters: the comms telemetry waits for
-ROADMAP A15. Expert all-to-alls wait for expert parallelism (A9).
+bytes it stands for, in all and per op under ``"ops"``, as plain counters:
+the comms telemetry waits for ROADMAP A15.
 """
 
 import torch
@@ -26,18 +28,23 @@ from deepspeed_tpu_torch.ops.quant_collective import (block_dequantize,
                                                       block_dequantize_reduce,
                                                       block_quantize, wire_nbytes)
 
-# cumulative bytes of this process's quantized exchanges: "logical" is the
-# fp32 payload they stand for, "wire" the packed ints plus fp32 group scales
-WIRE_BYTES = {"logical": 0, "wire": 0}
+# cumulative bytes of this process's recorded exchanges: "logical" is the
+# fp32 payload they stand for, "wire" what crossed (packed ints plus fp32
+# group scales, or the payload in its own dtype); "ops" splits both by op
+WIRE_BYTES = {"logical": 0, "wire": 0, "ops": {}}
 
 
-def _record_wire(logical_numel, wire):
+def _record_wire(logical_numel, wire, op=None):
     WIRE_BYTES["logical"] += int(logical_numel) * 4
     WIRE_BYTES["wire"] += int(wire)
+    if op is not None:
+        per = WIRE_BYTES["ops"].setdefault(op, {"logical": 0, "wire": 0})
+        per["logical"] += int(logical_numel) * 4
+        per["wire"] += int(wire)
 
 
 def reset_wire_bytes():
-    WIRE_BYTES.update(logical=0, wire=0)
+    WIRE_BYTES.update(logical=0, wire=0, ops={})
 
 
 def reduce_scatter_coalesced(tensors, group=None):
@@ -98,5 +105,29 @@ def exchange_reduce(blocks, group, bits, group_size=2048, return_error=False):
 
 
 def expert_all_to_all(x, group=None, bits=None, group_size=2048, op="a2a_dispatch"):
-    raise NotImplementedError("the MoE expert all-to-all is not ported to "
-                              "deepspeed_tpu_torch yet: ROADMAP A9")
+    """MoE expert dispatch / combine all-to-all of per-peer payload blocks
+    (reference :115).
+
+    ``x`` [peers, ...]: block j is this rank's payload for peer j of
+    ``group``; returns [peers, ...] where block j is what peer j sent here.
+    ``bits`` None keeps the payload's dtype on the wire and is
+    differentiable (its backward is the same exchange). ``bits`` 8 / 4 sends
+    each block as ints + fp32 group scales (``block_quantize`` and
+    ``block_dequantize``) and is forward-only, as in the JAX package: round
+    to nearest has no useful gradient, so a payload that needs one raises.
+    ``WIRE_BYTES`` records the exchange under ``op``."""
+    P = x.shape[0]
+    if bits is None:
+        _record_wire(x.numel(), x.numel() * x.element_size(), op)
+        return dist.all_to_all(x, group=group)
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise ValueError(f"expert_all_to_all with bits={bits} is forward-only (round "
+                         f"to nearest has no gradient): train with bits=None")
+    blocks = x.reshape(P, -1)
+    m = blocks.shape[1]
+    q, s = block_quantize(blocks, num_bits=bits, group_size=group_size)
+    _record_wire(x.numel(), P * wire_nbytes(m, bits, group_size), op)
+    qx = dist.all_to_all_single(q, group=group)
+    sx = dist.all_to_all_single(s, group=group)
+    out = block_dequantize(qx, sx, num_bits=bits, group_size=group_size, out_len=m)
+    return out.reshape(x.shape).to(x.dtype)

@@ -462,8 +462,10 @@ class DeepSpeedConfig:
         of the stage-3 working shards); fp32, fp16 or bf16; the adam/adamw
         optimizers, every LR schedule, clipping, gradient accumulation,
         activation checkpointing (``everything`` / ``nothing``) and MoE
-        models at stage 0 (the ``moe`` section with ``ep_size`` 1; the
-        router aux loss is part of the model's loss) are supported."""
+        models at every stage, with expert parallelism (``moe.ep_size`` /
+        ``expert_parallel_size``; the router aux loss is part of the model's
+        loss) are supported. qgZ with an ``ep`` axis > 1 raises the JAX
+        package's ``ValueError`` when the engine builds its plan."""
         z = self.zero_config
         ac = self.activation_checkpointing
         rc = self.resilience_config
@@ -480,9 +482,6 @@ class DeepSpeedConfig:
              "A12 (parallelism breadth)"),
             (self.sequence_parallel_size > 1, "sequence_parallel_size > 1",
              "A12 (parallelism breadth)"),
-            (self.moe.ep_size > 1 or self.expert_parallel_size > 1,
-             "expert parallelism (moe.ep_size / expert_parallel_size > 1)",
-             "A9 (MoE expert parallelism, kernel row 9b)"),
             (self.fused_step, "fused_step",
              "A1 (forward/backward/step run as separate calls)"),
             (self.prefetch_batches > 0, "prefetch_batches",

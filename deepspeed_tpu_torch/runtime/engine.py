@@ -24,7 +24,15 @@ to that working copy. ZeRO cuts the state along each leaf's shard dimension
 - qgZ (``zero_quantized_gradients``, stage >= 2): local gradients are
   accumulated whole and exchanged quantized at the boundary
   (``QgzPlan.reduce``, ``engine.py:1176-1184``), with error feedback whose
-  residual survives an overflow-skipped step (``:1193-1195``).
+  residual survives an overflow-skipped step (``:1193-1195``);
+- expert parallelism (``expert_parallel_size`` or ``moe.ep_size`` > 1):
+  the experts of each ``MOELayer`` built with that ``ep_size`` are this
+  rank's slice of the stack (``moe/utils.moe_param_specs``). Their state is
+  cut over the expert-data-parallel group (the ZeRO axes less ``ep``,
+  ``zero/partition.py``) and their gradients reduced over it only: the
+  dispatch's backward has already summed the ``ep`` peers' contributions.
+  Dense gradients reduce over the whole data-parallel world, both with the
+  same denominators, and the clipping norm counts each distinct shard once.
 
 Every gradient of ``engine.backward`` is folded into its accumulator by a
 ``register_post_accumulate_grad_hook`` as soon as autograd produces it, so
@@ -57,6 +65,7 @@ from torch import nn
 
 from deepspeed_tpu_torch import resolve_device
 from deepspeed_tpu_torch.comm import comm as dist
+from deepspeed_tpu_torch.moe.utils import moe_param_specs
 from deepspeed_tpu_torch.ops.adam import build_optimizer, set_lr
 from deepspeed_tpu_torch.parallel import groups
 from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
@@ -86,14 +95,15 @@ class _Leaf:
     """One parameter's state on this rank. ``master``, the optimizer's
     moments and a sharded ``acc`` are flat chunks in the partitioner's
     layout (``shard_of``) or whole tensors; ``shard`` is the stage-3
-    working chunk."""
+    working chunk; ``place`` the groups they are cut over
+    (``partition.Placement``)."""
 
     def __init__(self, name, param):
         self.name = name
         self.param = param
         self.shape = tuple(param.shape)
         self.master_dim = self.grad_dim = self.param_dim = None
-        self.master = self.acc = self.shard = None
+        self.master = self.acc = self.shard = self.place = None
 
 
 class _ReportedLoss(torch.autograd.Function):
@@ -117,11 +127,6 @@ def _call(engine_ref, method, *args):
         getattr(engine, method)(*args)
 
 
-def _uses_moe(module):
-    from deepspeed_tpu_torch.moe.sharded_moe import MOELayer
-    return any(isinstance(m, MOELayer) for m in module.modules())
-
-
 class DeepSpeedEngine:
 
     def __init__(self, config=None, model=None, optimizer=None,
@@ -142,9 +147,6 @@ class DeepSpeedEngine:
         self.dp_world = self.partitioner.zero_world
         self.dp_rank = self.partitioner.zero_index
         stage = self.zero_optimization_stage()
-        if stage > 0 and _uses_moe(model):
-            raise NotImplementedError("training a MoE model under ZeRO stage > 0 is not "
-                                      "ported yet: ROADMAP A9 (expert parallelism)")
 
         tb, mb, gas = self.config.resolve_batch_params(self.topology.data_parallel_size)
         self.train_batch_size_value = tb
@@ -237,8 +239,8 @@ class DeepSpeedEngine:
             raise ValueError(f"model_parameters names no parameter of the model: "
                              f"{sorted(unknown)[:5]}")
         part = self.partitioner
-        W, idx = part.zero_world, part.zero_index
         qgz = self._qgz is not None
+        specs = moe_param_specs(self.module, self.topology.ep_size)
         self._leaves = []
         with torch.no_grad():
             for n, p in named:
@@ -247,15 +249,17 @@ class DeepSpeedEngine:
                 if tuple(full.shape) != tuple(p.shape):
                     raise ValueError(f"{n}: model_parameters shape {tuple(full.shape)} != "
                                      f"{tuple(p.shape)}")
-                dist.broadcast(full, src=0, group=None)
                 leaf = _Leaf(n, p)
-                leaf.master_dim = part.master_dim(leaf.shape)
-                leaf.grad_dim = part.grad_dim(leaf.shape)
-                leaf.param_dim = part.param_dim(leaf.shape)
+                leaf.place = place = part.placement(specs[n])
+                self._broadcast_initial(full, place)
+                W = place.world
+                leaf.master_dim = part.master_dim(leaf.shape, place)
+                leaf.grad_dim = part.grad_dim(leaf.shape, place)
+                leaf.param_dim = part.param_dim(leaf.shape, place)
                 p.data = full.to(self.working_dtype, copy=True)
                 p.requires_grad_(True)
                 if leaf.master_dim is not None:
-                    leaf.master = shard_of(full, leaf.master_dim, W, idx).clone()
+                    leaf.master = shard_of(full, leaf.master_dim, W, place.index).clone()
                 elif self.mixed_precision or part.stage >= 1:
                     leaf.master = full
                 else:
@@ -277,15 +281,27 @@ class DeepSpeedEngine:
                                           device=self.device) for leaf in self._leaves]
         part.describe([leaf.shape for leaf in self._leaves])
 
+    @staticmethod
+    def _broadcast_initial(full, place):
+        """Make a leaf's initial value equal on the ranks that hold it: rank
+        0's over the world for a dense leaf (reference ``_broadcast_model``),
+        the first rank's of its expert-data group for an expert slice."""
+        if not place.expert:
+            dist.broadcast(full, src=0, group=None)
+        elif place.world > 1:
+            src = 0 if place.group is None else \
+                torch.distributed.get_process_group_ranks(place.group)[0]
+            dist.broadcast(full, src=src, group=place.group)
+
     def _working_shard(self, leaf, full):
         """The stage-3 working chunk of ``full`` (a whole fp32 value). It is
         the master chunk itself where both have the same cut and dtype."""
-        part = self.partitioner
-        if (leaf.param_dim == leaf.master_dim and part.param_world == part.zero_world
+        place = leaf.place
+        if (leaf.param_dim == leaf.master_dim and place.param_world == place.world
                 and not self.mixed_precision):
             return leaf.master
-        return shard_of(full, leaf.param_dim, part.param_world,
-                        part.param_index).to(self.working_dtype, copy=True)
+        return shard_of(full, leaf.param_dim, place.param_world,
+                        place.param_index).to(self.working_dtype, copy=True)
 
     # ------------------------------------------------------------------
     # hooks: gradients folded in as produced; stage-3 gather and release
@@ -325,13 +341,12 @@ class DeepSpeedEngine:
                 lambda m, a, out, _u=u: _call(me, "_release_after_forward", _u))
 
     def _gather(self, u):
-        part = self.partitioner
         with torch.no_grad():
             for leaf in self._units[u][1]:
                 if is_resident(leaf.param.data):
                     continue
                 alloc_storage(leaf.param.data)
-                gather_full(leaf.shard, leaf.param_dim, leaf.shape, part.param_group,
+                gather_full(leaf.shard, leaf.param_dim, leaf.shape, leaf.place.param_group,
                             out=leaf.param.data)
 
     def _release_after_forward(self, u):
@@ -362,9 +377,9 @@ class DeepSpeedEngine:
         if leaf.acc.shape == g.shape:
             leaf.acc.add_(g)
             return
-        W = self.dp_world
+        W = leaf.place.world
         moved = g.movedim(leaf.grad_dim, 0).reshape(W, -1).to(self.grad_accum_dtype)
-        leaf.acc.add_(dist.reduce_scatter(moved.reshape(-1), group=self.zero_group))
+        leaf.acc.add_(dist.reduce_scatter(moved.reshape(-1), group=leaf.place.group))
 
     # ------------------------------------------------------------------
     # training API
@@ -459,11 +474,12 @@ class DeepSpeedEngine:
                                     return_residual=True)
         grads = []
         for leaf in leaves:
-            g = leaf.acc
+            g, place = leaf.acc, leaf.place
             if leaf.grad_dim is None:         # whole: all-reduced once per step
-                g = dist.all_reduce(g, group=self.zero_group)
+                if place.world > 1:
+                    g = dist.all_reduce(g, group=place.group)
                 if leaf.master_dim is not None:
-                    g = shard_of(g, leaf.master_dim, self.dp_world, self.dp_rank)
+                    g = shard_of(g, leaf.master_dim, place.world, place.index)
             grads.append(g)
         return grads, None
 
@@ -497,8 +513,14 @@ class DeepSpeedEngine:
                 # an overflow-skipped step keeps the previous carry
                 self._residual = new_res
             clip = self.config.gradient_clipping
-            sharded = [leaf.master_dim is not None for leaf in self._leaves]
-            norm = global_norm(grads, group=self.zero_group, sharded=sharded)
+            # an expert slice is distinct across ep ranks: spread over the
+            # world, held by the ranks of its expert-data group when whole
+            sharded = [leaf.master_dim is not None or leaf.place.expert
+                       for leaf in self._leaves]
+            replicas = [leaf.place.world if leaf.master_dim is None else 1
+                        for leaf in self._leaves]
+            norm = global_norm(grads, group=self.zero_group, sharded=sharded,
+                               replicas=replicas)
             if clip and clip > 0:
                 clip_grads_by_global_norm(grads, clip, norm=norm)
             set_lr(self.optimizer, lr)
@@ -522,9 +544,8 @@ class DeepSpeedEngine:
         this rank holds what it needs, else all-gathered over the ZeRO
         world (stage 1/2 parameters, and stage-3 chunks cut otherwise than
         their masters)."""
-        part = self.partitioner
         for leaf in self._leaves:
-            p, m = leaf.param, leaf.master
+            p, m, place = leaf.param, leaf.master, leaf.place
             if m is p or m is leaf.shard:
                 continue
             if leaf.param_dim is None:
@@ -532,14 +553,14 @@ class DeepSpeedEngine:
                     p.data.copy_(m)
                 else:
                     gather_full(m.to(self.working_dtype), leaf.master_dim, leaf.shape,
-                                self.zero_group, out=p.data)
-            elif leaf.master_dim == leaf.param_dim and part.param_world == part.zero_world:
+                                place.group, out=p.data)
+            elif leaf.master_dim == leaf.param_dim and place.param_world == place.world:
                 leaf.shard.copy_(m)
             else:
                 full = m if leaf.master_dim is None else gather_full(
-                    m.to(self.working_dtype), leaf.master_dim, leaf.shape, self.zero_group)
-                leaf.shard.copy_(shard_of(full, leaf.param_dim, part.param_world,
-                                          part.param_index))
+                    m.to(self.working_dtype), leaf.master_dim, leaf.shape, place.group)
+                leaf.shard.copy_(shard_of(full, leaf.param_dim, place.param_world,
+                                          place.param_index))
 
     def train_batch(self, data_iter=None):
         """One full accumulation window: ``gradient_accumulation_steps``
@@ -614,11 +635,14 @@ class DeepSpeedEngine:
 
     def get_model_parameters(self):
         """The fp32 master parameters as a state dict of whole tensors on
-        the CPU; sharded ones are all-gathered, so every rank calls it."""
+        the CPU; sharded ones are all-gathered, and expert slices gathered
+        over ``ep`` into the whole stack, so every rank calls it."""
         out = {}
         for leaf in self._leaves:
             m = leaf.master.detach().float()
             if leaf.master_dim is not None:
-                m = gather_full(m, leaf.master_dim, leaf.shape, self.zero_group)
+                m = gather_full(m, leaf.master_dim, leaf.shape, leaf.place.group)
+            if leaf.place.expert:
+                m = dist.all_gather(m.reshape(leaf.shape), group=self.topology.get_group("ep"))
             out[leaf.name] = m.cpu().clone()
         return out

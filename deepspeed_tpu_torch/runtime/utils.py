@@ -20,18 +20,24 @@ def _sum_squares(tensors, device):
     return torch.stack([t.float().pow(2).sum() for t in tensors]).sum()
 
 
-def global_norm(tensors, group=None, sharded=None):
+def global_norm(tensors, group=None, sharded=None, replicas=None):
     """L2 norm over every element of every tensor, in fp32. ``sharded[i]``
-    marks ``tensors[i]`` as this rank's shard of a tensor spread over
-    ``group``, whose squares are summed over the group; the others are
-    whole on every rank and counted once."""
+    marks ``tensors[i]`` as this rank's piece of a tensor spread over
+    ``group``, whose squares are summed over the group, divided by
+    ``replicas[i]`` (default 1) when that many ranks of the group hold each
+    piece; the others are whole on every rank and counted once."""
     tensors = list(tensors)
     if not tensors:
         return torch.zeros(())
     if sharded is None or dist.get_world_size(group) == 1:
         return torch.sqrt(_sum_squares(tensors, tensors[0].device))
     device = tensors[0].device
-    parts = _sum_squares([t for t, s in zip(tensors, sharded) if s], device)
+    replicas = replicas or [1] * len(tensors)
+    shared = [(t, r) for t, s, r in zip(tensors, sharded, replicas) if s]
+    parts = _sum_squares([t for t, r in shared if r == 1], device)
+    for t, r in shared:
+        if r > 1:
+            parts = parts + _sum_squares([t], device) / r
     whole = _sum_squares([t for t, s in zip(tensors, sharded) if not s], device)
     return torch.sqrt(dist.all_reduce(parts, group=group) + whole)
 

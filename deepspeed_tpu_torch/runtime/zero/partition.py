@@ -19,11 +19,20 @@ only: smaller leaves stay whole ("persisted"); the optimizer state of every
 leaf is sharded. Under hpZ (``zero_hpz_partition_size``) the working
 shards span the inner ``dp`` group only.
 
+Under expert parallelism (an ``ep`` axis > 1) an expert leaf on a rank is
+its slice of the expert stack, already cut on dim 0 over ``ep``
+(``moe/utils.moe_param_specs``): as in ``_leaf_spec_with_zero``, whose
+axes exclude those the leaf's spec uses, its state is cut over the ZeRO
+axes less ``ep`` (the expert-data-parallel group) along its largest other
+dimension.
+
 A shard is stored flat, in the element order of ``full.movedim(dim, 0)``:
 for dim 0 (most Llama leaves) it is a contiguous view of the full tensor's
 rows, and gathering the shards of a group with one all-gather lays out
 the moved full tensor, which ``movedim(0, dim)`` puts back.
 """
+
+from typing import Any, NamedTuple
 
 import numpy as np
 
@@ -31,15 +40,16 @@ from deepspeed_tpu_torch.comm import comm as dist
 from deepspeed_tpu_torch.utils.logging import logger
 
 
-def zero_shard_dim(shape, world, threshold=0):
+def zero_shard_dim(shape, world, threshold=0, used=()):
     """The dimension a leaf of ``shape`` is cut along over ``world`` ranks,
-    or None when it stays whole."""
+    or None when it stays whole. Dimensions in ``used`` are already cut by
+    the model's own layout and are not chosen."""
     shape = tuple(int(n) for n in shape)
     if world <= 1 or not shape or int(np.prod(shape)) < max(threshold, 1):
         return None
     best, best_size = None, 0
     for d, n in enumerate(shape):
-        if n % world == 0 and n > best_size:
+        if d not in used and n % world == 0 and n > best_size:
             best, best_size = d, n
     return best
 
@@ -70,6 +80,25 @@ def gather_full(shard, dim, shape, group, out=None):
     return out
 
 
+class Placement(NamedTuple):
+    """The groups a leaf's state is cut over: (group, world, this rank's
+    index) for the master, moments and gradients, and for the stage-3
+    working shards. ``used``: the dimensions the leaf's model-parallel spec
+    already cuts over ``ep`` (an expert slice), which ZeRO does not cut."""
+    group: Any
+    world: int
+    index: int
+    param_group: Any
+    param_world: int
+    param_index: int
+    used: tuple = ()
+
+    @property
+    def expert(self):
+        """Whether the leaf is this rank's slice of an expert stack."""
+        return bool(self.used)
+
+
 class ZeroPartitioner:
     """Which dimension each leaf is cut along, per state component, and the
     groups the cuts span."""
@@ -84,22 +113,44 @@ class ZeroPartitioner:
             topology.axes_group(topology.zero_axes)
         self.param_group, self.param_world, self.param_index = \
             topology.axes_group(topology.param_zero_axes)
+        self.dense = Placement(self.zero_group, self.zero_world, self.zero_index,
+                               self.param_group, self.param_world, self.param_index)
+        if topology.ep_size > 1:
+            self._expert = Placement(*topology.axes_group(topology.expert_zero_axes),
+                                     *topology.axes_group(topology.expert_param_zero_axes))
 
-    def master_dim(self, shape):
+    def placement(self, spec):
+        """The placement of a leaf whose model-parallel spec is ``spec``
+        (``moe/utils.moe_param_specs``: ``("ep",)`` for an expert leaf, None
+        for a dense one). Under an ``ep`` axis > 1 an expert leaf's state
+        spans the ZeRO axes less ``ep``, on a dimension its spec leaves
+        whole; otherwise every leaf is dense."""
+        used = tuple(d for d, axis in enumerate(spec or ()) if axis == "ep")
+        if not used or self.topology.ep_size == 1:
+            return self.dense
+        return self._expert._replace(used=used)
+
+    def master_dim(self, shape, place=None):
         """fp32 master + optimizer moments: sharded from stage 1 up, with no
         threshold."""
-        return zero_shard_dim(shape, self.zero_world) if self.stage >= 1 else None
+        place = place or self.dense
+        return zero_shard_dim(shape, place.world, used=place.used) \
+            if self.stage >= 1 else None
 
-    def grad_dim(self, shape):
+    def grad_dim(self, shape, place=None):
         """Gradient accumulator: sharded from stage 2 up."""
-        return zero_shard_dim(shape, self.zero_world) if self.stage >= 2 else None
+        place = place or self.dense
+        return zero_shard_dim(shape, place.world, used=place.used) \
+            if self.stage >= 2 else None
 
-    def param_dim(self, shape):
+    def param_dim(self, shape, place=None):
         """Working parameters: sharded at stage 3, leaves under the
         persistence threshold whole."""
+        place = place or self.dense
         if self.stage < 3:
             return None
-        return zero_shard_dim(shape, self.param_world, self.threshold)
+        return zero_shard_dim(shape, place.param_world, self.threshold,
+                              used=place.used)
 
     def describe(self, shapes):
         n = sum(self.master_dim(s) is not None for s in shapes)

@@ -1,7 +1,7 @@
 """Where one training step spends its time.
 
     python -m deepspeed_tpu_torch.tools.profile_train [--model llama]
-        [--layers N] [--micro 4] [--seq 2048] [--seed 0]
+        [--layers N] [--micro 4] [--seq 2048] [--seed 0] [--ep 1]
 
 Builds the model at full width with ``--layers`` of its 32 layers (bf16
 weights drawn on the card from ``--seed``): the Llama-2-7B geometry
@@ -18,6 +18,14 @@ routing/sort/scatter, optimizer, the rest; the optimizer step's annotated
 span apart), the device's idle share, and the fused CE head's forward and
 backward alone (CUDA events; its products are among the GEMMs). Needs a
 CUDA device.
+
+``--ep N`` (Mixtral) profiles expert-parallel training instead: one spawned
+process per card on N cards over NCCL, the experts split over ``ep`` N and
+``zero_optimization`` stage 2, each rank a micro-batch of ``--micro`` x
+``--seq`` tokens, as ``chip_smoke.py`` phase 13 trains it (8 layers by
+default). Every rank traces its step; rank 0 prints its own line, with the
+NCCL kernels (the dispatch and combine all-to-alls, the gradient and loss
+reductions) as a group of their own.
 """
 
 import argparse
@@ -46,6 +54,8 @@ CONFIG = {
 
 def _group(name):
     n = name.lower()
+    if "nccl" in n:
+        return "nccl_collectives"
     for kernel, group in (("flash_fwd_kernel", "flash_fwd"), ("flash_dq_kernel", "flash_dq"),
                           ("flash_dkv_kernel", "flash_dkv"),
                           ("grouped_tgmm", "grouped_gemm_dw")):
@@ -80,8 +90,35 @@ def main(argv=None):
     ap.add_argument("--micro", type=int, default=4)
     ap.add_argument("--seq", type=int, default=2048)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ep", type=int, default=1,
+                    help="expert-parallel cards (Mixtral; one process per card)")
     args = ap.parse_args(argv)
+    if args.ep == 1:
+        _profile(args)
+        return
+    if args.model != "mixtral":
+        ap.error("--ep needs --model mixtral")
+    import socket
+    import torch.multiprocessing as mp
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    mp.start_processes(_rank, args=(args, port), nprocs=args.ep, join=True,
+                       start_method="spawn")
 
+
+def _rank(rank, args, port):
+    import os
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(args.ep), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    from deepspeed_tpu_torch.comm import comm as dist
+    dist.init_distributed(dist_backend="nccl", timeout=300, verbose=False)
+    _profile(args, rank)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _profile(args, rank=0):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -91,21 +128,30 @@ def main(argv=None):
     from deepspeed_tpu_torch.models.losses import lm_head_next_token_loss
     from deepspeed_tpu_torch.models.mixtral import MixtralConfig, MixtralForCausalLM
 
+    world = args.ep
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    config = dict(CONFIG, train_batch_size=args.micro * CONFIG["gradient_accumulation_steps"]
+                  * world)
     if args.model == "mixtral":
-        args.layers = args.layers or 2
+        args.layers = args.layers or (2 if world == 1 else 8)
         cfg = MixtralConfig.mixtral_8x7b(num_hidden_layers=args.layers, moe_backend="gmm")
-        model = MixtralForCausalLM.from_seed(cfg, seed=args.seed)
+        model = MixtralForCausalLM.from_seed(cfg, seed=args.seed, device=dev,
+                                             ep_size=world, ep_rank=rank)
+        if world > 1:
+            config.update(train_micro_batch_size_per_gpu=args.micro,
+                          expert_parallel_size=world, zero_optimization={"stage": 2})
     else:
         args.layers = args.layers or 8
         cfg = LlamaConfig.llama2_7b(num_hidden_layers=args.layers)
-        model = LlamaForCausalLM.from_seed(cfg, seed=args.seed)
-    config = dict(CONFIG, train_batch_size=args.micro * CONFIG["gradient_accumulation_steps"])
-    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config)
+        model = LlamaForCausalLM.from_seed(cfg, seed=args.seed, device=dev)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config, device=dev)
     rng = np.random.default_rng(args.seed)
     batches = []
     for _ in range(config["gradient_accumulation_steps"]):
-        ids = rng.integers(0, cfg.vocab_size, (args.micro, args.seq))
-        batches.append({"input_ids": ids, "labels": ids})
+        ids = rng.integers(0, cfg.vocab_size, (args.micro * world, args.seq))
+        mine = ids[rank * args.micro:(rank + 1) * args.micro]
+        batches.append({"input_ids": mine, "labels": mine})
 
     _step(engine, batches)                      # warm-up step
     torch.cuda.synchronize()
@@ -121,11 +167,11 @@ def main(argv=None):
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: the host ops that launched them carry the
     # same time and would count it twice. Annotations (the optimizer's
-    # "Optimizer.step#..." range) span kernels counted on their own: kept
-    # apart as spans.
+    # "Optimizer.step#..." range, the process groups' "nccl:<op>" ranges)
+    # span kernels counted on their own: kept apart as spans.
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     spans = {e.key: e.device_time_total / 1e3 for e in device
-             if re.fullmatch(r"[\w.]+#[\w.]+", e.key)}
+             if re.fullmatch(r"[\w.]+#[\w.]+", e.key) or e.key.startswith("nccl:")}
     per_kernel, groups, counts = {}, {}, {}
     for e in device:
         if e.key in spans:
@@ -136,11 +182,13 @@ def main(argv=None):
         groups[g] = groups.get(g, 0.0) + ms
         counts[g] = counts.get(g, 0) + e.count
     busy_ms = sum(per_kernel.values())
+    if rank:
+        return
 
     # the fused CE head alone on the step's shapes
-    x = torch.randn(args.micro, args.seq, cfg.hidden_size, device="cuda",
+    x = torch.randn(args.micro, args.seq, cfg.hidden_size, device=dev,
                     dtype=torch.bfloat16, requires_grad=True)
-    labels = torch.from_numpy(batches[0]["labels"]).cuda()
+    labels = torch.from_numpy(batches[0]["labels"]).to(dev)
     head = model.lm_head.weight
 
     def ce():
@@ -162,8 +210,8 @@ def main(argv=None):
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True).stdout.strip().splitlines()[0],
         "model": args.model, "layers": args.layers, "params": cfg.num_parameters(),
-        "micro_batch": [args.micro, args.seq],
-        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "expert_parallel": world, "micro_batch": [args.micro, args.seq],
+        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
         "gas": config["gradient_accumulation_steps"],
         "step_wall_ms_unprofiled": step_ms,
         "step_wall_ms_profiled": wall_ms,

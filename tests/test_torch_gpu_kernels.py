@@ -574,6 +574,130 @@ def test_mixtral_training_on_cuda_runs_the_kernels(cuda):
 
 
 # ---------------------------------------------------------------------------
+# moe_ffn_gmm_rows (kernel row 9b): the expert-parallel receiving shard's FFN
+# ---------------------------------------------------------------------------
+#
+# Three grouped products with the gated activation between them, on the
+# forward kernel (and, under autograd, the dx and dW kernels), against the
+# same function on the plain grouped products. Tolerance: the output, the
+# flash form scaled by 2 in bf16 (one rounding of the output plus the rare
+# one-ulp flips of the two bf16 intermediates it sums; fp32: the flash form,
+# no rounding of the intermediates). The gradients (of x over its real
+# rows, and of w1, w2, w3) by the flash form scaled by ROWS_GRAD_SCALE: in
+# bf16 they pass through the gated activation's backward several roundings
+# deep, and the scale is chip_smoke.py's, set from its sound readings at
+# full width on the H100 (PERF.md); fp32 by the flash form. A misrouted row
+# must exceed the gradient bound (test_gmm_rows_bound_rejects_a_misrouted_row).
+# Rows tagged E (the receive buffer's zero padding) must come back exactly
+# 0, with a zero input gradient.
+
+ROWS_SCALE = {torch.bfloat16: 2.0, torch.float32: 1.0}
+ROWS_GRAD_SCALE = {torch.bfloat16: 8.0, torch.float32: 1.0}
+ROWS_CASES = {
+    # name: D, F, E, per-sender real row counts, send slots per sender, routing
+    "small_sentinels": (128, 256, 2, [30, 0, 17, 45], 64, "random"),
+    "small_one_empty": (128, 256, 2, [10, 20, 5, 1], 32, "one_expert"),
+    "full_width_ep4": (4096, 14336, 2, [4100, 4020, 4160, 4104], 16384, "random"),
+}
+
+
+def rows_case(dev, name, dtype, seed=0):
+    """x_rows [senders * slots, D] with each sender's real rows first and
+    zero sentinel rows (id E) after them, ids, and the weights."""
+    D, F, E, counts, slots, routing = ROWS_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.zeros(len(counts) * slots, D, device=dev)
+    ids = torch.full((len(counts) * slots,), E, dtype=torch.int32, device=dev)
+    for b, n in enumerate(counts):
+        x[b * slots:b * slots + n] = torch.randn(n, D, generator=g, device=dev)
+        ids[b * slots:b * slots + n] = 0 if routing == "one_expert" else torch.randint(
+            0, E, (n,), generator=g, device=dev, dtype=torch.int32)
+    w1, w3 = ((torch.randn(E, D, F, generator=g, device=dev) * D ** -0.5).to(dtype)
+              for _ in range(2))
+    w2 = (torch.randn(E, F, D, generator=g, device=dev) * F ** -0.5).to(dtype)
+    return x.to(dtype), ids, w1, w2, w3
+
+
+def rows_ratio(out, ref):
+    return flash_ratio(out, ref) / ROWS_SCALE[ref.dtype]
+
+
+def rows_grads(x, ids, w1, w2, w3, dy, matmul):
+    """(output, gradients of x, w1, w2, w3) of moe_ffn_gmm_rows under dy."""
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
+    leaves = [t.clone().requires_grad_() for t in (x, w1, w2, w3)]
+    out = gg.moe_ffn_gmm_rows(leaves[0], ids, *leaves[1:], n_experts=w1.shape[0],
+                              dtype=x.dtype, matmul=matmul)
+    out.backward(dy)
+    return out.detach(), [t.grad for t in leaves]
+
+
+def rows_grad_ratios(grads, ref_grads, ids):
+    """The flash-form ratio of each gradient in units of ROWS_GRAD_SCALE,
+    the input gradient over its real rows."""
+    real = ids < ref_grads[1].shape[0]
+    scale = ROWS_GRAD_SCALE[ref_grads[0].dtype]
+    return [flash_ratio(g[real] if i == 0 else g, r[real] if i == 0 else r) / scale
+            for i, (g, r) in enumerate(zip(grads, ref_grads))]
+
+
+def rows_dy(dev, x, ids, E):
+    g = torch.Generator(device=dev).manual_seed(9)
+    return torch.randn(x.shape, generator=g, device=dev).to(x.dtype) * (ids < E)[:, None]
+
+
+def test_gmm_rows_bound_rejects_a_misrouted_row():
+    """The plain version with one real row sent to the other expert fails
+    the output bound and the gradient bound; the plain version against
+    itself moved by one ulp passes the output bound."""
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
+    x, ids, w1, w2, w3 = rows_case(torch.device("cpu"), "small_sentinels", torch.bfloat16)
+    dy = rows_dy(torch.device("cpu"), x, ids, 2)
+    ref, ref_grads = rows_grads(x, ids, w1, w2, w3, dy, gg.grouped_matmul_reference)
+    r = ref.float()
+    ulp = torch.finfo(ref.dtype).eps * torch.exp2(torch.floor(torch.log2(r.abs())))
+    assert rows_ratio(torch.where(r != 0, r + ulp, r).to(ref.dtype), ref) <= 1
+    bad = ids.clone()
+    bad[0] = 1 - bad[0]
+    wrong, wrong_grads = rows_grads(x, bad, w1, w2, w3, dy, gg.grouped_matmul_reference)
+    assert rows_ratio(wrong, ref) > 10
+    assert max(rows_grad_ratios(wrong_grads, ref_grads, ids)) > 10
+    assert not ref[ids == 2].any()
+
+
+@gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", list(ROWS_CASES))
+def test_gmm_rows_kernels_match_plain(cuda, name, dtype):
+    """Forward and, under autograd, the gradients of x and the three
+    weights: kernels against the plain grouped products; 3 forward launches
+    and one count of the 9b wrapper, 3 dx and 3 dW launches."""
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
+    if name == "full_width_ep4" and dtype == torch.float32:
+        pytest.skip("full width runs in bf16, the training dtype")
+    x, ids, w1, w2, w3 = rows_case(cuda, name, dtype)
+    E = w1.shape[0]
+    dy = rows_dy(cuda, x, ids, E)
+    results = []
+    for matmul in (gg.grouped_matmul, gg.grouped_matmul_reference):
+        counted = (gg.moe_ffn_gmm_rows, gg.grouped_matmul, gg.grouped_matmul_dx,
+                   gg.grouped_matmul_dw)
+        counts = [f.launches for f in counted]
+        out, grads = rows_grads(x, ids, w1, w2, w3, dy, matmul)
+        counts = [f.launches - c for f, c in zip(counted, counts)]
+        results.append((out, grads, counts))
+    (out, grads, counts), (ref, ref_grads, plain_counts) = results
+    torch.cuda.synchronize()
+    assert counts == [1, 3, 3, 3] and plain_counts == [0, 0, 0, 0]
+    assert torch.isfinite(out).all() and not out[ids == E].any()
+    assert rows_ratio(out, ref) <= 1
+    assert not grads[0][ids == E].any()
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    ratios = rows_grad_ratios(grads, ref_grads, ids)
+    assert max(ratios) <= 1, dict(zip(("dx", "dw1", "dw2", "dw3"), ratios))
+
+
+# ---------------------------------------------------------------------------
 # qgZ quantize / dequantize-reduce (csrc/quant_collective.cu)
 # ---------------------------------------------------------------------------
 #

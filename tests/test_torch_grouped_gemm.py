@@ -11,7 +11,12 @@ fixture of ``tests/test_grouped_gemm_moe.py``) and empty-expert routing,
 T in {16, 40}, E = 4, k in {1, 2}. The backward's plain versions (dx,
 dW) are held to megablox ``gmm(..., transpose_rhs=True)`` and ``tgmm`` in
 interpret mode, to megablox's own custom VJP under ``jax.grad``, and to
-torch autograd of the plain forward.
+torch autograd of the plain forward. ``moe_ffn_gmm_rows`` (kernel row 9b,
+the expert-parallel receiving shard's per-row FFN) on the plain versions
+against the JAX ``moe_ffn_gmm_rows`` in interpret mode, output and every
+gradient, with the zero sentinel rows of the receive buffer: id ``E`` in
+the port (sorted past the last group and skipped), the last expert's id
+in the JAX shard (``sharded_moe.py:539``).
 
 Tolerances. fp32: both sides compute the same products in fp32 and differ
 only in summation order, ~1e-7 here, held to 1e-5 relative and absolute.
@@ -32,6 +37,7 @@ import jax.numpy as jnp
 from deepspeed_tpu.inference.v2.model_implementations.mixtral import (
     _moe_ffn as jax_moe_ffn)
 from deepspeed_tpu.ops.pallas.grouped_gemm import moe_ffn_gmm as jax_moe_ffn_gmm
+from deepspeed_tpu.ops.pallas.grouped_gemm import moe_ffn_gmm_rows as jax_moe_ffn_gmm_rows
 from deepspeed_tpu.ops.pallas.grouped_gemm import topk_router as jax_topk_router
 from deepspeed_tpu_torch.inference.v2.model_implementations.mixtral import (
     _moe_ffn, moe_ffn_einsum)
@@ -42,7 +48,8 @@ from deepspeed_tpu_torch.ops.grouped_gemm import (grouped_matmul,
                                                   grouped_matmul_dx_reference,
                                                   grouped_matmul_reference,
                                                   is_supported, moe_ffn_gmm,
-                                                  moe_scatter, topk_router,
+                                                  moe_ffn_gmm_rows, moe_scatter,
+                                                  topk_router,
                                                   unsupported_reason)
 
 FP32_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -372,3 +379,57 @@ def test_fp16_product_under_autograd_raises_like_megablox():
         grouped_matmul(xs, w, off)
     with torch.no_grad():                    # serving keeps fp16
         assert grouped_matmul(xs, w, off).dtype == torch.float16
+
+
+# rows of an ep receive buffer: per peer block, the real rows' local expert
+# ids, then zero sentinel rows (id E); "one_empty": no real row for expert 1
+ROWS_CASES = {"balanced": ([[0, 1, 1, 0, 1], [1, 0, 0]], 8),
+              "one_empty": ([[0, 0, 0], [0, 0]], 6),
+              "all_sentinel_peer": ([[1, 0, 1, 1, 0, 0, 1], []], 7)}
+
+
+def rows_case(blocks, R, D=128, F=256, E=2, seed=0):
+    """x_rows [ep * R, D] (zero past each block's real rows), the port's
+    row ids (sentinel E), the JAX shard's (sentinel folded into E - 1), the
+    weights, and an output gradient that is zero on the sentinel rows, as
+    the combine's gather leaves it."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((len(blocks) * R, D), np.float32)
+    ids = np.full(len(blocks) * R, E, np.int64)
+    for b, block in enumerate(blocks):
+        x[b * R:b * R + len(block)] = rng.standard_normal((len(block), D))
+        ids[b * R:b * R + len(block)] = block
+    w1, w3 = (0.05 * rng.standard_normal((2, E, D, F))).astype(np.float32)
+    w2 = (0.05 * rng.standard_normal((E, F, D))).astype(np.float32)
+    dy = rng.standard_normal(x.shape).astype(np.float32) * (ids < E)[:, None]
+    return x, ids, np.minimum(ids, E - 1).astype(np.int32), w1, w2, w3, dy
+
+
+@pytest.mark.parametrize("name", list(ROWS_CASES))
+def test_moe_ffn_gmm_rows_matches_jax_with_sentinels(name):
+    """Output and the gradients of x, w1, w2, w3 (fp32, summation order
+    only: 1e-5); sentinel rows give 0 and a zero input gradient."""
+    blocks, R = ROWS_CASES[name]
+    x, ids, jids, w1, w2, w3, dy = rows_case(blocks, R, seed=len(name))
+    E = w1.shape[0]
+
+    def jloss(x_, a, b, c):
+        y = jax_moe_ffn_gmm_rows(x_, jnp.asarray(jids), a, b, c, n_experts=E,
+                                 dtype=jnp.float32, interpret=True)
+        return jnp.sum(y * dy), y
+
+    (_, want), want_grads = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3),
+                                               has_aux=True)(
+        *(jnp.asarray(a) for a in (x, w1, w2, w3)))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, w1, w2, w3)]
+    got = moe_ffn_gmm_rows(leaves[0], torch.from_numpy(ids), leaves[1], leaves[2],
+                           leaves[3], n_experts=E, dtype=torch.float32)
+    got.backward(torch.from_numpy(dy))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **FP32_TOL)
+    sentinel = ids == E
+    assert not got.detach().numpy()[sentinel].any()
+    assert not leaves[0].grad.numpy()[sentinel].any()
+    for leaf, w in zip(leaves, want_grads):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w), **FP32_TOL)
+    if name == "one_empty":
+        assert not leaves[1].grad[1].any() and not np.asarray(want_grads[1])[1].any()

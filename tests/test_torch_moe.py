@@ -277,14 +277,13 @@ def test_errors_name_what_is_not_ported():
         pmoe.MOELayer(PlainMLP, E, dispatch_mode="gmm", model_dim=D)(x)
     with pytest.raises(ValueError, match="does not compose with tp meshes"):
         pmoe.MOELayer(port_expert, E, dispatch_mode="gmm", model_dim=D, tp_size=2)(x)
-    with pytest.raises(NotImplementedError, match="expert parallelism.*A9"):
-        pmoe.MOELayer(port_expert, E, model_dim=D, ep_size=2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        MoE(D, port_expert, num_experts=E, ep_size=4)
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        pmoe._gmm_ep_forward(x)
-    with pytest.raises(NotImplementedError, match="9b"):
-        pmoe._moe_gmm_ep_shard(x)
+    with pytest.raises(ValueError, match="divisible by the ep axis"):
+        pmoe.MOELayer(port_expert, E, model_dim=D, ep_size=3)
+    # expert parallelism needs a topology with the layer's ep axis
+    with pytest.raises(ValueError, match="does not match the topology's ep axis"):
+        pmoe.MOELayer(port_expert, E, dispatch_mode="gmm", model_dim=D, ep_size=2)(x)
+    with pytest.raises(ValueError, match="does not match the topology's ep axis"):
+        MoE(D, port_expert, num_experts=E, ep_size=4)(x)
     with pytest.raises(ValueError, match="dispatch_mode must be"):
         pmoe.MOELayer(port_expert, E, dispatch_mode="dense", model_dim=D)
 
@@ -319,3 +318,35 @@ def test_noisy_gating_draws_from_the_callers_generator():
     chosen = probs.gather(1, noisy.experts)
     kept = noisy.gates > 0
     torch.testing.assert_close(noisy.gates[kept], chosen[kept])
+
+
+def test_moe_param_specs_and_expert_slices_match_jax():
+    """``moe_param_specs`` marks the leaves the JAX ``moe_param_specs`` cuts
+    over ``ep`` (the stacked experts, not the router), and a model built
+    with ``ep_size`` 2 holds, on each ep rank, the contiguous half of every
+    expert stack that ``params_from_flax`` and ``expert_slice`` cut."""
+    from jax.sharding import PartitionSpec as P
+    from deepspeed_tpu_torch.models.mixtral import params_from_flax
+    jcfg = JaxMixtralConfig.tiny(dtype=jnp.float32, remat=False)
+    ids = jnp.zeros((1, 8), jnp.int32)
+    jparams = jax.tree.map(np.asarray, JaxMixtral(jcfg).init(
+        jax.random.PRNGKey(0), {"input_ids": ids})["params"])
+    jspecs = jax.tree_util.tree_leaves(jutils.moe_param_specs(jparams),
+                                       is_leaf=lambda x: isinstance(x, P) or x is None)
+    model = MixtralForCausalLM(MixtralConfig.tiny(dtype=torch.float32))
+    specs = putils.moe_param_specs(model)
+    assert sum(v is not None for v in specs.values()) == \
+        sum(isinstance(v, P) for v in jspecs) == 6
+    assert all(".experts.w" in n for n, v in specs.items() if v == ("ep",))
+    full = params_from_flax(jparams)
+    for rank in (0, 1):
+        part = MixtralForCausalLM(MixtralConfig.tiny(dtype=torch.float32), ep_size=2)
+        sd = params_from_flax(jparams, ep_size=2, ep_rank=rank)
+        part.load_state_dict(sd)
+        for name, p in part.named_parameters():
+            if ".experts." in name:
+                assert p.shape[0] == 2
+                torch.testing.assert_close(p.detach(), putils.expert_slice(
+                    full[name], 2, rank), rtol=0, atol=0)
+            else:
+                torch.testing.assert_close(p.detach(), full[name], rtol=0, atol=0)

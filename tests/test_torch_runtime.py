@@ -224,7 +224,7 @@ def test_config_sections_parse_like_jax(tmp_path):
     ({"zero_optimization": {"zero_quantized_weights": True}}, "A10"),
     ({"pipeline": {"stages": 2}}, "A12"),
     ({"sequence_parallel_size": 2}, "A12"),
-    ({"moe": {"enabled": True, "ep_size": 2}}, "A9"),
+    ({"tensor_parallel": {"tp_size": 2}}, "A12"),
     ({"prefetch_batches": 2}, "A1"),
     ({"activation_checkpointing": {"cpu_checkpointing": True}}, "A1"),
     ({"hybrid_engine": {"enabled": True}}, "A15"),

@@ -26,7 +26,15 @@ Tolerances:
   ``tests/test_qgz.py``. The two engines also quantize different groups:
   the JAX Llama stacks each layer's weight as [L, in, out] and the port
   keeps [out, in] per layer, so their shard dimensions and groups of 2048
-  differ.
+  differ;
+- MoE (Mixtral, fp32), with and without expert parallelism: engines as the
+  ZeRO stages above (losses 1e-5, masters 2e-5, clipping norm 1e-4). The
+  gate's global sums are taken over ranks in rank order where the JAX gate
+  reduces the global matrix: summation order again. Single ``MOELayer``
+  runs on ``ep`` 2 x ``dp`` 2 and ``ep`` 4 against the JAX layer on one
+  host, as ``tests/test_torch_moe.py`` holds the one-rank layer: outputs
+  and gradients to 1e-5 of each tensor's largest element, the aux loss to
+  1e-5, counts exactly; the int8 wire to the 0.05 of ``tests/test_moe.py``.
 """
 
 import os
@@ -47,12 +55,18 @@ import deepspeed_tpu
 import deepspeed_tpu_torch
 from deepspeed_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from deepspeed_tpu.models.llama import LlamaForCausalLM as JaxLlama
+from deepspeed_tpu.models.mixtral import MixtralConfig as JaxMixtralConfig
+from deepspeed_tpu.models.mixtral import MixtralExpertMLP as JaxExpert
+from deepspeed_tpu.models.mixtral import MixtralForCausalLM as JaxMixtral
+from deepspeed_tpu.moe import sharded_moe as jmoe
+from deepspeed_tpu.parallel import groups as jgroups
 from deepspeed_tpu.parallel.topology import MeshTopology as JaxMesh
 from deepspeed_tpu.runtime.comm import coalesced_collectives as jcc
 from deepspeed_tpu.runtime.zero.config import DeepSpeedZeroConfig as JaxZeroConfig
 from deepspeed_tpu.runtime.zero.partition import ZeroPartitioner as JaxPartitioner
 from deepspeed_tpu.runtime.zero.qgz import QgzPlan as JaxQgzPlan
 from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, params_from_flax
+from deepspeed_tpu_torch.models.mixtral import params_from_flax as mixtral_params
 
 WORLD, MICRO, GAS, T, STEPS = 4, 2, 2, 32, 6
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "test_torch_zero_worker.py")
@@ -93,6 +107,55 @@ LLAMA_CASES = {
 }
 MASKED_CONFIG = dict(llama_config(), optimizer={"type": "AdamW", "params": {"lr": 1e-2}},
                      scheduler={}, **zero(3))
+
+# Mixtral engines. TINY with a drop-heavy capacity at dp 4 (no expert
+# parallelism) holds the gate's global routing; SMALL (128-multiples, as
+# megablox needs) runs every ZeRO stage on ep 2 x dp 2 and on ep 4, each
+# dispatch mode on both meshes, top-1 and top-2. AdamW's eps is 1e-6 here:
+# with 1e-8, Adam turns the fp32 summation noise of the many near-zero
+# expert gradients into master differences above 2e-5 even between the JAX
+# engine's own runs on a 1-device and on the 4-device ep mesh, so the
+# masters could not be held to 2e-5 against any implementation.
+MOE_ADAMW = {"type": "AdamW", "params": {"lr": 3e-3, "weight_decay": 0.01, "eps": 1e-6}}
+MOE_T = 16
+TINY = dict(vocab_size=512, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+            num_attention_heads=4, num_key_value_heads=2, num_local_experts=4,
+            max_position_embeddings=128)
+SMALL = dict(TINY, hidden_size=128, intermediate_size=256)
+
+
+def moe_case(ep, stage, backend, k, params="small", capacity_factor=1.0):
+    widths = SMALL if params == "small" else TINY
+    return dict(ep=ep, params=params,
+                model=dict(widths, moe_backend=backend, num_experts_per_tok=k,
+                           capacity_factor=capacity_factor),
+                config=dict(llama_config(**zero(stage)), optimizer=MOE_ADAMW,
+                            expert_parallel_size=ep))
+
+
+MOE_CASES = {
+    "routing_dp4": moe_case(1, 0, "indices", 2, params="tiny", capacity_factor=0.5),
+    "ep2_stage0_einsum_k1": moe_case(2, 0, "einsum", 1),
+    "ep2_stage1_gmm_k2": moe_case(2, 1, "gmm", 2),
+    "ep2_stage2_indices_k2": moe_case(2, 2, "indices", 2),
+    "ep2_stage3_gmm_k1": moe_case(2, 3, "gmm", 1),
+    "ep4_stage0_gmm_k2": moe_case(4, 0, "gmm", 2),
+    "ep4_stage1_indices_k1": moe_case(4, 1, "indices", 1),
+    "ep4_stage2_gmm_k2": moe_case(4, 2, "gmm", 2),
+    "ep4_stage3_einsum_k2": moe_case(4, 3, "einsum", 2),
+}
+EP_CASES = [c for c in MOE_CASES if c.startswith("ep")]
+
+# single MOELayer cases (k, capacity_factor, drop_tokens, dispatch mode) on
+# the 4 ranks' 64 tokens, D = 128, F = 256, E = 4
+LAYER_DIMS = (128, 256, 4)
+LAYER_CASES = {
+    "einsum_top1_dense": (1, 100.0, True, "einsum"),
+    "einsum_top2_drops": (2, 0.5, True, "einsum"),
+    "indices_top2_drops": (2, 0.5, True, "indices"),
+    "gmm_top2_dropless": (2, 1.0, False, "gmm"),
+    "gmm_top1_drops": (1, 1.0, True, "gmm"),
+}
 
 
 def llama_batches(seed=0):
@@ -138,6 +201,71 @@ class JaxMaskedLM(fnn.Module):
         tgt = jnp.take_along_axis(logits, jnp.maximum(labels, 0)[..., None], -1)[..., 0]
         nll = jax.nn.logsumexp(logits, -1) - tgt
         return (nll * mask).sum() / jnp.maximum(mask.sum(), 1)
+
+
+def moe_batches(seed=2):
+    """GAS global micro-batches of MOE_T tokens, repeated every step."""
+    rng = np.random.default_rng(seed)
+    window = []
+    for _ in range(GAS):
+        ids = rng.integers(0, 512, (MICRO * WORLD, MOE_T)).astype(np.int32)
+        window.append({"input_ids": ids, "labels": ids})
+    return window * STEPS
+
+
+def jax_mixtral_config(case):
+    return JaxMixtralConfig(**case["model"], dtype=jnp.float32, remat=False)
+
+
+def jax_mixtral_params(widths):
+    """The JAX model's init with each router sharpened x10: top-k choices
+    far from ties, which a last-bit difference upstream could flip."""
+    model = JaxMixtral(JaxMixtralConfig(**widths, dtype=jnp.float32))
+    ids = jnp.asarray(moe_batches()[0]["input_ids"][:MICRO])
+    params = jax.tree.map(np.asarray, jax.jit(model.init)(jax.random.PRNGKey(0), ids)["params"])
+    for name, layer in params.items():
+        if name.startswith("layers_"):
+            moe = layer["block_sparse_moe"]["gate"]
+            moe["wg"] = moe["wg"] * 10.0
+    return params
+
+
+def jax_layer_expert():
+    D, F, _ = LAYER_DIMS
+    return JaxExpert(JaxMixtralConfig(hidden_size=D, intermediate_size=F, dtype=jnp.float32))
+
+
+def layer_inputs():
+    rng = np.random.default_rng(11)
+    D = LAYER_DIMS[0]
+    return tuple(rng.standard_normal((4, 16, D)).astype(np.float32) for _ in range(2))
+
+
+def jax_layer_run(name):
+    """The JAX MOELayer on one host over the global tokens: params (router
+    sharpened x10, away from ties), output, aux loss, counts and the
+    gradients of ``sum(out * dout) + 0.1 * l_aux``."""
+    k, cf, drop, mode = LAYER_CASES[name]
+    E = LAYER_DIMS[2]
+    layer = jmoe.MOELayer(jax_layer_expert, E, k, cf, cf, min_capacity=2,
+                          drop_tokens=drop, dispatch_mode=mode)
+    x, dout = (jnp.asarray(a) for a in layer_inputs())
+    params = jax.tree.map(np.asarray, layer.init(jax.random.PRNGKey(len(name)), x)["params"])
+    params["gate"]["wg"] = params["gate"]["wg"] * 10.0
+
+    def loss(p, xx):
+        out, l_aux, counts = layer.apply({"params": p}, xx)
+        return jnp.sum(out * dout) + 0.1 * l_aux, (out, l_aux, counts)
+
+    (_, (out, l_aux, counts)), (gp, gx) = jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True)(params, x)
+    ex, gex = params["experts"]["MixtralExpertMLP_0"], gp["experts"]["MixtralExpertMLP_0"]
+    flat = {"wg": params["gate"]["wg"], **{w: ex[w]["kernel"] for w in ("w1", "w2", "w3")}}
+    grads = {"wg": gp["gate"]["wg"], "dx": gx,
+             **{w: gex[w]["kernel"] for w in ("w1", "w2", "w3")}}
+    return ({n: np.asarray(v, np.float32) for n, v in flat.items()},
+            dict(out=np.asarray(out), l_aux=float(l_aux), counts=np.asarray(counts),
+                 **{n: np.asarray(v) for n, v in grads.items()}))
 
 
 def jax_llama(dtype=jnp.float32):
@@ -187,6 +315,14 @@ def jax_engine_runs(inputs):
                                     batches, mesh=jax_mesh(**mesh_kw))
     model, params = jax_masked()
     want["masked"] = run_jax_engine(model, params, MASKED_CONFIG, inputs["masked_batches"])
+    for name, case in MOE_CASES.items():
+        ep = case["ep"]
+        want[name] = run_jax_engine(JaxMixtral(jax_mixtral_config(case)),
+                                    inputs["moe_params"][case["params"]], case["config"],
+                                    inputs["moe_batches"],
+                                    mesh=JaxMesh(dp=WORLD // ep, ep=ep,
+                                                 devices=jax.devices()[:WORLD]))
+    jgroups.reset()
     return want
 
 
@@ -194,7 +330,16 @@ def make_inputs():
     rng = np.random.default_rng(7)
     _, lp = jax_llama()
     _, mp = jax_masked()
+    layer_refs = {name: jax_layer_run(name) for name in LAYER_CASES}
     return {
+        "moe_cases": MOE_CASES,
+        "moe_params": {"tiny": jax_mixtral_params(TINY), "small": jax_mixtral_params(SMALL)},
+        "moe_batches": moe_batches(),
+        "layer_dims": LAYER_DIMS,
+        "layer_inputs": layer_inputs(),
+        "layer_cases": LAYER_CASES,
+        "layer_params": {n: ref[0] for n, ref in layer_refs.items()},
+        "layer_want": {n: ref[1] for n, ref in layer_refs.items()},
         "micro": MICRO,
         "llama_params": params_from_flax(lp),
         "llama_config": llama_config(),
@@ -371,10 +516,32 @@ def test_process_env_discovery(monkeypatch, environ, want):
     assert comm.discover_process_env(environ) == want[:3]
 
 
+@pytest.mark.parametrize("zero_cfg,ep_cfg,want", [
+    ({"zero_hpz_partition_size": 2}, 1, dict(ep=2, zero_shard_size=2, zero_hierarchy="hpz")),
+    ({"mics_shard_size": 2}, 1, dict(ep=2, zero_shard_size=2, zero_hierarchy="mics")),
+    ({}, 4, dict(ep=4, zero_shard_size=None, zero_hierarchy=None)),
+], ids=["hpz", "mics", "config_ep_wins"])
+def test_groups_initialize_ep_size_builds_one_topology(monkeypatch, zero_cfg, ep_cfg, want):
+    """``groups.initialize(ep_size=2, config=...)`` builds one topology with
+    the ep axis where the config names none, keeping the config's hpZ or
+    MiCS shard group (a config's own ``expert_parallel_size`` wins)."""
+    from deepspeed_tpu_torch.parallel import groups, topology
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    built = []
+    monkeypatch.setattr(topology, "MeshTopology", lambda **kw: built.append(kw) or kw)
+    config = DeepSpeedConfig({"train_batch_size": 8, "expert_parallel_size": ep_cfg,
+                              "zero_optimization": dict({"stage": 3}, **zero_cfg)})
+    try:
+        groups.initialize(ep_size=2, config=config)
+    finally:
+        groups.reset()
+    assert len(built) == 1
+    assert {k: built[0][k] for k in want} == want
+
+
 def test_unported_axes_raise():
     from deepspeed_tpu_torch.parallel.topology import MeshTopology
-    for kw, item in ((dict(tp=2), "A12"), (dict(ep=2), "A9"), (dict(pp=2), "A12"),
-                     (dict(sp=2), "A12")):
+    for kw, item in ((dict(tp=2), "A12"), (dict(pp=2), "A12"), (dict(sp=2), "A12")):
         with pytest.raises(NotImplementedError, match=item):
             MeshTopology(devices=[0, 1], **kw)
 
@@ -521,3 +688,142 @@ def test_qgz_requires_stage2_and_a_world():
     with pytest.raises(ValueError, match="world > 1"):
         deepspeed_tpu_torch.initialize(model=model, config=dict(
             llama_config(train_batch_size=GAS * MICRO), **zero(2, **QGZ)), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# MoE: global routing under data parallelism, expert parallelism
+# (mirrors tests/test_moe.py :90, :138, :471, :493, :521)
+# ---------------------------------------------------------------------------
+
+def check_moe_engine(run, case):
+    _, ranks, want = run
+    want_losses, want_master, want_norm = want[case]
+    want_master = {k: v.numpy() for k, v in mixtral_params(want_master).items()}
+    for rank in ranks:
+        res = rank[case]
+        np.testing.assert_allclose(res["losses"], want_losses, rtol=1e-5)
+        assert set(res["master"]) == set(want_master)
+        for name, got in port_master(res).items():
+            np.testing.assert_allclose(got, want_master[name], rtol=0, atol=2e-5,
+                                       err_msg=name)
+        assert res["grad_norm"] == pytest.approx(want_norm, rel=1e-4)
+    assert want_losses[-1] < want_losses[0]
+
+
+def test_moe_global_routing_matches_jax_engine(run):
+    """Mixtral-tiny at dp 4 (no expert parallelism), stage 0, capacity factor
+    0.5: each rank routes its 2 x 16 tokens, and the capacity, the queue
+    positions (first choices of every rank before any second choice) and the
+    aux loss must be those of the JAX gate over the global 8 x 16 tokens.
+    Gating each rank's tokens alone drops other choices and changes the aux
+    loss's value and gradient, which moves the losses far past 1e-5."""
+    check_moe_engine(run, "routing_dp4")
+
+
+@pytest.mark.parametrize("case", EP_CASES)
+def test_expert_parallel_engine_matches_jax(run, case):
+    """6 steps of Mixtral (E 4) with expert_parallel_size 2 (x dp 2) or 4
+    against the JAX engine on the same 4-device mesh: losses, whole masters
+    (expert slices gathered over ep) and the clipping norm. Each rank's
+    expert leaves hold E / ep experts; from stage 1 their masters are cut
+    over the expert-data group (dp 2, or nothing at ep 4) along a dimension
+    other than the expert axis, dense leaves over all 4 ranks."""
+    check_moe_engine(run, case)
+    _, ranks, _ = run
+    ep, stage = MOE_CASES[case]["ep"], MOE_CASES[case]["config"]["zero_optimization"]["stage"]
+    E = SMALL["num_local_experts"]
+    for rank in ranks:
+        res = rank[case]
+        for name, shape in res["local_shapes"].items():
+            numel, shard, resident, master = res["at_rest"][name]
+            if ".experts." in name:
+                assert shape[0] == E // ep and numel == int(np.prod(shape)), name
+                want = numel // (WORLD // ep) if stage >= 1 else numel
+            else:
+                want = numel // WORLD if stage >= 1 and max(shape) % WORLD == 0 else numel
+            assert master == want, (name, master, want)
+
+
+def gathered_layer(ranks, ep, name):
+    """Outputs and dx concatenated in rank order, the router gradient summed
+    over ranks, each expert slice's gradient summed over the ranks holding
+    it and the slices concatenated in ep order."""
+    res = [r["moe_layers"][(ep, name)] for r in ranks]
+    got = {n: torch.cat([r[n] for r in res]).numpy() for n in ("out", "dx")}
+    got["wg"] = sum(r["wg"] for r in res).numpy()
+    for w in ("w1", "w2", "w3"):
+        got[w] = torch.cat([sum(r[w] for r in res if r["ep_rank"] == i)
+                            for i in range(ep)]).numpy()
+    return res, got
+
+
+def close_to(got, want, rel=1e-5):
+    scale = max(float(np.abs(want).max()), 1e-6)
+    np.testing.assert_allclose(got, want, rtol=0, atol=rel * scale)
+
+
+@pytest.mark.parametrize("ep", [2, 4])
+@pytest.mark.parametrize("name", list(LAYER_CASES))
+def test_expert_parallel_layer_matches_jax(run, name, ep):
+    """One MOELayer split over ep ranks, each holding 16 of the 64 tokens,
+    against the JAX layer on one host: output, aux loss, counts and the
+    gradients of x, the router and every expert weight."""
+    inputs, ranks, _ = run
+    want = inputs["layer_want"][name]
+    D = LAYER_DIMS[0]
+    res, got = gathered_layer(ranks, ep, name)
+    close_to(got["out"], want["out"].reshape(-1, D))
+    close_to(got["dx"], want["dx"].reshape(-1, D))
+    for n in ("wg", "w1", "w2", "w3"):
+        close_to(got[n], want[n])
+    for r in res:
+        np.testing.assert_allclose(r["l_aux"], want["l_aux"], rtol=1e-5)
+        np.testing.assert_array_equal(r["counts"].numpy(), want["counts"])
+    if name == "einsum_top1_dense":
+        # nothing drops: each token's output is its expert's FFN scaled by
+        # the gate (test_moe.py :138)
+        p = inputs["layer_params"][name]
+        x = inputs["layer_inputs"][0].reshape(-1, D)
+        probs = torch.softmax(torch.from_numpy(x @ p["wg"]), -1).numpy()
+        e = probs.argmax(-1)
+        h = np.einsum("sd,sdf->sf", x, p["w1"][e])
+        ffn = np.einsum("sf,sfd->sd", h / (1 + np.exp(-h)) * np.einsum(
+            "sd,sdf->sf", x, p["w3"][e]), p["w2"][e])
+        close_to(got["out"], ffn * probs[np.arange(len(e)), e][:, None])
+
+
+@pytest.mark.parametrize("ep", [2, 4])
+def test_groups_initialize_ep_size_on_ranks(run, ep):
+    """``groups.initialize(ep_size=ep, config=...)`` on the 4 ranks, the
+    config naming no ep axis: ep x (4 / ep) dp, rank r at ep coordinate
+    r % ep, and expert / expert-data groups of those sizes."""
+    _, ranks, _ = run
+    for r, rank in enumerate(ranks):
+        assert rank["moe_layers"][(ep, "topology")] == (ep, WORLD // ep, r % ep, ep,
+                                                        WORLD // ep)
+
+
+@pytest.mark.parametrize("ep", [2, 4])
+def test_expert_parallel_quantized_wire(run, ep):
+    """a2a_wire_bits 8 (gmm, dropless): the output stays within 0.05 of the
+    full-precision wire's, and the dispatch and combine exchanges record
+    their int8 + scale bytes against the fp32 payload they stand for; the
+    fp32 wire records both equal."""
+    _, ranks, _ = run
+    for rank in ranks:
+        w = rank["moe_layers"][(ep, "wire")]
+        np.testing.assert_allclose(w[8].numpy(), w[None].numpy(), atol=0.05, rtol=0.05)
+        assert float((w[8] - w[None]).abs().max()) > 0
+        for op in ("a2a_dispatch", "a2a_combine"):
+            assert w["wire_None"][op]["wire"] == w["wire_None"][op]["logical"] > 0
+            q = w["wire_8"][op]
+            assert 0.25 < q["wire"] / q["logical"] < 0.26, q
+
+
+def test_qgz_refuses_expert_parallelism(run):
+    """zero_quantized_gradients with an ep axis > 1 raises the JAX package's
+    ValueError (qgZ exchanges over dp / dpr only)."""
+    _, ranks, _ = run
+    for rank in ranks:
+        assert "currently supports dp/dpr ZeRO axes only (got ep size 2" in \
+            rank["qgz_ep_error"]

@@ -10,6 +10,7 @@ runs the JAX side and compares.
 import datetime
 import os
 import sys
+import time
 
 import torch
 import torch.distributed as tdist
@@ -18,9 +19,17 @@ from torch import nn
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import deepspeed_tpu_torch  # noqa: E402
+from deepspeed_tpu_torch.comm.comm import get_world_size  # noqa: E402
 from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM  # noqa: E402
+from deepspeed_tpu_torch.models.mixtral import (MixtralConfig,  # noqa: E402
+                                                MixtralExpertMLP, MixtralForCausalLM,
+                                                params_from_flax)
+from deepspeed_tpu_torch.moe import sharded_moe as pmoe  # noqa: E402
+from deepspeed_tpu_torch.moe.utils import expert_slice  # noqa: E402
+from deepspeed_tpu_torch.parallel import groups  # noqa: E402
 from deepspeed_tpu_torch.parallel.topology import MeshTopology  # noqa: E402
 from deepspeed_tpu_torch.runtime.comm import coalesced_collectives as cc  # noqa: E402
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig  # noqa: E402
 from deepspeed_tpu_torch.runtime.zero.qgz import QgzPlan  # noqa: E402
 
 IGNORE = -100
@@ -104,6 +113,82 @@ def masked_run(inp, rank, out):
     out["masked"] = dict(losses=losses, master=engine.get_model_parameters())
 
 
+def moe_engine_runs(inp, rank, out):
+    """Mixtral engines, expert-parallel or not: losses, whole masters, the
+    clipping norm and each leaf's layout at rest."""
+    for name, case in inp["moe_cases"].items():
+        ep = case["ep"]
+        cfg = MixtralConfig(**case["model"], dtype=torch.float32)
+        params = params_from_flax(inp["moe_params"][case["params"]], ep, rank % ep)
+        engine, losses = train(MixtralForCausalLM(cfg, ep_size=ep), params, case["config"],
+                               inp["moe_batches"], rank, inp["micro"])
+        out[name] = dict(losses=losses, master=engine.get_model_parameters(),
+                         grad_norm=engine.get_global_grad_norm(), at_rest=at_rest(engine),
+                         local_shapes={leaf.name: leaf.shape for leaf in engine._leaves})
+        del engine
+        groups.reset()
+    cfg = MixtralConfig(**next(iter(inp["moe_cases"].values()))["model"],
+                        dtype=torch.float32)
+    try:
+        deepspeed_tpu_torch.initialize(
+            model=MixtralForCausalLM(cfg, ep_size=2), device="cpu",
+            config=dict(inp["llama_config"], expert_parallel_size=2, zero_optimization={
+                "stage": 2, "zero_quantized_gradients": True}))
+    except ValueError as e:
+        out["qgz_ep_error"] = str(e)
+    groups.reset()
+
+
+def moe_layer_runs(inp, rank, world, out):
+    """One MOELayer per (ep mesh, case): this rank's output, aux loss, counts
+    and gradients of ``sum(out * dout) + 0.1 * l_aux / world`` (the ranks'
+    gradients sum to the global loss's), and the quantized wire's forward."""
+    D, F, E = inp["layer_dims"]
+    x_all, dout_all = (torch.from_numpy(a).reshape(-1, D) for a in inp["layer_inputs"])
+    n = x_all.shape[0] // world
+    x_loc, dout_loc = x_all[rank * n:(rank + 1) * n], dout_all[rank * n:(rank + 1) * n]
+    expert = lambda: MixtralExpertMLP(MixtralConfig(hidden_size=D, intermediate_size=F,
+                                                    dtype=torch.float32))
+    res = {}
+    for ep in (2, 4):
+        # the ep axis from groups.initialize, the config naming none
+        topo = groups.initialize(ep_size=ep, config=DeepSpeedConfig(inp["llama_config"]))
+        ep_rank = topo.get_axis_rank("ep")
+        res[(ep, "topology")] = (topo.ep_size, topo.dp_size, ep_rank,
+                                 get_world_size(groups.get_expert_parallel_group()),
+                                 groups.get_expert_data_parallel_world_size())
+        for name, (k, cf, drop, mode) in inp["layer_cases"].items():
+            p = inp["layer_params"][name]
+            layer = pmoe.MOELayer(expert, E, k, cf, cf, min_capacity=2, drop_tokens=drop,
+                                  dispatch_mode=mode, model_dim=D, ep_size=ep)
+            layer.load_state_dict({"gate.wg": torch.from_numpy(p["wg"])} | {
+                f"experts.{w}": torch.from_numpy(expert_slice(p[w], ep, ep_rank))
+                for w in ("w1", "w2", "w3")})
+            x = x_loc.clone().requires_grad_()
+            y, l_aux, counts = layer(x)
+            ((y * dout_loc).sum() + 0.1 * l_aux / world).backward()
+            res[(ep, name)] = dict(
+                out=y.detach(), l_aux=float(l_aux.detach()), counts=counts, dx=x.grad,
+                wg=layer.gate.wg.grad, ep_rank=ep_rank,
+                **{w: getattr(layer.experts, w).grad for w in ("w1", "w2", "w3")})
+        # the quantized wire: the gmm dropless case's forward with int8 blocks
+        p = inp["layer_params"]["gmm_top2_dropless"]
+        outs = {}
+        for bits in (None, 8):
+            layer = pmoe.MOELayer(expert, E, 2, drop_tokens=False, dispatch_mode="gmm",
+                                  model_dim=D, ep_size=ep, a2a_wire_bits=bits)
+            layer.load_state_dict({"gate.wg": torch.from_numpy(p["wg"])} | {
+                f"experts.{w}": torch.from_numpy(expert_slice(p[w], ep, ep_rank))
+                for w in ("w1", "w2", "w3")})
+            cc.reset_wire_bytes()
+            with torch.no_grad():
+                outs[bits] = layer(x_loc)[0]
+            outs[f"wire_{bits}"] = {op: dict(v) for op, v in cc.WIRE_BYTES["ops"].items()}
+        res[(ep, "wire")] = outs
+        groups.reset()
+    out["moe_layers"] = res
+
+
 def collectives(inp, rank, world, out):
     res = {}
     for bits in (4, 8):
@@ -136,10 +221,22 @@ def main():
     tdist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
                              world_size=world, timeout=datetime.timedelta(seconds=120))
     inp = torch.load(inputs, weights_only=False)
-    out = {}
-    collectives(inp, rank, world, out)
-    llama_runs(inp, rank, out)
-    masked_run(inp, rank, out)
+    out, seconds = {}, {}
+    start = time.perf_counter()
+    for name, run in (("collectives", lambda: collectives(inp, rank, world, out)),
+                      ("moe_layers", lambda: moe_layer_runs(inp, rank, world, out)),
+                      ("moe_engines", lambda: moe_engine_runs(inp, rank, out)),
+                      ("llama", lambda: llama_runs(inp, rank, out)),
+                      ("masked", lambda: masked_run(inp, rank, out))):
+        t = time.perf_counter()
+        run()
+        seconds[name] = time.perf_counter() - t
+    # wall time of each part after the rendezvous: the fixture's limit
+    # holds the whole run
+    seconds["total"] = time.perf_counter() - start
+    out["seconds"] = seconds
+    print(f"rank {rank} seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()),
+          flush=True)
     torch.save(out, out_path)
     tdist.barrier()
     tdist.destroy_process_group()
