@@ -149,6 +149,40 @@ prints no result.
    and per card, the model-FLOPs share and the peak per rank are printed.
    On fewer cards the phase prints why it did not run.
 
+14. W8A16 dequantize-matmul (kernel row 7, ``csrc/quantized_matmul.cu``,
+   one card, after phase 12): the kernel against its plain version at
+   Llama-2-7B's projection shapes (decode at batch 4 for gate_proj,
+   down_proj with K = 11008 and q_proj; prefill chunks of 1024 rows; M = 1
+   and M = 13; fp16 activations with fp32 output and groups of 128). Per
+   case: the error against the bound stated below, a planted fault (one
+   scale group of one K row times 1.5) that the bound must reject, kernel /
+   plain / library (``torch.matmul`` on the dequantized bf16 weight, the
+   dense product the int8 weight replaces; a yardstick the port never
+   calls) times with the weights rotated past the L2 cache, and the bound:
+   the larger of the int8 weight, scales, x and output bytes over 3.35 TB/s
+   and 2 M K N over 989 TFLOP/s.
+15. Quantized serving: Llama-2-7B at full width and all 32 layers, bf16
+   weights drawn on the card from a seed, quantized to int8 by
+   ``init_inference`` (dtype bf16, groups of 256). Logits from the kernel
+   route against the same engine with every quantized linear pinned to
+   ``dense_dequant``, and a control whose layer-0 ``down_proj`` reads layer
+   1's scales, at the last position of a 4 x 256 prompt batch (1024 rows)
+   and at the first cached decode step (4 rows, K split), both routes on
+   one cache; then ``generate``, 32 greedy tokens: prefill and per-step
+   decode time against the step's bound, tokens/s, peak memory, the served
+   bytes, the agreement of the greedy tokens with the ``dense_dequant``
+   route's with the top-2 logit gaps where the streams part, and the
+   kernel's launches, which must be 7 x 32 x forwards (``lm_head`` takes
+   ``dense_dequant``, uncounted).
+16. Checkpoints: a one-layer Llama-2-7B-geometry training engine (bf16,
+   fp32 masters, ZeRO-0, phase 5's configuration) takes 2 optimizer steps,
+   saves into a directory under ``build/``, takes 2 more; a fresh engine
+   from other weights loads the tag and takes the same 2: its losses and
+   masters must be bitwise equal. A v1 engine built from the tag
+   (``config.checkpoint``) must give the same logits bit for bit as one
+   built from the resumed engine's live weights. Bytes and seconds of save,
+   verify and load are printed; the directory is deleted.
+
 The script prints its total wall time. The line before the last is one
 JSON object describing each kernel; the last is ``{"ok": true, "device":
 {...}}``. Any failure raises, so the script exits non-zero without it.
@@ -156,6 +190,7 @@ JSON object describing each kernel; the last is ``{"ok": true, "device":
 
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2419,6 +2454,481 @@ def run_expert_parallel_phase():
     return ranks
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the W8A16 dequantize-matmul kernel (row 7) vs its plain version
+# ---------------------------------------------------------------------------
+
+# Per-element bound: QMM_RTOL[out] * |plain| + QMM_ACC * (|x| @ |w|), w the
+# dequantized tile (the bound of tests/test_torch_gpu_kernels.py). Kernel and
+# plain version round the same tile to the activations' dtype, multiply
+# exactly in fp32 (bf16/fp16 products) and differ in the order of the fp32
+# sums before one rounding to the output dtype (the RTOL term). The sums'
+# order moves a result by a few fp32 units of sum_k |x w| (random-walk
+# growth, about sqrt(K) 2^-24 = 2^-17 of it at K = 11008); QMM_ACC = 2^-16
+# leaves room for that. The planted fault, the first scale group of the K
+# row where x is largest multiplied by 1.5, moves that group's outputs by
+# 0.5 |x w| of the row, which the bound must reject. Readings (H100 80GB
+# HBM3, 700 W): the kernel's errors 0.009-0.96 of the bound (one rounding of
+# bf16 outputs), the planted faults 45-161x.
+QMM_RTOL = {"bfloat16": 2 ** -7, "float16": 2 ** -10, "float32": 2 ** -16}
+QMM_ACC = 2 ** -16
+QMM_CASES = [
+    # name, M, K, N, G, x dtype, out dtype
+    ("decode_7b_gate", 4, 4096, 11008, 256, "bfloat16", "bfloat16"),
+    ("decode_7b_down", 4, 11008, 4096, 256, "bfloat16", "bfloat16"),
+    ("decode_7b_q", 4, 4096, 4096, 256, "bfloat16", "bfloat16"),
+    ("prefill_7b_gate", 1024, 4096, 11008, 256, "bfloat16", "bfloat16"),
+    ("prefill_7b_down", 1024, 11008, 4096, 256, "bfloat16", "bfloat16"),
+    ("m1_7b_gate", 1, 4096, 11008, 256, "bfloat16", "bfloat16"),
+    ("m13_7b_q", 13, 4096, 4096, 256, "bfloat16", "bfloat16"),
+    ("fp16_fp32_out_g128", 64, 4096, 11008, 128, "float16", "float32"),
+]
+QMM_L2_BYTES = 50e6            # the H100's L2: timed weights rotate past it
+
+
+def qmm_ratio(out, ref, x, w):
+    bound = QMM_RTOL[str(out.dtype).split(".")[1]] * ref.float().abs() + \
+        QMM_ACC * (x.float().abs() @ w.float().abs())
+    return float(((out.float() - ref.float()).abs() / bound.clamp(min=1e-30)).max())
+
+
+def phase_quantized_matmul_kernels():
+    import itertools
+    import torch
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+    from deepspeed_tpu_torch.ops.quantizer import dequantize_lastdim, quantize_lastdim
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(14)
+    results, failures = [], []
+    for name, M, K, N, G, dtype, out_dtype in QMM_CASES:
+        dt, odt = getattr(torch, dtype), getattr(torch, out_dtype)
+        x = torch.randn(M, K, generator=gen, device=DEVICE).to(dt)
+        q, s = quantize_lastdim(torch.randn(K, N, generator=gen, device=DEVICE) * K ** -0.5,
+                                group_size=G)
+        out = qm.quantized_matmul(x, q, s, G, out_dtype=odt)
+        ref = qm.quantized_matmul_reference(x, q, s, G, out_dtype=odt)
+        w = dequantize_lastdim(q, s, group_size=G, dtype=dt)
+        bad_s = s.clone()
+        bad_s[int(x.float().abs().amax(0).argmax()), 0] *= 1.5
+        faulty = qm.quantized_matmul_reference(x, q, bad_s, G, out_dtype=odt)
+        torch.cuda.synchronize()
+        ratio, fault_ratio = qmm_ratio(out, ref, x, w), qmm_ratio(faulty, ref, x, w)
+        finite = bool(torch.isfinite(out).all())
+        err = float((out.float() - ref.float()).abs().max())
+        del faulty, bad_s
+        # timing: rotate copies of the weight so that each launch reads it
+        # from HBM, as a forward through 32 layers does
+        copies = max(1, -(-int(2 * QMM_L2_BYTES) // (K * N)))
+        qs = itertools.cycle([(q.clone(), s.clone()) for _ in range(copies)])
+        ws = itertools.cycle([w.clone() for _ in range(copies)])
+        iters = 50 if M <= 16 else 10
+        ms = time_ms(lambda: qm.quantized_matmul(x, *next(qs), G, out_dtype=odt), iters)
+        plain_ms = time_ms(lambda: qm.quantized_matmul_reference(x, *next(qs), G,
+                                                                 out_dtype=odt), 5)
+        lib_ms = time_ms(lambda: torch.matmul(x, next(ws)), iters)
+        nbytes = K * N + K * (N // G) * 4 + M * K * x.element_size() + \
+            M * N * out.element_size()
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * M * K * N / PEAK_FLOPS[dtype] * 1e3
+        bm, splits, k_split = qm.plan(M, K, N, torch.cuda.get_device_properties(0)
+                                      .multi_processor_count)
+        res = dict(name=name, shape=f"M={M} K={K} N={N} G={G} {dtype}->{out_dtype}",
+                   plan=dict(bm=bm, splits=splits, k_split=k_split), max_abs_err=err,
+                   err_ratio=ratio, planted_fault_ratio=fault_ratio,
+                   tolerance=f"{QMM_RTOL[out_dtype]} |plain| + {QMM_ACC} (|x| @ |w|)",
+                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   library="torch.matmul(x, w_bf16) on the dequantized weight",
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        results.append(res)
+        print(f"quantized matmul case {json.dumps(res)}", flush=True)
+        if not finite:
+            failures.append(f"{name}: kernel output is not finite")
+        if not ratio <= 1:
+            failures.append(f"{name}: kernel disagrees with its plain version: "
+                            f"{ratio:.3g}x the bound")
+        if not fault_ratio > 1:
+            failures.append(f"{name}: the bound does not reject the scaled group "
+                            f"({fault_ratio:.3g}x the bound)")
+        del x, q, s, w, out, ref, qs, ws
+        torch.cuda.empty_cache()
+    if failures:
+        fail("quantized matmul: " + "; ".join(failures))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 15: quantized (W8A16) Llama-2-7B serving through init_inference
+# ---------------------------------------------------------------------------
+
+QSERVE_BATCH, QSERVE_PROMPT, QSERVE_NEW = 4, 256, 32
+QSERVE_QUANT = {"enabled": True, "bits": 8, "group_size": 256}
+# Logits of the kernel route against the same engine with every quantized
+# linear pinned to dense_dequant, as relative L2 |a - b| / |b|, at two
+# points: the last prompt position of the uncached 4 x 256 forward (1024
+# rows, where the kernel does not split K), and the first cached decode step
+# (4 rows: K split over blocks and reduced by the second pass), both routes
+# on one cache. All routes round the same weights to bf16 and sum the
+# products in fp32, each in its own order; a one-ulp bf16 flip of one of the
+# 7 products of a layer is carried through 32 layers of random weights. The
+# kernel's plain version, a third order, shows what the order alone does;
+# it must pass the bound too. A control at each point, layer 0's down_proj
+# reading layer 1's scales, must land above it. Readings (H100 80GB HBM3,
+# 700 W): prefill kernel 0 (bit-identical outputs), plain version 0.0506,
+# control 0.764; decode step kernel 0.0445, plain version 0.0452, control
+# 0.701. The bound is about twice the largest sound reading and a seventh
+# of the smallest control.
+QSERVE_REL_L2_TOLERANCE = 0.1
+QSERVE_LINEARS = 7            # q, k, v, o, gate, up, down per layer
+
+
+def qlinears(module):
+    from deepspeed_tpu_torch.inference.quantization import QuantizedLinear
+    return [m for m in module.modules() if isinstance(m, QuantizedLinear) and m.layout == "kn"]
+
+
+def set_impls(linears, impl):
+    for m in linears:
+        m.set_impl(impl)
+
+
+def plain_route(linears):
+    """Every Dense linear on the kernel's plain version (the bf16 tile's
+    products in fp32, summed by the library in its own order): a sound
+    route, whose distance from ``dense_dequant`` is what reordering the fp32
+    sums alone does to the logits. ``set_impls`` undoes it."""
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+    for m in linears:
+        m._fn = lambda x, qp, out_dtype: qm.quantized_matmul_reference(
+            x, qp.q, qp.scale, qp.group_size, out_dtype)
+
+
+def swap_down_scales(module):
+    """Layer 0's down_proj reads layer 1's scales and back; call again to undo."""
+    down0, down1 = module.layers[0].mlp.down_proj, module.layers[1].mlp.down_proj
+    down0.scale, down1.scale = down1.scale, down0.scale
+
+
+def decode_step_logits(module, tok, cache, index):
+    """fp32 logits [B, V] of one cached decode step of ``tok`` [B] at
+    ``index``. The cache's index is set there first, so each route writes
+    the step's keys and values at that position before reading them."""
+    import torch
+    cache.index = index
+    pos = torch.full((tok.shape[0], 1), index, dtype=torch.long, device=tok.device)
+    logits, _ = module(tok[:, None], positions=pos, use_cache=True, cache=cache)
+    return logits[:, -1].float()
+
+
+def forced_logits(module, ids, forced):
+    """fp32 logits [B, S, V] of ``generate``'s greedy run with its tokens
+    replaced by ``forced`` [B, S]: the cached prefill of ``ids``, then S - 1
+    decode steps feeding ``forced[:, :-1]``."""
+    import torch
+    from deepspeed_tpu_torch.inference.generation import init_cache
+    cache = init_cache(module, ids)
+    B, Tp = ids.shape
+    logits, _ = module(ids, positions=torch.arange(Tp, device=ids.device).expand(B, Tp),
+                       use_cache=True, cache=cache)
+    out = [logits[:, -1].float()]
+    for i in range(1, forced.shape[1]):
+        out.append(decode_step_logits(module, forced[:, i - 1], cache, Tp - 1 + i))
+    return torch.stack(out, 1)
+
+
+def top2_gap(logits):
+    top = logits.topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def parting_report(module, linears, ids, tokens, plain_tokens):
+    """Where the kernel route's greedy stream parts from the dense route's:
+    per parting row, its first differing position and the top-2 logit gap
+    of both routes' logits there (both replayed on the common prefix), next
+    to the median gap over every position of the dense stream."""
+    import torch
+    differ = tokens != plain_tokens
+    rows = [b for b in range(tokens.shape[0]) if bool(differ[b].any())]
+    if not rows:
+        return {"parted_rows": 0}
+    first = {b: int(differ[b].nonzero()[0]) for b in rows}
+    S = max(first.values()) + 1
+    set_impls(linears, "dense_dequant")
+    plain = forced_logits(module, ids, plain_tokens[:, :S])
+    set_impls(linears, "cuda_fused_dequant")
+    kernel = forced_logits(module, ids, plain_tokens[:, :S])
+    report = {"parted_rows": len(rows), "dense_replay_matches_dense_stream": bool(
+                  (plain.argmax(-1) == plain_tokens[:, :S]).all()),
+              "median_top2_gap_dense_stream": float(top2_gap(plain).median()),
+              "partings": []}
+    for b in rows:
+        j = first[b]
+        a, k = int(plain_tokens[b, j]), int(tokens[b, j])
+        report["partings"].append(dict(
+            row=b, position=j, dense_token=a, kernel_token=k,
+            dense_top2_gap=float(top2_gap(plain[b, j])),
+            kernel_top2_gap=float(top2_gap(kernel[b, j])),
+            dense_logits_of_both=[float(plain[b, j, a]), float(plain[b, j, k])],
+            kernel_logits_of_both=[float(kernel[b, j, a]), float(kernel[b, j, k])]))
+    return report
+
+
+def phase_quantized_serving():
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.generation import init_cache
+    from deepspeed_tpu_torch.inference.quantization import quantized_nbytes
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+
+    cfg = LlamaConfig.llama2_7b()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM.from_seed(cfg, seed=0, device=DEVICE)
+    bf16_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    engine = deepspeed_tpu_torch.init_inference(
+        model, config={"dtype": "bf16", "quant": QSERVE_QUANT})
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    module = engine.module
+    linears = qlinears(module)
+    impls = {m.impl for m in linears}
+    if len(linears) != QSERVE_LINEARS * cfg.num_hidden_layers or impls != {"cuda_fused_dequant"}:
+        fail(f"quantized serving: {len(linears)} Dense linears on {impls}")
+    int8_bytes = sum(m.q.numel() for m in module.modules() if hasattr(m, "scale"))
+    scale_bytes = sum(m.scale.numel() * 4 for m in module.modules() if hasattr(m, "scale"))
+    served_bytes = quantized_nbytes(module)
+    print(f"quantized serving: Llama-2-7B, {cfg.num_hidden_layers} layers, bf16 weights "
+          f"{bf16_bytes / 1e9:.3f} GB drawn and quantized in {build_s:.1f}s: int8 "
+          f"{int8_bytes / 1e9:.3f} GB + scales {scale_bytes / 1e9:.3f} GB, "
+          f"{served_bytes / 1e9:.3f} GB served", flush=True)
+    rng = np.random.default_rng(15)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (QSERVE_BATCH, QSERVE_PROMPT)))
+    ids = ids.to(DEVICE)
+
+    def first_logits():
+        return engine(ids)[:, -1].float()
+
+    qm.quantized_matmul.launches = fa.flash_mha_fwd.launches = 0
+    kernel_logits = first_logits()
+    forward_launches = qm.quantized_matmul.launches
+    flash_launches = fa.flash_mha_fwd.launches
+    set_impls(linears, "dense_dequant")
+    plain_logits = first_logits()
+    plain_route(linears)
+    reorder_logits = first_logits()
+    set_impls(linears, "cuda_fused_dequant")
+    swap_down_scales(module)
+    control_logits = first_logits()
+    swap_down_scales(module)
+
+    # the first decode step, each route on the cache of one cached prefill
+    cache = init_cache(module, ids)
+    pre, _ = module(ids, positions=torch.arange(QSERVE_PROMPT, device=ids.device)
+                    .expand(QSERVE_BATCH, -1), use_cache=True, cache=cache)
+    tok, index = pre[:, -1].argmax(-1), cache.index
+    del pre
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    step_plans = {f"{K}x{N}": qm.plan(QSERVE_BATCH, K, N, sms)[1]
+                  for K, N in {tuple(m.shape) for m in linears}}
+    kernel_step = decode_step_logits(module, tok, cache, index)
+    set_impls(linears, "dense_dequant")
+    plain_step = decode_step_logits(module, tok, cache, index)
+    plain_route(linears)
+    reorder_step = decode_step_logits(module, tok, cache, index)
+    set_impls(linears, "cuda_fused_dequant")
+    swap_down_scales(module)
+    control_step = decode_step_logits(module, tok, cache, index)
+    swap_down_scales(module)
+    del cache
+    errs = {"prefill": (rel_l2(kernel_logits, plain_logits),
+                        rel_l2(reorder_logits, plain_logits),
+                        rel_l2(control_logits, plain_logits)),
+            "decode_step": (rel_l2(kernel_step, plain_step), rel_l2(reorder_step, plain_step),
+                            rel_l2(control_step, plain_step))}
+    print(f"quantized serving: logits vs the dense_dequant route, relative L2 (kernel, "
+          f"the kernel's plain version, control with layer 0 down_proj on layer 1's "
+          f"scales): {errs}, tolerance "
+          f"{QSERVE_REL_L2_TOLERANCE}; decode-step K splits per [K, N] {step_plans}; "
+          f"argmax agreement prefill "
+          f"{float((kernel_logits.argmax(-1) == plain_logits.argmax(-1)).float().mean())}, "
+          f"decode step {float((kernel_step.argmax(-1) == plain_step.argmax(-1)).float().mean())}",
+          flush=True)
+    if not (torch.isfinite(kernel_logits).all() and torch.isfinite(kernel_step).all()):
+        fail("quantized serving: kernel-route logits are not finite")
+    if forward_launches != QSERVE_LINEARS * cfg.num_hidden_layers or \
+            flash_launches != cfg.num_hidden_layers:
+        fail(f"quantized serving: a forward launched the kernel {forward_launches} times "
+             f"and flash_mha_fwd {flash_launches} times")
+    if max(step_plans.values()) < 2:
+        fail(f"quantized serving: no decode-step product splits K: {step_plans}")
+    for point, (err, reorder_err, control_err) in errs.items():
+        if not err <= QSERVE_REL_L2_TOLERANCE:
+            fail(f"quantized serving: {point} logits disagree: {err} > "
+                 f"{QSERVE_REL_L2_TOLERANCE}")
+        if not reorder_err <= QSERVE_REL_L2_TOLERANCE:
+            fail(f"quantized serving: the bound rejects the plain version at {point}: "
+                 f"{reorder_err} > {QSERVE_REL_L2_TOLERANCE}")
+        if not control_err > QSERVE_REL_L2_TOLERANCE:
+            fail(f"quantized serving: the bound does not reject the swapped scales at "
+                 f"{point}: {control_err} <= {QSERVE_REL_L2_TOLERANCE}")
+
+    # generation: prefill alone, then the whole run; the launches are counted
+    # over the whole run (1 prefill + QSERVE_NEW - 1 decode steps)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    engine.generate(ids, max_new_tokens=1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    qm.quantized_matmul.launches = 0
+    t = time.perf_counter()
+    tokens = engine.generate(ids, max_new_tokens=QSERVE_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = qm.quantized_matmul.launches
+    expected = QSERVE_LINEARS * cfg.num_hidden_layers * QSERVE_NEW
+    set_impls(linears, "dense_dequant")
+    plain_tokens = engine.generate(ids, max_new_tokens=QSERVE_NEW)
+    set_impls(linears, "cuda_fused_dequant")
+    parting = parting_report(module, linears, ids, tokens, plain_tokens)
+    if tuple(tokens.shape) != (QSERVE_BATCH, QSERVE_NEW) or int(tokens.min()) < 0 or \
+            int(tokens.max()) >= cfg.vocab_size:
+        fail(f"quantized serving: bad tokens {tokens[:, :8].tolist()}")
+    if launches != expected:
+        fail(f"quantized serving: the kernel launched {launches} times, expected "
+             f"{QSERVE_LINEARS} x {cfg.num_hidden_layers} x {QSERVE_NEW} forwards")
+    decode_ms = (wall - prefill_s) / (QSERVE_NEW - 1) * 1e3
+    window_bytes = 2 * cfg.num_hidden_layers * QSERVE_BATCH * cfg.max_position_embeddings * \
+        cfg.num_key_value_heads * cfg.head_dim * 2
+    step_bound_ms = (served_bytes - cfg.vocab_size * cfg.hidden_size * 2 + window_bytes) / \
+        HBM_BYTES_PER_S * 1e3
+    stats = dict(batch=QSERVE_BATCH, prompt=QSERVE_PROMPT, new_tokens=QSERVE_NEW,
+                 prefill_ms=prefill_s * 1e3, decode_ms_per_step=decode_ms,
+                 decode_step_bound_ms=step_bound_ms,
+                 decode_step_bound="weights read once plus the cache window the einsum "
+                                   "reads, over 3.35 TB/s",
+                 tokens_per_s=QSERVE_BATCH * QSERVE_NEW / wall, wall_s=wall,
+                 kernel_launches=launches, expected_launches=expected,
+                 quantized_weight_bytes=served_bytes, int8_bytes=int8_bytes,
+                 scale_bytes=scale_bytes, bf16_weight_bytes=bf16_bytes,
+                 greedy_agreement_with_dense_dequant=float(
+                     (tokens == plain_tokens).float().mean()),
+                 first_token_agreement=float(
+                     (tokens[:, 0] == plain_tokens[:, 0]).float().mean()),
+                 greedy_parting=parting,
+                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"quantized serving {json.dumps(stats)}", flush=True)
+    del engine, model
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 16: checkpoint round trip of a training engine, and a v1 engine
+# built from the tag
+# ---------------------------------------------------------------------------
+
+CKPT_LAYERS = 1               # Llama-2-7B geometry, 1 of 32 layers
+CKPT_STEPS = 2                # optimizer steps before and after the save
+
+
+def phase_checkpoint():
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.native_engine import (
+        NativeCheckpointEngine)
+
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=CKPT_LAYERS)
+    rng = np.random.default_rng(16)
+    micro = []
+    for _ in range(2 * CKPT_STEPS * TRAIN_GAS):
+        ids = rng.integers(0, cfg.vocab_size, (TRAIN_MICRO, TRAIN_T)).astype(np.int32)
+        micro.append({"input_ids": ids, "labels": ids})
+
+    def train(engine, batches):
+        losses = []
+        for b in batches:
+            loss = engine(b)
+            engine.backward(loss)
+            engine.step()
+            losses.append(loss.detach().float())
+        return torch.stack(losses).cpu()
+
+    def make(seed):
+        model = LlamaForCausalLM.from_seed(cfg, seed=seed, device=DEVICE)
+        return deepspeed_tpu_torch.initialize(model=model, config=TRAIN_CONFIG)[0]
+
+    (REPO / "build").mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(dir=REPO / "build", prefix="ckpt_")
+    try:
+        half = CKPT_STEPS * TRAIN_GAS
+        ref = make(0)
+        train(ref, micro[:half])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        path = ref.save_checkpoint(root)
+        save_s = time.perf_counter() - t
+        nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        t = time.perf_counter()
+        NativeCheckpointEngine().verify(path)
+        verify_s = time.perf_counter() - t
+        ref_losses = train(ref, micro[half:])
+        ref_master = ref.get_model_parameters()
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        resumed = make(1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loaded, _ = resumed.load_checkpoint(root)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        # a v1 engine from the tag against one from the resumed engine's live
+        # working weights (the tag's, before any step)
+        live = {n: p.detach().clone() for n, p in resumed.module.named_parameters()}
+        with torch.device("meta"):
+            blank = LlamaForCausalLM(cfg)
+        from_tag = deepspeed_tpu_torch.init_inference(
+            blank, config={"dtype": "bf16", "quant": QSERVE_QUANT, "checkpoint": path})
+        from_live = deepspeed_tpu_torch.init_inference(
+            LlamaForCausalLM.from_seed(cfg, seed=2, device=DEVICE),
+            config={"dtype": "bf16", "quant": QSERVE_QUANT}, params=live)
+        ids = torch.from_numpy(micro[0]["input_ids"][:, :256]).to(DEVICE)
+        tag_logits, live_logits = from_tag(ids)[:, -1], from_live(ids)[:, -1]
+        v1_equal = bool(torch.equal(tag_logits, live_logits))
+        del from_tag, from_live, live, blank
+        gc.collect()
+        torch.cuda.empty_cache()
+        got_losses = train(resumed, micro[half:])
+        got_master = resumed.get_model_parameters()
+        losses_equal = bool(torch.equal(got_losses, ref_losses))
+        masters_equal = all(torch.equal(got_master[k], v) for k, v in ref_master.items())
+        stats = dict(layers=CKPT_LAYERS, parameters=sum(v.numel() for v in ref_master.values()),
+                     tag=os.path.basename(path), loaded=os.path.basename(loaded),
+                     bytes=nbytes, save_s=save_s, verify_s=verify_s, load_s=load_s,
+                     save_gb_per_s=nbytes / save_s / 1e9, losses=ref_losses.tolist(),
+                     resumed_losses=got_losses.tolist(), losses_bitwise_equal=losses_equal,
+                     masters_bitwise_equal=masters_equal,
+                     v1_from_tag_logits_bitwise_equal=v1_equal)
+        print(f"checkpoint {json.dumps(stats)}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if not (losses_equal and masters_equal):
+        fail(f"checkpoint: the resumed run differs: losses {got_losses.tolist()} vs "
+             f"{ref_losses.tolist()}, masters equal {masters_equal}")
+    if not v1_equal:
+        fail("checkpoint: the v1 engine from the tag gives other logits than one from "
+             "the live weights")
+    return stats
+
+
 def quant_kernel_lines(cases, zero_ranks, ep_ranks):
     """The kernels-line entries of the two qgZ kernels: the main case's
     numbers, every case's, the launches of phase 11's run and those of
@@ -2503,6 +3013,19 @@ def main():
     t8 = time.perf_counter()
     rows_cases = phase_gmm_rows_kernels()
     print(f"phase grouped gemm rows kernels: {time.perf_counter() - t8:.1f}s", flush=True)
+    t9 = time.perf_counter()
+    qmm_cases = phase_quantized_matmul_kernels()
+    print(f"phase quantized matmul kernels: {time.perf_counter() - t9:.1f}s", flush=True)
+    t10 = time.perf_counter()
+    qserve_launches = phase_quantized_serving()
+    print(f"phase quantized serving: {time.perf_counter() - t10:.1f}s", flush=True)
+    gc.collect()                 # the quantized engine holds ~16 GB with its cache
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    phase_checkpoint()
+    print(f"phase checkpoint: {time.perf_counter() - t11:.1f}s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     zero_ranks = run_zero_phase()
     ep_ranks = run_expert_parallel_phase()
 
@@ -2585,6 +3108,19 @@ def main():
         case=main_rows["name"],
         cases=[dict(name=c["name"], shape=c["shape"], **{k: c[k] for k in rows_keys})
                for c in rows_cases]))
+    qmm_keys = ("max_abs_err", "err_ratio", "planted_fault_ratio", "ms", "plain_ms",
+                "library_ms", "library", "bound_ms", "bound_by", "plan")
+    main_qmm = qmm_cases[0]       # decode_7b_gate: a decode step's largest product
+    kernels.append(dict(
+        name="quantized_matmul", route="cuda",
+        source="deepspeed_tpu_torch/csrc/quantized_matmul.cu",
+        replaces="deepspeed_tpu/ops/pallas/quantized_matmul.py:149",
+        launches=qserve_launches,
+        **{k: main_qmm[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+        case=main_qmm["name"],
+        cases=[dict(name=c["name"], shape=c["shape"], **{k: c[k] for k in qmm_keys})
+               for c in qmm_cases]))
     print(f"total wall time: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -80,6 +80,25 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 
 
+def init_inference(model=None, config=None, params=None, device=None, **kwargs):
+    """Build the v1 inference engine (port of ``deepspeed_tpu.init_inference``).
+
+    ``model`` is a ``LlamaForCausalLM`` (or a module with its KV-cache
+    contract); ``params`` a state dict of its parameters, or the JAX
+    package's Llama parameter tree, converted through ``params_from_flax``;
+    ``config`` a dict of ``DeepSpeedInferenceConfig`` keys, which ``kwargs``
+    overlay; ``device`` the device to serve on (``cuda`` by default). Then
+    ``engine(ids)`` gives logits and ``engine.generate(ids, ...)`` tokens."""
+    from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    from deepspeed_tpu_torch.models.llama import params_from_flax
+
+    if isinstance(params, dict) and isinstance(params.get("layers"), dict):
+        params = params_from_flax(params)
+    cfg = DeepSpeedInferenceConfig.from_dict(config or {}, **kwargs)
+    return InferenceEngine(model, cfg, params=params, device=device)
+
+
 def add_config_arguments(parser):
     """Add the DeepSpeed CLI flags to an argparse parser: ``--deepspeed`` and
     ``--deepspeed_config <json>``, which :func:`initialize` reads through

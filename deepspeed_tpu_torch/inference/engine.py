@@ -1,0 +1,186 @@
+"""Inference engine v1 (port of ``deepspeed_tpu/inference/engine.py``).
+
+``init_inference`` serves a model's logits forward and KV-cached
+``generate`` on one device. As in the JAX engine, every floating weight is
+cast to ``config.dtype`` first (norm scales and the embedding too), then,
+with ``quant.enabled``, quantized (``inference/quantization``): each
+quantized ``nn.Linear`` becomes a ``QuantizedLinear`` and its bf16 weight is
+released as it is replaced, so the card never holds both copies.
+
+The JAX v1 engine dequantizes the whole tree to bf16 before every forward
+and leaves the fusion of that dequantization into the matmuls to XLA. Eager
+PyTorch has no such fusion, and a dequantized copy would put the dense
+weights back on the card, so the port multiplies the int8 weights directly:
+at 8 bits in bf16, every Dense kernel runs on the dequantize-matmul kernel
+(row 7), whose rounding points are v1's (``q * s`` in fp32, one rounding to
+bf16, fp32 products). Where no kernel exists the ``dense_dequant`` row
+serves, and the engine logs it once at build: 4-, 6- and 12-bit weights (no
+kernel in either package), ``lm_head`` (grouped along K, a layout the
+kernel does not take), and fp16 or fp32 serving, where v1 still rounds the
+weights to bf16 and the kernel would round them to the activations' dtype.
+
+Tensor-parallel or replicated serving is ROADMAP A5; a HuggingFace
+checkpoint directory is A6. ``config.checkpoint`` may name a tag written by
+the port's ``save_checkpoint``: its working weights load into the model (the
+JAX engine's intent, ``state.get("module", state)``; its own call raises,
+ROADMAP §C).
+"""
+
+import os
+import random
+
+import torch
+
+from deepspeed_tpu_torch import resolve_device
+from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+from deepspeed_tpu_torch.inference.generation import generate as _generate
+from deepspeed_tpu_torch.inference.quantization.quantization import (
+    V1_TILE_DTYPE, QuantizedLinear, quantize_param_tree, quantized_linear, quantized_nbytes,
+    replace_module)
+from deepspeed_tpu_torch.utils.logging import logger
+
+
+class InferenceEngine:
+    """Serve ``model`` (a ``torch.nn.Module`` with the KV-cache contract of
+    ``models/llama.py``) on ``device`` (default CUDA). ``params``: a state
+    dict to load into it; without one, ``config.checkpoint`` or the model's
+    own weights serve (a model on the meta device waits for
+    ``set_params``)."""
+
+    def __init__(self, model, config=None, params=None, device=None):
+        if not isinstance(config, DeepSpeedInferenceConfig):
+            config = DeepSpeedInferenceConfig.from_dict(config or {})
+        if int(config.tensor_parallel.tp_size) > 1 or int(config.replica_num) > 1:
+            raise NotImplementedError(
+                "tensor_parallel.tp_size > 1 or replica_num > 1 is not ported to "
+                "deepspeed_tpu_torch yet; see ROADMAP.md queue A5 (tensor-parallel "
+                "serving)")
+        if not torch.empty((), dtype=config.torch_dtype).is_floating_point():
+            raise NotImplementedError(
+                f"dtype={config.dtype}: integer serving dtypes require the "
+                "weight-quantization path (config.quant), not a raw cast")
+        self._config = config
+        self.device = resolve_device(device)
+        self.module = model
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(random.SystemRandom().randrange(2 ** 63))
+        if params is None and config.checkpoint:
+            params = self._load_checkpoint(config.checkpoint)
+        self._ready = False
+        if params is not None:
+            self.set_params(params)
+        elif model is not None and not any(p.is_meta for p in model.parameters()):
+            self.set_params({})
+
+    # -- setup -------------------------------------------------------------
+    def _load_checkpoint(self, path):
+        from deepspeed_tpu_torch.runtime.checkpoint_engine.native_engine import (
+            NativeCheckpointEngine)
+        if os.path.isdir(path) and os.path.exists(os.path.join(path, "config.json")):
+            raise NotImplementedError(
+                "HuggingFace checkpoint directories are not ported to "
+                "deepspeed_tpu_torch yet; see ROADMAP.md queue A6 (HF checkpoints)")
+        if self.module is None:
+            raise ValueError("loading a native checkpoint needs the model it was saved from")
+        ckpt = NativeCheckpointEngine()
+        manifest = ckpt.verify(path)
+        layout = manifest.get("layout", {})
+        if layout.get("zero_stage", 0) >= 3 or layout.get("axes", {}).get("ep", 1) > 1:
+            raise NotImplementedError(
+                f"{path} holds ZeRO-3 or expert-parallel shards of the weights; "
+                "assembling them is universal checkpoints, ROADMAP.md queue A15")
+        want = {f"module.{n}" for n, _ in self.module.named_parameters()}
+        have = {n for n, _ in manifest["leaves"][0]}
+        if not want <= have:
+            raise ValueError(f"{path} holds no weights for {sorted(want - have)[:3]}...: "
+                             "saved from another model")
+        loaded = ckpt.load(path, rank=0, manifest=manifest, names=want)
+        return {n[len("module."):]: t for n, t in loaded.items()}
+
+    def set_params(self, params):
+        """Load a state dict (names of the model's parameters; ``{}`` keeps
+        the model's own values) onto the device in ``config.dtype``, one
+        tensor at a time, then quantize with ``config.quant``. A weight whose
+        module is already quantized is quantized anew from the value given."""
+        dtype, mod = self._config.torch_dtype, self.module
+        q = self._config.quant
+        unknown = set(params) - {n for n, _ in mod.named_parameters()} - {
+            f"{n}.weight" for n, m in mod.named_modules() if isinstance(m, QuantizedLinear)}
+        if unknown:
+            raise ValueError(f"params name nothing in the model: {sorted(unknown)[:5]}")
+        if any(p.is_meta for p in mod.parameters()):
+            mod.to_empty(device=self.device)
+        with torch.no_grad():
+            for name, p in list(mod.named_parameters()):
+                value = torch.as_tensor(params[name]) if name in params else p.detach()
+                p.data = value.to(self.device, dtype if value.is_floating_point() else None)
+            for name, m in list(mod.named_modules()):
+                weight = f"{name}.weight"
+                if isinstance(m, QuantizedLinear) and weight in params:
+                    w = torch.as_tensor(params[weight]).to(self.device, dtype)
+                    replace_module(mod, name, quantized_linear(
+                        name, w, m.bias, q.bits, q.group_size, m.impl))
+        mod.eval().requires_grad_(False)
+        self._maybe_quantize()
+        self._ready = True
+
+    def _maybe_quantize(self):
+        q = self._config.quant
+        if not q.enabled:
+            return
+        dtype = self._config.torch_dtype
+        impl = None
+        if q.bits != 8:
+            impl = "dense_dequant"
+            logger.info(f"weight quantization: {q.bits}-bit weights have no kernel in "
+                        f"either package; every quantized linear runs dense_dequant")
+        elif dtype != V1_TILE_DTYPE:
+            impl = "dense_dequant"
+            logger.info(f"weight quantization: serving {dtype}, the weights round to bf16 "
+                        f"(the JAX v1 engine's dequantization) and the kernel rounds to "
+                        f"the activations' dtype; every quantized linear runs dense_dequant")
+        before = quantized_nbytes(self.module)
+        quantize_param_tree(self.module, num_bits=q.bits, group_size=q.group_size, impl=impl)
+        after = quantized_nbytes(self.module)
+        raw = [n for n, m in self.module.named_modules()
+               if isinstance(m, QuantizedLinear) and m.layout == "nk"]
+        if raw and impl is None:
+            logger.info(f"weight quantization: {raw} grouped along K, a layout the kernel "
+                        f"does not take: dense_dequant")
+        logger.info(f"weight quantization: {before / 1e6:.1f}MB -> {after / 1e6:.1f}MB "
+                    f"({q.bits}-bit)")
+
+    # -- serving -----------------------------------------------------------
+    def _require_params(self):
+        if not self._ready:
+            raise RuntimeError(
+                "InferenceEngine has no parameters: pass params= to init_inference, "
+                "set config.checkpoint to a checkpoint tag, or call set_params()")
+
+    @torch.no_grad()
+    def forward(self, batch, **kwargs):
+        """Logits [B, T, V] of ``batch`` (ids [B, T], or a dict with
+        ``input_ids``)."""
+        self._require_params()
+        if not isinstance(batch, dict):
+            batch = {"input_ids": batch}
+        batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+        return self.module(batch, **kwargs)
+
+    __call__ = forward
+
+    def generate(self, input_ids, max_new_tokens=32, temperature=0.0, top_k=0, top_p=1.0,
+                 rng=None, eos_token_id=None, **kwargs):
+        """KV-cached generation: [B, max_new_tokens] token ids. ``rng``: a
+        ``torch.Generator`` or a seed for sampling (default the engine's)."""
+        self._require_params()
+        max_new_tokens = min(max_new_tokens, self._config.max_out_tokens)
+        if isinstance(rng, int):
+            rng = torch.Generator(device=self.device).manual_seed(rng)
+        return _generate(self.module, input_ids, max_new_tokens=max_new_tokens,
+                         temperature=temperature, top_k=top_k, top_p=top_p,
+                         generator=rng or self._generator, eos_token_id=eos_token_id)
+
+    def destroy(self):
+        """The JAX engine releases its compiled functions here; the port
+        compiles none, so nothing is released."""

@@ -39,7 +39,8 @@ class ModulesConfig(DeepSpeedConfigModel):
     such."""
     attention = "auto"        # "cuda_paged" | "dense"
     moe = "auto"              # "cuda_gmm" | "einsum" (MoE models only)
-    linear = "auto"           # must stay "auto"; no quantized linear here
+    linear = "auto"           # must stay "auto": the linear rows serve the v1
+    #                           engine's quantized weights; this engine has none
 
 
 class SpeculativeConfig(DeepSpeedConfigModel):

@@ -5,8 +5,10 @@
 a shape the kernel cannot take raises, so a run that asked for the card
 cannot silently measure something else. A plain version serves only when
 the config pins it (``modules.attention = "dense"``, ``modules.moe =
-"einsum"``).
+"einsum"``, ``linear`` = "dense_dequant").
 """
+
+import torch
 
 from deepspeed_tpu_torch.inference.v2.modules import implementations  # noqa: F401  (registers rows)
 from deepspeed_tpu_torch.inference.v2.modules.module_registry import select
@@ -29,3 +31,16 @@ def instantiate_moe(d_model, d_ff, preference=None):
     if preference in (None, "auto"):
         preference = "cuda_gmm"
     return select("moe", preference, d_model=d_model, d_ff=d_ff)
+
+
+def instantiate_linear(m, k, n, group_size, num_bits, ndim=2, preference=None,
+                       dtype=torch.bfloat16, device_type="cuda"):
+    """-> ('cuda_fused_dequant' | 'dense_dequant', callable) for a
+    quantized-weight product [M, K] @ [K, N] with activations of ``dtype``
+    on ``device_type``. None/'auto' means the kernel row at 8 bits, which
+    raises where the kernel cannot serve; 4-, 6- and 12-bit weights have no
+    kernel in either package, so there it means 'dense_dequant'."""
+    if preference in (None, "auto"):
+        preference = "cuda_fused_dequant" if num_bits == 8 else "dense_dequant"
+    return select("linear", preference, m=m, k=k, n=n, group_size=group_size,
+                  num_bits=num_bits, ndim=ndim, dtype=dtype, device_type=device_type)

@@ -7,7 +7,10 @@ is the JAX model's training forward (RMSNorm in fp32, interleaved rotary,
 weights the ragged serving forward (``inference/v2/model_implementations/
 llama.py``) also runs. Parameter names follow the HuggingFace layout
 (``layers.0.self_attn.q_proj.weight``, ...) and linear weights are
-``nn.Linear``'s ``[out, in]``. ``params_from_flax`` converts the JAX
+``nn.Linear``'s ``[out, in]``. With ``use_cache`` the forward is the JAX
+model's KV-cached path (a fixed ``max_position_embeddings`` window per
+layer in a ``KVCache`` the caller holds, plain tensor code there too), which
+the v1 engine's ``generate`` runs. ``params_from_flax`` converts the JAX
 package's scan-stacked flax tree (parameters or their gradients) into this
 module's state dict.
 """
@@ -21,7 +24,7 @@ from torch import nn
 
 from deepspeed_tpu_torch import resolve_device
 from deepspeed_tpu_torch.models.losses import lm_head_next_token_loss
-from deepspeed_tpu_torch.ops.flash_attention import mha
+from deepspeed_tpu_torch.ops.flash_attention import NEG_INF, mha
 from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
 
 
@@ -131,16 +134,52 @@ class LlamaAttention(nn.Module):
         self.o_proj = nn.Linear(H * Dh, D, bias=cfg.attention_out_bias, **kw)
         self.config = cfg
 
-    def forward(self, x, positions, attention=mha):
+    def forward(self, x, positions, attention=mha, kv=None):
+        """``kv``: this layer's ``(keys, values, index)`` of a ``KVCache``;
+        with it the cached path runs instead of ``attention``."""
         cfg = self.config
         B, T, _ = x.shape
         H, KV, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
         q = rotary_embed(self.q_proj(x).view(B, T, H, Dh), positions, cfg.rope_theta)
         k = rotary_embed(self.k_proj(x).view(B, T, KV, Dh), positions, cfg.rope_theta)
         v = self.v_proj(x).view(B, T, KV, Dh)
-        # GQA k/v pass un-repeated; a sliding window goes to the kernel
-        out = attention(q, k, v, causal=True, window=cfg.sliding_window or None)
+        if kv is not None:
+            out = cached_attention(q, k, v, *kv, window=cfg.sliding_window)
+        else:
+            # GQA k/v pass un-repeated; a sliding window goes to the kernel
+            out = attention(q, k, v, causal=True, window=cfg.sliding_window or None)
         return self.o_proj(out.reshape(B, T, H * Dh))
+
+
+def cached_attention(q, k, v, keys, values, index, window=None):
+    """Attention of ``q`` [B, T, H, Dh] over a fixed-window cache, the JAX
+    model's ``use_cache`` path (plain tensor code there too): ``k``, ``v``
+    [B, T, KV, Dh] are written into ``keys``/``values`` [B, KV, L, Dh] at
+    ``index``; position j of the window is visible to query i iff
+    ``j <= index + i`` (and ``j > index + i - window``), masked with
+    ``NEG_INF``. GQA runs against the unrepeated cache: the logits in q's
+    dtype, then fp32 with the softmax, probabilities cast back to q's dtype
+    for the product with the values. The cache keeps each (row, KV head)'s
+    window contiguous, so both products read it in place (the JAX layout
+    [B, L, KV, Dh] would make them copy it whole, every layer and step)."""
+    B, T, H, Dh = q.shape
+    KV, L = keys.shape[1], keys.shape[2]
+    if index + T > L:
+        raise ValueError(f"cache window {L} cannot take {T} more positions at {index}")
+    keys[:, :, index:index + T] = k.transpose(1, 2).to(keys.dtype)
+    values[:, :, index:index + T] = v.transpose(1, 2).to(values.dtype)
+    key_pos = torch.arange(L, device=q.device)[None, :]
+    qry_pos = index + torch.arange(T, device=q.device)[:, None]
+    visible = key_pos <= qry_pos
+    if window:
+        visible = visible & (key_pos > qry_pos - window)
+    bias = torch.where(visible, 0.0, NEG_INF)
+    rep = H // KV
+    qg = q.reshape(B, T, KV, rep, Dh).permute(0, 2, 3, 1, 4).reshape(B, KV, rep * T, Dh)
+    logits = (qg @ keys.transpose(2, 3)).float() * (1.0 / Dh ** 0.5)
+    probs = torch.softmax(logits.view(B, KV, rep, T, L) + bias, dim=-1).to(q.dtype)
+    out = probs.view(B, KV, rep * T, L) @ values             # [B, KV, rep * T, Dh]
+    return out.view(B, KV, rep, T, Dh).permute(0, 3, 1, 2, 4).reshape(B, T, H, Dh)
 
 
 class LlamaMLP(nn.Module):
@@ -168,9 +207,24 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
                                                 cfg.rms_norm_eps, device)
 
-    def forward(self, x, positions, attention=mha):
-        x = x + self.self_attn(self.input_layernorm(x), positions, attention)
+    def forward(self, x, positions, attention=mha, kv=None):
+        x = x + self.self_attn(self.input_layernorm(x), positions, attention, kv)
         return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class KVCache:
+    """The fixed-window KV cache a caller holds for ``LlamaForCausalLM``'s
+    cached forward (the JAX model's "cache" collection): per layer keys and
+    values [B, KV, max_position_embeddings, Dh], zeros at first, and the
+    next position to write, shared by every layer."""
+
+    def __init__(self, config, batch, dtype, device):
+        shape = (batch, config.num_key_value_heads, config.max_position_embeddings,
+                 config.head_dim)
+        self.keys = [torch.zeros(shape, dtype=dtype, device=device)
+                     for _ in range(config.num_hidden_layers)]
+        self.values = [torch.zeros_like(k) for k in self.keys]
+        self.index = 0
 
 
 class LlamaForCausalLM(nn.Module):
@@ -190,13 +244,16 @@ class LlamaForCausalLM(nn.Module):
         self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
                                  bias=False, **kw)
 
-    def forward(self, batch, positions=None, attention=mha):
+    def forward(self, batch, positions=None, attention=mha, use_cache=False, cache=None):
         """The JAX model's ``__call__``: ``batch`` is a dict with
         ``input_ids`` [B, T] and optional ``labels`` [B, T], or the ids
         alone. Returns the next-token loss when there are labels, else the
         logits [B, T, V]. In training each decoder layer runs under the
         configured activation-checkpointing policy (``config.remat``).
-        ``attention`` replaces ``mha`` (a plain version, for comparisons)."""
+        ``attention`` replaces ``mha`` (a plain version, for comparisons).
+        With ``use_cache`` the layers attend through ``cache`` (a
+        ``KVCache``), which advances by T, and ``(logits, cache)`` is
+        returned."""
         cfg = self.config
         if isinstance(batch, dict):
             input_ids, labels = batch["input_ids"], batch.get("labels")
@@ -207,14 +264,22 @@ class LlamaForCausalLM(nn.Module):
         x = self.embed_tokens(input_ids)
         if positions is None:
             positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
-        for layer in self.layers:
-            if cfg.remat:
-                x = checkpointing.checkpoint(layer, x, positions, attention)
-            else:
-                x = layer(x, positions, attention)
+        if use_cache:
+            if cache is None:
+                raise ValueError("use_cache needs the KVCache the caller holds")
+            for layer, keys, values in zip(self.layers, cache.keys, cache.values):
+                x = layer(x, positions, attention, kv=(keys, values, cache.index))
+            cache.index += T
+        else:
+            for layer in self.layers:
+                if cfg.remat:
+                    x = checkpointing.checkpoint(layer, x, positions, attention)
+                else:
+                    x = layer(x, positions, attention)
         x = self.norm(x)
-        if labels is None:
-            return x @ self.lm_head.weight.to(x.dtype).T
+        if labels is None or use_cache:
+            logits = self.lm_head(x)
+            return (logits, cache) if use_cache else logits
         return lm_head_next_token_loss(x, self.lm_head.weight, labels)
 
     @classmethod

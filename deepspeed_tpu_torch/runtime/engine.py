@@ -54,9 +54,19 @@ losses, as in the JAX qgZ engine (``:921``).
 - ``step()`` at the boundary reduces the gradients, unscales them, skips the
   step on fp16 overflow (any rank's), clips by the global norm, runs the
   optimizer on this rank's masters, updates the working copy and the loss
-  scale (``engine.py:1106-1147``).
+  scale (``engine.py:1106-1147``);
+- ``save_checkpoint`` / ``load_checkpoint`` (``engine.py:2214-2444``): every
+  rank writes its own state (``state_dict``: working copy at rest, masters,
+  Adam's moments, accumulators, qgZ residual) into one tag
+  (``checkpoint_engine/native_engine.py``), with the counters, loss scale,
+  LR scheduler and client state; a load verifies the tag, quarantines a
+  corrupt one to ``<tag>.corrupt`` and falls back to the newest earlier
+  valid tag. A tag loads only into the world size, topology and ZeRO stage
+  it was cut for (other layouts: universal checkpoints, ROADMAP A15).
 """
 
+import os
+import re
 import weakref
 from typing import Any, NamedTuple
 
@@ -69,6 +79,8 @@ from deepspeed_tpu_torch.moe.utils import moe_param_specs
 from deepspeed_tpu_torch.ops.adam import build_optimizer, set_lr
 from deepspeed_tpu_torch.parallel import groups
 from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
+from deepspeed_tpu_torch.runtime.checkpoint_engine.native_engine import (
+    CorruptCheckpointError, NativeCheckpointEngine, atomic_write_text)
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader, RepeatingLoader
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (LossScaleState,
@@ -80,7 +92,7 @@ from deepspeed_tpu_torch.runtime.utils import (clip_grads_by_global_norm, global
 from deepspeed_tpu_torch.runtime.zero.partition import (ZeroPartitioner, alloc_storage,
                                                         free_storage, gather_full,
                                                         is_resident, shard_of)
-from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 _DTYPES = {None: torch.float32, "fp32": torch.float32, "fp16": torch.float16,
            "bf16": torch.bfloat16}
@@ -646,3 +658,189 @@ class DeepSpeedEngine:
                 m = dist.all_gather(m.reshape(leaf.shape), group=self.topology.get_group("ep"))
             out[leaf.name] = m.cpu().clone()
         return out
+
+    # ------------------------------------------------------------------
+    # checkpointing (JAX engine.py:2214-2444)
+    # ------------------------------------------------------------------
+    def _adam_state(self, master):
+        """The optimizer's state of ``master``, its moments made (zeros, step
+        0) where no step has run yet, so that every engine has the same
+        leaves to save and to load into."""
+        st = self.optimizer.state[master]
+        if not st:
+            st.update(step=0, mu=torch.zeros_like(master), nu=torch.zeros_like(master))
+        return st
+
+    def state_dict(self):
+        """This rank's training state by name, in leaf order: the working
+        copy at rest (the stage-3 chunk where sharded), the fp32 master where
+        it is a tensor of its own, Adam's moments, the gradient accumulator
+        and the qgZ error-feedback residual. The engine's own tensors, not
+        copies."""
+        sd = {}
+        for i, leaf in enumerate(self._leaves):
+            n = leaf.name
+            sd[f"module.{n}"] = leaf.shard if leaf.param_dim is not None else leaf.param.data
+            if leaf.master is not leaf.param and leaf.master is not leaf.shard:
+                sd[f"master.{n}"] = leaf.master
+            st = self._adam_state(leaf.master)
+            sd[f"exp_avg.{n}"], sd[f"exp_avg_sq.{n}"] = st["mu"], st["nu"]
+            sd[f"grad_acc.{n}"] = leaf.acc
+            if self._residual is not None:
+                sd[f"qgz_residual.{n}"] = self._residual[i]
+        return sd
+
+    @torch.no_grad()
+    def load_state_dict(self, state_dict, module_only=False):
+        """Copy another engine's ``state_dict()`` (the same leaves and
+        layout) into this one's tensors; ``module_only`` copies only the
+        working copy and the masters."""
+        live = self.state_dict()
+        for name, value in state_dict.items():
+            if module_only and not name.startswith(("module.", "master.")):
+                continue
+            live[name].copy_(value)
+
+    def _checkpoint_layout(self):
+        """What a tag's shards are cut for: the world, the rank grid and the
+        ZeRO stage (with its persistence threshold)."""
+        return {"world": dist.get_world_size(), "axes": dict(self.topology._sizes),
+                "zero_stage": self.zero_optimization_stage(),
+                "param_world": self.partitioner.param_world,
+                "persistence_threshold": self.partitioner.threshold}
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None, save_latest=True,
+                        async_save=False):
+        """Save this engine's state to ``save_dir/tag`` (default
+        ``global_step<N>``) on every rank, then point ``save_dir/latest`` at
+        it. Returns the tag's path."""
+        if async_save:
+            raise NotImplementedError("async_save is not ported to deepspeed_tpu_torch "
+                                      "yet; see ROADMAP.md queue A15 (checkpoint platform)")
+        tag = str(tag or f"global_step{self.global_steps}")
+        path = os.path.join(save_dir, tag)
+        st = next(iter(self.optimizer.state.values()), {})
+        meta = {"counters": {"global_steps": self.global_steps,
+                             "global_samples": self.global_samples,
+                             "micro_steps": self.micro_steps,
+                             "skipped_steps": self._skipped,
+                             "loss_scale": tuple(self.scale)},
+                "lr_scheduler": self.lr_scheduler.state_dict(),
+                "client_state": client_state or {},
+                "ds_config": self.config._param_dict}
+        NativeCheckpointEngine().save(self.state_dict(), path, meta=meta,
+                                      aux={"adam_step": st.get("step", 0)},
+                                      layout=self._checkpoint_layout())
+        if save_latest and dist.get_rank() == 0:
+            atomic_write_text(os.path.join(save_dir, "latest"), tag)
+        dist.barrier()
+        log_dist(f"saved checkpoint {path}", ranks=[0])
+        return path
+
+    @staticmethod
+    def _checkpoint_tags(load_dir):
+        """Tags in ``load_dir``, newest first: numbered tags (a trailing
+        integer) by number ahead of the others by mtime; quarantined and
+        in-flight directories are never candidates."""
+        out = []
+        for name in os.listdir(load_dir):
+            p = os.path.join(load_dir, name)
+            if not os.path.isdir(p) or ".corrupt" in name or ".tmp." in name \
+                    or ".old." in name or not os.path.exists(os.path.join(p, "meta.json")):
+                continue
+            m = re.search(r"(\d+)$", name)
+            out.append(((1, int(m.group(1))) if m else (0, os.path.getmtime(p)), name))
+        return [n for _, n in sorted(out, reverse=True)]
+
+    @staticmethod
+    def _quarantine(path):
+        """Move a corrupt tag aside to ``<tag>.corrupt`` (kept, not deleted)."""
+        dst, n = f"{path}.corrupt", 0
+        while os.path.exists(dst):
+            n += 1
+            dst = f"{path}.corrupt.{n}"
+        try:
+            os.replace(path, dst)
+        except OSError:
+            return None
+        return dst
+
+    def _read_tag(self, ckpt, path):
+        """This rank's leaves of ``path``, verified; CorruptCheckpointError
+        on every rank when any rank found the tag corrupt."""
+        err, loaded = None, None
+        try:
+            manifest = ckpt.verify(path)
+            layout = self._checkpoint_layout()
+            if manifest.get("layout") != layout:
+                raise NotImplementedError(
+                    f"checkpoint {path} was cut for {manifest.get('layout')}, this engine "
+                    f"runs {layout}: loading at another world size, topology or ZeRO "
+                    f"stage needs universal checkpoints, ROADMAP.md queue A15")
+            loaded = (ckpt.load(path, template=self.state_dict(), rank=dist.get_rank(),
+                                manifest=manifest), ckpt.load_meta(path), ckpt.load_aux(path))
+        except CorruptCheckpointError as e:
+            err = e
+        flag = torch.tensor([float(err is not None)], device=self.device)
+        dist.all_reduce(flag)
+        if flag.item() > 0:
+            raise err or CorruptCheckpointError(path, reason="another rank found it corrupt")
+        return loaded
+
+    def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True,
+                        load_lr_scheduler_states=True, load_module_only=False):
+        """Load ``load_dir/tag`` (default: the ``latest`` pointer) on every
+        rank. A corrupt tag is quarantined and the newest earlier valid tag
+        loads instead (``latest`` is then repaired). Returns ``(path,
+        client_state)``, or ``(None, {})`` when there is no ``latest``."""
+        if tag is None:
+            latest = os.path.join(load_dir, "latest")
+            if not os.path.exists(latest):
+                logger.warning(f"no 'latest' file in {load_dir}; nothing loaded")
+                return None, {}
+            with open(latest) as f:
+                tag = f.read().strip()
+        ckpt, attempted = NativeCheckpointEngine(), []
+        while True:
+            path = os.path.join(load_dir, str(tag))
+            try:
+                state, meta, aux = self._read_tag(ckpt, path)
+                break
+            except CorruptCheckpointError as e:
+                attempted.append(str(tag))
+                dist.barrier()
+                q = self._quarantine(path) if dist.get_rank() == 0 and os.path.isdir(path) \
+                    else None
+                dist.barrier()
+                logger.error(f"checkpoint {path} corrupt: {e}"
+                             + (f"; quarantined to {q}" if q else ""))
+                candidates = [t for t in self._checkpoint_tags(load_dir) if t not in attempted]
+                if not candidates:
+                    raise
+                tag = candidates[0]
+                logger.warning(f"falling back to checkpoint tag {tag!r}")
+        if attempted and dist.get_rank() == 0:
+            atomic_write_text(os.path.join(load_dir, "latest"), str(tag))
+        module_only = load_module_only or not load_optimizer_states
+        self.load_state_dict(state, module_only=module_only)
+        if not module_only:
+            for leaf in self._leaves:
+                self.optimizer.state[leaf.master]["step"] = aux.get("adam_step", 0)
+        c = meta.get("counters", {})
+        self.global_steps = int(c.get("global_steps", 0))
+        self.global_samples = int(c.get("global_samples", 0))
+        self.micro_steps = int(c.get("micro_steps", 0))
+        self._skipped = int(c.get("skipped_steps", 0))
+        if "loss_scale" in c:
+            self.scale = LossScaleState(*c["loss_scale"])
+        if load_lr_scheduler_states and "lr_scheduler" in meta:
+            self.lr_scheduler.load_state_dict(meta["lr_scheduler"])
+        self._release_all()
+        dist.barrier()
+        log_dist(f"loaded checkpoint {path} (step {self.global_steps})", ranks=[0])
+        return path, meta.get("client_state", {})
+
+    def save_16bit_model(self, save_dir, save_filename=None):
+        raise NotImplementedError("save_16bit_model writes a HuggingFace export by default; "
+                                  "it is not ported to deepspeed_tpu_torch yet: see "
+                                  "ROADMAP.md queue A6 (HF checkpoints)")

@@ -4,6 +4,12 @@ time on the GPU.
     python -m deepspeed_tpu_torch.tools.profile_decode [--model llama]
         [--seqs 8] [--prompt 512] [--rounds 4] [--seed 0]
 
+``--model llama-int8`` profiles the v1 engine instead: Llama-2-7B (all 32
+layers) quantized to int8 by ``init_inference``; each round is one call of
+its entry point, ``engine.generate`` of ``INT8_NEW_TOKENS`` greedy tokens
+for ``--seqs`` prompts of ``--prompt`` random tokens (a prefill into the
+fixed-window KV cache, then the decode loop).
+
 Serves ``--seqs`` greedy requests of ``--prompt`` random tokens through
 ``build_engine`` + ``SplitFuseScheduler`` on Llama-2-7B (all 32 layers) or
 Mixtral-8x7B (``--model mixtral``: full width, 16 of its 32 layers, the
@@ -29,6 +35,8 @@ def _group(name):
     n = name.lower()
     if "paged_mha" in n:
         return "paged_attention"
+    if "quantized_matmul" in n or "split_reduce" in n:
+        return "quantized_matmul"
     if "grouped_gemm" in n:
         return "grouped_gemm"
     if any(k in n for k in ("gemm", "gemv", "nvjet", "cutlass", "xmma", "sm90")):
@@ -42,7 +50,7 @@ def _group(name):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("llama", "mixtral"), default="llama")
+    ap.add_argument("--model", choices=("llama", "mixtral", "llama-int8"), default="llama")
     ap.add_argument("--seqs", type=int, default=8)
     ap.add_argument("--prompt", type=int, default=512)
     ap.add_argument("--rounds", type=int, default=4)
@@ -53,7 +61,9 @@ def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
 
     from deepspeed_tpu_torch.inference.v2 import SplitFuseScheduler, build_engine
-    if args.model == "mixtral":
+    if args.model == "llama-int8":
+        step, cfg = _int8_generate(args)
+    elif args.model == "mixtral":
         from deepspeed_tpu_torch.models.mixtral import (
             MixtralConfig as Config, MixtralForCausalLM as Model)
         cfg = Config.mixtral_8x7b(num_hidden_layers=16)
@@ -61,33 +71,35 @@ def main(argv=None):
         from deepspeed_tpu_torch.models.llama import (
             LlamaConfig as Config, LlamaForCausalLM as Model)
         cfg = Config.llama2_7b()
-    model = Model.from_seed(cfg, seed=args.seed)
-    bs = 64
-    per_seq = -(-(args.prompt + 64 + 2 * args.rounds) // bs)
-    engine = build_engine(model, {
-        "state_manager": {"max_ragged_sequence_count": args.seqs,
-                          "max_ragged_batch_size": 512,
-                          "max_context": 2048,
-                          "num_kv_blocks": args.seqs * per_seq},
-        "kv_cache": {"block_size": bs, "cache_dtype": "bf16"}})
-    sched = SplitFuseScheduler(engine)
-    rng = np.random.default_rng(args.seed)
-    for uid in range(args.seqs):
-        sched.submit(uid, rng.integers(0, cfg.vocab_size, args.prompt),
-                     max_new_tokens=64)
-    while any(len(t) == 0 for t in sched.results().values()):
-        sched.step()
+    if args.model != "llama-int8":
+        model = Model.from_seed(cfg, seed=args.seed)
+        bs = 64
+        per_seq = -(-(args.prompt + 64 + 2 * args.rounds) // bs)
+        engine = build_engine(model, {
+            "state_manager": {"max_ragged_sequence_count": args.seqs,
+                              "max_ragged_batch_size": 512,
+                              "max_context": 2048,
+                              "num_kv_blocks": args.seqs * per_seq},
+            "kv_cache": {"block_size": bs, "cache_dtype": "bf16"}})
+        sched = SplitFuseScheduler(engine)
+        rng = np.random.default_rng(args.seed)
+        for uid in range(args.seqs):
+            sched.submit(uid, rng.integers(0, cfg.vocab_size, args.prompt),
+                         max_new_tokens=64)
+        while any(len(t) == 0 for t in sched.results().values()):
+            sched.step()
+        step = sched.step
     for _ in range(2):          # warm decode rounds
-        sched.step()
+        step()
     t0 = time.perf_counter()
     for _ in range(args.rounds):
-        sched.step()
+        step()
     plain_round_ms = (time.perf_counter() - t0) / args.rounds * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.rounds):
-            sched.step()
+            step()
         wall = time.perf_counter() - t0
     # device-side events only (kernels, copies): host ops that launched
     # them carry the same time and would count it twice
@@ -116,10 +128,34 @@ def main(argv=None):
         "device_idle_share": (1 - busy_ms / round_ms) if per_kernel else None,
         "groups_ms_per_round": groups,
         "top_kernels_ms_per_round": {k[:90]: v / args.rounds for k, v in top},
+        "quantized_matmul_kernels_per_round": sum(
+            e.count for e in device if "quantized_matmul" in e.key) / args.rounds,
         "paged_mha_kernels_per_round": sum(
             e.count for e in device if "paged_mha" in e.key) / args.rounds,
         "grouped_gemm_kernels_per_round": sum(
             e.count for e in device if "grouped_gemm" in e.key) / args.rounds}))
+
+
+INT8_NEW_TOKENS = 32
+
+
+def _int8_generate(args):
+    """(round, config): one ``engine.generate`` call of the int8 v1 engine
+    per round."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.llama2_7b()
+    engine = deepspeed_tpu_torch.init_inference(
+        LlamaForCausalLM.from_seed(cfg, seed=args.seed),
+        config={"dtype": "bf16", "quant": {"enabled": True, "bits": 8, "group_size": 256}})
+    rng = np.random.default_rng(args.seed)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (args.seqs, args.prompt))).cuda()
+
+    def generate():
+        engine.generate(ids, max_new_tokens=INT8_NEW_TOKENS)
+        torch.cuda.synchronize()
+    return generate, cfg
 
 
 if __name__ == "__main__":

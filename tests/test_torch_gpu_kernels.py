@@ -829,3 +829,118 @@ def test_nccl_exchange_reduce_matches_plain(cuda):
         want_err = blocks[r] - qc.block_dequantize(*wires[r], num_bits=4, out_len=5000)
         assert same_bits(results[r][0], want)
         assert same_bits(results[r][1], want_err)
+
+
+# -- W8A16 quantized matmul (kernel row 7) -----------------------------------
+# Per-element bound: RTOL[out dtype] * |plain| + QMM_ACC * (|x| @ |w|), w the
+# dequantized tile. Kernel and plain version round the same tile, multiply
+# exactly in fp32 (bf16/fp16 products) and differ in the order of the fp32
+# sums, then round once to the output dtype (the RTOL term). The sums' order
+# moves a result by a few fp32 units of sum_k |x w| (random-walk growth,
+# about sqrt(K) * 2^-24 = 2^-17 of it at K = 11008); QMM_ACC = 2^-16 leaves
+# room for that. One scale group of one K row multiplied by 1.5 moves the
+# group's outputs by 0.5 |x w| of that row, far above both terms
+# (``test_qmm_bound_rejects_a_scaled_group``).
+QMM_ACC = 2 ** -16
+QMM_CASES = {
+    # name: M, K, N, G, x dtype, out dtype
+    "decode_7b_gate": (4, 4096, 11008, 256, torch.bfloat16, None),
+    "decode_7b_down": (4, 11008, 4096, 256, torch.bfloat16, None),
+    "m1": (1, 4096, 4096, 256, torch.bfloat16, None),
+    "m13_g128": (13, 4096, 4096, 128, torch.bfloat16, None),
+    "m17_ragged": (17, 1032, 528, 48, torch.bfloat16, None),
+    "prefill": (300, 4096, 1024, 256, torch.bfloat16, None),
+    "fp16_fp32_out": (64, 1024, 2048, 128, torch.float16, torch.float32),
+    "bf16_fp16_out": (8, 512, 256, 16, torch.bfloat16, torch.float16),
+}
+
+
+def qmm_case(M, K, N, G, dtype, dev, seed=0):
+    from deepspeed_tpu_torch.ops.quantizer import quantize_lastdim
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+    w = torch.randn(K, N, generator=g, device=dev) * K ** -0.5
+    q, s = quantize_lastdim(w, group_size=G)
+    return x, q, s
+
+
+def qmm_ratio(out, ref, x, q, s, G):
+    from deepspeed_tpu_torch.ops.quantizer import dequantize_lastdim
+    w = dequantize_lastdim(q, s, group_size=G, dtype=x.dtype).float()
+    mag = x.float().abs() @ w.abs()
+    bound = RTOL[out.dtype] * ref.float().abs() + QMM_ACC * mag
+    return ((out.float() - ref.float()).abs() / bound.clamp(min=1e-30)).max().item()
+
+
+def scaled_group(x, s):
+    """The planted fault: the first scale group of x's largest K row times 1.5."""
+    bad = s.clone()
+    k = int(x.float().abs().amax(0).argmax())
+    bad[k, 0] *= 1.5
+    return bad
+
+
+def test_qmm_bound_rejects_a_scaled_group():
+    from deepspeed_tpu_torch.ops.quantized_matmul import quantized_matmul_reference
+    x, q, s = qmm_case(4, 1024, 512, 128, torch.bfloat16, torch.device("cpu"))
+    ref = quantized_matmul_reference(x, q, s, 128)
+    assert qmm_ratio(ref, ref, x, q, s, 128) == 0
+    bad = quantized_matmul_reference(x, q, scaled_group(x, s), 128)
+    assert qmm_ratio(bad, ref, x, q, s, 128) > 4
+
+
+@gpu
+@pytest.mark.parametrize("name", list(QMM_CASES))
+def test_qmm_kernel_matches_plain(cuda, name):
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+    M, K, N, G, dtype, out_dtype = QMM_CASES[name]
+    x, q, s = qmm_case(M, K, N, G, dtype, cuda)
+    before = qm.quantized_matmul.launches
+    out = qm.quantized_matmul(x, q, s, G, out_dtype=out_dtype)
+    ref = qm.quantized_matmul_reference(x, q, s, G, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert qm.quantized_matmul.launches == before + 1
+    assert out.dtype == (out_dtype or dtype) and out.shape == (M, N)
+    assert torch.isfinite(out).all()
+    assert qmm_ratio(out, ref, x, q, s, G) <= 1
+    bad = qm.quantized_matmul_reference(x, q, scaled_group(x, s), G, out_dtype=out_dtype)
+    assert qmm_ratio(bad, ref, x, q, s, G) > 1
+
+
+@gpu
+def test_qmm_raises_instead_of_falling_back(cuda):
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+    x, q, s = qmm_case(4, 512, 256, 128, torch.bfloat16, cuda)
+    before = qm.quantized_matmul.launches
+    with pytest.raises(ValueError, match="bf16 or fp16"):
+        qm.quantized_matmul(x.float(), q, s, 128)
+    qb, sb = q[:, :200].contiguous(), s[:, :1].contiguous()
+    with pytest.raises(ValueError, match="N=200"):
+        qm.quantized_matmul(x, qb, sb, 128)
+    assert qm.quantized_matmul.launches == before
+
+
+@gpu
+def test_quantized_engine_on_cuda_runs_the_kernel(cuda):
+    """A tiny Llama served int8 through init_inference on the card: every
+    Dense product of a forward launches the kernel once, and the logits
+    agree with the same engine pinned to dense_dequant."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.quantization import QuantizedLinear
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+    cfg = LlamaConfig.tiny()
+    engine = deepspeed_tpu_torch.init_inference(
+        LlamaForCausalLM.from_seed(cfg, seed=0, device=cuda),
+        config={"dtype": "bf16", "quant": {"enabled": True, "bits": 8, "group_size": 256}})
+    ids = torch.randint(0, cfg.vocab_size, (2, 16), device=cuda)
+    before = qm.quantized_matmul.launches
+    fused = engine(ids).float()
+    assert qm.quantized_matmul.launches == before + 7 * cfg.num_hidden_layers
+    linears = [m for m in engine.module.modules()
+               if isinstance(m, QuantizedLinear) and m.layout == "kn"]
+    for m in linears:
+        m.set_impl("dense_dequant")
+    dense = engine(ids).float()
+    assert ((fused - dense).norm() / dense.norm()).item() < 2e-2
+    assert engine.generate(ids, max_new_tokens=4).shape == (2, 4)

@@ -124,6 +124,12 @@ TINY = dict(vocab_size=512, hidden_size=64, intermediate_size=128, num_hidden_la
 SMALL = dict(TINY, hidden_size=128, intermediate_size=256)
 
 
+# checkpoint resume at W = 4: (family, the uninterrupted case it must equal)
+RESUME_CASES = {"stage1": ("llama", "stage1"), "stage2": ("llama", "stage2"),
+                "stage3": ("llama", "stage3"), "qgz_feedback": ("llama", "qgz_feedback"),
+                "ep2_dp2": ("moe", "ep2_stage2_indices_k2")}
+
+
 def moe_case(ep, stage, backend, k, params="small", capacity_factor=1.0):
     widths = SMALL if params == "small" else TINY
     return dict(ep=ep, params=params,
@@ -357,6 +363,7 @@ def make_inputs():
                       for s in ((10,), (16,), (3, 4))],
         # a JAX-stacked Llama leaf [L, in, out]
         "stacked": rng.standard_normal((WORLD, 2, 64, 128)).astype(np.float32),
+        "resume_cases": RESUME_CASES,
     }
 
 
@@ -366,6 +373,7 @@ def run(tmp_path_factory):
     JAX engine's runs (``jax_engine_runs``)."""
     d = tmp_path_factory.mktemp("torch_zero")
     inputs = make_inputs()
+    inputs["ckpt_dir"] = str(d / "ckpt")
     torch.save(inputs, d / "inputs.pt")
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
@@ -827,3 +835,25 @@ def test_qgz_refuses_expert_parallelism(run):
     for rank in ranks:
         assert "currently supports dp/dpr ZeRO axes only (got ep size 2" in \
             rank["qgz_ep_error"]
+
+
+# ---------------------------------------------------------------------------
+# checkpoint save/load of sharded state at W = 4
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(RESUME_CASES))
+def test_resume_from_checkpoint_equals_uninterrupted_run(run, name):
+    """A run saved after 3 of its 6 optimizer steps and resumed by a fresh
+    engine (other initial weights) on every rank gives the uninterrupted
+    run's losses and whole masters exactly: each rank restored its own
+    shards (ZeRO-1/2/3 chunks, the qgZ residual after an overflow-skipped
+    step, its ``ep`` rank's expert slices)."""
+    _, ranks, _ = run
+    case = RESUME_CASES[name][1]
+    for rank in ranks:
+        got, want = rank["resume"][name], rank[case]
+        assert got["loaded"] == got["saved"] and got["steps"] == STEPS
+        assert got["losses"] == want["losses"]
+        assert got["master"].keys() == want["master"].keys()
+        for k, v in want["master"].items():
+            assert torch.equal(got["master"][k], v), k

@@ -189,6 +189,50 @@ def moe_layer_runs(inp, rank, world, out):
     out["moe_layers"] = res
 
 
+def resume_runs(inp, rank, out):
+    """Each resume case's engine again, interrupted: the first half of its
+    micro-batches, ``save_checkpoint`` into a directory the ranks share, a
+    fresh engine from other initial weights that ``load_checkpoint``s the
+    tag, the second half. The losses of both halves and the whole masters
+    at the end, which the test holds to the uninterrupted run of the same
+    case (run by ``llama_runs`` / ``moe_engine_runs``)."""
+    res = {}
+    for name, (family, case) in inp["resume_cases"].items():
+        if family == "llama":
+            config = dict(inp["llama_config"], **inp["llama_cases"][case])
+            batches, params = inp["llama_batches"], inp["llama_params"]
+
+            def make():
+                return LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32))
+        else:
+            c = inp["moe_cases"][case]
+            config, batches, ep = c["config"], inp["moe_batches"], c["ep"]
+            params = params_from_flax(inp["moe_params"][c["params"]], ep, rank % ep)
+
+            def make(c=c, ep=ep):
+                return MixtralForCausalLM(MixtralConfig(**c["model"], dtype=torch.float32),
+                                          ep_size=ep)
+        half = len(batches) // 2
+        save_dir = os.path.join(inp["ckpt_dir"], name)
+        engine, losses = train(make(), params, config, batches[:half], rank, inp["micro"])
+        path = engine.save_checkpoint(save_dir)
+        del engine
+        groups.reset()
+        torch.manual_seed(1000 + rank)
+        engine, *_ = deepspeed_tpu_torch.initialize(model=make(), config=config, device="cpu")
+        loaded, _ = engine.load_checkpoint(save_dir)
+        for b in batches[half:]:
+            loss = engine(local_rows(b, rank, inp["micro"]))
+            engine.backward(loss)
+            engine.step()
+            losses.append(float(loss.detach()))
+        res[name] = dict(losses=losses, master=engine.get_model_parameters(),
+                         saved=path, loaded=loaded, steps=engine.global_steps)
+        del engine
+        groups.reset()
+    out["resume"] = res
+
+
 def collectives(inp, rank, world, out):
     res = {}
     for bits in (4, 8):
@@ -227,7 +271,8 @@ def main():
                       ("moe_layers", lambda: moe_layer_runs(inp, rank, world, out)),
                       ("moe_engines", lambda: moe_engine_runs(inp, rank, out)),
                       ("llama", lambda: llama_runs(inp, rank, out)),
-                      ("masked", lambda: masked_run(inp, rank, out))):
+                      ("masked", lambda: masked_run(inp, rank, out)),
+                      ("resume", lambda: resume_runs(inp, rank, out))):
         t = time.perf_counter()
         run()
         seconds[name] = time.perf_counter() - t
