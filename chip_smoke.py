@@ -182,6 +182,39 @@ prints no result.
    (``config.checkpoint``) must give the same logits bit for bit as one
    built from the resumed engine's live weights. Bytes and seconds of save,
    verify and load are printed; the directory is deleted.
+17. Block-sparse attention (kernel row 8, ``csrc/block_sparse_attention.cu``,
+   one card, after phase 16): the kernel against its plain version at
+   Llama-2-7B attention width (B 1, 32 heads of 128, S 16384, bf16) under
+   ``FixedSparsityConfig(block=64, attention="unidirectional")`` with causal
+   on (C 67, 26% of the causal pairs), and BigBird bidirectional at block 64
+   (2% of the pairs, C 256 on its global rows); Fixed at blocks 16, 32 and
+   128, head widths 64 (batch 2) and 256, a layout per head, a hand-made
+   layout with one empty query block (exactly 0), fp16 and fp32. Per case:
+   the error against the bound stated below, a planted fault (one cols entry
+   of the plain version moved by one block) that the bound must reject,
+   kernel / plain / library (``scaled_dot_product_attention`` with the
+   layout expanded to a boolean mask, a yardstick the port never calls)
+   times, and the bound: the larger of the q, k, v, o, cols and counts bytes
+   over 3.35 TB/s and 4 D x visible pairs x B over the dtype's peak. Block
+   256 must raise before any launch.
+18. ``SparseSelfAttention`` at E 4096, 32 heads, S 16384, bf16 weights drawn
+   on the card from a seed: the module on the kernel against the same module
+   on the plain version with one shared layout (relative L2, with a control
+   whose plain version drops key block 0 of query block 1 in every head);
+   then a user model of 4 residual layers with an MSE loss trained through
+   ``initialize`` with phase 5's engine configuration at a tenth of its
+   learning rate, micro-batches of 1 x 16384 tokens, 4 optimizer steps: the
+   first micro-step's loss against the plain route, the loss must fall, and
+   the kernel must launch 2 x layers x micro-steps times (forward and
+   recompute). Step time and peak memory are printed.
+19. The host-DRAM KV tier: Llama-2-7B, all 32 layers, bf16 from a seed,
+   behind ``build_engine`` with prefix caching and ``host_kv_blocks`` 32 over
+   a 24-block pool: a request with a 1024-token prefix parks it, a 1200-token
+   filler spills it, a request reusing the prefix restores it. Spilled and
+   restored counts, the ``kv_stats`` identity, no live swap, restored pages
+   bitwise equal to the spilled ones, and the reuse request's 16 greedy
+   tokens equal to those of an engine with a 128-block pool; spill, landing
+   and restore times are printed.
 
 The script prints its total wall time. The line before the last is one
 JSON object describing each kernel; the last is ``{"ok": true, "device":
@@ -2929,6 +2962,487 @@ def phase_checkpoint():
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phase 17: block-sparse attention kernel (row 8) vs its plain version
+# ---------------------------------------------------------------------------
+
+# Per-element bound: the flash form of phase 4, FLASH_RTOL[dtype] * (|plain|
+# + rms(plain)). Kernel and plain version compute in fp32 from the same
+# inputs and round p to v's dtype at the same running maxima (whole key
+# blocks); their fp32 logits differ in the last bits (summation order), so
+# p flips a rounding now and then, which moves an output by about 2^-8 p |v|
+# / l. In a row of few keys whose output nearly cancels, that exceeds one
+# unit in the last place of the element: the paged kernel's bound ATOL +
+# RTOL |plain| read 9.5 on a sound kernel at block 16 (an element of 0.0038,
+# a 64-key row, H100), the flash form 0.54. RTOL |plain| is the output's one
+# rounding; the rms term covers such flips. The planted fault, one cols entry
+# of the plain version moved by one block (a query block reading a key block
+# its layout does not enable), must exceed the bound; the paged form's ratio
+# is reported beside it.
+SPARSE_CASES = [
+    # name, B, H, S, D, block, dtype, config (name, kwargs), causal
+    ("fixed_7b", 1, 32, 16384, 128, 64, "bfloat16",
+     ("Fixed", dict(attention="unidirectional")), True),
+    ("bigbird_7b", 1, 32, 16384, 128, 64, "bfloat16", ("BigBird", {}), False),
+    ("fixed_block16", 1, 32, 4096, 128, 16, "bfloat16",
+     ("Fixed", dict(attention="unidirectional")), True),
+    ("fixed_block32", 1, 32, 4096, 128, 32, "bfloat16",
+     ("Fixed", dict(attention="unidirectional")), True),
+    ("fixed_block128", 1, 32, 8192, 128, 128, "bfloat16",
+     ("Fixed", dict(attention="unidirectional")), True),
+    ("fixed_d64_b2", 2, 32, 4096, 64, 64, "bfloat16",
+     ("Fixed", dict(attention="unidirectional")), True),
+    ("fixed_d256", 1, 16, 4096, 256, 64, "bfloat16",
+     ("Fixed", dict(attention="unidirectional")), True),
+    ("per_head", 1, 32, 4096, 128, 64, "bfloat16",
+     ("Fixed", dict(different_layout_per_head=True,
+                    num_different_global_patterns=4)), False),
+    ("empty_row", 1, 8, 2048, 128, 64, "bfloat16",
+     ("Fixed", dict(attention="unidirectional")), True),
+    ("fixed_fp16", 1, 32, 4096, 128, 64, "float16",
+     ("Fixed", dict(attention="unidirectional")), True),
+    ("fixed_fp32", 1, 32, 4096, 128, 64, "float32",
+     ("Fixed", dict(attention="unidirectional")), True),
+]
+SPARSE_EMPTY = (1, 5)           # empty_row: head 1, query block 5 enables nothing
+
+
+def sparse_layout(case):
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    name, B, H, S, D, block, dtype, (cfg_name, kw), causal = case
+    cfg = getattr(sa, f"{cfg_name}SparsityConfig")(num_heads=H, block=block, **kw)
+    layout = cfg.make_layout(S)
+    if name == "empty_row":
+        layout[SPARSE_EMPTY] = 0
+    return layout
+
+
+def visible_pairs(cols, counts, block, causal):
+    """(query, key) pairs the kernel computes, summed over heads: a whole
+    block per enabled slot, the lower triangle for a causal diagonal."""
+    import numpy as np
+    C = cols.shape[-1]
+    live = np.arange(C)[None, None, :] < counts[:, :, None]
+    diag = live & (cols == np.arange(cols.shape[1])[None, :, None]) if causal \
+        else np.zeros_like(live)
+    return int(live.sum() - diag.sum()) * block * block + \
+        int(diag.sum()) * block * (block + 1) // 2
+
+
+def plant_cols_fault(cols, counts, causal):
+    """cols with one enabled entry moved by one block, to a key block the
+    row does not enable (and, with causal, not above the diagonal)."""
+    nq = cols.shape[1]
+    bad = cols.copy()
+    for h in range(cols.shape[0]):
+        for iq in range(nq - 1, -1, -1):
+            row = set(cols[h, iq, :counts[h, iq]].tolist())
+            for j in range(counts[h, iq]):
+                for step in (-1, 1):
+                    new = int(cols[h, iq, j]) + step
+                    if 0 <= new < nq and new not in row and (not causal or new <= iq):
+                        bad[h, iq, j] = new
+                        return bad, (h, iq, j, int(cols[h, iq, j]), new)
+    raise AssertionError("no cols entry can move by one block")
+
+
+def sparse_library_ms(q, k, v, layout, block, causal, iters):
+    """``scaled_dot_product_attention`` with the layout expanded to a boolean
+    mask (causal folded in): the yardstick, never called by the port."""
+    import torch
+    S = q.shape[2]
+    uniform = bool((layout == layout[:1]).all())
+    lay = torch.as_tensor(layout[:1] if uniform else layout, dtype=torch.bool,
+                          device=q.device)
+    mask = lay.repeat_interleave(block, 1).repeat_interleave(block, 2)
+    if causal:
+        mask &= torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    mask = mask[None]
+    ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), iters)
+    del mask
+    return ms
+
+
+def phase_sparse_kernels():
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 plain version in fp32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(17)
+    results, failures = [], []
+    for case in SPARSE_CASES:
+        name, B, H, S, D, block, dtype, _, causal = case
+        dt = getattr(torch, dtype)
+        layout = sparse_layout(case)
+        cols_np, counts_np = bsa.compact_layout(layout, causal, block)
+        cols = torch.from_numpy(cols_np).to(DEVICE)
+        counts = torch.from_numpy(counts_np).to(DEVICE)
+        q, k, v = (torch.randn(B, H, S, D, generator=gen, device=DEVICE).to(dt)
+                   for _ in range(3))
+        scale = D ** -0.5
+        before = bsa.sparse_mha_fwd.launches
+        out = bsa.sparse_mha_fwd(q, k, v, cols, counts, block, causal, scale)
+        ref = bsa.sparse_mha_fwd_reference(q, k, v, cols, counts, block, causal, scale)
+        bad_np, where = plant_cols_fault(cols_np, counts_np, causal)
+        faulty = bsa.sparse_mha_fwd_reference(q, k, v, torch.from_numpy(bad_np).to(DEVICE),
+                                              counts, block, causal, scale)
+        torch.cuda.synchronize()
+        launched = bsa.sparse_mha_fwd.launches - before
+        err = (out.float() - ref.float()).abs().max().item()
+        ratio, fault_ratio = flash_ratio(out, ref, dtype), flash_ratio(faulty, ref, dtype)
+        paged_form_ratio = err_ratio(out, ref, dtype)
+        finite = bool(torch.isfinite(out).all())
+        empty_zero = None
+        if name == "empty_row":
+            h, iq = SPARSE_EMPTY
+            empty_zero = bool((out[:, h, iq * block:(iq + 1) * block] == 0).all())
+        del faulty
+        big = S >= 16384
+        ms = time_ms(lambda: bsa.sparse_mha_fwd(q, k, v, cols, counts, block, causal,
+                                                scale), 5 if big else 10)
+        plain_ms = time_ms(lambda: bsa.sparse_mha_fwd_reference(
+            q, k, v, cols, counts, block, causal, scale), 2)
+        lib_ms = sparse_library_ms(q, k, v, layout, block, causal, 3)
+        pairs = visible_pairs(cols_np, counts_np, block, causal) * B
+        nbytes = 4 * B * H * S * D * q.element_size() + cols_np.nbytes + counts_np.nbytes
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 4 * D * pairs / PEAK_FLOPS[dtype] * 1e3
+        res = dict(name=name, shape=f"B={B} H={H} S={S} D={D} block={block} {dtype}"
+                   f"{' causal' if causal else ''}",
+                   C=int(cols_np.shape[-1]), mean_count=float(counts_np.mean()),
+                   density=pairs / (B * H * (S * (S + 1) // 2 if causal else S * S)),
+                   max_abs_err=err, err_ratio=ratio, planted_fault_ratio=fault_ratio,
+                   planted_fault=where, paged_form_err_ratio=paged_form_ratio,
+                   tolerance=f"{FLASH_RTOL[dtype]} (|plain| + rms(plain))",
+                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   library="scaled_dot_product_attention with the layout as a bool mask",
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        if empty_zero is not None:
+            res["empty_row_exactly_zero"] = empty_zero
+        results.append(res)
+        print(f"sparse kernel case {json.dumps(res)}", flush=True)
+        if launched != 1:
+            failures.append(f"{name}: the wrapper launched {launched} kernels, not 1")
+        if not finite:
+            failures.append(f"{name}: kernel output is not finite")
+        if not ratio <= 1:
+            failures.append(f"{name}: kernel disagrees with its plain version: "
+                            f"{ratio:.3g}x the bound")
+        if not fault_ratio > 1:
+            failures.append(f"{name}: the bound does not reject the moved cols entry "
+                            f"({fault_ratio:.3g}x the bound)")
+        if empty_zero is False:
+            failures.append(f"{name}: the empty query block is not exactly 0")
+        del q, k, v, out, ref, cols, counts
+        torch.cuda.empty_cache()
+    # a block the kernel cannot stage raises before any launch
+    q = torch.zeros(1, 2, 512, 64, device=DEVICE, dtype=torch.bfloat16)
+    before = bsa.sparse_mha_fwd.launches
+    try:
+        bsa.sparse_mha(q, q, q, np.ones((2, 2, 2)), 256)
+        failures.append("block 256 on CUDA did not raise")
+    except ValueError as e:
+        print(f"sparse kernel: block 256 refused: {e}", flush=True)
+    if bsa.sparse_mha_fwd.launches != before:
+        failures.append("the refused shape launched a kernel")
+    if failures:
+        fail("block-sparse attention: " + "; ".join(failures))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 18: SparseSelfAttention at Llama-2-7B width, and training through it
+# ---------------------------------------------------------------------------
+
+SSA_E, SSA_H, SSA_S, SSA_BLOCK = 4096, 32, 16384, 64
+SSA_LAYERS = 4
+# Module output on the kernel against the same module on the plain version,
+# one shared layout, as relative L2 |a - b| / |b|, bound stated before the
+# first run: the attentions differ by one rounding of some bf16 outputs
+# (about 2^-9 relative, rms), carried through the bf16 output projection. A
+# control whose plain version drops key block 0 of query block 1 in every
+# head changes 64 of the 16384 token rows entirely: about sqrt(64 / 16384)
+# = 0.06 relative L2, above the bound.
+SSA_REL_L2_TOLERANCE = 0.02
+# The regression target is x + c with c a fixed N(0, 0.05^2) vector per
+# feature; the loss must fall by this fraction from the first optimizer
+# step's window to the last (the same 2 batches), stated before the first run.
+SSA_TRAIN_LOSS_FALL = 0.1
+# Phase 5's engine configuration with the learning rate cut tenfold (peak
+# 1e-4): these 4096-wide linears have no normalisation, and at phase 5's
+# peak of 1e-3 Adam's per-element step (11% of their initial scale) sent the
+# loss from 0.0015 to 0.12 at the second step (H100, 700 W). Micro-step 1's
+# loss on the kernel is held to the same micro-step on the plain version.
+SSA_TRAIN_CONFIG = dict(
+    TRAIN_CONFIG,
+    optimizer={"type": "AdamW", "params": {"lr": 1e-4, "betas": [0.9, 0.95],
+                                           "weight_decay": 0.1}},
+    scheduler={"type": "WarmupLR", "params": {"warmup_min_lr": 1e-5,
+                                              "warmup_max_lr": 1e-4,
+                                              "warmup_num_steps": 2,
+                                              "warmup_type": "linear"}})
+
+
+def phase_sparse_attention():
+    import numpy as np
+    import torch
+    from torch import nn
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.sparse_attention import (FixedSparsityConfig,
+                                                          SparseSelfAttention)
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
+
+    def sparsity():
+        return FixedSparsityConfig(num_heads=SSA_H, block=SSA_BLOCK,
+                                   attention="unidirectional")
+
+    torch.manual_seed(18)          # nn.Linear draws its weights on the card
+    mod = SparseSelfAttention(SSA_E, SSA_H, sparsity(), causal=True,
+                              dtype=torch.bfloat16, device=DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(18)
+    x = torch.randn(1, SSA_S, SSA_E, generator=gen, device=DEVICE).to(torch.bfloat16)
+    layout = mod.sparsity_config.make_layout(SSA_S)
+    dropped = layout.copy()
+    dropped[:, 1, 0] = 0
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        kernel_out = mod(x, layout=layout)
+        torch.cuda.synchronize()
+        module_ms = (time.perf_counter() - t) * 1e3
+        plain_out = mod(x, layout=layout, plain=True)
+        control_out = mod(x, layout=dropped, plain=True)
+
+    def rel(a):
+        return float((a.float() - plain_out.float()).norm() / plain_out.float().norm())
+
+    err, control_err = rel(kernel_out), rel(control_out)
+    print(f"sparse self-attention: E {SSA_E}, H {SSA_H}, S {SSA_S}, block {SSA_BLOCK}, "
+          f"bf16: kernel vs plain relative L2 {err:.4g}, control with block 0 of "
+          f"query block 1 dropped {control_err:.4g} (tolerance {SSA_REL_L2_TOLERANCE}); "
+          f"module forward {module_ms:.1f} ms", flush=True)
+    if not torch.isfinite(kernel_out).all():
+        fail("sparse self-attention output is not finite")
+    if not err <= SSA_REL_L2_TOLERANCE:
+        fail(f"sparse self-attention disagrees with the plain version: {err}")
+    if not control_err > SSA_REL_L2_TOLERANCE:
+        fail(f"the bound does not reject the dropped-block control: {control_err}")
+    del mod, kernel_out, plain_out, control_out
+
+    class SparseStack(nn.Module):
+        """A user model: residual SparseSelfAttention layers, MSE loss;
+        ``plain`` routes the attention through the kernel's plain version."""
+
+        def __init__(self):
+            super().__init__()
+            self.plain = False
+            self.layers = nn.ModuleList(
+                SparseSelfAttention(SSA_E, SSA_H, sparsity(), causal=True,
+                                    dtype=torch.bfloat16, device=DEVICE)
+                for _ in range(SSA_LAYERS))
+
+        def forward(self, batch):
+            h = batch["x"]
+            for layer in self.layers:
+                h = h + checkpointing.checkpoint(layer, h, plain=self.plain)
+            return torch.nn.functional.mse_loss(h.float(), batch["y"].float())
+
+    micro = 1
+    config = dict(SSA_TRAIN_CONFIG, train_batch_size=micro * TRAIN_GAS,
+                  train_micro_batch_size_per_gpu=micro)
+    t0 = time.perf_counter()
+    model = SparseStack()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=config,
+                                                     device=DEVICE)
+    torch.cuda.synchronize()
+    c = torch.randn(SSA_E, generator=gen, device=DEVICE) * 0.05
+    batches = []
+    for _ in range(2):
+        xb = torch.randn(micro, SSA_S, SSA_E, generator=gen, device=DEVICE)
+        batches.append({"x": xb.to(torch.bfloat16), "y": (xb + c).to(torch.bfloat16)})
+    print(f"sparse training: {SSA_LAYERS} residual SparseSelfAttention layers, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f}B params, engine "
+          f"built in {time.perf_counter() - t0:.1f}s", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bsa.reset_launch_counts()
+    losses, step_s = [], []
+    t_window = time.perf_counter()
+    plain_loss = None
+    for m in range(TRAIN_GAS * TRAIN_STEPS):
+        loss = engine(batches[m % 2])
+        engine.backward(loss)
+        losses.append(float(loss.detach()))
+        if m == 0:
+            launched = bsa.sparse_mha_fwd.launches
+            model.plain = True
+            with torch.no_grad():
+                plain_loss = float(model(batches[0]))
+            model.plain = False
+            if bsa.sparse_mha_fwd.launches != launched:
+                fail("the plain route launched the kernel")
+        engine.step()
+        if engine.was_step_applied():
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            step_s.append(now - t_window)
+            t_window = now
+    launches = bsa.sparse_mha_fwd.launches
+    micro_steps = TRAIN_GAS * TRAIN_STEPS
+    expected = 2 * SSA_LAYERS * micro_steps          # forward and recompute
+    first = float(np.mean(losses[:TRAIN_GAS]))
+    last = float(np.mean(losses[-TRAIN_GAS:]))
+    loss_err = abs(losses[0] - plain_loss) / abs(plain_loss)
+    stats = dict(layers=SSA_LAYERS, embed=SSA_E, heads=SSA_H, seq=SSA_S,
+                 block=SSA_BLOCK, micro_batch=micro, gas=TRAIN_GAS,
+                 optimizer_steps=engine.global_steps, losses=losses,
+                 plain_first_loss=plain_loss, first_loss_rel_err=loss_err,
+                 first_window_loss=first, last_window_loss=last,
+                 step_wall_s=step_s, mean_step_wall_s=float(np.mean(step_s)),
+                 tokens_per_s=TRAIN_GAS * micro * SSA_S / float(np.mean(step_s[1:])),
+                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 sparse_mha_launches=launches, expected_launches=expected)
+    print(f"sparse training {json.dumps(stats)}", flush=True)
+    del engine, model, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)):
+        fail(f"sparse training losses are not finite: {losses}")
+    if not loss_err <= TRAIN_LOSS_REL_TOLERANCE:
+        fail(f"sparse training loss disagrees with the plain route: {loss_err}")
+    if not last <= first * (1 - SSA_TRAIN_LOSS_FALL):
+        fail(f"sparse training loss did not fall by {SSA_TRAIN_LOSS_FALL:.0%}: "
+             f"{first} -> {last}")
+    if launches != expected:
+        fail(f"sparse_mha launched {launches} times, expected {expected}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the host-DRAM KV tier at Llama-2-7B width
+# ---------------------------------------------------------------------------
+
+HOST_PREFIX, HOST_BLOCK = 1024, 64
+HOST_POOL_BLOCKS, HOST_TIER_BLOCKS, HOST_ROOMY_BLOCKS = 24, 32, 128
+
+
+def phase_host_tier():
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import SplitFuseScheduler, build_engine
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.llama2_7b()
+    model = LlamaForCausalLM.from_seed(cfg, seed=19, device=DEVICE)
+    rng = np.random.default_rng(19)
+    prefix = rng.integers(0, cfg.vocab_size, HOST_PREFIX).astype(np.int32)
+    warm = np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 40).astype(np.int32)])
+    filler = rng.integers(0, cfg.vocab_size, 1200).astype(np.int32)
+    reuse = np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 50).astype(np.int32)])
+
+    def engine_for(blocks):
+        return build_engine(model, {
+            "state_manager": {"max_ragged_sequence_count": 8,
+                              "max_ragged_batch_size": 512, "max_context": 4096,
+                              "num_kv_blocks": blocks,
+                              "host_kv_blocks": HOST_TIER_BLOCKS},
+            "kv_cache": {"block_size": HOST_BLOCK, "cache_dtype": "bf16"},
+            "prefix_caching": True})
+
+    def serve(engine):
+        sched = SplitFuseScheduler(engine)
+        out = {}
+        for uid, prompt, n in ((0, warm, 4), (1, filler, 4), (2, reuse, 16)):
+            sched.submit(uid, prompt, max_new_tokens=n)
+            out[uid] = sched.run_to_completion()[uid].tolist()
+        engine._state.kv_cache.swapper.drain()
+        return out, sched.prefill_tokens_saved
+
+    tight = engine_for(HOST_POOL_BLOCKS)
+    kv = tight._state.kv_cache
+    spilled_pages, restored_equal, spill_ms, land_ms, restore_ms = {}, [], [], [], []
+    spill_block, restore_block = kv.spill_block, kv.restore_block
+
+    def timed_spill(block):
+        pages = [p[:, block].clone() for p in kv._pools()]
+        t = time.perf_counter()
+        payload = spill_block(block)
+        spill_ms.append((time.perf_counter() - t) * 1e3)
+        spilled_pages[id(payload)] = pages
+        return payload
+
+    def timed_restore(payload, block):
+        pages = spilled_pages.pop(id(payload))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        restore_block(payload, block)
+        torch.cuda.synchronize()
+        restore_ms.append((time.perf_counter() - t) * 1e3)
+        restored_equal.append(all(torch.equal(p[:, block], s)
+                                  for p, s in zip(kv._pools(), pages)))
+
+    def timed_land(thunk):
+        t = time.perf_counter()
+        out = thunk()
+        land_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    kv.spill_block, kv.restore_block = timed_spill, timed_restore
+    kv.swapper.land_wrapper = timed_land
+    t0 = time.perf_counter()
+    tight_out, tight_saved = serve(tight)
+    tight_s = time.perf_counter() - t0
+    stats = tight.kv_stats()
+    del tight, kv
+    gc.collect()
+    torch.cuda.empty_cache()
+    roomy = engine_for(HOST_ROOMY_BLOCKS)
+    roomy_out, roomy_saved = serve(roomy)
+    roomy_stats = roomy.kv_stats()
+    del roomy, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    page_mb = 2 * cfg.num_hidden_layers * cfg.num_key_value_heads * HOST_BLOCK * \
+        cfg.head_dim * 2 / 1e6
+    report = dict(prefix_tokens=HOST_PREFIX, pool_blocks=HOST_POOL_BLOCKS,
+                  host_tier_blocks=HOST_TIER_BLOCKS, roomy_pool_blocks=HOST_ROOMY_BLOCKS,
+                  block_mb=page_mb, serve_s=tight_s,
+                  **{k: stats[k] for k in ("kv_spilled", "kv_restored", "kv_dropped",
+                                           "host_kv_blocks", "swap_outs_live",
+                                           "prefix_hits", "prefill_tokens_saved",
+                                           "evictions")},
+                  roomy_spilled=roomy_stats["kv_spilled"],
+                  restores_bitwise_equal=all(restored_equal), restores=len(restored_equal),
+                  spill_submit_ms=spill_ms, land_ms=land_ms, restore_ms=restore_ms,
+                  reuse_tokens=tight_out[2], roomy_reuse_tokens=roomy_out[2],
+                  prefill_tokens_saved_roomy=roomy_saved)
+    print(f"host tier {json.dumps(report)}", flush=True)
+    if stats["kv_spilled"] < 1 or stats["kv_restored"] < 1:
+        fail(f"host tier: no spill/restore ({stats['kv_spilled']} spilled, "
+             f"{stats['kv_restored']} restored)")
+    if stats["swap_outs_live"] != 0:
+        fail("host tier: a live sequence was swapped out")
+    if stats["kv_spilled"] != stats["kv_restored"] + stats["kv_dropped"] + \
+            stats["host_kv_blocks"]:
+        fail(f"host tier: kv_stats identity broken: {stats}")
+    if not restored_equal or not all(restored_equal):
+        fail("host tier: restored pages differ from the spilled pages")
+    if roomy_stats["kv_spilled"] != 0:
+        fail("host tier: the roomy engine spilled")
+    if tight_out != roomy_out:
+        fail(f"host tier: greedy tokens differ from the roomy engine's: "
+             f"{tight_out} vs {roomy_out}")
+    if tight_saved != roomy_saved or tight_saved < HOST_PREFIX:
+        fail(f"host tier: prefix reuse differs: {tight_saved} vs {roomy_saved}")
+    return report
+
+
 def quant_kernel_lines(cases, zero_ranks, ep_ranks):
     """The kernels-line entries of the two qgZ kernels: the main case's
     numbers, every case's, the launches of phase 11's run and those of
@@ -3026,6 +3540,17 @@ def main():
     print(f"phase checkpoint: {time.perf_counter() - t11:.1f}s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    sparse_cases = phase_sparse_kernels()
+    print(f"phase block-sparse kernels: {time.perf_counter() - t12:.1f}s", flush=True)
+    t13 = time.perf_counter()
+    sparse_launches = phase_sparse_attention()
+    print(f"phase sparse attention: {time.perf_counter() - t13:.1f}s", flush=True)
+    t14 = time.perf_counter()
+    phase_host_tier()
+    print(f"phase host tier: {time.perf_counter() - t14:.1f}s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     zero_ranks = run_zero_phase()
     ep_ranks = run_expert_parallel_phase()
 
@@ -3121,6 +3646,20 @@ def main():
         case=main_qmm["name"],
         cases=[dict(name=c["name"], shape=c["shape"], **{k: c[k] for k in qmm_keys})
                for c in qmm_cases]))
+    sparse_keys = ("shape", "C", "mean_count", "density", "max_abs_err", "err_ratio",
+                   "planted_fault_ratio", "ms", "plain_ms", "library_ms", "bound_ms",
+                   "bound_by")
+    main_sparse = sparse_cases[0]  # fixed_7b: the shape of phase 18's main path
+    kernels.append(dict(
+        name="block_sparse_attention", route="cuda",
+        source="deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
+        replaces="deepspeed_tpu/ops/pallas/block_sparse_attention.py:136",
+        launches=sparse_launches,
+        **{k: main_sparse[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+        case=main_sparse["name"],
+        cases=[dict(name=c["name"], **{k: c[k] for k in sparse_keys})
+               for c in sparse_cases]))
     print(f"total wall time: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -20,8 +20,13 @@ class DSStateManagerConfig(DeepSpeedConfigModel):
     # stores pages int8 with per-token fp32 scales (quantize-on-write in the
     # forward, fused dequant-on-read in the paged kernel).
     kv_dtype = "fp"
-    host_kv_blocks = 0                   # host-DRAM spill tier (ROADMAP A2)
-    nvme_kv_blocks = 0                   # NVMe tier under it (ROADMAP A2)
+    # host-DRAM KV spill tier capacity, in blocks. 0 disables the tier.
+    # When > 0 (with prefix_caching), parked prefix-cache blocks under pool
+    # pressure spill to host memory instead of being evicted, and a later
+    # prefix match restores them: pressure order spill-to-host ->
+    # evict-to-free -> preempt-live.
+    host_kv_blocks = 0
+    nvme_kv_blocks = 0                   # NVMe tier under it (ROADMAP A14)
     nvme_kv_dir = ""
 
 
@@ -70,10 +75,8 @@ class RaggedInferenceEngineConfig(DeepSpeedConfigModel):
     def _reject_unported(self):
         sm = self.state_manager
         unported = [
-            (sm.host_kv_blocks > 0, "state_manager.host_kv_blocks > 0",
-             "A2 (host/NVMe KV tiers)"),
             (sm.nvme_kv_blocks > 0, "state_manager.nvme_kv_blocks > 0",
-             "A2 (host/NVMe KV tiers)"),
+             "A14 (offload tiers: the NVMe rung of the KV cache)"),
             (bool(self.speculative.enabled), "speculative.enabled",
              "A3 (speculative decode)"),
             (bool(self.slo_classes), "slo_classes",

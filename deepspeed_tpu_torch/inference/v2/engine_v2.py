@@ -8,7 +8,7 @@ control for an external scheduler (DeepSpeed-MII's SplitFuse role);
 ``flush`` retires a sequence and frees its KV blocks.
 
 Left for later slices: the verify forward and rollback (ROADMAP A3), page
-export/import and the fleet hooks (ROADMAP A2, A8), telemetry spans and the
+export/import and the fleet hooks (ROADMAP A8), telemetry spans and the
 flight-recorder collector (ROADMAP A4).
 """
 

@@ -15,14 +15,24 @@ pools shaped ``[num_layers, num_blocks + 1, num_kv_heads, 1, block_size]``
 (one scale per token row over head_dim): quantization happens on write in the
 forward, dequantization inside the paged-attention kernel.
 
-Preemption swaps a sequence's pages to CPU tensors and back with plain
-synchronous copies. The reference's host-DRAM spill tier, its asynchronous
-swapper, the NVMe tier and page export/import wait for ROADMAP A2.
+Storage tiers below the device pool:
+
+* preemption swaps a live sequence's pages to CPU tensors and back with
+  plain synchronous copies (``swap_out`` / ``swap_in``);
+* the host-DRAM spill tier (``host_capacity`` blocks) behind the allocator's
+  fourth block state: parked prefix blocks spill device->host through a
+  double-buffered ``HostKVSwapper`` (pinned host memory, a copy stream)
+  instead of being evicted, and restore on prefix hits. Every landing goes
+  through the injectable accounted fetch (``set_host_fetch``).
+
+The JAX package's NVMe rung under the host tier waits for ROADMAP A14, and
+page export/import for the fleet's transport for ROADMAP A8.
 """
 
 import torch
 
 from deepspeed_tpu_torch.inference.v2.ragged.blocked_allocator import BlockedAllocator
+from deepspeed_tpu_torch.runtime.swap_tensor.kv_swapper import HostKVSwapper
 
 _DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16,
            "fp32": torch.float32}
@@ -31,7 +41,8 @@ _DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16,
 class BlockedKVCache:
 
     def __init__(self, num_layers, num_blocks, block_size, num_kv_heads,
-                 head_dim, dtype="bf16", kv_dtype="fp", device="cpu"):
+                 head_dim, dtype="bf16", kv_dtype="fp", device="cpu",
+                 host_capacity=0):
         if kv_dtype not in ("fp", "int8"):
             raise ValueError(f"kv_dtype must be 'fp' or 'int8', got {kv_dtype!r}")
         self.num_layers = num_layers
@@ -52,8 +63,10 @@ class BlockedKVCache:
                                       device=self.device)
         else:
             self.k_scale = self.v_scale = None
-        self._allocator = BlockedAllocator(num_blocks)
+        self._allocator = BlockedAllocator(num_blocks,
+                                           host_capacity=host_capacity)
         self._fetch = None  # injectable accounted device->host fetch
+        self._swapper = HostKVSwapper(self._fetch_arrays, buffer_count=2)
 
     @property
     def allocator(self) -> BlockedAllocator:
@@ -96,10 +109,16 @@ class BlockedKVCache:
 
     # -- accounted device->host transfers ----------------------------------
     def set_host_fetch(self, fetch):
-        """Route every device->host landing (swap_out) through
+        """Route every device->host landing (swap_out, spill) through
         ``fetch(value, what) -> cpu tensor`` — the engine wires its accounted
         ``host_fetch`` in so ``host_sync_count`` sees KV swap traffic."""
         self._fetch = fetch
+
+    def _fetch_arrays(self, arrays, what):
+        """Land a tuple of tensors on the host through the accounted fetch."""
+        if self._fetch is not None:
+            return tuple(self._fetch(a, what) for a in arrays)
+        return tuple(a.to("cpu") for a in arrays)
 
     def _pools(self):
         pools = [self.k_pool, self.v_pool]
@@ -115,10 +134,7 @@ class BlockedKVCache:
         blocks = list(blocks)
         idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
         parts = [p.index_select(1, idx) for p in self._pools()]
-        if self._fetch is not None:
-            landed = [self._fetch(p, "kv_cache/swap_out") for p in parts]
-        else:
-            landed = [p.to("cpu") for p in parts]
+        landed = self._fetch_arrays(parts, "kv_cache/swap_out")
         self._allocator.free(blocks)
         return {"n": len(blocks), "parts": landed}
 
@@ -131,3 +147,35 @@ class BlockedKVCache:
         for pool, part in zip(self._pools(), handle["parts"]):
             pool.index_copy_(1, idx, part.to(self.device))
         return new_blocks
+
+    # -- host-DRAM spill tier (parked prefix blocks) -----------------------
+    # Unlike ``swap_out`` (live-sequence preemption: synchronous handle, ids
+    # freed), spills keep the block's identity alive in the allocator's
+    # fourth state: the gather runs on the compute stream here, its copy to
+    # pinned host memory on the swapper's copy stream, and it lands when the
+    # double-buffered swapper rotates (or a restore demands it), so decode
+    # steps launched in between overlap the copies.
+    def _gather_pages(self, idx):
+        """Gathered copies of the given block rows (and their scales)."""
+        return tuple(p.index_select(1, idx) for p in self._pools())
+
+    def spill_block(self, block):
+        """Start a parked block's pages on their way to the host; returns
+        the opaque payload for ``BlockedAllocator.spill`` (pending until
+        landed)."""
+        idx = torch.tensor([block], dtype=torch.long, device=self.device)
+        return self._swapper.submit(self._gather_pages(idx))
+
+    def restore_block(self, payload, block):
+        """Scatter a spilled payload's pages into device block ``block``
+        (freshly allocated by the caller): exactly the bytes that were
+        spilled, scale pools included. Lands the payload first if its copy
+        is still in flight."""
+        parts = self._swapper.land(payload)
+        idx = torch.tensor([block], dtype=torch.long, device=self.device)
+        for pool, part in zip(self._pools(), parts):
+            pool.index_copy_(1, idx, part.to(self.device, non_blocking=True))
+
+    @property
+    def swapper(self) -> HostKVSwapper:
+        return self._swapper

@@ -26,12 +26,20 @@ Lifecycle of a cached block:
     ``BlockedAllocator.free`` asks ``park_if_cached``: cached blocks are
     held out of the free list with their KV contents warm.
   * **revive** — a later prefix hit on a parked block takes it live again.
-  * **evict** — under pool pressure ``BlockedAllocator.allocate`` reclaims
-    parked blocks LRU-first (contents dropped, digest forgotten), before
-    the scheduler's ``_preempt_for_progress`` host-swaps any live victim.
+  * **spill** — under pool pressure ``BlockedAllocator.allocate`` reclaims
+    parked blocks LRU-first. With a bound spiller (the ``BlockedKVCache``)
+    and room in the host-DRAM tier, the block's pages move to a host payload
+    and the digest stays matchable (host-resident); otherwise the block is
+    **evicted** outright (contents dropped, digest forgotten). Either way
+    the device id returns to the free list, and both run *before* the
+    scheduler's ``_preempt_for_progress`` host-swaps any live victim —
+    pressure order: spill-to-host, evict-to-free, preempt-live.
+  * **restore** — a later prefix match on a host-resident digest allocates
+    a fresh device block and swaps the pages back in transparently inside
+    ``acquire_chain`` (callers just see a hit).
 
-The reference's spill of parked blocks to a host-DRAM tier (``bind_spiller``)
-and the delta-shipping lookups of its fleet wait for ROADMAP A2 and A8.
+The delta-shipping lookups of the JAX package's fleet
+(``held_prefix_len``, ``acquire_known``) wait for ROADMAP A8.
 
 The digest is SHA-256 over the parent digest + the raw int32 token bytes —
 a collision would silently serve another prompt's KV, so a cryptographic
@@ -56,12 +64,24 @@ class PrefixCache:
         # parked (refcount-0) digests in park order == LRU order; flush
         # parks a chain children-first so eviction orphans no ancestors
         self._lru = OrderedDict()
+        # host-resident digests: digest -> allocator spill handle. Entries
+        # here hold NO device block; a match restores into a fresh one.
+        self._host_map = {}
+        self._spiller = None  # bound BlockedKVCache (spill_block/restore_block)
         self.hits = 0             # requests that matched >= 1 cached block
         self.misses = 0
         self.tokens_saved = 0     # cumulative prefill tokens skipped
         self.insertions = 0
         self.evictions = 0
+        self.spills = 0           # parked blocks demoted to the host tier
+        self.restores = 0         # host-resident blocks revived on a match
         allocator.bind_cache(self)
+
+    def bind_spiller(self, spiller):
+        """Attach the page mover (``BlockedKVCache``): eviction pressure then
+        demotes LRU parked blocks to the host-DRAM tier (while the allocator
+        has spill room) instead of dropping their KV."""
+        self._spiller = spiller
 
     @staticmethod
     def chain_digest(parent: bytes, block_tokens) -> bytes:
@@ -73,6 +93,11 @@ class PrefixCache:
     def cached_blocks(self) -> int:
         """Device blocks registered in the cache (live shared + parked)."""
         return len(self._map)
+
+    @property
+    def host_cached_blocks(self) -> int:
+        """Digests whose pages live in the host-DRAM tier (still matchable)."""
+        return len(self._host_map)
 
     @property
     def evictable_blocks(self) -> int:
@@ -88,7 +113,8 @@ class PrefixCache:
     def lookup_chain(self, token_ids):
         """Longest chain of cached FULL blocks covering a strict prefix of
         ``token_ids``. Pure read — takes no references, counts no stats.
-        Returns (block_ids, digests)."""
+        Returns (block_ids, digests); a host-resident link appears as
+        ``None`` in ``block_ids`` (``acquire_chain`` swaps it back in)."""
         bs = self.block_size
         limit = (len(token_ids) - 1) // bs  # strict prefix: tail must run
         parent = _ROOT
@@ -96,7 +122,7 @@ class PrefixCache:
         for i in range(limit):
             d = self.chain_digest(parent, token_ids[i * bs:(i + 1) * bs])
             b = self._map.get(d)
-            if b is None:
+            if b is None and d not in self._host_map:
                 break
             blocks.append(b)
             digests.append(d)
@@ -104,17 +130,55 @@ class PrefixCache:
         return blocks, digests
 
     def acquire_chain(self, blocks, digests):
-        """Take references on a matched chain (parked blocks revive) and
-        record the hit — or a miss when the chain is empty. Returns the
-        acquired device block ids."""
-        if not blocks:
+        """Take references on a matched chain (parked blocks revive,
+        host-resident blocks swap back into fresh device blocks) and record
+        the hit — or a miss when nothing resolves. Returns the resolved
+        device block ids — a prefix of the match when the pool can't hold a
+        restore (the chain truncates there and the dropped tail simply
+        re-prefills).
+
+        Device-resident links are pinned live BEFORE any restore runs:
+        ``_restore`` allocates, and allocation pressure re-enters ``evict``,
+        which may spill/free any still-parked block — including a
+        not-yet-acquired link of this very chain, leaving ``blocks`` holding
+        a stale id. Pinned links have refcount >= 1 and sit outside the LRU,
+        so reentrant eviction cannot touch them; links past a truncation
+        point are un-pinned (re-parked)."""
+        for b, d in zip(blocks, digests):
+            if b is not None:
+                self._acquire(b, d)
+        resolved = []
+        for b, d in zip(blocks, digests):
+            if b is None:
+                b = self._restore(d)
+                if b is None:
+                    break  # no device room: truncate the match here
+            resolved.append(b)
+        for b in blocks[len(resolved):]:
+            if b is not None:
+                self._alloc.free([b])  # un-pin: refcount-0 links re-park
+        if not resolved:
             self.misses += 1
             return []
-        for b, d in zip(blocks, digests):
-            self._acquire(b, d)
         self.hits += 1
-        self.tokens_saved += len(blocks) * self.block_size
-        return list(blocks)
+        self.tokens_saved += len(resolved) * self.block_size
+        return resolved
+
+    def _restore(self, digest):
+        """Swap a host-resident block back in under a fresh device id
+        (refcount 1 for the acquiring sequence). Returns None when the pool
+        has no room even after eviction — the record stays host-resident."""
+        try:
+            nb = self._alloc.allocate(1)[0]
+        except ValueError:
+            return None
+        ref = self._host_map.pop(digest)
+        payload = self._alloc.restore(ref)
+        self._spiller.restore_block(payload, nb)
+        self._map[digest] = nb
+        self._by_block[nb] = digest
+        self.restores += 1
+        return nb
 
     def _acquire(self, block, digest):
         if digest in self._lru:
@@ -137,6 +201,11 @@ class PrefixCache:
             if cur != block:
                 self._acquire(cur, d)
             return d, cur
+        if d in self._host_map:
+            # the sequence re-prefilled identical content on the device (its
+            # match predated the spill or a restore found no room) — the
+            # host copy is now a stale duplicate
+            self._alloc.drop_host(self._host_map.pop(d))
         self._map[d] = block
         self._by_block[block] = d
         self.insertions += 1
@@ -154,23 +223,36 @@ class PrefixCache:
         return True
 
     def evict(self, n: int) -> int:
-        """Release up to ``n`` least-recently-parked refcount-0 blocks to the
-        free list. Returns the number freed."""
+        """Reclaim up to ``n`` least-recently-parked refcount-0 device
+        blocks. With a bound spiller and room in the host tier each block's
+        pages demote to host DRAM (digest stays matchable); otherwise the
+        block is released outright. Returns device blocks freed either way."""
+        freed = 0
         released = []
-        while self._lru and len(released) < n:
+        while self._lru and freed < n:
             d, b = self._lru.popitem(last=False)
             del self._map[d]
             del self._by_block[b]
-            released.append(b)
+            if self._spiller is not None and self._alloc.can_spill():
+                # gather the pages BEFORE the id returns to the free list
+                payload = self._spiller.spill_block(b)
+                self._host_map[d] = self._alloc.spill(b, payload)
+                self.spills += 1
+            else:
+                released.append(b)
+            freed += 1
         if released:
             self.evictions += len(released)
             self._alloc.release(released)
-        return len(released)
+        return freed
 
     def stats(self):
         return {"cached_blocks": self.cached_blocks,
+                "host_cached_blocks": self.host_cached_blocks,
                 "evictable_blocks": self.evictable_blocks,
                 "prefix_hits": self.hits, "prefix_misses": self.misses,
                 "prefix_hit_rate": self.hit_rate,
                 "prefill_tokens_saved": self.tokens_saved,
-                "insertions": self.insertions, "evictions": self.evictions}
+                "insertions": self.insertions, "evictions": self.evictions,
+                "prefix_spills": self.spills,
+                "prefix_restores": self.restores}

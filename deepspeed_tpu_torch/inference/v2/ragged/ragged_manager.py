@@ -2,9 +2,11 @@
 ``deepspeed_tpu/inference/v2/ragged/ragged_manager.py``): tracks live
 sequences and owns the blocked KV cache.
 
-Left for later slices: the draft-page class and ``rollback_sequence``
-(speculative decode, ROADMAP A3), the host-tier spill binding and page
-export/import (ROADMAP A2, A8), and the telemetry gauges of
+With ``state_manager.host_kv_blocks`` > 0 and prefix caching on, parked
+prefix blocks spill to the host-DRAM tier under pool pressure and restore on
+a match. Left for later slices: the draft-page class and
+``rollback_sequence`` (speculative decode, ROADMAP A3), the NVMe tier
+(ROADMAP A14), page export/import (ROADMAP A8), and the telemetry gauges of
 ``sample_kv_stats`` (ROADMAP A4).
 """
 
@@ -29,7 +31,8 @@ class DSStateManager:
                 kv_dtype=sm.kv_dtype)
         self.kv_cache = BlockedKVCache(num_layers, num_blocks, kv.block_size,
                                        num_kv_heads, head_dim, kv.cache_dtype,
-                                       kv_dtype=sm.kv_dtype, device=device)
+                                       kv_dtype=sm.kv_dtype, device=device,
+                                       host_capacity=sm.host_kv_blocks)
         # block-granular prefix sharing (config_v2.py prefix_caching knob,
         # default off). None when disabled — every cache-path branch below
         # is a single attribute test.
@@ -37,6 +40,11 @@ class DSStateManager:
         if getattr(config, "prefix_caching", False):
             self.prefix_cache = PrefixCache(self.kv_cache.allocator,
                                             kv.block_size)
+            if sm.host_kv_blocks > 0:
+                # pressure then demotes LRU parked blocks to host DRAM
+                # (pages move through the kv_cache's swapper) before
+                # dropping anything
+                self.prefix_cache.bind_spiller(self.kv_cache)
         self._seqs = {}
         self.swap_outs = 0  # host swap tier counters (kv_cache swap_out/in)
         self.swap_ins = 0
@@ -99,7 +107,11 @@ class DSStateManager:
         """Pure host-side KV pool read: occupancy, free-list depth,
         fragmentation, swap counters. Never touches the device.
         ``occupancy`` counts blocks live under sequences; idle prefix-cached
-        blocks are reclaimable and reported separately."""
+        blocks are reclaimable and reported separately, and host-resident
+        blocks hold no device memory: ``total_blocks``/``occupancy``/
+        ``occupied_blocks`` are the device census, and the host tier
+        reports through the ``host_kv_*`` and ``kv_*`` fields, with
+        ``kv_spilled == kv_restored + kv_dropped + host_kv_blocks``."""
         a = self.kv_cache.allocator_stats()
         total, free = self.kv_cache.allocator.num_blocks, a["free"]
         parked = self.kv_cache.allocator.cached_blocks
@@ -107,6 +119,7 @@ class DSStateManager:
         if occupancy > self.peak_occupancy:
             self.peak_occupancy = occupancy
         swapped = sum(1 for s in self._seqs.values() if s.is_swapped)
+        hs = self.kv_cache.allocator.host_swap_stats()
         stats = {"total_blocks": total, "free_blocks": free,
                  "occupied_blocks": total - free - parked,
                  "occupancy": occupancy,
@@ -116,7 +129,17 @@ class DSStateManager:
                  "fragmentation": a["fragmentation"],
                  "tracked_sequences": len(self._seqs),
                  "swapped_sequences": swapped,
-                 "swap_outs": self.swap_outs, "swap_ins": self.swap_ins}
+                 # swap_outs/ins count whole-sequence preemptions of LIVE
+                 # sequences; the host tier's block-granular prefix
+                 # traffic is the kv_* trio below
+                 "swap_outs": self.swap_outs, "swap_ins": self.swap_ins,
+                 "swap_outs_live": self.swap_outs,
+                 "host_kv_blocks": hs["resident"],
+                 "host_kv_capacity": hs["capacity"],
+                 "host_kv_occupancy": (hs["resident"] / hs["capacity"]
+                                       if hs["capacity"] else 0.0),
+                 "kv_spilled": hs["spilled"], "kv_restored": hs["restored"],
+                 "kv_dropped": hs["dropped"]}
         if self.prefix_cache is not None:
             stats.update(self.prefix_cache.stats())
         return stats
@@ -149,6 +172,11 @@ class DSStateManager:
             cache.misses += 1
             return 0
         blocks, digests = cache.lookup_chain(prompt_tokens)
+        if not blocks:
+            cache.misses += 1
+            return 0
+        # host-resident links swap back in here; the resolved chain may be a
+        # prefix of the match when the pool can't hold a restore
         resolved = cache.acquire_chain(blocks, digests)
         if not resolved:
             return 0

@@ -19,7 +19,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # every kernel source of the port, built together by ``build(*SOURCES)``
 SOURCES = ("paged_attention", "flash_attention", "grouped_gemm", "quant_collective",
-           "quantized_matmul")
+           "quantized_matmul", "block_sparse_attention")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "deepspeed_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

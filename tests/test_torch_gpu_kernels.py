@@ -944,3 +944,187 @@ def test_quantized_engine_on_cuda_runs_the_kernel(cuda):
     dense = engine(ids).float()
     assert ((fused - dense).norm() / dense.norm()).item() < 2e-2
     assert engine.generate(ids, max_new_tokens=4).shape == (2, 4)
+
+
+# ---------------------------------------------------------------------------
+# block-sparse attention (kernel row 8, csrc/block_sparse_attention.cu)
+# ---------------------------------------------------------------------------
+# The flash kernels' bound (flash_ratio): kernel and plain version compute
+# in fp32 from the same inputs and round p to v's dtype at the same running
+# maxima (whole key blocks), but their fp32 logits differ in the last bits,
+# so p flips a rounding now and then; in a row of few keys whose output
+# nearly cancels that exceeds one unit in the element's last place (the
+# paged bound read 9.5 at block 16 on the H100, this one 0.54). The planted
+# fault moves one cols entry of the plain version by one block.
+
+SPARSE_CASES = {
+    # B, H, S, D, block, dtype, config, kwargs, causal
+    "fixed_b64_causal": (1, 4, 1024, 128, 64, torch.bfloat16, "Fixed",
+                         dict(attention="unidirectional"), True),
+    "bigbird_b64": (1, 4, 1024, 128, 64, torch.bfloat16, "BigBird", {}, False),
+    "fixed_b16": (1, 4, 512, 128, 16, torch.bfloat16, "Fixed",
+                  dict(attention="unidirectional"), True),
+    "fixed_b32_d64_batch2": (2, 4, 512, 64, 32, torch.bfloat16, "Fixed",
+                             dict(attention="unidirectional"), True),
+    "fixed_b128": (1, 4, 2048, 128, 128, torch.bfloat16, "Fixed",
+                   dict(attention="unidirectional"), True),
+    "fixed_d256": (1, 2, 1024, 256, 64, torch.bfloat16, "Fixed",
+                   dict(attention="unidirectional"), True),
+    "per_head": (1, 4, 1024, 128, 64, torch.bfloat16, "Fixed",
+                 dict(different_layout_per_head=True,
+                      num_different_global_patterns=4), False),
+    "block8": (1, 2, 256, 64, 8, torch.bfloat16, "Fixed", {}, True),
+    "block24_d96": (1, 2, 480, 96, 24, torch.bfloat16, "Fixed", {}, True),
+    "block72": (1, 2, 576, 128, 72, torch.bfloat16, "BSLongformer", {}, True),
+    "empty_row": (1, 4, 512, 128, 64, torch.bfloat16, "Fixed",
+                  dict(attention="unidirectional"), True),
+    "fp16": (1, 4, 1024, 128, 64, torch.float16, "Fixed",
+             dict(attention="unidirectional"), True),
+    "fp32": (1, 4, 1024, 128, 64, torch.float32, "Fixed",
+             dict(attention="unidirectional"), True),
+}
+
+
+def sparse_case(name, dev, seed=0):
+    import numpy as np
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    B, H, S, D, block, dtype, cfg, kw, causal = SPARSE_CASES[name]
+    layout = getattr(sa, f"{cfg}SparsityConfig")(num_heads=H, block=block,
+                                                  **kw).make_layout(S)
+    if name == "empty_row":
+        layout[1, 5] = 0
+    cols, counts = bsa.compact_layout(layout, causal, block)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(B, H, S, D, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    return (q, k, v, torch.from_numpy(cols).to(dev), torch.from_numpy(counts).to(dev),
+            block, causal, D ** -0.5), np.asarray(cols), np.asarray(counts)
+
+
+def moved_cols(cols, counts, causal):
+    """cols with one enabled entry moved by one block to a block its row does
+    not enable (not above the diagonal with causal)."""
+    nq = cols.shape[1]
+    bad = cols.copy()
+    for h in range(cols.shape[0]):
+        for iq in range(nq - 1, -1, -1):
+            row = set(cols[h, iq, :counts[h, iq]].tolist())
+            for j in range(counts[h, iq]):
+                for step in (-1, 1):
+                    new = int(cols[h, iq, j]) + step
+                    if 0 <= new < nq and new not in row and (not causal or new <= iq):
+                        bad[h, iq, j] = new
+                        return torch.from_numpy(bad)
+    raise AssertionError("no cols entry can move by one block")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sparse_bound_rejects_a_moved_block(dtype):
+    from deepspeed_tpu_torch.ops.block_sparse_attention import sparse_mha_fwd_reference
+    args, cols, counts = sparse_case("fixed_b64_causal", torch.device("cpu"))
+    args = tuple(a.to(dtype) if i < 3 else a for i, a in enumerate(args))
+    ref = sparse_mha_fwd_reference(*args)
+    x = ref.float()
+    ulp = torch.finfo(dtype).eps * torch.exp2(torch.floor(torch.log2(x.abs().clamp(min=1e-30))))
+    assert flash_ratio((x + ulp).to(dtype), ref) <= 1
+    q, k, v, _, cnt, block, causal, scale = args
+    bad = sparse_mha_fwd_reference(q, k, v, moved_cols(cols, counts, causal), cnt,
+                                   block, causal, scale)
+    assert flash_ratio(bad, ref) > 10
+
+
+@gpu
+@pytest.mark.parametrize("name", list(SPARSE_CASES))
+def test_sparse_kernel_matches_plain(cuda, name):
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    args, cols, counts = sparse_case(name, cuda)
+    before = bsa.sparse_mha_fwd.launches
+    out = bsa.sparse_mha_fwd(*args)
+    ref = bsa.sparse_mha_fwd_reference(*args)
+    torch.cuda.synchronize()
+    assert bsa.sparse_mha_fwd.launches == before + 1
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    assert torch.isfinite(out).all()
+    assert flash_ratio(out, ref) <= 1
+    q, k, v, _, cnt, block, causal, scale = args
+    bad = bsa.sparse_mha_fwd_reference(q, k, v, moved_cols(cols, counts, causal).to(cuda),
+                                       cnt, block, causal, scale)
+    assert flash_ratio(bad, ref) > 1
+    if name == "empty_row":
+        assert (out[:, 1, 5 * block:6 * block] == 0).all()
+
+
+@gpu
+def test_sparse_kernel_takes_strided_inputs_and_backward_is_the_plain_routes(cuda):
+    """q/k/v as the module makes them (a [B, S, H, D] view transposed) run
+    without a copy, and for one output gradient the kernel route's input
+    gradients equal the plain route's: the backward recomputes from q, k, v
+    alone."""
+    import numpy as np
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+    B, S, H, D = 1, 512, 4, 64
+    layout = FixedSparsityConfig(num_heads=H, block=32).make_layout(S)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    base = torch.randn(B, S, 3 * H * D, generator=g, device=cuda).to(torch.bfloat16)
+    gout = torch.randn(B, H, S, D, generator=g, device=cuda).to(torch.bfloat16)
+    grads = []
+    for plain in (False, True):
+        leaf = base.clone().requires_grad_()
+        q, k, v = (t.reshape(B, S, H, D).transpose(1, 2) for t in leaf.split(H * D, -1))
+        out = bsa.sparse_mha(q, k, v, layout, 32, causal=True, plain=plain)
+        if not plain:
+            ref = bsa.sparse_mha(q.contiguous(), k.contiguous(), v.contiguous(), layout,
+                                 32, causal=True, plain=True)
+            assert flash_ratio(out, ref.detach()) <= 1
+        out.backward(gout)
+        grads.append(leaf.grad)
+    assert torch.equal(grads[0], grads[1])
+    assert np.isfinite(grads[0].float().cpu().numpy()).all()
+
+
+@gpu
+def test_sparse_raises_instead_of_falling_back(cuda):
+    import numpy as np
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    before = bsa.sparse_mha_fwd.launches
+    q = torch.zeros(1, 2, 512, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="block 256"):
+        bsa.sparse_mha(q, q, q, np.ones((2, 2, 2)), 256)
+    with pytest.raises(ValueError, match="D <= 256"):
+        x = torch.zeros(1, 2, 512, 320, device=cuda, dtype=torch.bfloat16)
+        bsa.sparse_mha(x, x, x, np.ones((2, 8, 8)), 64)
+    with pytest.raises(TypeError, match="dtype"):
+        x = torch.zeros(1, 2, 128, 64, device=cuda, dtype=torch.float64)
+        bsa.sparse_mha(x, x, x, np.ones((2, 2, 2)), 64)
+    assert bsa.sparse_mha_fwd.launches == before
+
+
+# ---------------------------------------------------------------------------
+# host-DRAM KV tier on the card: pinned pages, bitwise round trip
+# ---------------------------------------------------------------------------
+
+@gpu
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+def test_host_spill_restore_is_bitwise_on_the_card(cuda, kv_dtype):
+    from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import BlockedKVCache
+    kv = BlockedKVCache(4, 8, 64, 8, 128, dtype="bf16", kv_dtype=kv_dtype,
+                        device=cuda, host_capacity=8)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for p in kv._pools():
+        p.copy_((torch.randn(p.shape, generator=g, device=cuda) * 40).to(p.dtype))
+    blocks = [1, 4, 6]
+    saved = {b: [p[:, b].clone() for p in kv._pools()] for b in blocks}
+    payloads = [kv.spill_block(b) for b in blocks]
+    assert kv.swapper.pending == 2 and kv.swapper.landings == 1   # double buffered
+    for p in kv._pools():
+        p.zero_()                       # the freed ids are reused
+    for payload, dst in zip(payloads, (7, 0, 2)):
+        kv.restore_block(payload, dst)
+        assert all(t.is_pinned() for t in payload.arrays)
+    torch.cuda.synchronize()
+    for b, dst in zip(blocks, (7, 0, 2)):
+        for p, s in zip(kv._pools(), saved[b]):
+            assert torch.equal(p[:, dst], s)
+    assert kv.swapper.pending == 0 and kv.swapper.landings == 3

@@ -301,8 +301,8 @@ def test_config_unknown_key_warns_not_raises():
 
 
 @pytest.mark.parametrize("doc,item", [
-    ({"state_manager": {"host_kv_blocks": 4}}, "A2"),
-    ({"state_manager": {"nvme_kv_blocks": 4}}, "A2"),
+    ({"state_manager": {"host_kv_blocks": 4, "nvme_kv_blocks": 4}}, "A14"),
+    ({"state_manager": {"nvme_kv_blocks": 4}}, "A14"),
     ({"speculative": {"enabled": True}}, "A3"),
     ({"slo_classes": {"interactive": {"ttft_target_s": 0.5}}}, "A4"),
     ({"tensor_parallel": {"tp_size": 2}}, "A5"),
