@@ -32,8 +32,19 @@ prints no result.
    ``csrc/flash_attention.cu`` against their plain PyTorch versions at the
    training shape (B=4, T=2048, 32 heads of 128, bf16, causal) and at GQA,
    a sliding window, packed segments, a broadcast bias, Tq < Tk, a length
-   that is not a multiple of 64, head widths 64 and 256, fp16 and fp32. The
-   backward kernels take the plain forward's lse and delta, so each kernel
+   that is not a multiple of 64, q/k/v as strided views of one fused
+   [B, T, 3, H, Dh] projection, head widths 64, 96 and 256, fp16 and fp32.
+   First the forward kernel's key tile per dtype and head width
+   (``ds_flash_fwd_block_k``) must equal the plain version's
+   (``FWD_BLOCK_K``): p rounds against the running maximum of those tiles;
+   and the source's route (``ds_flash_route``) must send bf16/fp16 forward
+   and dq to the wgmma kernels, fp32 and dk/dv to the SIMT kernels. Then the
+   rounding probes (``tests/flash_rounding.py``): the bf16/fp16 forward and
+   dq kernels at head widths 64, 128 and 256 must round p and ds where the
+   plain versions do, and p or ds rounded elsewhere must fail the bound.
+   Each case prints the kernels it launched, as the library's launch tally
+   (``ds_flash_kernel_launches``) counted them, and fails on another route.
+   The backward kernels take the plain forward's lse and delta, so each kernel
    sees the same inputs as its plain version. Per case and kernel: the error
    against the bound stated below, the same for a planted fault (every query
    also sees the next key) that the bound must reject, kernel / plain /
@@ -50,7 +61,8 @@ prints no result.
    control whose plain attention lets each query see the next key. Then 4
    optimizer steps (8 micro-steps) on 2 repeated batches: the loss must
    fall, and each flash kernel's launch counter must equal its count per
-   micro-step (forward 2 x layers, dq and dk/dv 1 x layers) x 8.
+   micro-step (forward 2 x layers, dq and dk/dv 1 x layers) x 8, all of
+   them, by the library's tally, on the wgmma forward and dq kernels.
 6. Grouped GEMM (MoE expert FFN, run between phases 2 and 4): the kernel of
    ``csrc/grouped_gemm.cu`` against its plain version at Mixtral-8x7B
    widths in bf16 (a decode's 16 rows, a served decode round's 128 rows, a
@@ -627,13 +639,21 @@ def phase_serving():
 # ---------------------------------------------------------------------------
 
 # Per-element bound |kernel - plain| <= FLASH_RTOL[dtype] * (|plain| +
-# rms(plain)), the bound of tests/test_torch_gpu_kernels.py: RTOL |plain| is
-# the one rounding of the output to its dtype; the rms term covers elements
-# near 0, moved when the forward's p or dq's ds, rounded to the working dtype
-# from fp32 values summed in another order than in the plain version, flips
-# a single rounding. lse is fp32 and held to 2^-16 the same way. The planted
-# fault (every query also sees the next key, the causal mask off by one)
-# must exceed it.
+# rms(plain)) (the "flash form"), the bound of tests/test_torch_gpu_kernels.py:
+# RTOL |plain| is the one rounding of the output to its dtype; the rms term
+# covers elements near 0. lse is fp32 and held to 2^-16 the same way. The
+# bf16/fp16 forward's out and dq add flip_slack (tests/flash_rounding.py):
+# their tensor-core kernels sum q.k (and dO.v) in another order than the
+# plain fp32 GEMM, so a p (ds) within the two sums' error bound of a rounding
+# boundary may round the other way, and may move the output by one spacing
+# times its |v| / l (|k|); every other p and ds must round as the plain
+# version does. fp32, lse and dk/dv keep the flash form alone. The flash
+# form's ratio is printed beside (err_ratio_flash_form). The planted fault
+# (every query also sees the next key, the causal mask off by one) must
+# exceed the bound in use. Random data barely show where p and ds round, so
+# the rounding probes (check_flash_rounding_points) hold the kernels to the
+# flash form with no slack on inputs where a rounding moved elsewhere fails
+# it many times over.
 FLASH_RTOL = {"bfloat16": 2 ** -7, "float16": 2 ** -10, "float32": 2 ** -16}
 FLASH_CASES = [
     # name, B, Tq, Tk, H, KV, Dh, dtype, options
@@ -644,7 +664,9 @@ FLASH_CASES = [
     ("bias_broadcast", 2, 1024, 1024, 32, 32, 128, "bfloat16", {"bias": True}),
     ("rect_tq1024_tk2048", 2, 1024, 2048, 32, 32, 128, "bfloat16", {}),
     ("ragged_t1000", 2, 1000, 1000, 32, 32, 128, "bfloat16", {}),
+    ("fused_qkv_view", 2, 2048, 2048, 32, 32, 128, "bfloat16", {"fused": True}),
     ("dh64", 2, 2048, 2048, 32, 32, 64, "bfloat16", {}),
+    ("dh96", 2, 1024, 1024, 32, 32, 96, "bfloat16", {}),
     ("dh256", 2, 1024, 1024, 16, 16, 256, "bfloat16", {}),
     ("fp16", 2, 1024, 1024, 32, 32, 128, "float16", {}),
     ("fp32", 1, 1024, 1024, 16, 16, 128, "float32", {}),
@@ -654,9 +676,13 @@ FLASH_KERNELS = ("flash_mha_fwd", "flash_mha_bwd_dq", "flash_mha_bwd_dkv")
 FLASH_OPS = {"flash_mha_fwd": 4, "flash_mha_bwd_dq": 6, "flash_mha_bwd_dkv": 8}
 
 
-def flash_ratio(out, ref, dtype):
+def flash_ratio(out, ref, dtype, slack=None):
+    """Largest |out - ref| over the flash form's bound, plus ``slack`` where
+    given: at most 1 passes."""
     ref = ref.float()
     bound = FLASH_RTOL[dtype] * (ref.abs() + ref.pow(2).mean().sqrt())
+    if slack is not None:
+        bound = bound + slack
     return ((out.float() - ref).abs() / bound).max().item()
 
 
@@ -676,7 +702,12 @@ def make_flash_case(case, gen):
     dev = gen.device
     dt = getattr(torch, dtype)
     r = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(dt)
-    q, k, v, dout = r(B, Tq, H, Dh), r(B, Tk, KV, Dh), r(B, Tk, KV, Dh), r(B, Tq, H, Dh)
+    if opt.get("fused"):   # strided views of one [B, T, 3, H, Dh] projection
+        qkv = r(B, Tq, 3, H, Dh)
+        q, k, v = qkv.unbind(2)
+    else:
+        q, k, v = r(B, Tq, H, Dh), r(B, Tk, KV, Dh), r(B, Tk, KV, Dh)
+    dout = r(B, Tq, H, Dh)
     kw = dict(causal=True, window=opt.get("window"))
     if opt.get("bias"):
         kw["bias"] = torch.randn(1, H, Tq, Tk, generator=gen, device=dev)
@@ -738,11 +769,88 @@ def flash_library_ms(case, args, kw, iters):
     return fwd, time_ms(fwd_bwd, iters) - fwd
 
 
+def check_flash_block_k():
+    """The forward kernel's key tile (``ds_flash_fwd_block_k``) must equal
+    the plain version's table for every dtype and head width, and the
+    source must route bf16/fp16 forward and dq to the tensor-core kernels
+    (``ds_flash_route``)."""
+    import torch
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    dtypes = (torch.float32, torch.float16, torch.bfloat16)
+    wrong = [(str(dt), dh, fa.kernel_block_k(dt, dh), fa.fwd_block_k(dt, dh))
+             for dt in dtypes
+             for dh in (1, 40, 64, 65, 96, 128, 129, 200, 256)
+             if fa.kernel_block_k(dt, dh) != fa.fwd_block_k(dt, dh)]
+    if wrong:
+        fail(f"the forward kernel's key tiles differ from FWD_BLOCK_K "
+             f"(dtype, Dh, kernel, table): {wrong}")
+    routes = {str(dt)[6:]: [fa.kernel_route(w, dt) for w in ("fwd", "dq", "dkv")]
+              for dt in dtypes}
+    want = {"float32": ["simt"] * 3, "float16": ["wgmma", "wgmma", "simt"],
+            "bfloat16": ["wgmma", "wgmma", "simt"]}
+    if routes != want:
+        fail(f"flash routes (forward, dq, dk/dv) {routes} != {want}")
+    print(f"flash forward key tiles equal FWD_BLOCK_K: "
+          f"{ {f'{str(dt)[6:]}/{w}': n for (dt, w), n in fa.FWD_BLOCK_K.items()} }; "
+          f"routes (forward, dq, dk/dv): {routes}", flush=True)
+
+
+def launched_kernels(fa, tally):
+    """The flash kernels launched since ``tally`` (``fa.kernel_launches()``)."""
+    return {n: c - tally[n] for n, c in fa.kernel_launches().items() if c > tally[n]}
+
+
+def check_flash_rounding_points():
+    """On the rounding probes (tests/flash_rounding.py) the bf16/fp16
+    forward and dq kernels must hold the flash form with no slack, and each
+    plain version with its rounding moved (p or ds unrounded, p against the
+    other tile width's maxima) must fail it."""
+    import torch
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    import flash_rounding as fr
+    results, failures = [], []
+    for dtype in ("bfloat16", "float16"):
+        dt = getattr(torch, dtype)
+        for dh in (64, 128, 256):
+            (q, k, v), kw = fr.fwd_probe(dt, dh, DEVICE)
+            bwd, bkw = fr.dq_probe(dt, dh, DEVICE)
+            tally = fa.kernel_launches()
+            out = fa.flash_mha_fwd(q, k, v, **kw)[0]
+            dq = fa.flash_mha_bwd_dq(*bwd, **bkw)
+            routes = launched_kernels(fa, tally)
+            ref = fa.flash_mha_fwd_reference(q, k, v, **kw)[0]
+            dq_ref = fa.flash_mha_bwd_dq_reference(*bwd, **bkw)
+            res = dict(dtype=dtype, dh=dh, launched=routes,
+                       fwd_ratio=flash_ratio(out, ref, dtype),
+                       dq_ratio=flash_ratio(dq, dq_ref, dtype),
+                       fault_ratios={
+                           **{f: flash_ratio(bad, ref, dtype) for f, bad in
+                              fr.fwd_rounding_faults(q, k, v, **kw).items()},
+                           **{f: flash_ratio(bad, dq_ref, dtype) for f, bad in
+                              fr.dq_rounding_faults(*bwd, **bkw).items()}})
+            print(f"flash rounding probe {json.dumps(res)}", flush=True)
+            if routes != {"fwd_wgmma": 1, "dq_wgmma": 1}:
+                failures.append(f"{dtype} Dh {dh}: launched {routes}")
+            if not (res["fwd_ratio"] <= 1 and res["dq_ratio"] <= 1):
+                failures.append(f"{dtype} Dh {dh}: kernels do not round where the "
+                                f"plain versions do ({res['fwd_ratio']:.3g}, "
+                                f"{res['dq_ratio']:.3g}x the bound)")
+            failures += [f"{dtype} Dh {dh}: the bound does not reject {f} ({r:.3g}x)"
+                         for f, r in res["fault_ratios"].items() if not r > 1]
+            results.append(res)
+    if failures:
+        fail("; ".join(failures))
+    return results
+
+
 def phase_flash_kernels():
     import torch
     from deepspeed_tpu_torch.ops import flash_attention as fa
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    import flash_rounding as fr
+    check_flash_block_k()
+    check_flash_rounding_points()
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1)
     kernels = dict(zip(FLASH_KERNELS, (fa.flash_mha_fwd, fa.flash_mha_bwd_dq,
@@ -758,12 +866,23 @@ def phase_flash_kernels():
         out_p, lse_p = fa.flash_mha_fwd_reference(q, k, v, **kw)
         delta = (dout.float() * out_p.float()).sum(-1).transpose(1, 2).contiguous()
         bwd_args = (q, k, v, dout, lse_p, delta)
+        slack_out = slack_dq = None
+        if dtype != "float32":
+            slack_out, slack_dq = fr.flip_slack(*bwd_args, **kw)
+        slacks = {"flash_mha_fwd": (slack_out, None), "flash_mha_bwd_dq": (slack_dq,),
+                  "flash_mha_bwd_dkv": (None, None)}
         want = {"flash_mha_fwd": (out_p, lse_p),
                 "flash_mha_bwd_dq": (fa.flash_mha_bwd_dq_reference(*bwd_args, **kw),),
                 "flash_mha_bwd_dkv": fa.flash_mha_bwd_dkv_reference(*bwd_args, **kw)}
-        got = {"flash_mha_fwd": fa.flash_mha_fwd(q, k, v, **kw),
-               "flash_mha_bwd_dq": (fa.flash_mha_bwd_dq(*bwd_args, **kw),),
-               "flash_mha_bwd_dkv": fa.flash_mha_bwd_dkv(*bwd_args, **kw)}
+        tally = fa.kernel_launches()
+        got = {"flash_mha_fwd": fa.flash_mha_fwd(q, k, v, **kw)}
+        route = {"flash_mha_fwd": launched_kernels(fa, tally)}
+        tally = fa.kernel_launches()
+        got["flash_mha_bwd_dq"] = (fa.flash_mha_bwd_dq(*bwd_args, **kw),)
+        route["flash_mha_bwd_dq"] = launched_kernels(fa, tally)
+        tally = fa.kernel_launches()
+        got["flash_mha_bwd_dkv"] = fa.flash_mha_bwd_dkv(*bwd_args, **kw)
+        route["flash_mha_bwd_dkv"] = launched_kernels(fa, tally)
         fault_bias = one_ahead_bias(Tq, Tk, q.device)
         if "bias" in kw:
             fault_bias = fault_bias + kw["bias"]
@@ -782,14 +901,24 @@ def phase_flash_kernels():
         except RuntimeError as e:   # a yardstick the card's SDPA cannot take
             print(f"flash case {name}: no library time: {e}", flush=True)
             lib_fwd = lib_bwd = None
+        tc = "simt" if dtype == "float32" else "wgmma"
+        want_route = {"flash_mha_fwd": {f"fwd_{tc}": 1}, "flash_mha_bwd_dq": {f"dq_{tc}": 1},
+                      "flash_mha_bwd_dkv": {"dkv_simt": 1}}
+        if route != want_route:
+            failures.append(f"{name}: launched {route}, not {want_route}")
         res = dict(name=name, shape=f"B={B} Tq={Tq} Tk={Tk} H={H} KV={KV} Dh={Dh} "
                    f"{dtype} causal" + "".join(f" {k}={v}" for k, v in opt.items()),
-                   tolerance=f"{FLASH_RTOL[dtype]} (|plain| + rms(plain))")
+                   route={kn: ",".join(r) for kn, r in route.items()},
+                   tolerance=f"{FLASH_RTOL[dtype]} (|plain| + rms(plain))"
+                             + ("" if dtype == "float32" else " + flip_slack"))
         for kn in FLASH_KERNELS:
             # lse is fp32 whatever the inputs: held to the fp32 bound
-            ratio = max(flash_ratio(a, b, str(b.dtype).split(".")[1])
-                        for a, b in zip(got[kn], want[kn]))
-            fault_ratio = max(flash_ratio(a, b, dtype) for a, b in zip(fault[kn], want[kn]))
+            ratio = max(flash_ratio(a, b, str(b.dtype).split(".")[1], m)
+                        for a, b, m in zip(got[kn], want[kn], slacks[kn]))
+            ratio_flash_form = max(flash_ratio(a, b, str(b.dtype).split(".")[1])
+                                   for a, b in zip(got[kn], want[kn]))
+            fault_ratio = max(flash_ratio(a, b, dtype, m)
+                              for a, b, m in zip(fault[kn], want[kn], slacks[kn]))
             finite = all(bool(torch.isfinite(a).all()) for a in got[kn])
             err = max((a.float() - b.float()).abs().max().item()
                       for a, b in zip(got[kn], want[kn]))
@@ -797,7 +926,8 @@ def phase_flash_kernels():
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / PEAK_FLOPS[dtype] * 1e3
             res[kn] = dict(
-                max_abs_err=err, err_ratio=ratio, planted_fault_ratio=fault_ratio,
+                max_abs_err=err, err_ratio=ratio, err_ratio_flash_form=ratio_flash_form,
+                planted_fault_ratio=fault_ratio,
                 ms=time_ms(lambda: calls[kn](kernels[kn]), iters),
                 plain_ms=time_ms(lambda: calls[kn](plains[kn]), 2),
                 library_ms=lib_fwd if kn == "flash_mha_fwd" else lib_bwd,
@@ -813,7 +943,8 @@ def phase_flash_kernels():
                                 f"causal fault ({fault_ratio:.3g}x the bound)")
         results.append(res)
         print(f"flash case {json.dumps(res)}", flush=True)
-        del args, kw, got, want, fault, bwd_args, out_p, lse_p, delta
+        del args, kw, got, want, fault, bwd_args, out_p, lse_p, delta, slacks
+        del slack_out, slack_dq
         torch.cuda.empty_cache()
     if failures:
         fail("; ".join(failures))
@@ -891,6 +1022,7 @@ def phase_training():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
+    tally = fa.kernel_launches()
     losses, step_s = [], []
     t_window = time.perf_counter()
     for micro in range(TRAIN_GAS * TRAIN_STEPS):
@@ -932,6 +1064,8 @@ def phase_training():
     launches = {"flash_mha_fwd": fa.flash_mha_fwd.launches,
                 "flash_mha_bwd_dq": fa.flash_mha_bwd_dq.launches,
                 "flash_mha_bwd_dkv": fa.flash_mha_bwd_dkv.launches}
+    # the kernels the bf16 main path went to, as the library counted them
+    routes = launched_kernels(fa, tally)
     micro_steps = TRAIN_GAS * TRAIN_STEPS
     expected = {"flash_mha_fwd": 2 * TRAIN_LAYERS * micro_steps,
                 "flash_mha_bwd_dq": TRAIN_LAYERS * micro_steps,
@@ -951,7 +1085,7 @@ def phase_training():
                  tokens_per_s=tok_s, model_flops_per_token=flops_token,
                  mfu_vs_989_tflops=flops_token * tok_s / 989e12,
                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-                 launches=launches, expected_launches=expected)
+                 launches=launches, expected_launches=expected, kernels_launched=routes)
     print(f"training {json.dumps(stats)}", flush=True)
     if not all(np.isfinite(losses)):
         fail(f"training losses are not finite: {losses}")
@@ -959,6 +1093,11 @@ def phase_training():
         fail(f"training loss did not fall by {TRAIN_LOSS_FALL}: {first} -> {last}")
     if launches != expected:
         fail(f"flash kernel launches {launches} != expected {expected}")
+    want_routes = {"fwd_wgmma": expected["flash_mha_fwd"],
+                   "dq_wgmma": expected["flash_mha_bwd_dq"],
+                   "dkv_simt": expected["flash_mha_bwd_dkv"]}
+    if routes != want_routes:
+        fail(f"the bf16 training launched flash kernels {routes}, not {want_routes}")
     return launches
 
 
@@ -3474,6 +3613,7 @@ def main():
     if not (REPO / "deepspeed_tpu_torch" / "csrc").is_dir():
         fail(f"no deepspeed_tpu_torch sources beside {__file__}")
     sys.path.insert(0, str(REPO))
+    sys.path.insert(0, str(REPO / "tests"))   # flash_rounding: the flash checks' helpers
     from deepspeed_tpu_torch.ops import cuda_build
 
     t_start = time.perf_counter()

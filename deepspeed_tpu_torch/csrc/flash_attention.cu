@@ -21,38 +21,69 @@
 //
 // Rounding points are the TPU kernels': products of the input dtype
 // accumulate in fp32; the forward rounds p = exp(s - m) to v's dtype before
-// PV while l sums the unrounded p; a tile whose keys are all masked gives
-// p = 1 (exp(NEG_INF - NEG_INF)) until a live key wipes it with alpha = 0;
-// the output divides by l_safe (1 where l == 0) and lse = m + log(max(l,
-// 1e-30)). dq rounds ds = p (dp - delta) scale to k's dtype before ds.K;
-// dk/dv keep p and ds in fp32. Keys past Tk and queries past Tq do not exist
-// (p = 0): the kernels mask the ragged edge themselves, so no length has to
-// be padded to a multiple of a tile.
+// PV while l sums the unrounded p, with m the running maximum over the key
+// tiles seen so far (the tile width per dtype and head width is
+// fwd_block_k below, mirrored by FWD_BLOCK_K in ops/flash_attention.py); a
+// tile whose keys are all masked gives p = 1 (exp(NEG_INF - NEG_INF)) until
+// a live key wipes it with alpha = 0; the output divides by l_safe (1 where
+// l == 0) and lse = m + log(max(l, 1e-30)). dq rounds ds = p (dp - delta)
+// scale to k's dtype before ds.K; dk/dv keep p and ds in fp32. Keys past Tk
+// and queries past Tq do not exist (p = 0): the kernels mask the ragged edge
+// themselves, so no length has to be padded to a multiple of a tile.
 //
 // Rows with no visible key at all (causal with Tq > Tk, or a query whose
 // segment has no key in its window): like the TPU kernel, which skips whole
 // tiles, such a row holds the mean of V over the key tiles its query tile
 // visits (every entry is NEG_INF, so p = 1 for each), and no tile at all
-// gives 0 with lse = NEG_INF + log(1e-30). Tiles here are 64 keys, not the
-// TPU's 128-512, so these rows differ from the TPU kernel's and from the
+// gives 0 with lse = NEG_INF + log(1e-30). Tiles here are 64-128 keys, not
+// the TPU's 128-512, so these rows differ from the TPU kernel's and from the
 // dense plain version's; parity tests compare live rows only.
 //
 // What bounds it on the H100: at the training shape (B=4, T=2048, 32 heads
 // of 128, causal) attention does 4 * Dh flops per visible (query, key) pair
 // in the forward, 6 * Dh in dq and 8 * Dh in dk/dv over ~2 MB of q/k/v per
 // head: hundreds of flops per byte, so all three are bound by operations
-// (989 TFLOP/s bf16 on the tensor cores). This first kernel does its
-// products with fp32 FMAs on the CUDA cores (67 TFLOP/s peak), so it runs
-// far from that bound; mma.sync / wgmma tiles with TMA loads are later work.
+// (989 TFLOP/s bf16 on the tensor cores).
 //
-// Design. The TPU grid runs (batch, head, q block, k block) in order on one
-// core and carries m, l and the accumulator across the k steps in VMEM.
-// Here a thread block of 256 threads (a 16 x 16 grid) owns one q tile of
-// one head of one batch row (forward, dq) or one k tile of one kv head
-// (dk/dv) and loops over the tiles it can see itself:
-//   - the causal and window bounds give the first and last visible tile, so
-//     tiles outside the band are never loaded (the TPU kernel's block skip
-//     and DMA clamp);
+// Two routes, chosen by dtype alone (tensor_core_route, exported as
+// ds_flash_route; ds_flash_kernel_launches counts what each call launched):
+//
+// bf16 / fp16, forward and dq: tensor-core kernels (flash_fwd_wgmma,
+// flash_dq_wgmma). A thread block owns one query tile of one head: 128 rows
+// as two consumer warpgroups of 64 (64 rows, one warpgroup, at head width
+// 256, where the accumulators need the registers), plus one producer warp.
+//   - The producer's lane 0 loads the Q tile (dq: Q and dO) once and keeps
+//     K and V tiles in flight through a 2-stage ring in shared memory with
+//     TMA (cp.async.bulk.tensor, 128-byte swizzle, out-of-range rows and
+//     columns read as zeros) and full / empty mbarriers.
+//   - The consumers compute S = Q.K^T (dq also dP = dO.V^T) with wgmma
+//     m64n64k16 from shared memory, fp32 accumulators in registers.
+//   - Mask, online softmax (forward) or p and ds (dq) run in registers in
+//     the accumulator layout: a thread holds 2 rows, and row max / sum are
+//     two shuffles within a quad. alpha = exp(m_prev - m_cur) rescales the
+//     output every tile, exactly as the TPU kernel does.
+//   - p (forward) or ds (dq) is rounded to the input dtype in registers and
+//     is wgmma's register A operand for P.V or dS.K; V and K are the same
+//     staged tiles read as MN-major B operands (transpose bit), so one copy
+//     of K serves both of dq's products.
+//   - Causal and window bounds skip whole key tiles; tiles inside the band
+//     with no bias, segments or ragged edge skip the per-element mask.
+//   - Query tiles are scheduled longest first (causal rows near the end see
+//     the most keys).
+// Head widths up to 256 are staged as 64, 128 or 256 columns (TMA reads the
+// missing columns as zeros). TMA needs a 16-byte aligned base and 16-byte
+// multiples for the strides; the Python wrapper copies inputs that break
+// that into aligned tensors first.
+//
+// fp32, and dk/dv in every dtype: the SIMT kernels below (flash_fwd_kernel,
+// flash_dq_kernel, flash_dkv_kernel), fp32 FMAs on the CUDA cores (67
+// TFLOP/s peak). wgmma has no exact fp32 product (TF32 is not the TPU
+// kernel's arithmetic); dk/dv keep p and ds in fp32, which a 16-bit tensor
+// core product cannot take without a split (hi + lo) product.
+//   - A thread block of 256 threads (a 16 x 16 grid) owns one q tile of one
+//     head of one batch row (forward, dq) or one k tile of one kv head
+//     (dk/dv) and loops over the tiles it can see itself; tiles outside the
+//     causal / window band are never loaded;
 //   - tiles are staged in shared memory as fp32 rows padded by 4 floats, read
 //     through [B, T, H, Dh] strides with no transposed copy; each thread
 //     computes a 4 x 4 (or 2 x 4, 2 x 2) block of the score tile with float4
@@ -63,6 +94,8 @@
 #include <cuda_runtime.h>
 #include <cuda_fp16.h>
 #include <cuda_bf16.h>
+
+#include "hopper.cuh"
 
 // Mirrored field by field by _FlashParams in ops/flash_attention.py.
 struct DsFlashParams {
@@ -514,6 +547,429 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 / fp16: tensor-core forward and dq (wgmma fed by a TMA ring)
+// ---------------------------------------------------------------------------
+
+// Keys per tile of the forward kernels, by dtype code (0 fp32, 1 fp16,
+// 2 bf16) and staged head width: the width against whose running maximum p
+// is rounded. FWD_BLOCK_K of ops/flash_attention.py mirrors it.
+constexpr int fwd_block_k(int dtype, int staged_dh) {
+  return dtype == 0 ? 64 : staged_dh == 256 ? 64 : 128;
+}
+
+constexpr int kStages = 2;          // K / V ring depth
+constexpr int kBlockBytes = 128;    // bytes per row of a 64-column block
+
+// Shared memory: `resident` query-side tiles of BQ rows (Q; dq adds dO),
+// then kStages stages of K and V, each DS / 64 column blocks, then the
+// barriers; +1024 for aligning the base.
+template <int DS, int BQ, int BK>
+constexpr int tc_smem_bytes(int resident) {
+  return 1024 + resident * BQ * DS * 2 + kStages * 2 * BK * DS * 2 + 8 * (1 + 2 * kStages);
+}
+
+// Threads of a tensor-core block: NC consumer warpgroups, then the
+// producer. With two consumers the producer is a whole warpgroup, so that
+// setmaxnreg can move its registers to the consumers (24 + 2 x 240 per
+// thread slot: each SM sub-partition holds one warp of each warpgroup; at
+// the even split, 168 registers a thread, the forward spilled 300 bytes at
+// head width 128, at 240 it spills 100); with one consumer a single producer
+// warp leaves the consumer 255 registers as is.
+constexpr int tc_threads(int nc) { return nc == 2 ? 3 * 128 : 128 + 32; }
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+
+// Ring and barriers shared by the two kernels. The producer warp is warp
+// NC * 4 (after the consumer warpgroups); only its lane 0 works.
+struct Ring {
+  uint8_t* resident;   // query-side tiles: `resident` x DS / 64 blocks of [BQ][64]
+  uint8_t* stages;     // per stage: DS / 64 blocks of K [BK][64], then of V
+  uint64_t* q_full;    // the resident tiles have landed
+  uint64_t* full;      // [kStages]: stage filled
+  uint64_t* empty;     // [kStages]: stage released by every consumer thread
+};
+
+template <int DS, int BQ, int BK>
+__device__ __forceinline__ Ring make_ring(uint8_t* smem_raw, int resident) {
+  Ring r;
+  r.resident = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                          ~static_cast<uintptr_t>(1023));
+  r.stages = r.resident + resident * BQ * DS * 2;
+  r.q_full = reinterpret_cast<uint64_t*>(r.stages + kStages * 2 * BK * DS * 2);
+  r.full = r.q_full + 1;
+  r.empty = r.full + kStages;
+  return r;
+}
+
+// The producer: resident tiles once, then K and V of n_tiles key tiles from
+// kt_lo on, each stage reused once every consumer thread has released it.
+template <int DS, int BQ, int BK>
+__device__ __forceinline__ void produce(const Ring& r, const CUtensorMap* const* res_maps,
+                                        int resident, const CUtensorMap* tk,
+                                        const CUtensorMap* tv, int q0, int h, int kvh, int b,
+                                        int kt_lo, int n_tiles) {
+  constexpr int NDC = DS / 64;
+  constexpr uint32_t kQBlock = BQ * kBlockBytes, kKBlock = BK * kBlockBytes;
+  constexpr uint32_t kStageBytes = 2 * NDC * kKBlock;
+  hopper::mbar_arrive_expect_tx(r.q_full, resident * NDC * kQBlock);
+  for (int t = 0; t < resident; ++t)
+#pragma unroll
+    for (int c = 0; c < NDC; ++c)
+      hopper::tma_load_4d(r.resident + (t * NDC + c) * kQBlock, res_maps[t], r.q_full, 64 * c, q0,
+                          h, b);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages;
+    if (i >= kStages) hopper::mbar_wait(&r.empty[s], (i / kStages - 1) & 1);
+    const int k0 = (kt_lo + i) * BK;
+    uint8_t* st = r.stages + s * kStageBytes;
+    hopper::mbar_arrive_expect_tx(&r.full[s], kStageBytes);
+#pragma unroll
+    for (int c = 0; c < NDC; ++c) {
+      hopper::tma_load_4d(st + c * kKBlock, tk, &r.full[s], 64 * c, k0, kvh, b);
+      hopper::tma_load_4d(st + (NDC + c) * kKBlock, tv, &r.full[s], 64 * c, k0, kvh, b);
+    }
+  }
+}
+
+// S[n] = A . K^T for the NS = BK / 64 key chunks of a staged tile, A the
+// warpgroup's 64 resident rows at shared address a_rows (column blocks
+// BQ * 128 bytes apart), K at k_tile (column blocks BK * 128 bytes apart).
+template <typename T, int DS, int BQ, int BK>
+__device__ __forceinline__ void issue_qk(float (&acc)[BK / 64][32], uint32_t a_rows,
+                                         uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < DS / 16; ++kk) {
+    const uint64_t da = hopper::desc_sw128(a_rows + (kk / 4) * BQ * kBlockBytes + (kk % 4) * 32);
+#pragma unroll
+    for (int n = 0; n < BK / 64; ++n)
+      hopper::wgmma_ss<T>(acc[n],
+                          da,
+                          hopper::desc_sw128(k_tile + (kk / 4) * BK * kBlockBytes +
+                                             n * 64 * kBlockBytes + (kk % 4) * 32),
+                          kk > 0);
+  }
+}
+
+// acc[c] += A . X for the DS / 64 column blocks of a staged [BK][DS] tile X
+// (V in the forward, K in dq) read MN-major; A is a[BK / 16] register
+// fragments (P or dS in the input dtype).
+template <typename T, int DS, int BK>
+__device__ __forceinline__ void issue_px(float (&acc)[DS / 64][32], const uint32_t (&a)[BK / 16][4],
+                                         uint32_t x_tile) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < DS / 64; ++c)
+      hopper::wgmma_rs_mn<T>(acc[c], a[kk],
+                             hopper::desc_sw128(x_tile + c * BK * kBlockBytes + kk * 16 * kBlockBytes));
+}
+
+template <int N>
+__device__ __forceinline__ void fence_all(float (&r)[N][32]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) hopper::fence_regs(r[i]);
+}
+
+// Rounds the accumulator-layout values x[BK / 64][32] to T and packs them as
+// the register A fragments of the BK / 16 k-steps of the next product.
+template <typename T, int BK>
+__device__ __forceinline__ void to_fragments(const float (&x)[BK / 64][32],
+                                             uint32_t (&a)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const int n = kk / 4, j = 8 * (kk % 4);   // 4 j: the first of two n8 blocks
+    a[kk][0] = hopper::pack2<T>(x[n][j + 0], x[n][j + 1]);
+    a[kk][1] = hopper::pack2<T>(x[n][j + 2], x[n][j + 3]);
+    a[kk][2] = hopper::pack2<T>(x[n][j + 4], x[n][j + 5]);
+    a[kk][3] = hopper::pack2<T>(x[n][j + 6], x[n][j + 7]);
+  }
+}
+
+// The logits of one staged tile in place: scaled, biased and masked (see
+// logit) unless the whole tile is inside the visible band of all 64 rows
+// [r_first, r_first + 64) with no bias, segments or ragged edge. Element
+// (n, 4 j + e) of this thread is row qi[e / 2], key k0 + 64 n + 8 j + 2 (lane
+// % 4) + e % 2.
+template <int BK>
+__device__ __forceinline__ void mask_tile(const Params& p, float (&x)[BK / 64][32], int b, int h,
+                                          const int (&qi)[2], int r_first, int k0, int lane) {
+  const int off = p.Tk - p.Tq, r_last = r_first + 63;
+  const bool interior = k0 + BK <= p.Tk && r_last < p.Tq && p.bias == nullptr &&
+                        p.qseg == nullptr && (!p.causal || k0 + BK - 1 <= r_first + off) &&
+                        (p.window <= 0 || k0 > r_last + off - p.window);
+  if (interior) {
+#pragma unroll
+    for (int n = 0; n < BK / 64; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) x[n][i] *= p.scale;
+    return;
+  }
+#pragma unroll
+  for (int n = 0; n < BK / 64; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      x[n][i] = logit(p, x[n][i], b, h, qi[(i % 4) / 2], k0 + 64 * n + 8 * (i / 4) + 2 * (lane % 4) + i % 2);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Forward. Grid (q tiles, H, B); NC consumer warpgroups of 64 rows and one
+// producer warp; key tiles of BK.
+template <typename T, int DS, int NC, int BK>
+__global__ void __launch_bounds__(tc_threads(NC), 1)
+    flash_fwd_wgmma(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv) {
+  constexpr int BQ = NC * 64, NDC = DS / 64, NS = BK / 64;
+  constexpr uint32_t kStageBytes = 2 * NDC * BK * kBlockBytes;
+  extern __shared__ uint8_t smem_raw[];
+  const Ring r = make_ring<DS, BQ, BK>(smem_raw, 1);
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // longest causal rows first
+  const int kvh = h / (p.H / p.KV);
+  int k_lo, k_hi;
+  key_range(p, q0, min(q0 + BQ, p.Tq) - 1, k_lo, k_hi);
+  const int kt_lo = k_lo / BK;
+  const int n_tiles = k_hi >= k_lo ? k_hi / BK - kt_lo + 1 : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(r.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&r.full[s], 1);
+      hopper::mbar_init(&r.empty[s], NC * 128);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= NC * 4) {
+    if constexpr (NC == 2) hopper::setmaxnreg_dec<kProducerRegs>();
+    if (warp == NC * 4 && lane == 0) {
+      const CUtensorMap* res[1] = {&tq};
+      produce<DS, BQ, BK>(r, res, 1, &tk, &tv, q0, h, kvh, b, kt_lo, n_tiles);
+    }
+    return;
+  }
+  if constexpr (NC == 2) hopper::setmaxnreg_inc<kConsumerRegs>();
+
+  const int wg = warp / 4;
+  const int r_first = q0 + 64 * wg;
+  const int qi[2] = {r_first + 16 * (warp % 4) + lane / 4, r_first + 16 * (warp % 4) + lane / 4 + 8};
+  const uint32_t q_rows = hopper::smem_u32(r.resident) + 64 * wg * kBlockBytes;
+
+  float o[NDC][32];
+#pragma unroll
+  for (int c = 0; c < NDC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  hopper::mbar_wait(r.q_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    const int k0 = (kt_lo + it) * BK;
+    const uint32_t k_tile = hopper::smem_u32(r.stages) + s * kStageBytes;
+    const uint32_t v_tile = k_tile + NDC * BK * kBlockBytes;
+    hopper::mbar_wait(&r.full[s], (it / kStages) & 1);
+
+    float x[NS][32];
+    __syncwarp();
+    fence_all(x);
+    hopper::wgmma_fence();
+    issue_qk<T, DS, BQ, BK>(x, q_rows, k_tile);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    fence_all(x);
+
+    mask_tile<BK>(p, x, b, h, qi, r_first, k0, lane);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], x[n][i]);
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float m_new = fmaxf(m[e], quad_max(mx[e]));
+      alpha[e] = expf(m[e] - m_new);
+      m[e] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        x[n][i] = expf(x[n][i] - m[(i % 4) / 2]);
+        sum[(i % 4) / 2] += x[n][i];
+      }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) l[e] = alpha[e] * l[e] + quad_sum(sum[e]);
+#pragma unroll
+    for (int c = 0; c < NDC; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] *= alpha[(i % 4) / 2];
+
+    uint32_t pa[BK / 16][4];   // p.astype(v.dtype)
+    to_fragments<T, BK>(x, pa);
+    __syncwarp();
+    fence_all(o);
+    hopper::wgmma_fence();
+    issue_px<T, DS, BK>(o, pa, v_tile);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    fence_all(o);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) hopper::fence_regs(pa[kk]);
+    hopper::mbar_arrive(&r.empty[s]);
+  }
+
+  T* out = static_cast<T*>(p.out);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (qi[e] >= p.Tq) continue;
+    const float l_safe = l[e] == 0.f ? 1.f : l[e];
+    T* dst = out + ((static_cast<long long>(b) * p.Tq + qi[e]) * p.H + h) * p.dh;
+#pragma unroll
+    for (int c = 0; c < NDC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int d = 64 * c + 8 * j + 2 * (lane % 4) + u;
+          if (d < p.dh) dst[d] = from_float<T>(o[c][4 * j + 2 * e + u] / l_safe);
+        }
+    if (lane % 4 == 0)
+      p.lse_out[(static_cast<long long>(b) * p.H + h) * p.Tq + qi[e]] =
+          m[e] + logf(fmaxf(l[e], 1e-30f));
+  }
+}
+
+// dq. Grid (q tiles, H, B); Q and dO resident, K and V streamed.
+template <typename T, int DS, int NC, int BK>
+__global__ void __launch_bounds__(tc_threads(NC), 1)
+    flash_dq_wgmma(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv) {
+  constexpr int BQ = NC * 64, NDC = DS / 64, NS = BK / 64;
+  constexpr uint32_t kStageBytes = 2 * NDC * BK * kBlockBytes;
+  extern __shared__ uint8_t smem_raw[];
+  const Ring r = make_ring<DS, BQ, BK>(smem_raw, 2);
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int kvh = h / (p.H / p.KV);
+  int k_lo, k_hi;
+  key_range(p, q0, min(q0 + BQ, p.Tq) - 1, k_lo, k_hi);
+  const int kt_lo = k_lo / BK;
+  const int n_tiles = k_hi >= k_lo ? k_hi / BK - kt_lo + 1 : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(r.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&r.full[s], 1);
+      hopper::mbar_init(&r.empty[s], NC * 128);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= NC * 4) {
+    if constexpr (NC == 2) hopper::setmaxnreg_dec<kProducerRegs>();
+    if (warp == NC * 4 && lane == 0) {
+      const CUtensorMap* res[2] = {&tq, &tdo};
+      produce<DS, BQ, BK>(r, res, 2, &tk, &tv, q0, h, kvh, b, kt_lo, n_tiles);
+    }
+    return;
+  }
+  if constexpr (NC == 2) hopper::setmaxnreg_inc<kConsumerRegs>();
+
+  const int wg = warp / 4;
+  const int r_first = q0 + 64 * wg;
+  const int qi[2] = {r_first + 16 * (warp % 4) + lane / 4, r_first + 16 * (warp % 4) + lane / 4 + 8};
+  const uint32_t q_rows = hopper::smem_u32(r.resident) + 64 * wg * kBlockBytes;
+  const uint32_t do_rows = q_rows + NDC * BQ * kBlockBytes;
+  float lse[2], delta[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const long long row = (static_cast<long long>(b) * p.H + h) * p.Tq + qi[e];
+    lse[e] = qi[e] < p.Tq ? p.lse[row] : 0.f;
+    delta[e] = qi[e] < p.Tq ? p.delta[row] : 0.f;
+  }
+
+  float dq[NDC][32];
+#pragma unroll
+  for (int c = 0; c < NDC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[c][i] = 0.f;
+
+  hopper::mbar_wait(r.q_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    const int k0 = (kt_lo + it) * BK;
+    const uint32_t k_tile = hopper::smem_u32(r.stages) + s * kStageBytes;
+    const uint32_t v_tile = k_tile + NDC * BK * kBlockBytes;
+    hopper::mbar_wait(&r.full[s], (it / kStages) & 1);
+
+    float x[NS][32], dp[NS][32];
+    __syncwarp();
+    fence_all(x);
+    fence_all(dp);
+    hopper::wgmma_fence();
+    issue_qk<T, DS, BQ, BK>(x, q_rows, k_tile);     // s = Q.K^T
+    issue_qk<T, DS, BQ, BK>(dp, do_rows, v_tile);   // dp = dO.V^T, exact products in fp32
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    fence_all(x);
+    fence_all(dp);
+
+    mask_tile<BK>(p, x, b, h, qi, r_first, k0, lane);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int e = (i % 4) / 2;
+        x[n][i] = expf(x[n][i] - lse[e]) * (dp[n][i] - delta[e]) * p.scale;
+      }
+    uint32_t da[BK / 16][4];   // ds.astype(k.dtype)
+    to_fragments<T, BK>(x, da);
+    __syncwarp();
+    fence_all(dq);
+    hopper::wgmma_fence();
+    issue_px<T, DS, BK>(dq, da, k_tile);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    fence_all(dq);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) hopper::fence_regs(da[kk]);
+    hopper::mbar_arrive(&r.empty[s]);
+  }
+
+  T* out = static_cast<T*>(p.dq);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (qi[e] >= p.Tq) continue;
+    T* dst = out + ((static_cast<long long>(b) * p.Tq + qi[e]) * p.H + h) * p.dh;
+#pragma unroll
+    for (int c = 0; c < NDC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int d = 64 * c + 8 * j + 2 * (lane % 4) + u;
+          if (d < p.dh) dst[d] = from_float<T>(dq[c][4 * j + 2 * e + u]);
+        }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -530,13 +986,12 @@ cudaError_t launch(Kernel kernel, dim3 grid, int smem_floats, const Params& p,
   return cudaGetLastError();
 }
 
-// Tiles per head width: 64 x 64 everywhere up to Dh 128; at Dh 256 the
-// backward kernels take 32-row tiles so their staged rows fit in 227 KB.
+// Tiles per head width (fp32 forward and dq, dk/dv in every dtype): 64 x 64
+// everywhere up to Dh 128; at Dh 256 the backward kernels take 32-row tiles
+// so their staged rows fit in 227 KB.
 template <typename T, int D>
 cudaError_t fwd(const Params& p, cudaStream_t s) {
-  // BK is FWD_BLOCK_K of ops/flash_attention.py: the plain version rounds p
-  // against the running maximum of the same key tiles
-  constexpr int BQ = 64, BK = 64;
+  constexpr int BQ = 64, BK = fwd_block_k(0, D);
   const dim3 grid((p.Tq + BQ - 1) / BQ, p.H, p.B);
   return launch(flash_fwd_kernel<T, D, BQ, BK>, grid, fwd_smem_floats<D, BQ, BK>(), p, s);
 }
@@ -555,25 +1010,90 @@ cudaError_t bwd_dkv(const Params& p, cudaStream_t s) {
   return launch(flash_dkv_kernel<T, D, BQ, BK>, grid, dkv_smem_floats<D, BQ, BK>(), p, s);
 }
 
+// The tensor-core kernels: tensor maps of the [B, T, heads, dh] inputs (q
+// and dO with BQ-row boxes, k and v with BK-row boxes), then the launch.
+template <typename T, int DS, bool kDq>
+cudaError_t tensor_core(const Params& p, cudaStream_t stream) {
+  constexpr bool f16 = std::is_same<T, __half>::value;
+  constexpr int NC = DS == 256 ? 1 : 2, BQ = NC * 64;
+  constexpr int BK = kDq ? 64 : fwd_block_k(f16 ? 1 : 2, DS);
+  CUtensorMap tq, tdo, tk, tv;
+  bool ok = hopper::make_head_map(&tq, p.q, f16, p.B, p.Tq, p.H, p.dh, p.q_sb, p.q_st, p.q_sh, BQ) &&
+            hopper::make_head_map(&tk, p.k, f16, p.B, p.Tk, p.KV, p.dh, p.k_sb, p.k_st, p.k_sh, BK) &&
+            hopper::make_head_map(&tv, p.v, f16, p.B, p.Tk, p.KV, p.dh, p.v_sb, p.v_st, p.v_sh, BK);
+  if (kDq)
+    ok = ok && hopper::make_head_map(&tdo, p.dout, f16, p.B, p.Tq, p.H, p.dh, p.do_sb, p.do_st,
+                                     p.do_sh, BQ);
+  if (!ok) return cudaErrorInvalidValue;
+  const int smem = tc_smem_bytes<DS, BQ, BK>(kDq ? 2 : 1);
+  const dim3 grid((p.Tq + BQ - 1) / BQ, p.H, p.B);
+  cudaError_t e;
+  if constexpr (kDq) {
+    auto kernel = flash_dq_wgmma<T, DS, NC, BK>;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, tc_threads(NC), smem, stream>>>(p, tq, tdo, tk, tv);
+  } else {
+    auto kernel = flash_fwd_wgmma<T, DS, NC, BK>;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, tc_threads(NC), smem, stream>>>(p, tq, tk, tv);
+  }
+  return cudaGetLastError();
+}
+
 enum Which { kFwd, kDq, kDkv };
+
+template <typename T>
+constexpr int dtype_code() {
+  return std::is_same<T, float>::value ? 0 : std::is_same<T, __half>::value ? 1 : 2;
+}
+
+// The route, by dtype code alone: bf16 / fp16 forward and dq take the
+// tensor-core kernels; fp32 forward and dq, and dk/dv in every dtype, the
+// SIMT kernels. The Python wrapper reads it through ds_flash_route.
+constexpr bool tensor_core_route(Which which, int dtype) {
+  return which != kDkv && dtype != 0;
+}
+
+// Launches per kernel, counted on the host after each launch and read
+// through ds_flash_kernel_launches: which kernel a call actually went to.
+enum Kernel { kFwdSimt, kFwdWgmma, kDqSimt, kDqWgmma, kDkvSimt, kNumKernels };
+long long g_launches[kNumKernels] = {};
+
+cudaError_t counted(Kernel kernel, cudaError_t e) {
+  if (e == cudaSuccess) ++g_launches[kernel];
+  return e;
+}
 
 template <typename T, int D>
 cudaError_t run(Which which, const Params& p, cudaStream_t s) {
+  constexpr int code = dtype_code<T>();
   switch (which) {
-    case kFwd: return fwd<T, D>(p, s);
-    case kDq: return bwd_dq<T, D>(p, s);
-    default: return bwd_dkv<T, D>(p, s);
+    case kFwd:
+      if constexpr (tensor_core_route(kFwd, code))
+        return counted(kFwdWgmma, tensor_core<T, D, false>(p, s));
+      else return counted(kFwdSimt, fwd<T, D>(p, s));
+    case kDq:
+      if constexpr (tensor_core_route(kDq, code))
+        return counted(kDqWgmma, tensor_core<T, D, true>(p, s));
+      else return counted(kDqSimt, bwd_dq<T, D>(p, s));
+    default: return counted(kDkvSimt, bwd_dkv<T, D>(p, s));
   }
 }
 
 // Head widths up to 256 round up to a staged width of 64, 128 or 256; the
 // extra columns are zero.
+constexpr int staged_width(int dh) { return dh <= 64 ? 64 : dh <= 128 ? 128 : 256; }
+
 template <typename T>
 cudaError_t dispatch_width(Which which, const Params& p, cudaStream_t s) {
   if (p.dh <= 0 || p.dh > 256) return cudaErrorInvalidValue;
-  if (p.dh <= 64) return run<T, 64>(which, p, s);
-  if (p.dh <= 128) return run<T, 128>(which, p, s);
-  return run<T, 256>(which, p, s);
+  switch (staged_width(p.dh)) {
+    case 64: return run<T, 64>(which, p, s);
+    case 128: return run<T, 128>(which, p, s);
+    default: return run<T, 256>(which, p, s);
+  }
 }
 
 int dispatch(Which which, const Params* p, int dtype, void* stream) {
@@ -602,6 +1122,27 @@ extern "C" int ds_flash_bwd_dq(const Params* p, int dtype, void* stream) {
 
 extern "C" int ds_flash_bwd_dkv(const Params* p, int dtype, void* stream) {
   return dispatch(kDkv, p, dtype, stream);
+}
+
+// Keys per tile of the forward kernel for this dtype code and head width
+// (the rounding tiles of p), or -1 for a width the kernels do not take.
+extern "C" int ds_flash_fwd_block_k(int dtype, int dh) {
+  if (dtype < 0 || dtype > 2 || dh <= 0 || dh > 256) return -1;
+  return fwd_block_k(dtype, staged_width(dh));
+}
+
+// 1 where `which` (0 forward, 1 dq, 2 dk/dv) runs the tensor-core kernel
+// for this dtype code, 0 where it runs the SIMT kernel, -1 for a code the
+// kernels do not take.
+extern "C" int ds_flash_route(int which, int dtype) {
+  if (which < 0 || which > 2 || dtype < 0 || dtype > 2) return -1;
+  return tensor_core_route(static_cast<Which>(which), dtype) ? 1 : 0;
+}
+
+// Launches so far of one kernel, in the order of enum Kernel: forward SIMT,
+// forward wgmma, dq SIMT, dq wgmma, dk/dv SIMT; -1 past the end.
+extern "C" long long ds_flash_kernel_launches(int kernel) {
+  return kernel >= 0 && kernel < kNumKernels ? g_launches[kernel] : -1;
 }
 
 extern "C" const char* ds_flash_error_string(int code) {

@@ -41,7 +41,7 @@ _DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16,
 class BlockedKVCache:
 
     def __init__(self, num_layers, num_blocks, block_size, num_kv_heads,
-                 head_dim, dtype="bf16", kv_dtype="fp", device="cpu",
+                 head_dim, dtype="bf16", kv_dtype="fp", *, device,
                  host_capacity=0):
         if kv_dtype not in ("fp", "int8"):
             raise ValueError(f"kv_dtype must be 'fp' or 'int8', got {kv_dtype!r}")

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``build/deepspeed_tpu_torch/lib<name>_<hash>.so`` at the
 repository root (``build/`` is git-ignored), then loaded with ``ctypes``. The
-hash covers the source and the flags, so an edited source rebuilds and an
-unchanged one is built once per checkout. Nothing here runs at import time:
+hash covers the source, every shared header of ``csrc/`` (``*.cuh``) and the
+flags, so an edited source or header rebuilds and an unchanged one is built
+once per checkout. Nothing here runs at import time:
 the first launch of a kernel builds it.
 """
 
@@ -36,8 +37,9 @@ def _nvcc():
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 

@@ -11,6 +11,14 @@ tensor never reaches a plain version through these wrappers: what the kernels
 cannot take raises. ``mha_reference`` is the JAX package's dense XLA
 attention, kept as a function; ``mha`` never falls back to it.
 
+The route is chosen by dtype alone, in the kernel source (``kernel_route``
+reads it; ``kernel_launches`` counts what each call launched): bf16/fp16
+forward and dq run the tensor-core kernels (``wgmma`` fed by a TMA ring in
+shared memory), fp32 the SIMT kernels (fp32 FMAs: ``wgmma`` has no exact
+fp32 product); dk/dv runs its SIMT kernel in every dtype. The forward's key
+tile, which decides where p rounds, is ``FWD_BLOCK_K`` per dtype and head
+width.
+
 Layouts are the JAX package's: q [B, Tq, H, Dh], k/v [B, Tk, KV, Dh] with
 H % KV == 0 (query head h reads kv head h // (H // KV)); the output has q's
 shape; lse and delta are fp32 [B, H, Tq]. ``causal`` keeps key j for query i
@@ -134,34 +142,55 @@ def _masked_logits(q, k, b, bias, causal, scale, window, segment_ids):
     return s
 
 
-# Keys per tile of the forward kernel. The forward rounds p = exp(s - m) to
-# v's dtype with m the running maximum over the tiles seen so far, as the TPU
-# kernel does over its blocks; the plain version takes the same maxima so
-# that the two differ by the output's one rounding, not by where p rounds.
-FWD_BLOCK_K = 64
+def staged_width(dh):
+    """Columns a head of width ``dh`` is staged as in the kernels."""
+    return 64 if dh <= 64 else 128 if dh <= 128 else 256
+
+
+# Keys per tile of the forward kernel, by (dtype, staged head width). The
+# forward rounds p = exp(s - m) to v's dtype with m the running maximum over
+# the tiles seen so far, as the TPU kernel does over its blocks; the plain
+# version takes the same tiles so that the two differ by the output's one
+# rounding, not by where p rounds. bf16/fp16 run the tensor-core kernel
+# (128-key tiles, 64 at head width 256, where its accumulators need the
+# registers), fp32 the SIMT kernel (64). Mirrored by ``fwd_block_k`` in
+# csrc/flash_attention.cu, exposed as ``ds_flash_fwd_block_k``.
+FWD_BLOCK_K = {
+    (torch.bfloat16, 64): 128, (torch.bfloat16, 128): 128, (torch.bfloat16, 256): 64,
+    (torch.float16, 64): 128, (torch.float16, 128): 128, (torch.float16, 256): 64,
+    (torch.float32, 64): 64, (torch.float32, 128): 64, (torch.float32, 256): 64,
+}
+
+
+def fwd_block_k(dtype, dh):
+    """Keys per tile of the forward kernel for inputs of ``dtype`` and head
+    width ``dh``: the tiles against whose running maximum p is rounded."""
+    return FWD_BLOCK_K[(dtype, staged_width(dh))]
 
 
 def flash_mha_fwd_reference(q, k, v, bias=None, segment_ids=None, causal=True,
                             softmax_scale=None, window=None):
     """Plain version of the forward kernel -> (out, lse [B, H, Tq] fp32),
     one batch row at a time: p = exp(s - m_t) with m_t the running maximum
-    up to the key's tile of ``FWD_BLOCK_K`` keys, rounded to v's dtype and
-    rescaled by exp(m_t - m) in fp32 before PV (the kernel's alpha); l summed
-    from the unrounded p; out = acc / l_safe; lse = m + log(max(l, 1e-30))."""
+    up to the key's tile of ``fwd_block_k(q.dtype, Dh)`` keys, rounded to
+    v's dtype and rescaled by exp(m_t - m) in fp32 before PV (the kernel's
+    alpha); l summed from the unrounded p; out = acc / l_safe;
+    lse = m + log(max(l, 1e-30))."""
     B, Tq, H, Dh = q.shape
     Tk = k.shape[1]
     scale = softmax_scale if softmax_scale is not None else Dh ** -0.5
     rep = H // k.shape[2]
-    n_tiles = -(-Tk // FWD_BLOCK_K)
+    block_k = fwd_block_k(q.dtype, Dh)
+    n_tiles = -(-Tk // block_k)
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
     for b in range(B):
         s = _masked_logits(q, k, b, bias, causal, scale, window, segment_ids)
-        tiles = torch.nn.functional.pad(s, (0, n_tiles * FWD_BLOCK_K - Tk),
+        tiles = torch.nn.functional.pad(s, (0, n_tiles * block_k - Tk),
                                         value=float("-inf"))
-        tile_max = tiles.view(H, Tq, n_tiles, FWD_BLOCK_K).amax(-1)
+        tile_max = tiles.view(H, Tq, n_tiles, block_k).amax(-1)
         running = torch.clamp(torch.cummax(tile_max, dim=-1).values, min=NEG_INF)
-        m_t = running.repeat_interleave(FWD_BLOCK_K, dim=-1)[..., :Tk]
+        m_t = running.repeat_interleave(block_k, dim=-1)[..., :Tk]
         m = running[..., -1:]
         p = torch.exp(s - m_t)
         l = (p * torch.exp(m_t - m)).sum(-1, keepdim=True)
@@ -244,9 +273,65 @@ def _library():
         for fn in (lib.ds_flash_fwd, lib.ds_flash_bwd_dq, lib.ds_flash_bwd_dkv):
             fn.argtypes = args
             fn.restype = ctypes.c_int
+        for fn in (lib.ds_flash_fwd_block_k, lib.ds_flash_route):
+            fn.argtypes = [ctypes.c_int, ctypes.c_int]
+            fn.restype = ctypes.c_int
+        lib.ds_flash_kernel_launches.argtypes = [ctypes.c_int]
+        lib.ds_flash_kernel_launches.restype = ctypes.c_longlong
         lib.ds_flash_error_string.argtypes = [ctypes.c_int]
         lib.ds_flash_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_block_k(dtype, dh):
+    """The forward kernel's own key tile for ``dtype`` and head width ``dh``
+    (``ds_flash_fwd_block_k``), to hold ``FWD_BLOCK_K`` to. Builds the
+    library."""
+    return _library().ds_flash_fwd_block_k(_DTYPE_CODES[dtype], int(dh))
+
+
+_WHICH = {"fwd": 0, "dq": 1, "dkv": 2}
+# The kernels in the order of the source's launch tally (enum Kernel).
+KERNELS = ("fwd_simt", "fwd_wgmma", "dq_simt", "dq_wgmma", "dkv_simt")
+
+
+def kernel_route(which, dtype):
+    """``"wgmma"`` or ``"simt"``: the kernel that ``which`` (``"fwd"``,
+    ``"dq"`` or ``"dkv"``) launches for inputs of ``dtype``, as the kernel
+    source decides it (``ds_flash_route``). Builds the library."""
+    route = _library().ds_flash_route(_WHICH[which], _DTYPE_CODES[dtype])
+    if route < 0:
+        raise ValueError(f"no flash kernel takes {which} in {dtype}")
+    return "wgmma" if route else "simt"
+
+
+def kernel_launches():
+    """{kernel: launches so far} over ``KERNELS``, counted by the library
+    where it launches each kernel: which kernels the calls went to."""
+    lib = _library()
+    return {name: lib.ds_flash_kernel_launches(i) for i, name in enumerate(KERNELS)}
+
+
+def _tma_ready(t):
+    """True when TMA can read ``t`` where it lies: a 16-byte aligned base,
+    a head width of whole 16-byte chunks and 16-byte multiples for the
+    strides of every dim longer than 1."""
+    e = t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.shape[-1] * e % 16 == 0
+            and all(st * e % 16 == 0
+                    for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1))
+
+
+def _tma_inputs(*tensors):
+    """The tensor-core kernels' inputs: the tensors themselves when TMA can
+    read all of them in place, else contiguous copies with the head width
+    zero-padded to a multiple of 8 (the zero columns add nothing to q.k and
+    give zero output columns, which the caller slices off)."""
+    if all(_tma_ready(t) for t in tensors):
+        return tensors
+    pad = -tensors[0].shape[-1] % 8
+    return tuple(torch.nn.functional.pad(t, (0, pad)).contiguous()
+                 for t in tensors)
 
 
 def _params(q, k, v, bias, segment_ids, causal, scale, window, dout=None):
@@ -325,19 +410,27 @@ def flash_mha_fwd(q, k, v, bias=None, segment_ids=None, causal=True,
     """Forward kernel -> (out [B, Tq, H, Dh], lse [B, H, Tq] fp32).
 
     CUDA tensors launch ``ds_flash_fwd`` (counted in
-    ``flash_mha_fwd.launches``); CPU tensors run the plain version."""
+    ``flash_mha_fwd.launches``): the tensor-core kernel for bf16/fp16, the
+    SIMT kernel for fp32 (``kernel_route``). Tensor-core inputs that TMA
+    cannot read in place (a base or stride off 16 bytes, a head width not a
+    multiple of 8) are first copied into aligned tensors. CPU tensors run
+    the plain version."""
     _check_device(q, "flash_mha_fwd")
     if q.device.type == "cpu":
         return flash_mha_fwd_reference(q, k, v, bias, segment_ids, causal,
                                        softmax_scale, window)
-    p = _params(q, k, v, bias, segment_ids, causal, _scale(q, softmax_scale),
-                window)
+    scale, dh = _scale(q, softmax_scale), q.shape[-1]
+    if kernel_route("fwd", q.dtype) == "wgmma":
+        q, k, v = _tma_inputs(q, k, v)
+    p = _params(q, k, v, bias, segment_ids, causal, scale, window)
     B, Tq, H, _ = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
     p.out, p.lse_out = out.data_ptr(), lse.data_ptr()
     _launch("ds_flash_fwd", p, q.dtype, q.device)
     flash_mha_fwd.launches += 1
+    if out.shape[-1] != dh:
+        out = out[..., :dh].contiguous()
     return out, lse
 
 
@@ -346,19 +439,24 @@ def flash_mha_bwd_dq(q, k, v, dout, lse, delta, bias=None, segment_ids=None,
     """dq kernel -> dq [B, Tq, H, Dh]. lse and delta are fp32 [B, H, Tq].
 
     CUDA tensors launch ``ds_flash_bwd_dq`` (counted in
-    ``flash_mha_bwd_dq.launches``); CPU tensors run the plain version."""
+    ``flash_mha_bwd_dq.launches``), routed and aligned as the forward is;
+    CPU tensors run the plain version."""
     _check_device(q, "flash_mha_bwd_dq")
     if q.device.type == "cpu":
         return flash_mha_bwd_dq_reference(q, k, v, dout, lse, delta, bias,
                                           segment_ids, causal, softmax_scale,
                                           window)
-    p = _params(q, k, v, bias, segment_ids, causal, _scale(q, softmax_scale),
-                window, dout=dout)
+    scale, dh = _scale(q, softmax_scale), q.shape[-1]
+    if kernel_route("dq", q.dtype) == "wgmma":
+        q, k, v, dout = _tma_inputs(q, k, v, dout)
+    p = _params(q, k, v, bias, segment_ids, causal, scale, window, dout=dout)
     lse, delta = _rows(lse, q), _rows(delta, q)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     p.lse, p.delta, p.dq = lse.data_ptr(), delta.data_ptr(), dq.data_ptr()
     _launch("ds_flash_bwd_dq", p, q.dtype, q.device)
     flash_mha_bwd_dq.launches += 1
+    if dq.shape[-1] != dh:
+        dq = dq[..., :dh].contiguous()
     return dq
 
 

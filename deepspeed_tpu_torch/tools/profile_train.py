@@ -56,7 +56,8 @@ def _group(name):
     n = name.lower()
     if "nccl" in n:
         return "nccl_collectives"
-    for kernel, group in (("flash_fwd_kernel", "flash_fwd"), ("flash_dq_kernel", "flash_dq"),
+    # flash_fwd_ / flash_dq_: the wgmma kernels (bf16/fp16) and the SIMT ones (fp32)
+    for kernel, group in (("flash_fwd_", "flash_fwd"), ("flash_dq_", "flash_dq"),
                           ("flash_dkv_kernel", "flash_dkv"),
                           ("grouped_tgmm", "grouped_gemm_dw")):
         if kernel in n:

@@ -1,0 +1,221 @@
+"""Where the flash kernels round p and ds: the checks' helpers, shared by
+``tests/test_torch_gpu_kernels.py`` and ``chip_smoke.py``.
+
+The forward rounds p = exp(s - m) to v's dtype against the running maximum m
+of its key tiles, and dq rounds ds = p (dp - delta) scale to k's dtype
+(``ops/flash_attention.py``). Two helpers hold the kernels to those rounding
+points:
+
+- ``flip_slack`` bounds what the tensor-core kernels may differ from the
+  plain versions on random data: they sum q.k and dO.v in another order, so
+  a p or ds lying close enough to a rounding boundary may round the other
+  way. Every other p and ds must round as the plain version rounds it.
+- ``fwd_probe`` and ``dq_probe`` build inputs on which every logit and every
+  product is exact in any summation order and the output cancels (to the
+  fp32 rounding of a rescale) unless p (ds) rounds exactly where the plain
+  version rounds it;
+  ``fwd_rounding_faults`` and ``dq_rounding_faults`` are the plain versions
+  with the rounding moved, which such a probe must reject.
+
+Imports torch and the port only, not JAX.
+"""
+
+import math
+from unittest import mock
+
+import torch
+
+from deepspeed_tpu_torch.ops import flash_attention as fa
+
+U32 = 2.0 ** -24   # unit roundoff of fp32
+
+
+def boundary_slack(x, dtype, tol):
+    """One spacing of ``dtype`` at x where x, changed by at most ``tol``,
+    could round to another value of ``dtype``; else 0."""
+    r = x.to(dtype).float()
+    a, ra = x.abs(), r.abs()
+    fi = torch.finfo(dtype)
+    spacing = torch.clamp(fi.eps * torch.exp2(torch.floor(torch.log2(ra))),
+                          min=fi.smallest_normal * fi.eps)
+    below = torch.where(torch.frexp(ra).mantissa == 0.5, spacing / 4, spacing / 2)
+    dist = torch.minimum(a - (ra - below), ra + spacing / 2 - a)
+    return torch.where(dist <= tol, spacing, 0.0)
+
+
+def flip_slack(q, k, v, dout, lse, delta, bias=None, segment_ids=None,
+               causal=True, softmax_scale=None, window=None):
+    """(forward, dq), fp32 [B, Tq, H, Dh]: how far the tensor-core kernels'
+    out and dq may lie from the plain versions' because a rounding of p or
+    ds went the other way.
+
+    A logit of the kernel differs from the plain one by at most
+    3 Dh u scale sum_d |q_d k_d| + 4 u |s| (u = 2^-24: a recursive fp32 sum
+    errs by at most Dh u times its terms' magnitudes, a truncating
+    tensor-core sum by twice that; the rest is the scale and the bias), dP
+    likewise by 3 Dh u sum_d |dO_d v_d|, and the kernel's exp by 2^-21 plus
+    4 u |x| of its argument. A p (forward: also the tile maximum's logit) or
+    ds whose plain fp32 value lies that close to a rounding boundary of the
+    working dtype may round the other way; one spacing of it moves the
+    output by at most spacing * |v_jd| / l_i (dq: spacing * |k_jd|). Every
+    other p and ds must round exactly as in the plain version."""
+    B, Tq, H, Dh = q.shape
+    Tk, rep = k.shape[1], H // k.shape[2]
+    scale = softmax_scale if softmax_scale is not None else Dh ** -0.5
+    bk = fa.fwd_block_k(q.dtype, Dh)
+    n = -(-Tk // bk)
+    fwd = torch.empty(q.shape, device=q.device)
+    dq = torch.empty(q.shape, device=q.device)
+    for b in range(B):
+        s = fa._masked_logits(q, k, b, bias, causal, scale, window, segment_ids)
+        qf, do = q[b].float(), dout[b].float()
+        kf = k[b].float().repeat_interleave(rep, dim=1)
+        vf = v[b].float().repeat_interleave(rep, dim=1)
+        qk = torch.einsum("qhd,khd->hqk", qf.abs(), kf.abs())
+        tol_s = torch.where(s > fa.NEG_INF / 2,
+                            3 * Dh * U32 * scale * qk + 4 * U32 * s.abs(), 0.0)
+        del qk
+        # forward: p = exp(s - m_t), m_t the running maximum of the key tiles
+        tiles = torch.nn.functional.pad(s, (0, n * bk - Tk), value=float("-inf"))
+        running = torch.clamp(torch.cummax(tiles.view(H, Tq, n, bk).amax(-1), -1).values,
+                              min=fa.NEG_INF)
+        del tiles
+        m_t = running.repeat_interleave(bk, dim=-1)[..., :Tk]
+        rescale = torch.exp(m_t - running[..., -1:])
+        p = torch.exp(s - m_t)
+        l = (p * rescale).sum(-1, keepdim=True)
+        rel = (tol_s + tol_s.amax(-1, keepdim=True) + 2.0 ** -21
+               + 4 * U32 * (s - m_t).abs())
+        w = boundary_slack(p, v.dtype, p * rel) * rescale / torch.where(l == 0, 1.0, l)
+        fwd[b] = torch.einsum("hqk,khd->qhd", w, vf.abs())
+        del m_t, rescale, rel, w
+        # dq: ds = p (dp - delta) scale, p = exp(s - lse), dp = dO.v
+        p = torch.exp(s - lse[b][..., None])
+        ds = p * (torch.einsum("qhd,khd->hqk", do, vf) - delta[b][..., None]) * scale
+        tol = (ds.abs() * (tol_s + 2.0 ** -21 + 8 * U32 * (s.abs() + lse[b][..., None].abs()))
+               + p * scale * 3 * Dh * U32 * torch.einsum("qhd,khd->hqk", do.abs(), vf.abs()))
+        dq[b] = torch.einsum("hqk,khd->qhd", boundary_slack(ds, k.dtype, tol), kf.abs())
+    return fwd, dq
+
+
+# ---------------------------------------------------------------------------
+# rounding-point probes
+# ---------------------------------------------------------------------------
+
+PROBE_TQ, PROBE_TK, PROBE_H = 64, 256, 2
+PROBE_STEP = 0.375   # the second 64-key tile's maximum logit over the first's
+PROBE_V = 2.0 ** -8  # v (dq: k) in every 8th column: an output that does not cancel
+
+
+def _fraction(x, dtype):
+    """Where positive fp32 x lies between its two neighbours in ``dtype``,
+    0 at the lower, 1 at the upper: above 0.5 it rounds up."""
+    r = x.to(dtype)
+    bits = r.view(torch.int16).int()
+    lo = torch.where(r.float() > x, bits - 1, bits)
+    lo_v, hi_v = (t.short().view(dtype).float() for t in (lo, lo + 1))
+    return (x - lo_v) / (hi_v - lo_v)
+
+
+def _up_and_down(x, cands, dtype):
+    """The candidates whose x rounds up, and those whose x rounds down, each
+    at least a tenth of a spacing from the midpoint and from the values."""
+    f = _fraction(x, dtype)
+    return cands[(f > 0.6) & (f < 0.9)], cands[(f > 0.1) & (f < 0.4)]
+
+
+def fwd_probe(dtype, dh, device, seed=0):
+    """((q, k, v), kwargs) on which out cancels in all but every 8th column
+    unless p rounds where the plain forward rounds it.
+
+    scale 1, q = e_0, k_j = c_j e_0, so s_j = c_j exactly. Key 0 has c = 0,
+    key 64 c = PROBE_STEP, keys 1-62 pairs (a, b): with p rounded against
+    the maximum of the forward's key tile (fwd_block_k: 128 keys see
+    PROBE_STEP, 64 keys see 0) p_a rounds up and p_b down, and v_a = p_b,
+    v_b = -p_a (rounded), so each pair adds exactly 0, in any order (up to
+    the fp32 rescale by exp(m_t - m) where the tile is 64 keys); left
+    unrounded, or rounded against the other tile's maximum, every pair adds
+    a term of the same sign. The other keys have c = -8 and v = 0 there."""
+    gen = torch.Generator().manual_seed(seed)
+    tile_max = PROBE_STEP if fa.fwd_block_k(dtype, dh) == 128 else 0.0
+    other_max = PROBE_STEP - tile_max
+    eps = torch.finfo(dtype).eps
+    rnd = lambda x: x.to(dtype).float()
+    cands = torch.unique(torch.linspace(-4, -0.25, 4096).to(dtype)).float()
+    up, down = _up_and_down(torch.exp(cands - tile_max), cands, dtype)
+    c, v = torch.full((PROBE_TK,), -8.0), torch.zeros(PROBE_TK, dh)
+    c[0], c[64] = 0.0, PROBE_STEP
+    j = 1
+    while j < 63:
+        a = up[torch.randint(len(up), (1,), generator=gen)]
+        b = down[torch.randint(len(down), (1,), generator=gen)]
+        pa, pb = rnd(torch.exp(a - tile_max)), rnd(torch.exp(b - tile_max))
+        moved = (rnd(torch.exp(a - other_max)) * pb - rnd(torch.exp(b - other_max)) * pa
+                 ) * math.exp(other_max - tile_max)
+        if moved < -0.25 * eps * pa * pb:   # rounding on the other tile moves it
+            c[j], c[j + 1] = a, b
+            v[j], v[j + 1] = pb, -pa
+            j += 2
+    v[:, ::8] = PROBE_V
+    q = torch.zeros(1, PROBE_TQ, PROBE_H, dh)
+    q[..., 0] = 1
+    k = torch.zeros(1, PROBE_TK, 1, dh)
+    k[0, :, 0, 0] = c
+    v = v[None, :, None]
+    return (tuple(t.to(dtype).to(device) for t in (q, k, v)),
+            dict(causal=False, softmax_scale=1.0))
+
+
+def dq_probe(dtype, dh, device, seed=0):
+    """((q, k, v, dO, lse, delta), kwargs) on which dq cancels to 0 in
+    column 1 unless ds rounds where the plain dq rounds it.
+
+    scale 1, q = e_0, k_j = w_j e_1 + PROBE_V e_2, so s_j = 0 exactly;
+    lse = 0.5 and delta = 0, so p = exp(-0.5); v_j = r_j e_0 and dO = e_0,
+    so dp_j = r_j exactly and ds_j = p r_j. Pairs of keys (a, b): ds_a
+    rounds up and ds_b down, and w_a = ds_b, w_b = -ds_a (rounded), so each
+    pair adds exactly 0 to dq's column 1; left unrounded, every pair adds a
+    term of the same sign."""
+    gen = torch.Generator().manual_seed(seed)
+    lse_value = 0.5
+    p = torch.exp(torch.tensor(-lse_value))
+    rnd = lambda x: x.to(dtype).float()
+    cands = torch.unique(torch.linspace(0.5, 2.0, 4096).to(dtype)).float()
+    up, down = _up_and_down(p * cands, cands, dtype)
+    r, w = torch.zeros(PROBE_TK), torch.zeros(PROBE_TK)
+    for j in range(0, PROBE_TK, 2):
+        a = up[torch.randint(len(up), (1,), generator=gen)]
+        b = down[torch.randint(len(down), (1,), generator=gen)]
+        r[j], r[j + 1] = a, b
+        w[j], w[j + 1] = rnd(p * b), -rnd(p * a)
+    q = torch.zeros(1, PROBE_TQ, PROBE_H, dh)
+    q[..., 0] = 1
+    k = torch.zeros(1, PROBE_TK, 1, dh)
+    k[0, :, 0, 1] = w
+    k[..., 2] = PROBE_V
+    v = torch.zeros(1, PROBE_TK, 1, dh)
+    v[0, :, 0, 0] = r
+    dout = torch.zeros(1, PROBE_TQ, PROBE_H, dh)
+    dout[..., 0] = 1
+    lse = torch.full((1, PROBE_H, PROBE_TQ), lse_value, device=device)
+    delta = torch.zeros(1, PROBE_H, PROBE_TQ, device=device)
+    return (tuple(t.to(dtype).to(device) for t in (q, k, v, dout)) + (lse, delta),
+            dict(causal=False, softmax_scale=1.0))
+
+
+def fwd_rounding_faults(q, k, v, **kw):
+    """{fault: out} of the plain forward with p rounded elsewhere: not at all
+    (v read as fp32), or against the running maximum of the other tile
+    width (64 keys where the kernel takes 128, 128 where it takes 64)."""
+    dh = q.shape[-1]
+    other = 64 if fa.fwd_block_k(q.dtype, dh) == 128 else 128
+    unrounded = fa.flash_mha_fwd_reference(q, k, v.float(), **kw)[0]
+    with mock.patch.dict(fa.FWD_BLOCK_K, {(q.dtype, fa.staged_width(dh)): other}):
+        tiles = fa.flash_mha_fwd_reference(q, k, v, **kw)[0]
+    return {"p_unrounded": unrounded, f"p_on_{other}_key_tiles": tiles}
+
+
+def dq_rounding_faults(q, k, v, dout, lse, delta, **kw):
+    """{fault: dq} of the plain dq with ds left unrounded (k read as fp32)."""
+    return {"ds_unrounded": fa.flash_mha_bwd_dq_reference(q, k.float(), v, dout,
+                                                          lse, delta, **kw)}

@@ -142,3 +142,63 @@ def test_unsupported_shapes_raise(kw, window, match):
     x = make_case(**kw)
     with pytest.raises(ValueError, match=match):
         fa.mha(*(torch.from_numpy(x[n]) for n in "qkv"), window=window)
+
+
+def online_softmax_forward(s_all, v, block_k):
+    """One head, causal, written tile by tile as the TPU kernel runs, from
+    the fp32 logits ``s_all`` [T, T]: m the running maximum, alpha =
+    exp(m_prev - m_cur) every tile, p = exp(s - m_cur) summed into l
+    unrounded and rounded to bf16 before p.v. numpy fp32; exp and the bf16
+    rounding through torch, so that p is the plain version's wherever the
+    tiles agree. -> (out fp32, lse, sum_j p_j |v_j| / l: the output's
+    magnitude without cancellation)."""
+    T = s_all.shape[0]
+    s_all = np.where(np.arange(T)[None, :] <= np.arange(T)[:, None], s_all,
+                     np.float32(fa.NEG_INF)).astype(np.float32)
+    exp = lambda x: torch.from_numpy(x).exp().numpy()
+    m = np.full(T, fa.NEG_INF, np.float32)
+    l = np.zeros(T, np.float32)
+    acc = np.zeros((T, v.shape[1]), np.float32)
+    acc_abs = np.zeros_like(acc)
+    for t0 in range(0, T, block_k):
+        s = s_all[:, t0:t0 + block_k]
+        m_cur = np.maximum(m, s.max(1))
+        alpha = exp(m - m_cur)
+        p = exp(s - m_cur[:, None])
+        l = alpha * l + p.sum(1)
+        p16 = torch.from_numpy(p).to(torch.bfloat16).float().numpy()
+        acc = acc * alpha[:, None] + p16 @ v[t0:t0 + block_k]
+        acc_abs = acc_abs * alpha[:, None] + p16 @ np.abs(v[t0:t0 + block_k])
+        m = m_cur
+    l_safe = np.where(l == 0, 1, l)[:, None]
+    return acc / l_safe, m + np.log(np.maximum(l, 1e-30)), acc_abs / l_safe
+
+
+@pytest.mark.parametrize("dh", sorted({w for dt, w in fa.FWD_BLOCK_K
+                                       if dt == torch.bfloat16}))
+def test_plain_bf16_forward_rounds_p_on_the_kernel_tiles(dh):
+    """The plain bf16 forward rounds p against the running maximum of the
+    kernel's key tiles (``fwd_block_k``: 128 keys up to head width 128, 64
+    at 256): it equals the tile-by-tile loop above at that tile width to one
+    bf16 rounding of the output (2^-7 of each element, plus 2^-16 of its
+    magnitude without cancellation for the fp32 summation order of elements
+    near 0; the loop takes the plain version's logits, so that only the
+    rounding points are compared). Keys grow along the sequence, so the
+    running maximum moves from tile to tile: at another tile width the
+    loop reads 20-90x this bound. lse, fp32, to 1e-5."""
+    T, H = 300, 2
+    rng = np.random.default_rng(dh)
+    x = rng.standard_normal((3, 1, T, H, dh)).astype(np.float32)
+    x[1] *= np.linspace(0.2, 2.5, T, dtype=np.float32)[None, :, None, None]
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in x)
+    out, lse = fa.flash_mha_fwd_reference(q, k, v, causal=True)
+    logits = (torch.einsum("qhd,khd->hqk", q[0].float(), k[0].float())
+              * dh ** -0.5).numpy()
+    block_k = fa.fwd_block_k(torch.bfloat16, dh)
+    for h in range(H):
+        want, want_lse, magnitude = online_softmax_forward(
+            logits[h], v[0, :, h].float().numpy(), block_k)
+        got = out[0, :, h].float().numpy()
+        np.testing.assert_array_less(np.abs(got - want),
+                                     2 ** -7 * np.abs(want) + 2 ** -16 * magnitude)
+        np.testing.assert_allclose(lse[0, h].numpy(), want_lse, atol=1e-5, rtol=0)

@@ -18,8 +18,12 @@ attention and grouped-GEMM kernels' bound is stated beside their tests
 below.
 """
 
+from unittest import mock
+
 import pytest
 import torch
+from flash_rounding import (dq_probe, dq_rounding_faults, flip_slack, fwd_probe,
+                            fwd_rounding_faults)
 
 from deepspeed_tpu_torch.ops.paged_attention import paged_mha, paged_mha_reference
 
@@ -134,30 +138,47 @@ def test_kernel_raises_instead_of_falling_back(cuda):
 # flash attention: forward, dq, dk/dv
 # ---------------------------------------------------------------------------
 #
-# Tolerance, per element: |kernel - plain| <= RTOL * (|plain| + rms(plain)).
-# RTOL * |plain| is the one rounding of the output to its dtype. The rms term
-# covers what moves elements near 0: the forward rounds p, and dq rounds ds,
-# to the working dtype from fp32 values whose summation order differs between
-# kernel and plain version, which can flip single roundings and moves a sum
-# by about one unit of the working dtype at the tensor's scale; fp32 sums of
-# thousands of terms in another order stay well inside 2^-16 of the scale.
-# ``test_flash_bound_rejects_causal_fault`` shows that a key seen one
-# position too early fails it.
+# Tolerance, per element: |kernel - plain| <= RTOL * (|plain| + rms(plain))
+# (the "flash form"). RTOL * |plain| is the one rounding of the output to its
+# dtype; the rms term covers elements near 0; fp32 sums of thousands of terms
+# in another order stay well inside 2^-16 of the scale. The bf16/fp16
+# forward's out and dq add ``flip_slack`` (tests/flash_rounding.py): their
+# tensor-core kernels sum q.k in another order than the plain fp32 GEMM, so
+# a p or ds that lies within the two sums' error bound of a rounding
+# boundary may round the other way, and each such one may move the output by
+# one spacing times its |v| / l (|k|); every other p and ds must round as the
+# plain version does. fp32, lse and dk/dv keep the flash form alone.
+# ``test_flash_bound_rejects_causal_fault`` shows that a key seen one position
+# too early fails the bound; the rounding probes below show that p or ds
+# rounded anywhere else than in the plain version fails the flash form.
 
 
-def flash_ratio(out, ref):
+def flash_ratio(out, ref, slack=None):
+    """Largest |out - ref| over the flash form's bound, plus ``slack`` where
+    given: at most 1 passes."""
     ref32 = ref.float()
     rtol = RTOL[ref.dtype]
     bound = rtol * (ref32.abs() + ref32.pow(2).mean().sqrt())
+    if slack is not None:
+        bound = bound + slack
     return ((out.float() - ref32).abs() / bound).max().item()
 
 
 def flash_case(dev, B=2, Tq=128, Tk=None, H=4, KV=4, Dh=64, dtype=torch.bfloat16,
-               bias=False, segments=False, seed=0):
+               bias=False, segments=False, fused=False, offset=False, seed=0):
+    """q, k, v, dO from a seed; ``fused``: q/k/v are strided views of one
+    [B, T, 3, H, Dh] projection; ``offset``: views that start one element
+    into their storage (a base off 16 bytes)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     Tk = Tq if Tk is None else Tk
     r = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)
-    q, k, v = r(B, Tq, H, Dh), r(B, Tk, KV, Dh), r(B, Tk, KV, Dh)
+    if fused:
+        q, k, v = r(B, Tq, 3, H, Dh).unbind(2)
+    elif offset:
+        q, k, v = (r(B * T * h * Dh + 1)[1:].view(B, T, h, Dh)
+                   for T, h in ((Tq, H), (Tk, KV), (Tk, KV)))
+    else:
+        q, k, v = r(B, Tq, H, Dh), r(B, Tk, KV, Dh), r(B, Tk, KV, Dh)
     dout = r(B, Tq, H, Dh)
     kw = {}
     if bias:
@@ -183,19 +204,94 @@ def flash_all(q, k, v, dout, fwd, dq, dkv, lse=None, delta=None, **kw):
 
 def test_flash_bound_rejects_causal_fault():
     """The bound passes outputs moved by one unit in their last place and
-    rejects a forward in which every query sees the next key too."""
+    rejects a forward in which every query sees the next key too, and, with
+    the tensor-core kernels' slack, such a forward and dq."""
     from deepspeed_tpu_torch.ops import flash_attention as fa
     for dtype in (torch.bfloat16, torch.float32):
-        (q, k, v, _), _ = flash_case(torch.device("cpu"), B=1, dtype=dtype)
-        ref, _ = fa.flash_mha_fwd_reference(q, k, v)
+        (q, k, v, dout), _ = flash_case(torch.device("cpu"), B=1, dtype=dtype)
+        ref, lse = fa.flash_mha_fwd_reference(q, k, v)
         x = ref.float()
         ulp = torch.finfo(dtype).eps * torch.exp2(torch.floor(torch.log2(x.abs())))
         assert flash_ratio((x + ulp).to(dtype), ref) <= 1
         i = torch.arange(q.shape[1])
         one_ahead = torch.where(i[None, :] <= i[:, None] + 1, 0.0, fa.NEG_INF)
-        off_by_one, _ = fa.flash_mha_fwd_reference(
-            q, k, v, bias=one_ahead[None, None], causal=False)
+        fault = dict(bias=one_ahead[None, None], causal=False)
+        off_by_one, _ = fa.flash_mha_fwd_reference(q, k, v, **fault)
         assert flash_ratio(off_by_one, ref) > 10
+        if dtype != torch.float32:
+            delta = (dout.float() * ref.float()).sum(-1).transpose(1, 2).contiguous()
+            slack_out, slack_dq = flip_slack(q, k, v, dout, lse, delta)
+            assert flash_ratio(off_by_one, ref, slack_out) > 10
+            dq = fa.flash_mha_bwd_dq_reference(q, k, v, dout, lse, delta)
+            dq_off = fa.flash_mha_bwd_dq_reference(q, k, v, dout, lse, delta, **fault)
+            assert flash_ratio(dq_off, dq, slack_dq) > 10
+
+
+def reordered_logits(plain_logits):
+    """A stand-in for the plain versions' ``_masked_logits`` that sums q.k
+    over 16-column chunks, as tensor cores do: the same logits in another
+    summation order."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    def logits(q, k, b, bias, causal, scale, window, segment_ids):
+        plain = plain_logits(q, k, b, bias, causal, scale, window, segment_ids)
+        kf = k[b].float().repeat_interleave(q.shape[2] // k.shape[2], dim=1)
+        s = sum(torch.einsum("qhd,khd->hqk", q[b, ..., c:c + 16].float(),
+                             kf[..., c:c + 16])
+                for c in range(0, q.shape[-1], 16)) * scale
+        if bias is not None:
+            s = s + bias[b if bias.shape[0] > 1 else 0].float()
+        return torch.where(plain > fa.NEG_INF / 2, s, plain)
+    return logits
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", ["causal", "gqa", "window", "bias", "dh256"])
+def test_flip_slack_admits_reordered_logits(name, dtype):
+    """The plain forward and dq computed from logits summed in another order
+    round some p and ds the other way; the bound with ``flip_slack`` admits
+    them."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    spec = dict(FLASH_CASES[name])
+    window = spec.pop("window", None)
+    causal = spec.pop("causal", True)
+    args, kw = flash_case(torch.device("cpu"), B=1, dtype=dtype, **spec)
+    kw.update(window=window, causal=causal)
+    q, k, v, dout = args
+    out, lse = fa.flash_mha_fwd_reference(q, k, v, **kw)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_mha_bwd_dq_reference(*args, lse, delta, **kw)
+    slack_out, slack_dq = flip_slack(*args, lse, delta, **kw)
+    with mock.patch.object(fa, "_masked_logits", reordered_logits(fa._masked_logits)):
+        out_r = fa.flash_mha_fwd_reference(q, k, v, **kw)[0]
+        dq_r = fa.flash_mha_bwd_dq_reference(*args, lse, delta, **kw)
+    assert flash_ratio(out_r, out, slack_out) <= 1
+    assert flash_ratio(dq_r, dq, slack_dq) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_rounding_probes_reject_rounding_point_faults(dh, dtype):
+    """On the probes the plain versions' outputs cancel to within a
+    thousandth of the bound, in another summation order too, and p or ds
+    rounded anywhere else (not at all, or against the other tile width's
+    maxima) fails the flash form tenfold."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    cpu = torch.device("cpu")
+    (q, k, v), kw = fwd_probe(dtype, dh, cpu)
+    out = fa.flash_mha_fwd_reference(q, k, v, **kw)[0]
+    cancels = lambda x, cols: (x[..., cols].float().abs().max()
+                               < 1e-3 * RTOL[dtype] * x.float().pow(2).mean().sqrt())
+    assert cancels(out, torch.arange(dh) % 8 != 0)
+    with mock.patch.object(fa, "_masked_logits", reordered_logits(fa._masked_logits)):
+        assert flash_ratio(fa.flash_mha_fwd_reference(q, k, v, **kw)[0], out) <= 1
+    for fault, bad in fwd_rounding_faults(q, k, v, **kw).items():
+        assert flash_ratio(bad, out) > 10, fault
+    args, kw = dq_probe(dtype, dh, cpu)
+    dq = fa.flash_mha_bwd_dq_reference(*args, **kw)
+    assert cancels(dq, 1)
+    for fault, bad in dq_rounding_faults(*args, **kw).items():
+        assert flash_ratio(bad, dq) > 10, fault
 
 
 FLASH_CASES = {
@@ -208,6 +304,16 @@ FLASH_CASES = {
     "ragged": dict(Tq=100),
     "dh256": dict(Dh=256, H=2, KV=1),
     "dh40": dict(Dh=40),
+    # the tensor-core kernels' edges: 128-row query tiles, 64/128-key tiles,
+    # staged head widths, TMA reading strided views in place
+    "tq_off_tile": dict(Tq=300),
+    "tk_under_one_tile": dict(Tq=24, Tk=40),
+    "dh96": dict(Dh=96),
+    "gqa_rep8": dict(H=8, KV=1),
+    "window_under_tile": dict(Tq=300, window=24),
+    "fused_qkv_views": dict(fused=True),
+    "base_off_16_bytes": dict(offset=True),
+    "dh36_padded_copy": dict(Dh=36),
 }
 
 
@@ -224,18 +330,57 @@ def test_flash_kernels_match_plain(cuda, name, dtype):
     want = flash_all(*args, fa.flash_mha_fwd_reference,
                      fa.flash_mha_bwd_dq_reference,
                      fa.flash_mha_bwd_dkv_reference, **kw)
-    delta = (args[3].float() * want[0].float()).sum(-1).transpose(1, 2)
+    delta = (args[3].float() * want[0].float()).sum(-1).transpose(1, 2).contiguous()
+    slack = (None, None)
+    if dtype != torch.float32:
+        slack = flip_slack(*args, want[1], delta, **kw)
     before = (fa.flash_mha_fwd.launches, fa.flash_mha_bwd_dq.launches,
               fa.flash_mha_bwd_dkv.launches)
+    tally = fa.kernel_launches()
     got = flash_all(*args, fa.flash_mha_fwd, fa.flash_mha_bwd_dq,
-                    fa.flash_mha_bwd_dkv, lse=want[1],
-                    delta=delta.contiguous(), **kw)
+                    fa.flash_mha_bwd_dkv, lse=want[1], delta=delta, **kw)
     assert (fa.flash_mha_fwd.launches, fa.flash_mha_bwd_dq.launches,
             fa.flash_mha_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    route = "simt" if dtype == torch.float32 else "wgmma"
+    launched = {n: c - tally[n] for n, c in fa.kernel_launches().items()}
+    assert launched == {n: int(n in (f"fwd_{route}", f"dq_{route}", "dkv_simt"))
+                        for n in fa.KERNELS}, launched
     torch.cuda.synchronize()
-    for label, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+    for label, a, b, m in zip(("out", "lse", "dq", "dk", "dv"), got, want,
+                              (slack[0], None, slack[1], None, None)):
         assert torch.isfinite(a).all(), label
-        assert flash_ratio(a, b) <= 1, (label, flash_ratio(a, b))
+        assert flash_ratio(a, b, m) <= 1, (label, flash_ratio(a, b, m))
+
+
+@gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_flash_kernels_round_where_plain_does(cuda, dh, dtype):
+    """On the rounding probes the forward and dq kernels hold the flash form
+    with no slack, which every rounding-point fault fails."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    (q, k, v), kw = fwd_probe(dtype, dh, cuda)
+    out = fa.flash_mha_fwd(q, k, v, **kw)[0]
+    ref = fa.flash_mha_fwd_reference(q, k, v, **kw)[0]
+    assert flash_ratio(out, ref) <= 1
+    assert all(flash_ratio(bad, ref) > 10 for bad in fwd_rounding_faults(q, k, v, **kw).values())
+    args, kw = dq_probe(dtype, dh, cuda)
+    ref = fa.flash_mha_bwd_dq_reference(*args, **kw)
+    assert flash_ratio(fa.flash_mha_bwd_dq(*args, **kw), ref) <= 1
+    assert all(flash_ratio(bad, ref) > 10 for bad in dq_rounding_faults(*args, **kw).values())
+
+
+@gpu
+def test_flash_kernel_key_tiles_match_plain_table(cuda):
+    """The forward kernel rounds p against the running maximum of its key
+    tiles; the plain version must take the same tiles (``FWD_BLOCK_K``).
+    The source routes bf16/fp16 forward and dq to the tensor-core kernels."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for dh in (1, 40, 64, 96, 128, 200, 256):
+            assert fa.kernel_block_k(dtype, dh) == fa.fwd_block_k(dtype, dh), (dtype, dh)
+        route = "simt" if dtype == torch.float32 else "wgmma"
+        assert [fa.kernel_route(w, dtype) for w in ("fwd", "dq", "dkv")] == [route, route, "simt"]
 
 
 @gpu

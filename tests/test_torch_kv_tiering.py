@@ -187,7 +187,7 @@ def test_config_host_tier_served_nvme_raises_naming_a14():
 @pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
 def test_spill_restore_round_trip_is_bitwise(kv_dtype):
     kv = BlockedKVCache(2, 6, 4, 2, 16, dtype="fp32", kv_dtype=kv_dtype,
-                        host_capacity=4)
+                        device="cpu", host_capacity=4)
     gen = torch.Generator().manual_seed(0)
     pools = kv._pools()
     for p in pools:

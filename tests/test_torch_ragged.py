@@ -258,7 +258,8 @@ def test_sequence_descriptor_post_forward():
 
 @pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
 def test_kv_cache_layout_and_swap_roundtrip(kv_dtype):
-    kv = BlockedKVCache(2, 6, 4, 2, 16, "fp32", kv_dtype=kv_dtype)
+    kv = BlockedKVCache(2, 6, 4, 2, 16, "fp32", kv_dtype=kv_dtype,
+                        device="cpu")
     assert tuple(kv.k_pool.shape) == (2, 7, 2, 4, 16)     # + trash block
     assert kv.trash_block == 6
     if kv_dtype == "int8":
@@ -277,7 +278,13 @@ def test_kv_cache_layout_and_swap_roundtrip(kv_dtype):
     new = kv.swap_in(handle)
     assert torch.equal(kv.k_pool[:, new], before)
     with pytest.raises(ValueError, match="kv_dtype"):
-        BlockedKVCache(1, 2, 4, 1, 16, kv_dtype="int4")
+        BlockedKVCache(1, 2, 4, 1, 16, kv_dtype="int4", device="cpu")
+
+
+def test_kv_cache_takes_no_default_device():
+    """The pools live where the caller says: no CPU default to fall into."""
+    with pytest.raises(TypeError, match="device"):
+        BlockedKVCache(1, 2, 4, 1, 16, "fp32")
 
 
 # ---------------------------------------------------------------------------
