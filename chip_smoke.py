@@ -37,11 +37,14 @@ prints no result.
    First the forward kernel's key tile per dtype and head width
    (``ds_flash_fwd_block_k``) must equal the plain version's
    (``FWD_BLOCK_K``): p rounds against the running maximum of those tiles;
-   and the source's route (``ds_flash_route``) must send bf16/fp16 forward
-   and dq to the wgmma kernels, fp32 and dk/dv to the SIMT kernels. Then the
+   and the source's route (``ds_flash_route``) must send bf16/fp16 forward,
+   dq and dk/dv to the wgmma kernels (dk/dv at head widths up to 128; at 256
+   the route the source declares), fp32 to the SIMT kernels. Then the
    rounding probes (``tests/flash_rounding.py``): the bf16/fp16 forward and
    dq kernels at head widths 64, 128 and 256 must round p and ds where the
-   plain versions do, and p or ds rounded elsewhere must fail the bound.
+   plain versions do, and p or ds rounded elsewhere must fail the bound; the
+   dk/dv kernel must keep p and ds unrounded (its split products read under
+   0.01 of the bound), and p or ds rounded once must fail it tenfold.
    Each case prints the kernels it launched, as the library's launch tally
    (``ds_flash_kernel_launches``) counted them, and fails on another route.
    The backward kernels take the plain forward's lse and delta, so each kernel
@@ -769,11 +772,31 @@ def flash_library_ms(case, args, kw, iters):
     return fwd, time_ms(fwd_bwd, iters) - fwd
 
 
+# Head widths at which bf16/fp16 dk/dv must run the tensor-core kernel; at
+# 256 its route is the one the source declares (ds_flash_route).
+DKV_WGMMA_WIDTHS = (64, 96, 128)
+# The dk/dv kernel's largest ratio on dkv_probe, whose sums are exact.
+DKV_PROBE_RATIO = 0.01
+
+
+def dkv_kernel(dtype, dh):
+    """The dk/dv kernel inputs of ``dtype`` (a name) and head width ``dh``
+    must launch: SIMT for fp32, the tensor-core kernel for bf16/fp16 at
+    DKV_WGMMA_WIDTHS, elsewhere the route the source declares."""
+    import torch
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    if dtype == "float32":
+        return "dkv_simt"
+    if dh in DKV_WGMMA_WIDTHS:
+        return "dkv_wgmma"
+    return f"dkv_{fa.kernel_route('dkv', getattr(torch, dtype), dh)}"
+
+
 def check_flash_block_k():
     """The forward kernel's key tile (``ds_flash_fwd_block_k``) must equal
     the plain version's table for every dtype and head width, and the
-    source must route bf16/fp16 forward and dq to the tensor-core kernels
-    (``ds_flash_route``)."""
+    source must route bf16/fp16 forward, dq and dk/dv (up to head width 128)
+    to the tensor-core kernels (``ds_flash_route``)."""
     import torch
     from deepspeed_tpu_torch.ops import flash_attention as fa
     dtypes = (torch.float32, torch.float16, torch.bfloat16)
@@ -784,27 +807,38 @@ def check_flash_block_k():
     if wrong:
         fail(f"the forward kernel's key tiles differ from FWD_BLOCK_K "
              f"(dtype, Dh, kernel, table): {wrong}")
-    routes = {str(dt)[6:]: [fa.kernel_route(w, dt) for w in ("fwd", "dq", "dkv")]
-              for dt in dtypes}
-    want = {"float32": ["simt"] * 3, "float16": ["wgmma", "wgmma", "simt"],
-            "bfloat16": ["wgmma", "wgmma", "simt"]}
-    if routes != want:
-        fail(f"flash routes (forward, dq, dk/dv) {routes} != {want}")
+    routes, wrong = {}, []
+    for dt in dtypes:
+        name = str(dt)[6:]
+        tc = "simt" if dt == torch.float32 else "wgmma"
+        for dh in (*DKV_WGMMA_WIDTHS, 256):
+            got = [fa.kernel_route(w, dt, dh) for w in ("fwd", "dq", "dkv")]
+            routes[f"{name}/{dh}"] = got
+            if got != [tc, tc, dkv_kernel(name, dh)[4:]]:
+                wrong.append((name, dh, got))
+    if wrong:
+        fail(f"flash routes (forward, dq, dk/dv) not as required: {wrong}")
     print(f"flash forward key tiles equal FWD_BLOCK_K: "
           f"{ {f'{str(dt)[6:]}/{w}': n for (dt, w), n in fa.FWD_BLOCK_K.items()} }; "
           f"routes (forward, dq, dk/dv): {routes}", flush=True)
 
 
-def launched_kernels(fa, tally):
-    """The flash kernels launched since ``tally`` (``fa.kernel_launches()``)."""
-    return {n: c - tally[n] for n, c in fa.kernel_launches().items() if c > tally[n]}
+def launched_kernels(lib, tally):
+    """The kernels of ``lib`` (the flash_attention or grouped_gemm module)
+    launched since ``tally`` (``lib.kernel_launches()``)."""
+    return {n: c - tally[n] for n, c in lib.kernel_launches().items() if c > tally[n]}
 
 
 def check_flash_rounding_points():
     """On the rounding probes (tests/flash_rounding.py) the bf16/fp16
     forward and dq kernels must hold the flash form with no slack, and each
     plain version with its rounding moved (p or ds unrounded, p against the
-    other tile width's maxima) must fail it."""
+    other tile width's maxima) must fail it. The dk/dv kernel must keep p
+    and ds unrounded: on dkv_probe its split products carry 1 + 2^-12
+    exactly and every sum is of powers of two, so it must read under
+    DKV_PROBE_RATIO of the bound (0 when exact), while p or ds rounded once
+    cancels the probe's outputs and reads 64 (bf16) or 512 (fp16) times the
+    bound or more; the faults must exceed 10."""
     import torch
     from deepspeed_tpu_torch.ops import flash_attention as fa
     import flash_rounding as fr
@@ -814,30 +848,95 @@ def check_flash_rounding_points():
         for dh in (64, 128, 256):
             (q, k, v), kw = fr.fwd_probe(dt, dh, DEVICE)
             bwd, bkw = fr.dq_probe(dt, dh, DEVICE)
+            dkv_args, dkv_kw = fr.dkv_probe(dt, dh, DEVICE)
             tally = fa.kernel_launches()
             out = fa.flash_mha_fwd(q, k, v, **kw)[0]
             dq = fa.flash_mha_bwd_dq(*bwd, **bkw)
+            dkv = fa.flash_mha_bwd_dkv(*dkv_args, **dkv_kw)
             routes = launched_kernels(fa, tally)
             ref = fa.flash_mha_fwd_reference(q, k, v, **kw)[0]
             dq_ref = fa.flash_mha_bwd_dq_reference(*bwd, **bkw)
+            dkv_ref = fa.flash_mha_bwd_dkv_reference(*dkv_args, **dkv_kw)
+            dkv_ratio = lambda got: max(flash_ratio(a, r, dtype) for a, r in zip(got, dkv_ref))
             res = dict(dtype=dtype, dh=dh, launched=routes,
                        fwd_ratio=flash_ratio(out, ref, dtype),
                        dq_ratio=flash_ratio(dq, dq_ref, dtype),
+                       dkv_ratio=dkv_ratio(dkv),
                        fault_ratios={
                            **{f: flash_ratio(bad, ref, dtype) for f, bad in
                               fr.fwd_rounding_faults(q, k, v, **kw).items()},
                            **{f: flash_ratio(bad, dq_ref, dtype) for f, bad in
-                              fr.dq_rounding_faults(*bwd, **bkw).items()}})
+                              fr.dq_rounding_faults(*bwd, **bkw).items()}},
+                       dkv_fault_ratios={f: dkv_ratio(bad) for f, bad in
+                                         fr.dkv_rounding_faults(*dkv_args, **dkv_kw).items()})
             print(f"flash rounding probe {json.dumps(res)}", flush=True)
-            if routes != {"fwd_wgmma": 1, "dq_wgmma": 1}:
+            if routes != {"fwd_wgmma": 1, "dq_wgmma": 1, dkv_kernel(dtype, dh): 1}:
                 failures.append(f"{dtype} Dh {dh}: launched {routes}")
             if not (res["fwd_ratio"] <= 1 and res["dq_ratio"] <= 1):
                 failures.append(f"{dtype} Dh {dh}: kernels do not round where the "
                                 f"plain versions do ({res['fwd_ratio']:.3g}, "
                                 f"{res['dq_ratio']:.3g}x the bound)")
+            if not res["dkv_ratio"] <= DKV_PROBE_RATIO:
+                failures.append(f"{dtype} Dh {dh}: dk/dv does not keep p and ds unrounded "
+                                f"({res['dkv_ratio']:.3g}x the bound)")
             failures += [f"{dtype} Dh {dh}: the bound does not reject {f} ({r:.3g}x)"
-                         for f, r in res["fault_ratios"].items() if not r > 1]
+                         for f, r in {**res["fault_ratios"], **res["dkv_fault_ratios"]}.items()
+                         if not r > (10 if f in res["dkv_fault_ratios"] else 1)]
             results.append(res)
+    if failures:
+        fail("; ".join(failures))
+    return results
+
+
+# dO the size of an unscaled gradient: N(0, 1) times this, so that ds is
+# about 1e-6, below fp16's smallest normal (6.1e-5)
+DKV_SMALL_GRAD = 1e-3
+
+
+def check_dkv_small_gradients():
+    """dk/dv with dO the size of an unscaled gradient (N(0, 1) x
+    DKV_SMALL_GRAD) must launch the tensor-core kernel and hold the flash
+    form with no slack, in bf16 and fp16. fp16's ds is split times 2^10
+    (ds_split_scale in csrc/flash_attention.cu): split as is, its hi part is
+    subnormal and lo carries nothing, and that arithmetic
+    (tests/flash_rounding.py ``dkv_split_product`` with ds_scale 1, run
+    here in plain PyTorch) must fail the bound on the same inputs."""
+    import torch
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    import flash_rounding as fr
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(3)
+    results, failures = [], []
+    for dtype in ("bfloat16", "float16"):
+        case = (f"small_grad_{dtype}", 2, 1024, 1024, 32, 32, 128, dtype, {})
+        (q, k, v, dout), kw = make_flash_case(case, gen)
+        dout = (dout.float() * DKV_SMALL_GRAD).to(dout.dtype)
+        out, lse = fa.flash_mha_fwd_reference(q, k, v, **kw)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, dout, lse, delta)
+        want = fa.flash_mha_bwd_dkv_reference(*args, **kw)
+        tally = fa.kernel_launches()
+        got = fa.flash_mha_bwd_dkv(*args, **kw)
+        launched = launched_kernels(fa, tally)
+        unscaled = fr.dkv_split_product(*args, ds_scale=1.0, **kw)
+        ratio = lambda pair: max(flash_ratio(a, b, dtype) for a, b in zip(pair, want))
+        res = dict(name=case[0], shape="B=2 Tq=Tk=1024 H=KV=32 Dh=128 causal, "
+                   f"dO ~ N(0, 1) x {DKV_SMALL_GRAD}", launched=launched,
+                   dk_rms=want[0].float().pow(2).mean().sqrt().item(),
+                   err_ratio=ratio(got), unscaled_split_ratio=ratio(unscaled),
+                   tolerance=f"{FLASH_RTOL[dtype]} (|plain| + rms(plain))")
+        print(f"dk/dv small gradients {json.dumps(res)}", flush=True)
+        if launched != {"dkv_wgmma": 1}:
+            failures.append(f"{case[0]}: launched {launched}, not dkv_wgmma")
+        if not (all(bool(torch.isfinite(a).all()) for a in got) and res["err_ratio"] <= 1):
+            failures.append(f"{case[0]}: dk/dv disagrees with its plain version "
+                            f"({res['err_ratio']:.3g}x the bound)")
+        if dtype == "float16" and not res["unscaled_split_ratio"] > 1:
+            failures.append(f"{case[0]}: the bound does not reject the unscaled split "
+                            f"({res['unscaled_split_ratio']:.3g}x)")
+        results.append(res)
+        del q, k, v, dout, out, lse, delta, args, want, got, unscaled
+    torch.cuda.empty_cache()
     if failures:
         fail("; ".join(failures))
     return results
@@ -851,6 +950,7 @@ def phase_flash_kernels():
     import flash_rounding as fr
     check_flash_block_k()
     check_flash_rounding_points()
+    check_dkv_small_gradients()
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1)
     kernels = dict(zip(FLASH_KERNELS, (fa.flash_mha_fwd, fa.flash_mha_bwd_dq,
@@ -903,7 +1003,7 @@ def phase_flash_kernels():
             lib_fwd = lib_bwd = None
         tc = "simt" if dtype == "float32" else "wgmma"
         want_route = {"flash_mha_fwd": {f"fwd_{tc}": 1}, "flash_mha_bwd_dq": {f"dq_{tc}": 1},
-                      "flash_mha_bwd_dkv": {"dkv_simt": 1}}
+                      "flash_mha_bwd_dkv": {dkv_kernel(dtype, Dh): 1}}
         if route != want_route:
             failures.append(f"{name}: launched {route}, not {want_route}")
         res = dict(name=name, shape=f"B={B} Tq={Tq} Tk={Tk} H={H} KV={KV} Dh={Dh} "
@@ -1095,7 +1195,7 @@ def phase_training():
         fail(f"flash kernel launches {launches} != expected {expected}")
     want_routes = {"fwd_wgmma": expected["flash_mha_fwd"],
                    "dq_wgmma": expected["flash_mha_bwd_dq"],
-                   "dkv_simt": expected["flash_mha_bwd_dkv"]}
+                   "dkv_wgmma": expected["flash_mha_bwd_dkv"]}
     if routes != want_routes:
         fail(f"the bf16 training launched flash kernels {routes}, not {want_routes}")
     return launches
@@ -1127,6 +1227,18 @@ GMM_CASES = [
     ("fp16", 512, 4096, 2048, 8, "float16", "random"),
     ("fp32", 256, 1024, 1024, 8, "float32", "random"),
 ]
+
+
+def gmm_want_kernel(which, dtype):
+    """The grouped kernel ``which`` must launch: the route the source
+    declares (ds_grouped_route), which must be the wgmma kernel for every
+    bf16 or fp16 forward and dx, a decode round's included."""
+    import torch
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
+    route = gg.kernel_route(which, getattr(torch, dtype))
+    if which != "dw" and dtype != "float32" and route != f"{which}_wgmma":
+        fail(f"grouped {which} in {dtype} routes to {route}, not {which}_wgmma")
+    return route
 
 
 def gmm_rows(R, E, routing, rng):
@@ -1195,6 +1307,7 @@ def gmm_library(xs, w, offsets):
 def phase_gmm_kernels():
     import numpy as np
     import torch
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
     from deepspeed_tpu_torch.ops.grouped_gemm import (grouped_matmul,
                                                       grouped_matmul_reference)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1211,7 +1324,10 @@ def phase_gmm_kernels():
         xs = torch.randn(R, K, generator=gen, device=DEVICE).to(dt)
         w = (torch.randn(E, K, N, generator=gen, device=DEVICE) * K ** -0.5).to(dt)
         offsets = torch.from_numpy(offs).to(DEVICE)
+        want = gmm_want_kernel("fwd", dtype)
+        tally = gg.kernel_launches()
         out = grouped_matmul(xs, w, offsets)
+        launched = launched_kernels(gg, tally)
         ref = grouped_matmul_reference(xs, w, offsets)
         faulty = grouped_matmul_reference(
             xs, w, torch.tensor(shifted_offsets(offs), dtype=torch.int32, device=DEVICE))
@@ -1233,7 +1349,7 @@ def phase_gmm_kernels():
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = 2 * R * K * N / PEAK_FLOPS[dtype] * 1e3
         res = dict(name=name, shape=f"R={R} K={K} N={N} E={E} {dtype} {routing}",
-                   group_sizes=np.diff(offs).tolist(), max_abs_err=err,
+                   group_sizes=np.diff(offs).tolist(), kernel=want, max_abs_err=err,
                    err_ratio=ratio, planted_fault_ratio=fault_ratio,
                    tolerance=f"{FLASH_RTOL[dtype]} (|plain| + rms(plain))",
                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library=lib_name,
@@ -1241,6 +1357,8 @@ def phase_gmm_kernels():
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations")
         results.append(res)
         print(f"gmm case {json.dumps(res)}", flush=True)
+        if launched != {want: 1}:
+            failures.append(f"{name}: launched {launched}, not {want}")
         if not finite:
             failures.append(f"{name}: kernel output is not finite")
         if not ratio <= 1:
@@ -1387,6 +1505,8 @@ def phase_mixtral_serving():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     grouped_matmul.launches = paged_mha.launches = 0
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
+    tally = gg.kernel_launches()
     syncs0 = engine.host_sync_count
     ttft, decode_ms = {}, []
     t_start = time.perf_counter()
@@ -1425,10 +1545,14 @@ def phase_mixtral_serving():
                  median_ttft_s=float(np.median(list(ttft.values()))),
                  max_ttft_s=max(ttft.values()),
                  launches=launches, expected_launches=expected,
+                 kernels_launched=launched_kernels(gg, tally),
                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"mixtral serving {json.dumps(stats)}", flush=True)
     if forwards == 0 or launches != expected:
         fail(f"Mixtral launches {launches} != expected {expected}")
+    # SplitFuse and decode rounds alike take the wgmma kernel
+    if stats["kernels_launched"] != {"fwd_wgmma": expected["moe_grouped_gemm"]}:
+        fail(f"Mixtral serving launched grouped kernels {stats['kernels_launched']}")
     return launches
 
 
@@ -1523,7 +1647,10 @@ def phase_gmm_backward_kernels():
         small = R <= 1024
         for kn in GMM_BWD_KERNELS:
             kernel, args = kernels[kn]
+            want = gmm_want_kernel(kn[-2:], dtype)
+            tally = gg.kernel_launches()
             out = kernel(*args, offsets)
+            launched = launched_kernels(gg, tally)
             ref = plains[kn](*args, offsets)
             torch.cuda.synchronize()
             finite = bool(torch.isfinite(out).all())
@@ -1540,7 +1667,7 @@ def phase_gmm_backward_kernels():
             bytes_ms = (nbytes[kn] + offs.nbytes) / HBM_BYTES_PER_S * 1e3
             ops_ms = 2 * R * K * N / PEAK_FLOPS[dtype] * 1e3
             res[kn] = dict(
-                max_abs_err=err, err_ratio=ratio, planted_fault_ratio=fault_ratio,
+                kernel=want, max_abs_err=err, err_ratio=ratio, planted_fault_ratio=fault_ratio,
                 empty_experts_exactly_zero=empty_zero if kn.endswith("dw") else None,
                 ms=time_ms(lambda: kernel(*args, offsets), 20 if small else 5),
                 plain_ms=time_ms(lambda: plains[kn](*args, offsets), 5 if small else 2),
@@ -1548,6 +1675,8 @@ def phase_gmm_backward_kernels():
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
             del lib
+            if launched != {want: 1}:
+                failures.append(f"{name} {kn}: launched {launched}, not {want}")
             if not finite:
                 failures.append(f"{name} {kn}: kernel output is not finite")
             if not ratio <= 1:
@@ -1703,6 +1832,7 @@ def phase_mixtral_training():
     for f in counted:
         f.launches = 0
     fa.reset_launch_counts()
+    tallies = (gg.kernel_launches(), fa.kernel_launches())
     losses, step_s = [], []
     t_window = time.perf_counter()
     for micro in range(TRAIN_GAS * TRAIN_STEPS):
@@ -1756,7 +1886,9 @@ def phase_mixtral_training():
                  tokens_per_s=tok_s, model_flops_per_token=flops_token,
                  mfu_vs_989_tflops=flops_token * tok_s / 989e12,
                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-                 launches=launches, expected_launches=expected)
+                 launches=launches, expected_launches=expected,
+                 kernels_launched={"grouped": launched_kernels(gg, tallies[0]),
+                                   "flash": launched_kernels(fa, tallies[1])})
     print(f"mixtral training {json.dumps(stats)}", flush=True)
     if not all(np.isfinite(losses)):
         fail(f"Mixtral training losses are not finite: {losses}")
@@ -1765,6 +1897,15 @@ def phase_mixtral_training():
              f"{first} -> {last}")
     if launches != expected:
         fail(f"Mixtral training launches {launches} != expected {expected}")
+    # a micro-batch's 16384 expert rows: the wgmma kernels forward and dx
+    want_kernels = {"fwd_wgmma": expected["moe_grouped_gemm"],
+                    "dx_wgmma": expected["moe_grouped_gemm_dx"],
+                    "dw_mma": expected["moe_grouped_gemm_dw"]}
+    want_flash = {"fwd_wgmma": expected["flash_mha_fwd"], "dq_wgmma": expected["flash_mha_bwd_dq"],
+                  "dkv_wgmma": expected["flash_mha_bwd_dkv"]}
+    got = stats["kernels_launched"]
+    if got != {"grouped": want_kernels, "flash": want_flash}:
+        fail(f"Mixtral training launched {got}, not {want_kernels}, {want_flash}")
     return launches, layer_stats
 
 
@@ -2254,7 +2395,14 @@ def phase_gmm_rows_kernels():
         x = x * is_real[:, None].to(x.dtype)
         run = lambda mm, i=ids: gg.moe_ffn_gmm_rows(x, i, w1, w2, w3, n_experts=E,
                                                     dtype=torch.bfloat16, matmul=mm)
+        # the products run over the whole receive buffer: the forward (3
+        # products), then forward and backward (3 more, 3 dx, 3 dW)
+        R = senders * slots
+        want = {gmm_want_kernel(w, "bfloat16"): n
+                for w, n in (("fwd", 6), ("dx", 3), ("dw", 3))}
+        tally = gg.kernel_launches()
         out = run(gg.grouped_matmul)
+        launched = launched_kernels(gg, tally)
         ref = run(gg.grouped_matmul_reference)
         bad = ids.clone()
         first = int(torch.nonzero(is_real)[0])
@@ -2269,7 +2417,10 @@ def phase_gmm_rows_kernels():
         del out, ref, faulty
         dy = (torch.randn(x.shape, generator=gen, device=DEVICE)
               * is_real[:, None]).to(torch.bfloat16)
+        tally = gg.kernel_launches()
         g_kernel = rows_grads(x, ids, w1, w2, w3, dy, E, gg.grouped_matmul)
+        for n, c in launched_kernels(gg, tally).items():
+            launched[n] = launched.get(n, 0) + c
         g_plain = rows_grads(x, ids, w1, w2, w3, dy, E, gg.grouped_matmul_reference)
         grad_err = rows_grad_errors(g_kernel, g_plain, is_real)
         grads_finite = all(bool(torch.isfinite(g).all()) for g in g_kernel)
@@ -2299,7 +2450,8 @@ def phase_gmm_rows_kernels():
         res = dict(name=name, shape=f"rows={senders}x{slots} real={real} D={D} F={Fw} "
                    f"E_local={E} bfloat16 {routing}",
                    real_rows_per_sender=counts.tolist(), expert_rows=sizes.tolist(),
-                   max_abs_err=err, err_ratio=ratio, planted_fault_ratio=fault_ratio,
+                   kernels_launched=launched, max_abs_err=err, err_ratio=ratio,
+                   planted_fault_ratio=fault_ratio,
                    tolerance=f"{ROWS_BOUND_SCALE} x {FLASH_RTOL['bfloat16']} "
                              f"(|plain| + rms(plain))",
                    grad_err=grad_err, grad_planted_fault=grad_fault,
@@ -2312,6 +2464,8 @@ def phase_gmm_rows_kernels():
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations")
         results.append(res)
         print(f"gmm rows case {json.dumps(res)}", flush=True)
+        if launched != want:
+            failures.append(f"{name}: launched {launched}, not {want}")
         if not finite:
             failures.append(f"{name}: kernel output is not finite")
         if not sentinels_zero:
@@ -2512,6 +2666,7 @@ def ep_rank(rank, world, port, out_dir):
     for f in counted:
         f.launches = 0
     fa.reset_launch_counts()
+    tallies = (gg.kernel_launches(), fa.kernel_launches())
     losses, step_s = [], []
     for _ in range(TRAIN_STEPS):
         t = time.perf_counter()
@@ -2548,7 +2703,17 @@ def ep_rank(rank, world, port, out_dir):
                mfu_vs_989_tflops_per_card=flops_token * tok_s / (989e12 * world),
                peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
                launches=launches, expected_launches=expected, layer_check=layer_stats,
-               wire=wire, wire_launches=wire_launches)
+               wire=wire, wire_launches=wire_launches,
+               # the receiving shard's 65536 buffer rows over 2 local experts:
+               # the wgmma kernels forward and dx
+               kernels_launched=[launched_kernels(gg, tallies[0]),
+                                 launched_kernels(fa, tallies[1])],
+               expected_kernels=[{"fwd_wgmma": expected["moe_grouped_gemm"],
+                                  "dx_wgmma": expected["moe_grouped_gemm_dx"],
+                                  "dw_mma": expected["moe_grouped_gemm_dw"]},
+                                 {"fwd_wgmma": expected["flash_mha_fwd"],
+                                  "dq_wgmma": expected["flash_mha_bwd_dq"],
+                                  "dkv_wgmma": expected["flash_mha_bwd_dkv"]}])
     with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
         json.dump(res, f)
     dist.barrier()
@@ -2599,6 +2764,9 @@ def phase_expert_parallel():
         if r["launches"] != r["expected_launches"]:
             fail(f"expert parallel: rank {r['rank']} launches {r['launches']} != "
                  f"{r['expected_launches']}")
+        if r["kernels_launched"] != r["expected_kernels"]:
+            fail(f"expert parallel: rank {r['rank']} launched {r['kernels_launched']}, not "
+                 f"{r['expected_kernels']}")
         if not r["peak_memory_gb"] < 80:
             fail(f"expert parallel: rank {r['rank']} peak memory {r['peak_memory_gb']} GB")
     if not last <= first - EP_LOSS_FALL:

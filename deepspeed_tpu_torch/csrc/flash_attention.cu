@@ -27,7 +27,10 @@
 // tile whose keys are all masked gives p = 1 (exp(NEG_INF - NEG_INF)) until
 // a live key wipes it with alpha = 0; the output divides by l_safe (1 where
 // l == 0) and lse = m + log(max(l, 1e-30)). dq rounds ds = p (dp - delta)
-// scale to k's dtype before ds.K; dk/dv keep p and ds in fp32. Keys past Tk
+// scale to k's dtype before ds.K; dk/dv keep p and ds in fp32: the SIMT
+// kernel multiplies them in fp32, the tensor-core kernel splits each into
+// hi = round(x) and lo = round(x - hi) in the input dtype and multiplies
+// both (flash_dkv_wgmma), so neither is ever rounded once. Keys past Tk
 // and queries past Tq do not exist (p = 0): the kernels mask the ragged edge
 // themselves, so no length has to be padded to a multiple of a tile.
 //
@@ -45,11 +48,13 @@
 // head: hundreds of flops per byte, so all three are bound by operations
 // (989 TFLOP/s bf16 on the tensor cores).
 //
-// Two routes, chosen by dtype alone (tensor_core_route, exported as
-// ds_flash_route; ds_flash_kernel_launches counts what each call launched):
+// Two routes, chosen by dtype and head width (tensor_core_route, exported
+// as ds_flash_route; ds_flash_kernel_launches counts what each call
+// launched):
 //
-// bf16 / fp16, forward and dq: tensor-core kernels (flash_fwd_wgmma,
-// flash_dq_wgmma). A thread block owns one query tile of one head: 128 rows
+// bf16 / fp16: tensor-core kernels (flash_fwd_wgmma, flash_dq_wgmma,
+// flash_dkv_wgmma; dk/dv up to head width 128).
+// Forward and dq: a thread block owns one query tile of one head: 128 rows
 // as two consumer warpgroups of 64 (64 rows, one warpgroup, at head width
 // 256, where the accumulators need the registers), plus one producer warp.
 //   - The producer's lane 0 loads the Q tile (dq: Q and dO) once and keeps
@@ -70,16 +75,28 @@
 //     with no bias, segments or ragged edge skip the per-element mask.
 //   - Query tiles are scheduled longest first (causal rows near the end see
 //     the most keys).
+// dk/dv: a thread block owns 128 keys of one kv head (two consumer
+// warpgroups of 64) and keeps their K and V tiles resident; Q, dO, lse and
+// delta of every query tile that can see them, of every query head of the
+// kv group, stream through a 3-stage ring (2 at width 256). It computes
+// s^T = K.Q^T and dp^T = V.dO^T, keys as rows, so that p^T and ds^T leave the
+// accumulators in the layout of wgmma's register A operand; dV += p^T.dO and
+// dK += ds^T.Q take p and ds as hi + lo, two 16-bit products each, exact in
+// fp32 (the split carries x to about 2^-16 |x| in bf16, 2^-22 |x| in fp16;
+// fp16 ds is split times 2^10, undone exactly before dK's rounding, so that
+// it stays in fp16's normal range at the size of unscaled gradients).
+// The split costs 12 Dh operations per visible pair against the function's
+// 8 Dh. At head width 256 dK and dV alone would need 256 fp32 registers a
+// thread, so that width keeps the SIMT kernel (the route says so).
 // Head widths up to 256 are staged as 64, 128 or 256 columns (TMA reads the
 // missing columns as zeros). TMA needs a 16-byte aligned base and 16-byte
 // multiples for the strides; the Python wrapper copies inputs that break
 // that into aligned tensors first.
 //
-// fp32, and dk/dv in every dtype: the SIMT kernels below (flash_fwd_kernel,
-// flash_dq_kernel, flash_dkv_kernel), fp32 FMAs on the CUDA cores (67
-// TFLOP/s peak). wgmma has no exact fp32 product (TF32 is not the TPU
-// kernel's arithmetic); dk/dv keep p and ds in fp32, which a 16-bit tensor
-// core product cannot take without a split (hi + lo) product.
+// fp32, and dk/dv at head width 256: the SIMT kernels below
+// (flash_fwd_kernel, flash_dq_kernel, flash_dkv_kernel), fp32 FMAs on the
+// CUDA cores (67 TFLOP/s peak). wgmma has no exact fp32 product (TF32 is
+// not the TPU kernel's arithmetic).
 //   - A thread block of 256 threads (a 16 x 16 grid) owns one q tile of one
 //     head of one batch row (forward, dq) or one k tile of one kv head
 //     (dk/dv) and loops over the tiles it can see itself; tiles outside the
@@ -970,6 +987,285 @@ __global__ void __launch_bounds__(tc_threads(NC), 1)
 }
 
 // ---------------------------------------------------------------------------
+// bf16 / fp16 dk/dv: split products on wgmma
+// ---------------------------------------------------------------------------
+
+// x split into hi = round(x) and lo = round(x - hi), both in T, packed in
+// pairs like pack2: hi + lo carries x to about 2^-16 |x| (bf16) or 2^-22 |x|
+// (fp16, down to an absolute 2^-25 where lo is subnormal), and each product
+// of a 16-bit hi or lo with a 16-bit operand is exact in fp32.
+template <typename T>
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  hi = hopper::pack2<T>(x0, x1);
+  float2 h;
+  if constexpr (std::is_same<T, __half>::value)
+    h = __half22float2(*reinterpret_cast<const __half2*>(&hi));
+  else
+    h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+  lo = hopper::pack2<T>(x0 - h.x, x1 - h.y);
+}
+
+// fp16 ds is split as ds * 2^10 and dK's accumulators are scaled back by
+// 2^-10 before the one rounding (both exact). fp16's 5-bit exponent puts
+// ds under 6.1e-5 (its smallest normal) once dO is the size of an unscaled
+// gradient (1e-3: ds about 1e-6), where hi is subnormal and lo carries
+// nothing: the absolute 2^-25 residual is then a few percent of ds. Scaled,
+// ds from about 1e-7 to 64 splits with both parts normal or lo's residual
+// far under the output's rounding; above 64 hi overflows to inf, which a
+// dynamic loss scaler sees and backs off from, as from any fp16 overflow.
+// bf16 has fp32's exponent range and is split as is.
+template <typename T>
+__device__ constexpr float ds_split_scale() { return std::is_same<T, __half>::value ? 1024.f : 1.f; }
+
+// to_fragments with the split: the hi and lo register A fragments of the
+// accumulator-layout values x[BQ / 64][32].
+template <typename T, int BQ>
+__device__ __forceinline__ void to_split_fragments(const float (&x)[BQ / 64][32],
+                                                   uint32_t (&hi)[BQ / 16][4],
+                                                   uint32_t (&lo)[BQ / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BQ / 16; ++kk) {
+    const int n = kk / 4, j = 8 * (kk % 4);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split2<T>(x[n][j + 2 * r], x[n][j + 2 * r + 1], hi[kk][r], lo[kk][r]);
+  }
+}
+
+// The transposed logits s^T of one staged tile in place: rows are the 64
+// keys [k_first, k_first + 64) of the warpgroup, columns the BQ queries from
+// q0. Element (n, 4 j + e) of this thread is key kj[e / 2], query q0 + 64 n
+// + 8 j + 2 (lane % 4) + e % 2. Interior tiles (every key visible to every
+// query, no bias, segments or ragged edge) are only scaled.
+template <int BQ>
+__device__ __forceinline__ void mask_tile_t(const Params& p, float (&x)[BQ / 64][32], int b, int h,
+                                            const int (&kj)[2], int k_first, int q0, int lane) {
+  const int off = p.Tk - p.Tq, k_last = k_first + 63, q_last = q0 + BQ - 1;
+  const bool interior = k_last < p.Tk && q_last < p.Tq && p.bias == nullptr &&
+                        p.qseg == nullptr && (!p.causal || k_last <= q0 + off) &&
+                        (p.window <= 0 || k_first > q_last + off - p.window);
+  if (interior) {
+#pragma unroll
+    for (int n = 0; n < BQ / 64; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) x[n][i] *= p.scale;
+    return;
+  }
+#pragma unroll
+  for (int n = 0; n < BQ / 64; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      x[n][i] = logit(p, x[n][i], b, h, q0 + 64 * n + 8 * (i / 4) + 2 * (lane % 4) + i % 2,
+                      kj[(i % 4) / 2]);
+}
+
+// Ring depth of the dk/dv kernel: three stages of Q, dO, lse and delta where
+// they fit beside the resident K and V tiles.
+template <int DS>
+__host__ __device__ constexpr int dkv_stages() { return DS <= 128 ? 3 : 2; }
+
+// Shared memory of the dk/dv kernel: K and V of BKV rows (resident), then
+// per stage Q and dO of BQ rows and 1024 bytes holding the BQ lse and delta
+// values (BQ <= 128; every stage stays 1024-byte aligned for the swizzled
+// TMA writes), then the barriers (kv_full, full[S], empty[S]); +1024 for
+// aligning the base.
+template <int DS, int BKV, int BQ>
+constexpr int dkv_tc_smem_bytes() {
+  return 1024 + 2 * BKV * DS * 2 + dkv_stages<DS>() * (2 * BQ * DS * 2 + 1024) +
+         8 * (1 + 2 * dkv_stages<DS>());
+}
+
+// dk/dv. Grid (key tiles of NC x 64 keys, KV, B); NC consumer warpgroups of
+// 64 keys each and one producer warp. K and V of the block's keys are loaded
+// once and stay; Q and dO of every query tile that can see them (of every
+// query head of the kv group) stream through the ring, with lse and delta.
+// Everything is computed transposed, keys as rows, so that p^T and ds^T leave
+// the accumulators in the layout of wgmma's register A operand:
+//   s^T = K.Q^T and dp^T = V.dO^T  (wgmma, both operands K-major in smem)
+//   p^T = exp(s^T - lse), ds^T = p^T (dp^T - delta) scale  (fp32 registers)
+//   dV += p_hi^T.dO + p_lo^T.dO, dK += ds_hi^T.Q + ds_lo^T.Q  (wgmma, A split
+//   in registers, dO and Q read MN-major through the transpose bit)
+// so p and ds are never rounded once to T: each product is exact in fp32 and
+// the sums differ from the TPU kernel's fp32 products by the split's
+// residual and the summation order. dK and dV sum over the group's query
+// heads in fp32 and are rounded once in the epilogue.
+template <typename T, int DS, int NC, int BQ>
+__global__ void __launch_bounds__(tc_threads(NC), 1)
+    flash_dkv_wgmma(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tdo, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv) {
+  constexpr int BKV = NC * 64, NDC = DS / 64, NQ = BQ / 64, S = dkv_stages<DS>();
+  static_assert(NC == 2, "the producer is a whole warpgroup, for setmaxnreg");
+  constexpr uint32_t kKvBlock = BKV * kBlockBytes, kQBlock = BQ * kBlockBytes;
+  constexpr uint32_t kTileBytes = 2 * NDC * kQBlock;   // Q and dO of one stage
+  constexpr uint32_t kStageBytes = kTileBytes + 1024;  // + lse and delta
+  static_assert(2 * BQ * 4 <= 1024, "lse and delta of a query tile fill 1024 bytes");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* resident = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                                 ~static_cast<uintptr_t>(1023));
+  uint8_t* stages = resident + 2 * NDC * kKvBlock;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stages + S * kStageBytes);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + S;
+
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * BKV;
+  const int rep = p.H / p.KV;
+  int q_lo, q_hi;
+  query_range(p, k0, min(k0 + BKV, p.Tk) - 1, q_lo, q_hi);
+  const int qt_lo = q_lo / BQ;
+  const int n_qt = q_hi >= q_lo ? q_hi / BQ - qt_lo + 1 : 0;
+  const int n_items = rep * n_qt;   // (query head, query tile) pairs
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1 + 32);   // the TMA bytes, and the producer warp's lanes
+      hopper::mbar_init(&empty[s], NC * 128);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= NC * 4) {
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (warp != NC * 4) return;
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(kv_full, 2 * NDC * kKvBlock);
+#pragma unroll
+      for (int c = 0; c < NDC; ++c) {
+        hopper::tma_load_4d(resident + c * kKvBlock, &tk, kv_full, 64 * c, k0, kvh, b);
+        hopper::tma_load_4d(resident + (NDC + c) * kKvBlock, &tv, kv_full, 64 * c, k0, kvh, b);
+      }
+    }
+    for (int i = 0; i < n_items; ++i) {
+      const int s = i % S;
+      if (i >= S) hopper::mbar_wait(&empty[s], (i / S - 1) & 1);
+      const int h = kvh * rep + i / n_qt, q0 = (qt_lo + i % n_qt) * BQ;
+      uint8_t* st = stages + s * kStageBytes;
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(&full[s], kTileBytes);
+#pragma unroll
+        for (int c = 0; c < NDC; ++c) {
+          hopper::tma_load_4d(st + c * kQBlock, &tq, &full[s], 64 * c, q0, h, b);
+          hopper::tma_load_4d(st + (NDC + c) * kQBlock, &tdo, &full[s], 64 * c, q0, h, b);
+        }
+      }
+      float* rows = reinterpret_cast<float*>(st + kTileBytes);   // lse [BQ], delta [BQ]
+      const long long row0 = (static_cast<long long>(b) * p.H + h) * p.Tq;
+      for (int j = lane; j < BQ; j += 32) {
+        const bool live = q0 + j < p.Tq;
+        rows[j] = live ? p.lse[row0 + q0 + j] : 0.f;
+        rows[BQ + j] = live ? p.delta[row0 + q0 + j] : 0.f;
+      }
+      hopper::mbar_arrive(&full[s]);   // releases the lane's lse / delta stores
+    }
+    return;
+  }
+  hopper::setmaxnreg_inc<kConsumerRegs>();
+
+  const int wg = warp / 4;
+  const int k_first = k0 + 64 * wg;
+  const int kj[2] = {k_first + 16 * (warp % 4) + lane / 4, k_first + 16 * (warp % 4) + lane / 4 + 8};
+  const uint32_t k_rows = hopper::smem_u32(resident) + 64 * wg * kBlockBytes;
+  const uint32_t v_rows = k_rows + NDC * kKvBlock;
+
+  float dk[NDC][32], dv[NDC][32];
+#pragma unroll
+  for (int c = 0; c < NDC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[c][i] = dv[c][i] = 0.f;
+
+  hopper::mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_items; ++it) {
+    const int s = it % S;
+    const int h = kvh * rep + it / n_qt, q0 = (qt_lo + it % n_qt) * BQ;
+    const uint32_t q_tile = hopper::smem_u32(stages) + s * kStageBytes;
+    const uint32_t do_tile = q_tile + NDC * kQBlock;
+    const float* lse = reinterpret_cast<const float*>(stages + s * kStageBytes + kTileBytes);
+    const float* delta = lse + BQ;
+    hopper::mbar_wait(&full[s], (it / S) & 1);
+
+    // s^T, then dp^T as a second group: the mask and exp of s^T overlap the
+    // dp^T product
+    float x[NQ][32], dp[NQ][32];
+    __syncwarp();
+    fence_all(x);
+    fence_all(dp);
+    hopper::wgmma_fence();
+    issue_qk<T, DS, BKV, BQ>(x, k_rows, q_tile);     // s^T = K.Q^T
+    hopper::wgmma_commit();
+    issue_qk<T, DS, BKV, BQ>(dp, v_rows, do_tile);   // dp^T = V.dO^T, exact products in fp32
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    fence_all(x);
+
+    mask_tile_t<BQ>(p, x, b, h, kj, k_first, q0, lane);
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        x[n][i] = expf(x[n][i] - lse[64 * n + 8 * (i / 4) + 2 * (lane % 4) + i % 2]);   // p^T
+    hopper::wgmma_wait<0>();
+    fence_all(dp);
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i)   // ds^T, fp32, times ds_split_scale
+        dp[n][i] = x[n][i] * (dp[n][i] - delta[64 * n + 8 * (i / 4) + 2 * (lane % 4) + i % 2]) *
+                   p.scale * ds_split_scale<T>();
+
+    // dV's products run while ds^T is split
+    uint32_t p_hi[BQ / 16][4], p_lo[BQ / 16][4], ds_hi[BQ / 16][4], ds_lo[BQ / 16][4];
+    to_split_fragments<T, BQ>(x, p_hi, p_lo);
+    __syncwarp();
+    fence_all(dv);
+    hopper::wgmma_fence();
+    issue_px<T, DS, BQ>(dv, p_hi, do_tile);
+    issue_px<T, DS, BQ>(dv, p_lo, do_tile);
+    hopper::wgmma_commit();
+    to_split_fragments<T, BQ>(dp, ds_hi, ds_lo);
+    __syncwarp();
+    fence_all(dk);
+    hopper::wgmma_fence();
+    issue_px<T, DS, BQ>(dk, ds_hi, q_tile);
+    issue_px<T, DS, BQ>(dk, ds_lo, q_tile);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    fence_all(dv);
+    fence_all(dk);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      hopper::fence_regs(p_hi[kk]);
+      hopper::fence_regs(p_lo[kk]);
+      hopper::fence_regs(ds_hi[kk]);
+      hopper::fence_regs(ds_lo[kk]);
+    }
+    hopper::mbar_arrive(&empty[s]);
+  }
+
+  T* dk_out = static_cast<T*>(p.dk);
+  T* dv_out = static_cast<T*>(p.dv);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (kj[e] >= p.Tk) continue;
+    const long long row = ((static_cast<long long>(b) * p.Tk + kj[e]) * p.KV + kvh) * p.dh;
+#pragma unroll
+    for (int c = 0; c < NDC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int d = 64 * c + 8 * j + 2 * (lane % 4) + u;
+          if (d < p.dh) {
+            dk_out[row + d] = from_float<T>(dk[c][4 * j + 2 * e + u] / ds_split_scale<T>());
+            dv_out[row + d] = from_float<T>(dv[c][4 * j + 2 * e + u]);
+          }
+        }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -1042,6 +1338,30 @@ cudaError_t tensor_core(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The dk/dv tensor-core kernel: blocks of 128 keys (two consumer
+// warpgroups), query tiles of 64.
+template <typename T, int DS>
+cudaError_t dkv_tensor_core(const Params& p, cudaStream_t stream) {
+  constexpr bool f16 = std::is_same<T, __half>::value;
+  constexpr int NC = 2, BKV = NC * 64, BQ = 64;
+  CUtensorMap tq, tdo, tk, tv;
+  const bool ok =
+      hopper::make_head_map(&tq, p.q, f16, p.B, p.Tq, p.H, p.dh, p.q_sb, p.q_st, p.q_sh, BQ) &&
+      hopper::make_head_map(&tdo, p.dout, f16, p.B, p.Tq, p.H, p.dh, p.do_sb, p.do_st, p.do_sh,
+                            BQ) &&
+      hopper::make_head_map(&tk, p.k, f16, p.B, p.Tk, p.KV, p.dh, p.k_sb, p.k_st, p.k_sh, BKV) &&
+      hopper::make_head_map(&tv, p.v, f16, p.B, p.Tk, p.KV, p.dh, p.v_sb, p.v_st, p.v_sh, BKV);
+  if (!ok) return cudaErrorInvalidValue;
+  constexpr int smem = dkv_tc_smem_bytes<DS, BKV, BQ>();
+  auto kernel = flash_dkv_wgmma<T, DS, NC, BQ>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.Tk + BKV - 1) / BKV, p.KV, p.B);
+  kernel<<<grid, tc_threads(NC), smem, stream>>>(p, tq, tdo, tk, tv);
+  return cudaGetLastError();
+}
+
 enum Which { kFwd, kDq, kDkv };
 
 template <typename T>
@@ -1049,16 +1369,18 @@ constexpr int dtype_code() {
   return std::is_same<T, float>::value ? 0 : std::is_same<T, __half>::value ? 1 : 2;
 }
 
-// The route, by dtype code alone: bf16 / fp16 forward and dq take the
-// tensor-core kernels; fp32 forward and dq, and dk/dv in every dtype, the
-// SIMT kernels. The Python wrapper reads it through ds_flash_route.
-constexpr bool tensor_core_route(Which which, int dtype) {
-  return which != kDkv && dtype != 0;
+// The route, by dtype code and staged head width: bf16 / fp16 take the
+// tensor-core kernels, except dk/dv at head width 256, whose dK and dV
+// accumulators (256 fp32 registers a thread for 64 keys) do not fit a
+// warpgroup's registers; fp32, and that dk/dv, the SIMT kernels. The Python
+// wrapper reads it through ds_flash_route.
+constexpr bool tensor_core_route(Which which, int dtype, int staged_dh) {
+  return dtype != 0 && (which != kDkv || staged_dh <= 128);
 }
 
 // Launches per kernel, counted on the host after each launch and read
 // through ds_flash_kernel_launches: which kernel a call actually went to.
-enum Kernel { kFwdSimt, kFwdWgmma, kDqSimt, kDqWgmma, kDkvSimt, kNumKernels };
+enum Kernel { kFwdSimt, kFwdWgmma, kDqSimt, kDqWgmma, kDkvSimt, kDkvWgmma, kNumKernels };
 long long g_launches[kNumKernels] = {};
 
 cudaError_t counted(Kernel kernel, cudaError_t e) {
@@ -1071,14 +1393,17 @@ cudaError_t run(Which which, const Params& p, cudaStream_t s) {
   constexpr int code = dtype_code<T>();
   switch (which) {
     case kFwd:
-      if constexpr (tensor_core_route(kFwd, code))
+      if constexpr (tensor_core_route(kFwd, code, D))
         return counted(kFwdWgmma, tensor_core<T, D, false>(p, s));
       else return counted(kFwdSimt, fwd<T, D>(p, s));
     case kDq:
-      if constexpr (tensor_core_route(kDq, code))
+      if constexpr (tensor_core_route(kDq, code, D))
         return counted(kDqWgmma, tensor_core<T, D, true>(p, s));
       else return counted(kDqSimt, bwd_dq<T, D>(p, s));
-    default: return counted(kDkvSimt, bwd_dkv<T, D>(p, s));
+    default:
+      if constexpr (tensor_core_route(kDkv, code, D))
+        return counted(kDkvWgmma, dkv_tensor_core<T, D>(p, s));
+      else return counted(kDkvSimt, bwd_dkv<T, D>(p, s));
   }
 }
 
@@ -1132,15 +1457,16 @@ extern "C" int ds_flash_fwd_block_k(int dtype, int dh) {
 }
 
 // 1 where `which` (0 forward, 1 dq, 2 dk/dv) runs the tensor-core kernel
-// for this dtype code, 0 where it runs the SIMT kernel, -1 for a code the
-// kernels do not take.
-extern "C" int ds_flash_route(int which, int dtype) {
-  if (which < 0 || which > 2 || dtype < 0 || dtype > 2) return -1;
-  return tensor_core_route(static_cast<Which>(which), dtype) ? 1 : 0;
+// for this dtype code and head width, 0 where it runs the SIMT kernel, -1
+// for a code or width the kernels do not take.
+extern "C" int ds_flash_route(int which, int dtype, int dh) {
+  if (which < 0 || which > 2 || dtype < 0 || dtype > 2 || dh <= 0 || dh > 256) return -1;
+  return tensor_core_route(static_cast<Which>(which), dtype, staged_width(dh)) ? 1 : 0;
 }
 
 // Launches so far of one kernel, in the order of enum Kernel: forward SIMT,
-// forward wgmma, dq SIMT, dq wgmma, dk/dv SIMT; -1 past the end.
+// forward wgmma, dq SIMT, dq wgmma, dk/dv SIMT, dk/dv wgmma; -1 past the
+// end.
 extern "C" long long ds_flash_kernel_launches(int kernel) {
   return kernel >= 0 && kernel < kNumKernels ? g_launches[kernel] : -1;
 }

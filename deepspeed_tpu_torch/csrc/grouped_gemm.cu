@@ -31,48 +31,53 @@
 // What the design does about it. The TPU kernel walks a sequential grid
 // whose group metadata (which tile belongs to which expert) megablox
 // computes on the host side of the trace, and pads the rows to its 128-row
-// tile. Here blocks run in no order, so:
-//   - forward and dx: the grid is sized for the worst case without reading
-//     the group sizes on the host: ceil(R / 128) + E row tiles by
-//     ceil(Nout / 128) column tiles. Each block walks group_offsets on the
-//     device (E is small: a linear scan), finds its (expert, rows) and exits
-//     when it has none. A forward or backward costs no host sync;
-//   - dW: a grid of K tiles x N tiles x E. Each block contracts over its
-//     expert's ragged row range offsets[e]:offsets[e+1] in steps of 32 rows;
-//     an expert with no rows leaves its accumulators at zero and stores
-//     them. A skewed routing (7/8 of the rows in one expert) makes that
-//     expert's blocks long; they are many (K/128 x N/128 of them), so the
-//     card stays full, but the tail is theirs: splitting the rows over
-//     blocks is later work;
-//   - tiles of 128 x 128 outputs, 8 warps of 64 x 32; the contraction is
-//     walked in steps of 32 through a 3-stage ring of cp.async copies into
-//     shared memory (rows padded by 16 bytes so ldmatrix reads hit distinct
-//     banks);
-//   - bf16/fp16 products run on the tensor cores with mma.sync m16n8k16
-//     (fp32 accumulators); products of two bf16/fp16 values are exact in
-//     fp32, so kernel and plain version differ only in summation order
-//     before the one rounding. Every operand stays in the JAX layout and the
-//     fragments are built by ldmatrix: the forward's B, w[e] [K, N], is
-//     transposed into the mma fragment by ldmatrix.trans; dx contracts along
-//     w's contiguous axis, so its B tile is [N rows][K] in shared memory and
-//     plain ldmatrix reads it; dW reads both operands from row-major [R, .]
-//     matrices, so both its A (xs^T) and B (dy) fragments come from
-//     ldmatrix.trans;
-//   - ragged edges are masked in the kernel: rows past the group's end and
-//     columns past the matrix are zero-filled by cp.async (src-size 0) and
-//     never stored, so nothing is padded. K and N must be multiples of 8
-//     (16-byte copies);
-//   - fp32 inputs take separate SIMT kernels (64 x 64 tiles, FMAs on CUDA
-//     cores): TF32 tensor cores would round the inputs. The backward kernels
-//     take bf16 and fp32, megablox's dtypes.
-// This is the simple, correct first kernel: wgmma, TMA, warp specialisation,
-// a smaller row tile for decode and split rows for dW are later work.
+// tile. Here blocks run in no order, and nothing reads the group sizes on
+// the host, so no product costs a host sync. Three kernels, chosen in the
+// source by product and dtype (grouped_route, exported as ds_grouped_route;
+// ds_grouped_kernel_launches counts what each call launched):
+//   - bf16 / fp16 forward and dx, at every row count: grouped_gemm_wgmma,
+//     warp-specialised and persistent. One block per SM walks the tiles
+//     i, i + grid, ... of all experts (128 rows x 256 columns each, expert
+//     by expert, in groups of 8 row tiles so that the tiles in flight share
+//     rows and weight columns in L2), finding each tile's expert from
+//     group_offsets on the device. A producer warp keeps a 4-stage ring of
+//     TMA loads in flight (A: 128 rows x 64 of the contraction, 2-D tensor
+//     map; B: w[e] through a 3-D tensor map); two consumer warpgroups run
+//     wgmma m64n128k16 (64 rows x 256 columns each, fp32 accumulators),
+//     releasing each stage once its products are done. The forward reads
+//     w[e] [K, N] as an MN-major B through the transpose bit, dx (which
+//     contracts w's contiguous axis) as a K-major B, so one template serves
+//     both. A's rows past the group's end are loaded (the next expert's
+//     rows, or zeros past R) and never stored; nothing is padded. Bound by
+//     operations at training and prefill shapes (2 R K N on the tensor
+//     cores); bound by the weights' bytes at a decode round (16-128 rows
+//     over 8 experts), where a tile computes mostly rows it never stores but
+//     the 4-stage ring keeps every SM streaming its weight columns; its
+//     epilogue stores from registers;
+//   - bf16 dW: grouped_tgmm_mma_kernel, tiles of 128 x 128 outputs, 8 warps
+//     of 64 x 32 on mma.sync m16n8k16, the rows walked in steps of 32
+//     through a 3-stage ring of cp.async copies (rows padded by 16 bytes so
+//     ldmatrix reads hit distinct banks). A grid of K tiles x N tiles x E,
+//     each block contracting its expert's ragged row range (an expert with
+//     no rows stores zeros); a skewed routing makes that expert's blocks
+//     long;
+//   - fp32: SIMT kernels (64 x 64 tiles, FMAs on CUDA cores): TF32 tensor
+//     cores would round the inputs. The backward takes bf16 and fp32,
+//     megablox's dtypes.
+// Products of two bf16/fp16 values are exact in fp32, so every kernel and
+// its plain version differ only in summation order before the one
+// rounding. Ragged K and N edges read zeros (TMA's fill, or cp.async with
+// src-size 0) and are never stored; K and N must be multiples of 8
+// (16-byte rows). Later work: dW on wgmma with its rows split over blocks,
+// and a TMA store epilogue.
 
 #include <cuda_runtime.h>
 #include <cuda_fp16.h>
 #include <cuda_bf16.h>
 
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -81,18 +86,10 @@ constexpr int kBN = 128;            // columns per block tile
 constexpr int kBK = 32;             // contraction per pipeline stage
 constexpr int kStages = 3;
 constexpr int kThreads = 256;       // 8 warps: 2 (rows) x 4 (columns)
-// rows padded by 16 bytes (80 and 272 bytes): the 8 rows one ldmatrix reads
-// start in 8 different 16-byte bank groups
-constexpr int kPadA = kBK + 8;      // tiles stored [128][32 of the contraction]
+// rows padded by 16 bytes (272 bytes): the 8 rows one ldmatrix reads start
+// in 8 different 16-byte bank groups
 constexpr int kPadB = kBN + 8;      // tiles stored [32 of the contraction][128]
-constexpr int kTileRows = kBM * kPadA;
 constexpr int kTileCols = kBK * kPadB;
-
-// Shared memory of the row-grouped kernel: A [128][32] and B [32][128]
-// (forward) or [128][32] (dx) per stage.
-constexpr int grouped_smem_bytes(bool trans_b) {
-  return kStages * (kTileRows + (trans_b ? kTileRows : kTileCols)) * 2;
-}
 constexpr int kTgmmSmemBytes = kStages * 2 * kTileCols * 2;
 
 // Row tiles are numbered expert by expert: expert e owns ceil(size_e / BM)
@@ -131,13 +128,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -164,13 +154,6 @@ struct Tc<__nv_bfloat16> {
 
 template <>
 struct Tc<__half> {
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
   static __device__ __forceinline__ void store2(__half* p, float x, float y) {
     *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
   }
@@ -181,16 +164,6 @@ struct Tc<__half> {
 // contraction 0-7 / 8-15), B [16][8] per tile (b0, b1: contraction 0-7 /
 // 8-15); one x4 load gives two n8 tiles of B.
 //
-// A tile stored [row][contraction]: plain ldmatrix.
-__device__ __forceinline__ void load_a_rows(uint32_t (&af)[4][4], const void* tile, int ks,
-                                            int wm, int lane, int elem) {
-  const char* t = static_cast<const char*>(tile);
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-    ldmatrix_x4(af[mi], t + ((wm * 64 + mi * 16 + (lane & 15)) * kPadA + ks +
-                             (lane >> 4) * 8) * elem);
-}
-
 // A tile stored [contraction][row] (dW's xs^T): ldmatrix.trans, matrices
 // ordered (rows 0-7, c 0-7), (rows 8-15, c 0-7), (rows 0-7, c 8-15), ...
 __device__ __forceinline__ void load_a_cols(uint32_t (&af)[4][4], const void* tile, int ks,
@@ -212,23 +185,6 @@ __device__ __forceinline__ void load_b_cols(uint32_t (&bf)[4][2], const void* ti
     uint32_t r[4];
     ldmatrix_x4_trans(r, t + ((ks + (lane & 15)) * kPadB + wn * 32 + nj * 16 +
                               (lane >> 4) * 8) * elem);
-    bf[2 * nj][0] = r[0];
-    bf[2 * nj][1] = r[1];
-    bf[2 * nj + 1][0] = r[2];
-    bf[2 * nj + 1][1] = r[3];
-  }
-}
-
-// B tile stored [column][contraction] (dx's w[e] read along K): plain
-// ldmatrix; matrices (n 0-7, c 0-7), (n 0-7, c 8-15), (n 8-15, c 0-7), ...
-__device__ __forceinline__ void load_b_rows(uint32_t (&bf)[4][2], const void* tile, int ks,
-                                            int wn, int lane, int elem) {
-  const char* t = static_cast<const char*>(tile);
-#pragma unroll
-  for (int nj = 0; nj < 2; ++nj) {
-    uint32_t r[4];
-    ldmatrix_x4(r, t + ((wn * 32 + nj * 16 + (lane & 7) + ((lane >> 4) << 3)) * kPadA + ks +
-                        ((lane >> 3) & 1) * 8) * elem);
     bf[2 * nj][0] = r[0];
     bf[2 * nj][1] = r[1];
     bf[2 * nj + 1][0] = r[2];
@@ -259,97 +215,6 @@ __device__ __forceinline__ void store_tile(T* __restrict__ out, const float (&ac
         if (col < ld) Tc<T>::store2(orow + col, acc[mi][ni][2 * half], acc[mi][ni][2 * half + 1]);
       }
     }
-}
-
-// Row-grouped product on the tensor cores: out [R, Nout] = a [R, Kc] @
-// op(w[e(r)]), with w[e] stored [Kc, Nout] (forward, kTransB false) or
-// [Nout, Kc] (dx, kTransB true). Block (row tile, column tile); warp
-// (wm, wn) owns rows wm*64 .. +64 and columns wn*32 .. +32 of the block tile
-// as 4 x 4 mma tiles of 16 x 8.
-template <typename T, bool kTransB>
-__global__ void __launch_bounds__(kThreads, 2)
-    grouped_gemm_mma_kernel(const T* __restrict__ a, const T* __restrict__ w,
-                            const int* __restrict__ offsets, T* __restrict__ out, int Kc,
-                            int Nout, int E) {
-  int expert, row0, row1;
-  if (!find_tile<kBM>(offsets, E, blockIdx.x, expert, row0, row1)) return;
-  const int n0 = blockIdx.y * kBN;
-  constexpr int kStageB = kTransB ? kTileRows : kTileCols;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sA = reinterpret_cast<T*>(smem_raw);  // [kStages][kBM][kPadA]
-  T* sB = sA + kStages * kTileRows;        // [kStages][kBK][kPadB] or [kBN][kPadA]
-  const T* wE = w + static_cast<int64_t>(expert) * Kc * Nout;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-
-  // one stage: A 128 rows x 32 and B 32 x 128 columns, 512 16-byte chunks
-  // each, two of each per thread
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * kBK;
-    T* sa = sA + stage * kTileRows;
-    T* sb = sB + stage * kStageB;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kThreads;
-      const int ar = c >> 2, ak = (c & 3) * 8;
-      const int gr = row0 + ar, gk = k0 + ak;
-      const bool a_ok = gr < row1 && gk < Kc;
-      cp_async16(sa + ar * kPadA + ak, a_ok ? a + static_cast<int64_t>(gr) * Kc + gk : a, a_ok);
-      if (kTransB) {  // w[e] row n holds the contraction: [column][contraction]
-        const int gn = n0 + ar;
-        const bool b_ok = gn < Nout && gk < Kc;
-        cp_async16(sb + ar * kPadA + ak, b_ok ? wE + static_cast<int64_t>(gn) * Kc + gk : w,
-                   b_ok);
-      } else {
-        const int br = c >> 4, bn = (c & 15) * 8;
-        const int gbk = k0 + br, gn = n0 + bn;
-        const bool b_ok = gbk < Kc && gn < Nout;
-        cp_async16(sb + br * kPadB + bn, b_ok ? wE + static_cast<int64_t>(gbk) * Nout + gn : w,
-                   b_ok);
-      }
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
-
-  const int k_tiles = (Kc + kBK - 1) / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < k_tiles) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    cp_async_wait<kStages - 2>();
-    // stage kt has landed for every thread, and every warp is done with the
-    // stage the next copy overwrites (the one computed at kt - 1)
-    __syncthreads();
-    const int next = kt + kStages - 1;
-    if (next < k_tiles) load_stage(next % kStages, next);
-    cp_async_commit();
-    const T* sa = sA + (kt % kStages) * kTileRows;
-    const T* sb = sB + (kt % kStages) * kStageB;
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 16) {
-      uint32_t af[4][4], bf[4][2];
-      load_a_rows(af, sa, ks, wm, lane, sizeof(T));
-      if (kTransB)
-        load_b_rows(bf, sb, ks, wn, lane, sizeof(T));
-      else
-        load_b_cols(bf, sb, ks, wn, lane, sizeof(T));
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) Tc<T>::mma(acc[mi][ni], af[mi], bf[ni]);
-    }
-  }
-  store_tile(out, acc, row0, row1, n0, Nout, wm, wn, lane);
 }
 
 // dW on the tensor cores: block (K tile, N tile, expert) computes
@@ -424,6 +289,171 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
   store_tile(out + static_cast<int64_t>(e) * K * N, acc, m0, K, n0, N, wm, wn, lane);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 / fp16 forward and dx on wgmma, fed by TMA (warp-specialised,
+// persistent)
+// ---------------------------------------------------------------------------
+
+constexpr int kWgBM = 128;          // rows per output tile: two consumer warpgroups of 64
+constexpr int kWgBN = 256;          // columns per output tile: two m64n128 products each
+constexpr int kWgBK = 64;           // contraction per stage: one 128-byte swizzled block
+constexpr int kWgStages = 4;
+constexpr int kWgThreads = 3 * 128; // two consumer warpgroups, then the producer's
+constexpr int kWgGroupRows = 8;     // row tiles per rasterisation group
+constexpr uint32_t kWgABytes = kWgBM * kWgBK * 2;            // A [128 rows][64]
+constexpr uint32_t kWgBBytes = kWgBN * kWgBK * 2;            // B, 256 columns by 64
+constexpr uint32_t kWgStageBytes = kWgABytes + kWgBBytes;    // 48 KB
+constexpr uint32_t kWgMnBlock = kWgBK * 128;                 // MN-major B: [64 k][64 n]
+constexpr int kWgSmemBytes = 1024 + kWgStages * kWgStageBytes + 8 * 2 * kWgStages;
+constexpr int kWgProducerRegs = 40, kWgConsumerRegs = 232;
+
+struct WgTile {
+  int expert, row0, row1, n0;
+};
+
+// Tile t of the launch's tiles, numbered expert by expert: expert e has
+// ceil(size_e / 128) row tiles times n_ct column tiles, taken in groups of
+// kWgGroupRows row tiles and, within a group, column tile by column tile, so
+// that the tiles in flight at once share a few experts' rows and weight
+// columns in L2. False past the last tile.
+__device__ __forceinline__ bool wg_tile(const int* __restrict__ offsets, int E, int n_ct, int t,
+                                        WgTile& tile) {
+  for (int e = 0; e < E; ++e) {
+    const int lo = __ldg(offsets + e), hi = __ldg(offsets + e + 1);
+    const int rt = (max(hi - lo, 0) + kWgBM - 1) / kWgBM;
+    if (t < rt * n_ct) {
+      const int group = t / (kWgGroupRows * n_ct);
+      const int first = group * kWgGroupRows;
+      const int rows = min(kWgGroupRows, rt - first);
+      const int u = t - group * kWgGroupRows * n_ct;
+      tile.expert = e;
+      tile.row0 = lo + (first + u % rows) * kWgBM;
+      tile.row1 = min(tile.row0 + kWgBM, hi);
+      tile.n0 = (u / rows) * kWgBN;
+      return true;
+    }
+    t -= rt * n_ct;
+  }
+  return false;
+}
+
+// out [R, Nout] = a [R, Kc] @ op(w[e(r)]) for the rows of every expert,
+// w[e] stored [Kc, Nout] (forward: B read MN-major through the transpose
+// bit) or [Nout, Kc] (dx: B K-major). A persistent grid: block i takes
+// tiles i, i + gridDim.x, ... of wg_tile's order. The producer warp's lane 0
+// streams A (rows row0 .. row0 + 127 of a, through tensor map ta: rows past
+// the group's end are loaded, being the next expert's rows or zeros past R,
+// and never stored) and B (tensor map tb over w [E, ., .]) through a ring of
+// kWgStages stages; each consumer warpgroup issues wgmma on its 64 rows x
+// 256 columns, fp32 accumulators in registers, releases each stage as soon
+// as the products reading it are done, and stores its rows below row1 and
+// columns below Nout, rounded once.
+template <typename T, bool kTransB>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    grouped_gemm_wgmma(const __grid_constant__ CUtensorMap ta,
+                       const __grid_constant__ CUtensorMap tb, const int* __restrict__ offsets,
+                       T* __restrict__ out, int Kc, int Nout, int E) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* stages = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                               ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + kWgStages * kWgStageBytes);
+  uint64_t* empty = full + kWgStages;
+  const int n_ct = (Nout + kWgBN - 1) / kWgBN;
+  const int k_iters = (Kc + kWgBK - 1) / kWgBK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2 * 128);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  WgTile tile;
+  if (warp >= 8) {
+    hopper::setmaxnreg_dec<kWgProducerRegs>();
+    if (warp != 8 || lane != 0) return;
+    int it = 0;
+    for (int t = blockIdx.x; wg_tile(offsets, E, n_ct, t, tile); t += gridDim.x)
+      for (int ks = 0; ks < k_iters; ++ks, ++it) {
+        const int s = it % kWgStages;
+        if (it >= kWgStages) hopper::mbar_wait(&empty[s], (it / kWgStages - 1) & 1);
+        uint8_t* st = stages + s * kWgStageBytes;
+        hopper::mbar_arrive_expect_tx(&full[s], kWgStageBytes);
+        hopper::tma_load_2d(st, &ta, &full[s], ks * kWgBK, tile.row0);
+        if constexpr (kTransB) {
+          hopper::tma_load_3d(st + kWgABytes, &tb, &full[s], ks * kWgBK, tile.n0, tile.expert);
+        } else {
+#pragma unroll
+          for (int c = 0; c < kWgBN / 64; ++c)
+            hopper::tma_load_3d(st + kWgABytes + c * kWgMnBlock, &tb, &full[s], tile.n0 + 64 * c,
+                                ks * kWgBK, tile.expert);
+        }
+      }
+    return;
+  }
+  hopper::setmaxnreg_inc<kWgConsumerRegs>();
+
+  const int wg = warp / 4;
+  float acc[2][64];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+  int it = 0;
+  for (int t = blockIdx.x; wg_tile(offsets, E, n_ct, t, tile); t += gridDim.x) {
+    for (int ks = 0; ks < k_iters; ++ks, ++it) {
+      const int s = it % kWgStages;
+      hopper::mbar_wait(&full[s], (it / kWgStages) & 1);
+      const uint32_t a_rows = hopper::smem_u32(stages + s * kWgStageBytes) + 64 * wg * 128;
+      const uint32_t b_tile = hopper::smem_u32(stages + s * kWgStageBytes + kWgABytes);
+      hopper::fence_regs(acc[0]);
+      hopper::fence_regs(acc[1]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk) {
+        const uint64_t da = hopper::desc_sw128(a_rows + kk * 32);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // dx: rows 128 h .. of the K-major [256][64] block, 32 bytes a k-step;
+          // forward: column blocks 2 h, 2 h + 1 of [64 k][64 n], 16 k rows a k-step
+          const uint64_t db =
+              kTransB ? hopper::desc_sw128(b_tile + h * 128 * 128 + kk * 32)
+                      : hopper::desc_sw128(b_tile + 2 * h * kWgMnBlock + kk * 16 * 128, kWgMnBlock);
+          hopper::wgmma_ss_n128<T, !kTransB>(acc[h], da, db, ks > 0 || kk > 0);
+        }
+      }
+      hopper::wgmma_commit();
+      if (ks > 0) {   // the previous stage's products are done: release it
+        hopper::wgmma_wait<1>();
+        hopper::mbar_arrive(&empty[(it - 1) % kWgStages]);
+      }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc[0]);
+    hopper::fence_regs(acc[1]);
+    if (k_iters > 0) hopper::mbar_arrive(&empty[(it - 1) % kWgStages]);
+
+    // acc[h][4 j + e]: row 16 (warp % 4) + lane / 4 + 8 (e / 2) of the
+    // warpgroup's 64, column 128 h + 8 j + 2 (lane % 4) + e % 2
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const int row = tile.row0 + 64 * wg + 16 * (warp % 4) + lane / 4 + 8 * e2;
+      if (row >= tile.row1) continue;
+      T* orow = out + static_cast<int64_t>(row) * Nout;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = tile.n0 + 128 * h + 8 * j + 2 * (lane % 4);
+          if (col < Nout) Tc<T>::store2(orow + col, acc[h][4 * j + 2 * e2], acc[h][4 * j + 2 * e2 + 1]);
+        }
+    }
+  }
 }
 
 constexpr int kSimtBM = 64;
@@ -553,19 +583,39 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The wgmma kernel: tensor maps of a [R, Kc] (boxes of 128 rows x 64) and of
+// w [E, Kc, Nout] (forward: boxes of 64 contraction rows x 64 columns) or
+// [E, Nout, Kc] (dx: boxes of 256 output columns x 64), then a persistent
+// grid of at most one block per SM.
 template <typename T, bool kTransB>
-cudaError_t launch_grouped(const void* a, const void* w, const void* offsets, void* out,
-                           int R, int Kc, int Nout, int E, cudaStream_t stream) {
-  // above 48 KB of shared memory only as dynamic shared memory, once opted in;
-  // the attribute is per device, so it is set before every launch
-  constexpr int smem = grouped_smem_bytes(kTransB);
-  const cudaError_t attr = cudaFuncSetAttribute(
-      grouped_gemm_mma_kernel<T, kTransB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid((R + kBM - 1) / kBM + E, (Nout + kBN - 1) / kBN);
-  grouped_gemm_mma_kernel<T, kTransB><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(w), static_cast<const int*>(offsets),
-      static_cast<T*>(out), Kc, Nout, E);
+cudaError_t launch_grouped_wgmma(const void* a, const void* w, const void* offsets, void* out,
+                                 int R, int Kc, int Nout, int E, cudaStream_t stream) {
+  constexpr bool f16 = std::is_same<T, __half>::value;
+  using u64 = cuuint64_t;
+  const u64 kc = static_cast<u64>(Kc), nout = static_cast<u64>(Nout);
+  const u64 a_dims[2] = {kc, static_cast<u64>(R)}, a_strides[1] = {kc * 2};
+  const cuuint32_t a_box[2] = {kWgBK, kWgBM};
+  const u64 b_dims[3] = {kTransB ? kc : nout, kTransB ? nout : kc, static_cast<u64>(E)};
+  const u64 b_strides[2] = {b_dims[0] * 2, kc * nout * 2};
+  const cuuint32_t b_box[3] = {64, kTransB ? static_cast<cuuint32_t>(kWgBN) : 64u, 1};
+  CUtensorMap ta, tb;
+  if (!hopper::make_map(&ta, a, f16, 2, a_dims, a_strides, a_box) ||
+      !hopper::make_map(&tb, w, f16, 3, b_dims, b_strides, b_box))
+    return cudaErrorInvalidValue;
+  auto kernel = grouped_gemm_wgmma<T, kTransB>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmemBytes);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  // at most ceil(R / 128) + E row tiles (one ragged tile per expert)
+  const long long tiles =
+      static_cast<long long>((R + kWgBM - 1) / kWgBM + E) * ((Nout + kWgBN - 1) / kWgBN);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  kernel<<<grid, kWgThreads, kWgSmemBytes, stream>>>(ta, tb, static_cast<const int*>(offsets),
+                                                     static_cast<T*>(out), Kc, Nout, E);
   return cudaGetLastError();
 }
 
@@ -583,6 +633,45 @@ bool bad_dims(int R, int K, int N, int E) {
   return R <= 0 || K <= 0 || N <= 0 || E <= 0 || K % 8 || N % 8;
 }
 
+// The kernels, in the order of the launch tally (ds_grouped_kernel_launches).
+enum Kernel { kFwdSimt, kFwdWgmma, kDxSimt, kDxWgmma, kDwSimt, kDwMma, kNumKernels };
+long long g_launches[kNumKernels] = {};
+
+// The kernel that `which` (0 forward, 1 dx, 2 dW) launches for dtype code
+// `dtype` (0 fp32, 1 fp16, 2 bf16); -1 for a dtype the product does not take
+// (the backward takes fp32 and bf16). bf16 / fp16 forward and dx take the
+// wgmma kernel at every row count, a decode round's included (see the
+// header).
+int grouped_route(int which, int dtype) {
+  if (which < 0 || which > 2 || dtype < 0 || dtype > 2 || (which > 0 && dtype == 1)) return -1;
+  if (which == 2) return dtype == 0 ? kDwSimt : kDwMma;
+  return (which == 0 ? kFwdSimt : kDxSimt) + (dtype == 0 ? 0 : 1);
+}
+
+// Launches the row-grouped product (forward: kTransB false; dx: true) on the
+// route's kernel and counts it.
+template <bool kTransB>
+cudaError_t row_grouped(int dtype, const void* a, const void* w, const void* offsets, void* out,
+                        int R, int Kc, int Nout, int E, cudaStream_t s) {
+  const int k = grouped_route(kTransB ? 1 : 0, dtype);
+  const int simt = kTransB ? kDxSimt : kFwdSimt;
+  cudaError_t e;
+  if (k == simt) {
+    e = launch_grouped_fp32<kTransB>(a, w, offsets, out, R, Kc, Nout, E, s);
+  } else if (k == simt + 1) {
+    if constexpr (kTransB)   // dx takes bf16 only
+      e = launch_grouped_wgmma<__nv_bfloat16, true>(a, w, offsets, out, R, Kc, Nout, E, s);
+    else
+      e = dtype == 1
+              ? launch_grouped_wgmma<__half, false>(a, w, offsets, out, R, Kc, Nout, E, s)
+              : launch_grouped_wgmma<__nv_bfloat16, false>(a, w, offsets, out, R, Kc, Nout, E, s);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  if (e == cudaSuccess) ++g_launches[k];
+  return e;
+}
+
 }  // namespace
 
 // Forward. xs [R, K], w [E, K, N], group_offsets [E + 1] int32, out [R, N],
@@ -592,22 +681,8 @@ extern "C" int ds_grouped_matmul(const void* xs, const void* w, const void* grou
                                  void* out, int R, int K, int N, int E, int dtype,
                                  void* stream) {
   if (bad_dims(R, K, N, E)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (dtype) {
-    case 0:
-      err = launch_grouped_fp32<false>(xs, w, group_offsets, out, R, K, N, E, s);
-      break;
-    case 1:
-      err = launch_grouped<__half, false>(xs, w, group_offsets, out, R, K, N, E, s);
-      break;
-    case 2:
-      err = launch_grouped<__nv_bfloat16, false>(xs, w, group_offsets, out, R, K, N, E, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(row_grouped<false>(dtype, xs, w, group_offsets, out, R, K, N, E,
+                                             static_cast<cudaStream_t>(stream)));
 }
 
 // dx (megablox gmm with transpose_rhs). dy [R, N], w [E, K, N],
@@ -616,19 +691,8 @@ extern "C" int ds_grouped_matmul_dx(const void* dy, const void* w, const void* g
                                     void* out, int R, int K, int N, int E, int dtype,
                                     void* stream) {
   if (bad_dims(R, K, N, E)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (dtype) {
-    case 0:
-      err = launch_grouped_fp32<true>(dy, w, group_offsets, out, R, N, K, E, s);
-      break;
-    case 2:
-      err = launch_grouped<__nv_bfloat16, true>(dy, w, group_offsets, out, R, N, K, E, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(row_grouped<true>(dtype, dy, w, group_offsets, out, R, N, K, E,
+                                            static_cast<cudaStream_t>(stream)));
 }
 
 // dW (megablox tgmm). xs [R, K], dy [R, N], group_offsets [E + 1] int32,
@@ -663,7 +727,19 @@ extern "C" int ds_grouped_matmul_dw(const void* xs, const void* dy, const void* 
     default:
       err = cudaErrorInvalidValue;
   }
+  if (err == cudaSuccess) ++g_launches[grouped_route(2, dtype)];
   return static_cast<int>(err);
+}
+
+// The kernel (index into the launch tally's order: forward SIMT, wgmma; dx
+// SIMT, wgmma; dW SIMT, mma.sync) that `which` (0 forward, 1 dx, 2 dW)
+// launches for dtype code `dtype`; -1 where the product does not take that
+// dtype.
+extern "C" int ds_grouped_route(int which, int dtype) { return grouped_route(which, dtype); }
+
+// Launches so far of one kernel, in the order above; -1 past the end.
+extern "C" long long ds_grouped_kernel_launches(int kernel) {
+  return kernel >= 0 && kernel < kNumKernels ? g_launches[kernel] : -1;
 }
 
 extern "C" const char* ds_cuda_error_string(int code) {

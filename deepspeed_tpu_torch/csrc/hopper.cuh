@@ -97,6 +97,25 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// 2-D and 3-D tiled loads, completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -116,12 +135,14 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 
 // Shared-memory matrix descriptor for a 128-byte-swizzled tile starting at
 // shared address `addr` (1024-byte aligned up to the k-step offset), its
-// 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+// 8-row groups 1024 bytes apart. `lbo`, the leading offset in bytes, is read
+// only by an MN-major operand wider than one 64-column block: the distance
+// between its column blocks.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo = 16) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |                 // leading offset: unused here
-         (static_cast<uint64_t>(1024 >> 4) << 32) |         // stride offset
-         (static_cast<uint64_t>(1) << 62);                  // 128-byte swizzle
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |   // leading offset
+         (static_cast<uint64_t>(1024 >> 4) << 32) |             // stride offset
+         (static_cast<uint64_t>(1) << 62);                      // 128-byte swizzle
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -210,6 +231,46 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32], const uint32_t (&a)[
 #undef HOPPER_D32
 #undef HOPPER_ACC32
 
+#define HOPPER_D64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define HOPPER_ACC64(d) \
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),    \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),    \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),    \
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),    \
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),    \
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),    \
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),    \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d[64 x 128] (+)= A[64 x 16] . B[16 x 128], A K-major in shared memory, B
+// K-major (kMnB false) or MN-major (kMnB true: read through the transpose
+// bit, its two 64-column blocks `lbo` bytes apart in the descriptor). The
+// accumulator layout is wgmma_ss's with j running to 15.
+template <typename T, bool kMnB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  constexpr int tb = kMnB ? 1 : 0;
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " HOPPER_D64
+        ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+        : HOPPER_ACC64(d)
+        : "l"(a), "l"(b), "r"(accumulate), "n"(tb));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
+        ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+        : HOPPER_ACC64(d)
+        : "l"(a), "l"(b), "r"(accumulate), "n"(tb));
+  }
+}
+
+#undef HOPPER_D64
+#undef HOPPER_ACC64
+
 // Two fp32 values rounded to T and packed as one 32-bit register, the first
 // in the low half (the lower column).
 template <typename T>
@@ -252,14 +313,28 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// Tensor map of a `rank`-dim 16-bit tensor (dims innermost first, the
+// innermost contiguous; `strides` in bytes for dims 1..rank-1), read in
+// boxes of `box` elements per dim, 128-byte swizzled (box[0] = 64).
+// Boxes past an edge read zeros. Returns false if cuTensorMapEncodeTiled refuses.
+inline bool make_map(CUtensorMap* map, const void* base, bool fp16, int rank,
+                     const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return encode(map, fp16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                rank, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // Tensor map of one [B, T, heads, dh] 16-bit tensor with element strides
 // (sb, st, sh) and a contiguous last dim, read in boxes of 64 columns x
 // `rows` rows of one head, 128-byte swizzled. Boxes past T or dh read zeros.
 // Dims of extent 1 may carry any stride. Returns false if the driver refuses.
 inline bool make_head_map(CUtensorMap* map, const void* base, bool fp16, int B, int T, int heads,
                           int dh, long long sb, long long st, long long sh, int rows) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
   // a stride of an extent-1 dim is never used: give it the contiguous value
   if (heads == 1) sh = dh;
   if (T == 1) st = static_cast<long long>(heads) * sh;
@@ -269,11 +344,7 @@ inline bool make_head_map(CUtensorMap* map, const void* base, bool fp16, int B, 
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * 2, static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
   const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, fp16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return make_map(map, base, fp16, 4, dims, strides, box);
 }
 
 }  // namespace hopper

@@ -11,13 +11,15 @@ tensor never reaches a plain version through these wrappers: what the kernels
 cannot take raises. ``mha_reference`` is the JAX package's dense XLA
 attention, kept as a function; ``mha`` never falls back to it.
 
-The route is chosen by dtype alone, in the kernel source (``kernel_route``
-reads it; ``kernel_launches`` counts what each call launched): bf16/fp16
-forward and dq run the tensor-core kernels (``wgmma`` fed by a TMA ring in
-shared memory), fp32 the SIMT kernels (fp32 FMAs: ``wgmma`` has no exact
-fp32 product); dk/dv runs its SIMT kernel in every dtype. The forward's key
-tile, which decides where p rounds, is ``FWD_BLOCK_K`` per dtype and head
-width.
+The route is chosen by dtype and head width, in the kernel source
+(``kernel_route`` reads it; ``kernel_launches`` counts what each call
+launched): bf16/fp16 run the tensor-core kernels (``wgmma`` fed by a TMA ring
+in shared memory), fp32 the SIMT kernels (fp32 FMAs: ``wgmma`` has no exact
+fp32 product). dk/dv keeps p and ds in fp32 on the tensor cores by a split
+product (each split into a 16-bit hi and lo part, both multiplied); at head
+width 256, whose dK and dV accumulators do not fit a warpgroup's registers,
+it runs its SIMT kernel. The forward's key tile, which decides where p
+rounds, is ``FWD_BLOCK_K`` per dtype and head width.
 
 Layouts are the JAX package's: q [B, Tq, H, Dh], k/v [B, Tk, KV, Dh] with
 H % KV == 0 (query head h reads kv head h // (H // KV)); the output has q's
@@ -273,9 +275,10 @@ def _library():
         for fn in (lib.ds_flash_fwd, lib.ds_flash_bwd_dq, lib.ds_flash_bwd_dkv):
             fn.argtypes = args
             fn.restype = ctypes.c_int
-        for fn in (lib.ds_flash_fwd_block_k, lib.ds_flash_route):
-            fn.argtypes = [ctypes.c_int, ctypes.c_int]
-            fn.restype = ctypes.c_int
+        lib.ds_flash_fwd_block_k.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.ds_flash_fwd_block_k.restype = ctypes.c_int
+        lib.ds_flash_route.argtypes = [ctypes.c_int] * 3
+        lib.ds_flash_route.restype = ctypes.c_int
         lib.ds_flash_kernel_launches.argtypes = [ctypes.c_int]
         lib.ds_flash_kernel_launches.restype = ctypes.c_longlong
         lib.ds_flash_error_string.argtypes = [ctypes.c_int]
@@ -292,16 +295,17 @@ def kernel_block_k(dtype, dh):
 
 _WHICH = {"fwd": 0, "dq": 1, "dkv": 2}
 # The kernels in the order of the source's launch tally (enum Kernel).
-KERNELS = ("fwd_simt", "fwd_wgmma", "dq_simt", "dq_wgmma", "dkv_simt")
+KERNELS = ("fwd_simt", "fwd_wgmma", "dq_simt", "dq_wgmma", "dkv_simt", "dkv_wgmma")
 
 
-def kernel_route(which, dtype):
+def kernel_route(which, dtype, dh):
     """``"wgmma"`` or ``"simt"``: the kernel that ``which`` (``"fwd"``,
-    ``"dq"`` or ``"dkv"``) launches for inputs of ``dtype``, as the kernel
-    source decides it (``ds_flash_route``). Builds the library."""
-    route = _library().ds_flash_route(_WHICH[which], _DTYPE_CODES[dtype])
+    ``"dq"`` or ``"dkv"``) launches for inputs of ``dtype`` and head width
+    ``dh``, as the kernel source decides it (``ds_flash_route``). Builds the
+    library."""
+    route = _library().ds_flash_route(_WHICH[which], _DTYPE_CODES[dtype], int(dh))
     if route < 0:
-        raise ValueError(f"no flash kernel takes {which} in {dtype}")
+        raise ValueError(f"no flash kernel takes {which} in {dtype} at head width {dh}")
     return "wgmma" if route else "simt"
 
 
@@ -420,7 +424,7 @@ def flash_mha_fwd(q, k, v, bias=None, segment_ids=None, causal=True,
         return flash_mha_fwd_reference(q, k, v, bias, segment_ids, causal,
                                        softmax_scale, window)
     scale, dh = _scale(q, softmax_scale), q.shape[-1]
-    if kernel_route("fwd", q.dtype) == "wgmma":
+    if kernel_route("fwd", q.dtype, dh) == "wgmma":
         q, k, v = _tma_inputs(q, k, v)
     p = _params(q, k, v, bias, segment_ids, causal, scale, window)
     B, Tq, H, _ = q.shape
@@ -447,7 +451,7 @@ def flash_mha_bwd_dq(q, k, v, dout, lse, delta, bias=None, segment_ids=None,
                                           segment_ids, causal, softmax_scale,
                                           window)
     scale, dh = _scale(q, softmax_scale), q.shape[-1]
-    if kernel_route("dq", q.dtype) == "wgmma":
+    if kernel_route("dq", q.dtype, dh) == "wgmma":
         q, k, v, dout = _tma_inputs(q, k, v, dout)
     p = _params(q, k, v, bias, segment_ids, causal, scale, window, dout=dout)
     lse, delta = _rows(lse, q), _rows(delta, q)
@@ -466,14 +470,17 @@ def flash_mha_bwd_dkv(q, k, v, dout, lse, delta, bias=None, segment_ids=None,
     heads of each kv group.
 
     CUDA tensors launch ``ds_flash_bwd_dkv`` (counted in
-    ``flash_mha_bwd_dkv.launches``); CPU tensors run the plain version."""
+    ``flash_mha_bwd_dkv.launches``), routed and aligned as the forward is;
+    CPU tensors run the plain version."""
     _check_device(q, "flash_mha_bwd_dkv")
     if q.device.type == "cpu":
         return flash_mha_bwd_dkv_reference(q, k, v, dout, lse, delta, bias,
                                            segment_ids, causal, softmax_scale,
                                            window)
-    p = _params(q, k, v, bias, segment_ids, causal, _scale(q, softmax_scale),
-                window, dout=dout)
+    scale, dh = _scale(q, softmax_scale), q.shape[-1]
+    if kernel_route("dkv", q.dtype, dh) == "wgmma":
+        q, k, v, dout = _tma_inputs(q, k, v, dout)
+    p = _params(q, k, v, bias, segment_ids, causal, scale, window, dout=dout)
     lse, delta = _rows(lse, q), _rows(delta, q)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
@@ -481,6 +488,8 @@ def flash_mha_bwd_dkv(q, k, v, dout, lse, delta, bias=None, segment_ids=None,
     p.dk, p.dv = dk.data_ptr(), dv.data_ptr()
     _launch("ds_flash_bwd_dkv", p, q.dtype, q.device)
     flash_mha_bwd_dkv.launches += 1
+    if dk.shape[-1] != dh:
+        dk, dv = dk[..., :dh].contiguous(), dv[..., :dh].contiguous()
     return dk, dv
 
 

@@ -13,6 +13,11 @@ three megablox ``gmm`` calls each reach ``pl.pallas_call``) and of megablox's cu
 (``*_reference``). A CUDA tensor never reaches a plain version through these
 wrappers: what the kernels cannot take raises.
 
+The kernel source chooses each call's kernel (``kernel_route`` reads the
+choice, ``kernel_launches`` counts what each call launched): bf16/fp16
+forward and dx run the ``wgmma`` kernel fed by TMA at every row count; dW
+runs the ``mma.sync`` kernel; fp32 runs SIMT kernels.
+
 Layouts (the JAX package's): x [T, D]; w1/w3 [E, D, F]; w2 [E, F, D]; the
 router weight [D, E]; top_vals fp32 [T, k]; top_idx int [T, k]. A grouped
 product takes rows ``xs [R, K]`` sorted by expert and ``group_offsets [E+1]``
@@ -129,7 +134,33 @@ def _library():
             fn.restype = ctypes.c_int
         lib.ds_cuda_error_string.argtypes = [i]
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
+        lib.ds_grouped_route.argtypes = [i] * 2
+        lib.ds_grouped_route.restype = i
+        lib.ds_grouped_kernel_launches.argtypes = [i]
+        lib.ds_grouped_kernel_launches.restype = ctypes.c_longlong
     return lib
+
+
+# The kernels in the order of the source's launch tally (enum Kernel).
+KERNELS = ("fwd_simt", "fwd_wgmma", "dx_simt", "dx_wgmma", "dw_simt", "dw_mma")
+_WHICH = {"fwd": 0, "dx": 1, "dw": 2}
+
+
+def kernel_route(which, dtype):
+    """The kernel (a name of ``KERNELS``) that ``which`` (``"fwd"``,
+    ``"dx"`` or ``"dw"``) launches for inputs of ``dtype``, as the kernel
+    source decides it (``ds_grouped_route``). Builds the library."""
+    k = _library().ds_grouped_route(_WHICH[which], _DTYPE_CODES[dtype])
+    if k < 0:
+        raise ValueError(f"no grouped GEMM kernel takes {which} in {dtype}")
+    return KERNELS[k]
+
+
+def kernel_launches():
+    """{kernel: launches so far} over ``KERNELS``, counted by the library
+    where it launches each kernel: which kernels the calls went to."""
+    lib = _library()
+    return {name: lib.ds_grouped_kernel_launches(i) for i, name in enumerate(KERNELS)}
 
 
 def _check_common(a, b, group_offsets, names, dtypes):

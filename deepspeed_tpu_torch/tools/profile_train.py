@@ -56,9 +56,10 @@ def _group(name):
     n = name.lower()
     if "nccl" in n:
         return "nccl_collectives"
-    # flash_fwd_ / flash_dq_: the wgmma kernels (bf16/fp16) and the SIMT ones (fp32)
+    # flash_fwd_ / flash_dq_ / flash_dkv_: the wgmma kernels (bf16/fp16) and the
+    # SIMT ones (fp32)
     for kernel, group in (("flash_fwd_", "flash_fwd"), ("flash_dq_", "flash_dq"),
-                          ("flash_dkv_kernel", "flash_dkv"),
+                          ("flash_dkv_", "flash_dkv"),
                           ("grouped_tgmm", "grouped_gemm_dw")):
         if kernel in n:
             return group

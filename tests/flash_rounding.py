@@ -3,8 +3,9 @@
 
 The forward rounds p = exp(s - m) to v's dtype against the running maximum m
 of its key tiles, and dq rounds ds = p (dp - delta) scale to k's dtype
-(``ops/flash_attention.py``). Two helpers hold the kernels to those rounding
-points:
+(``ops/flash_attention.py``); dk/dv rounds neither: its tensor-core kernel
+splits p and ds into a 16-bit hi and lo part and multiplies both. Three
+helpers hold the kernels to those rounding points:
 
 - ``flip_slack`` bounds what the tensor-core kernels may differ from the
   plain versions on random data: they sum q.k and dO.v in another order, so
@@ -16,6 +17,11 @@ points:
   version rounds it;
   ``fwd_rounding_faults`` and ``dq_rounding_faults`` are the plain versions
   with the rounding moved, which such a probe must reject.
+- ``dkv_probe`` builds inputs on which dV and dK are exact multiples of
+  2^-12 that cancel to 0 if p or ds is rounded once to the input dtype;
+  ``dkv_rounding_faults`` are the plain dk/dv with p or ds rounded once
+  (the single-pass products of a tensor-core port without the split), and
+  ``dkv_split_product`` is the plain dk/dv with the kernel's split products.
 
 Imports torch and the port only, not JAX.
 """
@@ -219,3 +225,101 @@ def dq_rounding_faults(q, k, v, dout, lse, delta, **kw):
     """{fault: dq} of the plain dq with ds left unrounded (k read as fp32)."""
     return {"ds_unrounded": fa.flash_mha_bwd_dq_reference(q, k.float(), v, dout,
                                                           lse, delta, **kw)}
+
+
+DKV_STEP = 2.0 ** -12   # exp(DKV_STEP) is 1 + DKV_STEP exactly in fp32
+
+
+def dkv_probe(dtype, dh, device):
+    """((q, k, v, dO, lse, delta), kwargs) on which dV's column 0 and dK's
+    column 1 are -(H / KV) * PROBE_TQ / 4 * 2^-12 exactly, and 0 if p (dV) or
+    ds (dK) is rounded once to ``dtype``.
+
+    scale 1 and k = v = 0, so s = 0 and dp = 0 for every (query, key): p =
+    exp(-lse) and ds = -p delta, the same for every key. The query rows come
+    in groups of four:
+      - a p pair: lse 0 and -2^-12, so p = 1 and exp(2^-12) = 1 + 2^-12 (in
+        fp32 exactly: the series' next term, 2^-25, is under half a
+        spacing); dO = +e_0 and -e_0; q = 0 and delta = 0, so ds = 0. Each
+        pair adds 1 - (1 + 2^-12) to dV[:, 0] and nothing to dK.
+      - a ds pair: lse 0 (p = 1), dO = 0, delta = -1 and -(1 + 2^-12), so
+        ds = 1 and 1 + 2^-12; q = +e_1 and -e_1. Each pair adds
+        1 - (1 + 2^-12) to dK[:, 1] and nothing to dV.
+    1 + 2^-12 rounds to 1 in bf16 and fp16, so a product that takes p or ds
+    rounded once cancels each pair to 0; the split into hi = 1 and
+    lo = 2^-12 carries it exactly, and every sum is of powers of two."""
+    q = torch.zeros(1, PROBE_TQ, PROBE_H, dh)
+    dout = torch.zeros(1, PROBE_TQ, PROBE_H, dh)
+    lse = torch.zeros(1, PROBE_H, PROBE_TQ)
+    delta = torch.zeros(1, PROBE_H, PROBE_TQ)
+    for r in range(0, PROBE_TQ, 4):
+        lse[0, :, r + 1] = -DKV_STEP
+        dout[0, r, :, 0], dout[0, r + 1, :, 0] = 1.0, -1.0
+        delta[0, :, r + 2], delta[0, :, r + 3] = -1.0, -(1.0 + DKV_STEP)
+        q[0, r + 2, :, 1], q[0, r + 3, :, 1] = 1.0, -1.0
+    k = torch.zeros(1, PROBE_TK, 1, dh)
+    v = torch.zeros(1, PROBE_TK, 1, dh)
+    return (tuple(t.to(dtype).to(device) for t in (q, k, v, dout))
+            + (lse.to(device), delta.to(device)),
+            dict(causal=False, softmax_scale=1.0))
+
+
+def dkv_probe_value(dh):
+    """(dk, dv) of ``dkv_probe`` exactly, fp32 [1, PROBE_TK, 1, dh]."""
+    x = -PROBE_H * (PROBE_TQ // 4) * DKV_STEP
+    dk, dv = torch.zeros(2, 1, PROBE_TK, 1, dh)
+    dk[..., 1] = x
+    dv[..., 0] = x
+    return dk, dv
+
+
+def _dkv_with(q, k, v, dout, lse, delta, p_as, ds_as, bias=None, segment_ids=None,
+              causal=True, softmax_scale=None, window=None):
+    """The plain dk/dv with p and ds passed through ``p_as`` and ``ds_as``
+    before their products with dO and Q."""
+    B, Tq, H, Dh = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    scale = softmax_scale if softmax_scale is not None else Dh ** -0.5
+    rep = H // KV
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for b in range(B):
+        s = fa._masked_logits(q, k, b, bias, causal, scale, window, segment_ids)
+        p = torch.exp(s - lse[b][..., None])
+        do = dout[b].float()
+        vf = v[b].float().repeat_interleave(rep, dim=1)
+        ds = p * (torch.einsum("qhd,khd->hqk", do, vf) - delta[b][..., None]) * scale
+        dv_h = torch.einsum("hqk,qhd->khd", p_as(p), do)
+        dk_h = torch.einsum("hqk,qhd->khd", ds_as(ds), q[b].float())
+        dv[b] = dv_h.reshape(Tk, KV, rep, Dh).sum(2).to(v.dtype)
+        dk[b] = dk_h.reshape(Tk, KV, rep, Dh).sum(2).to(k.dtype)
+    return dk, dv
+
+
+# What the dk/dv kernel multiplies ds by before its split and divides dK by
+# before the one rounding (ds_split_scale in csrc/flash_attention.cu): fp16
+# keeps ds of unscaled gradients (about 1e-6) in its normal range.
+DS_SPLIT_SCALE = {torch.bfloat16: 1.0, torch.float16: 2.0 ** 10}
+
+
+def dkv_split_product(q, k, v, dout, lse, delta, ds_scale=None, **kw):
+    """(dk, dv) by the tensor-core kernel's arithmetic: p and ds split into
+    hi = round(x) and lo = round(x - hi) in q's dtype, and hi and lo each
+    multiplied (exactly, in fp32) with dO and Q; ds split times ``ds_scale``
+    (default the kernel's, ``DS_SPLIT_SCALE``), a power of two undone
+    exactly after the product."""
+    scale = DS_SPLIT_SCALE[q.dtype] if ds_scale is None else ds_scale
+
+    def split(x, s=1.0):
+        hi = (x * s).to(q.dtype).float()
+        return (hi + (x * s - hi).to(q.dtype).float()) / s
+    return _dkv_with(q, k, v, dout, lse, delta, split, lambda x: split(x, scale), **kw)
+
+
+def dkv_rounding_faults(q, k, v, dout, lse, delta, **kw):
+    """{fault: (dk, dv)} of the plain dk/dv with p, or ds, rounded once to
+    q's dtype before its product: what a tensor-core port without the split
+    would compute."""
+    once = lambda x: x.to(q.dtype).float()
+    keep = lambda x: x
+    return {"p_rounded_once": _dkv_with(q, k, v, dout, lse, delta, once, keep, **kw),
+            "ds_rounded_once": _dkv_with(q, k, v, dout, lse, delta, keep, once, **kw)}

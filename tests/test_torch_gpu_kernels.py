@@ -22,8 +22,9 @@ from unittest import mock
 
 import pytest
 import torch
-from flash_rounding import (dq_probe, dq_rounding_faults, flip_slack, fwd_probe,
-                            fwd_rounding_faults)
+from flash_rounding import (dkv_probe, dkv_probe_value, dkv_rounding_faults,
+                            dkv_split_product, dq_probe, dq_rounding_faults, flip_slack,
+                            fwd_probe, fwd_rounding_faults)
 
 from deepspeed_tpu_torch.ops.paged_attention import paged_mha, paged_mha_reference
 
@@ -147,7 +148,9 @@ def test_kernel_raises_instead_of_falling_back(cuda):
 # a p or ds that lies within the two sums' error bound of a rounding
 # boundary may round the other way, and each such one may move the output by
 # one spacing times its |v| / l (|k|); every other p and ds must round as the
-# plain version does. fp32, lse and dk/dv keep the flash form alone.
+# plain version does. fp32, lse and dk/dv keep the flash form alone: the
+# dk/dv tensor-core kernel splits p and ds into a 16-bit hi and lo part and
+# multiplies both, so neither is rounded once.
 # ``test_flash_bound_rejects_causal_fault`` shows that a key seen one position
 # too early fails the bound; the rounding probes below show that p or ds
 # rounded anywhere else than in the plain version fails the flash form.
@@ -341,10 +344,9 @@ def test_flash_kernels_match_plain(cuda, name, dtype):
                     fa.flash_mha_bwd_dkv, lse=want[1], delta=delta, **kw)
     assert (fa.flash_mha_fwd.launches, fa.flash_mha_bwd_dq.launches,
             fa.flash_mha_bwd_dkv.launches) == tuple(n + 1 for n in before)
-    route = "simt" if dtype == torch.float32 else "wgmma"
+    routed = {f"{w}_{fa.kernel_route(w, dtype, args[0].shape[-1])}" for w in ("fwd", "dq", "dkv")}
     launched = {n: c - tally[n] for n, c in fa.kernel_launches().items()}
-    assert launched == {n: int(n in (f"fwd_{route}", f"dq_{route}", "dkv_simt"))
-                        for n in fa.KERNELS}, launched
+    assert launched == {n: int(n in routed) for n in fa.KERNELS}, launched
     torch.cuda.synchronize()
     for label, a, b, m in zip(("out", "lse", "dq", "dk", "dv"), got, want,
                               (slack[0], None, slack[1], None, None)):
@@ -352,12 +354,112 @@ def test_flash_kernels_match_plain(cuda, name, dtype):
         assert flash_ratio(a, b, m) <= 1, (label, flash_ratio(a, b, m))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dh", [64, 96, 128, 256])
+def test_dkv_probe_rejects_rounding_once(dh, dtype):
+    """On ``dkv_probe`` the plain dk/dv gives the exact values, and so do
+    the kernel's split products (``dkv_split_product``, 0 of the bound);
+    p or ds rounded once to the dtype cancels the probe's outputs and fails
+    the flash form more than tenfold (64x in bf16, 512x in fp16 by
+    construction)."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    args, kw = dkv_probe(dtype, dh, torch.device("cpu"))
+    ref = fa.flash_mha_bwd_dkv_reference(*args, **kw)
+    for got, exact in zip(ref, dkv_probe_value(dh)):
+        assert torch.equal(got.float(), exact)
+    assert max(flash_ratio(a, r) for a, r in zip(dkv_split_product(*args, **kw), ref)) == 0
+    for fault, bad in dkv_rounding_faults(*args, **kw).items():
+        assert max(flash_ratio(a, r) for a, r in zip(bad, ref)) > 10, fault
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", ["causal", "gqa", "window", "bias", "dh96", "ragged"])
+def test_dkv_split_product_holds_flash_form(name, dtype):
+    """The dk/dv kernel's arithmetic, p and ds split into hi and lo parts
+    in the input dtype (``dkv_split_product``), holds the plain dk/dv's
+    flash form with no slack on random data: the split's residual (about
+    2^-16 of p in bf16, 2^-22 in fp16 or an absolute 2^-25 where lo is
+    subnormal) is far inside one rounding of the output."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    spec = dict(FLASH_CASES[name])
+    window = spec.pop("window", None)
+    causal = spec.pop("causal", True)
+    args, kw = flash_case(torch.device("cpu"), B=1, dtype=dtype, **spec)
+    kw.update(window=window, causal=causal)
+    q, k, v, dout = args
+    out, lse = fa.flash_mha_fwd_reference(q, k, v, **kw)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    ref = fa.flash_mha_bwd_dkv_reference(*args, lse, delta, **kw)
+    got = dkv_split_product(*args, lse, delta, **kw)
+    assert max(flash_ratio(a, r) for a, r in zip(got, ref)) <= 1
+
+
+# dO ~ N(0, 1) times this is the size of an unscaled gradient: ds about
+# 1e-6, below fp16's smallest normal (6.1e-5), while dK stays normal
+SMALL_GRAD = 1e-3
+
+
+def small_gradient_case(dev, name, dtype):
+    """(q, k, v, dO, lse, delta), kwargs of FLASH_CASES[name] at 512 queries
+    of head width 128, dO scaled by SMALL_GRAD."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    spec = dict(FLASH_CASES[name])
+    window = spec.pop("window", None)
+    causal = spec.pop("causal", True)
+    spec.setdefault("H", 2)
+    spec.setdefault("KV", spec["H"])
+    (q, k, v, dout), kw = flash_case(dev, B=1, Tq=512, Dh=128, dtype=dtype, **spec)
+    kw.update(window=window, causal=causal)
+    dout = (dout.float() * SMALL_GRAD).to(dtype)
+    out, lse = fa.flash_mha_fwd_reference(q, k, v, **kw)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return (q, k, v, dout, lse, delta), kw
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", ["causal", "gqa"])
+def test_dkv_split_product_holds_flash_form_at_small_gradients(name, dtype):
+    """With dO the size of an unscaled gradient the kernel's split arithmetic
+    holds the flash form with no slack. In fp16 that needs its ds scale
+    (``DS_SPLIT_SCALE``): split as is, ds_hi is subnormal, ds_lo carries
+    nothing, and dK fails the bound."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    args, kw = small_gradient_case(torch.device("cpu"), name, dtype)
+    ref = fa.flash_mha_bwd_dkv_reference(*args, **kw)
+    assert ref[0].float().abs().max() > torch.finfo(torch.float16).tiny
+    assert max(flash_ratio(a, r) for a, r in zip(dkv_split_product(*args, **kw), ref)) <= 1
+    if dtype == torch.float16:
+        dk, _ = dkv_split_product(*args, ds_scale=1.0, **kw)
+        assert flash_ratio(dk, ref[0]) > 1
+
+
+@gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", ["causal", "gqa"])
+def test_dkv_kernel_holds_flash_form_at_small_gradients(cuda, name, dtype):
+    """The dk/dv kernel with dO the size of an unscaled gradient launches
+    its routed kernel and holds the flash form with no slack."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    args, kw = small_gradient_case(cuda, name, dtype)
+    tally = fa.kernel_launches()
+    got = fa.flash_mha_bwd_dkv(*args, **kw)
+    launched = {n: c - tally[n] for n, c in fa.kernel_launches().items() if c > tally[n]}
+    assert launched == {f"dkv_{fa.kernel_route('dkv', dtype, 128)}": 1}
+    ref = fa.flash_mha_bwd_dkv_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        assert torch.isfinite(a).all()
+        assert flash_ratio(a, r) <= 1
+
+
 @gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("dh", [64, 128, 256])
 def test_flash_kernels_round_where_plain_does(cuda, dh, dtype):
     """On the rounding probes the forward and dq kernels hold the flash form
-    with no slack, which every rounding-point fault fails."""
+    with no slack, which every rounding-point fault fails; on ``dkv_probe``
+    the dk/dv kernel reads under 0.01 of the bound (its sums are exact),
+    where p or ds rounded once reads over 10."""
     from deepspeed_tpu_torch.ops import flash_attention as fa
     (q, k, v), kw = fwd_probe(dtype, dh, cuda)
     out = fa.flash_mha_fwd(q, k, v, **kw)[0]
@@ -368,19 +470,99 @@ def test_flash_kernels_round_where_plain_does(cuda, dh, dtype):
     ref = fa.flash_mha_bwd_dq_reference(*args, **kw)
     assert flash_ratio(fa.flash_mha_bwd_dq(*args, **kw), ref) <= 1
     assert all(flash_ratio(bad, ref) > 10 for bad in dq_rounding_faults(*args, **kw).values())
+    args, kw = dkv_probe(dtype, dh, cuda)
+    ref = fa.flash_mha_bwd_dkv_reference(*args, **kw)
+    ratio = lambda got: max(flash_ratio(a, r) for a, r in zip(got, ref))
+    assert ratio(fa.flash_mha_bwd_dkv(*args, **kw)) <= 0.01
+    assert all(ratio(bad) > 10 for bad in dkv_rounding_faults(*args, **kw).values())
+
+
+def source_kernels(source):
+    """The kernel names of a source's launch tally, from its ``enum Kernel``
+    (kDkvWgmma -> dkv_wgmma), in order."""
+    import re
+    from pathlib import Path
+    text = (Path(__file__).resolve().parents[1] / "deepspeed_tpu_torch" / "csrc"
+            / source).read_text()
+    body = re.search(r"enum Kernel \{([^}]*)\}", text).group(1)
+    names = [n.strip() for n in body.split(",") if n.strip() not in ("", "kNumKernels")]
+    return tuple(re.sub(r"(?<!^)(?=[A-Z])", "_", n[1:]).lower() for n in names)
+
+
+class StandInLibrary:
+    """A library stand-in for the route and tally readers: records the
+    route query and answers with ``route``; launches of kernel i are 10 i."""
+
+    def __init__(self, route):
+        self.route, self.asked = route, None
+
+    def _route(self, *args):
+        self.asked = args
+        return self.route
+
+    ds_flash_route = ds_grouped_route = _route
+
+    def ds_flash_kernel_launches(self, i):
+        return 10 * i
+
+    ds_grouped_kernel_launches = ds_flash_kernel_launches
+
+
+@pytest.mark.parametrize("module,source", [("flash_attention", "flash_attention.cu"),
+                                           ("grouped_gemm", "grouped_gemm.cu")])
+def test_kernel_tally_names_follow_the_source(module, source):
+    """``KERNELS``, the names ``kernel_launches`` gives the library's tally,
+    is the source's ``enum Kernel`` in order; the reader maps count i to
+    name i."""
+    import importlib
+    mod = importlib.import_module(f"deepspeed_tpu_torch.ops.{module}")
+    assert mod.KERNELS == source_kernels(source)
+    with mock.patch.object(mod, "_library", lambda: StandInLibrary(0)):
+        assert mod.kernel_launches() == {n: 10 * i for i, n in enumerate(mod.KERNELS)}
+
+
+def test_flash_route_reader_asks_by_dtype_and_head_width():
+    """``kernel_route`` hands the source (which, dtype code, head width) and
+    names its answer; a refusal (-1) raises."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    for answer, name in ((1, "wgmma"), (0, "simt")):
+        lib = StandInLibrary(answer)
+        with mock.patch.object(fa, "_library", lambda: lib):
+            assert fa.kernel_route("dkv", torch.float16, 96) == name
+        assert lib.asked == (2, 1, 96)
+    with mock.patch.object(fa, "_library", lambda: StandInLibrary(-1)):
+        with pytest.raises(ValueError, match="head width 300"):
+            fa.kernel_route("fwd", torch.bfloat16, 300)
+
+
+def test_grouped_route_reader_asks_by_dtype_rows_and_experts():
+    """``kernel_route`` hands the source (which, dtype code), rows and
+    experts no longer choosing the kernel, and returns the kernel it names
+    by index; a refusal (-1) raises."""
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
+    lib = StandInLibrary(gg.KERNELS.index("dx_wgmma"))
+    with mock.patch.object(gg, "_library", lambda: lib):
+        assert gg.kernel_route("dx", torch.bfloat16) == "dx_wgmma"
+    assert lib.asked == (1, 2)
+    with mock.patch.object(gg, "_library", lambda: StandInLibrary(-1)):
+        with pytest.raises(ValueError, match="dx"):
+            gg.kernel_route("dx", torch.float16)
 
 
 @gpu
 def test_flash_kernel_key_tiles_match_plain_table(cuda):
     """The forward kernel rounds p against the running maximum of its key
     tiles; the plain version must take the same tiles (``FWD_BLOCK_K``).
-    The source routes bf16/fp16 forward and dq to the tensor-core kernels."""
+    The source routes bf16/fp16 forward, dq and dk/dv to the tensor-core
+    kernels, dk/dv at head width 256 to its SIMT kernel."""
     from deepspeed_tpu_torch.ops import flash_attention as fa
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         for dh in (1, 40, 64, 96, 128, 200, 256):
             assert fa.kernel_block_k(dtype, dh) == fa.fwd_block_k(dtype, dh), (dtype, dh)
-        route = "simt" if dtype == torch.float32 else "wgmma"
-        assert [fa.kernel_route(w, dtype) for w in ("fwd", "dq", "dkv")] == [route, route, "simt"]
+            route = "simt" if dtype == torch.float32 else "wgmma"
+            dkv = route if dh <= 128 else "simt"
+            assert [fa.kernel_route(w, dtype, dh) for w in ("fwd", "dq", "dkv")] == \
+                [route, route, dkv], (dtype, dh)
 
 
 @gpu
@@ -434,10 +616,14 @@ def test_training_on_cuda_runs_the_flash_kernels(cuda):
     ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 100))
     batch = {"input_ids": ids, "labels": ids}
     fa.reset_launch_counts()
+    tally = fa.kernel_launches()
     losses = [float(engine.train_batch(iter([batch] * 2))) for _ in range(3)]
     L, micro = cfg.num_hidden_layers, 6
     assert (fa.flash_mha_fwd.launches, fa.flash_mha_bwd_dq.launches,
             fa.flash_mha_bwd_dkv.launches) == (2 * L * micro, L * micro, L * micro)
+    launched = {n: c - tally[n] for n, c in fa.kernel_launches().items() if c > tally[n]}
+    assert launched == {"fwd_wgmma": 2 * L * micro, "dq_wgmma": L * micro,
+                        "dkv_wgmma": L * micro}
     assert losses[-1] < losses[0]
 
 
@@ -485,6 +671,30 @@ GMM_CASES = {
 }
 
 
+def gmm_kernel(which, dtype):
+    """The kernel the source routes ``which`` in ``dtype`` to."""
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
+    return gg.kernel_route(which, dtype)
+
+
+@gpu
+def test_grouped_routes_put_16_bit_products_on_tensor_cores(cuda):
+    """The source routes bf16/fp16 forward and bf16 dx to the wgmma kernel,
+    bf16 dW to the mma.sync kernel, and fp32 to the SIMT kernels."""
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
+    routes = {(w, dt): gg.kernel_route(w, dt) for w in ("fwd", "dx", "dw")
+              for dt in (torch.float32, torch.bfloat16)}
+    assert routes == {("fwd", torch.float32): "fwd_simt", ("fwd", torch.bfloat16): "fwd_wgmma",
+                      ("dx", torch.float32): "dx_simt", ("dx", torch.bfloat16): "dx_wgmma",
+                      ("dw", torch.float32): "dw_simt", ("dw", torch.bfloat16): "dw_mma"}
+    assert gg.kernel_route("fwd", torch.float16) == "fwd_wgmma"
+
+
+def gmm_launched(gg, tally):
+    """The grouped kernels launched since ``tally`` (``kernel_launches()``)."""
+    return {n: c - tally[n] for n, c in gg.kernel_launches().items() if c > tally[n]}
+
+
 def gmm_case(dev, R, K, N, offsets, dtype, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     E = len(offsets) - 1
@@ -524,13 +734,15 @@ def test_gmm_bound_rejects_shifted_offset(name):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("name", list(GMM_CASES))
 def test_gmm_kernel_matches_plain(cuda, name, dtype):
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
     from deepspeed_tpu_torch.ops.grouped_gemm import (grouped_matmul,
                                                       grouped_matmul_reference)
     R, K, N, offs = GMM_CASES[name]
     xs, w, offsets = gmm_case(cuda, R, K, N, offs, dtype, seed=R)
-    before = grouped_matmul.launches
+    before, tally = grouped_matmul.launches, gg.kernel_launches()
     out = grouped_matmul(xs, w, offsets)
     assert grouped_matmul.launches == before + 1
+    assert gmm_launched(gg, tally) == {gmm_kernel("fwd", dtype): 1}
     ref = grouped_matmul_reference(xs, w, offsets)
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
@@ -626,13 +838,16 @@ def test_gmm_dx_dw_kernels_match_plain(cuda, name, dtype):
                                                       grouped_matmul_dw_reference,
                                                       grouped_matmul_dx,
                                                       grouped_matmul_dx_reference)
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
     R, K, N, offs = GMM_CASES[name]
     xs, w, dy, offsets = gmm_bwd_case(cuda, R, K, N, offs, dtype, seed=R)
     before = (grouped_matmul_dx.launches, grouped_matmul_dw.launches)
+    tally = gg.kernel_launches()
     dx = grouped_matmul_dx(dy, w, offsets)
     dw = grouped_matmul_dw(xs, dy, offsets)
     assert (grouped_matmul_dx.launches, grouped_matmul_dw.launches) == \
         (before[0] + 1, before[1] + 1)
+    assert gmm_launched(gg, tally) == {gmm_kernel("dx", dtype): 1, gmm_kernel("dw", dtype): 1}
     torch.cuda.synchronize()
     assert dx.shape == (R, K) and dw.shape == (len(offs) - 1, K, N)
     assert torch.isfinite(dx).all() and torch.isfinite(dw).all()
@@ -653,10 +868,12 @@ def test_gmm_autograd_on_cuda(cuda):
     a, b = xs.clone().requires_grad_(), w.clone().requires_grad_()
     before = (gg.grouped_matmul.launches, gg.grouped_matmul_dx.launches,
               gg.grouped_matmul_dw.launches)
+    tally = gg.kernel_launches()
     out = gg.grouped_matmul(a, b, offsets)
     out.backward(dy)
     assert (gg.grouped_matmul.launches, gg.grouped_matmul_dx.launches,
             gg.grouped_matmul_dw.launches) == tuple(n + 1 for n in before)
+    assert gmm_launched(gg, tally) == {"fwd_wgmma": 1, "dx_wgmma": 1, "dw_mma": 1}
     pa, pb = xs.clone().requires_grad_(), w.clone().requires_grad_()
     gg.grouped_matmul_reference(pa, pb, offsets).backward(dy)
     assert flash_ratio(a.grad, pa.grad) <= 1
@@ -709,12 +926,19 @@ def test_mixtral_training_on_cuda_runs_the_kernels(cuda):
     counted = (gg.grouped_matmul, gg.grouped_matmul_dx, gg.grouped_matmul_dw)
     for f in counted:
         f.launches = 0
+    tally, flash_tally = gg.kernel_launches(), fa.kernel_launches()
     losses = [float(engine.train_batch(iter([batch] * 2))) for _ in range(3)]
     L, micro = cfg.num_hidden_layers, 6
     assert tuple(f.launches for f in counted) == (6 * L * micro, 3 * L * micro,
                                                   3 * L * micro)
     assert (fa.flash_mha_fwd.launches, fa.flash_mha_bwd_dq.launches,
             fa.flash_mha_bwd_dkv.launches) == (2 * L * micro, L * micro, L * micro)
+    # a micro-batch's 400 expert rows over 4 experts take the wgmma kernels
+    assert gmm_launched(gg, tally) == {"fwd_wgmma": 6 * L * micro, "dx_wgmma": 3 * L * micro,
+                                       "dw_mma": 3 * L * micro}
+    assert {n: c - flash_tally[n] for n, c in fa.kernel_launches().items()
+            if c > flash_tally[n]} == {"fwd_wgmma": 2 * L * micro, "dq_wgmma": L * micro,
+                                       "dkv_wgmma": L * micro}
     assert losses[-1] < losses[0]
 
 
@@ -827,13 +1051,15 @@ def test_gmm_rows_kernels_match_plain(cuda, name, dtype):
     for matmul in (gg.grouped_matmul, gg.grouped_matmul_reference):
         counted = (gg.moe_ffn_gmm_rows, gg.grouped_matmul, gg.grouped_matmul_dx,
                    gg.grouped_matmul_dw)
-        counts = [f.launches for f in counted]
+        counts, tally = [f.launches for f in counted], gg.kernel_launches()
         out, grads = rows_grads(x, ids, w1, w2, w3, dy, matmul)
         counts = [f.launches - c for f, c in zip(counted, counts)]
-        results.append((out, grads, counts))
-    (out, grads, counts), (ref, ref_grads, plain_counts) = results
+        results.append((out, grads, counts, gmm_launched(gg, tally)))
+    (out, grads, counts, kernels), (ref, ref_grads, plain_counts, _) = results
     torch.cuda.synchronize()
     assert counts == [1, 3, 3, 3] and plain_counts == [0, 0, 0, 0]
+    assert kernels == {gmm_kernel("fwd", dtype): 3, gmm_kernel("dx", dtype): 3,
+                       gmm_kernel("dw", dtype): 3}
     assert torch.isfinite(out).all() and not out[ids == E].any()
     assert rows_ratio(out, ref) <= 1
     assert not grads[0][ids == E].any()
