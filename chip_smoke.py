@@ -44,7 +44,10 @@ prints no result.
    dq kernels at head widths 64, 128 and 256 must round p and ds where the
    plain versions do, and p or ds rounded elsewhere must fail the bound; the
    dk/dv kernel must keep p and ds unrounded (its split products read under
-   0.01 of the bound), and p or ds rounded once must fail it tenfold.
+   0.01 of the bound), and p or ds rounded once must fail it tenfold; fp16
+   dk/dv must hold the flash form at dO the size of an unscaled gradient
+   and at one under the default loss scale (max |ds| 64-1000, where the
+   first design's fixed 2^10 ds scale overflows to inf).
    Each case prints the kernels it launched, as the library's launch tally
    (``ds_flash_kernel_launches``) counted them, and fails on another route.
    The backward kernels take the plain forward's lse and delta, so each kernel
@@ -91,7 +94,8 @@ prints no result.
    versions at a training micro-batch of Mixtral-8x7B (4 x 2048 tokens,
    top-2: R=16384) for the w1/w3 and w2 product shapes, 7/8 of the rows in
    one expert, two empty experts (whose dW must be exactly 0), R/K/N off
-   the tiles, R=1 and fp32. Per case and kernel: the error against the
+   the tiles, R=1 and fp32; bf16 dx and dW must launch their `wgmma`
+   kernels (the library's tally). Per case and kernel: the error against the
    forward's bound, a planted shifted group offset that the bound must
    reject, kernel / plain / library (``torch._grouped_mm``) times, and the
    bound: the larger of bytes over 3.35 TB/s and 2 R K N over the peak.
@@ -204,7 +208,10 @@ prints no result.
    on (C 67, 26% of the causal pairs), and BigBird bidirectional at block 64
    (2% of the pairs, C 256 on its global rows); Fixed at blocks 16, 32 and
    128, head widths 64 (batch 2) and 256, a layout per head, a hand-made
-   layout with one empty query block (exactly 0), fp16 and fp32. Per case:
+   layout with one empty query block (exactly 0), fp16 and fp32; bf16 and
+   fp16 at blocks 64 and 128 must launch the `wgmma` kernel (the library's
+   tally) and round p where the plain version does on a rounding probe,
+   the rest the route the source declares. Per case:
    the error against the bound stated below, a planted fault (one cols entry
    of the plain version moved by one block) that the bound must reject,
    kernel / plain / library (``scaled_dot_product_attention`` with the
@@ -897,7 +904,7 @@ def check_dkv_small_gradients():
     """dk/dv with dO the size of an unscaled gradient (N(0, 1) x
     DKV_SMALL_GRAD) must launch the tensor-core kernel and hold the flash
     form with no slack, in bf16 and fp16. fp16's ds is split times 2^10
-    (ds_split_scale in csrc/flash_attention.cu): split as is, its hi part is
+    (kDsExp0 in csrc/flash_attention.cu): split as is, its hi part is
     subnormal and lo carries nothing, and that arithmetic
     (tests/flash_rounding.py ``dkv_split_product`` with ds_scale 1, run
     here in plain PyTorch) must fail the bound on the same inputs."""
@@ -942,6 +949,65 @@ def check_dkv_small_gradients():
     return results
 
 
+# dO the size of a gradient under fp16's default loss scale (2^16 times
+# about 4e-3): N(0, 1) times this puts max |ds| between 64 and 1000
+DKV_LARGE_DS_GRAD = 2.0 ** 8
+
+
+def check_dkv_large_ds():
+    """fp16 dk/dv with max |ds| between 64 and 1000 and a finite plain dK
+    (B 2, T 1024, 32 heads of 64 and of 128, causal): the tensor-core kernel
+    must launch and give finite dK and dV within the flash form with no
+    slack. Split times the fixed 2^10 of the first tensor-core design
+    (tests/flash_rounding.py ``dkv_split_product`` with ds_scale 2^10, in
+    plain PyTorch), ds_hi overflows and dK must read inf on the same
+    inputs: the kernel lowers each key row's scale where its ds needs it."""
+    import torch
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    import flash_rounding as fr
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    results, failures = [], []
+    for dh in (64, 128):
+        case = (f"large_ds_fp16_d{dh}", 2, 1024, 1024, 32, 32, dh, "float16", {})
+        (q, k, v, dout), kw = make_flash_case(case, gen)
+        dout = (dout.float() * DKV_LARGE_DS_GRAD).to(dout.dtype)
+        out, lse = fa.flash_mha_fwd_reference(q, k, v, **kw)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, dout, lse, delta)
+        want = fa.flash_mha_bwd_dkv_reference(*args, **kw)
+        tally = fa.kernel_launches()
+        got = fa.flash_mha_bwd_dkv(*args, **kw)
+        launched = launched_kernels(fa, tally)
+        fixed = fr.dkv_split_product(*args, ds_scale=2.0 ** 10, **kw)
+        ratio = lambda pair: max(flash_ratio(a, b, "float16") for a, b in zip(pair, want))
+        res = dict(name=case[0], shape=f"B=2 Tq=Tk=1024 H=KV=32 Dh={dh} float16 causal, "
+                   f"dO ~ N(0, 1) x {DKV_LARGE_DS_GRAD}", launched=launched,
+                   max_abs_ds=fr.max_abs_ds(*args, **kw),
+                   plain_finite=all(bool(torch.isfinite(a).all()) for a in want),
+                   finite=all(bool(torch.isfinite(a).all()) for a in got),
+                   err_ratio=ratio(got),
+                   fixed_2_10_dk_finite=bool(torch.isfinite(fixed[0]).all()),
+                   tolerance=f"{FLASH_RTOL['float16']} (|plain| + rms(plain))")
+        print(f"dk/dv large ds {json.dumps(res)}", flush=True)
+        if launched != {"dkv_wgmma": 1}:
+            failures.append(f"{case[0]}: launched {launched}, not dkv_wgmma")
+        if not (64 < res["max_abs_ds"] < 1000 and res["plain_finite"]):
+            failures.append(f"{case[0]}: the case is not one of max |ds| in (64, 1000) with a "
+                            f"finite plain dK ({res['max_abs_ds']:.4g})")
+        if not (res["finite"] and res["err_ratio"] <= 1):
+            failures.append(f"{case[0]}: dk/dv disagrees with its plain version "
+                            f"(finite {res['finite']}, {res['err_ratio']:.3g}x the bound)")
+        if res["fixed_2_10_dk_finite"]:
+            failures.append(f"{case[0]}: the fixed 2^10 split does not overflow here")
+        results.append(res)
+        del q, k, v, dout, out, lse, delta, args, want, got, fixed
+    torch.cuda.empty_cache()
+    if failures:
+        fail("; ".join(failures))
+    return results
+
+
 def phase_flash_kernels():
     import torch
     from deepspeed_tpu_torch.ops import flash_attention as fa
@@ -951,6 +1017,7 @@ def phase_flash_kernels():
     check_flash_block_k()
     check_flash_rounding_points()
     check_dkv_small_gradients()
+    check_dkv_large_ds()
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1)
     kernels = dict(zip(FLASH_KERNELS, (fa.flash_mha_fwd, fa.flash_mha_bwd_dq,
@@ -1232,11 +1299,11 @@ GMM_CASES = [
 def gmm_want_kernel(which, dtype):
     """The grouped kernel ``which`` must launch: the route the source
     declares (ds_grouped_route), which must be the wgmma kernel for every
-    bf16 or fp16 forward and dx, a decode round's included."""
+    bf16 or fp16 forward, dx and dW, a decode round's included."""
     import torch
     from deepspeed_tpu_torch.ops import grouped_gemm as gg
     route = gg.kernel_route(which, getattr(torch, dtype))
-    if which != "dw" and dtype != "float32" and route != f"{which}_wgmma":
+    if dtype != "float32" and route != f"{which}_wgmma":
         fail(f"grouped {which} in {dtype} routes to {route}, not {which}_wgmma")
     return route
 
@@ -1897,10 +1964,10 @@ def phase_mixtral_training():
              f"{first} -> {last}")
     if launches != expected:
         fail(f"Mixtral training launches {launches} != expected {expected}")
-    # a micro-batch's 16384 expert rows: the wgmma kernels forward and dx
+    # a micro-batch's 16384 expert rows: the wgmma kernels forward, dx and dW
     want_kernels = {"fwd_wgmma": expected["moe_grouped_gemm"],
                     "dx_wgmma": expected["moe_grouped_gemm_dx"],
-                    "dw_mma": expected["moe_grouped_gemm_dw"]}
+                    "dw_wgmma": expected["moe_grouped_gemm_dw"]}
     want_flash = {"fwd_wgmma": expected["flash_mha_fwd"], "dq_wgmma": expected["flash_mha_bwd_dq"],
                   "dkv_wgmma": expected["flash_mha_bwd_dkv"]}
     got = stats["kernels_launched"]
@@ -2705,12 +2772,12 @@ def ep_rank(rank, world, port, out_dir):
                launches=launches, expected_launches=expected, layer_check=layer_stats,
                wire=wire, wire_launches=wire_launches,
                # the receiving shard's 65536 buffer rows over 2 local experts:
-               # the wgmma kernels forward and dx
+               # the wgmma kernels forward, dx and dW
                kernels_launched=[launched_kernels(gg, tallies[0]),
                                  launched_kernels(fa, tallies[1])],
                expected_kernels=[{"fwd_wgmma": expected["moe_grouped_gemm"],
                                   "dx_wgmma": expected["moe_grouped_gemm_dx"],
-                                  "dw_mma": expected["moe_grouped_gemm_dw"]},
+                                  "dw_wgmma": expected["moe_grouped_gemm_dw"]},
                                  {"fwd_wgmma": expected["flash_mha_fwd"],
                                   "dq_wgmma": expected["flash_mha_bwd_dq"],
                                   "dkv_wgmma": expected["flash_mha_bwd_dkv"]}])
@@ -3282,10 +3349,15 @@ def phase_checkpoint():
 # unit in the last place of the element: the paged kernel's bound ATOL +
 # RTOL |plain| read 9.5 on a sound kernel at block 16 (an element of 0.0038,
 # a 64-key row, H100), the flash form 0.54. RTOL |plain| is the output's one
-# rounding; the rms term covers such flips. The planted fault, one cols entry
-# of the plain version moved by one block (a query block reading a key block
-# its layout does not enable), must exceed the bound; the paged form's ratio
-# is reported beside it.
+# rounding; the rms term covers such flips. The tensor-core kernel (bf16 /
+# fp16 at blocks 64 and 128) sums q.k on the tensor cores, a truncating sum
+# further from the plain fp32 one, so its cases add tests/flash_rounding.py
+# ``sparse_flip_slack`` (one spacing of p times |v| / l where p lies that
+# close to a rounding boundary; the flash form alone is reported beside it),
+# and ``check_sparse_rounding_points`` holds its rounding point with no
+# slack. The planted fault, one cols entry of the plain version moved by one
+# block (a query block reading a key block its layout does not enable),
+# must exceed the bound; the paged form's ratio is reported beside it.
 SPARSE_CASES = [
     # name, B, H, S, D, block, dtype, config (name, kwargs), causal
     ("fixed_7b", 1, 32, 16384, 128, 64, "bfloat16",
@@ -3371,12 +3443,63 @@ def sparse_library_ms(q, k, v, layout, block, causal, iters):
     return ms
 
 
+def sparse_want_kernel(dtype, block, dh):
+    """The block-sparse kernel inputs must launch: the route the source
+    declares (ds_sparse_route), which must be the wgmma kernel for bf16 and
+    fp16 at blocks 64 and 128 up to head width 128 (the main path's)."""
+    import torch
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    route = bsa.kernel_route(dtype, block, dh)
+    if dtype != torch.float32 and block in (64, 128) and dh <= 128 and route != "fwd_wgmma":
+        fail(f"block-sparse {dtype} at block {block}, head width {dh} routes to {route}, "
+             f"not fwd_wgmma")
+    return route
+
+
+def check_sparse_rounding_points():
+    """On ``sparse_probe`` (tests/flash_rounding.py) the tensor-core kernel,
+    bf16 and fp16 at blocks 64 and 128 and head width 128, must hold the
+    flash form with no slack (p rounded to v's dtype against the running
+    maximum after each whole layout block), and the plain version with the
+    rounding moved (unrounded, or against the other block size's maxima)
+    must fail it tenfold."""
+    import torch
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    import flash_rounding as fr
+    results, failures = [], []
+    for dtype in ("bfloat16", "float16"):
+        for block in (64, 128):
+            args = fr.sparse_probe(getattr(torch, dtype), 128, block, DEVICE)
+            tally = bsa.kernel_launches()
+            out = bsa.sparse_mha_fwd(*args)
+            routes = launched_kernels(bsa, tally)
+            ref = bsa.sparse_mha_fwd_reference(*args)
+            res = dict(dtype=dtype, block=block, dh=128, launched=routes,
+                       ratio=flash_ratio(out, ref, dtype),
+                       fault_ratios={f: flash_ratio(bad, ref, dtype) for f, bad in
+                                     fr.sparse_rounding_faults(*args).items()})
+            print(f"sparse rounding probe {json.dumps(res)}", flush=True)
+            if routes != {"fwd_wgmma": 1}:
+                failures.append(f"{dtype} block {block}: launched {routes}")
+            if not res["ratio"] <= 1:
+                failures.append(f"{dtype} block {block}: the kernel does not round p where "
+                                f"the plain version does ({res['ratio']:.3g}x the bound)")
+            failures += [f"{dtype} block {block}: the bound does not reject {f} ({r:.3g}x)"
+                         for f, r in res["fault_ratios"].items() if not r > 10]
+            results.append(res)
+    if failures:
+        fail("block-sparse rounding: " + "; ".join(failures))
+    return results
+
+
 def phase_sparse_kernels():
     import numpy as np
     import torch
     from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    import flash_rounding as fr
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 plain version in fp32
     torch.backends.cudnn.allow_tf32 = False
+    check_sparse_rounding_points()
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(17)
     results, failures = [], []
@@ -3390,28 +3513,35 @@ def phase_sparse_kernels():
         q, k, v = (torch.randn(B, H, S, D, generator=gen, device=DEVICE).to(dt)
                    for _ in range(3))
         scale = D ** -0.5
-        before = bsa.sparse_mha_fwd.launches
-        out = bsa.sparse_mha_fwd(q, k, v, cols, counts, block, causal, scale)
+        order = torch.from_numpy(bsa.work_order(counts_np)).to(DEVICE)
+        want = sparse_want_kernel(dt, block, D)
+        before, tally = bsa.sparse_mha_fwd.launches, bsa.kernel_launches()
+        out = bsa.sparse_mha_fwd(q, k, v, cols, counts, block, causal, scale, order)
+        routes = launched_kernels(bsa, tally)
         ref = bsa.sparse_mha_fwd_reference(q, k, v, cols, counts, block, causal, scale)
+        slack = (fr.sparse_flip_slack(q, k, v, cols, counts, block, causal, scale)
+                 if want == "fwd_wgmma" else None)
         bad_np, where = plant_cols_fault(cols_np, counts_np, causal)
         faulty = bsa.sparse_mha_fwd_reference(q, k, v, torch.from_numpy(bad_np).to(DEVICE),
                                               counts, block, causal, scale)
         torch.cuda.synchronize()
         launched = bsa.sparse_mha_fwd.launches - before
         err = (out.float() - ref.float()).abs().max().item()
-        ratio, fault_ratio = flash_ratio(out, ref, dtype), flash_ratio(faulty, ref, dtype)
+        ratio = flash_ratio(out, ref, dtype, slack)
+        ratio_flash_form = flash_ratio(out, ref, dtype)
+        fault_ratio = flash_ratio(faulty, ref, dtype, slack)
         paged_form_ratio = err_ratio(out, ref, dtype)
         finite = bool(torch.isfinite(out).all())
         empty_zero = None
         if name == "empty_row":
             h, iq = SPARSE_EMPTY
             empty_zero = bool((out[:, h, iq * block:(iq + 1) * block] == 0).all())
-        del faulty
+        del faulty, slack
         big = S >= 16384
         ms = time_ms(lambda: bsa.sparse_mha_fwd(q, k, v, cols, counts, block, causal,
-                                                scale), 5 if big else 10)
+                                                scale, order), 5 if big else 10)
         plain_ms = time_ms(lambda: bsa.sparse_mha_fwd_reference(
-            q, k, v, cols, counts, block, causal, scale), 2)
+            q, k, v, cols, counts, block, causal, scale), 1 if big else 2)
         lib_ms = sparse_library_ms(q, k, v, layout, block, causal, 3)
         pairs = visible_pairs(cols_np, counts_np, block, causal) * B
         nbytes = 4 * B * H * S * D * q.element_size() + cols_np.nbytes + counts_np.nbytes
@@ -3419,11 +3549,14 @@ def phase_sparse_kernels():
         ops_ms = 4 * D * pairs / PEAK_FLOPS[dtype] * 1e3
         res = dict(name=name, shape=f"B={B} H={H} S={S} D={D} block={block} {dtype}"
                    f"{' causal' if causal else ''}",
+                   kernel=want, launched=routes,
                    C=int(cols_np.shape[-1]), mean_count=float(counts_np.mean()),
                    density=pairs / (B * H * (S * (S + 1) // 2 if causal else S * S)),
-                   max_abs_err=err, err_ratio=ratio, planted_fault_ratio=fault_ratio,
+                   max_abs_err=err, err_ratio=ratio, err_ratio_flash_form=ratio_flash_form,
+                   planted_fault_ratio=fault_ratio,
                    planted_fault=where, paged_form_err_ratio=paged_form_ratio,
-                   tolerance=f"{FLASH_RTOL[dtype]} (|plain| + rms(plain))",
+                   tolerance=f"{FLASH_RTOL[dtype]} (|plain| + rms(plain))"
+                             + (" + sparse_flip_slack" if want == "fwd_wgmma" else ""),
                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    library="scaled_dot_product_attention with the layout as a bool mask",
                    bound_ms=max(bytes_ms, ops_ms),
@@ -3432,8 +3565,9 @@ def phase_sparse_kernels():
             res["empty_row_exactly_zero"] = empty_zero
         results.append(res)
         print(f"sparse kernel case {json.dumps(res)}", flush=True)
-        if launched != 1:
-            failures.append(f"{name}: the wrapper launched {launched} kernels, not 1")
+        if launched != 1 or routes != {want: 1}:
+            failures.append(f"{name}: the wrapper launched {launched} kernels ({routes}), "
+                            f"not 1 of {want}")
         if not finite:
             failures.append(f"{name}: kernel output is not finite")
         if not ratio <= 1:
@@ -3517,12 +3651,15 @@ def phase_sparse_attention():
     layout = mod.sparsity_config.make_layout(SSA_S)
     dropped = layout.copy()
     dropped[:, 1, 0] = 0
+    want = sparse_want_kernel(torch.bfloat16, SSA_BLOCK, SSA_E // SSA_H)
     with torch.no_grad():
         torch.cuda.synchronize()
+        tally = bsa.kernel_launches()
         t = time.perf_counter()
         kernel_out = mod(x, layout=layout)
         torch.cuda.synchronize()
         module_ms = (time.perf_counter() - t) * 1e3
+        module_routes = launched_kernels(bsa, tally)
         plain_out = mod(x, layout=layout, plain=True)
         control_out = mod(x, layout=dropped, plain=True)
 
@@ -3533,7 +3670,9 @@ def phase_sparse_attention():
     print(f"sparse self-attention: E {SSA_E}, H {SSA_H}, S {SSA_S}, block {SSA_BLOCK}, "
           f"bf16: kernel vs plain relative L2 {err:.4g}, control with block 0 of "
           f"query block 1 dropped {control_err:.4g} (tolerance {SSA_REL_L2_TOLERANCE}); "
-          f"module forward {module_ms:.1f} ms", flush=True)
+          f"module forward {module_ms:.1f} ms, launched {module_routes}", flush=True)
+    if module_routes != {want: 1}:
+        fail(f"sparse self-attention launched {module_routes}, not one {want}")
     if not torch.isfinite(kernel_out).all():
         fail("sparse self-attention output is not finite")
     if not err <= SSA_REL_L2_TOLERANCE:
@@ -3579,6 +3718,7 @@ def phase_sparse_attention():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     bsa.reset_launch_counts()
+    tally = bsa.kernel_launches()
     losses, step_s = [], []
     t_window = time.perf_counter()
     plain_loss = None
@@ -3601,6 +3741,7 @@ def phase_sparse_attention():
             step_s.append(now - t_window)
             t_window = now
     launches = bsa.sparse_mha_fwd.launches
+    routes = launched_kernels(bsa, tally)
     micro_steps = TRAIN_GAS * TRAIN_STEPS
     expected = 2 * SSA_LAYERS * micro_steps          # forward and recompute
     first = float(np.mean(losses[:TRAIN_GAS]))
@@ -3614,7 +3755,8 @@ def phase_sparse_attention():
                  step_wall_s=step_s, mean_step_wall_s=float(np.mean(step_s)),
                  tokens_per_s=TRAIN_GAS * micro * SSA_S / float(np.mean(step_s[1:])),
                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-                 sparse_mha_launches=launches, expected_launches=expected)
+                 sparse_mha_launches=launches, expected_launches=expected,
+                 kernels_launched=routes)
     print(f"sparse training {json.dumps(stats)}", flush=True)
     del engine, model, batches
     gc.collect()
@@ -3626,8 +3768,9 @@ def phase_sparse_attention():
     if not last <= first * (1 - SSA_TRAIN_LOSS_FALL):
         fail(f"sparse training loss did not fall by {SSA_TRAIN_LOSS_FALL:.0%}: "
              f"{first} -> {last}")
-    if launches != expected:
-        fail(f"sparse_mha launched {launches} times, expected {expected}")
+    if launches != expected or routes != {want: expected}:
+        fail(f"sparse_mha launched {launches} times ({routes}), expected {expected} "
+             f"of {want}")
     return launches
 
 
@@ -3911,7 +4054,7 @@ def main():
                                  "bound_by", "library_ms")},
         case=mixed["name"], decode_8x7b={k: decode[k] for k in keys},
         cases=[dict(name=c["name"], **{k: c[k] for k in keys}) for c in gmm_cases]))
-    bwd_keys = ("max_abs_err", "err_ratio", "planted_fault_ratio", "ms", "plain_ms",
+    bwd_keys = ("kernel", "max_abs_err", "err_ratio", "planted_fault_ratio", "ms", "plain_ms",
                 "library_ms", "library", "bound_ms", "bound_by")
     main_bwd = gmm_bwd_cases[0]   # train_w13_8x7b: a training micro-batch's w1/w3
     for kn, line in (("moe_grouped_gemm_dx", 80), ("moe_grouped_gemm_dw", 90)):
@@ -3920,6 +4063,7 @@ def main():
             name=kn, route="cuda", source="deepspeed_tpu_torch/csrc/grouped_gemm.cu",
             replaces=f"jax/experimental/pallas/ops/tpu/megablox/ops.py:{line} "
                      f"(under deepspeed_tpu/moe/sharded_moe.py:435)",
+            kernel=main["kernel"],
             launches=moe_train_launches[kn],
             expert_parallel_launches=ep_launches.get(kn, 0),
             **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -3954,12 +4098,12 @@ def main():
         case=main_qmm["name"],
         cases=[dict(name=c["name"], shape=c["shape"], **{k: c[k] for k in qmm_keys})
                for c in qmm_cases]))
-    sparse_keys = ("shape", "C", "mean_count", "density", "max_abs_err", "err_ratio",
+    sparse_keys = ("shape", "kernel", "C", "mean_count", "density", "max_abs_err", "err_ratio",
                    "planted_fault_ratio", "ms", "plain_ms", "library_ms", "bound_ms",
                    "bound_by")
     main_sparse = sparse_cases[0]  # fixed_7b: the shape of phase 18's main path
     kernels.append(dict(
-        name="block_sparse_attention", route="cuda",
+        name="block_sparse_attention", route="cuda", kernel=main_sparse["kernel"],
         source="deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
         replaces="deepspeed_tpu/ops/pallas/block_sparse_attention.py:136",
         launches=sparse_launches,

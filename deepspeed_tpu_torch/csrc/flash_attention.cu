@@ -83,8 +83,10 @@
 // accumulators in the layout of wgmma's register A operand; dV += p^T.dO and
 // dK += ds^T.Q take p and ds as hi + lo, two 16-bit products each, exact in
 // fp32 (the split carries x to about 2^-16 |x| in bf16, 2^-22 |x| in fp16;
-// fp16 ds is split times 2^10, undone exactly before dK's rounding, so that
-// it stays in fp16's normal range at the size of unscaled gradients).
+// fp16 ds is split times a power of two per key row, 2^10 unless a larger
+// ds needs less, undone exactly before dK's rounding, so that it stays in
+// fp16's normal range at the size of unscaled gradients and under its
+// largest value at loss-scaled ones: kDsExp0).
 // The split costs 12 Dh operations per visible pair against the function's
 // 8 Dh. At head width 256 dK and dV alone would need 256 fp32 registers a
 // thread, so that width keeps the SIMT kernel (the route says so).
@@ -1005,17 +1007,34 @@ __device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_
   lo = hopper::pack2<T>(x0 - h.x, x1 - h.y);
 }
 
-// fp16 ds is split as ds * 2^10 and dK's accumulators are scaled back by
-// 2^-10 before the one rounding (both exact). fp16's 5-bit exponent puts
-// ds under 6.1e-5 (its smallest normal) once dO is the size of an unscaled
-// gradient (1e-3: ds about 1e-6), where hi is subnormal and lo carries
-// nothing: the absolute 2^-25 residual is then a few percent of ds. Scaled,
-// ds from about 1e-7 to 64 splits with both parts normal or lo's residual
-// far under the output's rounding; above 64 hi overflows to inf, which a
-// dynamic loss scaler sees and backs off from, as from any fp16 overflow.
-// bf16 has fp32's exponent range and is split as is.
-template <typename T>
-__device__ constexpr float ds_split_scale() { return std::is_same<T, __half>::value ? 1024.f : 1.f; }
+// fp16 ds is split as ds * 2^e, with one exponent e per dK accumulator row
+// (key), and each row of dK is scaled back by 2^-e before the one rounding
+// (all exact: powers of two). fp16's 5-bit exponent puts ds under 6.1e-5
+// (its smallest normal) once dO is the size of an unscaled gradient (1e-3:
+// ds about 1e-6), where hi is subnormal and lo carries nothing: the
+// absolute 2^-25 residual is then a few percent of ds. So e starts at
+// kDsExp0 = 10, which splits ds from about 1e-7 up with both parts normal or
+// lo's residual far under the output's rounding. A fixed 2^10 would send hi
+// to inf at |ds| >= 64, which a loss-scaled gradient reaches (dO about 65
+// at the default scale 2^16) where the TPU kernel's fp32 ds stays finite.
+// So when a query tile's max |ds| in a row, times 2^e, would reach 2^15
+// (ds_exp_limit), the row's e drops to the largest exponent that keeps it
+// under, and the row's fp32 accumulators are multiplied by the exact power
+// of two, as the online softmax rescales by alpha. e only falls, so every
+// earlier product stays exact. bf16 has fp32's exponent range and is split
+// as is. tests/flash_rounding.py dkv_split_product mirrors this rule.
+constexpr int kDsExp0 = 10;
+
+// 2^e for -126 <= e <= 127, exactly.
+__device__ __forceinline__ float exp2_int(int e) { return __int_as_float((e + 127) << 23); }
+
+// The largest e with m * 2^e < 2^15 for m >= 0 (m * 2^(14 - floor(log2 m))
+// lies in [2^14, 2^15)), at least -100; m = 0 or subnormal gives over
+// kDsExp0, so the row keeps its exponent.
+__device__ __forceinline__ int ds_exp_limit(float m) {
+  const int log2m = static_cast<int>((__float_as_uint(m) >> 23) & 0xff) - 127;
+  return max(14 - log2m, -100);
+}
 
 // to_fragments with the split: the hi and lo register A fragments of the
 // accumulator-layout values x[BQ / 64][32].
@@ -1175,6 +1194,8 @@ __global__ void __launch_bounds__(tc_threads(NC), 1)
   for (int c = 0; c < NDC; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) dk[c][i] = dv[c][i] = 0.f;
+  constexpr bool kScaleDs = std::is_same<T, __half>::value;
+  int ds_exp[2] = {kScaleDs ? kDsExp0 : 0, kScaleDs ? kDsExp0 : 0};   // rows kj[0], kj[1]
 
   hopper::mbar_wait(kv_full, 0);
   for (int it = 0; it < n_items; ++it) {
@@ -1211,9 +1232,36 @@ __global__ void __launch_bounds__(tc_threads(NC), 1)
 #pragma unroll
     for (int n = 0; n < NQ; ++n)
 #pragma unroll
-      for (int i = 0; i < 32; ++i)   // ds^T, fp32, times ds_split_scale
+      for (int i = 0; i < 32; ++i)   // ds^T, fp32
         dp[n][i] = x[n][i] * (dp[n][i] - delta[64 * n + 8 * (i / 4) + 2 * (lane % 4) + i % 2]) *
-                   p.scale * ds_split_scale<T>();
+                   p.scale;
+    if constexpr (kScaleDs) {   // fp16: each row's exponent (see kDsExp0), then ds * 2^e
+      float mx[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], fabsf(dp[n][i]));
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int lim = ds_exp_limit(quad_max(mx[e]));   // the quad holds the row's 64 queries
+        if (lim < ds_exp[e]) {
+          const float f = exp2_int(lim - ds_exp[e]);
+#pragma unroll
+          for (int c = 0; c < NDC; ++c)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              dk[c][4 * j + 2 * e] *= f;
+              dk[c][4 * j + 2 * e + 1] *= f;
+            }
+          ds_exp[e] = lim;
+        }
+      }
+      const float f[2] = {exp2_int(ds_exp[0]), exp2_int(ds_exp[1])};
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dp[n][i] *= f[(i % 4) / 2];
+    }
 
     // dV's products run while ds^T is split
     uint32_t p_hi[BQ / 16][4], p_lo[BQ / 16][4], ds_hi[BQ / 16][4], ds_lo[BQ / 16][4];
@@ -1250,6 +1298,7 @@ __global__ void __launch_bounds__(tc_threads(NC), 1)
   for (int e = 0; e < 2; ++e) {
     if (kj[e] >= p.Tk) continue;
     const long long row = ((static_cast<long long>(b) * p.Tk + kj[e]) * p.KV + kvh) * p.dh;
+    const float unscale = exp2_int(-ds_exp[e]);
 #pragma unroll
     for (int c = 0; c < NDC; ++c)
 #pragma unroll
@@ -1258,7 +1307,7 @@ __global__ void __launch_bounds__(tc_threads(NC), 1)
         for (int u = 0; u < 2; ++u) {
           const int d = 64 * c + 8 * j + 2 * (lane % 4) + u;
           if (d < p.dh) {
-            dk_out[row + d] = from_float<T>(dk[c][4 * j + 2 * e + u] / ds_split_scale<T>());
+            dk_out[row + d] = from_float<T>(dk[c][4 * j + 2 * e + u] * unscale);
             dv_out[row + d] = from_float<T>(dv[c][4 * j + 2 * e + u]);
           }
         }

@@ -32,7 +32,7 @@
 // whose group metadata (which tile belongs to which expert) megablox
 // computes on the host side of the trace, and pads the rows to its 128-row
 // tile. Here blocks run in no order, and nothing reads the group sizes on
-// the host, so no product costs a host sync. Three kernels, chosen in the
+// the host, so no product costs a host sync. The kernels, chosen in the
 // source by product and dtype (grouped_route, exported as ds_grouped_route;
 // ds_grouped_kernel_launches counts what each call launched):
 //   - bf16 / fp16 forward and dx, at every row count: grouped_gemm_wgmma,
@@ -54,22 +54,25 @@
 //     over 8 experts), where a tile computes mostly rows it never stores but
 //     the 4-stage ring keeps every SM streaming its weight columns; its
 //     epilogue stores from registers;
-//   - bf16 dW: grouped_tgmm_mma_kernel, tiles of 128 x 128 outputs, 8 warps
-//     of 64 x 32 on mma.sync m16n8k16, the rows walked in steps of 32
-//     through a 3-stage ring of cp.async copies (rows padded by 16 bytes so
-//     ldmatrix reads hit distinct banks). A grid of K tiles x N tiles x E,
-//     each block contracting its expert's ragged row range (an expert with
-//     no rows stores zeros); a skewed routing makes that expert's blocks
-//     long;
+//   - bf16 dW: grouped_tgmm_wgmma, the same persistent, warp-specialised
+//     shape over output tiles (expert, 128 rows of K, 256 columns of N),
+//     the experts with the most rows first (each block sorts them from
+//     group_offsets), contracting the expert's rows 64 a stage. The rows are
+//     the contraction, so both operands are MN-major: xs through wgmma's
+//     A-transpose bit, dy as the forward's B. A stage that runs past the
+//     expert's last row holds the next expert's rows, which would add into
+//     this expert's sum: the consumers zero those rows of both operands
+//     before their products read them. An expert with no rows stores
+//     zeros;
 //   - fp32: SIMT kernels (64 x 64 tiles, FMAs on CUDA cores): TF32 tensor
 //     cores would round the inputs. The backward takes bf16 and fp32,
 //     megablox's dtypes.
 // Products of two bf16/fp16 values are exact in fp32, so every kernel and
 // its plain version differ only in summation order before the one
-// rounding. Ragged K and N edges read zeros (TMA's fill, or cp.async with
-// src-size 0) and are never stored; K and N must be multiples of 8
-// (16-byte rows). Later work: dW on wgmma with its rows split over blocks,
-// and a TMA store epilogue.
+// rounding. Ragged K and N edges read zeros (TMA's fill) and are never
+// stored; K and N must be multiples of 8 (16-byte rows). Later work: a TMA
+// store epilogue, and dW's rows split over blocks where one expert's tiles
+// are fewer than the SMs.
 
 #include <cuda_runtime.h>
 #include <cuda_fp16.h>
@@ -81,16 +84,7 @@
 
 namespace {
 
-constexpr int kBM = 128;            // rows per block tile
-constexpr int kBN = 128;            // columns per block tile
-constexpr int kBK = 32;             // contraction per pipeline stage
-constexpr int kStages = 3;
-constexpr int kThreads = 256;       // 8 warps: 2 (rows) x 4 (columns)
-// rows padded by 16 bytes (272 bytes): the 8 rows one ldmatrix reads start
-// in 8 different 16-byte bank groups
-constexpr int kPadB = kBN + 8;      // tiles stored [32 of the contraction][128]
-constexpr int kTileCols = kBK * kPadB;
-constexpr int kTgmmSmemBytes = kStages * 2 * kTileCols * 2;
+constexpr int kThreads = 256;       // the SIMT kernels' blocks
 
 // Row tiles are numbered expert by expert: expert e owns ceil(size_e / BM)
 // of them. Finds tile t's expert and row range [row0, row1).
@@ -112,41 +106,11 @@ __device__ __forceinline__ bool find_tile(const int* __restrict__ offsets, int E
   return false;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int bytes = pred ? 16 : 0;  // 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
 template <typename T>
 struct Tc;
 
 template <>
 struct Tc<__nv_bfloat16> {
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
   static __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
     *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
   }
@@ -158,138 +122,6 @@ struct Tc<__half> {
     *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
   }
 };
-
-// Ldmatrix fragment loads for warp tile (wm, wn) at contraction step ks of a
-// stage. A is [16 rows][16] per mma tile (a0..a3: rows 0-7 / 8-15 by
-// contraction 0-7 / 8-15), B [16][8] per tile (b0, b1: contraction 0-7 /
-// 8-15); one x4 load gives two n8 tiles of B.
-//
-// A tile stored [contraction][row] (dW's xs^T): ldmatrix.trans, matrices
-// ordered (rows 0-7, c 0-7), (rows 8-15, c 0-7), (rows 0-7, c 8-15), ...
-__device__ __forceinline__ void load_a_cols(uint32_t (&af)[4][4], const void* tile, int ks,
-                                            int wm, int lane, int elem) {
-  const char* t = static_cast<const char*>(tile);
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-    ldmatrix_x4_trans(af[mi], t + ((ks + (lane & 7) + ((lane >> 4) << 3)) * kPadB +
-                                   wm * 64 + mi * 16 + ((lane >> 3) & 1) * 8) * elem);
-}
-
-// B tile stored [contraction][column] (forward's w[e], dW's dy):
-// ldmatrix.trans; matrices (c 0-7, n 0-7), (c 8-15, n 0-7), (c 0-7, n 8-15), ...
-__device__ __forceinline__ void load_b_cols(uint32_t (&bf)[4][2], const void* tile, int ks,
-                                            int wn, int lane, int elem) {
-  const char* t = static_cast<const char*>(tile);
-#pragma unroll
-  for (int nj = 0; nj < 2; ++nj) {
-    uint32_t r[4];
-    ldmatrix_x4_trans(r, t + ((ks + (lane & 15)) * kPadB + wn * 32 + nj * 16 +
-                              (lane >> 4) * 8) * elem);
-    bf[2 * nj][0] = r[0];
-    bf[2 * nj][1] = r[1];
-    bf[2 * nj + 1][0] = r[2];
-    bf[2 * nj + 1][1] = r[3];
-  }
-}
-
-// Stores warp tile (wm, wn) of a 128 x 128 block tile whose first row is
-// row0 (rows at or past row1 are skipped) and first column n0, into a
-// row-major matrix of ld columns. Accumulator (mi, ni): rows g and g + 8,
-// columns 2 tg and 2 tg + 1 of the 16 x 8 tile; ld % 8 == 0 keeps each pair
-// inside or outside the matrix together.
-template <typename T>
-__device__ __forceinline__ void store_tile(T* __restrict__ out, const float (&acc)[4][4][4],
-                                           int row0, int row1, int n0, int ld, int wm, int wn,
-                                           int lane) {
-  const int g = lane >> 2, tg = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = row0 + wm * 64 + mi * 16 + g + half * 8;
-      if (row >= row1) continue;
-      T* orow = out + static_cast<int64_t>(row) * ld;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn * 32 + ni * 8 + tg * 2;
-        if (col < ld) Tc<T>::store2(orow + col, acc[mi][ni][2 * half], acc[mi][ni][2 * half + 1]);
-      }
-    }
-}
-
-// dW on the tensor cores: block (K tile, N tile, expert) computes
-// out[e][m0 .. +128][n0 .. +128] = xs[rows_e, m-tile]^T @ dy[rows_e, n-tile],
-// walking the expert's rows 32 at a time. Both operands are row-major [R, .]
-// tiles stored [32 rows][128 columns]; an empty expert stores zeros.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-    grouped_tgmm_mma_kernel(const T* __restrict__ xs, const T* __restrict__ dy,
-                            const int* __restrict__ offsets, T* __restrict__ out, int K,
-                            int N) {
-  const int e = blockIdx.z;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int row0 = offsets[e];
-  const int row1 = max(offsets[e + 1], row0);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sA = reinterpret_cast<T*>(smem_raw);  // [kStages][kBK][kPadB]: xs rows
-  T* sB = sA + kStages * kTileCols;        // [kStages][kBK][kPadB]: dy rows
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-
-  auto load_stage = [&](int stage, int kt) {
-    const int r0 = row0 + kt * kBK;
-    T* sa = sA + stage * kTileCols;
-    T* sb = sB + stage * kTileCols;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kThreads;
-      const int r = c >> 4, col = (c & 15) * 8;
-      const int gr = r0 + r;
-      const bool a_ok = gr < row1 && m0 + col < K;
-      cp_async16(sa + r * kPadB + col,
-                 a_ok ? xs + static_cast<int64_t>(gr) * K + m0 + col : xs, a_ok);
-      const bool b_ok = gr < row1 && n0 + col < N;
-      cp_async16(sb + r * kPadB + col,
-                 b_ok ? dy + static_cast<int64_t>(gr) * N + n0 + col : dy, b_ok);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
-
-  const int k_tiles = (row1 - row0 + kBK - 1) / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < k_tiles) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int next = kt + kStages - 1;
-    if (next < k_tiles) load_stage(next % kStages, next);
-    cp_async_commit();
-    const T* sa = sA + (kt % kStages) * kTileCols;
-    const T* sb = sB + (kt % kStages) * kTileCols;
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 16) {
-      uint32_t af[4][4], bf[4][2];
-      load_a_cols(af, sa, ks, wm, lane, sizeof(T));
-      load_b_cols(bf, sb, ks, wn, lane, sizeof(T));
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) Tc<T>::mma(acc[mi][ni], af[mi], bf[ni]);
-    }
-  }
-  store_tile(out + static_cast<int64_t>(e) * K * N, acc, m0, K, n0, N, wm, wn, lane);
-}
 
 // ---------------------------------------------------------------------------
 // bf16 / fp16 forward and dx on wgmma, fed by TMA (warp-specialised,
@@ -337,6 +169,30 @@ __device__ __forceinline__ bool wg_tile(const int* __restrict__ offsets, int E, 
     t -= rt * n_ct;
   }
   return false;
+}
+
+// Stores a consumer warpgroup's 64 x 256 fp32 accumulators, rounded once,
+// into a row-major matrix of ld columns: acc[h][4 j + e] is row r_first +
+// 16 (warp % 4) + lane / 4 + 8 (e / 2), column n0 + 128 h + 8 j + 2 (lane %
+// 4) + e % 2; rows at or past row_end and columns at or past ld are not
+// stored (ld % 8 == 0 keeps each pair inside or outside together).
+template <typename T>
+__device__ __forceinline__ void store_acc(T* __restrict__ out, const float (&acc)[2][64],
+                                          int r_first, int row_end, int n0, int ld, int warp,
+                                          int lane) {
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int row = r_first + 16 * (warp % 4) + lane / 4 + 8 * e2;
+    if (row >= row_end) continue;
+    T* orow = out + static_cast<int64_t>(row) * ld;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = n0 + 128 * h + 8 * j + 2 * (lane % 4);
+        if (col < ld) Tc<T>::store2(orow + col, acc[h][4 * j + 2 * e2], acc[h][4 * j + 2 * e2 + 1]);
+      }
+  }
 }
 
 // out [R, Nout] = a [R, Kc] @ op(w[e(r)]) for the rows of every expert,
@@ -438,21 +294,178 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     hopper::fence_regs(acc[1]);
     if (k_iters > 0) hopper::mbar_arrive(&empty[(it - 1) % kWgStages]);
 
-    // acc[h][4 j + e]: row 16 (warp % 4) + lane / 4 + 8 (e / 2) of the
-    // warpgroup's 64, column 128 h + 8 j + 2 (lane % 4) + e % 2
+    store_acc(out, acc, tile.row0 + 64 * wg, tile.row1, tile.n0, Nout, warp, lane);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dW on wgmma, fed by TMA (the same persistent, warp-specialised shape)
+// ---------------------------------------------------------------------------
+
+struct DwTile {
+  int expert, row0, row1, m0, n0;
+};
+
+// Tile t of the dW launch: every expert owns n_mt x n_nt output tiles of
+// 128 rows (of K) x 256 columns (of N), whatever its row count; the experts
+// are taken in `order` (most rows first), and an expert's tiles in groups of
+// kWgGroupRows row tiles, column tile by column tile within a group, so that
+// the tiles in flight share a few column blocks of xs and dy in L2. False
+// past the last tile.
+__device__ __forceinline__ bool dw_tile(const int* __restrict__ offsets,
+                                        const int* __restrict__ order, int E, int n_mt, int n_nt,
+                                        int t, DwTile& tile) {
+  const int per_expert = n_mt * n_nt;
+  const int pos = t / per_expert;
+  if (pos >= E) return false;
+  const int e = order[pos];
+  const int u = t - pos * per_expert;
+  const int group = u / (kWgGroupRows * n_nt);
+  const int first = group * kWgGroupRows;
+  const int rows = min(kWgGroupRows, n_mt - first);
+  const int v = u - group * kWgGroupRows * n_nt;
+  tile.expert = e;
+  tile.row0 = __ldg(offsets + e);
+  tile.row1 = max(__ldg(offsets + e + 1), tile.row0);
+  tile.m0 = (first + v % rows) * kWgBM;
+  tile.n0 = (v / rows) * kWgBN;
+  return true;
+}
+
+// dW[e] [K, N] = xs[rows_e]^T @ dy[rows_e] for every expert, rows_e =
+// [offsets[e], offsets[e + 1]), xs [R, K] and dy [R, N] read through tensor
+// maps ta and tb in boxes of 64 rows x 64 columns. A persistent grid:
+// block i takes tiles i, i + gridDim.x, ... of dw_tile's order, the experts
+// sorted by row count, most first, at the start of the block (a skewed
+// routing's large expert starts first and the small ones fill the tail).
+// The rows are the contraction, so both operands are MN-major: each stage
+// holds 64 rows of xs (two column blocks, the two consumer warpgroups' 64
+// output rows each, read as an MN-major A through the transpose bit) and
+// of dy (four column blocks, an MN-major B as in the forward). A stage
+// starting at row0 + 64 i reads rows past row1 too: the next expert's rows
+// (or TMA's zeros past R, or rows past group_offsets[E] that belong to no
+// expert and may hold anything), which in dW would add into this expert's
+// sum, so the consumer warpgroups write zeros over those rows of both
+// operands (a zero A row alone would still turn an inf or NaN of dy into
+// NaN) before their products read them. An expert with no rows runs no
+// stage and stores zeros.
+template <typename T>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    grouped_tgmm_wgmma(const __grid_constant__ CUtensorMap ta,
+                       const __grid_constant__ CUtensorMap tb, const int* __restrict__ offsets,
+                       T* __restrict__ out, int K, int N, int E) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* stages = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                               ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + kWgStages * kWgStageBytes);
+  uint64_t* empty = full + kWgStages;
+  int* order = reinterpret_cast<int*>(empty + kWgStages);   // [E]: experts, most rows first
+  const int n_mt = (K + kWgBM - 1) / kWgBM, n_nt = (N + kWgBN - 1) / kWgBN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {
+    const int size = max(__ldg(offsets + e + 1) - __ldg(offsets + e), 0);
+    int rank = 0;
+    for (int f = 0; f < E; ++f) {
+      const int sf = max(__ldg(offsets + f + 1) - __ldg(offsets + f), 0);
+      rank += sf > size || (sf == size && f < e);
+    }
+    order[rank] = e;
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2 * 128);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  DwTile tile;
+  if (warp >= 8) {
+    hopper::setmaxnreg_dec<kWgProducerRegs>();
+    if (warp != 8 || lane != 0) return;
+    int it = 0;
+    for (int t = blockIdx.x; dw_tile(offsets, order, E, n_mt, n_nt, t, tile); t += gridDim.x) {
+      const int k_iters = (tile.row1 - tile.row0 + kWgBK - 1) / kWgBK;
+      for (int ks = 0; ks < k_iters; ++ks, ++it) {
+        const int s = it % kWgStages;
+        if (it >= kWgStages) hopper::mbar_wait(&empty[s], (it / kWgStages - 1) & 1);
+        uint8_t* st = stages + s * kWgStageBytes;
+        const int r = tile.row0 + ks * kWgBK;
+        hopper::mbar_arrive_expect_tx(&full[s], kWgStageBytes);
 #pragma unroll
-    for (int e2 = 0; e2 < 2; ++e2) {
-      const int row = tile.row0 + 64 * wg + 16 * (warp % 4) + lane / 4 + 8 * e2;
-      if (row >= tile.row1) continue;
-      T* orow = out + static_cast<int64_t>(row) * Nout;
+        for (int c = 0; c < kWgBM / 64; ++c)
+          hopper::tma_load_2d(st + c * kWgMnBlock, &ta, &full[s], tile.m0 + 64 * c, r);
+#pragma unroll
+        for (int c = 0; c < kWgBN / 64; ++c)
+          hopper::tma_load_2d(st + kWgABytes + c * kWgMnBlock, &tb, &full[s], tile.n0 + 64 * c, r);
+      }
+    }
+    return;
+  }
+  hopper::setmaxnreg_inc<kWgConsumerRegs>();
+
+  const int wg = warp / 4;
+  float acc[2][64];
+  int it = 0;
+  for (int t = blockIdx.x; dw_tile(offsets, order, E, n_mt, n_nt, t, tile); t += gridDim.x) {
+    const int k_iters = (tile.row1 - tile.row0 + kWgBK - 1) / kWgBK;
+    for (int ks = 0; ks < k_iters; ++ks, ++it) {
+      const int s = it % kWgStages;
+      hopper::mbar_wait(&full[s], (it / kWgStages) & 1);
+      uint8_t* stage = stages + s * kWgStageBytes;
+      uint8_t* a_block = stage + wg * kWgMnBlock;   // [64 rows][64 of K]
+      const int live = tile.row1 - (tile.row0 + ks * kWgBK);
+      if (live < kWgBK) {
+        // the last stage: zero the rows of the next expert (or past R) in
+        // both operands, this warpgroup's A block and two of the four B
+        // blocks (0 x inf would still be NaN), before either warpgroup's
+        // products read them
+        uint8_t* b_blocks = stage + kWgABytes + 2 * wg * kWgMnBlock;
+        uint8_t* mine[3] = {a_block, b_blocks, b_blocks + kWgMnBlock};
+#pragma unroll
+        for (int blk = 0; blk < 3; ++blk) {
+          uint4* rows = reinterpret_cast<uint4*>(mine[blk]);
+          for (int i = live * 8 + threadIdx.x % 128; i < kWgBK * 8; i += 128)
+            rows[i] = make_uint4(0, 0, 0, 0);
+        }
+        hopper::fence_proxy_async();
+        hopper::named_barrier_sync(1, 256);   // both consumer warpgroups
+      }
+      const uint32_t a_rows = hopper::smem_u32(a_block);
+      const uint32_t b_tile = hopper::smem_u32(stage + kWgABytes);
+      hopper::fence_regs(acc[0]);
+      hopper::fence_regs(acc[1]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk) {
+        const uint64_t da = hopper::desc_sw128(a_rows + kk * 16 * 128);   // 16 rows a k-step
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          hopper::wgmma_ss_n128<T, true, true>(
+              acc[h], da, hopper::desc_sw128(b_tile + 2 * h * kWgMnBlock + kk * 16 * 128, kWgMnBlock),
+              ks > 0 || kk > 0);
+      }
+      hopper::wgmma_commit();
+      if (ks > 0) {   // the previous stage's products are done: release it
+        hopper::wgmma_wait<1>();
+        hopper::mbar_arrive(&empty[(it - 1) % kWgStages]);
+      }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc[0]);
+    hopper::fence_regs(acc[1]);
+    if (k_iters > 0) {
+      hopper::mbar_arrive(&empty[(it - 1) % kWgStages]);
+    } else {   // an expert with no rows: dW is zero
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int col = tile.n0 + 128 * h + 8 * j + 2 * (lane % 4);
-          if (col < Nout) Tc<T>::store2(orow + col, acc[h][4 * j + 2 * e2], acc[h][4 * j + 2 * e2 + 1]);
-        }
+        for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
     }
+    store_acc(out + static_cast<int64_t>(tile.expert) * K * N, acc, tile.m0 + 64 * wg, K,
+              tile.n0, N, warp, lane);
   }
 }
 
@@ -619,6 +632,39 @@ cudaError_t launch_grouped_wgmma(const void* a, const void* w, const void* offse
   return cudaGetLastError();
 }
 
+// The dW kernel: tensor maps of xs [R, K] and dy [R, N] (boxes of 64
+// columns x 64 rows), the experts' order in shared memory after the ring,
+// then a persistent grid of at most one block per SM.
+template <typename T>
+cudaError_t launch_tgmm_wgmma(const void* xs, const void* dy, const void* offsets, void* out,
+                              int R, int K, int N, int E, cudaStream_t stream) {
+  constexpr bool f16 = std::is_same<T, __half>::value;
+  using u64 = cuuint64_t;
+  const u64 a_dims[2] = {static_cast<u64>(K), static_cast<u64>(R)};
+  const u64 a_strides[1] = {static_cast<u64>(K) * 2};
+  const u64 b_dims[2] = {static_cast<u64>(N), static_cast<u64>(R)};
+  const u64 b_strides[1] = {static_cast<u64>(N) * 2};
+  const cuuint32_t box[2] = {64, kWgBK};
+  CUtensorMap ta, tb;
+  if (!hopper::make_map(&ta, xs, f16, 2, a_dims, a_strides, box) ||
+      !hopper::make_map(&tb, dy, f16, 2, b_dims, b_strides, box))
+    return cudaErrorInvalidValue;
+  const int smem = kWgSmemBytes + 4 * E;
+  auto kernel = grouped_tgmm_wgmma<T>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long long tiles = static_cast<long long>(E) * ((K + kWgBM - 1) / kWgBM) *
+                          ((N + kWgBN - 1) / kWgBN);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  kernel<<<grid, kWgThreads, smem, stream>>>(ta, tb, static_cast<const int*>(offsets),
+                                             static_cast<T*>(out), K, N, E);
+  return cudaGetLastError();
+}
+
 template <bool kTransB>
 cudaError_t launch_grouped_fp32(const void* a, const void* w, const void* offsets, void* out,
                                 int R, int Kc, int Nout, int E, cudaStream_t stream) {
@@ -634,18 +680,17 @@ bool bad_dims(int R, int K, int N, int E) {
 }
 
 // The kernels, in the order of the launch tally (ds_grouped_kernel_launches).
-enum Kernel { kFwdSimt, kFwdWgmma, kDxSimt, kDxWgmma, kDwSimt, kDwMma, kNumKernels };
+enum Kernel { kFwdSimt, kFwdWgmma, kDxSimt, kDxWgmma, kDwSimt, kDwWgmma, kNumKernels };
 long long g_launches[kNumKernels] = {};
 
 // The kernel that `which` (0 forward, 1 dx, 2 dW) launches for dtype code
 // `dtype` (0 fp32, 1 fp16, 2 bf16); -1 for a dtype the product does not take
-// (the backward takes fp32 and bf16). bf16 / fp16 forward and dx take the
-// wgmma kernel at every row count, a decode round's included (see the
-// header).
+// (the backward takes fp32 and bf16). bf16 / fp16 take the wgmma kernels
+// (forward and dx at every row count, a decode round's included), fp32 the
+// SIMT ones (see the header).
 int grouped_route(int which, int dtype) {
   if (which < 0 || which > 2 || dtype < 0 || dtype > 2 || (which > 0 && dtype == 1)) return -1;
-  if (which == 2) return dtype == 0 ? kDwSimt : kDwMma;
-  return (which == 0 ? kFwdSimt : kDxSimt) + (dtype == 0 ? 0 : 1);
+  return (which == 0 ? kFwdSimt : which == 1 ? kDxSimt : kDwSimt) + (dtype == 0 ? 0 : 1);
 }
 
 // Launches the row-grouped product (forward: kTransB false; dx: true) on the
@@ -703,36 +748,25 @@ extern "C" int ds_grouped_matmul_dw(const void* xs, const void* dy, const void* 
                                     void* stream) {
   if (bad_dims(R, K, N, E)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int k = grouped_route(2, dtype);
   cudaError_t err;
-  switch (dtype) {
-    case 0: {
-      const dim3 grid((K + kSimtBM - 1) / kSimtBM, (N + kSimtBN - 1) / kSimtBN, E);
-      grouped_tgmm_fp32_kernel<<<grid, kThreads, 0, s>>>(
-          static_cast<const float*>(xs), static_cast<const float*>(dy),
-          static_cast<const int*>(group_offsets), static_cast<float*>(out), K, N);
-      err = cudaGetLastError();
-      break;
-    }
-    case 2: {
-      err = cudaFuncSetAttribute(grouped_tgmm_mma_kernel<__nv_bfloat16>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kTgmmSmemBytes);
-      if (err != cudaSuccess) break;
-      const dim3 grid((K + kBM - 1) / kBM, (N + kBN - 1) / kBN, E);
-      grouped_tgmm_mma_kernel<__nv_bfloat16><<<grid, kThreads, kTgmmSmemBytes, s>>>(
-          static_cast<const __nv_bfloat16*>(xs), static_cast<const __nv_bfloat16*>(dy),
-          static_cast<const int*>(group_offsets), static_cast<__nv_bfloat16*>(out), K, N);
-      err = cudaGetLastError();
-      break;
-    }
-    default:
-      err = cudaErrorInvalidValue;
+  if (k == kDwSimt) {
+    const dim3 grid((K + kSimtBM - 1) / kSimtBM, (N + kSimtBN - 1) / kSimtBN, E);
+    grouped_tgmm_fp32_kernel<<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(xs), static_cast<const float*>(dy),
+        static_cast<const int*>(group_offsets), static_cast<float*>(out), K, N);
+    err = cudaGetLastError();
+  } else if (k == kDwWgmma) {   // bf16 only
+    err = launch_tgmm_wgmma<__nv_bfloat16>(xs, dy, group_offsets, out, R, K, N, E, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (err == cudaSuccess) ++g_launches[grouped_route(2, dtype)];
+  if (err == cudaSuccess) ++g_launches[k];
   return static_cast<int>(err);
 }
 
 // The kernel (index into the launch tally's order: forward SIMT, wgmma; dx
-// SIMT, wgmma; dW SIMT, mma.sync) that `which` (0 forward, 1 dx, 2 dW)
+// SIMT, wgmma; dW SIMT, wgmma) that `which` (0 forward, 1 dx, 2 dW)
 // launches for dtype code `dtype`; -1 where the product does not take that
 // dtype.
 extern "C" int ds_grouped_route(int which, int dtype) { return grouped_route(which, dtype); }

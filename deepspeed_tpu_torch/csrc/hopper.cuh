@@ -145,6 +145,17 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo = 16)
          (static_cast<uint64_t>(1) << 62);                      // 128-byte swizzle
 }
 
+// Makes this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma operand reads, TMA), ahead of a barrier that orders them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads of the CTA.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -243,28 +254,30 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32], const uint32_t (&a)[
       "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),    \
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
 
-// d[64 x 128] (+)= A[64 x 16] . B[16 x 128], A K-major in shared memory, B
-// K-major (kMnB false) or MN-major (kMnB true: read through the transpose
-// bit, its two 64-column blocks `lbo` bytes apart in the descriptor). The
+// d[64 x 128] (+)= A[64 x 16] . B[16 x 128] from shared memory. B K-major
+// (kMnB false) or MN-major (kMnB true: read through the transpose bit, its
+// two 64-column blocks `lbo` bytes apart in the descriptor); A K-major, or
+// MN-major with kMnA (64 rows of M in one 128-byte row per k, a k-step of
+// 16 rows 2048 bytes on, as an MN-major B's column block). The
 // accumulator layout is wgmma_ss's with j running to 15.
-template <typename T, bool kMnB>
+template <typename T, bool kMnB, bool kMnA = false>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
                                               int accumulate) {
-  constexpr int tb = kMnB ? 1 : 0;
+  constexpr int ta = kMnA ? 1 : 0, tb = kMnB ? 1 : 0;
   if constexpr (std::is_same<T, __half>::value) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " HOPPER_D64
-        ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+        ", %64, %65, p, 1, 1, %67, %68;\n}\n"
         : HOPPER_ACC64(d)
-        : "l"(a), "l"(b), "r"(accumulate), "n"(tb));
+        : "l"(a), "l"(b), "r"(accumulate), "n"(ta), "n"(tb));
   } else {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
-        ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+        ", %64, %65, p, 1, 1, %67, %68;\n}\n"
         : HOPPER_ACC64(d)
-        : "l"(a), "l"(b), "r"(accumulate), "n"(tb));
+        : "l"(a), "l"(b), "r"(accumulate), "n"(ta), "n"(tb));
   }
 }
 
@@ -313,6 +326,22 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled, a driver call, needs a context current on the
+// calling thread. A thread whose CUDA work so far needed none has none: a
+// PyTorch autograd worker for device 0 whose first CUDA call is a launch of
+// this library (PyTorch never sets device 0 there, the runtime's default).
+// The runtime binds the current device's primary context when a call needs
+// it; cudaSetDevice to the device cudaGetDevice names does that, and
+// changes nothing where a context is current. Once per thread.
+inline bool bind_context() {
+  thread_local bool bound = false;
+  if (!bound) {
+    int dev = 0;
+    bound = cudaGetDevice(&dev) == cudaSuccess && cudaSetDevice(dev) == cudaSuccess;
+  }
+  return bound;
+}
+
 // Tensor map of a `rank`-dim 16-bit tensor (dims innermost first, the
 // innermost contiguous; `strides` in bytes for dims 1..rank-1), read in
 // boxes of `box` elements per dim, 128-byte swizzled (box[0] = 64).
@@ -320,7 +349,7 @@ inline EncodeTiledFn encode_tiled() {
 inline bool make_map(CUtensorMap* map, const void* base, bool fp16, int rank,
                      const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
+  if (encode == nullptr || !bind_context()) return false;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   return encode(map, fp16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                 rank, const_cast<void*>(base), dims, strides, box, elem,

@@ -4,12 +4,19 @@
 The [H, nq, nk] 0/1 block layout of a ``SparsityConfig`` is compacted on the
 host into per-(head, query block) lists of enabled key blocks plus counts
 (``compact_layout``, the JAX function). ``sparse_mha_fwd`` computes attention
-over exactly those blocks: on CUDA tensors it launches the hand-written
-Hopper kernel of ``csrc/block_sparse_attention.cu`` (counted in
+over exactly those blocks: on CUDA tensors it launches a hand-written Hopper
+kernel of ``csrc/block_sparse_attention.cu`` (counted in
 ``sparse_mha_fwd.launches``), on CPU tensors it runs the plain version
 ``sparse_mha_fwd_reference``, which repeats the TPU kernel's function in its
 order and at its rounding points. A CUDA tensor never reaches the plain
-version through the wrapper: what the kernel cannot take raises.
+version through the wrapper: what the kernels cannot take raises.
+
+The kernel source chooses each call's kernel (``kernel_route`` reads the
+choice, ``kernel_launches`` counts what each call launched): bf16/fp16 at
+block 64 or 128 and head width up to 128 run the ``wgmma`` kernel fed by
+TMA, a persistent grid over work items taken in descending ``counts`` order
+(``work_order``, computed once per layout beside ``compact_layout``);
+everything else runs the SIMT kernel.
 
 ``sparse_mha`` is the differentiable entry point, a ``torch.autograd.Function``
 whose forward is ``sparse_mha_fwd``. Its backward, like the JAX custom VJP,
@@ -28,7 +35,7 @@ import numpy as np
 import torch
 
 NEG_INF = -1e9
-# key blocks the kernel stages whole (csrc/block_sparse_attention.cu)
+# key blocks the kernels stage whole (csrc/block_sparse_attention.cu)
 MAX_KERNEL_BLOCK = 128
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -78,11 +85,30 @@ def unsupported_reason(q_shape, block, on_cuda):
     return None
 
 
+def work_order(counts):
+    """The tensor-core kernel's order of (head, query block) pairs: h * nq +
+    iq as an int32 numpy array [H * nq], most enabled blocks first (ties in
+    (h, iq) order), so that the rows that visit the most key blocks (a
+    BigBird global row visits all of them) start first and the short ones
+    fill the tail."""
+    counts = np.asarray(counts)
+    return np.argsort(-counts.reshape(-1), kind="stable").astype(np.int32)
+
+
+def work_items(order, B, nq, block):
+    """(b, h, iq, first row) of the tensor-core kernel's work items in launch
+    order, as the source's ``sparse_item`` decodes them: each (h, iq) of
+    ``order`` gives B x block / 64 consecutive items of 64 query rows."""
+    halves = block // 64
+    return [(b, int(hq) // nq, int(hq) % nq, (int(hq) % nq) * block + 64 * half)
+            for hq in order for b in range(B) for half in range(halves)]
+
+
 def _schedule(layout, causal, block, device):
-    """compact_layout's lists as int32 tensors on ``device``."""
+    """compact_layout's lists and work_order's as int32 tensors on
+    ``device``: (cols, counts, order)."""
     cols, counts = compact_layout(layout, causal, block)
-    return (torch.from_numpy(cols).to(device),
-            torch.from_numpy(counts).to(device))
+    return tuple(torch.from_numpy(a).to(device) for a in (cols, counts, work_order(counts)))
 
 
 # ---------------------------------------------------------------------------
@@ -138,7 +164,7 @@ def sparse_mha_fwd_reference(q, k, v, cols, counts, block, causal, scale):
 class _SparseParams(ctypes.Structure):
     """Mirror of ``DsSparseParams`` in csrc/block_sparse_attention.cu."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "q", "k", "v", "cols", "counts", "out")]
+        "q", "k", "v", "cols", "counts", "order", "out")]
         + [(n, ctypes.c_longlong) for n in (
             "q_sb", "q_sh", "q_ss", "k_sb", "k_sh", "k_ss", "v_sb", "v_sh",
             "v_ss")]
@@ -156,7 +182,33 @@ def _library():
         lib.ds_block_sparse_fwd.restype = ctypes.c_int
         lib.ds_block_sparse_error_string.argtypes = [ctypes.c_int]
         lib.ds_block_sparse_error_string.restype = ctypes.c_char_p
+        lib.ds_sparse_route.argtypes = [ctypes.c_int] * 3
+        lib.ds_sparse_route.restype = ctypes.c_int
+        lib.ds_sparse_kernel_launches.argtypes = [ctypes.c_int]
+        lib.ds_sparse_kernel_launches.restype = ctypes.c_longlong
     return lib
+
+
+# The kernels in the order of the source's launch tally (enum Kernel).
+KERNELS = ("fwd_simt", "fwd_wgmma")
+
+
+def kernel_route(dtype, block, dh):
+    """The kernel (a name of ``KERNELS``) that inputs of ``dtype``, ``block``
+    and head width ``dh`` launch, as the kernel source decides it
+    (``ds_sparse_route``). Builds the library."""
+    k = _library().ds_sparse_route(_DTYPE_CODES[dtype], int(block), int(dh))
+    if k < 0:
+        raise ValueError(f"no block-sparse kernel takes {dtype} at block {block}, "
+                         f"head width {dh}")
+    return KERNELS[k]
+
+
+def kernel_launches():
+    """{kernel: launches so far} over ``KERNELS``, counted by the library
+    where it launches each kernel: which kernels the calls went to."""
+    lib = _library()
+    return {name: lib.ds_sparse_kernel_launches(i) for i, name in enumerate(KERNELS)}
 
 
 def _check_inputs(q, k, v, cols, counts, block):
@@ -180,11 +232,15 @@ def _check_inputs(q, k, v, cols, counts, block):
                          f"[{H}, {nq}]")
 
 
-def sparse_mha_fwd(q, k, v, cols, counts, block, causal=False, scale=None):
+def sparse_mha_fwd(q, k, v, cols, counts, block, causal=False, scale=None, order=None):
     """Block-sparse attention forward over compacted lists -> [B, H, S, D].
 
     CUDA tensors launch ``ds_block_sparse_fwd`` (counted in
-    ``sparse_mha_fwd.launches``); CPU tensors run the plain version."""
+    ``sparse_mha_fwd.launches``) on the route's kernel (``kernel_route``);
+    the tensor-core kernel walks ``order`` (``work_order`` of the counts as
+    an int32 tensor on q's device; read from ``counts`` on the host when not
+    given), and inputs TMA cannot read in place are copied into aligned
+    tensors first. CPU tensors run the plain version."""
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"sparse_mha_fwd runs on CUDA or CPU tensors, got {q.device}")
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
@@ -200,11 +256,22 @@ def sparse_mha_fwd(q, k, v, cols, counts, block, causal=False, scale=None):
         if t.device != q.device or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous int32 tensor on {q.device}")
     B, H, S, D = q.shape
-    out = torch.empty(B, H, S, D, dtype=q.dtype, device=q.device)
-    p = _SparseParams(B=B, H=H, S=S, dh=D, block=block, nq=S // block,
+    wgmma = kernel_route(q.dtype, block, D) == "fwd_wgmma"
+    if wgmma:
+        from deepspeed_tpu_torch.ops.flash_attention import _tma_inputs
+        q, k, v = _tma_inputs(q, k, v)
+        if order is None:
+            order = torch.from_numpy(work_order(counts.cpu().numpy())).to(q.device)
+        if order.device != q.device or order.dtype != torch.int32 or \
+                tuple(order.shape) != (H * (S // block),):
+            raise ValueError(f"order must be an int32 [{H * (S // block)}] tensor on {q.device}")
+    dh = q.shape[-1]
+    out = torch.empty(B, H, S, dh, dtype=q.dtype, device=q.device)
+    p = _SparseParams(B=B, H=H, S=S, dh=dh, block=block, nq=S // block,
                       C=cols.shape[-1], causal=int(bool(causal)), scale=scale)
     p.q, p.k, p.v = q.data_ptr(), k.data_ptr(), v.data_ptr()
     p.cols, p.counts, p.out = cols.data_ptr(), counts.data_ptr(), out.data_ptr()
+    p.order = order.data_ptr() if wgmma else None
     p.q_sb, p.q_sh, p.q_ss = q.stride()[:3]
     p.k_sb, p.k_sh, p.k_ss = k.stride()[:3]
     p.v_sb, p.v_sh, p.v_ss = v.stride()[:3]
@@ -215,7 +282,7 @@ def sparse_mha_fwd(q, k, v, cols, counts, block, causal=False, scale=None):
         raise RuntimeError(f"ds_block_sparse_fwd kernel launch failed: "
                            f"{lib.ds_block_sparse_error_string(rc).decode()}")
     sparse_mha_fwd.launches += 1
-    return out
+    return out if dh == D else out[..., :D].contiguous()
 
 
 sparse_mha_fwd.launches = 0
@@ -288,9 +355,11 @@ class _SparseMHA(torch.autograd.Function):
     blockwise function block by block."""
 
     @staticmethod
-    def forward(ctx, q, k, v, cols, counts, block, causal, scale, plain):
-        fwd = sparse_mha_fwd_reference if plain else sparse_mha_fwd
-        out = fwd(q, k, v, cols, counts, block, causal, scale)
+    def forward(ctx, q, k, v, cols, counts, order, block, causal, scale, plain):
+        if plain:
+            out = sparse_mha_fwd_reference(q, k, v, cols, counts, block, causal, scale)
+        else:
+            out = sparse_mha_fwd(q, k, v, cols, counts, block, causal, scale, order)
         ctx.save_for_backward(q, k, v, cols, counts)
         ctx.opts = (block, causal, scale)
         return out
@@ -301,7 +370,7 @@ class _SparseMHA(torch.autograd.Function):
         block, causal, scale = ctx.opts
         dq, dk, dv = _blockwise_grads(q, k, v, g, cols, counts, block, causal,
                                       scale)
-        return dq, dk, dv, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def sparse_mha(q, k, v, layout, block, causal=False, softmax_scale=None,
@@ -319,6 +388,6 @@ def sparse_mha(q, k, v, layout, block, causal=False, softmax_scale=None,
         raise ValueError(f"sparse_mha: {reason}")
     scale = float(softmax_scale if softmax_scale is not None
                   else q.shape[-1] ** -0.5)
-    cols, counts = _schedule(layout, causal, block, q.device)
-    return _SparseMHA.apply(q, k, v, cols, counts, int(block), bool(causal),
+    cols, counts, order = _schedule(layout, causal, block, q.device)
+    return _SparseMHA.apply(q, k, v, cols, counts, order, int(block), bool(causal),
                             scale, bool(plain))

@@ -15,8 +15,9 @@ wrappers: what the kernels cannot take raises.
 
 The kernel source chooses each call's kernel (``kernel_route`` reads the
 choice, ``kernel_launches`` counts what each call launched): bf16/fp16
-forward and dx run the ``wgmma`` kernel fed by TMA at every row count; dW
-runs the ``mma.sync`` kernel; fp32 runs SIMT kernels.
+forward and dx run the ``wgmma`` kernel fed by TMA at every row count, bf16
+dW its ``wgmma`` counterpart (the rows contracted, both operands read
+MN-major); fp32 runs SIMT kernels.
 
 Layouts (the JAX package's): x [T, D]; w1/w3 [E, D, F]; w2 [E, F, D]; the
 router weight [D, E]; top_vals fp32 [T, k]; top_idx int [T, k]. A grouped
@@ -142,7 +143,7 @@ def _library():
 
 
 # The kernels in the order of the source's launch tally (enum Kernel).
-KERNELS = ("fwd_simt", "fwd_wgmma", "dx_simt", "dx_wgmma", "dw_simt", "dw_mma")
+KERNELS = ("fwd_simt", "fwd_wgmma", "dx_simt", "dx_wgmma", "dw_simt", "dw_wgmma")
 _WHICH = {"fwd": 0, "dx": 1, "dw": 2}
 
 

@@ -57,7 +57,8 @@ def _group(name):
     if "nccl" in n:
         return "nccl_collectives"
     # flash_fwd_ / flash_dq_ / flash_dkv_: the wgmma kernels (bf16/fp16) and the
-    # SIMT ones (fp32)
+    # SIMT ones (fp32); grouped_tgmm_: the dW kernels (grouped_tgmm_wgmma,
+    # grouped_tgmm_fp32_kernel), ahead of the forward / dx template's name
     for kernel, group in (("flash_fwd_", "flash_fwd"), ("flash_dq_", "flash_dq"),
                           ("flash_dkv_", "flash_dkv"),
                           ("grouped_tgmm", "grouped_gemm_dw")):

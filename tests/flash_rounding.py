@@ -23,6 +23,10 @@ helpers hold the kernels to those rounding points:
   (the single-pass products of a tensor-core port without the split), and
   ``dkv_split_product`` is the plain dk/dv with the kernel's split products.
 
+The block-sparse forward rounds p to v's dtype against the running maximum
+after each whole layout block; ``sparse_flip_slack``, ``sparse_probe`` and
+``sparse_rounding_faults`` are its counterparts of the forward's helpers.
+
 Imports torch and the port only, not JAX.
 """
 
@@ -130,20 +134,11 @@ def _up_and_down(x, cands, dtype):
     return cands[(f > 0.6) & (f < 0.9)], cands[(f > 0.1) & (f < 0.4)]
 
 
-def fwd_probe(dtype, dh, device, seed=0):
-    """((q, k, v), kwargs) on which out cancels in all but every 8th column
-    unless p rounds where the plain forward rounds it.
-
-    scale 1, q = e_0, k_j = c_j e_0, so s_j = c_j exactly. Key 0 has c = 0,
-    key 64 c = PROBE_STEP, keys 1-62 pairs (a, b): with p rounded against
-    the maximum of the forward's key tile (fwd_block_k: 128 keys see
-    PROBE_STEP, 64 keys see 0) p_a rounds up and p_b down, and v_a = p_b,
-    v_b = -p_a (rounded), so each pair adds exactly 0, in any order (up to
-    the fp32 rescale by exp(m_t - m) where the tile is 64 keys); left
-    unrounded, or rounded against the other tile's maximum, every pair adds
-    a term of the same sign. The other keys have c = -8 and v = 0 there."""
+def _probe_keys(dtype, dh, tile_max, seed):
+    """(c, v) of PROBE_TK probe keys: logits c and values v [PROBE_TK, dh]
+    (see ``fwd_probe``), p rounded against ``tile_max`` (PROBE_STEP where the
+    kernel's rounding tile spans keys 0-127, 0 where it spans 0-63)."""
     gen = torch.Generator().manual_seed(seed)
-    tile_max = PROBE_STEP if fa.fwd_block_k(dtype, dh) == 128 else 0.0
     other_max = PROBE_STEP - tile_max
     eps = torch.finfo(dtype).eps
     rnd = lambda x: x.to(dtype).float()
@@ -163,6 +158,23 @@ def fwd_probe(dtype, dh, device, seed=0):
             v[j], v[j + 1] = pb, -pa
             j += 2
     v[:, ::8] = PROBE_V
+    return c, v
+
+
+def fwd_probe(dtype, dh, device, seed=0):
+    """((q, k, v), kwargs) on which out cancels in all but every 8th column
+    unless p rounds where the plain forward rounds it.
+
+    scale 1, q = e_0, k_j = c_j e_0, so s_j = c_j exactly. Key 0 has c = 0,
+    key 64 c = PROBE_STEP, keys 1-62 pairs (a, b): with p rounded against
+    the maximum of the forward's key tile (fwd_block_k: 128 keys see
+    PROBE_STEP, 64 keys see 0) p_a rounds up and p_b down, and v_a = p_b,
+    v_b = -p_a (rounded), so each pair adds exactly 0, in any order (up to
+    the fp32 rescale by exp(m_t - m) where the tile is 64 keys); left
+    unrounded, or rounded against the other tile's maximum, every pair adds
+    a term of the same sign. The other keys have c = -8 and v = 0 there."""
+    tile_max = PROBE_STEP if fa.fwd_block_k(dtype, dh) == 128 else 0.0
+    c, v = _probe_keys(dtype, dh, tile_max, seed)
     q = torch.zeros(1, PROBE_TQ, PROBE_H, dh)
     q[..., 0] = 1
     k = torch.zeros(1, PROBE_TK, 1, dh)
@@ -295,24 +307,59 @@ def _dkv_with(q, k, v, dout, lse, delta, p_as, ds_as, bias=None, segment_ids=Non
     return dk, dv
 
 
-# What the dk/dv kernel multiplies ds by before its split and divides dK by
-# before the one rounding (ds_split_scale in csrc/flash_attention.cu): fp16
-# keeps ds of unscaled gradients (about 1e-6) in its normal range.
-DS_SPLIT_SCALE = {torch.bfloat16: 1.0, torch.float16: 2.0 ** 10}
+# The dk/dv kernel's fp16 ds scale (kDsExp0 and ds_exp_limit in
+# csrc/flash_attention.cu): ds is split times 2^e, one e per key row of dK,
+# starting at DS_EXP0 (ds of unscaled gradients, about 1e-6, in fp16's normal
+# range) and lowered, query tile by query tile, to the largest e that keeps
+# the tile's max |ds| in the row times 2^e under 2^DS_EXP_CAP (hi finite);
+# dK is scaled back exactly before its rounding. bf16 is split as is.
+DS_EXP0, DS_EXP_CAP, DS_EXP_MIN = 10, 15, -100
+DKV_QUERY_TILE = 64      # queries per item of the kernel's ring (BQ)
+
+
+def ds_split_exponents(ds, kv_heads):
+    """The kernel's exponent e for every entry of fp32 ds [H, Tq, Tk] (one
+    batch row): per key and kv head, the running minimum over the kernel's
+    items, query head of the group by query head, each in query tiles of
+    DKV_QUERY_TILE, of DS_EXP0 and DS_EXP_CAP - 1 - floor(log2 max |ds|)
+    over the tile's queries."""
+    H, Tq, Tk = ds.shape
+    nt = -(-Tq // DKV_QUERY_TILE)
+    a = torch.nn.functional.pad(ds.abs(), (0, 0, 0, nt * DKV_QUERY_TILE - Tq))
+    m = a.view(kv_heads, H // kv_heads, nt, DKV_QUERY_TILE, Tk).amax(3)
+    log2m = torch.frexp(m).exponent - 1
+    lim = torch.where(m > 0, (DS_EXP_CAP - 1 - log2m).clamp(min=DS_EXP_MIN), DS_EXP0)
+    e = torch.cummin(lim.clamp(max=DS_EXP0).flatten(1, 2), dim=1).values
+    e = e.view(kv_heads, H // kv_heads, nt, 1, Tk).expand(-1, -1, -1, DKV_QUERY_TILE, -1)
+    return e.reshape(H, nt * DKV_QUERY_TILE, Tk)[:, :Tq]
 
 
 def dkv_split_product(q, k, v, dout, lse, delta, ds_scale=None, **kw):
     """(dk, dv) by the tensor-core kernel's arithmetic: p and ds split into
     hi = round(x) and lo = round(x - hi) in q's dtype, and hi and lo each
-    multiplied (exactly, in fp32) with dO and Q; ds split times ``ds_scale``
-    (default the kernel's, ``DS_SPLIT_SCALE``), a power of two undone
-    exactly after the product."""
-    scale = DS_SPLIT_SCALE[q.dtype] if ds_scale is None else ds_scale
+    multiplied (exactly, in fp32) with dO and Q; fp16 ds split times 2^e by
+    the kernel's rule (``ds_split_exponents``), or times ``ds_scale`` where
+    given, a power of two undone exactly after the product."""
 
     def split(x, s=1.0):
         hi = (x * s).to(q.dtype).float()
         return (hi + (x * s - hi).to(q.dtype).float()) / s
-    return _dkv_with(q, k, v, dout, lse, delta, split, lambda x: split(x, scale), **kw)
+
+    def split_ds(ds):
+        if ds_scale is not None:
+            return split(ds, ds_scale)
+        if q.dtype != torch.float16:
+            return split(ds)
+        return split(ds, torch.exp2(ds_split_exponents(ds, k.shape[2]).float()))
+    return _dkv_with(q, k, v, dout, lse, delta, split, split_ds, **kw)
+
+
+def max_abs_ds(q, k, v, dout, lse, delta, **kw):
+    """max |ds| of the plain dk/dv, ds = p (dp - delta) scale in fp32."""
+    seen = []
+    _dkv_with(q, k, v, dout, lse, delta, lambda p: p,
+              lambda ds: seen.append(ds.abs().max()) or ds, **kw)
+    return max(seen).item()
 
 
 def dkv_rounding_faults(q, k, v, dout, lse, delta, **kw):
@@ -323,3 +370,105 @@ def dkv_rounding_faults(q, k, v, dout, lse, delta, **kw):
     keep = lambda x: x
     return {"p_rounded_once": _dkv_with(q, k, v, dout, lse, delta, once, keep, **kw),
             "ds_rounded_once": _dkv_with(q, k, v, dout, lse, delta, keep, once, **kw)}
+
+
+# ---------------------------------------------------------------------------
+# block-sparse forward (ops/block_sparse_attention.py)
+# ---------------------------------------------------------------------------
+#
+# The block-sparse kernels round p to v's dtype against the running maximum
+# after each whole layout block, as the TPU kernel does.
+
+
+def sparse_probe(dtype, dh, block, device, seed=0):
+    """(q, k, v, cols, counts, block, causal, scale) on which every output
+    row cancels in all but every 8th column unless p rounds where the plain
+    version rounds it: ``fwd_probe``'s keys with every query block enabling
+    every key block (non-causal, scale 1) over PROBE_TK positions, so the
+    first rounding tile is the first layout block (keys 0-63 at block 64,
+    whose maximum is 0; 0-127 at block 128, whose maximum is PROBE_STEP)."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    c, v = _probe_keys(dtype, dh, PROBE_STEP if block == 128 else 0.0, seed)
+    S, H = PROBE_TK, PROBE_H
+    q = torch.zeros(1, H, S, dh)
+    q[..., 0] = 1
+    k = torch.zeros(1, H, S, dh)
+    k[..., 0] = c
+    v = v[None, None].expand(1, H, S, dh).contiguous()
+    cols, counts = bsa.compact_layout(torch.ones(H, S // block, S // block).numpy(),
+                                      False, block)
+    return (*(t.to(dtype).to(device) for t in (q, k, v)),
+            torch.from_numpy(cols).to(device), torch.from_numpy(counts).to(device),
+            block, False, 1.0)
+
+
+def sparse_rounding_faults(q, k, v, cols, counts, block, causal, scale):
+    """{fault: out} of the plain block-sparse forward with p rounded
+    elsewhere: not at all (v read as fp32), or against the running maximum
+    of the other block size's tiles (128 keys where the layout's block is
+    64, 64 where it is 128). Needs a layout that enables every block, as
+    ``sparse_probe``'s does, so that the other block size computes the same
+    function."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    other = 128 if block == 64 else 64
+    nq = q.shape[2] // other
+    ocols, ocounts = bsa.compact_layout(torch.ones(q.shape[1], nq, nq).numpy(), causal, other)
+    to = lambda a: torch.from_numpy(a).to(q.device)
+    return {"p_unrounded": bsa.sparse_mha_fwd_reference(q, k, v.float(), cols, counts, block,
+                                                        causal, scale).to(q.dtype),
+            f"p_on_{other}_key_tiles": bsa.sparse_mha_fwd_reference(
+                q, k, v, to(ocols), to(ocounts), other, causal, scale)}
+
+
+def sparse_flip_slack(q, k, v, cols, counts, block, causal, scale):
+    """fp32 [B, H, S, D]: how far the tensor-core block-sparse kernel's
+    output may lie from the plain version's because a rounding of p went the
+    other way (``flip_slack``'s terms, slot by slot of the compacted lists):
+    a logit differs by at most 3 D u scale sum_d |q_d k_d| + 4 u |s|, the
+    block's maximum likewise, and exp by 2^-21 + 4 u |x|; a p whose plain
+    fp32 value lies that close to a rounding boundary of v's dtype may move
+    the output by one spacing times |v| exp(m_j - m) / l, with m_j the
+    running maximum after its block and m, l the row's final ones."""
+    from deepspeed_tpu_torch.ops.block_sparse_attention import NEG_INF
+    B, H, S, D = q.shape
+    nq, C = S // block, cols.shape[-1]
+    cols = cols.to(device=q.device, dtype=torch.long)
+    counts = counts.to(device=q.device, dtype=torch.long)
+    qb = q.reshape(B, H, nq, block, D).float()
+    kb, vb = (t.reshape(B, H, nq, block, D) for t in (k, v))
+    heads = torch.arange(H, device=q.device)[:, None]
+    offs = torch.arange(block, device=q.device)
+    qpos = (torch.arange(nq, device=q.device)[:, None] * block + offs)[None, :, :, None]
+
+    def slot(j):
+        idx = cols[:, :, j]
+        kj = kb[:, heads, idx].float()
+        s = torch.einsum("bhnqd,bhnkd->bhnqk", qb, kj) * scale
+        tol = 3 * D * U32 * scale * torch.einsum("bhnqd,bhnkd->bhnqk", qb.abs(), kj.abs())
+        if causal:
+            kpos = (idx[..., None] * block + offs)[:, :, None, :]
+            seen = qpos >= kpos
+            s = torch.where(seen, s, NEG_INF)
+            tol = torch.where(seen, tol + 4 * U32 * s.abs(), 0.0)
+        else:
+            tol = tol + 4 * U32 * s.abs()
+        return s, tol, (j < counts)[None, :, :, None, None], idx
+
+    # one pass in the online softmax's form: slack carried against the
+    # running maximum and rescaled by alpha as it moves, divided by the
+    # final l at the end
+    m = torch.full((B, H, nq, block, 1), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    slack = torch.zeros(B, H, nq, block, D, device=q.device)
+    for j in range(C):
+        s, tol, live, idx = slot(j)
+        m_cur = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_cur)
+        p = torch.exp(s - m_cur)
+        rel = tol + tol.amax(-1, keepdim=True) + 2.0 ** -21 + 4 * U32 * (s - m_cur).abs()
+        w = boundary_slack(p, v.dtype, p * rel)
+        sl = slack * alpha + torch.einsum("bhnqk,bhnkd->bhnqd", w, vb[:, heads, idx].float().abs())
+        l_cur = alpha * l + p.sum(-1, keepdim=True)
+        m, l, slack = (torch.where(live, a, b) for a, b in ((m_cur, m), (l_cur, l), (sl, slack)))
+    slack = slack / torch.where(l == 0, 1.0, l)
+    return slack.reshape(B, H, S, D)

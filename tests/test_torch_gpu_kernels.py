@@ -24,7 +24,8 @@ import pytest
 import torch
 from flash_rounding import (dkv_probe, dkv_probe_value, dkv_rounding_faults,
                             dkv_split_product, dq_probe, dq_rounding_faults, flip_slack,
-                            fwd_probe, fwd_rounding_faults)
+                            fwd_probe, fwd_rounding_faults, sparse_flip_slack, sparse_probe,
+                            sparse_rounding_faults)
 
 from deepspeed_tpu_torch.ops.paged_attention import paged_mha, paged_mha_reference
 
@@ -399,18 +400,18 @@ def test_dkv_split_product_holds_flash_form(name, dtype):
 SMALL_GRAD = 1e-3
 
 
-def small_gradient_case(dev, name, dtype):
-    """(q, k, v, dO, lse, delta), kwargs of FLASH_CASES[name] at 512 queries
-    of head width 128, dO scaled by SMALL_GRAD."""
+def small_gradient_case(dev, name, dtype, grad=SMALL_GRAD, B=1, Tq=512, Dh=128, H=2):
+    """(q, k, v, dO, lse, delta), kwargs of FLASH_CASES[name] at ``Tq``
+    queries of head width ``Dh``, dO scaled by ``grad``."""
     from deepspeed_tpu_torch.ops import flash_attention as fa
     spec = dict(FLASH_CASES[name])
     window = spec.pop("window", None)
     causal = spec.pop("causal", True)
-    spec.setdefault("H", 2)
+    spec.setdefault("H", H)
     spec.setdefault("KV", spec["H"])
-    (q, k, v, dout), kw = flash_case(dev, B=1, Tq=512, Dh=128, dtype=dtype, **spec)
+    (q, k, v, dout), kw = flash_case(dev, B=B, Tq=Tq, Dh=Dh, dtype=dtype, **spec)
     kw.update(window=window, causal=causal)
-    dout = (dout.float() * SMALL_GRAD).to(dtype)
+    dout = (dout.float() * grad).to(dtype)
     out, lse = fa.flash_mha_fwd_reference(q, k, v, **kw)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     return (q, k, v, dout, lse, delta), kw
@@ -421,7 +422,7 @@ def small_gradient_case(dev, name, dtype):
 def test_dkv_split_product_holds_flash_form_at_small_gradients(name, dtype):
     """With dO the size of an unscaled gradient the kernel's split arithmetic
     holds the flash form with no slack. In fp16 that needs its ds scale
-    (``DS_SPLIT_SCALE``): split as is, ds_hi is subnormal, ds_lo carries
+    (2^``DS_EXP0``): split as is, ds_hi is subnormal, ds_lo carries
     nothing, and dK fails the bound."""
     from deepspeed_tpu_torch.ops import flash_attention as fa
     args, kw = small_gradient_case(torch.device("cpu"), name, dtype)
@@ -446,6 +447,58 @@ def test_dkv_kernel_holds_flash_form_at_small_gradients(cuda, name, dtype):
     launched = {n: c - tally[n] for n, c in fa.kernel_launches().items() if c > tally[n]}
     assert launched == {f"dkv_{fa.kernel_route('dkv', dtype, 128)}": 1}
     ref = fa.flash_mha_bwd_dkv_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        assert torch.isfinite(a).all()
+        assert flash_ratio(a, r) <= 1
+
+
+# dO ~ N(0, 1) times this is the size of a gradient under fp16's default
+# loss scale (2^16 times about 4e-3): max |ds| between 64 and 1000 (about
+# 130 at 2 heads of 512 queries, 230 at 32 heads of 1024), where a fixed
+# 2^10 split scale sends ds_hi, and with it dK, to inf while the plain
+# fp32-ds dK stays finite
+LARGE_DS_GRAD = 2.0 ** 8
+
+
+def assert_large_ds(args, kw):
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from flash_rounding import max_abs_ds
+    assert 64 < max_abs_ds(*args, **kw) < 1000
+    ref = fa.flash_mha_bwd_dkv_reference(*args, **kw)
+    assert all(torch.isfinite(r).all() for r in ref)
+    return ref
+
+
+@pytest.mark.parametrize("name", ["causal", "gqa"])
+def test_dkv_split_product_holds_flash_form_at_large_ds(name):
+    """fp16 dk/dv with max |ds| over 64: split times the fixed 2^10, ds_hi
+    overflows and dK reads inf; the kernel's rule (an exponent per key row,
+    lowered where a query tile's |ds| needs it) holds the flash form with no
+    slack, and so it still does at small gradients (the test above)."""
+    args, kw = small_gradient_case(torch.device("cpu"), name, torch.float16,
+                                   grad=LARGE_DS_GRAD)
+    ref = assert_large_ds(args, kw)
+    dk, dv = dkv_split_product(*args, **kw)
+    assert flash_ratio(dk, ref[0]) <= 1 and flash_ratio(dv, ref[1]) <= 1
+    fixed_dk, _ = dkv_split_product(*args, ds_scale=2.0 ** 10, **kw)
+    assert not torch.isfinite(fixed_dk).all()
+
+
+@gpu
+@pytest.mark.parametrize("dh", [64, 128])
+def test_dkv_kernel_holds_flash_form_at_large_ds(cuda, dh):
+    """fp16 dk/dv at B 2, T 1024, 32 heads, dO scaled so that max |ds| lies
+    between 64 and 1000: the routed kernel gives finite dK and dV within the
+    flash form with no slack (a fixed 2^10 split scale gave inf)."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    args, kw = small_gradient_case(cuda, "causal", torch.float16, grad=LARGE_DS_GRAD,
+                                   B=2, Tq=1024, Dh=dh, H=32)
+    ref = assert_large_ds(args, kw)
+    tally = fa.kernel_launches()
+    got = fa.flash_mha_bwd_dkv(*args, **kw)
+    launched = {n: c - tally[n] for n, c in fa.kernel_launches().items() if c > tally[n]}
+    assert launched == {f"dkv_{fa.kernel_route('dkv', torch.float16, dh)}": 1}
     torch.cuda.synchronize()
     for a, r in zip(got, ref):
         assert torch.isfinite(a).all()
@@ -500,16 +553,18 @@ class StandInLibrary:
         self.asked = args
         return self.route
 
-    ds_flash_route = ds_grouped_route = _route
+    ds_flash_route = ds_grouped_route = ds_sparse_route = _route
 
     def ds_flash_kernel_launches(self, i):
         return 10 * i
 
-    ds_grouped_kernel_launches = ds_flash_kernel_launches
+    ds_grouped_kernel_launches = ds_sparse_kernel_launches = ds_flash_kernel_launches
 
 
 @pytest.mark.parametrize("module,source", [("flash_attention", "flash_attention.cu"),
-                                           ("grouped_gemm", "grouped_gemm.cu")])
+                                           ("grouped_gemm", "grouped_gemm.cu"),
+                                           ("block_sparse_attention",
+                                            "block_sparse_attention.cu")])
 def test_kernel_tally_names_follow_the_source(module, source):
     """``KERNELS``, the names ``kernel_launches`` gives the library's tally,
     is the source's ``enum Kernel`` in order; the reader maps count i to
@@ -547,6 +602,20 @@ def test_grouped_route_reader_asks_by_dtype_rows_and_experts():
     with mock.patch.object(gg, "_library", lambda: StandInLibrary(-1)):
         with pytest.raises(ValueError, match="dx"):
             gg.kernel_route("dx", torch.float16)
+
+
+def test_sparse_route_reader_asks_by_dtype_block_and_head_width():
+    """``kernel_route`` hands the source (dtype code, block, head width) and
+    returns the kernel it names by index; a refusal (-1) raises."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    for name in bsa.KERNELS:
+        lib = StandInLibrary(bsa.KERNELS.index(name))
+        with mock.patch.object(bsa, "_library", lambda: lib):
+            assert bsa.kernel_route(torch.float16, 64, 96) == name
+        assert lib.asked == (1, 64, 96)
+    with mock.patch.object(bsa, "_library", lambda: StandInLibrary(-1)):
+        with pytest.raises(ValueError, match="block 256"):
+            bsa.kernel_route(torch.bfloat16, 256, 128)
 
 
 @gpu
@@ -668,6 +737,9 @@ GMM_CASES = {
     "r1": (1, 128, 64, [0, 0, 0, 1, 1]),
     "ragged_r_k_n": (77, 200, 72, [0, 13, 40, 41, 77]),
     "wide_n": (129, 64, 264, [0, 129, 129, 129, 129]),
+    # several 64-row stages per expert, each expert ending off a multiple of
+    # 64: dW's last stage of an expert holds the next expert's rows
+    "boundaries_off_64": (700, 192, 512, [0, 65, 65, 383, 700]),
 }
 
 
@@ -679,15 +751,35 @@ def gmm_kernel(which, dtype):
 
 @gpu
 def test_grouped_routes_put_16_bit_products_on_tensor_cores(cuda):
-    """The source routes bf16/fp16 forward and bf16 dx to the wgmma kernel,
-    bf16 dW to the mma.sync kernel, and fp32 to the SIMT kernels."""
+    """The source routes bf16/fp16 forward and bf16 dx and dW to the wgmma
+    kernels, and fp32 to the SIMT kernels."""
     from deepspeed_tpu_torch.ops import grouped_gemm as gg
     routes = {(w, dt): gg.kernel_route(w, dt) for w in ("fwd", "dx", "dw")
               for dt in (torch.float32, torch.bfloat16)}
     assert routes == {("fwd", torch.float32): "fwd_simt", ("fwd", torch.bfloat16): "fwd_wgmma",
                       ("dx", torch.float32): "dx_simt", ("dx", torch.bfloat16): "dx_wgmma",
-                      ("dw", torch.float32): "dw_simt", ("dw", torch.bfloat16): "dw_mma"}
+                      ("dw", torch.float32): "dw_simt", ("dw", torch.bfloat16): "dw_wgmma"}
     assert gg.kernel_route("fwd", torch.float16) == "fwd_wgmma"
+
+
+@pytest.mark.parametrize("name,group", [
+    ("void (anonymous namespace)::grouped_gemm_wgmma<__nv_bfloat16, false>(CUtensorMap_st, "
+     "CUtensorMap_st, int const*, __nv_bfloat16*, int, int, int)", "grouped_gemm_fwd"),
+    ("void (anonymous namespace)::grouped_gemm_wgmma<__nv_bfloat16, true>(CUtensorMap_st, "
+     "CUtensorMap_st, int const*, __nv_bfloat16*, int, int, int)", "grouped_gemm_dx"),
+    ("void (anonymous namespace)::grouped_tgmm_wgmma<__nv_bfloat16>(CUtensorMap_st, "
+     "CUtensorMap_st, int const*, __nv_bfloat16*, int, int, int)", "grouped_gemm_dw"),
+    ("void (anonymous namespace)::grouped_tgmm_fp32_kernel(float const*, float const*, "
+     "int const*, float*, int, int)", "grouped_gemm_dw"),
+    ("void (anonymous namespace)::grouped_gemm_fp32_kernel<true>(float const*, float const*, "
+     "int const*, float*, int, int, int)", "grouped_gemm_dx"),
+])
+def test_training_profile_groups_each_grouped_kernel_apart(name, group):
+    """``tools/profile_train.py`` puts each grouped kernel's device time in
+    its own group, the dW kernels under ``grouped_gemm_dw``, by the names the
+    profiler reports."""
+    from deepspeed_tpu_torch.tools.profile_train import _group
+    assert _group(name) == group
 
 
 def gmm_launched(gg, tally):
@@ -873,7 +965,7 @@ def test_gmm_autograd_on_cuda(cuda):
     out.backward(dy)
     assert (gg.grouped_matmul.launches, gg.grouped_matmul_dx.launches,
             gg.grouped_matmul_dw.launches) == tuple(n + 1 for n in before)
-    assert gmm_launched(gg, tally) == {"fwd_wgmma": 1, "dx_wgmma": 1, "dw_mma": 1}
+    assert gmm_launched(gg, tally) == {"fwd_wgmma": 1, "dx_wgmma": 1, "dw_wgmma": 1}
     pa, pb = xs.clone().requires_grad_(), w.clone().requires_grad_()
     gg.grouped_matmul_reference(pa, pb, offsets).backward(dy)
     assert flash_ratio(a.grad, pa.grad) <= 1
@@ -935,7 +1027,7 @@ def test_mixtral_training_on_cuda_runs_the_kernels(cuda):
             fa.flash_mha_bwd_dkv.launches) == (2 * L * micro, L * micro, L * micro)
     # a micro-batch's 400 expert rows over 4 experts take the wgmma kernels
     assert gmm_launched(gg, tally) == {"fwd_wgmma": 6 * L * micro, "dx_wgmma": 3 * L * micro,
-                                       "dw_mma": 3 * L * micro}
+                                       "dw_wgmma": 3 * L * micro}
     assert {n: c - flash_tally[n] for n, c in fa.kernel_launches().items()
             if c > flash_tally[n]} == {"fwd_wgmma": 2 * L * micro, "dq_wgmma": L * micro,
                                        "dkv_wgmma": L * micro}
@@ -1325,8 +1417,11 @@ def test_quantized_engine_on_cuda_runs_the_kernel(cuda):
 # maxima (whole key blocks), but their fp32 logits differ in the last bits,
 # so p flips a rounding now and then; in a row of few keys whose output
 # nearly cancels that exceeds one unit in the element's last place (the
-# paged bound read 9.5 at block 16 on the H100, this one 0.54). The planted
-# fault moves one cols entry of the plain version by one block.
+# paged bound read 9.5 at block 16 on the H100, this one 0.54). The
+# tensor-core kernel's q.k sums differ more (a truncating sum), so its
+# cases add ``sparse_flip_slack``, which admits exactly those flips, and
+# ``sparse_probe`` holds its rounding point with no slack. The planted fault
+# moves one cols entry of the plain version by one block.
 
 SPARSE_CASES = {
     # B, H, S, D, block, dtype, config, kwargs, causal
@@ -1405,25 +1500,151 @@ def test_sparse_bound_rejects_a_moved_block(dtype):
     assert flash_ratio(bad, ref) > 10
 
 
+def sparse_slack(args):
+    """``sparse_flip_slack`` where the route is the tensor-core kernel's,
+    else None (the SIMT kernel sums q.k in fp32 FMAs, held with no slack)."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    q, block = args[0], args[5]
+    if bsa.kernel_route(q.dtype, block, q.shape[-1]) != "fwd_wgmma":
+        return None
+    return sparse_flip_slack(*args)
+
+
 @gpu
 @pytest.mark.parametrize("name", list(SPARSE_CASES))
 def test_sparse_kernel_matches_plain(cuda, name):
+    """Each case launches the kernel its route names (by the library's
+    tally) and holds the plain version's flash form, plus the flip slack on
+    the tensor-core route; the moved cols entry fails that bound."""
     from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
     args, cols, counts = sparse_case(name, cuda)
-    before = bsa.sparse_mha_fwd.launches
+    q, k, v, _, cnt, block, causal, scale = args
+    before, tally = bsa.sparse_mha_fwd.launches, bsa.kernel_launches()
     out = bsa.sparse_mha_fwd(*args)
+    launched = {n: c - tally[n] for n, c in bsa.kernel_launches().items() if c > tally[n]}
     ref = bsa.sparse_mha_fwd_reference(*args)
+    slack = sparse_slack(args)
     torch.cuda.synchronize()
     assert bsa.sparse_mha_fwd.launches == before + 1
+    assert launched == {bsa.kernel_route(q.dtype, block, q.shape[-1]): 1}
     assert out.shape == ref.shape and out.dtype == ref.dtype
     assert torch.isfinite(out).all()
-    assert flash_ratio(out, ref) <= 1
-    q, k, v, _, cnt, block, causal, scale = args
+    assert flash_ratio(out, ref, slack) <= 1
     bad = bsa.sparse_mha_fwd_reference(q, k, v, moved_cols(cols, counts, causal).to(cuda),
                                        cnt, block, causal, scale)
-    assert flash_ratio(bad, ref) > 1
+    assert flash_ratio(bad, ref, slack) > 1
     if name == "empty_row":
         assert (out[:, 1, 5 * block:6 * block] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("block", [64, 128])
+def test_sparse_probe_rejects_rounding_point_faults(block, dtype):
+    """On ``sparse_probe`` the plain version's output cancels to within a
+    thousandth of the bound off every 8th column, and p rounded anywhere
+    else (not at all, or against the other block size's maxima) fails the
+    flash form tenfold."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    args = sparse_probe(dtype, 64, block, torch.device("cpu"))
+    out = bsa.sparse_mha_fwd_reference(*args)
+    off = torch.arange(64) % 8 != 0
+    assert out[..., off].float().abs().max() < 1e-3 * RTOL[dtype] * out.float().pow(2).mean().sqrt()
+    for fault, bad in sparse_rounding_faults(*args).items():
+        assert flash_ratio(bad, out) > 10, fault
+
+
+class _ChunkedQK:
+    """``torch`` for the plain block-sparse version with q.k summed over
+    16-column chunks, as tensor cores do: the same logits in another
+    summation order."""
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    @staticmethod
+    def einsum(eq, a, b):
+        if eq != "bhnqd,bhnkd->bhnqk":
+            return torch.einsum(eq, a, b)
+        return sum(torch.einsum(eq, a[..., c:c + 16], b[..., c:c + 16])
+                   for c in range(0, a.shape[-1], 16))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", ["fixed_b64_causal", "bigbird_b64", "fixed_b128"])
+def test_sparse_flip_slack_admits_reordered_logits(name, dtype):
+    """The plain version computed from logits summed in another order rounds
+    some p the other way; the bound with ``sparse_flip_slack`` admits it,
+    and still rejects the moved cols entry."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    args, cols, counts = sparse_case(name, torch.device("cpu"))
+    args = tuple(a.to(dtype) if i < 3 else a for i, a in enumerate(args))
+    ref = bsa.sparse_mha_fwd_reference(*args)
+    slack = sparse_flip_slack(*args)
+    with mock.patch.object(bsa, "torch", _ChunkedQK()):
+        reordered = bsa.sparse_mha_fwd_reference(*args)
+    assert flash_ratio(reordered, ref, slack) <= 1
+    q, k, v, _, cnt, block, causal, scale = args
+    bad = bsa.sparse_mha_fwd_reference(q, k, v, moved_cols(cols, counts, causal), cnt, block,
+                                       causal, scale)
+    assert flash_ratio(bad, ref, slack) > 1
+
+
+@pytest.mark.parametrize("name", ["bigbird_b64", "fixed_b128", "per_head", "empty_row"])
+def test_sparse_work_order_covers_every_item_by_descending_counts(name):
+    """The tensor-core kernel's work items (``work_items`` of ``work_order``,
+    as the source decodes them) cover every (b, h, query row block of 64)
+    exactly once, in non-increasing counts."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    _, cols, counts = sparse_case(name, torch.device("cpu"))
+    B, H, S, _, block = SPARSE_CASES[name][:5]
+    items = bsa.work_items(bsa.work_order(counts), B, S // block, block)
+    assert sorted(items) == sorted((b, h, r // block, r) for b in range(B) for h in range(H)
+                                   for r in range(0, S, 64))
+    seq = [counts[h, iq] for _, h, iq, _ in items]
+    assert all(a >= b for a, b in zip(seq, seq[1:]))
+    assert seq[0] == counts.max() and seq[-1] == counts.min()
+
+
+@gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_sparse_kernel_rounds_where_plain_does(cuda, dh, block, dtype):
+    """On ``sparse_probe`` the tensor-core kernel holds the flash form with
+    no slack, which every rounding-point fault fails tenfold."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    args = sparse_probe(dtype, dh, block, cuda)
+    tally = bsa.kernel_launches()
+    out = bsa.sparse_mha_fwd(*args)
+    assert bsa.kernel_launches()["fwd_wgmma"] == tally["fwd_wgmma"] + 1
+    ref = bsa.sparse_mha_fwd_reference(*args)
+    torch.cuda.synchronize()
+    assert flash_ratio(out, ref) <= 1
+    assert all(flash_ratio(bad, ref) > 10 for bad in sparse_rounding_faults(*args).values())
+
+
+@gpu
+@pytest.mark.parametrize("D", [64, 36])
+def test_sparse_wgmma_reads_strided_views_and_pads_odd_widths(cuda, D):
+    """The tensor-core route reads q/k/v as the module makes them (views of
+    one [B, S, 3 H D] projection, transposed) in place at D 64, and copies a
+    width TMA cannot read (36: 72-byte rows) into aligned tensors."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+    B, S, H = 2, 1024, 4
+    layout = FixedSparsityConfig(num_heads=H, block=64).make_layout(S)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    base = torch.randn(B, S, 3 * H * D, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = (t.reshape(B, S, H, D).transpose(1, 2) for t in base.split(H * D, -1))
+    cols, counts, order = bsa._schedule(layout, True, 64, cuda)
+    args = (q, k, v, cols, counts, 64, True, D ** -0.5)
+    tally = bsa.kernel_launches()
+    out = bsa.sparse_mha_fwd(*args, order=order)
+    assert bsa.kernel_launches()["fwd_wgmma"] == tally["fwd_wgmma"] + 1
+    ref = bsa.sparse_mha_fwd_reference(*(t.contiguous() for t in (q, k, v)), *args[3:])
+    torch.cuda.synchronize()
+    assert out.shape == (B, H, S, D)
+    assert flash_ratio(out, ref, sparse_flip_slack(*args)) <= 1
 
 
 @gpu

@@ -147,7 +147,7 @@ def test_plain_kernel_matches_pallas_interpret(name, causal):
                           interpret=True)
     ours = bsa.sparse_mha(*torch_args(q, k, v), layout, 16, causal=causal)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
-    cols, counts = bsa._schedule(layout, causal, 16, "cpu")
+    cols, counts, _ = bsa._schedule(layout, causal, 16, "cpu")
     direct = bsa.sparse_mha_fwd(*torch_args(q, k, v), cols, counts, 16, causal)
     assert torch.equal(direct, ours)
     assert bsa.sparse_mha_fwd.launches == 0          # no kernel on the CPU
