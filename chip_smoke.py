@@ -11,22 +11,35 @@ prints no result.
 2. Kernels against their plain PyTorch versions on the card, at the shapes
    of Llama-2-7B serving (decode with ragged seen lengths up to ~4000, a
    256-token prefill chunk, a serving round's 512-row chunk beside padded
-   decode rows), plus GQA, a sliding window, int8 pools, fp16, fp32, a
-   256-wide head, seen=0 rows and q_len=0 padding rows. For each case: the
+   decode rows, the decode round phase 3 runs: 8 sequences in the [8, 8]
+   bucket with one live row each), plus GQA, a sliding window, int8 pools,
+   fp16, fp32, a 256-wide head, seen=0 rows and q_len=0 padding rows. First
+   the p-rounding probe (``check_paged_rounding_points``): the tensor-core
+   kernel must equal the plain version at the TPU kernel's rounding point
+   with no slack, and p left in fp32 or rounded to the other 16-bit type
+   must fail. Each case must launch the kernel the source's route declares
+   (``ds_paged_route``; the library's tally shows it): bf16/fp16 with fp
+   pools at head widths 64/128 the ``wgmma`` kernel. For each case: the
    error against the per-element bound stated below, the same for a planted
    one-page fault that the bound must reject, kernel / plain / library (page
    gather + SDPA, a yardstick the port never calls) times from CUDA events,
-   and the bound: the larger of bytes over 3.35 TB/s and attention
-   operations over the dtype's peak (989 TFLOP/s bf16/fp16, 67 TFLOP/s
-   fp32), counted from this case's data.
+   the kernels' device time per call (torch.profiler), and the bound: the
+   larger of bytes over 3.35 TB/s and attention operations over the dtype's
+   peak (989 TFLOP/s bf16/fp16, 67 TFLOP/s fp32), counted from this case's
+   data.
 3. Serving: Llama-2-7B at full width and all 32 layers, bf16 weights drawn
    on the card from a seed, behind ``build_engine``. One prompt's
    first-token logits from the kernel-backed forward are compared with the
-   same forward run with the plain attention, and so is a control whose
-   plain attention misreads one page. Then ``SplitFuseScheduler`` serves 8
+   same forward run with the plain attention at the kernel's rounding points
+   (``paged_mha_kernel_form``), and so is a control whose plain attention
+   misreads one page; the greedy first token must be the plain forward's
+   (printed beside it: the plain forward's token with its sums on the
+   host's CPU and with p in fp32; a mismatch fails the run after its last
+   phase). Then ``SplitFuseScheduler`` serves 8
    greedy requests (prompts of 64-1500 tokens, 64 new tokens each) to
    completion; every kernel's launch counter must equal
-   ``num_layers x forwards`` for that run.
+   ``num_layers x forwards`` for that run, all of them on the paged
+   ``wgmma`` kernel by the library's tally.
 
 4. Flash kernels (training): the forward, dq and dk/dv kernels of
    ``csrc/flash_attention.cu`` against their plain PyTorch versions at the
@@ -88,7 +101,8 @@ prints no result.
    shared), and so is a control with one expert's weights swapped in layer
    0. Then ``SplitFuseScheduler`` serves 8 greedy requests (64-1500 prompt
    tokens, 64 new tokens each); the grouped GEMM must launch 3 x layers x
-   forwards times and ``paged_mha`` layers x forwards.
+   forwards times and ``paged_mha`` layers x forwards (the paged ``wgmma``
+   kernel each time).
 8. Grouped GEMM backward (run after the Mixtral serving engine is freed):
    the dx and dW kernels of ``csrc/grouped_gemm.cu`` against their plain
    versions at a training micro-batch of Mixtral-8x7B (4 x 2048 tokens,
@@ -172,14 +186,17 @@ prints no result.
    one card, after phase 12): the kernel against its plain version at
    Llama-2-7B's projection shapes (decode at batch 4 for gate_proj,
    down_proj with K = 11008 and q_proj; prefill chunks of 1024 rows; M = 1
-   and M = 13; fp16 activations with fp32 output and groups of 128). Per
+   and M = 13; fp16 activations with fp32 output and groups of 128). Each
+   case must launch the kernel the source routes its rows to (``decode_mma``
+   up to 16 rows, ``prefill_wgmma`` above; the library's tally). Per
    case: the error against the bound stated below, a planted fault (one
    scale group of one K row times 1.5) that the bound must reject, kernel /
    plain / library (``torch.matmul`` on the dequantized bf16 weight, the
    dense product the int8 weight replaces; a yardstick the port never
-   calls) times with the weights rotated past the L2 cache, and the bound:
-   the larger of the int8 weight, scales, x and output bytes over 3.35 TB/s
-   and 2 M K N over 989 TFLOP/s.
+   calls) times with the weights rotated past the L2 cache, the kernels'
+   device time per call (torch.profiler: a decode call's CUDA-event time is
+   the host's enqueue time), and the bound: the larger of the int8 weight,
+   scales, x and output bytes over 3.35 TB/s and 2 M K N over 989 TFLOP/s.
 15. Quantized serving: Llama-2-7B at full width and all 32 layers, bf16
    weights drawn on the card from a seed, quantized to int8 by
    ``init_inference`` (dtype bf16, groups of 256). Logits from the kernel
@@ -192,7 +209,8 @@ prints no result.
    bytes, the agreement of the greedy tokens with the ``dense_dequant``
    route's with the top-2 logit gaps where the streams part, and the
    kernel's launches, which must be 7 x 32 x forwards (``lm_head`` takes
-   ``dense_dequant``, uncounted).
+   ``dense_dequant``, uncounted): the prefill forward's on ``prefill_wgmma``,
+   the decode steps' on ``decode_mma``.
 16. Checkpoints: a one-layer Llama-2-7B-geometry training engine (bf16,
    fp32 masters, ZeRO-0, phase 5's configuration) takes 2 optimizer steps,
    saves into a directory under ``build/``, takes 2 more; a fresh engine
@@ -265,16 +283,30 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 # case also plants a one-page fault in the plain version and fails unless the
 # bound rejects it. Readings (H100 80GB HBM3, 700 W): the kernel's errors
 # reached 0.61-0.96x the bound in bf16/fp16 (one rounding) and 0.023x in
-# fp32; the planted faults 500-16000x.
+# fp32; the planted faults 500-16000x. The tensor-core route (bf16/fp16 q
+# with fp pools at head widths 64 and 128) rounds p to v's dtype before
+# P.V, as the TPU kernel does, where the plain version keeps p in fp32: its
+# bound adds paged_flip_slack (tests/flash_rounding.py), one spacing of p in
+# v's dtype times |v| / l summed over the visible keys, which admits any
+# running maximum and order of tiles and splits and no misread page; the
+# p-rounding probe (check_paged_rounding_points) holds the rounding point
+# itself with no slack.
 ATOL = 2e-5
 RTOL = {"bfloat16": 2 ** -7, "float16": 2 ** -10, "float32": 2 ** -16}
 # First-token logits of an 8-page prompt, kernel-backed forward vs the same
-# forward with the plain attention, as relative L2 error |a - b| / |b|: the
-# two attentions differ by one rounding of some bf16 outputs, and those
-# flips are carried through 32 layers of random weights. A control, the plain
-# attention reading the trash page in place of the prompt's 4th page in every
-# layer, must land above the bound. Readings (H100 80GB HBM3, 700 W): kernel
-# 0.039, control 1.15; the bound sits between them with margin both ways.
+# forward with the plain attention at the kernel's rounding points
+# (paged_mha_kernel_form: p rounded to v's dtype before P.V, as the
+# tensor-core route and the TPU kernel round it), as relative L2 error
+# |a - b| / |b|: the two attentions differ by one rounding of some bf16
+# outputs and by the p that q.k summed in another order rounds the other
+# way, and those flips are carried through 32 layers of random weights. A
+# control, the plain attention reading the trash page in place of the
+# prompt's 4th page in every layer, must land above the bound. Readings
+# (H100 80GB HBM3, 700 W): kernel 0.039, control 1.15 (the SIMT kernel,
+# against the fp32-p plain version); the p-rounding kernel 0.038 against the
+# kernel form and 0.049 against the fp32-p plain version, which lies 0.049
+# from the kernel form itself; the bound sits between them with margin both
+# ways. The greedy token must be the plain forward's, exactly.
 LOGITS_REL_L2_TOLERANCE = 0.1
 LOGITS_PROMPT = 500          # tokens: 8 pages of 64
 LOGITS_FAULT_PAGE = 3
@@ -304,6 +336,32 @@ def time_ms(fn, iters):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters, names):
+    """Device time per call of the kernels whose names hold one of
+    ``names`` (each launched once a call), over ``iters`` calls under
+    torch.profiler: where the host enqueues a call more slowly than the card
+    runs it, ``time_ms`` reads the host and this the kernels. Each kernel's
+    mean over the launches the profiler recorded, summed; a kernel recorded
+    fewer than ``iters`` times is reported on a line of its own."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and any(n in e.key for n in names):
+            total += e.device_time_total / e.count
+            if e.count != iters:
+                print(f"device_ms: the profiler recorded {e.count} of {iters} launches "
+                      f"of {e.key}", flush=True)
+    return total / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -338,6 +396,13 @@ CASES = [
      (0, 300), None),
     ("seen0_and_padding", 8, 8, 32, 32, 128, 64, "bfloat16", False, None,
      [0, 0, 5, 70, 0, 0, 130, 1], [8, 1, 3, 0, 0, 8, 5, 0]),
+    # the serving phase's decode round: 8 sequences in the [8, 8] bucket,
+    # one live row each (ragged_wrapper's pow2 buckets)
+    ("decode_serve_7b", 8, 8, 32, 32, 128, 64, "bfloat16", False, None,
+     (64, 1565), [1] * 8),
+    # the same round at Mixtral-8x7B's heads (8 kv heads of 4 query heads)
+    ("decode_serve_8x7b", 8, 8, 32, 8, 128, 64, "bfloat16", False, None,
+     (64, 1565), [1] * 8),
 ]
 
 
@@ -424,11 +489,11 @@ def library_call(a):
                                           attn_mask=mask[:, None])
 
 
-def err_ratio(out, ref, dtype):
-    """Largest |out - ref| / (ATOL + RTOL * |ref|) over the elements: the
-    comparison passes when it is at most 1."""
+def err_ratio(out, ref, dtype, slack=0.0):
+    """Largest |out - ref| / (ATOL + RTOL * |ref| + slack) over the
+    elements: the comparison passes when it is at most 1."""
     ref = ref.float()
-    bound = ATOL + RTOL[dtype] * ref.abs()
+    bound = ATOL + RTOL[dtype] * ref.abs() + slack
     return ((out.float() - ref).abs() / bound).max().item()
 
 
@@ -447,16 +512,64 @@ def plant_page_fault(case, a):
     return bt
 
 
+def check_paged_rounding_points():
+    """On ``paged_probe`` (tests/flash_rounding.py) the tensor-core kernel,
+    bf16 and fp16 at head widths 64 and 128, decode and chunk rows, block
+    sizes 16, 32 and 64 and two key splits, must equal the plain version at
+    the TPU kernel's rounding point (``paged_mha_kernel_form``) within
+    ATOL + RTOL |plain| with no slack, and the plain version with p left in
+    fp32 or rounded to the other 16-bit type must fail that bound."""
+    import torch
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    import flash_rounding as fr
+    results, failures = [], []
+    for dtype in ("bfloat16", "float16"):
+        for dh in (64, 128):
+            for bs, Q, rep in ((64, 1, 1), (16, 16, 4), (32, 8, 2)):
+                args, kw = fr.paged_probe(getattr(torch, dtype), dh, bs, DEVICE, Q=Q, rep=rep)
+                tally = pa.kernel_launches()
+                out = pa.paged_mha(*args, **kw)
+                routes = launched_kernels(pa, tally)
+                ref = pa.paged_mha_kernel_form(*args, **kw)
+                res = dict(dtype=dtype, dh=dh, bs=bs, Q=Q, rep=rep, launched=routes,
+                           splits=pa.split_count(1, Q, rep, 1, bs, args[3].shape[1],
+                                                 torch.cuda.get_device_properties(0)
+                                                 .multi_processor_count),
+                           ratio=err_ratio(out, ref, dtype),
+                           fault_ratios={f: err_ratio(bad, ref, dtype) for f, bad in
+                                         fr.paged_rounding_faults(*args, **kw).items()})
+                print(f"paged rounding probe {json.dumps(res)}", flush=True)
+                where = f"{dtype} Dh {dh} bs {bs} Q {Q}"
+                if routes != {"wgmma": 1}:
+                    failures.append(f"{where}: launched {routes}")
+                if not res["ratio"] <= 1:
+                    failures.append(f"{where}: the kernel does not round p where the TPU "
+                                    f"kernel does ({res['ratio']:.3g}x the bound)")
+                failures += [f"{where}: the bound does not reject {f} ({r:.3g}x)"
+                             for f, r in res["fault_ratios"].items() if not r > 1]
+                results.append(res)
+    if failures:
+        fail("paged rounding: " + "; ".join(failures))
+    return results
+
+
 def phase_kernels():
     import numpy as np
     import torch
+    from deepspeed_tpu_torch.ops import paged_attention as pa
     from deepspeed_tpu_torch.ops.paged_attention import (paged_mha,
                                                          paged_mha_reference)
+    import flash_rounding as fr
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 plain version in fp32
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rng = np.random.default_rng(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # the main path's shape (bf16 q and pools, head width 128, pages of 64)
+    # belongs on the tensor cores
+    if pa.kernel_route(torch.bfloat16, False, 128, 64) != "wgmma":
+        fail("paged attention at the main path's shape does not route to wgmma")
     results, failures = [], []
     for case in CASES:
         name, S, Q, H, KV, Dh, bs, dtype, int8, window, _, _ = case
@@ -465,18 +578,24 @@ def phase_kernels():
                 a["seen"], a["q_len"])
         kw = dict(k_scale=a["k_scale"], v_scale=a["v_scale"],
                   window=a["window"])
+        want = pa.kernel_route(getattr(torch, dtype), int8, Dh, bs)
+        tally = pa.kernel_launches()
         out = paged_mha(*args, **kw)
+        launched = launched_kernels(pa, tally)
         ref = paged_mha_reference(*args, **kw)
         faulty = paged_mha_reference(*args[:3], plant_page_fault(case, a),
                                      *args[4:], **kw)
+        slack = (fr.paged_flip_slack(*args, window=window) if want == "wgmma"
+                 else torch.zeros((), device=out.device))
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        ratio = err_ratio(out, ref, dtype)
-        fault_ratio = err_ratio(faulty, ref, dtype)
+        ratio = err_ratio(out, ref, dtype, slack)
+        fault_ratio = err_ratio(faulty, ref, dtype, slack)
         finite = bool(torch.isfinite(out).all())
-        del faulty
+        del faulty, slack
         iters = 20 if Q == 1 else 10
         ms = time_ms(lambda: paged_mha(*args, **kw), iters)
+        kernel_ms = device_ms(lambda: paged_mha(*args, **kw), iters, ("paged_mha",))
         plain_ms = time_ms(lambda: paged_mha_reference(*args, **kw), 3)
         lib_ms = None if int8 else time_ms(lambda: library_call(a), 3)
         nbytes, ops = work(case, a)
@@ -485,14 +604,20 @@ def phase_kernels():
         res = dict(name=name, shape=f"S={S} Q={Q} H={H} KV={KV} Dh={Dh} "
                    f"bs={bs} {dtype}{' int8-pool' if int8 else ''}"
                    f"{f' window={window}' if window else ''}",
+                   kernel=want, launched=launched,
+                   splits=(pa.split_count(S, Q, H, KV, bs, a["block_tables"].shape[1], sms)
+                           if want == "wgmma" else 1),
                    max_abs_err=err, err_ratio=ratio,
                    planted_fault_ratio=fault_ratio,
-                   tolerance=f"{ATOL} + {RTOL[dtype]} |plain|",
-                   ms=ms, plain_ms=plain_ms,
+                   tolerance=f"{ATOL} + {RTOL[dtype]} |plain|"
+                             f"{' + paged_flip_slack' if want == 'wgmma' else ''}",
+                   ms=ms, device_ms=kernel_ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations")
         results.append(res)
         print(f"kernel case {json.dumps(res)}", flush=True)
+        if launched != {want: 1}:
+            failures.append(f"{name}: launched {launched}, not the {want} kernel")
         if not finite:
             failures.append(f"{name}: kernel output is not finite")
         if not ratio <= 1:
@@ -523,6 +648,7 @@ def phase_serving():
         RaggedBatchWrapper)
     from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     from deepspeed_tpu_torch.ops.paged_attention import (paged_mha,
+                                                         paged_mha_kernel_form,
                                                          paged_mha_reference)
 
     cfg = LlamaConfig.llama2_7b()
@@ -556,8 +682,8 @@ def phase_serving():
     def faulty_attention(q, k_pool, v_pool, block_tables, *args, **kw):
         block_tables = block_tables.clone()
         block_tables[0, LOGITS_FAULT_PAGE] = k_pool.shape[0] - 1   # trash page
-        return paged_mha_reference(q, k_pool, v_pool, block_tables, *args,
-                                   **kw)
+        return paged_mha_kernel_form(q, k_pool, v_pool, block_tables, *args,
+                                     **kw)
 
     def plain_forward(attention):
         kv = BlockedKVCache(cfg.num_hidden_layers, n_pages, bs,
@@ -567,7 +693,7 @@ def phase_serving():
             model, kv, arrays["tokens"], arrays["q_len"], arrays["seen"],
             arrays["block_tables"], attention=attention)[0].cpu().numpy()
 
-    plain_logits = plain_forward(paged_mha_reference)
+    plain_logits = plain_forward(paged_mha_kernel_form)
     control_logits = plain_forward(faulty_attention)
 
     def rel_l2(x):
@@ -590,8 +716,38 @@ def phase_serving():
     if not control_err > LOGITS_REL_L2_TOLERANCE:
         fail(f"the logits bound does not reject the page-fault control: "
              f"{control_err} <= {LOGITS_REL_L2_TOLERANCE}")
-    if kernel_logits.argmax() != plain_logits.argmax():
-        fail("first-token argmax differs between kernel and plain attention")
+    # The greedy token must be one the plain form itself gives. At a near-tie
+    # on random weights the plain form's own token moves with its fp32
+    # arithmetic alone, so the plain form runs twice, on the card and on the
+    # host's CPU (the same rounding points; only the order of fp32 sums and
+    # exp's implementation move). Where both give one token the check is
+    # exact. The page-fault control's token must fall outside that set.
+    # Printed beside it: the plain form with p kept in fp32
+    # (paged_mha_reference) and the plain logits' top three.
+    def on_cpu(attention):
+        def run(*args, **kw):
+            cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
+            kw = {k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()}
+            return attention(*cpu, **kw).to(args[0].device)
+        return run
+
+    cpu_logits = plain_forward(on_cpu(paged_mha_kernel_form))
+    ref_logits = plain_forward(paged_mha_reference)
+    k_tok, control_tok = int(kernel_logits.argmax()), int(control_logits.argmax())
+    plain_toks = sorted({int(plain_logits.argmax()), int(cpu_logits.argmax())})
+    top3 = np.argsort(plain_logits)[::-1][:3]
+    print(f"serving: greedy token kernel {k_tok}, plain {int(plain_logits.argmax())}, "
+          f"plain with its sums on the CPU {int(cpu_logits.argmax())} (relative L2 "
+          f"{rel_l2(cpu_logits):.4g}), page-fault control {control_tok}; plain with p "
+          f"in fp32 {int(ref_logits.argmax())} (relative L2 {rel_l2(ref_logits):.4g}); "
+          f"plain top three {[(int(t), float(plain_logits[t])) for t in top3]}, "
+          f"kernel's logits there {[float(kernel_logits[t]) for t in top3]}", flush=True)
+    if control_tok in plain_toks:
+        fail(f"the greedy-token check does not reject the page-fault control: "
+             f"{control_tok} in {plain_toks}")
+    if k_tok not in plain_toks:
+        fail(f"first-token argmax differs between kernel and plain attention: "
+             f"{k_tok} not in {plain_toks}")
 
     # SplitFuse serving of 8 greedy requests
     sched = SplitFuseScheduler(engine)
@@ -601,7 +757,9 @@ def phase_serving():
         sched.submit(uid, rng.integers(0, cfg.vocab_size, int(n)),
                      max_new_tokens=n_new)
     torch.cuda.synchronize()
+    from deepspeed_tpu_torch.ops import paged_attention as pa
     paged_mha.launches = 0
+    paged_tally = pa.kernel_launches()
     syncs0 = engine.host_sync_count
     ttft, round_ms, decode_ms = {}, [], []
     t_start = time.perf_counter()
@@ -631,6 +789,9 @@ def phase_serving():
     if launches == 0 or launches != cfg.num_hidden_layers * forwards:
         fail(f"paged_mha launched {launches} times, expected "
              f"{cfg.num_hidden_layers} x {forwards} forwards")
+    kernels_launched = launched_kernels(pa, paged_tally)
+    if kernels_launched != {"wgmma": launches}:
+        fail(f"serving launched paged kernels {kernels_launched}, not wgmma {launches} times")
     stats = dict(requests=len(results), prompt_tokens=int(lens.sum()),
                  new_tokens=n_new * len(results), rounds=rounds,
                  forwards=forwards, wall_s=wall,
@@ -638,10 +799,10 @@ def phase_serving():
                  median_decode_round_ms=float(np.median(decode_ms)),
                  median_ttft_s=float(np.median(list(ttft.values()))),
                  max_ttft_s=max(ttft.values()),
-                 paged_mha_launches=launches,
+                 paged_mha_launches=launches, kernels_launched=kernels_launched,
                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"serving {json.dumps(stats)}", flush=True)
-    return launches
+    return launches, kernels_launched
 
 
 # ---------------------------------------------------------------------------
@@ -831,8 +992,9 @@ def check_flash_block_k():
 
 
 def launched_kernels(lib, tally):
-    """The kernels of ``lib`` (the flash_attention or grouped_gemm module)
-    launched since ``tally`` (``lib.kernel_launches()``)."""
+    """The kernels of ``lib`` (a kernel module of ``deepspeed_tpu_torch.ops``
+    with ``kernel_launches``) launched since ``tally``
+    (``lib.kernel_launches()``)."""
     return {n: c - tally[n] for n, c in lib.kernel_launches().items() if c > tally[n]}
 
 
@@ -1573,7 +1735,8 @@ def phase_mixtral_serving():
     torch.cuda.reset_peak_memory_stats()
     grouped_matmul.launches = paged_mha.launches = 0
     from deepspeed_tpu_torch.ops import grouped_gemm as gg
-    tally = gg.kernel_launches()
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    tally, paged_tally = gg.kernel_launches(), pa.kernel_launches()
     syncs0 = engine.host_sync_count
     ttft, decode_ms = {}, []
     t_start = time.perf_counter()
@@ -1613,10 +1776,13 @@ def phase_mixtral_serving():
                  max_ttft_s=max(ttft.values()),
                  launches=launches, expected_launches=expected,
                  kernels_launched=launched_kernels(gg, tally),
+                 paged_kernels_launched=launched_kernels(pa, paged_tally),
                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"mixtral serving {json.dumps(stats)}", flush=True)
     if forwards == 0 or launches != expected:
         fail(f"Mixtral launches {launches} != expected {expected}")
+    if stats["paged_kernels_launched"] != {"wgmma": expected["paged_mha"]}:
+        fail(f"Mixtral serving launched paged kernels {stats['paged_kernels_launched']}")
     # SplitFuse and decode rounds alike take the wgmma kernel
     if stats["kernels_launched"] != {"fwd_wgmma": expected["moe_grouped_gemm"]}:
         fail(f"Mixtral serving launched grouped kernels {stats['kernels_launched']}")
@@ -2893,6 +3059,24 @@ QMM_CASES = [
 QMM_L2_BYTES = 50e6            # the H100's L2: timed weights rotate past it
 
 
+def qmm_inputs(case, gen):
+    """x and the int8 weight with its scales (q, scale) of a QMM_CASES
+    entry, drawn from ``gen``."""
+    import torch
+    from deepspeed_tpu_torch.ops.quantizer import quantize_lastdim
+    name, M, K, N, G, dtype, out_dtype = case
+    x = torch.randn(M, K, generator=gen, device=DEVICE).to(getattr(torch, dtype))
+    q, s = quantize_lastdim(torch.randn(K, N, generator=gen, device=DEVICE) * K ** -0.5,
+                            group_size=G)
+    return x, q, s
+
+
+def qmm_copies(K, N):
+    """Copies of a [K, N] int8 weight to rotate through, so that each timed
+    launch reads its weight from HBM, as a forward through 32 layers does."""
+    return max(1, -(-int(2 * QMM_L2_BYTES) // (K * N)))
+
+
 def qmm_ratio(out, ref, x, w):
     bound = QMM_RTOL[str(out.dtype).split(".")[1]] * ref.float().abs() + \
         QMM_ACC * (x.float().abs() @ w.float().abs())
@@ -2903,17 +3087,21 @@ def phase_quantized_matmul_kernels():
     import itertools
     import torch
     from deepspeed_tpu_torch.ops import quantized_matmul as qm
-    from deepspeed_tpu_torch.ops.quantizer import dequantize_lastdim, quantize_lastdim
+    from deepspeed_tpu_torch.ops.quantizer import dequantize_lastdim
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(14)
     results, failures = [], []
-    for name, M, K, N, G, dtype, out_dtype in QMM_CASES:
+    for case in QMM_CASES:
+        name, M, K, N, G, dtype, out_dtype = case
         dt, odt = getattr(torch, dtype), getattr(torch, out_dtype)
-        x = torch.randn(M, K, generator=gen, device=DEVICE).to(dt)
-        q, s = quantize_lastdim(torch.randn(K, N, generator=gen, device=DEVICE) * K ** -0.5,
-                                group_size=G)
+        x, q, s = qmm_inputs(case, gen)
+        want = qm.kernel_route(M)
+        if want != ("decode_mma" if M <= 16 else "prefill_wgmma"):
+            fail(f"quantized matmul: {M} rows route to {want}")
+        tally = qm.kernel_launches()
         out = qm.quantized_matmul(x, q, s, G, out_dtype=odt)
+        launched = launched_kernels(qm, tally)
         ref = qm.quantized_matmul_reference(x, q, s, G, out_dtype=odt)
         w = dequantize_lastdim(q, s, group_size=G, dtype=dt)
         bad_s = s.clone()
@@ -2924,13 +3112,13 @@ def phase_quantized_matmul_kernels():
         finite = bool(torch.isfinite(out).all())
         err = float((out.float() - ref.float()).abs().max())
         del faulty, bad_s
-        # timing: rotate copies of the weight so that each launch reads it
-        # from HBM, as a forward through 32 layers does
-        copies = max(1, -(-int(2 * QMM_L2_BYTES) // (K * N)))
+        copies = qmm_copies(K, N)
         qs = itertools.cycle([(q.clone(), s.clone()) for _ in range(copies)])
         ws = itertools.cycle([w.clone() for _ in range(copies)])
         iters = 50 if M <= 16 else 10
         ms = time_ms(lambda: qm.quantized_matmul(x, *next(qs), G, out_dtype=odt), iters)
+        kernel_ms = device_ms(lambda: qm.quantized_matmul(x, *next(qs), G, out_dtype=odt),
+                              iters, ("quantized_matmul", "split_reduce"))
         plain_ms = time_ms(lambda: qm.quantized_matmul_reference(x, *next(qs), G,
                                                                  out_dtype=odt), 5)
         lib_ms = time_ms(lambda: torch.matmul(x, next(ws)), iters)
@@ -2938,18 +3126,21 @@ def phase_quantized_matmul_kernels():
             M * N * out.element_size()
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = 2 * M * K * N / PEAK_FLOPS[dtype] * 1e3
-        bm, splits, k_split = qm.plan(M, K, N, torch.cuda.get_device_properties(0)
-                                      .multi_processor_count)
+        kernel, splits, k_split = qm.plan(M, K, N, torch.cuda.get_device_properties(0)
+                                          .multi_processor_count)
         res = dict(name=name, shape=f"M={M} K={K} N={N} G={G} {dtype}->{out_dtype}",
-                   plan=dict(bm=bm, splits=splits, k_split=k_split), max_abs_err=err,
+                   kernel=want, launched=launched,
+                   plan=dict(kernel=kernel, splits=splits, k_split=k_split), max_abs_err=err,
                    err_ratio=ratio, planted_fault_ratio=fault_ratio,
                    tolerance=f"{QMM_RTOL[out_dtype]} |plain| + {QMM_ACC} (|x| @ |w|)",
-                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   ms=ms, device_ms=kernel_ms, plain_ms=plain_ms, library_ms=lib_ms,
                    library="torch.matmul(x, w_bf16) on the dequantized weight",
                    bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations")
         results.append(res)
         print(f"quantized matmul case {json.dumps(res)}", flush=True)
+        if launched != {want: 1} or kernel != want:
+            failures.append(f"{name}: launched {launched}, planned {kernel}, not {want}")
         if not finite:
             failures.append(f"{name}: kernel output is not finite")
         if not ratio <= 1:
@@ -3120,7 +3311,9 @@ def phase_quantized_serving():
         return engine(ids)[:, -1].float()
 
     qm.quantized_matmul.launches = fa.flash_mha_fwd.launches = 0
+    tally = qm.kernel_launches()
     kernel_logits = first_logits()
+    forward_kernels = launched_kernels(qm, tally)
     forward_launches = qm.quantized_matmul.launches
     flash_launches = fa.flash_mha_fwd.launches
     set_impls(linears, "dense_dequant")
@@ -3170,6 +3363,9 @@ def phase_quantized_serving():
             flash_launches != cfg.num_hidden_layers:
         fail(f"quantized serving: a forward launched the kernel {forward_launches} times "
              f"and flash_mha_fwd {flash_launches} times")
+    if forward_kernels != {"prefill_wgmma": forward_launches}:
+        fail(f"quantized serving: the {QSERVE_BATCH * QSERVE_PROMPT}-row forward launched "
+             f"{forward_kernels}")
     if max(step_plans.values()) < 2:
         fail(f"quantized serving: no decode-step product splits K: {step_plans}")
     for point, (err, reorder_err, control_err) in errs.items():
@@ -3191,12 +3387,19 @@ def phase_quantized_serving():
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t
     qm.quantized_matmul.launches = 0
+    tally = qm.kernel_launches()
     t = time.perf_counter()
     tokens = engine.generate(ids, max_new_tokens=QSERVE_NEW)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = qm.quantized_matmul.launches
+    generate_kernels = launched_kernels(qm, tally)
     expected = QSERVE_LINEARS * cfg.num_hidden_layers * QSERVE_NEW
+    per_forward = QSERVE_LINEARS * cfg.num_hidden_layers
+    if generate_kernels != {"prefill_wgmma": per_forward,
+                            "decode_mma": per_forward * (QSERVE_NEW - 1)}:
+        fail(f"quantized serving: generate launched {generate_kernels}: not the prefill "
+             f"kernel once a layer's product and the decode kernel on every step")
     set_impls(linears, "dense_dequant")
     plain_tokens = engine.generate(ids, max_new_tokens=QSERVE_NEW)
     set_impls(linears, "cuda_fused_dequant")
@@ -3219,6 +3422,7 @@ def phase_quantized_serving():
                                    "reads, over 3.35 TB/s",
                  tokens_per_s=QSERVE_BATCH * QSERVE_NEW / wall, wall_s=wall,
                  kernel_launches=launches, expected_launches=expected,
+                 kernels_launched=generate_kernels,
                  quantized_weight_bytes=served_bytes, int8_bytes=int8_bytes,
                  scale_bytes=scale_bytes, bf16_weight_bytes=bf16_bytes,
                  greedy_agreement_with_dense_dequant=float(
@@ -3229,7 +3433,7 @@ def phase_quantized_serving():
                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"quantized serving {json.dumps(stats)}", flush=True)
     del engine, model
-    return launches
+    return launches, generate_kernels
 
 
 # ---------------------------------------------------------------------------
@@ -3941,6 +4145,7 @@ def main():
         print(f"  {name}: {len(regs)} kernels, max {max(regs, default=0)} "
               f"registers/thread, {spills} bytes of spill stores", flush=True)
     t1 = time.perf_counter()
+    paged_probes = check_paged_rounding_points()
     cases = phase_kernels()
     print(f"phase kernels: {time.perf_counter() - t1:.1f}s", flush=True)
     t1 = time.perf_counter()
@@ -3950,7 +4155,7 @@ def main():
     flash_cases = phase_flash_kernels()
     print(f"phase flash kernels: {time.perf_counter() - t1:.1f}s", flush=True)
     t2 = time.perf_counter()
-    launches = phase_serving()
+    launches, paged_kernel_launches = phase_serving()
     print(f"phase serving: {time.perf_counter() - t2:.1f}s", flush=True)
     torch.cuda.empty_cache()
     t3 = time.perf_counter()
@@ -3982,7 +4187,7 @@ def main():
     qmm_cases = phase_quantized_matmul_kernels()
     print(f"phase quantized matmul kernels: {time.perf_counter() - t9:.1f}s", flush=True)
     t10 = time.perf_counter()
-    qserve_launches = phase_quantized_serving()
+    qserve_launches, qmm_kernel_launches = phase_quantized_serving()
     print(f"phase quantized serving: {time.perf_counter() - t10:.1f}s", flush=True)
     gc.collect()                 # the quantized engine holds ~16 GB with its cache
     torch.cuda.empty_cache()
@@ -4010,15 +4215,19 @@ def main():
         name="paged_mha", route="cuda",
         source="deepspeed_tpu_torch/csrc/paged_attention.cu",
         replaces="deepspeed_tpu/ops/pallas/paged_attention.py:222",
-        launches=launches,
+        launches=launches, kernel=main_case["kernel"],
+        kernel_launches=paged_kernel_launches,
         max_abs_err=main_case["max_abs_err"],
         ms=main_case["ms"], plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
         library_ms=main_case["library_ms"], case=main_case["name"],
-        cases=[{k: c[k] for k in ("name", "max_abs_err", "err_ratio", "ms",
-                                  "plain_ms", "library_ms", "bound_ms",
-                                  "bound_by")}
-               for c in cases])]
+        device_ms=main_case["device_ms"],
+        cases=[{k: c[k] for k in ("name", "kernel", "splits", "max_abs_err", "err_ratio",
+                                  "planted_fault_ratio", "ms", "device_ms", "plain_ms",
+                                  "library_ms", "bound_ms", "bound_by")}
+               for c in cases],
+        rounding_probe=[{k: r[k] for k in ("dtype", "dh", "bs", "Q", "ratio", "fault_ratios")}
+                        for r in paged_probes])]
     train_case = flash_cases[0]   # train_7b: the shape of the training main path
     replaces = {"flash_mha_fwd": "deepspeed_tpu/ops/pallas/flash_attention.py:380",
                 "flash_mha_bwd_dq": "deepspeed_tpu/ops/pallas/flash_attention.py:549",
@@ -4085,14 +4294,15 @@ def main():
         case=main_rows["name"],
         cases=[dict(name=c["name"], shape=c["shape"], **{k: c[k] for k in rows_keys})
                for c in rows_cases]))
-    qmm_keys = ("max_abs_err", "err_ratio", "planted_fault_ratio", "ms", "plain_ms",
-                "library_ms", "library", "bound_ms", "bound_by", "plan")
+    qmm_keys = ("kernel", "max_abs_err", "err_ratio", "planted_fault_ratio", "ms", "device_ms",
+                "plain_ms", "library_ms", "library", "bound_ms", "bound_by", "plan")
     main_qmm = qmm_cases[0]       # decode_7b_gate: a decode step's largest product
     kernels.append(dict(
         name="quantized_matmul", route="cuda",
         source="deepspeed_tpu_torch/csrc/quantized_matmul.cu",
         replaces="deepspeed_tpu/ops/pallas/quantized_matmul.py:149",
-        launches=qserve_launches,
+        launches=qserve_launches, kernel=main_qmm["kernel"],
+        kernel_launches=qmm_kernel_launches, device_ms=main_qmm["device_ms"],
         **{k: main_qmm[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")},
         case=main_qmm["name"],

@@ -23,8 +23,14 @@
 #include <cuda_runtime.h>
 #include <cuda_fp16.h>
 #include <cuda_bf16.h>
+#include <array>
 #include <cstdint>
+#include <cstring>
+#include <mutex>
+#include <set>
 #include <type_traits>
+#include <unordered_map>
+#include <utility>
 
 namespace hopper {
 
@@ -114,6 +120,22 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// A 4-byte cp.async into shared memory, zero-filled (nothing read) when
+// `pred` is false; its completion is reported to an mbarrier by
+// cp_async_arrive_noinc.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(pred ? 4 : 0)
+               : "memory");
+}
+
+// One arrival on `bar` once every cp.async this thread issued so far has
+// landed. noinc: the arrival is one of the barrier's expected count.
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -239,6 +261,28 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32], const uint32_t (&a)[
   }
 }
 
+// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], A in registers (wgmma_rs_mn's
+// fragments), B K-major in shared memory (as wgmma_ss's B).
+template <typename T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " HOPPER_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : HOPPER_ACC32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : HOPPER_ACC32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
+}
+
 #undef HOPPER_D32
 #undef HOPPER_ACC32
 
@@ -342,20 +386,105 @@ inline bool bind_context() {
   return bound;
 }
 
-// Tensor map of a `rank`-dim 16-bit tensor (dims innermost first, the
-// innermost contiguous; `strides` in bytes for dims 1..rank-1), read in
-// boxes of `box` elements per dim, 128-byte swizzled (box[0] = 64).
-// Boxes past an edge read zeros. Returns false if cuTensorMapEncodeTiled refuses.
-inline bool make_map(CUtensorMap* map, const void* base, bool fp16, int rank,
-                     const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+// Tensor map of a `rank`-dim tensor of element type `type` (dims innermost
+// first, the innermost contiguous; `strides` in bytes for dims 1..rank-1),
+// read in boxes of `box` elements per dim, 128-byte swizzled (box[0] of 128
+// bytes). Boxes past an edge, wholly or in part, read zeros. Returns false
+// if cuTensorMapEncodeTiled refuses.
+inline bool make_map_of(CUtensorMap* map, const void* base, CUtensorMapDataType type, int rank,
+                        const cuuint64_t* dims, const cuuint64_t* strides,
+                        const cuuint32_t* box) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr || !bind_context()) return false;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  return encode(map, fp16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                rank, const_cast<void*>(base), dims, strides, box, elem,
+  return encode(map, type, rank, const_cast<void*>(base), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// make_map_of, remembered by its arguments: for a tensor that calls read at
+// one address again and again (a weight, a KV pool), so that only the
+// first call pays cuTensorMapEncodeTiled. A map holds nothing but these
+// arguments, so an entry is right for whatever tensor lies at that address
+// with that shape later. At most 4096 entries; past that the table starts
+// afresh.
+inline bool make_map_of_cached(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                               int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                               const cuuint32_t* box) {
+  using Key = std::array<uint64_t, 16>;
+  struct Hash {
+    size_t operator()(const Key& k) const {
+      uint64_t h = 1469598103934665603ull;
+      for (uint64_t v : k) h = (h ^ v) * 1099511628211ull;
+      return static_cast<size_t>(h);
+    }
+  };
+  // the maps kept as plain bytes: CUtensorMap is 64-byte aligned
+  using Bytes = std::array<uint64_t, sizeof(CUtensorMap) / 8>;
+  static_assert(sizeof(CUtensorMap) % 8 == 0, "CUtensorMap is whole words");
+  static std::mutex mu;
+  static std::unordered_map<Key, Bytes, Hash> maps;
+  if (rank < 1 || rank > 5) return false;
+  Key key{};
+  key[0] = reinterpret_cast<uint64_t>(base);
+  key[1] = static_cast<uint64_t>(type) << 8 | static_cast<uint64_t>(rank);
+  for (int i = 0; i < rank; ++i) {
+    key[2 + i] = dims[i];
+    key[7 + i] = box[i];
+    if (i > 0) key[11 + i] = strides[i - 1];
+  }
+  std::lock_guard<std::mutex> lock(mu);
+  const auto hit = maps.find(key);
+  if (hit != maps.end()) {
+    std::memcpy(map, &hit->second, sizeof(CUtensorMap));
+    return true;
+  }
+  if (!make_map_of(map, base, type, rank, dims, strides, box)) return false;
+  if (maps.size() >= 4096) maps.clear();
+  Bytes bytes;
+  std::memcpy(bytes.data(), map, sizeof(CUtensorMap));
+  maps.emplace(key, bytes);
+  return true;
+}
+
+// The current device's SM count, asked of the runtime once per device; 0
+// if it cannot be read.
+inline int sm_count() {
+  static int counts[64] = {};
+  static std::mutex mu;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  std::lock_guard<std::mutex> lock(mu);
+  if (counts[dev] == 0 &&
+      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    counts[dev] = 0;
+  return counts[dev];
+}
+
+// cudaFuncSetAttribute(kernel, MaxDynamicSharedMemorySize, bytes) on the
+// current device, once per kernel, size and device (the attribute is the
+// device's).
+inline cudaError_t allow_smem(const void* kernel, int bytes) {
+  static std::mutex mu;
+  static std::set<std::pair<std::pair<const void*, int>, int>> done;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const auto key = std::make_pair(std::make_pair(kernel, bytes), dev);
+  std::lock_guard<std::mutex> lock(mu);
+  if (done.count(key)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) done.insert(key);
+  return e;
+}
+
+// make_map_of for a 16-bit tensor (fp16 or bf16), box[0] = 64.
+inline bool make_map(CUtensorMap* map, const void* base, bool fp16, int rank,
+                     const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+  return make_map_of(map, base,
+                     fp16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                     rank, dims, strides, box);
 }
 
 // Tensor map of one [B, T, heads, dh] 16-bit tensor with element strides

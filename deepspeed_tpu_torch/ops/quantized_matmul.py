@@ -15,8 +15,12 @@ tensors it runs ``quantized_matmul_reference``, the plain version: the
 ``dense_dequant`` route's arithmetic, ``x @ dequantize_lastdim(q,
 scale).to(x.dtype)`` with the products in fp32.
 
-The kernel takes what the TPU kernel refuses: any M >= 1 (decode at batch 4)
-and K % 512 != 0 (Llama's ``down_proj``, K = 11008); it needs bf16 or fp16
+The source routes by the row count (``kernel_route``; ``kernel_launches``
+reads the library's tally of what each call launched): up to
+``DECODE_MAX_ROWS`` rows to ``decode_mma`` (mma.sync on weights dequantized
+in registers), more to ``prefill_wgmma`` (wgmma on a dequantized tile).
+Both take what the TPU kernel refuses: any M >= 1 (decode at batch 4) and
+K % 512 != 0 (Llama's ``down_proj``, K = 11008); they need bf16 or fp16
 activations, K % 8 == 0, N % gs == 0 and gs % 16 == 0.
 """
 
@@ -27,7 +31,10 @@ import torch
 
 from deepspeed_tpu_torch.ops.quantizer import dequantize_lastdim
 
-BN, BK = 128, 32          # the kernel's column tile and contraction stage
+BN, BK = 256, 64          # the kernels' column tile and contraction stage
+DECODE_MAX_ROWS = 16      # rows up to which the source routes to decode_mma
+PREFILL_BM = 128          # prefill_wgmma's row tile
+KERNELS = ("decode_mma", "prefill_wgmma")   # the source's enum Kernel, in order
 _X_CODES = {torch.float16: 1, torch.bfloat16: 2}
 _OUT_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
@@ -62,18 +69,46 @@ def _sm_count(device_index):
 
 @functools.lru_cache(maxsize=None)
 def plan(M, K, N, sm_count):
-    """``(bm, splits, k_split)``: the row tile (16 up to M = 16, else 128)
-    and, when the output tiles alone fill fewer blocks than the card has
-    SMs, K split into ``splits`` ranges of ``k_split`` (a multiple of BK,
-    at least 8 stages each) so that about four blocks run per SM."""
-    bm = 16 if M <= 16 else 128
-    tiles = -(-N // BN) * -(-M // bm)
-    k_tiles = -(-K // BK)
-    splits = 1
-    if tiles < sm_count:
-        splits = max(1, min(-(-4 * sm_count // tiles), k_tiles // 8))
-    k_split = -(-k_tiles // splits) * BK
-    return bm, -(-K // k_split), k_split
+    """``(kernel, splits, k_split)``: the kernel the source routes M rows to
+    (a name of ``KERNELS``) and K cut into ``splits`` ranges of ``k_split``
+    rows (a multiple of BK) so that the work items (row tile, BN columns, K
+    range) spread evenly over the card: the fewest splits that minimise
+    waves x stages per item, where a wave is one item on each of the
+    kernel's resident blocks (two per SM for decode, one for prefill). A
+    split's fp32 partial sums cross HBM twice, M x N x 4 bytes each way:
+    cheap beside the weight at decode's few rows, not at prefill's, so
+    prefill splits only a launch whose tiles leave SMs idle, into at most
+    one wave of items of at least four stages each."""
+    decode = M <= DECODE_MAX_ROWS
+    slots = (2 if decode else 1) * sm_count
+    tiles = -(-N // BN) * (1 if decode else -(-M // PREFILL_BM))
+    k_stages = -(-K // BK)
+    most = k_stages if decode else max(1, min(k_stages // 4, slots // tiles))
+    best = None
+    for s in range(1, min(most, 64) + 1):
+        per = -(-k_stages // s)
+        cost = -(-tiles * -(-k_stages // per) // slots) * per
+        if best is None or cost < best[0]:
+            best = (cost, per)
+    k_split = best[1] * BK
+    return KERNELS[0 if decode else 1], -(-K // k_split), k_split
+
+
+def work_items(M, K, N, sm_count):
+    """The kernel's work items in launch order, as ``(row0, col0, k0, k1)``:
+    item i is split i // tiles and tile i % tiles, column tile by column
+    tile with the row tiles of one column tile next to each other (the
+    source's ``qmm_item``); each covers rows row0 .. row0 + tile rows,
+    columns col0 .. col0 + BN and contraction rows k0 .. k1."""
+    kernel, splits, k_split = plan(M, K, N, sm_count)
+    bm = DECODE_MAX_ROWS if kernel == KERNELS[0] else PREFILL_BM
+    n_mt, n_ct = -(-M // bm), -(-N // BN)
+    items = []
+    for i in range(n_mt * n_ct * splits):
+        sp, t = divmod(i, n_mt * n_ct)
+        k0 = sp * k_split
+        items.append(((t % n_mt) * bm, (t // n_mt) * BN, k0, min(k0 + k_split, K)))
+    return items
 
 
 def quantized_matmul_reference(x, q, scale, group_size, out_dtype=None):
@@ -88,11 +123,32 @@ def _library():
     lib = cuda_build.load("quantized_matmul")
     if lib.ds_quantized_matmul.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ds_quantized_matmul.argtypes = [p] * 5 + [i] * 9 + [p]
+        lib.ds_quantized_matmul.argtypes = [p] * 5 + [i] * 8 + [p]
         lib.ds_quantized_matmul.restype = ctypes.c_int
         lib.ds_cuda_error_string.argtypes = [i]
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
+        lib.ds_qmm_route.argtypes = [i]
+        lib.ds_qmm_route.restype = i
+        lib.ds_qmm_kernel_launches.argtypes = [i]
+        lib.ds_qmm_kernel_launches.restype = ctypes.c_longlong
     return lib
+
+
+def kernel_route(M):
+    """The kernel (a name of ``KERNELS``) that a product of M rows launches,
+    as the kernel source decides it (``ds_qmm_route``). Builds the
+    library."""
+    k = _library().ds_qmm_route(M)
+    if k < 0:
+        raise ValueError(f"no quantized matmul kernel takes M={M} rows")
+    return KERNELS[k]
+
+
+def kernel_launches():
+    """{kernel: launches so far} over ``KERNELS``, counted by the library
+    where it launches each kernel: which kernels the calls went to."""
+    lib = _library()
+    return {name: lib.ds_qmm_kernel_launches(i) for i, name in enumerate(KERNELS)}
 
 
 def _check_cuda_args(x, q, scale, group_size, out_dtype):
@@ -132,7 +188,7 @@ def quantized_matmul(x, q, scale, group_size, out_dtype=None):
         return quantized_matmul_reference(x, q, scale, group_size, out_dtype)
     out_dtype = out_dtype or x.dtype
     M, K, N, gs = _check_cuda_args(x, q, scale, group_size, out_dtype)
-    bm, splits, k_split = plan(M, K, N, _sm_count(x.device.index))
+    _, splits, k_split = plan(M, K, N, _sm_count(x.device.index))
     out = torch.empty(M, N, dtype=out_dtype, device=x.device)
     work = (torch.empty(splits, M, N, dtype=torch.float32, device=x.device)
             if splits > 1 else None)
@@ -140,7 +196,7 @@ def quantized_matmul(x, q, scale, group_size, out_dtype=None):
     rc = lib.ds_quantized_matmul(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
         None if work is None else work.data_ptr(), M, K, N, gs,
-        _X_CODES[x.dtype], _OUT_CODES[out_dtype], bm, splits, k_split,
+        _X_CODES[x.dtype], _OUT_CODES[out_dtype], splits, k_split,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc:
         raise RuntimeError(f"quantized_matmul kernel launch failed: "

@@ -128,10 +128,14 @@ def main(argv=None):
         "device_idle_share": (1 - busy_ms / round_ms) if per_kernel else None,
         "groups_ms_per_round": groups,
         "top_kernels_ms_per_round": {k[:90]: v / args.rounds for k, v in top},
+        # launches of the rows' kernels, not of the passes that merge their
+        # key splits (quantized_matmul_split_reduce, paged_mha_combine)
         "quantized_matmul_kernels_per_round": sum(
-            e.count for e in device if "quantized_matmul" in e.key) / args.rounds,
+            e.count for e in device
+            if "quantized_matmul" in e.key and "split_reduce" not in e.key) / args.rounds,
         "paged_mha_kernels_per_round": sum(
-            e.count for e in device if "paged_mha" in e.key) / args.rounds,
+            e.count for e in device
+            if "paged_mha" in e.key and "combine" not in e.key) / args.rounds,
         "grouped_gemm_kernels_per_round": sum(
             e.count for e in device if "grouped_gemm" in e.key) / args.rounds}))
 

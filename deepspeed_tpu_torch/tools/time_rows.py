@@ -1,0 +1,104 @@
+"""Times kernel rows 1 (paged attention) and 7 (W8A16 dequantize-matmul) at
+the serving shapes of Llama-2-7B and Mixtral-8x7B, through their public
+entry points, on one GPU.
+
+    python3 deepspeed_tpu_torch/tools/time_rows.py [--root DIR] [--iters 50]
+
+The cases, their inputs and the timers are those of this checkout's
+``chip_smoke.py`` (``CASES`` and ``make_case``, ``QMM_CASES`` and
+``qmm_inputs``, ``time_ms`` and ``device_ms``), drawn from fixed seeds.
+``--root`` imports ``deepspeed_tpu_torch`` from another checkout (for
+example the parent commit unpacked under ``build/``), so that two versions
+are timed by the same script on the same inputs and card: run parent,
+change, change, parent. Row 7's weights rotate past the L2 cache. Prints
+one JSON line: the card (name and power limit), the root, and for each
+case the milliseconds per call of the stream (CUDA events around
+back-to-back calls: where the host enqueues a call more slowly than the
+card runs it, this is the host's time), the host's microseconds to
+enqueue a call (the wrapper's checks, allocations and library call, read
+by the host's clock over back-to-back calls that do not wait for the
+card) and the device time per call of the row's kernels, their
+split-merging passes included (``torch.profiler``, kernel names holding
+``paged_mha``, or ``quantized_matmul`` / ``split_reduce``). Needs a CUDA
+device.
+"""
+
+import argparse
+import importlib.util
+import itertools
+import json
+import sys
+import time
+from pathlib import Path
+
+HARNESS = Path(__file__).resolve().parents[2] / "chip_smoke.py"
+PAGED = ("decode_7b", "decode_serve_7b", "decode_serve_8x7b", "prefill_chunk_7b",
+         "mixed_chunk_decode_7b")
+QMM = ("decode_7b_gate", "decode_7b_down", "decode_7b_q", "prefill_7b_gate",
+       "prefill_7b_down")
+
+
+def host_us(fn, iters):
+    """Host microseconds per call over ``iters`` back-to-back calls, timed
+    without waiting for the card (fewer calls than fill its launch queue)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(HARNESS.parent))
+    ap.add_argument("--iters", type=int, default=50)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, args.root)
+    spec = importlib.util.spec_from_file_location("chip_smoke", HARNESS)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("time_rows: no CUDA device")
+    from deepspeed_tpu_torch.ops import cuda_build
+    cuda_build.build("paged_attention", "quantized_matmul")
+    from deepspeed_tpu_torch.ops.paged_attention import paged_mha
+    from deepspeed_tpu_torch.ops.quantized_matmul import quantized_matmul
+
+    result = {"device": smoke.nvidia_smi(), "root": args.root, "paged_mha_ms": {},
+              "quantized_matmul_ms": {}, "paged_mha_device_ms": {},
+              "quantized_matmul_device_ms": {}, "paged_mha_host_us": {},
+              "quantized_matmul_host_us": {}}
+    for i, case in enumerate(c for c in smoke.CASES if c[0] in PAGED):
+        a = smoke.make_case(case, torch.Generator(device="cuda").manual_seed(i),
+                            np.random.default_rng(i))
+        call = lambda: paged_mha(a["q"], a["k_pool"], a["v_pool"], a["block_tables"],
+                                 a["seen"], a["q_len"], window=a["window"])
+        result["paged_mha_ms"][case[0]] = smoke.time_ms(call, args.iters)
+        result["paged_mha_host_us"][case[0]] = host_us(call, args.iters)
+        result["paged_mha_device_ms"][case[0]] = smoke.device_ms(call, args.iters,
+                                                                 ("paged_mha",))
+        del a
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for case in (c for c in smoke.QMM_CASES if c[0] in QMM):
+        name, M, K, N, G = case[:5]
+        x, q, s = smoke.qmm_inputs(case, gen)
+        ws = itertools.cycle([(q.clone(), s.clone()) for _ in range(smoke.qmm_copies(K, N))])
+        iters = args.iters if M <= 16 else 10
+        call = lambda: quantized_matmul(x, *next(ws), G)
+        result["quantized_matmul_ms"][name] = smoke.time_ms(call, iters)
+        result["quantized_matmul_host_us"][name] = host_us(call, iters)
+        result["quantized_matmul_device_ms"][name] = smoke.device_ms(
+            call, iters, ("quantized_matmul", "split_reduce"))
+        del x, q, s, ws
+        torch.cuda.empty_cache()
+    print(json.dumps(result), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -27,6 +27,12 @@ The block-sparse forward rounds p to v's dtype against the running maximum
 after each whole layout block; ``sparse_flip_slack``, ``sparse_probe`` and
 ``sparse_rounding_faults`` are its counterparts of the forward's helpers.
 
+Paged attention's tensor-core kernel rounds p to v's dtype before P.V, as
+the TPU kernel does (``paged_mha_kernel_form``), against the running maximum
+of its 64-key tiles and of its key split, where the TPU kernel takes its
+pages in order; ``paged_flip_slack``, ``paged_probe`` and
+``paged_rounding_faults`` hold it there.
+
 Imports torch and the port only, not JAX.
 """
 
@@ -40,17 +46,23 @@ from deepspeed_tpu_torch.ops import flash_attention as fa
 U32 = 2.0 ** -24   # unit roundoff of fp32
 
 
+def spacing(x, dtype):
+    """One spacing of ``dtype`` at |x|: eps 2^floor(log2 |x|), at least the
+    subnormal spacing."""
+    fi = torch.finfo(dtype)
+    return torch.clamp(fi.eps * torch.exp2(torch.floor(torch.log2(x.abs()))),
+                       min=fi.smallest_normal * fi.eps)
+
+
 def boundary_slack(x, dtype, tol):
     """One spacing of ``dtype`` at x where x, changed by at most ``tol``,
     could round to another value of ``dtype``; else 0."""
     r = x.to(dtype).float()
     a, ra = x.abs(), r.abs()
-    fi = torch.finfo(dtype)
-    spacing = torch.clamp(fi.eps * torch.exp2(torch.floor(torch.log2(ra))),
-                          min=fi.smallest_normal * fi.eps)
-    below = torch.where(torch.frexp(ra).mantissa == 0.5, spacing / 4, spacing / 2)
-    dist = torch.minimum(a - (ra - below), ra + spacing / 2 - a)
-    return torch.where(dist <= tol, spacing, 0.0)
+    step = spacing(ra, dtype)
+    below = torch.where(torch.frexp(ra).mantissa == 0.5, step / 4, step / 2)
+    dist = torch.minimum(a - (ra - below), ra + step / 2 - a)
+    return torch.where(dist <= tol, step, 0.0)
 
 
 def flip_slack(q, k, v, dout, lse, delta, bias=None, segment_ids=None,
@@ -472,3 +484,110 @@ def sparse_flip_slack(q, k, v, cols, counts, block, causal, scale):
         m, l, slack = (torch.where(live, a, b) for a, b in ((m_cur, m), (l_cur, l), (sl, slack)))
     slack = slack / torch.where(l == 0, 1.0, l)
     return slack.reshape(B, H, S, D)
+
+
+# ---------------------------------------------------------------------------
+# paged attention (ops/paged_attention.py)
+# ---------------------------------------------------------------------------
+
+
+def paged_flip_slack(q, k_pool, v_pool, block_tables, seen, q_len, *, softmax_scale=None,
+                     window=None):
+    """fp32 [S, Q, H, Dh]: how far an output of p rounded to v's dtype may
+    lie from ``paged_mha_reference``'s (p in fp32): one spacing of p in v's
+    dtype times |v| / l, summed over the row's visible keys, with p =
+    exp(s - m) and l against the row's final maximum m.
+
+    A kernel that rounds p' = exp(s - m') against a maximum m' <= m (a page's
+    or tile's running maximum, or a key split's) and rescales by r =
+    exp(m' - m) moves each term by at most half a spacing of p' times r;
+    half a spacing of p' is at most eps p' / 2, so that times r is eps p / 2,
+    under one spacing of p. So the slack admits any maximum and any order of
+    pages, tiles and splits; q.k summed in another order moves p by a few
+    fp32 units, far inside it. A page read in place of another moves the
+    output by whole terms p v / l, which the slack does not cover."""
+    from deepspeed_tpu_torch.ops.paged_attention import NEG_INF
+    S, Q, H, Dh = q.shape
+    _, KV, bs, _ = k_pool.shape
+    MB = block_tables.shape[1]
+    rep = H // KV
+    scale = softmax_scale if softmax_scale is not None else Dh ** -0.5
+    bt = block_tables.long()
+    keys = k_pool[bt].float().permute(0, 2, 1, 3, 4).reshape(S, KV, MB * bs, Dh)
+    vals = v_pool[bt].float().abs().permute(0, 2, 1, 3, 4).reshape(S, KV, MB * bs, Dh)
+    qg = q.float().reshape(S, Q, KV, rep, Dh)
+    logits = torch.einsum("sqkrd,sktd->skrqt", qg, keys) * scale
+    del keys
+    kpos = torch.arange(MB * bs, device=q.device)
+    tok = torch.arange(Q, device=q.device)
+    qpos = seen.long()[:, None] + tok[None, :]
+    visible = kpos[None, None, :] <= qpos[:, :, None]
+    if window:
+        visible &= kpos[None, None, :] > (qpos - window)[:, :, None]
+    visible = visible[:, None, None]
+    logits = torch.where(visible, logits, NEG_INF)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    del logits
+    l = p.sum(-1, keepdim=True)
+    w = torch.where(visible, spacing(p, v_pool.dtype), 0.0) / torch.where(l == 0, 1.0, l)
+    del p
+    slack = torch.einsum("skrqt,sktd->sqkrd", w, vals).reshape(S, Q, H, Dh)
+    live = tok[None, :] < q_len.long()[:, None]
+    return torch.where(live[:, :, None, None], slack, 0.0)
+
+
+def paged_probe(dtype, dh, bs, device, Q=1, rep=2, seed=0):
+    """((q, k_pool, v_pool, block_tables, seen, q_len), kwargs): one
+    sequence of PROBE_TK keys in shuffled pages of ``bs`` keys, one kv head
+    shared by ``rep`` query heads, Q query tokens seeing PROBE_TK - Q + 1 ..
+    PROBE_TK keys, on which the output cancels in all but every 8th column
+    unless p rounds once to ``dtype`` before P.V.
+
+    scale 1, q = e_0, k_j = c_j e_0, so s_j = c_j exactly. The first key of
+    every 64 keys has c = 0, the logits' maximum, so that every page, tile
+    and key split takes its p against 0 from its first key on. Pairs of
+    keys (a, b), both seen by every row, have p_a = exp(a) rounding up and
+    p_b = exp(b) rounding down in ``dtype`` (at least a tenth of a spacing
+    from the midpoint) and v_a = p_b, v_b = -p_a (rounded): each pair adds
+    exactly 0 with p rounded so, in any order; with p unrounded the pairs
+    add terms of one sign, rounded to the other 16-bit type terms that do
+    not cancel. The other keys have c = -8 and v = 0 there."""
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda x: x.to(dtype).float()
+    cands = torch.unique(torch.linspace(-1.0, -0.25, 4096).to(dtype)).float()
+    up, down = _up_and_down(torch.exp(cands), cands, dtype)
+    c, v = torch.full((PROBE_TK,), -8.0), torch.zeros(PROBE_TK, dh)
+    c[::64] = 0.0
+    last = PROBE_TK - Q          # the last key every row sees
+    for j in range(PROBE_TK - 1):
+        if j % 64 in range(1, 63, 2) and j + 1 <= last:
+            a = up[torch.randint(len(up), (1,), generator=gen)]
+            b = down[torch.randint(len(down), (1,), generator=gen)]
+            c[j], c[j + 1] = a, b
+            v[j], v[j + 1] = rnd(torch.exp(b)), -rnd(torch.exp(a))
+    v[:, ::8] = PROBE_V
+    n_pages = PROBE_TK // bs
+    pages = torch.randperm(n_pages, generator=gen)
+    k_pool = torch.zeros(n_pages + 1, 1, bs, dh)
+    v_pool = torch.zeros(n_pages + 1, 1, bs, dh)
+    for i in range(n_pages):
+        k_pool[pages[i], 0, :, 0] = c[i * bs:(i + 1) * bs]
+        v_pool[pages[i], 0] = v[i * bs:(i + 1) * bs]
+    q = torch.zeros(1, Q, rep, dh)
+    q[..., 0] = 1
+    i32 = dict(dtype=torch.int32, device=device)
+    return ((q.to(dtype).to(device), k_pool.to(dtype).to(device), v_pool.to(dtype).to(device),
+             pages[None].to(**i32), torch.tensor([last], **i32), torch.tensor([Q], **i32)),
+            dict(softmax_scale=1.0))
+
+
+def paged_rounding_faults(q, k_pool, v_pool, block_tables, seen, q_len, **kw):
+    """{fault: out} of the plain paged attention with p rounded elsewhere:
+    not at all (``paged_mha_reference``), or to the other 16-bit type."""
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    other = torch.float16 if v_pool.dtype == torch.bfloat16 else torch.bfloat16
+    args = (q, k_pool, v_pool, block_tables, seen, q_len)
+    return {"p_unrounded": pa.paged_mha_reference(*args, **kw),
+            f"p_in_{str(other).split('.')[1]}": pa._paged_form(
+                *args, None, None, kw.get("softmax_scale"), kw.get("window"),
+                lambda p, v: p.to(other).float())}

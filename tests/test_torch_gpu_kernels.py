@@ -13,9 +13,13 @@ in summation order before the final rounding to the output dtype, which
 moves a value by at most one unit in its last place: 2^-7 of it in bf16,
 2^-10 in fp16; fp32 outputs are not rounded again. ATOL covers the fp32
 summation-order noise of elements near 0. A one-page fault exceeds the bound
-by two orders of magnitude (``test_bound_rejects_one_page_fault``). The flash
-attention and grouped-GEMM kernels' bound is stated beside their tests
-below.
+by two orders of magnitude (``test_bound_rejects_one_page_fault``). The
+paged kernel's tensor-core route (bf16/fp16 q with fp pools at head widths
+64 and 128) rounds p to v's dtype before P.V as the TPU kernel does, where
+the plain version keeps p in fp32: its bound adds ``paged_flip_slack``
+(``tests/flash_rounding.py``), and ``paged_probe`` holds its rounding point
+with no slack. The flash attention and grouped-GEMM kernels' bound is stated
+beside their tests below.
 """
 
 from unittest import mock
@@ -24,9 +28,11 @@ import pytest
 import torch
 from flash_rounding import (dkv_probe, dkv_probe_value, dkv_rounding_faults,
                             dkv_split_product, dq_probe, dq_rounding_faults, flip_slack,
-                            fwd_probe, fwd_rounding_faults, sparse_flip_slack, sparse_probe,
+                            fwd_probe, fwd_rounding_faults, paged_flip_slack, paged_probe,
+                            paged_rounding_faults, sparse_flip_slack, sparse_probe,
                             sparse_rounding_faults)
 
+from deepspeed_tpu_torch.ops import paged_attention as pa
 from deepspeed_tpu_torch.ops.paged_attention import paged_mha, paged_mha_reference
 
 gpu = pytest.mark.gpu
@@ -35,9 +41,10 @@ ATOL = 2e-5
 RTOL = {torch.bfloat16: 2 ** -7, torch.float16: 2 ** -10, torch.float32: 2 ** -16}
 
 
-def err_ratio(out, ref):
-    """Largest |out - ref| / (ATOL + RTOL * |ref|): at most 1 passes."""
-    bound = ATOL + RTOL[ref.dtype] * ref.float().abs()
+def err_ratio(out, ref, slack=0.0):
+    """Largest |out - ref| / (ATOL + RTOL * |ref| + slack): at most 1
+    passes."""
+    bound = ATOL + RTOL[ref.dtype] * ref.float().abs() + slack
     return ((out.float() - ref.float()).abs() / bound).max().item()
 
 
@@ -88,18 +95,38 @@ def test_bound_rejects_one_page_fault(dtype):
     assert err_ratio(paged_mha_reference(q, k, v, bt, seen, ql, **kw), ref) > 10
 
 
+def check_paged_kernel(args, kw, window=None):
+    """One call of the paged kernel on the card: the route the source
+    declares by the tally, the plain version within the bound (plus
+    paged_flip_slack on the tensor-core route), and beyond it a one-page
+    fault: the trash page read in place of the page holding key seen[0],
+    which query token 0 of sequence 0 sees under any window."""
+    q, k, v, bt, seen, ql = args
+    want = pa.kernel_route(q.dtype, kw["k_scale"] is not None, q.shape[-1], k.shape[2])
+    before, tally = paged_mha.launches, pa.kernel_launches()
+    out = paged_mha(*args, window=window, **kw)
+    after = pa.kernel_launches()
+    assert paged_mha.launches == before + 1
+    assert {n: after[n] - tally[n] for n in after if after[n] > tally[n]} == {want: 1}
+    ref = paged_mha_reference(*args, window=window, **kw)
+    slack = paged_flip_slack(*args, window=window) if want == "wgmma" else 0.0
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert err_ratio(out, ref, slack) <= 1
+    bad_bt = bt.clone()
+    bad_bt[0, int(seen[0]) // k.shape[2]] = k.shape[0] - 1
+    bad = paged_mha_reference(q, k, v, bad_bt, seen, ql, window=window, **kw)
+    assert err_ratio(bad, ref, slack) > 1
+    return out, ref
+
+
 @gpu
 @pytest.mark.parametrize("Q", [1, 8, 33])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("H,KV", [(8, 2), (4, 4)], ids=["gqa", "mha"])
 def test_kernel_matches_plain(cuda, Q, dtype, H, KV):
     args, kw = make_case(cuda, Q=Q, H=H, KV=KV, dtype=dtype, seed=Q)
-    before = paged_mha.launches
-    out = paged_mha(*args, **kw)
-    assert paged_mha.launches == before + 1
-    ref = paged_mha_reference(*args, **kw)
-    torch.cuda.synchronize()
-    assert err_ratio(out, ref) <= 1
+    check_paged_kernel(args, kw)
 
 
 @gpu
@@ -108,20 +135,162 @@ def test_kernel_matches_plain(cuda, Q, dtype, H, KV):
 @pytest.mark.parametrize("Dh", [16, 128, 256])
 def test_kernel_window_int8_head_dims(cuda, window, int8, Dh):
     args, kw = make_case(cuda, Q=8, Dh=Dh, int8=int8, seed=Dh)
-    out = paged_mha(*args, window=window, **kw)
-    ref = paged_mha_reference(*args, window=window, **kw)
-    torch.cuda.synchronize()
-    assert err_ratio(out, ref) <= 1
+    check_paged_kernel(args, kw, window)
+
+
+@gpu
+@pytest.mark.parametrize("bs", [16, 32, 128])
+@pytest.mark.parametrize("S,Q", [(2, 1), (3, 20)])
+def test_kernel_block_sizes_and_splits(cuda, bs, S, Q):
+    """The tensor-core route at every block size it takes, long enough for
+    key splits at decode (one sequence of one kv head: the split count is
+    the block table's width in key tiles over two)."""
+    args, kw = make_case(cuda, S=S, Q=Q, H=4, KV=1, Dh=64, bs=bs, MB=1024 // bs, seed=bs)
+    check_paged_kernel(args, kw)
+    check_paged_kernel(args, kw, window=300)
 
 
 @gpu
 def test_kernel_zero_rows(cuda):
     args, kw = make_case(cuda, S=4, Q=8, q_len=[8, 0, 3, 1])
-    out = paged_mha(*args, **kw)
-    torch.cuda.synchronize()
+    out, ref = check_paged_kernel(args, kw)
     assert not out[1].any() and not out[2, 3:].any() and not out[3, 1:].any()
-    ref = paged_mha_reference(*args, **kw)
+
+
+@gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("bs,Q,rep", [(64, 1, 1), (16, 16, 4), (32, 8, 2)])
+def test_paged_kernel_rounds_where_the_tpu_kernel_does(cuda, dh, bs, Q, rep, dtype):
+    """On ``paged_probe`` the tensor-core kernel (two key splits at Q 1)
+    equals the kernel form with no slack, and p unrounded or in the other
+    16-bit type fails that bound."""
+    args, kw = paged_probe(dtype, dh, bs, cuda, Q=Q, rep=rep)
+    tally = pa.kernel_launches()["wgmma"]
+    out = paged_mha(*args, **kw)
+    assert pa.kernel_launches()["wgmma"] == tally + 1
+    ref = pa.paged_mha_kernel_form(*args, **kw)
+    torch.cuda.synchronize()
     assert err_ratio(out, ref) <= 1
+    assert all(err_ratio(bad, ref) > 1 for bad in paged_rounding_faults(*args, **kw).values())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bs,Q,rep", [(64, 1, 1), (16, 16, 4)])
+def test_paged_probe_rejects_rounding_point_faults(dtype, bs, Q, rep):
+    """On ``paged_probe`` the kernel form's output is exactly 0 off every
+    8th column, and p unrounded or rounded to the other 16-bit type fails
+    the bound by fivefold or more."""
+    args, kw = paged_probe(dtype, 64, bs, torch.device("cpu"), Q=Q, rep=rep)
+    form = pa.paged_mha_kernel_form(*args, **kw)
+    assert not form[..., torch.arange(64) % 8 != 0].any()
+    assert form[..., ::8].abs().min() > 0
+    for fault, bad in paged_rounding_faults(*args, **kw).items():
+        assert err_ratio(bad, form) > 4, fault
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("Q,H,KV,window", [(1, 8, 2, None), (8, 4, 4, None),
+                                           (33, 8, 2, 40)])
+def test_paged_flip_slack_admits_the_kernel_form(dtype, Q, H, KV, window):
+    """p rounded to v's dtype (the kernel form, as the TPU kernel and the
+    tensor-core kernel round it) lies within ATOL + RTOL |plain| plus
+    ``paged_flip_slack`` of the fp32-p plain version, and not within the
+    bound alone; a one-page fault stays beyond the bound with the slack."""
+    args, kw = make_case(torch.device("cpu"), Q=Q, H=H, KV=KV, dtype=dtype, seed=Q)
+    ref = paged_mha_reference(*args, window=window)
+    form = pa.paged_mha_kernel_form(*args, window=window)
+    slack = paged_flip_slack(*args, window=window)
+    assert err_ratio(form, ref) > 1
+    assert err_ratio(form, ref, slack) <= 1
+    q, k, v, bt, seen, ql = args
+    bad_bt = bt.clone()
+    bad_bt[0, 0] = k.shape[0] - 1
+    assert err_ratio(paged_mha_reference(q, k, v, bad_bt, seen, ql, window=window), ref,
+                     slack) > 10
+
+
+def split_merge(args, splits, window=None):
+    """A plain emulation of the tensor-core kernel's key splits, p in fp32:
+    each (sequence, kv head) item's key tiles cut by ``pa.split_ranges``,
+    each split's online softmax over 64-key tiles from m = NEG_INF (an empty
+    split leaves m = -inf, l = 0), then the combine in split order: out =
+    sum w_s o_s / sum w_s l_s, w_s = exp(m_s - max m), splits with l = 0
+    skipped, rows past q_len 0."""
+    q, k, v, bt, seen, ql = args
+    S, Q, H, Dh = q.shape
+    KV, bs = k.shape[1], k.shape[2]
+    rep, T = H // KV, pa.KEY_TILE
+    keys = k[bt.long()].float().permute(0, 2, 1, 3, 4).reshape(S, KV, -1, Dh)
+    vals = v[bt.long()].float().permute(0, 2, 1, 3, 4).reshape(S, KV, -1, Dh)
+    out = torch.zeros(S, Q, H, Dh)
+    for s in range(S):
+        for h in range(KV):
+            ranges = pa.split_ranges(int(seen[s]), int(ql[s]), Q, rep, window, splits)
+            for g in range(rep * Q):
+                qi, head = g % Q, h * rep + g // Q
+                if qi >= ql[s]:
+                    continue
+                qpos = int(seen[s]) + qi
+                parts = []
+                for first, end in ranges:
+                    m, l, o = float("-inf"), 0.0, torch.zeros(Dh)
+                    if first < end:
+                        m = pa.NEG_INF
+                    for t in range(first, end):
+                        kpos = torch.arange(t * T, (t + 1) * T)
+                        kt = torch.nn.functional.pad(keys[s, h], (0, 0, 0, T))[kpos]
+                        vt = torch.nn.functional.pad(vals[s, h], (0, 0, 0, T))[kpos]
+                        x = kt @ q[s, qi, head].float() * Dh ** -0.5
+                        vis = kpos <= qpos
+                        if window:
+                            vis &= kpos > qpos - window
+                        x = torch.where(vis, x, pa.NEG_INF)
+                        m_new = max(m, float(x.max()))
+                        alpha = torch.exp(torch.tensor(m - m_new))
+                        p = torch.exp(x - m_new)
+                        l, o, m = float(alpha * l + p.sum()), o * alpha + p @ vt, m_new
+                    parts.append((m, l, o))
+                mx = max(m for m, l, _ in parts if l > 0)
+                w = [float(torch.exp(torch.tensor(m - mx))) if l > 0 else 0.0
+                     for m, l, _ in parts]
+                num = sum(wi * o for wi, (_, l, o) in zip(w, parts) if l > 0)
+                out[s, qi, head] = num / sum(wi * l for wi, (_, l, _) in zip(w, parts))
+    return out
+
+
+@pytest.mark.parametrize("Q,window", [(1, None), (8, None), (16, 24)])
+def test_split_and_combine_equals_the_unsplit_form(Q, window):
+    """1-4 key splits merged as the kernel merges them equal the unsplit
+    online softmax within fp32 summation error, with splits that see no
+    visible key (a chunk's early rows against a split of later keys) and
+    empty splits (more splits than key tiles); the ranges cover every tile
+    of the item exactly once."""
+    args, _ = make_case(torch.device("cpu"), S=3, Q=Q, H=4, KV=2, Dh=32, bs=16, MB=12,
+                        dtype=torch.float32, seed=Q)
+    q, k, v, bt, seen, ql = args
+    seen[0] = 3          # one key tile: later splits are empty
+    one = split_merge(args, 1, window)
+    ref = paged_mha_reference(*args, window=window)
+    assert (one - ref).abs().max() <= 1e-5
+    for splits in (2, 3, 4):
+        for s in range(3):
+            ranges = pa.split_ranges(int(seen[s]), int(ql[s]), Q, 2, window, splits)
+            tiles = [t for a, b in ranges for t in range(a, b)]
+            assert tiles == list(range(ranges[0][0], ranges[-1][1]))
+        assert (split_merge(args, splits, window) - one).abs().max() <= 1e-5
+
+
+def test_paged_split_count_follows_the_shapes():
+    """Splits only for a decode round's one-row-tile items that would not
+    fill 4 x 2 x SMs blocks; at most MAX_SPLITS, each of two key tiles."""
+    assert pa.split_count(32, 1, 32, 32, 64, 63, 132) == 2        # decode_7b
+    assert pa.split_count(8, 8, 32, 32, 64, 25, 132) == 5         # decode_serve_7b
+    assert pa.split_count(8, 8, 32, 8, 64, 25, 132) == 12         # Mixtral's round
+    assert pa.split_count(4, 256, 32, 32, 64, 33, 132) == 1       # a prefill chunk
+    assert pa.split_count(8, 8, 32, 32, 64, 1, 132) == 1          # one key tile
+    assert pa.split_count(1, 1, 1, 1, 64, 4096, 132) == pa.MAX_SPLITS
+    assert pa.split_count(600, 1, 32, 32, 64, 63, 132) == 1
 
 
 @gpu
@@ -553,18 +722,21 @@ class StandInLibrary:
         self.asked = args
         return self.route
 
-    ds_flash_route = ds_grouped_route = ds_sparse_route = _route
+    ds_flash_route = ds_grouped_route = ds_sparse_route = ds_qmm_route = ds_paged_route = _route
 
     def ds_flash_kernel_launches(self, i):
         return 10 * i
 
     ds_grouped_kernel_launches = ds_sparse_kernel_launches = ds_flash_kernel_launches
+    ds_qmm_kernel_launches = ds_paged_kernel_launches = ds_flash_kernel_launches
 
 
 @pytest.mark.parametrize("module,source", [("flash_attention", "flash_attention.cu"),
                                            ("grouped_gemm", "grouped_gemm.cu"),
                                            ("block_sparse_attention",
-                                            "block_sparse_attention.cu")])
+                                            "block_sparse_attention.cu"),
+                                           ("quantized_matmul", "quantized_matmul.cu"),
+                                           ("paged_attention", "paged_attention.cu")])
 def test_kernel_tally_names_follow_the_source(module, source):
     """``KERNELS``, the names ``kernel_launches`` gives the library's tally,
     is the source's ``enum Kernel`` in order; the reader maps count i to
@@ -616,6 +788,57 @@ def test_sparse_route_reader_asks_by_dtype_block_and_head_width():
     with mock.patch.object(bsa, "_library", lambda: StandInLibrary(-1)):
         with pytest.raises(ValueError, match="block 256"):
             bsa.kernel_route(torch.bfloat16, 256, 128)
+
+
+def test_qmm_and_paged_route_readers_ask_the_source():
+    """``kernel_route`` of rows 7 and 1 hands the source its arguments
+    (rows; dtype code, int8 pools, head width, block size) and names the
+    kernel by index; a refusal (-1) raises."""
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+    for name in qm.KERNELS:
+        lib = StandInLibrary(qm.KERNELS.index(name))
+        with mock.patch.object(qm, "_library", lambda: lib):
+            assert qm.kernel_route(13) == name
+        assert lib.asked == (13,)
+    for name in pa.KERNELS:
+        lib = StandInLibrary(pa.KERNELS.index(name))
+        with mock.patch.object(pa, "_library", lambda: lib):
+            assert pa.kernel_route(torch.float16, True, 128, 64) == name
+        assert lib.asked == (1, 1, 128, 64)
+    with mock.patch.object(qm, "_library", lambda: StandInLibrary(-1)):
+        with pytest.raises(ValueError, match="M=0"):
+            qm.kernel_route(0)
+    with mock.patch.object(pa, "_library", lambda: StandInLibrary(-1)):
+        with pytest.raises(ValueError, match="head width 40"):
+            pa.kernel_route(torch.bfloat16, False, 40, 64)
+
+
+def test_plan_constants_match_the_source():
+    """The Python side's copies of the constants its plans mirror are the
+    sources': row 7's decode row limit, column tile and stage, and the
+    paged kernel's key tile."""
+    import re
+    from pathlib import Path
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+    csrc = Path(__file__).resolve().parents[1] / "deepspeed_tpu_torch" / "csrc"
+    qmm = (csrc / "quantized_matmul.cu").read_text()
+    paged = (csrc / "paged_attention.cu").read_text()
+    assert int(re.search(r"kDecodeMaxRows = (\d+);", qmm).group(1)) == qm.DECODE_MAX_ROWS
+    assert int(re.search(r"constexpr int kBN = (\d+);", qmm).group(1)) == qm.BN
+    assert int(re.search(r"constexpr int kBK = (\d+);", qmm).group(1)) == qm.BK
+    assert int(re.search(r"constexpr int kTile = (\d+);", paged).group(1)) == pa.KEY_TILE
+
+
+@gpu
+def test_paged_main_path_and_probe_shapes_route_to_tensor_cores(cuda):
+    """The source routes the serving main path's shape (bf16 q and pools,
+    head width 128, pages of 64) and the rounding probe's shapes (bf16 and
+    fp16, widths 64 and 128, pages of 16, 32 and 64) to the wgmma kernel."""
+    assert pa.kernel_route(torch.bfloat16, False, 128, 64) == "wgmma"
+    for dtype in (torch.bfloat16, torch.float16):
+        for dh in (64, 128):
+            for bs in (16, 32, 64):
+                assert pa.kernel_route(dtype, False, dh, bs) == "wgmma", (dtype, dh, bs)
 
 
 @gpu
@@ -780,6 +1003,26 @@ def test_training_profile_groups_each_grouped_kernel_apart(name, group):
     profiler reports."""
     from deepspeed_tpu_torch.tools.profile_train import _group
     assert _group(name) == group
+
+
+@pytest.mark.parametrize("name", [
+    "void (anonymous namespace)::paged_mha_wgmma<__nv_bfloat16, 128>((anonymous "
+    "namespace)::PagedParams, CUtensorMap_st, CUtensorMap_st)",
+    "void (anonymous namespace)::paged_mha_combine<__nv_bfloat16, 128>((anonymous "
+    "namespace)::PagedParams)",
+    "void (anonymous namespace)::paged_mha_kernel<float, signed char, 128>(float const*, ...)",
+    "void (anonymous namespace)::quantized_matmul_decode<__nv_bfloat16, __nv_bfloat16, 1>("
+    "CUtensorMap_st, CUtensorMap_st, float const*, __nv_bfloat16*, float*, int, int, int, "
+    "int, int, int)",
+    "void (anonymous namespace)::quantized_matmul_wgmma<__nv_bfloat16, __nv_bfloat16>(...)",
+    "void (anonymous namespace)::quantized_matmul_split_reduce<__nv_bfloat16>(float const*, "
+    "__nv_bfloat16*, long, int)",
+])
+def test_decode_profile_groups_rows_1_and_7(name):
+    """``tools/profile_decode.py`` puts every kernel of rows 1 and 7, the
+    passes that merge their key splits included, in the row's group."""
+    from deepspeed_tpu_torch.tools.profile_decode import _group
+    assert _group(name) == ("paged_attention" if "paged_mha" in name else "quantized_matmul")
 
 
 def gmm_launched(gg, tally):
@@ -1358,11 +1601,16 @@ def test_qmm_kernel_matches_plain(cuda, name):
     from deepspeed_tpu_torch.ops import quantized_matmul as qm
     M, K, N, G, dtype, out_dtype = QMM_CASES[name]
     x, q, s = qmm_case(M, K, N, G, dtype, cuda)
-    before = qm.quantized_matmul.launches
+    want = qm.kernel_route(M)
+    assert want == ("decode_mma" if M <= qm.DECODE_MAX_ROWS else "prefill_wgmma")
+    assert qm.plan(M, K, N, torch.cuda.get_device_properties(0).multi_processor_count)[0] == want
+    before, tally = qm.quantized_matmul.launches, qm.kernel_launches()
     out = qm.quantized_matmul(x, q, s, G, out_dtype=out_dtype)
+    after = qm.kernel_launches()
     ref = qm.quantized_matmul_reference(x, q, s, G, out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert qm.quantized_matmul.launches == before + 1
+    assert {n: after[n] - tally[n] for n in after if after[n] > tally[n]} == {want: 1}
     assert out.dtype == (out_dtype or dtype) and out.shape == (M, N)
     assert torch.isfinite(out).all()
     assert qmm_ratio(out, ref, x, q, s, G) <= 1

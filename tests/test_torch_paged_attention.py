@@ -14,11 +14,22 @@ Tolerance: inputs are fp32 and both sides compute in fp32; they differ only
 in summation order (online softmax over blocks vs one softmax), so 2e-5
 absolute on outputs of magnitude ~1 (as the JAX kernel tests use 2e-4 for
 their own kernel-vs-dense check, tightened here because nothing is bf16).
+
+At bf16 inputs the TPU kernel rounds p to v's dtype before P.V; the port's
+tensor-core kernel does too, and ``paged_mha_kernel_form`` is its plain
+version at that rounding point, page by page as the TPU kernel visits them.
+It is held to the Pallas kernel in interpret mode at one bf16 rounding of
+the output (2^-7 |pallas| + 2e-5), with at least 99.9% of the live outputs
+bitwise equal; the fp32-p plain version misses that bound (one p rounding
+moves an output by about one bf16 unit). On ``paged_probe``
+(``tests/flash_rounding.py``) the Pallas kernel itself cancels where p is
+rounded once to v's dtype.
 """
 
 import numpy as np
 import pytest
 import torch
+from flash_rounding import paged_probe, paged_rounding_faults
 
 import jax.numpy as jnp
 
@@ -26,8 +37,8 @@ from deepspeed_tpu.inference.v2.model_implementations.llama import (
     _paged_attention_dense)
 from deepspeed_tpu.ops.pallas.paged_attention import paged_mha as jax_paged_mha
 from deepspeed_tpu_torch.ops.paged_attention import (
-    _check_cuda_args, is_supported, paged_mha, paged_mha_reference,
-    unsupported_reason)
+    _check_cuda_args, is_supported, paged_mha, paged_mha_kernel_form,
+    paged_mha_reference, unsupported_reason)
 
 ATOL = 2e-5
 
@@ -192,3 +203,76 @@ def test_kernel_argument_checks():
         check(int8_args, ti["ks"].double(), ti["vs"])
     with pytest.raises(ValueError, match="cannot take"):
         check([t["q"][..., :8].contiguous()] + base[1:])
+
+
+# -- the TPU kernel's 16-bit rounding point ---------------------------------
+
+BF16_RTOL = 2 ** -7
+
+
+def jax_16bit(t, dtype):
+    """A CPU tensor as a JAX array of ``dtype`` (int8 kept)."""
+    if t.dtype == torch.int8:
+        return jnp.asarray(t.numpy())
+    return jnp.asarray(t.float().numpy()).astype(dtype)
+
+
+def pallas_16bit(args, kw, dtype):
+    q, k, v, bt, seen, q_len = args
+    ks, vs = kw.get("k_scale"), kw.get("v_scale")
+    out = jax_paged_mha(jax_16bit(q, dtype), jax_16bit(k, dtype), jax_16bit(v, dtype),
+                        jnp.asarray(bt.numpy()), jnp.asarray(seen.numpy()),
+                        jnp.asarray(q_len.numpy()),
+                        k_scale=None if ks is None else jnp.asarray(ks.numpy()),
+                        v_scale=None if vs is None else jnp.asarray(vs.numpy()),
+                        softmax_scale=kw.get("softmax_scale"), window=kw.get("window"),
+                        interpret=True)
+    return torch.from_numpy(np.array(out.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("Q,H,KV,window,int8", [
+    (1, 4, 4, None, False), (1, 8, 2, None, False), (16, 4, 4, None, False),
+    (16, 8, 2, None, False), (8, 8, 2, 20, False), (1, 8, 2, None, True),
+    (8, 4, 4, None, True)],
+    ids=["decode_mha", "decode_gqa", "chunk_mha", "chunk_gqa", "window", "decode_int8",
+         "chunk_int8"])
+def test_kernel_form_matches_pallas_at_bf16(Q, H, KV, window, int8):
+    """bf16 q (and fp pools): the kernel form and the Pallas kernel round p
+    at the same point and visit the pages in the same order, so they agree
+    bit for bit but for a rare p that fp32 sums in another order round the
+    other way; the fp32-p plain version misses the bound."""
+    c = make_case(S=3, Q=Q, H=H, KV=KV, Dh=64, bs=16, MB=8, seed=Q + H, int8=int8)
+    t = {n: (torch.from_numpy(x) if x is not None else None) for n, x in c.items()}
+    to16 = lambda x: x if x.dtype == torch.int8 else x.bfloat16()
+    args = (t["q"].bfloat16(), to16(t["k"]), to16(t["v"]), t["bt"], t["seen"], t["q_len"])
+    kw = dict(k_scale=t["ks"], v_scale=t["vs"], window=window)
+    want = pallas_16bit(args, kw, jnp.bfloat16)
+    got = paged_mha_kernel_form(*args, **kw)
+    assert got.dtype == torch.bfloat16
+    m = torch.from_numpy(live(c))[:, :, None, None].expand(want.shape)
+    bound = ATOL + BF16_RTOL * want.abs()
+    assert ((got.float() - want).abs() / bound)[m].max() <= 1
+    assert (got.float() == want)[m].float().mean() >= 0.999
+    assert not got.float()[~m].any()
+    plain = paged_mha_reference(*args, **kw).float()
+    if int8:     # int8 pools keep p in fp32 in both
+        assert torch.equal(plain, got.float())
+    else:
+        assert ((plain - want).abs() / bound)[m].max() > 4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("bs,Q,rep", [(16, 1, 2), (64, 8, 4)])
+def test_pallas_kernel_rounds_p_where_the_probe_pins_it(dtype, bs, Q, rep):
+    """On paged_probe the Pallas kernel equals the kernel form with no slack
+    (its outputs cancel where p is rounded once to v's dtype), and the plain
+    versions with p unrounded or in the other 16-bit type miss it."""
+    args, kw = paged_probe(dtype, 64, bs, "cpu", Q=Q, rep=rep)
+    form = paged_mha_kernel_form(*args, **kw).float()
+    assert not form[..., 1:8].any()
+    rtol = {torch.bfloat16: BF16_RTOL, torch.float16: 2 ** -10}[dtype]
+    bound = ATOL + rtol * form.abs()
+    want = pallas_16bit(args, kw, jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float16)
+    assert ((want - form).abs() / bound).max() <= 1
+    for fault, bad in paged_rounding_faults(*args, **kw).items():
+        assert ((bad.float() - want).abs() / bound).max() > 4, fault

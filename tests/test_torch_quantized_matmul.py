@@ -124,13 +124,40 @@ def test_unsupported_reason():
                                    (1024, 4096, 11008), (1024, 4096, 4096), (13, 64, 32)])
 def test_split_plan_covers_k(M, K, N):
     """Every K element falls in exactly one split, each split a whole number
-    of 32-wide stages; decode splits K to fill the SMs, a prefill whose
-    tiles already do does not."""
-    bm, splits, k_split = qm.plan(M, K, N, 132)
-    assert bm == (16 if M <= 16 else 128)
+    of 64-row stages and none empty; up to 16 rows go to the decode kernel
+    and split K to spread over the card's 2 x 132 resident blocks, a prefill
+    whose tiles fill more than half of the 132 SMs does not split."""
+    kernel, splits, k_split = qm.plan(M, K, N, 132)
+    assert kernel == ("decode_mma" if M <= 16 else "prefill_wgmma")
     assert k_split % qm.BK == 0 and (splits - 1) * k_split < K <= splits * k_split
-    tiles = -(-N // qm.BN) * -(-M // bm)
-    if tiles >= 132:
+    tiles = -(-N // qm.BN) * (1 if M <= 16 else -(-M // qm.PREFILL_BM))
+    slots = 2 * 132 if M <= 16 else 132
+    if M > 16 and 2 * tiles > slots:
         assert splits == 1
-    elif K >= 8 * 32 * 2:
-        assert splits > 1 and k_split >= 8 * qm.BK
+    elif K >= 8 * qm.BK and 2 * tiles <= slots:
+        assert splits > 1
+    # the items fill whole waves of the resident blocks to within one stage
+    # of the work spread evenly
+    stages = -(-k_split // qm.BK)
+    waves = -(-tiles * splits // slots)
+    assert waves * stages <= -(-tiles * -(-K // qm.BK) // slots) + stages
+
+
+@pytest.mark.parametrize("M,K,N", [(4, 4096, 11008), (13, 1032, 528), (17, 1032, 528),
+                                   (300, 4096, 1024), (1024, 11008, 4096), (1, 64, 16)])
+def test_work_items_cover_every_output_and_k_once(M, K, N):
+    """The kernel's work items (``work_items``, the source's ``qmm_item``
+    order) cover every (row, column, contraction row) exactly once: each
+    (row tile, column tile) once per split, the splits' K ranges tiling
+    [0, K)."""
+    kernel, splits, k_split = qm.plan(M, K, N, 132)
+    items = qm.work_items(M, K, N, 132)
+    bm = qm.DECODE_MAX_ROWS if kernel == "decode_mma" else qm.PREFILL_BM
+    tiles = {(r, c) for r in range(0, M, bm) for c in range(0, N, qm.BN)}
+    assert len(items) == len(tiles) * splits == len(set(items))
+    for tile in tiles:
+        ranges = sorted((k0, k1) for r, c, k0, k1 in items if (r, c) == tile)
+        assert ranges[0][0] == 0 and ranges[-1][1] == K
+        assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(ranges, ranges[1:]))
+    # concurrent items (one split at a time) share the K range
+    assert [k0 for _, _, k0, _ in items] == sorted(k0 for _, _, k0, _ in items)
