@@ -134,9 +134,14 @@ prints no result.
    second stage of a dpr=2 x dp=2 hierarchy, ``block_dequantize`` with one
    peer, bf16 input). Ints and scales must be equal and the sums equal bit
    for bit; a planted fault (one group reading its neighbour's scale) must
-   be rejected. Kernel / plain times and the bound (bytes over 3.35 TB/s);
-   no single PyTorch call computes this function, so there is no library
-   yardstick.
+   be rejected; each case must launch the kernels the source's route
+   declares for its shape (``ds_quant_route``: ``quantize_warp`` and
+   ``dequant_reduce_stream`` at all but the ragged length; the library's
+   tally shows it). Kernel / plain times (CUDA events), the kernels'
+   device time (torch.profiler) and the bound (bytes over 3.35 TB/s); no
+   single PyTorch call computes this function, so there is no library
+   yardstick. One line sums launches x time against launches x bound over
+   one optimizer step of phase 11 (its 291 leaves of four shapes).
 11. ZeRO-3 + qgZ data parallelism, when 2 or more cards are visible: one
    spawned process per card (4 at most, NCCL), Llama-2-7B at full width
    with all 32 layers on 4 cards (8 on fewer), bf16 weights drawn from one
@@ -146,7 +151,8 @@ prints no result.
    same local accumulators (relative L2 against a bound fixed before the
    first run, and a control read with the int8 format's scales above it);
    then 4 optimizer steps: the loss must fall, every rank report the same
-   losses, the quantize kernels launch once per leaf and step, and each
+   losses, the quantize kernels launch once per leaf and step, every
+   launch on the route the source declares for its leaf's shape, and each
    rank's peak memory stay under 80 GB. Step time, boundary time, tokens/s
    in all and per card, the model-FLOPs share and the wire against the
    logical bytes are printed. On one card the phase prints why it did not
@@ -170,7 +176,9 @@ prints no result.
    all 8 experts on the plain grouped products (relative L2 of the output
    and of the gradients of x, the router, w1, w2, w3, with a control whose
    rank 1 holds rank 2's experts); the same forward with the int8 wire
-   (``a2a_wire_bits`` 8) against the bf16 wire, with its wire bytes; then
+   (``a2a_wire_bits`` 8) against the bf16 wire, with its wire bytes, its
+   quantize and dequantize launches on the routes the source declares for
+   their shapes; then
    Mixtral-8x7B at full width with 8 of its 32 layers (bf16 weights drawn
    from one seed, each rank keeping its quarter of every expert stack)
    through ``initialize`` with phase 5's engine configuration,
@@ -344,7 +352,9 @@ def device_ms(fn, iters, names):
     torch.profiler: where the host enqueues a call more slowly than the card
     runs it, ``time_ms`` reads the host and this the kernels. Each kernel's
     mean over the launches the profiler recorded, summed; a kernel recorded
-    fewer than ``iters`` times is reported on a line of its own."""
+    fewer than ``iters`` times is reported on a line of its own. Where it
+    recorded no kernel of ``names`` (seen late in the whole smoke), a line
+    says so and the calls' ``queued_ms`` stands in."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -354,14 +364,39 @@ def device_ms(fn, iters, names):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    total, seen = 0.0, False
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and any(n in e.key for n in names):
             total += e.device_time_total / e.count
+            seen = True
             if e.count != iters:
                 print(f"device_ms: the profiler recorded {e.count} of {iters} launches "
                       f"of {e.key}", flush=True)
+    if not seen:
+        ms = queued_ms(fn, iters)
+        print(f"device_ms: the profiler recorded no launch of {names}; queued behind a "
+              f"sleeping stream the calls take {ms:.5f} ms each", flush=True)
+        return ms
     return total / 1e3
+
+
+def queued_ms(fn, iters):
+    """Milliseconds per call of ``fn``'s device work with the host's enqueue
+    out of the way: ``iters`` calls queued behind a stream held busy for
+    about 20 ms, then run back to back (the gaps between launches
+    included), timed by CUDA events."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 # ---------------------------------------------------------------------------
@@ -2202,6 +2237,15 @@ def quantize_with_scales(rows, scales, bits):
     return q.to(torch.int8)
 
 
+def quant_step_leaves():
+    """Phase 11's leaves an optimizer step at W = 4, by the case of their
+    shape (per rank): gate/up/down_proj chunks 3 a layer, q/k/v/o_proj 4,
+    embed_tokens and lm_head, the norms 2 a layer and the final one."""
+    L = ZERO_LAYERS[ZERO_MAX_WORLD]
+    return {"gate_proj_chunk": 3 * L, "attn_proj_chunk": 4 * L, "embedding_chunk": 2,
+            "norm_chunk": 2 * L + 1}
+
+
 def phase_quant_kernels():
     import torch
     from deepspeed_tpu_torch.ops import quant_collective as qc
@@ -2215,6 +2259,10 @@ def phase_quant_kernels():
         x = x.to(dt)
         G = -(-m // QUANT_GROUP)
         gsw = QUANT_GROUP if bits == 8 else QUANT_GROUP // 2
+        routes = {"quantize": qc.kernel_route("quantize", m, QUANT_GROUP, bits, dt),
+                  "dequantize_reduce": qc.kernel_route("dequantize_reduce", m, QUANT_GROUP,
+                                                       bits, peers=P)}
+        tally = qc.kernel_launches()
         q, s = qc.block_quantize(x, num_bits=bits, group_size=QUANT_GROUP)
         rows, _, _ = qc._prep_rows(x, QUANT_GROUP)
         q_ref, s_ref = qc._quantize_rows_ref(rows, bits)
@@ -2223,14 +2271,13 @@ def phase_quant_kernels():
         q_bad = quantize_with_scales(rows, faulty_scales(s_ref).reshape(-1), bits)
         quant_fault_caught = not same_bits(q, q_bad.reshape(P, -1))
         if P == 1:
-            out = qc.block_dequantize(q, s, num_bits=bits, group_size=QUANT_GROUP, out_len=m)
             deq_call = lambda: qc.block_dequantize(q, s, num_bits=bits,
                                                    group_size=QUANT_GROUP, out_len=m)
         else:
-            out = qc.block_dequantize_reduce(q, s, num_bits=bits, group_size=QUANT_GROUP,
-                                             out_len=m)
             deq_call = lambda: qc.block_dequantize_reduce(q, s, num_bits=bits,
                                                           group_size=QUANT_GROUP, out_len=m)
+        out = deq_call()
+        launched = launched_kernels(qc, tally)
         plain = lambda scales: qc._dequantize_reduce_ref(
             q.reshape(P, G, gsw), scales, bits).reshape(-1)[:m].reshape(out.shape)
         ref = plain(s)
@@ -2245,25 +2292,32 @@ def phase_quant_kernels():
         out_rows = P if P == 1 else 1
         dbound = max((q_bytes + s_bytes + out_rows * m * 4) / HBM_BYTES_PER_S,
                      DEQ_OPS_PER_PEER * P * m / PEAK_FLOPS["float32"]) * 1e3
+        quant_call = lambda: qc.block_quantize(x, num_bits=bits, group_size=QUANT_GROUP)
         res = dict(
             name=name, shape=f"P={P} m={m} int{bits} {dtype}", groups_per_peer=G,
+            launched=launched,
             quantize=dict(
+                kernel=routes["quantize"],
                 exact=quant_ok, max_abs_err=0.0 if quant_ok else float(
                     (q.float() - q_ref.float()).abs().max()),
                 planted_fault_rejected=quant_fault_caught,
-                ms=time_ms(lambda: qc.block_quantize(x, num_bits=bits,
-                                                     group_size=QUANT_GROUP), iters),
+                ms=time_ms(quant_call, iters),
+                device_ms=device_ms(quant_call, iters, ("quantize_warp", "quantize_block")),
                 plain_ms=time_ms(lambda: qc._quantize_rows_ref(
                     qc._prep_rows(x, QUANT_GROUP)[0], bits), iters),
                 bound_ms=qbound, bound_by="bytes", library_ms=None),
             dequantize_reduce=dict(
+                kernel=routes["dequantize_reduce"],
                 exact=deq_ok, max_abs_err=float((out - ref).abs().max()),
                 planted_fault_rejected=deq_fault_caught,
                 ms=time_ms(deq_call, iters),
+                device_ms=device_ms(deq_call, iters, ("dequant_reduce_",)),
                 plain_ms=time_ms(lambda: plain(s), iters),
                 bound_ms=dbound, bound_by="bytes", library_ms=None))
         results.append(res)
         print(f"quant kernels {json.dumps(res)}", flush=True)
+        if launched != {routes["quantize"]: 1, routes["dequantize_reduce"]: 1}:
+            failures.append(f"{name}: launched {launched}, the source declares {routes}")
         for k in ("quantize", "dequantize_reduce"):
             if not res[k]["exact"]:
                 failures.append(f"{name}: {k} differs from its plain version")
@@ -2271,6 +2325,14 @@ def phase_quant_kernels():
                 failures.append(f"{name}: {k}'s check did not reject the planted fault")
         del x, q, s, rows, q_ref, s_ref, out, ref
         torch.cuda.empty_cache()
+    # one optimizer step of phase 11: launches x time against launches x bound
+    by_name = {r["name"]: r for r in results}
+    step = {}
+    for k in ("quantize", "dequantize_reduce"):
+        step[k] = {f: sum(n * by_name[c][k][f] for c, n in quant_step_leaves().items())
+                   for f in ("device_ms", "ms", "bound_ms")}
+    print(f"quant kernels over one phase-11 step ({quant_step_leaves()} leaves): "
+          f"{json.dumps(step)}", flush=True)
     if failures:
         fail("quant collective kernels: " + "; ".join(failures))
     return results
@@ -2387,6 +2449,7 @@ def zero_rank(rank, world, port, out_dir):
 
     # the counted run: the first boundary's step and 3 more windows
     qc.block_quantize.launches = qc.block_dequantize_reduce.launches = 0
+    quant_tally = qc.kernel_launches()
     fa.reset_launch_counts()
     cc.reset_wire_bytes()
     step_s, boundary_s = [], []
@@ -2418,6 +2481,17 @@ def zero_rank(rank, world, port, out_dir):
                 "flash_mha_bwd_dq": fa.flash_mha_bwd_dq.launches,
                 "flash_mha_bwd_dkv": fa.flash_mha_bwd_dkv.launches}
     shardable = sum(plan._zero_dim(leaf.shape)[0] is not None for leaf in engine._leaves)
+    # every leaf's exchange on the kernels the source declares for its shape
+    # (fp32 rows of numel / W, a fresh and so 16-byte aligned buffer)
+    quant_kernels = {}
+    for leaf in engine._leaves:
+        if plan._zero_dim(leaf.shape)[0] is None:
+            continue
+        m = leaf.acc.numel() // world
+        for route in (qc.kernel_route("quantize", m, plan.group_size, plan.intra_bits),
+                      qc.kernel_route("dequantize_reduce", m, plan.group_size,
+                                      plan.intra_bits, peers=world)):
+            quant_kernels[route] = quant_kernels.get(route, 0) + TRAIN_STEPS
     micro = TRAIN_GAS * (TRAIN_STEPS - 1)
     steady = float(np.mean(step_s[1:]))
     tok_s = TRAIN_GAS * micro_rows * T * world / steady
@@ -2435,7 +2509,8 @@ def zero_rank(rank, world, port, out_dir):
                wire_bytes_per_step=cc.WIRE_BYTES["wire"] / TRAIN_STEPS,
                logical_bytes_per_step=cc.WIRE_BYTES["logical"] / TRAIN_STEPS,
                peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
-               launches=launches,
+               launches=launches, quant_kernels_launched=launched_kernels(qc, quant_tally),
+               expected_quant_kernels=quant_kernels,
                expected_launches={"block_quantize": shardable * TRAIN_STEPS,
                                   "block_dequantize_reduce": shardable * TRAIN_STEPS,
                                   "flash_mha_fwd": 2 * layers * micro,
@@ -2476,6 +2551,9 @@ def phase_zero(world):
         if r["launches"] != r["expected_launches"]:
             fail(f"zero: rank {r['rank']} launches {r['launches']} != "
                  f"{r['expected_launches']}")
+        if r["quant_kernels_launched"] != r["expected_quant_kernels"]:
+            fail(f"zero: rank {r['rank']} launched {r['quant_kernels_launched']}, not the "
+                 f"routes the source declares: {r['expected_quant_kernels']}")
         if not r["peak_memory_gb"] < 80:
             fail(f"zero: rank {r['rank']} peak memory {r['peak_memory_gb']} GB")
     if not r0["qgz_rel_l2"] <= ZERO_QGZ_REL_L2_BOUND:
@@ -2876,9 +2954,16 @@ def ep_rank(rank, world, port, out_dir):
     sync = torch.cuda.synchronize
     cfg = MixtralConfig.mixtral_8x7b(num_hidden_layers=EP_LAYERS, moe_backend="gmm")
     qc.block_quantize.launches = qc.block_dequantize_reduce.launches = 0
+    quant_tally = qc.kernel_launches()
     layer_stats, wire = ep_layer_check(rank, dev, cfg, progress)
     wire_launches = {"block_quantize": qc.block_quantize.launches,
                      "block_dequantize_reduce": qc.block_dequantize_reduce.launches}
+    # the int8 forward's dispatch and combine: [ep, R, D] bf16 payloads, R =
+    # the rank's tokens x top-k, quantized and read back row by row
+    m = TRAIN_MICRO * TRAIN_T * cfg.num_experts_per_tok * cfg.hidden_size
+    wire_kernels = {qc.kernel_route("quantize", m, 2048, 8, cfg.dtype): 2,
+                    qc.kernel_route("dequantize_reduce", m, 2048, 8): 2}
+    wire_kernels_launched = launched_kernels(qc, quant_tally)
     model = MixtralForCausalLM.from_seed(cfg, seed=0, device=dev, ep_size=world,
                                          ep_rank=rank)
     progress("drew the weights")
@@ -2937,6 +3022,7 @@ def ep_rank(rank, world, port, out_dir):
                peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
                launches=launches, expected_launches=expected, layer_check=layer_stats,
                wire=wire, wire_launches=wire_launches,
+               wire_kernels_launched=wire_kernels_launched, expected_wire_kernels=wire_kernels,
                # the receiving shard's 65536 buffer rows over 2 local experts:
                # the wgmma kernels forward, dx and dW
                kernels_launched=[launched_kernels(gg, tallies[0]),
@@ -3000,6 +3086,10 @@ def phase_expert_parallel():
         if r["kernels_launched"] != r["expected_kernels"]:
             fail(f"expert parallel: rank {r['rank']} launched {r['kernels_launched']}, not "
                  f"{r['expected_kernels']}")
+        if r["wire_kernels_launched"] != r["expected_wire_kernels"]:
+            fail(f"expert parallel: rank {r['rank']}'s int8 wire launched "
+                 f"{r['wire_kernels_launched']}, not the routes the source declares: "
+                 f"{r['expected_wire_kernels']}")
         if not r["peak_memory_gb"] < 80:
             fail(f"expert parallel: rank {r['rank']} peak memory {r['peak_memory_gb']} GB")
     if not last <= first - EP_LOSS_FALL:
@@ -4101,8 +4191,8 @@ def quant_kernel_lines(cases, zero_ranks, ep_ranks):
     """The kernels-line entries of the two qgZ kernels: the main case's
     numbers, every case's, the launches of phase 11's run and those of
     phase 13's int8-wire check (0 where they did not run)."""
-    keys = ("exact", "max_abs_err", "planted_fault_rejected", "ms", "plain_ms",
-            "library_ms", "bound_ms", "bound_by")
+    keys = ("kernel", "exact", "max_abs_err", "planted_fault_rejected", "ms", "device_ms",
+            "plain_ms", "library_ms", "bound_ms", "bound_by")
     main = cases[0]            # gate_proj_chunk: the main path's largest leaf shape
     lines = []
     for kn, part, line in (("block_quantize", "quantize", 273),
@@ -4111,10 +4201,12 @@ def quant_kernel_lines(cases, zero_ranks, ep_ranks):
             name=kn, route="cuda", source="deepspeed_tpu_torch/csrc/quant_collective.cu",
             replaces=f"deepspeed_tpu/ops/pallas/quant_collective.py:{line}",
             launches=zero_ranks[0]["launches"][kn] if zero_ranks else 0,
+            kernel_launches={k: v for k, v in zero_ranks[0]["quant_kernels_launched"].items()
+                             if k.startswith(part[:5])} if zero_ranks else {},
             expert_parallel_wire_launches=ep_ranks[0]["wire_launches"][kn]
             if ep_ranks else 0,
-            **{k: main[part][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms")},
+            **{k: main[part][k] for k in ("kernel", "max_abs_err", "ms", "device_ms",
+                                          "plain_ms", "bound_ms", "bound_by", "library_ms")},
             case=main["name"],
             cases=[dict(name=c["name"], shape=c["shape"], **{k: c[part][k] for k in keys})
                    for c in cases]))

@@ -1,8 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
-// mbarriers, TMA tensor-map loads, wgmma descriptors and the m64n64k16
-// wgmma products with fp32 accumulators. Header only; a kernel source
-// includes it, and ops/cuda_build.py hashes every .cuh of csrc/ into each
-// library's name so that an edit here rebuilds the kernels.
+// Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
+// TMA tensor-map loads and 1-D bulk copies, wgmma descriptors and the
+// m64n64k16 wgmma products with fp32 accumulators. Header only; a kernel
+// source includes it, and ops/cuda_build.py hashes every .cuh of csrc/ into
+// each library's name so that an edit here rebuilds the kernels.
 //
 // Layout convention. Every operand tile in shared memory is stored as
 // 64-element column blocks of 128 bytes per row, written by TMA with
@@ -119,6 +119,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A 1-D bulk copy of `bytes` contiguous bytes of global memory into shared
+// memory, completing on `bar` (which a mbar_arrive_expect_tx told to wait
+// for them). No tensor map: `bytes`, `src` and `dst` are multiples of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -5,12 +5,22 @@ Port of ``deepspeed_tpu/ops/pallas/quant_collective.py``: ``block_quantize``
 int4 wire payload of the qgZ exchange and ``block_dequantize_reduce``
 (``_deq_reduce_local``, ``pl.pallas_call`` at :344) consumes it, fused with
 the sum over peers; ``block_dequantize`` is the same kernel with one peer.
-On CUDA tensors each launches the hand-written Hopper kernel of
+On CUDA tensors each launches a hand-written Hopper kernel of
 ``csrc/quant_collective.cu`` and counts the launch in
 ``block_quantize.launches`` or ``block_dequantize_reduce.launches`` (which
 ``block_dequantize`` shares: it is that kernel); on CPU tensors each runs
 its plain PyTorch version. The kernels take every shape, so a CUDA tensor
 never reaches a plain version through these wrappers.
+
+The source routes each call by its shape (``kernel_route``;
+``kernel_launches`` reads the library's tally of what each call launched).
+The main path's shapes take ``quantize_warp`` (one warp per group, held in
+registers: groups of 1 to 8 KB in whole KB) and ``dequant_reduce_stream``
+(persistent blocks fed by bulk copies through a ring of shared-memory
+stages: group sizes a multiple of 256 whose P wire rows fit one 16 KB
+stage, at most 8 peers), both on rows whose byte length is a multiple of
+16 and on 16-byte aligned data; every other call goes to the ``block``
+kernels, one thread block per group.
 
 Wire formats, bit for bit the JAX package's (its module docstring):
 
@@ -27,8 +37,12 @@ import ctypes
 import torch
 
 DEFAULT_GROUP = 2048
+# the source's enum Kernel, in order
+KERNELS = ("quantize_warp", "quantize_block", "dequant_reduce_stream",
+           "dequant_reduce_block")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
+_OPS = {"quantize": 0, "dequantize_reduce": 1}
 
 
 def _qmax(num_bits, device):
@@ -119,9 +133,36 @@ def _library():
         lib.ds_block_quantize.restype = i
         lib.ds_block_dequantize_reduce.argtypes = [p, p, p, i, ll, i, i, ll, i, p]
         lib.ds_block_dequantize_reduce.restype = i
+        lib.ds_quant_route.argtypes = [i, ll, i, i, i, i, i]
+        lib.ds_quant_route.restype = i
+        lib.ds_quant_kernel_launches.argtypes = [i]
+        lib.ds_quant_kernel_launches.restype = ll
         lib.ds_quant_error_string.argtypes = [i]
         lib.ds_quant_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_route(op, length, group_size=DEFAULT_GROUP, num_bits=8, dtype=torch.float32,
+                 peers=1, aligned=True):
+    """The kernel (a name of ``KERNELS``) that a call launches, as the
+    kernel source decides it (``ds_quant_route``): ``op`` "quantize" of
+    rows of ``length`` elements of ``dtype``, or "dequantize_reduce" of
+    ``peers`` wire rows into rows of ``length`` fp32 outputs; ``aligned``
+    says whether the call's data pointers are 16-byte aligned (a fresh
+    tensor's are; an offset view's may not be). Builds the library."""
+    k = _library().ds_quant_route(_OPS[op], int(length), group_size, num_bits,
+                                  _DTYPE_CODES.get(dtype, -1), peers, int(aligned))
+    if k < 0:
+        raise ValueError(f"no quant collective kernel takes {op} of length {length}, "
+                         f"group {group_size}, {num_bits} bits, {dtype}, {peers} peers")
+    return KERNELS[k]
+
+
+def kernel_launches():
+    """{kernel: launches so far} over ``KERNELS``, counted by the library
+    where it launches each kernel: which kernels the calls went to."""
+    lib = _library()
+    return {name: lib.ds_quant_kernel_launches(i) for i, name in enumerate(KERNELS)}
 
 
 def _raise_on(rc, name):
@@ -137,9 +178,11 @@ def _on_cuda_or_raise(name, t):
 
 def _quantize_cuda(x, num_bits, group_size):
     """x [R, M] fp32/bf16 on the card -> (q [R, G*gsw], scale [R, G])."""
-    if x.dtype not in _DTYPE_CODES:
-        x = x.float()
-    x = x.contiguous()
+    code = _DTYPE_CODES.get(x.dtype)
+    if code is None:
+        x, code = x.float(), 0
+    if not x.is_contiguous():
+        x = x.contiguous()
     R, M = x.shape
     G = max(1, -(-M // group_size))
     q = torch.empty(R, G * _wire_width(num_bits, group_size), dtype=
@@ -147,7 +190,7 @@ def _quantize_cuda(x, num_bits, group_size):
     scale = torch.empty(R, G, dtype=torch.float32, device=x.device)
     rc = _library().ds_block_quantize(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), R, M, G, group_size, num_bits,
-        _DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        code, torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, "block_quantize")
     block_quantize.launches += 1
     return q, scale
@@ -155,8 +198,12 @@ def _quantize_cuda(x, num_bits, group_size):
 
 def _dequantize_reduce_cuda(q, scale, P, R, G, num_bits, group_size, out_cols):
     """q [P, R*G*gsw] + scale [P, R*G] on the card -> fp32 [R, out_cols]."""
-    q = q.contiguous()
-    scale = scale.float().contiguous()
+    if not q.is_contiguous():
+        q = q.contiguous()
+    if scale.dtype != torch.float32:
+        scale = scale.float()
+    if not scale.is_contiguous():
+        scale = scale.contiguous()
     out = torch.empty(R, out_cols, dtype=torch.float32, device=q.device)
     rc = _library().ds_block_dequantize_reduce(
         q.data_ptr(), scale.data_ptr(), out.data_ptr(), P, R, G, group_size, out_cols,
@@ -212,7 +259,7 @@ def block_dequantize_reduce(q, scale, num_bits=8, group_size=DEFAULT_GROUP,
     else:
         _on_cuda_or_raise("block_dequantize_reduce", q)
         out = _dequantize_reduce_cuda(q, scale, P, 1, G, num_bits, group_size, out_len)[0]
-    return out.to(dtype)
+    return out if out.dtype == dtype else out.to(dtype)
 
 
 block_dequantize_reduce.launches = 0
@@ -237,7 +284,7 @@ def block_dequantize(q, scale, num_bits=8, group_size=DEFAULT_GROUP,
     else:
         _on_cuda_or_raise("block_dequantize", q)
         out = _dequantize_reduce_cuda(q, scale, 1, R, G, num_bits, group_size, out_len)
-    return out.to(dtype)
+    return out if out.dtype == dtype else out.to(dtype)
 
 
 def wire_nbytes(numel, num_bits, group_size=DEFAULT_GROUP):

@@ -2,6 +2,7 @@
 
     python -m deepspeed_tpu_torch.tools.profile_train [--model llama]
         [--layers N] [--micro 4] [--seq 2048] [--seed 0] [--ep 1]
+        [--zero 3 --qgz --world 4]
 
 Builds the model at full width with ``--layers`` of its 32 layers (bf16
 weights drawn on the card from ``--seed``): the Llama-2-7B geometry
@@ -26,6 +27,17 @@ process per card on N cards over NCCL, the experts split over ``ep`` N and
 default). Every rank traces its step; rank 0 prints its own line, with the
 NCCL kernels (the dispatch and combine all-to-alls, the gradient and loss
 reductions) as a group of their own.
+
+``--zero 3 --qgz --world 4`` (Llama) profiles ZeRO-3 + qgZ data-parallel
+training as ``chip_smoke.py`` phase 11 runs it: one spawned process per card
+on ``--world`` cards over NCCL, ``zero_optimization`` stage 3 with
+``zero_quantized_gradients``, all 32 layers by default, each rank a
+micro-batch of ``--micro`` x ``--seq`` tokens. Rank 0's line adds the qgZ
+kernels' groups (``qgz_quantize``, ``qgz_dequant_reduce``), the boundary
+exchange (``QgzPlan.reduce``) as an annotated span of the traced step and
+by the host's clock around a synchronised call in the timed step
+(``boundary_exchange_ms``); the fused CE head is not timed apart (its
+weight is a gathered ZeRO-3 chunk).
 """
 
 import argparse
@@ -33,6 +45,7 @@ import json
 import re
 import subprocess
 import time
+import types
 
 import numpy as np
 
@@ -56,6 +69,12 @@ def _group(name):
     n = name.lower()
     if "nccl" in n:
         return "nccl_collectives"
+    # the qgZ kernels of csrc/quant_collective.cu: quantize_warp /
+    # quantize_block (quantize_kernel before them), dequant_reduce_*
+    if "dequant_reduce" in n:
+        return "qgz_dequant_reduce"
+    if any(k in n for k in ("quantize_warp", "quantize_block", "quantize_kernel")):
+        return "qgz_quantize"
     # flash_fwd_ / flash_dq_ / flash_dkv_: the wgmma kernels (bf16/fp16) and the
     # SIMT ones (fp32); grouped_tgmm_: the dW kernels (grouped_tgmm_wgmma,
     # grouped_tgmm_fp32_kernel), ahead of the forward / dx template's name
@@ -89,36 +108,75 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("llama", "mixtral"), default="llama")
     ap.add_argument("--layers", type=int, default=None,
-                    help="layers of 32 (default 8 for llama, 2 for mixtral)")
+                    help="layers of 32 (default 8 for llama on one card and 32 on "
+                         "more, 2 for mixtral on one card and 8 on more)")
     ap.add_argument("--micro", type=int, default=4)
     ap.add_argument("--seq", type=int, default=2048)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ep", type=int, default=1,
                     help="expert-parallel cards (Mixtral; one process per card)")
+    ap.add_argument("--zero", type=int, default=0, help="ZeRO stage (with --world > 1)")
+    ap.add_argument("--qgz", action="store_true", help="ZeRO++ quantized gradients")
+    ap.add_argument("--world", type=int, default=None,
+                    help="data-parallel cards (one process per card); --ep sets it for "
+                         "expert parallelism")
     args = ap.parse_args(argv)
-    if args.ep == 1:
+    if args.ep > 1:
+        if args.model != "mixtral":
+            ap.error("--ep needs --model mixtral")
+        args.world = args.ep
+    args.world = args.world or 1
+    if args.qgz and (args.zero < 2 or args.world < 2):
+        ap.error("--qgz needs --zero 2 or 3 and --world 2 or more")
+    if args.world == 1:
         _profile(args)
         return
-    if args.model != "mixtral":
-        ap.error("--ep needs --model mixtral")
     import socket
     import torch.multiprocessing as mp
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
-    mp.start_processes(_rank, args=(args, port), nprocs=args.ep, join=True,
+    mp.start_processes(_rank, args=(args, port), nprocs=args.world, join=True,
                        start_method="spawn")
 
 
 def _rank(rank, args, port):
     import os
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(args.ep), LOCAL_RANK=str(rank),
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(args.world), LOCAL_RANK=str(rank),
                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
     from deepspeed_tpu_torch.comm import comm as dist
     dist.init_distributed(dist_backend="nccl", timeout=300, verbose=False)
     _profile(args, rank)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _exchange_probe(engine):
+    """Wraps the engine's qgZ exchange (``QgzPlan.reduce``), if it has one:
+    a span annotated ``qgz.reduce#boundary_exchange`` in a trace, and while
+    ``probe.timing`` is set, the host's milliseconds around a synchronised
+    call appended to ``probe.ms``."""
+    import torch
+    from torch.profiler import record_function
+    probe = types.SimpleNamespace(ms=[], timing=False, step_ms=None)
+    plan = engine._qgz
+    if plan is None:
+        return probe
+    inner = plan.reduce
+
+    def reduce(*a, **kw):
+        if probe.timing:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        with record_function("qgz.reduce#boundary_exchange"):
+            out = inner(*a, **kw)
+        if probe.timing:
+            torch.cuda.synchronize()
+            probe.ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    plan.reduce = reduce
+    return probe
 
 
 def _profile(args, rank=0):
@@ -131,21 +189,25 @@ def _profile(args, rank=0):
     from deepspeed_tpu_torch.models.losses import lm_head_next_token_loss
     from deepspeed_tpu_torch.models.mixtral import MixtralConfig, MixtralForCausalLM
 
-    world = args.ep
+    world = args.world
     dev = torch.device("cuda", rank)
     torch.cuda.set_device(dev)
     config = dict(CONFIG, train_batch_size=args.micro * CONFIG["gradient_accumulation_steps"]
                   * world)
+    if args.zero:
+        config.update(train_micro_batch_size_per_gpu=args.micro, zero_optimization={
+            "stage": args.zero, "zero_quantized_gradients": args.qgz})
     if args.model == "mixtral":
         args.layers = args.layers or (2 if world == 1 else 8)
+        ep = args.ep
         cfg = MixtralConfig.mixtral_8x7b(num_hidden_layers=args.layers, moe_backend="gmm")
         model = MixtralForCausalLM.from_seed(cfg, seed=args.seed, device=dev,
-                                             ep_size=world, ep_rank=rank)
-        if world > 1:
+                                             ep_size=ep, ep_rank=rank % ep)
+        if ep > 1:
             config.update(train_micro_batch_size_per_gpu=args.micro,
-                          expert_parallel_size=world, zero_optimization={"stage": 2})
+                          expert_parallel_size=ep, zero_optimization={"stage": 2})
     else:
-        args.layers = args.layers or 8
+        args.layers = args.layers or (8 if world == 1 else 32)
         cfg = LlamaConfig.llama2_7b(num_hidden_layers=args.layers)
         model = LlamaForCausalLM.from_seed(cfg, seed=args.seed, device=dev)
     engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config, device=dev)
@@ -156,12 +218,20 @@ def _profile(args, rank=0):
         mine = ids[rank * args.micro:(rank + 1) * args.micro]
         batches.append({"input_ids": mine, "labels": mine})
 
+    exchange = _exchange_probe(engine)
     _step(engine, batches)                      # warm-up step
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _step(engine, batches)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
+    if engine._qgz is not None:             # a step with the exchange timed apart
+        exchange.timing = True
+        t0 = time.perf_counter()
+        _step(engine, batches)
+        torch.cuda.synchronize()
+        exchange.step_ms = (time.perf_counter() - t0) * 1e3
+        exchange.timing = False
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -187,6 +257,30 @@ def _profile(args, rank=0):
     busy_ms = sum(per_kernel.values())
     if rank:
         return
+    line = {
+        "card": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip().splitlines()[0],
+        "model": args.model, "layers": args.layers, "params": cfg.num_parameters(),
+        "world": world, "expert_parallel": args.ep, "zero_stage": args.zero, "qgz": args.qgz,
+        "micro_batch": [args.micro, args.seq],
+        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "gas": config["gradient_accumulation_steps"],
+        "step_wall_ms_unprofiled": step_ms,
+        "step_wall_ms_profiled": wall_ms,
+        "device_busy_ms": busy_ms if per_kernel else None,
+        "device_idle_share": (1 - busy_ms / wall_ms) if per_kernel else None,
+        "groups_ms_per_step": groups,
+        "group_launches_per_step": counts,
+        "annotated_spans_ms": spans,
+        "top_kernels_ms_per_step": {k[:90]: v for k, v in sorted(
+            per_kernel.items(), key=lambda kv: -kv[1])[:12]}}
+    if exchange.ms:
+        line.update(boundary_exchange_ms=exchange.ms,
+                    step_wall_ms_exchange_synchronised=exchange.step_ms)
+    if args.zero == 3:
+        print(json.dumps(line))
+        return
 
     # the fused CE head alone on the step's shapes
     x = torch.randn(args.micro, args.seq, cfg.hidden_size, device=dev,
@@ -208,24 +302,8 @@ def _profile(args, rank=0):
     end.record()
     end.synchronize()
 
-    print(json.dumps({
-        "card": subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True).stdout.strip().splitlines()[0],
-        "model": args.model, "layers": args.layers, "params": cfg.num_parameters(),
-        "expert_parallel": world, "micro_batch": [args.micro, args.seq],
-        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-        "gas": config["gradient_accumulation_steps"],
-        "step_wall_ms_unprofiled": step_ms,
-        "step_wall_ms_profiled": wall_ms,
-        "device_busy_ms": busy_ms if per_kernel else None,
-        "device_idle_share": (1 - busy_ms / wall_ms) if per_kernel else None,
-        "groups_ms_per_step": groups,
-        "group_launches_per_step": counts,
-        "annotated_spans_ms": spans,
-        "fused_ce_fwd_bwd_ms_per_micro_step": start.elapsed_time(end) / 3,
-        "top_kernels_ms_per_step": {k[:90]: v for k, v in sorted(
-            per_kernel.items(), key=lambda kv: -kv[1])[:12]}}))
+    line["fused_ce_fwd_bwd_ms_per_micro_step"] = start.elapsed_time(end) / 3
+    print(json.dumps(line))
 
 
 if __name__ == "__main__":

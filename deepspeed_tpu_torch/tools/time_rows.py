@@ -1,8 +1,11 @@
 """Times kernel rows 1 (paged attention) and 7 (W8A16 dequantize-matmul) at
-the serving shapes of Llama-2-7B and Mixtral-8x7B, through their public
-entry points, on one GPU.
+the serving shapes of Llama-2-7B and Mixtral-8x7B, and rows 5 and 6 (the
+qgZ quantize and dequantize-reduce) at the four leaf shapes of ZeRO-3 + qgZ
+training of Llama-2-7B at W = 4, through their public entry points, on one
+GPU.
 
     python3 deepspeed_tpu_torch/tools/time_rows.py [--root DIR] [--iters 50]
+        [--rows 1,7,5,6]
 
 The cases, their inputs and the timers are those of this checkout's
 ``chip_smoke.py`` (``CASES`` and ``make_case``, ``QMM_CASES`` and
@@ -10,8 +13,12 @@ The cases, their inputs and the timers are those of this checkout's
 ``--root`` imports ``deepspeed_tpu_torch`` from another checkout (for
 example the parent commit unpacked under ``build/``), so that two versions
 are timed by the same script on the same inputs and card: run parent,
-change, change, parent. Row 7's weights rotate past the L2 cache. Prints
-one JSON line: the card (name and power limit), the root, and for each
+change, change, parent. Row 7's weights rotate past the L2 cache. Rows 5
+and 6 take ``QUANT_CASES`` of ``chip_smoke.py`` (its inputs drawn the same
+way) at the ``gate_proj``, embedding, attention-projection and norm
+chunks, the quantize kernel on the payload rows and the dequantize-reduce
+kernel on the wire they give. ``--rows`` picks the rows. Prints one JSON
+line: the card (name and power limit), the root, and for each
 case the milliseconds per call of the stream (CUDA events around
 back-to-back calls: where the host enqueues a call more slowly than the
 card runs it, this is the host's time), the host's microseconds to
@@ -19,8 +26,8 @@ enqueue a call (the wrapper's checks, allocations and library call, read
 by the host's clock over back-to-back calls that do not wait for the
 card) and the device time per call of the row's kernels, their
 split-merging passes included (``torch.profiler``, kernel names holding
-``paged_mha``, or ``quantized_matmul`` / ``split_reduce``). Needs a CUDA
-device.
+``paged_mha``, or ``quantized_matmul`` / ``split_reduce``, or
+``quantize_`` / ``dequant_reduce``). Needs a CUDA device.
 """
 
 import argparse
@@ -36,6 +43,7 @@ PAGED = ("decode_7b", "decode_serve_7b", "decode_serve_8x7b", "prefill_chunk_7b"
          "mixed_chunk_decode_7b")
 QMM = ("decode_7b_gate", "decode_7b_down", "decode_7b_q", "prefill_7b_gate",
        "prefill_7b_down")
+QUANT = ("gate_proj_chunk", "embedding_chunk", "attn_proj_chunk", "norm_chunk")
 
 
 def host_us(fn, iters):
@@ -56,7 +64,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(HARNESS.parent))
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--rows", default="1,7,5,6", help="kernel rows to time, of 1, 7, 5, 6")
     args = ap.parse_args(argv)
+    rows = set(args.rows.split(","))
     sys.path.insert(0, args.root)
     spec = importlib.util.spec_from_file_location("chip_smoke", HARNESS)
     smoke = importlib.util.module_from_spec(spec)
@@ -66,15 +76,17 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("time_rows: no CUDA device")
     from deepspeed_tpu_torch.ops import cuda_build
-    cuda_build.build("paged_attention", "quantized_matmul")
+    cuda_build.build("paged_attention", "quantized_matmul", "quant_collective")
+    from deepspeed_tpu_torch.ops import quant_collective as qc
     from deepspeed_tpu_torch.ops.paged_attention import paged_mha
     from deepspeed_tpu_torch.ops.quantized_matmul import quantized_matmul
 
-    result = {"device": smoke.nvidia_smi(), "root": args.root, "paged_mha_ms": {},
-              "quantized_matmul_ms": {}, "paged_mha_device_ms": {},
-              "quantized_matmul_device_ms": {}, "paged_mha_host_us": {},
-              "quantized_matmul_host_us": {}}
-    for i, case in enumerate(c for c in smoke.CASES if c[0] in PAGED):
+    result = {"device": smoke.nvidia_smi(), "root": args.root}
+    for row, k in (("1", "paged_mha"), ("7", "quantized_matmul"), ("5", "block_quantize"),
+                   ("6", "block_dequantize_reduce")):
+        if row in rows:
+            result.update({f"{k}_{what}": {} for what in ("ms", "device_ms", "host_us")})
+    for i, case in enumerate(c for c in smoke.CASES if c[0] in PAGED and "1" in rows):
         a = smoke.make_case(case, torch.Generator(device="cuda").manual_seed(i),
                             np.random.default_rng(i))
         call = lambda: paged_mha(a["q"], a["k_pool"], a["v_pool"], a["block_tables"],
@@ -85,7 +97,7 @@ def main(argv=None):
                                                                  ("paged_mha",))
         del a
     gen = torch.Generator(device="cuda").manual_seed(7)
-    for case in (c for c in smoke.QMM_CASES if c[0] in QMM):
+    for case in (c for c in smoke.QMM_CASES if c[0] in QMM and "7" in rows):
         name, M, K, N, G = case[:5]
         x, q, s = smoke.qmm_inputs(case, gen)
         ws = itertools.cycle([(q.clone(), s.clone()) for _ in range(smoke.qmm_copies(K, N))])
@@ -96,6 +108,30 @@ def main(argv=None):
         result["quantized_matmul_device_ms"][name] = smoke.device_ms(
             call, iters, ("quantized_matmul", "split_reduce"))
         del x, q, s, ws
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for name, P, m, bits, dtype in (c for c in smoke.QUANT_CASES
+                                    if c[0] in QUANT and rows & {"5", "6"}):
+        x = torch.randn(P, m, generator=gen, device="cuda")
+        x[0, :smoke.QUANT_GROUP] *= 100.0
+        x = x.to(getattr(torch, dtype))
+        gs = smoke.QUANT_GROUP
+        q, s = qc.block_quantize(x, num_bits=bits, group_size=gs)
+        iters = args.iters if m < 10_000_000 else 20
+        for row, key, call, names in (
+                ("5", "block_quantize", lambda: qc.block_quantize(x, num_bits=bits,
+                                                                  group_size=gs),
+                 ("quantize_",)),
+                ("6", "block_dequantize_reduce",
+                 lambda: qc.block_dequantize_reduce(q, s, num_bits=bits, group_size=gs,
+                                                    out_len=m),
+                 ("dequant_reduce",))):
+            if row not in rows:
+                continue
+            result[f"{key}_ms"][name] = smoke.time_ms(call, iters)
+            result[f"{key}_host_us"][name] = host_us(call, iters)
+            result[f"{key}_device_ms"][name] = smoke.device_ms(call, iters, names)
+        del x, q, s
         torch.cuda.empty_cache()
     print(json.dumps(result), flush=True)
 

@@ -723,12 +723,14 @@ class StandInLibrary:
         return self.route
 
     ds_flash_route = ds_grouped_route = ds_sparse_route = ds_qmm_route = ds_paged_route = _route
+    ds_quant_route = _route
 
     def ds_flash_kernel_launches(self, i):
         return 10 * i
 
     ds_grouped_kernel_launches = ds_sparse_kernel_launches = ds_flash_kernel_launches
     ds_qmm_kernel_launches = ds_paged_kernel_launches = ds_flash_kernel_launches
+    ds_quant_kernel_launches = ds_flash_kernel_launches
 
 
 @pytest.mark.parametrize("module,source", [("flash_attention", "flash_attention.cu"),
@@ -736,7 +738,8 @@ class StandInLibrary:
                                            ("block_sparse_attention",
                                             "block_sparse_attention.cu"),
                                            ("quantized_matmul", "quantized_matmul.cu"),
-                                           ("paged_attention", "paged_attention.cu")])
+                                           ("paged_attention", "paged_attention.cu"),
+                                           ("quant_collective", "quant_collective.cu")])
 def test_kernel_tally_names_follow_the_source(module, source):
     """``KERNELS``, the names ``kernel_launches`` gives the library's tally,
     is the source's ``enum Kernel`` in order; the reader maps count i to
@@ -811,6 +814,26 @@ def test_qmm_and_paged_route_readers_ask_the_source():
     with mock.patch.object(pa, "_library", lambda: StandInLibrary(-1)):
         with pytest.raises(ValueError, match="head width 40"):
             pa.kernel_route(torch.bfloat16, False, 40, 64)
+
+
+def test_quant_route_reader_asks_the_source():
+    """``kernel_route`` of rows 5 and 6 hands the source (op code, length,
+    group size, bits, dtype code, peers, aligned) and names the kernel by
+    index; a refusal (-1) raises."""
+    from deepspeed_tpu_torch.ops import quant_collective as qc
+    for name in qc.KERNELS:
+        lib = StandInLibrary(qc.KERNELS.index(name))
+        with mock.patch.object(qc, "_library", lambda: lib):
+            assert qc.kernel_route("quantize", 11_272_192, 2048, 4, torch.bfloat16) == name
+        assert lib.asked == (0, 11_272_192, 2048, 4, 2, 1, 1)
+    lib = StandInLibrary(qc.KERNELS.index("dequant_reduce_block"))
+    with mock.patch.object(qc, "_library", lambda: lib):
+        assert qc.kernel_route("dequantize_reduce", 1001, 250, 8, peers=3,
+                               aligned=False) == "dequant_reduce_block"
+    assert lib.asked == (1, 1001, 250, 8, 0, 3, 0)
+    with mock.patch.object(qc, "_library", lambda: StandInLibrary(-1)):
+        with pytest.raises(ValueError, match="group 7"):
+            qc.kernel_route("quantize", 100, 7, 4)
 
 
 def test_plan_constants_match_the_source():
@@ -1003,6 +1026,41 @@ def test_training_profile_groups_each_grouped_kernel_apart(name, group):
     profiler reports."""
     from deepspeed_tpu_torch.tools.profile_train import _group
     assert _group(name) == group
+
+
+@pytest.mark.parametrize("name,group", [
+    ("void (anonymous namespace)::quantize_warp<float, 4>(float const*, unsigned char*, "
+     "float*, long long, int, int, long long)", "qgz_quantize"),
+    ("void (anonymous namespace)::quantize_block<__nv_bfloat16, 8, 8>(__nv_bfloat16 const*, "
+     "unsigned char*, float*, long long, int, int)", "qgz_quantize"),
+    ("void (anonymous namespace)::quantize_kernel<float, 4, 4>(float const*, unsigned char*, "
+     "float*, long long, int, int)", "qgz_quantize"),
+    ("void (anonymous namespace)::dequant_reduce_stream<4, 4>(unsigned char const*, "
+     "float const*, float*, long long, int, int, long long)", "qgz_dequant_reduce"),
+    ("void (anonymous namespace)::dequant_reduce_block<8, 1>(unsigned char const*, "
+     "float const*, float*, int, long long, int, int, long long, bool)",
+     "qgz_dequant_reduce"),
+    ("ncclDevKernel_SendRecv(ncclDevComm*, unsigned long, ncclWork*)", "nccl_collectives"),
+    ("void (anonymous namespace)::quantized_matmul_decode<__nv_bfloat16, __nv_bfloat16, 1>("
+     "CUtensorMap_st, CUtensorMap_st, float const*, __nv_bfloat16*, float*, int, int, int, "
+     "int, int, int)", "elementwise_and_other"),
+])
+def test_training_profile_groups_the_qgz_kernels_apart(name, group):
+    """``tools/profile_train.py`` puts rows 5 and 6 (both routes, and the
+    kernel names before them) in groups of their own, and nothing else
+    with "quantize" in its name."""
+    from deepspeed_tpu_torch.tools.profile_train import _group
+    assert _group(name) == group
+
+
+def test_training_profile_refuses_qgz_without_zero_and_cards():
+    """``--qgz`` needs a ZeRO stage and 2 or more cards; ``--ep`` needs
+    Mixtral."""
+    from deepspeed_tpu_torch.tools import profile_train
+    for argv in (["--qgz", "--world", "4"], ["--zero", "3", "--qgz"],
+                 ["--ep", "4"]):
+        with pytest.raises(SystemExit):
+            profile_train.main(argv)
 
 
 @pytest.mark.parametrize("name", [
@@ -1413,14 +1471,40 @@ def test_gmm_rows_kernels_match_plain(cuda, name, dtype):
 # scales must be equal and the sums equal bit for bit.
 
 QUANT_CASES = {
-    # name: (P peers, m per peer, bits, dtype, group size)
-    "int4_p4": (4, 3 * 2048 + 5, 4, torch.float32, 2048),
-    "int8_p2": (2, 5000, 8, torch.float32, 2048),
-    "one_padded_group": (4, 1024, 4, torch.float32, 2048),
-    "p1_dequantize": (1, 4096, 8, torch.float32, 2048),
-    "bf16_input": (4, 8192, 4, torch.bfloat16, 2048),
-    "odd_group_scalar_path": (3, 1001, 8, torch.float32, 250),
-    "int4_group_6": (2, 100, 4, torch.float32, 6),
+    # name: (P peers, m per peer, bits, dtype, group size, how the wire is
+    # read back, what lies under the data, the routes the source declares
+    # for quantize (warp: groups of 1-8 KB) and for dequantize-reduce
+    # (stream: P wire rows in 16 KB, P <= 8). "reduce": the P rows are
+    # peers summed by block_dequantize_reduce; "rows": block_dequantize of
+    # the P rows (one peer each, phase 13's int8 wire). "offset": x and the
+    # wire start 4 and 1 bytes into their buffers (views that are not
+    # 16-byte aligned).
+    "int4_p4": (4, 3 * 2048 + 5, 4, torch.float32, 2048, "reduce", None, "block", "block"),
+    "int8_p2": (2, 5000, 8, torch.float32, 2048, "reduce", None, "warp", "stream"),
+    "one_padded_group": (4, 1024, 4, torch.float32, 2048, "reduce", None, "warp", "stream"),
+    "p1_dequantize": (1, 4096, 8, torch.float32, 2048, "reduce", None, "warp", "stream"),
+    "bf16_input": (4, 8192, 4, torch.bfloat16, 2048, "reduce", None, "warp", "stream"),
+    "odd_group_scalar_path": (3, 1001, 8, torch.float32, 250, "reduce", None, "block",
+                              "block"),
+    "int4_group_6": (2, 100, 4, torch.float32, 6, "reduce", None, "block", "block"),
+    "p3_gs4096_int4_ragged": (3, 3 * 4096 + 512, 4, torch.float32, 4096, "reduce", None,
+                              "block", "stream"),
+    "p3_int8_ragged": (3, 2 * 2048 + 1000, 8, torch.float32, 2048, "reduce", None, "warp",
+                       "stream"),
+    "p8_int4": (8, 2 * 2048, 4, torch.float32, 2048, "reduce", None, "warp", "stream"),
+    "p8_int8_full_stage": (8, 2048 + 256, 8, torch.float32, 2048, "reduce", None, "warp",
+                           "stream"),
+    "p8_gs4096_int8": (8, 4096, 8, torch.float32, 4096, "reduce", None, "block", "block"),
+    "p2_gs4096_int8_bf16": (2, 2 * 4096, 8, torch.bfloat16, 4096, "reduce", None, "warp",
+                            "stream"),
+    "p9_int4": (9, 4096, 4, torch.float32, 2048, "reduce", None, "warp", "block"),
+    "bf16_int8_rows": (4, 3 * 2048 + 8, 8, torch.bfloat16, 2048, "rows", None, "warp",
+                       "stream"),
+    "offset_view": (4, 4096, 4, torch.float32, 2048, "reduce", "offset", "block", "block"),
+    "group_250_int4": (2, 4000, 4, torch.float32, 250, "reduce", None, "block", "block"),
+    "p2_gs256_int4_ragged": (2, 3 * 256 + 64, 4, torch.float32, 256, "reduce", None, "warp",
+                             "stream"),
+    "bf16_gs256_int8": (2, 1024, 8, torch.bfloat16, 256, "reduce", None, "block", "stream"),
 }
 
 
@@ -1435,6 +1519,27 @@ def quant_plain(x, bits, gs):
     rows, R, G = qc._prep_rows(x, gs)
     q, s = qc._quantize_rows_ref(rows, bits)
     return q.reshape(R, -1), s.reshape(R, G)
+
+
+def offset_copy(t, nbytes):
+    """``t`` copied into a fresh buffer ``nbytes`` bytes past its start: a
+    contiguous view whose data pointer is not 16-byte aligned."""
+    item = t.element_size()
+    buf = torch.empty(t.numel() + 16 // item, dtype=t.dtype, device=t.device)
+    view = buf[nbytes // item:nbytes // item + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def neighbour_scales(s):
+    """The planted fault: group 1 of row 0 reads group 0's scale (row 1's
+    group 0 where a row has one group)."""
+    bad = s.clone()
+    if s.shape[1] > 1:
+        bad[0, 1] = s[0, 0]
+    else:
+        bad[0, 0] = s[1, 0] if s.shape[0] > 1 else 2 * s[0, 0]
+    return bad
 
 
 def test_quant_exact_check_rejects_a_neighbour_scale():
@@ -1452,26 +1557,52 @@ def test_quant_exact_check_rejects_a_neighbour_scale():
 @gpu
 @pytest.mark.parametrize("name", list(QUANT_CASES))
 def test_quant_kernels_match_plain(cuda, name):
+    """Ints, scales and sums bitwise equal to the plain versions; the
+    source declares the case's routes and the tally shows one launch on
+    each; the plain sum with a neighbour's scale differs."""
     from deepspeed_tpu_torch.ops import quant_collective as qc
-    P, m, bits, dtype, gs = QUANT_CASES[name]
+    P, m, bits, dtype, gs, read, under, q_route, d_route = QUANT_CASES[name]
     g = torch.Generator(device=cuda).manual_seed(1)
     x = torch.randn(P, m, generator=g, device=cuda)
     x[0, :gs] *= 50.0
+    if P > 1:
+        x[P - 1, :min(gs, m)] = 0.0           # an all-zero group: scale 1
     x = x.to(dtype)
+    if under == "offset":
+        x = offset_copy(x, 4)
+    aligned = under != "offset"
+    assert qc.kernel_route("quantize", m, gs, bits, dtype, aligned=aligned) == \
+        f"quantize_{q_route}"
     before = (qc.block_quantize.launches, qc.block_dequantize_reduce.launches)
+    tally = qc.kernel_launches()
     q, s = qc.block_quantize(x, num_bits=bits, group_size=gs)
     q_ref, s_ref = quant_plain(x, bits, gs)
     assert same_bits(q, q_ref) and same_bits(s, s_ref)
+    if P > 1:
+        assert bool((s[P - 1, 0] == 1.0).item())
     G = s.shape[1]
-    if P == 1:
-        out = qc.block_dequantize(q, s, num_bits=bits, group_size=gs, out_len=m)
+    if under == "offset":
+        q = offset_copy(q, 1)
+    peers, out_rows = (P, 1) if read == "reduce" else (1, P)
+    assert qc.kernel_route("dequantize_reduce", m, gs, bits, peers=peers,
+                           aligned=aligned) == f"dequant_reduce_{d_route}"
+    if read == "rows" or P == 1:
+        deq = lambda scales: qc.block_dequantize(q, scales, num_bits=bits, group_size=gs,
+                                                 out_len=m)
     else:
-        out = qc.block_dequantize_reduce(q, s, num_bits=bits, group_size=gs, out_len=m)
-    ref = qc._dequantize_reduce_ref(q.reshape(P, G, -1), s, bits).reshape(-1)[:m]
+        deq = lambda scales: qc.block_dequantize_reduce(q, scales, num_bits=bits,
+                                                        group_size=gs, out_len=m)
+    out = deq(s)
+    wire = q.reshape(peers, out_rows * G, -1)
+    plain = lambda scales: qc._dequantize_reduce_ref(
+        wire, scales.reshape(peers, -1), bits).reshape(out_rows, -1)[:, :m].reshape(out.shape)
     torch.cuda.synchronize()
-    assert same_bits(out.reshape(-1), ref)
+    assert same_bits(out, plain(s))
+    assert not same_bits(out, plain(neighbour_scales(s)))
     assert (qc.block_quantize.launches, qc.block_dequantize_reduce.launches) == \
         (before[0] + 1, before[1] + 1)
+    launched = {n: c - tally[n] for n, c in qc.kernel_launches().items() if c > tally[n]}
+    assert launched == {f"quantize_{q_route}": 1, f"dequant_reduce_{d_route}": 1}
 
 
 @gpu

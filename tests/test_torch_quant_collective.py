@@ -115,6 +115,90 @@ def test_peer_sum_matches_pallas_interpret_on_tiled_peers(bits):
 
 
 @pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("P", [3, 8])
+def test_peer_sum_matches_pallas_interpret_at_3_and_8_peers(P, bits):
+    """3 and 8 peers of 8 groups each (the CUDA kernel's peer counts are a
+    template argument, 1 to 8): the fused dequantize + sum of one wire,
+    with a ragged ``out_len``."""
+    x = rows(7 + P, (P, 8 * 2048), special=False)
+    q, s = tq.block_quantize(torch.from_numpy(x), num_bits=bits, group_size=2048)
+    got = tq.block_dequantize_reduce(q, s, num_bits=bits, group_size=2048)
+    wire = (jnp.asarray(q.numpy()), jnp.asarray(s.numpy()))
+    twin = jq.block_dequantize_reduce(*wire, num_bits=bits, group_size=2048, interpret=False)
+    kern = jq.block_dequantize_reduce(*wire, num_bits=bits, group_size=2048, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(twin))
+    diff = (got - torch.tensor(np.asarray(kern))).abs()
+    assert bool((diff <= sum_bound(q, s, bits)).all())
+    cut = tq.block_dequantize_reduce(q, s, num_bits=bits, group_size=2048, out_len=7 * 2048 + 36)
+    np.testing.assert_array_equal(cut.numpy(), np.asarray(jq.block_dequantize_reduce(
+        *wire, num_bits=bits, group_size=2048, out_len=7 * 2048 + 36, interpret=False)))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_group_4096_matches_jax(bits):
+    """Groups of 4096 (16 KB of fp32, the CUDA stream kernels' largest
+    stage): the wire of 8 group-rows and the sum of 4 peers of 8 groups
+    each (shapes the Pallas kernels tile) against the jnp twins exactly and
+    the interpret-mode kernels as above; 3 peers of a ragged row of
+    3 x 4096 + 512 against the twins."""
+    x = rows(8, (8, 4096))
+    q, s = tq.block_quantize(torch.from_numpy(x), num_bits=bits, group_size=4096)
+    qj, sj = jq.block_quantize(jnp.asarray(x), num_bits=bits, group_size=4096,
+                               interpret=False)
+    qk, sk = jq.block_quantize(jnp.asarray(x), num_bits=bits, group_size=4096,
+                               interpret=True)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(sj))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(qk))
+    np.testing.assert_array_max_ulp(s.numpy(), np.asarray(sk), maxulp=1)
+    x = rows(11, (4, 8 * 4096), special=False)
+    q, s = tq.block_quantize(torch.from_numpy(x), num_bits=bits, group_size=4096)
+    got = tq.block_dequantize_reduce(q, s, num_bits=bits, group_size=4096)
+    wire = (jnp.asarray(q.numpy()), jnp.asarray(s.numpy()))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jq.block_dequantize_reduce(
+        *wire, num_bits=bits, group_size=4096, interpret=False)))
+    kern = jq.block_dequantize_reduce(*wire, num_bits=bits, group_size=4096, interpret=True)
+    diff = (got - torch.tensor(np.asarray(kern))).abs()
+    assert bool((diff <= sum_bound(q, s, bits)).all())
+    ragged = rows(9, (3, 3 * 4096 + 512), special=False)
+    q, s = tq.block_quantize(torch.from_numpy(ragged), num_bits=bits, group_size=4096)
+    qj, sj = jq.block_quantize(jnp.asarray(ragged), num_bits=bits, group_size=4096)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(sj))
+    got = tq.block_dequantize_reduce(q, s, num_bits=bits, group_size=4096,
+                                     out_len=ragged.shape[1])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jq.block_dequantize_reduce(
+        qj, sj, num_bits=bits, group_size=4096, out_len=ragged.shape[1])))
+
+
+@pytest.mark.parametrize("interpret", [False, True])
+def test_bf16_input_at_8_bits_matches_jax(interpret):
+    """bf16 payload rows on the int8 wire (the expert-parallel dispatch's
+    format): the port's wire from bf16 against the JAX package's from the
+    same bf16 values, and each row read back (``block_dequantize``) exactly
+    against the twin of the same wire. The jnp twins give the same ints and
+    scales; the Pallas kernels in interpret mode scales within one ulp (see
+    above), and the ints the port's arithmetic gives with those scales."""
+    xb = torch.from_numpy(rows(10, (8, 2 * 2048 + 8))).bfloat16()
+    xj = jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16)
+    q, s = tq.block_quantize(xb, num_bits=8)
+    qj, sj = jq.block_quantize(xj, num_bits=8, interpret=interpret)
+    if interpret:
+        np.testing.assert_array_max_ulp(s.numpy(), np.asarray(sj), maxulp=1)
+        padded, _, _ = tq._prep_rows(xb, 2048)
+        scales = torch.tensor(np.asarray(sj)).reshape(-1, 1)
+        want = torch.clamp(torch.round(padded / scales), -127, 127).to(torch.int8)
+        np.testing.assert_array_equal(np.asarray(qj), want.reshape(q.shape).numpy())
+    else:
+        np.testing.assert_array_equal(q.numpy(), np.asarray(qj))
+        np.testing.assert_array_equal(s.numpy(), np.asarray(sj))
+    back = tq.block_dequantize(q, s, num_bits=8, out_len=xb.shape[1], dtype=torch.bfloat16)
+    want = jq.block_dequantize(jnp.asarray(q.numpy()), jnp.asarray(s.numpy()), num_bits=8,
+                               out_len=xb.shape[1], dtype=jnp.bfloat16, interpret=False)
+    np.testing.assert_array_equal(back.float().numpy(), np.asarray(want).astype(np.float32))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
 def test_block_quantize_roundtrip_nondivisible_tail(bits):
     """M=5000 with group 512: 10 groups per row, a 120-element padded tail;
     the same wire as the JAX package's."""
