@@ -264,6 +264,30 @@ prints no result.
    tokens equal to those of an engine with a 128-block pool; spill, landing
    and restore times are printed.
 
+20. Speculative serving with SLO classes and telemetry (run right after
+   phase 3, on its model: Llama-2-7B, all 32 layers, bf16 from a seed).
+   First the verify forward's last column against ``ragged_forward``'s
+   logits, bit for bit, on a mixed batch (a 200-token prefill chunk beside
+   verify and decode chunks) and on a verify round's [8, 8] shape, each
+   with a planted fault (verify columns read one chunk position early) that
+   the check must reject; and the logit noise between S buckets 8 and 4 on
+   the same rows, which must lie within the near-tie slack below. Then
+   ``build_engine`` with ``speculative`` (4 drafts, n-grams up to 3),
+   prefix caching, two SLO classes with TTFT/TPOT targets and telemetry on
+   serves 8 greedy requests (template prompts: a 2-4 token pattern tiled to
+   256-1024 tokens, 64 new tokens each) through ``SplitFuseScheduler``,
+   and again with speculation off, and a third time with the planted fault
+   (16 new tokens). Each speculative stream must equal the plain stream up
+   to its first difference, a first difference only at a near-tie of the
+   plain run (top two logits within ``SPEC_TIE_SLACK``, the tokens its top
+   two), and the fault's streams must fail that check; drafts must be
+   speculated and accepted (speculated == accepted + rejected), no KV block
+   live after a run, one host sync a round, and every paged launch on the
+   ``wgmma`` kernel, ``num_layers x forwards`` of them with verify rounds
+   counted. Printed: rounds, tokens per round, the accept rate, decode wall
+   time with and without speculation, TTFT/TPOT p50/p95 per SLO class from
+   the telemetry summary, the first differences with their top-2 gaps.
+
 The script prints its total wall time. The line before the last is one
 JSON object describing each kernel; the last is ``{"ok": true, "device":
 {...}}``. Any failure raises, so the script exits non-zero without it.
@@ -837,7 +861,7 @@ def phase_serving():
                  paged_mha_launches=launches, kernels_launched=kernels_launched,
                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"serving {json.dumps(stats)}", flush=True)
-    return launches, kernels_launched
+    return launches, kernels_launched, model
 
 
 # ---------------------------------------------------------------------------
@@ -4187,6 +4211,332 @@ def phase_host_tier():
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 20: speculative serving with SLO classes and telemetry
+# ---------------------------------------------------------------------------
+
+SPEC_REQUESTS = 8
+SPEC_NEW = 64                 # new tokens a request in the serving runs
+SPEC_CONTROL_NEW = 16         # in the planted-fault control run
+SPEC_CONFIG = {"enabled": True, "max_draft_tokens": 4, "ngram_max": 3}
+SPEC_SLO = {"interactive": {"ttft_target_s": 2.0, "tpot_target_s": 0.1},
+            "batch": {"ttft_target_s": 30.0, "tpot_target_s": 1.0}}
+# One round prefills every prompt (budget 8192 tokens over 8 requests of at
+# most 1024), so the plain and speculative runs hold the same prompt KV and
+# run their decode rounds at the same [8, 8] GEMM and paged-call shapes: the
+# verify forward's columns and the row-invariant paged kernel then give the
+# plain run's logits bit for bit. The shapes part only where one run has
+# finished requests the other has not (the S bucket drops from 8 to 4): from
+# there a greedy token may flip at a near-tie. A speculative stream must
+# equal the plain stream up to its first difference, and at a first
+# difference its token must be one of the plain run's top four there, with
+# a logit within SPEC_TIE_SLACK of the plain token's. The phase measures the
+# largest logit difference of the same rows between S buckets 8 and 4 and
+# fails if it exceeds the slack. Readings (H100 80GB HBM3, 700.00 W): that
+# noise 0.2656 at logits of magnitude ~5 (bf16 spacing 2^-5 there); the
+# slack is about twice it.
+SPEC_TIE_SLACK = 0.5
+SPEC_TOP = 4                  # plain-run logits kept per emitting row
+
+
+def spec_prompts(vocab, n=SPEC_REQUESTS, seed=20):
+    """Template prompts as ``tests/test_speculative.py`` builds them: a short
+    random pattern (2-4 tokens) tiled to 256-1024 tokens, from a seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = {}
+    for uid in range(n):
+        pat = rng.integers(0, vocab, int(rng.integers(2, 5)))
+        out[uid] = np.resize(pat, int(rng.integers(256, 1025))).astype(np.int32)
+    return out
+
+
+def spec_engine_config(speculative):
+    return {"state_manager": {"max_ragged_sequence_count": SPEC_REQUESTS,
+                              "max_ragged_batch_size": 8192, "max_context": 2048,
+                              "num_kv_blocks": 160},
+            "kv_cache": {"block_size": 64, "cache_dtype": "bf16"},
+            "prefix_caching": True, "slo_classes": SPEC_SLO,
+            "speculative": dict(SPEC_CONFIG, enabled=speculative)}
+
+
+def faulty_verify(model, kv_cache, tokens, q_len, seen, block_tables, k_max, **kw):
+    """The planted fault: verify columns read one chunk position early."""
+    from deepspeed_tpu_torch.inference.v2.model_implementations.llama import (
+        ragged_forward_verify)
+    return ragged_forward_verify(model, kv_cache, tokens, q_len, seen, block_tables,
+                                 k_max + 1, **kw)[:, :-1]
+
+
+# The verify-column check's two batches over random pools, (name, seen,
+# chunk lengths): a mixed one (a 200-token prefill chunk beside verify chunks
+# of 2-5 tokens and decode rows; Q bucket 256) and a verify round's shape
+# (chunks of 1-5 tokens; Q bucket 8).
+SPEC_SEEN = [700, 0, 300, 1000, 37, 512, 64, 900]
+SPEC_BATCHES = [("mixed", [5, 200, 1, 5, 3, 1, 5, 2]),
+                ("verify_round", [5, 1, 5, 3, 1, 5, 2, 4])]
+
+
+def spec_forward_arrays(rng, vocab, seen, chunks, bs, max_blocks, trash, dev, rows=None):
+    """The ragged arrays of one batch: random tokens, ``seen`` and block
+    tables over disjoint pages, on ``dev``."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.inference.v2.ragged.ragged_wrapper import RaggedBatchWrapper
+    rows = range(len(seen)) if rows is None else rows
+    wrapper = RaggedBatchWrapper(8, 512, max_blocks, trash)
+    for i in rows:   # row i owns pages [i * max_blocks, (i + 1) * max_blocks)
+        toks = rng.integers(0, vocab, chunks[i]).astype(np.int32)
+        n_blocks = -(-(seen[i] + chunks[i]) // bs)
+        wrapper.insert_sequence(i, toks, seen[i],
+                                list(range(i * max_blocks, i * max_blocks + n_blocks)))
+    return {k: torch.from_numpy(v).to(dev) for k, v in wrapper.build().items()}
+
+
+def check_verify_columns(model):
+    """The verify forward's last column against ``ragged_forward``'s logits
+    on the same pools, bit for bit, with the planted fault as the control;
+    and the logit noise between S buckets 8 and 4 on the same four rows."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.inference.v2.model_implementations.llama import (
+        ragged_forward, ragged_forward_verify)
+    from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import BlockedKVCache
+
+    cfg = model.config
+    dev = next(model.parameters()).device
+    bs, max_blocks, k_max = 64, 18, 8
+    kv = BlockedKVCache(cfg.num_hidden_layers, 8 * max_blocks, bs,
+                        cfg.num_key_value_heads, cfg.head_dim, "bf16", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    for pool in (kv.k_pool, kv.v_pool):
+        pool.copy_(torch.randn(pool.shape, generator=gen, device=dev, dtype=torch.bfloat16))
+    saved = (kv.k_pool.clone(), kv.v_pool.clone())
+
+    def run(fn, a, *extra):
+        kv.k_pool.copy_(saved[0])
+        kv.v_pool.copy_(saved[1])
+        return fn(model, kv, a["tokens"], a["q_len"], a["seen"], a["block_tables"], *extra)
+
+    rng = np.random.default_rng(20)
+    seen = SPEC_SEEN
+    report = {}
+    for name, chunks in SPEC_BATCHES:
+        state = rng.bit_generator.state
+        a = spec_forward_arrays(rng, cfg.vocab_size, seen, chunks, bs, max_blocks,
+                                kv.trash_block, dev)
+        n = len(seen)
+        plain = run(ragged_forward, a)[:n]
+        ver = run(ragged_forward_verify, a, k_max)[:n]
+        bad = run(faulty_verify, a, k_max)[:n]
+        report[name] = dict(
+            shape=list(a["tokens"].shape),
+            last_column_bitwise=bool(torch.equal(ver[:, -1], plain)),
+            max_abs_diff=float((ver[:, -1] - plain).abs().max()),
+            control_rows_equal=int(sum(torch.equal(bad[i, -1], plain[i]) for i in range(n))),
+            control_max_abs_diff=float((bad[:, -1] - plain).abs().max()))
+        if name == "verify_round":
+            # the same four rows alone: S bucket 4
+            rng.bit_generator.state = state
+            a4 = spec_forward_arrays(rng, cfg.vocab_size, seen, chunks, bs, max_blocks,
+                                     kv.trash_block, dev, rows=range(4))
+            four = run(ragged_forward, a4)[:4]
+            report["s_bucket_noise"] = float((four - plain[:4]).abs().max())
+    del kv, saved
+    torch.cuda.empty_cache()
+    return report
+
+
+def spec_serve(engine, prompts, n_new, record_top2=False):
+    """Serve ``prompts`` greedily through ``SplitFuseScheduler`` (SLO classes
+    alternating interactive / batch); returns the tokens and the run's
+    numbers. ``record_top2`` keeps each emitting row's top SPEC_TOP logits
+    and tokens on the card (one top-k a round, read after the run): for
+    each (uid, step), {token: top logit - its logit}."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import SplitFuseScheduler
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.ops.paged_attention import paged_mha
+
+    sched = SplitFuseScheduler(engine)
+    for uid, p in prompts.items():
+        sched.submit(uid, p, max_new_tokens=n_new,
+                     slo_class="interactive" if uid % 2 == 0 else "batch")
+    top2 = []
+    if record_top2:
+        forward = engine._forward_device
+
+        def recording(uids, toks, **kw):
+            logits = forward(uids, toks, **kw)
+            steps = [(u, len(sched._requests[u].generated)) for u in uids]
+            top2.append((steps, torch.topk(logits[:len(uids)], SPEC_TOP, dim=-1)))
+            return logits
+        engine._forward_device = recording
+    torch.cuda.synchronize()
+    paged_mha.launches = 0
+    tally = pa.kernel_launches()
+    syncs0 = engine.host_sync_count
+    rounds, decode_rounds, decode_s = 0, 0, 0.0
+    t0 = time.perf_counter()
+    while sched.has_work:
+        decode_only = all(len(t) for t in sched.results().values())
+        t = time.perf_counter()
+        sched.step()
+        dt = time.perf_counter() - t
+        rounds += 1
+        if decode_only:
+            decode_rounds += 1
+            decode_s += dt
+        if rounds > 4 * n_new * len(prompts):
+            fail("speculative serving: scheduler did not converge")
+    wall = time.perf_counter() - t0
+    top = {}
+    for steps, (vals, idx) in top2:
+        vals, idx = vals.float().cpu().numpy(), idx.cpu().numpy()
+        for (uid, step), v, i in zip(steps, vals, idx):
+            top[(uid, step)] = {int(t): float(v[0] - x) for t, x in zip(i, v)}
+    out = {u: v.tolist() for u, v in sched.results().items()}
+    return dict(tokens=out, sched=sched, rounds=rounds, decode_rounds=decode_rounds,
+                decode_s=decode_s, wall_s=wall, forwards=engine.host_sync_count - syncs0,
+                launches=paged_mha.launches, kernels=launched_kernels(pa, tally),
+                top2=top)
+
+
+def stream_verdict(spec, plain, top):
+    """Each speculative stream against the plain stream: equal up to its
+    first difference, and a first difference only at a near-tie of the
+    plain run: the speculative token among its top SPEC_TOP there, its
+    logit within SPEC_TIE_SLACK of the plain token's. Returns (requests
+    equal in full, [(uid, step, logit gap)] first differences, [those not at
+    a near-tie])."""
+    agree, diffs, beyond = 0, [], []
+    for uid, toks in spec.items():
+        ref = plain[uid][:len(toks)]
+        d = next((i for i, (a, b) in enumerate(zip(toks, ref)) if a != b), None)
+        if d is None and len(toks) == len(ref):
+            agree += 1
+            continue
+        gap = float("inf") if d is None else \
+            top.get((uid, d), {}).get(toks[d], float("inf"))
+        diffs.append((uid, d, gap))
+        if not gap <= SPEC_TIE_SLACK:
+            beyond.append((uid, d, gap))
+    return agree, diffs, beyond
+
+
+def phase_speculative(model):
+    import torch
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.inference.v2 import build_engine
+
+    cfg = model.config
+    smi = nvidia_smi()
+    columns = check_verify_columns(model)
+    print(f"speculative: verify columns {json.dumps(columns)}", flush=True)
+    for name in ("mixed", "verify_round"):
+        c = columns[name]
+        if not c["last_column_bitwise"]:
+            fail(f"speculative: the verify forward's last column differs from "
+                 f"ragged_forward's logits ({name}, max |diff| {c['max_abs_diff']})")
+        if c["control_max_abs_diff"] == 0.0:
+            fail(f"speculative: the column check does not reject the planted "
+                 f"fault ({name})")
+    if not columns["s_bucket_noise"] <= SPEC_TIE_SLACK:
+        fail(f"speculative: logits move {columns['s_bucket_noise']} between S buckets, "
+             f"more than the near-tie slack {SPEC_TIE_SLACK}")
+
+    prompts = spec_prompts(cfg.vocab_size)
+    telemetry.reset()
+    telemetry.configure(enabled=True, sample_sync=False)
+    runs = {}
+    for name, speculative, n_new, record in (("plain", False, SPEC_NEW, True),
+                                             ("speculative", True, SPEC_NEW, False),
+                                             ("control", True, SPEC_CONTROL_NEW, False)):
+        telemetry.reset()
+        engine = build_engine(model, spec_engine_config(speculative))
+        if name == "control":
+            engine._verify_forward = faulty_verify
+        runs[name] = spec_serve(engine, prompts, n_new, record_top2=record)
+        runs[name]["summary"] = telemetry.summary()
+        runs[name]["kv_live"] = engine._state.kv_cache.allocator.counts()["live"]
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    telemetry.configure(enabled=False)
+    telemetry.reset()
+
+    plain, spec, control = runs["plain"], runs["speculative"], runs["control"]
+    sched = spec["sched"]
+    agree, diffs, beyond = stream_verdict(spec["tokens"], plain["tokens"], plain["top2"])
+    c_agree, c_diffs, c_beyond = stream_verdict(control["tokens"], plain["tokens"],
+                                                plain["top2"])
+
+    def slo_table(summary):
+        hists = summary["serving"]["histograms"]
+        return {f"{m}/{cls}": {q: hists[f"serving/{m}_s/{cls}"][f"{q}_s"]
+                               for q in ("p50", "p95")}
+                for m in ("ttft", "tpot") for cls in SPEC_SLO
+                if f"serving/{m}_s/{cls}" in hists}
+
+    new_tokens = SPEC_NEW * len(prompts)
+    report = dict(
+        device=smi, requests=len(prompts),
+        prompt_tokens=int(sum(len(p) for p in prompts.values())), new_tokens=new_tokens,
+        rounds={k: runs[k]["rounds"] for k in ("plain", "speculative")},
+        decode_rounds={k: runs[k]["decode_rounds"] for k in ("plain", "speculative")},
+        tokens_per_round={k: new_tokens / runs[k]["rounds"] for k in ("plain", "speculative")},
+        tokens_per_round_ewma=sched.tokens_per_round(),
+        speculated=sched.speculated_tokens, accepted=sched.accepted_tokens,
+        rejected=sched.rejected_tokens,
+        accept_rate=sched.accepted_tokens / max(1, sched.speculated_tokens),
+        decode_wall_s={k: runs[k]["decode_s"] for k in ("plain", "speculative")},
+        wall_s={k: runs[k]["wall_s"] for k in ("plain", "speculative")},
+        host_sync_per_round={k: runs[k]["forwards"] / runs[k]["rounds"]
+                             for k in ("plain", "speculative")},
+        paged_launches={k: runs[k]["launches"] for k in runs},
+        forwards={k: runs[k]["forwards"] for k in runs},
+        kernels={k: runs[k]["kernels"] for k in runs},
+        slo={k: slo_table(runs[k]["summary"]) for k in ("plain", "speculative")},
+        slo_attainment={cls: {m: e["attainment"] for m, e in v["metrics"].items()}
+                        for cls, v in spec["summary"]["slo"].items()},
+        streams_equal_in_full=agree, first_differences=diffs,
+        near_tie_slack=SPEC_TIE_SLACK, s_bucket_noise=columns["s_bucket_noise"],
+        control_streams_equal_in_full=c_agree, control_first_differences=c_diffs,
+        kv_live_after={k: runs[k]["kv_live"] for k in runs},
+        serving_requests=spec["summary"]["serving"]["requests"],
+        verify_batch_occupancy=spec["summary"]["serving"]["gauges"].get(
+            "serving/verify_batch_occupancy"))
+    print(f"speculative serving {json.dumps(report)}", flush=True)
+    if beyond:
+        fail(f"speculative: streams part from the plain streams beyond the near-tie "
+             f"slack {SPEC_TIE_SLACK}: (uid, step, plain top-2 gap) {beyond}")
+    if not c_beyond:
+        fail(f"speculative: the stream check does not reject the planted fault: "
+             f"{c_diffs}")
+    if not sched.speculated_tokens > 0 or not sched.accepted_tokens > 0:
+        fail(f"speculative: {sched.speculated_tokens} drafted, "
+             f"{sched.accepted_tokens} accepted")
+    if sched.speculated_tokens != sched.accepted_tokens + sched.rejected_tokens:
+        fail("speculative: speculated != accepted + rejected")
+    for k, r in runs.items():
+        if r["kv_live"] != 0:
+            fail(f"speculative: {r['kv_live']} KV blocks live after the {k} run")
+        if r["launches"] == 0 or r["launches"] != cfg.num_hidden_layers * r["forwards"]:
+            fail(f"speculative: paged_mha launched {r['launches']} times in the {k} run, "
+                 f"expected {cfg.num_hidden_layers} x {r['forwards']} forwards")
+        if r["kernels"] != {"wgmma": r["launches"]}:
+            fail(f"speculative: the {k} run launched paged kernels {r['kernels']}, "
+                 f"not wgmma {r['launches']} times")
+    for k in ("plain", "speculative"):
+        if runs[k]["forwards"] != runs[k]["rounds"]:
+            fail(f"speculative: {runs[k]['forwards']} host syncs in {runs[k]['rounds']} "
+                 f"rounds of the {k} run")
+    for uid, toks in spec["tokens"].items():
+        if len(toks) != SPEC_NEW or min(toks) < 0 or max(toks) >= cfg.vocab_size:
+            fail(f"speculative: request {uid} finished with bad tokens {toks[:8]}")
+    return report
+
+
 def quant_kernel_lines(cases, zero_ranks, ep_ranks):
     """The kernels-line entries of the two qgZ kernels: the main case's
     numbers, every case's, the launches of phase 11's run and those of
@@ -4247,8 +4597,14 @@ def main():
     flash_cases = phase_flash_kernels()
     print(f"phase flash kernels: {time.perf_counter() - t1:.1f}s", flush=True)
     t2 = time.perf_counter()
-    launches, paged_kernel_launches = phase_serving()
+    launches, paged_kernel_launches, llama = phase_serving()
     print(f"phase serving: {time.perf_counter() - t2:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    spec_report = phase_speculative(llama)
+    print(f"phase speculative serving: {time.perf_counter() - t2:.1f}s", flush=True)
+    del llama
+    gc.collect()
     torch.cuda.empty_cache()
     t3 = time.perf_counter()
     train_launches = phase_training()
@@ -4314,6 +4670,8 @@ def main():
         bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
         library_ms=main_case["library_ms"], case=main_case["name"],
         device_ms=main_case["device_ms"],
+        speculative_serving_launches=spec_report["paged_launches"],
+        speculative_serving_kernels=spec_report["kernels"],
         cases=[{k: c[k] for k in ("name", "kernel", "splits", "max_abs_err", "err_ratio",
                                   "planted_fault_ratio", "ms", "device_ms", "plain_ms",
                                   "library_ms", "bound_ms", "bound_by")}

@@ -36,10 +36,16 @@
 // warp, two blocks per SM:
 //   - tiles with no live row write zeros (or, split, nothing) and exit; a
 //     live tile visits the 64-key tiles from the first key its rows can see
-//     (window) to the last, cut into `splits` equal ranges (the wrapper's
-//     split count comes from S, KV, Q and the block table's width alone,
-//     and splits only the one-row-tile items of a decode round that would
-//     not fill the card several times: no host sync on seen);
+//     (window) to the last; with `splits` > 1, split i takes those of the
+//     tiles [i * per, (i + 1) * per) of the block table's width (per = the
+//     table's tiles / splits, the last split the rest), boundaries fixed by
+//     the call's shape and not by the tile's live rows, so a query row's
+//     output does not depend on the other rows of its tile: a tile past the
+//     row's last key adds exact zeros (alpha 1, p 0) and a split with no key
+//     of the row gets weight exp(NEG_INF - m) = 0 in the combine (the
+//     wrapper's split count comes from S, KV, Q and the block table's width
+//     alone, and splits only the one-row-tile items of a decode round that
+//     would not fill the card several times: no host sync on seen);
 //   - the producer's lane 0 reads the block table and streams each key
 //     tile's pages by TMA (a 2-D map over the pool seen as [NB * KV * bs,
 //     Dh], boxes of min(bs, 64) rows x 64 columns, 128-byte swizzled) into
@@ -386,10 +392,15 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   }
   const int key_end = seen_s + qi_max + 1;   // exclusive
   const int key_begin = p.window > 0 ? max(0, seen_s + qi_min - p.window + 1) : 0;
-  const int t_first = key_begin / kTile, t_all = (key_end + kTile - 1) / kTile - t_first;
-  const int per = (t_all + p.splits - 1) / p.splits;
-  const int t_begin = t_first + min(sp * per, t_all);
-  const int t_end = t_first + min((sp + 1) * per, t_all);
+  const int t_first = key_begin / kTile, t_last = (key_end + kTile - 1) / kTile;
+  // split sp owns the key tiles [sp * per, (sp + 1) * per) of the block
+  // table's width, the last split all that follow: boundaries fixed by the
+  // call's shape, so that a row's result does not depend on the other live
+  // rows of its tile (a decode row and the same position in a verify chunk
+  // combine the same splits, bit for bit); the item's rows clip them
+  const int per = ((p.MB * p.bs + kTile - 1) / kTile + p.splits - 1) / p.splits;
+  const int t_begin = max(t_first, sp * per);
+  const int t_end = sp == p.splits - 1 ? t_last : min(t_last, (sp + 1) * per);
   const size_t ws_row0 = ((static_cast<size_t>(sp) * p.S + s) * p.KV + h) * n_rows;
 
   if (t_begin >= t_end) {   // an empty split: m = -inf, l = 0, never read further

@@ -49,10 +49,25 @@ class ModulesConfig(DeepSpeedConfigModel):
 
 
 class SpeculativeConfig(DeepSpeedConfigModel):
-    """Draft-then-verify decode knobs (ROADMAP A3: not served yet)."""
+    """Draft-then-verify decode knobs.
+
+    Self-speculation: an n-gram prompt-lookup drafter (no extra weights)
+    proposes up to ``max_draft_tokens`` per decode row; the verify round
+    batches ``[last_token] + drafts`` through the same ragged forward as a
+    SplitFuse chunk and rolls the paged cursor back over any rejected tail.
+    Accepted tokens are by construction the tokens plain decode would have
+    emitted at those ``(seed, position)`` stream points, so the knob changes
+    how many forwards a stream costs, not its tokens. Needs a model family
+    with a verify forward (Llama) and ``device_sampling=True``.
+    """
     enabled = False
+    # max drafted tokens per sequence per round (verify chunk is this + 1)
     max_draft_tokens = 4
+    # longest suffix n-gram the drafter matches against prompt+generated
     ngram_max = 3
+    # second, smaller page-size class for draft-model KV: parent blocks
+    # carved into ``draft_page_divisor`` sub-pages of the same refcounted
+    # pool. 0 disables the class (self-speculation drafts no KV).
     draft_page_divisor = 0
 
 
@@ -65,8 +80,15 @@ class RaggedInferenceEngineConfig(DeepSpeedConfigModel):
     # block-granular prefix caching with copy-on-write sharing
     # (ragged/prefix_cache.py). Generation is bit-exact either way.
     prefix_caching = False
+    # draft-then-verify decode (see SpeculativeConfig); default off
     speculative = SpeculativeConfig()
-    slo_classes = {}                     # per-class SLO targets (ROADMAP A4)
+    # per-class serving SLO latency targets, keyed by class name:
+    #     {"interactive": {"ttft_target_s": 0.5, "tpot_target_s": 0.05},
+    #      "batch": {"ttft_target_s": 5.0, "tpot_target_s": 0.5}}
+    # The scheduler installs them into telemetry at construction; requests
+    # tagged ``submit(..., slo_class=...)`` then feed per-class attainment
+    # counters and burn-rate gauges. Empty = no per-class tracking.
+    slo_classes = {}
 
     def __init__(self, param_dict=None, **kwargs):
         super().__init__(param_dict, **kwargs)
@@ -77,10 +99,6 @@ class RaggedInferenceEngineConfig(DeepSpeedConfigModel):
         unported = [
             (sm.nvme_kv_blocks > 0, "state_manager.nvme_kv_blocks > 0",
              "A14 (offload tiers: the NVMe rung of the KV cache)"),
-            (bool(self.speculative.enabled), "speculative.enabled",
-             "A3 (speculative decode)"),
-            (bool(self.slo_classes), "slo_classes",
-             "A4 (SLO classes and serving telemetry)"),
             (int(dict(self.tensor_parallel).get("tp_size", 1)) > 1,
              "tensor_parallel.tp_size > 1", "A5 (tensor-parallel serving)"),
         ]

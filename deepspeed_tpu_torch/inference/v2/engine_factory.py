@@ -43,9 +43,23 @@ def resolve_forward_fn(model, family=None):
     return ragged_forward
 
 
+def resolve_verify_fn(model, family=None):
+    """The k-token verify forward for a model family, or ``None`` when the
+    family has none (Mixtral, as in the JAX package): the engine then
+    refuses speculation rather than fall back to another program."""
+    if family is None:
+        family = "mixtral" if isinstance(model.config, MixtralConfig) else "llama"
+    if family == "mixtral" or family in UNPORTED_FAMILIES:
+        return None
+    from deepspeed_tpu_torch.inference.v2.model_implementations.llama import (
+        ragged_forward_verify)
+    return ragged_forward_verify
+
+
 def build_engine(model, engine_config=None, family=None, device=None):
     """Build a ragged engine from an in-tree model whose weights lie on
     ``device`` (default ``"cuda"``)."""
     return InferenceEngineV2(model, engine_config,
                              forward_fn=resolve_forward_fn(model, family),
+                             verify_fn=resolve_verify_fn(model, family),
                              device=device)

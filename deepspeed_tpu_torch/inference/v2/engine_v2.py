@@ -7,9 +7,15 @@ next-token logits per sequence; ``query``/``can_schedule`` expose admission
 control for an external scheduler (DeepSpeed-MII's SplitFuse role);
 ``flush`` retires a sequence and frees its KV blocks.
 
-Left for later slices: the verify forward and rollback (ROADMAP A3), page
-export/import and the fleet hooks (ROADMAP A8), telemetry spans and the
-flight-recorder collector (ROADMAP A4).
+Speculative decode: ``put_verify_device`` runs the verify forward and
+samples every column of each row's last ``k_max`` chunk positions;
+``rollback`` and ``commit_prefix`` retire the rejected tail and the deferred
+prefix-cache commit after the scheduler's accept walk. With telemetry on,
+each forward is a ``serving/forward`` span, each accounted host fetch a
+``host_sync`` count, and ``sample_kv_stats`` records the KV gauges.
+
+Left for later slices: page export/import and the fleet hooks (ROADMAP A8),
+and the flight-recorder collector (ROADMAP A15).
 """
 
 import dataclasses
@@ -18,14 +24,14 @@ from typing import Iterable, List, Tuple
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch import resolve_device
+from deepspeed_tpu_torch import resolve_device, telemetry
 from deepspeed_tpu_torch.inference.v2.config_v2 import RaggedInferenceEngineConfig
 from deepspeed_tpu_torch.inference.v2.modules import module_registry as _mr
 from deepspeed_tpu_torch.inference.v2.modules.heuristics import (instantiate_attention,
                                                                  instantiate_moe)
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_manager import DSStateManager
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_wrapper import RaggedBatchWrapper
-from deepspeed_tpu_torch.inference.v2.sampling import sample_rows
+from deepspeed_tpu_torch.inference.v2.sampling import sample_rows, verify_rows
 from deepspeed_tpu_torch.models.mixtral import MixtralConfig
 from deepspeed_tpu_torch.utils.logging import logger
 
@@ -47,11 +53,14 @@ class InferenceEngineV2:
         config: ``RaggedInferenceEngineConfig`` or dict.
         forward_fn: the ragged forward (default: the factory's choice for
             the model family).
+        verify_fn: the k-token verify forward for speculative decode
+            (default: the factory's choice; None for Mixtral).
         device: where the engine runs; default ``"cuda"``, which raises when
             no GPU is present.
     """
 
-    def __init__(self, model, config=None, forward_fn=None, device=None):
+    def __init__(self, model, config=None, forward_fn=None, verify_fn=None,
+                 device=None):
         if not isinstance(config, RaggedInferenceEngineConfig):
             config = RaggedInferenceEngineConfig(config or {})
         self._config = config
@@ -65,7 +74,15 @@ class InferenceEngineV2:
         if forward_fn is None:
             from deepspeed_tpu_torch.inference.v2.engine_factory import resolve_forward_fn
             forward_fn = resolve_forward_fn(model)
+        if verify_fn is None:
+            from deepspeed_tpu_torch.inference.v2.engine_factory import resolve_verify_fn
+            verify_fn = resolve_verify_fn(model)
         self._ragged_forward = forward_fn
+        self._verify_forward = verify_fn
+        if config.speculative.enabled and verify_fn is None:
+            raise ValueError(
+                "speculative.enabled requires a verify forward; "
+                f"{type(cfg).__name__} has none (resolve_verify_fn)")
         mods = config.modules
         if mods.linear != "auto":
             raise _mr.UnsupportedModuleError(
@@ -137,6 +154,9 @@ class InferenceEngineV2:
         transfer funnels through here so ``host_sync_count`` audits the
         per-round sync budget. Returns a CPU tensor."""
         self._host_sync_count += 1
+        tm = telemetry.get_telemetry()
+        if tm.enabled:
+            tm.count("host_sync", what=what)
         return value.detach().to("cpu")
 
     # -- admission control (reference engine_v2.py:158-241) ----------------
@@ -208,12 +228,27 @@ class InferenceEngineV2:
 
     # -- serving (reference engine_v2.py:107) ------------------------------
     def _forward_device(self, batch_uids: List[int],
-                        batch_tokens: List[np.ndarray]):
+                        batch_tokens: List[np.ndarray], verify_k: int = None,
+                        defer_commit=()):
         """Run one ragged forward; returns the FULL padded [S_bucket, vocab]
-        fp32 logits on the device (no host transfer)."""
+        fp32 logits on the device (no host transfer).
+
+        ``verify_k``: when set, run the verify forward instead (the same
+        trunk) and return [S_bucket, verify_k, vocab] logits of each row's
+        last ``verify_k`` chunk positions. ``defer_commit``: uids whose
+        prefix-cache block commit waits for the scheduler's accept walk
+        (speculating rows: a rejected draft must be rolled back before any
+        block digest is registered, or it would poison the shared chain
+        cache; the scheduler calls ``commit_prefix`` afterwards)."""
         verdict = self.can_schedule(batch_uids, [len(t) for t in batch_tokens])
         if not verdict.success:
             raise RuntimeError(f"cannot schedule batch: {verdict.reason}")
+        if verify_k is not None and self._verify_forward is None:
+            raise RuntimeError("no verify forward for this model family")
+        tm = telemetry.get_telemetry()
+        sp = tm.span("serving/forward", seqs=len(batch_uids),
+                     tokens=int(sum(len(t) for t in batch_tokens))) \
+            if tm.enabled else None
         sm = self._config.state_manager
         kv = self._state.kv_cache
         wrapper = RaggedBatchWrapper(sm.max_ragged_sequence_count,
@@ -230,17 +265,23 @@ class InferenceEngineV2:
                                     seq.seen_tokens, seq.kv_blocks)
         arrays = {k: torch.from_numpy(a).to(self._device)
                   for k, a in wrapper.build().items()}
-        logits = self._ragged_forward(
-            self._model, kv, arrays["tokens"], arrays["q_len"],
-            arrays["seen"], arrays["block_tables"], attention=self._attention,
-            **self._forward_kw)
+        batch = (self._model, kv, arrays["tokens"], arrays["q_len"],
+                 arrays["seen"], arrays["block_tables"])
+        if verify_k is not None:
+            logits = self._verify_forward(*batch, int(verify_k),
+                                          attention=self._attention)
+        else:
+            logits = self._ragged_forward(*batch, attention=self._attention,
+                                          **self._forward_kw)
         for uid in batch_uids:
             seq = self._state.get_sequence(uid)
             seq.post_forward()
-            if caching:
+            if caching and uid not in defer_commit:
                 # register blocks as they FILL (not at flush) so concurrent
                 # requests sharing a prefix hit as early as possible
                 self._state.commit_cached_blocks(seq)
+        if sp is not None:
+            sp.end(logits)  # synchronises only when sample_sync is on
         return logits
 
     def put(self, batch_uids: List[int],
@@ -272,6 +313,48 @@ class InferenceEngineV2:
                                       top_ks, top_ps, seeds, positions)
         return self.host_fetch(ids, "serving/sampled_ids").numpy()[:len(batch_uids)]
 
+    # -- speculative decode (draft-then-verify) ----------------------------
+    @property
+    def verify_supported(self) -> bool:
+        """Whether this engine's model family has a k-token verify forward
+        (speculative decode needs it; see ``resolve_verify_fn``)."""
+        return self._verify_forward is not None
+
+    def put_verify_device(self, batch_uids: List[int],
+                          batch_tokens: List[np.ndarray],
+                          temperatures, top_ks, top_ps, seeds, positions,
+                          k_max: int, defer_commit=()):
+        """``put_sampled_device`` for a verify round: one forward through the
+        same trunk, sampling target tokens at each row's last ``k_max``
+        chunk positions (last-aligned: column ``k_max - 1`` is the row's
+        ordinary last-token draw). ``positions`` gives each row's stream
+        position for that final column; column ``c`` is then the token plain
+        decode would emit at ``positions[s] - (k_max - 1) + c``. Returns
+        padded [S-bucket, k_max] int32 ids on the device; the scheduler
+        fetches them once a round and walks each row's accepted prefix on
+        the host. ``defer_commit`` goes to ``_forward_device``."""
+        logits = self._forward_device(batch_uids, batch_tokens,
+                                      verify_k=int(k_max),
+                                      defer_commit=defer_commit)
+        return verify_rows(logits, temperatures, top_ks, top_ps,
+                           [int(s) & 0x7FFFFFFF for s in seeds], positions)
+
+    def rollback(self, uid: int, n_tokens: int) -> None:
+        """Roll ``uid``'s paged cursor back ``n_tokens`` (the rejected tail
+        of a verify chunk): tail blocks wholly past the new cursor are
+        dereferenced; shared prefix blocks survive, this round's private
+        allocations return to the pool."""
+        self._state.rollback_sequence(uid, n_tokens)
+
+    def commit_prefix(self, uid: int) -> None:
+        """Run the deferred prefix-cache block commit of a speculating row
+        (after the accept walk and rollback, so only verified tokens enter
+        the chain-digest cache). No-op when caching is off."""
+        if self._state.prefix_cache is not None:
+            seq = self._state.get_sequence(uid)
+            if seq is not None:
+                self._state.commit_cached_blocks(seq)
+
     def flush(self, uid: int) -> None:
         """Retire a sequence, freeing its KV blocks (reference :242)."""
         self._state.flush_sequence(uid)
@@ -280,6 +363,11 @@ class InferenceEngineV2:
         """Pure host-side KV pool stats (occupancy, free blocks,
         fragmentation, swap counters). Never touches the device."""
         return self._state.kv_stats()
+
+    def sample_kv_stats(self, point="step"):
+        """``kv_stats``, recording the KV serving gauges when telemetry is
+        on. Sync-free: the block bookkeeping lives on the host."""
+        return self._state.sample_kv_stats(point=point)
 
     @property
     def kv_block_size(self) -> int:

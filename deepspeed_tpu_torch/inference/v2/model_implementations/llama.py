@@ -9,7 +9,9 @@ final norm and the logits of each sequence's last real token. Padded token
 slots write to the trash block. The JAX package donates its pools to the
 jitted forward and gets new ones back; here the pools are updated in place
 (``index_put_``), which saves a copy of the whole cache per forward.
-``ragged_forward_verify`` (speculative decode) waits for ROADMAP A3.
+``ragged_forward_verify`` (the verify half of speculative decode) runs the
+same trunk and returns the logits of each row's last ``k_max`` chunk
+positions.
 """
 
 import torch
@@ -58,16 +60,12 @@ def _scatter_kv(k_pool, v_pool, k_scale, v_scale, k, v, block_tables, seen,
     v_pool[bi, :, si] = v.reshape(S * Q, *v.shape[2:]).to(v_pool.dtype)
 
 
-@torch.no_grad()
-def ragged_forward(model, kv_cache, tokens, q_len, seen, block_tables,
-                   attention=paged_mha):
-    """One ragged forward step over ``model`` (a ``LlamaForCausalLM``).
-
-    ``tokens`` [S, Q], ``q_len``/``seen`` [S] and ``block_tables`` [S, MB]
-    are int32 tensors on the model's device; ``kv_cache`` is the engine's
-    ``BlockedKVCache``, whose pools this call updates in place.
-    ``attention`` has ``paged_mha``'s signature: the kernel by default, or
-    its plain version. Returns last-token logits [S, V] in fp32."""
+def _ragged_trunk(model, kv_cache, tokens, q_len, seen, block_tables,
+                  attention):
+    """The embedding -> layers -> final-norm trunk shared by
+    ``ragged_forward`` and ``ragged_forward_verify``, so that a verify round
+    runs the same paged-attention call as a plain round. Returns the normed
+    hidden states [S, Q, D]; updates the pools in place."""
     cfg = model.config
     S, Q = tokens.shape
     H, KV, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -93,7 +91,51 @@ def ragged_forward(model, kv_cache, tokens, q_len, seen, block_tables,
         gate = F.silu(F.linear(h, mlp.gate_proj.weight))
         x = x + F.linear(gate * F.linear(h, mlp.up_proj.weight),
                          mlp.down_proj.weight)
-    x = rms_norm(x, model.norm.weight, cfg.rms_norm_eps)
+    return rms_norm(x, model.norm.weight, cfg.rms_norm_eps)
+
+
+@torch.no_grad()
+def ragged_forward(model, kv_cache, tokens, q_len, seen, block_tables,
+                   attention=paged_mha):
+    """One ragged forward step over ``model`` (a ``LlamaForCausalLM``).
+
+    ``tokens`` [S, Q], ``q_len``/``seen`` [S] and ``block_tables`` [S, MB]
+    are int32 tensors on the model's device; ``kv_cache`` is the engine's
+    ``BlockedKVCache``, whose pools this call updates in place.
+    ``attention`` has ``paged_mha``'s signature: the kernel by default, or
+    its plain version. Returns last-token logits [S, V] in fp32."""
+    x = _ragged_trunk(model, kv_cache, tokens, q_len, seen, block_tables,
+                      attention)
+    S = tokens.shape[0]
     # logits_gather analog: only the last real token of each sequence
     last = x[torch.arange(S, device=x.device), (q_len.long() - 1).clamp(min=0)]
     return F.linear(last, model.lm_head.weight).float()
+
+
+@torch.no_grad()
+def ragged_forward_verify(model, kv_cache, tokens, q_len, seen, block_tables,
+                          k_max, attention=paged_mha):
+    """One ragged forward returning the logits of each row's last ``k_max``
+    chunk positions: the verify half of draft-then-verify decode. The trunk
+    is ``ragged_forward``'s, so a verify round runs the same paged-attention
+    kernel as plain prefill; only the logits gather widens.
+
+    Columns are last-aligned: for row ``s`` with chunk length ``q_len[s]``,
+    column ``c`` holds the logits after chunk position
+    ``q_len[s] - k_max + c`` (clamped into the chunk), so column
+    ``k_max - 1`` is the row's ordinary last-token logits. Each column's
+    ``lm_head`` product runs at the plain forward's ``[S, D] @ [D, V]``
+    shape, never as one ``[S * k_max, D]`` product: the library picks its
+    algorithm by shape, and the last column must equal ``ragged_forward``'s
+    logits bit for bit. Returns [S, k_max, V] fp32."""
+    x = _ragged_trunk(model, kv_cache, tokens, q_len, seen, block_tables,
+                      attention)
+    S = tokens.shape[0]
+    rows = torch.arange(S, device=x.device)
+    ql = q_len.long()
+    cap = (ql - 1).clamp(min=0)
+    cols = []
+    for c in range(int(k_max)):
+        idx = torch.minimum((ql - k_max + c).clamp(min=0), cap)
+        cols.append(F.linear(x[rows, idx], model.lm_head.weight).float())
+    return torch.stack(cols, dim=1)

@@ -1,7 +1,7 @@
 """Host-side free-list allocator for KV-cache blocks (port of
 ``deepspeed_tpu/inference/v2/ragged/blocked_allocator.py``, itself mirroring
-the reference ``deepspeed/inference/v2/ragged/blocked_allocator.py``). The
-reference's second, draft-page class waits for speculative decode (ROADMAP A3).
+the reference ``deepspeed/inference/v2/ragged/blocked_allocator.py``), with
+its second, draft-page class (``DraftPageAllocator``, speculative decode).
 
 Pure Python on the host: block ids index into the device-resident KV pool.
 The reference keeps the free list in a torch tensor; here a deque is simpler
@@ -301,6 +301,15 @@ class BlockedAllocator:
         if not 0 <= b < self._num_blocks:
             raise ValueError(f"block id {b} out of range")
 
+    def draft_pages(self, pages_per_block: int):
+        """A second, smaller page-size class carved out of this pool: a
+        ``DraftPageAllocator`` whose pages are 1/``pages_per_block`` of a
+        block. Draft-model KV rides the same refcounted pool this way —
+        draft pages consume parent blocks through the ordinary
+        ``allocate``/``free`` protocol, so the census invariant and pool
+        pressure see them like any other tenant."""
+        return DraftPageAllocator(self, pages_per_block)
+
     def stats(self):
         """Host-side free-list stats for the serving gauges: free/total
         counts plus contiguous-run structure. ``fragmentation`` is
@@ -333,3 +342,99 @@ class BlockedAllocator:
                 "free_runs": runs, "largest_free_run": largest,
                 "fragmentation": frag}
         return dict(self._stats_cache)
+
+
+class DraftPageAllocator:
+    """Sub-block page allocator: a second, smaller page-size class riding a
+    parent ``BlockedAllocator``.
+
+    Each parent block is carved into ``pages_per_block`` draft pages; page
+    id = ``parent_block * pages_per_block + slot``, so draft page ids map
+    straight to pool offsets without a translation table. Parent blocks are
+    acquired lazily (one ``parent.allocate`` per ``pages_per_block`` pages
+    of demand) and returned the moment their last sub-page frees — draft KV
+    therefore shows up in the parent census as ordinary live blocks, and
+    ``free + live + cached == num_blocks`` keeps holding.
+
+    Draft pages are refcount-1 only (a draft chunk is private to its row and
+    is rolled back or dropped within the round — nothing ever shares it), so
+    ``free`` here is exact release, not deref.
+    """
+
+    def __init__(self, parent: BlockedAllocator, pages_per_block: int):
+        if pages_per_block < 2:
+            raise ValueError(
+                f"pages_per_block must be >= 2, got {pages_per_block}")
+        self._parent = parent
+        self._ppb = int(pages_per_block)
+        self._free = deque()        # free sub-page ids of held parent blocks
+        self._free_set = set()
+        self._held = {}             # parent block -> live sub-page count
+
+    @property
+    def pages_per_block(self) -> int:
+        return self._ppb
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def live_pages(self) -> int:
+        return sum(self._held.values())
+
+    @property
+    def held_blocks(self) -> int:
+        """Parent blocks currently carved into draft pages (live in the
+        parent's census)."""
+        return len(self._held)
+
+    def counts(self):
+        return {"free_pages": len(self._free),
+                "live_pages": self.live_pages,
+                "held_blocks": len(self._held),
+                "pages_per_block": self._ppb}
+
+    def allocate(self, num_pages: int):
+        """Allocate ``num_pages`` draft page ids, growing the parent
+        footprint one block at a time as needed. Raises (allocating
+        nothing) when the parent pool cannot cover the growth."""
+        if num_pages < 0:
+            raise ValueError(f"bad page count {num_pages}")
+        need_blocks = max(0, -(-(num_pages - len(self._free)) // self._ppb))
+        if need_blocks:
+            # all-or-nothing: the parent raises before any page hands out
+            for b in self._parent.allocate(need_blocks):
+                self._held[b] = 0
+                for slot in range(self._ppb):
+                    p = b * self._ppb + slot
+                    self._free.append(p)
+                    self._free_set.add(p)
+        out = []
+        for _ in range(num_pages):
+            p = self._free.popleft()
+            self._free_set.discard(p)
+            self._held[p // self._ppb] += 1
+            out.append(p)
+        return out
+
+    def free(self, pages):
+        """Return draft pages; a parent block whose last sub-page frees is
+        released back to the parent pool (its free sub-pages leave this
+        class entirely). Double free raises."""
+        for p in pages:
+            b = p // self._ppb
+            if b not in self._held or p in self._free_set:
+                raise ValueError(f"free of non-live draft page {p}")
+            self._held[b] -= 1
+            self._free.append(p)
+            self._free_set.add(p)
+        released = [b for b, live in self._held.items() if live == 0]
+        for b in released:
+            del self._held[b]
+            for slot in range(self._ppb):
+                p = b * self._ppb + slot
+                # every sub-page of a 0-live block is free by construction
+                self._free.remove(p)
+                self._free_set.discard(p)
+            self._parent.free([b])

@@ -23,16 +23,25 @@ Storage tiers below the device pool:
   fourth block state: parked prefix blocks spill device->host through a
   double-buffered ``HostKVSwapper`` (pinned host memory, a copy stream)
   instead of being evicted, and restore on prefix hits. Every landing goes
-  through the injectable accounted fetch (``set_host_fetch``).
+  through the injectable accounted fetch (``set_host_fetch``). With
+  telemetry on, landings and restores are timed into
+  ``serving/kv_swap_out_s`` and ``serving/kv_swap_in_s``.
 
 The JAX package's NVMe rung under the host tier waits for ROADMAP A14, and
 page export/import for the fleet's transport for ROADMAP A8.
 """
 
+import time
+
 import torch
 
+from deepspeed_tpu_torch import telemetry
 from deepspeed_tpu_torch.inference.v2.ragged.blocked_allocator import BlockedAllocator
 from deepspeed_tpu_torch.runtime.swap_tensor.kv_swapper import HostKVSwapper
+
+# module-level clock alias, so tests can prove that the disabled telemetry
+# path never reads it
+_now = time.perf_counter
 
 _DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16,
            "fp32": torch.float32}
@@ -66,7 +75,8 @@ class BlockedKVCache:
         self._allocator = BlockedAllocator(num_blocks,
                                            host_capacity=host_capacity)
         self._fetch = None  # injectable accounted device->host fetch
-        self._swapper = HostKVSwapper(self._fetch_arrays, buffer_count=2)
+        self._swapper = HostKVSwapper(self._fetch_arrays, buffer_count=2,
+                                      land_wrapper=self._timed_land)
 
     @property
     def allocator(self) -> BlockedAllocator:
@@ -120,6 +130,18 @@ class BlockedKVCache:
             return tuple(self._fetch(a, what) for a in arrays)
         return tuple(a.to("cpu") for a in arrays)
 
+    def _timed_land(self, thunk):
+        """Spill landing hook: times the landing into
+        ``serving/kv_swap_out_s`` only when telemetry is on (the disabled
+        path never reads the clock)."""
+        tm = telemetry.get_telemetry()
+        if not tm.enabled:
+            return thunk()
+        t0 = _now()
+        out = thunk()
+        tm.record_hist("serving/kv_swap_out_s", _now() - t0)
+        return out
+
     def _pools(self):
         pools = [self.k_pool, self.v_pool]
         if self.quantized:
@@ -172,9 +194,13 @@ class BlockedKVCache:
         spilled, scale pools included. Lands the payload first if its copy
         is still in flight."""
         parts = self._swapper.land(payload)
+        tm = telemetry.get_telemetry()
+        t0 = _now() if tm.enabled else 0.0
         idx = torch.tensor([block], dtype=torch.long, device=self.device)
         for pool, part in zip(self._pools(), parts):
             pool.index_copy_(1, idx, part.to(self.device, non_blocking=True))
+        if tm.enabled:
+            tm.record_hist("serving/kv_swap_in_s", _now() - t0)
 
     @property
     def swapper(self) -> HostKVSwapper:

@@ -4,14 +4,17 @@ sequences and owns the blocked KV cache.
 
 With ``state_manager.host_kv_blocks`` > 0 and prefix caching on, parked
 prefix blocks spill to the host-DRAM tier under pool pressure and restore on
-a match. Left for later slices: the draft-page class and
-``rollback_sequence`` (speculative decode, ROADMAP A3), the NVMe tier
-(ROADMAP A14), page export/import (ROADMAP A8), and the telemetry gauges of
-``sample_kv_stats`` (ROADMAP A4).
+a match. Speculative decode rolls a sequence's paged cursor back over the
+rejected tail of a verify chunk (``rollback_sequence``), and
+``speculative.draft_page_divisor`` > 1 carves a draft-page class out of the
+same pool. ``sample_kv_stats`` records the KV gauges when telemetry is on.
+Left for later slices: the NVMe tier (ROADMAP A14) and page export/import
+(ROADMAP A8).
 """
 
 import torch
 
+from deepspeed_tpu_torch import telemetry
 from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import BlockedKVCache
 from deepspeed_tpu_torch.inference.v2.ragged.prefix_cache import PrefixCache
 from deepspeed_tpu_torch.inference.v2.ragged.sequence_descriptor import DSSequenceDescriptor
@@ -45,6 +48,14 @@ class DSStateManager:
                 # (pages move through the kv_cache's swapper) before
                 # dropping anything
                 self.prefix_cache.bind_spiller(self.kv_cache)
+        # second, smaller page-size class for draft-model KV (speculative
+        # decode), carved lazily out of the same refcounted pool, so the
+        # census and pool pressure see draft pages as ordinary tenants
+        self.draft_pages = None
+        spec = config.speculative
+        if spec.draft_page_divisor > 1:
+            self.draft_pages = self.kv_cache.allocator.draft_pages(
+                spec.draft_page_divisor)
         self._seqs = {}
         self.swap_outs = 0  # host swap tier counters (kv_cache swap_out/in)
         self.swap_ins = 0
@@ -144,6 +155,31 @@ class DSStateManager:
             stats.update(self.prefix_cache.stats())
         return stats
 
+    def sample_kv_stats(self, point="step"):
+        """``kv_stats`` plus the serving gauges when telemetry is enabled
+        (occupancy, free-list depth and fragmentation, and the prefix-cache
+        and host-tier gauges where those are on)."""
+        stats = self.kv_stats()
+        tm = telemetry.get_telemetry()
+        if tm.enabled:
+            tm.serving_gauge("serving/kv_occupancy", stats["occupancy"],
+                             point=point)
+            tm.serving_gauge("serving/kv_free_blocks", stats["free_blocks"],
+                             point=point)
+            tm.serving_gauge("serving/kv_fragmentation",
+                             stats["fragmentation"], point=point)
+            if self.prefix_cache is not None:
+                tm.serving_gauge("serving/prefix_hit_rate",
+                                 stats["prefix_hit_rate"], point=point)
+                tm.serving_gauge("serving/cached_blocks",
+                                 stats["cached_blocks"], point=point)
+                tm.serving_gauge("serving/prefill_tokens_saved",
+                                 stats["prefill_tokens_saved"], point=point)
+            if stats["host_kv_capacity"]:
+                tm.serving_gauge("serving/host_kv_blocks",
+                                 stats["host_kv_blocks"], point=point)
+        return stats
+
     def get_sequence(self, uid):
         return self._seqs.get(uid)
 
@@ -208,6 +244,37 @@ class DSStateManager:
                 self.kv_cache.free([seq.kv_blocks[i]])
                 seq.kv_blocks[i] = canonical
             seq.digests.append(digest)
+
+    def rollback_sequence(self, uid, n_tokens):
+        """Roll a sequence's paged cursor back ``n_tokens``: the rejected
+        tail of a speculative verify chunk. Tail blocks that fall wholly
+        past the new cursor are released through ``kv_cache.free``, which
+        is deref-aware: a shared or cached block just drops one reference,
+        only a private refcount-1 block returns to the pool. The cursor
+        never crosses the committed prefix-cache boundary (committed
+        digests cover full, immutable, possibly shared blocks; the deferred
+        commit, ``engine.commit_prefix`` after the rollback, keeps rejected
+        tokens out of them), so the guard below checks an invariant."""
+        seq = self._seqs.get(uid)
+        if seq is None:
+            raise ValueError(f"rollback of untracked sequence {uid}")
+        if n_tokens <= 0:
+            return
+        assert seq.in_flight_tokens == 0, "cannot roll back mid-forward"
+        assert not seq.is_swapped, "cannot roll back a swapped sequence"
+        bs = self.kv_block_size
+        new_seen = seq.seen_tokens - int(n_tokens)
+        assert new_seen >= 0, "rollback past start of sequence"
+        assert new_seen >= len(seq.digests) * bs, \
+            "rollback would cross the committed prefix-cache boundary"
+        keep = -(-new_seen // bs)
+        tail = seq.kv_blocks[keep:]
+        if tail:
+            del seq.kv_blocks[keep:]
+            self.kv_cache.free(tail)
+        seq.seen_tokens = new_seen
+        if self.prefix_cache is not None:
+            del seq.tokens[new_seen:]
 
     def flush_sequence(self, uid):
         """Drop a sequence and release its KV blocks (reference :110). With

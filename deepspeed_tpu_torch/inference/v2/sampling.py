@@ -12,6 +12,10 @@ Determinism: each sampled row draws its Gumbel noise from a
 (seed, position) pair always gives the same token whatever the batch. The
 JAX package draws with threefry; torch cannot reproduce those bits, so
 sampled streams match within the port, not across packages.
+
+``verify_rows`` (speculative decode) samples every column of a verify
+round's ``[S, K, V]`` logits at the stream position that column stands for,
+so an accepted draft is exactly the token plain decode draws there.
 """
 
 import torch
@@ -68,4 +72,32 @@ def sample_rows(logits, temperatures, top_ks, top_ps, seeds, positions):
     # Gumbel-max: -log(Exp(1)) is standard Gumbel noise
     draws = torch.argmax(masked - torch.log(noise), dim=-1)
     ids[rows] = draws.to(torch.int32)
+    return ids
+
+
+def verify_rows(logits, temperatures, top_ks, top_ps, seeds, positions):
+    """Per-row, per-column sampling of a draft-then-verify round: the port's
+    counterpart of the JAX package's ``verify_rows_packed``.
+
+    ``logits`` is [S, K, V], each row's last ``K`` chunk positions
+    (last-aligned, from ``ragged_forward_verify``). ``positions[s]`` is row
+    ``s``'s stream position for the final column; column ``c`` draws at
+    ``positions[s] - (K - 1) + c`` with the row's own temperature, top-k,
+    top-p and seed: exactly the draw ``sample_rows`` makes once the stream
+    reaches that position. The parameter lists cover the first ``n <= S``
+    rows; padding rows and greedy rows take the argmax. Returns [S, K]
+    int32 ids on the logits' device — no host sync."""
+    S, K, V = logits.shape
+    ids = torch.argmax(logits, dim=-1).to(torch.int32)
+    rows = [i for i, t in enumerate(temperatures) if t > 0.0]
+    if not rows:
+        return ids
+    flat = [(i, c) for i in rows for c in range(K)]
+    cols = [positions[i] - (K - 1) + c for i, c in flat]
+    drawn = sample_rows(logits[[i for i, _ in flat], [c for _, c in flat]],
+                        [temperatures[i] for i, _ in flat],
+                        [top_ks[i] for i, _ in flat],
+                        [top_ps[i] for i, _ in flat],
+                        [seeds[i] for i, _ in flat], cols)
+    ids[rows] = drawn.view(len(rows), K)
     return ids

@@ -170,20 +170,24 @@ def split_count(S, Q, H, KV, bs, MB, sm_count):
     return max(1, min(MAX_SPLITS, -(-4 * slots // items), key_tiles // 2))
 
 
-def split_ranges(seen, q_len, Q, rep, window, splits):
+def split_ranges(seen, q_len, Q, rep, window, splits, key_tiles):
     """[(first, end)] key-tile ranges of one (sequence, kv head) item's
-    splits, as the tensor-core kernel cuts them: the 64-key tiles from the
-    first key its live rows can see to the last, in ``splits`` ranges of
-    equal length (the last ones shorter or empty). [] without a live row."""
+    splits, as the tensor-core kernel cuts them: split i takes the 64-key
+    tiles [i * per, (i + 1) * per) of the block table's ``key_tiles``
+    (per = ceil(key_tiles / splits), the last split all that follow),
+    clipped to the tiles from the first key the item's live rows can see to
+    the last (empty ranges where nothing is left). The boundaries depend on
+    the call's shape alone, not on the item's rows. [] without a live
+    row."""
     qis = [g % Q for g in range(rep * Q) if g % Q < q_len]
     if not qis:
         return []
     key_end = seen + max(qis) + 1
     key_begin = max(0, seen + min(qis) - window + 1) if window else 0
-    first = key_begin // KEY_TILE
-    n = -(-key_end // KEY_TILE) - first
-    per = -(-n // splits)
-    return [(first + min(i * per, n), first + min((i + 1) * per, n)) for i in range(splits)]
+    first, last = key_begin // KEY_TILE, -(-key_end // KEY_TILE)
+    per = -(-key_tiles // splits)
+    cut = [min(max(first, i * per), last) for i in range(splits)] + [last]
+    return list(zip(cut[:-1], cut[1:]))
 
 
 @functools.lru_cache(maxsize=None)

@@ -4,6 +4,12 @@ time on the GPU.
     python -m deepspeed_tpu_torch.tools.profile_decode [--model llama]
         [--seqs 8] [--prompt 512] [--rounds 4] [--seed 0]
 
+``--speculative`` (Llama only) turns on draft-then-verify decode (4 drafts,
+n-grams up to 3) and gives each request a template prompt, a 2-4 token
+random pattern tiled to ``--prompt`` tokens, so the n-gram drafter fires;
+the line then also carries the tokens committed per round and the accept
+rate over the profiled rounds.
+
 ``--model llama-int8`` profiles the v1 engine instead: Llama-2-7B (all 32
 layers) quantized to int8 by ``init_inference``; each round is one call of
 its entry point, ``engine.generate`` of ``INT8_NEW_TOKENS`` greedy tokens
@@ -55,7 +61,11 @@ def main(argv=None):
     ap.add_argument("--prompt", type=int, default=512)
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--speculative", action="store_true",
+                    help="draft-then-verify decode on template prompts (llama)")
     args = ap.parse_args(argv)
+    if args.speculative and args.model != "llama":
+        ap.error("--speculative profiles the Llama engine only")
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -74,18 +84,26 @@ def main(argv=None):
     if args.model != "llama-int8":
         model = Model.from_seed(cfg, seed=args.seed)
         bs = 64
-        per_seq = -(-(args.prompt + 64 + 2 * args.rounds) // bs)
+        # speculating rows commit up to 5 tokens a round
+        new_tokens = 64 + (10 * (args.rounds + 1) if args.speculative else 0)
+        per_seq = -(-(args.prompt + new_tokens + 2 * args.rounds) // bs)
         engine = build_engine(model, {
             "state_manager": {"max_ragged_sequence_count": args.seqs,
                               "max_ragged_batch_size": 512,
                               "max_context": 2048,
                               "num_kv_blocks": args.seqs * per_seq},
-            "kv_cache": {"block_size": bs, "cache_dtype": "bf16"}})
+            "kv_cache": {"block_size": bs, "cache_dtype": "bf16"},
+            "speculative": {"enabled": args.speculative, "max_draft_tokens": 4,
+                            "ngram_max": 3}})
         sched = SplitFuseScheduler(engine)
         rng = np.random.default_rng(args.seed)
         for uid in range(args.seqs):
-            sched.submit(uid, rng.integers(0, cfg.vocab_size, args.prompt),
-                         max_new_tokens=64)
+            if args.speculative:
+                pattern = rng.integers(0, cfg.vocab_size, int(rng.integers(2, 5)))
+                prompt = np.resize(pattern, args.prompt)
+            else:
+                prompt = rng.integers(0, cfg.vocab_size, args.prompt)
+            sched.submit(uid, prompt, max_new_tokens=new_tokens)
         while any(len(t) == 0 for t in sched.results().values()):
             sched.step()
         step = sched.step
@@ -95,12 +113,24 @@ def main(argv=None):
     for _ in range(args.rounds):
         step()
     plain_round_ms = (time.perf_counter() - t0) / args.rounds * 1e3
+    if args.model != "llama-int8":
+        tokens0 = sum(len(t) for t in sched.results().values())
+        drafts0 = (sched.speculated_tokens, sched.accepted_tokens)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.rounds):
             step()
         wall = time.perf_counter() - t0
+    spec = {}
+    if args.model != "llama-int8":
+        drafted = sched.speculated_tokens - drafts0[0]
+        spec = {"speculative": args.speculative,
+                "tokens_per_round": (sum(len(t) for t in sched.results().values())
+                                     - tokens0) / args.rounds,
+                "drafted_per_round": drafted / args.rounds,
+                "accept_rate": (sched.accepted_tokens - drafts0[1]) / drafted
+                if drafted else None}
     # device-side events only (kernels, copies): host ops that launched
     # them carry the same time and would count it twice
     device = [e for e in prof.key_averages()
@@ -121,7 +151,7 @@ def main(argv=None):
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip().splitlines()[0],
         "model": args.model, "layers": cfg.num_hidden_layers,
-        "seqs": args.seqs, "prompt": args.prompt, "rounds": args.rounds,
+        "seqs": args.seqs, "prompt": args.prompt, "rounds": args.rounds, **spec,
         "round_wall_ms_unprofiled": plain_round_ms,
         "round_wall_ms_profiled": round_ms,
         "device_busy_ms_per_round": busy_ms if per_kernel else None,

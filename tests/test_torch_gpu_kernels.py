@@ -212,7 +212,8 @@ def test_paged_flip_slack_admits_the_kernel_form(dtype, Q, H, KV, window):
 
 def split_merge(args, splits, window=None):
     """A plain emulation of the tensor-core kernel's key splits, p in fp32:
-    each (sequence, kv head) item's key tiles cut by ``pa.split_ranges``,
+    each (sequence, kv head) item's key tiles cut by ``pa.split_ranges`` at
+    boundaries of the block table's width,
     each split's online softmax over 64-key tiles from m = NEG_INF (an empty
     split leaves m = -inf, l = 0), then the combine in split order: out =
     sum w_s o_s / sum w_s l_s, w_s = exp(m_s - max m), splits with l = 0
@@ -221,12 +222,14 @@ def split_merge(args, splits, window=None):
     S, Q, H, Dh = q.shape
     KV, bs = k.shape[1], k.shape[2]
     rep, T = H // KV, pa.KEY_TILE
+    key_tiles = -(-bt.shape[1] * bs // T)
     keys = k[bt.long()].float().permute(0, 2, 1, 3, 4).reshape(S, KV, -1, Dh)
     vals = v[bt.long()].float().permute(0, 2, 1, 3, 4).reshape(S, KV, -1, Dh)
     out = torch.zeros(S, Q, H, Dh)
     for s in range(S):
         for h in range(KV):
-            ranges = pa.split_ranges(int(seen[s]), int(ql[s]), Q, rep, window, splits)
+            ranges = pa.split_ranges(int(seen[s]), int(ql[s]), Q, rep, window, splits,
+                                     key_tiles)
             for g in range(rep * Q):
                 qi, head = g % Q, h * rep + g // Q
                 if qi >= ql[s]:
@@ -275,10 +278,79 @@ def test_split_and_combine_equals_the_unsplit_form(Q, window):
     assert (one - ref).abs().max() <= 1e-5
     for splits in (2, 3, 4):
         for s in range(3):
-            ranges = pa.split_ranges(int(seen[s]), int(ql[s]), Q, 2, window, splits)
+            ranges = pa.split_ranges(int(seen[s]), int(ql[s]), Q, 2, window, splits, 12)
             tiles = [t for a, b in ranges for t in range(a, b)]
             assert tiles == list(range(ranges[0][0], ranges[-1][1]))
         assert (split_merge(args, splits, window) - one).abs().max() <= 1e-5
+
+
+def test_split_ranges_do_not_depend_on_the_other_rows():
+    """A decode row at position p and column j of a 5-token verify chunk at
+    the same position see the same key tiles in every split: the splits are
+    cut at tile boundaries fixed by the block table's width, so the other
+    live rows of the chunk only add tiles past p (exact zeros for this row)
+    or splits wholly past p (weight 0 in the combine). Cut from the chunk's
+    own last key, as before, the boundaries moved with j."""
+    Q, key_tiles = 8, 32
+    for splits in (1, 2, 5, 16):
+        for p in range(key_tiles * pa.KEY_TILE - 4):
+            decode = pa.split_ranges(p, 1, Q, 1, None, splits, key_tiles)
+            mine = [[t for t in range(a, b) if t <= p // pa.KEY_TILE] for a, b in decode]
+            for j in range(5):
+                if p - j < 0:
+                    continue
+                verify = pa.split_ranges(p - j, 5, Q, 1, None, splits, key_tiles)
+                assert [[t for t in range(a, b) if t <= p // pa.KEY_TILE]
+                        for a, b in verify] == mine
+                # tiles the verify chunk adds lie past the row's last key
+                extra = {t for a, b in verify for t in range(a, b)} - \
+                    {t for a, b in decode for t in range(a, b)}
+                assert all(t * pa.KEY_TILE > p for t in extra)
+
+
+def verify_column_cases(dev, S, MB, seed=0):
+    """Calls of the paged kernel at Llama-2-7B attention width (32 heads of
+    128, bs 64, bf16, Q 8) on one set of pools: for each position p and
+    column j < 5, sequence 0 as a decode row at p and as a 5-token verify
+    chunk whose column j sits at p, with the same query at p. Where p is 2
+    or 3 short of a 64-key tile boundary, the chunk's last key lies one tile
+    past the decode row's."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    H, Dh, bs, Q = 32, 128, 64, 8
+    NB = S * MB + 1
+    k = torch.randn(NB, H, bs, Dh, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(NB, H, bs, Dh, generator=g, device=dev).to(torch.bfloat16)
+    bt = torch.randperm(NB - 1, generator=g, device=dev)[:S * MB].reshape(S, MB).int()
+    seen = torch.randint(0, MB * bs - Q, (S,), generator=g, device=dev).int()
+    ql = torch.ones(S, device=dev, dtype=torch.int32)
+    # positions 2 and 3 short of a key-tile boundary: the verify chunk's
+    # keys reach into the next tile, the decode row's do not
+    for p in sorted({5, 62, 64 * max(1, MB // 3) - 3, 64 * (MB // 2) - 2, MB * bs - 9}):
+        for j in range(min(5, p + 1)):
+            q_dec = torch.randn(S, Q, H, Dh, generator=g, device=dev).to(torch.bfloat16)
+            q_ver = torch.randn(S, Q, H, Dh, generator=g, device=dev).to(torch.bfloat16)
+            seen_dec, seen_ver, ql_ver = seen.clone(), seen.clone(), ql.clone()
+            seen_dec[0], seen_ver[0], ql_ver[0] = p, p - j, 5
+            q_ver[0, j] = q_dec[0, 0]
+            yield p, j, (q_dec, k, v, bt, seen_dec, ql), (q_ver, k, v, bt, seen_ver, ql_ver)
+
+
+@gpu
+@pytest.mark.parametrize("S,MB,split", [(40, 32, False), (8, 2, False), (8, 32, True),
+                                        (4, 64, True)])
+def test_decode_row_and_verify_column_are_bitwise_equal(cuda, S, MB, split):
+    """The paged kernel's output for a query row does not depend on the
+    other live rows of its tile: a decode row at position p and column j of
+    a 5-token verify chunk at p give bitwise equal outputs, with one key
+    split and with several (the speculative oracle: a greedy verify column
+    must read exactly what plain decode reads)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert (pa.split_count(S, 8, 32, 32, 64, MB, sms) > 1) == split
+    assert pa.kernel_route(torch.bfloat16, False, 128, 64) == "wgmma"
+    for p, j, dec, ver in verify_column_cases(cuda, S, MB, seed=S + MB):
+        out_dec, out_ver = paged_mha(*dec), paged_mha(*ver)
+        torch.cuda.synchronize()
+        assert torch.equal(out_dec[0, 0], out_ver[0, j]), (p, j)
 
 
 def test_paged_split_count_follows_the_shapes():

@@ -310,11 +310,19 @@ def test_config_unknown_key_warns_not_raises():
 @pytest.mark.parametrize("doc,item", [
     ({"state_manager": {"host_kv_blocks": 4, "nvme_kv_blocks": 4}}, "A14"),
     ({"state_manager": {"nvme_kv_blocks": 4}}, "A14"),
-    ({"speculative": {"enabled": True}}, "A3"),
-    ({"slo_classes": {"interactive": {"ttft_target_s": 0.5}}}, "A4"),
     ({"tensor_parallel": {"tp_size": 2}}, "A5"),
 ])
 def test_config_unported_values_raise_naming_roadmap(doc, item):
     JaxEngineConfig(doc)          # the reference accepts them
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue {item}"):
         RaggedInferenceEngineConfig(doc)
+
+
+@pytest.mark.parametrize("doc", [
+    {"speculative": {"enabled": True}},
+    {"slo_classes": {"interactive": {"ttft_target_s": 0.5}}},
+], ids=["A3", "A4"])
+def test_config_served_values_match_jax(doc):
+    """Speculative decode (A3) and SLO classes (A4) are served: the port
+    takes them as the reference does."""
+    assert RaggedInferenceEngineConfig(doc).to_dict() == JaxEngineConfig(doc).to_dict()
