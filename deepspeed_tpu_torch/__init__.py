@@ -84,8 +84,10 @@ def init_inference(model=None, config=None, params=None, device=None, **kwargs):
     """Build the v1 inference engine (port of ``deepspeed_tpu.init_inference``).
 
     ``model`` is a ``LlamaForCausalLM`` (or a module with its KV-cache
-    contract); ``params`` a state dict of its parameters, or the JAX
-    package's Llama parameter tree, converted through ``params_from_flax``;
+    contract), or None when ``config["checkpoint"]`` names a HuggingFace
+    directory of the Llama family, whose model is then built; ``params`` a
+    state dict of its parameters, or the JAX package's Llama parameter
+    tree, converted through ``params_from_flax``;
     ``config`` a dict of ``DeepSpeedInferenceConfig`` keys, which ``kwargs``
     overlay; ``device`` the device to serve on (``cuda`` by default). Then
     ``engine(ids)`` gives logits and ``engine.generate(ids, ...)`` tokens."""

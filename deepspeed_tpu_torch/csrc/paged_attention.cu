@@ -80,8 +80,13 @@
 //   - one lane per key computes the tile's scores with FMAs on CUDA cores;
 //     the softmax state (m, l) lives in registers of the warp that owns the
 //     row and the output accumulator in fp32 registers, 8 threads per row;
-//     p stays fp32 (the TPU kernel's int8 arithmetic; for fp pools the
-//     TPU kernel rounds p, which this kernel does not);
+//     p is rounded once to v's dtype before P.V for bf16 / fp16 pools, as
+//     the TPU kernel rounds it, and l sums the unrounded p; int8 pools keep
+//     p in fp32 times the v scale (the TPU kernel's int8 arithmetic), and
+//     for fp32 pools the rounding is the identity. p is taken against the
+//     running maximum after each tile of 32 keys, where the TPU kernel
+//     takes it per page: where the maximum lies elsewhere a p may round
+//     differently, within tests/flash_rounding.py paged_flip_slack;
 //   - the output is written straight into q's [S, Q, H, Dh] layout, with
 //     none of the TPU wrapper's transposes.
 
@@ -110,6 +115,19 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
+
+// p as P.V reads it from fp pools of KV_T: rounded once to bf16 / fp16
+// (the TPU kernel's p.astype(v.dtype)), unchanged for fp32.
+template <typename KV_T>
+__device__ __forceinline__ float round_p(float p) { return p; }
+template <>
+__device__ __forceinline__ float round_p<__half>(float p) {
+  return __half2float(__float2half_rn(p));
+}
+template <>
+__device__ __forceinline__ float round_p<__nv_bfloat16>(float p) {
+  return __bfloat162float(__float2bfloat16_rn(p));
+}
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__half* p, float x) { *p = __float2half_rn(x); }
@@ -270,7 +288,7 @@ paged_mha_kernel(const T* __restrict__ q, const KV_T* __restrict__ k_pool,
         const float p = in_page ? expf(x - m_new) : 0.f;
         l[i] = alpha * l[i] + warp_sum(p);
         m[i] = m_new;
-        sp[r * (kKeys + 1) + lane] = kQuant ? p * vs : p;
+        sp[r * (kKeys + 1) + lane] = kQuant ? p * vs : round_p<KV_T>(p);
         if (lane == 0) salpha[r] = alpha;
       }
       __syncthreads();

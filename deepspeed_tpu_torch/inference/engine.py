@@ -19,11 +19,15 @@ kernel in either package), ``lm_head`` (grouped along K, a layout the
 kernel does not take), and fp16 or fp32 serving, where v1 still rounds the
 weights to bf16 and the kernel would round them to the activations' dtype.
 
-Tensor-parallel or replicated serving is ROADMAP A5; a HuggingFace
-checkpoint directory is A6. ``config.checkpoint`` may name a tag written by
-the port's ``save_checkpoint``: its working weights load into the model (the
-JAX engine's intent, ``state.get("module", state)``; its own call raises,
-ROADMAP §C).
+Tensor-parallel or replicated serving is ROADMAP A5. ``config.checkpoint``
+may name a HuggingFace checkpoint directory of the Llama family (llama,
+mistral, qwen2, qwen, internlm): it loads through ``checkpoint/hf.py``
+``load_pretrained`` in ``config.dtype``, and its model serves when none was
+given. Other families raise: the v1 engine runs Llama's KV-cached forward,
+and theirs are ROADMAP A7 part 2. ``config.checkpoint`` may also name a tag
+written by the port's ``save_checkpoint``: its working weights load into the
+model (the JAX engine's intent, ``state.get("module", state)``; its own call
+raises, ROADMAP §C).
 """
 
 import os
@@ -38,6 +42,10 @@ from deepspeed_tpu_torch.inference.quantization.quantization import (
     V1_TILE_DTYPE, QuantizedLinear, quantize_param_tree, quantized_linear, quantized_nbytes,
     replace_module)
 from deepspeed_tpu_torch.utils.logging import logger
+
+
+# HF families the port loads into modules without Llama's KV-cached forward
+V2_ONLY_HF_FAMILIES = ("mixtral", "falcon", "phi", "opt")
 
 
 class InferenceEngine:
@@ -77,9 +85,7 @@ class InferenceEngine:
         from deepspeed_tpu_torch.runtime.checkpoint_engine.native_engine import (
             NativeCheckpointEngine)
         if os.path.isdir(path) and os.path.exists(os.path.join(path, "config.json")):
-            raise NotImplementedError(
-                "HuggingFace checkpoint directories are not ported to "
-                "deepspeed_tpu_torch yet; see ROADMAP.md queue A6 (HF checkpoints)")
+            return self._load_hf_checkpoint(path)
         if self.module is None:
             raise ValueError("loading a native checkpoint needs the model it was saved from")
         ckpt = NativeCheckpointEngine()
@@ -96,6 +102,23 @@ class InferenceEngine:
                              "saved from another model")
         loaded = ckpt.load(path, rank=0, manifest=manifest, names=want)
         return {n[len("module."):]: t for n, t in loaded.items()}
+
+    def _load_hf_checkpoint(self, path):
+        """An HF checkpoint directory, converted straight into the serving
+        dtype on the engine's device (no transient fp32 copy); its model is
+        adopted when the engine was given none."""
+        from deepspeed_tpu_torch.checkpoint import hf as hf_interop
+        mt = hf_interop.detect_model_type(path)
+        if mt in V2_ONLY_HF_FAMILIES:
+            raise NotImplementedError(
+                f"the v1 engine serves the Llama KV-cached forward; an HF {mt} "
+                "directory needs its family's v1 forward, ROADMAP.md queue A7 part 2 "
+                "(build_hf_engine serves it through the v2 engine)")
+        model = hf_interop.load_pretrained(path, dtype=self._config.torch_dtype,
+                                           device=self.device)
+        if self.module is None:
+            self.module = model
+        return model.state_dict()
 
     def set_params(self, params):
         """Load a state dict (names of the model's parameters; ``{}`` keeps

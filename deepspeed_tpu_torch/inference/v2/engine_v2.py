@@ -44,17 +44,20 @@ class SchedulingResult:
 
 
 class InferenceEngineV2:
-    """Serve a Llama-family or Mixtral model over a paged KV cache.
+    """Serve a Llama-family, Mixtral, Falcon/Phi or OPT model over a paged
+    KV cache.
 
     Args:
-        model: ``deepspeed_tpu_torch.models.llama.LlamaForCausalLM`` or
-            ``deepspeed_tpu_torch.models.mixtral.MixtralForCausalLM`` whose
-            weights already lie on ``device``.
+        model: ``LlamaForCausalLM``, ``MixtralForCausalLM``,
+            ``ParallelBlockForCausalLM`` or ``OPTForCausalLM``
+            (``deepspeed_tpu_torch.models``) whose weights already lie on
+            ``device``.
         config: ``RaggedInferenceEngineConfig`` or dict.
         forward_fn: the ragged forward (default: the factory's choice for
             the model family).
         verify_fn: the k-token verify forward for speculative decode
-            (default: the factory's choice; None for Mixtral).
+            (default: the factory's choice; None for Mixtral, Falcon/Phi
+            and OPT).
         device: where the engine runs; default ``"cuda"``, which raises when
             no GPU is present.
     """

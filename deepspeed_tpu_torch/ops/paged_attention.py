@@ -9,10 +9,13 @@ through ``paged_mha``: what the kernel cannot take raises. The source routes
 each call (``kernel_route``; ``kernel_launches`` reads the library's tally of
 what each call launched): bf16/fp16 q with fp pools at head width 64 or 128
 and a block size that is a multiple of 16 dividing 64, or a multiple of 64,
-to ``wgmma`` (tensor cores, p rounded to v's dtype before P.V as the TPU
-kernel rounds it); fp32, int8 pools and other widths to ``simt`` (p in fp32).
+to ``wgmma`` (tensor cores); fp32, int8 pools and other widths to ``simt``
+(CUDA cores). Both round p to v's dtype before P.V for bf16/fp16 pools, as
+the TPU kernel rounds it, and keep p in fp32 for int8 and fp32 pools.
 ``paged_mha_kernel_form`` is the plain version at the TPU kernel's rounding
-points, page by page, for the tests and checks.
+points, page by page, for the tests and checks; the plain version
+``paged_mha_reference`` keeps p in fp32, so a comparison with it adds
+``tests/flash_rounding.py`` ``paged_flip_slack`` wherever p rounds.
 
 Layouts (the JAX package's): q [S, Q, H, Dh] (Q = new-token budget, 1 for
 pure decode); k/v pools of one layer [NB, KV, bs, Dh]; block_tables [S, MB]
@@ -53,6 +56,12 @@ def unsupported_reason(q_shape, pool_shape):
 
 def is_supported(q_shape, pool_shape):
     return unsupported_reason(q_shape, pool_shape) is None
+
+
+def rounds_p(dtype, quantized):
+    """Whether the kernel rounds p to v's dtype before P.V, on either
+    route: bf16/fp16 q with fp pools."""
+    return dtype in (torch.bfloat16, torch.float16) and not quantized
 
 
 def paged_mha_reference(q, k_pool, v_pool, block_tables, seen, q_len, *,

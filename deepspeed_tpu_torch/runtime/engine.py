@@ -62,7 +62,12 @@ losses, as in the JAX qgZ engine (``:921``).
   LR scheduler and client state; a load verifies the tag, quarantines a
   corrupt one to ``<tag>.corrupt`` and falls back to the newest earlier
   valid tag. A tag loads only into the world size, topology and ZeRO stage
-  it was cut for (other layouts: universal checkpoints, ROADMAP A15).
+  it was cut for (other layouts: universal checkpoints, ROADMAP A15);
+- ``save_16bit_model`` / ``load_hf_weights`` (``engine.py:2456-2510``):
+  the gathered fp32 masters written as a HuggingFace export
+  (``checkpoint/hf.py``; fp16 kept, bf16 widened to fp32), an npz for a
+  model no converter covers; and an HF directory's weights loaded into the
+  masters and the working copy.
 """
 
 import os
@@ -841,6 +846,64 @@ class DeepSpeedEngine:
         return path, meta.get("client_state", {})
 
     def save_16bit_model(self, save_dir, save_filename=None):
-        raise NotImplementedError("save_16bit_model writes a HuggingFace export by default; "
-                                  "it is not ported to deepspeed_tpu_torch yet: see "
-                                  "ROADMAP.md queue A6 (HF checkpoints)")
+        """Reference engine ``save_16bit_model``: the gathered master weights
+        as a HuggingFace checkpoint (``model.safetensors`` + ``config.json``,
+        ``checkpoint/hf.py`` ``export_pretrained``) for the families the
+        converters cover; any other model, or an explicit ``save_filename``,
+        gets an npz of the parameters by name (``model_weights.npz``, not
+        named like a torch file). fp16 training writes fp16; bf16 and fp32
+        write fp32 (the JAX engine's rule). Every rank calls it (the masters
+        are gathered); rank 0 writes. Returns the path written."""
+        import numpy as np
+
+        from deepspeed_tpu_torch.checkpoint import hf as hf_interop
+        dtype = torch.float16 if self.fp16_enabled else torch.float32
+        params = self.get_model_parameters()
+        cfg = getattr(self.module, "config", None)
+        path = None
+        if dist.get_rank() == 0:
+            os.makedirs(save_dir, exist_ok=True)
+            if save_filename is None and cfg is not None:
+                try:
+                    path = hf_interop.export_pretrained(params, cfg, save_dir, dtype=dtype)
+                except hf_interop.UnsupportedModelError:
+                    pass  # unknown family -> npz fallback (real errors propagate)
+            if path is None:
+                path = os.path.join(save_dir, save_filename or "model_weights.npz")
+                np.savez(path, **{n: t.to(dtype).numpy() for n, t in params.items()})
+        if dist.get_world_size() > 1:
+            box = [path]
+            torch.distributed.broadcast_object_list(box, src=0)
+            path = box[0]
+        return path
+
+    @torch.no_grad()
+    def load_hf_weights(self, model_dir):
+        """Load a HuggingFace checkpoint directory into the live engine (the
+        ``load_checkpoint(load_module_only=True)`` analog for HF checkpoints;
+        reference ``module_inject/replace_module.py:182``): the converted
+        fp32 weights replace the masters (this rank's chunks) and the
+        working copy; the optimizer's moments are kept. Names and shapes
+        must be the engine's model's. Returns the converted state dict."""
+        from deepspeed_tpu_torch.checkpoint import hf as hf_interop
+        params = hf_interop.load_pretrained(model_dir, dtype=torch.float32,
+                                            device=self.device).state_dict()
+        have = {leaf.name: leaf for leaf in self._leaves}
+        if set(params) != set(have):
+            raise ValueError(f"{model_dir} does not hold this model's parameters: "
+                             f"{sorted(set(params) ^ set(have))[:5]}")
+        for name, full in params.items():
+            leaf = have[name]
+            if tuple(full.shape) != leaf.shape:
+                raise ValueError(f"{name}: {model_dir} holds {tuple(full.shape)}, the "
+                                 f"model {leaf.shape}")
+            if leaf.master_dim is not None:
+                leaf.master.copy_(shard_of(full, leaf.master_dim, leaf.place.world,
+                                           leaf.place.index))
+            elif leaf.master is leaf.param:
+                leaf.param.data.copy_(full)
+            else:
+                leaf.master.copy_(full)
+        self._update_working()
+        self._release_all()
+        return params

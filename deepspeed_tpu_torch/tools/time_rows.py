@@ -1,5 +1,6 @@
 """Times kernel rows 1 (paged attention) and 7 (W8A16 dequantize-matmul) at
-the serving shapes of Llama-2-7B and Mixtral-8x7B, and rows 5 and 6 (the
+the serving shapes of Llama-2-7B and Mixtral-8x7B (row 1 also at those of
+Mistral-7B's window, Falcon-7B and Phi-2), and rows 5 and 6 (the
 qgZ quantize and dequantize-reduce) at the four leaf shapes of ZeRO-3 + qgZ
 training of Llama-2-7B at W = 4, through their public entry points, on one
 GPU.
@@ -40,7 +41,8 @@ from pathlib import Path
 
 HARNESS = Path(__file__).resolve().parents[2] / "chip_smoke.py"
 PAGED = ("decode_7b", "decode_serve_7b", "decode_serve_8x7b", "prefill_chunk_7b",
-         "mixed_chunk_decode_7b")
+         "mixed_chunk_decode_7b", "decode_serve_mistral_window", "decode_serve_falcon_7b",
+         "decode_serve_phi_2", "prefill_chunk_phi_2")
 QMM = ("decode_7b_gate", "decode_7b_down", "decode_7b_q", "prefill_7b_gate",
        "prefill_7b_down")
 QUANT = ("gate_proj_chunk", "embedding_chunk", "attn_proj_chunk", "norm_chunk")

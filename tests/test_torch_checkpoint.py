@@ -230,8 +230,12 @@ def test_structure_and_layout_changes_raise(tmp_path):
         other.load_checkpoint(str(tmp_path))
     with pytest.raises(NotImplementedError, match="A15"):
         engine.save_checkpoint(str(tmp_path), async_save=True)
-    with pytest.raises(NotImplementedError, match="A6"):
-        engine.save_16bit_model(str(tmp_path))
+    # save_16bit_model writes an HF export of the masters, which loads back
+    from deepspeed_tpu_torch.checkpoint import hf
+    path = engine.save_16bit_model(str(tmp_path / "hf"))
+    assert path.endswith("model.safetensors")
+    back = hf.load_pretrained(str(tmp_path / "hf"), device="cpu").state_dict()
+    assert all(torch.equal(back[n], m) for n, m in engine.get_model_parameters().items())
 
 
 def test_state_dict_round_trips(tmp_path):

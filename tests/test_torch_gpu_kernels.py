@@ -14,11 +14,10 @@ moves a value by at most one unit in its last place: 2^-7 of it in bf16,
 2^-10 in fp16; fp32 outputs are not rounded again. ATOL covers the fp32
 summation-order noise of elements near 0. A one-page fault exceeds the bound
 by two orders of magnitude (``test_bound_rejects_one_page_fault``). The
-paged kernel's tensor-core route (bf16/fp16 q with fp pools at head widths
-64 and 128) rounds p to v's dtype before P.V as the TPU kernel does, where
-the plain version keeps p in fp32: its bound adds ``paged_flip_slack``
-(``tests/flash_rounding.py``), and ``paged_probe`` holds its rounding point
-with no slack. The flash attention and grouped-GEMM kernels' bound is stated
+paged kernel (both routes: bf16/fp16 q with fp pools) rounds p to v's
+dtype before P.V as the TPU kernel does, where the plain version keeps p in
+fp32: its bound adds ``paged_flip_slack`` (``tests/flash_rounding.py``), and
+``paged_probe`` holds its rounding point with no slack. The flash attention and grouped-GEMM kernels' bound is stated
 beside their tests below.
 """
 
@@ -98,7 +97,7 @@ def test_bound_rejects_one_page_fault(dtype):
 def check_paged_kernel(args, kw, window=None):
     """One call of the paged kernel on the card: the route the source
     declares by the tally, the plain version within the bound (plus
-    paged_flip_slack on the tensor-core route), and beyond it a one-page
+    paged_flip_slack where the kernel rounds p), and beyond it a one-page
     fault: the trash page read in place of the page holding key seen[0],
     which query token 0 of sequence 0 sees under any window."""
     q, k, v, bt, seen, ql = args
@@ -109,7 +108,8 @@ def check_paged_kernel(args, kw, window=None):
     assert paged_mha.launches == before + 1
     assert {n: after[n] - tally[n] for n in after if after[n] > tally[n]} == {want: 1}
     ref = paged_mha_reference(*args, window=window, **kw)
-    slack = paged_flip_slack(*args, window=window) if want == "wgmma" else 0.0
+    slack = (paged_flip_slack(*args, window=window)
+             if pa.rounds_p(q.dtype, kw["k_scale"] is not None) else 0.0)
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     assert err_ratio(out, ref, slack) <= 1
@@ -173,6 +173,60 @@ def test_paged_kernel_rounds_where_the_tpu_kernel_does(cuda, dh, bs, Q, rep, dty
     torch.cuda.synchronize()
     assert err_ratio(out, ref) <= 1
     assert all(err_ratio(bad, ref) > 1 for bad in paged_rounding_faults(*args, **kw).values())
+
+
+@gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dh", [80, 96, 256])
+@pytest.mark.parametrize("bs,Q,rep", [(64, 1, 1), (16, 16, 4), (32, 8, 2)])
+def test_simt_paged_kernel_rounds_where_the_tpu_kernel_does(cuda, dh, bs, Q, rep, dtype):
+    """The SIMT route (head widths other than 64 and 128: Phi-2's 80) rounds
+    p to v's dtype before P.V for bf16/fp16 pools, as the TPU kernel does:
+    on ``paged_probe`` it equals the kernel form with no slack, and p
+    unrounded (the route before the repair) or in the other 16-bit type
+    fails that bound."""
+    args, kw = paged_probe(dtype, dh, bs, cuda, Q=Q, rep=rep)
+    assert pa.kernel_route(dtype, False, dh, bs) == "simt"
+    tally = pa.kernel_launches()["simt"]
+    out = paged_mha(*args, **kw)
+    assert pa.kernel_launches()["simt"] == tally + 1
+    ref = pa.paged_mha_kernel_form(*args, **kw)
+    torch.cuda.synchronize()
+    assert err_ratio(out, ref) <= 1
+    assert all(err_ratio(bad, ref) > 1 for bad in paged_rounding_faults(*args, **kw).values())
+
+
+@gpu
+@pytest.mark.parametrize("case", ["decode", "decode_bucket", "prefill_chunk"])
+def test_kernel_at_falcon_7b_rep_71(cuda, case):
+    """Falcon-7B's heads on the tensor cores: 71 query heads of width 64 on
+    one kv head, so an item's 71 x Q rows span two or more 64-row tiles, the
+    last one partly live. Such items are never split (``split_count``: more
+    than one row tile), at any context length."""
+    S, Q, q_len, MB = {"decode": (8, 1, None, 40), "decode_bucket": (8, 8, [1] * 8, 40),
+                       "prefill_chunk": (2, 64, [64, 37], 24)}[case]
+    args, kw = make_case(cuda, S=S, Q=Q, H=71, KV=1, Dh=64, bs=64, MB=MB, seed=71 + Q,
+                         q_len=q_len)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert pa.split_count(S, Q, 71, 1, 64, MB, sms) == 1
+    assert pa.kernel_route(torch.bfloat16, False, 64, 64) == "wgmma"
+    check_paged_kernel(args, kw)
+
+
+@gpu
+@pytest.mark.parametrize("S,Q", [(4, 1), (8, 8), (2, 48)])
+def test_kernel_window_4096_past_the_window(cuda, S, Q):
+    """Mistral-7B's attention (32 heads of 128 over 8 kv heads, pages of 64)
+    with its 4096-key sliding window, every context past it: the first
+    visible key moves off the first page, and decode rounds split the keys
+    (up to MAX_SPLITS)."""
+    args, kw = make_case(cuda, S=S, Q=Q, H=32, KV=8, Dh=128, bs=64, MB=72, seed=4096 + Q)
+    seen = args[4]
+    seen.copy_(torch.randint(4100, 72 * 64 - Q, (S,), device=cuda, dtype=torch.int32))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if Q == 1:
+        assert pa.split_count(S, Q, 32, 8, 64, 72, sms) > 1
+    check_paged_kernel(args, kw, window=4096)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -308,18 +362,18 @@ def test_split_ranges_do_not_depend_on_the_other_rows():
                 assert all(t * pa.KEY_TILE > p for t in extra)
 
 
-def verify_column_cases(dev, S, MB, seed=0):
+def verify_column_cases(dev, S, MB, seed=0, H=32, KV=32, Dh=128):
     """Calls of the paged kernel at Llama-2-7B attention width (32 heads of
-    128, bs 64, bf16, Q 8) on one set of pools: for each position p and
-    column j < 5, sequence 0 as a decode row at p and as a 5-token verify
-    chunk whose column j sits at p, with the same query at p. Where p is 2
-    or 3 short of a 64-key tile boundary, the chunk's last key lies one tile
-    past the decode row's."""
+    128, bs 64, bf16, Q 8; or ``H`` heads of ``Dh`` over ``KV``) on one set
+    of pools: for each position p and column j < 5, sequence 0 as a decode
+    row at p and as a 5-token verify chunk whose column j sits at p, with
+    the same query at p. Where p is 2 or 3 short of a 64-key tile boundary,
+    the chunk's last key lies one tile past the decode row's."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    H, Dh, bs, Q = 32, 128, 64, 8
+    bs, Q = 64, 8
     NB = S * MB + 1
-    k = torch.randn(NB, H, bs, Dh, generator=g, device=dev).to(torch.bfloat16)
-    v = torch.randn(NB, H, bs, Dh, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(NB, KV, bs, Dh, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(NB, KV, bs, Dh, generator=g, device=dev).to(torch.bfloat16)
     bt = torch.randperm(NB - 1, generator=g, device=dev)[:S * MB].reshape(S, MB).int()
     seen = torch.randint(0, MB * bs - Q, (S,), generator=g, device=dev).int()
     ql = torch.ones(S, device=dev, dtype=torch.int32)
@@ -348,6 +402,20 @@ def test_decode_row_and_verify_column_are_bitwise_equal(cuda, S, MB, split):
     assert (pa.split_count(S, 8, 32, 32, 64, MB, sms) > 1) == split
     assert pa.kernel_route(torch.bfloat16, False, 128, 64) == "wgmma"
     for p, j, dec, ver in verify_column_cases(cuda, S, MB, seed=S + MB):
+        out_dec, out_ver = paged_mha(*dec), paged_mha(*ver)
+        torch.cuda.synchronize()
+        assert torch.equal(out_dec[0, 0], out_ver[0, j]), (p, j)
+
+
+@gpu
+def test_decode_row_and_verify_column_are_bitwise_equal_at_rep_71(cuda):
+    """The same row invariance at Falcon-7B's heads (71 query heads of 64
+    on one kv head): a decode row and a verify column sit at different rows
+    of different 64-row tiles of the item, and read the same output."""
+    S, MB = 8, 32
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert pa.split_count(S, 8, 71, 1, 64, MB, sms) == 1
+    for p, j, dec, ver in verify_column_cases(cuda, S, MB, seed=71, H=71, KV=1, Dh=64):
         out_dec, out_ver = paged_mha(*dec), paged_mha(*ver)
         torch.cuda.synchronize()
         assert torch.equal(out_dec[0, 0], out_ver[0, j]), (p, j)

@@ -30,7 +30,7 @@ from deepspeed_tpu.models.mixtral import MixtralConfig as JaxMixtralConfig
 from deepspeed_tpu.models.mixtral import MixtralForCausalLM as JaxMixtral
 from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                               SplitFuseScheduler, build_engine)
-from deepspeed_tpu_torch.inference.v2.engine_factory import resolve_forward_fn
+from deepspeed_tpu_torch.inference.v2.engine_factory import resolve_forward_fn, resolve_verify_fn
 from deepspeed_tpu_torch.inference.v2.model_implementations import mixtral as mx
 from deepspeed_tpu_torch.inference.v2.modules import (UnknownModuleError,
                                                       UnsupportedModuleError)
@@ -196,9 +196,11 @@ def test_factory_routes_families(served):
     _, _, model = served
     assert resolve_forward_fn(model) is mx.ragged_forward
     assert resolve_forward_fn(model, family="mixtral") is mx.ragged_forward
-    for family in ("falcon", "phi", "opt"):
-        with pytest.raises(NotImplementedError, match="A7"):
-            resolve_forward_fn(model, family=family)
+    from deepspeed_tpu_torch.inference.v2.model_implementations import opt, parallel_block
+    assert resolve_forward_fn(model, family="falcon") is parallel_block.ragged_forward
+    assert resolve_forward_fn(model, family="phi") is parallel_block.ragged_forward
+    assert resolve_forward_fn(model, family="opt") is opt.ragged_forward
+    assert resolve_verify_fn(model) is None
 
 
 def test_entry_points_run_on_cuda_unless_told_otherwise(served):

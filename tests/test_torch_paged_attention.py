@@ -261,6 +261,34 @@ def test_kernel_form_matches_pallas_at_bf16(Q, H, KV, window, int8):
         assert ((plain - want).abs() / bound)[m].max() > 4
 
 
+@pytest.mark.parametrize("Q,H,KV,window", [
+    (1, 4, 4, None), (8, 8, 2, None), (16, 4, 4, 20)],
+    ids=["decode_mha", "chunk_gqa", "window"])
+def test_kernel_form_matches_pallas_at_bf16_width_80(Q, H, KV, window):
+    """Phi-2's head width (80), which the SIMT route serves: the kernel
+    form, which both routes are held to, rounds p where the Pallas kernel
+    does at this width too. They agree bit for bit but for a rare p that
+    fp32 sums in another order round the other way (3 of ~4000 outputs in
+    the window case, which move past the bound alone: the bound adds
+    ``paged_flip_slack``, as the GPU tests' does for such flips); the
+    fp32-p plain version misses the bound fourfold."""
+    from flash_rounding import paged_flip_slack
+    c = make_case(S=3, Q=Q, H=H, KV=KV, Dh=80, bs=16, MB=8, seed=Q + H + 80)
+    t = {n: (torch.from_numpy(x) if x is not None else None) for n, x in c.items()}
+    args = (t["q"].bfloat16(), t["k"].bfloat16(), t["v"].bfloat16(), t["bt"], t["seen"],
+            t["q_len"])
+    kw = dict(window=window)
+    want = pallas_16bit(args, kw, jnp.bfloat16)
+    got = paged_mha_kernel_form(*args, **kw)
+    m = torch.from_numpy(live(c))[:, :, None, None].expand(want.shape)
+    bound = ATOL + BF16_RTOL * want.abs()
+    slack = paged_flip_slack(*args, **kw)
+    assert ((got.float() - want).abs() / (bound + slack))[m].max() <= 1
+    assert (got.float() == want)[m].float().mean() >= 0.999
+    plain = paged_mha_reference(*args, **kw).float()
+    assert ((plain - want).abs() / bound)[m].max() > 4
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
 @pytest.mark.parametrize("bs,Q,rep", [(16, 1, 2), (64, 8, 4)])
 def test_pallas_kernel_rounds_p_where_the_probe_pins_it(dtype, bs, Q, rep):
