@@ -315,6 +315,29 @@ prints no result.
    ``k_proj`` and ``v_proj`` swapped must fail that check. Write and load
    times are printed; every directory is removed, also when a check raises.
 
+22. Tensor-parallel serving (run right after phase 20, on its model, then
+   with the model freed): phase 3's tp 1 engine serves phase 3's 8 greedy
+   requests through ``SplitFuseScheduler`` recording each round's batch
+   and logits, and the v1 engine (``init_inference``, bf16) prefills 4 x
+   256 prompts and generates 16 greedy tokens. Then two spawned processes
+   share ``cuda:0`` over gloo (NCCL refuses two ranks on one device; the
+   ranks first check gloo's bf16 all_reduce, all_gather and broadcast on
+   CUDA tensors), each drawing its tp 2 slices of the same seeded
+   Llama-2-7B (all 32 layers): the FastGen engine at tp 2 replays the
+   recorded rounds on the controller while rank 1 follows, and is held to
+   the tp 1 logits (first and last round, ``TP_LOGITS_REL_L2_BOUND``),
+   greedy tokens where the tp 1 gap clears ``TP_TOKEN_MARGIN``, and a
+   planted fault (rank 1 keeps its partial sum after one o-product
+   all-reduce) that must exceed the bound; every rank's 32 paged launches
+   a forward on ``wgmma``; the all-reduces and bytes a forward, per-rank
+   peak memory, tokens/s and ms a round beside tp 1's. The v1 engine at tp
+   2 is held the same way. With 2 or more cards, two processes over NCCL
+   serve Mixtral-8x7B: rank 0 first runs phase 7's one-card 16-layer
+   engine on phase 7's requests, the 16-layer tp 2 engine is held to it as
+   above (rows 1 and 9a on every rank), then all 32 layers serve at tp 2
+   through ``build_replica`` (per-rank memory, tokens/s, launches); on one
+   card a line says why that part did not run.
+
 The script prints its total wall time. The line before the last is one
 JSON object describing each kernel; the last is ``{"ok": true, "device":
 {...}}``. Any failure raises, so the script exits non-zero without it.
@@ -500,6 +523,12 @@ CASES = [
      (64, 1565), [1] * 8),
     ("prefill_chunk_phi_2", 4, 256, 32, 32, 80, 64, "bfloat16", False, None,
      [0, 300, 1000, 1500], None),
+    # phase 22's rank shares at tp 2: Llama-2-7B's 16 query on 16 kv heads,
+    # Mixtral-8x7B's 16 query heads on 4 kv heads, the decode round above
+    ("decode_serve_7b_tp2", 8, 8, 16, 16, 128, 64, "bfloat16", False, None,
+     (64, 1565), [1] * 8),
+    ("decode_serve_8x7b_tp2", 8, 8, 16, 4, 128, 64, "bfloat16", False, None,
+     (64, 1565), [1] * 8),
 ]
 
 
@@ -1556,6 +1585,11 @@ GMM_CASES = [
     ("ragged_tiles", 333, 4000, 1000, 8, "bfloat16", "random"),
     ("fp16", 512, 4096, 2048, 8, "float16", "random"),
     ("fp32", 256, 1024, 1024, 8, "float32", "random"),
+    # Mixtral-8x7B at tp 2 (phase 22): each rank's expert width F / 2 = 7168
+    ("decode_8x7b_tp2", 16, 4096, 7168, 8, "bfloat16", "random"),
+    ("mixed_round_8x7b_tp2", 8192, 4096, 7168, 8, "bfloat16", "skewed"),
+    ("w2_decode_8x7b_tp2", 16, 7168, 4096, 8, "bfloat16", "random"),
+    ("w2_mixed_8x7b_tp2", 8192, 7168, 4096, 8, "bfloat16", "skewed"),
 ]
 
 
@@ -4899,6 +4933,717 @@ def phase_hf_checkpoints():
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 22: tensor-parallel serving (tp 2) on the v2 and v1 engines
+# ---------------------------------------------------------------------------
+
+# Llama-2-7B at full width and all 32 layers at tp 2 as two processes on one
+# card, held against the tp 1 engine drawn from the same seed (phase 3's
+# model, engine config and 8 greedy requests). The tp 1 run goes through
+# ``SplitFuseScheduler`` and records each round's batch and logits; the tp 2
+# controller replays those batches through ``engine.put``, so both see one
+# token stream and a near-tie cannot fork them. Held: the first- and
+# last-round logits by relative L2 under ``TP_LOGITS_REL_L2_BOUND``; greedy
+# tokens wherever the tp 1 run's top-2 gap exceeds ``TP_TOKEN_MARGIN`` times
+# that row's logits rms (the gaps printed); a planted fault (rank 1 keeps
+# its own partial sum after the all-reduce of layer ``TP_FAULT_LAYER``'s o
+# product, the collective still paired) that must exceed the bound. The
+# bound stated before the first card reading, 0.05 with a margin of 0.1,
+# was missed: the first reading gave 0.0556 and 0.0628 (each rank's bf16
+# partial products are rounded once more before their sum, 64 times a
+# forward, and 32 random layers amplify it, as phase 3's kernel-vs-plain
+# 0.038 shows) and the fault 0.469, and 2 of 334 tokens held at the
+# 0.1 margin differed. So the bound is phase 3's ``LOGITS_REL_L2_TOLERANCE``
+# of 0.1 for the same model's bf16 logits, and the margin 0.4: about 4.7
+# standard deviations of the difference of two logits' noise at the first
+# reading. A witness (``fp32_row_products``) replays the same rounds with
+# the o and down products' partial sums kept in fp32 through the all-reduce
+# and rounded to bf16 once, as the tp 1 engine's single product is: it must
+# read below the bf16-reduce replay in both rounds, which ties part of the
+# reading to that rounding. Printed beside it: the tp 1 engine against
+# itself with its o and down products in fp32, the size of a change of
+# summation order alone after 32 random layers. NCCL refuses two ranks on one device, so the
+# one-card group is gloo on CUDA tensors (checked for bf16 all_reduce,
+# all_gather and broadcast first); on two or more cards Mixtral-8x7B runs
+# over NCCL, one rank a card.
+TP_SIZE = 2
+TP_LOGITS_REL_L2_BOUND = LOGITS_REL_L2_TOLERANCE
+TP_TOKEN_MARGIN = 0.4
+TP_FAULT_LAYER = 1
+TP_NEW = 64                   # new tokens a request, phase 3's
+TP_V1_SHAPE = (4, 256)        # the v1 engine's prompts
+TP_V1_NEW = 16
+TP_MIXTRAL_REF_LAYERS = 16    # phase 7's one-card depth; then all 32 at tp 2
+TP_MULTI_CARD_BACKEND = "nccl"
+
+
+def tp_device(index):
+    """Card ``index``, made this process's current device."""
+    import torch
+    torch.cuda.set_device(index)
+    return torch.device("cuda", index)
+
+
+def serving_config(tp_size=1):
+    """Phase 3's (and phase 7's) engine config, over a tp group of ``tp_size``."""
+    return {"state_manager": {"max_ragged_sequence_count": 8, "max_ragged_batch_size": 512,
+                              "max_context": 2048, "num_kv_blocks": 256},
+            "kv_cache": {"block_size": 64, "cache_dtype": "bf16"},
+            "tensor_parallel": {"tp_size": tp_size}}
+
+
+def phase3_prompts(vocab):
+    """Phase 3's 8 requests, drawn as it draws them (its 500-token logits
+    prompt first)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    rng.integers(0, vocab, LOGITS_PROMPT)
+    lens = rng.integers(64, 1501, 8)
+    return [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens]
+
+
+def round_summary(logits):
+    """(argmax, top-2 gap over the row's logits rms) of [n, V] host logits."""
+    import numpy as np
+    top2 = np.sort(logits, axis=-1)[:, -2:]
+    rms = np.sqrt((logits.astype(np.float64) ** 2).mean(-1))
+    return logits.argmax(-1), (top2[:, 1] - top2[:, 0]) / rms
+
+
+def route_forward(engine, routes):
+    """Wrap ``engine``'s Mixtral ragged forward: with ``routes`` a list,
+    each forward appends its layers' (top_vals, top_idx) to it, on the host;
+    with ``routes`` an iterator, each forward replays its next item."""
+    forward = engine._ragged_forward
+
+    def routed(*args, **kw):
+        if isinstance(routes, list):
+            got = []
+            out = forward(*args, routes=got, **kw)
+            routes.append([(v.cpu(), i.cpu()) for v, i in got])
+            return out
+        dev = args[2].device
+        return forward(*args, routes=[(v.to(dev), i.to(dev)) for v, i in next(routes)],
+                       **kw)
+    engine._ragged_forward = routed
+
+
+def capture_serving(engine, prompts, n_new, routes=None):
+    """Greedy SplitFuse serving of ``prompts`` on a tp 1 engine, recording
+    every round's batch (uids, chunks), its argmax and top-2 gaps, and the
+    first and last rounds' logits; the round times. ``routes``, a list for a
+    Mixtral engine, receives each forward's routing (``route_forward``)."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import SplitFuseScheduler
+    rounds, summary, kept = [], [], []
+    forward = engine._forward_device
+    if routes is not None:
+        route_forward(engine, routes)
+
+    def recording(uids, chunks, **kw):
+        logits = forward(uids, chunks, **kw)
+        host = engine.host_fetch(logits[:len(uids)], "tp_reference/logits").float().numpy()
+        rounds.append((list(uids), [np.asarray(c, np.int32).copy() for c in chunks]))
+        summary.append(round_summary(host))
+        kept[:] = [kept[0] if kept else host, host]
+        return logits
+
+    engine._forward_device = recording
+    sched = SplitFuseScheduler(engine)
+    for uid, p in enumerate(prompts):
+        sched.submit(uid, p, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    round_ms = []
+    t0 = time.perf_counter()
+    while sched.has_work:
+        t = time.perf_counter()
+        sched.step()
+        round_ms.append((time.perf_counter() - t) * 1e3)
+    wall = time.perf_counter() - t0
+    del engine._forward_device        # the class's method again, no cycle
+    return dict(rounds=rounds, argmax=[s[0] for s in summary], gap=[s[1] for s in summary],
+                first=kept[0], last=kept[1], round_ms=round_ms,
+                tokens_per_s=n_new * len(prompts) / wall, wall_s=wall, routes=routes,
+                streams={u: list(map(int, t)) for u, t in sched.results().items()})
+
+
+def phase_tp_reference(model):
+    """Phase 22's tp 1 side on phase 3's Llama-2-7B (seed 0): the v2 run's
+    rounds and logits, and the v1 engine's prefill logits, 16 greedy tokens
+    and the logits along that stream (``init_inference`` in bf16)."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.v2 import build_engine
+    cfg = model.config
+    t = time.perf_counter()
+    engine = build_engine(model, serving_config())
+    ref = capture_serving(engine, phase3_prompts(cfg.vocab_size), TP_NEW)
+    # the witness's yardstick: the same rounds at tp 1 with the o and down
+    # products in fp32, rounded once (only the summation order changes)
+    engine = build_engine(model, serving_config())
+    undo = fp32_row_products(model)
+    fp32 = replay(engine, ref["rounds"])
+    undo()
+    ref["tp1_fp32_products"] = {
+        name: float(np.linalg.norm(fp32[name] - ref[name]) / np.linalg.norm(ref[name]))
+        for name in ("first", "last")}
+    del engine, fp32
+    torch.cuda.empty_cache()
+    eng = deepspeed_tpu_torch.init_inference(model, config={"dtype": "bf16"})
+    ids = np.random.default_rng(22).integers(0, cfg.vocab_size, TP_V1_SHAPE)
+    tokens = eng.generate(ids, max_new_tokens=TP_V1_NEW).cpu().numpy()
+    stream = eng(np.concatenate([ids, tokens[:, :-1]], 1))[:, ids.shape[1] - 1:].float()
+    ref["v1"] = dict(ids=ids, tokens=tokens, logits=stream.cpu().numpy(),
+                     argmax=stream.argmax(-1).cpu().numpy(),
+                     gap=np.stack([round_summary(stream[:, i].cpu().numpy())[1]
+                                   for i in range(TP_V1_NEW)], 1))
+    del eng, stream
+    torch.cuda.empty_cache()
+    print(f"tensor parallel: tp 1 reference, {len(ref['rounds'])} rounds at "
+          f"{ref['tokens_per_s']:.1f} tokens/s, median round "
+          f"{float(np.median(ref['round_ms'])):.2f} ms, in {time.perf_counter() - t:.1f}s",
+          flush=True)
+    return ref
+
+
+def check_collectives(dev):
+    """The group takes bf16 tensors on ``dev`` for all_reduce, all_gather and
+    broadcast; a two-operand bf16 sum equals the fp32 sum rounded once."""
+    import torch
+    import torch.distributed as tdist
+    rank = tdist.get_rank()
+    g = torch.Generator(device=dev).manual_seed(rank)
+    x = torch.randn(8, 4096, generator=g, device=dev).to(torch.bfloat16)
+    parts = [torch.empty_like(x) for _ in range(tdist.get_world_size())]
+    tdist.all_gather(parts, x)
+    y = x.clone()
+    tdist.all_reduce(y)
+    b = x.clone()
+    tdist.broadcast(b, src=0)
+    exact = torch.equal(y, sum(p.float() for p in parts).to(torch.bfloat16)) \
+        if len(parts) == 2 else None
+    return dict(backend=tdist.get_backend(), all_reduce_equals_fp32_rounded_once=exact,
+                broadcast_equals_rank0=torch.equal(b, parts[0]))
+
+
+def faulty_o_reduce(call_index):
+    """Patch the ragged forward's o product so that its ``call_index``-th
+    call keeps this rank's partial sum (the all-reduce still runs, on a copy,
+    so the collectives stay paired)."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.model_implementations import llama as impl
+    from deepspeed_tpu_torch.parallel.tensor_parallel import row_reduce
+    sound, calls = impl.row_linear, [0]
+
+    def row_linear(x, linear, tp):
+        calls[0] += 1
+        if calls[0] - 1 != call_index:
+            return sound(x, linear, tp)
+        partial = torch.nn.functional.linear(x, linear.weight)
+        row_reduce(partial.clone(), tp)
+        return partial
+    impl.row_linear = row_linear
+
+
+def fp32_row_products(model):
+    """Phase 22's witness: patch the ragged Llama forward so that each rank's
+    o and down partial products of ``model`` stay fp32 through the
+    all-reduce and round to bf16 once after it, as the tp 1 engine's one
+    product does. Returns the function that undoes the patch."""
+    import types
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.inference.v2.model_implementations import llama as impl
+    from deepspeed_tpu_torch.parallel.tensor_parallel import row_reduce
+    down = {id(layer.mlp.down_proj.weight) for layer in model.layers}
+    sound = impl.F, impl.row_reduce, impl.row_linear
+
+    def linear(x, weight, bias=None):
+        if id(weight) in down:
+            return F.linear(x.float(), weight.float())
+        return F.linear(x, weight, bias)
+
+    def row_linear(x, linear_, tp):
+        return row_reduce(F.linear(x.float(), linear_.weight.float()), tp).to(x.dtype)
+
+    impl.F = types.SimpleNamespace(linear=linear, silu=F.silu)
+    impl.row_reduce = lambda x, tp: row_reduce(x, tp).to(torch.bfloat16)
+    impl.row_linear = row_linear
+
+    def undo():
+        impl.F, impl.row_reduce, impl.row_linear = sound
+    return undo
+
+
+def replay(engine, rounds):
+    """The controller's replay of recorded rounds through ``engine.put``:
+    per round argmax and top-2 gaps, the first and last logits, round ms."""
+    import torch
+    summary, first, last, round_ms = [], None, None, []
+    torch.cuda.synchronize()
+    for uids, chunks in rounds:
+        t = time.perf_counter()
+        logits = engine.put(uids, chunks)
+        round_ms.append((time.perf_counter() - t) * 1e3)
+        summary.append(round_summary(logits))
+        first = logits if first is None else first
+        last = logits
+    return dict(argmax=[s[0] for s in summary], first=first, last=last, round_ms=round_ms)
+
+
+def launch_counts(reset=False):
+    """Row 1's and row 9a's wrapper counts and the libraries' tallies (and
+    the tp primitives' counts); ``reset`` zeroes the wrapper counts."""
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.parallel import tensor_parallel as tpl
+    if reset:
+        pa.paged_mha.launches = gg.grouped_matmul.launches = 0
+        tpl.reset_counts()
+    return dict(paged_mha=pa.paged_mha.launches,
+                moe_grouped_gemm=gg.grouped_matmul.launches,
+                paged_tally=pa.kernel_launches(), gmm_tally=gg.kernel_launches(),
+                exchanges=tpl.counts())
+
+
+def tally_delta(after, before):
+    return {k: v - before[k] for k, v in after.items() if v > before[k]}
+
+
+def tp_serve_replay(rank, model, dev, ref, res, key, routes=None, control=True,
+                    collect=None, patch=None):
+    """Both ranks: the tp 2 engine over ``model``'s slices; the controller
+    replays ``ref``'s rounds, then (``control``) round 0 again as the
+    planted-fault control (rank 1 faulting); launches, exchanges and round
+    times into ``res``. ``routes``: the reference's routing, replayed in
+    every forward on every rank (a Mixtral engine); None routes freely, and
+    ``collect``, a list, then receives each forward's routing. ``patch``:
+    installs a change to the forward on ``model`` and returns its undo."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import build_engine
+    from deepspeed_tpu_torch.inference.v2.model_implementations import llama as impl
+    engine = build_engine(model, serving_config(TP_SIZE), device=dev)
+    layers = model.config.num_hidden_layers
+    n = len(ref["rounds"])
+    if routes is not None:             # the control replays round 0's routing
+        route_forward(engine, iter(list(routes) + [routes[0]]))
+    elif collect is not None:
+        route_forward(engine, collect)
+    sound = impl.row_linear
+    undo = patch(model) if patch is not None else None
+    if rank == 1 and control:
+        faulty_o_reduce(n * layers + TP_FAULT_LAYER)
+    torch.cuda.synchronize()
+    before = launch_counts(reset=True)
+    if engine.is_controller:
+        out = replay(engine, ref["rounds"])
+        if control:
+            for uid in {u for uids, _ in ref["rounds"] for u in uids}:
+                engine.flush(uid)
+            uids, chunks = ref["rounds"][0]
+            out["control"] = engine.put([u + 1000 for u in uids], chunks)
+        engine.stop_followers()
+        forwards = n + int(control)           # the replay and the control
+    else:
+        forwards = engine.follow()
+    impl.row_linear = sound
+    if undo is not None:
+        undo()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    res[key] = dict(
+        attention=engine.attention_impl, moe=engine.moe_impl, forwards=forwards,
+        paged_mha_launches=after["paged_mha"],
+        moe_grouped_gemm_launches=after["moe_grouped_gemm"],
+        paged_kernels=tally_delta(after["paged_tally"], before["paged_tally"]),
+        grouped_kernels=tally_delta(after["gmm_tally"], before["gmm_tally"]),
+        exchanges=after["exchanges"], layers=layers)
+    if engine.is_controller:
+        res[key].update(out)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tp_llama_rank(rank, world, port, out_dir):
+    """One rank of phase 22's one-card part (started by torch.multiprocessing)."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, str(REPO))
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    t0 = time.perf_counter()
+    tdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                             world_size=world, rank=rank,
+                             timeout=datetime.timedelta(seconds=600))
+    dev = tp_device(0)
+    ref = torch.load(Path(out_dir) / "reference.pt", weights_only=False)
+    res = dict(rank=rank, collectives=check_collectives(dev))
+    cfg = LlamaConfig.llama2_7b()
+    model = LlamaForCausalLM.from_seed(cfg, seed=0, device=dev, tp_size=TP_SIZE,
+                                       tp_rank=rank)
+    torch.cuda.synchronize()
+    res["weights_drawn_s"] = time.perf_counter() - t0
+    tp_serve_replay(rank, model, dev, ref, res, "v2")
+    tp_serve_replay(rank, model, dev, ref, res, "v2_fp32_reduce", control=False,
+                    patch=fp32_row_products)
+    eng = deepspeed_tpu_torch.init_inference(
+        model, config={"dtype": "bf16", "tensor_parallel": {"tp_size": TP_SIZE}}, device=dev)
+    ids, stream = ref["v1"]["ids"], ref["v1"]["tokens"]
+    forced = eng(np.concatenate([ids, stream[:, :-1]], 1))[:, ids.shape[1] - 1:].float()
+    res["v1"] = dict(grid=eng.grid, logits=forced.cpu().numpy(),
+                     argmax=forced.argmax(-1).cpu().numpy(),
+                     tokens=eng.generate(ids, max_new_tokens=TP_V1_NEW).cpu().numpy())
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    res["seconds"] = time.perf_counter() - t0
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    tdist.barrier()
+    tdist.destroy_process_group()
+
+
+def tp_mixtral_rank(rank, world, port, out_dir):
+    """One rank of phase 22's multi-card part: rank 0 first serves the
+    one-card 16-layer reference (phase 7's model and requests), then both
+    ranks the 16-layer engine at tp 2 against it, then all 32 layers."""
+    import datetime
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, str(REPO))
+    from deepspeed_tpu_torch.inference.v2 import build_engine
+    from deepspeed_tpu_torch.inference.v2.engine_factory import build_replica
+    from deepspeed_tpu_torch.models.mixtral import MixtralConfig, MixtralForCausalLM
+    t0 = time.perf_counter()
+    dev = tp_device(rank)
+    tdist.init_process_group(TP_MULTI_CARD_BACKEND, init_method=f"tcp://localhost:{port}",
+                             world_size=world, rank=rank,
+                             timeout=datetime.timedelta(seconds=900))
+    res = dict(rank=rank, collectives=check_collectives(dev))
+    cfg16 = MixtralConfig.mixtral_8x7b(num_hidden_layers=TP_MIXTRAL_REF_LAYERS)
+    prompts = phase3_prompts(cfg16.vocab_size)
+    if rank == 0:
+        model = MixtralForCausalLM.from_seed(cfg16, seed=0, device=dev)
+        engine = build_engine(model, serving_config(), device=dev)
+        ref = capture_serving(engine, prompts, TP_NEW, routes=[])
+        res["reference"] = {k: ref[k] for k in ("first", "last", "argmax", "gap",
+                                                "round_ms", "tokens_per_s")}
+        res["reference"]["rounds"] = len(ref["rounds"])
+        torch.save(ref, Path(out_dir) / "reference.pt")
+        del engine, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    tdist.barrier()
+    ref = torch.load(Path(out_dir) / "reference.pt", weights_only=False)
+    model = MixtralForCausalLM.from_seed(cfg16, seed=0, device=dev, tp_size=TP_SIZE,
+                                         tp_rank=rank)
+    # held with the reference's routing replayed (phase 7's rule: a bf16
+    # rounding upstream may flip a near-tied top-2 choice, the router's
+    # property), then routed freely, the flips counted
+    tp_serve_replay(rank, model, dev, ref, res, "tp2_16", routes=ref["routes"])
+    free = []
+    tp_serve_replay(rank, model, dev, ref, res, "tp2_16_free", control=False, collect=free)
+    if rank == 0:
+        res["tp2_16_free"]["route_flips"] = sum(
+            int((a[1].sort(-1).values != b[1].sort(-1).values).any(-1).sum())
+            for f, g in zip(free, ref["routes"]) for a, b in zip(f, g))
+        res["tp2_16_free"]["routes"] = sum(int(a[1].shape[0]) for f in free for a in f)
+    del model, free
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = MixtralConfig.mixtral_8x7b()
+    t = time.perf_counter()
+    model = MixtralForCausalLM.from_seed(cfg, seed=0, device=dev, tp_size=TP_SIZE,
+                                         tp_rank=rank)
+    torch.cuda.synchronize()
+    drawn = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = launch_counts(reset=True)
+    _, sched = build_replica(model, tp_size=TP_SIZE, engine_config=serving_config(),
+                             device=dev)
+    serve = None
+    if sched is not None:
+        for uid, p in enumerate(prompts):
+            sched.submit(uid, p, max_new_tokens=TP_NEW)
+        t = time.perf_counter()
+        rounds = 0
+        while sched.has_work:
+            sched.step()
+            rounds += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        sched.engine.stop_followers()
+        results = sched.results()
+        serve = dict(rounds=rounds, wall_s=wall, tokens_per_s=TP_NEW * len(prompts) / wall,
+                     tokens_ok=all(len(x) == TP_NEW for x in results.values()))
+    torch.cuda.synchronize()
+    after = launch_counts()
+    res["tp2_32"] = dict(
+        layers=cfg.num_hidden_layers, weights_drawn_s=drawn, serve=serve,
+        paged_mha_launches=after["paged_mha"],
+        moe_grouped_gemm_launches=after["moe_grouped_gemm"],
+        paged_kernels=tally_delta(after["paged_tally"], before["paged_tally"]),
+        grouped_kernels=tally_delta(after["gmm_tally"], before["gmm_tally"]),
+        exchanges=after["exchanges"],
+        peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    res["seconds"] = time.perf_counter() - t0
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    tdist.barrier()
+    tdist.destroy_process_group()
+
+
+def spawn_ranks(fn, world, files=None):
+    """Run ``fn(rank, world, port, out_dir)`` in ``world`` spawned processes;
+    ``files`` ({name: object}) are saved into ``out_dir`` first. Returns the
+    ranks' saved results."""
+    import socket
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as out_dir:
+        for name, obj in (files or {}).items():
+            torch.save(obj, Path(out_dir) / name)
+        mp.start_processes(fn, args=(world, port, out_dir), nprocs=world, join=True,
+                           start_method="spawn")
+        return [torch.load(Path(out_dir) / f"rank{r}.pt", weights_only=False)
+                for r in range(world)]
+
+
+def hold_replay(label, ref, got, failures):
+    """Phase 22's checks of a tp 2 replay (``got``, the controller's)
+    against the tp 1 rounds (``ref``); returns the printed summary."""
+    import numpy as np
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    first, last, control = (rel(got["first"], ref["first"]), rel(got["last"], ref["last"]),
+                            rel(got["control"], ref["first"]))
+    held = differ = 0
+    near, held_differ = [], []
+    for r, (want, gap, have) in enumerate(zip(ref["argmax"], ref["gap"], got["argmax"])):
+        clear = gap > TP_TOKEN_MARGIN
+        held += int(clear.sum())
+        differ += int((want[clear] != have[clear]).sum())
+        for i in np.flatnonzero(want != have):
+            (held_differ if clear[i] else near).append(
+                (r, int(i), float(gap[i]), int(want[i]), int(have[i])))
+    gaps = np.concatenate(ref["gap"])
+    out = dict(first_round_rel_l2=first, last_round_rel_l2=last, control_rel_l2=control,
+               bound=TP_LOGITS_REL_L2_BOUND, tokens_held=held,
+               tokens=int(sum(len(a) for a in ref["argmax"])), tokens_differing_held=differ,
+               held_differences=held_differ[:8], near_tie_differences=len(near),
+               gap_quantiles=np.quantile(
+                   gaps, [0.01, 0.1, 0.5]).tolist(), margin=TP_TOKEN_MARGIN)
+    print(f"tensor parallel {label}: logits vs tp 1, relative L2 first round {first:.4g}, "
+          f"last round {last:.4g}, planted fault {control:.4g} (bound "
+          f"{TP_LOGITS_REL_L2_BOUND}); greedy tokens held {held} of {out['tokens']} "
+          f"(top-2 gap > {TP_TOKEN_MARGIN} x rms), {differ} differ; top-2 gap quantiles "
+          f"(1%, 10%, 50%) {[round(q, 4) for q in out['gap_quantiles']]}; "
+          f"{len(near)} differences under the margin, e.g. (round, row, gap, tp 1, tp 2) "
+          f"{near[:4]}; held differences {held_differ[:8]}", flush=True)
+    for name, v in (("first", first), ("last", last)):
+        if not np.isfinite(v) or not v <= TP_LOGITS_REL_L2_BOUND:
+            failures.append(f"{label}: {name}-round logits {v} > {TP_LOGITS_REL_L2_BOUND}")
+    if not control > TP_LOGITS_REL_L2_BOUND:
+        failures.append(f"{label}: the bound does not reject the planted fault ({control})")
+    if differ or not held:
+        failures.append(f"{label}: {differ} greedy tokens differ where the gap clears the "
+                        f"margin ({held} held)")
+    return out
+
+
+def hold_witness(ref, sound, witness, failures):
+    """Phase 22's witness against the tp 1 rounds: the replay with the
+    partial products reduced in fp32 must read below the bf16-reduce
+    replay (``sound``) in the first and the last round. Printed beside it:
+    tp 1 against itself with its o and down products in fp32, rounded
+    once, which is how far a change of summation order alone moves the
+    logits through 32 random layers."""
+    import numpy as np
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    out = {}
+    for name in ("first", "last"):
+        out[name] = dict(fp32_reduce=rel(witness[name], ref[name]),
+                         bf16_reduce=rel(sound[name], ref[name]))
+        out[name]["tp1_fp32_products"] = ref["tp1_fp32_products"][name]
+    out["tokens_differing"] = int(sum((a != b).sum() for a, b in zip(
+        ref["argmax"], witness["argmax"])))
+    print(f"tensor parallel witness: partial products reduced in fp32, relative L2 "
+          f"against tp 1 first round {out['first']['fp32_reduce']:.4g}, last round "
+          f"{out['last']['fp32_reduce']:.4g} (bf16 reduce {out['first']['bf16_reduce']:.4g},"
+          f" {out['last']['bf16_reduce']:.4g}; tp 1 itself with its o and down products "
+          f"in fp32 {out['first']['tp1_fp32_products']:.4g}, "
+          f"{out['last']['tp1_fp32_products']:.4g}; bound {TP_LOGITS_REL_L2_BOUND}); "
+          f"{out['tokens_differing']} greedy tokens differ", flush=True)
+    for name in ("first", "last"):
+        if not out[name]["fp32_reduce"] < out[name]["bf16_reduce"]:
+            failures.append(f"witness: the fp32 reduce reads {out[name]['fp32_reduce']} in "
+                            f"the {name} round, not below the bf16 reduce's "
+                            f"{out[name]['bf16_reduce']}")
+    return out
+
+
+def check_rank_launches(label, r, want_attention, failures, moe=None):
+    """Every rank's forwards went through row 1 (one launch a layer a
+    forward, on ``wgmma``) and, for Mixtral, row 9a (three a layer)."""
+    want = r["layers"] * r["forwards"]
+    if r["attention"] != want_attention or r["paged_mha_launches"] != want \
+            or r["paged_kernels"] != {"wgmma": want}:
+        failures.append(f"{label}: rank launched paged {r['paged_mha_launches']} "
+                        f"{r['paged_kernels']} ({r['attention']}), not wgmma {want}")
+    if moe and (r["moe_grouped_gemm_launches"] != 3 * want
+                or r["grouped_kernels"] != {"fwd_wgmma": 3 * want}):
+        failures.append(f"{label}: rank launched grouped {r['grouped_kernels']}, not "
+                        f"fwd_wgmma {3 * want}")
+
+
+def phase_tensor_parallel(ref):
+    """Phase 22 (see the comment above ``TP_SIZE``): Llama-2-7B at tp 2 on
+    one card over gloo, then with 2 or more cards Mixtral-8x7B at tp 2 over
+    NCCL. Returns the report for the kernels line."""
+    failures = []
+    report = tp_llama_part(ref, failures)
+    report["mixtral"] = tp_mixtral_part(failures)
+    if failures:
+        fail("tensor parallel: " + "; ".join(failures))
+    return report
+
+
+def tp_llama_part(ref, failures):
+    """Phase 22's one-card part; appends to ``failures``."""
+    import numpy as np
+    print(f"tensor parallel: Llama-2-7B, 32 layers, tp {TP_SIZE}: two processes on "
+          f"cuda:0 over gloo (NCCL refuses two ranks on one device), phase 3's requests",
+          flush=True)
+    t = time.perf_counter()
+    ranks = spawn_ranks(tp_llama_rank, TP_SIZE, {"reference.pt": ref})
+    r0 = ranks[0]
+    report = {"llama_v2": hold_replay("Llama-2-7B v2", ref, r0["v2"], failures)}
+    report["llama_v2"]["fp32_reduce"] = hold_witness(ref, r0["v2"], r0["v2_fp32_reduce"],
+                                                     failures)
+    for r in ranks:
+        check_rank_launches(f"Llama-2-7B rank {r['rank']}", r["v2"], "cuda_paged", failures)
+        if not r["collectives"]["all_reduce_equals_fp32_rounded_once"] or \
+                not r["collectives"]["broadcast_equals_rank0"]:
+            failures.append(f"rank {r['rank']}: gloo bf16 collectives {r['collectives']}")
+    v2 = r0["v2"]
+    per_forward = {k: {f: c[f] / v2["forwards"] for f in c}
+                   for k, c in v2["exchanges"].items()}
+    tp_ms, ref_ms = float(np.median(v2["round_ms"])), float(np.median(ref["round_ms"]))
+    stats = dict(
+        forwards=v2["forwards"], exchanges_per_forward=per_forward,
+        collectives=r0["collectives"],
+        paged_mha_launches=[r["v2"]["paged_mha_launches"] for r in ranks],
+        paged_kernels=[r["v2"]["paged_kernels"] for r in ranks],
+        peak_memory_gb=[r["peak_memory_gb"] for r in ranks],
+        tokens_per_s=TP_NEW * 8 / (sum(v2["round_ms"]) / 1e3),
+        tp1_tokens_per_s=TP_NEW * 8 / (sum(ref["round_ms"]) / 1e3),
+        median_round_ms=tp_ms, tp1_median_round_ms=ref_ms,
+        weights_drawn_s=[r["weights_drawn_s"] for r in ranks],
+        rank_seconds=[r["seconds"] for r in ranks], device=nvidia_smi())
+    print(f"tensor parallel llama {json.dumps(stats)}", flush=True)
+    report["llama_v2"].update(stats)
+    # v1: the logits along the tp 1 engine's greedy stream (its prefill's
+    # last position, then each of the 16 tokens fed back) and the tokens
+    # where the tp 1 gap clears the margin; the free-running streams printed
+    v1, want = r0["v1"], ref["v1"]
+    if ranks[1]["v1"]["tokens"].tolist() != v1["tokens"].tolist():
+        failures.append("v1: the two ranks generated different tokens")
+    prefill, along = (float(np.linalg.norm(a - b) / np.linalg.norm(b)) for a, b in (
+        (v1["logits"][:, 0], want["logits"][:, 0]), (v1["logits"], want["logits"])))
+    clear = want["gap"] > TP_TOKEN_MARGIN
+    held, differ = int(clear.sum()), int((v1["argmax"] != want["argmax"])[clear].sum())
+    report["llama_v1"] = dict(grid=v1["grid"], prefill_rel_l2=prefill,
+                              stream_rel_l2=along, tokens_held=held,
+                              tokens_differing_held=differ,
+                              free_running_tokens_equal=int((v1["tokens"] == want["tokens"]).sum()),
+                              tokens=int(want["tokens"].size))
+    print(f"tensor parallel llama v1 {json.dumps(report['llama_v1'])}", flush=True)
+    if v1["grid"] != {"dp": 1, "tp": TP_SIZE}:
+        failures.append(f"v1 grid {v1['grid']}")
+    if not max(prefill, along) <= TP_LOGITS_REL_L2_BOUND:
+        failures.append(f"v1 logits {prefill}, {along} > {TP_LOGITS_REL_L2_BOUND}")
+    if differ or not held:
+        failures.append(f"v1: {differ} greedy tokens differ where the gap clears the "
+                        f"margin ({held} held)")
+    print(f"phase tensor parallel (one card): {time.perf_counter() - t:.1f}s", flush=True)
+    return report
+
+
+def tp_mixtral_part(failures):
+    """Phase 22's part on 2 or more cards (None on one); appends to
+    ``failures``."""
+    import numpy as np
+    import torch
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"phase tensor parallel Mixtral-8x7B: not run: it needs 2 or more cards "
+              f"and {count} is visible (its 93.4 GB of bf16 weights need two)", flush=True)
+        return None
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = spawn_ranks(tp_mixtral_rank, TP_SIZE)
+    mref = ranks[0]["reference"]
+    got = ranks[0]["tp2_16"]
+    held = hold_replay(f"Mixtral-8x7B {TP_MIXTRAL_REF_LAYERS} layers, routing shared",
+                       mref, got, failures)
+    free = ranks[0]["tp2_16_free"]
+    free_report = dict(
+        first_round_rel_l2=float(np.linalg.norm(free["first"] - mref["first"])
+                                 / np.linalg.norm(mref["first"])),
+        last_round_rel_l2=float(np.linalg.norm(free["last"] - mref["last"])
+                                / np.linalg.norm(mref["last"])),
+        argmax_equal=int(sum((a == b).sum() for a, b in zip(free["argmax"], mref["argmax"]))),
+        route_flips=free["route_flips"], routes=free["routes"])
+    print(f"tensor parallel Mixtral-8x7B routed freely (not held): {json.dumps(free_report)}",
+          flush=True)
+    for r in ranks:
+        for key in ("tp2_16", "tp2_16_free"):
+            check_rank_launches(f"Mixtral rank {r['rank']} {key}", r[key], "cuda_paged",
+                                failures, moe=True)
+    serve = ranks[0]["tp2_32"]["serve"]
+    stats = dict(
+        held_16=held, free_routing_16=free_report,
+        reference_tokens_per_s=mref["tokens_per_s"],
+        tp2_16_median_round_ms=float(np.median(got["round_ms"])),
+        reference_median_round_ms=float(np.median(mref["round_ms"])),
+        serve_32=serve,
+        paged_mha_launches=[r["tp2_32"]["paged_mha_launches"] for r in ranks],
+        moe_grouped_gemm_launches=[r["tp2_32"]["moe_grouped_gemm_launches"]
+                                   for r in ranks],
+        paged_kernels=[r["tp2_32"]["paged_kernels"] for r in ranks],
+        grouped_kernels=[r["tp2_32"]["grouped_kernels"] for r in ranks],
+        exchanges=[r["tp2_32"]["exchanges"] for r in ranks],
+        peak_memory_gb=[r["tp2_32"]["peak_memory_gb"] for r in ranks],
+        weights_drawn_s=[r["tp2_32"]["weights_drawn_s"] for r in ranks],
+        rank_seconds=[r["seconds"] for r in ranks],
+        collectives=ranks[0]["collectives"], device=nvidia_smi())
+    print(f"tensor parallel mixtral {json.dumps(stats)}", flush=True)
+    if not serve or not serve["tokens_ok"]:
+        failures.append(f"Mixtral 32 layers: serving {serve}")
+    for r in ranks:
+        x = r["tp2_32"]
+        want = x["paged_mha_launches"]
+        if not want or x["paged_kernels"] != {"wgmma": want} or \
+                x["moe_grouped_gemm_launches"] != 3 * want or \
+                x["grouped_kernels"] != {"fwd_wgmma": 3 * want}:
+            failures.append(f"Mixtral 32 layers rank {r['rank']}: launched "
+                            f"{x['paged_kernels']} {x['grouped_kernels']}")
+    print(f"phase tensor parallel (Mixtral): {time.perf_counter() - t:.1f}s", flush=True)
+    return stats
+
+
 def quant_kernel_lines(cases, zero_ranks, ep_ranks):
     """The kernels-line entries of the two qgZ kernels: the main case's
     numbers, every case's, the launches of phase 11's run and those of
@@ -4965,9 +5710,14 @@ def main():
     t2 = time.perf_counter()
     spec_report = phase_speculative(llama)
     print(f"phase speculative serving: {time.perf_counter() - t2:.1f}s", flush=True)
+    t2 = time.perf_counter()
+    tp_reference = phase_tp_reference(llama)
     del llama
     gc.collect()
     torch.cuda.empty_cache()
+    tp_report = phase_tensor_parallel(tp_reference)
+    print(f"phase tensor parallel: {time.perf_counter() - t2:.1f}s", flush=True)
+    del tp_reference
     t2 = time.perf_counter()
     hf_report = phase_hf_checkpoints()
     print(f"phase hf checkpoints: {time.perf_counter() - t2:.1f}s", flush=True)
@@ -5043,6 +5793,10 @@ def main():
                              if name != "device"},
         hf_serving_kernels={name: r["kernels"] for name, r in hf_report.items()
                             if name != "device"},
+        tensor_parallel_launches=tp_report["llama_v2"]["paged_mha_launches"],
+        tensor_parallel_kernels=tp_report["llama_v2"]["paged_kernels"],
+        mixtral_tensor_parallel_launches=(tp_report["mixtral"] or {}).get(
+            "paged_mha_launches"),
         cases=[{k: c[k] for k in ("name", "kernel", "splits", "max_abs_err", "err_ratio",
                                   "planted_fault_ratio", "ms", "device_ms", "plain_ms",
                                   "library_ms", "bound_ms", "bound_by")}
@@ -5080,6 +5834,8 @@ def main():
         launches=mixtral_launches["moe_grouped_gemm"],
         training_launches=moe_train_launches["moe_grouped_gemm"],
         expert_parallel_launches=ep_launches.get("moe_grouped_gemm", 0),
+        tensor_parallel_launches=(tp_report["mixtral"] or {}).get(
+            "moe_grouped_gemm_launches", 0),
         **{k: mixed[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")},
         case=mixed["name"], decode_8x7b={k: decode[k] for k in keys},

@@ -273,7 +273,8 @@ def _permute_qk_rows(w, n_heads, dh, inverse=False, rotary_dim=None):
     perm = torch.cat([_rotary_perm(rd), torch.arange(rd, dh)])
     if inverse:
         perm = torch.argsort(perm)
-    shaped = w.reshape(n_heads, dh, *w.shape[1:])
+    # whole heads: a tensor-parallel rank's rows hold fewer than n_heads
+    shaped = w.reshape(w.shape[0] // dh, dh, *w.shape[1:])
     return shaped[:, perm.to(w.device)].reshape(w.shape)
 
 
@@ -622,7 +623,28 @@ def _family(mt, hf, sd, dtype):
     return ParallelBlockForCausalLM, _phi_config(hf, sd, dtype=dtype), phi_to_torch
 
 
-def load_pretrained(model_dir, dtype=torch.float32, device=None):
+# Split dimension over ``tp`` of an HF tensor, by name: the port's
+# ``tensor_parallel.TP_SPLITS`` in the HF layout, so each rank moves only
+# its slice to the device. A tensor matching none (a norm, the router,
+# Qwen-v1's fused ``c_attn``) moves whole and is cut after its conversion.
+_HF_TP_SPLITS = (
+    (r"(embed_tokens|wte|lm_head)\.weight$", 0),
+    (r"(q_proj|k_proj|v_proj|gate_proj|up_proj)\.(weight|bias)$", 0),
+    (r"(o_proj|down_proj|c_proj)\.weight$", 1),
+    (r"experts\.\d+\.(w1|w3)\.weight$", 0),
+    (r"experts\.\d+\.w2\.weight$", 1),
+    (r"mlp\.(w1|w2)\.weight$", 0),          # Qwen v1: up and gate
+)
+
+
+def _hf_split_dim(name):
+    for pattern, dim in _HF_TP_SPLITS:
+        if re.search(pattern, name):
+            return dim
+    return None
+
+
+def load_pretrained(model_dir, dtype=torch.float32, device=None, tp_size=1, tp_rank=0):
     """Load an HF checkpoint directory -> the port's module for its family,
     configured to match, with ``config.dtype`` = ``dtype``.
 
@@ -630,7 +652,14 @@ def load_pretrained(model_dir, dtype=torch.float32, device=None):
     ``load_state_dict(assign=True)``: each HF tensor is moved to ``device``
     (default ``"cuda"``, which raises without a GPU), rounded to ``dtype``
     there (the JAX loader's ``astype(dtype)``, norm scales included), then
-    converted and stored in its parameter's dtype (norm scales fp32)."""
+    converted and stored in its parameter's dtype (norm scales fp32).
+
+    With ``tp_size`` > 1 (tensor-parallel serving of the Llama families
+    and Mixtral; the others raise naming ROADMAP A5 part 2) the module is
+    built with ``tp_size`` and holds rank ``tp_rank``'s slices: each HF
+    tensor's slice is cut on the host from the mapped file and only it
+    moves to the device, where the q/k rotary permutation runs on the
+    rank's whole heads."""
     mt = detect_model_type(model_dir)
     if mt in UNPORTED:
         raise NotImplementedError(
@@ -643,17 +672,31 @@ def load_pretrained(model_dir, dtype=torch.float32, device=None):
     hf = read_hf_config(model_dir)
     sd = load_state_dict(model_dir)
     cls, cfg, convert = _family(mt, hf, sd, dtype)
+    from deepspeed_tpu_torch.parallel.tensor_parallel import (TensorParallel,
+                                                              check_divisible, split_dim,
+                                                              tp_slice)
+    if tp_size > 1:
+        family = "mixtral" if mt == "mixtral" else \
+            "llama" if mt in LLAMA_FAMILY + ("qwen", "internlm") else mt
+        check_divisible(cfg, tp_size, family)
     with torch.device("meta"):
-        model = cls(cfg)
+        model = cls(cfg, tp_size=tp_size) if tp_size > 1 else cls(cfg)
     target = dict(model.named_parameters())
 
     def g(name):
-        t = sd[name].to(device)
+        t = tp_slice(sd[name], _hf_split_dim(name), tp_size, tp_rank).to(device)
         return t.to(dtype) if t.is_floating_point() else t
 
-    state = {name: t.to(target[name].dtype).contiguous()
-             for name, t in convert(sd, cfg, g)}
+    def local(name, t):
+        if t.shape != target[name].shape:      # cut after conversion: keep a copy
+            t = tp_slice(t, split_dim(name), tp_size, tp_rank).clone()
+        return t.to(target[name].dtype).contiguous()
+
+    state = {name: local(name, t) for name, t in convert(sd, cfg, g)}
     model.load_state_dict(state, assign=True)
+    if tp_size > 1:
+        model.set_tensor_parallel(TensorParallel(size=tp_size, rank=tp_rank,
+                                                 ranks=tuple(range(tp_size))))
     return model
 
 

@@ -19,7 +19,21 @@ kernel in either package), ``lm_head`` (grouped along K, a layout the
 kernel does not take), and fp16 or fp32 serving, where v1 still rounds the
 weights to bf16 and the kernel would round them to the activations' dtype.
 
-Tensor-parallel or replicated serving is ROADMAP A5. ``config.checkpoint``
+Tensor-parallel and replicated serving run over a ``(dp, tp)`` grid of
+``torch.distributed`` ranks, the JAX engine's ``(dp, tp)`` mesh
+(``inference/engine.py:65-125``): every rank of the world calls
+``init_inference``. ``tensor_parallel.tp_size`` and ``replica_num`` clamp to
+the world with the JAX engine's warnings; the grid is the topology of
+``parallel.groups`` (``groups.serving_topology``), as the v2 engine's. The
+weights are split over ``tp``
+as the model's ``param_specs`` says (the rank's slices are cut from the
+whole state dict given) and replicated across ``dp``; ``forward`` runs each
+``dp`` replica on its share of the batch rows and gathers the whole batch's
+logits on every rank; ``generate`` runs the whole batch on every replica,
+and with ``temperature`` > 0 tp rank 0 draws each token and broadcasts it
+(the engines' seeds agree across the world), so the ranks never diverge.
+Quantized weights at ``tp_size`` > 1 wait for ROADMAP A5 part 2.
+``config.checkpoint``
 may name a HuggingFace checkpoint directory of the Llama family (llama,
 mistral, qwen2, qwen, internlm): it loads through ``checkpoint/hf.py``
 ``load_pretrained`` in ``config.dtype``, and its model serves when none was
@@ -36,11 +50,15 @@ import random
 import torch
 
 from deepspeed_tpu_torch import resolve_device
+from deepspeed_tpu_torch.comm import comm as dist
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.inference.generation import generate as _generate
 from deepspeed_tpu_torch.inference.quantization.quantization import (
     V1_TILE_DTYPE, QuantizedLinear, quantize_param_tree, quantized_linear, quantized_nbytes,
     replace_module)
+from deepspeed_tpu_torch.parallel.tensor_parallel import (TensorParallel, check_divisible,
+                                                          split_dim, tp_slice)
+from deepspeed_tpu_torch.parallel import groups
 from deepspeed_tpu_torch.utils.logging import logger
 
 
@@ -53,25 +71,36 @@ class InferenceEngine:
     ``models/llama.py``) on ``device`` (default CUDA). ``params``: a state
     dict to load into it; without one, ``config.checkpoint`` or the model's
     own weights serve (a model on the meta device waits for
-    ``set_params``)."""
+    ``set_params``). Over a ``(dp, tp)`` grid (module docstring) ``model``
+    may be the whole model or this rank's slice of it."""
 
     def __init__(self, model, config=None, params=None, device=None):
         if not isinstance(config, DeepSpeedInferenceConfig):
             config = DeepSpeedInferenceConfig.from_dict(config or {})
-        if int(config.tensor_parallel.tp_size) > 1 or int(config.replica_num) > 1:
-            raise NotImplementedError(
-                "tensor_parallel.tp_size > 1 or replica_num > 1 is not ported to "
-                "deepspeed_tpu_torch yet; see ROADMAP.md queue A5 (tensor-parallel "
-                "serving)")
         if not torch.empty((), dtype=config.torch_dtype).is_floating_point():
             raise NotImplementedError(
                 f"dtype={config.dtype}: integer serving dtypes require the "
                 "weight-quantization path (config.quant), not a raw cast")
         self._config = config
         self.device = resolve_device(device)
+        self.topology = self._build_grid(int(config.tensor_parallel.tp_size),
+                                         int(config.replica_num))
+        self.tp = TensorParallel.from_topology(self.topology) if self.topology \
+            else TensorParallel()
+        if self.tp.size > 1 and config.quant.enabled:
+            raise NotImplementedError(
+                "quantized weights (quant.enabled) at tensor_parallel.tp_size > 1 are not "
+                "ported to deepspeed_tpu_torch yet (the JAX engine quantizes the whole "
+                "tensors; a rank's slices group differently); see ROADMAP.md queue A5 "
+                "part 2")
+        if model is not None and self.tp.size > 1 and model.tp_size == 1:
+            if params is None and not any(p.is_meta for p in model.parameters()):
+                params = model.state_dict()     # the whole weights, cut in set_params
+            check_divisible(model.config, self.tp.size)
+            model = type(model)(model.config, device="meta", tp_size=self.tp.size)
         self.module = model
         self._generator = torch.Generator(device=self.device)
-        self._generator.manual_seed(random.SystemRandom().randrange(2 ** 63))
+        self._generator.manual_seed(self._shared_seed())
         if params is None and config.checkpoint:
             params = self._load_checkpoint(config.checkpoint)
         self._ready = False
@@ -81,6 +110,41 @@ class InferenceEngine:
             self.set_params({})
 
     # -- setup -------------------------------------------------------------
+    def _build_grid(self, tp_size, replica_num):
+        """The ``(dp, tp)`` rank grid over the world, clamped as the JAX
+        engine clamps its mesh (None: one rank serves alone): the topology
+        ``groups.serving_topology`` installs or finds installed."""
+        world = dist.get_world_size()
+        if tp_size > world:
+            logger.warning(f"tp_size {tp_size} > {world} devices; clamping")
+            tp_size = world
+        dp = max(1, int(replica_num))
+        if dp * tp_size > world:
+            dp = max(1, world // tp_size)
+            logger.warning(f"replica_num x tp_size exceeds {world} devices; clamping "
+                           f"replicas to {dp}")
+        if dp * tp_size == 1:
+            return None
+        if dp * tp_size != world:
+            raise ValueError(f"a ({dp}, {tp_size}) serving grid leaves ranks of the "
+                             f"world of {world} idle: start dp x tp processes")
+        return groups.serving_topology(tp_size, dp)
+
+    @property
+    def grid(self):
+        """The serving grid's axes, ``{"dp": ..., "tp": ...}`` (the JAX
+        engine's ``mesh.shape``)."""
+        t = self.topology
+        return {"dp": t.dp_size if t else 1, "tp": t.tp_size if t else 1}
+
+    def _shared_seed(self):
+        """A sampling seed drawn on global rank 0 and shared by the grid."""
+        seed = torch.tensor([random.SystemRandom().randrange(2 ** 62)], dtype=torch.int64,
+                            device=self.device)
+        if self.topology is not None:
+            dist.broadcast(seed, src=0)
+        return int(seed.item())
+
     def _load_checkpoint(self, path):
         from deepspeed_tpu_torch.runtime.checkpoint_engine.native_engine import (
             NativeCheckpointEngine)
@@ -115,7 +179,8 @@ class InferenceEngine:
                 "directory needs its family's v1 forward, ROADMAP.md queue A7 part 2 "
                 "(build_hf_engine serves it through the v2 engine)")
         model = hf_interop.load_pretrained(path, dtype=self._config.torch_dtype,
-                                           device=self.device)
+                                           device=self.device, tp_size=self.tp.size,
+                                           tp_rank=self.tp.rank)
         if self.module is None:
             self.module = model
         return model.state_dict()
@@ -124,7 +189,8 @@ class InferenceEngine:
         """Load a state dict (names of the model's parameters; ``{}`` keeps
         the model's own values) onto the device in ``config.dtype``, one
         tensor at a time, then quantize with ``config.quant``. A weight whose
-        module is already quantized is quantized anew from the value given."""
+        module is already quantized is quantized anew from the value given.
+        Over a ``tp`` axis a whole tensor is cut to this rank's slice."""
         dtype, mod = self._config.torch_dtype, self.module
         q = self._config.quant
         unknown = set(params) - {n for n, _ in mod.named_parameters()} - {
@@ -136,6 +202,12 @@ class InferenceEngine:
         with torch.no_grad():
             for name, p in list(mod.named_parameters()):
                 value = torch.as_tensor(params[name]) if name in params else p.detach()
+                if value.shape != p.shape:
+                    value = tp_slice(value, split_dim(name), self.tp.size,
+                                     self.tp.rank).clone()
+                if value.shape != p.shape:
+                    raise ValueError(f"{name}: a {tuple(value.shape)} value for a "
+                                     f"{tuple(p.shape)} parameter")
                 p.data = value.to(self.device, dtype if value.is_floating_point() else None)
             for name, m in list(mod.named_modules()):
                 weight = f"{name}.weight"
@@ -144,6 +216,8 @@ class InferenceEngine:
                     replace_module(mod, name, quantized_linear(
                         name, w, m.bias, q.bits, q.group_size, m.impl))
         mod.eval().requires_grad_(False)
+        if self.tp.size > 1:
+            mod.set_tensor_parallel(self.tp)
         self._maybe_quantize()
         self._ready = True
 
@@ -183,12 +257,22 @@ class InferenceEngine:
     @torch.no_grad()
     def forward(self, batch, **kwargs):
         """Logits [B, T, V] of ``batch`` (ids [B, T], or a dict with
-        ``input_ids``)."""
+        ``input_ids``). Over ``dp`` replicas, a batch whose rows they divide
+        is split among them and its logits gathered on every rank, as the
+        JAX engine shards it; otherwise every replica runs it whole."""
         self._require_params()
         if not isinstance(batch, dict):
             batch = {"input_ids": batch}
         batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
-        return self.module(batch, **kwargs)
+        dp = self.grid["dp"]
+        B = batch["input_ids"].shape[0]
+        if dp == 1 or B % dp or "labels" in batch:
+            return self.module(batch, **kwargs)
+        group, _, index = self.topology.axes_group(("dp",))
+        n = B // dp
+        out = self.module({k: v[index * n:(index + 1) * n] for k, v in batch.items()},
+                          **kwargs)
+        return dist.all_gather(out.contiguous(), group=group)
 
     __call__ = forward
 
@@ -202,7 +286,8 @@ class InferenceEngine:
             rng = torch.Generator(device=self.device).manual_seed(rng)
         return _generate(self.module, input_ids, max_new_tokens=max_new_tokens,
                          temperature=temperature, top_k=top_k, top_p=top_p,
-                         generator=rng or self._generator, eos_token_id=eos_token_id)
+                         generator=rng or self._generator, eos_token_id=eos_token_id,
+                         tp=self.tp)
 
     def destroy(self):
         """The JAX engine releases its compiled functions here; the port

@@ -14,8 +14,22 @@ prefix-cache commit after the scheduler's accept walk. With telemetry on,
 each forward is a ``serving/forward`` span, each accounted host fetch a
 ``host_sync`` count, and ``sample_kv_stats`` records the KV gauges.
 
+Tensor parallelism (a model split over a ``tp`` group, ``tp_size`` > 1) runs
+one controller, as the JAX package's one program does. On tp rank 0 the
+engine works as it does alone: allocator, prefix cache, admission, sampling
+and telemetry, under whatever scheduler drives it. Every forward it runs is
+first broadcast over the group (an op-code header, then the padded batch
+arrays), so the ranks > 0, which hold only their share of the weights and
+of the KV pools (``KV / tp`` heads under the same global block tables),
+run the same forward on their shards from ``follow()``; the ranks' logits
+are gathered on every rank, and only rank 0 samples. Preemption's page
+swaps are broadcast the same way. ``stop_followers()`` ends the followers'
+loops. So no decision that reads the clock or a generator is taken on more
+than one rank, and the ranks cannot diverge.
+
 Left for later slices: page export/import and the fleet hooks (ROADMAP A8),
-and the flight-recorder collector (ROADMAP A15).
+the flight-recorder collector (ROADMAP A15), and, under tensor parallelism,
+speculative decode and the host KV tier (ROADMAP A5 part 2).
 """
 
 import dataclasses
@@ -33,7 +47,14 @@ from deepspeed_tpu_torch.inference.v2.ragged.ragged_manager import DSStateManage
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_wrapper import RaggedBatchWrapper
 from deepspeed_tpu_torch.inference.v2.sampling import sample_rows, verify_rows
 from deepspeed_tpu_torch.models.mixtral import MixtralConfig
+from deepspeed_tpu_torch.parallel.tensor_parallel import (TensorParallel,
+                                                          broadcast_from_controller,
+                                                          check_divisible)
 from deepspeed_tpu_torch.utils.logging import logger
+
+# op codes of the controller's messages to the tp followers
+_STOP, _FORWARD, _SWAP_OUT, _SWAP_IN = 0, 1, 2, 3
+_HEADER = 6          # int64 header: op, payload length, then four arguments
 
 
 @dataclasses.dataclass
@@ -60,6 +81,12 @@ class InferenceEngineV2:
             and OPT).
         device: where the engine runs; default ``"cuda"``, which raises when
             no GPU is present.
+
+    A model built with ``tp_size`` > 1 serves over its ``tp`` group
+    (``model.tp``; ``engine_factory.build_engine`` attaches it), and
+    ``tensor_parallel.tp_size`` must name the same size. Every rank of the
+    group builds the engine; tp rank 0 is the controller and the others
+    call ``follow()`` (module docstring).
     """
 
     def __init__(self, model, config=None, forward_fn=None, verify_fn=None,
@@ -74,6 +101,8 @@ class InferenceEngineV2:
         if weights_on != self._device:
             raise ValueError(f"model weights are on {weights_on}, the engine "
                              f"runs on {self._device}; move the model first")
+        self._tp = tp = getattr(model, "tp", TensorParallel())
+        self._check_tensor_parallel(config, tp)
         if forward_fn is None:
             from deepspeed_tpu_torch.inference.v2.engine_factory import resolve_forward_fn
             forward_fn = resolve_forward_fn(model)
@@ -99,10 +128,10 @@ class InferenceEngineV2:
                 f"modules.moe pinned to {mods.moe!r} but "
                 f"{type(cfg).__name__} has no MoE layer to swap")
         sm, kvc = config.state_manager, config.kv_cache
+        heads, kv_heads = cfg.num_attention_heads // tp.size, cfg.num_key_value_heads // tp.size
         # module choices are validated before the KV pool is allocated
         self._attention_impl, self._attention = instantiate_attention(
-            (1, 1, cfg.num_attention_heads, cfg.head_dim),
-            (1, cfg.num_key_value_heads, kvc.block_size, cfg.head_dim),
+            (1, 1, heads, cfg.head_dim), (1, kv_heads, kvc.block_size, cfg.head_dim),
             preference=mods.attention)
         if mods.attention == "dense":
             logger.info(f"modules.attention pinned to 'dense' by config: "
@@ -111,15 +140,24 @@ class InferenceEngineV2:
         self._moe_impl, self._forward_kw = None, {}
         if is_moe:
             self._moe_impl, moe = instantiate_moe(
-                cfg.hidden_size, cfg.intermediate_size, preference=mods.moe)
+                cfg.hidden_size, cfg.intermediate_size // tp.size, preference=mods.moe)
             self._forward_kw["moe"] = moe
             if mods.moe == "einsum":
                 logger.info(f"modules.moe pinned to 'einsum' by config: the "
                             f"expert FFN runs the plain dense dispatch on "
                             f"{self._device}, not the kernel")
-        self._state = DSStateManager(config, cfg.num_hidden_layers,
-                                     cfg.num_key_value_heads, cfg.head_dim,
-                                     self._device)
+        num_blocks = sm.num_kv_blocks
+        if tp.size > 1 and num_blocks is None:
+            # every rank's pools hold the same global block ids: size them
+            # by the rank with the least free memory
+            n = torch.tensor([DSStateManager._blocks_from_memory_budget(
+                cfg.num_hidden_layers, kv_heads, cfg.head_dim, kvc, self._device,
+                kv_dtype=sm.kv_dtype)], dtype=torch.int64, device=self._device)
+            torch.distributed.all_reduce(n, op=torch.distributed.ReduceOp.MIN,
+                                         group=tp.group)
+            num_blocks = int(n.item())
+        self._state = DSStateManager(config, cfg.num_hidden_layers, kv_heads,
+                                     cfg.head_dim, self._device, num_blocks=num_blocks)
         self._state.kv_cache.set_host_fetch(self.host_fetch)
         self._max_blocks_per_seq = -(-sm.max_context // kvc.block_size)
         self._host_sync_count = 0
@@ -128,7 +166,90 @@ class InferenceEngineV2:
                     f"tokens<={sm.max_ragged_batch_size} "
                     f"context<={sm.max_context} "
                     f"attention={self._attention_impl}"
-                    + (f" moe={self._moe_impl}" if self._moe_impl else ""))
+                    + (f" moe={self._moe_impl}" if self._moe_impl else "")
+                    + (f" tp rank {tp.rank} of {tp.size}" if tp.size > 1 else ""))
+
+    def _check_tensor_parallel(self, config, tp):
+        """Refuse a model this slice cannot split (``NotImplementedError``
+        naming ROADMAP A5 part 2; the config refuses the features) and a
+        config whose ``tp_size`` is not the model's split."""
+        want = int(dict(config.tensor_parallel).get("tp_size", 1))
+        if want != tp.size:
+            raise ValueError(
+                f"tensor_parallel.tp_size is {want} but the model is split over "
+                f"{tp.size} rank(s); build the engine with engine_factory.build_engine")
+        if tp.size == 1:
+            return
+        from deepspeed_tpu_torch.inference.v2.engine_factory import model_family
+        check_divisible(self._model_config, tp.size, model_family(self._model))
+
+    # -- tensor parallelism: the controller and its followers ----------------
+    @property
+    def tensor_parallel(self) -> TensorParallel:
+        """The ``tp`` group this engine serves over (one rank: none)."""
+        return self._tp
+
+    @property
+    def is_controller(self) -> bool:
+        """Whether this rank schedules, samples and drives the forwards
+        (tp rank 0, or the only rank)."""
+        return self._tp.rank == 0
+
+    def _send(self, op, args=(), payload=None):
+        """Controller: broadcast one message to the followers."""
+        n = 0 if payload is None else int(payload.numel())
+        header = torch.tensor([op, n, *args] + [0] * (_HEADER - 2 - len(args)),
+                              dtype=torch.int64, device=self._device)
+        broadcast_from_controller(header, self._tp)
+        if n:
+            broadcast_from_controller(payload.to(self._device, torch.int32), self._tp)
+
+    def _receive(self):
+        """Follower: the controller's next message, (op, args, payload)."""
+        header = torch.empty(_HEADER, dtype=torch.int64, device=self._device)
+        broadcast_from_controller(header, self._tp)
+        op, n, *args = header.tolist()
+        payload = None
+        if n:
+            payload = torch.empty(n, dtype=torch.int32, device=self._device)
+            broadcast_from_controller(payload, self._tp)
+        return op, args, payload
+
+    def follow(self):
+        """Run on every tp rank > 0: serve the controller's broadcast
+        forwards and page swaps on this rank's shards until the controller
+        calls ``stop_followers()``. Returns the number of forwards run."""
+        if self.is_controller:
+            raise RuntimeError("tp rank 0 is the controller; only ranks > 0 follow")
+        kv, swapped, forwards = self._state.kv_cache, {}, 0
+        while True:
+            op, args, payload = self._receive()
+            if op == _STOP:
+                return forwards
+            if op == _FORWARD:
+                S, Q, MB = args[:3]
+                sizes = (S * Q, S, S, S * MB)
+                tokens, q_len, seen, tables = torch.split(payload, sizes)
+                self._run_forward({"tokens": tokens.view(S, Q), "q_len": q_len,
+                                   "seen": seen, "block_tables": tables.view(S, MB)})
+                forwards += 1
+            elif op == _SWAP_OUT:
+                swapped[args[0]] = kv.read_pages(payload.tolist())
+            elif op == _SWAP_IN:
+                kv.write_pages(payload.tolist(), swapped.pop(args[0]))
+            else:
+                raise RuntimeError(f"unknown op {op} from the tp controller")
+
+    def stop_followers(self):
+        """Controller: end the followers' ``follow()`` loops (no-op without
+        tensor parallelism)."""
+        if self._tp.size > 1:
+            self._send(_STOP)
+
+    def _require_controller(self):
+        if not self.is_controller:
+            raise RuntimeError(f"tp rank {self._tp.rank} follows the controller: "
+                               "call follow() on it")
 
     @property
     def device(self) -> torch.device:
@@ -243,6 +364,7 @@ class InferenceEngineV2:
         (speculating rows: a rejected draft must be rolled back before any
         block digest is registered, or it would poison the shared chain
         cache; the scheduler calls ``commit_prefix`` afterwards)."""
+        self._require_controller()
         verdict = self.can_schedule(batch_uids, [len(t) for t in batch_tokens])
         if not verdict.success:
             raise RuntimeError(f"cannot schedule batch: {verdict.reason}")
@@ -268,14 +390,12 @@ class InferenceEngineV2:
                                     seq.seen_tokens, seq.kv_blocks)
         arrays = {k: torch.from_numpy(a).to(self._device)
                   for k, a in wrapper.build().items()}
-        batch = (self._model, kv, arrays["tokens"], arrays["q_len"],
-                 arrays["seen"], arrays["block_tables"])
-        if verify_k is not None:
-            logits = self._verify_forward(*batch, int(verify_k),
-                                          attention=self._attention)
-        else:
-            logits = self._ragged_forward(*batch, attention=self._attention,
-                                          **self._forward_kw)
+        if self._tp.size > 1:
+            S, Q = arrays["tokens"].shape
+            self._send(_FORWARD, (S, Q, arrays["block_tables"].shape[1]), torch.cat(
+                [arrays[k].reshape(-1) for k in ("tokens", "q_len", "seen",
+                                                 "block_tables")]))
+        logits = self._run_forward(arrays, verify_k)
         for uid in batch_uids:
             seq = self._state.get_sequence(uid)
             seq.post_forward()
@@ -286,6 +406,15 @@ class InferenceEngineV2:
         if sp is not None:
             sp.end(logits)  # synchronises only when sample_sync is on
         return logits
+
+    def _run_forward(self, arrays, verify_k=None):
+        """The ragged (or verify) forward over padded batch arrays; on every
+        tp rank, the same call."""
+        batch = (self._model, self._state.kv_cache, arrays["tokens"], arrays["q_len"],
+                 arrays["seen"], arrays["block_tables"])
+        if verify_k is not None:
+            return self._verify_forward(*batch, int(verify_k), attention=self._attention)
+        return self._ragged_forward(*batch, attention=self._attention, **self._forward_kw)
 
     def put(self, batch_uids: List[int],
             batch_tokens: List[np.ndarray]) -> np.ndarray:
@@ -379,12 +508,21 @@ class InferenceEngineV2:
     # -- KV host swap (ZeRO-Inference KV offload; scheduler preemption) ----
     def preempt(self, uid: int) -> None:
         """Copy ``uid``'s KV cache to host memory, freeing its device blocks
-        for other sequences; generation state is preserved."""
+        for other sequences; generation state is preserved. The tp
+        followers copy their shards of the same pages."""
+        seq = self._state.get_sequence(uid)
+        if self._tp.size > 1 and seq is not None and not seq.is_swapped:
+            self._send(_SWAP_OUT, (uid,), torch.tensor(seq.kv_blocks, dtype=torch.int32))
         self._state.swap_out_sequence(uid)
 
     def resume(self, uid: int) -> None:
-        """Restore a preempted sequence's KV into fresh device blocks."""
+        """Restore a preempted sequence's KV into fresh device blocks (on
+        every tp rank, the same blocks)."""
+        seq = self._state.get_sequence(uid)
+        swapped = seq is not None and seq.is_swapped
         self._state.swap_in_sequence(uid)
+        if self._tp.size > 1 and swapped:
+            self._send(_SWAP_IN, (uid,), torch.tensor(seq.kv_blocks, dtype=torch.int32))
 
     def blocks_to_resume(self, uid: int) -> int:
         return self._state.blocks_to_resume(uid)

@@ -12,13 +12,22 @@ jitted forward and gets new ones back; here the pools are updated in place
 ``ragged_forward_verify`` (the verify half of speculative decode) runs the
 same trunk and returns the logits of each row's last ``k_max`` chunk
 positions.
+
+Under tensor parallelism (a model built with ``tp_size`` > 1) the same code
+runs on each rank's share of the weights: its query and KV heads (its pools
+hold ``KV / tp`` heads, under the global block tables), the vocabulary
+slice of the embedding (``vocab_embed``), all-reduces after the row-split o
+and down products (``row_linear``, ``row_reduce``), and the ranks' logits
+slices gathered (``gather_vocab``), all over ``model.tp``.
 """
 
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch.models.llama import rms_norm, rotary_embed
+from deepspeed_tpu_torch.models.llama import rms_norm, rotary_embed, row_linear
 from deepspeed_tpu_torch.ops.paged_attention import paged_mha
+from deepspeed_tpu_torch.parallel.tensor_parallel import (gather_vocab, row_reduce,
+                                                          vocab_embed)
 
 
 def _quantize_kv_rows(x):
@@ -60,37 +69,47 @@ def _scatter_kv(k_pool, v_pool, k_scale, v_scale, k, v, block_tables, seen,
     v_pool[bi, :, si] = v.reshape(S * Q, *v.shape[2:]).to(v_pool.dtype)
 
 
+def attention_block(layer, x, i, kv_cache, positions, block_tables, seen, q_len,
+                    attention, tp):
+    """``x`` plus one layer's attention over the paged pools, on this rank's
+    heads: RMSNorm, q/k/v, rotary, the scatter of the new K/V into layer
+    ``i``'s pools, paged attention, and the row-split o product reduced
+    over ``tp``."""
+    cfg, attn = layer.self_attn.config, layer.self_attn
+    S, Q = x.shape[:2]
+    H, KV, Dh = attn.num_heads, attn.num_kv_heads, cfg.head_dim
+    h = rms_norm(x, layer.input_layernorm.weight, cfg.rms_norm_eps)
+    q = F.linear(h, attn.q_proj.weight, attn.q_proj.bias).view(S, Q, H, Dh)
+    k = F.linear(h, attn.k_proj.weight, attn.k_proj.bias).view(S, Q, KV, Dh)
+    v = F.linear(h, attn.v_proj.weight, attn.v_proj.bias).view(S, Q, KV, Dh)
+    q = rotary_embed(q, positions, cfg.rope_theta)
+    k = rotary_embed(k, positions, cfg.rope_theta)
+    kp, vp, ks, vs = kv_cache.layer(i)
+    _scatter_kv(kp, vp, ks, vs, k, v, block_tables, seen, q_len)
+    out = attention(q, kp, vp, block_tables, seen, q_len, k_scale=ks,
+                    v_scale=vs, window=cfg.sliding_window)
+    return x + row_linear(out.reshape(S, Q, H * Dh), attn.o_proj, tp)
+
+
 def _ragged_trunk(model, kv_cache, tokens, q_len, seen, block_tables,
                   attention):
     """The embedding -> layers -> final-norm trunk shared by
     ``ragged_forward`` and ``ragged_forward_verify``, so that a verify round
     runs the same paged-attention call as a plain round. Returns the normed
     hidden states [S, Q, D]; updates the pools in place."""
-    cfg = model.config
-    S, Q = tokens.shape
-    H, KV, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    cfg, tp = model.config, model.tp
+    Q = tokens.shape[1]
     positions = seen.long()[:, None] + torch.arange(Q, device=tokens.device)
 
-    x = model.embed_tokens.weight[tokens.long()]                 # [S, Q, D]
+    x = vocab_embed(model.embed_tokens.weight, tokens.long(), tp)   # [S, Q, D]
     for i, layer in enumerate(model.layers):
-        attn = layer.self_attn
-        h = rms_norm(x, layer.input_layernorm.weight, cfg.rms_norm_eps)
-        q = F.linear(h, attn.q_proj.weight, attn.q_proj.bias).view(S, Q, H, Dh)
-        k = F.linear(h, attn.k_proj.weight, attn.k_proj.bias).view(S, Q, KV, Dh)
-        v = F.linear(h, attn.v_proj.weight, attn.v_proj.bias).view(S, Q, KV, Dh)
-        q = rotary_embed(q, positions, cfg.rope_theta)
-        k = rotary_embed(k, positions, cfg.rope_theta)
-        kp, vp, ks, vs = kv_cache.layer(i)
-        _scatter_kv(kp, vp, ks, vs, k, v, block_tables, seen, q_len)
-        out = attention(q, kp, vp, block_tables, seen, q_len, k_scale=ks,
-                        v_scale=vs, window=cfg.sliding_window)
-        x = x + F.linear(out.reshape(S, Q, H * Dh), attn.o_proj.weight,
-                         attn.o_proj.bias)
+        x = attention_block(layer, x, i, kv_cache, positions, block_tables, seen,
+                            q_len, attention, tp)
         mlp = layer.mlp
         h = rms_norm(x, layer.post_attention_layernorm.weight, cfg.rms_norm_eps)
         gate = F.silu(F.linear(h, mlp.gate_proj.weight))
-        x = x + F.linear(gate * F.linear(h, mlp.up_proj.weight),
-                         mlp.down_proj.weight)
+        x = x + row_reduce(F.linear(gate * F.linear(h, mlp.up_proj.weight),
+                                    mlp.down_proj.weight), tp)
     return rms_norm(x, model.norm.weight, cfg.rms_norm_eps)
 
 
@@ -109,7 +128,7 @@ def ragged_forward(model, kv_cache, tokens, q_len, seen, block_tables,
     S = tokens.shape[0]
     # logits_gather analog: only the last real token of each sequence
     last = x[torch.arange(S, device=x.device), (q_len.long() - 1).clamp(min=0)]
-    return F.linear(last, model.lm_head.weight).float()
+    return gather_vocab(F.linear(last, model.lm_head.weight), model.tp).float()
 
 
 @torch.no_grad()
@@ -137,5 +156,6 @@ def ragged_forward_verify(model, kv_cache, tokens, q_len, seen, block_tables,
     cols = []
     for c in range(int(k_max)):
         idx = torch.minimum((ql - k_max + c).clamp(min=0), cap)
-        cols.append(F.linear(x[rows, idx], model.lm_head.weight).float())
+        cols.append(gather_vocab(F.linear(x[rows, idx], model.lm_head.weight),
+                                 model.tp).float())
     return torch.stack(cols, dim=1)

@@ -9,16 +9,22 @@ expert FFN: the top-k router, then the kernel route (``moe_ffn_gmm``:
 scatter by expert, three grouped products, gather) or the GShard einsum
 dispatch at lossless capacity ``C = T``, the JAX package's own oracle.
 Padded ``[S, Q]`` token slots go through the router and the experts as in
-the JAX forward, so the two agree row for row.
+the JAX forward, so the two agree row for row. Under tensor parallelism
+each rank runs its heads as the Llama forward does and its share ``F / tp``
+of every expert's width; the router, replicated, reads the all-reduced
+hidden state, so every rank routes alike, and the expert FFN's output is
+all-reduced once after ``w2``.
 """
 
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch.inference.v2.model_implementations.llama import _scatter_kv
-from deepspeed_tpu_torch.models.llama import rms_norm, rotary_embed
+from deepspeed_tpu_torch.inference.v2.model_implementations.llama import attention_block
+from deepspeed_tpu_torch.models.llama import rms_norm
 from deepspeed_tpu_torch.ops.grouped_gemm import moe_ffn_gmm, topk_router
 from deepspeed_tpu_torch.ops.paged_attention import paged_mha
+from deepspeed_tpu_torch.parallel.tensor_parallel import (gather_vocab, row_reduce,
+                                                          vocab_embed)
 
 
 def moe_ffn_einsum(x, top_vals, top_idx, w1, w2, w3, *, n_experts, dtype):
@@ -67,27 +73,15 @@ def ragged_forward(model, kv_cache, tokens, q_len, seen, block_tables,
     an empty list collects each layer's (top_vals, top_idx); a list with
     one pair per layer makes each layer use its pair instead of routing.
     Returns last-token logits [S, V] in fp32."""
-    cfg = model.config
+    cfg, tp = model.config, model.tp
     S, Q = tokens.shape
-    H, KV, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     positions = seen.long()[:, None] + torch.arange(Q, device=tokens.device)
     replay = bool(routes)
 
-    x = model.embed_tokens.weight[tokens.long()]                 # [S, Q, D]
+    x = vocab_embed(model.embed_tokens.weight, tokens.long(), tp)   # [S, Q, D]
     for i, layer in enumerate(model.layers):
-        attn = layer.self_attn
-        h = rms_norm(x, layer.input_layernorm.weight, cfg.rms_norm_eps)
-        q = F.linear(h, attn.q_proj.weight, attn.q_proj.bias).view(S, Q, H, Dh)
-        k = F.linear(h, attn.k_proj.weight, attn.k_proj.bias).view(S, Q, KV, Dh)
-        v = F.linear(h, attn.v_proj.weight, attn.v_proj.bias).view(S, Q, KV, Dh)
-        q = rotary_embed(q, positions, cfg.rope_theta)
-        k = rotary_embed(k, positions, cfg.rope_theta)
-        kp, vp, ks, vs = kv_cache.layer(i)
-        _scatter_kv(kp, vp, ks, vs, k, v, block_tables, seen, q_len)
-        out = attention(q, kp, vp, block_tables, seen, q_len, k_scale=ks,
-                        v_scale=vs, window=cfg.sliding_window)
-        x = x + F.linear(out.reshape(S, Q, H * Dh), attn.o_proj.weight,
-                         attn.o_proj.bias)
+        x = attention_block(layer, x, i, kv_cache, positions, block_tables, seen,
+                            q_len, attention, tp)
         smoe = layer.block_sparse_moe
         h = rms_norm(x, layer.post_attention_layernorm.weight, cfg.rms_norm_eps)
         y, route = _moe_ffn(h.reshape(S * Q, -1), smoe.gate.wg,
@@ -96,7 +90,7 @@ def ragged_forward(model, kv_cache, tokens, q_len, seen, block_tables,
                             route=routes[i] if replay else None)
         if routes is not None and not replay:
             routes.append(route)
-        x = x + y.view(S, Q, -1)
+        x = x + row_reduce(y.view(S, Q, -1), tp)
     x = rms_norm(x, model.norm.weight, cfg.rms_norm_eps)
     last = x[torch.arange(S, device=x.device), (q_len.long() - 1).clamp(min=0)]
-    return F.linear(last, model.lm_head.weight).float()
+    return gather_vocab(F.linear(last, model.lm_head.weight), tp).float()

@@ -149,14 +149,26 @@ class BlockedKVCache:
         return pools
 
     # -- host swap tier (ZeRO-Inference KV offload analog) -----------------
+    def read_pages(self, blocks):
+        """The given block rows of every pool (scales included), landed on
+        the host."""
+        idx = torch.tensor(list(blocks), dtype=torch.long, device=self.device)
+        return self._fetch_arrays([p.index_select(1, idx) for p in self._pools()],
+                                  "kv_cache/swap_out")
+
+    def write_pages(self, blocks, parts):
+        """Write ``read_pages``' ``parts`` into block rows ``blocks``, in
+        order."""
+        idx = torch.tensor(list(blocks), dtype=torch.long, device=self.device)
+        for pool, part in zip(self._pools(), parts):
+            pool.index_copy_(1, idx, part.to(self.device))
+
     def swap_out(self, blocks):
         """Copy the given block rows to CPU tensors and release the caller's
         reference on their ids. Returns an opaque host handle for
         ``swap_in``."""
         blocks = list(blocks)
-        idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
-        parts = [p.index_select(1, idx) for p in self._pools()]
-        landed = self._fetch_arrays(parts, "kv_cache/swap_out")
+        landed = self.read_pages(blocks)
         self._allocator.free(blocks)
         return {"n": len(blocks), "parts": landed}
 
@@ -165,9 +177,7 @@ class BlockedKVCache:
         the i-th restored block holds what the i-th swapped-out block held).
         Returns the new block ids."""
         new_blocks = self._allocator.allocate(handle["n"])
-        idx = torch.tensor(new_blocks, dtype=torch.long, device=self.device)
-        for pool, part in zip(self._pools(), handle["parts"]):
-            pool.index_copy_(1, idx, part.to(self.device))
+        self.write_pages(new_blocks, handle["parts"])
         return new_blocks
 
     # -- host-DRAM spill tier (parked prefix blocks) -----------------------

@@ -23,11 +23,16 @@ from deepspeed_tpu_torch.utils.logging import logger
 
 class DSStateManager:
 
-    def __init__(self, config, num_layers, num_kv_heads, head_dim, device):
+    def __init__(self, config, num_layers, num_kv_heads, head_dim, device,
+                 num_blocks=None):
+        """``num_kv_heads``: the KV heads of this rank's pools (all of them
+        without tensor parallelism). ``num_blocks`` overrides
+        ``state_manager.num_kv_blocks``; without either, the pool is sized
+        from the device's free memory."""
         self._config = config
         sm, kv = config.state_manager, config.kv_cache
         device = torch.device(device)
-        num_blocks = sm.num_kv_blocks
+        num_blocks = num_blocks or sm.num_kv_blocks
         if num_blocks is None:
             num_blocks = self._blocks_from_memory_budget(
                 num_layers, num_kv_heads, head_dim, kv, device,

@@ -13,6 +13,15 @@ layer in a ``KVCache`` the caller holds, plain tensor code there too), which
 the v1 engine's ``generate`` runs. ``params_from_flax`` converts the JAX
 package's scan-stacked flax tree (parameters or their gradients) into this
 module's state dict.
+
+With ``tp_size`` > 1 (tensor-parallel serving) the module holds one rank's
+share of the weights, split as the JAX model's ``param_specs`` splits them
+(``param_specs`` here; ``parallel/tensor_parallel.py``): whole query and KV
+heads, the MLP width, and the vocabulary of the embedding and ``lm_head``.
+Its forward then exchanges over ``model.tp``: the row-split o and down
+products are all-reduced, the embedding is looked up from the vocabulary
+slices and the logits gathered. ``from_seed`` and ``params_from_flax`` cut
+each rank's slices from the whole tensors.
 """
 
 import dataclasses
@@ -25,6 +34,9 @@ from torch import nn
 from deepspeed_tpu_torch import resolve_device
 from deepspeed_tpu_torch.models.losses import lm_head_next_token_loss
 from deepspeed_tpu_torch.ops.flash_attention import NEG_INF, mha
+from deepspeed_tpu_torch.parallel.tensor_parallel import (TensorParallel, gather_vocab,
+                                                          row_reduce, slice_state_dict,
+                                                          split_dim, tp_slice, vocab_embed)
 from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
 
 
@@ -121,25 +133,38 @@ def rotary_embed(x, positions, theta=10000.0):
     return torch.stack([rx1, rx2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
-class LlamaAttention(nn.Module):
+def row_linear(x, linear, tp):
+    """A row-split ``nn.Linear``: this rank's partial product, summed over
+    the ``tp`` group, then the bias once."""
+    if tp.size == 1:
+        return linear(x)
+    y = row_reduce(torch.nn.functional.linear(x, linear.weight), tp)
+    return y if linear.bias is None else y + linear.bias
 
-    def __init__(self, cfg, device=None):
+
+class LlamaAttention(nn.Module):
+    """q/k/v/o projections of ``H / tp_size`` query and ``KV / tp_size`` KV
+    heads (one tensor-parallel rank's share; all of them at ``tp_size`` 1)."""
+
+    def __init__(self, cfg, device=None, tp_size=1):
         super().__init__()
-        H, KV, Dh, D = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                        cfg.head_dim, cfg.hidden_size)
+        H, KV, Dh, D = (cfg.num_attention_heads // tp_size,
+                        cfg.num_key_value_heads // tp_size, cfg.head_dim, cfg.hidden_size)
         kw = dict(device=device, dtype=cfg.dtype)
         self.q_proj = nn.Linear(D, H * Dh, bias=cfg.attention_bias, **kw)
         self.k_proj = nn.Linear(D, KV * Dh, bias=cfg.attention_bias, **kw)
         self.v_proj = nn.Linear(D, KV * Dh, bias=cfg.attention_bias, **kw)
         self.o_proj = nn.Linear(H * Dh, D, bias=cfg.attention_out_bias, **kw)
+        self.num_heads, self.num_kv_heads = H, KV
         self.config = cfg
+        self.tp = TensorParallel()
 
     def forward(self, x, positions, attention=mha, kv=None):
         """``kv``: this layer's ``(keys, values, index)`` of a ``KVCache``;
         with it the cached path runs instead of ``attention``."""
         cfg = self.config
         B, T, _ = x.shape
-        H, KV, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        H, KV, Dh = self.num_heads, self.num_kv_heads, cfg.head_dim
         q = rotary_embed(self.q_proj(x).view(B, T, H, Dh), positions, cfg.rope_theta)
         k = rotary_embed(self.k_proj(x).view(B, T, KV, Dh), positions, cfg.rope_theta)
         v = self.v_proj(x).view(B, T, KV, Dh)
@@ -148,7 +173,7 @@ class LlamaAttention(nn.Module):
         else:
             # GQA k/v pass un-repeated; a sliding window goes to the kernel
             out = attention(q, k, v, causal=True, window=cfg.sliding_window or None)
-        return self.o_proj(out.reshape(B, T, H * Dh))
+        return row_linear(out.reshape(B, T, H * Dh), self.o_proj, self.tp)
 
 
 def cached_attention(q, k, v, keys, values, index, window=None):
@@ -184,25 +209,26 @@ def cached_attention(q, k, v, keys, values, index, window=None):
 
 class LlamaMLP(nn.Module):
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, tp_size=1):
         super().__init__()
-        D, F = cfg.hidden_size, cfg.intermediate_size
+        D, F = cfg.hidden_size, cfg.intermediate_size // tp_size
         kw = dict(bias=False, device=device, dtype=cfg.dtype)
         self.gate_proj = nn.Linear(D, F, **kw)
         self.up_proj = nn.Linear(D, F, **kw)
         self.down_proj = nn.Linear(F, D, **kw)
+        self.tp = TensorParallel()
 
     def forward(self, x):
-        return self.down_proj(torch.nn.functional.silu(self.gate_proj(x))
-                              * self.up_proj(x))
+        return row_linear(torch.nn.functional.silu(self.gate_proj(x)) * self.up_proj(x),
+                          self.down_proj, self.tp)
 
 
 class LlamaDecoderLayer(nn.Module):
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, tp_size=1):
         super().__init__()
-        self.self_attn = LlamaAttention(cfg, device)
-        self.mlp = LlamaMLP(cfg, device)
+        self.self_attn = LlamaAttention(cfg, device, tp_size)
+        self.mlp = LlamaMLP(cfg, device, tp_size)
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
                                                 cfg.rms_norm_eps, device)
@@ -216,11 +242,12 @@ class KVCache:
     """The fixed-window KV cache a caller holds for ``LlamaForCausalLM``'s
     cached forward (the JAX model's "cache" collection): per layer keys and
     values [B, KV, max_position_embeddings, Dh], zeros at first, and the
-    next position to write, shared by every layer."""
+    next position to write, shared by every layer. ``num_kv_heads``: the
+    KV heads this rank holds (default all of them)."""
 
-    def __init__(self, config, batch, dtype, device):
-        shape = (batch, config.num_key_value_heads, config.max_position_embeddings,
-                 config.head_dim)
+    def __init__(self, config, batch, dtype, device, num_kv_heads=None):
+        shape = (batch, num_kv_heads or config.num_key_value_heads,
+                 config.max_position_embeddings, config.head_dim)
         self.keys = [torch.zeros(shape, dtype=dtype, device=device)
                      for _ in range(config.num_hidden_layers)]
         self.values = [torch.zeros_like(k) for k in self.keys]
@@ -230,19 +257,39 @@ class KVCache:
 class LlamaForCausalLM(nn.Module):
     """Weights of a Llama-family causal LM. Norm scales are fp32, every
     other weight is ``config.dtype`` (the JAX package casts to that dtype at
-    each use; storing it cast gives the same values)."""
+    each use; storing it cast gives the same values). ``tp_size`` > 1 keeps
+    one tensor-parallel rank's share of the weights (module docstring); the
+    forward exchanges over ``tp`` (``set_tensor_parallel``), by default the
+    whole world of ``tp_size`` ranks."""
 
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, device=None, tp_size=1):
         super().__init__()
         self.config = config
         kw = dict(device=device, dtype=config.dtype)
-        self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size,
-                                         **kw)
-        self.layers = nn.ModuleList(LlamaDecoderLayer(config, device)
+        self.embed_tokens = nn.Embedding(config.vocab_size // tp_size,
+                                         config.hidden_size, **kw)
+        self.layers = nn.ModuleList(LlamaDecoderLayer(config, device, tp_size)
                                     for _ in range(config.num_hidden_layers))
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device)
-        self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
+        self.lm_head = nn.Linear(config.hidden_size, config.vocab_size // tp_size,
                                  bias=False, **kw)
+        self.tp_size = tp_size
+        self.set_tensor_parallel(TensorParallel(size=tp_size, ranks=tuple(range(tp_size))))
+
+    def set_tensor_parallel(self, tp):
+        """Exchange over ``tp`` (a ``TensorParallel`` of ``tp_size`` ranks)
+        in every layer's forward; its ``rank`` is the slice this module
+        holds."""
+        set_tensor_parallel(self, tp)
+
+    def param_specs(self):
+        """``{name: split dimension or None}`` over ``tp``: the JAX model's
+        ``param_specs`` (``models/llama.py:350``) in this module's layout.
+        q/k/v and gate/up are column-split (dim 0 of ``[out, in]``), o and
+        down row-split (dim 1), the embedding and ``lm_head`` split over the
+        vocabulary (dim 0); norms and a row-split layer's bias are
+        replicated."""
+        return {name: split_dim(name) for name, _ in self.named_parameters()}
 
     def forward(self, batch, positions=None, attention=mha, use_cache=False, cache=None):
         """The JAX model's ``__call__``: ``batch`` is a dict with
@@ -253,15 +300,21 @@ class LlamaForCausalLM(nn.Module):
         ``attention`` replaces ``mha`` (a plain version, for comparisons).
         With ``use_cache`` the layers attend through ``cache`` (a
         ``KVCache``), which advances by T, and ``(logits, cache)`` is
-        returned."""
+        returned. A tensor-parallel module returns the whole vocabulary's
+        logits; its loss is ROADMAP A12."""
         cfg = self.config
         if isinstance(batch, dict):
             input_ids, labels = batch["input_ids"], batch.get("labels")
         else:
             input_ids, labels = batch, None
+        if labels is not None and not use_cache and self.tp_size > 1:
+            raise NotImplementedError(
+                "the next-token loss of a tensor-parallel Llama (its lm_head holds one "
+                "vocabulary slice; training over a tp axis) is not ported to "
+                "deepspeed_tpu_torch yet: ROADMAP A12")
         input_ids = input_ids.long()
         B, T = input_ids.shape
-        x = self.embed_tokens(input_ids)
+        x = vocab_embed(self.embed_tokens.weight, input_ids, self.tp)
         if positions is None:
             positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
         if use_cache:
@@ -278,32 +331,22 @@ class LlamaForCausalLM(nn.Module):
                     x = layer(x, positions, attention)
         x = self.norm(x)
         if labels is None or use_cache:
-            logits = self.lm_head(x)
+            logits = gather_vocab(self.lm_head(x), self.tp)
             return (logits, cache) if use_cache else logits
         return lm_head_next_token_loss(x, self.lm_head.weight, labels)
 
     @classmethod
     def from_seed(cls, config: LlamaConfig, seed: int, device=None,
-                  std: float = 0.02):
+                  std: float = 0.02, tp_size=1, tp_rank=0):
         """Random weights drawn on ``device`` (default ``"cuda"``, which
         raises without a GPU) from ``torch.Generator(seed)``: N(0, std) for
         every matrix, zeros for biases, ones for norm scales (the flax
-        initializers' shapes; the draws differ from JAX's)."""
-        device = resolve_device(device)
-        with torch.device("meta"):
-            model = cls(config)
-        model = model.to_empty(device=device)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(int(seed))
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                if name.endswith("layernorm.weight") or name == "norm.weight":
-                    p.fill_(1.0)
-                elif name.endswith(".bias"):
-                    p.zero_()
-                else:
-                    p.normal_(0.0, std, generator=gen)
-        return model.requires_grad_(False)
+        initializers' shapes; the draws differ from JAX's). With
+        ``tp_size`` > 1 each split tensor is drawn whole and rank
+        ``tp_rank``'s slice kept, so every rank's weights are those of the
+        one-rank model."""
+        model = cls(config, device="meta", tp_size=tp_size)
+        return draw_from_seed(model, seed, device, std, tp_parts(model, tp_rank), tp_rank)
 
 
 def llama_flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
@@ -312,7 +355,61 @@ def llama_flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
     return 6 * cfg.num_parameters() + 12 * cfg.num_hidden_layers * cfg.hidden_size * seq_len
 
 
-def params_from_flax(tree):
+def set_tensor_parallel(model, tp):
+    """Point every submodule's ``tp`` (and the model's) at ``tp``, which
+    must have the ``tp_size`` the model was built with."""
+    if tp.size != model.tp_size:
+        raise ValueError(f"a tp group of {tp.size} ranks for a model built with "
+                         f"tp_size {model.tp_size}")
+    for m in model.modules():
+        if hasattr(m, "tp"):
+            m.tp = tp
+    model.tp = tp
+
+
+def tp_parts(model, tp_rank):
+    """``{name: (dim, tp_size, tp_rank)}`` for each parameter ``model``
+    (built with ``tp_size``) holds one ``tp`` part of, by ``param_specs``:
+    the ``parts`` argument of ``draw_from_seed``."""
+    return {name: (dim, model.tp_size, tp_rank)
+            for name, dim in model.param_specs().items() if dim is not None}
+
+
+def draw_from_seed(model, seed, device, std, parts, tp_rank=0):
+    """Materialise ``model`` (built on the meta device) on ``device`` with
+    seeded random weights: N(0, std) for every matrix, zeros for biases,
+    ones for norm scales, each drawn from one ``torch.Generator(seed)`` in
+    parameter order. ``parts`` maps the name of a parameter that holds one
+    part of a tensor split along a dimension (its ``tp`` or ``ep`` slice)
+    to ``(dim, n_parts, index)``: that tensor is drawn whole and part
+    ``index`` kept, so every rank's weights are the one-rank model's, with
+    at most one whole tensor alive at a time. The model then serves as rank
+    ``tp_rank`` of its ``tp_size``."""
+    device = resolve_device(device)
+    model = model.to_empty(device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            dim, n, index = parts.get(name, (None, 1, 0))
+            if name.endswith("layernorm.weight") or name == "norm.weight":
+                p.fill_(1.0)
+            elif name.endswith(".bias"):
+                p.zero_()
+            elif n > 1:
+                shape = list(p.shape)
+                shape[dim] *= n
+                full = torch.empty(shape, dtype=p.dtype, device=device)
+                p.copy_(tp_slice(full.normal_(0.0, std, generator=gen), dim, n, index))
+                del full
+            else:
+                p.normal_(0.0, std, generator=gen)
+    model.set_tensor_parallel(TensorParallel(size=model.tp_size, rank=tp_rank,
+                                             ranks=tuple(range(model.tp_size))))
+    return model.requires_grad_(False)
+
+
+def params_from_flax(tree, tp_size=1, tp_rank=0):
     """The JAX package's ``LlamaForCausalLM`` (``scan_layers=True``) param
     tree, as numpy arrays, -> a state dict for this ``LlamaForCausalLM``.
     The same mapping converts a gradient tree of the same structure.
@@ -320,7 +417,9 @@ def params_from_flax(tree):
     Flax kernels are ``[in, out]`` stacked ``[L, in, out]`` over layers;
     ``nn.Linear`` weights are ``[out, in]``, so each is unstacked and
     transposed. ``lm_head`` is ``[V, D]`` in both. Values are copied as
-    fp32; ``load_state_dict`` casts them to the module's dtype."""
+    fp32; ``load_state_dict`` casts them to the module's dtype. With
+    ``tp_size`` > 1, rank ``tp_rank``'s slices, for a model built with
+    ``tp_size``."""
     blk = tree["layers"]["block"]
     L = np.asarray(blk["input_layernorm"]["scale"]).shape[0]
     sd = {"embed_tokens.weight": tree["embed_tokens"],
@@ -339,4 +438,5 @@ def params_from_flax(tree):
                     np.asarray(leaf["kernel"])[i].T
                 if "bias" in leaf:
                     sd[f"{pre}{group}.{n}.bias"] = np.asarray(leaf["bias"])[i]
-    return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
+    sd = {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
+    return slice_state_dict(sd, {k: split_dim(k) for k in sd}, tp_size, tp_rank)

@@ -19,8 +19,14 @@ carries them across without a transpose; the attention projections are
 (expert parallelism) each layer holds rank ``ep_rank``'s contiguous slice
 of the expert stacks, ``[E / ep_size, ...]`` (the JAX ``param_specs``'
 ``"ep"`` on the expert axis); ``from_seed`` and ``params_from_flax`` cut
-the same slice from the whole stacks. The ZeRO-Infinity streaming protocol
-and the tensor-parallel specs wait for ROADMAP A14 and A12.
+the same slice from the whole stacks. With ``tp_size`` > 1
+(tensor-parallel serving) each rank holds the attention's share of the
+heads as the port's Llama does, the vocabulary slice of the embedding and
+``lm_head``, and the expert FFN width ``F / tp_size`` of every expert
+(``w1``/``w3`` [E, D, F/tp], ``w2`` [E, F/tp, D]: the JAX ``param_specs``'
+``"tp"``); the router and the norms are replicated. The tensor-parallel
+forward is the ragged serving forward's. The ZeRO-Infinity streaming
+protocol waits for ROADMAP A14.
 """
 
 import dataclasses
@@ -30,13 +36,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from deepspeed_tpu_torch import resolve_device
-from deepspeed_tpu_torch.models.llama import LlamaAttention, LlamaConfig, RMSNorm
+from deepspeed_tpu_torch.models.llama import (LlamaAttention, LlamaConfig, RMSNorm,
+                                              draw_from_seed, set_tensor_parallel,
+                                              tp_parts)
 from deepspeed_tpu_torch.models.losses import lm_head_next_token_loss
 from deepspeed_tpu_torch.moe.sharded_moe import MOELayer
 from deepspeed_tpu_torch.moe.utils import expert_slice, moe_param_specs
 from deepspeed_tpu_torch.ops.flash_attention import mha
 from deepspeed_tpu_torch.ops.grouped_gemm import grouped_matmul
+from deepspeed_tpu_torch.parallel.tensor_parallel import (TensorParallel, slice_state_dict,
+                                                          split_dim)
 from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
 
 
@@ -135,11 +144,13 @@ class MixtralExpertMLP(nn.Module):
 
 class MixtralDecoderLayer(nn.Module):
 
-    def __init__(self, cfg, device=None, ep_size=1):
+    def __init__(self, cfg, device=None, ep_size=1, tp_size=1):
         super().__init__()
-        self.self_attn = LlamaAttention(cfg.as_llama(), device)
+        self.self_attn = LlamaAttention(cfg.as_llama(), device, tp_size)
+        expert_cfg = dataclasses.replace(
+            cfg, intermediate_size=cfg.intermediate_size // tp_size)
         self.block_sparse_moe = MOELayer(
-            lambda: MixtralExpertMLP(cfg, device), cfg.num_local_experts,
+            lambda: MixtralExpertMLP(expert_cfg, device), cfg.num_local_experts,
             k=cfg.num_experts_per_tok, capacity_factor=cfg.capacity_factor,
             eval_capacity_factor=cfg.capacity_factor, dispatch_mode=cfg.moe_backend,
             model_dim=cfg.hidden_size, ep_size=ep_size, device=device,
@@ -160,20 +171,40 @@ class MixtralForCausalLM(nn.Module):
     """Weights of a Mixtral causal LM. Norm scales are fp32, every other
     weight is ``config.dtype`` (the JAX package casts to that dtype at each
     use; storing it cast gives the same values). ``ep_size`` > 1 keeps one
-    expert-parallel rank's slice of each expert stack (module docstring)."""
+    expert-parallel rank's slice of each expert stack, ``tp_size`` > 1 one
+    tensor-parallel rank's share of the weights (module docstring)."""
 
-    def __init__(self, config: MixtralConfig, device=None, ep_size=1):
+    def __init__(self, config: MixtralConfig, device=None, ep_size=1, tp_size=1):
         super().__init__()
+        if ep_size > 1 and tp_size > 1:
+            raise NotImplementedError(
+                "expert and tensor parallelism together are not ported to "
+                "deepspeed_tpu_torch yet; see ROADMAP.md queue A5 part 2")
         self.config = config
         self.ep_size = ep_size
         kw = dict(device=device, dtype=config.dtype)
-        self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size,
-                                         **kw)
-        self.layers = nn.ModuleList(MixtralDecoderLayer(config, device, ep_size)
+        self.embed_tokens = nn.Embedding(config.vocab_size // tp_size,
+                                         config.hidden_size, **kw)
+        self.layers = nn.ModuleList(MixtralDecoderLayer(config, device, ep_size, tp_size)
                                     for _ in range(config.num_hidden_layers))
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device)
-        self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
+        self.lm_head = nn.Linear(config.hidden_size, config.vocab_size // tp_size,
                                  bias=False, **kw)
+        self.tp_size = tp_size
+        self.set_tensor_parallel(TensorParallel(size=tp_size, ranks=tuple(range(tp_size))))
+
+    def set_tensor_parallel(self, tp):
+        """The ``tp`` group the serving forward exchanges over (see
+        ``LlamaForCausalLM.set_tensor_parallel``)."""
+        set_tensor_parallel(self, tp)
+
+    def param_specs(self):
+        """``{name: split dimension or None}`` over ``tp``: the JAX model's
+        ``param_specs`` (``models/mixtral.py:207``) in this module's layout.
+        Attention as the port's Llama; expert ``w1``/``w3`` [E, D, F] split
+        on dim 2 and ``w2`` [E, F, D] on dim 1; the embedding and
+        ``lm_head`` over the vocabulary; the router and norms replicated."""
+        return {name: split_dim(name) for name, _ in self.named_parameters()}
 
     def forward(self, batch, positions=None, attention=mha, matmul=grouped_matmul):
         """The JAX model's ``__call__``: ``batch`` is a dict with
@@ -184,7 +215,13 @@ class MixtralForCausalLM(nn.Module):
         runs under the configured activation-checkpointing policy
         (``config.remat``). ``attention`` replaces ``mha`` and ``matmul``
         the grouped product of the "gmm" dispatch (plain versions, for
-        comparisons)."""
+        comparisons). A tensor-parallel module serves through the ragged
+        forward only: its training forward is ROADMAP A12."""
+        if self.tp_size > 1:
+            raise NotImplementedError(
+                "the forward of a tensor-parallel Mixtral (training, tp axis) is not "
+                "ported to deepspeed_tpu_torch yet: ROADMAP A12; it serves through "
+                "the ragged engine")
         cfg = self.config
         if isinstance(batch, dict):
             input_ids, labels = batch["input_ids"], batch.get("labels")
@@ -211,46 +248,33 @@ class MixtralForCausalLM(nn.Module):
 
     @classmethod
     def from_seed(cls, config: MixtralConfig, seed: int, device=None,
-                  std: float = 0.02, ep_size=1, ep_rank=0):
+                  std: float = 0.02, ep_size=1, ep_rank=0, tp_size=1, tp_rank=0):
         """Random weights drawn on ``device`` (default ``"cuda"``, which
         raises without a GPU) from ``torch.Generator(seed)``: N(0, std) for
         every matrix, zeros for biases, ones for norm scales (the flax
         initializers' shapes; the draws differ from JAX's). With ``ep_size``
-        > 1 each expert stack is drawn whole and rank ``ep_rank``'s slice
-        kept, so every rank's weights are those of the one-rank model."""
-        device = resolve_device(device)
-        with torch.device("meta"):
-            model = cls(config, ep_size=ep_size)
-        model = model.to_empty(device=device)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(int(seed))
-        specs = moe_param_specs(model)
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                if name.endswith("layernorm.weight") or name == "norm.weight":
-                    p.fill_(1.0)
-                elif name.endswith(".bias"):
-                    p.zero_()
-                elif ep_size > 1 and specs[name]:
-                    full = torch.empty((ep_size * p.shape[0],) + tuple(p.shape[1:]),
-                                       dtype=p.dtype, device=device)
-                    p.copy_(expert_slice(full.normal_(0.0, std, generator=gen),
-                                         ep_size, ep_rank))
-                    del full
-                else:
-                    p.normal_(0.0, std, generator=gen)
-        return model.requires_grad_(False)
+        (``tp_size``) > 1 each expert stack (split tensor) is drawn whole and
+        rank ``ep_rank``'s (``tp_rank``'s) slice kept, so every rank's
+        weights are those of the one-rank model."""
+        model = cls(config, device="meta", ep_size=ep_size, tp_size=tp_size)
+        if ep_size > 1:
+            parts = {name: (0, ep_size, ep_rank)
+                     for name, spec in moe_param_specs(model).items() if spec}
+        else:
+            parts = tp_parts(model, tp_rank)
+        return draw_from_seed(model, seed, device, std, parts, tp_rank)
 
 
-def params_from_flax(tree, ep_size=1, ep_rank=0):
+def params_from_flax(tree, ep_size=1, ep_rank=0, tp_size=1, tp_rank=0):
     """The JAX package's ``MixtralForCausalLM`` param tree (``layers_{i}``
     subtrees), as numpy arrays, -> a state dict for this
     ``MixtralForCausalLM``. Attention kernels ``[in, out]`` are transposed
     into ``nn.Linear``'s ``[out, in]``; the router ``wg`` [D, E] and the
     stacked experts ``MixtralExpertMLP_0/w{1,2,3}/kernel`` [E, in, out] keep
     their layout, cut to rank ``ep_rank``'s slice ``[E / ep_size, in, out]``
-    for a model built with ``ep_size``. Values are copied as fp32;
-    ``load_state_dict`` casts them to the module's dtype."""
+    for a model built with ``ep_size``, and to rank ``tp_rank``'s slices
+    (``param_specs``) for a model built with ``tp_size``. Values are copied
+    as fp32; ``load_state_dict`` casts them to the module's dtype."""
     sd = {"embed_tokens.weight": tree["embed_tokens"],
           "lm_head.weight": tree["lm_head"],
           "norm.weight": tree["norm"]["scale"]}
@@ -270,4 +294,5 @@ def params_from_flax(tree, ep_size=1, ep_rank=0):
         for n in ("w1", "w2", "w3"):
             sd[f"{pre}block_sparse_moe.experts.{n}"] = expert_slice(
                 np.asarray(experts[n]["kernel"]), ep_size, ep_rank)
-    return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
+    sd = {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
+    return slice_state_dict(sd, {k: split_dim(k) for k in sd}, tp_size, tp_rank)

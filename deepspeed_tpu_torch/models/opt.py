@@ -10,8 +10,8 @@ the tied embedding). Parameter names follow the HuggingFace layout under
 weights are ``nn.Linear``'s ``[out, in]``; the ragged serving forward
 (``inference/v2/model_implementations/opt.py``) runs the same weights.
 ``params_from_flax`` converts the JAX package's scan-stacked tree. The
-ZeRO-Infinity streaming protocol and ``param_specs`` are not ported
-(ROADMAP A14, A12).
+ZeRO-Infinity streaming protocol (ROADMAP A14) and ``param_specs``, the
+tensor-parallel layout (ROADMAP A5 part 2), are not ported.
 """
 
 import dataclasses

@@ -19,8 +19,9 @@ weights are ``nn.Linear``'s ``[out, in]``; the ragged serving forward
 (``inference/v2/model_implementations/parallel_block.py``) runs the same
 weights. ``falcon.py`` and ``phi.py`` hold the family presets.
 ``params_from_flax`` converts the JAX package's tree into this module's
-state dict. The ZeRO-Infinity streaming protocol and the tensor-parallel
-``param_specs`` of the JAX model are not ported (ROADMAP A14, A12).
+state dict. The ZeRO-Infinity streaming protocol (ROADMAP A14) and the
+tensor-parallel ``param_specs`` of the JAX model (ROADMAP A5 part 2) are
+not ported.
 """
 
 import dataclasses

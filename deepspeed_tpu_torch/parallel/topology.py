@@ -15,9 +15,11 @@ of that size and ``dpr`` the groups across it. The ZeRO world is
 package's ``batch_spec`` and qgZ chunks. ``ep`` is the expert-parallel
 axis: rank ``ep_idx`` of an ``ep`` group holds experts ``ep_idx * E/ep``
 to ``(ep_idx + 1) * E/ep - 1``, and an expert leaf's ZeRO state is cut over
-the data axes less ``ep`` (``expert_zero_axes``). Only ``dpr``, ``dp`` and
-``ep`` may exceed 1 in the port so far; the other axes raise, naming their
-ROADMAP item.
+the data axes less ``ep`` (``expert_zero_axes``). ``tp`` is the
+tensor-parallel axis of serving: the ranks of a ``tp`` slice hold one
+model's weights split in the Megatron pattern (``parallel/
+tensor_parallel.py``); training over it raises in the training engine,
+naming ROADMAP A12. ``pp`` and ``sp`` raise here, naming theirs.
 """
 
 import numpy as np
@@ -27,8 +29,7 @@ from deepspeed_tpu_torch.comm import comm as dist
 
 AXIS_ORDER = ("pp", "dpr", "dp", "ep", "sp", "tp")
 DATA_AXES = ("dpr", "dp", "ep", "sp")     # the JAX package's batch_spec order
-_UNPORTED = {"pp": "A12 (pipeline parallelism)", "sp": "A12 (sequence parallelism)",
-             "tp": "A12 (tensor parallelism)"}
+_UNPORTED = {"pp": "A12 (pipeline parallelism)", "sp": "A12 (sequence parallelism)"}
 
 
 class MeshTopology:

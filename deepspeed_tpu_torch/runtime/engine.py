@@ -159,6 +159,11 @@ class DeepSpeedEngine:
 
         # --- topology: the rank grid, its groups and the ZeRO partition ---
         self.topology = groups.initialize(mesh_topology=mesh, config=self.config)
+        if self.topology.tp_size > 1:
+            raise NotImplementedError(
+                f"training over a tp axis of size {self.topology.tp_size} is not ported "
+                "to deepspeed_tpu_torch yet: ROADMAP A12 (tensor parallelism); the tp "
+                "axis serves inference only")
         self.partitioner = ZeroPartitioner(self.topology, self.config.zero_config)
         self.zero_group = self.partitioner.zero_group
         self.dp_world = self.partitioner.zero_world

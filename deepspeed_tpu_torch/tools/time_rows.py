@@ -1,12 +1,14 @@
 """Times kernel rows 1 (paged attention) and 7 (W8A16 dequantize-matmul) at
 the serving shapes of Llama-2-7B and Mixtral-8x7B (row 1 also at those of
-Mistral-7B's window, Falcon-7B and Phi-2), and rows 5 and 6 (the
-qgZ quantize and dequantize-reduce) at the four leaf shapes of ZeRO-3 + qgZ
-training of Llama-2-7B at W = 4, through their public entry points, on one
-GPU.
+Mistral-7B's window, Falcon-7B and Phi-2, and at a tensor-parallel rank's
+heads of Llama-2-7B and Mixtral-8x7B at tp 2), rows 5 and 6 (the qgZ
+quantize and dequantize-reduce) at the four leaf shapes of ZeRO-3 + qgZ
+training of Llama-2-7B at W = 4, and row 9a (the grouped GEMM forward) at
+Mixtral-8x7B's expert width at tp 2, through their public entry points, on
+one GPU.
 
     python3 deepspeed_tpu_torch/tools/time_rows.py [--root DIR] [--iters 50]
-        [--rows 1,7,5,6]
+        [--rows 1,7,5,6,9a]
 
 The cases, their inputs and the timers are those of this checkout's
 ``chip_smoke.py`` (``CASES`` and ``make_case``, ``QMM_CASES`` and
@@ -18,7 +20,11 @@ change, change, parent. Row 7's weights rotate past the L2 cache. Rows 5
 and 6 take ``QUANT_CASES`` of ``chip_smoke.py`` (its inputs drawn the same
 way) at the ``gate_proj``, embedding, attention-projection and norm
 chunks, the quantize kernel on the payload rows and the dequantize-reduce
-kernel on the wire they give. ``--rows`` picks the rows. Prints one JSON
+kernel on the wire they give. Row 9a takes the ``_tp2`` cases of
+``GMM_CASES`` (``gmm_rows`` routing). Rows 1 and 9a also give the bound
+(``work`` and the bytes and operations of ``phase_gmm_kernels``, over the
+H100's 3.35 TB/s and dtype peak) and the library call's time
+(``library_call``, ``gmm_library``). ``--rows`` picks the rows. Prints one JSON
 line: the card (name and power limit), the root, and for each
 case the milliseconds per call of the stream (CUDA events around
 back-to-back calls: where the host enqueues a call more slowly than the
@@ -28,7 +34,7 @@ by the host's clock over back-to-back calls that do not wait for the
 card) and the device time per call of the row's kernels, their
 split-merging passes included (``torch.profiler``, kernel names holding
 ``paged_mha``, or ``quantized_matmul`` / ``split_reduce``, or
-``quantize_`` / ``dequant_reduce``). Needs a CUDA device.
+``quantize_`` / ``dequant_reduce``, or ``grouped_gemm``). Needs a CUDA device.
 """
 
 import argparse
@@ -42,10 +48,13 @@ from pathlib import Path
 HARNESS = Path(__file__).resolve().parents[2] / "chip_smoke.py"
 PAGED = ("decode_7b", "decode_serve_7b", "decode_serve_8x7b", "prefill_chunk_7b",
          "mixed_chunk_decode_7b", "decode_serve_mistral_window", "decode_serve_falcon_7b",
-         "decode_serve_phi_2", "prefill_chunk_phi_2")
+         "decode_serve_phi_2", "prefill_chunk_phi_2", "decode_serve_7b_tp2",
+         "decode_serve_8x7b_tp2")
 QMM = ("decode_7b_gate", "decode_7b_down", "decode_7b_q", "prefill_7b_gate",
        "prefill_7b_down")
 QUANT = ("gate_proj_chunk", "embedding_chunk", "attn_proj_chunk", "norm_chunk")
+GMM = ("decode_8x7b_tp2", "mixed_round_8x7b_tp2", "w2_decode_8x7b_tp2",
+       "w2_mixed_8x7b_tp2")
 
 
 def host_us(fn, iters):
@@ -66,7 +75,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(HARNESS.parent))
     ap.add_argument("--iters", type=int, default=50)
-    ap.add_argument("--rows", default="1,7,5,6", help="kernel rows to time, of 1, 7, 5, 6")
+    ap.add_argument("--rows", default="1,7,5,6,9a",
+                    help="kernel rows to time, of 1, 7, 5, 6, 9a")
     args = ap.parse_args(argv)
     rows = set(args.rows.split(","))
     sys.path.insert(0, args.root)
@@ -78,16 +88,20 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("time_rows: no CUDA device")
     from deepspeed_tpu_torch.ops import cuda_build
-    cuda_build.build("paged_attention", "quantized_matmul", "quant_collective")
+    cuda_build.build("paged_attention", "quantized_matmul", "quant_collective",
+                     "grouped_gemm")
     from deepspeed_tpu_torch.ops import quant_collective as qc
+    from deepspeed_tpu_torch.ops.grouped_gemm import grouped_matmul
     from deepspeed_tpu_torch.ops.paged_attention import paged_mha
     from deepspeed_tpu_torch.ops.quantized_matmul import quantized_matmul
 
     result = {"device": smoke.nvidia_smi(), "root": args.root}
     for row, k in (("1", "paged_mha"), ("7", "quantized_matmul"), ("5", "block_quantize"),
-                   ("6", "block_dequantize_reduce")):
+                   ("6", "block_dequantize_reduce"), ("9a", "grouped_matmul")):
         if row in rows:
             result.update({f"{k}_{what}": {} for what in ("ms", "device_ms", "host_us")})
+            if row in ("1", "9a"):
+                result.update({f"{k}_{what}": {} for what in ("bound_ms", "library_ms")})
     for i, case in enumerate(c for c in smoke.CASES if c[0] in PAGED and "1" in rows):
         a = smoke.make_case(case, torch.Generator(device="cuda").manual_seed(i),
                             np.random.default_rng(i))
@@ -97,6 +111,11 @@ def main(argv=None):
         result["paged_mha_host_us"][case[0]] = host_us(call, args.iters)
         result["paged_mha_device_ms"][case[0]] = smoke.device_ms(call, args.iters,
                                                                  ("paged_mha",))
+        nbytes, ops = smoke.work(case, a)
+        result["paged_mha_bound_ms"][case[0]] = max(
+            nbytes / smoke.HBM_BYTES_PER_S, ops / smoke.PEAK_FLOPS[case[7]]) * 1e3
+        result["paged_mha_library_ms"][case[0]] = None if case[8] else smoke.time_ms(
+            lambda: smoke.library_call(a), args.iters)
         del a
     gen = torch.Generator(device="cuda").manual_seed(7)
     for case in (c for c in smoke.QMM_CASES if c[0] in QMM and "7" in rows):
@@ -134,6 +153,28 @@ def main(argv=None):
             result[f"{key}_host_us"][name] = host_us(call, iters)
             result[f"{key}_device_ms"][name] = smoke.device_ms(call, iters, names)
         del x, q, s
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(9)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for name, R, K, N, E, dtype, routing in (c for c in smoke.GMM_CASES
+                                             if c[0] in GMM and "9a" in rows):
+        offs = smoke.gmm_offsets(smoke.gmm_rows(R, E, routing, rng), E)
+        dt = getattr(torch, dtype)
+        xs = torch.randn(R, K, generator=gen, device="cuda").to(dt)
+        w = (torch.randn(E, K, N, generator=gen, device="cuda") * K ** -0.5).to(dt)
+        offsets = torch.from_numpy(offs).to("cuda")
+        call = lambda: grouped_matmul(xs, w, offsets)
+        iters = args.iters if R <= 1024 else 10
+        result["grouped_matmul_ms"][name] = smoke.time_ms(call, iters)
+        result["grouped_matmul_host_us"][name] = host_us(call, iters)
+        result["grouped_matmul_device_ms"][name] = smoke.device_ms(call, iters, ("grouped_gemm",))
+        touched = int((np.diff(offs) > 0).sum())
+        nbytes = (R * K + R * N + touched * K * N) * xs.element_size() + offs.nbytes
+        result["grouped_matmul_bound_ms"][name] = max(
+            nbytes / smoke.HBM_BYTES_PER_S, 2 * R * K * N / smoke.PEAK_FLOPS[dtype]) * 1e3
+        lib, lib_name = smoke.gmm_library(xs, w, offsets)
+        result["grouped_matmul_library_ms"][name] = {lib_name: smoke.time_ms(lib, iters)}
+        del xs, w, offsets, lib
         torch.cuda.empty_cache()
     print(json.dumps(result), flush=True)
 

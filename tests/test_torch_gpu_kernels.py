@@ -23,6 +23,7 @@ beside their tests below.
 
 from unittest import mock
 
+import numpy as np
 import pytest
 import torch
 from flash_rounding import (dkv_probe, dkv_probe_value, dkv_rounding_faults,
@@ -210,6 +211,21 @@ def test_kernel_at_falcon_7b_rep_71(cuda, case):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert pa.split_count(S, Q, 71, 1, 64, MB, sms) == 1
     assert pa.kernel_route(torch.bfloat16, False, 64, 64) == "wgmma"
+    check_paged_kernel(args, kw)
+
+
+@gpu
+@pytest.mark.parametrize("case", ["decode", "decode_bucket", "prefill_chunk"])
+@pytest.mark.parametrize("H,KV", [(16, 16), (16, 4)], ids=["llama2_7b_tp2", "mixtral_tp2"])
+def test_kernel_at_tensor_parallel_heads(cuda, H, KV, case):
+    """One tensor-parallel rank's heads at tp 2: Llama-2-7B's 16 query heads
+    on 16 kv heads, Mixtral-8x7B's 16 on 4, width 128, pages of 64, on the
+    tensor cores; decode rounds with key splits."""
+    S, Q, q_len, MB = {"decode": (8, 1, None, 32), "decode_bucket": (8, 8, [1] * 8, 32),
+                       "prefill_chunk": (2, 256, [256, 200], 24)}[case]
+    args, kw = make_case(cuda, S=S, Q=Q, H=H, KV=KV, Dh=128, bs=64, MB=MB, seed=H * KV + Q,
+                         q_len=q_len)
+    assert pa.kernel_route(torch.bfloat16, False, 128, 64) == "wgmma"
     check_paged_kernel(args, kw)
 
 
@@ -1276,6 +1292,39 @@ def test_gmm_kernel_matches_plain(cuda, name, dtype):
     out = grouped_matmul(xs, w, offsets)
     assert grouped_matmul.launches == before + 1
     assert gmm_launched(gg, tally) == {gmm_kernel("fwd", dtype): 1}
+    ref = grouped_matmul_reference(xs, w, offsets)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert flash_ratio(out, ref) <= 1
+
+
+# Mixtral-8x7B's expert products at tp 2: each rank holds F / 2 = 7168 of
+# every expert's width. Rows: a decode round's 8 tokens (top-2 of 8) and a
+# mixed round's 512, routed at random.
+TP_GMM_CASES = {
+    "decode_w13": (16, 4096, 7168), "decode_w2": (16, 7168, 4096),
+    "mixed_w13": (1024, 4096, 7168), "mixed_w2": (1024, 7168, 4096),
+}
+
+
+def top2_offsets(R, E, seed):
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([rng.permutation(E)[:2] for _ in range(R // 2)])
+    return np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=E))]).tolist()
+
+
+@gpu
+@pytest.mark.parametrize("name", list(TP_GMM_CASES))
+def test_gmm_kernel_at_mixtral_tp2_width(cuda, name):
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
+    from deepspeed_tpu_torch.ops.grouped_gemm import (grouped_matmul,
+                                                      grouped_matmul_reference)
+    R, K, N = TP_GMM_CASES[name]
+    xs, w, offsets = gmm_case(cuda, R, K, N, top2_offsets(R, 8, R), torch.bfloat16, seed=N)
+    before, tally = grouped_matmul.launches, gg.kernel_launches()
+    out = grouped_matmul(xs, w, offsets)
+    assert grouped_matmul.launches == before + 1
+    assert gmm_launched(gg, tally) == {gmm_kernel("fwd", torch.bfloat16): 1}
     ref = grouped_matmul_reference(xs, w, offsets)
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()

@@ -262,13 +262,14 @@ def test_set_params_quantizes_anew(tiny):
 
 def test_unported_settings_raise(tiny, tmp_path):
     model = port_model(tiny)
-    with pytest.raises(NotImplementedError, match="A5"):
-        deepspeed_tpu_torch.init_inference(model, config={"tensor_parallel": {"tp_size": 2}},
-                                           device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        deepspeed_tpu_torch.init_inference(model, config={"mp_size": 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        deepspeed_tpu_torch.init_inference(model, config={"replica_num": 2}, device="cpu")
+    # tensor-parallel and replicated serving are ported (tests/
+    # test_torch_tensor_parallel.py); in a world of one process they clamp
+    # to one rank, as the JAX engine clamps its mesh to the devices it has
+    for config in ({"tensor_parallel": {"tp_size": 2}}, {"mp_size": 2}, {"replica_num": 2}):
+        eng = deepspeed_tpu_torch.init_inference(model, config=dict(config, dtype="fp32"),
+                                                 device="cpu")
+        assert eng.grid == {"dp": 1, "tp": 1}
+        assert torch.equal(eng(ids(9)), model(torch.as_tensor(ids(9))))
     with pytest.raises(NotImplementedError, match="integer"):
         deepspeed_tpu_torch.init_inference(model, config={"dtype": "int8"}, device="cpu")
     # an HF directory of the Llama family serves through its converted

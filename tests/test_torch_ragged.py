@@ -310,7 +310,8 @@ def test_config_unknown_key_warns_not_raises():
 @pytest.mark.parametrize("doc,item", [
     ({"state_manager": {"host_kv_blocks": 4, "nvme_kv_blocks": 4}}, "A14"),
     ({"state_manager": {"nvme_kv_blocks": 4}}, "A14"),
-    ({"tensor_parallel": {"tp_size": 2}}, "A5"),
+    # tensor-parallel serving is ported; speculation under it is A5 part 2
+    ({"tensor_parallel": {"tp_size": 2}, "speculative": {"enabled": True}}, "A5"),
 ])
 def test_config_unported_values_raise_naming_roadmap(doc, item):
     JaxEngineConfig(doc)          # the reference accepts them

@@ -548,10 +548,18 @@ def test_groups_initialize_ep_size_builds_one_topology(monkeypatch, zero_cfg, ep
 
 
 def test_unported_axes_raise():
+    """pp and sp raise at the topology. The tp axis serves inference
+    (``tests/test_torch_tensor_parallel.py``); training over it raises in the
+    training config here, and in the training engine given a tp mesh (the
+    gloo ranks of that test), naming A12."""
     from deepspeed_tpu_torch.parallel.topology import MeshTopology
-    for kw, item in ((dict(tp=2), "A12"), (dict(pp=2), "A12"), (dict(sp=2), "A12")):
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    for kw, item in ((dict(pp=2), "A12"), (dict(sp=2), "A12")):
         with pytest.raises(NotImplementedError, match=item):
             MeshTopology(devices=[0, 1], **kw)
+    with pytest.raises(NotImplementedError, match="A12"):
+        DeepSpeedConfig({"train_batch_size": 2,
+                         "tensor_parallel": {"tp_size": 2}}).check_supported()
 
 
 # ---------------------------------------------------------------------------
