@@ -338,6 +338,45 @@ prints no result.
    through ``build_replica`` (per-rank memory, tokens/s, launches); on one
    card a line says why that part did not run.
 
+23. The serving fleet (run right after phase 22's tp 1 reference, on
+   phase 3's model: Llama-2-7B, all 32 layers, bf16 from seed 0, phase 3's
+   engine config on every replica). One prefill and one decode replica
+   share cuda:0 (with 2+ cards, a second handoff puts the decode replica
+   on cuda:1, so the device codec's leg is a peer copy). Single-request
+   handoffs (phase 3's longest prompt, 16 new tokens, plain decode on both
+   sides) on the device codec and on the wire codec with int8 pools must
+   give the monolithic engine's logits in every round, bit for bit, the
+   same tokens, and bound pages equal to the exported ones. On bf16 pools
+   the wire codec quantizes the pages on the source card (row 5) and
+   dequantizes them on the destination (row 6): its first decode round is
+   held to the device codec's within ``FLEET_WIRE_REL_L2_BOUND``, which a
+   ship with one page zeroed at bind must exceed; a ``transport.corrupt``
+   drill must fail one CRC, retry and leave the tokens unchanged. Rows 5-6
+   at the shipped shape (the 1500-token prompt's bf16 page rows, one
+   group of 128 a row) must equal their plain versions bit for bit on the
+   routes the source declares; their times, device time and bytes bound
+   are printed. Then phase 3's 8 requests (64 new tokens) through
+   ``SLORouter(PrefillDecodeFleet(...))``, the decode side speculating:
+   greedy tokens held by phase 22's rule (where the top-2 gap over the
+   logits rms clears ``TP_TOKEN_MARGIN``) against the monolithic engine fed
+   each stream's own tokens (one verify forward over a stream's generated
+   positions), a planted fault (a page of every request zeroed at bind,
+   16 new tokens) that the hold must reject, pages shipped == bound, every pool's
+   free blocks back to their start, row-1 launches ``num_layers x
+   forwards`` on each replica (all ``wgmma``); the same on the wire codec,
+   where rows 5-6 launch twice a transfer on ``quantize_block`` /
+   ``dequant_reduce_block``. TTFT and TPOT medians and tokens/s against
+   the monolithic engine, handoff ms and GB/s per codec, wire against
+   device bytes. A ``ReplicaGroup`` of two replicas on cuda:0 under
+   ``SLORouter``: prefix affinity on shared-prefix prompts, typed
+   ``RequestQueued`` / ``RequestRejected`` outcomes under an impossible SLO,
+   the load report, and the host's share of a pipelined round against two
+   serial rounds. ``TwoProcessFleet``, the decode worker a spawned process
+   (on cuda:1 with 2+ cards) that draws the Llama from the seed: 4 of phase
+   3's requests, 16 new tokens, wire codec with delta shipping; its streams
+   must equal the in-process fleet's under the same codec. Peak memory per
+   device.
+
 The script prints its total wall time. The line before the last is one
 JSON object describing each kernel; the last is ``{"ok": true, "device":
 {...}}``. Any failure raises, so the script exits non-zero without it.
@@ -5644,20 +5683,693 @@ def tp_mixtral_part(failures):
     return stats
 
 
-def quant_kernel_lines(cases, zero_ranks, ep_ranks):
+# ---------------------------------------------------------------------------
+# phase 23: the serving fleet
+# ---------------------------------------------------------------------------
+
+# Phase 23 serves phase 3's Llama-2-7B (seed 0, all 32 layers, bf16) through
+# the fleet: one prefill and one decode replica on cuda:0, each with phase
+# 3's engine config (block 64, 256 blocks, budget 512); with 2+ cards a
+# second device-codec handoff runs with the decode replica on cuda:1 (a peer
+# copy). Single-request handoffs on the device codec and on the wire codec
+# with int8 pools must give the monolithic engine's logits in every round,
+# bit for bit (the round shapes are equal). On bf16 pools the wire codec
+# quantizes the pages (rows 5-6): its first decode round's logits are held
+# to the device codec's within FLEET_WIRE_REL_L2_BOUND (relative L2), which
+# a ship with one page zeroed at bind must exceed. Prediction, written
+# before the first card reading: the int8 wire step (amax / 127 per 128-wide
+# token row, about 0.7% of a row's rms) perturbs every layer's attention on
+# the prompt, so the first decode round reads 0.02-0.25 relative L2 from the
+# device codec's after 32 random layers (phase 3's bf16 rounding flips
+# alone read 0.039); a zeroed page reads like phase 3's trash-page control,
+# about 1. The bound sits between. Readings (H100 80GB HBM3, 700 W): 0.0928,
+# the zeroed page 0.820.
+FLEET_WIRE_REL_L2_BOUND = 0.5
+FLEET_NEW = 16                # new tokens of the single-request handoffs
+FLEET_FAULT_PAGE = 1          # the page a planted fault zeroes at bind
+FLEET_TWO_PROCESS_REQUESTS = 4
+FLEET_GROUP_PREFIX = 512      # the ReplicaGroup's shared prompt prefix
+FLEET_HOST_ROUNDS = 12        # pipelined and serial ReplicaGroup rounds timed
+FLEET_CARDS = ("cuda:0", "cuda:1")
+
+
+def fleet_engine_config(kv_dtype="fp", prefix_caching=False):
+    cfg = serving_config()
+    cfg["state_manager"] = dict(cfg["state_manager"], kv_dtype=kv_dtype)
+    cfg["prefix_caching"] = prefix_caching
+    return cfg
+
+
+def record_forwards(engines, log):
+    """Wrap each engine's ``_forward_device``: every forward appends
+    (engine index, uids, the rows' logits on the host) to ``log``. Returns
+    the undo."""
+    for i, e in enumerate(engines):
+        forward = e._forward_device
+
+        def recording(uids, chunks, _f=forward, _e=e, _i=i, **kw):
+            logits = _f(uids, chunks, **kw)
+            log.append((_i, list(uids),
+                        _e.host_fetch(logits[:len(uids)], "fleet/record").float().numpy()))
+            return logits
+        e._forward_device = recording
+
+    def undo():
+        for e in engines:
+            del e._forward_device
+    return undo
+
+
+def count_launches(engines, per):
+    """Wrap each engine's ``_run_forward``: ``per[i]`` gains the row-1
+    launches and the forwards engine ``i`` makes."""
+    from deepspeed_tpu_torch.ops.paged_attention import paged_mha
+    for i, e in enumerate(engines):
+        run = e._run_forward
+        per.setdefault(i, {"paged_mha": 0, "forwards": 0})
+
+        def counting(*a, _r=run, _i=i, **kw):
+            n0 = paged_mha.launches
+            out = _r(*a, **kw)
+            per[_i]["paged_mha"] += paged_mha.launches - n0
+            per[_i]["forwards"] += 1
+            return out
+        e._run_forward = counting
+
+
+def watch_ships(src, dst, checks, fault=False):
+    """After each bind at ``dst``, append to ``checks`` whether the bound
+    pool rows equal, bit for bit, the pages ``src`` exported (``export``)
+    and the pages the bind received (``bind``; they differ where the wire
+    quantized them). ``fault``: zero page ``FLEET_FAULT_PAGE`` of every
+    sequence of every ship before it binds (a planted fault)."""
+    import torch
+    export, bind = src.export_pages_many, dst.import_pages_many
+    sent = []
+
+    def flat(h):
+        """A handle's pages in the pool order: k, v (and k, v scales)."""
+        (kd, ks), (vd, vs) = [p if isinstance(p, tuple) else (p, None)
+                              for p in (h["k"], h["v"])]
+        return [kd, vd] + ([ks, vs] if ks is not None else [])
+
+    def exporting(uids, skip=None):
+        h = export(uids, skip=skip)
+        sent.append([p.clone() for p in flat(h)])
+        return h
+
+    def binding(h):
+        if fault:
+            off = 0
+            for m in h["seqs"]:
+                for p in flat(h):
+                    p[:, off + FLEET_FAULT_PAGE] = 0
+                off += m["n"]
+        received = [p.clone() for p in flat(h)]
+        n = bind(h)
+        kv = dst._state.kv_cache
+        blocks = [b for m in h["seqs"] for b in dst._state.get_sequence(m["uid"]).kv_blocks]
+        idx = torch.tensor(blocks, dtype=torch.long, device=kv.device)
+        rows = [pool.index_select(1, idx) for pool in kv._pools()]
+        checks.append({name: all(torch.equal(r, w.to(r.device, r.dtype))
+                                 for r, w in zip(rows, want))
+                       for name, want in (("export", sent[-1]), ("bind", received))})
+        return n
+    src.export_pages_many, dst.import_pages_many = exporting, binding
+
+
+def fleet_one(model, prompt, n_new, codec="device", kv_dtype="fp", decode_device=None,
+              fault=False, drill=None):
+    """One request through ``PrefillDecodeFleet`` (plain decode on both
+    sides): its tokens, every round's logits, the bind checks and the
+    transport's stats. ``drill``: a fault spec armed for the run."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.fleet import PrefillDecodeFleet
+    from deepspeed_tpu_torch.resilience import faults
+    fleet = PrefillDecodeFleet(model, devices=[FLEET_CARDS[0], decode_device or FLEET_CARDS[0]],
+                               engine_config=fleet_engine_config(kv_dtype),
+                               token_budget=512, codec=codec, speculative_default=False)
+    engines = [fleet.prefill[0][1].engine, fleet.decode[0][1].engine]
+    log, checks = [], []
+    undo = record_forwards(engines, log)
+    watch_ships(*engines, checks, fault=fault)
+    if drill:
+        faults.configure(drill)
+    try:
+        fleet.submit(0, prompt, max_new_tokens=n_new)
+        out = fleet.run_to_completion()
+    finally:
+        faults.reset()
+    undo()
+    res = dict(tokens=out[0].tolist(), logits=[l for _, _, l in log],
+               sides=[i for i, _, _ in log], binds=checks, stats=fleet.transport.stats(),
+               census=fleet.page_census())
+    del fleet, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def mono_one(model, prompt, n_new, kv_dtype="fp"):
+    """The monolithic engine's run of ``fleet_one``'s request."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import SplitFuseScheduler, build_engine
+    engine = build_engine(model, fleet_engine_config(kv_dtype))
+    log = []
+    undo = record_forwards([engine], log)
+    sched = SplitFuseScheduler(engine, token_budget=512)
+    sched.submit(0, prompt, max_new_tokens=n_new)
+    out = sched.run_to_completion()
+    undo()
+    res = dict(tokens=out[0].tolist(), logits=[l for _, _, l in log])
+    del sched, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_exact(label, fleet_run, mono, failures):
+    """A single-request handoff against the monolithic run: every round's
+    logits and every token bit for bit, every bind bit for bit."""
+    import numpy as np
+    same_rounds = len(fleet_run["logits"]) == len(mono["logits"])
+    equal = same_rounds and all(np.array_equal(a, b) for a, b in
+                                zip(fleet_run["logits"], mono["logits"]))
+    st = fleet_run["stats"]
+    print(f"fleet {label}: {len(fleet_run['logits'])} rounds ({fleet_run['sides'].count(0)} "
+          f"prefill, {fleet_run['sides'].count(1)} decode) against the monolithic "
+          f"engine's {len(mono['logits'])}: logits bit for bit {equal}, tokens equal "
+          f"{fleet_run['tokens'] == mono['tokens']}; binds bit for bit "
+          f"{fleet_run['binds']}; pages shipped {st['pages_shipped']}, bound "
+          f"{st['pages_bound']}, {st['bytes_shipped']} device bytes, "
+          f"{st['wire_bytes_shipped']} wire bytes, {st['total_s'] * 1e3:.2f} ms", flush=True)
+    if not equal or fleet_run["tokens"] != mono["tokens"]:
+        failures.append(f"{label}: the handoff's logits or tokens differ from the "
+                        f"monolithic engine's")
+    if not fleet_run["binds"] or not all(c["export"] for c in fleet_run["binds"]):
+        failures.append(f"{label}: the bound pages differ from the exported ones")
+    if st["pages_shipped"] != st["pages_bound"] or st["pages_shipped"] == 0:
+        failures.append(f"{label}: pages shipped {st['pages_shipped']} != bound "
+                        f"{st['pages_bound']}")
+
+
+def teacher_forced(model, prompts, streams):
+    """The monolithic engine fed each fleet stream's own tokens: for every
+    generated position, its greedy token and its top-2 gap over the row's
+    logits rms (phase 22's ``round_summary``), from one verify forward over
+    the stream's last chunk after the rest is prefilled. {uid: (argmax,
+    gap)}."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.v2 import build_engine
+    engine = build_engine(model, fleet_engine_config())
+    budget = engine._config.state_manager.max_ragged_batch_size
+    out = {}
+    for uid, toks in streams.items():
+        n = len(toks)
+        ctx = np.concatenate([prompts[uid], np.asarray(toks[:-1], np.int32)])
+        head = len(ctx) - n
+        for i in range(0, head, budget):
+            engine.put([uid], [ctx[i:min(i + budget, head)]])
+        logits = engine._forward_device([uid], [ctx[head:]], verify_k=n)
+        host = engine.host_fetch(logits[0], "fleet/teacher_forced").float().numpy()
+        out[uid] = round_summary(host)
+        engine.flush(uid)
+    del engine
+    gc.collect()
+    return out
+
+
+def hold_streams(streams, forced):
+    """Phase 22's rule at every generated position of every stream, against
+    the monolithic engine fed the same stream (``teacher_forced``): where
+    its top-2 gap clears TP_TOKEN_MARGIN the stream's token is held, and
+    must be its greedy token."""
+    held = differ = 0
+    near, held_differ = [], []
+    for uid, toks in streams.items():
+        am, gap = forced[uid]
+        for i, t in enumerate(toks):
+            clear = gap[i] > TP_TOKEN_MARGIN
+            held += clear
+            if t != am[i]:
+                (held_differ if clear else near).append(
+                    (uid, i, round(float(gap[i]), 4), int(am[i]), int(t)))
+                differ += clear
+    return dict(held=int(held), tokens=int(sum(len(t) for t in streams.values())),
+                differ=int(differ), held_differences=held_differ[:6],
+                near_tie_differences=len(near), near_ties=near[:6])
+
+
+def fleet_serve(model, prompts, n_new, codec="device", fault=False, timed=False):
+    """Phase 3's requests through ``SLORouter(PrefillDecodeFleet(...))``,
+    the decode side speculating by default: streams, per-replica row-1
+    launches, the transport's stats, the page census and free blocks, and
+    with ``timed`` TTFT / TPOT from the telemetry summary. ``fault``: a
+    page zeroed at the first bind (``watch_ships``)."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.inference.v2.fleet import (PrefillDecodeFleet,
+                                                        RequestAdmitted, SLORouter)
+    fleet = PrefillDecodeFleet(model, devices=[FLEET_CARDS[0], FLEET_CARDS[0]],
+                               engine_config=fleet_engine_config(), token_budget=512,
+                               codec=codec)
+    engines = [fleet.prefill[0][1].engine, fleet.decode[0][1].engine]
+    free0 = [e.free_blocks for e in engines]
+    per, checks = {}, []
+    count_launches(engines, per)
+    if fault:
+        watch_ships(*engines, checks, fault=fault)
+    router = SLORouter(fleet, slo_ttft_s=60.0, prefix_affinity=False)
+    if timed:
+        telemetry.reset()
+        telemetry.configure(enabled=True, sample_sync=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for uid, p in enumerate(prompts):
+        if not isinstance(router.submit(uid, p, max_new_tokens=n_new), RequestAdmitted):
+            fail(f"fleet: request {uid} was not admitted under a 60 s SLO")
+    out = router.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = dict(streams={u: v.tolist() for u, v in out.items()}, per_replica=per,
+               stats=fleet.transport.stats(), census=fleet.page_census(),
+               free_after=[e.free_blocks for e in engines], free_before=free0, wall_s=wall,
+               tokens_per_s=n_new * len(prompts) / wall, report=fleet.load_report(),
+               speculated=fleet.decode[0][1].speculated_tokens,
+               accepted=fleet.decode[0][1].accepted_tokens, router=router.report())
+    if timed:
+        s = telemetry.summary()
+        res["ttft_p50_s"] = s["serving"]["histograms"]["serving/ttft_s"]["p50_s"]
+        res["tpot_p50_s"] = s["serving"]["histograms"]["serving/tpot_s"]["p50_s"]
+        res["handoff"] = s["fleet"]["handoff"]
+        telemetry.configure(enabled=False)
+        telemetry.reset()
+    del fleet, engines, router
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def mono_serve_timed(model, prompts, n_new):
+    """The monolithic engine on the same requests, timed the same way."""
+    import torch
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.inference.v2 import SplitFuseScheduler, build_engine
+    engine = build_engine(model, fleet_engine_config())
+    sched = SplitFuseScheduler(engine, token_budget=512)
+    telemetry.reset()
+    telemetry.configure(enabled=True, sample_sync=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for uid, p in enumerate(prompts):
+        sched.submit(uid, p, max_new_tokens=n_new)
+    sched.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = telemetry.summary()["serving"]["histograms"]
+    telemetry.configure(enabled=False)
+    telemetry.reset()
+    del sched, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(wall_s=wall, tokens_per_s=n_new * len(prompts) / wall,
+                ttft_p50_s=s["serving/ttft_s"]["p50_s"], tpot_p50_s=s["serving/tpot_s"]["p50_s"])
+
+
+def wire_kernel_checks(model, prompt):
+    """Rows 5-6 at the shape a ship of ``prompt``'s pages gives them: the
+    bf16 page rows of one pool ([layers x pages x kv heads x block, 128],
+    one group a row), the kernels against their plain versions on the card
+    (quantize and dequantize bit for bit), the routes the source declares,
+    kernel / plain times, device time and the bytes bound."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import build_engine
+    from deepspeed_tpu_torch.ops import quant_collective as qc
+    engine = build_engine(model, fleet_engine_config())
+    budget = engine._config.state_manager.max_ragged_batch_size
+    for i in range(0, len(prompt), budget):
+        engine.put([0], [prompt[i:i + budget]])
+    h = engine.export_pages_many([0])
+    del engine
+    hd = model.config.head_dim
+    rows = h["k"].reshape(-1, hd)
+    R = rows.shape[0]
+    tally = qc.kernel_launches()
+    q, s = qc.block_quantize(rows, 8, group_size=hd)
+    out = qc.block_dequantize(q, s, 8, group_size=hd, out_len=hd)
+    torch.cuda.synchronize()
+    launched = launched_kernels(qc, tally)
+    routes = {"quantize": qc.kernel_route("quantize", hd, hd, 8, torch.bfloat16),
+              "dequantize": qc.kernel_route("dequantize_reduce", hd, hd, 8, peers=1)}
+    pq, ps = qc._quantize_rows_ref(rows.float(), 8)
+    pout = qc._dequantize_reduce_ref(q.reshape(1, R, hd), s.reshape(1, R), 8)
+    exact = {"quantize": bool(torch.equal(q, pq) and torch.equal(s[:, 0], ps)),
+             "dequantize": bool(torch.equal(out, pout))}
+    fault_q = q.clone()
+    fault_q[0, 0] ^= 1
+    fault_caught = not torch.equal(fault_q, pq)
+    iters = 20
+    res = {}
+    for name, kfn, pfn, nbytes, kern in (
+            ("quantize", lambda: qc.block_quantize(rows, 8, group_size=hd),
+             lambda: qc._quantize_rows_ref(rows.float(), 8), R * (hd * 2 + hd + 4),
+             routes["quantize"]),
+            ("dequantize", lambda: qc.block_dequantize(q, s, 8, group_size=hd, out_len=hd),
+             lambda: qc._dequantize_reduce_ref(q.reshape(1, R, hd), s.reshape(1, R), 8),
+             R * (hd + 4 + hd * 4), routes["dequantize"])):
+        ms = time_ms(kfn, iters)
+        res[name] = dict(kernel=kern, exact=exact[name], ms=ms,
+                         device_ms=device_ms(kfn, iters, [kern]),
+                         plain_ms=time_ms(pfn, 5), bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                         bound_by="bytes", library_ms=None, rows=R, group=hd,
+                         max_abs_err=0.0 if exact[name] else float("nan"))
+    del h, rows, q, s, out, pq, ps, pout
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"fleet wire kernels at a ship's shape ({R} rows of {hd}, bf16 pages, group "
+          f"{hd}): routes {routes}, launched {launched}; quantize and dequantize bit for "
+          f"bit against their plain versions {exact}, a flipped int rejected "
+          f"{fault_caught}; " + "; ".join(
+              f"{n} {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bytes bound {r['bound_ms']:.4f} ms)"
+              for n, r in res.items()), flush=True)
+    if not all(exact.values()) or not fault_caught:
+        fail(f"fleet: the wire kernels differ from their plain versions: {exact}")
+    if launched != {routes["quantize"]: 1, routes["dequantize"]: 1}:
+        fail(f"fleet: the wire kernels launched {launched}, the source routes {routes}")
+    return res
+
+
+def fleet_group(model, prompts, failures):
+    """Two replicas of one card under ``SLORouter``: prefix affinity with
+    shared-prefix prompts, typed queue / shed outcomes under an impossible
+    SLO, the load report, and the host's share of a pipelined round."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import ReplicaGroup
+    from deepspeed_tpu_torch.inference.v2.fleet import (RequestQueued, RequestRejected,
+                                                        SLORouter)
+    group = ReplicaGroup(model, [FLEET_CARDS[0], FLEET_CARDS[0]],
+                         engine_config=fleet_engine_config(prefix_caching=True),
+                         token_budget=512)
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(23)
+    prefix = rng.integers(0, vocab, FLEET_GROUP_PREFIX)
+    shared = [np.concatenate([prefix, rng.integers(0, vocab, 32 + 16 * i)]).astype(np.int32)
+              for i in range(4)]
+    router = SLORouter(group, slo_ttft_s=60.0)
+    router.submit(100, shared[0], max_new_tokens=4)
+    router.run_to_completion()
+    placed = [router.submit(101 + i, p, max_new_tokens=4) for i, p in enumerate(shared[1:])]
+    router.run_to_completion()
+    strict = SLORouter(group, slo_ttft_s=1e-9, queue_limit=1, prefix_affinity=False)
+    outcomes = [strict.submit(200 + i, prompts[i], max_new_tokens=4) for i in range(3)]
+    strict.run_to_completion()
+    kinds = [type(o).__name__ for o in outcomes]
+    report = group.load_report()
+    print(f"fleet group: 2 replicas on cuda:0, affinity placements "
+          f"{[(o.replica, o.affinity_tokens) for o in placed]}, affinity hits "
+          f"{router.affinity_hits}; impossible SLO outcomes {kinds}; load report "
+          f"{json.dumps(report)}", flush=True)
+    if router.affinity_hits < 1:
+        failures.append("group: no prefix-affinity placement")
+    if kinds != [RequestQueued.__name__, RequestRejected.__name__, RequestRejected.__name__]:
+        failures.append(f"group: impossible-SLO outcomes {kinds}")
+    # the host's share of a pipelined round: 4 decoding requests a replica
+    for uid, p in enumerate(prompts):
+        group.submit(300 + uid, p, max_new_tokens=2 * FLEET_HOST_ROUNDS + 8)
+    while not all(len(t) for u, t in group.results().items() if u >= 300):
+        group.step()
+    torch.cuda.synchronize()
+    pipelined, begin, serial = [], [], []
+    for _ in range(FLEET_HOST_ROUNDS):
+        t = time.perf_counter()
+        pend = []
+        for dev, sched in group.replicas:
+            pend.append(sched.step_begin())
+        t_begun = time.perf_counter()
+        for (dev, sched), p in zip(group.replicas, pend):
+            if p is not None:
+                sched.step_finish(p)
+        pipelined.append((time.perf_counter() - t) * 1e3)
+        begin.append((t_begun - t) * 1e3)
+    for _ in range(FLEET_HOST_ROUNDS):
+        t = time.perf_counter()
+        for dev, sched in group.replicas:
+            sched.step()
+        serial.append((time.perf_counter() - t) * 1e3)
+    group.run_to_completion()
+    host = dict(pipelined_round_ms=float(np.median(pipelined)),
+                host_launch_ms=float(np.median(begin)),
+                host_share=float(np.median(begin) / np.median(pipelined)),
+                two_serial_rounds_ms=float(np.median(serial)))
+    print(f"fleet group host: a pipelined round of both replicas (4 decode rows each) "
+          f"{host['pipelined_round_ms']:.2f} ms, of which launching both "
+          f"{host['host_launch_ms']:.2f} ms (host share {host['host_share']:.3f}); two "
+          f"serial rounds {host['two_serial_rounds_ms']:.2f} ms", flush=True)
+    hits = router.affinity_hits
+    del group, router, strict
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(affinity_hits=hits, outcomes=kinds, load_report=report, **host)
+
+
+def fleet_two_process(model, prompts, failures):
+    """``TwoProcessFleet`` (the decode worker a spawned process on cuda:0, or
+    on cuda:1 with 2+ cards) against the in-process fleet under the same
+    codec (wire, delta shipping, bf16 pools quantized at the wire)."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.fleet import PrefillDecodeFleet
+    from deepspeed_tpu_torch.inference.v2.fleet.two_process import TwoProcessFleet
+    eng = fleet_engine_config(prefix_caching=True)
+    dec = FLEET_CARDS[1] if torch.cuda.device_count() >= 2 else FLEET_CARDS[0]
+    fleet = PrefillDecodeFleet(model, devices=[FLEET_CARDS[0], FLEET_CARDS[0]], engine_config=eng,
+                               token_budget=512, codec="wire", delta_shipping=True,
+                               speculative_default=False)
+    for uid, p in enumerate(prompts):
+        fleet.submit(uid, p, max_new_tokens=FLEET_NEW, seed=uid)
+    want = {u: v.tolist() for u, v in fleet.run_to_completion().items()}
+    in_stats = fleet.transport.stats()
+    del fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tp = TwoProcessFleet(model, seed=0, engine_config=eng, token_budget=512,
+                         delta_shipping=True, device=FLEET_CARDS[0], decode_device=dec)
+    t_ready = time.perf_counter() - t0
+    rpc, ops = tp._rpc, {}
+
+    def timed_rpc(header, payload=b""):
+        t = time.perf_counter()
+        out = rpc(header, payload)
+        o = ops.setdefault(header["op"], [0, 0.0, 0])
+        o[0] += 1
+        o[1] += time.perf_counter() - t
+        o[2] += len(payload)
+        return out
+    tp._rpc = timed_rpc
+    try:
+        for uid, p in enumerate(prompts):
+            tp.submit(uid, p, max_new_tokens=FLEET_NEW, seed=uid)
+        t1 = time.perf_counter()
+        got = {u: v.tolist() for u, v in tp.run_to_completion().items()}
+        wall = time.perf_counter() - t1
+        st = tp.stats()
+    finally:
+        tp.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"fleet two-process: decode worker on {dec} ready in {t_ready:.1f}s (its Llama "
+          f"drawn from seed 0), {len(prompts)} requests x {FLEET_NEW} tokens in "
+          f"{wall:.2f}s; streams equal the in-process fleet's {got == want}; stats "
+          f"{json.dumps(st)}; in-process wire bytes {in_stats['wire_bytes_shipped']}; "
+          f"round trips by op (calls, s, payload bytes) "
+          f"{ {k: [v[0], round(v[1], 3), v[2]] for k, v in ops.items()} }", flush=True)
+    if got != want:
+        failures.append("two-process: streams differ from the in-process fleet's")
+    if st["handoffs"] != len(prompts) or st["fallbacks"] or st["crc_naks"]:
+        failures.append(f"two-process: {st}")
+    return dict(device=dec, ready_s=t_ready, wall_s=wall, stats=st,
+                equal=got == want)
+
+
+def phase_fleet(model):
+    """Phase 23 (module docstring): the serving fleet on phase 3's model."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.ops import quant_collective as qc
+    from deepspeed_tpu_torch.ops.paged_attention import paged_mha
+    failures = []
+    cfg = model.config
+    for d in range(min(torch.cuda.device_count(), 2)):
+        torch.cuda.reset_peak_memory_stats(d)
+    prompts = phase3_prompts(cfg.vocab_size)
+    one = prompts[int(np.argmax([len(p) for p in prompts]))]
+    t = time.perf_counter()
+
+    # 1. exact single-request handoffs
+    mono = mono_one(model, one, FLEET_NEW)
+    dev_run = fleet_one(model, one, FLEET_NEW)
+    check_exact("device codec, cuda:0 -> cuda:0", dev_run, mono, failures)
+    peer = None
+    if torch.cuda.device_count() >= 2:
+        peer = fleet_one(model, one, FLEET_NEW, decode_device=FLEET_CARDS[1])
+        check_exact("device codec, cuda:0 -> cuda:1 (peer copy)", peer, mono, failures)
+    else:
+        print("fleet: one card visible; the cuda:0 -> cuda:1 peer-copy handoff did not run",
+              flush=True)
+    mono8 = mono_one(model, one, FLEET_NEW, kv_dtype="int8")
+    int8_run = fleet_one(model, one, FLEET_NEW, codec="wire", kv_dtype="int8")
+    check_exact("wire codec, int8 pools", int8_run, mono8, failures)
+    del mono8
+
+    # 3. the wire codec on bf16 pools (rows 5-6)
+    wire_run = fleet_one(model, one, FLEET_NEW, codec="wire")
+    wire_fault = fleet_one(model, one, FLEET_NEW, codec="wire", fault=True)
+    drill = fleet_one(model, one, FLEET_NEW, codec="wire", drill="transport.corrupt:once")
+    first_decode = dev_run["sides"].index(1)
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    wire_err = rel(wire_run["logits"][first_decode], dev_run["logits"][first_decode])
+    fault_err = rel(wire_fault["logits"][first_decode], dev_run["logits"][first_decode])
+    agree = sum(a == b for a, b in zip(wire_run["tokens"], dev_run["tokens"]))
+    print(f"fleet wire codec, bf16 pools: first decode round's logits against the device "
+          f"codec's, relative L2 {wire_err:.4g}, with page {FLEET_FAULT_PAGE} zeroed at "
+          f"bind {fault_err:.4g} (bound {FLEET_WIRE_REL_L2_BOUND}); tokens equal to the "
+          f"device codec's {agree} of {len(dev_run['tokens'])}; binds equal the sent "
+          f"(dequantized) pages {wire_run['binds']}; wire bytes "
+          f"{wire_run['stats']['wire_bytes_shipped']} against device bytes "
+          f"{wire_run['stats']['bytes_shipped']} "
+          f"({wire_run['stats']['wire_bytes_shipped'] / wire_run['stats']['bytes_shipped']:.4f}"
+          f"); corrupt drill: crc failures {drill['stats']['crc_failures']}, retries "
+          f"{drill['stats']['retry_trips']}, tokens unchanged "
+          f"{drill['tokens'] == wire_run['tokens']}", flush=True)
+    if not wire_err <= FLEET_WIRE_REL_L2_BOUND:
+        failures.append(f"wire: first decode logits {wire_err} > {FLEET_WIRE_REL_L2_BOUND}")
+    if not fault_err > FLEET_WIRE_REL_L2_BOUND:
+        failures.append(f"wire: the bound does not reject the zeroed page ({fault_err})")
+    if drill["stats"]["crc_failures"] != 1 or drill["stats"]["failed_handoffs"] \
+            or drill["tokens"] != wire_run["tokens"]:
+        failures.append(f"wire: the corrupt drill gave {drill['stats']}")
+    if not all(c["bind"] for c in wire_run["binds"]):
+        failures.append("wire: bound pages differ from the dequantized frame's")
+    kernel_cases = wire_kernel_checks(model, one)
+    del dev_run, int8_run, wire_fault, drill, mono
+    print(f"fleet single-request part: {time.perf_counter() - t:.1f}s", flush=True)
+
+    # 2. phase 3's 8 requests through SLORouter(PrefillDecodeFleet(...))
+    t = time.perf_counter()
+    mono_t = mono_serve_timed(model, prompts, TP_NEW)
+    paged_mha.launches = 0
+    tally = pa.kernel_launches()
+    served = fleet_serve(model, prompts, TP_NEW, timed=True)
+    launches, kernels = paged_mha.launches, launched_kernels(pa, tally)
+    hold = hold_streams(served["streams"], teacher_forced(model, prompts, served["streams"]))
+    fault = fleet_serve(model, prompts, FLEET_NEW, fault=True)
+    fault_hold = hold_streams(fault["streams"],
+                              teacher_forced(model, prompts, fault["streams"]))
+    qc.block_quantize.launches = qc.block_dequantize_reduce.launches = 0
+    paged_mha.launches = 0
+    qtally, ptally = qc.kernel_launches(), pa.kernel_launches()
+    wire8 = fleet_serve(model, prompts, TP_NEW, codec="wire")
+    wire_launches = dict(block_quantize=qc.block_quantize.launches,
+                         block_dequantize_reduce=qc.block_dequantize_reduce.launches,
+                         paged_mha=paged_mha.launches)
+    wire_kernels = launched_kernels(qc, qtally)
+    wire_paged = launched_kernels(pa, ptally)
+    wire_agree = sum(a == b for u, s in wire8["streams"].items()
+                     for a, b in zip(s, served["streams"][u]))
+    for label, r in (("device codec", served), ("wire codec", wire8)):
+        st = r["stats"]
+        per = {f"{'prefill' if i == 0 else 'decode'}": v for i, v in r["per_replica"].items()}
+        print(f"fleet router, {label}: {len(prompts)} requests x {TP_NEW} tokens in "
+              f"{r['wall_s']:.2f}s ({r['tokens_per_s']:.1f} tokens/s); handoffs "
+              f"{st['handoffs']} in {st['transfers']} transfers, "
+              f"{st['total_s'] / max(st['handoffs'], 1) * 1e3:.2f} ms a request, "
+              f"{st['bytes_shipped'] / max(st['total_s'], 1e-9) / 1e9:.2f} GB/s of device "
+              f"bytes, {st['wire_bytes_shipped'] / max(st['total_s'], 1e-9) / 1e9:.2f} GB/s "
+              f"of wire bytes; pages shipped {st['pages_shipped']} bound "
+              f"{st['pages_bound']}; row-1 launches per replica {per}; decode side "
+              f"speculated {r['speculated']} accepted {r['accepted']}; free blocks "
+              f"{r['free_before']} -> {r['free_after']}, leaked "
+              f"{r['census']['leaked_pages']}", flush=True)
+        if st["pages_shipped"] != st["pages_bound"] or st["handoffs"] != len(prompts):
+            failures.append(f"{label}: {st}")
+        if r["free_after"] != r["free_before"] or r["census"]["leaked_pages"]:
+            failures.append(f"{label}: pages leaked {r['census']}")
+        for i, v in r["per_replica"].items():
+            if v["paged_mha"] != cfg.num_hidden_layers * v["forwards"] or not v["forwards"]:
+                failures.append(f"{label}: replica {i} launched row 1 {v}")
+    print(f"fleet router hold (phase 22's rule, margin {TP_TOKEN_MARGIN}, against the "
+          f"monolithic engine fed each stream): device codec {json.dumps(hold)}; planted "
+          f"fault (page {FLEET_FAULT_PAGE} of every request zeroed at bind, {FLEET_NEW} new "
+          f"tokens) {json.dumps(fault_hold)}; wire codec tokens equal to the device codec's "
+          f"{wire_agree} of {TP_NEW * len(prompts)}", flush=True)
+    print(f"fleet against the monolithic engine: TTFT p50 {served['ttft_p50_s']:.4f}s vs "
+          f"{mono_t['ttft_p50_s']:.4f}s, TPOT p50 {served['tpot_p50_s'] * 1e3:.2f} ms vs "
+          f"{mono_t['tpot_p50_s'] * 1e3:.2f} ms, {served['tokens_per_s']:.1f} vs "
+          f"{mono_t['tokens_per_s']:.1f} tokens/s; telemetry handoffs "
+          f"{json.dumps(served['handoff'])}", flush=True)
+    if hold["differ"] or not hold["held"]:
+        failures.append(f"router: held tokens differ {hold}")
+    if not fault_hold["differ"]:
+        failures.append(f"router: the hold does not reject the planted fault {fault_hold}")
+    if kernels != {"wgmma": launches} or not launches:
+        failures.append(f"router: paged kernels {kernels}, launches {launches}")
+    want_q = {k: 2 * wire8["stats"]["transfers"] for k in ("block_quantize",
+                                                           "block_dequantize_reduce")}
+    if {k: wire_launches[k] for k in want_q} != want_q or \
+            set(wire_kernels) != {"quantize_block", "dequant_reduce_block"}:
+        failures.append(f"wire: rows 5-6 launched {wire_launches} {wire_kernels}, want "
+                        f"{want_q} on quantize_block / dequant_reduce_block")
+    print(f"fleet wire main path launches: {wire_launches}, kernels {wire_kernels}, "
+          f"paged {wire_paged}", flush=True)
+    print(f"fleet router part: {time.perf_counter() - t:.1f}s", flush=True)
+
+    # 4. ReplicaGroup, 5. TwoProcessFleet
+    t = time.perf_counter()
+    group = fleet_group(model, prompts[:8], failures)
+    two = fleet_two_process(model, prompts[:FLEET_TWO_PROCESS_REQUESTS], failures)
+    print(f"fleet group and two-process part: {time.perf_counter() - t:.1f}s", flush=True)
+    peaks = {f"cuda:{d}": torch.cuda.max_memory_allocated(d) / 1e9
+             for d in range(min(torch.cuda.device_count(), 2))}
+    print(f"fleet peak memory per device (GB, this process): {peaks}; {nvidia_smi()}",
+          flush=True)
+    if failures:
+        fail("fleet: " + "; ".join(failures))
+    return dict(paged_launches=launches, kernels=kernels, wire_launches=wire_launches,
+                wire_kernels=wire_kernels, wire_cases=kernel_cases, hold=hold,
+                wire_rel_l2=wire_err, fault_rel_l2=fault_err, group=group, two_process=two,
+                peaks=peaks)
+
+
+def quant_kernel_lines(cases, zero_ranks, ep_ranks, fleet):
     """The kernels-line entries of the two qgZ kernels: the main case's
-    numbers, every case's, the launches of phase 11's run and those of
-    phase 13's int8-wire check (0 where they did not run)."""
+    numbers, every case's, the launches of phase 11's run (where it ran,
+    else those of phase 23's wire-codec run, the fleet's wire leg), those
+    of phase 13's int8-wire check (0 where it did not run) and phase 23's,
+    with its numbers at the wire shape (``fleet_wire_case``)."""
     keys = ("kernel", "exact", "max_abs_err", "planted_fault_rejected", "ms", "device_ms",
             "plain_ms", "library_ms", "bound_ms", "bound_by")
     main = cases[0]            # gate_proj_chunk: the main path's largest leaf shape
     lines = []
-    for kn, part, line in (("block_quantize", "quantize", 273),
-                           ("block_dequantize_reduce", "dequantize_reduce", 344)):
+    for kn, part, line, wire in (("block_quantize", "quantize", 273, "quantize"),
+                                 ("block_dequantize_reduce", "dequantize_reduce", 344,
+                                  "dequantize")):
         lines.append(dict(
             name=kn, route="cuda", source="deepspeed_tpu_torch/csrc/quant_collective.cu",
             replaces=f"deepspeed_tpu/ops/pallas/quant_collective.py:{line}",
-            launches=zero_ranks[0]["launches"][kn] if zero_ranks else 0,
+            launches=zero_ranks[0]["launches"][kn] if zero_ranks
+            else fleet["wire_launches"][kn],
+            launches_from="phase 11 (ZeRO-3 + qgZ)" if zero_ranks
+            else "phase 23 (the fleet's wire codec)",
+            fleet_wire_launches=fleet["wire_launches"][kn],
+            fleet_wire_kernels={k: v for k, v in fleet["wire_kernels"].items()
+                                if k.startswith(part[:5])},
+            fleet_wire_case=fleet["wire_cases"][wire],
             kernel_launches={k: v for k, v in zero_ranks[0]["quant_kernels_launched"].items()
                              if k.startswith(part[:5])} if zero_ranks else {},
             expert_parallel_wire_launches=ep_ranks[0]["wire_launches"][kn]
@@ -5712,9 +6424,16 @@ def main():
     print(f"phase speculative serving: {time.perf_counter() - t2:.1f}s", flush=True)
     t2 = time.perf_counter()
     tp_reference = phase_tp_reference(llama)
+    print(f"phase tensor parallel reference: {time.perf_counter() - t2:.1f}s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    fleet_report = phase_fleet(llama)
+    print(f"phase serving fleet: {time.perf_counter() - t2:.1f}s", flush=True)
     del llama
     gc.collect()
     torch.cuda.empty_cache()
+    t2 = time.perf_counter()
     tp_report = phase_tensor_parallel(tp_reference)
     print(f"phase tensor parallel: {time.perf_counter() - t2:.1f}s", flush=True)
     del tp_reference
@@ -5794,6 +6513,8 @@ def main():
         hf_serving_kernels={name: r["kernels"] for name, r in hf_report.items()
                             if name != "device"},
         tensor_parallel_launches=tp_report["llama_v2"]["paged_mha_launches"],
+        fleet_launches=fleet_report["paged_launches"],
+        fleet_kernels=fleet_report["kernels"],
         tensor_parallel_kernels=tp_report["llama_v2"]["paged_kernels"],
         mixtral_tensor_parallel_launches=(tp_report["mixtral"] or {}).get(
             "paged_mha_launches"),
@@ -5857,7 +6578,7 @@ def main():
             case=main_bwd["name"],
             cases=[dict(name=c["name"], **{k: c[kn][k] for k in bwd_keys})
                    for c in gmm_bwd_cases]))
-    kernels += quant_kernel_lines(quant_cases, zero_ranks, ep_ranks)
+    kernels += quant_kernel_lines(quant_cases, zero_ranks, ep_ranks, fleet_report)
     rows_keys = ("max_abs_err", "err_ratio", "planted_fault_ratio", "sentinel_rows_zero",
                  "ms", "plain_ms", "library_ms", "library", "bound_ms", "bound_by")
     main_rows = rows_cases[0]     # ep_recv_8x7b: the shape of phase 13's main path

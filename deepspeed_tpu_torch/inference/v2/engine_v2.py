@@ -27,9 +27,16 @@ swaps are broadcast the same way. ``stop_followers()`` ends the followers'
 loops. So no decision that reads the clock or a generator is taken on more
 than one rank, and the ranks cannot diverge.
 
-Left for later slices: page export/import and the fleet hooks (ROADMAP A8),
-the flight-recorder collector (ROADMAP A15), and, under tensor parallelism,
-speculative decode and the host KV tier (ROADMAP A5 part 2).
+Page transfer for the serving fleet (``fleet/disagg.py``): ``export_pages_many``
+detaches finished sequences' KV pages in one gather, ``import_pages_many``
+binds a shipment under fresh ids and creates the sequences mid-stream;
+``sequence_block_digests`` / ``held_prefix_lens`` are the two halves of the
+delta-shipping digest exchange and ``peek_prefix`` the router's
+prefix-affinity read.
+
+Left for later slices: the flight-recorder collector (ROADMAP A15) and,
+under tensor parallelism, speculative decode, the host KV tier and page
+transfer (ROADMAP A5 part 2).
 """
 
 import dataclasses
@@ -55,6 +62,13 @@ from deepspeed_tpu_torch.utils.logging import logger
 # op codes of the controller's messages to the tp followers
 _STOP, _FORWARD, _SWAP_OUT, _SWAP_IN = 0, 1, 2, 3
 _HEADER = 6          # int64 header: op, payload length, then four arguments
+
+
+def pages_to(pages, device):
+    """A page array (tensor or ``(data, scale)`` pair) on ``device``."""
+    if isinstance(pages, tuple):
+        return tuple(p.to(device) for p in pages)
+    return pages.to(device)
 
 
 @dataclasses.dataclass
@@ -300,6 +314,16 @@ class InferenceEngineV2:
         prefill cursor past the return value."""
         return self._state.match_prefix(uid, prompt_tokens)
 
+    def peek_prefix(self, prompt_tokens) -> int:
+        """How many prompt tokens a cached prefix would cover, without
+        creating a sequence or taking references (a pure read): the fleet
+        router's prefix-affinity signal."""
+        cache = self._state.prefix_cache
+        if cache is None:
+            return 0
+        blocks, _ = cache.lookup_chain(prompt_tokens)
+        return len(blocks) * cache.block_size
+
     def query(self, uid: int, max_request_tokens: int,
               max_request_blocks: int) -> Tuple[int, int]:
         """How many tokens/blocks this sequence could schedule right now."""
@@ -504,6 +528,77 @@ class InferenceEngineV2:
     @property
     def kv_block_size(self) -> int:
         return self._state.kv_block_size
+
+    # -- page transfer (prefill/decode disaggregation) ---------------------
+    def _require_single_rank(self, what):
+        if self._tp.size > 1:
+            raise NotImplementedError(
+                f"{what} under tensor parallelism (tp_size {self._tp.size}) is "
+                "not ported yet; see ROADMAP.md queue A5 part 2")
+
+    def export_pages(self, uid: int):
+        """Detach ``uid``'s KV pages (copies on this engine's device) for
+        shipping to a decode replica (``KVPageTransport``); releases the
+        local sequence."""
+        self._require_single_rank("page export")
+        return self._state.export_sequence_pages(uid)
+
+    def import_pages(self, uid: int, handle) -> int:
+        """Bind shipped KV pages into this engine's pool under fresh
+        refcount-1 block ids; creates the sequence mid-stream."""
+        self._require_single_rank("page import")
+        return self._state.import_sequence_pages(uid, handle)
+
+    def export_pages_many(self, uids, skip=None):
+        """Batched ``export_pages``: one gather covers every listed finished
+        sequence (the fleet ships a whole round's handoffs as one transfer).
+        ``skip`` maps uid -> leading full blocks to delta-ship (digest
+        references instead of page bytes: the destination already holds
+        them in its prefix cache)."""
+        self._require_single_rank("page export")
+        return self._state.export_sequences_pages(list(uids), skip=skip)
+
+    def import_pages_many(self, handle) -> int:
+        """Batched ``import_pages``; returns the pages bound."""
+        self._require_single_rank("page import")
+        return self._state.import_sequences_pages(handle)
+
+    def sequence_block_digests(self, uids):
+        """Per-uid full-block chain digests: the source half of the
+        delta-shipping digest exchange (``{}`` without prefix caching)."""
+        return self._state.sequence_block_digests(list(uids))
+
+    def held_prefix_lens(self, chains):
+        """Per-uid count of leading chain links this engine's prefix cache
+        already holds: the destination half of the digest exchange."""
+        return self._state.held_prefix_lens(chains)
+
+    @property
+    def kv_page_device(self) -> torch.device:
+        """Where the KV pools live (the engine's device): the target a
+        ``KVPageTransport`` moves shipped pages to. The JAX package's
+        ``kv_page_sharding``; its ``place_kv`` has no counterpart, since the
+        port allocates the pools on the engine's device at construction."""
+        return self._state.kv_cache.device
+
+    def warm_page_transfer(self, dst_engine, max_pages):
+        """Run the page-transfer path toward ``dst_engine`` once before the
+        serving clock starts: a gather of ``max_pages`` trash-block rows
+        (capped at the destination's free blocks), its copy to the
+        destination's device, and the scatter there, whose ids are freed at
+        once. On two cards this is the first peer copy, which opens the
+        peer mapping; on one card it warms the caching allocator's blocks
+        of that size. No live KV is read and no ids stay held. The wire
+        codec needs no warm-up of its own: it stages through pageable host
+        memory."""
+        dst = dst_engine._state.kv_cache
+        n = min(int(max_pages), dst.free_blocks)
+        if n < 1:
+            return
+        src = self._state.kv_cache
+        k, v = src.export_blocks([src.trash_block] * n)
+        k, v = pages_to(k, dst.device), pages_to(v, dst.device)
+        dst.free(dst.import_blocks(k, v, n))
 
     # -- KV host swap (ZeRO-Inference KV offload; scheduler preemption) ----
     def preempt(self, uid: int) -> None:

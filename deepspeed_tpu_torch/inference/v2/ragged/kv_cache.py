@@ -27,8 +27,12 @@ Storage tiers below the device pool:
   telemetry on, landings and restores are timed into
   ``serving/kv_swap_out_s`` and ``serving/kv_swap_in_s``.
 
-The JAX package's NVMe rung under the host tier waits for ROADMAP A14, and
-page export/import for the fleet's transport for ROADMAP A8.
+Page transfer for the serving fleet: ``export_blocks`` gathers (copies)
+block rows for shipping to another pool and ``import_blocks`` binds shipped
+rows under fresh ids. Throughout, a "page array" is a tensor (fp pools) or
+an ``(int8 data, fp32 scale)`` pair (int8 pools).
+
+The JAX package's NVMe rung under the host tier waits for ROADMAP A14.
 """
 
 import time
@@ -45,6 +49,11 @@ _now = time.perf_counter
 
 _DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16,
            "fp32": torch.float32}
+
+
+def split_pages(x):
+    """Page array -> (data, scale_or_None); accepts both conventions."""
+    return x if isinstance(x, tuple) else (x, None)
 
 
 class BlockedKVCache:
@@ -215,3 +224,43 @@ class BlockedKVCache:
     @property
     def swapper(self) -> HostKVSwapper:
         return self._swapper
+
+    # -- page transfer (prefill/decode disaggregation) ---------------------
+    # Unlike the swap tier above, these never land on the host: the gather
+    # stays on this pool's device, so ``KVPageTransport`` can move it to the
+    # destination's device (a peer copy across cards, nothing on one card)
+    # or through the wire codec. The JAX package pads a transfer to a power
+    # of two (``_pad_pages``) so its gather/scatter pair compiles once per
+    # bucket; eager PyTorch has no compile to share, so the port ships
+    # exactly the rows asked for.
+    def export_blocks(self, blocks):
+        """Gather the given block rows for shipping to another pool. The
+        gather COPIES, so the caller may free or donate the source ids at
+        once: a later eviction of a donated block cannot corrupt the shipped
+        pages. Returns ``(k, v)`` shaped ``[num_layers, len(blocks), heads,
+        block_size, head_dim]``, each a ``(data, scale)`` pair when the
+        pool is int8."""
+        idx = torch.tensor(list(blocks), dtype=torch.long, device=self.device)
+        parts = self._gather_pages(idx)
+        if self.quantized:
+            return (parts[0], parts[2]), (parts[1], parts[3])
+        return parts[0], parts[1]
+
+    def import_blocks(self, k, v, n):
+        """Bind the first ``n`` shipped block rows into this pool under
+        freshly allocated ids (refcount 1 through the allocator, which
+        evicts parked cached blocks first under pressure). Rows past ``n``
+        (a sender's padding) go to the trash block. fp rows are cast to the
+        pool's dtype on write. Returns the new ids in shipping order."""
+        k, ks = split_pages(k)
+        v, vs = split_pages(v)
+        if (ks is not None) != self.quantized:
+            raise ValueError("page dtype mismatch: shipment and pool must "
+                             "both be quantized or both fp")
+        new_blocks = self._allocator.allocate(n)
+        idx = torch.tensor(new_blocks + [self.trash_block] * (int(k.shape[1]) - n),
+                           dtype=torch.long, device=self.device)
+        parts = (k, v) if ks is None else (k, v, ks, vs)
+        for pool, part in zip(self._pools(), parts):
+            pool.index_copy_(1, idx, part.to(self.device, pool.dtype))
+        return new_blocks

@@ -38,8 +38,9 @@ Lifecycle of a cached block:
     a fresh device block and swaps the pages back in transparently inside
     ``acquire_chain`` (callers just see a hit).
 
-The delta-shipping lookups of the JAX package's fleet
-(``held_prefix_len``, ``acquire_known``) wait for ROADMAP A8.
+The fleet's delta shipping asks a destination pool how much of a chain it
+holds (``held_prefix_len``) and pins that chain at bind time
+(``acquire_known``).
 
 The digest is SHA-256 over the parent digest + the raw int32 token bytes —
 a collision would silently serve another prompt's KV, so a cryptographic
@@ -144,6 +145,18 @@ class PrefixCache:
         a stale id. Pinned links have refcount >= 1 and sit outside the LRU,
         so reentrant eviction cannot touch them; links past a truncation
         point are un-pinned (re-parked)."""
+        resolved = self._acquire_links(blocks, digests)
+        if not resolved:
+            self.misses += 1
+            return []
+        self.hits += 1
+        self.tokens_saved += len(resolved) * self.block_size
+        return resolved
+
+    def _acquire_links(self, blocks, digests):
+        """Pin-then-restore core shared by ``acquire_chain`` and
+        ``acquire_known`` (see ``acquire_chain`` for the ordering
+        invariant). Stats-neutral."""
         for b, d in zip(blocks, digests):
             if b is not None:
                 self._acquire(b, d)
@@ -157,12 +170,38 @@ class PrefixCache:
         for b in blocks[len(resolved):]:
             if b is not None:
                 self._alloc.free([b])  # un-pin: refcount-0 links re-park
-        if not resolved:
-            self.misses += 1
-            return []
-        self.hits += 1
-        self.tokens_saved += len(resolved) * self.block_size
         return resolved
+
+    # -- delta shipping (cross-pool state transfer) ------------------------
+    def held_prefix_len(self, digests) -> int:
+        """How many leading links of ``digests`` this cache holds (device or
+        host resident). A pure read for the delta-shipping digest exchange;
+        the answer is advisory — links may evict between the query and the
+        ship, so the importer re-resolves through ``acquire_known`` and
+        aborts on a shortfall."""
+        n = 0
+        for d in digests:
+            if d not in self._map and d not in self._host_map:
+                break
+            n += 1
+        return n
+
+    def acquire_known(self, digests):
+        """Pin an already-held chain for a delta-shipped sequence: device
+        links take a reference (parked links revive), host-resident links
+        restore into fresh device blocks. The same pin-before-restore order
+        as ``acquire_chain`` but stats-neutral: this is state transfer, not
+        a prompt match. Returns the resolved device ids; a result shorter
+        than ``digests`` means the chain is no longer fully held, and the
+        caller frees the result and falls back to a full ship or a
+        re-prefill."""
+        blocks = []
+        for d in digests:
+            b = self._map.get(d)
+            if b is None and d not in self._host_map:
+                break
+            blocks.append(b)
+        return self._acquire_links(blocks, digests[:len(blocks)])
 
     def _restore(self, digest):
         """Swap a host-resident block back in under a fresh device id

@@ -8,8 +8,11 @@ a match. Speculative decode rolls a sequence's paged cursor back over the
 rejected tail of a verify chunk (``rollback_sequence``), and
 ``speculative.draft_page_divisor`` > 1 carves a draft-page class out of the
 same pool. ``sample_kv_stats`` records the KV gauges when telemetry is on.
-Left for later slices: the NVMe tier (ROADMAP A14) and page export/import
-(ROADMAP A8).
+The fleet's page transfer: ``export_sequences_pages`` detaches finished
+sequences' pages in one gather (delta shipping leaves out the leading blocks
+the destination's prefix cache already holds), ``import_sequences_pages``
+binds a shipment all-or-nothing. Left for a later slice: the NVMe tier
+(ROADMAP A14).
 """
 
 import torch
@@ -294,6 +297,180 @@ class DSStateManager:
             self.kv_cache.free(list(reversed(seq.kv_blocks)))
         else:
             self.kv_cache.free(seq.kv_blocks)
+
+    # -- page transfer (prefill/decode disaggregation) ---------------------
+    def sequence_block_digests(self, uids):
+        """Full-block chain digests for the given tracked sequences — what a
+        delta-shipping transport exchanges with the destination before
+        exporting, so blocks the destination's prefix cache already holds
+        never cross the wire. Requires prefix caching (token streams are
+        only tracked then); returns ``{}`` when disabled. Untracked uids are
+        silently skipped (the transport treats them as nothing-to-skip)."""
+        if self.prefix_cache is None:
+            return {}
+        bs = self.kv_block_size
+        out = {}
+        for uid in uids:
+            seq = self._seqs.get(uid)
+            if seq is None:
+                continue
+            full = min(seq.seen_tokens // bs, len(seq.kv_blocks))
+            parent, chain = b"", []
+            for i in range(full):
+                parent = PrefixCache.chain_digest(
+                    parent, seq.tokens[i * bs:(i + 1) * bs])
+                chain.append(parent)
+            out[uid] = chain
+        return out
+
+    def held_prefix_lens(self, chains):
+        """Per-uid count of leading chain links this pool's prefix cache
+        already holds (device or host/NVMe tier) — the delta-shipping
+        set-difference answered from the destination side."""
+        if self.prefix_cache is None:
+            return {uid: 0 for uid in chains}
+        return {uid: self.prefix_cache.held_prefix_len(chain)
+                for uid, chain in chains.items()}
+
+    def export_sequence_pages(self, uid):
+        """Detach ``uid``'s KV pages for shipping to another engine's pool
+        (single-sequence form of ``export_sequences_pages``). Returns a
+        handle for ``import_sequence_pages``."""
+        h = self.export_sequences_pages([uid])
+        m = h["seqs"][0]
+        return {"n": m["n"], "k": h["k"], "v": h["v"],
+                "seen_tokens": m["seen_tokens"], "tokens": m["tokens"]}
+
+    def export_sequences_pages(self, uids, skip=None):
+        """Batched export: every listed sequence's page rows leave in ONE
+        device gather (``export_blocks`` over the concatenated block lists),
+        so the fleet ships a whole round's finished prefills as one
+        transfer, paying the launch cost per transfer, not per request.
+        Each sequence is then released exactly as ``flush_sequence`` would
+        — with prefix caching on, full blocks are donated to the cache
+        first, so a prefill replica keeps serving warm prefixes after the
+        handoff. Returns a handle for ``import_sequences_pages`` whose
+        ``seqs`` list preserves submission order.
+
+        ``skip`` (delta-shipping): ``{uid: k}`` leading full blocks the
+        DESTINATION's prefix cache already holds — those rows are excluded
+        from the gather and ride as ``skipped_digests`` instead, for the
+        importer to re-acquire locally. Requires prefix caching."""
+        for uid in uids:  # validate everything before mutating anything
+            seq = self._seqs.get(uid)
+            if seq is None:
+                raise ValueError(f"export of untracked sequence {uid}")
+            if seq.is_swapped:
+                raise ValueError(f"cannot export swapped sequence {uid}")
+            if seq.in_flight_tokens:
+                raise RuntimeError(f"cannot export sequence {uid} mid-forward")
+        if skip and self.prefix_cache is None:
+            raise ValueError("delta export requires prefix caching")
+        bs = self.kv_block_size
+        blocks, seqs, popped = [], [], []
+        for uid in uids:
+            seq = self._seqs.pop(uid)
+            popped.append(seq)
+            hold = 0
+            if skip:
+                hold = min(int(skip.get(uid, 0)), seq.seen_tokens // bs,
+                           len(seq.kv_blocks))
+            m = {"uid": uid, "n": len(seq.kv_blocks) - hold,
+                 "seen_tokens": seq.seen_tokens,
+                 "tokens": list(seq.tokens)}
+            if hold:
+                parent, digs = b"", []
+                for i in range(hold):
+                    parent = PrefixCache.chain_digest(
+                        parent, seq.tokens[i * bs:(i + 1) * bs])
+                    digs.append(parent)
+                m["skipped"] = hold
+                m["skipped_digests"] = digs
+            seqs.append(m)
+            blocks.extend(seq.kv_blocks[hold:])
+        # one gather for the whole group — it COPIES, so the ids can be
+        # freed/donated immediately after
+        k, v = self.kv_cache.export_blocks(blocks)
+        for seq in popped:
+            if self.prefix_cache is not None:
+                self.commit_cached_blocks(seq)
+                self.kv_cache.free(list(reversed(seq.kv_blocks)))
+            else:
+                self.kv_cache.free(seq.kv_blocks)
+        return {"n": len(blocks), "k": k, "v": v, "seqs": seqs}
+
+    def import_sequence_pages(self, uid, handle):
+        """Bind shipped KV pages into this pool (single-sequence form of
+        ``import_sequences_pages``). Returns the bound block count."""
+        return self.import_sequences_pages(
+            {"n": handle["n"], "k": handle["k"], "v": handle["v"],
+             "seqs": [{"uid": uid, "n": handle["n"],
+                       "seen_tokens": handle["seen_tokens"],
+                       "tokens": handle.get("tokens", [])}]})
+
+    def import_sequences_pages(self, handle):
+        """Bind a batched shipment: ONE scatter allocates fresh block ids
+        (refcount 1 via the ``BlockedAllocator``) for every sequence in the
+        handle, then each sequence is created mid-stream with
+        ``seen_tokens`` already past its shipped pages — decode never
+        re-runs prefill. With prefix caching on, the token streams ride
+        along so imported full blocks register in THIS pool's cache at the
+        next commit. All-or-nothing: on any failure the partially created
+        sequences and all imported blocks are released. Returns the total
+        bound block count."""
+        for m in handle["seqs"]:
+            if m["uid"] in self._seqs:
+                raise ValueError(f"uid {m['uid']} already tracked")
+        # delta-shipping: re-acquire skipped prefix blocks from the LOCAL
+        # prefix cache first — a miss (evicted between the digest exchange
+        # and the ship) aborts before anything binds, and the transport's
+        # bind-failure path re-prefills the request
+        prefix_ids, prefix_digs, acquired = {}, {}, []
+        try:
+            for m in handle["seqs"]:
+                hold = int(m.get("skipped", 0))
+                if not hold:
+                    continue
+                if self.prefix_cache is None:
+                    raise ValueError("delta shipment without a prefix cache")
+                digs = [bytes.fromhex(d) if isinstance(d, str) else d
+                        for d in m["skipped_digests"]]
+                got = self.prefix_cache.acquire_known(digs)
+                acquired.extend(got)
+                if len(got) < hold:
+                    raise ValueError(
+                        f"delta bind miss for {m['uid']}: "
+                        f"held {len(got)}/{hold} skipped blocks")
+                prefix_ids[m["uid"]] = got
+                prefix_digs[m["uid"]] = digs
+            ids = list(self.kv_cache.import_blocks(
+                handle["k"], handle["v"], int(handle["n"])))
+        except Exception:
+            if acquired:
+                self.kv_cache.free(acquired)
+            raise
+        off, created = 0, []
+        try:
+            for m in handle["seqs"]:
+                seq = self.get_or_create_sequence(m["uid"])
+                created.append(m["uid"])
+                seq.kv_blocks = prefix_ids.get(m["uid"], []) \
+                    + ids[off:off + int(m["n"])]
+                off += int(m["n"])
+                seq.seen_tokens = int(m["seen_tokens"])
+                if self.prefix_cache is not None:
+                    seq.tokens = [int(t) for t in m["tokens"]]
+                    # skipped blocks are already-registered cache entries;
+                    # seed their digests so commit starts past them
+                    seq.digests = list(prefix_digs.get(m["uid"], []))
+        except Exception:
+            for uid in created:
+                self._seqs.pop(uid, None)
+            self.kv_cache.free(ids)
+            if acquired:
+                self.kv_cache.free(acquired)
+            raise
+        return len(ids) + len(acquired)
 
     # -- host swap tier (ZeRO-Inference KV offload analog) -----------------
     def swap_out_sequence(self, uid):

@@ -21,8 +21,15 @@ Chrome-trace lanes and flows, SLO-class attainment, and per-round gauges
 speculation gauges). Disabled, every hook is one boolean check: no clock
 read, no allocation in the telemetry core.
 
-Left for later slices: the fleet's ``adopt``/``readmit``/``on_finish``, its
-load signals and the two-phase ``step_begin``/``step_finish`` (ROADMAP A8).
+The serving fleet drives the scheduler through ``adopt`` (a request whose
+KV pages were shipped in mid-generation), ``readmit`` (one that lost its
+pages: its committed tokens re-prefill and the seeded stream resumes at the
+same position), the ``on_finish`` hook (a prefill replica hands a request
+off instead of flushing it), the load signals (``active_count``,
+``kv_stats``, ``peek_prefix``, ``tokens_per_round``, ``drain_terminal``) and
+the two-phase round: ``step_begin`` composes the round and launches the
+forward and the device sampling without a host sync, ``step_finish`` makes
+the round's one fetch. ``step()`` is ``step_finish(step_begin())``.
 """
 
 import dataclasses
@@ -71,6 +78,11 @@ class _Request:
     seed: int = 0
     prefill_pos: int = 0
     generated: List[int] = dataclasses.field(default_factory=list)
+    # sampling-stream offset of a re-admitted request: it already emitted
+    # ``pos_offset`` tokens on a replica that died, so every sample here
+    # draws at position ``len(generated) + pos_offset``, the position the
+    # uninterrupted stream would use (bit-exact recovery)
+    pos_offset: int = 0
     done: bool = False
     preempted: bool = False  # KV host-swapped out (scheduler preemption)
     # serving-telemetry timestamps (perf_counter; 0.0 = not yet / disabled)
@@ -138,6 +150,16 @@ class SplitFuseScheduler:
         self._tokens_per_round_ewma = 1.0
         # preemptions whose victim the SLO burn-rate gauges chose
         self.slo_preemptions = 0
+        # terminal outcomes beyond plain finish (evict / cancel), drained by
+        # the fleet router so its backlog model retires on every terminal
+        # event: plain list appends, always on
+        self.terminal_events = []
+        # prefill/decode disaggregation hook: called as on_finish(sched, req)
+        # the moment a request completes, before the sequence flushes; a
+        # truthy return means ownership (KV pages and the remaining decode)
+        # moved to another scheduler, which skips the flush and the terminal
+        # telemetry here
+        self.on_finish = None
         # per-class SLO latency targets (config slo_classes), installed into
         # telemetry once here so slo_observe knows them; requests tag
         # themselves through submit(..., slo_class=...)
@@ -188,6 +210,93 @@ class SplitFuseScheduler:
         self._requests[uid] = req
         self._active += 1
 
+    def adopt(self, uid, prompt, generated, max_new_tokens=16,
+              eos_token_id=None, temperature=0.0, top_k=0, top_p=1.0,
+              seed=0, submit_ts=0.0, last_token_ts=0.0, slo_class=None):
+        """Adopt a mid-generation request whose KV pages were just imported
+        into this scheduler's engine (prefill/decode disaggregation): the
+        prompt is fully prefilled and ``generated`` holds the tokens the
+        prefill side already sampled. Decode continues bit-exactly — device
+        sampling is deterministic per (seed, position) and positions resume
+        from ``len(generated)``. ``submit_ts``/``last_token_ts`` carry the
+        originating timestamps through so e2e and TPOT histograms span the
+        handoff instead of restarting at it."""
+        if uid in self._requests:
+            raise ValueError(f"uid {uid} already submitted")
+        generated = [int(t) for t in generated]
+        if not generated:
+            raise ValueError("adopt requires at least one generated token")
+        prompt = np.asarray(prompt, np.int32)
+        seq = self._engine._state.get_sequence(uid)
+        if seq is None or seq.seen_tokens != len(prompt):
+            raise ValueError(
+                f"uid {uid}: imported KV does not cover the prompt "
+                f"(seen={seq.seen_tokens if seq else None}, "
+                f"prompt={len(prompt)})")
+        req = _Request(uid, prompt, int(max_new_tokens), eos_token_id,
+                       slo_class=slo_class,
+                       temperature=float(temperature), top_k=int(top_k),
+                       top_p=float(top_p), seed=int(seed),
+                       prefill_pos=len(prompt), generated=generated)
+        req.submit_ts = float(submit_ts)
+        req.last_token_ts = float(last_token_ts)
+        tm = telemetry.get_telemetry()
+        if tm.enabled:
+            t = _now()
+            req.first_sched_ts = t  # queue-wait was recorded at prefill
+            tm.serving_event("adopted")
+            tm.record_request_phase(uid, "adopt", t,
+                                    seen_tokens=len(prompt),
+                                    new_tokens=len(generated))
+            tm.record_request_flow(uid, "adopt",
+                                   new_tokens=len(generated))
+        self._requests[uid] = req
+        self._active += 1
+
+    def readmit(self, uid, prompt, generated, max_new_tokens=16,
+                eos_token_id=None, temperature=0.0, top_k=0, top_p=1.0,
+                seed=0, submit_ts=0.0, last_token_ts=0.0, slo_class=None):
+        """Re-admit a request that lost its KV mid-generation (replica loss
+        or an exhausted handoff): unlike ``adopt``, NO pages exist here —
+        the prompt plus every already-emitted token but the last re-prefill
+        as an ordinary SplitFuse prompt (with prefix caching on, only the
+        tail past the request's last committed prefix digest actually
+        runs), and the deterministic sampling stream resumes at position
+        ``len(generated)`` via ``pos_offset``, so the continuation is
+        bit-exact with the uninterrupted run. ``max_new_tokens`` is the
+        ORIGINAL quota; the emitted count is subtracted here."""
+        if uid in self._requests:
+            raise ValueError(f"uid {uid} already submitted")
+        generated = [int(t) for t in generated]
+        if not generated:
+            raise ValueError("readmit requires at least one generated "
+                             "token; resubmit the prompt instead")
+        emitted = len(generated)
+        if emitted >= int(max_new_tokens) or \
+                (eos_token_id is not None and generated[-1] == eos_token_id):
+            raise ValueError(f"uid {uid} is already complete "
+                             f"({emitted} tokens)")
+        prompt = np.asarray(prompt, np.int32)
+        head = np.asarray(generated[:-1], np.int32)
+        full = np.concatenate([prompt, head]) if emitted > 1 else prompt
+        req = _Request(uid, full, int(max_new_tokens) - (emitted - 1),
+                       eos_token_id, slo_class=slo_class,
+                       temperature=float(temperature), top_k=int(top_k),
+                       top_p=float(top_p), seed=int(seed),
+                       generated=[generated[-1]], pos_offset=emitted - 1)
+        req.submit_ts = float(submit_ts)
+        req.last_token_ts = float(last_token_ts)
+        tm = telemetry.get_telemetry()
+        if tm.enabled:
+            t = _now()
+            tm.serving_event("readmitted")
+            tm.record_request_phase(uid, "readmit", t,
+                                    seen_tokens=len(full),
+                                    new_tokens=emitted)
+            tm.record_request_flow(uid, "readmit", new_tokens=emitted)
+        self._requests[uid] = req
+        self._active += 1
+
     def cancel(self, uid):
         """Withdraw a request: frees its KV blocks, device-resident or
         host-swapped, and records its terminal ``serving/e2e_s`` and
@@ -198,6 +307,7 @@ class SplitFuseScheduler:
             return False
         r.done = True
         self._active -= 1
+        self.terminal_events.append((uid, "cancelled"))
         if self._engine._state.get_sequence(uid) is not None:
             self._engine.flush(uid)
         tm = telemetry.get_telemetry()
@@ -214,10 +324,32 @@ class SplitFuseScheduler:
         """Submitted-but-unfinished request count, O(1)."""
         return self._active
 
+    def drain_terminal(self):
+        """Terminal outcomes beyond plain finish since the last call
+        (``[(uid, "evicted" | "cancelled"), ...]``): the router retires its
+        predicted-backlog rounds on these; finished uids retire through the
+        ``step()`` return instead."""
+        events, self.terminal_events = self.terminal_events, []
+        return events
+
     def tokens_per_round(self):
         """EWMA of tokens committed per decode row per round, >= 1.0
-        (exactly 1.0 without speculation)."""
+        (exactly 1.0 without speculation): the SLO router's TTFT divisor."""
         return self._tokens_per_round_ewma
+
+    def kv_stats(self):
+        """This replica's host-side KV pool stats
+        (``InferenceEngineV2.kv_stats``: occupancy, free blocks, swaps)."""
+        return self._engine.kv_stats()
+
+    def peek_prefix(self, prompt_tokens):
+        """Cached-prefix coverage of a prompt, a pure read (the router's
+        prefix affinity)."""
+        return self._engine.peek_prefix(prompt_tokens)
+
+    @property
+    def max_context(self):
+        return self._engine._config.state_manager.max_context
 
     def _burning_classes(self):
         """Classes whose live burn-rate gauge exceeds 1 (either metric).
@@ -244,6 +376,7 @@ class SplitFuseScheduler:
 
     @property
     def engine(self):
+        """The underlying ``InferenceEngineV2`` (page transfer, admission)."""
         return self._engine
 
     @property
@@ -270,6 +403,7 @@ class SplitFuseScheduler:
                 # lane, or percentiles would drop the worst latencies.
                 r.done = True
                 self._active -= 1
+                self.terminal_events.append((r.uid, "evicted"))
                 self._engine.flush(r.uid)
                 if tm.enabled:
                     t_evict = _now()
@@ -307,10 +441,13 @@ class SplitFuseScheduler:
             take = min(budget, room, len(r.prompt) - r.prefill_pos)
             if take < 1:
                 continue
-            if self._prefix_caching and r.prefill_pos == 0:
+            if self._prefix_caching and r.prefill_pos == 0 and \
+                    (not r.generated or r.pos_offset):
                 # longest-cached-prefix match, deferred to the moment the
                 # first chunk actually schedules — by then earlier requests
-                # have committed their blocks
+                # have committed their blocks. A re-admitted request
+                # (pos_offset) matches over prompt + its earlier tokens, so
+                # only the tail past its last committed digest re-runs.
                 matched = self._engine.match_prefix(r.uid, r.prompt)
                 if tm.enabled:
                     tm.serving_event("prefix_hit" if matched
@@ -393,6 +530,16 @@ class SplitFuseScheduler:
 
     def step(self):
         """One scheduling round + forward. Returns uids finished this round."""
+        pending = self.step_begin()
+        return self.step_finish(pending) if pending is not None else []
+
+    def step_begin(self):
+        """Compose one round and launch its forward and device sampling
+        without fetching the result (no host sync). Returns an opaque
+        pending handle for ``step_finish``, or None when nothing was
+        schedulable. A fleet stepping several replicas begins them all and
+        then finishes them all, so one replica's host work overlaps the
+        others' device work instead of waiting on each fetch in turn."""
         self._try_resume()
         uids, chunks = self._compose()
         if not uids:
@@ -403,7 +550,7 @@ class SplitFuseScheduler:
                         f"no schedulable work for {self._starved} rounds: "
                         f"preempted sequence(s) cannot be resumed (KV cache "
                         f"too small for the request?)")
-            return []
+            return None
         # shrink the proposal until the engine admits it (KV pressure):
         # drafts shed first — a speculating row trims back to its 1-token
         # chunk (``_try_resume`` gates resume on 1-token growth, so popping
@@ -428,12 +575,12 @@ class SplitFuseScheduler:
             self._starved += 1
             if self._preempt_for_progress():
                 self._starved = 0
-                return []
+                return None
             if self._starved > 3:
                 raise RuntimeError(
                     f"no schedulable work for {self._starved} rounds: "
                     f"{verdict.reason} (KV cache too small for any request?)")
-            return []
+            return None
         self._starved = 0
         tm = telemetry.get_telemetry()
         enabled = tm.enabled
@@ -463,8 +610,8 @@ class SplitFuseScheduler:
             # position after its chunk (decode rows: len(generated) counts
             # chunk[0], the drafts follow), or at the first generated
             # position (prefill rows; mid-prompt rows discard theirs)
-            positions = [len(r.generated) if r.prefilling
-                         else len(r.generated) + len(c) - 1
+            positions = [len(r.generated) + r.pos_offset if r.prefilling
+                         else len(r.generated) + len(c) - 1 + r.pos_offset
                          for r, c in zip(reqs, chunks)]
             # rows that can roll back commit their prefix-cache blocks only
             # after the accept walk
@@ -483,12 +630,23 @@ class SplitFuseScheduler:
                 top_ks=[r.top_k for r in reqs],
                 top_ps=[r.top_p for r in reqs],
                 seeds=[r.seed for r in reqs],
-                positions=[len(r.generated) for r in reqs])
+                positions=[len(r.generated) + r.pos_offset for r in reqs])
         else:
             logits = self._engine.put(uids, chunks)
-        if logits is None:
-            # the only device sync of the round
+            ids = None
+        return (uids, chunks, ids, logits, t_fwd, was_prefilling, sched_tokens)
+
+    def step_finish(self, pending):
+        """Fetch a launched round's sampled ids (the round's one device
+        sync) and retire its tokens and finished requests. Returns the uids
+        finished this round."""
+        uids, chunks, ids, logits, t_fwd, was_prefilling, sched_tokens = pending
+        tm = telemetry.get_telemetry()
+        # t_fwd == 0.0: telemetry was off at launch, so the round stays dark
+        enabled = tm.enabled and t_fwd > 0.0
+        if ids is not None:
             ids = self._engine.host_fetch(ids, "scheduler/sampled_ids").numpy()
+        spec = self._spec
         t_done = 0.0
         if enabled:
             t_done = _now()
@@ -502,17 +660,25 @@ class SplitFuseScheduler:
         # per-round speculation tallies (gauges + the EWMA)
         n_decode_rows = decode_committed = drafted = accepted = occ_cols = 0
         for row, uid in enumerate(uids):
-            r = reqs[row]
+            r = self._requests[uid]
             if r.prefilling:
                 self.prefill_tokens_executed += len(chunks[row])
                 r.prefill_pos += len(chunks[row])
                 if r.prefilling:
                     continue  # mid-prompt ids/logits are not a next token
-                # the final prefill chunk: its last column is the row's
-                # ordinary last-token sample
-                emitted = [int(ids[row, -1])] if spec else \
-                    [int(ids[row]) if logits is None
-                     else self._sample(r, logits[row])]
+                if r.generated:
+                    # a re-admitted row finishing its re-prefill: the
+                    # stream's last committed token is already in
+                    # ``generated`` (its context ends the rebuilt prompt),
+                    # so this sample would duplicate it; decode resumes by
+                    # feeding that token as an ordinary chunk next round
+                    emitted = []
+                else:
+                    # the final prefill chunk: its last column is the row's
+                    # ordinary last-token sample
+                    emitted = [int(ids[row, -1])] if spec else \
+                        [int(ids[row]) if logits is None
+                         else self._sample(r, logits[row])]
             elif spec:
                 # accept walk: target column c is the token plain decode
                 # would emit after chunk position c; drafts match targets
@@ -574,6 +740,11 @@ class SplitFuseScheduler:
                     len(r.generated) >= r.max_new_tokens:
                 r.done = True
                 self._active -= 1
+                # disaggregation hook: a truthy return means the KV pages
+                # and the remaining decode moved to another scheduler, whose
+                # finish is the request's terminal event
+                if self.on_finish is not None and self.on_finish(self, r):
+                    continue
                 self._engine.flush(uid)
                 finished.append(uid)
                 if enabled:
@@ -637,7 +808,8 @@ class SplitFuseScheduler:
             logits = np.where(logits < cutoff, -1e9, logits)
         p = np.exp(logits - logits.max())
         p /= p.sum()
-        rng = np.random.default_rng((r.seed << 20) + len(r.generated))
+        rng = np.random.default_rng(
+            (r.seed << 20) + len(r.generated) + r.pos_offset)
         return int(rng.choice(len(p), p=p))
 
     def results(self):

@@ -19,7 +19,7 @@ read, no device synchronisation, no file I/O.
 
 What waits raises ``NotImplementedError`` naming its ``ROADMAP.md`` item:
 the comm, dispatch, compile, memory, MoE and goodput-ledger streams and the
-flight recorder (A15), the fleet stream (A8) and the overlap report (A10).
+flight recorder (A15) and the overlap report (A10).
 """
 
 from deepspeed_tpu_torch.telemetry.core import Telemetry, _NULL_SPAN  # noqa: F401
@@ -124,6 +124,23 @@ def slo_snapshot():
     return _GLOBAL.slo_snapshot()
 
 
+def fleet_event(event, n=1, **tags):
+    """Count one fleet outcome (admitted/queued/rejected/affinity_hit/...)."""
+    _GLOBAL.fleet_event(event, n=n, **tags)
+
+
+def fleet_gauge(name, value, **tags):
+    """Record a fleet-level gauge (queue depth, shed rate, live replicas)."""
+    _GLOBAL.fleet_gauge(name, value, **tags)
+
+
+def record_handoff(uid, pages, nbytes, seconds, src="prefill", dst="decode",
+                   bound=None, wire_nbytes=None):
+    """One prefill->decode KV page handoff (see ``Telemetry.record_handoff``)."""
+    _GLOBAL.record_handoff(uid, pages, nbytes, seconds, src=src, dst=dst,
+                           bound=bound, wire_nbytes=wire_nbytes)
+
+
 def summary():
     return _GLOBAL.summary()
 
@@ -161,8 +178,6 @@ for _name, _item in (
         ("record_moe_step", _PLATFORM), ("flight_record", _PLATFORM),
         ("flush_postmortem", _PLATFORM), ("format_summary", _PLATFORM),
         ("log_summary", _PLATFORM),
-        ("fleet_event", "A8 (fleet)"), ("fleet_gauge", "A8 (fleet)"),
-        ("record_handoff", "A8 (fleet)"),
         ("attach_overlap", "A10 (the rest of ZeRO++: the overlap schedule)")):
     globals()[_name] = _waits(_name, _item)
 del _name, _item

@@ -21,6 +21,10 @@ One object owns the measurement streams of the serving path:
   implicitly.
 - **SLO classes** (``set_slo_classes`` / ``slo_observe``): per-class
   attainment counters, burn-rate and error-budget gauges.
+- **fleet stream** (``fleet_event`` / ``fleet_gauge`` / ``record_handoff``):
+  the serving fleet's router outcomes, its queue / shed gauges and the
+  prefill->decode KV page handoffs (pages, device bytes, wire bytes,
+  latency), in ``summary()["fleet"]``.
 
 Exporters: a Chrome-trace JSON file (``chrome://tracing`` / Perfetto) and a
 JSON-lines metrics file; every JSON-lines record is stamped with
@@ -32,7 +36,7 @@ the guard check.
 
 The JAX package's comm, dispatch, compile, memory, MoE and goodput-ledger
 streams and the flight recorder are not part of this module (ROADMAP A15),
-nor are its fleet stream (A8) and overlap report (A10).
+nor is its overlap report (A10).
 
 This module imports only the standard library at module scope; torch is
 imported inside the enabled-only span end.
@@ -210,6 +214,12 @@ class Telemetry:
         self.series = {}          # name -> SeriesRing
         self.slo_stats = {}       # class -> metric -> [attained, violations]
         self._flow_ids = {}       # uid -> chrome flow id
+        # fleet stream (router admission + prefill/decode handoffs)
+        self.fleet_counters = {}  # admission outcome -> count
+        self.fleet_gauges = {}    # name -> [last, peak]
+        self.fleet_handoff = {"count": 0, "pages_shipped": 0,
+                              "pages_bound": 0, "bytes": 0,
+                              "wire_bytes": 0, "total_s": 0.0}
 
     # ------------------------------------------------------------------
     # configuration
@@ -518,6 +528,86 @@ class Telemetry:
             self._emit_jsonl({"name": name, "kind": "gauge", "value": v,
                               "tags": tags or {}})
 
+    # ------------------------------------------------------------------
+    # fleet stream
+    # ------------------------------------------------------------------
+    def fleet_event(self, event, n=1, **tags):
+        """Count one fleet outcome ("admitted", "queued", "rejected",
+        "affinity_hit", "handoff_retry", "replica_lost", ...), surfaced in
+        ``summary()["fleet"]["events"]``."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self.fleet_counters[event] = self.fleet_counters.get(event, 0) + n
+            self._emit_jsonl({"name": f"fleet/req/{event}", "kind": "counter",
+                              "value": n, "tags": tags or {}})
+
+    def fleet_gauge(self, name, value, **tags):
+        """Fleet-level gauge (router queue depth, shed rate, live replicas):
+        keeps last + peak, emits a Chrome counter track and a JSONL line.
+        Host-side values only, like ``serving_gauge``."""
+        if not self.enabled:
+            return
+        v = float(value)
+        with self._lock:
+            rel = _now() - self._epoch
+            self._gauge_locked(self.fleet_gauges, name, v)
+            self._record_series_locked(name, rel, v)
+            self.trace_events.append(
+                {"name": name, "ph": "C", "cat": "fleet",
+                 "ts": round(rel * 1e6, 3),
+                 "pid": os.getpid(), "args": {"value": v}})
+            self._emit_jsonl({"name": name, "kind": "gauge", "value": v,
+                              "tags": tags or {}})
+
+    def record_handoff(self, uid, pages, nbytes, seconds, src="prefill",
+                       dst="decode", bound=None, wire_nbytes=None):
+        """One prefill->decode KV page handoff: adds pages, bytes and
+        latency to ``summary()["fleet"]["handoff"]`` (whose accounting
+        identity is ``pages_shipped == pages_bound``), records a
+        ``fleet/handoff_s`` histogram sample, and drops a "handoff" slice
+        on the request's Chrome-trace lane between its prefill and decode
+        phases. ``nbytes`` is the device page footprint; ``wire_nbytes``
+        what crosses (or would cross) a link: the serialized frame's bytes
+        on the wire codec."""
+        if not self.enabled:
+            return
+        seconds = float(seconds)
+        t_end = _now()
+        wire = int(nbytes if wire_nbytes is None else wire_nbytes)
+        with self._lock:
+            h = self.fleet_handoff
+            h["count"] += 1
+            h["pages_shipped"] += int(pages)
+            h["pages_bound"] += int(pages if bound is None else bound)
+            h["bytes"] += int(nbytes)
+            h["wire_bytes"] += wire
+            h["total_s"] += seconds
+            self._emit_jsonl({"name": "fleet/handoff", "kind": "seconds",
+                              "value": seconds,
+                              "tags": {"uid": uid, "pages": int(pages),
+                                       "bytes": int(nbytes), "wire_bytes": wire,
+                                       "src": src, "dst": dst}})
+        self.record_hist("fleet/handoff_s", seconds)
+        self.record_request_phase(uid, "handoff", t_end - seconds, seconds,
+                                  pages=int(pages), bytes=int(nbytes),
+                                  src=src, dst=dst)
+        self.record_request_flow(uid, "handoff", pages=int(pages))
+
+    def _fleet_summary(self):
+        # caller holds self._lock
+        h = self.fleet_handoff
+        gauges = {name: {"last": round(g[0], 6), "peak": round(g[1], 6)}
+                  for name, g in sorted(self.fleet_gauges.items())}
+        return {"events": {k: int(v) for k, v in sorted(self.fleet_counters.items())},
+                "gauges": gauges,
+                "handoff": {"count": int(h["count"]),
+                            "pages_shipped": int(h["pages_shipped"]),
+                            "pages_bound": int(h["pages_bound"]),
+                            "bytes": int(h["bytes"]),
+                            "wire_bytes": int(h["wire_bytes"]),
+                            "total_s": round(h["total_s"], 6)}}
+
     def gauge_value(self, name):
         """Last recorded value of serving gauge ``name`` (None when disabled
         or never recorded): the O(1) read through which the scheduler's
@@ -671,6 +761,7 @@ class Telemetry:
                         for name, per in sorted(self.counters.items())}
             return {"enabled": True, "spans": spans, "counters": counters,
                     "serving": self._serving_summary(),
+                    "fleet": self._fleet_summary(),
                     "timeseries": {name: ring.summary() for name, ring
                                    in sorted(self.series.items())},
                     "slo": self._slo_summary()}

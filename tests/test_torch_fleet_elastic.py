@@ -1,0 +1,509 @@
+"""The port's fleet elasticity against the JAX package's, on the CPU.
+
+Mirrors ``tests/test_fleet_elastic.py``: a decode replica killed mid-stream
+loses no request and no token (survivors and re-admitted streams stay
+bit-exact against the monolithic run, greedy and seeded, and the greedy
+streams equal the JAX fleet's under the same fault), transport drops are
+retried and exhausted retries fall back to re-prefill, the router retires
+every terminal outcome from its backlog model, planned scale-downs drain
+and the warm pool revives at a new lifecycle key, the autoscaler's policy
+holds on fakes, the lifecycle state machine survives 300 randomized ops,
+SLO shed precedence sends batch and untagged arrivals away while
+interactive burns, and the elasticity layer does no telemetry-core work
+when telemetry is off. The same tiny fp32 Llama (flax ``PRNGKey(0)``
+weights through ``params_from_flax``) serves in both packages.
+"""
+
+import tracemalloc
+
+import numpy as np
+import pytest
+
+from deepspeed_tpu.inference.v2.fleet import PrefillDecodeFleet as JaxFleet
+from deepspeed_tpu.resilience import faults as jax_faults
+from deepspeed_tpu_torch import telemetry
+from deepspeed_tpu_torch.inference.v2.fleet import (
+    DEAD, DRAINING, LIVE, FailureDetector, FleetAutoscaler,
+    PrefillDecodeFleet, ReplicaLifecycle, RequestAdmitted, RequestRejected,
+    SLORouter)
+from deepspeed_tpu_torch.inference.v2.fleet import lifecycle as lc_mod
+from deepspeed_tpu_torch.resilience import faults
+from deepspeed_tpu_torch.telemetry import core as telemetry_core
+from torch_fleet_support import (ENG, assert_bit_exact, clean_state, requests,
+                                 served_models, single_reference)
+
+
+@pytest.fixture(autouse=True)
+def _clean_state():
+    clean_state()
+    yield
+    clean_state()
+
+
+@pytest.fixture(scope="module")
+def served():
+    jcfg, jmodel, params, model = served_models()
+    return jcfg, jmodel, params, model
+
+
+def make_fleet(model, decode_replicas=2, **kw):
+    kw.setdefault("engine_config", ENG)
+    kw.setdefault("token_budget", 48)
+    return PrefillDecodeFleet(model, prefill_replicas=2,
+                              decode_replicas=decode_replicas,
+                              devices=["cpu"] * (2 + decode_replicas), **kw)
+
+
+def _requests(cfg, n=4, seed=5, max_new=6, sampling=False):
+    return requests(cfg.vocab_size, n=n, seed=seed, max_new=max_new,
+                    sampling=sampling)
+
+
+@pytest.fixture(scope="module")
+def jax_loss_run(served):
+    """The JAX fleet's greedy replica-loss drill, run once."""
+    jcfg, jmodel, params, _ = served
+    clean_state()
+    fleet = JaxFleet(jmodel, params, prefill_replicas=2, decode_replicas=2,
+                     engine_config=ENG, token_budget=48)
+    jax_faults.configure("replica.lost:n3@step3")
+    for uid, (prompt, kwargs) in _requests(jcfg, n=4, seed=5).items():
+        fleet.submit(uid, prompt, **kwargs)
+    got = fleet.run_to_completion()
+    jax_faults.reset()
+    return {u: np.asarray(v, np.int32) for u, v in got.items()}, \
+        fleet.readmitted, fleet.transport.stats()
+
+
+# ---------------------------------------------------------------------------
+# replica loss recovery: bit-exact re-admission, zero page leaks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sampling,speculate", [(False, True), (True, True), (True, False)],
+                         ids=["greedy", "seeded-sampling", "seeded-sampling-plain-decode"])
+def test_replica_loss_recovery_bit_exact(served, sampling, speculate, jax_loss_run):
+    """Kill decode0 mid-stream (``replica.lost`` is polled prefill0,
+    prefill1, decode0, decode1 each round, so the 3rd hit in the step-3
+    window is decode0). Every re-admitted stream resumes at the same
+    (seed, position) and the merged output equals the monolithic run token
+    for token (and, greedy, the JAX fleet's under the same fault), on
+    speculating and on plain decode replicas; the dead pool is
+    census-exempt and nothing leaks."""
+    cfg, _, _, model = served
+    reqs = _requests(cfg, n=4, seed=11 if sampling else 5, sampling=sampling)
+    want = single_reference(model, reqs)
+    fleet = make_fleet(model, speculative_default=speculate)
+    faults.configure("replica.lost:n3@step3")
+    for uid, (prompt, kwargs) in reqs.items():
+        fleet.submit(uid, prompt, **kwargs)
+    got = fleet.run_to_completion()
+    assert fleet.replica_losses == 1
+    assert fleet.lifecycle.state(("decode", 0)) == DEAD
+    assert fleet.readmitted > 0
+    assert_bit_exact(got, want)
+    if not sampling:
+        jgot, jreadmitted, jstats = jax_loss_run
+        assert_bit_exact(got, jgot)
+        assert fleet.readmitted == jreadmitted
+        st = fleet.transport.stats()
+        assert (st["pages_shipped"], st["pages_bound"]) == \
+            (jstats["pages_shipped"], jstats["pages_bound"])
+    assert fleet.page_census()["leaked_pages"] == 0
+    assert all(outcome != "lost" for _, outcome in fleet.drain_terminal())
+
+
+def test_transport_retry_absorbs_transient_drop(served):
+    """One injected ``transport.drop`` is retried inside the transport
+    (typed retry accounting, no failed handoff) and the run stays
+    bit-exact — the retried attempt re-exports because the fault fires
+    BEFORE the source pages are released."""
+    cfg, _, _, model = served
+    requests = _requests(cfg, n=3, seed=23)
+    want = single_reference(model, requests)
+
+    fleet = make_fleet(model, decode_replicas=1)
+    faults.configure("transport.drop:n1")
+    for uid, (prompt, kwargs) in requests.items():
+        fleet.submit(uid, prompt, **kwargs)
+    got = fleet.run_to_completion()
+
+    assert fleet.transport.retry_trips >= 1
+    assert fleet.transport.failed_handoffs == 0
+    assert fleet.handoff_fallbacks == 0
+    assert_bit_exact(got, want)
+    assert fleet.page_census()["leaked_pages"] == 0
+
+
+def test_exhausted_transport_retries_fall_back_to_reprefill(served):
+    """``transport.drop:always`` exhausts every retry: the HandoffError
+    never escapes ``fleet.step()`` — each handed-off request re-prefills
+    on the decode side (prefill compute paid twice, output unchanged) and
+    the stranded source pages are flushed, not leaked."""
+    cfg, _, _, model = served
+    requests = _requests(cfg, n=3, seed=29)
+    want = single_reference(model, requests)
+
+    fleet = make_fleet(model, decode_replicas=1)
+    faults.configure("transport.drop:always")
+    for uid, (prompt, kwargs) in requests.items():
+        fleet.submit(uid, prompt, **kwargs)
+    got = fleet.run_to_completion()
+
+    assert fleet.transport.failed_handoffs == len(requests)
+    assert fleet.handoff_fallbacks == len(requests)
+    assert fleet.readmitted == len(requests)
+    assert fleet.transport.pages_bound == 0  # no ship ever completed
+    assert_bit_exact(got, want)
+    assert fleet.page_census()["leaked_pages"] == 0
+
+
+# ---------------------------------------------------------------------------
+# router backlog accounting: every terminal outcome retires
+# ---------------------------------------------------------------------------
+
+def test_router_accounting_identity_across_terminal_outcomes(served):
+    """Finish, cancel and replica loss all retire from the router's
+    backlog model: after the drain the accounting identity holds with
+    zero in-flight entries and zero phantom backlog tokens."""
+    cfg, _, _, model = served
+    fleet = make_fleet(model)
+    router = SLORouter(fleet, slo_ttft_s=60.0, prefix_affinity=False)
+    faults.configure("replica.lost:n3@step4")
+    requests = _requests(cfg, n=5, seed=31)
+    for uid, (prompt, kwargs) in requests.items():
+        assert isinstance(router.submit(uid, prompt, **kwargs),
+                          RequestAdmitted)
+    router.step()
+    assert fleet.cancel(0)  # mid-flight cancel is a terminal outcome too
+    out = router.run_to_completion()
+
+    assert fleet.replica_losses == 1
+    # survivors all complete; the cancelled uid never grew past its partial
+    assert {1, 2, 3, 4} <= set(out)
+    assert all(len(out[u]) == 6 for u in (1, 2, 3, 4))
+    assert len(out.get(0, ())) < 6
+    assert router.terminal_retired >= 1  # at least the cancel
+    rep = router.report()
+    acc = rep["accounting"]
+    assert acc["identity_holds"] is True
+    assert acc["in_flight"] == 0
+    assert acc["backlog_total"] == 0
+    assert rep["backlog_tokens"] == [0] * len(fleet.prefill)
+
+
+# ---------------------------------------------------------------------------
+# planned scale-down: drain, migrate, warm-pool revival at a NEW key
+# ---------------------------------------------------------------------------
+
+def test_scale_down_migrates_and_warm_pool_revives_at_new_key(served):
+    """Draining a decode replica migrates its in-flight streams (cancel +
+    bit-exact re-admission — the recovery path, reused), retires the
+    engine to the warm pool, and the next scale-up revives it at a NEW
+    lifecycle key: dead keys never flip back to live."""
+    cfg, _, _, model = served
+    requests = _requests(cfg, n=4, seed=37, max_new=8)
+    want = single_reference(model, requests)
+
+    fleet = make_fleet(model)
+    for uid, (prompt, kwargs) in requests.items():
+        fleet.submit(uid, prompt, **kwargs)
+    # step until some request lives on a decode replica
+    for _ in range(50):
+        fleet.step()
+        busy = [j for j in fleet.live_decode_indices()
+                if fleet.decode_active(j) > 0]
+        if busy:
+            break
+    assert busy, "no decode replica ever took work"
+    j = busy[0]
+    fleet.scale_down_decode(j)
+
+    assert fleet.lifecycle.state(("decode", j)) == DEAD  # idle post-migrate
+    assert fleet.readmitted > 0  # migration reused the recovery path
+    assert len(fleet._warm_decode) == 1
+    k = fleet.scale_up_decode()
+    assert k == len(fleet.decode) - 1 and k != j
+    assert len(fleet._warm_decode) == 0  # revived from the warm pool
+    assert fleet.lifecycle.is_live(("decode", k))
+    assert not fleet.lifecycle.is_live(("decode", j))  # tombstone stays
+
+    got = fleet.run_to_completion()
+    assert_bit_exact(got, want)
+    assert fleet.page_census()["leaked_pages"] == 0
+
+
+# ---------------------------------------------------------------------------
+# autoscaler policy (pure host: fakes, no engines)
+# ---------------------------------------------------------------------------
+
+class _FakeFleet:
+    def __init__(self, decode=1):
+        self._next = decode
+        self._live = list(range(decode))
+        self.active = {j: 0 for j in self._live}
+        self.occupancy = {j: 0.0 for j in self._live}
+
+    def live_decode_indices(self):
+        return list(self._live)
+
+    def live_prefill_indices(self):
+        return [0]
+
+    def decode_active(self, j):
+        return self.active[j]
+
+    def decode_occupancy(self, j):
+        return self.occupancy[j]
+
+    def scale_up_decode(self):
+        j = self._next
+        self._next += 1
+        self._live.append(j)
+        self.active[j] = 0
+        self.occupancy[j] = 0.0
+        return j
+
+    def scale_down_decode(self, j):
+        self._live.remove(j)
+
+    def lose(self, j):
+        self._live.remove(j)
+
+
+class _FakeRouter:
+    queue_depth = 0
+
+
+def test_autoscaler_up_down_floor_and_cooldown():
+    fleet = _FakeFleet(decode=1)
+    router = _FakeRouter()
+    scaler = FleetAutoscaler(fleet, router, min_decode=1, max_decode=3,
+                             up_queue_depth=2, up_occupancy=0.85,
+                             down_idle_rounds=3, cooldown_rounds=4)
+    # quiet fleet at the floor: no action ever
+    assert all(scaler.observe() is None for _ in range(6))
+    # queue pressure scales up once, then the cooldown gates the repeat
+    router.queue_depth = 5
+    assert scaler.observe() == ("up", 1)
+    assert all(scaler.observe() is None for _ in range(4))  # cooling
+    # still saturated after the cooldown: a second replica comes up
+    assert scaler.observe() == ("up", 2)
+    # at max_decode the scaler holds even under pressure
+    for _ in range(5):
+        scaler.observe()
+    assert len(fleet.live_decode_indices()) == 3
+    # pressure gone: the newest idle replica drains after the idle window
+    router.queue_depth = 0
+    act = [scaler.observe() for _ in range(12)]
+    assert ("down", 2) in act
+    assert scaler.scale_ups == 2 and scaler.scale_downs >= 1
+
+
+def test_autoscaler_occupancy_trigger_and_floor_bypasses_cooldown():
+    fleet = _FakeFleet(decode=2)
+    router = _FakeRouter()
+    scaler = FleetAutoscaler(fleet, router, min_decode=2, max_decode=4,
+                             up_occupancy=0.85, cooldown_rounds=10)
+    # KV saturation alone (no queue) triggers the scale-up
+    fleet.occupancy[1] = 0.9
+    assert scaler.observe() == ("up", 2)
+    assert scaler.observe() is None  # cooldown armed
+    # replica loss drops the fleet below the floor: replacement is
+    # immediate, cooldown or not — recovery outranks churn damping
+    fleet.lose(0)
+    fleet.lose(2)
+    assert scaler.observe() == ("up", 3)
+    assert len(fleet.live_decode_indices()) == 2
+    assert scaler.scale_ups == 2
+
+
+def test_autoscaler_rejects_bad_floor():
+    with pytest.raises(ValueError, match="min_decode"):
+        FleetAutoscaler(_FakeFleet(), _FakeRouter(), min_decode=0)
+
+
+# ---------------------------------------------------------------------------
+# lifecycle state machine: 300 randomized ops, no request lost
+# ---------------------------------------------------------------------------
+
+def test_lifecycle_property_300_random_ops():
+    """Randomized live -> draining -> dead churn with an abstract request
+    ledger riding on top (the fleet's re-admission contract in miniature):
+    after every op, each submitted request is in exactly ONE of in-flight /
+    finished / terminally-lost, every in-flight owner still steps, illegal
+    transitions raise without corrupting state, and dead keys stay dead."""
+    rng = np.random.default_rng(0)
+    lcm = ReplicaLifecycle()
+    keys = []
+    in_flight = {}   # uid -> owner key
+    finished, lost = set(), set()
+    next_key = next_uid = 0
+
+    def pick(state_pred):
+        cand = [k for k in keys if state_pred(lcm.state(k))]
+        return cand[int(rng.integers(len(cand)))] if cand else None
+
+    for _ in range(300):
+        op = rng.choice(["add", "admit", "admit", "finish", "finish",
+                         "drain", "kill", "illegal"])
+        if op == "add" or not keys:
+            lcm.add(next_key)
+            keys.append(next_key)
+            with pytest.raises(ValueError, match="already registered"):
+                lcm.add(next_key)  # keys are single-use
+            next_key += 1
+        elif op == "admit":
+            k = pick(lambda s: s == LIVE)
+            if k is not None:
+                assert next_uid not in in_flight  # never double-admitted
+                in_flight[next_uid] = k
+                next_uid += 1
+        elif op == "finish":
+            live_uids = [u for u, k in in_flight.items()
+                         if lcm.is_stepping(k)]
+            if live_uids:
+                u = live_uids[int(rng.integers(len(live_uids)))]
+                finished.add(u)
+                del in_flight[u]
+        elif op == "drain":
+            k = pick(lambda s: s == LIVE)
+            if k is not None:
+                lcm.mark_draining(k)  # keeps stepping its in-flight work
+        elif op == "kill":
+            k = pick(lambda s: s in (LIVE, DRAINING))
+            if k is not None:
+                lcm.mark_dead(k)
+                survivors = [x for x in keys if lcm.is_live(x)]
+                for u in [u for u, o in in_flight.items() if o == k]:
+                    if survivors:  # re-admit, exactly once, elsewhere
+                        in_flight[u] = survivors[
+                            int(rng.integers(len(survivors)))]
+                    else:          # total outage: terminal loss, accounted
+                        lost.add(u)
+                        del in_flight[u]
+        elif op == "illegal":
+            k = pick(lambda s: s == DEAD)
+            if k is not None:
+                for bad in (lcm.mark_draining, lcm.mark_dead):
+                    with pytest.raises(ValueError, match="illegal"):
+                        bad(k)
+                assert lcm.state(k) == DEAD  # raise left state untouched
+            with pytest.raises(KeyError):
+                lcm.mark_dead(("never", "registered"))
+
+        # -- invariants, every op --
+        assert len(in_flight) + len(finished) + len(lost) == next_uid
+        assert finished.isdisjoint(lost)
+        assert all(lcm.is_stepping(k) for k in in_flight.values())
+        counts = lcm.counts()
+        assert sum(counts.values()) == len(keys)
+        assert all(not lcm.is_live(k) for k in keys
+                   if lcm.state(k) == DEAD)
+
+    assert next_uid > 30 and len(keys) > 10  # the run actually churned
+    assert not lost or any(lcm.state(k) != LIVE for k in keys)
+
+
+# ---------------------------------------------------------------------------
+# SLO shed precedence: batch absorbs, interactive keeps the capacity
+# ---------------------------------------------------------------------------
+
+SLO_CLASSES = {
+    "interactive": {"ttft_target_s": 0.5, "tpot_target_s": 0.25,
+                    "attainment_target": 0.9},
+    "batch": {"ttft_target_s": 30.0, "tpot_target_s": 2.0,
+              "attainment_target": 0.5},
+}
+
+
+def test_shed_precedence_batch_absorbs_while_interactive_burns(served):
+    """With the interactive class's burn-rate gauge over 1, batch and
+    untagged arrivals shed immediately (typed, per-class accounted) while
+    interactive arrivals keep admitting — the precedence never reverses."""
+    cfg, _, _, model = served
+    telemetry.configure(enabled=True, sample_sync=False)
+    telemetry.set_slo_classes(SLO_CLASSES)
+    # 5 violations in 15 observations = rate 1/3 against a 0.1 budget:
+    # burn rate ~3.3 — the interactive class is burning
+    for _ in range(10):
+        telemetry.slo_observe("interactive", "ttft", 0.1)
+    for _ in range(5):
+        telemetry.slo_observe("interactive", "ttft", 5.0)
+    tm = telemetry.get_telemetry()
+    assert tm.gauge_value("slo/interactive/ttft_burn_rate") > 1.0
+
+    fleet = make_fleet(model, decode_replicas=1)
+    router = SLORouter(fleet, slo_ttft_s=60.0, prefix_affinity=False)
+    rng = np.random.default_rng(41)
+
+    def prompt():
+        return rng.integers(0, cfg.vocab_size, 24).astype(np.int32)
+
+    b = router.submit(0, prompt(), max_new_tokens=3, slo_class="batch")
+    u = router.submit(1, prompt(), max_new_tokens=3)
+    i = router.submit(2, prompt(), max_new_tokens=3,
+                      slo_class="interactive")
+    assert isinstance(b, RequestRejected) and "precedence" in b.reason
+    assert isinstance(u, RequestRejected) and "precedence" in u.reason
+    assert isinstance(i, RequestAdmitted)
+    assert router.shed_by_class == {"batch": 1, None: 1}
+
+    out = router.run_to_completion()
+    assert set(out) == {2} and len(out[2]) == 3  # only interactive ran
+    rep = router.report()
+    assert rep["shed_by_class"] == {"batch": 1, "None": 1}
+    assert rep["accounting"]["identity_holds"] is True
+    flt = telemetry.summary()["fleet"]
+    assert flt["events"]["shed"] == 2 and flt["events"]["admitted"] == 1
+
+
+# ---------------------------------------------------------------------------
+# disabled-telemetry zero overhead for the elasticity layer
+# ---------------------------------------------------------------------------
+
+def test_disabled_elasticity_zero_clock_reads_and_core_allocs(monkeypatch):
+    """Telemetry off, the whole elasticity control loop — lifecycle
+    bookkeeping, heartbeat checks on an injected clock, autoscaler
+    observe/report ticks — performs ZERO reads of ``lifecycle._now`` and
+    ZERO allocations inside the telemetry core."""
+    assert not telemetry.enabled()
+
+    def _boom():
+        raise AssertionError(
+            "disabled elasticity path must not read the wall clock")
+    monkeypatch.setattr(lc_mod, "_now", _boom)
+
+    clock = {"t": 0.0}
+    fleet = _FakeFleet(decode=2)
+    router = _FakeRouter()
+    lcm = ReplicaLifecycle()
+    det = FailureDetector(timeout_s=5.0, clock=lambda: clock["t"])
+    scaler = FleetAutoscaler(fleet, router, min_decode=1, max_decode=4,
+                             down_idle_rounds=3, cooldown_rounds=2)
+    for j in (0, 1):
+        lcm.add(("decode", j))
+        det.beat(("decode", j))  # both beat once; decode1 then goes quiet
+
+    tracemalloc.start()
+    snap0 = tracemalloc.take_snapshot()
+    for round_no in range(50):
+        clock["t"] += 1.0
+        det.beat(("decode", 0))  # decode1 stops beating: declared dead
+        for key in det.check():
+            if lcm.is_stepping(key):
+                lcm.mark_dead(key)
+                det.forget(key)
+        router.queue_depth = 5 if round_no % 10 == 0 else 0
+        scaler.observe()
+        scaler.report()
+    snap1 = tracemalloc.take_snapshot()
+    tracemalloc.stop()
+
+    assert lcm.state(("decode", 1)) == DEAD  # the detector did fire
+    assert scaler.scale_ups > 0              # the scaler did act
+    core_filter = [tracemalloc.Filter(True, telemetry_core.__file__)]
+    grown = [st for st in
+             snap1.filter_traces(core_filter).compare_to(
+                 snap0.filter_traces(core_filter), "lineno")
+             if st.size_diff > 0]
+    assert not grown, f"telemetry core allocated when disabled: {grown}"

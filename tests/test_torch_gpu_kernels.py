@@ -1806,6 +1806,79 @@ def test_quant_raises_instead_of_falling_back(cuda):
     assert qc.block_quantize.launches == before
 
 
+@gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("pages", [1, 3, 7])
+def test_quant_kernels_at_the_wire_shape(cuda, dtype, pages):
+    """Rows 5-6 as the fleet's wire codec calls them: page rows [layers x
+    pages x kv heads x block, 128], one group of 128 a row, on the routes
+    the source declares (``quantize_block`` / ``dequant_reduce_block``),
+    bit for bit against their plain versions; and a frame encoded from the
+    pages on the card is the frame the CPU's plain versions encode."""
+    from deepspeed_tpu_torch.inference.v2.fleet import wire
+    from deepspeed_tpu_torch.ops import quant_collective as qc
+    L, H, bs, hd = 4, 8, 64, 128
+    g = torch.Generator(device=cuda).manual_seed(pages)
+    k = torch.randn(L, pages, H, bs, hd, generator=g, device=cuda).to(dtype)
+    v = torch.randn(L, pages, H, bs, hd, generator=g, device=cuda).to(dtype)
+    k[0, 0, 0, 0] = 0.0                          # an all-zero row: scale 1
+    rows = k.reshape(-1, hd)
+    assert qc.kernel_route("quantize", hd, hd, 8, dtype) == "quantize_block"
+    assert qc.kernel_route("dequantize_reduce", hd, hd, 8, peers=1) == \
+        "dequant_reduce_block"
+    tally = qc.kernel_launches()
+    q, sc = qc.block_quantize(rows, 8, group_size=hd)
+    q_ref, s_ref = quant_plain(rows, 8, hd)
+    assert same_bits(q, q_ref) and same_bits(sc, s_ref)
+    assert bool((sc[0, 0] == 1.0).item())
+    out = qc.block_dequantize(q, sc, 8, group_size=hd, out_len=hd)
+    plain = qc._dequantize_reduce_ref(q.reshape(1, -1, hd), sc.reshape(1, -1), 8)
+    torch.cuda.synchronize()
+    assert same_bits(out, plain.reshape(out.shape))
+    launched = {n: c - tally[n] for n, c in qc.kernel_launches().items() if c > tally[n]}
+    assert launched == {"quantize_block": 1, "dequant_reduce_block": 1}
+    seqs = [{"uid": 0, "n": pages, "seen_tokens": pages * bs, "tokens": []}]
+    on_card = wire.encode_handle({"n": pages, "k": k, "v": v, "seqs": seqs})
+    on_host = wire.encode_handle({"n": pages, "k": k.cpu(), "v": v.cpu(), "seqs": seqs})
+    assert on_card == on_host
+    back = wire.decode_frame(on_card, cuda)
+    assert back["k"].device.type == "cuda"
+    assert torch.equal(back["k"].cpu(), wire.decode_frame(on_host, "cpu")["k"])
+
+
+@gpu
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+def test_export_import_blocks_across_engines_bitwise(cuda, kv_dtype):
+    """A prefilled sequence's pages leave one engine on the card
+    (``export_pages_many``, a copying gather) and bind in another: the bound
+    pool rows equal the exported ones bit for bit, the source's blocks are
+    free again, and the destination's next decode round gives the logits
+    the source engine gives for the same round."""
+    from deepspeed_tpu_torch.inference.v2 import build_engine
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    model = LlamaForCausalLM.from_seed(LlamaConfig.tiny(), 0, device=cuda)
+    cfg = {"state_manager": {"max_ragged_sequence_count": 4, "max_ragged_batch_size": 64,
+                             "max_context": 256, "num_kv_blocks": 32, "kv_dtype": kv_dtype},
+           "kv_cache": {"block_size": 16, "cache_dtype": "bf16"}}
+    src, dst, mono = (build_engine(model, cfg, device=cuda) for _ in range(3))
+    prompt = np.arange(3, 53, dtype=np.int32)
+    first = src.put([0], [prompt])
+    mono.put([0], [prompt])
+    free = src.free_blocks
+    h = src.export_pages_many([0])
+    parts = [p.clone() for pages in (h["k"], h["v"])
+             for p in (pages if isinstance(pages, tuple) else (pages,))]
+    assert src.free_blocks == free + h["n"]
+    dst.import_pages_many(h)
+    kv = dst._state.kv_cache
+    idx = torch.tensor(dst._state.get_sequence(0).kv_blocks, device=cuda)
+    want = parts if kv_dtype == "fp" else [parts[0], parts[2], parts[1], parts[3]]
+    for pool, w in zip(kv._pools(), want):
+        assert torch.equal(pool.index_select(1, idx), w)
+    tok = np.asarray([int(np.argmax(first[0]))], np.int32)
+    assert np.array_equal(dst.put([0], [tok]), mono.put([0], [tok]))
+
+
 def _nccl_exchange_rank(rank, world, port, out):
     import os
     from deepspeed_tpu_torch.comm import comm as dist

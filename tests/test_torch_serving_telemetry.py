@@ -203,8 +203,8 @@ def test_hist_in_summary_and_schema():
 def test_unported_streams_raise_naming_their_queue_item():
     with pytest.raises(NotImplementedError, match="A15"):
         telemetry.record_comm("all_reduce", 1, 0.1)
-    with pytest.raises(NotImplementedError, match="A8"):
-        telemetry.fleet_event("admitted")
+    with pytest.raises(NotImplementedError, match="A15"):
+        telemetry.flight_record("replica", "replica/lost", {})
     with pytest.raises(NotImplementedError, match="A10"):
         telemetry.attach_overlap({})
 
