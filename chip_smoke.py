@@ -336,7 +336,8 @@ prints no result.
    engine on phase 7's requests, the 16-layer tp 2 engine is held to it as
    above (rows 1 and 9a on every rank), then all 32 layers serve at tp 2
    through ``build_replica`` (per-rank memory, tokens/s, launches); on one
-   card a line says why that part did not run.
+   card a line says why that part did not run. The Llama ranks then run
+   phase 24's speculative and host-tier parts (below).
 
 23. The serving fleet (run right after phase 22's tp 1 reference, on
    phase 3's model: Llama-2-7B, all 32 layers, bf16 from seed 0, phase 3's
@@ -377,11 +378,36 @@ prints no result.
    must equal the in-process fleet's under the same codec. Peak memory per
    device.
 
+24. Tensor-parallel families and features (run after phase 19; phase 15
+   and phase 20 record its tp 1 sides). Falcon-7B at its published width
+   and all 32 layers (71 query heads of 64 cut 36 / 35, both ranks on a
+   copy of the one kv head), then Phi-2 and OPT-6.7B at their published
+   widths with 2 layers, each served at tp 1 on phase 3's 8 requests and
+   replayed at tp 2 by two processes sharing cuda:0 over gloo, held by
+   phase 22's rule (0.1 relative L2 for 32 layers, phase 21's 0.02 for 2;
+   greedy tokens where the tp 1 gap clears the margin) with a planted
+   fault above the bound (rank 1's attention output product half a head
+   off: Falcon-7B's even cut); every rank's paged launches ``num_layers x
+   forwards`` on the route the source declares for its heads. Then W8A16
+   Llama-2-7B (all 32 layers) through ``init_inference`` at tp 2, each
+   rank quantizing the whole tensors and keeping its part (gate/up 5632 and
+   5376 columns), held against phase 15's tp 1 int8 engine along its
+   greedy stream; every quantized linear on row 7 and its launches
+   counted. With 2+ cards Falcon-7B is replayed once more over NCCL, one
+   rank a card. On phase 22's ranks: phase 20's speculative requests at tp
+   2, streams held to phase 20's tp 1 streams (a first difference only
+   where the tp 1 engine fed that stream has a top-2 gap under the
+   margin), drafts speculated and accepted; phase 19's host-tier workload
+   at tp 2, each rank's restored blocks equal to its spilled ones and every
+   round's logits equal to a run that never spills, bit for bit. Rows 1
+   and 7 at these rank shapes are cases of phases 2 and 14.
+
 The script prints its total wall time. The line before the last is one
 JSON object describing each kernel; the last is ``{"ok": true, "device":
 {...}}``. Any failure raises, so the script exits non-zero without it.
 """
 
+import dataclasses
 import gc
 import json
 import os
@@ -567,6 +593,17 @@ CASES = [
     ("decode_serve_7b_tp2", 8, 8, 16, 16, 128, 64, "bfloat16", False, None,
      (64, 1565), [1] * 8),
     ("decode_serve_8x7b_tp2", 8, 8, 16, 4, 128, 64, "bfloat16", False, None,
+     (64, 1565), [1] * 8),
+    # phase 24's rank shares at tp 2: Falcon-7B's 71 query heads cut 36 / 35,
+    # each rank on a copy of the one kv head; Phi-2's 16 heads of 80 (SIMT);
+    # OPT-6.7B's 16 heads of 128 on 16 kv heads
+    ("decode_serve_falcon_7b_tp2_r0", 8, 8, 36, 1, 64, 64, "bfloat16", False, None,
+     (64, 1565), [1] * 8),
+    ("decode_serve_falcon_7b_tp2_r1", 8, 8, 35, 1, 64, 64, "bfloat16", False, None,
+     (64, 1565), [1] * 8),
+    ("decode_serve_phi_2_tp2", 8, 8, 16, 16, 80, 64, "bfloat16", False, None,
+     (64, 1565), [1] * 8),
+    ("decode_serve_opt_6_7b_tp2", 8, 8, 16, 16, 128, 64, "bfloat16", False, None,
      (64, 1565), [1] * 8),
 ]
 
@@ -3284,6 +3321,14 @@ QMM_CASES = [
     ("m1_7b_gate", 1, 4096, 11008, 256, "bfloat16", "bfloat16"),
     ("m13_7b_q", 13, 4096, 4096, 256, "bfloat16", "bfloat16"),
     ("fp16_fp32_out_g128", 64, 4096, 11008, 128, "float16", "float32"),
+    # phase 24's tp 2 rank shares: gate/up cut in whole groups (22 and 21 of
+    # 256), down's K the same ranges
+    ("decode_7b_gate_tp2_r0", 4, 4096, 5632, 256, "bfloat16", "bfloat16"),
+    ("decode_7b_gate_tp2_r1", 4, 4096, 5376, 256, "bfloat16", "bfloat16"),
+    ("prefill_7b_gate_tp2_r0", 1024, 4096, 5632, 256, "bfloat16", "bfloat16"),
+    ("prefill_7b_gate_tp2_r1", 1024, 4096, 5376, 256, "bfloat16", "bfloat16"),
+    ("decode_7b_down_tp2_r0", 4, 5632, 4096, 256, "bfloat16", "bfloat16"),
+    ("decode_7b_down_tp2_r1", 4, 5376, 4096, 256, "bfloat16", "bfloat16"),
 ]
 QMM_L2_BYTES = 50e6            # the H100's L2: timed weights rotate past it
 
@@ -3661,8 +3706,17 @@ def phase_quantized_serving():
                  greedy_parting=parting,
                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"quantized serving {json.dumps(stats)}", flush=True)
-    del engine, model
-    return launches, generate_kernels
+    # phase 24's tp 1 side of W8A16: phase 22's v1 prompts, 16 greedy tokens
+    # and the logits along that stream
+    ids = np.random.default_rng(22).integers(0, cfg.vocab_size, TP_V1_SHAPE)
+    stream = engine.generate(ids, max_new_tokens=TP_V1_NEW).cpu().numpy()
+    forced = engine(np.concatenate([ids, stream[:, :-1]], 1))[:, ids.shape[1] - 1:].float()
+    quant_ref = dict(ids=ids, tokens=stream, logits=forced.cpu().numpy(),
+                     argmax=forced.argmax(-1).cpu().numpy(),
+                     gap=np.stack([round_summary(forced[:, i].cpu().numpy())[1]
+                                   for i in range(TP_V1_NEW)], 1))
+    del engine, model, forced
+    return launches, generate_kernels, quant_ref
 
 
 # ---------------------------------------------------------------------------
@@ -4622,6 +4676,7 @@ def phase_speculative(model):
         verify_batch_occupancy=spec["summary"]["serving"]["gauges"].get(
             "serving/verify_batch_occupancy"))
     print(f"speculative serving {json.dumps(report)}", flush=True)
+    report["streams"] = spec["tokens"]            # phase 24's tp 1 side
     if beyond:
         fail(f"speculative: streams part from the plain streams beyond the near-tie "
              f"slack {SPEC_TIE_SLACK}: (uid, step, plain top-2 gap) {beyond}")
@@ -5107,10 +5162,12 @@ def capture_serving(engine, prompts, n_new, routes=None):
                 streams={u: list(map(int, t)) for u, t in sched.results().items()})
 
 
-def phase_tp_reference(model):
+def phase_tp_reference(model, spec_streams):
     """Phase 22's tp 1 side on phase 3's Llama-2-7B (seed 0): the v2 run's
     rounds and logits, and the v1 engine's prefill logits, 16 greedy tokens
-    and the logits along that stream (``init_inference`` in bf16)."""
+    and the logits along that stream (``init_inference`` in bf16); and phase
+    24's tp 1 side of speculative decode: phase 20's speculative streams
+    (``spec_streams``) with the engine fed each of them (``teacher_forced``)."""
     import numpy as np
     import torch
     import deepspeed_tpu_torch
@@ -5139,6 +5196,10 @@ def phase_tp_reference(model):
                      gap=np.stack([round_summary(stream[:, i].cpu().numpy())[1]
                                    for i in range(TP_V1_NEW)], 1))
     del eng, stream
+    torch.cuda.empty_cache()
+    ref["spec"] = dict(streams=spec_streams,
+                       forced=teacher_forced(model, spec_prompts(cfg.vocab_size),
+                                             spec_streams))
     torch.cuda.empty_cache()
     print(f"tensor parallel: tp 1 reference, {len(ref['rounds'])} rounds at "
           f"{ref['tokens_per_s']:.1f} tokens/s, median round "
@@ -5337,11 +5398,140 @@ def tp_llama_rank(rank, world, port, out_dir):
     res["v1"] = dict(grid=eng.grid, logits=forced.cpu().numpy(),
                      argmax=forced.argmax(-1).cpu().numpy(),
                      tokens=eng.generate(ids, max_new_tokens=TP_V1_NEW).cpu().numpy())
+    del eng, forced
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    res["spec"] = tp_speculative(model, dev)
+    res["host"] = tp_host_tier(model, dev)
+    res["features_s"] = time.perf_counter() - t
     res["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     res["seconds"] = time.perf_counter() - t0
     torch.save(res, Path(out_dir) / f"rank{rank}.pt")
     tdist.barrier()
     tdist.destroy_process_group()
+
+
+def tp_rank_launches(engine, before, forwards):
+    """A rank's row-1 launches and tally since ``before``, its forwards and
+    exchanges."""
+    import torch
+    torch.cuda.synchronize()
+    after = launch_counts()
+    return dict(attention=engine.attention_impl, forwards=forwards,
+                paged_mha_launches=after["paged_mha"],
+                paged_kernels=tally_delta(after["paged_tally"], before["paged_tally"]),
+                exchanges=after["exchanges"],
+                layers=engine._model.config.num_hidden_layers)
+
+
+def tp_speculative(model, dev):
+    """Phase 24's speculative part on phase 22's ranks: phase 20's
+    speculative engine config and requests at tp 2, greedy, through
+    ``SplitFuseScheduler`` on the controller (verify forwards broadcast to
+    the follower); streams, draft and accept counts, rounds, launches."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import SplitFuseScheduler, build_engine
+    cfg = dict(spec_engine_config(True), tensor_parallel={"tp_size": TP_SIZE})
+    engine = build_engine(model, cfg, device=dev)
+    torch.cuda.synchronize()
+    before = launch_counts(reset=True)
+    if not engine.is_controller:
+        out = tp_rank_launches(engine, before, engine.follow())
+        del engine
+        gc.collect()
+        return out
+    sched = SplitFuseScheduler(engine)
+    prompts = spec_prompts(model.config.vocab_size)
+    for uid, p in prompts.items():
+        sched.submit(uid, p, max_new_tokens=SPEC_NEW,
+                     slo_class="interactive" if uid % 2 == 0 else "batch")
+    rounds, t = 0, time.perf_counter()
+    while sched.has_work:
+        sched.step()
+        rounds += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    engine.stop_followers()
+    out = tp_rank_launches(engine, before, engine.host_sync_count)
+    out.update(streams={u: v.tolist() for u, v in sched.results().items()},
+               speculated=sched.speculated_tokens, accepted=sched.accepted_tokens,
+               rejected=sched.rejected_tokens, rounds=rounds, wall_s=wall,
+               tokens_per_s=SPEC_NEW * len(prompts) / wall,
+               kv_live=engine._state.kv_cache.allocator.counts()["live"])
+    del engine
+    gc.collect()
+    return out
+
+
+def tp_host_tier(model, dev):
+    """Phase 24's host-tier part on phase 22's ranks: phase 19's workload (a
+    1024-token prefix parks, a 1200-token filler spills it from a 24-block
+    pool, a request reusing it restores it) at tp 2, then the same requests
+    on a 128-block pool that never spills. Every rank checks each restored
+    block against the pages it spilled, bit for bit; the controller keeps
+    every round's logits of both runs."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import SplitFuseScheduler, build_engine
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(19)
+    prefix = rng.integers(0, vocab, HOST_PREFIX).astype(np.int32)
+    warm = np.concatenate([prefix, rng.integers(0, vocab, 40).astype(np.int32)])
+    filler = rng.integers(0, vocab, 1200).astype(np.int32)
+    reuse = np.concatenate([prefix, rng.integers(0, vocab, 50).astype(np.int32)])
+
+    def serve(blocks):
+        engine = build_engine(model, {
+            "state_manager": {"max_ragged_sequence_count": 8,
+                              "max_ragged_batch_size": 512, "max_context": 4096,
+                              "num_kv_blocks": blocks, "host_kv_blocks": HOST_TIER_BLOCKS},
+            "kv_cache": {"block_size": HOST_BLOCK, "cache_dtype": "bf16"},
+            "prefix_caching": True, "tensor_parallel": {"tp_size": TP_SIZE}}, device=dev)
+        kv = engine._state.kv_cache
+        spill_block, restore_block = kv.spill_block, kv.restore_block
+        kept, restored = {}, []
+
+        def spill(block):
+            pages = [p[:, block].clone() for p in kv._pools()]
+            payload = spill_block(block)
+            kept[id(payload)] = (payload, pages)
+            return payload
+
+        def restore(payload, block):
+            restore_block(payload, block)
+            pages = kept.pop(id(payload))[1]
+            restored.append(all(torch.equal(p[:, block], x) for p, x in zip(kv._pools(),
+                                                                            pages)))
+
+        kv.spill_block, kv.restore_block = spill, restore
+        if not engine.is_controller:
+            out = dict(forwards=engine.follow(), restored_equal=restored)
+            del engine
+            return out
+        logits, forward = [], engine._forward_device
+
+        def recording(uids, chunks, **kw):
+            out = forward(uids, chunks, **kw)
+            logits.append(out[:len(uids)].float().cpu())
+            return out
+
+        engine._forward_device = recording
+        sched = SplitFuseScheduler(engine)
+        tokens = {}
+        for uid, prompt, n in ((0, warm, 4), (1, filler, 4), (2, reuse, 16)):
+            sched.submit(uid, prompt, max_new_tokens=n)
+            tokens[uid] = sched.run_to_completion()[uid].tolist()
+        engine.stop_followers()
+        out = dict(tokens=tokens, logits=logits, stats=engine.kv_stats(),
+                   saved=sched.prefill_tokens_saved, restored_equal=restored)
+        del engine._forward_device, engine
+        return out
+
+    out = dict(tight=serve(HOST_POOL_BLOCKS), roomy=serve(HOST_ROOMY_BLOCKS))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def tp_mixtral_rank(rank, world, port, out_dir):
@@ -5454,16 +5644,18 @@ def spawn_ranks(fn, world, files=None):
                 for r in range(world)]
 
 
-def hold_replay(label, ref, got, failures):
+def hold_replay(label, ref, got, failures, bound=TP_LOGITS_REL_L2_BOUND):
     """Phase 22's checks of a tp 2 replay (``got``, the controller's)
-    against the tp 1 rounds (``ref``); returns the printed summary."""
+    against the tp 1 rounds (``ref``), the logits within ``bound`` and a
+    planted fault's replay (``got["control"]``, where there is one) above
+    it; returns the printed summary."""
     import numpy as np
 
     def rel(a, b):
         return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
-    first, last, control = (rel(got["first"], ref["first"]), rel(got["last"], ref["last"]),
-                            rel(got["control"], ref["first"]))
+    first, last = rel(got["first"], ref["first"]), rel(got["last"], ref["last"])
+    control = rel(got["control"], ref["first"]) if "control" in got else None
     held = differ = 0
     near, held_differ = [], []
     for r, (want, gap, have) in enumerate(zip(ref["argmax"], ref["gap"], got["argmax"])):
@@ -5475,22 +5667,23 @@ def hold_replay(label, ref, got, failures):
                 (r, int(i), float(gap[i]), int(want[i]), int(have[i])))
     gaps = np.concatenate(ref["gap"])
     out = dict(first_round_rel_l2=first, last_round_rel_l2=last, control_rel_l2=control,
-               bound=TP_LOGITS_REL_L2_BOUND, tokens_held=held,
+               bound=bound, tokens_held=held,
                tokens=int(sum(len(a) for a in ref["argmax"])), tokens_differing_held=differ,
                held_differences=held_differ[:8], near_tie_differences=len(near),
                gap_quantiles=np.quantile(
                    gaps, [0.01, 0.1, 0.5]).tolist(), margin=TP_TOKEN_MARGIN)
     print(f"tensor parallel {label}: logits vs tp 1, relative L2 first round {first:.4g}, "
-          f"last round {last:.4g}, planted fault {control:.4g} (bound "
-          f"{TP_LOGITS_REL_L2_BOUND}); greedy tokens held {held} of {out['tokens']} "
+          f"last round {last:.4g}, planted fault "
+          f"{'not run' if control is None else f'{control:.4g}'} (bound "
+          f"{bound}); greedy tokens held {held} of {out['tokens']} "
           f"(top-2 gap > {TP_TOKEN_MARGIN} x rms), {differ} differ; top-2 gap quantiles "
           f"(1%, 10%, 50%) {[round(q, 4) for q in out['gap_quantiles']]}; "
           f"{len(near)} differences under the margin, e.g. (round, row, gap, tp 1, tp 2) "
           f"{near[:4]}; held differences {held_differ[:8]}", flush=True)
     for name, v in (("first", first), ("last", last)):
-        if not np.isfinite(v) or not v <= TP_LOGITS_REL_L2_BOUND:
-            failures.append(f"{label}: {name}-round logits {v} > {TP_LOGITS_REL_L2_BOUND}")
-    if not control > TP_LOGITS_REL_L2_BOUND:
+        if not np.isfinite(v) or not v <= bound:
+            failures.append(f"{label}: {name}-round logits {v} > {bound}")
+    if control is not None and not control > bound:
         failures.append(f"{label}: the bound does not reject the planted fault ({control})")
     if differ or not held:
         failures.append(f"{label}: {differ} greedy tokens differ where the gap clears the "
@@ -5532,14 +5725,14 @@ def hold_witness(ref, sound, witness, failures):
     return out
 
 
-def check_rank_launches(label, r, want_attention, failures, moe=None):
+def check_rank_launches(label, r, want_attention, failures, moe=None, kernel="wgmma"):
     """Every rank's forwards went through row 1 (one launch a layer a
-    forward, on ``wgmma``) and, for Mixtral, row 9a (three a layer)."""
+    forward, on ``kernel``) and, for Mixtral, row 9a (three a layer)."""
     want = r["layers"] * r["forwards"]
     if r["attention"] != want_attention or r["paged_mha_launches"] != want \
-            or r["paged_kernels"] != {"wgmma": want}:
+            or r["paged_kernels"] != {kernel: want}:
         failures.append(f"{label}: rank launched paged {r['paged_mha_launches']} "
-                        f"{r['paged_kernels']} ({r['attention']}), not wgmma {want}")
+                        f"{r['paged_kernels']} ({r['attention']}), not {kernel} {want}")
     if moe and (r["moe_grouped_gemm_launches"] != 3 * want
                 or r["grouped_kernels"] != {"fwd_wgmma": 3 * want}):
         failures.append(f"{label}: rank launched grouped {r['grouped_kernels']}, not "
@@ -5615,8 +5808,94 @@ def tp_llama_part(ref, failures):
     if differ or not held:
         failures.append(f"v1: {differ} greedy tokens differ where the gap clears the "
                         f"margin ({held} held)")
+    report["speculative"] = hold_tp_speculative(ref["spec"], ranks, failures)
+    report["host_tier"] = hold_tp_host_tier(ranks, failures)
     print(f"phase tensor parallel (one card): {time.perf_counter() - t:.1f}s", flush=True)
     return report
+
+
+def hold_first_differences(got, ref, forced):
+    """Each stream of ``got`` against ``ref``'s stream of the same request:
+    equal up to its first difference, which may fall only where the tp 1
+    engine fed ``ref``'s stream (``forced``, ``teacher_forced``) has a top-2
+    gap under ``TP_TOKEN_MARGIN`` x rms (phase 22's rule at a near-tie).
+    Returns the summary, with the differences beyond the margin."""
+    equal, held, diffs, beyond = 0, 0, [], []
+    for uid, toks in got.items():
+        want = ref[uid]
+        am, gap = forced[uid]
+        d = next((i for i, (a, b) in enumerate(zip(toks, want)) if a != b), None)
+        held += int((gap[:len(toks) if d is None else d] > TP_TOKEN_MARGIN).sum())
+        if d is None:
+            equal += int(len(toks) == len(want))
+            continue
+        diffs.append((uid, d, round(float(gap[d]), 4), int(want[d]), int(toks[d])))
+        if gap[d] > TP_TOKEN_MARGIN:
+            beyond.append(diffs[-1])
+    return dict(streams_equal_in_full=equal, tokens_held=held, first_differences=diffs,
+                beyond_margin=beyond, margin=TP_TOKEN_MARGIN)
+
+
+def hold_tp_speculative(ref, ranks, failures):
+    """Phase 24's speculative part: the tp 2 streams against phase 20's tp 1
+    speculative streams (``hold_first_differences``), drafts speculated and
+    accepted, no KV block live after the run, every rank's 32 paged launches
+    a forward on ``wgmma``."""
+    r0, r1 = ranks[0]["spec"], ranks[1]["spec"]
+    out = hold_first_differences(r0["streams"], ref["streams"], ref["forced"])
+    out.update({k: r0[k] for k in ("speculated", "accepted", "rejected", "rounds",
+                                   "wall_s", "tokens_per_s", "kv_live")},
+               tokens_per_round=SPEC_NEW * len(r0["streams"]) / r0["rounds"],
+               forwards=r1["forwards"],
+               paged_mha_launches=[r["spec"]["paged_mha_launches"] for r in ranks],
+               paged_kernels=[r["spec"]["paged_kernels"] for r in ranks])
+    print(f"tensor parallel speculative {json.dumps(out)}", flush=True)
+    if out["beyond_margin"]:
+        failures.append(f"speculative at tp 2: streams part from tp 1's where the gap "
+                        f"clears the margin: {out['beyond_margin']}")
+    if not r0["speculated"] > 0 or not r0["accepted"] > 0 or \
+            r0["speculated"] != r0["accepted"] + r0["rejected"]:
+        failures.append(f"speculative at tp 2: {r0['speculated']} drafted, "
+                        f"{r0['accepted']} accepted, {r0['rejected']} rejected")
+    if r0["kv_live"]:
+        failures.append(f"speculative at tp 2: {r0['kv_live']} KV blocks live after the run")
+    for r in ranks:
+        check_rank_launches(f"speculative rank {r['rank']}", dict(r["spec"],
+                            forwards=r1["forwards"]), "cuda_paged", failures)
+    return out
+
+
+def hold_tp_host_tier(ranks, failures):
+    """Phase 24's host-tier part: spills and restores happened, every rank's
+    restored blocks equal its spilled ones bit for bit, and every round's
+    logits of the spilling run equal those of the run that never spills,
+    bit for bit (equal round shapes), with the same tokens."""
+    import torch
+    tight, roomy = ranks[0]["host"]["tight"], ranks[0]["host"]["roomy"]
+    stats = tight["stats"]
+    same = [bool(torch.equal(a, b)) for a, b in zip(tight["logits"], roomy["logits"])]
+    out = dict({k: stats[k] for k in ("kv_spilled", "kv_restored", "kv_dropped",
+                                      "host_kv_blocks", "swap_outs_live", "prefix_hits",
+                                      "prefill_tokens_saved")},
+               roomy_spilled=roomy["stats"]["kv_spilled"],
+               restores_bitwise_equal=[all(r["host"]["tight"]["restored_equal"])
+                                       for r in ranks],
+               restores=[len(r["host"]["tight"]["restored_equal"]) for r in ranks],
+               rounds=len(tight["logits"]), rounds_bitwise_equal=sum(same),
+               tokens_equal=tight["tokens"] == roomy["tokens"], reuse_tokens=tight["tokens"][2])
+    print(f"tensor parallel host tier {json.dumps(out)}", flush=True)
+    if stats["kv_spilled"] < 1 or stats["kv_restored"] < 1 or stats["swap_outs_live"]:
+        failures.append(f"host tier at tp 2: {stats['kv_spilled']} spilled, "
+                        f"{stats['kv_restored']} restored, {stats['swap_outs_live']} live swaps")
+    if not all(out["restores_bitwise_equal"]) or \
+            any(n != stats["kv_restored"] for n in out["restores"]):
+        failures.append(f"host tier at tp 2: restored pages {out['restores_bitwise_equal']} "
+                        f"({out['restores']} restores)")
+    if len(tight["logits"]) != len(roomy["logits"]) or not all(same) \
+            or not out["tokens_equal"] or roomy["stats"]["kv_spilled"]:
+        failures.append(f"host tier at tp 2: {sum(same)} of {len(same)} rounds' logits "
+                        f"equal the run without spills; tokens equal {out['tokens_equal']}")
+    return out
 
 
 def tp_mixtral_part(failures):
@@ -6346,6 +6625,351 @@ def phase_fleet(model):
                 peaks=peaks)
 
 
+# ---------------------------------------------------------------------------
+# phase 24: tensor-parallel families and features
+# ---------------------------------------------------------------------------
+
+# Phase 24 serves the families phase 22 left out at tp 2, two ranks sharing
+# cuda:0 over gloo as phase 22's do: Falcon-7B at its published width and
+# all 32 layers (71 query heads of 64 cut 36 / 35, both ranks on a copy of
+# the one KV head; head tied, as tiiuae/falcon-7b), then Phi-2 and
+# OPT-6.7B at their published widths with phase 21's 2 layers. Each is
+# first served at tp 1 on the main process (phase 3's 8 requests; 64 new
+# tokens for Falcon, 16 for the 2-layer families) recording every round,
+# then replayed at tp 2 and held by phase 22's rule: first- and last-round
+# logits within the bound (relative L2: phase 3's 0.1 for Falcon's 32
+# layers, phase 21's 0.02 for 2 layers), greedy tokens where tp 1's top-2
+# gap clears TP_TOKEN_MARGIN x rms, and a planted fault that must read above
+# the bound: rank 1's row-split attention output product (Falcon and Phi's
+# ``dense``, OPT's ``out_proj``) of layer TP_FAULT_LAYER holds the whole
+# weight's columns from half a head before its first head's (for Falcon-7B's
+# 36 / 35 heads that is the even cut's boundary, 2272 of 4544), in a replay
+# of round 0. Then W8A16 Llama-2-7B, all 32 layers, through
+# ``init_inference`` at tp 2: each rank draws the whole bf16 model and keeps
+# its part of every whole tensor's int8 values and scales (gate/up 5632 and
+# 5376 columns, 22 and 21 groups of 256), held against phase 15's tp 1 int8
+# engine along its 16-token greedy stream (phase 22's v1 rule), each rank's
+# 224 quantized linears on row 7 (``cuda_fused_dequant``, none on
+# ``dense_dequant``) and its row-7 launches counted. With 2 or more cards
+# Falcon-7B is replayed once more over NCCL, one rank a card. Phase 22's
+# ranks run phase 24's speculative and host-tier parts (``tp_speculative``,
+# ``tp_host_tier``) on their Llama-2-7B shares.
+TP_FAMILY_BOUND = HF_LOGITS_REL_L2_TOLERANCE
+
+
+def tp_family_models():
+    """{name: (model class, config, new tokens, bound)} of phase 24's
+    families: Falcon-7B with all 32 layers, Phi-2 and OPT-6.7B with phase
+    21's layers."""
+    cfgs = hf_family_models()
+    out = {"falcon_7b": (cfgs["falcon_7b"][0], dataclasses.replace(
+        cfgs["falcon_7b"][1], num_hidden_layers=32), TP_NEW, TP_LOGITS_REL_L2_BOUND)}
+    for name in ("phi_2", "opt_6_7b"):
+        out[name] = (cfgs[name][0], cfgs[name][1], HF_FAMILY_NEW, TP_FAMILY_BOUND)
+    return out
+
+
+def phase_tp_family_references():
+    """Phase 24's tp 1 side: each family served at tp 1 on phase 3's
+    requests, every round recorded (``capture_serving``)."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import build_engine
+    refs = {}
+    for name, (cls, cfg, n_new, _) in tp_family_models().items():
+        t = time.perf_counter()
+        model = cls.from_seed(cfg, seed=24, device=DEVICE)
+        engine = build_engine(model, serving_config())
+        refs[name] = capture_serving(engine, phase3_prompts(cfg.vocab_size), n_new)
+        del engine, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"tensor parallel {name}: tp 1 reference, {len(refs[name]['rounds'])} rounds "
+              f"at {refs[name]['tokens_per_s']:.1f} tokens/s in "
+              f"{time.perf_counter() - t:.1f}s", flush=True)
+    return refs
+
+
+def attention_out(model, layer):
+    """The row-split attention output projection of ``layer``."""
+    block = model.layers[layer]
+    return block.dense if hasattr(block, "dense") else block.self_attn.out_proj
+
+
+def shifted_columns_fault(model, rank):
+    """Planted fault (both ranks: the whole weight is gathered): rank 1's
+    attention output product of layer TP_FAULT_LAYER holds the whole
+    weight's columns from half a head before its first head's (Falcon-7B's
+    even cut). Returns the undo."""
+    import torch
+    import torch.distributed as tdist
+    w = attention_out(model, TP_FAULT_LAYER).weight
+    widths = [torch.zeros(1, dtype=torch.int64, device=w.device)
+              for _ in range(tdist.get_world_size())]
+    tdist.all_gather(widths, torch.tensor([w.shape[1]], device=w.device))
+    widths = [int(x) for x in widths]
+    padded = torch.zeros(w.shape[0], max(widths), dtype=w.dtype, device=w.device)
+    padded[:, :w.shape[1]] = w
+    parts = [torch.empty_like(padded) for _ in widths]
+    tdist.all_gather(parts, padded)
+    whole = torch.cat([p[:, :n] for p, n in zip(parts, widths)], 1)
+    saved = w.clone()
+    if rank == 1:
+        start = widths[0] - model.config.head_dim // 2
+        w.copy_(whole[:, start:start + w.shape[1]])
+    del parts, padded, whole
+
+    def undo():
+        w.copy_(saved)
+    return undo
+
+
+def tp_family_replay(rank, model, dev, ref, fault=True):
+    """Both ranks: the tp 2 engine over ``model``'s share; the controller
+    replays ``ref``'s rounds (counted), then, with ``fault``, round 0 again
+    under ``shifted_columns_fault``. Returns the rank's launches and
+    exchanges and, on the controller, the replay's logits."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import build_engine
+    engine = build_engine(model, serving_config(TP_SIZE), device=dev)
+    torch.cuda.synchronize()
+    before = launch_counts(reset=True)
+    out = {}
+    if engine.is_controller:
+        out = replay(engine, ref["rounds"])
+        for uid in {u for uids, _ in ref["rounds"] for u in uids}:
+            engine.flush(uid)
+        engine.stop_followers()
+        forwards = len(ref["rounds"])
+    else:
+        forwards = engine.follow()
+    res = tp_rank_launches(engine, before, forwards)
+    res["heads"] = (model.plan.heads, model.plan.kv_heads)
+    if fault:
+        undo = shifted_columns_fault(model, rank)
+        if engine.is_controller:
+            uids, chunks = ref["rounds"][0]
+            out["control"] = engine.put([u + 1000 for u in uids], chunks)
+            engine.stop_followers()
+        else:
+            engine.follow()
+        undo()
+    res.update(out)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_quant_rank(dev, ref):
+    """Both ranks: W8A16 Llama-2-7B (seed 0, the whole bf16 model drawn on
+    the rank, then quantized whole and cut) through ``init_inference`` at tp
+    2; its logits along phase 15's greedy stream, its own 16 greedy tokens,
+    its quantized linears' rows and row-7 launches."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+    t = time.perf_counter()
+    model = LlamaForCausalLM.from_seed(LlamaConfig.llama2_7b(), seed=0, device=dev)
+    eng = deepspeed_tpu_torch.init_inference(
+        model, config={"dtype": "bf16", "quant": QSERVE_QUANT,
+                       "tensor_parallel": {"tp_size": TP_SIZE}}, device=dev)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t
+    linears = qlinears(eng.module)
+    ids, stream = ref["ids"], ref["tokens"]
+    qm.quantized_matmul.launches = 0
+    tally = qm.kernel_launches()
+    forced = eng(np.concatenate([ids, stream[:, :-1]], 1))[:, ids.shape[1] - 1:].float()
+    t = time.perf_counter()
+    tokens = eng.generate(ids, max_new_tokens=TP_V1_NEW).cpu().numpy()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    out = dict(grid=eng.grid, logits=forced.cpu().numpy(),
+               argmax=forced.argmax(-1).cpu().numpy(), tokens=tokens,
+               linears=len(linears), impls=sorted({m.impl for m in linears}),
+               ffn_columns=eng.module.plan.ffn,
+               launches=qm.quantized_matmul.launches,
+               kernels=launched_kernels(qm, tally), forwards=1 + TP_V1_NEW,
+               build_s=built, generate_s=wall,
+               tokens_per_s=tokens.size / wall,
+               layers=eng.module.config.num_hidden_layers)
+    del eng, forced
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_family_rank(rank, world, port, out_dir):
+    """One rank of phase 24 (started by torch.multiprocessing): the
+    families' replays, then (unless ``settings["quant"]`` is off) W8A16
+    Llama-2-7B."""
+    import datetime
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, str(REPO))
+    t0 = time.perf_counter()
+    settings = torch.load(Path(out_dir) / "settings.pt", weights_only=False)
+    dev = tp_device(rank if settings["cards"] > 1 else 0)
+    tdist.init_process_group(settings["backend"], init_method=f"tcp://localhost:{port}",
+                             world_size=world, rank=rank,
+                             timeout=datetime.timedelta(seconds=600))
+    refs = torch.load(Path(out_dir) / "references.pt", weights_only=False)
+    res = dict(rank=rank, collectives=check_collectives(dev))
+    models = tp_family_models()
+    for name in settings["families"]:
+        cls, cfg, _, _ = models[name]
+        t = time.perf_counter()
+        model = cls.from_seed(cfg, seed=24, device=dev, tp_size=TP_SIZE, tp_rank=rank)
+        torch.cuda.synchronize()
+        drawn = time.perf_counter() - t
+        torch.cuda.reset_peak_memory_stats(dev)
+        res[name] = tp_family_replay(rank, model, dev, refs[name],
+                                     fault=settings["fault"])
+        res[name].update(weights_drawn_s=drawn,
+                         peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    if settings["quant"]:
+        torch.cuda.reset_peak_memory_stats(dev)
+        res["w8a16"] = tp_quant_rank(dev, refs["w8a16"])
+        res["w8a16"]["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    res["seconds"] = time.perf_counter() - t0
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    tdist.barrier()
+    tdist.destroy_process_group()
+
+
+def hold_tp_quant(ref, ranks, failures):
+    """Phase 22's v1 rule for W8A16 at tp 2 against phase 15's tp 1 int8
+    engine; every rank's 224 quantized linears on row 7, launched
+    7 x 32 x forwards times (prefill and the forced forward on
+    ``prefill_wgmma``, decode steps on ``decode_mma``)."""
+    import numpy as np
+    q = ranks[0]["w8a16"]
+    prefill, along = (float(np.linalg.norm(a - b) / np.linalg.norm(b)) for a, b in (
+        (q["logits"][:, 0], ref["logits"][:, 0]), (q["logits"], ref["logits"])))
+    clear = ref["gap"] > TP_TOKEN_MARGIN
+    held, differ = int(clear.sum()), int((q["argmax"] != ref["argmax"])[clear].sum())
+    per_forward = QSERVE_LINEARS * q["layers"]
+    out = dict(grid=q["grid"], prefill_rel_l2=prefill, stream_rel_l2=along,
+               bound=TP_LOGITS_REL_L2_BOUND, tokens_held=held, tokens_differing_held=differ,
+               free_running_tokens_equal=int((q["tokens"] == ref["tokens"]).sum()),
+               tokens=int(ref["tokens"].size),
+               linears=[r["w8a16"]["linears"] for r in ranks],
+               impls=[r["w8a16"]["impls"] for r in ranks],
+               ffn_columns=[r["w8a16"]["ffn_columns"] for r in ranks],
+               launches=[r["w8a16"]["launches"] for r in ranks],
+               kernels=[r["w8a16"]["kernels"] for r in ranks],
+               expected_launches=per_forward * q["forwards"],
+               build_s=[r["w8a16"]["build_s"] for r in ranks],
+               tokens_per_s=q["tokens_per_s"],
+               peak_memory_gb=[r["w8a16"]["peak_memory_gb"] for r in ranks])
+    print(f"tensor parallel w8a16 {json.dumps(out)}", flush=True)
+    if ranks[1]["w8a16"]["tokens"].tolist() != q["tokens"].tolist():
+        failures.append("w8a16: the two ranks generated different tokens")
+    if not max(prefill, along) <= TP_LOGITS_REL_L2_BOUND:
+        failures.append(f"w8a16 logits {prefill}, {along} > {TP_LOGITS_REL_L2_BOUND}")
+    if differ or not held:
+        failures.append(f"w8a16: {differ} greedy tokens differ where the gap clears the "
+                        f"margin ({held} held)")
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    from deepspeed_tpu_torch.parallel.tensor_parallel import TPPlan
+    ffn = [TPPlan(LlamaConfig.llama2_7b(), TP_SIZE, r, QSERVE_QUANT["group_size"]).ffn
+           for r in range(TP_SIZE)]
+    if out["ffn_columns"] != ffn:
+        failures.append(f"w8a16: the ranks hold {out['ffn_columns']} FFN columns, not {ffn}")
+    for r in ranks:
+        x = r["w8a16"]
+        if x["linears"] != per_forward or x["impls"] != ["cuda_fused_dequant"] or \
+                x["launches"] != per_forward * x["forwards"] or \
+                x["kernels"] != {"prefill_wgmma": 2 * per_forward,
+                                 "decode_mma": per_forward * (TP_V1_NEW - 1)}:
+            failures.append(f"w8a16 rank {r['rank']}: {x['linears']} linears on "
+                            f"{x['impls']}, launched {x['kernels']}")
+    return out
+
+
+def phase_tp_families(quant_ref):
+    """Phase 24 (see the comment above ``TP_FAMILY_BOUND``). Returns the
+    report for the kernels line."""
+    import numpy as np
+    failures = []
+    t = time.perf_counter()
+    refs = phase_tp_family_references()
+    print(f"tensor parallel families: tp 1 references in {time.perf_counter() - t:.1f}s; "
+          f"tp {TP_SIZE}: two processes on cuda:0 over gloo", flush=True)
+    families = list(refs)
+    refs["w8a16"] = quant_ref
+    ranks = spawn_ranks(tp_family_rank, TP_SIZE, {
+        "references.pt": refs, "settings.pt": dict(backend="gloo", cards=1, fault=True,
+                                                   families=families, quant=True)})
+    report = {}
+    for name, (_, cfg, n_new, bound) in tp_family_models().items():
+        got = ranks[0][name]
+        report[name] = hold_replay(f"{name} tp {TP_SIZE}", refs[name], got, failures,
+                                   bound=bound)
+        for r in ranks:
+            check_rank_launches(f"{name} rank {r['rank']}", r[name], "cuda_paged", failures,
+                                kernel=HF_ROUTES[name])
+        report[name].update(
+            heads=[r[name]["heads"] for r in ranks],
+            paged_mha_launches=[r[name]["paged_mha_launches"] for r in ranks],
+            paged_kernels=[r[name]["paged_kernels"] for r in ranks],
+            exchanges_per_forward={k: {f: c[f] / got["forwards"] for f in c}
+                                   for k, c in got["exchanges"].items()},
+            tokens_per_s=n_new * len(refs[name]["streams"]) / (sum(got["round_ms"]) / 1e3),
+            tp1_tokens_per_s=refs[name]["tokens_per_s"],
+            median_round_ms=float(np.median(got["round_ms"])),
+            tp1_median_round_ms=float(np.median(refs[name]["round_ms"])),
+            weights_drawn_s=[r[name]["weights_drawn_s"] for r in ranks],
+            peak_memory_gb=[r[name]["peak_memory_gb"] for r in ranks])
+        print(f"tensor parallel {name} {json.dumps({k: v for k, v in report[name].items() if k in ('heads', 'paged_mha_launches', 'paged_kernels', 'exchanges_per_forward', 'tokens_per_s', 'tp1_tokens_per_s', 'median_round_ms', 'tp1_median_round_ms', 'weights_drawn_s', 'peak_memory_gb')})}",
+              flush=True)
+    report["w8a16"] = hold_tp_quant(quant_ref, ranks, failures)
+    report["rank_seconds"] = [r["seconds"] for r in ranks]
+    report["falcon_7b_nccl"] = tp_falcon_nccl(refs["falcon_7b"], failures)
+    report["device"] = nvidia_smi()
+    if failures:
+        fail("tensor parallel families: " + "; ".join(failures))
+    return report
+
+
+def tp_falcon_nccl(ref, failures):
+    """With 2 or more cards: Falcon-7B's tp 2 replay over NCCL, one rank a
+    card, held as over gloo (no fault replay). None on one card."""
+    import numpy as np
+    import torch
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"phase tensor parallel Falcon-7B over NCCL: not run: it needs 2 or more "
+              f"cards and {count} is visible", flush=True)
+        return None
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks(tp_family_rank, TP_SIZE, {
+        "references.pt": {"falcon_7b": ref},
+        "settings.pt": dict(backend=TP_MULTI_CARD_BACKEND, cards=2, fault=False,
+                            families=["falcon_7b"], quant=False)})
+    got = ranks[0]["falcon_7b"]
+    out = hold_replay("falcon_7b tp 2 over NCCL", ref, got, failures)
+    for r in ranks:
+        check_rank_launches(f"falcon_7b NCCL rank {r['rank']}", r["falcon_7b"], "cuda_paged",
+                            failures, kernel="wgmma")
+    out.update(median_round_ms=float(np.median(got["round_ms"])),
+               tokens_per_s=len(ref["streams"]) * TP_NEW / (sum(got["round_ms"]) / 1e3),
+               collectives=ranks[0]["collectives"],
+               peak_memory_gb=[r["falcon_7b"]["peak_memory_gb"] for r in ranks])
+    print(f"tensor parallel falcon_7b NCCL {json.dumps({k: out[k] for k in ('median_round_ms', 'tokens_per_s', 'peak_memory_gb', 'first_round_rel_l2', 'last_round_rel_l2')})}",
+          flush=True)
+    return out
+
+
 def quant_kernel_lines(cases, zero_ranks, ep_ranks, fleet):
     """The kernels-line entries of the two qgZ kernels: the main case's
     numbers, every case's, the launches of phase 11's run (where it ran,
@@ -6423,7 +7047,7 @@ def main():
     spec_report = phase_speculative(llama)
     print(f"phase speculative serving: {time.perf_counter() - t2:.1f}s", flush=True)
     t2 = time.perf_counter()
-    tp_reference = phase_tp_reference(llama)
+    tp_reference = phase_tp_reference(llama, spec_report["streams"])
     print(f"phase tensor parallel reference: {time.perf_counter() - t2:.1f}s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6471,7 +7095,7 @@ def main():
     qmm_cases = phase_quantized_matmul_kernels()
     print(f"phase quantized matmul kernels: {time.perf_counter() - t9:.1f}s", flush=True)
     t10 = time.perf_counter()
-    qserve_launches, qmm_kernel_launches = phase_quantized_serving()
+    qserve_launches, qmm_kernel_launches, quant_ref = phase_quantized_serving()
     print(f"phase quantized serving: {time.perf_counter() - t10:.1f}s", flush=True)
     gc.collect()                 # the quantized engine holds ~16 GB with its cache
     torch.cuda.empty_cache()
@@ -6489,6 +7113,12 @@ def main():
     t14 = time.perf_counter()
     phase_host_tier()
     print(f"phase host tier: {time.perf_counter() - t14:.1f}s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    families_report = phase_tp_families(quant_ref)
+    print(f"phase tensor parallel families: {time.perf_counter() - t15:.1f}s", flush=True)
+    del quant_ref
     gc.collect()
     torch.cuda.empty_cache()
     zero_ranks = run_zero_phase()
@@ -6518,6 +7148,13 @@ def main():
         tensor_parallel_kernels=tp_report["llama_v2"]["paged_kernels"],
         mixtral_tensor_parallel_launches=(tp_report["mixtral"] or {}).get(
             "paged_mha_launches"),
+        tensor_parallel_family_launches={
+            name: families_report[name]["paged_mha_launches"]
+            for name in ("falcon_7b", "phi_2", "opt_6_7b")},
+        tensor_parallel_family_kernels={
+            name: families_report[name]["paged_kernels"]
+            for name in ("falcon_7b", "phi_2", "opt_6_7b")},
+        tensor_parallel_speculative_launches=tp_report["speculative"]["paged_mha_launches"],
         cases=[{k: c[k] for k in ("name", "kernel", "splits", "max_abs_err", "err_ratio",
                                   "planted_fault_ratio", "ms", "device_ms", "plain_ms",
                                   "library_ms", "bound_ms", "bound_by")}
@@ -6601,6 +7238,8 @@ def main():
         replaces="deepspeed_tpu/ops/pallas/quantized_matmul.py:149",
         launches=qserve_launches, kernel=main_qmm["kernel"],
         kernel_launches=qmm_kernel_launches, device_ms=main_qmm["device_ms"],
+        tensor_parallel_launches=families_report["w8a16"]["launches"],
+        tensor_parallel_kernels=families_report["w8a16"]["kernels"],
         **{k: main_qmm[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")},
         case=main_qmm["name"],

@@ -42,6 +42,7 @@ import torch
 from torch import nn
 
 from deepspeed_tpu_torch import resolve_device
+from deepspeed_tpu_torch.parallel.tensor_parallel import take_spans
 from deepspeed_tpu_torch.utils.logging import logger
 
 LLAMA_FAMILY = ("llama", "mistral", "qwen2")
@@ -623,25 +624,35 @@ def _family(mt, hf, sd, dtype):
     return ParallelBlockForCausalLM, _phi_config(hf, sd, dtype=dtype), phi_to_torch
 
 
-# Split dimension over ``tp`` of an HF tensor, by name: the port's
-# ``tensor_parallel.TP_SPLITS`` in the HF layout, so each rank moves only
-# its slice to the device. A tensor matching none (a norm, the router,
-# Qwen-v1's fused ``c_attn``) moves whole and is cut after its conversion.
+# Split of an HF tensor over ``tp``, by name: the dimension and the
+# ``TPPlan`` spans of ``tensor_parallel.TP_SPLITS`` in the HF layout, so each
+# rank moves only its part to the device. A tensor matching none (a norm,
+# the router, learned positions, Falcon's fused ``query_key_value`` and
+# Qwen-v1's fused ``c_attn``, whose rows are reordered by the conversion)
+# moves whole and is cut after its conversion.
 _HF_TP_SPLITS = (
-    (r"(embed_tokens|wte|lm_head)\.weight$", 0),
-    (r"(q_proj|k_proj|v_proj|gate_proj|up_proj)\.(weight|bias)$", 0),
-    (r"(o_proj|down_proj|c_proj)\.weight$", 1),
-    (r"experts\.\d+\.(w1|w3)\.weight$", 0),
-    (r"experts\.\d+\.w2\.weight$", 1),
-    (r"mlp\.(w1|w2)\.weight$", 0),          # Qwen v1: up and gate
+    (r"(embed_tokens|wte|word_embeddings|lm_head)\.weight$", 0, "vocab"),
+    (r"lm_head\.bias$", 0, "vocab"),
+    (r"q_proj\.(weight|bias)$", 0, "q"),
+    (r"(k_proj|v_proj)\.(weight|bias)$", 0, "kv"),
+    (r"(gate_proj|up_proj|mlp\.w1|mlp\.w2|fc1|dense_h_to_4h)\.weight$", 0, "ffn"),
+    (r"(fc1|dense_h_to_4h)\.bias$", 0, "ffn"),
+    (r"(o_proj|attn\.c_proj|out_proj|self_attn\.dense|self_attention\.dense)\.weight$",
+     1, "q"),
+    (r"(down_proj|mlp\.c_proj|fc2|dense_4h_to_h)\.weight$", 1, "ffn"),
+    (r"experts\.\d+\.(w1|w3)\.weight$", 0, "ffn"),
+    (r"experts\.\d+\.w2\.weight$", 1, "ffn"),
 )
 
 
-def _hf_split_dim(name):
-    for pattern, dim in _HF_TP_SPLITS:
-        if re.search(pattern, name):
-            return dim
-    return None
+def _hf_cut(plan, name, t):
+    """``plan``'s rank's part of HF tensor ``name`` (``t`` itself where it
+    moves whole)."""
+    if plan.size > 1:
+        for pattern, dim, kind in _HF_TP_SPLITS:
+            if re.search(pattern, name):
+                return take_spans(t, dim, plan.spans[kind])
+    return t
 
 
 def load_pretrained(model_dir, dtype=torch.float32, device=None, tp_size=1, tp_rank=0):
@@ -654,12 +665,12 @@ def load_pretrained(model_dir, dtype=torch.float32, device=None, tp_size=1, tp_r
     there (the JAX loader's ``astype(dtype)``, norm scales included), then
     converted and stored in its parameter's dtype (norm scales fp32).
 
-    With ``tp_size`` > 1 (tensor-parallel serving of the Llama families
-    and Mixtral; the others raise naming ROADMAP A5 part 2) the module is
-    built with ``tp_size`` and holds rank ``tp_rank``'s slices: each HF
-    tensor's slice is cut on the host from the mapped file and only it
-    moves to the device, where the q/k rotary permutation runs on the
-    rank's whole heads."""
+    With ``tp_size`` > 1 (tensor-parallel serving, every family) the module
+    is built with ``tp_size`` and holds rank ``tp_rank``'s share (its
+    ``TPPlan``): each HF tensor's part is cut on the host from the mapped
+    file and only it moves to the device, where the q/k rotary permutation
+    runs on the rank's whole heads; the fused projections move whole and
+    are cut after their conversion."""
     mt = detect_model_type(model_dir)
     if mt in UNPORTED:
         raise NotImplementedError(
@@ -672,31 +683,20 @@ def load_pretrained(model_dir, dtype=torch.float32, device=None, tp_size=1, tp_r
     hf = read_hf_config(model_dir)
     sd = load_state_dict(model_dir)
     cls, cfg, convert = _family(mt, hf, sd, dtype)
-    from deepspeed_tpu_torch.parallel.tensor_parallel import (TensorParallel,
-                                                              check_divisible, split_dim,
-                                                              tp_slice)
-    if tp_size > 1:
-        family = "mixtral" if mt == "mixtral" else \
-            "llama" if mt in LLAMA_FAMILY + ("qwen", "internlm") else mt
-        check_divisible(cfg, tp_size, family)
-    with torch.device("meta"):
-        model = cls(cfg, tp_size=tp_size) if tp_size > 1 else cls(cfg)
+    model = cls(cfg, device="meta", tp_size=tp_size, tp_rank=tp_rank)
     target = dict(model.named_parameters())
 
     def g(name):
-        t = tp_slice(sd[name], _hf_split_dim(name), tp_size, tp_rank).to(device)
+        t = _hf_cut(model.plan, name, sd[name]).to(device)
         return t.to(dtype) if t.is_floating_point() else t
 
     def local(name, t):
         if t.shape != target[name].shape:      # cut after conversion: keep a copy
-            t = tp_slice(t, split_dim(name), tp_size, tp_rank).clone()
+            t = model.plan.cut(name, t).clone()
         return t.to(target[name].dtype).contiguous()
 
     state = {name: local(name, t) for name, t in convert(sd, cfg, g)}
     model.load_state_dict(state, assign=True)
-    if tp_size > 1:
-        model.set_tensor_parallel(TensorParallel(size=tp_size, rank=tp_rank,
-                                                 ranks=tuple(range(tp_size))))
     return model
 
 

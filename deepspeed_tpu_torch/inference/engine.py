@@ -32,7 +32,13 @@ whole state dict given) and replicated across ``dp``; ``forward`` runs each
 logits on every rank; ``generate`` runs the whole batch on every replica,
 and with ``temperature`` > 0 tp rank 0 draws each token and broadcasts it
 (the engines' seeds agree across the world), so the ranks never diverge.
-Quantized weights at ``tp_size`` > 1 wait for ROADMAP A5 part 2.
+With ``quant.enabled`` over ``tp``, as the JAX engine does, each whole
+weight is quantized and the rank keeps its part of ``q`` and ``scale``
+(``quantization.quantized_part``): the model is cut by a ``TPPlan`` built
+with the group size, so that gate/up (and q/k/v) are cut in whole groups
+(Llama-2-7B at tp 2: gate/up N 5632 and 5376, ``down_proj``'s K the same
+ranges) and every linear that runs on row 7 at tp 1 runs on it at tp 2.
+That needs the whole weights (a whole model, or whole ``params``).
 ``config.checkpoint``
 may name a HuggingFace checkpoint directory of the Llama family (llama,
 mistral, qwen2, qwen, internlm): it loads through ``checkpoint/hf.py``
@@ -54,10 +60,9 @@ from deepspeed_tpu_torch.comm import comm as dist
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.inference.generation import generate as _generate
 from deepspeed_tpu_torch.inference.quantization.quantization import (
-    V1_TILE_DTYPE, QuantizedLinear, quantize_param_tree, quantized_linear, quantized_nbytes,
-    replace_module)
-from deepspeed_tpu_torch.parallel.tensor_parallel import (TensorParallel, check_divisible,
-                                                          split_dim, tp_slice)
+    V1_TILE_DTYPE, QuantizedLinear, _quantized_names, quantize_param_tree, quantized_linear,
+    quantized_nbytes, quantized_part, replace_module)
+from deepspeed_tpu_torch.parallel.tensor_parallel import TensorParallel
 from deepspeed_tpu_torch.parallel import groups
 from deepspeed_tpu_torch.utils.logging import logger
 
@@ -87,17 +92,18 @@ class InferenceEngine:
                                          int(config.replica_num))
         self.tp = TensorParallel.from_topology(self.topology) if self.topology \
             else TensorParallel()
-        if self.tp.size > 1 and config.quant.enabled:
-            raise NotImplementedError(
-                "quantized weights (quant.enabled) at tensor_parallel.tp_size > 1 are not "
-                "ported to deepspeed_tpu_torch yet (the JAX engine quantizes the whole "
-                "tensors; a rank's slices group differently); see ROADMAP.md queue A5 "
-                "part 2")
+        quant = config.quant
         if model is not None and self.tp.size > 1 and model.tp_size == 1:
             if params is None and not any(p.is_meta for p in model.parameters()):
                 params = model.state_dict()     # the whole weights, cut in set_params
-            check_divisible(model.config, self.tp.size)
-            model = type(model)(model.config, device="meta", tp_size=self.tp.size)
+            group = dict(quant_group_size=quant.group_size) if quant.enabled else {}
+            model = type(model)(model.config, device="meta", tp_size=self.tp.size,
+                                tp_rank=self.tp.rank, **group)
+        elif model is not None and self.tp.size > 1 and quant.enabled:
+            raise ValueError(
+                "quant.enabled at tensor_parallel.tp_size > 1 quantizes each whole weight "
+                "(as the JAX engine does) and keeps this rank's part: give the whole "
+                "model, not one rank's share")
         self.module = model
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(self._shared_seed())
@@ -126,8 +132,11 @@ class InferenceEngine:
         if dp * tp_size == 1:
             return None
         if dp * tp_size != world:
-            raise ValueError(f"a ({dp}, {tp_size}) serving grid leaves ranks of the "
-                             f"world of {world} idle: start dp x tp processes")
+            raise NotImplementedError(
+                f"a ({dp}, {tp_size}) serving grid leaves ranks of the world of {world} "
+                "idle (the JAX mesh takes the first dp x tp devices); not ported to "
+                "deepspeed_tpu_torch yet, see ROADMAP.md queue A5 part 3: start dp x tp "
+                "processes")
         return groups.serving_topology(tp_size, dp)
 
     @property
@@ -178,6 +187,11 @@ class InferenceEngine:
                 f"the v1 engine serves the Llama KV-cached forward; an HF {mt} "
                 "directory needs its family's v1 forward, ROADMAP.md queue A7 part 2 "
                 "(build_hf_engine serves it through the v2 engine)")
+        if self.tp.size > 1 and self._config.quant.enabled:
+            raise NotImplementedError(
+                "an HF checkpoint at tensor_parallel.tp_size > 1 loads one rank's share; "
+                "quantizing it needs the whole weights (ROADMAP.md queue A5 part 3): "
+                "load the whole model and pass it to init_inference")
         model = hf_interop.load_pretrained(path, dtype=self._config.torch_dtype,
                                            device=self.device, tp_size=self.tp.size,
                                            tp_rank=self.tp.rank)
@@ -190,9 +204,13 @@ class InferenceEngine:
         the model's own values) onto the device in ``config.dtype``, one
         tensor at a time, then quantize with ``config.quant``. A weight whose
         module is already quantized is quantized anew from the value given.
-        Over a ``tp`` axis a whole tensor is cut to this rank's slice."""
+        Over a ``tp`` axis a whole tensor is cut to this rank's part; with
+        ``quant.enabled`` each linear's whole weight is quantized, then cut
+        (module docstring)."""
         dtype, mod = self._config.torch_dtype, self.module
         q = self._config.quant
+        whole_quant = q.enabled and self.tp.size > 1
+        later = {f"{n}.weight" for n, _ in _quantized_names(mod)} if whole_quant else set()
         unknown = set(params) - {n for n, _ in mod.named_parameters()} - {
             f"{n}.weight" for n, m in mod.named_modules() if isinstance(m, QuantizedLinear)}
         if unknown:
@@ -201,41 +219,65 @@ class InferenceEngine:
             mod.to_empty(device=self.device)
         with torch.no_grad():
             for name, p in list(mod.named_parameters()):
+                if name in later:
+                    continue                  # quantized whole below
                 value = torch.as_tensor(params[name]) if name in params else p.detach()
-                if value.shape != p.shape:
-                    value = tp_slice(value, split_dim(name), self.tp.size,
-                                     self.tp.rank).clone()
+                if value.shape != p.shape and self.tp.size > 1:
+                    value = mod.plan.cut(name, value).clone()
                 if value.shape != p.shape:
                     raise ValueError(f"{name}: a {tuple(value.shape)} value for a "
                                      f"{tuple(p.shape)} parameter")
                 p.data = value.to(self.device, dtype if value.is_floating_point() else None)
+            impl = self._quant_impl() if whole_quant else None
             for name, m in list(mod.named_modules()):
                 weight = f"{name}.weight"
-                if isinstance(m, QuantizedLinear) and weight in params:
-                    w = torch.as_tensor(params[weight]).to(self.device, dtype)
-                    replace_module(mod, name, quantized_linear(
-                        name, w, m.bias, q.bits, q.group_size, m.impl))
+                if weight not in params or not (
+                        weight in later or isinstance(m, QuantizedLinear)):
+                    continue
+                w = torch.as_tensor(params[weight]).to(self.device, dtype)
+                if self.tp.size == 1:
+                    new = quantized_linear(name, w, m.bias, q.bits, q.group_size, m.impl)
+                else:
+                    local = (tuple(m.weight.shape) if weight in later
+                             else m.shape[::-1] if m.layout == "kn" else m.shape)
+                    if tuple(mod.plan.cut(weight, w).shape) != tuple(local):
+                        raise ValueError(f"{weight}: quantizing at tensor_parallel.tp_size "
+                                         f"{self.tp.size} needs the whole weight, got "
+                                         f"{tuple(w.shape)}")
+                    new = quantized_part(name, w, mod.plan, m.bias, q.bits, q.group_size,
+                                         m.impl if isinstance(m, QuantizedLinear) else impl)
+                replace_module(mod, name, new)
+                del w
+            if later - set(params):
+                raise ValueError(f"quantizing at tensor_parallel.tp_size {self.tp.size} "
+                                 f"needs the whole weights; none given for "
+                                 f"{sorted(later - set(params))[:3]}")
         mod.eval().requires_grad_(False)
         if self.tp.size > 1:
             mod.set_tensor_parallel(self.tp)
         self._maybe_quantize()
         self._ready = True
 
+    def _quant_impl(self):
+        """The registry row every quantized Dense kernel is pinned to (None:
+        the kernel), logged."""
+        q, dtype = self._config.quant, self._config.torch_dtype
+        if q.bits != 8:
+            logger.info(f"weight quantization: {q.bits}-bit weights have no kernel in "
+                        f"either package; every quantized linear runs dense_dequant")
+            return "dense_dequant"
+        if dtype != V1_TILE_DTYPE:
+            logger.info(f"weight quantization: serving {dtype}, the weights round to bf16 "
+                        f"(the JAX v1 engine's dequantization) and the kernel rounds to "
+                        f"the activations' dtype; every quantized linear runs dense_dequant")
+            return "dense_dequant"
+        return None
+
     def _maybe_quantize(self):
         q = self._config.quant
         if not q.enabled:
             return
-        dtype = self._config.torch_dtype
-        impl = None
-        if q.bits != 8:
-            impl = "dense_dequant"
-            logger.info(f"weight quantization: {q.bits}-bit weights have no kernel in "
-                        f"either package; every quantized linear runs dense_dequant")
-        elif dtype != V1_TILE_DTYPE:
-            impl = "dense_dequant"
-            logger.info(f"weight quantization: serving {dtype}, the weights round to bf16 "
-                        f"(the JAX v1 engine's dequantization) and the kernel rounds to "
-                        f"the activations' dtype; every quantized linear runs dense_dequant")
+        impl = self._quant_impl()
         before = quantized_nbytes(self.module)
         quantize_param_tree(self.module, num_bits=q.bits, group_size=q.group_size, impl=impl)
         after = quantized_nbytes(self.module)

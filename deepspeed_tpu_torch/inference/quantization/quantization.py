@@ -14,6 +14,14 @@ lm_head.T``), grouped along D. The leaves quantized are those JAX quantizes:
 every matrix whose lower-cased name contains none of ``embed``, ``norm``,
 ``bias`` or ``scale``; the port's names (``layers.0.mlp.up_proj.weight``,
 ``norm.weight``, ``embed_tokens.weight``) give the same set.
+
+Under tensor parallelism the JAX v1 engine shards the weights, then
+quantizes each whole tensor (``inference/engine.py:65-70, 118-166``):
+``quantized_part`` does the same for one rank, quantizing the whole weight
+and keeping the rank's part of ``q`` and ``scale``, cut by the model's
+``TPPlan`` (built with the group size, so that column-split linears are cut
+in whole groups), so that the rank's dequantized weight is the whole
+tensor's dequantized slice, bit for bit.
 """
 
 import functools
@@ -22,6 +30,7 @@ import torch
 from torch import nn
 
 from deepspeed_tpu_torch.ops.fp_quantizer import dequantize_fp, quantize_fp
+from deepspeed_tpu_torch.parallel.tensor_parallel import take_spans
 from deepspeed_tpu_torch.ops.quantizer import (dequantize, dequantize_lastdim,
                                                quantize, quantize_lastdim)
 
@@ -123,15 +132,19 @@ class QuantizedLinear(nn.Module):
         return QuantizedParameter(self.q, self.scale, self.shape, self.num_bits,
                                   self.group_size)
 
-    def forward(self, x):
+    def product(self, x):
+        """``x @ dequant(W)`` without the bias (a row-split linear's partial
+        product under tensor parallelism)."""
         if self.impl != "dense_dequant" and x.dtype != V1_TILE_DTYPE:
             raise TypeError(f"{self.impl} rounds the weight to the activations' dtype "
                             f"{x.dtype}; this linear's weights round to "
                             f"{V1_TILE_DTYPE}: pin dense_dequant")
         out = self._fn(x.reshape(-1, x.shape[-1]), self.qp, x.dtype)
-        if self.bias is not None:
-            out = out + self.bias.to(out.dtype)
         return out.reshape(*x.shape[:-1], out.shape[-1])
+
+    def forward(self, x):
+        out = self.product(x)
+        return out if self.bias is None else out + self.bias.to(out.dtype)
 
     def extra_repr(self):
         return (f"shape={self.shape}, layout={self.layout}, bits={self.num_bits}, "
@@ -161,6 +174,53 @@ def quantized_linear(name, weight, bias=None, num_bits=8, group_size=256, impl=N
         layout, row, w = "kn", impl, weight.T.contiguous()
     qp = QuantizedParameter.from_tensor(w, num_bits, group_size)
     return QuantizedLinear(qp, layout, row, bias=bias)
+
+
+def cut_quantized(qp, dim, spans):
+    """The part of a whole ``QuantizedParameter`` (a ``[rows, cols]``
+    weight in its quantized layout) at element ``spans`` along ``dim``
+    (0: rows, 1: columns), in whole groups: 8-bit ``q`` and its scale
+    columns cut directly (``quantize_lastdim`` keeps the weight's shape),
+    the flattened 4-, 6- and 12-bit groups as ``[rows, cols / group, ...]``
+    where ``cols`` is a whole number of groups. Raises
+    ``NotImplementedError`` naming ROADMAP A5 part 3 where a cut would split
+    a group."""
+    R, C = qp.shape
+    gs = min(qp.group_size, C) if qp.num_bits == 8 else qp.group_size
+    ends = [e for span in spans for e in span] if dim == 1 else []
+    if (qp.num_bits != 8 and C % gs) or any(e % gs and e != C for e in ends):
+        raise NotImplementedError(
+            f"a tensor-parallel cut of a {qp.num_bits}-bit [{R}, {C}] weight at {spans} "
+            f"along dim {dim} would split its groups of {gs}; see ROADMAP.md queue A5 "
+            "part 3")
+    gspans = spans if dim == 0 else [(a // gs, -(-b // gs)) for a, b in spans]
+    if qp.num_bits == 8:
+        q, scale = take_spans(qp.q, dim, spans), take_spans(qp.scale, dim, gspans)
+    else:
+        q = take_spans(qp.q.reshape(R, C // gs, -1), dim, gspans)
+        q = q.reshape(-1, qp.q.shape[-1]) if qp.q.dim() == 2 else q.reshape(-1)
+        scale = take_spans(qp.scale.reshape(R, C // gs), dim, gspans).reshape(-1)
+    n = sum(b - a for a, b in spans)
+    return QuantizedParameter(q.contiguous(), scale.contiguous(),
+                              (n, C) if dim == 0 else (R, n), qp.num_bits, qp.group_size)
+
+
+def quantized_part(name, weight, plan, bias=None, num_bits=8, group_size=256, impl=None):
+    """``quantized_linear`` of module ``name`` for rank ``plan.rank`` of a
+    tensor-parallel group: ``weight`` is the WHOLE ``[out, in]`` weight,
+    quantized whole in the JAX layout, then ``q`` and ``scale`` cut to the
+    rank's part of ``{name}.weight`` (``plan.spans_of``; ``bias`` is the
+    rank's already)."""
+    raw = name.split(".")[-1] in RAW_WEIGHTS
+    qp = QuantizedParameter.from_tensor(weight if raw else weight.T.contiguous(),
+                                        num_bits, group_size)
+    spans = plan.spans_of(f"{name}.weight")
+    if spans is not None:
+        dim, spans = spans
+        # [out, in] -> the quantized layout: raw keeps it, a Dense kernel is [in, out]
+        qp = cut_quantized(qp, dim if raw else 1 - dim, spans)
+    return QuantizedLinear(qp, "nk" if raw else "kn", "dense_dequant" if raw else impl,
+                           bias=bias)
 
 
 def replace_module(model, name, new):

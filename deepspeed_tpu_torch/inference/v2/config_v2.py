@@ -73,10 +73,10 @@ class SpeculativeConfig(DeepSpeedConfigModel):
 
 class RaggedInferenceEngineConfig(DeepSpeedConfigModel):
     """Top-level v2 config (reference ``config_v2.py:29``).
-    ``tensor_parallel.tp_size`` > 1 serves the Llama families and Mixtral
-    over a ``tp`` group (``engine_factory.build_engine``); speculative
-    decode and the host KV tier under it wait for ROADMAP A5 part 2, and so
-    do the model shapes the engine refuses."""
+    ``tensor_parallel.tp_size`` > 1 serves every family over a ``tp`` group
+    (``engine_factory.build_engine``), speculative decode and the host KV
+    tier included; page transfer between replicas under it waits for
+    ROADMAP A5 part 3."""
     tensor_parallel = {"tp_size": 1}
     state_manager = DSStateManagerConfig()
     kv_cache = KVCacheConfig()
@@ -100,16 +100,9 @@ class RaggedInferenceEngineConfig(DeepSpeedConfigModel):
 
     def _reject_unported(self):
         sm = self.state_manager
-        tp = int(dict(self.tensor_parallel).get("tp_size", 1))
         unported = [
             (sm.nvme_kv_blocks > 0, "state_manager.nvme_kv_blocks > 0",
              "A14 (offload tiers: the NVMe rung of the KV cache)"),
-            (tp > 1 and self.speculative.enabled,
-             f"speculative decode under tensor_parallel.tp_size {tp}",
-             "A5 part 2 (tensor-parallel serving)"),
-            (tp > 1 and sm.host_kv_blocks > 0,
-             f"the host KV tier (host_kv_blocks) under tensor_parallel.tp_size {tp}",
-             "A5 part 2 (tensor-parallel serving)"),
         ]
         for bad, what, item in unported:
             if bad:

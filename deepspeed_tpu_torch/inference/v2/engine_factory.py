@@ -10,13 +10,13 @@ ragged OPT forward. ``build_hf_engine`` loads the weights through the HF
 converter (``checkpoint/hf.py``) straight in the serving dtype on the
 engine's device; ``build_engine`` serves an in-tree model.
 
-With ``tensor_parallel.tp_size`` > 1 (the Llama families and Mixtral) every
-rank of the ``tp`` group calls the builder: the group is the ``tp`` axis of
+With ``tensor_parallel.tp_size`` > 1 (every family) every rank of the
+``tp`` group calls the builder: the group is the ``tp`` axis of
 the topology in ``parallel.groups`` (``groups.serving_topology``: the
 installed one, or a ``MeshTopology(tp=tp_size)`` over the world when none
 is installed),
-each rank serves its slice of the weights, tp rank 0 drives the engine and
-the other ranks run ``engine.follow()``. ``build_replica`` is the JAX
+each rank serves its share of the weights (``TPPlan``), tp rank 0 drives
+the engine and the other ranks run ``engine.follow()``. ``build_replica`` is the JAX
 package's one-replica builder (``inference/v2/replica_group.py:28``) over
 that group.
 """
@@ -32,8 +32,7 @@ from deepspeed_tpu_torch.models.mixtral import MixtralConfig
 from deepspeed_tpu_torch.models.opt import OPTConfig
 from deepspeed_tpu_torch.models.parallel_block import ParallelBlockConfig
 from deepspeed_tpu_torch.parallel import groups
-from deepspeed_tpu_torch.parallel.tensor_parallel import (TensorParallel, check_divisible,
-                                                          slice_state_dict)
+from deepspeed_tpu_torch.parallel.tensor_parallel import TensorParallel, slice_state_dict
 from deepspeed_tpu_torch.utils.logging import logger
 
 SUPPORTED_FAMILIES = ("llama", "mistral", "qwen2", "mixtral", "falcon", "phi",
@@ -119,10 +118,6 @@ def _as_config(engine_config):
     return RaggedInferenceEngineConfig(engine_config or {})
 
 
-def _tp_family(family):
-    return "llama" if family in LLAMA_FAMILIES else family
-
-
 def _tensor_parallel(config):
     """This rank's ``TensorParallel`` for ``config``'s ``tp_size``, from the
     topology in ``parallel.groups`` (``groups.serving_topology``)."""
@@ -134,17 +129,16 @@ def _tensor_parallel(config):
 
 def shard_model(model, tp):
     """``model`` as rank ``tp.rank`` of ``tp`` serves it: a model built with
-    ``tp.size`` keeps its weights (they must be that rank's slices), a whole
-    model is cut into a new module holding copies of the rank's slices
+    ``tp.size`` keeps its weights (they must be that rank's parts), a whole
+    model is cut into a new module holding copies of the rank's parts
     (dropping the whole model then frees its split weights)."""
     if model.tp_size == tp.size:
-        if model.tp.rank != tp.rank:
-            raise ValueError(f"the model holds tp rank {model.tp.rank}'s slices, "
+        if model.plan.rank != tp.rank:
+            raise ValueError(f"the model holds tp rank {model.plan.rank}'s share, "
                              f"this is tp rank {tp.rank}")
     elif model.tp_size == 1:
-        local = type(model)(model.config, device="meta", tp_size=tp.size)
-        local.load_state_dict(slice_state_dict(model.state_dict(), local.param_specs(),
-                                               tp.size, tp.rank), assign=True)
+        local = type(model)(model.config, device="meta", tp_size=tp.size, tp_rank=tp.rank)
+        local.load_state_dict(slice_state_dict(model.state_dict(), local.plan), assign=True)
         model = local.requires_grad_(False)
     else:
         raise ValueError(f"a model split over {model.tp_size} ranks cannot serve "
@@ -162,7 +156,6 @@ def build_engine(model, engine_config=None, family=None, device=None):
     config = _as_config(engine_config)
     tp = _tensor_parallel(config)
     if tp.size > 1:
-        check_divisible(model.config, tp.size, _tp_family(family or model_family(model)))
         model = shard_model(model, tp)
     return InferenceEngineV2(model, config,
                              forward_fn=resolve_forward_fn(model, family),

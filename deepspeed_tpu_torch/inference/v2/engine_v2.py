@@ -22,10 +22,17 @@ first broadcast over the group (an op-code header, then the padded batch
 arrays), so the ranks > 0, which hold only their share of the weights and
 of the KV pools (``KV / tp`` heads under the same global block tables),
 run the same forward on their shards from ``follow()``; the ranks' logits
-are gathered on every rank, and only rank 0 samples. Preemption's page
-swaps are broadcast the same way. ``stop_followers()`` ends the followers'
-loops. So no decision that reads the clock or a generator is taken on more
-than one rank, and the ranks cannot diverge.
+are gathered on every rank, and only rank 0 samples. A verify forward
+(speculative decode) is broadcast the same way with its column count; the
+scheduler's drafts, accept walk and rollback, the draft-page class and the
+prefix cache stay on rank 0, since they move only block ids and cursors,
+and the next forward's block tables carry them to every rank. What moves
+KV bytes is broadcast too: preemption's page swaps, and the host tier's
+spills, restores and drops of parked prefix blocks (``_TPSpiller``), each
+with its block ids, so that every rank moves its own heads' pages of the
+same blocks. ``stop_followers()`` ends the followers' loops. So no decision
+that reads the clock or a generator is taken on more than one rank, and the
+ranks cannot diverge.
 
 Page transfer for the serving fleet (``fleet/disagg.py``): ``export_pages_many``
 detaches finished sequences' KV pages in one gather, ``import_pages_many``
@@ -35,8 +42,8 @@ delta-shipping digest exchange and ``peek_prefix`` the router's
 prefix-affinity read.
 
 Left for later slices: the flight-recorder collector (ROADMAP A15) and,
-under tensor parallelism, speculative decode, the host KV tier and page
-transfer (ROADMAP A5 part 2).
+under tensor parallelism, page transfer (per-rank page shipping between
+the tp groups of two replicas, ROADMAP A5 part 3).
 """
 
 import dataclasses
@@ -55,12 +62,11 @@ from deepspeed_tpu_torch.inference.v2.ragged.ragged_wrapper import RaggedBatchWr
 from deepspeed_tpu_torch.inference.v2.sampling import sample_rows, verify_rows
 from deepspeed_tpu_torch.models.mixtral import MixtralConfig
 from deepspeed_tpu_torch.parallel.tensor_parallel import (TensorParallel,
-                                                          broadcast_from_controller,
-                                                          check_divisible)
+                                                          broadcast_from_controller)
 from deepspeed_tpu_torch.utils.logging import logger
 
 # op codes of the controller's messages to the tp followers
-_STOP, _FORWARD, _SWAP_OUT, _SWAP_IN = 0, 1, 2, 3
+_STOP, _FORWARD, _SWAP_OUT, _SWAP_IN, _SPILL, _RESTORE, _DROP = range(7)
 _HEADER = 6          # int64 header: op, payload length, then four arguments
 
 
@@ -142,7 +148,7 @@ class InferenceEngineV2:
                 f"modules.moe pinned to {mods.moe!r} but "
                 f"{type(cfg).__name__} has no MoE layer to swap")
         sm, kvc = config.state_manager, config.kv_cache
-        heads, kv_heads = cfg.num_attention_heads // tp.size, cfg.num_key_value_heads // tp.size
+        heads, kv_heads = model.plan.heads, model.plan.kv_heads
         # module choices are validated before the KV pool is allocated
         self._attention_impl, self._attention = instantiate_attention(
             (1, 1, heads, cfg.head_dim), (1, kv_heads, kvc.block_size, cfg.head_dim),
@@ -154,7 +160,7 @@ class InferenceEngineV2:
         self._moe_impl, self._forward_kw = None, {}
         if is_moe:
             self._moe_impl, moe = instantiate_moe(
-                cfg.hidden_size, cfg.intermediate_size // tp.size, preference=mods.moe)
+                cfg.hidden_size, model.plan.ffn, preference=mods.moe)
             self._forward_kw["moe"] = moe
             if mods.moe == "einsum":
                 logger.info(f"modules.moe pinned to 'einsum' by config: the "
@@ -173,6 +179,9 @@ class InferenceEngineV2:
         self._state = DSStateManager(config, cfg.num_hidden_layers, kv_heads,
                                      cfg.head_dim, self._device, num_blocks=num_blocks)
         self._state.kv_cache.set_host_fetch(self.host_fetch)
+        if tp.size > 1 and self._state.prefix_cache is not None \
+                and sm.host_kv_blocks > 0 and self.is_controller:
+            self._state.prefix_cache.bind_spiller(_TPSpiller(self))
         self._max_blocks_per_seq = -(-sm.max_context // kvc.block_size)
         self._host_sync_count = 0
         logger.info(f"InferenceEngineV2 on {self._device}: "
@@ -184,18 +193,13 @@ class InferenceEngineV2:
                     + (f" tp rank {tp.rank} of {tp.size}" if tp.size > 1 else ""))
 
     def _check_tensor_parallel(self, config, tp):
-        """Refuse a model this slice cannot split (``NotImplementedError``
-        naming ROADMAP A5 part 2; the config refuses the features) and a
-        config whose ``tp_size`` is not the model's split."""
+        """Refuse a config whose ``tp_size`` is not the model's split (the
+        model's ``TPPlan`` refused what it cannot cut when it was built)."""
         want = int(dict(config.tensor_parallel).get("tp_size", 1))
         if want != tp.size:
             raise ValueError(
                 f"tensor_parallel.tp_size is {want} but the model is split over "
                 f"{tp.size} rank(s); build the engine with engine_factory.build_engine")
-        if tp.size == 1:
-            return
-        from deepspeed_tpu_torch.inference.v2.engine_factory import model_family
-        check_divisible(self._model_config, tp.size, model_family(self._model))
 
     # -- tensor parallelism: the controller and its followers ----------------
     @property
@@ -231,26 +235,34 @@ class InferenceEngineV2:
 
     def follow(self):
         """Run on every tp rank > 0: serve the controller's broadcast
-        forwards and page swaps on this rank's shards until the controller
-        calls ``stop_followers()``. Returns the number of forwards run."""
+        forwards (plain and verify), page swaps and host-tier moves on this
+        rank's shards until the controller calls ``stop_followers()``.
+        Returns the number of forwards run."""
         if self.is_controller:
             raise RuntimeError("tp rank 0 is the controller; only ranks > 0 follow")
-        kv, swapped, forwards = self._state.kv_cache, {}, 0
+        kv, swapped, spilled, forwards = self._state.kv_cache, {}, {}, 0
         while True:
             op, args, payload = self._receive()
             if op == _STOP:
                 return forwards
             if op == _FORWARD:
-                S, Q, MB = args[:3]
+                S, Q, MB, verify_k = args
                 sizes = (S * Q, S, S, S * MB)
                 tokens, q_len, seen, tables = torch.split(payload, sizes)
                 self._run_forward({"tokens": tokens.view(S, Q), "q_len": q_len,
-                                   "seen": seen, "block_tables": tables.view(S, MB)})
+                                   "seen": seen, "block_tables": tables.view(S, MB)},
+                                  verify_k or None)
                 forwards += 1
             elif op == _SWAP_OUT:
                 swapped[args[0]] = kv.read_pages(payload.tolist())
             elif op == _SWAP_IN:
                 kv.write_pages(payload.tolist(), swapped.pop(args[0]))
+            elif op == _SPILL:
+                spilled[args[0]] = kv.spill_block(args[1])
+            elif op == _RESTORE:
+                kv.restore_block(spilled.pop(args[0]), args[1])
+            elif op == _DROP:
+                spilled.pop(args[0])
             else:
                 raise RuntimeError(f"unknown op {op} from the tp controller")
 
@@ -416,9 +428,9 @@ class InferenceEngineV2:
                   for k, a in wrapper.build().items()}
         if self._tp.size > 1:
             S, Q = arrays["tokens"].shape
-            self._send(_FORWARD, (S, Q, arrays["block_tables"].shape[1]), torch.cat(
-                [arrays[k].reshape(-1) for k in ("tokens", "q_len", "seen",
-                                                 "block_tables")]))
+            self._send(_FORWARD, (S, Q, arrays["block_tables"].shape[1], verify_k or 0),
+                       torch.cat([arrays[k].reshape(-1) for k in ("tokens", "q_len", "seen",
+                                                                  "block_tables")]))
         logits = self._run_forward(arrays, verify_k)
         for uid in batch_uids:
             seq = self._state.get_sequence(uid)
@@ -533,8 +545,9 @@ class InferenceEngineV2:
     def _require_single_rank(self, what):
         if self._tp.size > 1:
             raise NotImplementedError(
-                f"{what} under tensor parallelism (tp_size {self._tp.size}) is "
-                "not ported yet; see ROADMAP.md queue A5 part 2")
+                f"{what} under tensor parallelism (tp_size {self._tp.size}: per-rank page "
+                "shipping between the tp groups of two replicas) is not ported yet; see "
+                "ROADMAP.md queue A5 part 3")
 
     def export_pages(self, uid: int):
         """Detach ``uid``'s KV pages (copies on this engine's device) for
@@ -626,3 +639,28 @@ class InferenceEngineV2:
     def swap_stats(self):
         return {"swap_outs": self._state.swap_outs,
                 "swap_ins": self._state.swap_ins}
+
+
+class _TPSpiller:
+    """The controller's host-tier spiller under tensor parallelism: the
+    prefix cache's ``spill_block`` / ``restore_block`` / ``drop_block`` on
+    this rank's pools, each first broadcast to the followers with its block
+    id and a spill key, so that every rank spills, restores or drops its
+    own heads' pages of the same block at the same point."""
+
+    def __init__(self, engine):
+        self._engine, self._kv = engine, engine._state.kv_cache
+        self._next = 0
+
+    def spill_block(self, block):
+        key, self._next = self._next, self._next + 1
+        self._engine._send(_SPILL, (key, block))
+        return key, self._kv.spill_block(block)
+
+    def restore_block(self, payload, block):
+        key, local = payload
+        self._engine._send(_RESTORE, (key, block))
+        self._kv.restore_block(local, block)
+
+    def drop_block(self, payload):
+        self._engine._send(_DROP, (payload[0],))

@@ -34,7 +34,7 @@ Handoff protocol (one request):
   3. the decode replica's next round carries the request as a plain decode
      row; its finish is the request's one terminal event.
 
-Left for later slices: replicas at ``tp_size`` > 1 (ROADMAP A5 part 2) and
+Left for later slices: replicas at ``tp_size`` > 1 (ROADMAP A5 part 3) and
 the flight-recorder collectors the JAX fleet registers (page census,
 lifecycle, transport stats; ROADMAP A15).
 """
@@ -426,7 +426,7 @@ class PrefillDecodeFleet:
             decode; devices past those are spares the autoscaler raises new
             decode replicas on. Several replicas may share a device.
             Default: every replica on the current CUDA device.
-        tp_size: devices per replica; only 1 is ported (A5 part 2).
+        tp_size: devices per replica; only 1 is ported (A5 part 3).
         engine_config / token_budget: prefill-side engine config + SplitFuse
             budget (prefill wants a LARGE budget — it only sees chunks).
         decode_engine_config / decode_token_budget: decode-side overrides

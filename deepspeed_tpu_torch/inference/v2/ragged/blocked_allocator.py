@@ -267,11 +267,12 @@ class BlockedAllocator:
 
     def drop_host(self, ref: int):
         """Discard a host or NVMe record without restoring it (cache
-        invalidation — e.g. the owning prefix cache is flushed)."""
+        invalidation — e.g. the owning prefix cache is flushed). Returns the
+        dropped host payload (None for an NVMe record)."""
         if ref in self._host:
             self._host_drops += 1
-            del self._host[ref]
-        elif ref in self._nvme:
+            return self._host.pop(ref)
+        if ref in self._nvme:
             self._nvme_store.drop(self._nvme.pop(ref))
             self._host_drops += 1
         else:

@@ -244,7 +244,12 @@ class PrefixCache:
             # the sequence re-prefilled identical content on the device (its
             # match predated the spill or a restore found no room) — the
             # host copy is now a stale duplicate
-            self._alloc.drop_host(self._host_map.pop(d))
+            payload = self._alloc.drop_host(self._host_map.pop(d))
+            # a spiller that keeps copies elsewhere (a tensor-parallel
+            # controller's) takes the drop too
+            drop = getattr(self._spiller, "drop_block", None)
+            if payload is not None and drop is not None:
+                drop(payload)
         self._map[d] = block
         self._by_block[block] = d
         self.insertions += 1

@@ -16,7 +16,8 @@ load signals exposed here); for prefill/decode specialisation see
 ``fleet.PrefillDecodeFleet``, which builds its replicas through the same
 ``build_device_replica``. ``engine_factory.build_replica`` stays the
 one-replica builder over a ``tp`` group; replicas at ``tp_size`` > 1 in a
-group or a fleet wait for ROADMAP A5 part 2.
+group or a fleet (per-rank page shipping between the tp groups of two
+replicas) wait for ROADMAP A5 part 3.
 """
 
 import contextlib
@@ -55,8 +56,9 @@ def model_on(model, device):
 def check_single_rank(tp_size):
     if int(tp_size) != 1:
         raise NotImplementedError(
-            f"fleet and replica-group replicas at tp_size {tp_size} are not "
-            "ported yet; see ROADMAP.md queue A5 part 2")
+            f"fleet and replica-group replicas at tp_size {tp_size} (per-rank page "
+            "shipping between tp groups) are not ported yet; see ROADMAP.md queue "
+            "A5 part 3")
 
 
 class _ModelCopies:
@@ -90,7 +92,7 @@ class ReplicaGroup:
         model: the model every replica serves (its weights on one device).
         devices: one torch device (or name) per replica; several replicas
             may share a device.
-        tp_size: devices per replica; only 1 is ported (A5 part 2).
+        tp_size: devices per replica; only 1 is ported (A5 part 3).
         engine_config: per-replica ``InferenceEngineV2`` config.
         token_budget: per-replica SplitFuse token budget.
     """

@@ -14,17 +14,20 @@ the v1 engine's ``generate`` runs. ``params_from_flax`` converts the JAX
 package's scan-stacked flax tree (parameters or their gradients) into this
 module's state dict.
 
-With ``tp_size`` > 1 (tensor-parallel serving) the module holds one rank's
-share of the weights, split as the JAX model's ``param_specs`` splits them
-(``param_specs`` here; ``parallel/tensor_parallel.py``): whole query and KV
-heads, the MLP width, and the vocabulary of the embedding and ``lm_head``.
-Its forward then exchanges over ``model.tp``: the row-split o and down
-products are all-reduced, the embedding is looked up from the vocabulary
-slices and the logits gathered. ``from_seed`` and ``params_from_flax`` cut
-each rank's slices from the whole tensors.
+With ``tp_size`` > 1 (tensor-parallel serving) the module holds rank
+``tp_rank``'s share of the weights, split as the JAX model's
+``param_specs`` splits them (``param_specs`` here) and cut by its
+``TPPlan`` (``model.plan``, ``parallel/tensor_parallel.py``): whole query
+heads (uneven where tp does not divide them) with the KV heads they read,
+the MLP width, and the vocabulary of the embedding and ``lm_head``. Its
+forward then exchanges over ``model.tp``: the row-split o and down products
+are all-reduced, the embedding is looked up from the vocabulary slices and
+the logits gathered. ``from_seed`` and ``params_from_flax`` cut each rank's
+parts from the whole tensors.
 """
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -34,9 +37,10 @@ from torch import nn
 from deepspeed_tpu_torch import resolve_device
 from deepspeed_tpu_torch.models.losses import lm_head_next_token_loss
 from deepspeed_tpu_torch.ops.flash_attention import NEG_INF, mha
-from deepspeed_tpu_torch.parallel.tensor_parallel import (TensorParallel, gather_vocab,
-                                                          row_reduce, slice_state_dict,
-                                                          split_dim, tp_slice, vocab_embed)
+from deepspeed_tpu_torch.parallel.tensor_parallel import (TensorParallel, TPPlan,
+                                                          gather_vocab, row_reduce,
+                                                          slice_state_dict, split_dim,
+                                                          vocab_embed)
 from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
 
 
@@ -134,22 +138,25 @@ def rotary_embed(x, positions, theta=10000.0):
 
 
 def row_linear(x, linear, tp):
-    """A row-split ``nn.Linear``: this rank's partial product, summed over
-    the ``tp`` group, then the bias once."""
+    """A row-split ``nn.Linear`` (or int8 ``QuantizedLinear``, by its
+    ``product``): this rank's partial product, summed over the ``tp`` group,
+    then the bias once."""
     if tp.size == 1:
         return linear(x)
-    y = row_reduce(torch.nn.functional.linear(x, linear.weight), tp)
+    product = getattr(linear, "product", None)
+    y = row_reduce(product(x) if product else torch.nn.functional.linear(x, linear.weight),
+                   tp)
     return y if linear.bias is None else y + linear.bias
 
 
 class LlamaAttention(nn.Module):
-    """q/k/v/o projections of ``H / tp_size`` query and ``KV / tp_size`` KV
-    heads (one tensor-parallel rank's share; all of them at ``tp_size`` 1)."""
+    """q/k/v/o projections of one tensor-parallel rank's query heads and the
+    KV heads they read (``plan``, a ``TPPlan``; all of them without one)."""
 
-    def __init__(self, cfg, device=None, tp_size=1):
+    def __init__(self, cfg, device=None, plan=None):
         super().__init__()
-        H, KV, Dh, D = (cfg.num_attention_heads // tp_size,
-                        cfg.num_key_value_heads // tp_size, cfg.head_dim, cfg.hidden_size)
+        plan = plan or TPPlan(cfg)
+        H, KV, Dh, D = plan.heads, plan.kv_heads, cfg.head_dim, cfg.hidden_size
         kw = dict(device=device, dtype=cfg.dtype)
         self.q_proj = nn.Linear(D, H * Dh, bias=cfg.attention_bias, **kw)
         self.k_proj = nn.Linear(D, KV * Dh, bias=cfg.attention_bias, **kw)
@@ -209,9 +216,9 @@ def cached_attention(q, k, v, keys, values, index, window=None):
 
 class LlamaMLP(nn.Module):
 
-    def __init__(self, cfg, device=None, tp_size=1):
+    def __init__(self, cfg, device=None, plan=None):
         super().__init__()
-        D, F = cfg.hidden_size, cfg.intermediate_size // tp_size
+        D, F = cfg.hidden_size, (plan or TPPlan(cfg)).ffn
         kw = dict(bias=False, device=device, dtype=cfg.dtype)
         self.gate_proj = nn.Linear(D, F, **kw)
         self.up_proj = nn.Linear(D, F, **kw)
@@ -225,10 +232,10 @@ class LlamaMLP(nn.Module):
 
 class LlamaDecoderLayer(nn.Module):
 
-    def __init__(self, cfg, device=None, tp_size=1):
+    def __init__(self, cfg, device=None, plan=None):
         super().__init__()
-        self.self_attn = LlamaAttention(cfg, device, tp_size)
-        self.mlp = LlamaMLP(cfg, device, tp_size)
+        self.self_attn = LlamaAttention(cfg, device, plan)
+        self.mlp = LlamaMLP(cfg, device, plan)
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
                                                 cfg.rms_norm_eps, device)
@@ -258,28 +265,32 @@ class LlamaForCausalLM(nn.Module):
     """Weights of a Llama-family causal LM. Norm scales are fp32, every
     other weight is ``config.dtype`` (the JAX package casts to that dtype at
     each use; storing it cast gives the same values). ``tp_size`` > 1 keeps
-    one tensor-parallel rank's share of the weights (module docstring); the
-    forward exchanges over ``tp`` (``set_tensor_parallel``), by default the
-    whole world of ``tp_size`` ranks."""
+    rank ``tp_rank``'s share of the weights of a tensor-parallel group
+    (module docstring); the forward exchanges over ``tp``
+    (``set_tensor_parallel``), by default the whole world of ``tp_size``
+    ranks. ``quant_group_size``: cut the column-split linears in whole
+    quantization groups of that size (v1 serving with int8 weights,
+    ``TPPlan``)."""
 
-    def __init__(self, config: LlamaConfig, device=None, tp_size=1):
+    def __init__(self, config: LlamaConfig, device=None, tp_size=1, tp_rank=0,
+                 quant_group_size=None):
         super().__init__()
         self.config = config
+        self.plan = plan = TPPlan(config, tp_size, tp_rank, quant_group_size)
         kw = dict(device=device, dtype=config.dtype)
-        self.embed_tokens = nn.Embedding(config.vocab_size // tp_size,
-                                         config.hidden_size, **kw)
-        self.layers = nn.ModuleList(LlamaDecoderLayer(config, device, tp_size)
+        self.embed_tokens = nn.Embedding(plan.vocab, config.hidden_size, **kw)
+        self.layers = nn.ModuleList(LlamaDecoderLayer(config, device, plan)
                                     for _ in range(config.num_hidden_layers))
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device)
-        self.lm_head = nn.Linear(config.hidden_size, config.vocab_size // tp_size,
-                                 bias=False, **kw)
+        self.lm_head = nn.Linear(config.hidden_size, plan.vocab, bias=False, **kw)
         self.tp_size = tp_size
-        self.set_tensor_parallel(TensorParallel(size=tp_size, ranks=tuple(range(tp_size))))
+        self.set_tensor_parallel(TensorParallel(size=tp_size, rank=tp_rank,
+                                                ranks=tuple(range(tp_size))))
 
     def set_tensor_parallel(self, tp):
-        """Exchange over ``tp`` (a ``TensorParallel`` of ``tp_size`` ranks)
-        in every layer's forward; its ``rank`` is the slice this module
-        holds."""
+        """Exchange over ``tp`` (a ``TensorParallel`` of ``tp_size`` ranks,
+        whose ``rank`` is the one this module holds the share of) in every
+        layer's forward."""
         set_tensor_parallel(self, tp)
 
     def param_specs(self):
@@ -343,10 +354,10 @@ class LlamaForCausalLM(nn.Module):
         every matrix, zeros for biases, ones for norm scales (the flax
         initializers' shapes; the draws differ from JAX's). With
         ``tp_size`` > 1 each split tensor is drawn whole and rank
-        ``tp_rank``'s slice kept, so every rank's weights are those of the
+        ``tp_rank``'s part kept, so every rank's weights are those of the
         one-rank model."""
-        model = cls(config, device="meta", tp_size=tp_size)
-        return draw_from_seed(model, seed, device, std, tp_parts(model, tp_rank), tp_rank)
+        model = cls(config, device="meta", tp_size=tp_size, tp_rank=tp_rank)
+        return draw_from_seed(model, seed, device, std, tp_parts(model))
 
 
 def llama_flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
@@ -357,59 +368,58 @@ def llama_flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
 
 def set_tensor_parallel(model, tp):
     """Point every submodule's ``tp`` (and the model's) at ``tp``, which
-    must have the ``tp_size`` the model was built with."""
-    if tp.size != model.tp_size:
-        raise ValueError(f"a tp group of {tp.size} ranks for a model built with "
-                         f"tp_size {model.tp_size}")
+    must have the ``tp_size`` the model was built with and name the rank it
+    holds the share of."""
+    if tp.size != model.tp_size or tp.rank != model.plan.rank:
+        raise ValueError(f"tp rank {tp.rank} of {tp.size} for a model holding rank "
+                         f"{model.plan.rank}'s share of tp_size {model.tp_size}")
     for m in model.modules():
         if hasattr(m, "tp"):
             m.tp = tp
     model.tp = tp
 
 
-def tp_parts(model, tp_rank):
-    """``{name: (dim, tp_size, tp_rank)}`` for each parameter ``model``
-    (built with ``tp_size``) holds one ``tp`` part of, by ``param_specs``:
-    the ``parts`` argument of ``draw_from_seed``."""
-    return {name: (dim, model.tp_size, tp_rank)
+def tp_parts(model):
+    """``{name: (whole shape, cut)}`` for each parameter ``model`` holds one
+    tensor-parallel part of (its ``plan``): the ``parts`` argument of
+    ``draw_from_seed``."""
+    if model.tp_size == 1:
+        return {}
+    whole = dict(type(model)(model.config, device="meta").named_parameters())
+    return {name: (whole[name].shape, functools.partial(model.plan.cut, name))
             for name, dim in model.param_specs().items() if dim is not None}
 
 
-def draw_from_seed(model, seed, device, std, parts, tp_rank=0):
+def draw_from_seed(model, seed, device, std, parts):
     """Materialise ``model`` (built on the meta device) on ``device`` with
     seeded random weights: N(0, std) for every matrix, zeros for biases,
     ones for norm scales, each drawn from one ``torch.Generator(seed)`` in
     parameter order. ``parts`` maps the name of a parameter that holds one
-    part of a tensor split along a dimension (its ``tp`` or ``ep`` slice)
-    to ``(dim, n_parts, index)``: that tensor is drawn whole and part
-    ``index`` kept, so every rank's weights are the one-rank model's, with
-    at most one whole tensor alive at a time. The model then serves as rank
-    ``tp_rank`` of its ``tp_size``."""
+    part of a whole tensor (its ``tp`` or ``ep`` part) to ``(whole shape,
+    cut)``: that tensor is drawn whole and ``cut(whole)`` kept, so every
+    rank's weights are the one-rank model's, with at most one whole tensor
+    alive at a time. The model then serves as the rank its plan holds."""
     device = resolve_device(device)
     model = model.to_empty(device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     with torch.no_grad():
         for name, p in model.named_parameters():
-            dim, n, index = parts.get(name, (None, 1, 0))
-            if name.endswith("layernorm.weight") or name == "norm.weight":
+            if name.endswith("norm.weight"):
                 p.fill_(1.0)
             elif name.endswith(".bias"):
                 p.zero_()
-            elif n > 1:
-                shape = list(p.shape)
-                shape[dim] *= n
+            elif name in parts:
+                shape, cut = parts[name]
                 full = torch.empty(shape, dtype=p.dtype, device=device)
-                p.copy_(tp_slice(full.normal_(0.0, std, generator=gen), dim, n, index))
+                p.copy_(cut(full.normal_(0.0, std, generator=gen)))
                 del full
             else:
                 p.normal_(0.0, std, generator=gen)
-    model.set_tensor_parallel(TensorParallel(size=model.tp_size, rank=tp_rank,
-                                             ranks=tuple(range(model.tp_size))))
     return model.requires_grad_(False)
 
 
-def params_from_flax(tree, tp_size=1, tp_rank=0):
+def params_from_flax(tree, plan=None):
     """The JAX package's ``LlamaForCausalLM`` (``scan_layers=True``) param
     tree, as numpy arrays, -> a state dict for this ``LlamaForCausalLM``.
     The same mapping converts a gradient tree of the same structure.
@@ -418,8 +428,8 @@ def params_from_flax(tree, tp_size=1, tp_rank=0):
     ``nn.Linear`` weights are ``[out, in]``, so each is unstacked and
     transposed. ``lm_head`` is ``[V, D]`` in both. Values are copied as
     fp32; ``load_state_dict`` casts them to the module's dtype. With
-    ``tp_size`` > 1, rank ``tp_rank``'s slices, for a model built with
-    ``tp_size``."""
+    ``plan`` (a ``TPPlan``), its rank's parts, for a model built with that
+    plan (``model.plan``)."""
     blk = tree["layers"]["block"]
     L = np.asarray(blk["input_layernorm"]["scale"]).shape[0]
     sd = {"embed_tokens.weight": tree["embed_tokens"],
@@ -439,4 +449,4 @@ def params_from_flax(tree, tp_size=1, tp_rank=0):
                 if "bias" in leaf:
                     sd[f"{pre}{group}.{n}.bias"] = np.asarray(leaf["bias"])[i]
     sd = {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
-    return slice_state_dict(sd, {k: split_dim(k) for k in sd}, tp_size, tp_rank)
+    return sd if plan is None else slice_state_dict(sd, plan)

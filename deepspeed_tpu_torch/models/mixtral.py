@@ -20,16 +20,20 @@ carries them across without a transpose; the attention projections are
 of the expert stacks, ``[E / ep_size, ...]`` (the JAX ``param_specs``'
 ``"ep"`` on the expert axis); ``from_seed`` and ``params_from_flax`` cut
 the same slice from the whole stacks. With ``tp_size`` > 1
-(tensor-parallel serving) each rank holds the attention's share of the
-heads as the port's Llama does, the vocabulary slice of the embedding and
-``lm_head``, and the expert FFN width ``F / tp_size`` of every expert
-(``w1``/``w3`` [E, D, F/tp], ``w2`` [E, F/tp, D]: the JAX ``param_specs``'
-``"tp"``); the router and the norms are replicated. The tensor-parallel
+(tensor-parallel serving) rank ``tp_rank`` holds the attention's share of
+the heads as the port's Llama does, the vocabulary slice of the embedding
+and ``lm_head``, and its share of every expert's FFN width (``w1``/``w3``
+[E, D, F'], ``w2`` [E, F', D]: the JAX ``param_specs``' ``"tp"``), all cut
+by its ``TPPlan``; the router and the norms are replicated. The JAX package
+serves no model with ``ep`` and ``tp`` together (its serving meshes have no
+``ep`` axis beside ``tp``), so both at once belong to tensor-parallel
+training (ROADMAP A12). The tensor-parallel
 forward is the ragged serving forward's. The ZeRO-Infinity streaming
 protocol waits for ROADMAP A14.
 """
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -44,8 +48,8 @@ from deepspeed_tpu_torch.moe.sharded_moe import MOELayer
 from deepspeed_tpu_torch.moe.utils import expert_slice, moe_param_specs
 from deepspeed_tpu_torch.ops.flash_attention import mha
 from deepspeed_tpu_torch.ops.grouped_gemm import grouped_matmul
-from deepspeed_tpu_torch.parallel.tensor_parallel import (TensorParallel, slice_state_dict,
-                                                          split_dim)
+from deepspeed_tpu_torch.parallel.tensor_parallel import (TensorParallel, TPPlan,
+                                                          slice_state_dict, split_dim)
 from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
 
 
@@ -144,11 +148,11 @@ class MixtralExpertMLP(nn.Module):
 
 class MixtralDecoderLayer(nn.Module):
 
-    def __init__(self, cfg, device=None, ep_size=1, tp_size=1):
+    def __init__(self, cfg, device=None, ep_size=1, plan=None):
         super().__init__()
-        self.self_attn = LlamaAttention(cfg.as_llama(), device, tp_size)
-        expert_cfg = dataclasses.replace(
-            cfg, intermediate_size=cfg.intermediate_size // tp_size)
+        plan = plan or TPPlan(cfg)
+        self.self_attn = LlamaAttention(cfg.as_llama(), device, plan)
+        expert_cfg = dataclasses.replace(cfg, intermediate_size=plan.ffn)
         self.block_sparse_moe = MOELayer(
             lambda: MixtralExpertMLP(expert_cfg, device), cfg.num_local_experts,
             k=cfg.num_experts_per_tok, capacity_factor=cfg.capacity_factor,
@@ -174,24 +178,27 @@ class MixtralForCausalLM(nn.Module):
     expert-parallel rank's slice of each expert stack, ``tp_size`` > 1 one
     tensor-parallel rank's share of the weights (module docstring)."""
 
-    def __init__(self, config: MixtralConfig, device=None, ep_size=1, tp_size=1):
+    def __init__(self, config: MixtralConfig, device=None, ep_size=1, tp_size=1,
+                 tp_rank=0):
         super().__init__()
         if ep_size > 1 and tp_size > 1:
             raise NotImplementedError(
-                "expert and tensor parallelism together are not ported to "
-                "deepspeed_tpu_torch yet; see ROADMAP.md queue A5 part 2")
+                "expert and tensor parallelism together are tensor-parallel training: "
+                "the JAX package serves no model with both (its serving meshes are "
+                "('tp',) and ('dp', 'tp')); not ported to deepspeed_tpu_torch yet, see "
+                "ROADMAP.md queue A12")
         self.config = config
         self.ep_size = ep_size
+        self.plan = plan = TPPlan(config, tp_size, tp_rank)
         kw = dict(device=device, dtype=config.dtype)
-        self.embed_tokens = nn.Embedding(config.vocab_size // tp_size,
-                                         config.hidden_size, **kw)
-        self.layers = nn.ModuleList(MixtralDecoderLayer(config, device, ep_size, tp_size)
+        self.embed_tokens = nn.Embedding(plan.vocab, config.hidden_size, **kw)
+        self.layers = nn.ModuleList(MixtralDecoderLayer(config, device, ep_size, plan)
                                     for _ in range(config.num_hidden_layers))
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device)
-        self.lm_head = nn.Linear(config.hidden_size, config.vocab_size // tp_size,
-                                 bias=False, **kw)
+        self.lm_head = nn.Linear(config.hidden_size, plan.vocab, bias=False, **kw)
         self.tp_size = tp_size
-        self.set_tensor_parallel(TensorParallel(size=tp_size, ranks=tuple(range(tp_size))))
+        self.set_tensor_parallel(TensorParallel(size=tp_size, rank=tp_rank,
+                                                ranks=tuple(range(tp_size))))
 
     def set_tensor_parallel(self, tp):
         """The ``tp`` group the serving forward exchanges over (see
@@ -254,26 +261,29 @@ class MixtralForCausalLM(nn.Module):
         every matrix, zeros for biases, ones for norm scales (the flax
         initializers' shapes; the draws differ from JAX's). With ``ep_size``
         (``tp_size``) > 1 each expert stack (split tensor) is drawn whole and
-        rank ``ep_rank``'s (``tp_rank``'s) slice kept, so every rank's
+        rank ``ep_rank``'s (``tp_rank``'s) part kept, so every rank's
         weights are those of the one-rank model."""
-        model = cls(config, device="meta", ep_size=ep_size, tp_size=tp_size)
+        model = cls(config, device="meta", ep_size=ep_size, tp_size=tp_size,
+                    tp_rank=tp_rank)
         if ep_size > 1:
-            parts = {name: (0, ep_size, ep_rank)
-                     for name, spec in moe_param_specs(model).items() if spec}
+            whole = dict(cls(config, device="meta").named_parameters())
+            parts = {name: (whole[name].shape, functools.partial(
+                expert_slice, ep_size=ep_size, ep_rank=ep_rank))
+                for name, spec in moe_param_specs(model).items() if spec}
         else:
-            parts = tp_parts(model, tp_rank)
-        return draw_from_seed(model, seed, device, std, parts, tp_rank)
+            parts = tp_parts(model)
+        return draw_from_seed(model, seed, device, std, parts)
 
 
-def params_from_flax(tree, ep_size=1, ep_rank=0, tp_size=1, tp_rank=0):
+def params_from_flax(tree, ep_size=1, ep_rank=0, plan=None):
     """The JAX package's ``MixtralForCausalLM`` param tree (``layers_{i}``
     subtrees), as numpy arrays, -> a state dict for this
     ``MixtralForCausalLM``. Attention kernels ``[in, out]`` are transposed
     into ``nn.Linear``'s ``[out, in]``; the router ``wg`` [D, E] and the
     stacked experts ``MixtralExpertMLP_0/w{1,2,3}/kernel`` [E, in, out] keep
     their layout, cut to rank ``ep_rank``'s slice ``[E / ep_size, in, out]``
-    for a model built with ``ep_size``, and to rank ``tp_rank``'s slices
-    (``param_specs``) for a model built with ``tp_size``. Values are copied
+    for a model built with ``ep_size``, and to ``plan``'s rank's parts (a
+    ``TPPlan``, ``model.plan``) for a model built with that plan. Values are copied
     as fp32; ``load_state_dict`` casts them to the module's dtype."""
     sd = {"embed_tokens.weight": tree["embed_tokens"],
           "lm_head.weight": tree["lm_head"],
@@ -295,4 +305,4 @@ def params_from_flax(tree, ep_size=1, ep_rank=0, tp_size=1, tp_rank=0):
             sd[f"{pre}block_sparse_moe.experts.{n}"] = expert_slice(
                 np.asarray(experts[n]["kernel"]), ep_size, ep_rank)
     sd = {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
-    return slice_state_dict(sd, {k: split_dim(k) for k in sd}, tp_size, tp_rank)
+    return sd if plan is None else slice_state_dict(sd, plan)

@@ -10,8 +10,15 @@ the tied embedding). Parameter names follow the HuggingFace layout under
 weights are ``nn.Linear``'s ``[out, in]``; the ragged serving forward
 (``inference/v2/model_implementations/opt.py``) runs the same weights.
 ``params_from_flax`` converts the JAX package's scan-stacked tree. The
-ZeRO-Infinity streaming protocol (ROADMAP A14) and ``param_specs``, the
-tensor-parallel layout (ROADMAP A5 part 2), are not ported.
+ZeRO-Infinity streaming protocol waits for ROADMAP A14.
+
+With ``tp_size`` > 1 (tensor-parallel serving, the JAX model's
+``param_specs``, ``models/opt.py:212``) the module holds rank ``tp_rank``'s
+share, cut by its ``TPPlan``: q/k/v and ``fc1`` by output columns with
+their biases, ``out_proj`` and ``fc2`` by input rows (their biases whole,
+added once after the reduce), the tied embedding by vocabulary (so the
+logits are gathered), the learned positions whole. Such a module serves
+through the ragged forward; its training forward is ROADMAP A12.
 """
 
 import dataclasses
@@ -22,9 +29,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deepspeed_tpu_torch.models.llama import set_tensor_parallel
 from deepspeed_tpu_torch.models.losses import lm_head_next_token_loss
 from deepspeed_tpu_torch.models.parallel_block import LayerNorm, seeded
 from deepspeed_tpu_torch.ops.flash_attention import mha
+from deepspeed_tpu_torch.parallel.tensor_parallel import (TensorParallel, TPPlan,
+                                                          slice_state_dict, split_dim)
 from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
 
 
@@ -79,21 +89,25 @@ class OPTConfig:
 
 
 class OPTAttention(nn.Module):
+    """Biased q/k/v/out projections of one tensor-parallel rank's heads
+    (``plan``, a ``TPPlan``; all of them without one)."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, plan=None):
         super().__init__()
-        D = cfg.hidden_size
+        D, W = cfg.hidden_size, (plan or TPPlan(cfg)).heads * cfg.head_dim
         kw = dict(bias=True, device=device, dtype=cfg.dtype)
-        self.q_proj = nn.Linear(D, D, **kw)
-        self.k_proj = nn.Linear(D, D, **kw)
-        self.v_proj = nn.Linear(D, D, **kw)
-        self.out_proj = nn.Linear(D, D, **kw)
+        self.q_proj = nn.Linear(D, W, **kw)
+        self.k_proj = nn.Linear(D, W, **kw)
+        self.v_proj = nn.Linear(D, W, **kw)
+        self.out_proj = nn.Linear(W, D, **kw)
+        self.num_heads = W // cfg.head_dim
         self.config = cfg
+        self.tp = TensorParallel()
 
     def forward(self, x, attention=mha):
         cfg = self.config
         B, T, D = x.shape
-        H, Dh = cfg.num_attention_heads, cfg.head_dim
+        H, Dh = self.num_heads, cfg.head_dim
         q = self.q_proj(x).view(B, T, H, Dh)
         k = self.k_proj(x).view(B, T, H, Dh)
         v = self.v_proj(x).view(B, T, H, Dh)
@@ -102,15 +116,15 @@ class OPTAttention(nn.Module):
 
 class OPTDecoderLayer(nn.Module):
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, plan=None):
         super().__init__()
-        D = cfg.hidden_size
+        D, F = cfg.hidden_size, (plan or TPPlan(cfg)).ffn
         kw = dict(device=device, dtype=cfg.dtype)
-        self.self_attn = OPTAttention(cfg, device)
+        self.self_attn = OPTAttention(cfg, device, plan)
         self.self_attn_layer_norm = LayerNorm(D, cfg.layer_norm_epsilon, device)
         self.final_layer_norm = LayerNorm(D, cfg.layer_norm_epsilon, device)
-        self.fc1 = nn.Linear(D, cfg.ffn_dim, **kw)
-        self.fc2 = nn.Linear(cfg.ffn_dim, D, **kw)
+        self.fc1 = nn.Linear(D, F, **kw)
+        self.fc2 = nn.Linear(F, D, **kw)
         self.config = cfg
 
     def forward(self, x, attention=mha):
@@ -122,19 +136,35 @@ class OPTDecoderLayer(nn.Module):
 class OPTForCausalLM(nn.Module):
     """Weights of an OPT causal LM. LayerNorm scales and biases are fp32,
     every other weight is ``config.dtype``. The head is the token
-    embedding."""
+    embedding. ``tp_size`` > 1 keeps rank ``tp_rank``'s share (module
+    docstring)."""
 
-    def __init__(self, config: OPTConfig, device=None):
+    def __init__(self, config: OPTConfig, device=None, tp_size=1, tp_rank=0):
         super().__init__()
         self.config = config
+        self.plan = plan = TPPlan(config, tp_size, tp_rank)
         kw = dict(device=device, dtype=config.dtype)
-        self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size, **kw)
+        self.embed_tokens = nn.Embedding(plan.vocab, config.hidden_size, **kw)
         self.embed_positions = nn.Embedding(
             config.max_position_embeddings + config.POSITION_OFFSET, config.hidden_size, **kw)
-        self.layers = nn.ModuleList(OPTDecoderLayer(config, device)
+        self.layers = nn.ModuleList(OPTDecoderLayer(config, device, plan)
                                     for _ in range(config.num_hidden_layers))
         self.final_layer_norm = LayerNorm(config.hidden_size, config.layer_norm_epsilon,
                                           device)
+        self.tp_size = tp_size
+        self.set_tensor_parallel(TensorParallel(size=tp_size, rank=tp_rank,
+                                                ranks=tuple(range(tp_size))))
+
+    def set_tensor_parallel(self, tp):
+        """The ``tp`` group the serving forward exchanges over (see
+        ``LlamaForCausalLM.set_tensor_parallel``)."""
+        set_tensor_parallel(self, tp)
+
+    def param_specs(self):
+        """``{name: split dimension or None}`` over ``tp``: the JAX model's
+        ``param_specs`` (``models/opt.py:212``) in this module's layout
+        (module docstring)."""
+        return {name: split_dim(name) for name, _ in self.named_parameters()}
 
     def forward(self, batch, attention=mha):
         """The JAX model's ``__call__``: ``batch`` is a dict with
@@ -143,6 +173,11 @@ class OPTForCausalLM(nn.Module):
         logits [B, T, V]. In training each layer runs under the configured
         activation-checkpointing policy (``config.remat``). ``attention``
         replaces ``mha`` (a plain version, for comparisons)."""
+        if self.tp_size > 1:
+            raise NotImplementedError(
+                "the forward of a tensor-parallel OPT (training, tp axis) is not ported "
+                "to deepspeed_tpu_torch yet: ROADMAP A12; it serves through the ragged "
+                "engine")
         cfg = self.config
         if isinstance(batch, dict):
             input_ids, labels = batch["input_ids"], batch.get("labels")
@@ -164,11 +199,14 @@ class OPTForCausalLM(nn.Module):
         return lm_head_next_token_loss(x, self.embed_tokens.weight, labels)
 
     @classmethod
-    def from_seed(cls, config, seed: int, device=None, std: float = 0.02):
+    def from_seed(cls, config, seed: int, device=None, std: float = 0.02, tp_size=1,
+                  tp_rank=0):
         """Random weights drawn on ``device`` (default ``"cuda"``, which
         raises without a GPU) from ``torch.Generator(seed)``: N(0, std) for
-        every matrix and embedding, zeros for biases, ones for norm scales."""
-        return seeded(cls, config, seed, device, std)
+        every matrix and embedding, zeros for biases, ones for norm scales.
+        With ``tp_size`` > 1 each split tensor is drawn whole and rank
+        ``tp_rank``'s part kept."""
+        return seeded(cls, config, seed, device, std, tp_size, tp_rank)
 
 
 def _take(tree, i):
@@ -178,13 +216,14 @@ def _take(tree, i):
     return np.asarray(tree)[i]
 
 
-def params_from_flax(tree):
+def params_from_flax(tree, plan=None):
     """The JAX package's ``OPTForCausalLM`` param tree (``scan_layers``:
     layers stacked under ``layers/block``; or ``layers_{i}`` subtrees), as
     numpy arrays, -> a state dict for this ``OPTForCausalLM``. Kernels
     ``[in, out]`` are transposed into ``nn.Linear``'s ``[out, in]``. Values
     are copied as fp32; ``load_state_dict`` casts them to the module's
-    dtype."""
+    dtype. With ``plan`` (a ``TPPlan``, ``model.plan``), its rank's
+    parts."""
     sd = {"embed_tokens.weight": tree["embed_tokens"],
           "embed_positions.weight": tree["embed_positions"],
           "final_layer_norm.weight": tree["final_layer_norm"]["scale"],
@@ -207,4 +246,5 @@ def params_from_flax(tree):
         for n in ("self_attn_layer_norm", "final_layer_norm"):
             sd[f"{pre}{n}.weight"] = lp[n]["scale"]
             sd[f"{pre}{n}.bias"] = lp[n]["bias"]
-    return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
+    sd = {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
+    return sd if plan is None else slice_state_dict(sd, plan)

@@ -19,9 +19,18 @@ weights are ``nn.Linear``'s ``[out, in]``; the ragged serving forward
 (``inference/v2/model_implementations/parallel_block.py``) runs the same
 weights. ``falcon.py`` and ``phi.py`` hold the family presets.
 ``params_from_flax`` converts the JAX package's tree into this module's
-state dict. The ZeRO-Infinity streaming protocol (ROADMAP A14) and the
-tensor-parallel ``param_specs`` of the JAX model (ROADMAP A5 part 2) are
-not ported.
+state dict. The ZeRO-Infinity streaming protocol waits for ROADMAP A14.
+
+With ``tp_size`` > 1 (tensor-parallel serving, the JAX model's
+``param_specs``, ``models/parallel_block.py:259``) the module holds rank
+``tp_rank``'s share, cut by its ``TPPlan`` (``parallel/tensor_parallel.py``):
+its query heads (Falcon-7B's 71 at tp 2: 36 and 35) with copies of the KV
+heads they read, Falcon's fused ``query_key_value`` rows cut to those q
+heads plus those k and v heads, Phi's q/k/v and their biases; ``fc1`` and
+its bias by FFN columns; ``dense`` and ``fc2`` by input rows (their biases
+whole, added once after the reduce); the embedding, ``lm_head`` and its
+bias by vocabulary. Such a module serves through the ragged forward, which
+exchanges over ``model.tp``; its training forward is ROADMAP A12.
 """
 
 import dataclasses
@@ -32,10 +41,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deepspeed_tpu_torch import resolve_device
-from deepspeed_tpu_torch.models.llama import rotary_embed
+from deepspeed_tpu_torch.models.llama import (draw_from_seed, rotary_embed,
+                                              set_tensor_parallel, tp_parts)
 from deepspeed_tpu_torch.models.losses import lm_head_next_token_loss, next_token_loss
 from deepspeed_tpu_torch.ops.flash_attention import mha
+from deepspeed_tpu_torch.parallel.tensor_parallel import (TensorParallel, TPPlan,
+                                                          slice_state_dict, split_dim)
 from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
 
 
@@ -114,11 +125,15 @@ def gelu(x, exact):
 
 
 class ParallelBlock(nn.Module):
+    """One parallel-residual layer holding one tensor-parallel rank's query
+    heads, the KV heads they read and its FFN columns (``plan``, a
+    ``TPPlan``; all of them without one)."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, plan=None):
         super().__init__()
-        H, KV, Dh, D = (cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim,
-                        cfg.hidden_size)
+        plan = plan or TPPlan(cfg)
+        H, KV, Dh, D = plan.heads, plan.kv_heads, cfg.head_dim, cfg.hidden_size
+        self.num_heads, self.num_kv_heads = H, KV
         kw = dict(device=device, dtype=cfg.dtype)
         self.input_layernorm = LayerNorm(D, cfg.layer_norm_eps, device)
         if cfg.dual_layernorm:
@@ -132,15 +147,16 @@ class ParallelBlock(nn.Module):
             self.v_proj = nn.Linear(D, KV * Dh, bias=qb, **kw)
         self.dense = nn.Linear(H * Dh, D, bias=cfg._bias("dense_bias"), **kw)
         mb = cfg._bias("mlp_bias")
-        self.fc1 = nn.Linear(D, cfg.intermediate_size, bias=mb, **kw)
-        self.fc2 = nn.Linear(cfg.intermediate_size, D, bias=mb, **kw)
+        self.fc1 = nn.Linear(D, plan.ffn, bias=mb, **kw)
+        self.fc2 = nn.Linear(plan.ffn, D, bias=mb, **kw)
         self.config = cfg
+        self.tp = TensorParallel()
 
     def qkv(self, h):
         """q [.., H, Dh], k and v [.., KV, Dh] of the normed input ``h``
         [.., D], before rotary."""
         cfg = self.config
-        H, KV, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        H, KV, Dh = self.num_heads, self.num_kv_heads, cfg.head_dim
         lead = h.shape[:-1]
         if cfg.fused_qkv:
             qkv = self.query_key_value(h)
@@ -169,19 +185,35 @@ class ParallelBlockForCausalLM(nn.Module):
     fp32, every other weight is ``config.dtype`` (the JAX package casts to
     that dtype at each use; storing it cast gives the same values). With
     ``tie_lm_head`` the head is the embedding and there is no ``lm_head``;
-    with ``lm_head_bias`` (untied) the head has a bias."""
+    with ``lm_head_bias`` (untied) the head has a bias. ``tp_size`` > 1
+    keeps rank ``tp_rank``'s share (module docstring)."""
 
-    def __init__(self, config: ParallelBlockConfig, device=None):
+    def __init__(self, config: ParallelBlockConfig, device=None, tp_size=1, tp_rank=0):
         super().__init__()
         self.config = config
+        self.plan = plan = TPPlan(config, tp_size, tp_rank)
         kw = dict(device=device, dtype=config.dtype)
-        self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size, **kw)
-        self.layers = nn.ModuleList(ParallelBlock(config, device)
+        self.embed_tokens = nn.Embedding(plan.vocab, config.hidden_size, **kw)
+        self.layers = nn.ModuleList(ParallelBlock(config, device, plan)
                                     for _ in range(config.num_hidden_layers))
         self.final_layernorm = LayerNorm(config.hidden_size, config.layer_norm_eps, device)
         if not config.tie_lm_head:
-            self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
+            self.lm_head = nn.Linear(config.hidden_size, plan.vocab,
                                      bias=config.lm_head_bias, **kw)
+        self.tp_size = tp_size
+        self.set_tensor_parallel(TensorParallel(size=tp_size, rank=tp_rank,
+                                                ranks=tuple(range(tp_size))))
+
+    def set_tensor_parallel(self, tp):
+        """The ``tp`` group the serving forward exchanges over (see
+        ``LlamaForCausalLM.set_tensor_parallel``)."""
+        set_tensor_parallel(self, tp)
+
+    def param_specs(self):
+        """``{name: split dimension or None}`` over ``tp``: the JAX model's
+        ``param_specs`` (``models/parallel_block.py:259``) in this module's
+        layout (module docstring)."""
+        return {name: split_dim(name) for name, _ in self.named_parameters()}
 
     def head(self):
         """(weight [V, D], bias [V] or None) of the output head."""
@@ -197,6 +229,11 @@ class ParallelBlockForCausalLM(nn.Module):
         (the fused CE has no bias slot). In training each block runs under
         the configured activation-checkpointing policy (``config.remat``).
         ``attention`` replaces ``mha`` (a plain version, for comparisons)."""
+        if self.tp_size > 1:
+            raise NotImplementedError(
+                "the forward of a tensor-parallel Falcon/Phi (training, tp axis) is not "
+                "ported to deepspeed_tpu_torch yet: ROADMAP A12; it serves through "
+                "the ragged engine")
         cfg = self.config
         if isinstance(batch, dict):
             input_ids, labels = batch["input_ids"], batch.get("labels")
@@ -224,42 +261,34 @@ class ParallelBlockForCausalLM(nn.Module):
         return lm_head_next_token_loss(x, head, labels)
 
     @classmethod
-    def from_seed(cls, config, seed: int, device=None, std: float = 0.02):
+    def from_seed(cls, config, seed: int, device=None, std: float = 0.02, tp_size=1,
+                  tp_rank=0):
         """Random weights drawn on ``device`` (default ``"cuda"``, which
         raises without a GPU) from ``torch.Generator(seed)``: N(0, std) for
-        every matrix and embedding, zeros for biases, ones for norm scales."""
-        return seeded(cls, config, seed, device, std)
+        every matrix and embedding, zeros for biases, ones for norm scales.
+        With ``tp_size`` > 1 each split tensor is drawn whole and rank
+        ``tp_rank``'s part kept."""
+        return seeded(cls, config, seed, device, std, tp_size, tp_rank)
 
 
-def seeded(cls, config, seed, device=None, std=0.02):
-    """``cls(config)`` built on the meta device, then its weights drawn on
-    ``device`` from ``torch.Generator(seed)`` in parameter order: ones for
-    norm scales (names ending ``norm.weight``), zeros for biases, N(0, std)
-    for the rest."""
-    device = resolve_device(device)
-    with torch.device("meta"):
-        model = cls(config)
-    model = model.to_empty(device=device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if name.endswith("norm.weight"):
-                p.fill_(1.0)
-            elif name.endswith(".bias"):
-                p.zero_()
-            else:
-                p.normal_(0.0, std, generator=gen)
-    return model.requires_grad_(False)
+def seeded(cls, config, seed, device=None, std=0.02, tp_size=1, tp_rank=0):
+    """``cls(config, tp_size=..., tp_rank=...)`` built on the meta device,
+    then its weights drawn on ``device`` from ``torch.Generator(seed)`` in
+    parameter order (``llama.draw_from_seed``): ones for norm scales (names
+    ending ``norm.weight``), zeros for biases, N(0, std) for the rest, each
+    split tensor drawn whole and the rank's part kept."""
+    model = cls(config, device="meta", tp_size=tp_size, tp_rank=tp_rank)
+    return draw_from_seed(model, seed, device, std, tp_parts(model))
 
 
-def params_from_flax(tree):
+def params_from_flax(tree, plan=None):
     """The JAX package's ``ParallelBlockForCausalLM`` param tree
     (``layers_{i}`` subtrees), as numpy arrays, -> a state dict for this
     ``ParallelBlockForCausalLM``. Kernels ``[in, out]`` are transposed into
     ``nn.Linear``'s ``[out, in]``; ``lm_head`` is ``[V, D]`` in both and
     ``lm_head_bias`` becomes ``lm_head.bias``. Values are copied as fp32;
-    ``load_state_dict`` casts them to the module's dtype."""
+    ``load_state_dict`` casts them to the module's dtype. With ``plan`` (a
+    ``TPPlan``, ``model.plan``), its rank's parts."""
     sd = {"embed_tokens.weight": tree["embed_tokens"],
           "final_layernorm.weight": tree["final_layernorm"]["scale"],
           "final_layernorm.bias": tree["final_layernorm"]["bias"]}
@@ -278,4 +307,5 @@ def params_from_flax(tree):
             sd[f"{pre}{name}.weight"] = np.asarray(leaf["kernel"]).T
             if "bias" in leaf:
                 sd[f"{pre}{name}.bias"] = leaf["bias"]
-    return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
+    sd = {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
+    return sd if plan is None else slice_state_dict(sd, plan)

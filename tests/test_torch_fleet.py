@@ -516,9 +516,9 @@ def test_replica_group_load_report(served):
 
 def test_replicas_at_tp_above_one_raise_naming_their_queue_item(served):
     _, _, _, model = served
-    with pytest.raises(NotImplementedError, match="A5 part 2"):
+    with pytest.raises(NotImplementedError, match="A5 part 3"):
         ReplicaGroup(model, ["cpu"], tp_size=2)
-    with pytest.raises(NotImplementedError, match="A5 part 2"):
+    with pytest.raises(NotImplementedError, match="A5 part 3"):
         make_fleet(model, tp_size=2)
     assert model_on(model, "cpu") is model
 

@@ -230,6 +230,24 @@ def test_kernel_at_tensor_parallel_heads(cuda, H, KV, case):
 
 
 @gpu
+@pytest.mark.parametrize("case", ["decode", "decode_bucket", "prefill_chunk"])
+@pytest.mark.parametrize("H,KV,Dh", [(36, 1, 64), (35, 1, 64), (16, 16, 80), (16, 16, 128)],
+                         ids=["falcon_7b_tp2_r0", "falcon_7b_tp2_r1", "phi_2_tp2",
+                              "opt_6_7b_tp2"])
+def test_kernel_at_tensor_parallel_family_heads(cuda, H, KV, Dh, case):
+    """A tensor-parallel rank's heads at tp 2 for the families served since
+    A5 part 2: Falcon-7B's 71 query heads of 64 cut 36 / 35, each rank on a
+    copy of the one kv head (tensor cores), Phi-2's 16 heads of 80 (the
+    SIMT route), OPT-6.7B's 16 heads of 128; pages of 64."""
+    S, Q, q_len, MB = {"decode": (8, 1, None, 32), "decode_bucket": (8, 8, [1] * 8, 32),
+                       "prefill_chunk": (2, 64, [64, 37], 24)}[case]
+    args, kw = make_case(cuda, S=S, Q=Q, H=H, KV=KV, Dh=Dh, bs=64, MB=MB, seed=H + Dh + Q,
+                         q_len=q_len)
+    assert pa.kernel_route(torch.bfloat16, False, Dh, 64) == ("simt" if Dh == 80 else "wgmma")
+    check_paged_kernel(args, kw)
+
+
+@gpu
 @pytest.mark.parametrize("S,Q", [(4, 1), (8, 8), (2, 48)])
 def test_kernel_window_4096_past_the_window(cuda, S, Q):
     """Mistral-7B's attention (32 heads of 128 over 8 kv heads, pages of 64)
@@ -1951,6 +1969,13 @@ QMM_CASES = {
     "prefill": (300, 4096, 1024, 256, torch.bfloat16, None),
     "fp16_fp32_out": (64, 1024, 2048, 128, torch.float16, torch.float32),
     "bf16_fp16_out": (8, 512, 256, 16, torch.bfloat16, torch.float16),
+    # a tp 2 rank's gate/up at Llama-2-7B, cut in whole groups of 256 (22 and
+    # 21), at decode and prefill rows, and down's K the same ranges
+    "decode_7b_gate_tp2_r0": (4, 4096, 5632, 256, torch.bfloat16, None),
+    "decode_7b_gate_tp2_r1": (4, 4096, 5376, 256, torch.bfloat16, None),
+    "prefill_7b_gate_tp2_r0": (1024, 4096, 5632, 256, torch.bfloat16, None),
+    "prefill_7b_gate_tp2_r1": (1024, 4096, 5376, 256, torch.bfloat16, None),
+    "decode_7b_down_tp2_r1": (4, 5376, 4096, 256, torch.bfloat16, None),
 }
 
 

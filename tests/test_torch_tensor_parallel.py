@@ -26,9 +26,13 @@ with the same weights (flax draws, carried into the port through
   preemption under KV pressure swaps every rank's pages;
 - a planted fault (rank 1 holds rank 0's q_proj slice in layer 0) that the
   comparison rejects;
-- the refusals: OPT, Falcon, indivisible heads, KV heads or vocabulary, v1
-  quantization, speculative decode and the host tier at tp 2 name "A5 part
-  2"; training over ``tp`` and a tp 2 Llama's loss name A12;
+- what was refused at tp 2 until A5 part 2 and is served now (OPT,
+  Falcon, heads tp does not divide, one KV head on two ranks, v1
+  quantization, speculative decode, the host tier: each builds), a
+  vocabulary tp does not divide (``ValueError``, as ``jax.device_put``
+  raises), fleet replicas at tp and v1 grids that leave ranks idle (A5 part
+  3), ``ep`` with ``tp`` (A12), training over ``tp`` and a tp 2 Llama's loss
+  (A12);
 - both builders take their grid from ``parallel.groups`` and never replace
   an installed topology;
 - the ``tp`` cases of ``tests/test_topology.py`` with ``pp`` 1.
@@ -67,8 +71,8 @@ from deepspeed_tpu_torch.checkpoint import hf
 from deepspeed_tpu_torch.models import llama as port_llama
 from deepspeed_tpu_torch.models import mixtral as port_mixtral
 from deepspeed_tpu_torch.inference.v2.engine_factory import shard_model
-from deepspeed_tpu_torch.moe.utils import moe_param_specs
-from deepspeed_tpu_torch.parallel.tensor_parallel import TensorParallel, split_dim, tp_slice
+from deepspeed_tpu_torch.moe.utils import expert_slice, moe_param_specs
+from deepspeed_tpu_torch.parallel.tensor_parallel import TensorParallel
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "test_torch_tensor_parallel_worker.py")
@@ -337,17 +341,41 @@ def test_preemption_swaps_every_rank_s_pages(run):
     assert r1["pressure_tp2"] is None
 
 
+# (case, the queue item that refused it at tp 2): A5 part 2 serves its cases
+# now, and a vocabulary tp does not divide raises ValueError as the JAX mesh
+# does; the rest still name their item
+SERVED_SINCE_A5_PART_2 = ("opt", "falcon", "kv_heads", "heads", "v1_quant", "speculative",
+                          "host_tier")
+
+
 @pytest.mark.parametrize("case,item", [
     ("opt", "A5 part 2"), ("falcon", "A5 part 2"), ("kv_heads", "A5 part 2"),
     ("heads", "A5 part 2"), ("vocab", "A5 part 2"), ("v1_quant", "A5 part 2"),
     ("speculative", "A5 part 2"), ("host_tier", "A5 part 2"),
     ("v1_labels", "A12"), ("train_config", "A12"), ("train_mesh", "A12"),
+    ("fleet", "A5 part 3"), ("replica_group", "A5 part 3"), ("ep_with_tp", "A12"),
 ])
 def test_out_of_scope_raises(run, case, item):
     _, got, _ = run
     for r in got["tp2"]:
         msg = r["refusals"][case]
-        assert msg is not None and msg.startswith("NotImplementedError") and item in msg, msg
+        if case in SERVED_SINCE_A5_PART_2:
+            assert msg is None, msg
+        elif case == "vocab":
+            assert msg is not None and msg.startswith("ValueError") and "511" in msg \
+                and "tp_size 2" in msg, msg
+        else:
+            assert msg is not None and msg.startswith("NotImplementedError") \
+                and item in msg, msg
+
+
+def test_idle_v1_ranks_raise_naming_a5_part_3(run):
+    """A v1 grid of 2 ranks in a world of 4 leaves two idle: A5 part 3."""
+    _, got, _ = run
+    for r in got["grid4"]:
+        msg = r["idle_grid"]
+        assert msg is not None and msg.startswith("NotImplementedError") \
+            and "A5 part 3" in msg, msg
 
 
 def test_topology_tp_axis(run):
@@ -402,14 +430,17 @@ def test_from_seed_slices_equal_the_whole_draw(family):
     for rank in range(2):
         if family == "mixtral_ep":
             part = cls.from_seed(cfg, seed=5, device="cpu", ep_size=2, ep_rank=rank)
-            specs = {n: 0 if s else None for n, s in moe_param_specs(part).items()}
-            assert any(d == 0 for d in specs.values())
+            specs = moe_param_specs(part)
+            assert any(specs.values())
+
+            def cut(name, full):
+                return expert_slice(full, 2, rank) if specs[name] else full
         else:
             part = cls.from_seed(cfg, seed=5, device="cpu", tp_size=2, tp_rank=rank)
-            specs = part.param_specs()
+            cut = part.plan.cut
             assert part.tp.rank == rank and part.tp.size == 2
         for name, value in part.state_dict().items():
-            assert torch.equal(value, tp_slice(whole[name], specs[name], 2, rank)), name
+            assert torch.equal(value, cut(name, whole[name])), name
 
 
 @pytest.mark.parametrize("family", ["llama", "mixtral"])
@@ -424,7 +455,7 @@ def test_shard_model_copies_the_slices(family):
         part = shard_model(whole, TensorParallel(size=2, rank=rank, ranks=(0, 1)))
         specs = part.param_specs()
         for name, p in part.named_parameters():
-            assert torch.equal(p, tp_slice(state[name], specs[name], 2, rank)), name
+            assert torch.equal(p, part.plan.cut(name, state[name])), name
             if specs[name] is not None:
                 assert p.untyped_storage().data_ptr() not in storages, name
 
@@ -454,4 +485,4 @@ def test_load_pretrained_slices_equal_the_whole_load(tmp_path, variant):
         state = part.state_dict()
         assert set(state) == set(whole)
         for name, value in state.items():
-            assert torch.equal(value, tp_slice(whole[name], split_dim(name), 2, rank)), name
+            assert torch.equal(value, part.plan.cut(name, whole[name])), name

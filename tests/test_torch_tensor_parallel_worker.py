@@ -26,6 +26,8 @@ import deepspeed_tpu_torch  # noqa: E402
 from deepspeed_tpu_torch.inference.v2 import (SplitFuseScheduler,  # noqa: E402
                                               build_engine, scheduler)
 from deepspeed_tpu_torch.inference.v2.engine_factory import build_replica  # noqa: E402
+from deepspeed_tpu_torch.inference.v2.fleet import PrefillDecodeFleet  # noqa: E402
+from deepspeed_tpu_torch.inference.v2.replica_group import ReplicaGroup  # noqa: E402
 from deepspeed_tpu_torch.models import llama as port_llama  # noqa: E402
 from deepspeed_tpu_torch.models import mixtral as port_mixtral  # noqa: E402
 from deepspeed_tpu_torch.models.opt import OPTConfig, OPTForCausalLM  # noqa: E402
@@ -185,7 +187,8 @@ def raised(fn):
 
 
 def refusals(inp, out):
-    """What tensor-parallel serving refuses, at tp 2: the errors' texts."""
+    """What tensor-parallel serving refused at tp 2 and serves now (each
+    case builds, the text None), and what it refuses: the errors' texts."""
     ecfg = engine_config(2)
 
     def tiny(**kw):
@@ -209,7 +212,8 @@ def refusals(inp, out):
                                       ecfg, device=CPU),
         "v1_quant": lambda: deepspeed_tpu_torch.init_inference(
             llama_model(inp), config={"dtype": "fp32", "tensor_parallel": {"tp_size": 2},
-                                      "quant": {"enabled": True}}, device=CPU),
+                                      "quant": {"enabled": True, "group_size": 16}},
+            device=CPU),
         "speculative": lambda: build_engine(
             llama_model(inp), engine_config(2, speculative={"enabled": True}), device=CPU),
         "host_tier": lambda: build_engine(llama_model(inp), dict(
@@ -224,6 +228,11 @@ def refusals(inp, out):
         "train_mesh": lambda: deepspeed_tpu_torch.initialize(
             model=seeded(tiny(dtype=torch.float32)), config={"train_batch_size": 2},
             mesh=MeshTopology(tp=2), device=CPU),
+        "fleet": lambda: PrefillDecodeFleet(llama_model(inp), devices=[CPU] * 4, tp_size=2,
+                                            engine_config=inp_engine_config()),
+        "replica_group": lambda: ReplicaGroup(llama_model(inp), [CPU, CPU], tp_size=2),
+        "ep_with_tp": lambda: port_mixtral.MixtralForCausalLM(
+            port_mixtral.MixtralConfig.tiny(), device="meta", ep_size=2, tp_size=2),
     }
     out["refusals"] = {name: raised(fn) for name, fn in cases.items()}
     groups.reset()
@@ -258,6 +267,13 @@ def topology_runs(inp, rank, world, out):
     out["topology"] = res
 
 
+def idle_grid_runs(inp, out):
+    """A (1, 2) grid in the world of 4 would leave two ranks idle."""
+    out["idle_grid"] = raised(lambda: deepspeed_tpu_torch.init_inference(
+        llama_model(inp), config={"dtype": "fp32", "tensor_parallel": {"tp_size": 2}},
+        device=CPU))
+
+
 def clamp_runs(inp, out):
     """``tp_size`` 4 and ``replica_num`` 64 on 4 ranks (a model whose 4 KV
     heads 4 ranks divide), against the same model served alone. The (2, 2)
@@ -283,7 +299,7 @@ SUITES = {
         refusals(inp, out)],
     "grid4": lambda inp, rank, world, out: [
         v1_runs(inp, rank, out, 2, 2, "v1_dp2tp2"), clamp_runs(inp, out),
-        topology_runs(inp, rank, world, out)],
+        idle_grid_runs(inp, out), topology_runs(inp, rank, world, out)],
 }
 
 
