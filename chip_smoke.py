@@ -158,8 +158,17 @@ prints no result.
    launch on the route the source declares for its leaf's shape, and each
    rank's peak memory stay under 80 GB. Step time, boundary time, tokens/s
    in all and per card, the model-FLOPs share and the wire against the
-   logical bytes are printed. On one card the phase prints why it did not
-   run.
+   logical bytes are printed, and each rank profiles one more step for its
+   overlap report (``telemetry/overlap.py``: exposed and total seconds per
+   collective class, the all-gathers' hidden share). With 4 cards the same
+   model and batches train again under qwZ + hpZ 2 + qgZ with the overlap
+   schedule (prefetch depth 1, 2 grad buckets), and once more without the
+   schedule: its steady step and overlap report are printed beside phase
+   11's; the loss must fall, every rank report the same losses, the
+   scheduled losses equal the unscheduled ones (the NCCL form of the
+   schedule: asynchronous gathers and side-stream bucket exchanges), the
+   schedule prefetch and bucket. On one card
+   the phase prints why it did not run.
 12. Per-row grouped FFN (kernel row 9b, ``moe_ffn_gmm_rows``, after phase
    10): the three grouped products with the gated activation, on the
    grouped-GEMM kernels, against the same function on the plain grouped
@@ -401,6 +410,22 @@ prints no result.
    at tp 2, each rank's restored blocks equal to its spilled ones and every
    round's logits equal to a run that never spills, bit for bit. Rows 1
    and 7 at these rank shapes are cases of phases 2 and 14.
+25. The rest of ZeRO++ on one card (after phase 24): four processes share
+   cuda:0 over gloo, Llama-2-7B's widths with ``ZPP_LAYERS`` of its 32
+   layers (bf16 from one seed, micro-batch 1 x 2048, GAS 2, 3 steps), under
+   plain ZeRO-3, (c) qwZ alone, (a) ZeRO-3 + qgZ + qwZ + hpZ 2 (dp 2 x dpr
+   2) and (b) (a) under the overlap schedule. (b)'s losses must equal
+   (a)'s; every rank's working copy right after the first requantize must
+   be the plain ``quantize_lastdim`` of the gathered bf16 leaf bit for bit
+   (int8 and scales for (c), hpZ's dequantized bf16 shard for (a) and
+   (b)); (c)'s first micro-step loss within a bound of plain ZeRO-3's
+   stated before the first reading, a planted fault (lm_head's scales
+   doubled on rank 0) outside it, and every later loss within 0.15; rows
+   5-6 launch as often as each configuration implies, (c) on
+   ``quantize_warp`` and ``dequant_reduce_stream``; under hpZ every
+   parameter gather in the rank's dp pair. The primary exchange's wire
+   bytes against bf16, each configuration's step time and peak memory a
+   rank are printed.
 
 The script prints its total wall time. The line before the last is one
 JSON object describing each kernel; the last is ``{"ok": true, "device":
@@ -2598,12 +2623,12 @@ def zero_rank(rank, world, port, out_dir):
     num = torch.zeros(3, dtype=torch.float64, device=dev)   # qgz, control, exact
     per_leaf = []
     for leaf in engine._leaves:
-        d, axes = plan._zero_dim(leaf.shape)
+        d = plan._zero_dim(leaf.shape)
         if d is None:
             continue
         blocks = leaf.acc.movedim(d, 0).reshape(world, -1)
         exact = dist.reduce_scatter(blocks.reshape(-1))
-        got = plan._exchange(leaf.acc, d, axes)
+        got = plan._exchange(leaf.acc, d)
         q, s = qc.block_quantize(blocks, num_bits=plan.intra_bits)
         qx, sx = dist.all_to_all_single(q), dist.all_to_all_single(s)
         control = qc.block_dequantize_reduce(qx, sx * (7.0 / 127.0), num_bits=plan.intra_bits,
@@ -2656,12 +2681,12 @@ def zero_rank(rank, world, port, out_dir):
                 "flash_mha_fwd": fa.flash_mha_fwd.launches,
                 "flash_mha_bwd_dq": fa.flash_mha_bwd_dq.launches,
                 "flash_mha_bwd_dkv": fa.flash_mha_bwd_dkv.launches}
-    shardable = sum(plan._zero_dim(leaf.shape)[0] is not None for leaf in engine._leaves)
+    shardable = sum(plan._zero_dim(leaf.shape) is not None for leaf in engine._leaves)
     # every leaf's exchange on the kernels the source declares for its shape
     # (fp32 rows of numel / W, a fresh and so 16-byte aligned buffer)
     quant_kernels = {}
     for leaf in engine._leaves:
-        if plan._zero_dim(leaf.shape)[0] is None:
+        if plan._zero_dim(leaf.shape) is None:
             continue
         m = leaf.acc.numel() // world
         for route in (qc.kernel_route("quantize", m, plan.group_size, plan.intra_bits),
@@ -2692,10 +2717,172 @@ def zero_rank(rank, world, port, out_dir):
                                   "flash_mha_fwd": 2 * layers * micro,
                                   "flash_mha_bwd_dq": layers * micro,
                                   "flash_mha_bwd_dkv": layers * micro})
+    res["overlap"] = profiled_overlap(engine, mine, rank)
     with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
         json.dump(res, f)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def profiled_overlap(engine, batches, rank):
+    """One more optimizer step under ``torch.profiler``: the overlap report
+    of this rank's card (``tools/profile_train``'s summary: exposed and
+    total seconds per collective class, the all-gathers' hidden share) and
+    the profiled step's wall ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from deepspeed_tpu_torch.tools.profile_train import overlap_summary
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for b in batches:
+            loss = engine(b)
+            engine.backward(loss)
+            engine.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+    return dict(overlap_summary(prof, rank), profiled_step_ms=ms)
+
+
+# With 4 or more cards, phase 11's run again under the rest of ZeRO++: qwZ
+# + hpZ 2 (dp 2 x dpr 2) + qgZ with the overlap schedule (depth 1, 2 grad
+# buckets), Llama-2-7B's 32 layers over NCCL, one card a rank, and the same
+# without the schedule from the same seed and batches: the schedule's NCCL
+# form (prefetch on the compute stream's order, bucket exchanges on a side
+# stream) must give the same losses. Phase 25's configuration (b) runs the
+# same schedule over gloo.
+ZPP_SCHEDULE = {"schedule": True, "prefetch_depth": 1, "grad_buckets": 2}
+ZERO_OVERLAP_CONFIG = dict(TRAIN_CONFIG, overlap=dict(ZPP_SCHEDULE), zero_optimization={
+    "stage": 3, "zero_quantized_gradients": True, "zero_quantized_weights": True,
+    "zero_hpz_partition_size": 2})
+
+
+def zero_overlap_rank(rank, world, port, out_dir):
+    """One rank of phase 11's ZeRO++ runs (started by torch.multiprocessing):
+    with the schedule (then one profiled step), and without it."""
+    import dataclasses
+    import os
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(REPO))
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import comm as dist
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.ops import quant_collective as qc
+    from deepspeed_tpu_torch.parallel import groups
+    from deepspeed_tpu_torch.runtime.comm import coalesced_collectives as cc
+    dist.init_distributed(dist_backend="nccl", timeout=300, verbose=False)
+    dev = tp_device(rank)
+    cfg = dataclasses.replace(LlamaConfig.llama2_7b(dtype=torch.bfloat16),
+                              num_hidden_layers=ZERO_LAYERS.get(world, 8))
+    rng = np.random.default_rng(0)
+    windows = [rng.integers(0, cfg.vocab_size, (TRAIN_MICRO * world, TRAIN_T))
+               for _ in range(TRAIN_GAS)]
+    mine = [{"input_ids": w[rank * TRAIN_MICRO:(rank + 1) * TRAIN_MICRO],
+             "labels": w[rank * TRAIN_MICRO:(rank + 1) * TRAIN_MICRO]} for w in windows]
+
+    def run(scheduled):
+        t0 = time.perf_counter()
+        groups.reset()
+        model = LlamaForCausalLM.from_seed(cfg, seed=0, device=dev)
+        config = dict(ZERO_OVERLAP_CONFIG, train_batch_size=TRAIN_MICRO * TRAIN_GAS * world,
+                      train_micro_batch_size_per_gpu=TRAIN_MICRO)
+        if not scheduled:
+            del config["overlap"]
+        # the engine alone: the optimizer and scheduler beside it hold it
+        engine = deepspeed_tpu_torch.initialize(model=model, config=config, device=dev)[0]
+        del model
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        init_s = time.perf_counter() - t0
+        qc.block_quantize.launches = qc.block_dequantize_reduce.launches = 0
+        cc.reset_wire_bytes()
+        losses, step_s = [], []
+        for _ in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            for b in mine:
+                loss = engine(b)
+                engine.backward(loss)
+                engine.step()
+                losses.append(float(loss.detach()))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+        res = dict(init_s=init_s, losses=losses, step_wall_s=step_s,
+                   steady_step_wall_s=float(np.mean(step_s[1:])),
+                   launches={"block_quantize": qc.block_quantize.launches,
+                             "block_dequantize_reduce": qc.block_dequantize_reduce.launches},
+                   wire={op: dict(v) for op, v in cc.WIRE_BYTES["ops"].items()},
+                   prefetched_units=engine.prefetched_units,
+                   buckets=None if engine._bucket_idxs is None else len(engine._bucket_idxs),
+                   peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        if scheduled:
+            res["overlap"] = profiled_overlap(engine, mine, rank)
+        del engine, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    res = dict(rank=rank, world=world, layers=cfg.num_hidden_layers, **run(True))
+    res["unscheduled"] = run(False)
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_zero_overlap(world, phase11):
+    """Phase 11's ZeRO++ runs on ``world`` cards, printed beside phase 11's
+    ranks ``phase11`` (None: not run): the steady step time and the overlap
+    reports of a profiled step of each (exposed all-gather and exchange
+    seconds); the scheduled run's losses must equal the unscheduled run's."""
+    import socket
+    import tempfile
+    import numpy as np
+    import torch.multiprocessing as mp
+    print(f"zero data parallel, ZeRO++: {world} ranks, phase 11's model and batches under "
+          f"qwZ + hpZ 2 + qgZ with the overlap schedule {ZPP_SCHEDULE}", flush=True)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as out_dir:
+        mp.start_processes(zero_overlap_rank, args=(world, port, out_dir), nprocs=world,
+                           join=True, start_method="spawn")
+        ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                 for r in range(world)]
+    r0 = ranks[0]
+    p0 = phase11[0] if phase11 else None
+    print(f"zero data parallel, ZeRO++ {json.dumps(ranks)}", flush=True)
+    print(f"zero data parallel, ZeRO++: steady step {r0['steady_step_wall_s']:.3f} s with "
+          f"the schedule, {r0['unscheduled']['steady_step_wall_s']:.3f} s without, phase 11 "
+          f"{p0['steady_step_wall_s'] if p0 else 'not run'} s", flush=True)
+    for label, r in (("phase 11 (ZeRO-3 + qgZ)", p0), ("ZeRO++ + schedule", r0)):
+        if r is None:
+            continue
+        ov = r["overlap"]
+        print(f"zero overlap report, {label}: steady step {r['steady_step_wall_s']:.3f} s, "
+              f"profiled step {ov['profiled_step_ms']:.1f} ms, exposed comm "
+              f"{ov['exposed_comm_s']:.4f} of {ov['comm_s']:.4f} s, by class "
+              f"{json.dumps(ov['classes'])}, all-gathers hidden "
+              f"{ov['all_gather_hidden_share']}", flush=True)
+    for r in ranks:
+        if not all(np.isfinite(r["losses"])):
+            fail(f"zero++: rank {r['rank']} losses are not finite: {r['losses']}")
+        if r["losses"] != r0["losses"]:
+            fail(f"zero++: ranks report different losses")
+        if r["losses"] != r["unscheduled"]["losses"]:
+            fail(f"zero++: rank {r['rank']} losses under the schedule {r['losses']} != "
+                 f"without it {r['unscheduled']['losses']}")
+        if not r["peak_memory_gb"] < 80:
+            fail(f"zero++: rank {r['rank']} peak memory {r['peak_memory_gb']} GB")
+    first = float(np.mean(r0["losses"][:TRAIN_GAS]))
+    last = float(np.mean(r0["losses"][-TRAIN_GAS:]))
+    if not last <= first - ZERO_LOSS_FALL:
+        fail(f"zero++: loss did not fall by {ZERO_LOSS_FALL}: {first} -> {last}")
+    if not (r0["prefetched_units"] > 0 and r0["buckets"] == ZPP_SCHEDULE["grad_buckets"]):
+        fail(f"zero++: prefetched {r0['prefetched_units']} units, {r0['buckets']} buckets")
+    return ranks
 
 
 def phase_zero(world):
@@ -2757,8 +2944,13 @@ def run_zero_phase():
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    ranks = phase_zero(min(count, ZERO_MAX_WORLD))
+    world = min(count, ZERO_MAX_WORLD)
+    ranks = phase_zero(world)
     print(f"phase zero data parallel: {time.perf_counter() - t:.1f}s", flush=True)
+    if world >= 4:
+        t = time.perf_counter()
+        phase_zero_overlap(world, ranks)
+        print(f"phase zero data parallel, ZeRO++: {time.perf_counter() - t:.1f}s", flush=True)
     return ranks
 
 
@@ -6970,12 +7162,301 @@ def tp_falcon_nccl(ref, failures):
     return out
 
 
-def quant_kernel_lines(cases, zero_ranks, ep_ranks, fleet):
+# ---------------------------------------------------------------------------
+# phase 25: ZeRO++ (qwZ, hpZ's quantized primary exchange, the overlap
+# schedule) on one card: four ranks over gloo
+# ---------------------------------------------------------------------------
+
+ZPP_WORLD = 4
+ZPP_LAYERS = 4                # of Llama-2-7B's 32
+ZPP_MICRO, ZPP_T, ZPP_GAS, ZPP_STEPS = 1, 2048, 2, 3
+ZPP_ZERO = {
+    "plain": {"stage": 3},
+    "c": {"stage": 3, "zero_quantized_weights": True},
+    "a": {"stage": 3, "zero_quantized_gradients": True, "zero_quantized_weights": True,
+          "zero_hpz_partition_size": 2},
+}
+# (c) qwZ alone against plain ZeRO-3, bounds stated before the first
+# reading. The first micro-step's global loss from the same weights: int8
+# weights (a group's rms error about amax / 440, 0.7% of a weight's rms)
+# move a 7B random-weight loss of about 11 by 1e-4 to 1e-3 of itself;
+# bound 0.01. The planted fault doubles lm_head's scales on rank 0 for
+# that micro-step: rank 0's logits double (their rms 1.3 -> 2.6), its loss
+# rises by about 2.4 and the global mean by about 0.6, 5% of the loss:
+# far outside. Every later micro-step within the JAX test's rtol 0.15.
+ZPP_QWZ_FIRST_GAP = 0.01
+ZPP_QWZ_TRAJECTORY_RTOL = 0.15
+
+
+def zpp_config(name):
+    zero = ZPP_ZERO["a" if name == "b" else name]
+    cfg = dict(TRAIN_CONFIG, train_batch_size=ZPP_MICRO * ZPP_GAS * ZPP_WORLD,
+               train_micro_batch_size_per_gpu=ZPP_MICRO, gradient_accumulation_steps=ZPP_GAS,
+               steps_per_print=1000, zero_optimization=dict(zero))
+    if name == "b":
+        cfg["overlap"] = dict(ZPP_SCHEDULE)
+    return cfg
+
+
+def zpp_expected(engine, name):
+    """Row 5 and row 6 launches a configuration implies over its run. qwZ
+    (c): each quantized leaf requantized once an optimizer step (row 5); each
+    use dequantizes it (row 6): a layer's leaves in the forward and again in
+    the recomputation, the root's (embedding, lm_head) once a micro-step.
+    qwZ + hpZ + qgZ (a, b): each quantized leaf's primary exchange once a
+    step (row 5 and row 6), and each shardable leaf's qgZ exchange in two
+    stages (dp, then dpr), a quantize and a dequantize-reduce each."""
+    micro = ZPP_GAS * ZPP_STEPS
+    quant = [leaf for leaf in engine._leaves if leaf.quant or leaf.hpz]
+    if name == "c":
+        in_layers = {id(leaf) for _, unit in engine._units[:-1] for leaf in unit}
+        layer_q = sum(id(leaf) in in_layers for leaf in quant)
+        uses = (2 * layer_q + (len(quant) - layer_q)) * micro
+        return {"block_quantize": len(quant) * ZPP_STEPS, "block_dequantize_reduce": uses}
+    if name in ("a", "b"):
+        plan = engine._qgz
+        shardable = sum(plan._zero_dim(leaf.shape) is not None for leaf in engine._leaves)
+        n = (len(quant) + 2 * shardable) * ZPP_STEPS
+        return {"block_quantize": n, "block_dequantize_reduce": n}
+    return {"block_quantize": 0, "block_dequantize_reduce": 0}
+
+
+def zpp_working_check(engine, name):
+    """Right after the first requantize: each rank's int8 chunk and the
+    whole scales (c), or its bf16 working shard (a, b), against the plain
+    ``quantize_lastdim`` (and ``dequantize_lastdim``) of the gathered bf16
+    leaf in the JAX model's layout on the card, bit for bit: the Llama's
+    ``*_proj`` weights are Flax kernels ``[in, out]`` there, grouped along
+    the port's dim 0. Returns the leaves that differ and each checked
+    leaf's route."""
+    import torch
+    from deepspeed_tpu_torch.ops.quantizer import dequantize_lastdim, quantize_lastdim
+    from deepspeed_tpu_torch.runtime.zero import qwz
+    from deepspeed_tpu_torch.runtime.zero.partition import gather_full, shard_of
+    bad, routes = [], {}
+    for leaf in engine._leaves:
+        if not (leaf.quant or leaf.hpz):
+            continue
+        place = leaf.place
+        full = leaf.master if leaf.master_dim is None else gather_full(
+            leaf.master, leaf.master_dim, leaf.shape, place.group)
+        axis = 0 if leaf.name.endswith("_proj.weight") else -1
+        q, s = quantize_lastdim(full.view(leaf.shape).to(torch.bfloat16).movedim(axis, -1)
+                                .contiguous())
+        if leaf.quant:
+            routes[leaf.name] = qwz.route(leaf.shape, leaf.param_dim, place.param_world,
+                                          axis=axis)
+            ok = torch.equal(leaf.shard, shard_of(q.movedim(-1, axis), leaf.param_dim,
+                                                  place.param_world,
+                                                  place.param_index).reshape(-1)) \
+                and same_bits(leaf.qscale, s)
+        else:
+            routes[leaf.name] = qwz.route(leaf.shape, leaf.master_dim, place.world, axis=axis)
+            want = dequantize_lastdim(q, s, dtype=torch.bfloat16).movedim(-1, axis)
+            ok = torch.equal(leaf.shard, shard_of(want, leaf.param_dim, place.param_world,
+                                                  place.param_index))
+        if not ok:
+            bad.append(leaf.name)
+        del full, q, s
+    return bad, routes
+
+
+def zpp_rank(rank, world, port, out_dir):
+    """One rank of phase 25 (started by torch.multiprocessing): the four
+    configurations in turn on cuda:0, each from the same seeded weights."""
+    import dataclasses
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, str(REPO))
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import comm as dist
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from deepspeed_tpu_torch.ops import quant_collective as qc
+    from deepspeed_tpu_torch.parallel import groups
+    from deepspeed_tpu_torch.runtime.comm import coalesced_collectives as cc
+    t0 = time.perf_counter()
+    tdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                             world_size=world, rank=rank,
+                             timeout=datetime.timedelta(seconds=600))
+    dev = tp_device(0)
+    cfg = dataclasses.replace(LlamaConfig.llama2_7b(dtype=torch.bfloat16),
+                              num_hidden_layers=ZPP_LAYERS)
+    rng = np.random.default_rng(25)
+    windows = [rng.integers(0, cfg.vocab_size, (ZPP_MICRO * world, ZPP_T))
+               for _ in range(ZPP_GAS)]
+    mine = [{"input_ids": w[rank * ZPP_MICRO:(rank + 1) * ZPP_MICRO],
+             "labels": w[rank * ZPP_MICRO:(rank + 1) * ZPP_MICRO]} for w in windows]
+    res = dict(rank=rank, params=cfg.num_parameters())
+
+    def progress(what):
+        if rank == 0:
+            print(f"zero++: rank 0 {what} at {time.perf_counter() - t0:.1f}s", flush=True)
+
+    for name in ("plain", "c", "a", "b"):
+        tc = time.perf_counter()
+        groups.reset()
+        model = LlamaForCausalLM.from_seed(cfg, seed=0, device=dev)
+        # the engine alone: the optimizer and LR scheduler it returns beside
+        # it hold it, and would keep the last configuration's state alive
+        engine = deepspeed_tpu_torch.initialize(model=model, config=zpp_config(name),
+                                                device=dev)[0]
+        del model
+        out = dict(init_s=time.perf_counter() - tc)
+        progress(f"built ({name})")
+        if name == "c":
+            # the planted fault: lm_head's scales doubled on rank 0, one
+            # forward from the initial weights
+            head = next(leaf for leaf in engine._leaves if leaf.name == "lm_head.weight")
+            if rank == 0:
+                head.qscale.mul_(2)
+            with torch.no_grad():
+                out["fault_loss"] = float(engine(mine[0]))
+            if rank == 0:
+                head.qscale.div_(2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        qc.block_quantize.launches = qc.block_dequantize_reduce.launches = 0
+        tally = qc.kernel_launches()
+        cc.reset_wire_bytes()
+        gathers, losses, step_s = {}, [], []
+        for step in range(ZPP_STEPS):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            for b in mine:
+                dist.reset_collective_counts()
+                loss = engine(b)
+                if step == 0 and len(losses) == 0:
+                    progress(f"({name}) first forward, peak "
+                             f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+                engine.backward(loss)
+                if step == 0 and len(losses) == 0:
+                    progress(f"({name}) first backward, peak "
+                             f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+                for (op, ranks), n in dist.collective_counts().items():
+                    if op == "all_gather":
+                        gathers[ranks] = gathers.get(ranks, 0) + n
+                engine.step()
+                losses.append(float(loss.detach()))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - ts)
+            progress(f"({name}) step {step + 1}, peak "
+                     f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+            if step == 0 and name != "plain":
+                launches = (qc.block_quantize.launches, qc.block_dequantize_reduce.launches)
+                out["working_differs"], out["routes"] = zpp_working_check(engine, name)
+                assert launches == (qc.block_quantize.launches,
+                                    qc.block_dequantize_reduce.launches)
+        out.update(
+            losses=losses, step_wall_s=step_s, gathers={str(k): v for k, v in gathers.items()},
+            launches={"block_quantize": qc.block_quantize.launches,
+                      "block_dequantize_reduce": qc.block_dequantize_reduce.launches},
+            kernels=launched_kernels(qc, tally), expected=zpp_expected(engine, name),
+            wire={op: dict(v) for op, v in cc.WIRE_BYTES["ops"].items()},
+            peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+            quantized=sum(leaf.quant for leaf in engine._leaves),
+            hpz_leaves=sum(leaf.hpz for leaf in engine._leaves),
+            dp_group=list(range(rank - rank % 2, rank - rank % 2 + 2)),
+            prefetched_units=engine.prefetched_units,
+            buckets=None if engine._bucket_idxs is None else len(engine._bucket_idxs),
+            seconds=time.perf_counter() - tc)
+        res[name] = out
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    tdist.barrier()
+    tdist.destroy_process_group()
+
+
+def phase_zeropp():
+    """Phase 25 on one card: four gloo ranks train Llama-2-7B's widths with
+    ``ZPP_LAYERS`` of its layers under plain ZeRO-3, qwZ alone (c), ZeRO-3 + qgZ + qwZ +
+    hpZ 2 (a) and (a) under the overlap schedule (b), and hold them: (b)'s
+    losses equal (a)'s; every working copy after the first requantize is
+    the plain ``quantize_lastdim`` of its gathered leaf, bit for bit; (c)
+    within its stated bound of plain ZeRO-3 and the planted fault outside
+    it; rows 5-6 launch what each configuration implies; under hpZ every
+    parameter gather stays in the rank's dp pair."""
+    import numpy as np
+    print(f"zero++ on one card: {ZPP_WORLD} ranks on cuda:0 over gloo, llama2_7b widths "
+          f"with {ZPP_LAYERS} of 32 layers, bf16, micro-batch {ZPP_MICRO} x {ZPP_T}, GAS "
+          f"{ZPP_GAS}, {ZPP_STEPS} steps: plain ZeRO-3, (c) qwZ, (a) qgZ + qwZ + hpZ 2, "
+          f"(b) (a) + overlap {ZPP_SCHEDULE}", flush=True)
+    ranks = spawn_ranks(zpp_rank, ZPP_WORLD)
+    failures = []
+    r0 = ranks[0]
+    for name in ("plain", "c", "a", "b"):
+        r = r0[name]
+        print(f"zero++ {name}: losses {r['losses']}, step wall s {r['step_wall_s']}, peak "
+              f"memory a rank {[x[name]['peak_memory_gb'] for x in ranks]} GB, init "
+              f"{r['init_s']:.1f}s, row 5/6 launches {r['launches']} (implied "
+              f"{r['expected']}), kernels {r['kernels']}, wire {json.dumps(r['wire'])}",
+              flush=True)
+    for x in ranks:
+        for name in ("plain", "c", "a", "b"):
+            r = x[name]
+            if not all(np.isfinite(r["losses"])):
+                failures.append(f"rank {x['rank']} {name}: losses not finite {r['losses']}")
+            if r["losses"] != r0[name]["losses"]:
+                failures.append(f"rank {x['rank']} {name}: losses differ from rank 0's")
+            if r["launches"] != r["expected"]:
+                failures.append(f"rank {x['rank']} {name}: row 5/6 launches "
+                                f"{r['launches']} != implied {r['expected']}")
+            if name != "plain" and r["working_differs"]:
+                failures.append(f"rank {x['rank']} {name}: working copy differs from "
+                                f"quantize_lastdim at {r['working_differs']}")
+            if name in ("a", "b") and set(r["gathers"]) != {str(tuple(r["dp_group"]))}:
+                failures.append(f"rank {x['rank']} {name}: parameter gathers over "
+                                f"{r['gathers']}, not its dp pair {r['dp_group']}")
+        if x["c"]["kernels"] != {"quantize_warp": x["c"]["launches"]["block_quantize"],
+                                 "dequant_reduce_stream":
+                                 x["c"]["launches"]["block_dequantize_reduce"]}:
+            failures.append(f"rank {x['rank']} c: kernels {x['c']['kernels']}, not "
+                            f"quantize_warp / dequant_reduce_stream")
+    a, b, c, plain = r0["a"], r0["b"], r0["c"], r0["plain"]
+    if b["losses"] != a["losses"]:
+        failures.append(f"(b) {b['losses']} != (a) {a['losses']}")
+    if not (b["prefetched_units"] > 0 and b["buckets"] == ZPP_SCHEDULE["grad_buckets"]):
+        failures.append(f"(b) prefetched {b['prefetched_units']} units, {b['buckets']} buckets")
+    first_gap = abs(c["losses"][0] - plain["losses"][0]) / plain["losses"][0]
+    fault_gap = abs(c["fault_loss"] - plain["losses"][0]) / plain["losses"][0]
+    traj = max(abs(x - y) / y for x, y in zip(c["losses"], plain["losses"]))
+    ex = a["wire"].get("hpz_primary_exchange", {"wire": 0, "logical": 1})
+    print(f"zero++ (c) qwZ against plain ZeRO-3: first micro-step gap {first_gap:.3e} "
+          f"(bound {ZPP_QWZ_FIRST_GAP}), planted fault {fault_gap:.3e}, trajectory "
+          f"{traj:.3e} (rtol {ZPP_QWZ_TRAJECTORY_RTOL}); (c) routes {c['routes']}", flush=True)
+    print(f"zero++ (a) hpZ primary exchange: {ex['wire']} wire bytes against "
+          f"{ex['logical']} in bf16 ({ex['wire'] / ex['logical']:.4f}) a rank over "
+          f"{ZPP_STEPS} steps; (a) parameter gathers {a['gathers']}; (b) prefetched "
+          f"{b['prefetched_units']} units, {b['buckets']} buckets; step wall s (a) "
+          f"{a['step_wall_s']} (b) {b['step_wall_s']}", flush=True)
+    if not first_gap <= ZPP_QWZ_FIRST_GAP:
+        failures.append(f"(c) first gap {first_gap} > {ZPP_QWZ_FIRST_GAP}")
+    if not fault_gap > ZPP_QWZ_FIRST_GAP:
+        failures.append(f"(c) the bound does not reject the planted fault: {fault_gap}")
+    if not traj <= ZPP_QWZ_TRAJECTORY_RTOL:
+        failures.append(f"(c) trajectory gap {traj} > {ZPP_QWZ_TRAJECTORY_RTOL}")
+    if not 0 < ex["wire"] < 0.6 * ex["logical"]:
+        failures.append(f"(a) hpZ exchange wire {ex}")
+    if failures:
+        fail("zero++: " + "; ".join(failures))
+    return {name: {k: r0[name][k] for k in ("launches", "kernels", "expected", "wire",
+                                             "step_wall_s", "losses")}
+            for name in ("plain", "c", "a", "b")}
+
+
+def quant_kernel_lines(cases, zero_ranks, ep_ranks, fleet, zeropp):
     """The kernels-line entries of the two qgZ kernels: the main case's
     numbers, every case's, the launches of phase 11's run (where it ran,
     else those of phase 23's wire-codec run, the fleet's wire leg), those
     of phase 13's int8-wire check (0 where it did not run) and phase 23's,
-    with its numbers at the wire shape (``fleet_wire_case``)."""
+    with its numbers at the wire shape (``fleet_wire_case``), and phase
+    25's: qwZ alone (``qwz_launches``, configuration (c)) and qwZ + hpZ +
+    qgZ (``hpz_launches``, configuration (a): its primary exchange and its
+    qgZ exchange), each with the kernels the library counted."""
     keys = ("kernel", "exact", "max_abs_err", "planted_fault_rejected", "ms", "device_ms",
             "plain_ms", "library_ms", "bound_ms", "bound_by")
     main = cases[0]            # gate_proj_chunk: the main path's largest leaf shape
@@ -6998,6 +7479,12 @@ def quant_kernel_lines(cases, zero_ranks, ep_ranks, fleet):
                              if k.startswith(part[:5])} if zero_ranks else {},
             expert_parallel_wire_launches=ep_ranks[0]["wire_launches"][kn]
             if ep_ranks else 0,
+            qwz_launches=zeropp["c"]["launches"][kn],
+            qwz_kernels={k: v for k, v in zeropp["c"]["kernels"].items()
+                         if k.startswith(part[:5])},
+            hpz_launches=zeropp["a"]["launches"][kn],
+            hpz_kernels={k: v for k, v in zeropp["a"]["kernels"].items()
+                         if k.startswith(part[:5])},
             **{k: main[part][k] for k in ("kernel", "max_abs_err", "ms", "device_ms",
                                           "plain_ms", "bound_ms", "bound_by", "library_ms")},
             case=main["name"],
@@ -7121,6 +7608,9 @@ def main():
     del quant_ref
     gc.collect()
     torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    zeropp_report = phase_zeropp()
+    print(f"phase zero++ (one card): {time.perf_counter() - t16:.1f}s", flush=True)
     zero_ranks = run_zero_phase()
     ep_ranks = run_expert_parallel_phase()
 
@@ -7215,7 +7705,8 @@ def main():
             case=main_bwd["name"],
             cases=[dict(name=c["name"], **{k: c[kn][k] for k in bwd_keys})
                    for c in gmm_bwd_cases]))
-    kernels += quant_kernel_lines(quant_cases, zero_ranks, ep_ranks, fleet_report)
+    kernels += quant_kernel_lines(quant_cases, zero_ranks, ep_ranks, fleet_report,
+                                  zeropp_report)
     rows_keys = ("max_abs_err", "err_ratio", "planted_fault_ratio", "sentinel_rows_zero",
                  "ms", "plain_ms", "library_ms", "library", "bound_ms", "bound_by")
     main_rows = rows_cases[0]     # ep_recv_8x7b: the shape of phase 13's main path

@@ -14,10 +14,22 @@ an exchange is the exchange that transposes it (the MoE dispatch and
 combine run through them under autograd, as the JAX collectives do under
 ``jax.grad``).
 
+``all_gather_start`` issues an all-gather as an asynchronous collective and
+returns its handle: ``wait()`` on it makes the caller's current CUDA stream
+(not the host) wait for NCCL's. Under gloo (ranks sharing one card, which
+NCCL refuses) a CUDA tensor's gather, reduce-scatter and all-to-all go
+through page-locked host buffers, synchronously; its reduce-scatter is an
+all-to-all summed on the card in rank order.
+
+Every collective that crosses ranks adds one to ``COLLECTIVES[(op,
+ranks)]``, ``ranks`` the tuple of global ranks of its group: which groups a
+layout's communication ran over (``collective_counts``). The comms logger
+waits for ROADMAP A15.
+
 ``init_distributed`` discovers the rank and world size from the launcher's
 environment (``discover_process_env``) and calls
 ``torch.distributed.init_process_group``; on CUDA it first binds the process
-to ``cuda:LOCAL_RANK``. The comms logger waits for ROADMAP A15.
+to ``cuda:LOCAL_RANK``.
 """
 
 import datetime
@@ -30,10 +42,35 @@ from deepspeed_tpu_torch.utils.logging import logger
 
 __all__ = ["ReduceOp", "discover_process_env", "init_distributed", "is_initialized",
            "get_rank", "get_world_size", "get_local_rank", "barrier", "all_reduce",
-           "all_gather", "reduce_scatter", "all_to_all_single", "all_to_all",
-           "with_transpose", "broadcast", "destroy_process_group"]
+           "all_gather", "all_gather_start", "reduce_scatter", "all_to_all_single",
+           "all_to_all", "with_transpose", "broadcast", "destroy_process_group",
+           "collective_counts", "reset_collective_counts"]
 
 DEFAULT_TIMEOUT_S = 1800
+
+# (op, global ranks of the group) -> calls, over every collective that
+# crossed ranks
+COLLECTIVES = {}
+
+
+def _group_ranks(group):
+    if group is None:
+        return tuple(range(get_world_size()))
+    return tuple(dist.get_process_group_ranks(group))
+
+
+def _count(op, group):
+    key = (op, _group_ranks(group))
+    COLLECTIVES[key] = COLLECTIVES.get(key, 0) + 1
+
+
+def collective_counts():
+    """{(op, ranks): calls} since the last reset (a copy)."""
+    return dict(COLLECTIVES)
+
+
+def reset_collective_counts():
+    COLLECTIVES.clear()
 
 
 class ReduceOp:
@@ -126,11 +163,37 @@ def _alone(group):
     return get_world_size(group) == 1
 
 
+def _via_host(tensor, group):
+    """Whether a CUDA tensor's collective over ``group`` is staged through
+    the host: gloo (ranks sharing one card, which NCCL refuses) gathers,
+    scatters and exchanges CPU tensors."""
+    return tensor.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _pinned(shape, dtype):
+    """A page-locked host buffer (PyTorch caches them): copies to and from
+    the card run at its copy engines' rate, several times a pageable one's."""
+    return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+
+def _to_host(t):
+    host = _pinned(t.shape, t.dtype)
+    host.copy_(t)
+    return host
+
+
+def _host_all_to_all(out, src, group):
+    host = _pinned(src.shape, src.dtype)
+    dist.all_to_all_single(host, _to_host(src), group=group)
+    out.copy_(host)
+
+
 def all_reduce(tensor, op=ReduceOp.SUM, group=None):
     """In-place all-reduce of ``tensor`` over ``group``; returns it
     (reference ``comm/comm.py:483``)."""
     if _alone(group):
         return tensor
+    _count("all_reduce", group)
     dist.all_reduce(tensor, op=_TORCH_OPS[op], group=group)
     if op == ReduceOp.AVG:
         tensor.div_(get_world_size(group))
@@ -146,19 +209,45 @@ def all_gather(tensor, group=None, axis=0, tiled=True, out=None):
     if n == 1:
         result = tensor if tiled else tensor[None]
         return result if out is None else out.copy_(result.reshape(out.shape))
+    _count("all_gather", group)
     src = tensor.movedim(axis, 0).contiguous() if tiled and axis else tensor.contiguous()
     if out is not None:
         if axis:
             raise ValueError("all_gather into out= gathers along axis 0")
-        dist.all_gather_into_tensor(out, src, group=group)
+        _gather_into(out, src, group)
         return out
     # gloo takes the concatenated form only
     result = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]), dtype=src.dtype,
                          device=src.device)
-    dist.all_gather_into_tensor(result, src, group=group)
+    _gather_into(result, src, group)
     if not tiled:
         return result.view((n,) + tuple(src.shape))
     return result.movedim(0, axis) if axis else result
+
+
+def _gather_into(out, src, group):
+    if _via_host(src, group):
+        host = _pinned(out.shape, out.dtype)
+        dist.all_gather_into_tensor(host, _to_host(src), group=group)
+        out.copy_(host)
+    else:
+        dist.all_gather_into_tensor(out, src, group=group)
+
+
+def all_gather_start(tensor, out, group=None):
+    """Start gathering ``tensor`` from every rank of ``group`` into ``out``
+    (contiguous, world x ``tensor``'s elements, along axis 0) as an
+    asynchronous collective; returns its handle, or None when the group is
+    one rank (``out`` then holds ``tensor``). ``handle.wait()`` orders the
+    caller's current stream after the gather (NCCL) or waits (gloo)."""
+    if _alone(group):
+        out.copy_(tensor.reshape(out.shape))
+        return None
+    _count("all_gather", group)
+    if _via_host(tensor, group):
+        _gather_into(out, tensor.contiguous(), group)
+        return None
+    return dist.all_gather_into_tensor(out, tensor.contiguous(), group=group, async_op=True)
 
 
 def reduce_scatter(tensor, op=ReduceOp.SUM, group=None, scatter_dim=0):
@@ -174,7 +263,22 @@ def reduce_scatter(tensor, op=ReduceOp.SUM, group=None, scatter_dim=0):
     src = src.contiguous()
     out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]), dtype=src.dtype,
                       device=src.device)
-    dist.reduce_scatter_tensor(out, src, op=_TORCH_OPS[op], group=group)
+    _count("reduce_scatter", group)
+    if _via_host(src, group) and op in (ReduceOp.SUM, ReduceOp.AVG):
+        # the peers' slices of this rank's chunk over one staged exchange,
+        # summed on the card in rank order (gloo's own reduce-scatter runs
+        # on the host, at a fraction of the exchange's rate)
+        parts = torch.empty((n,) + tuple(out.shape), dtype=src.dtype, device=src.device)
+        _host_all_to_all(parts, src.view(parts.shape), group)
+        out.copy_(parts[0])
+        for part in parts[1:]:
+            out.add_(part)
+    elif _via_host(src, group):
+        host = _pinned(out.shape, out.dtype)
+        dist.reduce_scatter_tensor(host, _to_host(src), op=_TORCH_OPS[op], group=group)
+        out.copy_(host)
+    else:
+        dist.reduce_scatter_tensor(out, src, op=_TORCH_OPS[op], group=group)
     if op == ReduceOp.AVG:
         out.div_(n)
     return out.movedim(0, scatter_dim) if scatter_dim else out
@@ -188,7 +292,11 @@ def all_to_all_single(tensor, group=None):
         return tensor
     src = tensor.contiguous()
     out = torch.empty_like(src)
-    dist.all_to_all_single(out, src, group=group)
+    _count("all_to_all", group)
+    if _via_host(src, group):
+        _host_all_to_all(out, src, group)
+    else:
+        dist.all_to_all_single(out, src, group=group)
     return out
 
 
@@ -225,5 +333,6 @@ def broadcast(tensor, src=0, group=None):
     """In place: every rank of ``group`` takes global rank ``src``'s value."""
     if _alone(group):
         return tensor
+    _count("broadcast", group)
     dist.broadcast(tensor, src=src, group=group)
     return tensor

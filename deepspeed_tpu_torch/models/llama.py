@@ -302,6 +302,19 @@ class LlamaForCausalLM(nn.Module):
         replicated."""
         return {name: split_dim(name) for name, _ in self.named_parameters()}
 
+    def streaming_plan(self):
+        """The streaming protocol (JAX ``streaming_plan``): the decoder
+        layers, in order, are the blocks whose gathers the overlap schedule
+        starts ahead of their use."""
+        return {"num_blocks": len(self.layers)}
+
+    def jax_stacked_layers(self):
+        """The JAX twin stacks its decoder layers (``scan_layers=True``, the
+        layout ``params_from_flax`` reads): each ``layers.{i}`` leaf is one
+        ``[L, ...]`` leaf there, which qwZ's threshold and grouping read
+        (``runtime/zero/qwz.jax_leaves``)."""
+        return "layers.", len(self.layers)
+
     def forward(self, batch, positions=None, attention=mha, use_cache=False, cache=None):
         """The JAX model's ``__call__``: ``batch`` is a dict with
         ``input_ids`` [B, T] and optional ``labels`` [B, T], or the ids

@@ -28,8 +28,9 @@ by its ``TPPlan``; the router and the norms are replicated. The JAX package
 serves no model with ``ep`` and ``tp`` together (its serving meshes have no
 ``ep`` axis beside ``tp``), so both at once belong to tensor-parallel
 training (ROADMAP A12). The tensor-parallel
-forward is the ragged serving forward's. The ZeRO-Infinity streaming
-protocol waits for ROADMAP A14.
+forward is the ragged serving forward's. Of the ZeRO-Infinity streaming
+protocol it has ``streaming_plan`` (the layers the overlap schedule
+prefetches); the rest waits for ROADMAP A14.
 """
 
 import dataclasses
@@ -212,6 +213,12 @@ class MixtralForCausalLM(nn.Module):
         on dim 2 and ``w2`` [E, F, D] on dim 1; the embedding and
         ``lm_head`` over the vocabulary; the router and norms replicated."""
         return {name: split_dim(name) for name, _ in self.named_parameters()}
+
+    def streaming_plan(self):
+        """The streaming protocol (JAX ``streaming_plan``): the decoder
+        layers, in order, are the blocks whose gathers the overlap schedule
+        starts ahead of their use."""
+        return {"num_blocks": len(self.layers)}
 
     def forward(self, batch, positions=None, attention=mha, matmul=grouped_matmul):
         """The JAX model's ``__call__``: ``batch`` is a dict with

@@ -10,7 +10,8 @@ the tied embedding). Parameter names follow the HuggingFace layout under
 weights are ``nn.Linear``'s ``[out, in]``; the ragged serving forward
 (``inference/v2/model_implementations/opt.py``) runs the same weights.
 ``params_from_flax`` converts the JAX package's scan-stacked tree. The
-ZeRO-Infinity streaming protocol waits for ROADMAP A14.
+Of the ZeRO-Infinity streaming protocol it has ``streaming_plan`` (the
+layers the overlap schedule prefetches); the rest waits for ROADMAP A14.
 
 With ``tp_size`` > 1 (tensor-parallel serving, the JAX model's
 ``param_specs``, ``models/opt.py:212``) the module holds rank ``tp_rank``'s
@@ -165,6 +166,19 @@ class OPTForCausalLM(nn.Module):
         ``param_specs`` (``models/opt.py:212``) in this module's layout
         (module docstring)."""
         return {name: split_dim(name) for name, _ in self.named_parameters()}
+
+    def streaming_plan(self):
+        """The streaming protocol (JAX ``streaming_plan``): the decoder
+        layers, in order, are the blocks whose gathers the overlap schedule
+        starts ahead of their use."""
+        return {"num_blocks": len(self.layers)}
+
+    def jax_stacked_layers(self):
+        """The JAX twin stacks its decoder layers (``scan_layers=True``, the
+        layout ``params_from_flax`` reads): each ``layers.{i}`` leaf is one
+        ``[L, ...]`` leaf there, which qwZ's threshold and grouping read
+        (``runtime/zero/qwz.jax_leaves``)."""
+        return "layers.", len(self.layers)
 
     def forward(self, batch, attention=mha):
         """The JAX model's ``__call__``: ``batch`` is a dict with

@@ -19,7 +19,9 @@ weights are ``nn.Linear``'s ``[out, in]``; the ragged serving forward
 (``inference/v2/model_implementations/parallel_block.py``) runs the same
 weights. ``falcon.py`` and ``phi.py`` hold the family presets.
 ``params_from_flax`` converts the JAX package's tree into this module's
-state dict. The ZeRO-Infinity streaming protocol waits for ROADMAP A14.
+state dict. Of the ZeRO-Infinity streaming protocol it has
+``streaming_plan`` (the layers the overlap schedule prefetches); the rest
+waits for ROADMAP A14.
 
 With ``tp_size`` > 1 (tensor-parallel serving, the JAX model's
 ``param_specs``, ``models/parallel_block.py:259``) the module holds rank
@@ -220,6 +222,12 @@ class ParallelBlockForCausalLM(nn.Module):
         if self.config.tie_lm_head:
             return self.embed_tokens.weight, None
         return self.lm_head.weight, self.lm_head.bias
+
+    def streaming_plan(self):
+        """The streaming protocol (JAX ``streaming_plan``): the decoder
+        layers, in order, are the blocks whose gathers the overlap schedule
+        starts ahead of their use."""
+        return {"num_blocks": len(self.layers)}
 
     def forward(self, batch, positions=None, attention=mha):
         """The JAX model's ``__call__``: ``batch`` is a dict with

@@ -8,11 +8,14 @@ a process group. Canonical axis order, outermost to innermost:
     ("pp", "dpr", "dp", "ep", "sp", "tp")
 
 ``dp`` is the ZeRO shard axis. ``dpr`` splits the data-parallel world
-hierarchically (``zero_hpz_partition_size``): ``dp`` becomes the inner group
-of that size and ``dpr`` the groups across it. The ZeRO world is
-``(dpr, dp)`` in that order, so rank ``dpr_idx * dp + dp_idx`` holds chunk
-``dpr_idx * dp + dp_idx`` of a leaf: the "axes-major" order of the JAX
-package's ``batch_spec`` and qgZ chunks. ``ep`` is the expert-parallel
+hierarchically (``zero_hpz_partition_size`` or ``mics_shard_size``): ``dp``
+becomes the inner group of that size and ``dpr`` the groups across it.
+Under hpZ the ZeRO world is ``(dpr, dp)`` in that order, so rank
+``dpr_idx * dp + dp_idx`` holds chunk ``dpr_idx * dp + dp_idx`` of a leaf:
+the "axes-major" order of the JAX package's ``batch_spec`` and qgZ chunks;
+the stage-3 working shards span ``dp`` only. Under MiCS every ZeRO shard
+spans ``dp`` and is replicated across ``dpr`` (``zero_axes``); gradients
+still reduce over the whole data-parallel world (``data_axes``). ``ep`` is the expert-parallel
 axis: rank ``ep_idx`` of an ``ep`` group holds experts ``ep_idx * E/ep``
 to ``(ep_idx + 1) * E/ep - 1``, and an expert leaf's ZeRO state is cut over
 the data axes less ``ep`` (``expert_zero_axes``). ``tp`` is the
@@ -40,8 +43,9 @@ class MeshTopology:
         every rank of the process group, or the one process when there is
         none). ``zero_shard_size`` splits the data-parallel world: ``dp``
         becomes the shard group of that size and ``dpr`` the replica groups
-        across it; ``zero_hierarchy`` records why ("hpz": only the stage-3
-        working parameters use the smaller group; "mics" is not ported)."""
+        across it; ``zero_hierarchy`` records why ("mics": all ZeRO state
+        confined to the shard group; "hpz": only the stage-3 working
+        parameters use the smaller group)."""
         if devices is None:
             devices = list(range(dist.get_world_size()))
         n = len(devices)
@@ -65,9 +69,6 @@ class MeshTopology:
             dpr = dp // zero_shard_size
             dp = zero_shard_size
         self.zero_hierarchy = zero_hierarchy if dpr > 1 else None
-        if self.zero_hierarchy == "mics":
-            raise NotImplementedError("MiCS (mics_shard_size) is not ported to "
-                                      "deepspeed_tpu_torch yet: ROADMAP A1")
         self.pp_size, self.dp_size, self.ep_size, self.sp_size, self.tp_size = pp, dp, ep, sp, tp
         self.dpr_size = dpr
         self._sizes = dict(pp=pp, dpr=dpr, dp=dp, ep=ep, sp=sp, tp=tp)
@@ -124,16 +125,27 @@ class MeshTopology:
         return self.get_coord(self.grid_rank)[axis]
 
     @property
+    def data_axes(self):
+        """Axes of the data-parallel world: the batch is split over them and
+        every gradient is reduced over them."""
+        return DATA_AXES
+
+    @property
     def zero_axes(self):
         """Axes over which ZeRO partitions master/optimizer state and
-        gradients; the data-parallel world is their product."""
+        gradients: the data-parallel world, or under MiCS the shard group
+        only (replicated across ``dpr``; the reference ``runtime/zero/
+        mics.py``)."""
+        if self.zero_hierarchy == "mics":
+            return ("dp", "ep", "sp")
         return DATA_AXES
 
     @property
     def param_zero_axes(self):
         """Axes of the stage-3 working (bf16) parameter shards: under hpZ
-        only the inner ``dp`` group (the reference's secondary partition)."""
-        if self.zero_hierarchy == "hpz":
+        and MiCS only the inner ``dp`` group (the reference's secondary
+        partition)."""
+        if self.zero_hierarchy in ("hpz", "mics"):
             return ("dp", "ep", "sp")
         return self.zero_axes
 

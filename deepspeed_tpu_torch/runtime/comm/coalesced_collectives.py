@@ -12,13 +12,22 @@ name; these take the group of that axis, ``None`` for the whole world):
   scales over one all-to-all and the received rows are dequantized and
   summed in one kernel pass; ``return_error`` also returns this rank's
   quantization residual, the error-feedback carry;
+- ``exchange_reduce_coalesced``: ``exchange_reduce`` of several payloads
+  (a grad bucket's leaves) over one all-to-all of ints and one of scales:
+  each payload keeps its own groups, so every result is bitwise the one
+  ``exchange_reduce`` gives it alone;
 - ``expert_all_to_all``: the MoE dispatch / combine exchange of per-peer
-  blocks, in the payload's dtype or (``bits`` 8 / 4) as ints + scales.
+  blocks, in the payload's dtype or (``bits`` 8 / 4) as ints + scales;
+- the hierarchical quantized collectives (reference :81 and :115, JAX
+  ``:150-202``): ``moe_hierarchical_a2a`` (the expert all-to-all over an
+  intra group in full precision, then over an inter group quantized) and
+  ``all_to_all_quant_reduce`` (qgZ's two-stage reduction of one tensor).
 
 The quantize / dequantize halves are the ``ops/quant_collective`` kernels.
-``WIRE_BYTES`` counts what each exchange put on the wire beside the fp32
-bytes it stands for, in all and per op under ``"ops"``, as plain counters:
-the comms telemetry waits for ROADMAP A15.
+``WIRE_BYTES`` counts what each exchange put on the wire beside the bytes
+it stands for (the fp32 payload, unless the caller says otherwise), in all
+and per op under ``"ops"``, as plain counters: the comms telemetry waits for
+ROADMAP A15.
 """
 
 import torch
@@ -34,13 +43,22 @@ from deepspeed_tpu_torch.ops.quant_collective import (block_dequantize,
 WIRE_BYTES = {"logical": 0, "wire": 0, "ops": {}}
 
 
-def _record_wire(logical_numel, wire, op=None):
-    WIRE_BYTES["logical"] += int(logical_numel) * 4
+def _record_wire(logical_numel, wire, op=None, logical_bytes=None):
+    """Count one exchange: ``logical_numel`` fp32 elements (or
+    ``logical_bytes``) stood for by ``wire`` bytes."""
+    logical = int(logical_numel) * 4 if logical_bytes is None else int(logical_bytes)
+    WIRE_BYTES["logical"] += logical
     WIRE_BYTES["wire"] += int(wire)
     if op is not None:
         per = WIRE_BYTES["ops"].setdefault(op, {"logical": 0, "wire": 0})
-        per["logical"] += int(logical_numel) * 4
+        per["logical"] += logical
         per["wire"] += int(wire)
+
+
+def record_exchange(op, logical_bytes, wire_bytes):
+    """Count an exchange made outside this module (qwZ's gathers, hpZ's
+    primary exchange) under ``op``."""
+    _record_wire(0, wire_bytes, op, logical_bytes=logical_bytes)
 
 
 def reset_wire_bytes():
@@ -87,20 +105,44 @@ def exchange_reduce(blocks, group, bits, group_size=2048, return_error=False):
     rank's [m] partial sum over the group. ``return_error=True`` also
     returns ``blocks - dequantize(quantize(blocks))`` [peers, m], computed
     from this rank's own outgoing payload without more communication."""
-    P, m = blocks.shape
+    return exchange_reduce_coalesced([blocks], group, bits, group_size, return_error)[0]
+
+
+def exchange_reduce_coalesced(blocks_list, group, bits, group_size=2048,
+                              return_error=False):
+    """``exchange_reduce`` of every ``[peers, m_j]`` payload of
+    ``blocks_list`` over one all-to-all of their ints and one of their
+    scales. Each payload is quantized and dequantize-reduced on its own
+    (its groups never straddle another's), so result j, and its error, is
+    bitwise ``exchange_reduce(blocks_list[j], ...)``'s; only the number of
+    collective calls changes (two per call instead of two per payload)."""
+    if not blocks_list:
+        return []
+    P = blocks_list[0].shape[0]
     if P != dist.get_world_size(group):
         raise ValueError(f"exchange_reduce: {P} rows for a group of "
                          f"{dist.get_world_size(group)} ranks")
-    q, s = block_quantize(blocks, num_bits=bits, group_size=group_size)
-    _record_wire(blocks.numel(), P * wire_nbytes(m, bits, group_size))
-    qx = dist.all_to_all_single(q, group=group)
-    sx = dist.all_to_all_single(s, group=group)
-    out = block_dequantize_reduce(qx, sx, num_bits=bits, group_size=group_size,
-                                  out_len=m)
-    if return_error:
-        err = blocks - block_dequantize(q, s, num_bits=bits, group_size=group_size,
-                                        out_len=m)
-        return out, err
+    qs, ss = [], []
+    for blocks in blocks_list:
+        q, s = block_quantize(blocks, num_bits=bits, group_size=group_size)
+        _record_wire(blocks.numel(), P * wire_nbytes(blocks.shape[1], bits, group_size))
+        qs.append(q)
+        ss.append(s)
+    q_widths, s_widths = [q.shape[1] for q in qs], [s.shape[1] for s in ss]
+    qx = dist.all_to_all_single(torch.cat(qs, dim=1) if len(qs) > 1 else qs[0],
+                                group=group)
+    sx = dist.all_to_all_single(torch.cat(ss, dim=1) if len(ss) > 1 else ss[0],
+                                group=group)
+    out = []
+    for j, (qj, sj) in enumerate(zip(qx.split(q_widths, dim=1), sx.split(s_widths, dim=1))):
+        m = blocks_list[j].shape[1]
+        got = block_dequantize_reduce(qj, sj, num_bits=bits, group_size=group_size,
+                                      out_len=m)
+        if return_error:
+            err = blocks_list[j] - block_dequantize(qs[j], ss[j], num_bits=bits,
+                                                    group_size=group_size, out_len=m)
+            got = (got, err)
+        out.append(got)
     return out
 
 
@@ -131,3 +173,48 @@ def expert_all_to_all(x, group=None, bits=None, group_size=2048, op="a2a_dispatc
     sx = dist.all_to_all_single(s, group=group)
     out = block_dequantize(qx, sx, num_bits=bits, group_size=group_size, out_len=m)
     return out.reshape(x.shape).to(x.dtype)
+
+
+def moe_hierarchical_a2a(x, intra_group=None, inter_group=None, inter_bits=8,
+                         group_size=2048, op="a2a_dispatch"):
+    """The expert all-to-all over a two-level expert world.
+
+    ``x`` [inter, intra, ...]: block (a, b) is this rank's payload for the
+    peer at index ``a`` of ``inter_group`` and ``b`` of ``intra_group``.
+    Returns [inter, intra, ...] where block (a, b) holds what that peer
+    sent here. Stage 1 exchanges in the payload's dtype over the intra
+    group; stage 2 exchanges ``inter_bits`` ints + scales over the inter
+    group (``inter_bits`` None keeps full precision there too). Rows are
+    moved, never reduced: expert tokens arrive whole."""
+    # stage 1: lead with the intra destination -> [intra_src, inter_dest, ...]
+    y = expert_all_to_all(x.transpose(0, 1).contiguous(), intra_group, bits=None,
+                          group_size=group_size, op=op)
+    # stage 2: lead with the inter destination -> [inter_src, intra_src, ...]
+    return expert_all_to_all(y.transpose(0, 1).contiguous(), inter_group, bits=inter_bits,
+                             group_size=group_size, op=op)
+
+
+def all_to_all_quant_reduce(x, intra_group=None, inter_group=None, intra_bits=4,
+                            inter_bits=8, group_size=2048, dtype=torch.float32):
+    """qgZ's hierarchical quantized reduction of one tensor (reference :81).
+
+    ``x`` is this rank's full-size gradient; returns this rank's flat
+    1/world shard of the sum over every rank (world = intra x inter, the
+    tensor zero-padded to a multiple of it). Stage 1 sends ``intra_bits``
+    blocks over ``intra_group`` and dequantize-reduces them; stage 2 (with
+    an ``inter_group``) repeats at ``inter_bits`` over it. The shard this
+    rank holds is chunk ``intra_index * inter + inter_index``."""
+    intra = dist.get_world_size(intra_group)
+    inter = dist.get_world_size(inter_group) if inter_group is not None else 1
+    world = intra * inter
+    flat = x.reshape(-1).float()
+    pad = (-flat.shape[0]) % world
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    shard = flat.shape[0] // world
+    partial = exchange_reduce(flat.reshape(intra, inter * shard), intra_group,
+                              intra_bits, group_size)
+    if inter == 1:
+        return partial.to(dtype)
+    return exchange_reduce(partial.reshape(inter, shard), inter_group, inter_bits,
+                           group_size).to(dtype)

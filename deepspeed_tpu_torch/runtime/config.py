@@ -456,10 +456,14 @@ class DeepSpeedConfig:
     def check_supported(self):
         """Raise ``NotImplementedError`` naming the ROADMAP item for a setting
         the port's training path does not run yet. Data-parallel training
-        over ``torch.distributed`` at ZeRO stages 0-3, with ZeRO++ quantized
-        gradients (``zero_quantized_gradients``, its error feedback, and
-        ``zero_hpz_partition_size`` as the dpr x dp split of the exchange and
-        of the stage-3 working shards); fp32, fp16 or bf16; the adam/adamw
+        over ``torch.distributed`` at ZeRO stages 0-3, with all of ZeRO++:
+        quantized gradients (``zero_quantized_gradients`` and its error
+        feedback), quantized weights (``zero_quantized_weights``;
+        ``zero_quantized_nontrainable_weights`` is read by nothing, as in
+        the JAX package) and ``zero_hpz_partition_size`` as the dpr x dp
+        split of the exchange and of the stage-3 working shards; MiCS
+        (``mics_shard_size``); the ``overlap`` schedule; fp32, fp16 or
+        bf16; the adam/adamw
         optimizers, every LR schedule, clipping, gradient accumulation,
         activation checkpointing (``everything`` / ``nothing``) and MoE
         models at every stage, with expert parallelism (``moe.ep_size`` /
@@ -472,10 +476,6 @@ class DeepSpeedConfig:
         checks = [
             (z.offload_optimizer_device != "none" or z.offload_param_device
              != "none" or z.cpu_offload, "ZeRO offload", "A14 (offload tiers)"),
-            (z.zero_quantized_weights or z.zero_quantized_nontrainable_weights,
-             "ZeRO++ quantized weights (qwZ)", "A10 (ZeRO++)"),
-            (z.mics_shard_size > 0, "mics_shard_size",
-             "A1 (MiCS hierarchical sharding)"),
             (self.pipeline.stages > 1, "pipeline.stages > 1",
              "A12 (parallelism breadth)"),
             (self.tensor_parallel.tp_size > 1, "tensor_parallel.tp_size > 1",
@@ -503,8 +503,7 @@ class DeepSpeedConfig:
             (bool(rc.faults) or rc.preemption.enabled or rc.watchdog.enabled
              or rc.elastic.enabled or self.correctness_guards["enabled"],
              "resilience and correctness guards", "A15 (platform)"),
-            (self.autotuning_config.enabled or self.overlap_config.schedule,
-             "autotuning / overlap schedule", "A15 (platform)"),
+            (self.autotuning_config.enabled, "autotuning", "A15 (platform)"),
         ]
         for unsupported, what, item in checks:
             if unsupported:

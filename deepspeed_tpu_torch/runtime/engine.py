@@ -25,6 +25,29 @@ to that working copy. ZeRO cuts the state along each leaf's shard dimension
   accumulated whole and exchanged quantized at the boundary
   (``QgzPlan.reduce``, ``engine.py:1176-1184``), with error feedback whose
   residual survives an overflow-skipped step (``:1193-1195``);
+- qwZ (``zero_quantized_weights``, stage 3 under bf16/fp16,
+  ``engine.py:457-515``, ``:768-805``): the working copy at rest is int8
+  shards plus whole fp32 scales (``zero/qwz.py``), requantized from the
+  masters after every step and load; a unit's gather moves the ints and
+  dequantizes into the parameters' storage (kernel rows 5-6), and the
+  gradients are taken with respect to the dequantized values;
+- hpZ (``zero_hpz_partition_size``): the stage-3 working shards span the
+  inner ``dp`` group; with qwZ the working copy stays in full precision and
+  only the master -> working exchange moves int8 + scales (``hpz_exchange``,
+  ``:1078-1102``), recorded in ``WIRE_BYTES`` as "hpz_primary_exchange";
+- MiCS (``mics_shard_size``): every shard spans ``dp`` and is replicated
+  across ``dpr``; gradients are reduced inside ``dp`` and all-reduced across
+  ``dpr``, so they sum over the whole data-parallel world;
+- the overlap schedule (``overlap.schedule``, ``:857-1175``): under qgZ the
+  boundary exchange splits into ``grad_buckets`` byte-balanced buckets
+  (``QgzPlan._bucketize``), each started as soon as the boundary
+  micro-step's backward has folded its leaves (on a side stream under
+  NCCL) and sent over coalesced calls; on a model with the streaming
+  protocol (``streaming_plan``) at stage 3 each gather unit's pre-hook
+  waits on its own gather and starts the next ``prefetch_depth`` units'
+  as asynchronous collectives (forward order, reversed for the
+  recomputation in backward). Both only move work: the results are
+  bitwise those of the unscheduled step;
 - expert parallelism (``expert_parallel_size`` or ``moe.ep_size`` > 1):
   the experts of each ``MOELayer`` built with that ``ep_size`` are this
   rank's slice of the stack (``moe/utils.moe_param_specs``). Their state is
@@ -94,9 +117,11 @@ from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (LossScaleState,
 from deepspeed_tpu_torch.runtime.lr_schedules import LRSchedulerShim, get_lr_schedule
 from deepspeed_tpu_torch.runtime.utils import (clip_grads_by_global_norm, global_norm,
                                                has_overflow)
+from deepspeed_tpu_torch.runtime.comm.coalesced_collectives import record_exchange
+from deepspeed_tpu_torch.runtime.zero import qwz
 from deepspeed_tpu_torch.runtime.zero.partition import (ZeroPartitioner, alloc_storage,
                                                         free_storage, gather_full,
-                                                        is_resident, shard_of)
+                                                        is_resident, moved_shape, shard_of)
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 _DTYPES = {None: torch.float32, "fp32": torch.float32, "fp16": torch.float16,
@@ -121,6 +146,13 @@ class _Leaf:
         self.shape = tuple(param.shape)
         self.master_dim = self.grad_dim = self.param_dim = None
         self.master = self.acc = self.shard = self.place = None
+        # qwZ: ``shard`` holds int8 (the whole leaf's where it is not cut)
+        # and ``qscale`` the whole JAX scales, grouped along ``qaxis``
+        # (``qwz.jax_leaves``); hpZ + qwZ: ``hpz`` marks a leaf whose
+        # master -> working exchange moves int8
+        self.quant = self.hpz = False
+        self.qscale = None
+        self.qaxis = -1
 
 
 class _ReportedLoss(torch.autograd.Function):
@@ -150,6 +182,14 @@ class DeepSpeedEngine:
                  model_parameters=None, training_data=None, lr_scheduler=None,
                  collate_fn=None, device=None, mesh=None):
         self.config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
+        zc = self.config.zero_config
+        if zc.cpu_offload or zc.offload_optimizer_device in ("cpu", "nvme"):
+            if zc.zero_quantized_weights:
+                raise ValueError("zero_quantized_weights cannot be combined with "
+                                 "offload_optimizer")
+            if zc.zero_quantized_gradients:
+                raise ValueError("zero_quantized_gradients cannot be combined "
+                                 "with offload_optimizer")
         self.config.check_supported()
         if not isinstance(model, nn.Module):
             raise ValueError("deepspeed_tpu_torch.initialize requires a torch.nn.Module "
@@ -166,8 +206,10 @@ class DeepSpeedEngine:
                 "axis serves inference only")
         self.partitioner = ZeroPartitioner(self.topology, self.config.zero_config)
         self.zero_group = self.partitioner.zero_group
-        self.dp_world = self.partitioner.zero_world
-        self.dp_rank = self.partitioner.zero_index
+        # the data-parallel world: the batch's split and every gradient's sum
+        # (larger than the ZeRO group under MiCS)
+        self.data_group, self.dp_world, self.dp_rank = \
+            self.topology.axes_group(self.topology.data_axes)
         stage = self.zero_optimization_stage()
 
         tb, mb, gas = self.config.resolve_batch_params(self.topology.data_parallel_size)
@@ -184,22 +226,61 @@ class DeepSpeedEngine:
         self.dynamic_loss_scale = self.fp16_enabled and not (self.config.fp16.loss_scale > 0)
         self.grad_accum_dtype = _DTYPES[self.config.data_types.grad_accum_dtype]
 
+        # --- qwZ (ZeRO++ quantized weights): int8 working copy at stage 3;
+        # under hpZ the working copy stays full precision and only the
+        # primary master -> working exchange is quantized ---
+        qwz_on = bool(zc.zero_quantized_weights and stage >= 3)
+        self._qwz_hpz = qwz_on and self.topology.zero_hierarchy == "hpz"
+        self.quantized_weights = qwz_on and not self._qwz_hpz
+        if qwz_on and not self.mixed_precision:
+            raise ValueError("zero_quantized_weights requires fp16/bf16 training "
+                             "(the fp32 master holds full precision)")
+
         # --- qgZ (ZeRO++ quantized gradients) ---
-        zc = self.config.zero_config
         self._qgz = None
         self._qgz_feedback = False
         if zc.zero_quantized_gradients:
             if stage < 2:
                 raise ValueError("zero_quantized_gradients requires ZeRO stage >= 2 "
                                  "(gradients must be partitioned)")
+            if self.quantized_weights:
+                raise ValueError(
+                    "zero_quantized_gradients + zero_quantized_weights "
+                    "requires a secondary parameter partition: set "
+                    "zero_hpz_partition_size > 1 (ZeRO++ hpZ)")
+            if self.topology.zero_hierarchy == "mics":
+                raise NotImplementedError(
+                    "zero_quantized_gradients under MiCS (mics_shard_size) is not "
+                    "ported to deepspeed_tpu_torch yet: ROADMAP A1 part 2")
             from deepspeed_tpu_torch.runtime.zero.qgz import QgzPlan
             self._qgz = QgzPlan(self.topology)
             self._qgz_feedback = bool(zc.zero_quantized_gradients_error_feedback)
 
+        # --- the overlap schedule: grad buckets under qgZ, and the gather
+        # units' prefetch on a model with the streaming protocol ---
+        ov = self.config.overlap_config
+        self._grad_buckets = max(int(ov.grad_buckets), 1) \
+            if ov.schedule and self._qgz is not None else 1
+        self._prefetch_depth = max(int(ov.prefetch_depth), 0) \
+            if self._overlap_streaming_ready() else 0
+
         # --- parameters: fp32 master, working copy in the module ---
         self._init_parameters(model_parameters)
         self._folding = False          # inside engine.backward: hooks fold gradients
+        self._in_backward = False      # prefetch order: the recomputation's
+        self._pending = {}             # unit -> [(leaf, buffer, handle)] in flight
+        self.prefetched_units = 0      # gathers the schedule started ahead of use
         self._register_hooks()
+        self._bucket_idxs = self._bucket_left = None
+        self._bucket_done = {}
+        self._side_stream = None
+        if self._grad_buckets > 1:
+            self._bucket_idxs = self._qgz.buckets_of([leaf.acc for leaf in self._leaves],
+                                                     self._grad_buckets)
+            self._bucket_of = {j: b for b, idxs in enumerate(self._bucket_idxs) for j in idxs}
+            log_dist(f"overlap.schedule on: prefetch_depth={self._prefetch_depth} "
+                     f"grad_buckets={len(self._bucket_idxs)} over {len(self._units)} "
+                     f"gather units", ranks=[0])
 
         # --- optimizer ---
         opt_cfg = self.config.optimizer
@@ -242,7 +323,25 @@ class DeepSpeedEngine:
         n = sum(leaf.param.numel() for leaf in self._leaves)
         log_dist(f"DeepSpeedEngine: device={self.device} dtype={self.working_dtype} "
                  f"batch=({tb},{mb},{gas}) world={self.dp_world} zero_stage={stage} "
-                 f"qgz={self._qgz is not None} parameters={n / 1e6:.2f}M", ranks=[0])
+                 f"qgz={self._qgz is not None} qwz={qwz_on} "
+                 f"hierarchy={self.topology.zero_hierarchy} parameters={n / 1e6:.2f}M",
+                 ranks=[0])
+
+    def _overlap_streaming_ready(self):
+        """Can the overlap schedule's prefetch leg run (JAX ``:857-884``)?
+        It needs qgZ and a model with the streaming protocol; the bucketed
+        exchange applies regardless."""
+        if not (self.config.overlap_config.schedule and self._qgz is not None):
+            return False
+        plan = getattr(self.module, "streaming_plan", None)
+        ok = callable(plan) and bool(plan())
+        if not ok:
+            logger.warning(
+                "overlap.schedule: param prefetch disabled — model lacks the "
+                "streaming protocol (streaming_plan/streaming_split/"
+                "streaming_apply) or a compression transform is active; the "
+                "bucketized grad exchange still applies")
+        return ok
 
     # ------------------------------------------------------------------
     # state layout
@@ -264,6 +363,7 @@ class DeepSpeedEngine:
         qgz = self._qgz is not None
         specs = moe_param_specs(self.module, self.topology.ep_size)
         self._leaves = []
+        twins = qwz.jax_leaves(self.module)
         with torch.no_grad():
             for n, p in named:
                 full = torch.as_tensor(src.get(n, p.detach())).to(
@@ -278,6 +378,11 @@ class DeepSpeedEngine:
                 leaf.master_dim = part.master_dim(leaf.shape, place)
                 leaf.grad_dim = part.grad_dim(leaf.shape, place)
                 leaf.param_dim = part.param_dim(leaf.shape, place)
+                threshold = self.config.zero_config.stage3_param_persistence_threshold
+                leaf.qaxis, jshape = twins.get(n, (-1, leaf.shape))
+                quantizable = qwz.should_quantize(jshape, p.dtype, threshold)
+                leaf.quant = self.quantized_weights and quantizable
+                leaf.hpz = self._qwz_hpz and quantizable
                 p.data = full.to(self.working_dtype, copy=True)
                 p.requires_grad_(True)
                 if leaf.master_dim is not None:
@@ -286,7 +391,9 @@ class DeepSpeedEngine:
                     leaf.master = full
                 else:
                     leaf.master = p       # stage 0 in fp32: Adam updates the module
-                if leaf.param_dim is not None:
+                if leaf.quant:
+                    self._quantize_whole(leaf, p.data)
+                elif leaf.param_dim is not None:
                     leaf.shard = self._working_shard(leaf, full)
                     free_storage(p.data)
                 del full
@@ -314,6 +421,22 @@ class DeepSpeedEngine:
             src = 0 if place.group is None else \
                 torch.distributed.get_process_group_ranks(place.group)[0]
             dist.broadcast(full, src=src, group=place.group)
+
+    def _quantize_whole(self, leaf, working):
+        """qwZ's working copy from the whole working-precision value
+        ``working`` (the module's storage): the int8 chunk (or whole leaf)
+        and the whole scales; the module keeps the dequantized value where
+        the leaf is not cut, and frees its storage where it is."""
+        q, leaf.qscale = qwz.quantize_leaf(working, leaf.qaxis)
+        place = leaf.place
+        if leaf.param_dim is None:
+            leaf.shard = q.contiguous()
+            qwz.dequantize_leaf(leaf.shard, leaf.qscale, self.working_dtype, out=working,
+                                axis=leaf.qaxis)
+        else:
+            leaf.shard = shard_of(q, leaf.param_dim, place.param_world,
+                                  place.param_index).clone()
+            free_storage(working)
 
     def _working_shard(self, leaf, full):
         """The stage-3 working chunk of ``full`` (a whole fp32 value). It is
@@ -361,15 +484,71 @@ class DeepSpeedEngine:
             mod.register_forward_pre_hook(lambda m, a, _u=u: _call(me, "_gather", _u))
             mod.register_forward_hook(
                 lambda m, a, out, _u=u: _call(me, "_release_after_forward", _u))
+        # prefetch order: the root's pre-hook runs before the layers'; the
+        # recomputation in backward runs the layers in reverse
+        layers = list(range(len(self._units) - (1 if rest else 0)))
+        fwd = ([len(self._units) - 1] if rest else []) + layers
+        self._next_units = {"forward": {u: fwd[k + 1:] for k, u in enumerate(fwd)},
+                            "backward": {u: layers[:k][::-1] for k, u in enumerate(layers)}}
 
     def _gather(self, u):
+        """A unit's forward pre-hook: its gather, waited on where the
+        schedule started it earlier; then, under the schedule, the next
+        ``prefetch_depth`` units' gathers started asynchronously."""
         with torch.no_grad():
-            for leaf in self._units[u][1]:
-                if is_resident(leaf.param.data):
-                    continue
-                alloc_storage(leaf.param.data)
-                gather_full(leaf.shard, leaf.param_dim, leaf.shape, leaf.place.param_group,
-                            out=leaf.param.data)
+            self._finish_unit(u)
+            if self._prefetch_depth:
+                nxt = self._next_units["backward" if self._in_backward else "forward"][u]
+                for v in nxt[:self._prefetch_depth]:
+                    if v not in self._pending:
+                        self._start_unit(v)
+                        self.prefetched_units += 1
+
+    def _start_unit(self, u):
+        if u in self._pending:
+            return
+        started = []
+        for leaf in self._units[u][1]:
+            if not is_resident(leaf.param.data):
+                started.append(self._start_gather(leaf))
+        self._pending[u] = started
+
+    def _finish_unit(self, u):
+        if u not in self._pending:
+            self._start_unit(u)
+        for job in self._pending.pop(u):
+            self._finish_gather(*job)
+
+    def _start_gather(self, leaf):
+        """Give ``leaf``'s parameter its storage and start gathering its
+        working shards (int8 under qwZ) over its parameter group."""
+        p, place = leaf.param, leaf.place
+        alloc_storage(p.data)
+        src = leaf.shard
+        if not leaf.quant and leaf.param_dim == 0 and p.data.is_contiguous():
+            buf = p.data.view(-1)
+        else:
+            buf = torch.empty(place.param_world * src.numel(), dtype=src.dtype,
+                              device=src.device)
+        return leaf, buf, dist.all_gather_start(src, buf, group=place.param_group)
+
+    def _finish_gather(self, leaf, buf, handle):
+        """Wait for a gather started by ``_start_gather`` (the current
+        stream waits under NCCL) and lay it into the parameter's storage,
+        dequantized under qwZ."""
+        if handle is not None:
+            handle.wait()
+        p = leaf.param
+        if buf.data_ptr() == p.data.data_ptr():
+            return
+        full = buf.view(moved_shape(leaf.shape, leaf.param_dim)).movedim(0, leaf.param_dim)
+        if not leaf.quant:
+            p.data.copy_(full)
+            return
+        qwz.dequantize_leaf(full, leaf.qscale, self.working_dtype, out=p.data, axis=leaf.qaxis)
+        W = leaf.place.param_world
+        record_exchange("qwz_all_gather", p.numel() * p.element_size() * (W - 1) // W,
+                        p.numel() * (W - 1) // W)
 
     def _release_after_forward(self, u):
         if not checkpointing.saves_for_backward():
@@ -377,6 +556,9 @@ class DeepSpeedEngine:
                 free_storage(leaf.param.data)
 
     def _release_all(self):
+        for u in list(self._pending):    # gathers in flight land before the free
+            for job in self._pending.pop(u):
+                self._finish_gather(*job)
         for leaf in self._leaves:
             if leaf.param_dim is not None:
                 free_storage(leaf.param.data)
@@ -391,6 +573,11 @@ class DeepSpeedEngine:
             self._fold(leaf, g)
         if leaf.param_dim is not None:
             free_storage(p.data)
+        if self._bucket_left is not None:
+            b = self._bucket_of[i]
+            self._bucket_left[b].discard(i)
+            if not self._bucket_left[b]:
+                self._start_bucket(b)
 
     def _fold(self, leaf, g):
         """Add one micro-step's gradient into the leaf's accumulator:
@@ -399,9 +586,56 @@ class DeepSpeedEngine:
         if leaf.acc.shape == g.shape:
             leaf.acc.add_(g)
             return
-        W = leaf.place.world
-        moved = g.movedim(leaf.grad_dim, 0).reshape(W, -1).to(self.grad_accum_dtype)
-        leaf.acc.add_(dist.reduce_scatter(moved.reshape(-1), group=leaf.place.group))
+        place = leaf.place
+        moved = g.movedim(leaf.grad_dim, 0).reshape(place.world, -1).to(self.grad_accum_dtype)
+        chunk = dist.reduce_scatter(moved.reshape(-1), group=place.group)
+        if place.replica_world > 1:           # MiCS: the sum spans every replica group
+            dist.all_reduce(chunk, group=place.replica_group)
+        leaf.acc.add_(chunk)
+
+    # ------------------------------------------------------------------
+    # the overlap schedule's grad buckets
+    # ------------------------------------------------------------------
+    def _start_bucket(self, b):
+        """Exchange bucket ``b`` of the boundary micro-step's accumulators
+        now that backward has folded its leaves: on a side stream under NCCL
+        (the exchange overlaps the rest of backward), in line otherwise."""
+        idxs = self._bucket_idxs[b]
+        acc = [self._leaves[j].acc for j in idxs]
+        res = None if self._residual is None else [self._residual[j] for j in idxs]
+        run = lambda: self._qgz.reduce_bucket(acc, res, return_residual=res is not None)
+        if self.device.type == "cuda" and dist.is_initialized() \
+                and torch.distributed.get_backend() == "nccl":
+            if self._side_stream is None:
+                self._side_stream = torch.cuda.Stream(self.device)
+            self._side_stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self._side_stream):
+                self._bucket_done[b] = run()
+        else:
+            self._bucket_done[b] = run()
+
+    def _bucketed_grads(self):
+        """Every bucket's exchange (those backward did not start, now), in
+        leaf order: ``(grads, residual')``."""
+        n = len(self._leaves)
+        grads, errs = [None] * n, [None] * n
+        for b in range(len(self._bucket_idxs)):
+            if b not in self._bucket_done:
+                self._start_bucket(b)
+        if self._side_stream is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_stream(self._side_stream)
+        for b, idxs in enumerate(self._bucket_idxs):
+            got = self._bucket_done.pop(b)
+            got, got_err = got if self._residual is not None else (got, [None] * len(idxs))
+            for j, g, e in zip(idxs, got, got_err):
+                if self._side_stream is not None:
+                    for t in (g, e):
+                        if t is not None:
+                            t.record_stream(cur)
+                grads[j], errs[j] = g, e
+        self._bucket_left = None
+        return grads, (errs if self._residual is not None else None)
 
     # ------------------------------------------------------------------
     # training API
@@ -443,7 +677,7 @@ class DeepSpeedEngine:
         else:
             c = torch.as_tensor(count, device=loss.device).float()
         stats = torch.stack([loss.detach().float() * c, c])
-        dist.all_reduce(stats, group=self.zero_group)
+        dist.all_reduce(stats, group=self.data_group)
         share = loss * (c * W / stats[1]).to(loss.dtype)
         return _ReportedLoss.apply(share, (stats[0] / stats[1]).to(loss.dtype))
 
@@ -460,11 +694,14 @@ class DeepSpeedEngine:
         predivide = self.config.gradient_predivide_factor
         if self.config.prescale_gradients and predivide != 1.0:
             scaled = scaled / predivide
-        self._folding = True
+        if self._bucket_idxs is not None and self.is_gradient_accumulation_boundary():
+            self._bucket_left = [set(idxs) for idxs in self._bucket_idxs]
+            self._bucket_done = {}
+        self._folding = self._in_backward = True
         try:
             scaled.backward(retain_graph=retain_graph)
         finally:
-            self._folding = False
+            self._folding = self._in_backward = False
         self._staged_loss = None
         return loss
 
@@ -489,6 +726,8 @@ class DeepSpeedEngine:
     def _reduced_grads(self):
         """Per leaf, this rank's summed gradient in its master's layout."""
         leaves = self._leaves
+        if self._bucket_idxs is not None:
+            return self._bucketed_grads()
         if self._qgz is not None:
             if self._residual is None:
                 return self._qgz.reduce([leaf.acc for leaf in leaves]), None
@@ -500,6 +739,8 @@ class DeepSpeedEngine:
             if leaf.grad_dim is None:         # whole: all-reduced once per step
                 if place.world > 1:
                     g = dist.all_reduce(g, group=place.group)
+                if place.replica_world > 1:
+                    g = dist.all_reduce(g, group=place.replica_group)
                 if leaf.master_dim is not None:
                     g = shard_of(g, leaf.master_dim, place.world, place.index)
             grads.append(g)
@@ -554,6 +795,7 @@ class DeepSpeedEngine:
             del grads
             self._update_working()
         self._release_all()
+        self._bucket_left, self._bucket_done = None, {}
         stats = StepStats(grad_norm=norm, lr=lr)
         self.scale = update_loss_scale(self.scale, overflow, self.config.fp16,
                                        self.dynamic_loss_scale)
@@ -565,9 +807,16 @@ class DeepSpeedEngine:
         """The working copy from the updated masters: cast in place where
         this rank holds what it needs, else all-gathered over the ZeRO
         world (stage 1/2 parameters, and stage-3 chunks cut otherwise than
-        their masters)."""
+        their masters); requantized under qwZ, and through hpZ's quantized
+        primary exchange under qwZ + hpZ."""
         for leaf in self._leaves:
             p, m, place = leaf.param, leaf.master, leaf.place
+            if leaf.quant:
+                self._requantize(leaf)
+                continue
+            if leaf.hpz:
+                self._hpz_exchange(leaf)
+                continue
             if m is p or m is leaf.shard:
                 continue
             if leaf.param_dim is None:
@@ -583,6 +832,48 @@ class DeepSpeedEngine:
                     m.to(self.working_dtype), leaf.master_dim, leaf.shape, place.group)
                 leaf.shard.copy_(shard_of(full, leaf.param_dim, place.param_world,
                                           place.param_index))
+
+    def _requantize(self, leaf):
+        """qwZ (JAX ``:1128-1133``): the int8 working copy and whole scales
+        of ``leaf`` from its updated master, in the working dtype first."""
+        place, wd = leaf.place, self.working_dtype
+        if leaf.param_dim is None:
+            alloc_storage(leaf.param.data)
+            full = leaf.master if leaf.master_dim is None else gather_full(
+                leaf.master.to(wd), leaf.master_dim, leaf.shape, place.group)
+            leaf.param.data.copy_(full.view(leaf.shape))
+            self._quantize_whole(leaf, leaf.param.data)
+        elif leaf.master_dim == leaf.param_dim and place.param_world == place.world:
+            leaf.shard, leaf.qscale = qwz.requantize_chunk(
+                leaf.master.to(wd), leaf.param_dim, leaf.shape, place.param_group,
+                place.param_world, place.param_index, axis=leaf.qaxis)
+        else:
+            full = gather_full(leaf.master.to(wd), leaf.master_dim, leaf.shape, place.group)
+            alloc_storage(leaf.param.data)
+            leaf.param.data.copy_(full)
+            self._quantize_whole(leaf, leaf.param.data)
+
+    def _hpz_exchange(self, leaf):
+        """hpZ's primary exchange (JAX ``hpz_exchange``, ``:1078-1102``): the
+        master chunks (cut over the whole ZeRO world) quantized and gathered
+        as int8 + scales, dequantized and cut to this rank's ``dp`` working
+        shard in full precision. ``WIRE_BYTES`` counts what the ints and
+        scales stood for (the working dtype's bytes of the same gather)."""
+        place, wd = leaf.place, self.working_dtype
+        m = leaf.master.to(wd)
+        if leaf.master_dim is None:
+            q, sc = qwz.quantize_leaf(m, leaf.qaxis)
+        else:
+            q, sc, wire = qwz.quantized_full(m, leaf.master_dim, leaf.shape, place.group,
+                                             place.world, axis=leaf.qaxis)
+            logical = m.numel() * m.element_size() * (place.world - 1)
+            record_exchange("hpz_primary_exchange", logical, wire)
+        full = qwz.dequantize_leaf(q, sc, wd, axis=leaf.qaxis)
+        if leaf.param_dim is None:
+            leaf.param.data.copy_(full)
+        else:
+            leaf.shard.copy_(shard_of(full, leaf.param_dim, place.param_world,
+                                      place.param_index))
 
     def train_batch(self, data_iter=None):
         """One full accumulation window: ``gradient_accumulation_steps``
@@ -685,12 +976,16 @@ class DeepSpeedEngine:
         """This rank's training state by name, in leaf order: the working
         copy at rest (the stage-3 chunk where sharded), the fp32 master where
         it is a tensor of its own, Adam's moments, the gradient accumulator
-        and the qgZ error-feedback residual. The engine's own tensors, not
-        copies."""
+        and the qgZ error-feedback residual; under qwZ the working copy is
+        the int8 chunk with its whole scales (``qscale``). The engine's own
+        tensors, not copies."""
         sd = {}
         for i, leaf in enumerate(self._leaves):
             n = leaf.name
-            sd[f"module.{n}"] = leaf.shard if leaf.param_dim is not None else leaf.param.data
+            sd[f"module.{n}"] = leaf.shard if leaf.param_dim is not None or leaf.quant \
+                else leaf.param.data
+            if leaf.quant:
+                sd[f"qscale.{n}"] = leaf.qscale
             if leaf.master is not leaf.param and leaf.master is not leaf.shard:
                 sd[f"master.{n}"] = leaf.master
             st = self._adam_state(leaf.master)
@@ -707,17 +1002,26 @@ class DeepSpeedEngine:
         working copy and the masters."""
         live = self.state_dict()
         for name, value in state_dict.items():
-            if module_only and not name.startswith(("module.", "master.")):
+            if module_only and not name.startswith(("module.", "master.", "qscale.")):
                 continue
             live[name].copy_(value)
+        for leaf in self._leaves:        # qwZ: a whole leaf's module holds its dequantization
+            if leaf.quant and leaf.param_dim is None:
+                qwz.dequantize_leaf(leaf.shard, leaf.qscale, self.working_dtype,
+                                    out=leaf.param.data, axis=leaf.qaxis)
 
     def _checkpoint_layout(self):
         """What a tag's shards are cut for: the world, the rank grid and the
         ZeRO stage (with its persistence threshold)."""
-        return {"world": dist.get_world_size(), "axes": dict(self.topology._sizes),
-                "zero_stage": self.zero_optimization_stage(),
-                "param_world": self.partitioner.param_world,
-                "persistence_threshold": self.partitioner.threshold}
+        layout = {"world": dist.get_world_size(), "axes": dict(self.topology._sizes),
+                  "zero_stage": self.zero_optimization_stage(),
+                  "param_world": self.partitioner.param_world,
+                  "persistence_threshold": self.partitioner.threshold}
+        if self.topology.zero_hierarchy is not None:
+            layout["zero_hierarchy"] = self.topology.zero_hierarchy
+        if self.quantized_weights:
+            layout["quantized_weights"] = True
+        return layout
 
     def save_checkpoint(self, save_dir, tag=None, client_state=None, save_latest=True,
                         async_save=False):
@@ -833,6 +1137,10 @@ class DeepSpeedEngine:
             atomic_write_text(os.path.join(load_dir, "latest"), str(tag))
         module_only = load_module_only or not load_optimizer_states
         self.load_state_dict(state, module_only=module_only)
+        if self.quantized_weights or self._qwz_hpz:
+            # JAX _refresh_working_from_master: the working copy requantized
+            # from the loaded masters
+            self._update_working()
         if not module_only:
             for leaf in self._leaves:
                 self.optimizer.state[leaf.master]["step"] = aux.get("adam_step", 0)

@@ -1,9 +1,9 @@
 """ZeRO config (port of ``deepspeed_tpu/runtime/zero/config.py``).
 
 The same keys, defaults and deprecated-key remaps as the JAX package, so the
-same JSON parses the same way. The port trains at stages 0-3 with qgZ;
-``DeepSpeedConfig.check_supported`` raises ``NotImplementedError`` for
-offload, qwZ and MiCS (ROADMAP A14, A10, A1).
+same JSON parses the same way. The port trains at stages 0-3 with all of
+ZeRO++ (qgZ, qwZ, hpZ) and MiCS; ``DeepSpeedConfig.check_supported`` raises
+``NotImplementedError`` for offload (ROADMAP A14).
 """
 
 from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigModel

@@ -17,7 +17,11 @@ Stage semantics (``partition.py:9-15``):
 ``stage3_param_persistence_threshold`` applies to the working parameters
 only: smaller leaves stay whole ("persisted"); the optimizer state of every
 leaf is sharded. Under hpZ (``zero_hpz_partition_size``) the working
-shards span the inner ``dp`` group only.
+shards span the inner ``dp`` group only. Under MiCS (``mics_shard_size``)
+every shard spans ``dp`` and is replicated across ``dpr``: a placement then
+names the ``dpr`` group as ``replica_group``, across which the gradients
+(reduce-scattered or summed inside ``dp``) are all-reduced, so they still
+sum over the whole data-parallel world (JAX ``mics.py:11-14``).
 
 Under expert parallelism (an ``ep`` axis > 1) an expert leaf on a rank is
 its slice of the expert stack, already cut on dim 0 over ``ep``
@@ -92,6 +96,8 @@ class Placement(NamedTuple):
     param_world: int
     param_index: int
     used: tuple = ()
+    replica_group: Any = None
+    replica_world: int = 1
 
     @property
     def expert(self):
@@ -113,11 +119,15 @@ class ZeroPartitioner:
             topology.axes_group(topology.zero_axes)
         self.param_group, self.param_world, self.param_index = \
             topology.axes_group(topology.param_zero_axes)
+        mics = topology.zero_hierarchy == "mics"
+        replica = (topology.get_group("dpr"), topology.dpr_size) if mics else (None, 1)
         self.dense = Placement(self.zero_group, self.zero_world, self.zero_index,
-                               self.param_group, self.param_world, self.param_index)
+                               self.param_group, self.param_world, self.param_index,
+                               (), *replica)
         if topology.ep_size > 1:
             self._expert = Placement(*topology.axes_group(topology.expert_zero_axes),
-                                     *topology.axes_group(topology.expert_param_zero_axes))
+                                     *topology.axes_group(topology.expert_param_zero_axes),
+                                     (), *replica)
 
     def placement(self, spec):
         """The placement of a leaf whose model-parallel spec is ``spec``

@@ -17,9 +17,12 @@ sinks::
 Disabled (the default), every call here is a constant-time no-op: no clock
 read, no device synchronisation, no file I/O.
 
+``attach_overlap(report)`` makes a device-timeline overlap report
+(``telemetry/overlap.py``) ride ``summary()["overlap"]``.
+
 What waits raises ``NotImplementedError`` naming its ``ROADMAP.md`` item:
 the comm, dispatch, compile, memory, MoE and goodput-ledger streams and the
-flight recorder (A15) and the overlap report (A10).
+flight recorder (A15).
 """
 
 from deepspeed_tpu_torch.telemetry.core import Telemetry, _NULL_SPAN  # noqa: F401
@@ -157,6 +160,12 @@ def close():
     _GLOBAL.close()
 
 
+def attach_overlap(report):
+    """Attach an overlap report (``telemetry/overlap.py``) so it rides
+    ``summary()["overlap"]``; None when telemetry is disabled."""
+    return _GLOBAL.attach_overlap(report)
+
+
 def _waits(name, item):
     def unported(*args, **kwargs):
         raise NotImplementedError(
@@ -177,7 +186,6 @@ for _name, _item in (
         ("monitor_events", _PLATFORM), ("moe_gauge", _PLATFORM),
         ("record_moe_step", _PLATFORM), ("flight_record", _PLATFORM),
         ("flush_postmortem", _PLATFORM), ("format_summary", _PLATFORM),
-        ("log_summary", _PLATFORM),
-        ("attach_overlap", "A10 (the rest of ZeRO++: the overlap schedule)")):
+        ("log_summary", _PLATFORM)):
     globals()[_name] = _waits(_name, _item)
 del _name, _item

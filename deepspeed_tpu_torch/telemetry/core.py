@@ -35,8 +35,9 @@ clock read, no device synchronisation, no file I/O, no allocation beyond
 the guard check.
 
 The JAX package's comm, dispatch, compile, memory, MoE and goodput-ledger
-streams and the flight recorder are not part of this module (ROADMAP A15),
-nor is its overlap report (A10).
+streams and the flight recorder are not part of this module (ROADMAP A15);
+an overlap report (``telemetry/overlap.py``) rides ``summary()["overlap"]``
+once ``attach_overlap`` has taken it.
 
 This module imports only the standard library at module scope; torch is
 imported inside the enabled-only span end.
@@ -220,6 +221,9 @@ class Telemetry:
         self.fleet_handoff = {"count": 0, "pages_shipped": 0,
                               "pages_bound": 0, "bytes": 0,
                               "wire_bytes": 0, "total_s": 0.0}
+        # device-timeline overlap report (telemetry/overlap.py), attached
+        # by attach_overlap(); rides summary()["overlap"]
+        self.overlap_report = None
 
     # ------------------------------------------------------------------
     # configuration
@@ -747,6 +751,24 @@ class Telemetry:
             json.dump(doc, f)
         return path
 
+    def attach_overlap(self, report):
+        """Attach an overlap report (``telemetry/overlap.py``: from a
+        profiler trace or on given seconds) so it rides
+        ``summary()["overlap"]``. Raises ``ValueError`` on a malformed
+        report. Returns the report, or None when telemetry is disabled."""
+        if not self.enabled:
+            return None
+        from deepspeed_tpu_torch.telemetry import overlap as _overlap
+        errs = _overlap.validate_report(report)
+        if errs:
+            raise ValueError("invalid overlap report: " + "; ".join(errs))
+        with self._lock:
+            self.overlap_report = report
+            self.record("overlap/exposed_comm_s", report["exposed_comm_s"],
+                        kind="gauge", mode=report["mode"],
+                        overlap_fraction=report["overlap_fraction"])
+        return report
+
     def summary(self):
         """One JSON-able dict aggregating every stream (schema:
         ``deepspeed_tpu_torch/telemetry/summary.schema.json``)."""
@@ -759,9 +781,12 @@ class Telemetry:
             counters = {name: {",".join(f"{k}={v}" for k, v in key) or "_": n
                                for key, n in per.items()}
                         for name, per in sorted(self.counters.items())}
-            return {"enabled": True, "spans": spans, "counters": counters,
-                    "serving": self._serving_summary(),
-                    "fleet": self._fleet_summary(),
-                    "timeseries": {name: ring.summary() for name, ring
-                                   in sorted(self.series.items())},
-                    "slo": self._slo_summary()}
+            out = {"enabled": True, "spans": spans, "counters": counters,
+                   "serving": self._serving_summary(),
+                   "fleet": self._fleet_summary(),
+                   "timeseries": {name: ring.summary() for name, ring
+                                  in sorted(self.series.items())},
+                   "slo": self._slo_summary()}
+            if self.overlap_report is not None:
+                out["overlap"] = self.overlap_report
+            return out

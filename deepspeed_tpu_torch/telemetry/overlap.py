@@ -1,0 +1,660 @@
+"""Device-timeline overlap report: exposure attribution for compute and
+communication (port of ``deepspeed_tpu/telemetry/overlap.py``).
+
+Every device interval is classified into
+
+- **compute**: an op interval that is not a collective;
+- **overlapped comm**: a collective interval covered by concurrent compute;
+- **exposed comm**: a collective interval with no concurrent compute, the
+  seconds a scheduling pass (prefetch, async collectives, buckets) could
+  win back;
+- **gap**: device time covered by neither (launch bubbles, host stalls).
+
+Two sources feed the same attribution:
+
+1. **Trace mode**: a Chrome trace. ``load_trace_events`` accepts a
+   ``.json`` / ``.json.gz`` file or a directory of ``*.trace.json(.gz)``
+   (``torch.profiler``'s tensorboard handler writes ``*.pt.trace.json``);
+   ``intervals_from_trace`` folds the events into per-device timelines. A
+   ``torch.profiler`` trace's CUDA events (``cat`` "kernel",
+   "gpu_memcpy", "gpu_memset") form one timeline per card,
+   ``cuda:<args.device>``, with ``args.stream`` as the stream; NCCL's
+   kernels (``ncclDevKernel_AllGather_*``, ``ReduceScatter``,
+   ``AllReduce``, ``Broadcast``, ``SendRecv`` for the all-to-all) are the
+   collectives. The JAX package's spellings (XLA thunks, ``comm:<op>``)
+   keep their classes.
+2. **Analytic mode**: ``analytic_intervals`` lays out the schedule of
+   synchronous collectives (compute, then every collective serialized after
+   it: all exposed) on given seconds. The roofline that prices a step or a
+   collective from its cost waits for ROADMAP A15 (the autotuner), so
+   ``analytic_report`` takes ``compute_s`` and entries with ``seconds``.
+
+``overlap_report`` yields per-collective exposure seconds (op x axis x
+bytes, joined to comm statistics' wire bytes), the overlap and exposed
+fractions, the step's critical path and a prefetch advisor naming exposed
+collectives next to independent compute. ``telemetry.attach_overlap(report)``
+makes it ride ``summary()["overlap"]``. The module imports only the
+standard library.
+"""
+
+import gzip
+import json
+import math
+import os
+import re
+
+#: canonical collective op <- regexes over device-trace op names. Order
+#: matters: reduce-scatter must match before all-reduce ("all-reduce" never
+#: contains "scatter", but fusion names can contain several keywords).
+_COMM_PATTERNS = (
+    ("reduce_scatter", re.compile(r"reduce[-_]?scatter|psum[-_]scatter", re.I)),
+    ("all_gather", re.compile(r"all[-_]?gather", re.I)),
+    ("all_to_all", re.compile(r"all[-_]?to[-_]?all|nccl\w*SendRecv", re.I)),
+    ("collective_permute", re.compile(r"collective[-_]permute|ppermute",
+                                      re.I)),
+    ("all_reduce", re.compile(r"all[-_]?reduce|cross[-_]replica[-_]sum|"
+                              r"\bpsum\b", re.I)),
+    ("broadcast", re.compile(r"collective[-_]broadcast|nccl\w*Broadcast", re.I)),
+    ("send", re.compile(r"\bsend(?:[-_]done)?\b", re.I)),
+    ("recv", re.compile(r"\brecv(?:[-_]done)?\b", re.I)),
+)
+
+#: device lanes carry process names like "/device:TPU:0 ..." or "GPU 0"
+_DEVICE_PROC_RE = re.compile(r"/device:|^TPU:|^GPU[: ]", re.I)
+
+#: torch.profiler's categories of events that ran on a CUDA device
+_CUDA_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+_EPS = 1e-9
+
+
+def classify_op(name):
+    """Canonical collective op for a device-trace op name, or None for
+    compute. Matches NCCL's kernel names (``ncclDevKernel_AllGather_RING_LL``,
+    ``ncclDevKernel_SendRecv``), XLA thunk/op spellings
+    (``all-reduce-start``, ``fusion.all_gather``, ``ppermute``) and our own
+    ``comm:<op>`` events."""
+    if name.startswith("comm:"):
+        return name[5:] or "?"
+    for op, pat in _COMM_PATTERNS:
+        if pat.search(name):
+            return op
+    return None
+
+
+def make_interval(name, start, end, kind=None, device="device:0", stream=0,
+                  op=None, axis=None, nbytes=0, wire_bytes=None):
+    """One device-timeline interval (plain dict: JSON-able, test-friendly).
+    ``kind`` defaults from ``classify_op(name)``."""
+    if kind is None:
+        op = op if op is not None else classify_op(name)
+        kind = "comm" if op else "compute"
+    elif kind == "comm" and op is None:
+        op = classify_op(name) or name
+    return {"name": name, "start": float(start), "end": float(end),
+            "kind": kind, "device": device, "stream": stream,
+            "op": op, "axis": axis if axis is not None else "?",
+            "bytes": int(nbytes or 0),
+            "wire_bytes": int(wire_bytes if wire_bytes is not None
+                              else (nbytes or 0))}
+
+
+# ---------------------------------------------------------------------------
+# segment algebra
+# ---------------------------------------------------------------------------
+
+def merge_segments(segs):
+    """Union of (start, end) segments as a sorted, disjoint list."""
+    out = []
+    for s, e in sorted((s, e) for s, e in segs if e > s):
+        if out and s <= out[-1][1] + _EPS:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return [(s, e) for s, e in out]
+
+
+def segments_length(segs):
+    return sum(e - s for s, e in segs)
+
+
+def overlap_length(start, end, union):
+    """Seconds of [start, end) covered by the disjoint sorted ``union``."""
+    total = 0.0
+    for s, e in union:
+        if e <= start:
+            continue
+        if s >= end:
+            break
+        total += min(e, end) - max(s, start)
+    return total
+
+
+def subtract_segments(start, end, union):
+    """Sub-segments of [start, end) NOT covered by ``union`` (the exposed
+    portions of a comm interval against the compute union)."""
+    out = []
+    cur = start
+    for s, e in union:
+        if e <= cur:
+            continue
+        if s >= end:
+            break
+        if s > cur:
+            out.append((cur, min(s, end)))
+        cur = max(cur, e)
+        if cur >= end:
+            break
+    if cur < end:
+        out.append((cur, end))
+    return [(s, e) for s, e in out if e - s > _EPS]
+
+
+# ---------------------------------------------------------------------------
+# exposure attribution
+# ---------------------------------------------------------------------------
+
+def attribute(per_device):
+    """Classify every interval of every device timeline.
+
+    ``per_device``: {device_label: [interval dicts]} (``make_interval``).
+    Returns an attribution dict::
+
+        {"devices": {label: {"compute_s", "comm_s", "overlapped_comm_s",
+                             "exposed_comm_s", "gap_s", "step_s"}},
+         "totals": {... same keys, summed ...},
+         "comm_intervals": [interval + {"exposed_s", "exposed_segments"}]}
+
+    Exposure is computed per device: a comm interval's exposed seconds are
+    the portions not covered by the union of that device's *compute*
+    intervals (other collectives don't hide a collective — two comms
+    back-to-back are both exposed)."""
+    devices = {}
+    comm_out = []
+    totals = {k: 0.0 for k in ("compute_s", "comm_s", "overlapped_comm_s",
+                               "exposed_comm_s", "gap_s", "step_s")}
+    for label in sorted(per_device):
+        ivs = per_device[label]
+        if not ivs:
+            continue
+        comp_union = merge_segments(
+            (iv["start"], iv["end"]) for iv in ivs if iv["kind"] == "compute")
+        all_union = merge_segments((iv["start"], iv["end"]) for iv in ivs)
+        t0 = min(iv["start"] for iv in ivs)
+        t1 = max(iv["end"] for iv in ivs)
+        comm_s = overlapped = exposed = 0.0
+        for iv in ivs:
+            if iv["kind"] != "comm":
+                continue
+            dur = iv["end"] - iv["start"]
+            segs = subtract_segments(iv["start"], iv["end"], comp_union)
+            exp = segments_length(segs)
+            comm_s += dur
+            exposed += exp
+            overlapped += dur - exp
+            comm_out.append(dict(iv, exposed_s=exp, exposed_segments=segs))
+        dev = {"compute_s": segments_length(comp_union),
+               "comm_s": comm_s,
+               "overlapped_comm_s": overlapped,
+               "exposed_comm_s": exposed,
+               "gap_s": max((t1 - t0) - segments_length(all_union), 0.0),
+               "step_s": t1 - t0}
+        devices[label] = dev
+        for k in totals:
+            totals[k] += dev[k]
+    return {"devices": devices, "totals": totals, "comm_intervals": comm_out}
+
+
+def critical_path(per_device):
+    """The chain of ops whose shortening would shorten the step.
+
+    Per-device backward walk on the device that finishes last: start at the
+    latest-ending interval, repeatedly hop to the latest-ending interval
+    that completes at or before the current one starts (the op it was
+    plausibly waiting on, across all of that device's streams). Gaps are
+    bridged by the same rule; the walk terminates at the first interval with
+    no predecessor. Returns::
+
+        {"device", "length_s", "compute_s", "comm_s", "exposed_comm_s",
+         "ops": [{"name", "kind", "op", "start_s", "dur_s", "exposed_s"}]}
+    """
+    last_dev, last_ivs = None, None
+    for label in sorted(per_device):
+        ivs = per_device[label]
+        if not ivs:
+            continue
+        if last_ivs is None or max(iv["end"] for iv in ivs) > \
+                max(iv["end"] for iv in last_ivs):
+            last_dev, last_ivs = label, ivs
+    empty = {"device": None, "length_s": 0.0, "compute_s": 0.0,
+             "comm_s": 0.0, "exposed_comm_s": 0.0, "ops": []}
+    if last_ivs is None:
+        return empty
+    comp_union = merge_segments((iv["start"], iv["end"])
+                                for iv in last_ivs if iv["kind"] == "compute")
+    cur = max(last_ivs, key=lambda iv: iv["end"])
+    chain = [cur]
+    while True:
+        preds = [iv for iv in last_ivs
+                 if iv is not cur and iv["end"] <= cur["start"] + _EPS]
+        if not preds:
+            break
+        cur = max(preds, key=lambda iv: (iv["end"], iv["start"]))
+        chain.append(cur)
+    chain.reverse()
+    ops, comp_s, comm_s, exp_s = [], 0.0, 0.0, 0.0
+    for iv in chain:
+        dur = iv["end"] - iv["start"]
+        exp = 0.0
+        if iv["kind"] == "comm":
+            comm_s += dur
+            exp = segments_length(
+                subtract_segments(iv["start"], iv["end"], comp_union))
+            exp_s += exp
+        else:
+            comp_s += dur
+        ops.append({"name": iv["name"], "kind": iv["kind"], "op": iv["op"],
+                    "start_s": round(iv["start"], 9),
+                    "dur_s": round(dur, 9), "exposed_s": round(exp, 9)})
+    return {"device": last_dev, "length_s": round(comp_s + comm_s, 9),
+            "compute_s": round(comp_s, 9), "comm_s": round(comm_s, 9),
+            "exposed_comm_s": round(exp_s, 9), "ops": ops}
+
+
+# ---------------------------------------------------------------------------
+# per-collective rollup + prefetch advisor
+# ---------------------------------------------------------------------------
+
+def _collective_rollup(comm_intervals, comm_stats=None):
+    """Exposure seconds keyed (op, axis, bytes), wire bytes joined from
+    telemetry comm_stats when the timeline itself carried none.
+
+    ``comm_stats`` accepts either the live ``Telemetry.comm_stats`` mapping
+    ``{(op, axis): [count, bytes, secs, algbw, busbw, wire]}`` or the
+    ``summary()["comm"]["ops"]`` nested dict."""
+    wire_by_key = {}
+    bytes_by_key = {}
+    if comm_stats:
+        if all(isinstance(k, tuple) for k in comm_stats):
+            for (op, axis), st in comm_stats.items():
+                bytes_by_key[(op, axis)] = int(st[1])
+                wire_by_key[(op, axis)] = int(st[5])
+        else:  # summary()["comm"]["ops"] shape
+            for op, per_axis in comm_stats.items():
+                for axis, st in per_axis.items():
+                    bytes_by_key[(op, axis)] = int(st.get("bytes", 0))
+                    wire_by_key[(op, axis)] = int(
+                        st.get("wire_bytes", st.get("bytes", 0)))
+    rolled = {}
+    for iv in comm_intervals:
+        op = iv["op"] or iv["name"]
+        axis = iv.get("axis") or "?"
+        nbytes = iv.get("bytes", 0)
+        if not nbytes:
+            nbytes = bytes_by_key.get((op, axis), 0)
+        key = (op, axis, nbytes)
+        r = rolled.get(key)
+        if r is None:
+            r = rolled[key] = {"op": op, "axis": axis, "bytes": nbytes,
+                               "wire_bytes": 0, "count": 0, "total_s": 0.0,
+                               "exposed_s": 0.0, "overlapped_s": 0.0}
+        dur = iv["end"] - iv["start"]
+        r["count"] += 1
+        r["total_s"] += dur
+        r["exposed_s"] += iv["exposed_s"]
+        r["overlapped_s"] += dur - iv["exposed_s"]
+        wb = iv.get("wire_bytes", 0)
+        r["wire_bytes"] += wb if wb else wire_by_key.get((op, axis), 0)
+    out = []
+    for r in rolled.values():
+        tot = r["total_s"]
+        out.append({"op": r["op"], "axis": r["axis"], "bytes": r["bytes"],
+                    "wire_bytes": r["wire_bytes"], "count": r["count"],
+                    "total_s": round(tot, 9),
+                    "exposed_s": round(r["exposed_s"], 9),
+                    "overlapped_s": round(max(r["overlapped_s"], 0.0), 9),
+                    "exposure_fraction": round(
+                        min(r["exposed_s"] / tot, 1.0) if tot > 0 else 0.0,
+                        6)})
+    out.sort(key=lambda r: (-r["exposed_s"], r["op"], r["axis"]))
+    return out
+
+
+def advise(per_device, comm_intervals):
+    """Prefetch opportunities: exposed collectives ADJACENT to independent
+    compute. For each comm interval with exposed seconds, find the nearest
+    compute interval ending at/before it (prefetch candidate: issue the
+    collective earlier, under that compute) and the nearest starting at/
+    after it (overlap candidate: defer dependents, run compute concurrently)
+    on the same device. The potential saving is the exposed time that
+    adjacent compute could cover — the direct input to the scheduling
+    pass. Aggregated per (op, axis), sorted by potential saving."""
+    by_dev_compute = {}
+    for label, ivs in per_device.items():
+        by_dev_compute[label] = sorted(
+            (iv for iv in ivs if iv["kind"] == "compute"),
+            key=lambda iv: iv["start"])
+    agg = {}
+    for iv in comm_intervals:
+        if iv["exposed_s"] <= _EPS:
+            continue
+        comps = by_dev_compute.get(iv["device"], [])
+        prev_dur = next_dur = 0.0
+        for c in comps:
+            if c["end"] <= iv["start"] + _EPS:
+                prev_dur = max(prev_dur, c["end"] - c["start"])
+            elif c["start"] >= iv["end"] - _EPS:
+                next_dur = max(next_dur, c["end"] - c["start"])
+                break
+        adjacent = max(prev_dur, next_dur)
+        if adjacent <= _EPS:
+            continue
+        key = (iv["op"] or iv["name"], iv.get("axis") or "?")
+        a = agg.get(key)
+        if a is None:
+            a = agg[key] = {"op": key[0], "axis": key[1], "count": 0,
+                            "exposed_s": 0.0, "adjacent_compute_s": 0.0,
+                            "potential_saving_s": 0.0}
+        a["count"] += 1
+        a["exposed_s"] += iv["exposed_s"]
+        a["adjacent_compute_s"] += adjacent
+        a["potential_saving_s"] += min(iv["exposed_s"], adjacent)
+    out = []
+    for a in agg.values():
+        hint = (f"prefetch {a['op']} over axis {a['axis']} under adjacent "
+                f"compute (double-buffer / async collective)")
+        out.append({"op": a["op"], "axis": a["axis"], "count": a["count"],
+                    "exposed_s": round(a["exposed_s"], 9),
+                    "adjacent_compute_s": round(a["adjacent_compute_s"], 9),
+                    "potential_saving_s": round(a["potential_saving_s"], 9),
+                    "hint": hint})
+    out.sort(key=lambda r: (-r["potential_saving_s"], r["op"], r["axis"]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the report
+# ---------------------------------------------------------------------------
+
+def overlap_report(per_device, mode="trace", comm_stats=None, top_k=10,
+                   device_kind=None):
+    """The schema'd overlap report (``summary.schema.json`` ``overlap``):
+    totals, fractions, top-K per-collective exposure, critical path, and the
+    prefetch advisor. ``comm_stats`` joins telemetry wire-byte records onto
+    collectives the device timeline couldn't size itself."""
+    att = attribute(per_device)
+    tot = att["totals"]
+    comm_s = tot["comm_s"]
+    report = {
+        "mode": mode,
+        "devices": len(att["devices"]),
+        "step_s": round(tot["step_s"], 9),
+        "compute_s": round(tot["compute_s"], 9),
+        "comm_s": round(comm_s, 9),
+        "overlapped_comm_s": round(tot["overlapped_comm_s"], 9),
+        "exposed_comm_s": round(tot["exposed_comm_s"], 9),
+        "gap_s": round(tot["gap_s"], 9),
+        "overlap_fraction": round(
+            min(tot["overlapped_comm_s"] / comm_s, 1.0) if comm_s > 0
+            else 1.0, 6),
+        "exposed_fraction": round(
+            min(tot["exposed_comm_s"] / comm_s, 1.0) if comm_s > 0 else 0.0,
+            6),
+        "collectives": _collective_rollup(att["comm_intervals"],
+                                          comm_stats)[:top_k],
+        "critical_path": critical_path(per_device),
+        "advice": advise(per_device, att["comm_intervals"])[:top_k],
+    }
+    if device_kind is not None:
+        report["device_kind"] = str(device_kind)
+    return report
+
+
+def validate_report(rep):
+    """Cheap structural validation: every number finite, exposure <= comm
+    total, fractions in [0, 1], exposed + overlapped == comm within
+    tolerance. Returns a list of error strings (empty = valid)."""
+    errs = []
+    if not isinstance(rep, dict):
+        return ["overlap report is not a dict"]
+    num_keys = ("step_s", "compute_s", "comm_s", "overlapped_comm_s",
+                "exposed_comm_s", "gap_s", "overlap_fraction",
+                "exposed_fraction")
+    for k in num_keys:
+        v = rep.get(k)
+        if not isinstance(v, (int, float)) or isinstance(v, bool) \
+                or not math.isfinite(v):
+            errs.append(f"overlap.{k} missing or non-finite (got {v!r})")
+        elif v < 0:
+            errs.append(f"overlap.{k} negative ({v})")
+    if errs:
+        return errs
+    if rep["exposed_comm_s"] > rep["comm_s"] + 1e-6:
+        errs.append(f"exposed_comm_s {rep['exposed_comm_s']} > comm_s "
+                    f"{rep['comm_s']}")
+    if abs(rep["exposed_comm_s"] + rep["overlapped_comm_s"]
+           - rep["comm_s"]) > max(1e-6, 1e-3 * rep["comm_s"]):
+        errs.append("exposed + overlapped != comm total")
+    for k in ("overlap_fraction", "exposed_fraction"):
+        if not 0.0 <= rep[k] <= 1.0:
+            errs.append(f"overlap.{k} outside [0, 1] ({rep[k]})")
+    if rep.get("mode") not in ("trace", "analytic"):
+        errs.append(f"overlap.mode must be trace|analytic "
+                    f"(got {rep.get('mode')!r})")
+    for c in rep.get("collectives", []):
+        if not isinstance(c, dict) or "op" not in c:
+            errs.append(f"malformed collective entry {c!r}")
+            continue
+        for k in ("total_s", "exposed_s"):
+            v = c.get(k)
+            if not isinstance(v, (int, float)) or not math.isfinite(v) \
+                    or v < 0:
+                errs.append(f"collective {c['op']}: {k} invalid ({v!r})")
+        if not errs and c["exposed_s"] > c["total_s"] + 1e-6:
+            errs.append(f"collective {c['op']}: exposed > total")
+    cp = rep.get("critical_path")
+    if not isinstance(cp, dict) or not isinstance(cp.get("ops"), list):
+        errs.append("overlap.critical_path missing or malformed")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# trace-event ingestion (profiler captures + our own exports)
+# ---------------------------------------------------------------------------
+
+def load_trace_events(path):
+    """Trace events from a Chrome-trace ``.json`` / ``.json.gz`` file or a
+    profiler output DIRECTORY (recursively collects every
+    ``*.trace.json(.gz)`` under it — the TensorBoard profile layout).
+    Accepts both the ``{"traceEvents": [...]}`` object form and a bare
+    event list. Raises FileNotFoundError when nothing trace-like exists."""
+    if os.path.isdir(path):
+        found = []
+        for root, _dirs, names in os.walk(path):
+            for n in sorted(names):
+                if n.endswith((".trace.json", ".trace.json.gz")) or \
+                        n in ("trace.json", "trace.json.gz"):
+                    found.append(os.path.join(root, n))
+        if not found:
+            raise FileNotFoundError(f"no *.trace.json(.gz) under {path}")
+        events = []
+        for p in found:
+            events.extend(load_trace_events(p))
+        return events
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt") as f:
+        doc = json.load(f)
+    events = doc.get("traceEvents", doc) if isinstance(doc, dict) else doc
+    if not isinstance(events, list):
+        raise ValueError(f"{path}: no traceEvents list")
+    return events
+
+
+def intervals_from_trace(events):
+    """Per-device interval timelines from Chrome trace events.
+
+    A ``torch.profiler`` trace: the events of the CUDA categories
+    (``_CUDA_CATS``), one timeline per ``args.device`` ("cuda:N") with
+    ``args.stream`` as the stream; its host lanes do not count. Otherwise
+    the pids whose ``process_name`` metadata names a device lane when any
+    exist, else every pid with duration events (exported traces, test
+    fixtures). Complete (``X``) events only. Comm classification: explicit
+    ``cat: "comm"`` first, then the collective-name patterns; ``args.axis``
+    / ``args.bytes`` / ``args.wire_bytes`` ride along when present."""
+    proc_names = {}
+    for ev in events:
+        if ev.get("ph") == "M" and ev.get("name") == "process_name":
+            proc_names[ev.get("pid")] = (ev.get("args") or {}).get("name", "")
+    device_pids = {pid for pid, name in proc_names.items()
+                   if _DEVICE_PROC_RE.search(name or "")}
+    cuda = any(ev.get("ph") == "X" and ev.get("cat") in _CUDA_CATS for ev in events)
+    per_device = {}
+    for ev in events:
+        if ev.get("ph") != "X":
+            continue
+        dur = ev.get("dur")
+        if not dur or dur <= 0:
+            continue
+        pid = ev.get("pid", 0)
+        args = ev.get("args") or {}
+        if cuda:
+            if ev.get("cat") not in _CUDA_CATS:
+                continue
+            label = f"cuda:{args.get('device', pid)}"
+            stream = args.get("stream", ev.get("tid", 0))
+        else:
+            if device_pids and pid not in device_pids:
+                continue
+            label = proc_names.get(pid) or f"pid:{pid}"
+            stream = ev.get("tid", 0)
+        name = ev.get("name", "?")
+        op = classify_op(name)
+        kind = "comm" if (ev.get("cat") == "comm" or op) else "compute"
+        start = ev.get("ts", 0) / 1e6
+        iv = make_interval(name, start, start + dur / 1e6, kind=kind,
+                           device=label, stream=stream,
+                           op=(op or (name if kind == "comm" else None)),
+                           axis=args.get("axis"),
+                           nbytes=args.get("bytes", 0),
+                           wire_bytes=args.get("wire_bytes"))
+        per_device.setdefault(label, []).append(iv)
+    return per_device
+
+
+def intervals_from_jsonl_records(records, host="host"):
+    """One host's telemetry JSONL records -> a single-device timeline (the
+    exposure lanes of merged host traces). Span records for the
+    compute phases (``fwd``/``bwd``/``step``/``eval``) become compute
+    intervals; ``comm/*`` records become comm intervals. Both record at END
+    (``ts``) with the duration in ``value`` / ``tags.seconds``."""
+    compute_names = {"fwd", "bwd", "step", "eval"}
+    ivs = []
+    for rec in records:
+        name = rec.get("name", "")
+        ts = rec.get("ts")
+        if ts is None:
+            continue
+        tags = rec.get("tags") or {}
+        if rec.get("kind") == "span" and name in compute_names:
+            dur = float(rec.get("value", 0.0) or 0.0)
+            if dur > 0:
+                ivs.append(make_interval(name, ts - dur, ts, kind="compute",
+                                         device=host))
+        elif name.startswith("comm/"):
+            dur = float(tags.get("seconds", 0.0) or 0.0)
+            if dur > 0:
+                ivs.append(make_interval(
+                    name, ts - dur, ts, kind="comm", device=host,
+                    op=name[5:], axis=tags.get("axis"),
+                    nbytes=rec.get("value", 0),
+                    wire_bytes=tags.get("wire_bytes")))
+    return {host: ivs}
+
+
+# ---------------------------------------------------------------------------
+# analytic (chip-free) mode
+# ---------------------------------------------------------------------------
+
+def analytic_intervals(compute_s, comm_ops, device="analytic:0"):
+    """The schedule synchronous collectives imply: one compute block (the
+    step's math), then every collective serialized after it — fully
+    exposed. The report built from this is the *worst-case* exposure the
+    scheduling pass starts from; trace mode replaces it with measured
+    overlap on the card.
+
+    ``comm_ops``: iterable of ``{"op", "axis", "bytes", "wire_bytes",
+    "seconds", "count"}`` (``count`` repeats the interval)."""
+    t = 0.0
+    ivs = [make_interval("compute/roofline", 0.0, float(compute_s),
+                         kind="compute", device=device)]
+    t = float(compute_s)
+    for spec in comm_ops:
+        secs = float(spec["seconds"])
+        for _ in range(int(spec.get("count", 1))):
+            ivs.append(make_interval(
+                f"comm:{spec['op']}", t, t + secs, kind="comm",
+                device=device, op=spec["op"], axis=spec.get("axis"),
+                nbytes=spec.get("bytes", 0),
+                wire_bytes=spec.get("wire_bytes")))
+            t += secs
+    return {device: ivs}
+
+
+def analytic_report(cost, comm_ops, device_kind=None, axis_sizes=None, top_k=10,
+                    compute_s=None):
+    """The report of the serialized schedule (``analytic_intervals``) on
+    given seconds: ``compute_s`` for the step's compute and ``seconds`` on
+    every ``comm_ops`` entry (``{"op", "axis", "bytes", "wire_bytes",
+    "seconds", "count"}``). Pricing them from ``cost`` (a compiled program's
+    flops and bytes) or from bytes over a link is the roofline of ROADMAP
+    A15 (the autotuner) and raises ``NotImplementedError``."""
+    missing = [s.get("op") for s in comm_ops if "seconds" not in s]
+    if compute_s is None or missing:
+        raise NotImplementedError(
+            "analytic_report needs compute_s and every collective's seconds "
+            f"(missing: compute_s={compute_s is None}, ops={missing}): the roofline "
+            "that prices them is not ported to deepspeed_tpu_torch yet: ROADMAP A15 "
+            "(the autotuner)")
+    per_device = analytic_intervals(compute_s, [dict(s) for s in comm_ops])
+    return overlap_report(per_device, mode="analytic", top_k=top_k,
+                          device_kind=device_kind)
+
+
+def format_report(rep, top_k=10):
+    """Fixed-width human table: totals line, top-K exposed collectives, the
+    critical path, and the advisor (what ``tools/profile_train.py``
+    prints)."""
+    lines = [
+        f"overlap[{rep['mode']}]: step {rep['step_s']*1e3:.3f} ms  "
+        f"compute {rep['compute_s']*1e3:.3f} ms  "
+        f"comm {rep['comm_s']*1e3:.3f} ms  "
+        f"exposed {rep['exposed_comm_s']*1e3:.3f} ms "
+        f"({rep['exposed_fraction']:.1%} of comm)  "
+        f"gap {rep['gap_s']*1e3:.3f} ms"]
+    if rep["collectives"]:
+        lines.append(f"{'Collective':<22}{'Axis':<10}{'Count':<7}"
+                     f"{'Bytes':<14}{'Total(ms)':<12}{'Exposed(ms)':<13}"
+                     f"{'Exposed%':<9}")
+        for c in rep["collectives"][:top_k]:
+            lines.append(
+                f"{c['op']:<22}{str(c['axis']):<10}{c['count']:<7}"
+                f"{c['bytes']:<14}{c['total_s']*1e3:<12.3f}"
+                f"{c['exposed_s']*1e3:<13.3f}"
+                f"{c['exposure_fraction']:<9.1%}")
+    cp = rep.get("critical_path") or {}
+    if cp.get("ops"):
+        lines.append(
+            f"critical path ({cp['device']}): {cp['length_s']*1e3:.3f} ms = "
+            f"compute {cp['compute_s']*1e3:.3f} + comm {cp['comm_s']*1e3:.3f}"
+            f" (exposed {cp['exposed_comm_s']*1e3:.3f}) over "
+            f"{len(cp['ops'])} ops")
+        for o in cp["ops"]:
+            mark = " <-- exposed" if o["exposed_s"] > 0 else ""
+            lines.append(f"  {o['kind']:<8}{o['name']:<32}"
+                         f"{o['dur_s']*1e3:>10.3f} ms{mark}")
+    for a in rep.get("advice", [])[:top_k]:
+        lines.append(f"advice: {a['op']}@{a['axis']} exposed "
+                     f"{a['exposed_s']*1e3:.3f} ms, adjacent compute "
+                     f"{a['adjacent_compute_s']*1e3:.3f} ms -> save up to "
+                     f"{a['potential_saving_s']*1e3:.3f} ms: {a['hint']}")
+    return "\n".join(lines)

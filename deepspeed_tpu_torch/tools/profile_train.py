@@ -2,7 +2,8 @@
 
     python -m deepspeed_tpu_torch.tools.profile_train [--model llama]
         [--layers N] [--micro 4] [--seq 2048] [--seed 0] [--ep 1]
-        [--zero 3 --qgz --world 4]
+        [--zero 3 --qgz --world 4] [--qwz] [--hpz N | --mics N]
+        [--overlap [--prefetch-depth 1 --grad-buckets 2]]
 
 Builds the model at full width with ``--layers`` of its 32 layers (bf16
 weights drawn on the card from ``--seed``): the Llama-2-7B geometry
@@ -38,6 +39,15 @@ exchange (``QgzPlan.reduce``) as an annotated span of the traced step and
 by the host's clock around a synchronised call in the timed step
 (``boundary_exchange_ms``); the fused CE head is not timed apart (its
 weight is a gathered ZeRO-3 chunk).
+
+The rest of ZeRO++ and MiCS on that data-parallel run: ``--qwz``
+(``zero_quantized_weights``), ``--hpz N`` (``zero_hpz_partition_size``),
+``--mics N`` (``mics_shard_size``) and ``--overlap`` (``overlap.schedule``
+with ``--prefetch-depth`` and ``--grad-buckets``). Every multi-card line
+adds the profiled step's overlap report (``telemetry/overlap.py`` on the
+rank's own CUDA timeline of the ``torch.profiler`` trace): the exposed and
+total seconds of each collective class, the all-gathers' hidden share
+(overlapped over total), the report's totals and its top advice.
 """
 
 import argparse
@@ -120,7 +130,15 @@ def main(argv=None):
     ap.add_argument("--world", type=int, default=None,
                     help="data-parallel cards (one process per card); --ep sets it for "
                          "expert parallelism")
+    ap.add_argument("--qwz", action="store_true", help="ZeRO++ quantized weights (stage 3)")
+    ap.add_argument("--hpz", type=int, default=1, help="ZeRO++ hpZ partition size")
+    ap.add_argument("--mics", type=int, default=-1, help="MiCS shard size")
+    ap.add_argument("--overlap", action="store_true", help="the overlap schedule")
+    ap.add_argument("--prefetch-depth", type=int, default=1)
+    ap.add_argument("--grad-buckets", type=int, default=2)
     args = ap.parse_args(argv)
+    if (args.qwz or args.hpz > 1 or args.mics > 0 or args.overlap) and args.zero < 1:
+        ap.error("--qwz, --hpz, --mics and --overlap need --zero (and --world 2 or more)")
     if args.ep > 1:
         if args.model != "mixtral":
             ap.error("--ep needs --model mixtral")
@@ -179,6 +197,40 @@ def _exchange_probe(engine):
     return probe
 
 
+def overlap_summary(prof, rank):
+    """The overlap report of this rank's card in the trace ``prof`` took:
+    per collective class its exposed and total seconds, the all-gathers'
+    hidden share, the totals and the first advice; ``busy_s``, the union of
+    the card's kernel and copy intervals over all its streams."""
+    import tempfile
+    from pathlib import Path
+
+    from deepspeed_tpu_torch.telemetry import overlap as ov
+    build = Path(__file__).resolve().parents[2] / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        path = str(Path(d) / f"rank{rank}.trace.json")
+        prof.export_chrome_trace(path)
+        per = ov.intervals_from_trace(ov.load_trace_events(path))
+    mine = {k: v for k, v in per.items() if k == f"cuda:{rank}"}
+    rep = ov.overlap_report(mine, top_k=1000)
+    classes = {}
+    for c in rep["collectives"]:
+        k = classes.setdefault(c["op"], {"count": 0, "total_s": 0.0, "exposed_s": 0.0})
+        k["count"] += c["count"]
+        k["total_s"] += c["total_s"]
+        k["exposed_s"] += c["exposed_s"]
+    gather = classes.get("all_gather")
+    return {"device": f"cuda:{rank}", "classes": classes,
+            "all_gather_hidden_share": (1 - gather["exposed_s"] / gather["total_s"])
+            if gather and gather["total_s"] > 0 else None,
+            **{k: rep[k] for k in ("step_s", "compute_s", "comm_s", "overlapped_comm_s",
+                                   "exposed_comm_s", "gap_s", "overlap_fraction",
+                                   "exposed_fraction")},
+            "busy_s": rep["step_s"] - rep["gap_s"],
+            "advice": rep["advice"][:1]}
+
+
 def _profile(args, rank=0):
     import torch
     from torch.autograd import DeviceType
@@ -196,7 +248,12 @@ def _profile(args, rank=0):
                   * world)
     if args.zero:
         config.update(train_micro_batch_size_per_gpu=args.micro, zero_optimization={
-            "stage": args.zero, "zero_quantized_gradients": args.qgz})
+            "stage": args.zero, "zero_quantized_gradients": args.qgz,
+            "zero_quantized_weights": args.qwz, "zero_hpz_partition_size": args.hpz,
+            "mics_shard_size": args.mics})
+        if args.overlap:
+            config["overlap"] = {"schedule": True, "prefetch_depth": args.prefetch_depth,
+                                 "grad_buckets": args.grad_buckets}
     if args.model == "mixtral":
         args.layers = args.layers or (2 if world == 1 else 8)
         ep = args.ep
@@ -238,6 +295,10 @@ def _profile(args, rank=0):
         _step(engine, batches)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    overlap = overlap_summary(prof, rank)
+    # busy: the union of the card's intervals, as streams overlap (NCCL
+    # beside compute under the overlap schedule)
+    busy_ms = overlap["busy_s"] * 1e3
     # device-side events only: the host ops that launched them carry the
     # same time and would count it twice. Annotations (the optimizer's
     # "Optimizer.step#..." range, the process groups' "nccl:<op>" ranges)
@@ -254,7 +315,6 @@ def _profile(args, rank=0):
         g = _group(e.key)
         groups[g] = groups.get(g, 0.0) + ms
         counts[g] = counts.get(g, 0) + e.count
-    busy_ms = sum(per_kernel.values())
     if rank:
         return
     line = {
@@ -263,6 +323,8 @@ def _profile(args, rank=0):
             capture_output=True, text=True, check=True).stdout.strip().splitlines()[0],
         "model": args.model, "layers": args.layers, "params": cfg.num_parameters(),
         "world": world, "expert_parallel": args.ep, "zero_stage": args.zero, "qgz": args.qgz,
+        "qwz": args.qwz, "hpz": args.hpz, "mics": args.mics,
+        "overlap_schedule": config.get("overlap"),
         "micro_batch": [args.micro, args.seq],
         "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
         "gas": config["gradient_accumulation_steps"],
@@ -270,6 +332,7 @@ def _profile(args, rank=0):
         "step_wall_ms_profiled": wall_ms,
         "device_busy_ms": busy_ms if per_kernel else None,
         "device_idle_share": (1 - busy_ms / wall_ms) if per_kernel else None,
+        "device_kernel_ms_summed": sum(per_kernel.values()),
         "groups_ms_per_step": groups,
         "group_launches_per_step": counts,
         "annotated_spans_ms": spans,
@@ -278,6 +341,8 @@ def _profile(args, rank=0):
     if exchange.ms:
         line.update(boundary_exchange_ms=exchange.ms,
                     step_wall_ms_exchange_synchronised=exchange.step_ms)
+    if world > 1:
+        line["overlap_report"] = overlap
     if args.zero == 3:
         print(json.dumps(line))
         return

@@ -1812,6 +1812,74 @@ def test_quant_kernels_match_plain(cuda, name):
     assert launched == {f"quantize_{q_route}": 1, f"dequant_reduce_{d_route}": 1}
 
 
+# Llama-2-7B's quantized leaves as the port holds them ([out, in]), the
+# axis qwZ groups them along (0: an nn.Linear weight, whose JAX kernel is
+# [in, out]) and the route at world 4: q_proj cut along its outputs into
+# 1024 a rank, 4 whole groups (column chunks of the JAX layout); gate_proj
+# [11008, 4096] cut along its 11008 outputs, 2752 a rank, 10.75 groups
+# ("rows": each rank quantizes a block of whole rows); down_proj cut along
+# its inputs and lm_head [32000, 4096] along the vocabulary (row chunks)
+QWZ_LEAVES = {"q_proj": ((4096, 4096), 0, "chunk"), "gate_proj": ((11008, 4096), 0, "rows"),
+              "down_proj": ((4096, 11008), 0, "chunk"),
+              "lm_head": ((32000, 4096), -1, "chunk")}
+
+
+@gpu
+@pytest.mark.parametrize("name", list(QWZ_LEAVES))
+def test_qwz_route_is_quantize_lastdim(cuda, name):
+    """qwZ's quantize (``zero/qwz.quantize_rows``: row 5 on the bf16 rows
+    widened to fp32) and dequantize (``dequantize_leaf``: row 6 with one
+    peer, cast once to bf16) on the card, bit for bit against the plain
+    ``quantize_lastdim`` / ``dequantize_lastdim`` (``ops/quantizer``, held
+    to the JAX package's on the CPU) of the whole leaf in the JAX layout:
+    on each rank's piece as the route at world 4 takes it (a column chunk
+    of whole groups, a row chunk, or gate_proj's row block of whole rows
+    where its 2752-output chunk straddles groups); the routes are the
+    source's ``quantize_warp`` and ``dequant_reduce_stream``; a scale
+    doubled on one group fails."""
+    from deepspeed_tpu_torch.ops import quant_collective as qc
+    from deepspeed_tpu_torch.ops.quantizer import dequantize_lastdim, quantize_lastdim
+    from deepspeed_tpu_torch.runtime.zero import qwz
+    from deepspeed_tpu_torch.runtime.zero.partition import zero_shard_dim
+    (shape, axis, want_route), W = QWZ_LEAVES[name], 4
+    g = torch.Generator(device=cuda).manual_seed(len(name))
+    full = (torch.randn(shape, generator=g, device=cuda) * 0.02).to(torch.bfloat16)
+    jleaf = full.movedim(axis, -1).contiguous()     # the JAX layout
+    jleaf[0, :256] *= 40.0                     # groups of very different scales
+    jleaf[1, :256] = 0.0                       # an all-zero group: scale 1
+    q_ref, s_ref = quantize_lastdim(jleaf)
+    d = zero_shard_dim(shape, W)
+    assert qwz.route(shape, d, W, axis=axis) == want_route
+    qshape, qd = qwz.qlayout(shape, d, axis)
+    gs, G = qwz.group_of(qshape[-1])
+    by_rows = want_route == "rows" or qd != len(qshape) - 1
+    width = qshape[-1] if by_rows else qshape[-1] // W
+    assert qc.kernel_route("quantize", width, gs, 8, torch.float32) == "quantize_warp"
+    assert qc.kernel_route("dequantize_reduce", qshape[-1], gs, 8, peers=1) == \
+        "dequant_reduce_stream"
+    rows = qshape[0] // W                      # a row chunk, or a row block
+    tally = qc.kernel_launches()
+    for r in range(W):
+        if by_rows:
+            pick, spick = (slice(r * rows, (r + 1) * rows),), (slice(r * rows, (r + 1) * rows),)
+        else:
+            pick = (slice(None), slice(r * width, (r + 1) * width))
+            spick = (slice(None), slice(r * G // W, (r + 1) * G // W))
+        q, s = qwz.quantize_rows(jleaf[pick], gs)
+        assert torch.equal(q, q_ref[pick]), r
+        assert same_bits(s, s_ref[spick].contiguous()), r
+    back = qwz.dequantize_leaf(q_ref.movedim(-1, axis), s_ref, torch.bfloat16, axis=axis)
+    torch.cuda.synchronize()
+    want = dequantize_lastdim(q_ref, s_ref, dtype=torch.bfloat16).movedim(-1, axis)
+    assert torch.equal(back, want)
+    bad = s_ref.clone()
+    bad[0, 0] *= 2
+    assert not torch.equal(qwz.dequantize_leaf(q_ref.movedim(-1, axis), bad, torch.bfloat16,
+                                               axis=axis), want)
+    launched = {n: c - tally[n] for n, c in qc.kernel_launches().items() if c > tally[n]}
+    assert launched == {"quantize_warp": W, "dequant_reduce_stream": 2}
+
+
 @gpu
 def test_quant_raises_instead_of_falling_back(cuda):
     from deepspeed_tpu_torch.ops import quant_collective as qc

@@ -201,12 +201,20 @@ def test_hist_in_summary_and_schema():
 
 
 def test_unported_streams_raise_naming_their_queue_item():
+    """The comm stream and the flight recorder wait for A15; the overlap
+    report is ported: a malformed one raises the JAX package's
+    ``ValueError`` (a valid one rides ``summary()["overlap"]``,
+    ``tests/test_torch_overlap.py``)."""
     with pytest.raises(NotImplementedError, match="A15"):
         telemetry.record_comm("all_reduce", 1, 0.1)
     with pytest.raises(NotImplementedError, match="A15"):
         telemetry.flight_record("replica", "replica/lost", {})
-    with pytest.raises(NotImplementedError, match="A10"):
-        telemetry.attach_overlap({})
+    telemetry.configure(enabled=True)
+    try:
+        with pytest.raises(ValueError, match="invalid overlap report"):
+            telemetry.attach_overlap({})
+    finally:
+        telemetry.configure(enabled=False)
 
 
 # ---------------------------------------------------------------------------

@@ -252,9 +252,9 @@ def collectives(inp, rank, world, out):
             if topo.get_group("dp") is not None else None)
         plan = QgzPlan(topo)
         local = torch.from_numpy(inp["stacked"][rank])
-        d, axes = plan._zero_dim(local.shape)
-        res[f"reduce_leaf_{name}"] = (d, axes, plan._reduce_leaf(local, d, axes),
-                                      plan._reduce_leaf(local, d, axes, want_error=True))
+        d = plan._zero_dim(local.shape)
+        res[f"reduce_leaf_{name}"] = (d, plan.axes, plan._reduce_leaf(local, d),
+                                      plan._reduce_leaf(local, d, want_error=True))
     out["collectives"] = res
 
 
