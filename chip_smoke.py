@@ -389,11 +389,11 @@ prints no result.
 
 24. Tensor-parallel families and features (run after phase 19; phase 15
    and phase 20 record its tp 1 sides). Falcon-7B at its published width
-   and all 32 layers (71 query heads of 64 cut 36 / 35, both ranks on a
+   and 16 of its 32 layers (71 query heads of 64 cut 36 / 35, both ranks on a
    copy of the one kv head), then Phi-2 and OPT-6.7B at their published
    widths with 2 layers, each served at tp 1 on phase 3's 8 requests and
    replayed at tp 2 by two processes sharing cuda:0 over gloo, held by
-   phase 22's rule (0.1 relative L2 for 32 layers, phase 21's 0.02 for 2;
+   phase 22's rule (0.1 relative L2 for 16 layers, phase 21's 0.02 for 2;
    greedy tokens where the tp 1 gap clears the margin) with a planted
    fault above the bound (rank 1's attention output product half a head
    off: Falcon-7B's even cut); every rank's paged launches ``num_layers x
@@ -426,6 +426,30 @@ prints no result.
    parameter gather in the rank's dp pair. The primary exchange's wire
    bytes against bf16, each configuration's step time and peak memory a
    rank are printed.
+26. Tensor-parallel replicas (run after phase 21, on its Mistral-7B-v0.1
+   directory): phase 3's model with ``FLEET_TP_LAYERS`` of 32 layers in
+   replicas at tp 2, every replica's tp rank r on process r (2 processes on
+   cuda:0 over gloo; 32 layers, one card a replica rank over NCCL with 4
+   cards). A 1 + 1 ``PrefillDecodeFleet`` driven on a pre-drawn stream
+   must give a one-replica tp-2 ``ReplicaGroup``'s logits bit for bit in
+   every round, on the device codec and the int8-pool wire codec; on bf16
+   pools the wire leg stays within phase 23's bound, each rank's frame is
+   bit for bit its heads of the tp-1 frame, and shares crossed in shipping
+   read above the bound. Row 1 on every replica rank (``wgmma``; SIMT for
+   int8 pools), rows 5-6 2 per wire ship on each process. The v1 engine's
+   (1, 2) grid on 2 processes, then on 3 with one idle (no weights, rank
+   0's results, bit for bit). The Mistral directory through
+   ``init_inference`` at tp 2 with 8-bit weights, each rank quantizing one
+   whole tensor at a time: bit for bit against the whole weights at tp 2,
+   the linears of row 7 at tp 1 on row 7, each rank's load peak under
+   its share plus its largest whole tensor.
+27. The v1 KV-cached forward of Falcon-7B and Phi-2 (published widths, 2
+   layers): ``generate`` in bf16 and at 8 bits, every step within 0.008
+   (tighter than phase 21's 0.02) of the FastGen engine on the same
+   weights, a planted cache-index fault failing that bound, greedy tokens
+   equal where FastGen's top-2 gap clears, the 8-bit linears on row 7
+   except those whose last group is padded (Falcon-7B's qkv, ``dense``,
+   ``fc2``).
 
 The script prints its total wall time. The line before the last is one
 JSON object describing each kernel; the last is ``{"ok": true, "device":
@@ -5053,8 +5077,10 @@ def hf_kernel_form_check(name, engine, family, rng):
     return prompt, kernel, res, [f"{name}: {f}" for f in fails]
 
 
-def phase_hf_checkpoints():
-    """Phase 21 (see the module docstring)."""
+def phase_hf_checkpoints(keep_mistral=False):
+    """Phase 21 (see the module docstring). ``keep_mistral``: the
+    Mistral-7B-v0.1 directory stays on disk for phase 26, its path in the
+    report's ``mistral_dir`` (the caller removes it)."""
     import shutil
     import tempfile
 
@@ -5113,7 +5139,11 @@ def phase_hf_checkpoints():
         del engine
         gc.collect()
         torch.cuda.empty_cache()
-        shutil.rmtree(d7)
+        if keep_mistral:
+            report["mistral_dir"] = str(root / f"hf_mistral_7b_{os.getpid()}")
+            os.rename(d7, report["mistral_dir"])
+        else:
+            shutil.rmtree(d7)
         mistral = dict(
             source="mistralai/Mistral-7B-v0.1 config.json", layers=cfg.num_hidden_layers,
             sliding_window=cfg.sliding_window, prompt_tokens=int(sum(lens)),
@@ -6823,13 +6853,13 @@ def phase_fleet(model):
 
 # Phase 24 serves the families phase 22 left out at tp 2, two ranks sharing
 # cuda:0 over gloo as phase 22's do: Falcon-7B at its published width and
-# all 32 layers (71 query heads of 64 cut 36 / 35, both ranks on a copy of
-# the one KV head; head tied, as tiiuae/falcon-7b), then Phi-2 and
-# OPT-6.7B at their published widths with phase 21's 2 layers. Each is
+# TP_FALCON_LAYERS of its 32 layers (71 query heads of 64 cut 36 / 35, both
+# ranks on a copy of the one KV head; head tied, as tiiuae/falcon-7b), then
+# Phi-2 and OPT-6.7B at their published widths with phase 21's 2 layers. Each is
 # first served at tp 1 on the main process (phase 3's 8 requests; 64 new
 # tokens for Falcon, 16 for the 2-layer families) recording every round,
 # then replayed at tp 2 and held by phase 22's rule: first- and last-round
-# logits within the bound (relative L2: phase 3's 0.1 for Falcon's 32
+# logits within the bound (relative L2: phase 3's 0.1 for Falcon's
 # layers, phase 21's 0.02 for 2 layers), greedy tokens where tp 1's top-2
 # gap clears TP_TOKEN_MARGIN x rms, and a planted fault that must read above
 # the bound: rank 1's row-split attention output product (Falcon and Phi's
@@ -6847,15 +6877,19 @@ def phase_fleet(model):
 # ranks run phase 24's speculative and host-tier parts (``tp_speculative``,
 # ``tp_host_tier``) on their Llama-2-7B shares.
 TP_FAMILY_BOUND = HF_LOGITS_REL_L2_TOLERANCE
+# Falcon-7B's layers of its 32: cut from 32 to keep the one-card smoke
+# inside its time limit
+TP_FALCON_LAYERS = 16
 
 
 def tp_family_models():
     """{name: (model class, config, new tokens, bound)} of phase 24's
-    families: Falcon-7B with all 32 layers, Phi-2 and OPT-6.7B with phase
-    21's layers."""
+    families: Falcon-7B with ``TP_FALCON_LAYERS`` layers, Phi-2 and
+    OPT-6.7B with phase 21's layers."""
     cfgs = hf_family_models()
     out = {"falcon_7b": (cfgs["falcon_7b"][0], dataclasses.replace(
-        cfgs["falcon_7b"][1], num_hidden_layers=32), TP_NEW, TP_LOGITS_REL_L2_BOUND)}
+        cfgs["falcon_7b"][1], num_hidden_layers=TP_FALCON_LAYERS), TP_NEW,
+        TP_LOGITS_REL_L2_BOUND)}
     for name in ("phi_2", "opt_6_7b"):
         out[name] = (cfgs[name][0], cfgs[name][1], HF_FAMILY_NEW, TP_FAMILY_BOUND)
     return out
@@ -7168,7 +7202,9 @@ def tp_falcon_nccl(ref, failures):
 # ---------------------------------------------------------------------------
 
 ZPP_WORLD = 4
-ZPP_LAYERS = 4                # of Llama-2-7B's 32
+# of Llama-2-7B's 32: cut from 4 to keep the one-card smoke inside its time
+# limit
+ZPP_LAYERS = 2
 ZPP_MICRO, ZPP_T, ZPP_GAS, ZPP_STEPS = 1, 2048, 2, 3
 ZPP_ZERO = {
     "plain": {"stage": 3},
@@ -7448,6 +7484,643 @@ def phase_zeropp():
             for name in ("plain", "c", "a", "b")}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: tensor-parallel replicas in a fleet, idle v1 ranks, an HF
+# directory quantized at tp
+# ---------------------------------------------------------------------------
+
+# Phase 26 runs phase 3's model, Llama-2-7B at full width with
+# FLEET_TP_LAYERS of its 32 layers on one card (all 32 with 4 cards), in
+# replicas at tp 2. The port lays every replica's tp rank r on process r
+# (``replica_group.TPReplicas``): 2 processes hold the 4 replica ranks, on
+# cuda:0 over gloo with one card, one card a replica rank over NCCL with 4.
+# A one-replica ``ReplicaGroup`` at tp 2 is the monolithic engine; a
+# one-prefill, one-decode ``PrefillDecodeFleet`` at tp 2 is driven by hand on
+# the same pre-drawn stream (a prefill round of phase 3's first
+# FLEET_TP_PROMPTS prompts, the handoff of all of them, FLEET_TP_ROUNDS
+# decode rounds of drawn tokens), with the device codec and the wire codec
+# on int8 pools: both must give the monolithic engine's logits bit for bit
+# in every round. On bf16 pools the wire codec's logits must stay within
+# FLEET_WIRE_REL_L2_BOUND of the device codec's, and each rank's wire frame
+# must be, bit for bit, that rank's heads of the tp-1 frame of the whole
+# pages. A planted fault crosses the shares in shipping (decode rank 1
+# receives prefill rank 0's heads); its decode logits must read above the
+# bound against the sound run's. Row 1 must run on ``wgmma`` on every
+# replica rank (int8 pools on the SIMT kernel, its declared route),
+# ``num_layers x forwards`` launches a process; rows 5-6 2 per wire ship on
+# each process. The v1 engine at tp 2 serves a (1, 2) grid on
+# the 2 processes, then on 3 with the third idle: every rank's logits and
+# tokens must be the 2-process grid's bit for bit, the idle rank holding no
+# weights. Phase 21's Mistral-7B-v0.1 directory (32 layers) loads through
+# ``init_inference`` at tp 2 with 8-bit weights, each rank quantizing one
+# whole tensor at a time and keeping its part: its logits must be, bit for
+# bit, those of the same weights passed whole at tp 2; every linear but the
+# head (grouped along K) on row 7, as at tp 1; each rank's peak memory while
+# it loads must stay under its share plus its largest whole tensor, and what
+# stays allocated after the load must be its share (within
+# FLEET_TP_LOAD_SLACK: no view of a whole tensor kept alive).
+FLEET_TP_LAYERS = 4
+FLEET_TP_PROMPTS = 4
+FLEET_TP_ROUNDS = 16
+FLEET_TP_V1_NEW = 8
+# bytes a rank may hold after the load beyond its share's parameters and
+# codes
+FLEET_TP_LOAD_SLACK = 1 << 26
+
+
+def fleet_tp_cards():
+    """The 4 replica ranks' devices (prefill tp 0, 1, then decode) and the
+    backend: one card shared over gloo, or one card each over NCCL."""
+    import torch
+    if torch.cuda.device_count() >= 4:
+        return [f"cuda:{i}" for i in range(4)], "nccl"
+    return ["cuda:0"] * 4, "gloo"
+
+
+def fleet_tp_counts(reset=False):
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.ops import quant_collective as qc
+    if reset:
+        pa.paged_mha.launches = 0
+        qc.block_quantize.launches = qc.block_dequantize_reduce.launches = 0
+    return dict(paged_mha=pa.paged_mha.launches, block_quantize=qc.block_quantize.launches,
+                block_dequantize_reduce=qc.block_dequantize_reduce.launches,
+                paged_tally=pa.kernel_launches(), quant_tally=qc.kernel_launches())
+
+
+def fleet_tp_rows(engine, blocks):
+    """The pool rows of ``blocks``: k, v (and their scales, int8 pools)."""
+    k, v = engine._state.kv_cache.export_blocks(list(blocks))
+    return [p for part in (k, v) for p in (part if isinstance(part, tuple) else (part,))]
+
+
+def fleet_tp_hand_rounds(pre, dec, prompts, rounds, ship):
+    """The prefill round on ``pre``, ``ship(uids)``, then the decode rounds
+    of drawn tokens on ``dec`` (the same engine for the monolithic run),
+    each under its card (the kernels launch on the current device): every
+    round's host logits."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.v2.replica_group import on_device
+    uids = list(range(len(prompts)))
+    with on_device(pre.device):
+        out = [pre.put(uids, prompts).astype(np.float32)]
+    ship(uids)
+    with on_device(dec.device):
+        for toks in rounds:
+            out.append(dec.put(uids, [np.asarray([t], np.int32) for t in toks])
+                       .astype(np.float32))
+    return out
+
+
+def crossing_share(engine_cls, path):
+    """The planted fault on process 1: its share of a ship writes the rows
+    process 0 saved to ``path`` (prefill rank 0's heads) into its decode
+    pool. Returns the undo."""
+    import torch
+    real = engine_cls._ship_share
+
+    def crossed(self, dst, n, codec, payload):
+        rows = [t.to(dst.device) for t in torch.load(path, weights_only=False)]
+        dst._state.kv_cache.write_blocks(payload.tolist()[n:], rows[0], rows[1])
+    engine_cls._ship_share = crossed
+
+    def undo():
+        engine_cls._ship_share = real
+    return undo
+
+
+def fleet_tp_run(rank, model, cards, prompts, rounds, kv_dtype, codec=None, crossed=None):
+    """One hand-driven run at tp 2 on this process's replica ranks: the
+    monolithic one-replica group (``codec`` None) or the 1 + 1 fleet
+    (``crossed``: the planted fault's file, ``crossing_share``). The
+    controller's logits, this process's launches and kernels, and (fleet)
+    the shipped ids with this process's source and destination rows."""
+    import torch
+    import torch.distributed as tdist
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.v2.fleet import PrefillDecodeFleet
+    from deepspeed_tpu_torch.inference.v2.replica_group import ReplicaGroup
+    ecfg = fleet_tp_engine_config(kv_dtype)
+    undo = crossing_share(InferenceEngineV2, crossed) if crossed and rank == 1 else None
+    torch.cuda.synchronize()
+    before = fleet_tp_counts(reset=True)
+    if codec is None:
+        owner = ReplicaGroup(model, cards[:2], tp_size=2, engine_config=ecfg)
+    else:
+        owner = PrefillDecodeFleet(model, 1, 1, devices=cards, tp_size=2, engine_config=ecfg,
+                                   codec=codec, speculative_default=False)
+    res, ids = {}, [None]
+    if owner.is_controller:
+        if codec is None:
+            eng = owner.replicas[0][1].engine
+            res["logits"] = fleet_tp_hand_rounds(eng, eng, prompts, rounds, lambda u: None)
+        else:
+            pre, dec = owner.prefill[0][1].engine, owner.decode[0][1].engine
+            real = pre.ship_followers
+
+            def record(dst, src_blocks, dst_blocks, c):
+                ids[0] = (list(src_blocks), list(dst_blocks))
+                if crossed:
+                    torch.save([t.cpu() for t in fleet_tp_rows(pre, src_blocks)], crossed)
+                return real(dst, src_blocks, dst_blocks, c)
+            pre.ship_followers = record
+            res["logits"] = fleet_tp_hand_rounds(
+                pre, dec, prompts, rounds,
+                lambda u: owner.transport.ship_many(u, pre, dec))
+            res["stats"] = owner.transport.stats()
+        owner.stop_followers()
+    if undo is not None:
+        undo()
+    torch.cuda.synchronize()
+    after = fleet_tp_counts()
+    res["launches"] = {k: after[k] for k in ("paged_mha", "block_quantize",
+                                             "block_dequantize_reduce")}
+    res["paged_kernels"] = tally_delta(after["paged_tally"], before["paged_tally"])
+    res["quant_kernels"] = tally_delta(after["quant_tally"], before["quant_tally"])
+    if codec is not None:
+        obj = [ids[0]]
+        tdist.broadcast_object_list(obj, src=0)
+        src_ids, dst_ids = obj[0]
+        engines = ({0: owner.prefill[0][1].engine, 1: owner.decode[0][1].engine}
+                   if owner.is_controller else owner._ranks.engines)
+        dh = model.config.head_dim
+        res.update(ship=obj[0],
+                   src_rows=[t.cpu() for t in fleet_tp_rows(engines[0], src_ids)],
+                   dst_rows=[t.cpu() for t in fleet_tp_rows(engines[1], dst_ids)],
+                   kv_heads=[a // dh + i for a, b in engines[0]._model.plan.spans["kv"]
+                             for i in range((b - a) // dh)])
+        del engines
+    del owner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def fleet_tp_engine_config(kv_dtype):
+    """Phase 3's engine config with a token budget that takes the prefill
+    round's prompts (at most 4 x 1500 tokens) in one forward."""
+    cfg = serving_config()
+    cfg["state_manager"] = dict(cfg["state_manager"], kv_dtype=kv_dtype,
+                                max_ragged_batch_size=6144)
+    return cfg
+
+
+def hf_tp_quant(hf_dir, dev, ids):
+    """Phase 21's directory through ``init_inference`` at tp 2 with 8-bit
+    weights, against the same weights passed whole: logits, each linear's
+    route, row-7 launches, the load's peak memory, the share and the
+    largest whole tensor."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.checkpoint import hf
+    from deepspeed_tpu_torch.inference.quantization import QuantizedLinear, quantized_nbytes
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+    conf = {"dtype": "bf16", "tensor_parallel": {"tp_size": 2}, "quant": dict(QSERVE_QUANT)}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    loaded = deepspeed_tpu_torch.init_inference(None, config=dict(conf, checkpoint=hf_dir),
+                                                device=dev)
+    torch.cuda.synchronize()
+    res = dict(load_s=time.perf_counter() - t,
+               load_peak_bytes=torch.cuda.max_memory_allocated(dev) - base,
+               resident_bytes=torch.cuda.memory_allocated(dev) - base,
+               share_bytes=quantized_nbytes(loaded.module),
+               impls={n: m.impl for n, m in loaded.module.named_modules()
+                      if isinstance(m, QuantizedLinear)})
+    qm.quantized_matmul.launches = 0
+    tally = qm.kernel_launches()
+    res["logits"] = loaded(ids).float().cpu().numpy()
+    torch.cuda.synchronize()
+    res["launches"] = qm.quantized_matmul.launches
+    res["kernels"] = tally_delta(qm.kernel_launches(), tally)
+    del loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    whole = hf.load_pretrained(hf_dir, dtype=torch.bfloat16, device=dev)
+    gs = QSERVE_QUANT["group_size"]
+    # the linears row 7 takes at tp 1: their whole N tiles the groups
+    res["tp1_row7"] = sorted(n for n, m in whole.named_modules()
+                             if isinstance(m, torch.nn.Linear) and n != "lm_head"
+                             and m.out_features % min(gs, m.out_features) == 0)
+    res["largest_tensor_bytes"] = max(p.numel() * p.element_size()
+                                      for p in whole.parameters())
+    res["model_bytes"] = sum(p.numel() * p.element_size() for p in whole.parameters())
+    eng = deepspeed_tpu_torch.init_inference(whole, config=conf, device=dev)
+    del whole
+    res["whole_logits"] = eng(ids).float().cpu().numpy()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def fleet_tp_init(rank, world, port, out_dir):
+    """Join the phase's process group; this process's first card."""
+    import datetime
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, str(REPO))
+    inp = torch.load(Path(out_dir) / "inputs.pt", weights_only=False)
+    tdist.init_process_group(inp["backend"], init_method=f"tcp://localhost:{port}",
+                             world_size=world, rank=rank,
+                             timeout=datetime.timedelta(seconds=600))
+    return inp, tp_device(torch.device(inp["cards"][rank]).index or 0)
+
+
+def fleet_tp_rank(rank, world, port, out_dir):
+    """One of phase 26's 2 processes (started by torch.multiprocessing)."""
+    import torch
+    import torch.distributed as tdist
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.v2.fleet import wire
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    t0 = time.perf_counter()
+    inp, dev = fleet_tp_init(rank, world, port, out_dir)
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=inp["layers"])
+    model = LlamaForCausalLM.from_seed(cfg, seed=0, device=dev)
+    res = dict(rank=rank)
+    prompts, rounds = inp["prompts"], inp["rounds"]
+    for key, kv, codec in (("mono", "fp", None), ("mono_int8", "int8", None),
+                           ("device", "fp", "device"), ("wire_int8", "int8", "wire"),
+                           ("wire_bf16", "fp", "wire"), ("crossed", "fp", "device")):
+        t = time.perf_counter()
+        res[key] = fleet_tp_run(rank, model, inp["cards"], prompts, rounds, kv, codec,
+                                crossed=str(Path(out_dir) / "crossed.pt")
+                                if key == "crossed" else None)
+        res[key]["seconds"] = time.perf_counter() - t
+    rows = [r.to(dev) for r in res["wire_bf16"]["src_rows"]]
+    res["frame"] = wire.encode_handle({"n": rows[0].shape[1], "k": rows[0], "v": rows[1],
+                                       "seqs": []})
+    del rows
+    eng = deepspeed_tpu_torch.init_inference(
+        model, config={"dtype": "bf16", "tensor_parallel": {"tp_size": 2}}, device=dev)
+    res["v1"] = dict(grid=eng.grid, logits=eng(inp["v1_ids"]).float().cpu().numpy(),
+                     tokens=eng.generate(inp["v1_ids"],
+                                         max_new_tokens=FLEET_TP_V1_NEW).cpu().numpy())
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if inp["hf_dir"]:
+        res["hf"] = hf_tp_quant(inp["hf_dir"], dev, inp["v1_ids"])
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    res["seconds"] = time.perf_counter() - t0
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    tdist.barrier()
+    tdist.destroy_process_group()
+
+
+def fleet_tp_idle_rank(rank, world, port, out_dir):
+    """One of phase 26's 3 processes: the v1 grid (1, 2), rank 2 idle (its
+    model never leaves the meta device)."""
+    import torch
+    import torch.distributed as tdist
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    inp, dev = fleet_tp_init(rank, world, port, out_dir)
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=inp["layers"])
+    model = LlamaForCausalLM.from_seed(cfg, seed=0, device=dev) if rank < 2 else \
+        LlamaForCausalLM(cfg, device="meta")
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    eng = deepspeed_tpu_torch.init_inference(
+        model, config={"dtype": "bf16", "tensor_parallel": {"tp_size": 2}}, device=dev)
+    res = dict(rank=rank, grid=eng.grid, idle=eng.idle,
+               weights=0 if eng.module is None else sum(
+                   p.numel() for p in eng.module.parameters() if not p.is_meta),
+               logits=eng(inp["v1_ids"]).float().cpu().numpy(),
+               tokens=eng.generate(inp["v1_ids"],
+                                   max_new_tokens=FLEET_TP_V1_NEW).cpu().numpy())
+    res["engine_peak_bytes"] = torch.cuda.max_memory_allocated(dev) - base
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    tdist.barrier()
+    tdist.destroy_process_group()
+
+
+def shipped_rows_equal(a, b, valid):
+    """Pool rows ``[L, n, H, bs, dh]`` (or int8 scales ``[L, n, H, 1, bs]``)
+    equal over each row's ``valid`` shipped tokens: the decode rounds write
+    past them into the last block afterwards."""
+    import torch
+    for j, v in enumerate(valid):
+        x, y = a[:, j], b[:, j]
+        x, y = (x[..., :v], y[..., :v]) if x.shape[-2] == 1 else (x[..., :v, :], y[..., :v, :])
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def phase_fleet_tp(hf_dir=None):
+    """Phase 26 (see its comment): ``hf_dir``, phase 21's Mistral-7B-v0.1
+    directory (None: that part does not run)."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.inference.v2.fleet import wire
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+    failures = []
+    cards, backend = fleet_tp_cards()
+    layers = 32 if backend == "nccl" else FLEET_TP_LAYERS
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=layers)
+    rng = np.random.default_rng(26)
+    inp = dict(cards=cards, backend=backend, layers=layers, hf_dir=hf_dir,
+               prompts=phase3_prompts(cfg.vocab_size)[:FLEET_TP_PROMPTS],
+               rounds=[rng.integers(0, cfg.vocab_size, FLEET_TP_PROMPTS).astype(np.int32)
+                       for _ in range(FLEET_TP_ROUNDS)],
+               v1_ids=rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32))
+    t = time.perf_counter()
+    ranks = spawn_ranks(fleet_tp_rank, 2, files={"inputs.pt": inp})
+    print(f"fleet tp: 2 processes over {backend} on {cards}, Llama-2-7B width, {layers} "
+          f"layers: {time.perf_counter() - t:.1f}s (ranks "
+          f"{[round(r['seconds'], 1) for r in ranks]}; peaks GB "
+          f"{[round(r['peak_memory_gb'], 2) for r in ranks]})", flush=True)
+    r0 = ranks[0]
+    forwards = 1 + FLEET_TP_ROUNDS
+    for key, ref in (("device", "mono"), ("wire_int8", "mono_int8")):
+        same = [bool(np.array_equal(a, b)) for a, b in zip(r0[key]["logits"], r0[ref]["logits"])]
+        print(f"fleet tp {key}: logits bitwise the monolithic tp-2 replica's in every round "
+              f"{all(same)} ({sum(same)} of {len(same)}); stats {json.dumps(r0[key]['stats'])}",
+              flush=True)
+        if not all(same):
+            failures.append(f"{key}: rounds {same} differ from the monolithic engine")
+    first = r0["device"]["logits"]
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    wire_err = max(rel(a, b) for a, b in zip(r0["wire_bf16"]["logits"][1:], first[1:]))
+    crossed_err = rel(r0["crossed"]["logits"][1], first[1])
+    print(f"fleet tp bf16 wire: decode logits against the device codec's, relative L2 max "
+          f"{wire_err:.4g}; shares crossed in shipping (decode rank 1 given prefill rank "
+          f"0's heads), first decode round {crossed_err:.4g} (bound "
+          f"{FLEET_WIRE_REL_L2_BOUND})", flush=True)
+    if not wire_err <= FLEET_WIRE_REL_L2_BOUND:
+        failures.append(f"bf16 wire: {wire_err} > {FLEET_WIRE_REL_L2_BOUND}")
+    if not crossed_err > FLEET_WIRE_REL_L2_BOUND:
+        failures.append(f"the bound does not reject crossed shares ({crossed_err})")
+    # every rank's frame against its heads of the tp-1 frame of the whole pages
+    whole = []
+    for part in (0, 1):
+        rows = ranks[0]["wire_bf16"]["src_rows"][part]
+        L, n, _, bs, dh = rows.shape
+        full = torch.zeros(L, n, cfg.num_key_value_heads, bs, dh, dtype=rows.dtype)
+        for r in ranks:
+            full[:, :, r["wire_bf16"]["kv_heads"]] = r["wire_bf16"]["src_rows"][part]
+        whole.append(full.cuda())
+    _, tp1 = wire.frame_pages(wire.encode_handle({"n": n, "k": whole[0], "v": whole[1],
+                                                  "seqs": []}))
+    frames_exact = []
+    for r in ranks:
+        mine, heads = wire.frame_pages(r["frame"])[1], r["wire_bf16"]["kv_heads"]
+        frames_exact.append(all(np.array_equal(mine[p], tp1[p][:, :, heads])
+                                for p in ("k", "v", "ks", "vs")))
+    print(f"fleet tp bf16 wire frames: each rank's frame bitwise its heads of the tp-1 "
+          f"frame {frames_exact} ({n} pages, {len(ranks[0]['frame'])} and "
+          f"{len(ranks[1]['frame'])} bytes)", flush=True)
+    if not all(frames_exact):
+        failures.append(f"rank frames differ from the tp-1 frame's heads {frames_exact}")
+    valid = [min(HF_BLOCK, len(p) - HF_BLOCK * j) for p in inp["prompts"]
+             for j in range(-(-len(p) // HF_BLOCK))]
+    for r in ranks:
+        for key in ("device", "wire_int8", "wire_bf16"):
+            x = r[key]
+            ships_exact = key == "wire_bf16" or all(
+                shipped_rows_equal(a, b, valid) for a, b in zip(x["src_rows"], x["dst_rows"]))
+            want = layers * forwards
+            kernel = "simt" if key == "wire_int8" else "wgmma"    # int8 pools: SIMT
+            quant = 2 if key == "wire_bf16" else 0
+            print(f"fleet tp rank {r['rank']} {key}: row 1 {x['launches']['paged_mha']} "
+                  f"launches {x['paged_kernels']} (want {want}: {layers} layers x "
+                  f"{forwards} forwards over its 2 replica ranks), rows 5-6 "
+                  f"{x['launches']['block_quantize']} / "
+                  f"{x['launches']['block_dequantize_reduce']} {x['quant_kernels']}, "
+                  f"shipped rows exact {ships_exact}", flush=True)
+            if x["paged_kernels"] != {kernel: want} or x["launches"]["paged_mha"] != want:
+                failures.append(f"rank {r['rank']} {key}: row 1 {x['paged_kernels']}")
+            if x["launches"]["block_quantize"] != quant or \
+                    x["launches"]["block_dequantize_reduce"] != quant:
+                failures.append(f"rank {r['rank']} {key}: rows 5-6 {x['launches']}")
+            if not ships_exact:
+                failures.append(f"rank {r['rank']} {key}: shipped rows differ from the source")
+    # the v1 grid on 2 processes, then on 3 with one idle
+    t = time.perf_counter()
+    idle = spawn_ranks(fleet_tp_idle_rank, 3, files={"inputs.pt": dict(inp, hf_dir=None)})
+    v1_same = [bool(np.array_equal(r["logits"], r0["v1"]["logits"]) and
+                    np.array_equal(r["tokens"], r0["v1"]["tokens"]))
+               for r in [ranks[1]["v1"]] + idle]
+    print(f"fleet tp v1 grid (1, 2): world 3 in {time.perf_counter() - t:.1f}s, grids "
+          f"{[r['grid'] for r in idle]}, idle {[r['idle'] for r in idle]}, weights held "
+          f"{[r['weights'] for r in idle]}, engine peak bytes "
+          f"{[r['engine_peak_bytes'] for r in idle]}; logits and tokens bitwise the "
+          f"2-process grid's on every rank {v1_same}", flush=True)
+    if not all(v1_same) or [r["idle"] for r in idle] != [False, False, True] \
+            or idle[2]["weights"] or idle[2]["engine_peak_bytes"] > 1 << 26:
+        failures.append(f"v1 idle rank: same {v1_same}, idle {[r['idle'] for r in idle]}, "
+                        f"weights {[r['weights'] for r in idle]}")
+    hf_report = None
+    if hf_dir:
+        hf_report = [r["hf"] for r in ranks]
+        for r, h in zip(ranks, hf_report):
+            bound = h["share_bytes"] + h["largest_tensor_bytes"]
+            routes = {m for n, m in h["impls"].items() if not n.endswith("lm_head")}
+            row7 = sorted(n for n, m in h["impls"].items() if m == "cuda_fused_dequant")
+            same = bool(np.array_equal(h["logits"], h["whole_logits"]))
+            print(f"fleet tp hf: rank {r['rank']} loaded phase 21's directory quantized at "
+                  f"tp 2 in {h['load_s']:.1f}s; logits bitwise the whole weights' {same}; "
+                  f"routes {sorted(routes)} (lm_head {h['impls'].get('lm_head')}); row 7 "
+                  f"{h['launches']} launches {h['kernels']}; load peak "
+                  f"{h['load_peak_bytes'] / 1e9:.3f} GB against share "
+                  f"{h['share_bytes'] / 1e9:.3f} GB + largest tensor "
+                  f"{h['largest_tensor_bytes'] / 1e9:.3f} GB = {bound / 1e9:.3f} GB, "
+                  f"{h['resident_bytes'] / 1e9:.3f} GB held after it (the whole model "
+                  f"{h['model_bytes'] / 1e9:.2f} GB)", flush=True)
+            if not same or row7 != h["tp1_row7"] or h["load_peak_bytes"] > bound \
+                    or h["resident_bytes"] > h["share_bytes"] + FLEET_TP_LOAD_SLACK \
+                    or not h["launches"]:
+                failures.append(f"hf at tp rank {r['rank']}: same {same}, routes {routes}, "
+                                f"peak {h['load_peak_bytes']} > {bound}?, held "
+                                f"{h['resident_bytes']}")
+    if failures:
+        fail("fleet tp: " + "; ".join(failures))
+    return dict(paged_launches={k: [r[k]["launches"]["paged_mha"] for r in ranks]
+                                for k in ("device", "wire_int8", "wire_bf16")},
+                paged_kernels=[r["device"]["paged_kernels"] for r in ranks],
+                wire_launches={k: [r["wire_bf16"]["launches"][k] for r in ranks]
+                               for k in ("block_quantize", "block_dequantize_reduce")},
+                wire_kernels=[r["wire_bf16"]["quant_kernels"] for r in ranks],
+                hf_launches=[h["launches"] for h in hf_report] if hf_report else None,
+                hf_kernels=[h["kernels"] for h in hf_report] if hf_report else None,
+                layers=layers, backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# phase 27: the v1 KV-cached forward of Falcon and Phi
+# ---------------------------------------------------------------------------
+
+# Phase 27 serves phase 21's Falcon-7B and Phi-2 (published widths, 2
+# layers, bf16 weights from HF_SEED) through ``init_inference`` ``generate``
+# (the parallel-block ``use_cache`` path), in bf16 and at 8 bits. Each
+# step's logits are held to the FastGen engine's on the same weights (the
+# 8-bit engine's dequantized weights) fed the v1 stream, within
+# V1_FAMILY_REL_L2_BOUND, which is tighter than phase 21's 0.02 relative
+# L2. A planted fault, the cache index one behind from the first decode step
+# on (its k and v overwrite the last prompt token's), goes through the same
+# comparison and must fail it. On these random weights attention moves the
+# logits little: that fault reads 0.0117-0.0127 at its first step, under
+# 0.02 (a CPU probe at these widths in fp32: 0.011-0.012), and sound steps
+# 0.0042-0.0055 (NVIDIA H100 80GB HBM3, 700 W), so the bound sits between
+# the two readings. The greedy tokens must equal FastGen's
+# wherever its top-2 gap clears TP_TOKEN_MARGIN x rms; near-ties are
+# printed. At 8 bits every Phi-2 Dense linear runs on row 7; Falcon-7B's
+# fused qkv (N 4672), ``dense`` and ``fc2`` (N 4544) end in a padded group
+# of 256 and take ``dense_dequant`` by the declared route, ``fc1`` (N 18176)
+# row 7; the heads (grouped along K) ``dense_dequant`` as always.
+V1_FAMILY_SHAPE = (4, 128)
+V1_FAMILY_NEW = 16
+# each step's logits against FastGen's, relative L2 (see above)
+V1_FAMILY_REL_L2_BOUND = 0.008
+
+
+def qlinears_of(module):
+    """(name, ``QuantizedLinear``) pairs of ``module``."""
+    from deepspeed_tpu_torch.inference.quantization import QuantizedLinear
+    return [(n, m) for n, m in module.named_modules() if isinstance(m, QuantizedLinear)]
+
+
+def v1_family_steps(module, ids, forced=None, fault_step=None):
+    """The v1 cached forward over ``ids`` and then ``forced`` tokens (or its
+    own greedy ones): per-step last-token logits [steps, B, V] on the host
+    and the tokens. ``fault_step``: the cache index one behind before that
+    step (the planted fault)."""
+    import torch
+    from deepspeed_tpu_torch.inference.generation import init_cache
+    x = torch.as_tensor(ids, device=module.embed_tokens.weight.device).long()
+    B, T = x.shape
+    cache = init_cache(module, x)
+    with torch.no_grad():
+        logits, cache = module(x, use_cache=True, cache=cache)
+        steps = [logits[:, -1].float()]
+        toks = [steps[-1].argmax(-1)]
+        for i in range(1, V1_FAMILY_NEW):
+            if i == fault_step:
+                cache.index -= 1
+            tok = toks[-1] if forced is None else torch.as_tensor(
+                forced[:, i - 1], device=x.device)
+            pos = torch.full((B, 1), T - 1 + i, dtype=torch.long, device=x.device)
+            logits, cache = module(tok[:, None].long(), positions=pos, use_cache=True,
+                                   cache=cache)
+            steps.append(logits[:, -1].float())
+            toks.append(steps[-1].argmax(-1))
+    return torch.stack(steps).cpu().numpy(), torch.stack(toks, 1).cpu().numpy()
+
+
+def fastgen_steps(model, ids, tokens):
+    """The FastGen engine fed ``ids`` and then ``tokens`` [B, n] one a
+    round: each round's logits [n, B, V] on the host."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.v2 import build_engine
+    B, T = ids.shape
+    blocks = B * (-(-(T + V1_FAMILY_NEW) // HF_BLOCK) + 1)
+    engine = build_engine(model, hf_engine_config(B * T, T + V1_FAMILY_NEW + HF_BLOCK,
+                                                  blocks))
+    uids = list(range(B))
+    out = [engine.put(uids, list(ids))]
+    for i in range(tokens.shape[1] - 1):
+        out.append(engine.put(uids, [np.asarray([t], np.int32) for t in tokens[:, i]]))
+    del engine
+    return np.stack(out).astype(np.float32)
+
+
+def phase_v1_families():
+    """Phase 27 (see its comment)."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.quantization import QuantizedLinear
+    from deepspeed_tpu_torch.inference.quantization.quantization import dequantize_param_tree
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+    failures, report = [], {}
+    models = hf_family_models()
+    rng = np.random.default_rng(27)
+    bound = V1_FAMILY_REL_L2_BOUND
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    for name in ("falcon_7b", "phi_2"):
+        cls, cfg, source = models[name]
+        ids = rng.integers(0, cfg.vocab_size, V1_FAMILY_SHAPE).astype(np.int32)
+        for bits in (None, 8):
+            t = time.perf_counter()
+            conf = {"dtype": "bf16"}
+            if bits:
+                conf["quant"] = dict(QSERVE_QUANT)
+            model = cls.from_seed(cfg, seed=HF_SEED, device="cuda")
+            eng = deepspeed_tpu_torch.init_inference(model, config=conf)
+            qm.quantized_matmul.launches = 0
+            tally = qm.kernel_launches()
+            tokens = eng.generate(ids, max_new_tokens=V1_FAMILY_NEW).cpu().numpy()
+            torch.cuda.synchronize()
+            launches = qm.quantized_matmul.launches
+            kernels = tally_delta(qm.kernel_launches(), tally)
+            steps, own = v1_family_steps(eng.module, ids)
+            faulty, _ = v1_family_steps(eng.module, ids, forced=tokens, fault_step=1)
+            routes = {n: (m.impl, m.gap) for n, m in eng.module.named_modules()
+                      if isinstance(m, QuantizedLinear)}
+            eng_modules = [eng.module]
+            if bits:
+                dense = cls(cfg, device="meta")
+                dense.load_state_dict(dequantize_param_tree(eng.module), assign=True)
+                dense.requires_grad_(False)
+            else:
+                dense = eng.module
+            ref = fastgen_steps(dense, ids, tokens)
+            want_dense = {n for n, m in qlinears_of(eng_modules[0]) if not n.endswith(
+                "lm_head") and m.shape[1] % min(QSERVE_QUANT["group_size"], m.shape[1])}
+            del eng, model, dense, eng_modules
+            gc.collect()
+            torch.cuda.empty_cache()
+            errs = [rel(a, b) for a, b in zip(steps, ref)]
+            fault_errs = [rel(a, b) for a, b in zip(faulty, ref)]
+            fault_err = max(fault_errs)
+            gap = np.sort(ref, -1)[..., -2:]
+            rms = np.sqrt((ref.astype(np.float64) ** 2).mean(-1))
+            clear = (gap[..., 1] - gap[..., 0]) / rms > TP_TOKEN_MARGIN
+            fg_tokens = ref.argmax(-1).T                       # [B, n]
+            held = clear.T
+            agree = bool(np.array_equal(tokens[held], fg_tokens[held]))
+            ties = [(int(b), int(i)) for b, i in zip(*np.nonzero(~held))
+                    if tokens[b, i] != fg_tokens[b, i]]
+            key = f"{name}_{'int8' if bits else 'bf16'}"
+            r = dict(source=source, layers=cfg.num_hidden_layers, max_rel_l2=max(errs),
+                     step_rel_l2=errs, fault_rel_l2=fault_err,
+                     fault_step_rel_l2=fault_errs, bound=bound,
+                     within_phase21_tolerance=max(errs) <= HF_LOGITS_REL_L2_TOLERANCE,
+                     fault_rejected=not fault_err <= bound, tokens_held=int(held.sum()),
+                     tokens_agree=agree, near_tie_differences=ties,
+                     generate_equals_steps=bool(np.array_equal(own, tokens)),
+                     row7_launches=launches, row7_kernels=kernels,
+                     routes={n: i for n, (i, _) in routes.items()},
+                     seconds=time.perf_counter() - t)
+            report[key] = r
+            print(f"v1 families: {key} {json.dumps(r)}", flush=True)
+            if not max(errs) <= bound or fault_err <= bound \
+                    or not agree or not r["generate_equals_steps"]:
+                failures.append(f"{key}: logits {max(errs)}, fault {fault_err}, tokens "
+                                f"agree {agree}")
+            if bits:
+                # dense_dequant exactly where the last group is padded (the
+                # declared gap), the head aside
+                dense_routes = {n for n, (i, _) in routes.items()
+                                if i == "dense_dequant" and not n.endswith("lm_head")}
+                want = want_dense
+                if dense_routes != want or not launches or \
+                        not all(routes[n][1] for n in dense_routes):
+                    failures.append(f"{key}: dense_dequant on {sorted(dense_routes)}, "
+                                    f"want {sorted(want)}")
+    if failures:
+        fail("v1 families: " + "; ".join(failures))
+    return report
+
+
 def quant_kernel_lines(cases, zero_ranks, ep_ranks, fleet, zeropp):
     """The kernels-line entries of the two qgZ kernels: the main case's
     numbers, every case's, the launches of phase 11's run (where it ran,
@@ -7549,8 +8222,20 @@ def main():
     print(f"phase tensor parallel: {time.perf_counter() - t2:.1f}s", flush=True)
     del tp_reference
     t2 = time.perf_counter()
-    hf_report = phase_hf_checkpoints()
+    hf_report = phase_hf_checkpoints(keep_mistral=True)
     print(f"phase hf checkpoints: {time.perf_counter() - t2:.1f}s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    try:
+        fleet_tp_report = phase_fleet_tp(hf_report["mistral_dir"])
+    finally:
+        import shutil
+        shutil.rmtree(hf_report.pop("mistral_dir"), ignore_errors=True)
+    print(f"phase fleet tp: {time.perf_counter() - t2:.1f}s", flush=True)
+    t2 = time.perf_counter()
+    v1_family_report = phase_v1_families()
+    print(f"phase v1 families: {time.perf_counter() - t2:.1f}s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     t3 = time.perf_counter()
@@ -7645,6 +8330,8 @@ def main():
             name: families_report[name]["paged_kernels"]
             for name in ("falcon_7b", "phi_2", "opt_6_7b")},
         tensor_parallel_speculative_launches=tp_report["speculative"]["paged_mha_launches"],
+        fleet_tp_launches=fleet_tp_report["paged_launches"],
+        fleet_tp_kernels=fleet_tp_report["paged_kernels"],
         cases=[{k: c[k] for k in ("name", "kernel", "splits", "max_abs_err", "err_ratio",
                                   "planted_fault_ratio", "ms", "device_ms", "plain_ms",
                                   "library_ms", "bound_ms", "bound_by")}
@@ -7707,6 +8394,12 @@ def main():
                    for c in gmm_bwd_cases]))
     kernels += quant_kernel_lines(quant_cases, zero_ranks, ep_ranks, fleet_report,
                                   zeropp_report)
+    for line in kernels[-2:]:      # phase 26's bf16 wire ship, on each process
+        kn = line["name"]
+        line["fleet_tp_wire_launches"] = fleet_tp_report["wire_launches"][kn]
+        line["fleet_tp_wire_kernels"] = [
+            {k: v for k, v in q.items() if k.startswith(kn.split("_")[1][:5])}
+            for q in fleet_tp_report["wire_kernels"]]
     rows_keys = ("max_abs_err", "err_ratio", "planted_fault_ratio", "sentinel_rows_zero",
                  "ms", "plain_ms", "library_ms", "library", "bound_ms", "bound_by")
     main_rows = rows_cases[0]     # ep_recv_8x7b: the shape of phase 13's main path
@@ -7731,6 +8424,10 @@ def main():
         kernel_launches=qmm_kernel_launches, device_ms=main_qmm["device_ms"],
         tensor_parallel_launches=families_report["w8a16"]["launches"],
         tensor_parallel_kernels=families_report["w8a16"]["kernels"],
+        hf_tp_launches=fleet_tp_report["hf_launches"],
+        hf_tp_kernels=fleet_tp_report["hf_kernels"],
+        v1_family_launches={k: r["row7_launches"] for k, r in v1_family_report.items()},
+        v1_family_kernels={k: r["row7_kernels"] for k, r in v1_family_report.items()},
         **{k: main_qmm[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")},
         case=main_qmm["name"],

@@ -655,7 +655,8 @@ def _hf_cut(plan, name, t):
     return t
 
 
-def load_pretrained(model_dir, dtype=torch.float32, device=None, tp_size=1, tp_rank=0):
+def load_pretrained(model_dir, dtype=torch.float32, device=None, tp_size=1, tp_rank=0,
+                    quantize=None, quant_group_size=None):
     """Load an HF checkpoint directory -> the port's module for its family,
     configured to match, with ``config.dtype`` = ``dtype``.
 
@@ -670,7 +671,15 @@ def load_pretrained(model_dir, dtype=torch.float32, device=None, tp_size=1, tp_r
     ``TPPlan``): each HF tensor's part is cut on the host from the mapped
     file and only it moves to the device, where the q/k rotary permutation
     runs on the rank's whole heads; the fused projections move whole and
-    are cut after their conversion."""
+    are cut after their conversion.
+
+    ``quantize(model, name, whole)`` (v1 serving with quantized weights at
+    ``tp_size`` > 1): each tensor moves whole and is converted, and for
+    every ``{module}.weight`` it takes, it returns the rank's
+    ``QuantizedLinear`` quantized from the WHOLE tensor (None: the tensor is
+    cut as usual), which then takes the module's place with the module's
+    bias; the model's plan is built with ``quant_group_size``. One whole
+    tensor at a time is alive besides the rank's share."""
     mt = detect_model_type(model_dir)
     if mt in UNPORTED:
         raise NotImplementedError(
@@ -683,11 +692,13 @@ def load_pretrained(model_dir, dtype=torch.float32, device=None, tp_size=1, tp_r
     hf = read_hf_config(model_dir)
     sd = load_state_dict(model_dir)
     cls, cfg, convert = _family(mt, hf, sd, dtype)
-    model = cls(cfg, device="meta", tp_size=tp_size, tp_rank=tp_rank)
+    group = {} if quant_group_size is None else {"quant_group_size": quant_group_size}
+    model = cls(cfg, device="meta", tp_size=tp_size, tp_rank=tp_rank, **group)
     target = dict(model.named_parameters())
 
     def g(name):
-        t = _hf_cut(model.plan, name, sd[name]).to(device)
+        t = sd[name] if quantize else _hf_cut(model.plan, name, sd[name])
+        t = t.to(device)
         return t.to(dtype) if t.is_floating_point() else t
 
     def local(name, t):
@@ -695,8 +706,19 @@ def load_pretrained(model_dir, dtype=torch.float32, device=None, tp_size=1, tp_r
             t = model.plan.cut(name, t).clone()
         return t.to(target[name].dtype).contiguous()
 
-    state = {name: local(name, t) for name, t in convert(sd, cfg, g)}
-    model.load_state_dict(state, assign=True)
+    state, quantized = {}, {}
+    for name, t in convert(sd, cfg, g):
+        part = quantize(model, name, t) if quantize else None
+        if part is None:
+            state[name] = local(name, t)
+        else:
+            quantized[name[:-len(".weight")]] = part
+        del t
+    model.load_state_dict(state, assign=True, strict=not quantized)
+    for name, part in quantized.items():
+        part.bias = model.get_submodule(name).bias
+        parent, _, child = name.rpartition(".")
+        setattr(model.get_submodule(parent) if parent else model, child, part)
     return model
 
 

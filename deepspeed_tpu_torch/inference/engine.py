@@ -24,8 +24,12 @@ Tensor-parallel and replicated serving run over a ``(dp, tp)`` grid of
 (``inference/engine.py:65-125``): every rank of the world calls
 ``init_inference``. ``tensor_parallel.tp_size`` and ``replica_num`` clamp to
 the world with the JAX engine's warnings; the grid is the topology of
-``parallel.groups`` (``groups.serving_topology``), as the v2 engine's. The
-weights are split over ``tp``
+``parallel.groups`` (``groups.serving_topology``), as the v2 engine's, over
+the first ``dp x tp`` ranks, as the JAX mesh takes the first ``dp x tp``
+devices. The other ranks are idle: they hold no weights and run no
+forward, and take every result from global rank 0 (``forward``'s logits,
+``generate``'s tokens), so each rank of the world returns what the one JAX
+program returns. The weights are split over ``tp``
 as the model's ``param_specs`` says (the rank's slices are cut from the
 whole state dict given) and replicated across ``dp``; ``forward`` runs each
 ``dp`` replica on its share of the batch rows and gathers the whole batch's
@@ -38,13 +42,21 @@ weight is quantized and the rank keeps its part of ``q`` and ``scale``
 with the group size, so that gate/up (and q/k/v) are cut in whole groups
 (Llama-2-7B at tp 2: gate/up N 5632 and 5376, ``down_proj``'s K the same
 ranges) and every linear that runs on row 7 at tp 1 runs on it at tp 2.
-That needs the whole weights (a whole model, or whole ``params``).
-``config.checkpoint``
-may name a HuggingFace checkpoint directory of the Llama family (llama,
-mistral, qwen2, qwen, internlm): it loads through ``checkpoint/hf.py``
-``load_pretrained`` in ``config.dtype``, and its model serves when none was
-given. Other families raise: the v1 engine runs Llama's KV-cached forward,
-and theirs are ROADMAP A7 part 2. ``config.checkpoint`` may also name a tag
+That needs the whole weights (a whole model, or whole ``params``; an HF
+directory quantizes each whole tensor as it loads, keeping the rank's part,
+``checkpoint/hf.load_pretrained``'s ``quantize``). An 8-bit linear whose
+groups row 7 cannot take (a padded last group, or a tensor-parallel part
+whose cut splits groups: ``quantization.kernel_gap``) runs
+``dense_dequant``, and the engine logs which.
+
+The KV-cached forward (``generate``) runs the Llama families and the
+parallel-block families, Falcon and Phi (``models/parallel_block.py``, the
+JAX ``ParallelBlock``'s ``use_cache`` path), as the JAX package's v1 engine
+does; OPT and Mixtral have no cached path in the JAX package either, and
+``generate`` raises ``ValueError`` for them. ``config.checkpoint`` may name
+a HuggingFace checkpoint directory of any family ``checkpoint/hf.py``
+loads: it loads through ``load_pretrained`` in ``config.dtype``, and its
+model serves when none was given. ``config.checkpoint`` may also name a tag
 written by the port's ``save_checkpoint``: its working weights load into the
 model (the JAX engine's intent, ``state.get("module", state)``; its own call
 raises, ROADMAP §C).
@@ -60,15 +72,18 @@ from deepspeed_tpu_torch.comm import comm as dist
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.inference.generation import generate as _generate
 from deepspeed_tpu_torch.inference.quantization.quantization import (
-    V1_TILE_DTYPE, QuantizedLinear, _quantized_names, quantize_param_tree, quantized_linear,
-    quantized_nbytes, quantized_part, replace_module)
+    EXCLUDE, V1_TILE_DTYPE, QuantizedLinear, _quantized_names, quantize_param_tree,
+    quantized_linear, quantized_nbytes, quantized_part, replace_module)
+from deepspeed_tpu_torch.models.mixtral import MixtralConfig
+from deepspeed_tpu_torch.models.opt import OPTConfig
 from deepspeed_tpu_torch.parallel.tensor_parallel import TensorParallel
 from deepspeed_tpu_torch.parallel import groups
 from deepspeed_tpu_torch.utils.logging import logger
 
-
-# HF families the port loads into modules without Llama's KV-cached forward
-V2_ONLY_HF_FAMILIES = ("mixtral", "falcon", "phi", "opt")
+# families without a KV-cached forward, in the JAX package as in the port
+NO_CACHED_FORWARD = (MixtralConfig, OPTConfig)
+# dtypes of the results an idle rank takes from rank 0
+_RESULT_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int64)
 
 
 class InferenceEngine:
@@ -90,8 +105,16 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.topology = self._build_grid(int(config.tensor_parallel.tp_size),
                                          int(config.replica_num))
-        self.tp = TensorParallel.from_topology(self.topology) if self.topology \
-            else TensorParallel()
+        self.idle = self.topology is not None and self.topology.grid_rank is None
+        self.tp = TensorParallel.from_topology(self.topology) \
+            if self.topology and not self.idle else TensorParallel()
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(self._shared_seed())
+        self._ready = False
+        if self.idle:
+            self.module = None           # holds no weights, runs no forward
+            self._ready = True
+            return
         quant = config.quant
         if model is not None and self.tp.size > 1 and model.tp_size == 1:
             if params is None and not any(p.is_meta for p in model.parameters()):
@@ -105,11 +128,10 @@ class InferenceEngine:
                 "(as the JAX engine does) and keeps this rank's part: give the whole "
                 "model, not one rank's share")
         self.module = model
-        self._generator = torch.Generator(device=self.device)
-        self._generator.manual_seed(self._shared_seed())
         if params is None and config.checkpoint:
             params = self._load_checkpoint(config.checkpoint)
-        self._ready = False
+        if self._ready:
+            return
         if params is not None:
             self.set_params(params)
         elif model is not None and not any(p.is_meta for p in model.parameters()):
@@ -117,9 +139,11 @@ class InferenceEngine:
 
     # -- setup -------------------------------------------------------------
     def _build_grid(self, tp_size, replica_num):
-        """The ``(dp, tp)`` rank grid over the world, clamped as the JAX
-        engine clamps its mesh (None: one rank serves alone): the topology
-        ``groups.serving_topology`` installs or finds installed."""
+        """The ``(dp, tp)`` rank grid over the first ``dp x tp`` ranks of
+        the world, clamped as the JAX engine clamps its mesh (None: one
+        rank serves alone, as each rank of a world does then): the topology
+        ``groups.serving_topology`` installs or finds installed. Ranks past
+        the grid are idle."""
         world = dist.get_world_size()
         if tp_size > world:
             logger.warning(f"tp_size {tp_size} > {world} devices; clamping")
@@ -131,13 +155,7 @@ class InferenceEngine:
                            f"replicas to {dp}")
         if dp * tp_size == 1:
             return None
-        if dp * tp_size != world:
-            raise NotImplementedError(
-                f"a ({dp}, {tp_size}) serving grid leaves ranks of the world of {world} "
-                "idle (the JAX mesh takes the first dp x tp devices); not ported to "
-                "deepspeed_tpu_torch yet, see ROADMAP.md queue A5 part 3: start dp x tp "
-                "processes")
-        return groups.serving_topology(tp_size, dp)
+        return groups.serving_topology(tp_size, dp, devices=list(range(dp * tp_size)))
 
     @property
     def grid(self):
@@ -181,23 +199,37 @@ class InferenceEngine:
         dtype on the engine's device (no transient fp32 copy); its model is
         adopted when the engine was given none."""
         from deepspeed_tpu_torch.checkpoint import hf as hf_interop
-        mt = hf_interop.detect_model_type(path)
-        if mt in V2_ONLY_HF_FAMILIES:
-            raise NotImplementedError(
-                f"the v1 engine serves the Llama KV-cached forward; an HF {mt} "
-                "directory needs its family's v1 forward, ROADMAP.md queue A7 part 2 "
-                "(build_hf_engine serves it through the v2 engine)")
-        if self.tp.size > 1 and self._config.quant.enabled:
-            raise NotImplementedError(
-                "an HF checkpoint at tensor_parallel.tp_size > 1 loads one rank's share; "
-                "quantizing it needs the whole weights (ROADMAP.md queue A5 part 3): "
-                "load the whole model and pass it to init_inference")
-        model = hf_interop.load_pretrained(path, dtype=self._config.torch_dtype,
-                                           device=self.device, tp_size=self.tp.size,
-                                           tp_rank=self.tp.rank)
-        if self.module is None:
-            self.module = model
-        return model.state_dict()
+        q, dtype = self._config.quant, self._config.torch_dtype
+        if self.tp.size == 1 or not q.enabled:
+            model = hf_interop.load_pretrained(path, dtype=dtype, device=self.device,
+                                               tp_size=self.tp.size, tp_rank=self.tp.rank)
+            if self.module is None:
+                self.module = model
+            return model.state_dict()
+        # quantized at tp: each whole tensor quantized as it loads, the
+        # rank's part kept; the loaded model serves
+        impl = self._quant_impl()
+
+        def quantize(model, name, whole):
+            mod = name[:-len(".weight")]
+            if not name.endswith(".weight") or any(e in name.lower() for e in EXCLUDE) \
+                    or not isinstance(model.get_submodule(mod), torch.nn.Linear):
+                return None
+            return quantized_part(mod, whole.to(dtype), model.plan, None, q.bits,
+                                  q.group_size, impl)
+        model = hf_interop.load_pretrained(path, dtype=dtype, device=self.device,
+                                           tp_size=self.tp.size, tp_rank=self.tp.rank,
+                                           quantize=quantize,
+                                           quant_group_size=q.group_size)
+        self.module = model.eval().requires_grad_(False)
+        with torch.no_grad():
+            for p in model.parameters():
+                if p.is_floating_point():
+                    p.data = p.data.to(dtype)
+        model.set_tensor_parallel(self.tp)
+        self._log_gaps()
+        self._ready = True
+        return None
 
     def set_params(self, params):
         """Load a state dict (names of the model's parameters; ``{}`` keeps
@@ -256,7 +288,18 @@ class InferenceEngine:
         if self.tp.size > 1:
             mod.set_tensor_parallel(self.tp)
         self._maybe_quantize()
+        self._log_gaps()
         self._ready = True
+
+    def _log_gaps(self):
+        """Log the 8-bit linears that take ``dense_dequant`` by the route
+        ``quantization.kernel_gap`` declares."""
+        gaps = {}
+        for n, m in self.module.named_modules():
+            if isinstance(m, QuantizedLinear) and m.gap and m.impl == "dense_dequant":
+                gaps.setdefault(m.gap, []).append(n)
+        for why, names in gaps.items():
+            logger.info(f"weight quantization: {names}: {why}: dense_dequant")
 
     def _quant_impl(self):
         """The registry row every quantized Dense kernel is pinned to (None:
@@ -296,25 +339,49 @@ class InferenceEngine:
                 "InferenceEngine has no parameters: pass params= to init_inference, "
                 "set config.checkpoint to a checkpoint tag, or call set_params()")
 
+    def _from_rank0(self, result):
+        """Every rank of the world takes global rank 0's ``result`` when the
+        grid leaves ranks idle (an idle rank passes None); else
+        ``result``."""
+        t = self.topology
+        if t is None or t.ranks.size == dist.get_world_size():
+            return result
+        header = torch.zeros(6, dtype=torch.int64, device=self.device)
+        if result is not None:
+            header[0] = _RESULT_DTYPES.index(result.dtype)
+            header[1] = result.dim()
+            header[2:2 + result.dim()] = torch.tensor(result.shape)
+        dist.broadcast(header, src=0)
+        code, ndim, *shape = header.tolist()
+        if result is None:
+            result = torch.empty(shape[:ndim], dtype=_RESULT_DTYPES[code],
+                                 device=self.device)
+        result = result.contiguous()
+        dist.broadcast(result, src=0)
+        return result
+
     @torch.no_grad()
     def forward(self, batch, **kwargs):
         """Logits [B, T, V] of ``batch`` (ids [B, T], or a dict with
         ``input_ids``). Over ``dp`` replicas, a batch whose rows they divide
         is split among them and its logits gathered on every rank, as the
-        JAX engine shards it; otherwise every replica runs it whole."""
+        JAX engine shards it; otherwise every replica runs it whole. An
+        idle rank returns rank 0's logits."""
         self._require_params()
+        if self.idle:
+            return self._from_rank0(None)
         if not isinstance(batch, dict):
             batch = {"input_ids": batch}
         batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
         dp = self.grid["dp"]
         B = batch["input_ids"].shape[0]
         if dp == 1 or B % dp or "labels" in batch:
-            return self.module(batch, **kwargs)
+            return self._from_rank0(self.module(batch, **kwargs))
         group, _, index = self.topology.axes_group(("dp",))
         n = B // dp
         out = self.module({k: v[index * n:(index + 1) * n] for k, v in batch.items()},
                           **kwargs)
-        return dist.all_gather(out.contiguous(), group=group)
+        return self._from_rank0(dist.all_gather(out.contiguous(), group=group))
 
     __call__ = forward
 
@@ -323,13 +390,20 @@ class InferenceEngine:
         """KV-cached generation: [B, max_new_tokens] token ids. ``rng``: a
         ``torch.Generator`` or a seed for sampling (default the engine's)."""
         self._require_params()
+        if self.idle:
+            return self._from_rank0(None)
+        if isinstance(self.module.config, NO_CACHED_FORWARD):
+            raise ValueError(
+                f"{type(self.module).__name__} has no KV-cached forward, in the JAX "
+                "package either: the v1 engine serves its logits (forward) only; "
+                "generate through the v2 engine (build_engine / build_hf_engine)")
         max_new_tokens = min(max_new_tokens, self._config.max_out_tokens)
         if isinstance(rng, int):
             rng = torch.Generator(device=self.device).manual_seed(rng)
-        return _generate(self.module, input_ids, max_new_tokens=max_new_tokens,
-                         temperature=temperature, top_k=top_k, top_p=top_p,
-                         generator=rng or self._generator, eos_token_id=eos_token_id,
-                         tp=self.tp)
+        return self._from_rank0(_generate(
+            self.module, input_ids, max_new_tokens=max_new_tokens, temperature=temperature,
+            top_k=top_k, top_p=top_p, generator=rng or self._generator,
+            eos_token_id=eos_token_id, tp=self.tp))
 
     def destroy(self):
         """The JAX engine releases its compiled functions here; the port

@@ -9,7 +9,8 @@ one length; mixed lengths are the ragged v2 engine's job.
 
 Model contract: ``model(ids, positions=pos, use_cache=True, cache=cache)
 -> (logits, cache)``, the cache made by :func:`init_cache` (a
-``models/llama.py`` ``KVCache``). Sampling draws from a
+``models/llama.py`` ``KVCache``): the Llama families and the parallel-block
+families (Falcon, Phi) keep it. Sampling draws from a
 ``torch.Generator``; JAX's threefry stream cannot be matched, so sampled
 tokens differ from the JAX package's while greedy tokens are equal. Under
 tensor parallelism (``tp``) every rank holds the same gathered logits; a
@@ -49,8 +50,9 @@ def init_cache(model, input_ids):
     """A zeroed cache for ``model`` and a batch shaped like ``input_ids``,
     in the dtype its activations take (the embedding's)."""
     weight = model.embed_tokens.weight
+    layer = model.layers[0]
     return KVCache(model.config, input_ids.shape[0], weight.dtype, weight.device,
-                   num_kv_heads=model.layers[0].self_attn.num_kv_heads)
+                   num_kv_heads=getattr(layer, "self_attn", layer).num_kv_heads)
 
 
 def _next_token(logits, generator, temperature, top_k, top_p, tp):

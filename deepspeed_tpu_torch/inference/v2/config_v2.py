@@ -75,8 +75,8 @@ class RaggedInferenceEngineConfig(DeepSpeedConfigModel):
     """Top-level v2 config (reference ``config_v2.py:29``).
     ``tensor_parallel.tp_size`` > 1 serves every family over a ``tp`` group
     (``engine_factory.build_engine``), speculative decode and the host KV
-    tier included; page transfer between replicas under it waits for
-    ROADMAP A5 part 3."""
+    tier included, and the replicas of a ``ReplicaGroup`` or a fleet at
+    ``tp_size`` > 1 ship their pages rank by rank."""
     tensor_parallel = {"tp_size": 1}
     state_manager = DSStateManagerConfig()
     kv_cache = KVCacheConfig()

@@ -21,6 +21,8 @@ package's one-replica builder (``inference/v2/replica_group.py:28``) over
 that group.
 """
 
+import copy
+
 import torch
 
 from deepspeed_tpu_torch.checkpoint import hf as hf_interop
@@ -127,18 +129,22 @@ def _tensor_parallel(config):
     return TensorParallel.from_topology(groups.serving_topology(tp_size))
 
 
-def shard_model(model, tp):
+def shard_model(model, tp, device=None):
     """``model`` as rank ``tp.rank`` of ``tp`` serves it: a model built with
     ``tp.size`` keeps its weights (they must be that rank's parts), a whole
     model is cut into a new module holding copies of the rank's parts
-    (dropping the whole model then frees its split weights)."""
+    (dropping the whole model then frees its split weights), moved to
+    ``device`` when one is given (the whole model stays where it is)."""
     if model.tp_size == tp.size:
         if model.plan.rank != tp.rank:
             raise ValueError(f"the model holds tp rank {model.plan.rank}'s share, "
                              f"this is tp rank {tp.rank}")
     elif model.tp_size == 1:
         local = type(model)(model.config, device="meta", tp_size=tp.size, tp_rank=tp.rank)
-        local.load_state_dict(slice_state_dict(model.state_dict(), local.plan), assign=True)
+        parts = slice_state_dict(model.state_dict(), local.plan)
+        if device is not None:
+            parts = {k: v.to(device) for k, v in parts.items()}
+        local.load_state_dict(parts, assign=True)
         model = local.requires_grad_(False)
     else:
         raise ValueError(f"a model split over {model.tp_size} ranks cannot serve "
@@ -147,14 +153,19 @@ def shard_model(model, tp):
     return model
 
 
-def build_engine(model, engine_config=None, family=None, device=None):
+def build_engine(model, engine_config=None, family=None, device=None, tp=None):
     """Build a ragged engine from an in-tree model whose weights lie on
     ``device`` (default ``"cuda"``). With ``tensor_parallel.tp_size`` > 1
     every rank of the ``tp`` group calls it (module docstring); ``model`` is
     the whole model or the rank's slice of it (``from_seed(...,
-    tp_size=..., tp_rank=...)``)."""
+    tp_size=..., tp_rank=...)``). ``tp``: the group to serve over instead of
+    the topology's (a replica of a ``ReplicaGroup`` or fleet)."""
     config = _as_config(engine_config)
-    tp = _tensor_parallel(config)
+    if tp is None:
+        tp = _tensor_parallel(config)
+    else:
+        config = copy.copy(config)
+        config.tensor_parallel = dict(config.tensor_parallel, tp_size=tp.size)
     if tp.size > 1:
         model = shard_model(model, tp)
     return InferenceEngineV2(model, config,

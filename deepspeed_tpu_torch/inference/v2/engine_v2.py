@@ -34,19 +34,30 @@ same blocks. ``stop_followers()`` ends the followers' loops. So no decision
 that reads the clock or a generator is taken on more than one rank, and the
 ranks cannot diverge.
 
+The messages travel on a ``ControlChannel``: an int64 header (op code, the
+engine's tag, payload length, four arguments) and an int32 payload, both
+broadcast from tp rank 0. An engine alone on its group uses its own group
+and tag 0; the replicas of a ``ReplicaGroup`` or a fleet at ``tp_size`` > 1
+share one channel, each engine under its own tag, so that one follower
+process serves its share of every replica from one loop
+(``follow_engines``).
+
 Page transfer for the serving fleet (``fleet/disagg.py``): ``export_pages_many``
 detaches finished sequences' KV pages in one gather, ``import_pages_many``
 binds a shipment under fresh ids and creates the sequences mid-stream;
 ``sequence_block_digests`` / ``held_prefix_lens`` are the two halves of the
 delta-shipping digest exchange and ``peek_prefix`` the router's
-prefix-affinity read.
+prefix-affinity read. Under tensor parallelism these run on the controller,
+which owns the block ids; ``ship_followers`` then tells every follower to
+move its own heads' pages of the same source blocks into the same
+destination blocks (``_SHIP``), through the device or the wire codec, so
+that tp rank r of one replica ships to tp rank r of the other.
 
-Left for later slices: the flight-recorder collector (ROADMAP A15) and,
-under tensor parallelism, page transfer (per-rank page shipping between
-the tp groups of two replicas, ROADMAP A5 part 3).
+Left for a later slice: the flight-recorder collector (ROADMAP A15).
 """
 
 import dataclasses
+import time
 from typing import Iterable, List, Tuple
 
 import numpy as np
@@ -66,8 +77,81 @@ from deepspeed_tpu_torch.parallel.tensor_parallel import (TensorParallel,
 from deepspeed_tpu_torch.utils.logging import logger
 
 # op codes of the controller's messages to the tp followers
-_STOP, _FORWARD, _SWAP_OUT, _SWAP_IN, _SPILL, _RESTORE, _DROP = range(7)
-_HEADER = 6          # int64 header: op, payload length, then four arguments
+(_STOP, _FORWARD, _SWAP_OUT, _SWAP_IN, _SPILL, _RESTORE, _DROP, _SHIP, _CLOSE,
+ _BUILD) = range(10)
+_HEADER = 7          # int64 header: op, tag, payload length, then four arguments
+# the page codecs of a ``_SHIP`` message
+SHIP_DEVICE, SHIP_WIRE, SHIP_WIRE_QUANTIZED = range(3)
+
+
+class ControlChannel:
+    """The controller's messages to the followers of a ``tp`` group (module
+    docstring): sent from tp rank 0, received on the other ranks, each
+    tensor on ``device``."""
+
+    def __init__(self, tp, device):
+        self.tp, self.device = tp, device
+
+    def send(self, op, tag=0, args=(), payload=None):
+        n = 0 if payload is None else int(payload.numel())
+        header = torch.tensor([op, tag, n, *args] + [0] * (_HEADER - 3 - len(args)),
+                              dtype=torch.int64, device=self.device)
+        broadcast_from_controller(header, self.tp)
+        if n:
+            broadcast_from_controller(payload.to(self.device, torch.int32), self.tp)
+
+    def slowest_leg(self, seconds):
+        """Every rank's ``seconds`` -> the largest, on every rank (the
+        controller passes 0 and waits for the followers' legs)."""
+        gloo = torch.distributed.get_backend(self.tp.group) == "gloo"
+        t = torch.tensor([float(seconds)], dtype=torch.float64,
+                         device="cpu" if gloo else self.device)
+        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX, group=self.tp.group)
+        return float(t.item())
+
+    def receive(self):
+        """The next message: ``(op, tag, args, payload)``."""
+        header = torch.empty(_HEADER, dtype=torch.int64, device=self.device)
+        broadcast_from_controller(header, self.tp)
+        op, tag, n, *args = header.tolist()
+        payload = None
+        if n:
+            payload = torch.empty(n, dtype=torch.int32, device=self.device)
+            broadcast_from_controller(payload, self.tp)
+        return op, tag, args, payload
+
+
+def follow_engines(engines, channel, build=None):
+    """A follower's loop (every tp rank > 0): serve the controller's
+    messages to ``engines`` ({tag: engine}, this rank's shares) until
+    ``_STOP``. ``_CLOSE`` drops an engine (its replica was lost), ``_BUILD``
+    adds ``build(tag)`` (a replica raised on a spare device), ``_SHIP``
+    moves pages between two of them; every other message goes to its
+    engine. Returns the number of forwards run."""
+    from deepspeed_tpu_torch.inference.v2.replica_group import on_device
+    forwards = 0
+    while True:
+        op, tag, args, payload = channel.receive()
+        if op == _STOP:
+            return forwards
+        if op == _CLOSE:
+            engines.pop(tag)
+        elif op == _BUILD:
+            engines[tag] = build(tag)
+        elif op == _SHIP:
+            # the leg's seconds go back to the controller, whose handoff
+            # latency then covers every rank's copies
+            src, dst = engines[tag], engines[args[0]]
+            t0 = time.perf_counter()
+            with on_device(src.device):
+                src._ship_share(dst, args[1], args[2], payload)
+            if dst.kv_page_device.type == "cuda":
+                torch.cuda.current_stream(dst.kv_page_device).synchronize()
+            channel.slowest_leg(time.perf_counter() - t0)
+        else:
+            engine = engines[tag]
+            with on_device(engine.device):
+                forwards += engine._handle(op, args, payload)
 
 
 def pages_to(pages, device):
@@ -123,6 +207,8 @@ class InferenceEngineV2:
                              f"runs on {self._device}; move the model first")
         self._tp = tp = getattr(model, "tp", TensorParallel())
         self._check_tensor_parallel(config, tp)
+        self._channel, self._tag = ControlChannel(tp, self._device), 0
+        self._swapped, self._spilled = {}, {}      # a follower's parked pages
         if forward_fn is None:
             from deepspeed_tpu_torch.inference.v2.engine_factory import resolve_forward_fn
             forward_fn = resolve_forward_fn(model)
@@ -213,25 +299,15 @@ class InferenceEngineV2:
         (tp rank 0, or the only rank)."""
         return self._tp.rank == 0
 
+    def attach_channel(self, channel, tag):
+        """Send this engine's follower messages on ``channel`` under
+        ``tag`` (the replicas of one ``ReplicaGroup`` or fleet share one
+        channel)."""
+        self._channel, self._tag = channel, int(tag)
+
     def _send(self, op, args=(), payload=None):
         """Controller: broadcast one message to the followers."""
-        n = 0 if payload is None else int(payload.numel())
-        header = torch.tensor([op, n, *args] + [0] * (_HEADER - 2 - len(args)),
-                              dtype=torch.int64, device=self._device)
-        broadcast_from_controller(header, self._tp)
-        if n:
-            broadcast_from_controller(payload.to(self._device, torch.int32), self._tp)
-
-    def _receive(self):
-        """Follower: the controller's next message, (op, args, payload)."""
-        header = torch.empty(_HEADER, dtype=torch.int64, device=self._device)
-        broadcast_from_controller(header, self._tp)
-        op, n, *args = header.tolist()
-        payload = None
-        if n:
-            payload = torch.empty(n, dtype=torch.int32, device=self._device)
-            broadcast_from_controller(payload, self._tp)
-        return op, args, payload
+        self._channel.send(op, self._tag, args, payload)
 
     def follow(self):
         """Run on every tp rank > 0: serve the controller's broadcast
@@ -240,37 +316,48 @@ class InferenceEngineV2:
         Returns the number of forwards run."""
         if self.is_controller:
             raise RuntimeError("tp rank 0 is the controller; only ranks > 0 follow")
-        kv, swapped, spilled, forwards = self._state.kv_cache, {}, {}, 0
-        while True:
-            op, args, payload = self._receive()
-            if op == _STOP:
-                return forwards
-            if op == _FORWARD:
-                S, Q, MB, verify_k = args
-                sizes = (S * Q, S, S, S * MB)
-                tokens, q_len, seen, tables = torch.split(payload, sizes)
-                self._run_forward({"tokens": tokens.view(S, Q), "q_len": q_len,
-                                   "seen": seen, "block_tables": tables.view(S, MB)},
-                                  verify_k or None)
-                forwards += 1
-            elif op == _SWAP_OUT:
-                swapped[args[0]] = kv.read_pages(payload.tolist())
-            elif op == _SWAP_IN:
-                kv.write_pages(payload.tolist(), swapped.pop(args[0]))
-            elif op == _SPILL:
-                spilled[args[0]] = kv.spill_block(args[1])
-            elif op == _RESTORE:
-                kv.restore_block(spilled.pop(args[0]), args[1])
-            elif op == _DROP:
-                spilled.pop(args[0])
-            else:
-                raise RuntimeError(f"unknown op {op} from the tp controller")
+        return follow_engines({self._tag: self}, self._channel)
+
+    def _handle(self, op, args, payload):
+        """Follower: one engine message of the controller (its payload as
+        the channel's device received it); returns the forwards it ran (0
+        or 1)."""
+        kv = self._state.kv_cache
+        if payload is not None:
+            payload = payload.to(self._device)
+        if op == _FORWARD:
+            S, Q, MB, verify_k = args
+            sizes = (S * Q, S, S, S * MB)
+            tokens, q_len, seen, tables = torch.split(payload, sizes)
+            self._run_forward({"tokens": tokens.view(S, Q), "q_len": q_len,
+                               "seen": seen, "block_tables": tables.view(S, MB)},
+                              verify_k or None)
+            return 1
+        if op == _SWAP_OUT:
+            self._swapped[args[0]] = kv.read_pages(payload.tolist())
+        elif op == _SWAP_IN:
+            kv.write_pages(payload.tolist(), self._swapped.pop(args[0]))
+        elif op == _SPILL:
+            self._spilled[args[0]] = kv.spill_block(args[1])
+        elif op == _RESTORE:
+            kv.restore_block(self._spilled.pop(args[0]), args[1])
+        elif op == _DROP:
+            self._spilled.pop(args[0])
+        else:
+            raise RuntimeError(f"unknown op {op} from the tp controller")
+        return 0
 
     def stop_followers(self):
         """Controller: end the followers' ``follow()`` loops (no-op without
         tensor parallelism)."""
         if self._tp.size > 1:
             self._send(_STOP)
+
+    def close_followers(self):
+        """Controller: the followers drop their shares of this engine (its
+        replica was lost); their loops go on serving the other replicas."""
+        if self._tp.size > 1:
+            self._send(_CLOSE)
 
     def _require_controller(self):
         if not self.is_controller:
@@ -542,24 +629,18 @@ class InferenceEngineV2:
         return self._state.kv_block_size
 
     # -- page transfer (prefill/decode disaggregation) ---------------------
-    def _require_single_rank(self, what):
-        if self._tp.size > 1:
-            raise NotImplementedError(
-                f"{what} under tensor parallelism (tp_size {self._tp.size}: per-rank page "
-                "shipping between the tp groups of two replicas) is not ported yet; see "
-                "ROADMAP.md queue A5 part 3")
-
     def export_pages(self, uid: int):
         """Detach ``uid``'s KV pages (copies on this engine's device) for
         shipping to a decode replica (``KVPageTransport``); releases the
-        local sequence."""
-        self._require_single_rank("page export")
+        local sequence. Under tensor parallelism these are tp rank 0's
+        heads; the handle's ``blocks`` are the source ids
+        ``ship_followers`` moves the other ranks' heads from."""
         return self._state.export_sequence_pages(uid)
 
     def import_pages(self, uid: int, handle) -> int:
         """Bind shipped KV pages into this engine's pool under fresh
-        refcount-1 block ids; creates the sequence mid-stream."""
-        self._require_single_rank("page import")
+        refcount-1 block ids; creates the sequence mid-stream. The ids are
+        left in ``handle["dst_blocks"]``."""
         return self._state.import_sequence_pages(uid, handle)
 
     def export_pages_many(self, uids, skip=None):
@@ -568,13 +649,47 @@ class InferenceEngineV2:
         ``skip`` maps uid -> leading full blocks to delta-ship (digest
         references instead of page bytes: the destination already holds
         them in its prefix cache)."""
-        self._require_single_rank("page export")
         return self._state.export_sequences_pages(list(uids), skip=skip)
 
     def import_pages_many(self, handle) -> int:
         """Batched ``import_pages``; returns the pages bound."""
-        self._require_single_rank("page import")
         return self._state.import_sequences_pages(handle)
+
+    def ship_followers(self, dst_engine, src_blocks, dst_blocks, codec=SHIP_DEVICE):
+        """Controller, after an export from this engine and its import into
+        ``dst_engine`` (both replicas' controllers on this process, their
+        followers sharing one channel): every follower moves its own heads'
+        pages of ``src_blocks`` into ``dst_blocks`` of its share of
+        ``dst_engine``, by ``codec`` (``SHIP_DEVICE``: a local or peer
+        copy; ``SHIP_WIRE`` / ``SHIP_WIRE_QUANTIZED``: its own wire frame).
+        Waits for every follower's leg to land and returns the slowest leg's
+        seconds (0.0 without tensor parallelism, where it does nothing)."""
+        if self._tp.size == 1 or not len(src_blocks):
+            return 0.0
+        if dst_engine._channel is not self._channel:
+            raise ValueError("page shipping under tensor parallelism needs both replicas' "
+                             "followers on one channel (a ReplicaGroup or a fleet)")
+        self._send(_SHIP, (dst_engine._tag, len(src_blocks), int(codec)),
+                   torch.tensor(list(src_blocks) + list(dst_blocks), dtype=torch.int32))
+        return self._channel.slowest_leg(0.0)
+
+    def _ship_share(self, dst_engine, n, codec, payload):
+        """Follower: ``ship_followers``' move on this rank's shares."""
+        from deepspeed_tpu_torch.inference.v2.fleet import wire
+        ids = payload.tolist()
+        k, v = self._state.kv_cache.export_blocks(ids[:n])
+        dev = dst_engine.kv_page_device
+        if codec == SHIP_DEVICE:
+            k, v = pages_to(k, dev), pages_to(v, dev)
+        else:
+            frame = wire.encode_handle({"n": n, "k": k, "v": v, "seqs": []},
+                                       fetch=self.host_fetch,
+                                       wire_quantize=codec == SHIP_WIRE_QUANTIZED)
+            from deepspeed_tpu_torch.inference.v2.replica_group import on_device
+            with on_device(dev):
+                out = wire.decode_frame(frame, dev)
+            k, v = out["k"], out["v"]
+        dst_engine._state.kv_cache.write_blocks(ids[n:], k, v)
 
     def sequence_block_digests(self, uids):
         """Per-uid full-block chain digests: the source half of the

@@ -34,9 +34,25 @@ Handoff protocol (one request):
   3. the decode replica's next round carries the request as a plain decode
      row; its finish is the request's one terminal event.
 
-Left for later slices: replicas at ``tp_size`` > 1 (ROADMAP A5 part 3) and
-the flight-recorder collectors the JAX fleet registers (page census,
-lifecycle, transport stats; ROADMAP A15).
+Replicas at ``tp_size`` > 1 (``replica_group.TPReplicas``): process 0
+holds every replica's controller and runs everything above; process r
+holds tp rank r of every replica. A handoff exports, ships and binds tp
+rank 0's heads on process 0 as above, then ``ship_followers`` has every
+follower move its own heads' pages of the same source blocks into the same
+destination blocks, by the same codec (each rank frames its own heads on
+the wire leg), and waits until every follower's leg has landed: the
+handoff's latency covers all ranks' copies, as the JAX fleet's
+``block_until_ready`` on the replicated pools does (``follower_legs_s``
+sums the slowest follower leg of each handoff). The counters count what
+the JAX fleet counts: its KV pools are replicated over the submesh and it
+ships whole pages, so bytes and ``page_wire_cost`` are those of every KV
+head once; the bytes that a tp split adds by holding a KV head on several
+ranks (Falcon-7B's one KV head at tp 2) are counted apart
+(``copied_kv_bytes``). A lost replica's
+followers drop their shares; a scale-up's followers build theirs.
+
+Left for a later slice: the flight-recorder collectors the JAX fleet
+registers (page census, lifecycle, transport stats; ROADMAP A15).
 """
 
 import functools
@@ -47,15 +63,16 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch import telemetry
-from deepspeed_tpu_torch.inference.v2.engine_v2 import pages_to
+from deepspeed_tpu_torch.inference.v2.engine_v2 import (SHIP_DEVICE, SHIP_WIRE,
+                                                        SHIP_WIRE_QUANTIZED, pages_to)
 from deepspeed_tpu_torch.inference.v2.fleet import lifecycle as lc
 from deepspeed_tpu_torch.inference.v2.fleet import wire
 from deepspeed_tpu_torch.inference.v2.fleet.wire import (WireCRCError,
                                                          WireVersionError)
-from deepspeed_tpu_torch.inference.v2.replica_group import (_ModelCopies,
+from deepspeed_tpu_torch.inference.v2.replica_group import (TPReplicas, _ModelCopies,
                                                             build_device_replica,
-                                                            check_single_rank,
                                                             on_device)
+from deepspeed_tpu_torch.parallel.tensor_parallel import TPPlan
 from deepspeed_tpu_torch.resilience import faults
 from deepspeed_tpu_torch.resilience.faults import InjectedFault
 from deepspeed_tpu_torch.utils.logging import logger
@@ -142,7 +159,11 @@ class KVPageTransport:
         self.wire_bytes_saved = 0     # delta-shipping: bytes NOT sent
         self.pages_delta_skipped = 0
         self.crc_failures = 0         # wire frames rejected by a page CRC
+        self.copied_kv_bytes = 0      # tp: device bytes of KV heads held twice
         self.total_s = 0.0
+        # tensor parallelism: the slowest follower's leg of each handoff,
+        # which total_s also covers
+        self.follower_legs_s = 0.0
         self.retry_trips = 0
         self.failed_handoffs = 0
         # transient-failure hardening: each retryable unit is wrapped in
@@ -171,7 +192,8 @@ class KVPageTransport:
         ledger. int8 pools and the wire-quantized fp leg both put one int8
         per element plus one fp32 scale per token row on the wire."""
         kc = engine._state.kv_cache
-        L, _, H, bs, hd = kc.k_pool.shape
+        L, _, _, bs, hd = kc.k_pool.shape
+        H = _whole_kv_heads(engine)
         if kc.quantized or (self.codec == "wire" and self._wire_quantize):
             return 2 * L * H * bs * (hd + 4)
         return 2 * L * H * bs * hd * kc.k_pool.element_size()
@@ -264,7 +286,10 @@ class KVPageTransport:
             self.failed_handoffs += len(uids)
             raise HandoffError(uids, "transfer", str(e)) from e
         # the device footprint of the exported pages (the wire leg hands the
-        # destination dequantized fp32 pages, which are not what was shipped)
+        # destination dequantized fp32 pages, which are not what was shipped);
+        # under tp, rank 0's heads scaled to every KV head once
+        src_blocks = handle["blocks"]
+        share = _tp_share(src_engine)
         nbytes = _nbytes(handle["k"], handle["v"])
         wire_nbytes = None
         try:
@@ -287,6 +312,13 @@ class KVPageTransport:
             # data+scale bytes of the shipped rows
             wire_nbytes = wire.page_wire_nbytes(handle["k"], handle["v"]) \
                 * int(handle["n"])
+        if share is not None:
+            # the other ranks' pages (frame headers: rank 0's)
+            local, whole, held = share
+            wire_nbytes += int(handle["n"]) * self.page_wire_cost(src_engine) \
+                * (whole - local) // whole
+            self.copied_kv_bytes += nbytes * (held - whole) // local
+            nbytes = nbytes * whole // local
         try:
             faults.maybe_fail("handoff.bind_fail", detail)
             with on_device(dst_engine.device):
@@ -297,7 +329,14 @@ class KVPageTransport:
             # import rolled back)
             self.failed_handoffs += len(uids)
             raise HandoffError(uids, "bind", str(e)) from e
-        # the latency covers the copies and the bind's scatter
+        if share is not None:
+            # returns when every follower's leg has landed
+            with on_device(src_engine.device):
+                self.follower_legs_s += src_engine.ship_followers(
+                    dst_engine, src_blocks, handle["dst_blocks"],
+                    SHIP_DEVICE if self.codec == "device" else
+                    SHIP_WIRE_QUANTIZED if self._wire_quantize else SHIP_WIRE)
+        # the latency covers the copies (every rank's) and the bind's scatter
         _settle(dst_engine.device)
         dt = time.perf_counter() - t0
         skipped = sum(int(m.get("skipped", 0)) for m in handle["seqs"])
@@ -342,9 +381,27 @@ class KVPageTransport:
                 "wire_bytes_shipped": self.wire_bytes_shipped,
                 "wire_bytes_saved": self.wire_bytes_saved,
                 "crc_failures": self.crc_failures,
+                "copied_kv_bytes": self.copied_kv_bytes,
                 "retry_trips": self.retry_trips,
                 "failed_handoffs": self.failed_handoffs,
-                "total_s": self.total_s}
+                "total_s": self.total_s,
+                "follower_legs_s": self.follower_legs_s}
+
+
+def _whole_kv_heads(engine):
+    """The model's KV heads (a tp rank's pool holds its share)."""
+    return engine._model_config.num_key_value_heads
+
+
+def _tp_share(engine):
+    """Under tp: (KV heads of this rank's pool, of the model, held over
+    every rank, copies included); None on one rank."""
+    tp = engine.tensor_parallel
+    if tp.size == 1:
+        return None
+    cfg = engine._model_config
+    held = sum(TPPlan(cfg, tp.size, r).kv_heads for r in range(tp.size))
+    return engine._state.kv_cache.k_pool.shape[2], cfg.num_key_value_heads, held
 
 
 class FlowControl:
@@ -422,11 +479,16 @@ class PrefillDecodeFleet:
         model: the model every replica serves (``ReplicaGroup``: replicas
             on its device share its weights, others get a copy).
         prefill_replicas / decode_replicas: replica counts per side.
-        devices: one torch device per replica, prefill side first, then
-            decode; devices past those are spares the autoscaler raises new
-            decode replicas on. Several replicas may share a device.
-            Default: every replica on the current CUDA device.
-        tp_size: devices per replica; only 1 is ported (A5 part 3).
+        devices: ``tp_size`` torch devices per replica, prefill side
+            first, then decode; devices past those are spares the
+            autoscaler raises new decode replicas on. Several replicas may
+            share a device. Default: every replica on the current CUDA
+            device.
+        tp_size: devices per replica. Above 1 every process of the
+            ``torch.distributed`` world calls the constructor
+            (``replica_group.TPReplicas``): process 0 gets the fleet, the
+            others serve their shares until the controller calls
+            ``stop_followers()`` and then hold no replica.
         engine_config / token_budget: prefill-side engine config + SplitFuse
             budget (prefill wants a LARGE budget — it only sees chunks).
         decode_engine_config / decode_token_budget: decode-side overrides
@@ -461,31 +523,40 @@ class PrefillDecodeFleet:
                  transport=None, codec="device", delta_shipping=False,
                  flow=None, speculative_default=True,
                  heartbeat_timeout_s=30.0):
-        check_single_rank(tp_size)
-        need = prefill_replicas + decode_replicas
+        tp_size = int(tp_size)
+        need = (prefill_replicas + decode_replicas) * tp_size
         devices = ["cuda"] * need if devices is None else list(devices)
         if need > len(devices):
             raise ValueError(
                 f"fleet needs {need} devices ({prefill_replicas} prefill + "
-                f"{decode_replicas} decode); {len(devices)} given")
+                f"{decode_replicas} decode, tp={tp_size}); {len(devices)} given")
         self.lifecycle = lc.ReplicaLifecycle()
         self.detector = lc.FailureDetector(timeout_s=heartbeat_timeout_s)
         self._models = _ModelCopies(model)
-        self.prefill = []
-        for i in range(prefill_replicas):
-            dev, sched = build_device_replica(self._models, devices[i],
-                                              engine_config, token_budget)
-            sched.on_finish = functools.partial(self._on_prefill_finish, i)
-            self.prefill.append((dev, sched))
-            self.lifecycle.add(("prefill", i))
+        self._tp = tp_size
+        self._ranks = None if tp_size == 1 else TPReplicas(
+            self._models, [devices[i:i + tp_size]
+                           for i in range(0, len(devices) - tp_size + 1, tp_size)],
+            tp_size)
         decode_cfg = decode_engine_config or engine_config
         if speculative_default:
             decode_cfg = self._with_speculative_default(decode_cfg, model)
-        self.decode = []
-        for j in range(decode_replicas):
-            self.decode.append(build_device_replica(
-                self._models, devices[prefill_replicas + j], decode_cfg,
-                decode_token_budget or token_budget))
+        self._decode_cfg = decode_cfg
+        self._decode_budget = decode_token_budget or token_budget
+        self._devices = devices
+        self.prefill = [self._build(i, engine_config, token_budget)
+                        for i in range(prefill_replicas)]
+        self.decode = [self._build(prefill_replicas + j, decode_cfg, self._decode_budget)
+                       for j in range(decode_replicas)]
+        if not self.is_controller:
+            self._ranks.follow(enumerate(self.prefill + self.decode),
+                               build=lambda slot: self._build(slot, self._decode_cfg,
+                                                              self._decode_budget))
+            self.prefill, self.decode = [], []
+        for i, (_, sched) in enumerate(self.prefill):
+            sched.on_finish = functools.partial(self._on_prefill_finish, i)
+            self.lifecycle.add(("prefill", i))
+        for j in range(len(self.decode)):
             self.lifecycle.add(("decode", j))
         self.transport = transport or KVPageTransport(
             codec=codec, delta_shipping=delta_shipping)
@@ -497,9 +568,6 @@ class PrefillDecodeFleet:
         # raise new decode replicas on spare devices; retired engines park
         # in the warm pool and revive (at a NEW lifecycle key) with their
         # pools already allocated
-        self._decode_cfg = decode_cfg
-        self._decode_budget = decode_token_budget or token_budget
-        self._devices = devices
         self._next_device = need
         self._warm_decode = []       # retired (device, sched) pairs, reusable
         self._census_exempt = set()  # fault-dead keys: pages died with them
@@ -518,6 +586,25 @@ class PrefillDecodeFleet:
         logger.info(f"PrefillDecodeFleet: {prefill_replicas} prefill + "
                     f"{decode_replicas} decode replicas on "
                     f"{[str(d) for d, _ in self.prefill + self.decode]}")
+
+    def _build(self, slot, engine_config, token_budget):
+        """The replica of device slot ``slot`` (devices ``slot * tp`` on):
+        a ``(device, scheduler)`` pair on the controller, this rank's
+        engine on a follower (``TPReplicas.build``)."""
+        if self._ranks is None:
+            return build_device_replica(self._models, self._devices[slot],
+                                        engine_config, token_budget)
+        return self._ranks.build(slot, engine_config, token_budget)
+
+    @property
+    def is_controller(self):
+        """Whether this process drives the fleet (always at ``tp_size`` 1)."""
+        return self._ranks is None or self._ranks.is_controller
+
+    def stop_followers(self):
+        """Controller: end the followers' loops (no-op at ``tp_size`` 1)."""
+        if self._ranks is not None and self._ranks.is_controller:
+            self._ranks.stop()
 
     @staticmethod
     def _with_speculative_default(cfg, model):
@@ -849,6 +936,9 @@ class PrefillDecodeFleet:
         self.lifecycle.mark_dead(key)
         self.detector.forget(key)
         self.replica_losses += 1
+        # its followers drop their shares; its host tables stay readable
+        (self.prefill if role == "prefill" else self.decode)[index][1] \
+            .engine.close_followers()
         # its pool died with it — the page census must not read tombstones
         self._census_exempt.add(key)
         logger.warning(f"fleet: {role}{index} lost ({cause}); "
@@ -987,13 +1077,13 @@ class PrefillDecodeFleet:
         return c[lc.LIVE] + c[lc.DRAINING]
 
     def _spare_device(self):
-        """The next device of the fleet's list never assigned to a replica
-        (None when the list is exhausted — the autoscaler then keeps the
-        current fleet)."""
-        if self._next_device >= len(self._devices):
+        """The next device slot of the fleet's list (``tp`` devices) never
+        assigned to a replica (None when the list is exhausted — the
+        autoscaler then keeps the current fleet)."""
+        if self._next_device + self._tp > len(self._devices):
             return None
-        self._next_device += 1
-        return self._devices[self._next_device - 1]
+        self._next_device += self._tp
+        return self._next_device // self._tp - 1
 
     def scale_up_decode(self):
         """Raise one decode replica: warm pool first (a retired engine
@@ -1004,11 +1094,12 @@ class PrefillDecodeFleet:
         if self._warm_decode:
             dev, sched = self._warm_decode.pop()
         else:
-            dev = self._spare_device()
-            if dev is None:
+            slot = self._spare_device()
+            if slot is None:
                 return None
-            dev, sched = build_device_replica(self._models, dev, self._decode_cfg,
-                                              self._decode_budget)
+            if self._ranks is not None:
+                self._ranks.announce(slot)
+            dev, sched = self._build(slot, self._decode_cfg, self._decode_budget)
         j = len(self.decode)
         self.decode.append((dev, sched))
         self.lifecycle.add(("decode", j))

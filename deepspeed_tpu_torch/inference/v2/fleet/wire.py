@@ -169,16 +169,14 @@ def encode_handle(handle, fetch=None, wire_quantize=True):
     return _HEADER.pack(MAGIC, VERSION, flags, len(mb)) + mb + body.tobytes()
 
 
-def decode_frame(frame, device):
-    """Parse and CRC-verify a wire frame into an import handle whose pages
-    lie on ``device``.
+def frame_pages(frame):
+    """Parse and CRC-verify a wire frame: ``(meta, parts)``, ``parts`` the
+    payload's arrays by name (``k``, ``v`` and, quantized, ``ks``, ``vs``)
+    as the frame holds them, page-major ``[n, L, ...]`` numpy arrays (bf16
+    as its uint16 bits).
 
     Raises :class:`WireVersionError` on magic/version skew (before touching
-    any payload byte) and :class:`WireCRCError` on the first corrupt page.
-    Returns ``{"n", "k", "v", "seqs", "wire_nbytes"}`` with pool-major page
-    tensors of ``n`` rows (``(data, scale)`` pairs for int8 pools);
-    wire-quantized fp pages come back dequantized to fp32 on ``device``
-    (that leg is lossy by design) and the pool casts them on bind."""
+    any payload byte) and :class:`WireCRCError` on the first corrupt page."""
     if len(frame) < _HEADER.size:
         raise WireVersionError(f"frame too short ({len(frame)} bytes)")
     magic, version, flags, meta_len = _HEADER.unpack_from(frame)
@@ -202,11 +200,25 @@ def decode_frame(frame, device):
         np_dt = np.uint16 if dname == "bfloat16" else np.dtype(dname)
         nb = math.prod(shape) * np.dtype(np_dt).itemsize
         a = np.ascontiguousarray(pages[:, off:off + nb]).view(np_dt)
-        a = a.reshape((n,) + tuple(shape))
-        # page-major [n, L, ...] -> pool-major [L, n, ...] on the device
-        parts[name] = _from_numpy(np.ascontiguousarray(np.moveaxis(a, 0, 1)),
-                                  dname).to(device)
+        parts[name] = a.reshape((n,) + tuple(shape))
         off += nb
+    return meta, parts
+
+
+def decode_frame(frame, device):
+    """Parse and CRC-verify a wire frame (``frame_pages``) into an import
+    handle whose pages lie on ``device``.
+
+    Returns ``{"n", "k", "v", "seqs", "wire_nbytes"}`` with pool-major page
+    tensors of ``n`` rows (``(data, scale)`` pairs for int8 pools);
+    wire-quantized fp pages come back dequantized to fp32 on ``device``
+    (that leg is lossy by design) and the pool casts them on bind."""
+    meta, pages = frame_pages(frame)
+    n = int(meta["n"])
+    # page-major [n, L, ...] -> pool-major [L, n, ...] on the device
+    parts = {name: _from_numpy(np.ascontiguousarray(np.moveaxis(a, 0, 1)),
+                               meta["dtypes"][name]).to(device)
+             for name, a in pages.items()}
     if meta["wire_quantized"]:
         k = _dequantize_pages(parts["k"], parts["ks"])
         v = _dequantize_pages(parts["v"], parts["vs"])

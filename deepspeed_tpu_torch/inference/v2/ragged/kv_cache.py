@@ -258,9 +258,19 @@ class BlockedKVCache:
             raise ValueError("page dtype mismatch: shipment and pool must "
                              "both be quantized or both fp")
         new_blocks = self._allocator.allocate(n)
-        idx = torch.tensor(new_blocks + [self.trash_block] * (int(k.shape[1]) - n),
-                           dtype=torch.long, device=self.device)
-        parts = (k, v) if ks is None else (k, v, ks, vs)
+        self._write_rows(new_blocks + [self.trash_block] * (int(k.shape[1]) - n),
+                         (k, v) if ks is None else (k, v, ks, vs))
+        return new_blocks
+
+    def write_blocks(self, blocks, k, v):
+        """Write shipped page rows into the given block ids (a tp follower's
+        share of an import the controller allocated), cast to the pool's
+        dtype; no allocator state changes."""
+        k, ks = split_pages(k)
+        v, vs = split_pages(v)
+        self._write_rows(list(blocks), (k, v) if ks is None else (k, v, ks, vs))
+
+    def _write_rows(self, blocks, parts):
+        idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
         for pool, part in zip(self._pools(), parts):
             pool.index_copy_(1, idx, part.to(self.device, pool.dtype))
-        return new_blocks

@@ -78,7 +78,8 @@ class DSStateManager:
         """Size the pool from device memory: 60% of the memory the card has
         free now (``torch.cuda.mem_get_info``, so the weights already loaded
         are accounted for); 1 GiB on the CPU. int8 pages cost 1 byte/element
-        plus one fp32 scale per token row."""
+        plus one fp32 scale per token row. A pool of no KV heads (a tp
+        rank's empty share) sets no bound: the other ranks' budgets do."""
         if kv_dtype == "int8":
             elt_bytes = 1 + 4 / head_dim
         else:
@@ -90,6 +91,8 @@ class DSStateManager:
             budget = int(free * 0.6)
         else:
             budget = 1 << 30
+        if not bytes_per_block:
+            return 1 << 62       # an empty tp share holds no pages: no bound
         return max(16, budget // bytes_per_block)
 
     @staticmethod
@@ -338,7 +341,7 @@ class DSStateManager:
         handle for ``import_sequence_pages``."""
         h = self.export_sequences_pages([uid])
         m = h["seqs"][0]
-        return {"n": m["n"], "k": h["k"], "v": h["v"],
+        return {"n": m["n"], "k": h["k"], "v": h["v"], "blocks": h["blocks"],
                 "seen_tokens": m["seen_tokens"], "tokens": m["tokens"]}
 
     def export_sequences_pages(self, uids, skip=None):
@@ -355,7 +358,8 @@ class DSStateManager:
         ``skip`` (delta-shipping): ``{uid: k}`` leading full blocks the
         DESTINATION's prefix cache already holds — those rows are excluded
         from the gather and ride as ``skipped_digests`` instead, for the
-        importer to re-acquire locally. Requires prefix caching."""
+        importer to re-acquire locally. Requires prefix caching. The
+        handle's ``blocks`` are the gathered rows' ids."""
         for uid in uids:  # validate everything before mutating anything
             seq = self._seqs.get(uid)
             if seq is None:
@@ -397,16 +401,18 @@ class DSStateManager:
                 self.kv_cache.free(list(reversed(seq.kv_blocks)))
             else:
                 self.kv_cache.free(seq.kv_blocks)
-        return {"n": len(blocks), "k": k, "v": v, "seqs": seqs}
+        return {"n": len(blocks), "k": k, "v": v, "seqs": seqs, "blocks": blocks}
 
     def import_sequence_pages(self, uid, handle):
         """Bind shipped KV pages into this pool (single-sequence form of
         ``import_sequences_pages``). Returns the bound block count."""
-        return self.import_sequences_pages(
-            {"n": handle["n"], "k": handle["k"], "v": handle["v"],
-             "seqs": [{"uid": uid, "n": handle["n"],
-                       "seen_tokens": handle["seen_tokens"],
-                       "tokens": handle.get("tokens", [])}]})
+        batch = {"n": handle["n"], "k": handle["k"], "v": handle["v"],
+                 "seqs": [{"uid": uid, "n": handle["n"],
+                           "seen_tokens": handle["seen_tokens"],
+                           "tokens": handle.get("tokens", [])}]}
+        bound = self.import_sequences_pages(batch)
+        handle["dst_blocks"] = batch["dst_blocks"]
+        return bound
 
     def import_sequences_pages(self, handle):
         """Bind a batched shipment: ONE scatter allocates fresh block ids
@@ -417,7 +423,9 @@ class DSStateManager:
         along so imported full blocks register in THIS pool's cache at the
         next commit. All-or-nothing: on any failure the partially created
         sequences and all imported blocks are released. Returns the total
-        bound block count."""
+        bound block count; the shipped rows' new ids are left in
+        ``handle["dst_blocks"]`` (a tp controller's followers write their
+        heads there)."""
         for m in handle["seqs"]:
             if m["uid"] in self._seqs:
                 raise ValueError(f"uid {m['uid']} already tracked")
@@ -470,6 +478,7 @@ class DSStateManager:
             if acquired:
                 self.kv_cache.free(acquired)
             raise
+        handle["dst_blocks"] = ids
         return len(ids) + len(acquired)
 
     # -- host swap tier (ZeRO-Inference KV offload analog) -----------------

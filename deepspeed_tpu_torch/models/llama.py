@@ -198,6 +198,8 @@ def cached_attention(q, k, v, keys, values, index, window=None):
     KV, L = keys.shape[1], keys.shape[2]
     if index + T > L:
         raise ValueError(f"cache window {L} cannot take {T} more positions at {index}")
+    if H == 0:
+        return q                 # a tp rank's empty share: no heads
     keys[:, :, index:index + T] = k.transpose(1, 2).to(keys.dtype)
     values[:, :, index:index + T] = v.transpose(1, 2).to(values.dtype)
     key_pos = torch.arange(L, device=q.device)[None, :]
@@ -253,7 +255,7 @@ class KVCache:
     KV heads this rank holds (default all of them)."""
 
     def __init__(self, config, batch, dtype, device, num_kv_heads=None):
-        shape = (batch, num_kv_heads or config.num_key_value_heads,
+        shape = (batch, config.num_key_value_heads if num_kv_heads is None else num_kv_heads,
                  config.max_position_embeddings, config.head_dim)
         self.keys = [torch.zeros(shape, dtype=dtype, device=device)
                      for _ in range(config.num_hidden_layers)]

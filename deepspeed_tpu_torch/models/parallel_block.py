@@ -31,8 +31,24 @@ heads they read, Falcon's fused ``query_key_value`` rows cut to those q
 heads plus those k and v heads, Phi's q/k/v and their biases; ``fc1`` and
 its bias by FFN columns; ``dense`` and ``fc2`` by input rows (their biases
 whole, added once after the reduce); the embedding, ``lm_head`` and its
-bias by vocabulary. Such a module serves through the ragged forward, which
-exchanges over ``model.tp``; its training forward is ROADMAP A12.
+bias by vocabulary. Such a module serves through the ragged forward and the
+KV-cached forward, which exchange over ``model.tp``; its training forward
+is ROADMAP A12.
+
+With ``use_cache`` the forward is the JAX ``ParallelBlock``'s KV-cached
+path (``models/parallel_block.py:127-142``), which the v1 engine's
+``generate`` runs: each layer writes its k and v into a fixed
+``max_position_embeddings`` window of a ``llama.KVCache`` the caller holds
+and attends through ``llama.cached_attention``, the Llama model's cached
+path (the JAX ``use_cache`` paths of the two families are the same
+arithmetic: ``NEG_INF`` mask, ``H // KV`` grouped products with the logits
+in q's dtype, then fp32, probabilities rounded to q's dtype). The JAX
+package computes this attention outside any Pallas kernel, so plain tensor
+code is its port. The cache holds each (row, KV head)'s window
+contiguously, ``[B, KV, L, Dh]``, where the JAX cache is ``[B, L, KV,
+Dh]``: the same values, read in place by both products. Under tensor
+parallelism the two row-split products, ``dense`` and ``fc2``, are summed
+on the rank and all-reduced once a layer, as in the ragged forward.
 """
 
 import dataclasses
@@ -43,12 +59,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deepspeed_tpu_torch.models.llama import (draw_from_seed, rotary_embed,
-                                              set_tensor_parallel, tp_parts)
+from deepspeed_tpu_torch.models.llama import (cached_attention, draw_from_seed,
+                                              rotary_embed, set_tensor_parallel, tp_parts)
 from deepspeed_tpu_torch.models.losses import lm_head_next_token_loss, next_token_loss
 from deepspeed_tpu_torch.ops.flash_attention import mha
 from deepspeed_tpu_torch.parallel.tensor_parallel import (TensorParallel, TPPlan,
-                                                          slice_state_dict, split_dim)
+                                                          gather_vocab, row_reduce,
+                                                          slice_state_dict, split_dim,
+                                                          vocab_embed)
 from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
 
 
@@ -168,7 +186,9 @@ class ParallelBlock(nn.Module):
         return (self.q_proj(h).view(*lead, H, Dh), self.k_proj(h).view(*lead, KV, Dh),
                 self.v_proj(h).view(*lead, KV, Dh))
 
-    def forward(self, x, positions, attention=mha):
+    def forward(self, x, positions, attention=mha, kv=None):
+        """``kv``: this layer's ``(keys, values, index)`` of a ``KVCache``;
+        with it the cached path runs instead of ``attention``."""
         cfg = self.config
         B, T, _ = x.shape
         h = self.input_layernorm(x)
@@ -177,9 +197,25 @@ class ParallelBlock(nn.Module):
         q, k, v = self.qkv(h)
         q = partial_rotary(q, positions, cfg.rope_theta, cfg.rotary_dim)
         k = partial_rotary(k, positions, cfg.rope_theta, cfg.rotary_dim)
-        attn = attention(q, k, v, causal=True).reshape(B, T, -1)
-        mlp = self.fc2(gelu(self.fc1(hm), cfg.gelu_exact))
-        return x + self.dense(attn) + mlp
+        if kv is not None:
+            attn = cached_attention(q, k, v, *kv).reshape(B, T, -1)
+        else:
+            attn = attention(q, k, v, causal=True).reshape(B, T, -1)
+        act = gelu(self.fc1(hm), cfg.gelu_exact)
+        if self.tp.size == 1:
+            return x + self.dense(attn) + self.fc2(act)
+        x = x + row_reduce(_partial(self.dense, attn) + _partial(self.fc2, act), self.tp)
+        for b in (self.dense.bias, self.fc2.bias):
+            if b is not None:
+                x = x + b
+        return x
+
+
+def _partial(linear, x):
+    """A row-split linear's partial product on this rank, without its bias
+    (an ``nn.Linear`` or an int8 ``QuantizedLinear``)."""
+    product = getattr(linear, "product", None)
+    return product(x) if product else F.linear(x, linear.weight)
 
 
 class ParallelBlockForCausalLM(nn.Module):
@@ -188,12 +224,15 @@ class ParallelBlockForCausalLM(nn.Module):
     that dtype at each use; storing it cast gives the same values). With
     ``tie_lm_head`` the head is the embedding and there is no ``lm_head``;
     with ``lm_head_bias`` (untied) the head has a bias. ``tp_size`` > 1
-    keeps rank ``tp_rank``'s share (module docstring)."""
+    keeps rank ``tp_rank``'s share (module docstring); ``quant_group_size``
+    cuts it in whole quantization groups where they tile (v1 serving with
+    int8 weights, ``TPPlan``)."""
 
-    def __init__(self, config: ParallelBlockConfig, device=None, tp_size=1, tp_rank=0):
+    def __init__(self, config: ParallelBlockConfig, device=None, tp_size=1, tp_rank=0,
+                 quant_group_size=None):
         super().__init__()
         self.config = config
-        self.plan = plan = TPPlan(config, tp_size, tp_rank)
+        self.plan = plan = TPPlan(config, tp_size, tp_rank, quant_group_size)
         kw = dict(device=device, dtype=config.dtype)
         self.embed_tokens = nn.Embedding(plan.vocab, config.hidden_size, **kw)
         self.layers = nn.ModuleList(ParallelBlock(config, device, plan)
@@ -218,10 +257,11 @@ class ParallelBlockForCausalLM(nn.Module):
         return {name: split_dim(name) for name, _ in self.named_parameters()}
 
     def head(self):
-        """(weight [V, D], bias [V] or None) of the output head."""
+        """(weight [V, D] (None for an int8 ``lm_head``), bias [V] or None)
+        of the output head."""
         if self.config.tie_lm_head:
             return self.embed_tokens.weight, None
-        return self.lm_head.weight, self.lm_head.bias
+        return getattr(self.lm_head, "weight", None), self.lm_head.bias
 
     def streaming_plan(self):
         """The streaming protocol (JAX ``streaming_plan``): the decoder
@@ -229,44 +269,63 @@ class ParallelBlockForCausalLM(nn.Module):
         starts ahead of their use."""
         return {"num_blocks": len(self.layers)}
 
-    def forward(self, batch, positions=None, attention=mha):
+    def forward(self, batch, positions=None, attention=mha, use_cache=False, cache=None):
         """The JAX model's ``__call__``: ``batch`` is a dict with
         ``input_ids`` [B, T] and optional ``labels`` [B, T], or the ids
         alone. Returns the next-token loss when there are labels, else the
         logits [B, T, V]; a biased head takes the dense logits for its loss
         (the fused CE has no bias slot). In training each block runs under
         the configured activation-checkpointing policy (``config.remat``).
-        ``attention`` replaces ``mha`` (a plain version, for comparisons)."""
-        if self.tp_size > 1:
-            raise NotImplementedError(
-                "the forward of a tensor-parallel Falcon/Phi (training, tp axis) is not "
-                "ported to deepspeed_tpu_torch yet: ROADMAP A12; it serves through "
-                "the ragged engine")
+        ``attention`` replaces ``mha`` (a plain version, for comparisons).
+        With ``use_cache`` the layers attend through ``cache`` (a
+        ``llama.KVCache``), which advances by T, and ``(logits, cache)`` is
+        returned (module docstring). A tensor-parallel module serves this
+        path and the logits forward, returning the whole vocabulary's
+        logits; its loss is ROADMAP A12."""
         cfg = self.config
         if isinstance(batch, dict):
             input_ids, labels = batch["input_ids"], batch.get("labels")
         else:
             input_ids, labels = batch, None
+        if self.tp_size > 1 and labels is not None and not use_cache:
+            raise NotImplementedError(
+                "the loss of a tensor-parallel Falcon/Phi (training, tp axis) is not "
+                "ported to deepspeed_tpu_torch yet: ROADMAP A12")
         input_ids = input_ids.long()
         B, T = input_ids.shape
-        x = self.embed_tokens(input_ids)
+        x = vocab_embed(self.embed_tokens.weight, input_ids, self.tp)
         if positions is None:
             positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
-        for layer in self.layers:
-            if cfg.remat:
-                x = checkpointing.checkpoint(layer, x, positions, attention)
-            else:
-                x = layer(x, positions, attention)
+        if use_cache:
+            if cache is None:
+                raise ValueError("use_cache needs the KVCache the caller holds")
+            for layer, keys, values in zip(self.layers, cache.keys, cache.values):
+                x = layer(x, positions, attention, kv=(keys, values, cache.index))
+            cache.index += T
+        else:
+            for layer in self.layers:
+                if cfg.remat:
+                    x = checkpointing.checkpoint(layer, x, positions, attention)
+                else:
+                    x = layer(x, positions, attention)
         x = self.final_layernorm(x)
         head, hb = self.head()
-        if labels is None or hb is not None:
-            logits = x @ head.to(x.dtype).T
-            if hb is not None:
-                logits = logits + hb.to(x.dtype)
-            if labels is None:
-                return logits
+        if labels is None or hb is not None or use_cache:
+            logits = self._logits(x, head, hb)
+            if labels is None or use_cache:
+                return (logits, cache) if use_cache else logits
             return next_token_loss(logits, labels)
         return lm_head_next_token_loss(x, head, labels)
+
+    def _logits(self, x, head, hb):
+        """``x @ head.T (+ bias)`` in x's dtype, gathered over the
+        vocabulary slices; an int8 ``lm_head`` (v1 quantization) through its
+        product."""
+        product = None if self.config.tie_lm_head else getattr(self.lm_head, "product", None)
+        logits = product(x) if product else x @ head.to(x.dtype).T
+        if hb is not None:
+            logits = logits + hb.to(x.dtype)
+        return gather_vocab(logits, self.tp)
 
     @classmethod
     def from_seed(cls, config, seed: int, device=None, std: float = 0.02, tp_size=1,

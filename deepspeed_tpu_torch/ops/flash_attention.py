@@ -550,7 +550,11 @@ def flash_mha(q, k, v, bias=None, causal=True, softmax_scale=None,
     """Differentiable flash attention (see the module docstring). Raises
     ValueError on shapes the kernels cannot take, on every device.
     ``plain=True`` runs the plain versions on any device: the yardstick a
-    kernel-backed run is compared with, never the training path."""
+    kernel-backed run is compared with, never the training path. A
+    tensor-parallel rank's empty share (no heads, the v1 engine's logits
+    forward) gets its empty output without a launch."""
+    if q.shape[2] == 0 and k.shape[2] == 0:
+        return q.new_empty(q.shape)
     seg = None if segment_ids is None else _segment_pair(segment_ids)
     reason = unsupported_reason(
         tuple(q.shape), tuple(k.shape),

@@ -43,6 +43,8 @@ def unsupported_reason(q_shape, pool_shape):
     """Why the kernel cannot take these shapes, or None when it can."""
     _, _, H, Dh = q_shape
     _, KV, bs, pool_dh = pool_shape
+    if H == 0 and KV == 0:
+        return None          # an empty tp share: the wrapper launches nothing
     if KV < 1 or H % KV:
         return f"H={H} is not a multiple of KV={KV}"
     if Dh != pool_dh:
@@ -303,7 +305,10 @@ def paged_mha(q, k_pool, v_pool, block_tables, seen, q_len, *,
 
     CUDA tensors launch the route's sm_90a kernel (``paged_mha.launches``
     counts the calls, ``kernel_launches`` the kernels); CPU tensors run
-    ``paged_mha_reference``."""
+    ``paged_mha_reference``. A tensor-parallel rank's empty share (no
+    heads) gets its empty output on either device, without a launch."""
+    if q.shape[2] == 0:
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return paged_mha_reference(q, k_pool, v_pool, block_tables, seen,
                                    q_len, k_scale=k_scale, v_scale=v_scale,

@@ -183,7 +183,12 @@ def quantized_matmul(x, q, scale, group_size, out_dtype=None):
     """``x [M, K] @ dequant(q [K, N], scale)`` -> ``[M, N]`` in
     ``out_dtype`` (x's dtype by default), the weight tile rounded to x's
     dtype. CUDA tensors launch the sm_90a kernel (``quantized_matmul.
-    launches`` counts them) or raise; CPU tensors run the plain version."""
+    launches`` counts them) or raise; CPU tensors run the plain version.
+    An empty product (a tensor-parallel rank's empty share: K or N 0, or
+    no rows) returns its zeros on either device without a launch."""
+    if not (x.shape[0] and x.shape[1] and q.shape[1]):
+        return torch.zeros(x.shape[0], q.shape[1], dtype=out_dtype or x.dtype,
+                           device=x.device)
     if x.device.type == "cpu":
         return quantized_matmul_reference(x, q, scale, group_size, out_dtype)
     out_dtype = out_dtype or x.dtype

@@ -33,17 +33,19 @@ def get_topology():
     return _TOPOLOGY
 
 
-def serving_topology(tp_size, dp_size=None):
+def serving_topology(tp_size, dp_size=None, devices=None):
     """The topology a serving engine splits its weights over: ``tp_size``
     ranks a model, and ``dp_size`` replicas of it when given (the v1
     engine's grid). When no topology was installed, every rank of the
     world calls this and ``MeshTopology(dp=dp_size, tp=tp_size)`` over the
-    world is installed (its axes' groups are made here). An installed
-    topology is never replaced: one with another ``tp`` (or ``dp``) axis
-    raises ``ValueError``."""
+    world (or over ``devices``, the first ranks of it, the others idle) is
+    installed (its axes' groups are made here). An installed topology is
+    never replaced: one with another ``tp`` (or ``dp``) axis raises
+    ``ValueError``."""
     global _TOPOLOGY, _INSTALLED
     if not _INSTALLED:
-        _TOPOLOGY = MeshTopology(dp=-1 if dp_size is None else dp_size, tp=tp_size)
+        _TOPOLOGY = MeshTopology(dp=-1 if dp_size is None else dp_size, tp=tp_size,
+                                 devices=devices)
         _INSTALLED = True
     elif _TOPOLOGY.tp_size != tp_size or dp_size not in (None, _TOPOLOGY.dp_size):
         want = f"tp {tp_size}" + ("" if dp_size is None else f", dp {dp_size}")

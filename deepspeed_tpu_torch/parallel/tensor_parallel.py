@@ -21,12 +21,16 @@ one whose element count ``tp`` does not divide (``jax.device_put`` raises
 ``ValueError``); where it divides, a cut may fall inside a head. The port
 cuts in whole units instead (``TPPlan``): query heads for the attention
 projections, FFN columns for the MLP, quantization groups for an int8
-column-split linear. Where ``tp`` does not divide the units the earlier
-ranks take one more (Falcon-7B's 71 query heads at tp 2: 36 and 35). A
-rank's query heads may map to KV heads it would not hold under an even
-cut: it holds copies of those (k and v weights and its own KV pool), so
-Falcon-7B's one KV head sits on both ranks. The values each rank computes
-are the whole model's, so the results are the JAX package's to rounding.
+column-split linear (where the groups do not tile the width, the last
+unit holds the padded last group). Where ``tp`` does not divide the units
+the earlier ranks take one more (Falcon-7B's 71 query heads at tp 2: 36
+and 35); where there are fewer units than ranks, the last ranks hold an
+empty share (no heads, no FFN columns: zero rows in their linears, no KV
+heads), compute nothing there and add zeros to the row reduce. A rank's
+query heads may map to KV heads it would not hold under an even cut: it
+holds copies of those (k and v weights and its own KV pool), so Falcon-7B's
+one KV head sits on both ranks. The values each rank computes are the
+whole model's, so the results are the JAX package's to rounding.
 ``from_seed``, ``params_from_flax``, ``slice_state_dict`` and the HF loader
 all cut through the plan.
 
@@ -104,7 +108,9 @@ def _merge(spans):
 
 def take_spans(full, dim, spans):
     """The ``[start, end)`` element spans of ``full`` along ``dim``,
-    concatenated (a view when there is one span)."""
+    concatenated (a view when there is one span; empty for none)."""
+    if not spans:
+        return full.narrow(dim, 0, 0)
     if len(spans) == 1:
         a, b = spans[0]
         return full.narrow(dim, a, b - a)
@@ -116,11 +122,22 @@ def _kv_slots(q0, q1, rep):
     in slot order, so that its local query head j reads slot ``j // (its
     query heads / its slots)`` as the paged kernel reads them: the KV
     heads those query heads map to, or, where the range cuts a KV group
-    and spans more than one, one slot per query head."""
+    and spans more than one, one slot per query head; none for an empty
+    range."""
+    if q0 == q1:
+        return []
     lo, hi = q0 // rep, (q1 - 1) // rep + 1
     if hi - lo == 1 or (q0 % rep == 0 and q1 % rep == 0):
         return list(range(lo, hi))
     return [h // rep for h in range(q0, q1)]
+
+
+def _unit_cut(n, unit, tp_size, rank):
+    """Rank ``rank``'s ``[start, end)`` of ``n`` elements cut in whole units
+    of ``unit`` (the last unit short where ``unit`` does not divide ``n``):
+    empty where there are fewer units than ranks."""
+    a, b = unit_ranges(-(-n // unit), tp_size)[rank]
+    return min(a * unit, n), min(b * unit, n)
 
 
 class TPPlan:
@@ -133,9 +150,10 @@ class TPPlan:
 
     Raises ``ValueError`` where the JAX mesh refuses the split (a split
     dimension whose element count ``tp_size`` does not divide), naming the
-    tensor, its size and ``tp_size``; ``NotImplementedError`` naming ROADMAP
-    A5 part 3 where a rank would get no whole unit or a cut would split a
-    quantization group."""
+    tensor, its size and ``tp_size``. A rank may get an empty share (module
+    docstring); a cut that falls inside a quantization group (k/v heads,
+    the fused qkv) leaves the rank a part of that group, which
+    ``quantization.cut_quantized`` keeps as the same bits of the whole."""
 
     def __init__(self, config, tp_size=1, tp_rank=0, group_size=None):
         self.size, self.rank = int(tp_size), int(tp_rank)
@@ -161,22 +179,11 @@ class TPPlan:
             if group_size:
                 head_unit = math.lcm(Dh, min(group_size, H * Dh)) // Dh
                 ffn_unit = min(group_size, F)
-                if H % head_unit or F % ffn_unit:
-                    self._unported(f"groups of {group_size} that do not tile the query "
-                                   f"heads ({H} x {Dh}) or the FFN width ({F}) whole")
-            self._need_units(H // head_unit, "query-head units")
-            self._need_units(F // ffn_unit, "FFN units")
-            q0, q1 = unit_ranges(H // head_unit, self.size)[self.rank]
-            q = (q0 * head_unit, q1 * head_unit)
+            q = _unit_cut(H, head_unit, self.size, self.rank)
             slots = _kv_slots(q[0], q[1], H // KV)
-            f0, f1 = unit_ranges(F // ffn_unit, self.size)[self.rank]
-            f = (f0 * ffn_unit, f1 * ffn_unit)
+            f = _unit_cut(F, ffn_unit, self.size, self.rank)
             v = (self.rank * V // self.size, (self.rank + 1) * V // self.size)
         kv = _merge([(s * Dh, (s + 1) * Dh) for s in slots])
-        if self.size > 1 and group_size:
-            gk = min(group_size, KV * Dh)
-            if any(e % gk for span in kv for e in span):
-                self._unported(f"KV heads {slots} that cut k/v's groups of {gk}")
         self.heads, self.kv_heads = q[1] - q[0], len(slots)
         self.ffn, self.vocab = f[1] - f[0], v[1] - v[0]
         self.spans = {
@@ -184,15 +191,6 @@ class TPPlan:
             "qkv": _merge([(q[0] * Dh, q[1] * Dh)] + [(H * Dh + a, H * Dh + b)
                                                      for a, b in kv]
                           + [((H + KV) * Dh + a, (H + KV) * Dh + b) for a, b in kv])}
-
-    def _need_units(self, units, what):
-        if units < self.size:
-            self._unported(f"{units} {what} for {self.size} ranks (a rank would hold none)")
-
-    def _unported(self, what):
-        raise NotImplementedError(
-            f"tensor-parallel serving at tp_size {self.size} with {what} is not ported to "
-            "deepspeed_tpu_torch yet; see ROADMAP.md queue A5 part 3")
 
     def spans_of(self, name):
         """``(dimension, [start, end) element spans)`` of parameter

@@ -41,7 +41,9 @@ class MeshTopology:
                  zero_shard_size=None, zero_hierarchy=None):
         """``devices`` is the list of global ranks the grid covers (default
         every rank of the process group, or the one process when there is
-        none). ``zero_shard_size`` splits the data-parallel world: ``dp``
+        none); a rank outside it makes the same groups (``new_group`` is
+        collective over the world) and belongs to none (``grid_rank``
+        None: an idle rank of a serving grid). ``zero_shard_size`` splits the data-parallel world: ``dp``
         becomes the shard group of that size and ``dpr`` the replica groups
         across it; ``zero_hierarchy`` records why ("mics": all ZeRO state
         confined to the shard group; "hpz": only the stage-3 working
@@ -80,9 +82,8 @@ class MeshTopology:
         self.ranks = np.asarray(devices).reshape([self._sizes[a] for a in AXIS_ORDER])
         self.rank = dist.get_rank()
         devices = [int(r) for r in devices]
-        if self.rank not in devices:
-            raise ValueError(f"rank {self.rank} is not in the grid's ranks {devices}")
-        self.grid_rank = devices.index(self.rank)   # this rank's place in the grid
+        # this rank's place in the grid
+        self.grid_rank = devices.index(self.rank) if self.rank in devices else None
         self._groups = self._build_groups()
         self._axes_groups = {}
 

@@ -514,11 +514,20 @@ def test_replica_group_load_report(served):
     assert len(out) == 4 and len(out[3]) < 2
 
 
-def test_replicas_at_tp_above_one_raise_naming_their_queue_item(served):
+def test_replicas_at_tp_above_one_raise_naming_their_queue_item(served, monkeypatch):
+    """Replicas at tp 2 are served since A5 part 3 (``tests/
+    test_torch_fleet_tp.py``); in a world of one process the group clamps
+    ``tp_size`` to it with the JAX ``ReplicaGroup``'s warning, and a fleet
+    whose devices cannot hold its replicas raises ``ValueError`` as the JAX
+    fleet does."""
     _, _, _, model = served
-    with pytest.raises(NotImplementedError, match="A5 part 3"):
-        ReplicaGroup(model, ["cpu"], tp_size=2)
-    with pytest.raises(NotImplementedError, match="A5 part 3"):
+    from deepspeed_tpu_torch.inference.v2 import replica_group
+    warned = []
+    monkeypatch.setattr(replica_group.logger, "warning", warned.append)
+    group = ReplicaGroup(model, ["cpu"], tp_size=2)
+    assert group.replica_num == 1 and group.is_controller
+    assert warned == ["tp_size 2 > 1 devices; clamping"]
+    with pytest.raises(ValueError, match="fleet needs 6 devices"):
         make_fleet(model, tp_size=2)
     assert model_on(model, "cpu") is model
 

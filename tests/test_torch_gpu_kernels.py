@@ -2454,3 +2454,58 @@ def test_host_spill_restore_is_bitwise_on_the_card(cuda, kv_dtype):
         for p, s in zip(kv._pools(), saved[b]):
             assert torch.equal(p[:, dst], s)
     assert kv.swapper.pending == 0 and kv.swapper.landings == 3
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel shares on the card: empty shares, per-rank wire frames
+# ---------------------------------------------------------------------------
+
+@gpu
+def test_empty_tp_share_launches_nothing(cuda):
+    """A tensor-parallel rank with no heads and no FFN columns (fewer units
+    than ranks): rows 1 and 7 and the flash forward return outputs of the
+    right shape, zeros where a sum of nothing is due, with no launch."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import quantized_matmul as qm
+    from deepspeed_tpu_torch.ops.quantizer import quantize_lastdim
+    (q, k, v, bt, seen, q_len), _ = make_case(cuda, S=3, Q=2, H=8, KV=2)
+    empty_q = q[:, :, :0]
+    empty_pool = k[:, :0]
+    before = (paged_mha.launches, dict(pa.kernel_launches()),
+              qm.quantized_matmul.launches, dict(fa.kernel_launches()))
+    out = paged_mha(empty_q, empty_pool, empty_pool, bt, seen, q_len)
+    assert out.shape == empty_q.shape
+    x = torch.randn(5, 64, device=cuda, dtype=torch.bfloat16)
+    w_q, w_s = quantize_lastdim(torch.randn(64, 256, device=cuda), group_size=128)
+    none = qm.quantized_matmul(x, w_q[:, :0], w_s[:, :0], 128)         # N 0
+    assert none.shape == (5, 0)
+    zero_k = qm.quantized_matmul(x[:, :0], w_q[:0], w_s[:0], 128)       # K 0
+    assert zero_k.shape == (5, 256) and not zero_k.any()
+    fq = torch.randn(2, 16, 0, 64, device=cuda, dtype=torch.bfloat16)
+    assert fa.flash_mha(fq, fq, fq).shape == fq.shape
+    torch.cuda.synchronize()
+    after = (paged_mha.launches, dict(pa.kernel_launches()),
+             qm.quantized_matmul.launches, dict(fa.kernel_launches()))
+    assert after == before
+
+
+@gpu
+@pytest.mark.parametrize("heads", [[range(0, 8), range(8, 16)], [range(0, 1), range(0, 1)]],
+                         ids=["llama_tp2", "one_kv_head_copied"])
+def test_tp_rank_wire_frames_are_the_tp1_frame_heads(cuda, heads):
+    """Each tp rank's bf16 wire frame of its own heads (row 5 on the card,
+    one group per token row over head_dim) is, bit for bit, those heads of
+    the frame of the whole pages, a copied KV head included."""
+    from deepspeed_tpu_torch.inference.v2.fleet import wire
+    L, n, H, bs, hd = 4, 3, 16, 64, 128
+    g = torch.Generator(device=cuda).manual_seed(7)
+    k = torch.randn(L, n, H, bs, hd, generator=g, device=cuda).to(torch.bfloat16)
+    v = torch.randn(L, n, H, bs, hd, generator=g, device=cuda).to(torch.bfloat16)
+    _, whole = wire.frame_pages(wire.encode_handle({"n": n, "k": k, "v": v, "seqs": []}))
+    for hs in heads:
+        hs = list(hs)
+        _, mine = wire.frame_pages(wire.encode_handle(
+            {"n": n, "k": k[:, :, hs].contiguous(), "v": v[:, :, hs].contiguous(),
+             "seqs": []}))
+        for part in ("k", "v", "ks", "vs"):
+            assert np.array_equal(mine[part], whole[part][:, :, hs]), part

@@ -272,19 +272,21 @@ def test_unported_settings_raise(tiny, tmp_path):
         assert torch.equal(eng(ids(9)), model(torch.as_tensor(ids(9))))
     with pytest.raises(NotImplementedError, match="integer"):
         deepspeed_tpu_torch.init_inference(model, config={"dtype": "int8"}, device="cpu")
-    # an HF directory of the Llama family serves through its converted
-    # weights; another family's has no v1 forward yet
+    # an HF directory serves through its converted weights; OPT has no
+    # KV-cached forward (in the JAX package either): generate raises
     from deepspeed_tpu_torch.checkpoint import hf
     hf.export_pretrained(model, model.config, str(tmp_path / "llama"))
     served = deepspeed_tpu_torch.init_inference(
         port_model(tiny), config={"checkpoint": str(tmp_path / "llama"), "dtype": "fp32"},
         device="cpu")
     assert torch.equal(served(ids(9)), model(torch.as_tensor(ids(9))))
-    (tmp_path / "opt").mkdir()
-    (tmp_path / "opt" / "config.json").write_text('{"model_type": "opt"}')
-    with pytest.raises(NotImplementedError, match="A7 part 2"):
-        deepspeed_tpu_torch.init_inference(model, config={"checkpoint": str(tmp_path / "opt")},
-                                           device="cpu")
+    from deepspeed_tpu_torch.models.opt import OPTConfig, OPTForCausalLM
+    opt = OPTForCausalLM.from_seed(OPTConfig.tiny(dtype=torch.float32), 0, device="cpu")
+    hf.export_pretrained(opt, opt.config, str(tmp_path / "opt"))
+    eng = deepspeed_tpu_torch.init_inference(
+        None, config={"checkpoint": str(tmp_path / "opt"), "dtype": "fp32"}, device="cpu")
+    with pytest.raises(ValueError, match="no KV-cached forward"):
+        eng.generate(ids(9), max_new_tokens=2)
 
 
 def test_native_checkpoint_loads_where_jax_asserts(tiny, tmp_path):

@@ -341,11 +341,12 @@ def test_preemption_swaps_every_rank_s_pages(run):
     assert r1["pressure_tp2"] is None
 
 
-# (case, the queue item that refused it at tp 2): A5 part 2 serves its cases
-# now, and a vocabulary tp does not divide raises ValueError as the JAX mesh
-# does; the rest still name their item
+# (case, the queue item that refused it at tp 2): A5 parts 2 and 3 serve
+# their cases now (fleet and replica-group replicas at tp 2 build on both
+# ranks), and a vocabulary tp does not divide raises ValueError as the JAX
+# mesh does; the rest still name their item
 SERVED_SINCE_A5_PART_2 = ("opt", "falcon", "kv_heads", "heads", "v1_quant", "speculative",
-                          "host_tier")
+                          "host_tier", "fleet", "replica_group")
 
 
 @pytest.mark.parametrize("case,item", [
@@ -370,12 +371,16 @@ def test_out_of_scope_raises(run, case, item):
 
 
 def test_idle_v1_ranks_raise_naming_a5_part_3(run):
-    """A v1 grid of 2 ranks in a world of 4 leaves two idle: A5 part 3."""
-    _, got, _ = run
-    for r in got["grid4"]:
-        msg = r["idle_grid"]
-        assert msg is not None and msg.startswith("NotImplementedError") \
-            and "A5 part 3" in msg, msg
+    """A v1 grid of 2 ranks in a world of 4 leaves two idle, as the JAX mesh
+    takes the first dp x tp devices (A5 part 3 serves it): every rank
+    returns the same logits, bitwise, the grid's; ranks 2 and 3 are idle."""
+    _, got, want = run
+    ranks = got["grid4"]
+    np.testing.assert_allclose(ranks[0]["idle_grid"][2], want["v1_tp2_logits"], **V1_TOL)
+    for rank, r in enumerate(ranks):
+        grid, idle, logits = r["idle_grid"]
+        assert grid == {"dp": 1, "tp": 2} and idle == (rank >= 2)
+        np.testing.assert_array_equal(logits, ranks[0]["idle_grid"][2])
 
 
 def test_topology_tp_axis(run):

@@ -447,11 +447,20 @@ def test_plan_cuts_whole_units_earlier_ranks_first():
 
 @pytest.mark.parametrize("case", ["one_group", "heads_short", "padded_group"])
 def test_plan_names_a5_part_3_where_a_rank_would_hold_no_whole_unit(case):
-    """A group of 256 over the tiny FFN of 128 (one group for two ranks),
-    4 query heads over 8 ranks, and groups that do not tile the FFN raise
-    ``NotImplementedError`` naming A5 part 3."""
+    """Where a rank would hold no whole unit (A5 part 3 serves it now): a
+    group of 256 over the tiny FFN of 128 and the query heads' 64 columns
+    (one group for two ranks) and 4 query heads over 8 ranks leave the
+    last ranks an empty share; groups of
+    16 that do not tile an FFN of 136 leave the last rank the padded group
+    (5 and 4 units: 80 and 56 columns)."""
     tiny = port_llama.LlamaConfig.tiny()
-    args = {"one_group": (tiny, 2, 256), "heads_short": (tiny, 8, None),
-            "padded_group": (dataclasses.replace(tiny, intermediate_size=136), 2, 16)}[case]
-    with pytest.raises(NotImplementedError, match="A5 part 3"):
-        TPPlan(args[0], args[1], 0, group_size=args[2])
+    args, want = {
+        "one_group": ((tiny, 2, 256), {"ffn": [128, 0], "heads": [4, 0]}),
+        "heads_short": ((tiny, 8, None), {"heads": [1] * 4 + [0] * 4,
+                                          "kv_heads": [1] * 4 + [0] * 4,
+                                          "ffn": [16] * 8}),
+        "padded_group": ((dataclasses.replace(tiny, intermediate_size=136), 2, 16),
+                         {"ffn": [80, 56]})}[case]
+    plans = [TPPlan(args[0], args[1], r, group_size=args[2]) for r in range(args[1])]
+    for attr, values in want.items():
+        assert [getattr(p, attr) for p in plans] == values, attr

@@ -186,6 +186,12 @@ def raised(fn):
     return None
 
 
+def stopped(replicas):
+    """A tp group of replicas (fleet or ``ReplicaGroup``) built on every
+    rank: the controller ends the followers' loops at once."""
+    replicas.stop_followers()
+
+
 def refusals(inp, out):
     """What tensor-parallel serving refused at tp 2 and serves now (each
     case builds, the text None), and what it refuses: the errors' texts."""
@@ -228,9 +234,11 @@ def refusals(inp, out):
         "train_mesh": lambda: deepspeed_tpu_torch.initialize(
             model=seeded(tiny(dtype=torch.float32)), config={"train_batch_size": 2},
             mesh=MeshTopology(tp=2), device=CPU),
-        "fleet": lambda: PrefillDecodeFleet(llama_model(inp), devices=[CPU] * 4, tp_size=2,
-                                            engine_config=inp_engine_config()),
-        "replica_group": lambda: ReplicaGroup(llama_model(inp), [CPU, CPU], tp_size=2),
+        "fleet": lambda: stopped(PrefillDecodeFleet(llama_model(inp), devices=[CPU] * 4,
+                                                    tp_size=2,
+                                                    engine_config=inp_engine_config())),
+        "replica_group": lambda: stopped(ReplicaGroup(llama_model(inp), [CPU, CPU],
+                                                      tp_size=2)),
         "ep_with_tp": lambda: port_mixtral.MixtralForCausalLM(
             port_mixtral.MixtralConfig.tiny(), device="meta", ep_size=2, tp_size=2),
     }
@@ -268,10 +276,14 @@ def topology_runs(inp, rank, world, out):
 
 
 def idle_grid_runs(inp, out):
-    """A (1, 2) grid in the world of 4 would leave two ranks idle."""
-    out["idle_grid"] = raised(lambda: deepspeed_tpu_torch.init_inference(
+    """A (1, 2) grid in the world of 4 leaves two ranks idle: they hold no
+    weights and return rank 0's logits."""
+    groups.reset()
+    eng = deepspeed_tpu_torch.init_inference(
         llama_model(inp), config={"dtype": "fp32", "tensor_parallel": {"tp_size": 2}},
-        device=CPU))
+        device=CPU)
+    out["idle_grid"] = (eng.grid, eng.idle, eng(inp["v1_ids"]).numpy())
+    groups.reset()
 
 
 def clamp_runs(inp, out):
