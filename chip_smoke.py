@@ -451,6 +451,30 @@ prints no result.
    except those whose last group is padded (Falcon-7B's qkv, ``dense``,
    ``fc2``).
 
+28. GPT-2 large trained at its published width and all 36 layers (after
+   phase 25; phase 4 holds rows 2-4 at its shape, ``train_gpt2_large``):
+   built under ``zero.Init`` from a seed, bf16 with fp32 masters,
+   OneBitLamb (freeze step 2, so warmup LAMB and 1-bit compression both
+   run), the ``dots`` policy, ``prefetch_batches`` 2 and ``fused_step``,
+   GAS 2 at 8 x 1024 tokens, six ``train_batch`` windows: the loss falls,
+   tokens/s and the model-FLOPs share of 989 TFLOP/s
+   (``gpt2_flops_per_token``), peak memory; rows 2-4 launch 36 each a
+   micro-step, all on their ``wgmma`` kernels, and one window under
+   ``everything`` 72 forwards a micro-step; a seventh window runs under
+   CUDA's sync debug mode "error" (``train_batch`` never synchronises the
+   host within a window, so ``fused_step`` is accepted and changes
+   nothing). An engine without ``fused_step`` and prefetching from the same
+   seed gives the same window losses; one micro-step's attention-projection
+   gradients hold the plain attention within 0.01 relative L2, two
+   controls (one key ahead of the causal mask, no mask) outside;
+   ``export_pretrained`` then ``load_pretrained`` gives the in-memory
+   model's logits bit for bit; Lamb, Lion, SGD, Adagrad and Muon each take
+   3 falling steps. Phase 25's four gloo ranks first build GPT-2 large at
+   ZeRO-3 under ``zero.Init``: each rank's device peak while built under
+   its share plus one whole fp32 leaf, its working shards bit for bit those
+   of the whole-module path. With 2+ cards ``compressed_allreduce`` runs
+   over NCCL against its plain version on the card.
+
 The script prints its total wall time. The line before the last is one
 JSON object describing each kernel; the last is ``{"ok": true, "device":
 {...}}``. Any failure raises, so the script exits non-zero without it.
@@ -1084,6 +1108,7 @@ FLASH_RTOL = {"bfloat16": 2 ** -7, "float16": 2 ** -10, "float32": 2 ** -16}
 FLASH_CASES = [
     # name, B, Tq, Tk, H, KV, Dh, dtype, options
     ("train_7b", 4, 2048, 2048, 32, 32, 128, "bfloat16", {}),
+    ("train_gpt2_large", 8, 1024, 1024, 20, 20, 64, "bfloat16", {}),
     ("gqa_kv8", 2, 2048, 2048, 32, 8, 128, "bfloat16", {}),
     ("window_512", 2, 2048, 2048, 32, 32, 128, "bfloat16", {"window": 512}),
     ("segments_4", 2, 2048, 2048, 32, 32, 128, "bfloat16", {"segments": 4}),
@@ -7325,6 +7350,7 @@ def zpp_rank(rank, world, port, out_dir):
     mine = [{"input_ids": w[rank * ZPP_MICRO:(rank + 1) * ZPP_MICRO],
              "labels": w[rank * ZPP_MICRO:(rank + 1) * ZPP_MICRO]} for w in windows]
     res = dict(rank=rank, params=cfg.num_parameters())
+    res["gpt2_init"] = gpt2_init_rank_check(rank, world, dev)
 
     def progress(what):
         if rank == 0:
@@ -7452,6 +7478,22 @@ def phase_zeropp():
                                  x["c"]["launches"]["block_dequantize_reduce"]}:
             failures.append(f"rank {x['rank']} c: kernels {x['c']['kernels']}, not "
                             f"quantize_warp / dequant_reduce_stream")
+    for x in ranks:
+        g = x["gpt2_init"]
+        bound = g["share_bytes"] + GPT2_INIT_LEAVES * g["largest_leaf_bytes"]
+        print(f"zero++ rank {x['rank']}: GPT-2 {GPT2_PRESET} under zero.Init at ZeRO-3: "
+              f"device peak while built {g['peak_bytes'] / 1e9:.3f} GB, share "
+              f"{g['share_bytes'] / 1e9:.3f} GB + largest leaf "
+              f"{g['largest_leaf_bytes'] / 1e9:.3f} GB (bound share + "
+              f"{GPT2_INIT_LEAVES} leaves {bound / 1e9:.3f} GB); built in "
+              f"{g['init_s']:.1f}s, whole-module path {g['whole_init_s']:.1f}s; working "
+              f"shards differing from the whole-module path: {g['differs']} of "
+              f"{g['leaves']}", flush=True)
+        if g["differs"]:
+            failures.append(f"rank {x['rank']}: zero.Init working shards differ at "
+                            f"{g['differs'][:5]}")
+        if not g["peak_bytes"] <= bound:
+            failures.append(f"rank {x['rank']}: zero.Init peak {g['peak_bytes']} > {bound}")
     a, b, c, plain = r0["a"], r0["b"], r0["c"], r0["plain"]
     if b["losses"] != a["losses"]:
         failures.append(f"(b) {b['losses']} != (a) {a['losses']}")
@@ -8121,6 +8163,459 @@ def phase_v1_families():
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 28: GPT-2 large trained through initialize() under zero.Init
+# ---------------------------------------------------------------------------
+
+# GPT-2 large (JAX GPT2Config.large) at its published width and all 36
+# layers: bf16 with fp32 masters, built under zero.Init from a seed,
+# OneBitLamb with freeze_step 2 (warmup LAMB for 2 steps, then 1-bit
+# compression), the "dots" policy, prefetch_batches 2 and fused_step (a JAX
+# key the port accepts: its train_batch never reads back within a window),
+# GAS 2 at micro-batch 8 x 1024 tokens. The tokens are drawn from the first
+# GPT2_DATA_VOCAB ids only (a unigram the model can learn in a few steps;
+# the full vocabulary of random tokens leaves nothing to learn) and the 4
+# micro-batches of the dataset repeat.
+GPT2_PRESET = "large"
+GPT2_MICRO, GPT2_T, GPT2_GAS, GPT2_WINDOWS = 8, 1024, 2, 6
+GPT2_DATA_VOCAB = 2048
+GPT2_BATCHES = 4
+GPT2_CONFIG = {
+    "train_batch_size": GPT2_MICRO * GPT2_GAS,
+    "train_micro_batch_size_per_gpu": GPT2_MICRO,
+    "gradient_accumulation_steps": GPT2_GAS,
+    "bf16": {"enabled": True},
+    "optimizer": {"type": "OneBitLamb", "params": {"lr": 1e-2, "freeze_step": 2,
+                                                   "weight_decay": 0.01}},
+    "gradient_clipping": 1.0,
+    "activation_checkpointing": {"policy": "dots"},
+    "prefetch_batches": 2,
+    "fused_step": True,
+    "seed": 28,
+    "steps_per_print": 100,
+}
+# Stated before the first run on the card. The loss must fall by this much
+# from the first window to the last. The engine configured with fused_step
+# and prefetching, and one without either, run the same kernels on the same
+# data in the same order: their window losses must agree to GPT2_FUSED_RTOL
+# (they are expected bitwise equal). The first micro-step against the same
+# model on the plain attention: the loss to 1e-3 relative, and the
+# gradients of the attention projections (c_attn, c_proj), which an
+# attention fault moves first, to GPT2_GRAD_REL_L2_TOLERANCE relative L2.
+# Two controls must fail that bound: the plain attention without its causal
+# mask, and the subtler one that lets each query see one key ahead. On the
+# card (H100 80GB HBM3, 700 W) over all parameters the kernel read 0.0028,
+# the controls 0.0068 (one key ahead) and 0.040 (no mask), all under a
+# 0.05 bound: GPT-2's freshly drawn attention is near uniform, and the tied
+# wte's gradient, which the attention moves least, dominates that norm.
+# Over the attention projections the kernel read 0.0035 and the no-mask
+# control 0.164; the bound sits between the kernel and the one-key-ahead
+# control.
+GPT2_LOSS_FALL = 0.1
+GPT2_FUSED_RTOL = 1e-6
+GPT2_GRAD_REL_L2_TOLERANCE = 0.01
+GPT2_LOSS_REL_TOLERANCE = 1e-3
+# Three steps of each optax optimizer on one repeated micro-batch: the loss
+# must be finite and fall from the first step to the third.
+GPT2_OPTIMIZERS = {"Lamb": {"lr": 1e-2, "weight_decay": 0.01},
+                   "Lion": {"lr": 1e-4},
+                   "SGD": {"lr": 0.3, "momentum": 0.9},
+                   "Adagrad": {"lr": 1e-2},
+                   "Muon": {"lr": 2e-2}}
+# zero.Init on phase 25's four gloo ranks (GPT-2 large, ZeRO-3): a rank's
+# device peak while the engine is built must stay under its share (what
+# stays allocated after the build) plus one whole fp32 leaf of the largest,
+# the bound zero/sharded_init.py states.
+GPT2_INIT_LEAVES = 1.0
+
+
+def gpt2_dataset(cfg):
+    import numpy as np
+    rng = np.random.default_rng(28)
+    ids = rng.integers(0, min(GPT2_DATA_VOCAB, cfg.vocab_size),
+                       (GPT2_BATCHES * GPT2_MICRO, GPT2_T)).astype(np.int64)
+    return {"input_ids": ids, "labels": ids}
+
+
+def gpt2_engine(cfg, config, data=None):
+    """An engine over GPT-2 built under ``zero.Init`` from the config's
+    seed."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
+    with deepspeed_tpu_torch.zero.Init(config=config):
+        model = GPT2LMHeadModel(cfg)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config,
+                                                training_data=data, device=DEVICE)
+    return engine
+
+
+def flash_counts(fa):
+    return {"flash_mha_fwd": fa.flash_mha_fwd.launches,
+            "flash_mha_bwd_dq": fa.flash_mha_bwd_dq.launches,
+            "flash_mha_bwd_dkv": fa.flash_mha_bwd_dkv.launches}
+
+
+def gpt2_windows(engine, n, timed=True):
+    """``n`` ``train_batch`` windows: (window losses, wall seconds each)."""
+    import torch
+    losses, walls = [], []
+    for _ in range(n):
+        t = time.perf_counter()
+        loss = engine.train_batch()
+        if timed:
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        losses.append(loss)
+    return [float(x) for x in losses], walls
+
+
+def gpt2_sync_free_window(engine):
+    """One window with CUDA's sync debug mode at "error": any host
+    synchronisation inside ``train_batch`` raises. Returns the error, or
+    None."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = engine.train_batch()
+        err = None
+    except RuntimeError as e:
+        import traceback
+        ours = [f for f in traceback.extract_tb(e.__traceback__)
+                if "deepspeed_tpu_torch" in f.filename]
+        where = f" at {ours[-1].filename}:{ours[-1].lineno} ({ours[-1].line})" if ours else ""
+        err, loss = str(e).splitlines()[0] + where, None
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return err, (None if loss is None else float(loss))
+
+
+def gpt2_plain_check(engine, batch):
+    """One micro-step's loss and gradients of the engine's module through
+    the kernels against the same module on the plain attention, and the
+    two controls: one key ahead of the causal mask, and no mask. The
+    module runs outside ``engine.backward``, so no gradient reaches the
+    engine's accumulators."""
+    import torch
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    on_card = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+    model = engine.module
+
+    def step(attention):
+        loss = model(on_card, attention=attention)
+        loss.backward()
+        grads = [p.grad for n, p in model.named_parameters() if ".attn." in n]
+        for p in model.parameters():
+            p.grad = None
+        return float(loss.detach()), grads
+
+    T = on_card["input_ids"].shape[1]
+    ahead = torch.full((T, T), fa.NEG_INF, device=DEVICE).triu(2)[None, None]
+    kernel_loss, kernel_grads = step(fa.mha)
+    plain_loss, plain_grads = step(fa.mha_plain)
+    grad_err = rel_l2(kernel_grads, plain_grads)
+    del plain_grads
+    controls = {}
+    for name, attention in (
+            ("one_key_ahead", lambda q, k, v, causal: fa.mha_plain(
+                q, k, v, bias=ahead.to(q.dtype), causal=False)),
+            ("no_mask", lambda q, k, v, causal: fa.mha_plain(q, k, v, causal=False))):
+        _, control_grads = step(attention)
+        controls[name] = rel_l2(kernel_grads, control_grads)
+        del control_grads
+    del kernel_grads
+    return dict(loss=kernel_loss, plain_loss=plain_loss,
+                loss_err=abs(kernel_loss - plain_loss) / abs(plain_loss),
+                grad_err=grad_err, control_errs=controls)
+
+
+def gpt2_optimizer_steps(cfg, data):
+    """Three steps of each optax optimizer, one repeated micro-batch."""
+    import numpy as np
+    import torch
+    out = {}
+    batch = {k: v[:GPT2_MICRO] for k, v in data.items()}
+    for name, params in GPT2_OPTIMIZERS.items():
+        config = dict(GPT2_CONFIG, optimizer={"type": name, "params": params},
+                      train_batch_size=GPT2_MICRO, gradient_accumulation_steps=1,
+                      prefetch_batches=0, fused_step=False)
+        engine = gpt2_engine(cfg, config)
+        t = time.perf_counter()
+        losses = []
+        for _ in range(3):
+            loss = engine(batch)
+            engine.backward(loss)
+            engine.step()
+            losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        out[name] = dict(losses=losses, wall_s=time.perf_counter() - t,
+                         ok=bool(np.isfinite(losses).all() and losses[2] < losses[0]))
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def gpt2_hf_round_trip(engine, cfg):
+    """``export_pretrained`` of the trained masters (bf16), then
+    ``load_pretrained``: its logits must be, bit for bit, those of the
+    in-memory model holding the same bf16 weights."""
+    import shutil
+    import tempfile
+    import torch
+    from deepspeed_tpu_torch.checkpoint import hf
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
+    params = engine.get_model_parameters()
+    mem = GPT2LMHeadModel(dataclasses.replace(cfg, dtype=torch.bfloat16), device="meta")
+    # the exported bf16 values, held in each parameter's dtype (LayerNorm fp32)
+    mem.load_state_dict({n: params[n].to(DEVICE).to(torch.bfloat16).to(p.dtype)
+                         for n, p in mem.named_parameters()}, assign=True)
+    (REPO / "build").mkdir(exist_ok=True)
+    d = tempfile.mkdtemp(dir=REPO / "build")
+    try:
+        t = time.perf_counter()
+        hf.export_pretrained(params, cfg, d, dtype=torch.bfloat16)
+        loaded = hf.load_pretrained(d, dtype=torch.bfloat16, device=DEVICE)
+        seconds = time.perf_counter() - t
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    ids = torch.from_numpy(gpt2_dataset(cfg)["input_ids"][:1, :128]).to(DEVICE)
+    with torch.no_grad():
+        mem.eval(), loaded.eval()
+        a, b = mem(ids), loaded(ids)
+    return dict(bitwise=bool(torch.equal(a, b)), max_abs_diff=float((a - b).abs().max()),
+                seconds=seconds)
+
+
+def phase_gpt2_training():
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, gpt2_flops_per_token
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
+
+    cfg = getattr(GPT2Config, GPT2_PRESET)()
+    L = cfg.n_layer
+    data = gpt2_dataset(cfg)
+    failures = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = gpt2_engine(cfg, GPT2_CONFIG, data)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    print(f"gpt2: GPT-2 {GPT2_PRESET}, {L} of {L} layers, {cfg.num_parameters() / 1e6:.1f}M "
+          f"params, built under zero.Init in {build_s:.1f}s; OneBitLamb freeze_step 2, "
+          f"dots, prefetch 2, fused_step (accepted), GAS {GPT2_GAS} x micro {GPT2_MICRO} x "
+          f"{GPT2_T}", flush=True)
+    fa.reset_launch_counts()
+    tally = fa.kernel_launches()
+    losses, walls = gpt2_windows(engine, GPT2_WINDOWS)
+    launches = flash_counts(fa)
+    routes = launched_kernels(fa, tally)
+    micro = GPT2_WINDOWS * GPT2_GAS
+    expected = {k: L * micro for k in launches}
+    want_routes = {"fwd_wgmma": L * micro, "dq_wgmma": L * micro,
+                   dkv_kernel("bfloat16", cfg.n_embd // cfg.n_head): L * micro}
+    sync_err, sync_loss = gpt2_sync_free_window(engine)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tokens = GPT2_GAS * GPT2_MICRO * GPT2_T
+    steady = float(np.mean(walls[1:]))
+    tok_s = tokens / steady
+    flops_token = gpt2_flops_per_token(cfg, GPT2_T)
+    stats = dict(preset=GPT2_PRESET, layers=L, params=cfg.num_parameters(),
+                 window_losses=losses, window_wall_s=walls, steady_window_s=steady,
+                 tokens_per_s=tok_s, model_flops_per_token=flops_token,
+                 mfu_vs_989_tflops=flops_token * tok_s / 989e12, peak_memory_gb=peak,
+                 launches=launches, expected_launches=expected, kernels_launched=routes,
+                 sync_free_window=sync_err is None, sync_error=sync_err,
+                 build_s=build_s)
+    print(f"gpt2 training {json.dumps(stats)}", flush=True)
+    if not all(np.isfinite(losses)):
+        failures.append(f"losses not finite: {losses}")
+    if not losses[-1] <= losses[0] - GPT2_LOSS_FALL:
+        failures.append(f"loss did not fall by {GPT2_LOSS_FALL}: {losses}")
+    if launches != expected:
+        failures.append(f"dots launches {launches} != {expected} (36 each a micro-step)")
+    if routes != want_routes:
+        failures.append(f"launched {routes}, not {want_routes}")
+    if sync_err is not None:
+        failures.append(f"a train_batch window synchronised the host: {sync_err}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # an engine without fused_step and prefetching on the same data: its
+    # window losses, the plain attention check, and one window under
+    # "everything"
+    unfused_cfg = dict(GPT2_CONFIG, fused_step=False, prefetch_batches=0)
+    engine = gpt2_engine(cfg, unfused_cfg, data)
+    unfused, _ = gpt2_windows(engine, 2, timed=False)
+    fused_gap = max(abs(a - b) / abs(b) for a, b in zip(losses[:2], unfused))
+    print(f"gpt2: windows with fused_step and prefetch {losses[:2]} vs without "
+          f"{unfused}: relative gap {fused_gap:.3g} (tolerance {GPT2_FUSED_RTOL})",
+          flush=True)
+    if not fused_gap <= GPT2_FUSED_RTOL:
+        failures.append(f"windows with and without fused_step differ: {fused_gap}")
+    plain = gpt2_plain_check(engine, {k: v[:GPT2_MICRO] for k, v in data.items()})
+    print(f"gpt2: micro-step vs the plain attention {json.dumps(plain)}; tolerances loss "
+          f"{GPT2_LOSS_REL_TOLERANCE}, gradients {GPT2_GRAD_REL_L2_TOLERANCE}", flush=True)
+    if not plain["loss_err"] <= GPT2_LOSS_REL_TOLERANCE:
+        failures.append(f"loss disagrees with the plain attention: {plain['loss_err']}")
+    if not plain["grad_err"] <= GPT2_GRAD_REL_L2_TOLERANCE:
+        failures.append(f"gradients disagree with the plain attention: {plain['grad_err']}")
+    for name, err in plain["control_errs"].items():
+        if not err > GPT2_GRAD_REL_L2_TOLERANCE:
+            failures.append(f"the gradient bound does not reject the {name} control: {err}")
+    checkpointing._CONFIG["policy"] = "everything"
+    try:
+        fa.reset_launch_counts()
+        gpt2_windows(engine, 1, timed=False)
+        everything = flash_counts(fa)
+    finally:
+        checkpointing._CONFIG["policy"] = "dots"
+    want_everything = {"flash_mha_fwd": 2 * L * GPT2_GAS, "flash_mha_bwd_dq": L * GPT2_GAS,
+                       "flash_mha_bwd_dkv": L * GPT2_GAS}
+    print(f"gpt2: one window under \"everything\": launches {everything} (implied "
+          f"{want_everything})", flush=True)
+    if everything != want_everything:
+        failures.append(f"everything launches {everything} != {want_everything}")
+    hf_trip = gpt2_hf_round_trip(engine, cfg)
+    print(f"gpt2: HF round trip {json.dumps(hf_trip)}", flush=True)
+    if not hf_trip["bitwise"]:
+        failures.append(f"HF round trip logits differ: {hf_trip['max_abs_diff']}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    opts = gpt2_optimizer_steps(cfg, data)
+    print(f"gpt2: optimizers {json.dumps(opts)}", flush=True)
+    for name, r in opts.items():
+        if not r["ok"]:
+            failures.append(f"{name}: losses {r['losses']} not finite and falling")
+    if failures:
+        fail("gpt2: " + "; ".join(failures))
+    return dict(launches=launches, kernels=routes, everything_launches=everything,
+                tokens_per_s=tok_s, mfu=stats["mfu_vs_989_tflops"], peak_memory_gb=peak)
+
+
+def gpt2_init_rank_check(rank, world, dev):
+    """Phase 28's zero.Init check on one of phase 25's gloo ranks: GPT-2
+    large at ZeRO-3 built under ``zero.Init`` (its device peak while built,
+    its share after, the largest leaf), then the whole-module path
+    (``from_seed`` on the card, ``initialize``): every working shard must
+    be the zero.Init engine's bit for bit."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+    from deepspeed_tpu_torch.parallel import groups
+    cfg = getattr(GPT2Config, GPT2_PRESET)()
+    config = dict(GPT2_CONFIG, train_batch_size=world, train_micro_batch_size_per_gpu=1,
+                  gradient_accumulation_steps=1, prefetch_batches=0, fused_step=False,
+                  zero_optimization={"stage": 3, "stage3_param_persistence_threshold": 0})
+
+    def working(engine):
+        return {leaf.name: (leaf.shard if leaf.param_dim is not None else leaf.param.data)
+                .detach().clone() for leaf in engine._leaves}
+
+    groups.reset()
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    with deepspeed_tpu_torch.zero.Init(config=config):
+        model = GPT2LMHeadModel(cfg)
+    largest = max(p.numel() for p in model.parameters()) * 4
+    engine = deepspeed_tpu_torch.initialize(model=model, config=config, device=dev)[0]
+    torch.cuda.synchronize(dev)
+    out = dict(peak_bytes=torch.cuda.max_memory_allocated(dev) - base,
+               share_bytes=torch.cuda.memory_allocated(dev) - base,
+               largest_leaf_bytes=largest, init_s=time.perf_counter() - t)
+    sharded = working(engine)
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    groups.reset()
+    t = time.perf_counter()
+    whole = GPT2LMHeadModel.from_seed(cfg, GPT2_CONFIG["seed"], device=dev)
+    engine = deepspeed_tpu_torch.initialize(model=whole, config=config, device=dev)[0]
+    out["whole_init_s"] = time.perf_counter() - t
+    del whole
+    ref = working(engine)
+    out["differs"] = [n for n in ref if not torch.equal(ref[n], sharded[n])]
+    out["leaves"] = len(ref)
+    del engine, ref, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    groups.reset()
+    return out
+
+
+# compressed_allreduce over NCCL (2+ cards): one rank a card, inputs drawn
+# from a seed per step, held to compressed_allreduce_reference computed on
+# cuda:0 from every rank's inputs of that step: the outputs' sign bits
+# equal, every value within CAR_RTOL of the largest output. The first run
+# computed the reference on the host's CPU and read 4.9e-5 (4 H100s): the
+# CPU's fp32 norm over 2^20 elements sums in another order than the card's.
+CAR_N = 1 << 20
+CAR_STEPS = 3
+CAR_RTOL = 1e-6
+
+
+def car_rank(rank, world, port, out_dir):
+    import datetime
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, str(REPO))
+    from deepspeed_tpu_torch.runtime.comm import compressed
+    torch.cuda.set_device(rank)
+    tdist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                             world_size=world, rank=rank,
+                             timeout=datetime.timedelta(seconds=300))
+    dev = torch.device("cuda", rank)
+    we, se = compressed.init_error_buffers(CAR_N, world, device=dev)
+    res = []
+    for step in range(CAR_STEPS):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1000 * step + rank)
+        x = torch.randn(CAR_N, device=dev, generator=gen)
+        out, we2, se2 = compressed.compressed_allreduce(x, we, se)
+        res.append(dict(x=x.cpu(), we=we.cpu(), se=se.cpu(), out=out.cpu(), we2=we2.cpu(),
+                        se2=se2.cpu()))
+        we, se = we2, se2
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    tdist.barrier()
+    tdist.destroy_process_group()
+
+
+def phase_compressed_allreduce():
+    import torch
+    from deepspeed_tpu_torch.runtime.comm import compressed
+    world = min(torch.cuda.device_count(), 4)
+    if world < 2:
+        print("compressed allreduce over NCCL: not run (one card visible; the CPU tests "
+              "hold it on 4 gloo ranks against the JAX collective)", flush=True)
+        return None
+    ranks = spawn_ranks(car_rank, world)
+    worst, sign_equal = 0.0, True
+    for step in range(CAR_STEPS):
+        got = [{k: v.to(DEVICE) for k, v in r[step].items()} for r in ranks]
+        want, we2, se2 = compressed.compressed_allreduce_reference(
+            [g["x"] for g in got], [g["we"] for g in got], [g["se"] for g in got])
+        for r, g in enumerate(got):
+            scale = float(want.abs().max())
+            worst = max(worst, float((g["out"] - want).abs().max()) / scale)
+            sign_equal &= bool(torch.equal(g["out"] >= 0, want >= 0))
+            worst = max(worst, float((g["we2"] - we2[r]).abs().max()) / scale,
+                        float((g["se2"] - se2[r]).abs().max()) / scale)
+    print(f"compressed allreduce over NCCL on {world} cards: {CAR_STEPS} steps of {CAR_N} "
+          f"elements, signs equal {sign_equal}, worst error {worst:.3g} of the largest "
+          f"(tolerance {CAR_RTOL})", flush=True)
+    if not (sign_equal and worst <= CAR_RTOL):
+        fail(f"compressed allreduce disagrees with its plain version: signs {sign_equal}, "
+             f"error {worst}")
+    return dict(world=world, worst=worst)
+
+
 def quant_kernel_lines(cases, zero_ranks, ep_ranks, fleet, zeropp):
     """The kernels-line entries of the two qgZ kernels: the main case's
     numbers, every case's, the launches of phase 11's run (where it ran,
@@ -8296,6 +8791,14 @@ def main():
     t16 = time.perf_counter()
     zeropp_report = phase_zeropp()
     print(f"phase zero++ (one card): {time.perf_counter() - t16:.1f}s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t17 = time.perf_counter()
+    gpt2_report = phase_gpt2_training()
+    print(f"phase gpt2 training: {time.perf_counter() - t17:.1f}s", flush=True)
+    t17 = time.perf_counter()
+    phase_compressed_allreduce()
+    print(f"phase compressed allreduce: {time.perf_counter() - t17:.1f}s", flush=True)
     zero_ranks = run_zero_phase()
     ep_ranks = run_expert_parallel_phase()
 
@@ -8339,6 +8842,7 @@ def main():
         rounding_probe=[{k: r[k] for k in ("dtype", "dh", "bs", "Q", "ratio", "fault_ratios")}
                         for r in paged_probes])]
     train_case = flash_cases[0]   # train_7b: the shape of the training main path
+    gpt2_case = next(c for c in flash_cases if c["name"] == "train_gpt2_large")
     replaces = {"flash_mha_fwd": "deepspeed_tpu/ops/pallas/flash_attention.py:380",
                 "flash_mha_bwd_dq": "deepspeed_tpu/ops/pallas/flash_attention.py:549",
                 "flash_mha_bwd_dkv": "deepspeed_tpu/ops/pallas/flash_attention.py:572"}
@@ -8349,6 +8853,12 @@ def main():
             source="deepspeed_tpu_torch/csrc/flash_attention.cu",
             replaces=replaces[kn], launches=train_launches[kn],
             mixtral_training_launches=moe_train_launches[kn],
+            gpt2_large_launches=gpt2_report["launches"][kn],
+            gpt2_large_everything_launches=gpt2_report["everything_launches"][kn],
+            gpt2_large_kernels={k: v for k, v in gpt2_report["kernels"].items()
+                                if k.startswith(kn.split("_")[-1][:3])},
+            gpt2_large_case={k: gpt2_case[kn][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
             max_abs_err=main["max_abs_err"], ms=main["ms"],
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],

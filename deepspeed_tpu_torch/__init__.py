@@ -101,6 +101,15 @@ def init_inference(model=None, config=None, params=None, device=None, **kwargs):
     return InferenceEngine(model, cfg, params=params, device=device)
 
 
+def __getattr__(name):
+    # ``deepspeed_tpu_torch.zero``: ``deepspeed.zero`` (Init, the tiled
+    # linears), imported on first use
+    if name == "zero":
+        import importlib
+        return importlib.import_module("deepspeed_tpu_torch.runtime.zero")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def add_config_arguments(parser):
     """Add the DeepSpeed CLI flags to an argparse parser: ``--deepspeed`` and
     ``--deepspeed_config <json>``, which :func:`initialize` reads through

@@ -26,7 +26,9 @@ reads ``config.json`` itself: it imports neither ``transformers`` nor
 
 Families: llama / mistral / qwen2 / qwen (v1) / internlm into
 ``LlamaForCausalLM``, mixtral into ``MixtralForCausalLM``, opt into
-``OPTForCausalLM``, falcon and phi into ``ParallelBlockForCausalLM``. The
+``OPTForCausalLM``, falcon and phi into ``ParallelBlockForCausalLM``, gpt2
+into ``GPT2LMHeadModel`` (its Conv1D weights are ``[in, out]``, which
+``nn.Linear`` transposes; the head is the tied ``wte``). The
 families the JAX package also converts but the port has no model for raise
 ``NotImplementedError`` naming their queue item (``UNPORTED``).
 """
@@ -51,7 +53,7 @@ SUPPORTED = LLAMA_FAMILY + ("gpt2", "opt", "mixtral", "falcon", "phi", "bloom",
                             "distilbert", "qwen", "internlm")
 # families the JAX package converts whose models the port lacks: the queue
 # item of ROADMAP.md that brings each
-UNPORTED = {"gpt2": "A1 part 2", "bloom": "A12", "gpt_neox": "A12", "gptj": "A12",
+UNPORTED = {"bloom": "A12", "gpt_neox": "A12", "gptj": "A12",
             "bert": "A12", "roberta": "A12", "distilbert": "A12"}
 
 
@@ -195,6 +197,8 @@ HF_DEFAULTS = {
                     head_dim=None, max_position_embeddings=131072, rms_norm_eps=1e-5,
                     rope_theta=1e6, sliding_window=None, num_experts_per_tok=2,
                     num_local_experts=8),
+    "gpt2": dict(vocab_size=50257, n_positions=1024, n_embd=768, n_layer=12,
+                 n_head=12, layer_norm_epsilon=1e-5),
     "opt": dict(vocab_size=50272, hidden_size=768, num_hidden_layers=12, ffn_dim=3072,
                 max_position_embeddings=2048, do_layer_norm_before=True,
                 word_embed_proj_dim=None, num_attention_heads=12),
@@ -372,6 +376,45 @@ def opt_to_torch(sd, cfg, g):
             names += [f"layers.{i}.{nm}.weight", f"layers.{i}.{nm}.bias"]
     for name in names:
         yield name, g(pre + name)
+
+
+_GPT2_LINEARS = ("attn.c_attn", "attn.c_proj", "mlp.c_fc", "mlp.c_proj")
+
+
+def gpt2_to_torch(sd, cfg, g):
+    """HF GPT-2 -> ``GPT2LMHeadModel`` (JAX ``gpt2_to_flax``): the names
+    under ``transformer.``, each Conv1D weight ``[in, out]`` transposed; a
+    saved ``lm_head.weight`` is the tied ``wte`` and is not read."""
+    pre = "transformer." if "transformer.wte.weight" in sd else ""
+    names = ["wte.weight", "wpe.weight", "ln_f.weight", "ln_f.bias"]
+    for i in range(cfg.n_layer):
+        for nm in ("ln_1", "ln_2") + _GPT2_LINEARS:
+            names += [f"h.{i}.{nm}.weight", f"h.{i}.{nm}.bias"]
+    for name in names:
+        t = g(pre + name)
+        if name.endswith(_GPT2_LINEARS_W):
+            t = t.T
+        yield name, t
+
+
+_GPT2_LINEARS_W = tuple(f"{nm}.weight" for nm in _GPT2_LINEARS)
+
+
+def gpt2_from_torch(params, cfg):
+    """Inverse of :func:`gpt2_to_torch` (JAX ``gpt2_from_flax``) -> HF
+    names, with the tied head written as ``lm_head.weight``."""
+    sd = {}
+    for name, t in params.items():
+        sd["transformer." + name] = t.T.contiguous() if name.endswith(_GPT2_LINEARS_W) else t
+    sd["lm_head.weight"] = params["wte.weight"].clone()
+    return sd
+
+
+def _gpt2_config(hf, **kw):
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+    return GPT2Config(vocab_size=hf.vocab_size, n_positions=hf.n_positions,
+                      n_embd=hf.n_embd, n_layer=hf.n_layer, n_head=hf.n_head,
+                      layer_norm_epsilon=hf.layer_norm_epsilon, **kw)
 
 
 def _falcon_split_qkv(fused, H, KV, Dh, interleaved):
@@ -617,6 +660,9 @@ def _family(mt, hf, sd, dtype):
         return LlamaForCausalLM, llama_config_from_hf(hf, dtype=dtype), llama_to_torch
     if mt == "opt":
         return OPTForCausalLM, _opt_config(hf, dtype=dtype), opt_to_torch
+    if mt == "gpt2":
+        from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
+        return GPT2LMHeadModel, _gpt2_config(hf, dtype=dtype), gpt2_to_torch
     if mt == "mixtral":
         return MixtralForCausalLM, _mixtral_config(hf, dtype=dtype), mixtral_to_torch
     if mt == "falcon":
@@ -648,7 +694,7 @@ _HF_TP_SPLITS = (
 def _hf_cut(plan, name, t):
     """``plan``'s rank's part of HF tensor ``name`` (``t`` itself where it
     moves whole)."""
-    if plan.size > 1:
+    if plan is not None and plan.size > 1:
         for pattern, dim, kind in _HF_TP_SPLITS:
             if re.search(pattern, name):
                 return take_spans(t, dim, plan.spans[kind])
@@ -913,6 +959,7 @@ def export_pretrained(params, cfg, save_dir, dtype=None):
     device; ``cfg``: its config. Floating tensors are written in ``dtype``,
     or in their own dtype when it is None (bf16 stays bf16). Returns the
     path of the weights file."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
     from deepspeed_tpu_torch.models.llama import LlamaConfig
     from deepspeed_tpu_torch.models.mixtral import MixtralConfig
     from deepspeed_tpu_torch.models.opt import OPTConfig
@@ -920,6 +967,14 @@ def export_pretrained(params, cfg, save_dir, dtype=None):
 
     if isinstance(params, nn.Module):
         params = params.state_dict()
+    if isinstance(cfg, GPT2Config):
+        sd = gpt2_from_torch(params, cfg)
+        hf = {"model_type": "gpt2", "architectures": ["GPT2LMHeadModel"],
+              "vocab_size": cfg.vocab_size, "n_positions": cfg.n_positions,
+              "n_embd": cfg.n_embd, "n_layer": cfg.n_layer, "n_head": cfg.n_head,
+              "layer_norm_epsilon": cfg.layer_norm_epsilon,
+              "activation_function": "gelu_new", "tie_word_embeddings": True}
+        return _write(sd, hf, save_dir, dtype)
     written = dtype if dtype is not None else params["embed_tokens.weight"].dtype
     if isinstance(cfg, LlamaConfig):
         # pick the faithful HF family: sliding_window => mistral (global
@@ -977,6 +1032,10 @@ def export_pretrained(params, cfg, save_dir, dtype=None):
     else:
         raise UnsupportedModelError(f"unsupported model config {type(cfg).__name__}")
 
+    return _write(sd, hf, save_dir, dtype)
+
+
+def _write(sd, hf, save_dir, dtype):
     path = save_safetensors(sd, save_dir, dtype=dtype)
     with open(os.path.join(save_dir, "config.json"), "w") as f:
         json.dump(hf, f, indent=2)

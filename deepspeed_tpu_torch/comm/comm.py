@@ -26,6 +26,18 @@ ranks)]``, ``ranks`` the tuple of global ranks of its group: which groups a
 layout's communication ran over (``collective_counts``). The comms logger
 waits for ROADMAP A15.
 
+The reference's remaining verbs (JAX ``comm.py:225-345``) keep the JAX
+package's SPMD semantics: ``reduce`` and ``gather`` leave their result on
+every rank (``dst`` kept for the API), ``scatter`` broadcasts from ``src``
+and each rank keeps its slice, ``send_recv`` is a collective permute over
+``(src, dst)`` pairs of group ranks (a rank that receives nothing gets
+zeros), ``send_next`` / ``send_prev`` the ring permutes, ``isend`` /
+``irecv`` the one-pair permute behind a handle, ``monitored_barrier`` a
+barrier, and the coalesced verbs one exchange per dtype (each tensor
+returned in its own dtype). Point-to-point runs NCCL's send/recv on CUDA
+tensors; under gloo, which has none for CUDA tensors, it is staged through
+the host.
+
 ``init_distributed`` discovers the rank and world size from the launcher's
 environment (``discover_process_env``) and calls
 ``torch.distributed.init_process_group``; on CUDA it first binds the process
@@ -44,7 +56,9 @@ __all__ = ["ReduceOp", "discover_process_env", "init_distributed", "is_initializ
            "get_rank", "get_world_size", "get_local_rank", "barrier", "all_reduce",
            "all_gather", "all_gather_start", "reduce_scatter", "all_to_all_single",
            "all_to_all", "with_transpose", "broadcast", "destroy_process_group",
-           "collective_counts", "reset_collective_counts"]
+           "collective_counts", "reset_collective_counts", "reduce", "send_recv",
+           "send_next", "send_prev", "gather", "scatter", "monitored_barrier",
+           "all_reduce_coalesced", "all_gather_coalesced", "isend", "irecv"]
 
 DEFAULT_TIMEOUT_S = 1800
 
@@ -182,9 +196,9 @@ def _to_host(t):
     return host
 
 
-def _host_all_to_all(out, src, group):
-    host = _pinned(src.shape, src.dtype)
-    dist.all_to_all_single(host, _to_host(src), group=group)
+def _host_all_to_all(out, src, group, out_splits=None, in_splits=None):
+    host = _pinned(out.shape, out.dtype)
+    dist.all_to_all_single(host, _to_host(src), out_splits, in_splits, group=group)
     out.copy_(host)
 
 
@@ -284,19 +298,23 @@ def reduce_scatter(tensor, op=ReduceOp.SUM, group=None, scatter_dim=0):
     return out.movedim(0, scatter_dim) if scatter_dim else out
 
 
-def all_to_all_single(tensor, group=None):
+def all_to_all_single(tensor, group=None, output_split_sizes=None, input_split_sizes=None):
     """Block j of dim 0 of ``tensor`` goes to rank j of ``group``; block j of
     the result is what rank j sent here (``lax.all_to_all`` with
-    ``split_axis=concat_axis=0``)."""
+    ``split_axis=concat_axis=0``). The blocks are equal, or of the rows
+    the split sizes give, as in torch."""
     if _alone(group):
         return tensor
     src = tensor.contiguous()
-    out = torch.empty_like(src)
+    if output_split_sizes is None:
+        out = torch.empty_like(src)
+    else:
+        out = src.new_empty((sum(output_split_sizes),) + tuple(src.shape[1:]))
     _count("all_to_all", group)
     if _via_host(src, group):
-        _host_all_to_all(out, src, group)
+        _host_all_to_all(out, src, group, output_split_sizes, input_split_sizes)
     else:
-        dist.all_to_all_single(out, src, group=group)
+        dist.all_to_all_single(out, src, output_split_sizes, input_split_sizes, group=group)
     return out
 
 
@@ -336,3 +354,133 @@ def broadcast(tensor, src=0, group=None):
     _count("broadcast", group)
     dist.broadcast(tensor, src=src, group=group)
     return tensor
+
+
+# ---------------------------------------------------------------------------
+# the reference's remaining verbs (JAX comm.py:225-345)
+# ---------------------------------------------------------------------------
+
+def reduce(tensor, dst=0, op=ReduceOp.SUM, group=None):
+    """The reference's ``reduce``, materialised on every rank as the JAX
+    package's is (``dst`` kept for the API)."""
+    return all_reduce(tensor, op=op, group=group)
+
+
+def _global(group, r):
+    return r if group is None else dist.get_global_rank(group, r)
+
+
+def send_recv(tensor, perm, group=None):
+    """Collective permute (``lax.ppermute``): ``perm`` lists ``(src, dst)``
+    pairs of ranks of ``group``; each rank sends ``tensor`` to its ``dst``
+    and returns what its ``src`` sent, or zeros. Every rank of the group
+    calls it with the same ``perm``."""
+    if _alone(group):
+        return tensor.clone() if any(s == d for s, d in perm) else torch.zeros_like(tensor)
+    me = get_rank(group)
+    staged = _via_host(tensor, group)
+    src = tensor.detach().contiguous()
+    out = torch.zeros_like(src)
+    send_buf = _to_host(src) if staged else src
+    recv_buf = _pinned(out.shape, out.dtype) if staged else out
+    ops = [dist.P2POp(dist.isend, send_buf, _global(group, d), group)
+           for s, d in perm if s == me]
+    ops += [dist.P2POp(dist.irecv, recv_buf, _global(group, s), group)
+            for s, d in perm if d == me]
+    if ops:
+        _count("send_recv", group)
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    if staged and any(d == me for _, d in perm):
+        out.copy_(recv_buf)
+    return out
+
+
+def send_next(tensor, group=None):
+    n = get_world_size(group)
+    return send_recv(tensor, [(i, (i + 1) % n) for i in range(n)], group)
+
+
+def send_prev(tensor, group=None):
+    n = get_world_size(group)
+    return send_recv(tensor, [(i, (i - 1) % n) for i in range(n)], group)
+
+
+def gather(tensor, dst=0, group=None, axis=0):
+    """The reference's ``gather``, on every rank: the ranks' tensors stacked
+    along a new ``axis``."""
+    stacked = all_gather(tensor.contiguous(), group=group, tiled=False)
+    return stacked.movedim(0, axis) if axis else stacked
+
+
+def scatter(tensor, src=0, group=None, axis=0):
+    """Each rank of ``group`` takes its slice along ``axis`` of global rank
+    ``src``'s ``tensor``."""
+    n, me = get_world_size(group), get_rank(group)
+    if tensor.shape[axis] % n != 0:
+        raise ValueError(f"scatter: dim {axis} of size {tensor.shape[axis]} "
+                         f"is not divisible by the group's {n} ranks")
+    full = broadcast(tensor.clone(), src=src, group=group)
+    size = tensor.shape[axis] // n
+    return full.narrow(axis, me * size, size).clone()
+
+
+def monitored_barrier(group=None, timeout=None, **kwargs):
+    """The reference's ``monitored_barrier``: a barrier (rank-failure
+    detection is the launcher's job, as in the JAX package)."""
+    return barrier(group=group)
+
+
+def _coalesce_by_dtype(tensors, exchange):
+    """One exchange per dtype: ``exchange(flat)`` over the concatenation
+    of a dtype's tensors (it may add leading dims), split back."""
+    groups = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.dtype, []).append(i)
+    out = [None] * len(tensors)
+    for _, idxs in groups.items():
+        ex = exchange(torch.cat([tensors[i].reshape(-1) for i in idxs]))
+        off = 0
+        for i in idxs:
+            n = tensors[i].numel()
+            out[i] = ex[..., off:off + n].reshape(ex.shape[:-1] + tuple(tensors[i].shape))
+            off += n
+    return out
+
+
+def all_reduce_coalesced(tensors, op=ReduceOp.SUM, group=None):
+    """All-reduce a list of tensors, one exchange per dtype; returns new
+    tensors."""
+    return _coalesce_by_dtype(tensors, lambda flat: all_reduce(flat, op=op, group=group))
+
+
+def all_gather_coalesced(tensors, group=None):
+    """Gather a list of tensors, one exchange per dtype: each ``[world,
+    *shape]``."""
+    return _coalesce_by_dtype(tensors, lambda flat: all_gather(flat, group=group,
+                                                               tiled=False))
+
+
+class _Handle:
+    """An ``isend`` / ``irecv`` handle: ``wait()`` returns what this rank
+    holds after the permute."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def wait(self):
+        return self.value
+
+    def is_completed(self):
+        return True
+
+
+def isend(tensor, dst, src=0, group=None):
+    """The one-pair permute ``(src, dst)``: ``wait()`` gives ``dst``
+    ``src``'s tensor and the other ranks zeros."""
+    return _Handle(send_recv(tensor, [(src, dst)], group))
+
+
+def irecv(tensor, src, dst=0, group=None):
+    """The same permute seen from the receiver."""
+    return _Handle(send_recv(tensor, [(src, dst)], group))

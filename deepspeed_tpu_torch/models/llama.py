@@ -310,6 +310,11 @@ class LlamaForCausalLM(nn.Module):
         starts ahead of their use."""
         return {"num_blocks": len(self.layers)}
 
+    def init_parameter(self, name, tensor, generator):
+        """Draw parameter ``name`` in place by ``from_seed``'s law (what
+        ``zero.Init`` materialises with)."""
+        draw_parameter(name, tensor, generator)
+
     def jax_stacked_layers(self):
         """The JAX twin stacks its decoder layers (``scan_layers=True``, the
         layout ``params_from_flax`` reads): each ``layers.{i}`` leaf is one
@@ -420,18 +425,26 @@ def draw_from_seed(model, seed, device, std, parts):
     gen.manual_seed(int(seed))
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith("norm.weight"):
-                p.fill_(1.0)
-            elif name.endswith(".bias"):
-                p.zero_()
-            elif name in parts:
+            if name in parts and not name.endswith(("norm.weight", ".bias")):
                 shape, cut = parts[name]
                 full = torch.empty(shape, dtype=p.dtype, device=device)
                 p.copy_(cut(full.normal_(0.0, std, generator=gen)))
                 del full
             else:
-                p.normal_(0.0, std, generator=gen)
+                draw_parameter(name, p, gen, std)
     return model.requires_grad_(False)
+
+
+def draw_parameter(name, p, gen, std=0.02):
+    """``draw_from_seed``'s law for one parameter, in place: ones for a norm
+    scale, zeros for a bias, N(0, std) otherwise (the models'
+    ``init_parameter``, which ``zero.Init`` draws with)."""
+    if name.endswith("norm.weight"):
+        p.fill_(1.0)
+    elif name.endswith(".bias"):
+        p.zero_()
+    else:
+        p.normal_(0.0, std, generator=gen)
 
 
 def params_from_flax(tree, plan=None):

@@ -75,7 +75,9 @@ class _FusedLinearCrossEntropy(torch.autograd.Function):
             dl = torch.exp((x @ w.T).float() - lse[:, None])       # softmax chunk
             rel = labels - start
             in_chunk = (rel >= 0) & (rel < w.shape[0])
-            dl[rows[in_chunk], rel[in_chunk]] -= 1.0                # p - onehot
+            # p - onehot, by integer indices (a boolean index would read its
+            # count back to the host); rows outside the chunk subtract 0
+            dl[rows, rel.clamp(0, w.shape[0] - 1)] -= in_chunk.to(dl.dtype)
             dl *= g32[:, None]
             dx += dl @ w.float()
             dw[start:start + chunk] = (dl.T @ x32).to(head.dtype)

@@ -42,7 +42,8 @@ import torch
 from torch import nn
 
 from deepspeed_tpu_torch.models.llama import (LlamaAttention, LlamaConfig, RMSNorm,
-                                              draw_from_seed, set_tensor_parallel,
+                                              draw_from_seed, draw_parameter,
+                                              set_tensor_parallel,
                                               tp_parts)
 from deepspeed_tpu_torch.models.losses import lm_head_next_token_loss
 from deepspeed_tpu_torch.moe.sharded_moe import MOELayer
@@ -213,6 +214,12 @@ class MixtralForCausalLM(nn.Module):
         on dim 2 and ``w2`` [E, F, D] on dim 1; the embedding and
         ``lm_head`` over the vocabulary; the router and norms replicated."""
         return {name: split_dim(name) for name, _ in self.named_parameters()}
+
+    def init_parameter(self, name, tensor, generator):
+        """Draw parameter ``name`` in place by ``from_seed``'s law (what
+        ``zero.Init`` materialises with; an expert leaf as its whole
+        stack)."""
+        draw_parameter(name, tensor, generator)
 
     def streaming_plan(self):
         """The streaming protocol (JAX ``streaming_plan``): the decoder

@@ -37,6 +37,7 @@ is defined on rows with at least one visible key.
 """
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -517,6 +518,19 @@ def reset_launch_counts():
 # autograd
 # ---------------------------------------------------------------------------
 
+@torch.library.custom_op("deepspeed_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 bias: Optional[torch.Tensor], q_seg: Optional[torch.Tensor],
+                 kv_seg: Optional[torch.Tensor], causal: bool, scale: float,
+                 window: Optional[int], plain: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_mha_fwd`` (its plain version with ``plain``) as one
+    dispatcher op, so that a selective-checkpoint policy can name its
+    (out, lse), as the JAX package names ``flash_attn_out``."""
+    seg = None if q_seg is None else (q_seg, kv_seg)
+    fwd = flash_mha_fwd_reference if plain else flash_mha_fwd
+    return fwd(q, k, v, bias, seg, causal, scale, window)
+
+
 class _FlashMHA(torch.autograd.Function):
     """The JAX package's ``_flash`` custom VJP: the forward kernel saves
     (q, k, v, out, lse); the backward computes delta = rowsum(dO * O) in
@@ -525,9 +539,7 @@ class _FlashMHA(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, q_seg, kv_seg, causal, scale, window, plain):
-        seg = None if q_seg is None else (q_seg, kv_seg)
-        fwd = flash_mha_fwd_reference if plain else flash_mha_fwd
-        out, lse = fwd(q, k, v, bias, seg, causal, scale, window)
+        out, lse = flash_fwd_op(q, k, v, bias, q_seg, kv_seg, causal, scale, window, plain)
         ctx.save_for_backward(q, k, v, bias, q_seg, kv_seg, out, lse)
         ctx.opts = (causal, scale, window, plain)
         return out

@@ -9,10 +9,16 @@ loader's batches) and rank ``dp_rank`` yields the ``dp_rank``-th contiguous
 block of ``batch_size`` rows of each, which is where the JAX mesh places it
 (``batch_spec``); a ready batch of an iterable dataset is a global one and
 is cut the same way. ``RepeatingLoader`` restarts the wrapped loader when it
-runs out.
+runs out. ``PrefetchLoader`` (the engine's ``prefetch_batches``) assembles
+the next batches in a worker thread and copies them to the device ahead of
+the step.
 """
 
+import queue
+import threading
+
 import numpy as np
+import torch
 
 
 def _stack(samples):
@@ -108,3 +114,94 @@ class RepeatingLoader:
         except StopIteration:
             self.data_iter = iter(self.loader)
             return next(self.data_iter)
+
+
+class PrefetchLoader:
+    """Background batch assembly and ahead-of-time device placement (JAX
+    ``dataloader.py:87-170``, where ``jax.device_put``'s asynchronous
+    dispatch is the copy stream). A worker thread iterates ``loader``,
+    stages each batch's arrays in pinned host memory and copies them to
+    ``device`` with ``non_blocking`` copies on a side stream, recording an
+    event; the consumer's stream waits on that event (no host wait) when it
+    takes the batch. At most ``depth`` batches are resident ahead of the
+    consumer. On the CPU the worker only converts the arrays to tensors.
+    Each pass over the loader has its own worker; an abandoned pass's worker
+    is released."""
+
+    _END = object()
+
+    def __init__(self, loader, device=None, depth=2):
+        from deepspeed_tpu_torch import resolve_device
+        self.loader = loader
+        self.device = resolve_device(device)
+        self.depth = max(1, int(depth))
+        self._active_cancel = None
+        self._stream = None
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __getattr__(self, name):
+        # the wrapped loader's surface (batch_size, dataset, ...)
+        return getattr(self.loader, name)
+
+    def _put(self, batch):
+        """``batch`` on the device: (tensors, the copies' event or None)."""
+        if self.device.type != "cuda":
+            return _map(batch, torch.as_tensor), None
+        with torch.cuda.device(self.device):
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(self._stream):
+                out = _map(batch, lambda x: torch.as_tensor(np.asarray(x)).pin_memory().to(
+                    self.device, non_blocking=True))
+                event = torch.cuda.Event()
+                event.record(self._stream)
+        return out, event
+
+    def __iter__(self):
+        q = queue.Queue()
+        slots = threading.Semaphore(self.depth)
+        cancel = threading.Event()
+        if self._active_cancel is not None:
+            self._active_cancel.set()
+        self._active_cancel = cancel
+
+        def worker():
+            try:
+                for batch in self.loader:
+                    while not slots.acquire(timeout=0.1):
+                        if cancel.is_set():
+                            return
+                    if cancel.is_set():
+                        return
+                    q.put(self._put(batch))
+            except Exception as e:  # surfaced at the consumer's next next()
+                q.put(e)
+                return
+            q.put(self._END)
+
+        threading.Thread(target=worker, daemon=True).start()
+        while True:
+            item = q.get()
+            if item is self._END:
+                return
+            if isinstance(item, Exception):
+                raise item
+            batch, event = item
+            if event is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(event)
+                _map(batch, lambda t: t.record_stream(stream))
+            try:
+                yield batch
+            finally:
+                slots.release()
+
+
+def _map(batch, fn):
+    if isinstance(batch, dict):
+        return {k: _map(v, fn) for k, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(_map(v, fn) for v in batch)
+    return fn(batch)

@@ -57,6 +57,16 @@ to that working copy. ZeRO cuts the state along each leaf's shard dimension
   Dense gradients reduce over the whole data-parallel world, both with the
   same denominators, and the clipping norm counts each distinct shard once.
 
+A module built under ``zero.Init`` (on the meta device) has each parameter
+drawn from the config's ``seed`` straight into this rank's state
+(``zero/sharded_init.py``), no broadcast. The optimizer is any name of the
+JAX package's ``build_optimizer`` or a client ``torch.optim.Optimizer``;
+its leaf-wide arithmetic reads the JAX twin's leaves (``jax_leaves``,
+``zero/jax_layout.py``). ``train_batch`` runs a window without a host read
+(fp16's overflow flag at the boundary aside), so JAX's ``fused_step`` is
+accepted and changes nothing; ``set_train_batch_size`` rebases the window
+(``_gas_offset``, carried by checkpoints).
+
 Every gradient of ``engine.backward`` is folded into its accumulator by a
 ``register_post_accumulate_grad_hook`` as soon as autograd produces it, so
 at most a layer's gradients exist at once; a backward run outside
@@ -104,13 +114,14 @@ from torch import nn
 from deepspeed_tpu_torch import resolve_device
 from deepspeed_tpu_torch.comm import comm as dist
 from deepspeed_tpu_torch.moe.utils import moe_param_specs
-from deepspeed_tpu_torch.ops.adam import build_optimizer, set_lr
+from deepspeed_tpu_torch.ops.adam import STATE_ALIASES, build_optimizer, set_lr
 from deepspeed_tpu_torch.parallel import groups
 from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
 from deepspeed_tpu_torch.runtime.checkpoint_engine.native_engine import (
     CorruptCheckpointError, NativeCheckpointEngine, atomic_write_text)
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
-from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader, RepeatingLoader
+from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader, PrefetchLoader,
+                                                    RepeatingLoader)
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (LossScaleState,
                                                           init_loss_scale_state,
                                                           update_loss_scale)
@@ -118,7 +129,8 @@ from deepspeed_tpu_torch.runtime.lr_schedules import LRSchedulerShim, get_lr_sch
 from deepspeed_tpu_torch.runtime.utils import (clip_grads_by_global_norm, global_norm,
                                                has_overflow)
 from deepspeed_tpu_torch.runtime.comm.coalesced_collectives import record_exchange
-from deepspeed_tpu_torch.runtime.zero import qwz
+from deepspeed_tpu_torch.runtime.zero import qwz, sharded_init
+from deepspeed_tpu_torch.runtime.zero.jax_layout import build_layout
 from deepspeed_tpu_torch.runtime.zero.partition import (ZeroPartitioner, alloc_storage,
                                                         free_storage, gather_full,
                                                         is_resident, moved_shape, shard_of)
@@ -248,10 +260,6 @@ class DeepSpeedEngine:
                     "zero_quantized_gradients + zero_quantized_weights "
                     "requires a secondary parameter partition: set "
                     "zero_hpz_partition_size > 1 (ZeRO++ hpZ)")
-            if self.topology.zero_hierarchy == "mics":
-                raise NotImplementedError(
-                    "zero_quantized_gradients under MiCS (mics_shard_size) is not "
-                    "ported to deepspeed_tpu_torch yet: ROADMAP A1 part 2")
             from deepspeed_tpu_torch.runtime.zero.qgz import QgzPlan
             self._qgz = QgzPlan(self.topology)
             self._qgz_feedback = bool(zc.zero_quantized_gradients_error_feedback)
@@ -282,14 +290,18 @@ class DeepSpeedEngine:
                      f"grad_buckets={len(self._bucket_idxs)} over {len(self._units)} "
                      f"gather units", ranks=[0])
 
-        # --- optimizer ---
+        # --- optimizer: a name, a client optimizer, or the config's ---
         opt_cfg = self.config.optimizer
-        if optimizer is not None and not isinstance(optimizer, str):
-            raise NotImplementedError("client optimizer objects are not ported yet; pass "
-                                      "an optimizer name or a config section: ROADMAP A1")
-        name = optimizer if isinstance(optimizer, str) else opt_cfg.type
-        self.optimizer, self._base_lr = build_optimizer(
-            name, opt_cfg.params, [leaf.master for leaf in self._leaves])
+        self.jax_leaves = build_layout(self._leaves, self.module, self.topology)
+        self._client_optimizer = optimizer is not None and not isinstance(optimizer, str)
+        if self._client_optimizer:
+            self.optimizer = self._client(optimizer)
+            self._base_lr = opt_cfg.params.get("lr", 1e-3)
+        else:
+            name = optimizer if isinstance(optimizer, str) else opt_cfg.type
+            self.optimizer, self._base_lr = build_optimizer(
+                name, opt_cfg.params, [leaf.master for leaf in self._leaves],
+                layout=self.jax_leaves)
 
         # --- LR schedule: a name, a callable step -> lr, or the config's ---
         if lr_scheduler is not None and not isinstance(lr_scheduler, str):
@@ -307,6 +319,12 @@ class DeepSpeedEngine:
             self.training_dataloader = DeepSpeedDataLoader(
                 training_data, batch_size=mb, collate_fn=collate_fn,
                 dp_rank=self.dp_rank, dp_world=self.dp_world)
+            if self.config.prefetch_batches:
+                # a worker thread assembles the next batches and copies them
+                # to the device on a side stream while the step computes
+                self.training_dataloader = PrefetchLoader(
+                    self.training_dataloader, device=self.device,
+                    depth=self.config.prefetch_batches)
 
         checkpointing.configure(deepspeed_config=self.config)
 
@@ -315,6 +333,7 @@ class DeepSpeedEngine:
         self.global_steps = 0
         self.global_samples = 0
         self.micro_steps = 0
+        self._gas_offset = 0          # the window's rebase after set_train_batch_size
         self._skipped = 0
         self._step_applied = False
         self._last_stats = None
@@ -326,6 +345,37 @@ class DeepSpeedEngine:
                  f"qgz={self._qgz is not None} qwz={qwz_on} "
                  f"hierarchy={self.topology.zero_hierarchy} parameters={n / 1e6:.2f}M",
                  ranks=[0])
+
+    def _client(self, optimizer):
+        """A client optimizer over the masters (JAX ``engine.py:229-247``,
+        where an optax transformation or a factory of one is taken): a
+        ``torch.optim.Optimizer`` class or a callable ``params -> Optimizer``
+        is called on the masters; an ``Optimizer`` built over the module's
+        parameters is rebound to their masters group by group, each group's
+        hyperparameters kept. A ``LeafOptimizer`` (``ops/adam.py``) is given
+        the JAX leaves."""
+        masters = [leaf.master for leaf in self._leaves]
+        if isinstance(optimizer, torch.optim.Optimizer):
+            master_of = {id(leaf.param): leaf.master for leaf in self._leaves}
+            for group in optimizer.param_groups:
+                try:
+                    group["params"] = [master_of[id(p)] for p in group["params"]]
+                except KeyError:
+                    raise ValueError("the client optimizer holds a tensor that is not a "
+                                     "parameter of the model") from None
+            optimizer.state.clear()
+            opt = optimizer
+        elif callable(optimizer):
+            opt = optimizer(masters)
+        else:
+            opt = None
+        if not isinstance(opt, torch.optim.Optimizer):
+            raise ValueError(
+                "client optimizer must be a torch.optim.Optimizer or a "
+                f"factory returning one, got {type(optimizer)}")
+        if hasattr(opt, "set_layout"):
+            opt.set_layout(self.jax_leaves)
+        return opt
 
     def _overlap_streaming_ready(self):
         """Can the overlap schedule's prefetch leg run (JAX ``:857-884``)?
@@ -352,7 +402,11 @@ class DeepSpeedEngine:
         tensors or arrays, by name) or the module, made equal on every rank
         by a broadcast from rank 0 (reference ``_broadcast_model``), then
         this rank's master (chunk or whole), the working copy in the module
-        (freed to its stage-3 chunk) and the gradient accumulator."""
+        (freed to its stage-3 chunk) and the gradient accumulator. A module
+        built under ``zero.Init`` (on the meta device) has each parameter
+        drawn whole from the config's ``seed`` by its own init law
+        (``zero/sharded_init.py``), the same on every rank, so nothing is
+        broadcast."""
         named = list(self.module.named_parameters())
         src = dict(model_parameters or {})
         unknown = set(src) - {n for n, _ in named}
@@ -364,16 +418,32 @@ class DeepSpeedEngine:
         specs = moe_param_specs(self.module, self.topology.ep_size)
         self._leaves = []
         twins = qwz.jax_leaves(self.module)
+        drawn = sharded_init.is_meta(self.module) and not src
+        if drawn:
+            ep = self.topology.ep_size
+            source = sharded_init.seeded_leaves(
+                self.module, self.config.seed, self.device, ep,
+                self.topology.get_axis_rank("ep") if ep > 1 else 0)
+        else:
+            source = ((n, p, src.get(n, p.detach())) for n, p in named)
         with torch.no_grad():
-            for n, p in named:
-                full = torch.as_tensor(src.get(n, p.detach())).to(
+            for n, p, value in source:
+                # a drawn leaf stays in its own dtype (exact in fp32), so it
+                # and the working copy are all that is alive beside the
+                # share: one fp32 leaf's bytes at most
+                full = value if drawn else torch.as_tensor(value).to(
                     device=self.device, dtype=torch.float32, copy=True)
+                del value
                 if tuple(full.shape) != tuple(p.shape):
                     raise ValueError(f"{n}: model_parameters shape {tuple(full.shape)} != "
                                      f"{tuple(p.shape)}")
+                if p.is_meta:
+                    p = sharded_init.replace_parameter(self.module, n,
+                                                       full.to(self.working_dtype))
                 leaf = _Leaf(n, p)
                 leaf.place = place = part.placement(specs[n])
-                self._broadcast_initial(full, place)
+                if not drawn:
+                    self._broadcast_initial(full, place)
                 W = place.world
                 leaf.master_dim = part.master_dim(leaf.shape, place)
                 leaf.grad_dim = part.grad_dim(leaf.shape, place)
@@ -383,12 +453,14 @@ class DeepSpeedEngine:
                 quantizable = qwz.should_quantize(jshape, p.dtype, threshold)
                 leaf.quant = self.quantized_weights and quantizable
                 leaf.hpz = self._qwz_hpz and quantizable
-                p.data = full.to(self.working_dtype, copy=True)
+                if not drawn:
+                    p.data = full.to(self.working_dtype, copy=True)
                 p.requires_grad_(True)
                 if leaf.master_dim is not None:
-                    leaf.master = shard_of(full, leaf.master_dim, W, place.index).clone()
+                    leaf.master = shard_of(full, leaf.master_dim, W, place.index).to(
+                        torch.float32, copy=True)
                 elif self.mixed_precision or part.stage >= 1:
-                    leaf.master = full
+                    leaf.master = full.to(torch.float32, copy=drawn)
                 else:
                     leaf.master = p       # stage 0 in fp32: Adam updates the module
                 if leaf.quant:
@@ -439,8 +511,9 @@ class DeepSpeedEngine:
             free_storage(working)
 
     def _working_shard(self, leaf, full):
-        """The stage-3 working chunk of ``full`` (a whole fp32 value). It is
-        the master chunk itself where both have the same cut and dtype."""
+        """The stage-3 working chunk of ``full`` (a whole value, fp32 or as
+        drawn). It is the master chunk itself where both have the same cut
+        and dtype."""
         place = leaf.place
         if (leaf.param_dim == leaf.master_dim and place.param_world == place.world
                 and not self.mixed_precision):
@@ -706,7 +779,29 @@ class DeepSpeedEngine:
         return loss
 
     def is_gradient_accumulation_boundary(self):
-        return (self.micro_steps + 1) % self.gradient_accumulation_steps_value == 0
+        """JAX ``engine.py:1696-1698``: ``_gas_offset`` rebases the window
+        after ``set_train_batch_size``."""
+        rel = self.micro_steps - self._gas_offset
+        return (rel + 1) % self.gradient_accumulation_steps_value == 0
+
+    def set_train_batch_size(self, train_batch_size):
+        """Change the global batch size through the gradient-accumulation
+        steps, the micro-batch size untouched (JAX ``engine.py:2086-2118``).
+        Only at a window's boundary: mid-window raises ``RuntimeError``."""
+        rel = self.micro_steps - self._gas_offset
+        if rel % self.gradient_accumulation_steps_value != 0:
+            raise RuntimeError(
+                "set_train_batch_size mid-accumulation-window: call it only "
+                "right after step() completed a window")
+        mbs, dp = self.micro_batch_size, self.dp_world
+        if train_batch_size % (mbs * dp) != 0:
+            raise ValueError(f"train_batch_size {train_batch_size} not divisible by "
+                             f"micro_batch ({mbs}) x dp ({dp})")
+        self.gradient_accumulation_steps_value = train_batch_size // (mbs * dp)
+        self.train_batch_size_value = train_batch_size
+        self.config.train_batch_size = train_batch_size
+        self.config.gradient_accumulation_steps = self.gradient_accumulation_steps_value
+        self._gas_offset = self.micro_steps
 
     def step(self):
         """Optimizer step at the gradient-accumulation boundary."""
@@ -726,13 +821,17 @@ class DeepSpeedEngine:
     def _reduced_grads(self):
         """Per leaf, this rank's summed gradient in its master's layout."""
         leaves = self._leaves
-        if self._bucket_idxs is not None:
-            return self._bucketed_grads()
         if self._qgz is not None:
-            if self._residual is None:
-                return self._qgz.reduce([leaf.acc for leaf in leaves]), None
-            return self._qgz.reduce([leaf.acc for leaf in leaves], residual=self._residual,
-                                    return_residual=True)
+            if self._bucket_idxs is not None:
+                grads, res = self._bucketed_grads()
+            elif self._residual is None:
+                grads, res = self._qgz.reduce([leaf.acc for leaf in leaves]), None
+            else:
+                grads, res = self._qgz.reduce([leaf.acc for leaf in leaves],
+                                              residual=self._residual, return_residual=True)
+            if self.topology.zero_hierarchy == "mics":
+                grads = [self._mics_chunk(leaf, g) for leaf, g in zip(leaves, grads)]
+            return grads, res
         grads = []
         for leaf in leaves:
             g, place = leaf.acc, leaf.place
@@ -745,6 +844,23 @@ class DeepSpeedEngine:
                     g = shard_of(g, leaf.master_dim, place.world, place.index)
             grads.append(g)
         return grads, None
+
+    def _mics_chunk(self, leaf, g):
+        """qgZ under MiCS: the exchange runs over the whole data-parallel
+        world (int4 in ``dp``, int8 across ``dpr``, as JAX's topology splits
+        it), which leaves this rank its chunk of the world; the master is
+        cut over the ``dp`` shard group only (JAX GSPMD reshards the one to
+        the other): ``QgzPlan.shard_group_chunk`` moves to each rank the
+        parts of its ``dp`` chunk."""
+        d = self._qgz._zero_dim(leaf.shape)
+        if d is None:                 # all-reduced whole
+            full = g.reshape(leaf.shape)
+            return full if leaf.master_dim is None else shard_of(
+                full, leaf.master_dim, leaf.place.world, leaf.place.index)
+        if leaf.master_dim is None:
+            return gather_full(g, d, leaf.shape, self._qgz.world_group)
+        return self._qgz.shard_group_chunk(g, leaf.shape, d, leaf.master_dim,
+                                           leaf.place.world)
 
     @torch.no_grad()
     def _apply_step(self, lr):
@@ -786,7 +902,8 @@ class DeepSpeedEngine:
                                replicas=replicas)
             if clip and clip > 0:
                 clip_grads_by_global_norm(grads, clip, norm=norm)
-            set_lr(self.optimizer, lr)
+            if not self._client_optimizer:
+                set_lr(self.optimizer, lr)
             for leaf, g in zip(self._leaves, grads):
                 leaf.master.grad = g
             self.optimizer.step()
@@ -878,7 +995,11 @@ class DeepSpeedEngine:
     def train_batch(self, data_iter=None):
         """One full accumulation window: ``gradient_accumulation_steps``
         forward/backward/step calls. Returns the window's mean loss as a
-        device tensor."""
+        device tensor. The window reads no value back to the host: each
+        micro-step's loss stays on the device, and only the boundary step
+        reads fp16's overflow flag. This is what the JAX engine's
+        ``fused_step`` (``engine.py:1200-1245``, the window as one compiled
+        program) buys, so the key is accepted and changes nothing here."""
         if data_iter is None:
             if self.training_dataloader is None:
                 raise ValueError("train_batch needs data_iter or training_data")
@@ -919,6 +1040,15 @@ class DeepSpeedEngine:
         value = float(lr[0] if isinstance(lr, (list, tuple)) else lr)
         self._schedule_fn = lambda step: value
         self.lr_scheduler.schedule_fn = self._schedule_fn
+
+    def get_mom(self):
+        """The first momentum coefficient from the optimizer config (JAX
+        ``get_mom``): SGD's momentum (``build_optimizer``'s default 0.0),
+        else the betas (Adam's default (0.9, 0.999))."""
+        params = dict(self.config.optimizer.params or {})
+        if "sgd" in str(self.config.optimizer.type or "").lower():
+            return [params.get("momentum", 0.0)]
+        return [list(params.get("betas", (0.9, 0.999)))]
 
     def get_global_grad_norm(self):
         return float(self._last_stats.grad_norm) if self._last_stats is not None else 0.0
@@ -963,19 +1093,23 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     # checkpointing (JAX engine.py:2214-2444)
     # ------------------------------------------------------------------
-    def _adam_state(self, master):
-        """The optimizer's state of ``master``, its moments made (zeros, step
-        0) where no step has run yet, so that every engine has the same
-        leaves to save and to load into."""
-        st = self.optimizer.state[master]
-        if not st:
-            st.update(step=0, mu=torch.zeros_like(master), nu=torch.zeros_like(master))
-        return st
+    def _opt_state(self, master):
+        """The optimizer's tensor state of ``master`` by checkpoint name
+        (``exp_avg`` / ``exp_avg_sq`` for ``mu`` / ``nu``, ``opt_<name>``
+        for the others), made (step 0) where no step has run yet, so that
+        every engine has the same leaves to save and to load into. A client
+        optimizer without ``init_state`` saves what it holds."""
+        init = getattr(self.optimizer, "init_state", None)
+        st = init(master) if init is not None else self.optimizer.state[master]
+        names = {v: k for k, v in STATE_ALIASES.items()}
+        return {names.get(k, f"opt_{k}"): v for k, v in st.items()
+                if isinstance(v, torch.Tensor)}
 
     def state_dict(self):
         """This rank's training state by name, in leaf order: the working
         copy at rest (the stage-3 chunk where sharded), the fp32 master where
-        it is a tensor of its own, Adam's moments, the gradient accumulator
+        it is a tensor of its own, the optimizer's state (``_opt_state``),
+        the gradient accumulator
         and the qgZ error-feedback residual; under qwZ the working copy is
         the int8 chunk with its whole scales (``qscale``). The engine's own
         tensors, not copies."""
@@ -988,8 +1122,8 @@ class DeepSpeedEngine:
                 sd[f"qscale.{n}"] = leaf.qscale
             if leaf.master is not leaf.param and leaf.master is not leaf.shard:
                 sd[f"master.{n}"] = leaf.master
-            st = self._adam_state(leaf.master)
-            sd[f"exp_avg.{n}"], sd[f"exp_avg_sq.{n}"] = st["mu"], st["nu"]
+            for key, value in self._opt_state(leaf.master).items():
+                sd[f"{key}.{n}"] = value
             sd[f"grad_acc.{n}"] = leaf.acc
             if self._residual is not None:
                 sd[f"qgz_residual.{n}"] = self._residual[i]
@@ -1038,12 +1172,13 @@ class DeepSpeedEngine:
                              "global_samples": self.global_samples,
                              "micro_steps": self.micro_steps,
                              "skipped_steps": self._skipped,
+                             "gas_offset": self._gas_offset,
                              "loss_scale": tuple(self.scale)},
                 "lr_scheduler": self.lr_scheduler.state_dict(),
                 "client_state": client_state or {},
                 "ds_config": self.config._param_dict}
         NativeCheckpointEngine().save(self.state_dict(), path, meta=meta,
-                                      aux={"adam_step": st.get("step", 0)},
+                                      aux={"adam_step": int(st.get("step", 0))},
                                       layout=self._checkpoint_layout())
         if save_latest and dist.get_rank() == 0:
             atomic_write_text(os.path.join(save_dir, "latest"), tag)
@@ -1141,7 +1276,7 @@ class DeepSpeedEngine:
             # JAX _refresh_working_from_master: the working copy requantized
             # from the loaded masters
             self._update_working()
-        if not module_only:
+        if not module_only and hasattr(self.optimizer, "init_state"):
             for leaf in self._leaves:
                 self.optimizer.state[leaf.master]["step"] = aux.get("adam_step", 0)
         c = meta.get("counters", {})
@@ -1149,6 +1284,7 @@ class DeepSpeedEngine:
         self.global_samples = int(c.get("global_samples", 0))
         self.micro_steps = int(c.get("micro_steps", 0))
         self._skipped = int(c.get("skipped_steps", 0))
+        self._gas_offset = int(c.get("gas_offset", 0))
         if "loss_scale" in c:
             self.scale = LossScaleState(*c["loss_scale"])
         if load_lr_scheduler_states and "lr_scheduler" in meta:

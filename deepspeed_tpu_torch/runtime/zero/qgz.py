@@ -29,8 +29,9 @@ the same whatever the buckets and runs.
 import torch
 
 from deepspeed_tpu_torch.comm import comm as dist
-from deepspeed_tpu_torch.runtime.comm.coalesced_collectives import exchange_reduce_coalesced
-from deepspeed_tpu_torch.runtime.zero.partition import zero_shard_dim
+from deepspeed_tpu_torch.runtime.comm.coalesced_collectives import (exchange_reduce_coalesced,
+                                                                    record_exchange)
+from deepspeed_tpu_torch.runtime.zero.partition import moved_shape, zero_shard_dim
 
 
 # the fp32 payload one coalesced exchange call takes at most (a larger
@@ -63,7 +64,7 @@ class QgzPlan:
         for a in axes:
             self.world *= self.sizes[a]
         self.groups = {a: topology.get_group(a) for a in axes}
-        self.world_group = topology.axes_group(axes)[0]
+        self.world_group, _, self.world_index = topology.axes_group(axes)
         self.dp_index = topology.get_axis_rank("dp")
 
     def _zero_dim(self, shape):
@@ -129,6 +130,39 @@ class QgzPlan:
         out, err = got if want_error else (got, None)
         out = out.reshape(chunk_shape).movedim(0, d)
         return (out, err) if want_error else out
+
+    def shard_group_chunk(self, chunk, shape, dim, shard_dim, shard_world):
+        """Under MiCS (the master cut over the ``dp`` group only, along
+        ``shard_dim``): this rank's ``dp`` chunk of the summed leaf, flat in
+        the ``movedim(shard_dim, 0)`` order, from ``chunk``, the world chunk
+        along ``dim`` that ``reduce`` left here. Each rank sends every peer
+        only what of its chunk lies in the peer's ``dp`` chunk (one fp32
+        all-to-all over the world), so a rank receives ``1 / dp`` of the
+        leaf; ``WIRE_BYTES`` counts it as "mics_grad_redistribute"."""
+        W, D, c = self.world, shard_world, self.world_index
+        R = W // D
+        if shard_dim == dim:      # chunk c lies whole in dp chunk c // R
+            sends = [chunk if c // R == k % D else chunk.new_empty(0) for k in range(W)]
+            recv = [chunk.numel() if k // R == self.dp_index else 0 for k in range(W)]
+        else:
+            piece = list(moved_shape(shape, dim))
+            piece[0] //= W
+            mine = chunk.view(piece).movedim(0, dim)      # leaf layout, dim cut
+            parts = mine.chunk(D, dim=shard_dim)
+            sends = [parts[k % D].reshape(-1) for k in range(W)]
+            recv = [sends[0].numel()] * W
+        got = dist.all_to_all_single(torch.cat(sends), self.world_group,
+                                     output_split_sizes=recv,
+                                     input_split_sizes=[t.numel() for t in sends])
+        nbytes = (sum(recv) - recv[c]) * got.element_size()
+        record_exchange("mics_grad_redistribute", nbytes, nbytes)
+        if shard_dim == dim:
+            return got
+        cut = list(shape)
+        cut[dim] //= W
+        cut[shard_dim] //= D
+        pieces = [x.view(cut) for x in got.split(recv)]
+        return torch.cat(pieces, dim=dim).movedim(shard_dim, 0).reshape(-1)
 
     @staticmethod
     def _bucketize(sizes, buckets):

@@ -21,6 +21,13 @@ span apart), the device's idle share, and the fused CE head's forward and
 backward alone (CUDA events; its products are among the GEMMs). Needs a
 CUDA device.
 
+``--model gpt2`` profiles ``chip_smoke.py`` phase 28's training instead:
+GPT-2 large at full width with ``--layers`` of its 36 (all by default),
+micro-batches of 8 x 1024 tokens by default, built under ``zero.Init``,
+with phase 28's optimizer and policies (``GPT2_TRAIN``: OneBitLamb from
+freeze step 2, so the profiled third step compresses; the ``dots``
+policy; ``fused_step``), its CE head on the tied ``wte``.
+
 ``--ep N`` (Mixtral) profiles expert-parallel training instead: one spawned
 process per card on N cards over NCCL, the experts split over ``ep`` N and
 ``zero_optimization`` stage 2, each rank a micro-batch of ``--micro`` x
@@ -51,6 +58,7 @@ total seconds of each collective class, the all-gathers' hidden share
 """
 
 import argparse
+import dataclasses
 import json
 import re
 import subprocess
@@ -72,6 +80,16 @@ CONFIG = {
     "gradient_clipping": 1.0,
     "activation_checkpointing": {"policy": "everything"},
     "steps_per_print": 1000,
+}
+
+# chip_smoke.py phase 28's settings over CONFIG (GPT2_CONFIG there)
+GPT2_TRAIN = {
+    "optimizer": {"type": "OneBitLamb", "params": {"lr": 1e-2, "freeze_step": 2,
+                                                   "weight_decay": 0.01}},
+    "scheduler": {},
+    "activation_checkpointing": {"policy": "dots"},
+    "fused_step": True,
+    "seed": 28,
 }
 
 
@@ -116,12 +134,12 @@ def _step(engine, batches):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("llama", "mixtral"), default="llama")
+    ap.add_argument("--model", choices=("llama", "mixtral", "gpt2"), default="llama")
     ap.add_argument("--layers", type=int, default=None,
                     help="layers of 32 (default 8 for llama on one card and 32 on "
                          "more, 2 for mixtral on one card and 8 on more)")
-    ap.add_argument("--micro", type=int, default=4)
-    ap.add_argument("--seq", type=int, default=2048)
+    ap.add_argument("--micro", type=int, default=None, help="default 4 (gpt2: 8)")
+    ap.add_argument("--seq", type=int, default=None, help="default 2048 (gpt2: 1024)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ep", type=int, default=1,
                     help="expert-parallel cards (Mixtral; one process per card)")
@@ -137,6 +155,11 @@ def main(argv=None):
     ap.add_argument("--prefetch-depth", type=int, default=1)
     ap.add_argument("--grad-buckets", type=int, default=2)
     args = ap.parse_args(argv)
+    gpt2 = args.model == "gpt2"
+    args.micro = args.micro or (8 if gpt2 else 4)
+    args.seq = args.seq or (1024 if gpt2 else 2048)
+    if gpt2 and (args.world or 1) > 1:
+        ap.error("--model gpt2 profiles one card")
     if (args.qwz or args.hpz > 1 or args.mics > 0 or args.overlap) and args.zero < 1:
         ap.error("--qwz, --hpz, --mics and --overlap need --zero (and --world 2 or more)")
     if args.ep > 1:
@@ -263,6 +286,14 @@ def _profile(args, rank=0):
         if ep > 1:
             config.update(train_micro_batch_size_per_gpu=args.micro,
                           expert_parallel_size=ep, zero_optimization={"stage": 2})
+    elif args.model == "gpt2":
+        from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+        cfg = GPT2Config.large()
+        args.layers = args.layers or cfg.n_layer
+        cfg = dataclasses.replace(cfg, n_layer=args.layers)
+        config = dict(config, **GPT2_TRAIN)
+        with deepspeed_tpu_torch.zero.Init(config=config):
+            model = GPT2LMHeadModel(cfg)
     else:
         args.layers = args.layers or (8 if world == 1 else 32)
         cfg = LlamaConfig.llama2_7b(num_hidden_layers=args.layers)
@@ -348,10 +379,11 @@ def _profile(args, rank=0):
         return
 
     # the fused CE head alone on the step's shapes
-    x = torch.randn(args.micro, args.seq, cfg.hidden_size, device=dev,
+    hidden = cfg.n_embd if args.model == "gpt2" else cfg.hidden_size
+    x = torch.randn(args.micro, args.seq, hidden, device=dev,
                     dtype=torch.bfloat16, requires_grad=True)
     labels = torch.from_numpy(batches[0]["labels"]).to(dev)
-    head = model.lm_head.weight
+    head = model.wte.weight if args.model == "gpt2" else model.lm_head.weight
 
     def ce():
         lm_head_next_token_loss(x, head, labels).backward()

@@ -661,6 +661,8 @@ FLASH_CASES = {
     "fused_qkv_views": dict(fused=True),
     "base_off_16_bytes": dict(offset=True),
     "dh36_padded_copy": dict(Dh=36),
+    # GPT-2 large's training shape (chip_smoke.py phase 28): 20 heads of 64
+    "gpt2_large": dict(B=8, Tq=1024, H=20, KV=20, Dh=64),
 }
 
 
